@@ -1,0 +1,451 @@
+#!/usr/bin/env python3
+"""Smoke run of the d3dp_tpu_torch port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the hand-written kernels from `d3dp_tpu_torch/ops/csrc/`, holds each
+against its plain torch version on the card, checks the full-width MixSTE2
+on the kernel path against the plain path, then drives the main path --
+multi-hypothesis DDIM evaluation at MixSTE2's published width (C=512, 8
+heads, depth 8, 243 frames, H=5, K=5, bf16, flip-TTA) with random weights
+from a fixed seed -- and times it. Every phase raises on failure; the
+script exits non-zero without a CUDA device and prints nothing then but the
+reason. The last stdout line is the run's JSON status; the line before it
+the per-kernel JSON. Details also go to `chiprun_out/chip_smoke.json`.
+"""
+
+import contextlib
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+B, H, K, F, J, C, HEADS, HIDDEN, DEPTH = 4, 5, 5, 243, 17, 512, 8, 1024, 8
+ROWS = 2 * B * H  # flip-TTA doubles the hypothesis-folded batch
+PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
+HBM = 3.35e12  # bytes/s
+TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+BF16_ULP = 2.0 ** -7  # one bf16 ulp relative to the magnitude, upper bound
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+# ------------------------------------------------------------------ helpers
+def time_ms(torch, fn, reps):
+    """Median of `reps` CUDA-event timings of fn(), after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e))
+    return statistics.median(out)
+
+
+def bound_ms(flops, nbytes, peak):
+    t_ops, t_bytes = flops / peak, nbytes / HBM
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def stage_inputs(torch, gen, R, N, dt):
+    dev = "cuda"
+
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * s
+
+    return [(rn(R, N, C) * 0.5).to(dt), rn(C, 3 * C, s=0.05).to(dt), rn(3 * C, s=0.02),
+            rn(C, C, s=0.05).to(dt), rn(C, s=0.02), 1 + rn(C, s=0.1), rn(C, s=0.1),
+            1 + rn(C, s=0.1), rn(C, s=0.1)]
+
+
+def mlp_inputs(torch, gen, D1, D2, dt):
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * s
+
+    return [rn(ROWS, D1, D2, C).to(dt), rn(ROWS, D1, D2, C).to(dt), rn(C, HIDDEN, s=0.05).to(dt),
+            rn(HIDDEN, s=0.02), rn(HIDDEN, C, s=0.05).to(dt), rn(C, s=0.02), 1 + rn(C, s=0.1),
+            rn(C, s=0.1)]
+
+
+def max_err(torch, got, want, ulp_rel):
+    """(max |got - want|, max of |got - want| - ulp_rel*|want|): a bf16
+    output may sit one bf16 ulp of its own magnitude away, since its
+    roundings fall at other places than in the plain version."""
+    d = (got.float() - want.float()).abs()
+    return d.max().item(), (d - ulp_rel * want.float().abs()).max().item()
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """Run the model through the plain torch versions (comparison only)."""
+    from d3dp_tpu_torch.ops import attention, mlp
+
+    saved = attention.attention_stage, mlp.mlp_block_t
+    attention.attention_stage = attention.attention_stage_plain
+    mlp.mlp_block_t = mlp.mlp_block_t_plain
+    try:
+        yield
+    finally:
+        attention.attention_stage, mlp.mlp_block_t = saved
+
+
+def perturb_(torch, model, seed):
+    """Give every parameter a seeded random offset, so biases, position
+    embeddings and LN affines are not at their trivial init."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=g, device=p.device) * 0.02)
+    model.invalidate_weight_cache()
+
+
+# ------------------------------------------------------------------- phases
+def phase_env(torch, record):
+    from d3dp_tpu_torch import disable_tf32
+    from d3dp_tpu_torch.ops import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    card = smi.splitlines()[0]
+    log(card)  # name and power limit, exactly as nvidia-smi prints them
+    log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    out = _build.build_all()
+    dt = time.perf_counter() - t0
+    log(f"[env] kernels built in {dt:.1f} s -> {out}")
+    for name in _build.SOURCES:
+        logf = out / f"{name}.log"
+        if logf.exists():
+            for line in logf.read_text().splitlines():
+                if "Used" in line or "spill" in line:
+                    log(f"[env] ptxas {name}: {line.strip()}")
+    disable_tf32()
+    record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=dt)
+    return card
+
+
+def phase_kernels(torch, record):
+    """Each kernel against its plain version, at the main path's shapes, in
+    fp32 and bf16."""
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import mlp as M
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    errs = {"attention_stage": 0.0, "mlp_block_t": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        name_dt = str(dt).split(".")[1]
+        tol = TOL[name_dt]
+        ulp = BF16_ULP if dt == torch.bfloat16 else 0.0
+        for label, R, N in (("spatial", ROWS * F, J), ("temporal", ROWS * J, F)):
+            args = stage_inputs(torch, gen, R, N, dt)
+            got = A.attention_stage(*args, HEADS, (C // HEADS) ** -0.5, 1e-6)
+            want = A.attention_stage_plain(*args, HEADS, (C // HEADS) ** -0.5, 1e-6)
+            torch.cuda.synchronize()
+            e_x2, ex_x2 = max_err(torch, got[0], want[0], ulp)
+            e_y2, ex_y2 = max_err(torch, got[1], want[1], ulp)
+            ok = ex_x2 <= tol and ex_y2 <= tol
+            log(f"[kernels] attention_stage {label} {name_dt} x{tuple(args[0].shape)}: "
+                f"max|err| x2 {e_x2:.3e} y2 {e_y2:.3e} (tol {tol:g}"
+                f"{' + 1 bf16 ulp' if ulp else ''}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"attention_stage {label} {name_dt} disagrees with its plain version")
+            if dt == torch.bfloat16:
+                errs["attention_stage"] = max(errs["attention_stage"], e_x2, e_y2)
+            del args, got, want
+        for label, D1, D2 in (("spatial->temporal", F, J), ("temporal->spatial", J, F)):
+            args = mlp_inputs(torch, gen, D1, D2, dt)
+            got = M.mlp_block_t(*args, 1e-6)
+            want = M.mlp_block_t_plain(*args, 1e-6)
+            torch.cuda.synchronize()
+            e, ex = max_err(torch, got, want, ulp)
+            log(f"[kernels] mlp_block_t {label} {name_dt} x{tuple(args[0].shape)} -> "
+                f"{tuple(got.shape)}: max|err| {e:.3e} (tol {tol:g}{' + 1 bf16 ulp' if ulp else ''}) "
+                f"{'ok' if ex <= tol else 'FAIL'}")
+            check(ex <= tol, f"mlp_block_t {label} {name_dt} disagrees with its plain version")
+            if dt == torch.bfloat16:
+                errs["mlp_block_t"] = max(errs["mlp_block_t"], e)
+            del args, got, want
+    record["max_abs_err_bf16"] = errs
+    return errs
+
+
+def phase_model(torch, record):
+    """MixSTE2, fp32, full width, depth 2: kernel path vs plain path."""
+    from d3dp_tpu_torch.models import MixSTE2, MixSTEConfig
+
+    model = MixSTE2(MixSTEConfig(num_frames=F, embed_dim=C, depth=2), seed=5)
+    perturb_(torch, model, 6)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x2d = torch.randn(2, F, J, 2, generator=g, device="cuda") * 0.3
+    x3d = torch.randn(2, F, J, 3, generator=g, device="cuda")
+    t = torch.tensor([999, 17], device="cuda", dtype=torch.int32)
+    with torch.no_grad():
+        out = model(x2d, x3d, t)
+        with plain_ops():
+            ref = model(x2d, x3d, t)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    ok = out.shape == (2, F, J, 3) and bool(torch.isfinite(out).all()) and err <= 1e-4
+    log(f"[model] MixSTE2 fp32 C={C} depth 2 B=2: kernel vs plain max|err| {err:.3e} "
+        f"(tol 1e-4) {'ok' if ok else 'FAIL'}")
+    check(ok, "MixSTE2 kernel path disagrees with the plain path")
+    record["model_fp32_max_abs_err"] = err
+
+
+def main_config(torch):
+    from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT
+    from d3dp_tpu_torch.diffusion import D3DPConfig
+    from d3dp_tpu_torch.models import MixSTEConfig
+
+    return D3DPConfig(
+        model=MixSTEConfig(num_frames=F, embed_dim=C, depth=DEPTH, num_heads=HEADS,
+                           dtype=torch.bfloat16),
+        num_proposals=H, sampling_timesteps=K,
+        joints_left=tuple(JOINTS_LEFT), joints_right=tuple(JOINTS_RIGHT))
+
+
+def phase_main(torch, record):
+    """The main path: one D3DP.sample call on B windows, then the whole
+    Evaluator over the synthetic eval set, P2 on the host."""
+    from d3dp_tpu_torch.data.generators import UnchunkedGenerator
+    from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT, make_dataset
+    from d3dp_tpu_torch.diffusion import D3DP
+    from d3dp_tpu_torch.eval import MODES, Evaluator
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import mlp as M
+
+    d3dp = D3DP(main_config(torch), seed=0)
+    perturb_(torch, d3dp.model, 1)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x2d = torch.randn(B, F, J, 2, generator=g, device="cuda") * 0.3
+    x2d_f = torch.randn(B, F, J, 2, generator=g, device="cuda") * 0.3
+    per_batch = 2 * DEPTH * K
+
+    A.attention_stage.launches = 0
+    M.mlp_block_t.launches = 0
+    preds = d3dp.sample(x2d, x2d_f, generator=g)
+    torch.cuda.synchronize()
+    counts = (A.attention_stage.launches, M.mlp_block_t.launches)
+    ok = (tuple(preds.shape) == (B, K, H, F, J, 3) and bool(torch.isfinite(preds).all())
+          and counts == (per_batch, per_batch))
+    log(f"[main] D3DP.sample B={B} H={H} K={K} F={F} bf16 flip-TTA: shape "
+        f"{tuple(preds.shape)}, finite {bool(torch.isfinite(preds).all())}, launches "
+        f"attention_stage {counts[0]} mlp_block_t {counts[1]} (expected 2*depth*K = "
+        f"{per_batch}) {'ok' if ok else 'FAIL'}")
+    check(ok, "D3DP.sample: wrong shape, non-finite output or launch counts")
+
+    lengths = (300, 250, 400, 486, 729)
+    cams, p3, p2 = make_dataset(seed=3, lengths=lengths)
+    gen = UnchunkedGenerator(cams, p3, p2)
+    ev = Evaluator(d3dp, receptive_field=F, batch_size=B, p2=True,
+                   kps_left=list(JOINTS_LEFT), kps_right=list(JOINTS_RIGHT))
+    n_batches = sum(math.ceil(math.ceil(n / F) / B) for n in lengths)
+    t0 = time.perf_counter()
+    res = ev.evaluate(gen, g)
+    p1, p2m = res.averages_mm(), res.averages_p2_mm()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    counts = (A.attention_stage.launches, M.mlp_block_t.launches)
+    expected = per_batch * (1 + n_batches)
+    finite = all(np.isfinite(v).all() for v in list(p1.values()) + list(p2m.values()))
+    jbest = bool((p1["J_Best"] <= p1["P_Best"] + 1e-9).all())
+    ok = finite and jbest and counts == (expected, expected) and set(p1) == set(MODES)
+    log(f"[main] Evaluator {len(lengths)} seqs / {sum(lengths)} frames / {n_batches} "
+        f"micro-batches of {B}, P2 on host: {eval_s:.2f} s")
+    for m in MODES:
+        log(f"[main]   {m}: P1 {np.array2string(p1[m], precision=2)} mm, "
+            f"P2 {np.array2string(p2m[m], precision=2)} mm")
+    log(f"[main] finite {finite}, J_Best <= P_Best {jbest}, launches attention_stage "
+        f"{counts[0]} mlp_block_t {counts[1]} (expected {expected} = 2*depth*K x "
+        f"{1 + n_batches} sampled micro-batches) {'ok' if ok else 'FAIL'}")
+    check(ok, "Evaluator: non-finite metrics, J_Best > P_Best or launch counts")
+    record.update(launches={"attention_stage": counts[0], "mlp_block_t": counts[1]},
+                  eval_seconds=eval_s, eval_micro_batches=n_batches,
+                  metrics_p1_mm={m: p1[m].tolist() for m in MODES},
+                  metrics_p2_mm={m: p2m[m].tolist() for m in MODES})
+    return d3dp, x2d, x2d_f, counts
+
+
+def phase_profile(torch, record, d3dp, x2d, x2d_f):
+    """Where one D3DP.sample call's device time goes, by kernel
+    (torch.profiler over a warm call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    d3dp.sample(x2d, x2d_f, generator=g)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        d3dp.sample(x2d, x2d_f, generator=g)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side kernel events only: an aten op's own entry repeats the
+    # device time of the kernels it launched
+    kernels = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0), key=lambda k: -k[2])
+    if not kernels:
+        log(f"[profile] one D3DP.sample call: wall {wall_ms:.1f} ms (profiled); the profiler "
+            f"recorded no device kernels, device busy time not measured")
+        record["profile"] = dict(wall_ms=wall_ms, device_busy_ms=None)
+        return
+    busy = sum(ms for _, _, ms in kernels)
+    log(f"[profile] one D3DP.sample call: wall {wall_ms:.1f} ms (profiled), device busy "
+        f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%), idle {100 * (1 - busy / wall_ms):.1f}%")
+    for name, n, ms in kernels[:8]:
+        log(f"[profile]   {100 * ms / busy:5.1f}%  {ms:9.2f} ms  x{n:<4d} {name[:90]}")
+    record["profile"] = dict(wall_ms=wall_ms, device_busy_ms=busy,
+                             top=[[k[:120], n, ms] for k, n, ms in kernels[:8]])
+
+
+def library_attention(torch, Fn):
+    def run(x, wqkv_t, bqkv, wp_t, bp, l1s, l1b, l2s, l2b):
+        R, N, _ = x.shape
+        y1 = Fn.layer_norm(x, (C,), l1s, l1b, 1e-6)
+        qkv = Fn.linear(y1, wqkv_t, bqkv).view(R, N, 3, HEADS, C // HEADS)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+        o = Fn.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(R, N, C)
+        x2 = x + Fn.linear(o, wp_t, bp)
+        return x2, Fn.layer_norm(x2, (C,), l2s, l2b, 1e-6)
+    return run
+
+
+def library_mlp(torch, Fn):
+    def run(x, res, w1_t, b1, w2_t, b2, ls, lb):
+        h = Fn.gelu(Fn.linear(x, w1_t, b1))
+        y = Fn.layer_norm(res + Fn.linear(h, w2_t, b2), (C,), ls, lb, 1e-6)
+        return y.transpose(1, 2).contiguous()
+    return run
+
+
+def phase_timing(torch, record, d3dp, x2d, x2d_f):
+    import torch.nn.functional as Fn
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import mlp as M
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    torch.cuda.reset_peak_memory_stats()
+    sample_ms = time_ms(torch, lambda: d3dp.sample(x2d, x2d_f, generator=g), reps=5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hfs = B * H * F * K / (sample_ms / 1e3)
+    log(f"[timing] D3DP.sample B={B} H={H} K={K} F={F} bf16 flip-TTA: {sample_ms / 1e3:.4f} "
+        f"s/call (median of 5), {hfs:.1f} hyp*frames/s, peak memory {peak_gb:.2f} GB")
+    record.update(sample_seconds=sample_ms / 1e3, hyp_frames_per_s=hfs, sample_peak_gb=peak_gb)
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = {}
+    lib_a, lib_m = library_attention(torch, Fn), library_mlp(torch, Fn)
+    for label, R, N in (("spatial", ROWS * F, J), ("temporal", ROWS * J, F)):
+        a = stage_inputs(torch, gen, R, N, bf)
+        T = R * N
+        flops = 2 * T * C * 3 * C + 4 * T * N * C + 2 * T * C * C
+        nbytes = 3 * T * C * 2 + 4 * C * C * 2 + 8 * C * 4
+        lib_args = [a[0], a[1].t().contiguous(), a[2].to(bf), a[3].t().contiguous(),
+                    a[4].to(bf)] + [v.to(bf) for v in a[5:]]
+        # the three-launch split writes qkv and o and reads them back, and
+        # reads x a second time: extra device-memory bytes over one pass
+        extra = T * (3 * C + 3 * C + C + C + C) * 2
+        rows[f"attention_stage/{label}"] = dict(
+            shape=list(a[0].shape), flops=flops, bytes=nbytes, split_extra_bytes=extra,
+            ms=time_ms(torch, lambda: A.attention_stage(*a, HEADS, 0.125, 1e-6), reps=10),
+            plain_ms=time_ms(torch, lambda: A.attention_stage_plain(*a, HEADS, 0.125, 1e-6),
+                             reps=3),
+            library_ms=time_ms(torch, lambda: lib_a(*lib_args), reps=10))
+        del a, lib_args
+    for label, D1, D2 in (("spatial->temporal", F, J), ("temporal->spatial", J, F)):
+        a = mlp_inputs(torch, gen, D1, D2, bf)
+        T = ROWS * D1 * D2
+        flops = 4 * T * C * HIDDEN
+        nbytes = 3 * T * C * 2 + 2 * C * HIDDEN * 2 + (HIDDEN + 3 * C) * 4
+        lib_args = [a[0], a[1], a[2].t().contiguous(), a[3].to(bf), a[4].t().contiguous(),
+                    a[5].to(bf), a[6].to(bf), a[7].to(bf)]
+        rows[f"mlp_block_t/{label}"] = dict(
+            shape=list(a[0].shape), flops=flops, bytes=nbytes,
+            ms=time_ms(torch, lambda: M.mlp_block_t(*a, 1e-6), reps=10),
+            plain_ms=time_ms(torch, lambda: M.mlp_block_t_plain(*a, 1e-6), reps=3),
+            library_ms=time_ms(torch, lambda: lib_m(*lib_args), reps=10))
+        del a, lib_args
+    for name, r in rows.items():
+        r["bound_ms"], r["bound_by"] = bound_ms(r["flops"], r["bytes"], PEAK_BF16)
+        log(f"[timing] {name} bf16 x{tuple(r['shape'])}: kernel {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['flops'] / 1e9:.1f} GFLOP, "
+            f"{r['bytes'] / 1e6:.1f} MB), plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s"
+            + (f", split costs {r['split_extra_bytes'] / 1e9:.3f} GB extra "
+               f"({r['split_extra_bytes'] / HBM * 1e3:.3f} ms at full HBM rate)"
+               if "split_extra_bytes" in r else ""))
+    record["kernel_rows"] = rows
+    return rows
+
+
+def kernels_line(rows, errs, launches):
+    """One entry per kernel; times are the mean of its two main-path shapes,
+    which the main path launches equally often."""
+    meta = {"attention_stage": ("d3dp_tpu_torch/ops/csrc/attention_stage.cu",
+                                "d3dp_tpu/ops/attention.py:396"),
+            "mlp_block_t": ("d3dp_tpu_torch/ops/csrc/mlp_block_t.cu",
+                            "d3dp_tpu/ops/mlp.py:156")}
+    out = []
+    for name, (src, rep) in meta.items():
+        rs = [r for k, r in rows.items() if k.startswith(name + "/")]
+
+        def mean(key):
+            return sum(r[key] for r in rs) / len(rs)
+        bound_by = "operations" if all(r["bound_by"] == "operations" for r in rs) else "bytes"
+        out.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                    "launches": launches[name], "max_abs_err": errs[name], "ms": mean("ms"),
+                    "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+                    "bound_by": bound_by, "library_ms": mean("library_ms")})
+    return {"kernels": out}
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device; this script runs only on the card",
+              file=sys.stderr)
+        return 2
+    record = {}
+    t_all = time.perf_counter()
+    phase_env(torch, record)
+    errs = phase_kernels(torch, record)
+    phase_model(torch, record)
+    d3dp, x2d, x2d_f, _ = phase_main(torch, record)
+    rows = phase_timing(torch, record, d3dp, x2d, x2d_f)
+    phase_profile(torch, record, d3dp, x2d, x2d_f)
+    line = kernels_line(rows, errs, record["launches"])
+    record["kernels"] = line["kernels"]
+    record["seconds"] = time.perf_counter() - t_all
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(record, f, indent=1)
+    log(f"[done] all phases passed in {record['seconds']:.1f} s")
+    log(json.dumps(line))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,65 @@
+"""Background-thread prefetcher: overlap host batch assembly with device
+compute.
+
+The reference feeds the GPU synchronously (main.py:364-380). Here a worker
+thread runs the generator and stages its results a few items ahead, so the
+device does not wait on the host's numpy work.
+"""
+
+import queue
+import threading
+
+
+class _Stop:
+    pass
+
+
+class Prefetcher:
+    """Iterate `iterable` in a worker thread, at most `depth` items ahead.
+    An exception raised by the iterable is re-raised in the consumer."""
+
+    def __init__(self, iterable, depth=2):
+        self.iterable = iterable
+        self.depth = depth
+
+    def __iter__(self):
+        q = queue.Queue(maxsize=self.depth)
+        err = []
+        stop = threading.Event()
+
+        def worker():
+            try:
+                for item in self.iterable:
+                    while not stop.is_set():
+                        try:
+                            q.put(item, timeout=0.1)
+                            break
+                        except queue.Full:
+                            continue
+                    if stop.is_set():
+                        return
+            except BaseException as e:  # surface worker errors in the consumer
+                err.append(e)
+            finally:
+                q.put(_Stop)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is _Stop:
+                    break
+                yield item
+        finally:
+            # consumer stopped (break / exception / GC): release the worker
+            # and drop any staged items
+            stop.set()
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            t.join(timeout=5)
+        if err:
+            raise err[0]

@@ -1,0 +1,142 @@
+"""D3DP diffusion wrapper: DDIM sampling of H pose hypotheses.
+
+Counterpart of d3dp_tpu/diffusion/d3dp.py on its fixed-interval sampling
+path (reference: common/diffusionpose.py:55-320). The H hypotheses and the
+flip-TTA copy are folded into one batch, so each DDIM step is one MixSTE2
+forward. The K-step loop is a Python loop; all randomness comes from an
+explicit torch.Generator or from `noise_override`.
+
+Reference semantics kept (they affect metric parity):
+  * clamp to +-1.1*scale on both x_t and x_start
+  * eta=1 with fresh noise injected on every DDIM step
+  * flip-TTA averaging BEFORE the x_start clamp
+  * all K intermediate x0 predictions returned, stacked at dim 1
+"""
+
+from dataclasses import dataclass, field
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from d3dp_tpu_torch.device import resolve_device
+from d3dp_tpu_torch.diffusion.schedule import CosineSchedule
+from d3dp_tpu_torch.models.mixste import MixSTE2, MixSTEConfig
+
+
+def flip_pose(x, perm):
+    """Mirror a pose: negate the x coordinate, swap left/right joints.
+    x: (..., J, C); perm: (J,) index tensor. (reference:
+    common/diffusionpose.py:150-153)"""
+    sign = torch.ones(x.shape[-1], dtype=x.dtype, device=x.device)
+    sign[0] = -1.0
+    return torch.index_select(x * sign, x.dim() - 2, perm)
+
+
+def make_lr_perm(num_joints, joints_left, joints_right):
+    """Permutation swapping left/right joint indices."""
+    perm = np.arange(num_joints)
+    perm[list(joints_left)] = joints_right
+    perm[list(joints_right)] = joints_left
+    return perm
+
+
+@dataclass(frozen=True)
+class D3DPConfig:
+    model: MixSTEConfig = field(default_factory=MixSTEConfig)
+    timesteps: int = 1000
+    sampling_timesteps: int = 5
+    num_proposals: int = 1
+    scale: float = 1.0
+    eta: float = 1.0
+    flip_tta: bool = True
+    unit_scale: float = 1.0  # 1.0 for H36M (metres), 1000.0 for 3DHP (mm)
+    joints_left: Tuple[int, ...] = (4, 5, 6, 11, 12, 13)
+    joints_right: Tuple[int, ...] = (1, 2, 3, 14, 15, 16)
+
+
+class D3DP:
+    """Config + schedule + the MixSTE2 denoiser it samples with.
+
+    `model` defaults to a MixSTE2 with weights from `seed`, on `device`
+    (default: the card; see `resolve_device`)."""
+
+    def __init__(self, cfg: D3DPConfig, model=None, device=None, seed=0):
+        self.cfg = cfg
+        self.device = resolve_device(device) if model is None else \
+            next(model.parameters()).device
+        self.model = model if model is not None else MixSTE2(cfg.model, self.device, seed)
+        self.model.eval()
+        self.schedule = CosineSchedule(cfg.timesteps)
+        self._lr_perm = torch.as_tensor(
+            make_lr_perm(cfg.model.num_joints, cfg.joints_left, cfg.joints_right),
+            device=self.device)
+
+    @torch.inference_mode()
+    def sample(self, x2d, x2d_flip=None, generator=None, noise_override=None):
+        """DDIM-sample H hypotheses, returning all K intermediate x0 preds.
+
+        x2d: (B, F, J, 2); x2d_flip: its keypoint-symmetry-flipped copy
+        (required with cfg.flip_tta). Returns (B, K, H, F, J, 3) fp32 in the
+        dataset's units (unit_scale applied).
+
+        Noise is drawn from `generator` (a torch.Generator on the sampler's
+        device) unless `noise_override=(img0, step_noises)` gives img0
+        (B,H,F,J,3) and step_noises (K,B,H,F,J,3) -- deterministic replay and
+        parity tests (the last step's noise is multiplied by sigma=0).
+        """
+        cfg = self.cfg
+        H, K = cfg.num_proposals, cfg.sampling_timesteps
+        B, Fr, J, _ = x2d.shape
+        dev = self.device
+        flip = cfg.flip_tta
+        if flip and x2d_flip is None:
+            raise ValueError("flip_tta requires x2d_flip")
+        scale = cfg.scale
+        f32 = torch.float32
+
+        if noise_override is not None:
+            img0 = torch.as_tensor(noise_override[0], dtype=f32, device=dev)
+            step_noises = torch.as_tensor(noise_override[1], dtype=f32, device=dev)
+        elif generator is None:
+            raise ValueError("sample needs a torch.Generator or noise_override")
+        else:
+            img0 = torch.randn((B, H, Fr, J, 3), generator=generator, device=dev)
+            step_noises = torch.randn((K, B, H, Fr, J, 3), generator=generator, device=dev)
+
+        def fold(x):  # (B,F,J,C) -> (B*H,F,J,C), each window repeated H times
+            x = torch.as_tensor(x, dtype=f32, device=dev)
+            return x[:, None].expand(B, H, *x.shape[1:]).reshape(B * H, *x.shape[1:])
+
+        cond = fold(x2d)
+        if flip:
+            cond = torch.cat([cond, fold(x2d_flip)], dim=0)
+        perm = self._lr_perm
+
+        def denoise(img, t):
+            """One flip-fused model evaluation -> x0 prediction (B,H,F,J,3)."""
+            x = (torch.clamp(img, -1.1 * scale, 1.1 * scale) / scale).reshape(B * H, Fr, J, 3)
+            if flip:
+                x = torch.cat([x, flip_pose(x, perm)], dim=0)
+            t_vec = torch.full((x.shape[0],), t, dtype=torch.int32, device=dev)
+            pred = self.model(cond, x, t_vec)
+            if flip:
+                pred_n, pred_f = pred.chunk(2, dim=0)
+                pred = (pred_n + flip_pose(pred_f, perm)) / 2
+            return pred.reshape(B, H, Fr, J, 3)
+
+        consts = self.schedule.ddim_step_constants(K, cfg.eta)
+        img = img0
+        preds = []
+        for k in range(K):
+            c = {name: float(v[k]) for name, v in consts.items()}  # fp32 values
+            x_start = torch.clamp(denoise(img, int(consts["t"][k])) * scale,
+                                  -1.1 * scale, 1.1 * scale)
+            if c["is_last"] > 0:
+                img = x_start
+            else:
+                pred_noise = (c["sqrt_recip_ac"] * img - x_start) / c["sqrt_recipm1_ac"]
+                img = (x_start * c["alpha_next_sqrt"] + c["c"] * pred_noise
+                       + c["sigma"] * step_noises[k])
+            preds.append(x_start)
+        return torch.stack(preds, dim=1) * cfg.unit_scale

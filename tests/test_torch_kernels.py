@@ -1,0 +1,122 @@
+"""Hand-written CUDA kernels against their plain torch versions, on the
+card. Skipped without a CUDA device. This file imports neither JAX nor the
+JAX package, so it runs on a machine that has only torch:
+
+    python -m pytest tests/test_torch_kernels.py -q --noconftest
+
+(`--noconftest`: tests/conftest.py configures JAX.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from d3dp_tpu_torch.ops import attention as tattn
+from d3dp_tpu_torch.ops import mlp as tmlp
+
+
+def _stage_inputs(rng, R, N, C, w_scale=0.1):
+    x = rng.randn(R, N, C).astype(np.float32)
+    return [x,
+            (rng.randn(C, 3 * C) * w_scale).astype(np.float32),
+            (rng.randn(3 * C) * 0.05).astype(np.float32),
+            (rng.randn(C, C) * w_scale).astype(np.float32),
+            (rng.randn(C) * 0.05).astype(np.float32),
+            (1 + 0.1 * rng.randn(C)).astype(np.float32),
+            (0.1 * rng.randn(C)).astype(np.float32),
+            (1 + 0.1 * rng.randn(C)).astype(np.float32),
+            (0.1 * rng.randn(C)).astype(np.float32)]
+
+
+def _mlp_inputs(rng, B0, D1, D2, C, H):
+    return [rng.randn(B0, D1, D2, C).astype(np.float32),
+            rng.randn(B0, D1, D2, C).astype(np.float32),
+            (rng.randn(C, H) * 0.05).astype(np.float32),
+            (rng.randn(H) * 0.01).astype(np.float32),
+            (rng.randn(H, C) * 0.05).astype(np.float32),
+            (rng.randn(C) * 0.01).astype(np.float32),
+            (rng.rand(C) + 0.5).astype(np.float32),
+            (rng.randn(C) * 0.1).astype(np.float32)]
+
+
+def _t(arrs, device="cpu", dtype=None):
+    out = [torch.from_numpy(a).to(device) for a in arrs]
+    return [o.to(dtype) if dtype is not None and o.dim() > 1 else o for o in out]
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    from d3dp_tpu_torch import disable_tf32
+    disable_tf32()
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def np_rng():
+    return np.random.RandomState(0)
+
+
+# fp32: summation order only. bf16: roundings fall at other places than in
+# the plain version (different accumulation order before each rounding), so
+# an output may sit one bf16 ulp away: 3e-2 on unit-scale values plus one
+# ulp of the value's own magnitude (2^-7 relative at most).
+TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (3e-2, 2.0 ** -7)}
+
+
+def _excess(got, want, dtype):
+    atol, rel = TOL[dtype]
+    d = (got.float() - want.float()).abs()
+    return (d - atol - rel * want.float().abs()).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,N", [(64, 17), (6, 243), (5, 100), (4, 129), (3, 1), (2, 256)])
+def test_attention_stage_kernel_matches_plain(np_rng, dtype, R, N):
+    dev = _cuda()
+    # weights of std 0.05 keep x2 at the main path's scale (|x2| < 8), where
+    # one bf16 ulp stays inside the tolerance
+    args = _t(_stage_inputs(np_rng, R, N, 512, w_scale=0.05), dev, dtype)
+    args[0] = args[0] * 0.5
+    n0 = tattn.attention_stage.launches
+    got = tattn.attention_stage(*args, 8, 0.125, 1e-6)
+    want = tattn.attention_stage_plain(*args, 8, 0.125, 1e-6)
+    torch.cuda.synchronize()
+    assert tattn.attention_stage.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert _excess(g, w, dtype) <= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 243, 17), (3, 17, 243)])
+def test_mlp_block_t_kernel_matches_plain(np_rng, dtype, shape):
+    dev = _cuda()
+    args = _t(_mlp_inputs(np_rng, *shape, 512, 1024), dev, dtype)
+    n0 = tmlp.mlp_block_t.launches
+    got = tmlp.mlp_block_t(*args, 1e-6)
+    want = tmlp.mlp_block_t_plain(*args, 1e-6)
+    torch.cuda.synchronize()
+    assert tmlp.mlp_block_t.launches == n0 + 1
+    assert _excess(got, want, dtype) <= 0
+
+
+@pytest.mark.gpu
+def test_wrappers_raise_on_what_the_kernels_do_not_take(np_rng):
+    """A CUDA input the kernel does not take raises; nothing falls back to
+    the plain version."""
+    dev = _cuda()
+    args = _t(_stage_inputs(np_rng, 2, 17, 512), dev, torch.float32)
+    with pytest.raises(ValueError, match="N=300"):
+        tattn.attention_stage(torch.zeros(1, 300, 512, device=dev), *args[1:], 8, 0.125, 1e-6)
+    with pytest.raises(ValueError, match="head_dim"):
+        tattn.attention_stage(*args, 4, 0.125, 1e-6)
+    with pytest.raises(ValueError, match="dtype"):
+        tattn.attention_stage(args[0].half(), *args[1:], 8, 0.125, 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        tattn.attention_stage(args[0].transpose(0, 1).contiguous().transpose(0, 1),
+                              *args[1:], 8, 0.125, 1e-6)
+    margs = _t(_mlp_inputs(np_rng, 2, 9, 17, 512, 1024), dev, torch.bfloat16)
+    with pytest.raises(ValueError, match="w1 has dtype"):
+        tmlp.mlp_block_t(*margs[:2], margs[2].float(), *margs[3:], 1e-6)

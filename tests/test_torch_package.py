@@ -1,0 +1,70 @@
+"""d3dp_tpu_torch package rules: no JAX and no d3dp_tpu anywhere in it, and
+no silent CPU fallback for the entry points."""
+
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import d3dp_tpu_torch
+
+torch.set_num_threads(1)
+
+PKG = Path(d3dp_tpu_torch.__file__).resolve().parent
+REPO = PKG.parent
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages([str(PKG)], "d3dp_tpu_torch."))
+
+
+def test_import_leaves_jax_and_reference_out():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'd3dp_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean', len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
+
+
+def test_sources_import_no_jax():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|d3dp_tpu)(\.|\s|$)", re.M)
+    files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        hits = pat.findall(f.read_text())
+        assert not hits, (f, hits)
+
+
+def test_package_mirrors_layout():
+    for m in ("device", "diffusion.schedule", "diffusion.d3dp", "geometry.camera",
+              "geometry.quaternion", "ops.attention", "ops.mlp", "models.mixste",
+              "train.convert", "metrics.mpjpe", "metrics.procrustes_np", "data.windowing",
+              "data.prefetch", "data.generators", "data.synthetic", "eval.evaluator"):
+        assert f"d3dp_tpu_torch.{m}" in _modules(), m
+
+
+def test_entry_points_need_a_card_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from d3dp_tpu_torch import resolve_device
+    from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
+    from d3dp_tpu_torch.models import MixSTE2, MixSTEConfig
+
+    small = MixSTEConfig(num_frames=9, embed_dim=64, depth=1)
+    for make in (lambda: resolve_device(), lambda: MixSTE2(small),
+                 lambda: D3DP(D3DPConfig(model=small))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert next(MixSTE2(small, device="cpu").parameters()).device.type == "cpu"
