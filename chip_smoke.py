@@ -5,13 +5,19 @@
 
 Builds the hand-written kernels from `d3dp_tpu_torch/ops/csrc/`, holds each
 against its plain torch version on the card, checks the full-width MixSTE2
-on the kernel path against the plain path, then drives the main path --
-multi-hypothesis DDIM evaluation at MixSTE2's published width (C=512, 8
-heads, depth 8, 243 frames, H=5, K=5, bf16, flip-TTA) with random weights
-from a fixed seed -- and times it. Every phase raises on failure; the
-script exits non-zero without a CUDA device and prints nothing then but the
-reason. The last stdout line is the run's JSON status; the line before it
-the per-kernel JSON. Details also go to `chiprun_out/chip_smoke.json`.
+on the kernel path against the plain path (eval forward, and the training
+loss and gradients), then drives the port's two paths at MixSTE2's
+published width (C=512, 8 heads, depth 8, 243 frames) with random weights
+from a fixed seed:
+  * evaluation: multi-hypothesis DDIM sampling (H=5, K=5, bf16, flip-TTA)
+    and the four-mode Evaluator;
+  * training: the default train step (bf16 compute, fp32 AdamW at 6e-5,
+    DropPath 0.1, batch 4 chunks of 243 frames from ChunkedGenerator),
+    then light validation on the trained weights;
+and times both. Every phase raises on failure; the script exits non-zero
+without a CUDA device and prints nothing then but the reason. The last
+stdout line is the run's JSON status; the line before it the per-kernel
+JSON. Details also go to `chiprun_out/chip_smoke.json`.
 """
 
 import contextlib
@@ -27,9 +33,16 @@ import numpy as np
 
 B, H, K, F, J, C, HEADS, HIDDEN, DEPTH = 4, 5, 5, 243, 17, 512, 8, 1024, 8
 ROWS = 2 * B * H  # flip-TTA doubles the hypothesis-folded batch
+BT = 4  # training batch: 4 chunks of 243 frames (bench.py's train config)
+TRAIN_SHAPES = (("spatial", BT * F, J), ("temporal", BT * J, F))  # (label, R, N)
+TRAIN_STEPS = 20
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 HBM = 3.35e12  # bytes/s
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# K3/K4: unit-normal qkv at scale 1/8 gives outputs and gradients of about
+# 0.1, so the bf16 absolute term is 1e-2 there, which a dropped or doubled
+# 16-key tile would exceed
+TOL_QKV = {"float32": 1e-4, "bfloat16": 1e-2}
 BF16_ULP = 2.0 ** -7  # one bf16 ulp relative to the magnitude, upper bound
 
 
@@ -84,6 +97,12 @@ def mlp_inputs(torch, gen, D1, D2, dt):
             rn(C, s=0.1)]
 
 
+def qkv_inputs(torch, gen, R, N, dt):
+    """Packed qkv (R, N, 3C) and an output gradient (R, N, C), unit normal."""
+    return (torch.randn(R, N, 3 * C, generator=gen, device="cuda").to(dt),
+            torch.randn(R, N, C, generator=gen, device="cuda").to(dt))
+
+
 def max_err(torch, got, want, ulp_rel):
     """(max |got - want|, max of |got - want| - ulp_rel*|want|): a bf16
     output may sit one bf16 ulp of its own magnitude away, since its
@@ -97,13 +116,17 @@ def plain_ops():
     """Run the model through the plain torch versions (comparison only)."""
     from d3dp_tpu_torch.ops import attention, mlp
 
-    saved = attention.attention_stage, mlp.mlp_block_t
+    saved = (attention.attention_stage, mlp.mlp_block_t, attention.fused_attention_qkv,
+             attention.fused_attention_qkv_bwd)
     attention.attention_stage = attention.attention_stage_plain
     mlp.mlp_block_t = mlp.mlp_block_t_plain
+    attention.fused_attention_qkv = attention.fused_attention_qkv_plain
+    attention.fused_attention_qkv_bwd = attention.fused_attention_qkv_bwd_plain
     try:
         yield
     finally:
-        attention.attention_stage, mlp.mlp_block_t = saved
+        (attention.attention_stage, mlp.mlp_block_t, attention.fused_attention_qkv,
+         attention.fused_attention_qkv_bwd) = saved
 
 
 def perturb_(torch, model, seed):
@@ -113,7 +136,6 @@ def perturb_(torch, model, seed):
     with torch.no_grad():
         for p in model.parameters():
             p.add_(torch.randn(p.shape, generator=g, device=p.device) * 0.02)
-    model.invalidate_weight_cache()
 
 
 # ------------------------------------------------------------------- phases
@@ -149,7 +171,8 @@ def phase_kernels(torch, record):
     from d3dp_tpu_torch.ops import mlp as M
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    errs = {"attention_stage": 0.0, "mlp_block_t": 0.0}
+    errs = {"attention_stage": 0.0, "mlp_block_t": 0.0, "fused_attention_qkv": 0.0,
+            "fused_attention_qkv_bwd": 0.0}
     for dt in (torch.float32, torch.bfloat16):
         name_dt = str(dt).split(".")[1]
         tol = TOL[name_dt]
@@ -182,6 +205,35 @@ def phase_kernels(torch, record):
             if dt == torch.bfloat16:
                 errs["mlp_block_t"] = max(errs["mlp_block_t"], e)
             del args, got, want
+        # the training path's attention core (K3) and its backward (K4), at
+        # the train step's shapes
+        tol = TOL_QKV[name_dt]
+        for label, R, N in TRAIN_SHAPES:
+            qkv, dout = qkv_inputs(torch, gen, R, N, dt)
+            for name, got, want in (
+                    ("fused_attention_qkv", A.fused_attention_qkv(qkv, HEADS, 0.125),
+                     A.fused_attention_qkv_plain(qkv, HEADS, 0.125)),
+                    ("fused_attention_qkv_bwd", A.fused_attention_qkv_bwd(qkv, dout, HEADS, 0.125),
+                     A.fused_attention_qkv_bwd_plain(qkv, dout, HEADS, 0.125))):
+                torch.cuda.synchronize()
+                e, ex = max_err(torch, got, want, ulp)
+                log(f"[kernels] {name} {label} {name_dt} qkv{tuple(qkv.shape)}: max|err| {e:.3e} "
+                    f"(tol {tol:g}{' + 1 bf16 ulp' if ulp else ''}) {'ok' if ex <= tol else 'FAIL'}")
+                check(ex <= tol, f"{name} {label} {name_dt} disagrees with its plain version")
+                if dt == torch.bfloat16:
+                    errs[name] = max(errs[name], e)
+            if dt == torch.float32:
+                # K4 against autograd through K3's plain version
+                leaf = qkv.clone().requires_grad_(True)
+                (want,) = torch.autograd.grad(A.fused_attention_qkv_plain(leaf, HEADS, 0.125),
+                                              leaf, dout)
+                got = A.fused_attention_qkv_bwd(qkv, dout, HEADS, 0.125)
+                torch.cuda.synchronize()
+                e, ex = max_err(torch, got, want, 0.0)
+                log(f"[kernels] fused_attention_qkv_bwd {label} fp32 vs autograd of the plain "
+                    f"forward: max|err| {e:.3e} (tol {tol:g}) {'ok' if ex <= tol else 'FAIL'}")
+                check(ex <= tol, f"fused_attention_qkv_bwd {label} disagrees with autograd")
+            del qkv, dout, got, want
     record["max_abs_err_bf16"] = errs
     return errs
 
@@ -207,6 +259,56 @@ def phase_model(torch, record):
         f"(tol 1e-4) {'ok' if ok else 'FAIL'}")
     check(ok, "MixSTE2 kernel path disagrees with the plain path")
     record["model_fp32_max_abs_err"] = err
+
+
+def phase_train_model(torch, record):
+    """MixSTE2 fp32, full width, depth 2, DropPath 0.1: one train_forward
+    loss and every gradient on the kernel path (K3 forward, K4 backward)
+    against the plain path, with the same t, noise and DropPath masks.
+    Tolerance: loss 1e-5 relative; each parameter's gradient 1e-3 relative
+    in norm (fp32 summation order only, through two depths of backward)."""
+    from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
+    from d3dp_tpu_torch.models import MixSTEConfig
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.train.state import weighted_mpjpe
+
+    d3dp = D3DP(D3DPConfig(model=MixSTEConfig(num_frames=F, embed_dim=C, depth=2,
+                                              drop_path_rate=0.1)), seed=5)
+    perturb_(torch, d3dp.model, 6)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x2d = torch.randn(2, F, J, 2, generator=g, device="cuda") * 0.3
+    x3d = torch.randn(2, F, J, 3, generator=g, device="cuda") * 0.3
+    x3d[:, :, 0] = 0.0
+    noise = torch.randn(2, F, J, 3, generator=g, device="cuda")
+    t = torch.tensor([999, 17], device="cuda")
+    w = torch.ones(2, device="cuda")
+
+    def run():
+        d3dp.model.zero_grad(set_to_none=True)
+        masks = torch.Generator(device="cuda").manual_seed(9)  # same masks on both paths
+        pred = d3dp.train_forward(x2d, x3d, generator=masks, t_noise_override=(t, noise))
+        loss = weighted_mpjpe(pred, x3d, w)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in d3dp.model.named_parameters()}
+
+    n0 = (A.fused_attention_qkv.launches, A.fused_attention_qkv_bwd.launches)
+    loss_k, grads_k = run()
+    launched = (A.fused_attention_qkv.launches - n0[0], A.fused_attention_qkv_bwd.launches - n0[1])
+    with plain_ops():
+        loss_p, grads_p = run()
+    torch.cuda.synchronize()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    rel = {n: ((grads_k[n] - grads_p[n]).norm() / grads_p[n].norm()).item() for n in grads_p}
+    worst = max(rel, key=rel.get)
+    ok = (math.isfinite(loss_k) and loss_rel <= 1e-5 and rel[worst] <= 1e-3
+          and launched == (4, 4))
+    log(f"[train-model] MixSTE2 fp32 C={C} depth 2 B=2 DropPath 0.1: loss kernel {loss_k:.6f} "
+        f"plain {loss_p:.6f} (rel {loss_rel:.2e}, tol 1e-5); worst gradient {worst} rel "
+        f"{rel[worst]:.2e} (tol 1e-3, {len(rel)} parameters); launches K3 {launched[0]} "
+        f"K4 {launched[1]} (expected 4, 4) {'ok' if ok else 'FAIL'}")
+    check(ok, "train_forward: kernel path disagrees with the plain path")
+    record["train_model_fp32"] = dict(loss_rel=loss_rel, worst_grad=worst,
+                                      worst_grad_rel=rel[worst])
 
 
 def main_config(torch):
@@ -283,6 +385,157 @@ def phase_main(torch, record):
     return d3dp, x2d, x2d_f, counts
 
 
+def train_config(torch):
+    from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT
+    from d3dp_tpu_torch.diffusion import D3DPConfig
+    from d3dp_tpu_torch.models import MixSTEConfig
+
+    # validation samples one hypothesis in one DDIM step (H=1, K=1)
+    return D3DPConfig(
+        model=MixSTEConfig(num_frames=F, embed_dim=C, depth=DEPTH, num_heads=HEADS,
+                           drop_path_rate=0.1, dtype=torch.bfloat16),
+        num_proposals=1, sampling_timesteps=1,
+        joints_left=tuple(JOINTS_LEFT), joints_right=tuple(JOINTS_RIGHT))
+
+
+def phase_train(torch, record):
+    """The training path: ChunkedGenerator -> Prefetcher -> make_train_step
+    for TRAIN_STEPS steps, then steps on one repeated batch, an lr decay,
+    and light validation on the trained weights against a fresh model
+    loaded from their state_dict."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from d3dp_tpu_torch.data.generators import ChunkedGenerator, UnchunkedGenerator
+    from d3dp_tpu_torch.data.prefetch import Prefetcher
+    from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT, make_dataset
+    from d3dp_tpu_torch.diffusion import D3DP
+    from d3dp_tpu_torch.eval import Evaluator
+    from d3dp_tpu_torch.models import MixSTE2
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.train.state import get_lr, make_optimizer, make_train_step, set_lr
+
+    cfg = train_config(torch)
+    d3dp = D3DP(cfg, seed=0)
+    opt = make_optimizer(d3dp.model.parameters(), 6e-5)
+    step = make_train_step(d3dp, opt)
+    lr_kw = dict(kps_left=list(JOINTS_LEFT), kps_right=list(JOINTS_RIGHT))
+    # 19 windows of 243 frames, twice with flip augmentation: 10 batches of
+    # 4 per epoch, the last padded (2 real rows)
+    lengths = (1200, 900, 1500, 700)
+    gen = ChunkedGenerator(BT, *make_dataset(seed=5, lengths=lengths), F, shuffle=True,
+                           random_seed=1234, augment=True, endless=True, pad_last=True,
+                           joints_left=list(JOINTS_LEFT), joints_right=list(JOINTS_RIGHT),
+                           **lr_kw)
+    val_data = make_dataset(seed=6, lengths=(500, 400))
+
+    def validate(d):
+        ev = Evaluator(d, receptive_field=F, batch_size=4, light=True, **lr_kw)
+        res = ev.evaluate(UnchunkedGenerator(*val_data),
+                          torch.Generator(device="cuda").manual_seed(21))
+        return res.averages_mm()["P_Best"]
+
+    before = validate(d3dp)  # builds the eval path's weight cache
+    g = torch.Generator(device="cuda").manual_seed(11)
+    batches = iter(Prefetcher(gen.next_epoch(), depth=2))
+    warm = 3
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.fused_attention_qkv.launches = 0
+    A.fused_attention_qkv_bwd.launches = 0
+    for i in range(TRAIN_STEPS):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        _, b3d, b2d, w = next(batches)
+        losses.append(step(b2d, b3d, w, generator=g))
+        if i == 0:
+            first = (b2d, b3d, w)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (TRAIN_STEPS - warm)
+    counts = (A.fused_attention_qkv.launches, A.fused_attention_qkv_bwd.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batches.close()
+    losses = [v.item() for v in losses]
+    per_step = 2 * DEPTH  # one spatial and one temporal attention core per depth
+    ok = all(math.isfinite(v) for v in losses) and counts == (per_step * TRAIN_STEPS,) * 2
+    log(f"[train] {TRAIN_STEPS} steps, batch {BT}x{F} frames, bf16, DropPath 0.1, AdamW 6e-5: "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, finite {ok}; launches K3 {counts[0]} "
+        f"K4 {counts[1]} (expected {per_step}/step x {TRAIN_STEPS} = {per_step * TRAIN_STEPS}) "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, "train steps: non-finite loss or launch counts")
+    fps = BT * F / step_s
+    log(f"[train] {step_s:.4f} s/step (mean of steps {warm + 1}-{TRAIN_STEPS}, host loop with "
+        f"prefetch), {fps:.1f} train frames/s, peak memory {peak_gb:.2f} GB")
+
+    # the loss falls on a repeated batch: same rows, t, noise and DropPath
+    # masks (a generator reseeded alike for every step draws only the masks)
+    r = torch.Generator(device="cuda").manual_seed(12)
+    t_fix = torch.randint(0, 1000, (BT,), generator=r, device="cuda")
+    noise_fix = torch.randn(BT, F, J, 3, generator=r, device="cuda")
+    rep = [step(*first, generator=torch.Generator(device="cuda").manual_seed(13),
+                t_noise_override=(t_fix, noise_fix)).item() for _ in range(10)]
+    falls = rep[-1] < rep[0] and sum(rep[-3:]) < sum(rep[:3])
+    log(f"[train] repeated batch, 10 steps: loss {' '.join(f'{v:.4f}' for v in rep)} "
+        f"{'falls ok' if falls else 'FAIL'}")
+    check(falls, "train steps: the loss does not fall on a repeated batch")
+
+    lr0 = get_lr(opt)
+    set_lr(opt, lr0 * 0.993)
+    check(abs(get_lr(opt) - lr0 * 0.993) < 1e-12, "set_lr did not take")
+
+    # light validation on the trained weights == a fresh model loaded from
+    # their state_dict (the eval cache follows the optimizer's updates)
+    after = validate(d3dp)
+    fresh = MixSTE2(cfg.model, seed=99)
+    fresh.load_state_dict(d3dp.model.state_dict())
+    again = validate(D3DP(cfg, model=fresh))
+    ok = bool(np.array_equal(after, again)) and not np.array_equal(after, before) and \
+        bool(np.isfinite(after).all())
+    log(f"[train] light validation (H=1, K=1) P-Best: before training {before[-1]:.3f} mm, "
+        f"after {after[-1]:.3f} mm, fresh model from the trained state_dict {again[-1]:.3f} mm, "
+        f"equal {bool(np.array_equal(after, again))} {'ok' if ok else 'FAIL'}")
+    check(ok, "validation after training differs from a reloaded model, or did not move")
+
+    # where one step's device time goes
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step(*first, generator=g)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    prof_rec = summarize_profile(torch, prof, wall_ms, "one train step", "train-profile")
+    if prof_rec["device_busy_ms"] is not None:
+        log(f"[train-profile] the profiler slows the host: against the unprofiled "
+            f"{step_s * 1e3:.1f} ms/step the card is busy "
+            f"{100 * prof_rec['device_busy_ms'] / (step_s * 1e3):.1f}% of a step")
+    record.update(train=dict(step_s=step_s, frames_per_s=fps, peak_gb=peak_gb, losses=losses,
+                             repeated_batch_losses=rep, val_before_mm=before.tolist(),
+                             val_after_mm=after.tolist(), profile=prof_rec))
+    record["launches"].update(fused_attention_qkv=counts[0], fused_attention_qkv_bwd=counts[1])
+
+
+def summarize_profile(torch, prof, wall_ms, what, tag):
+    """Log and return the device kernels' time by name (device-side events
+    only: an aten op's own entry repeats the device time of its kernels, and
+    a user annotation such as `Optimizer.step` spans them again)."""
+    kernels = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)
+                      and e.self_device_time_total > 0), key=lambda k: -k[2])
+    if not kernels:
+        log(f"[{tag}] {what}: wall {wall_ms:.1f} ms (profiled); the profiler recorded no "
+            f"device kernels, device busy time not measured")
+        return dict(wall_ms=wall_ms, device_busy_ms=None)
+    busy = sum(ms for _, _, ms in kernels)
+    log(f"[{tag}] {what}: wall {wall_ms:.1f} ms (profiled), device busy {busy:.1f} ms "
+        f"({100 * busy / wall_ms:.1f}%), idle {100 * (1 - busy / wall_ms):.1f}%")
+    for name, n, ms in kernels[:12]:
+        log(f"[{tag}]   {100 * ms / busy:5.1f}%  {ms:9.3f} ms  x{n:<4d} {name[:90]}")
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                top=[[k[:120], n, ms] for k, n, ms in kernels[:12]])
+
+
 def phase_profile(torch, record, d3dp, x2d, x2d_f):
     """Where one D3DP.sample call's device time goes, by kernel
     (torch.profiler over a warm call)."""
@@ -296,24 +549,8 @@ def phase_profile(torch, record, d3dp, x2d, x2d_f):
         d3dp.sample(x2d, x2d_f, generator=g)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side kernel events only: an aten op's own entry repeats the
-    # device time of the kernels it launched
-    kernels = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
-                      for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and e.self_device_time_total > 0), key=lambda k: -k[2])
-    if not kernels:
-        log(f"[profile] one D3DP.sample call: wall {wall_ms:.1f} ms (profiled); the profiler "
-            f"recorded no device kernels, device busy time not measured")
-        record["profile"] = dict(wall_ms=wall_ms, device_busy_ms=None)
-        return
-    busy = sum(ms for _, _, ms in kernels)
-    log(f"[profile] one D3DP.sample call: wall {wall_ms:.1f} ms (profiled), device busy "
-        f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%), idle {100 * (1 - busy / wall_ms):.1f}%")
-    for name, n, ms in kernels[:8]:
-        log(f"[profile]   {100 * ms / busy:5.1f}%  {ms:9.2f} ms  x{n:<4d} {name[:90]}")
-    record["profile"] = dict(wall_ms=wall_ms, device_busy_ms=busy,
-                             top=[[k[:120], n, ms] for k, n, ms in kernels[:8]])
+    record["profile"] = summarize_profile(torch, prof, wall_ms, "one D3DP.sample call",
+                                          "profile")
 
 
 def library_attention(torch, Fn):
@@ -333,6 +570,18 @@ def library_mlp(torch, Fn):
         h = Fn.gelu(Fn.linear(x, w1_t, b1))
         y = Fn.layer_norm(res + Fn.linear(h, w2_t, b2), (C,), ls, lb, 1e-6)
         return y.transpose(1, 2).contiguous()
+    return run
+
+
+def library_attention_qkv(torch, Fn, qkv):
+    """F.scaled_dot_product_attention on q/k/v views of the packed qkv, back
+    to the packed (R, N, C) output (the yardstick of K3; its backward, of
+    K4)."""
+    R, N, _ = qkv.shape
+
+    def run(x):
+        q, k, v = x.view(R, N, 3, HEADS, C // HEADS).permute(2, 0, 3, 1, 4).unbind(0)
+        return Fn.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(R, N, C)
     return run
 
 
@@ -384,6 +633,28 @@ def phase_timing(torch, record, d3dp, x2d, x2d_f):
             plain_ms=time_ms(torch, lambda: M.mlp_block_t_plain(*a, 1e-6), reps=3),
             library_ms=time_ms(torch, lambda: lib_m(*lib_args), reps=10))
         del a, lib_args
+    for label, R, N in TRAIN_SHAPES:
+        qkv, dout = qkv_inputs(torch, gen, R, N, bf)
+        T = R * N
+        lib_fwd = library_attention_qkv(torch, Fn, qkv)
+        leaf = qkv.clone().requires_grad_(True)
+        lib_out = lib_fwd(leaf)
+        rows[f"fused_attention_qkv/{label}"] = dict(
+            shape=list(qkv.shape), flops=4 * T * N * C, bytes=(3 * C + C) * T * 2,
+            ms=time_ms(torch, lambda: A.fused_attention_qkv(qkv, HEADS, 0.125), reps=20),
+            plain_ms=time_ms(torch, lambda: A.fused_attention_qkv_plain(qkv, HEADS, 0.125),
+                             reps=5),
+            library_ms=time_ms(torch, lambda: lib_fwd(qkv), reps=20))
+        # S recomputed, dV, dP, dQ, dK: five N x N x d products per head
+        rows[f"fused_attention_qkv_bwd/{label}"] = dict(
+            shape=list(qkv.shape), flops=10 * T * N * C, bytes=(3 * C + C + 3 * C) * T * 2,
+            ms=time_ms(torch, lambda: A.fused_attention_qkv_bwd(qkv, dout, HEADS, 0.125),
+                       reps=20),
+            plain_ms=time_ms(torch, lambda: A.fused_attention_qkv_bwd_plain(
+                qkv, dout, HEADS, 0.125), reps=5),
+            library_ms=time_ms(torch, lambda: torch.autograd.grad(
+                lib_out, leaf, dout, retain_graph=True), reps=20))
+        del qkv, dout, leaf, lib_out
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_ms(r["flops"], r["bytes"], PEAK_BF16)
         log(f"[timing] {name} bf16 x{tuple(r['shape'])}: kernel {r['ms']:.4f} ms, bound "
@@ -398,12 +669,18 @@ def phase_timing(torch, record, d3dp, x2d, x2d_f):
 
 
 def kernels_line(rows, errs, launches):
-    """One entry per kernel; times are the mean of its two main-path shapes,
-    which the main path launches equally often."""
+    """One entry per kernel; times are the mean of its two shapes on its
+    path, which the path launches equally often. Launches: K1 and K2 from the
+    evaluation path's run (phase main), K3 and K4 from the training path's
+    (phase train)."""
     meta = {"attention_stage": ("d3dp_tpu_torch/ops/csrc/attention_stage.cu",
                                 "d3dp_tpu/ops/attention.py:396"),
             "mlp_block_t": ("d3dp_tpu_torch/ops/csrc/mlp_block_t.cu",
-                            "d3dp_tpu/ops/mlp.py:156")}
+                            "d3dp_tpu/ops/mlp.py:156"),
+            "fused_attention_qkv": ("d3dp_tpu_torch/ops/csrc/attention_qkv.cu",
+                                    "d3dp_tpu/ops/attention.py:69"),
+            "fused_attention_qkv_bwd": ("d3dp_tpu_torch/ops/csrc/attention_qkv.cu",
+                                        "d3dp_tpu/ops/attention.py:133")}
     out = []
     for name, (src, rep) in meta.items():
         rs = [r for k, r in rows.items() if k.startswith(name + "/")]
@@ -430,9 +707,12 @@ def main():
     phase_env(torch, record)
     errs = phase_kernels(torch, record)
     phase_model(torch, record)
+    phase_train_model(torch, record)
     d3dp, x2d, x2d_f, _ = phase_main(torch, record)
     rows = phase_timing(torch, record, d3dp, x2d, x2d_f)
     phase_profile(torch, record, d3dp, x2d, x2d_f)
+    del d3dp
+    phase_train(torch, record)
     line = kernels_line(rows, errs, record["launches"])
     record["kernels"] = line["kernels"]
     record["seconds"] = time.perf_counter() - t_all

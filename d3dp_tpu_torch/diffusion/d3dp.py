@@ -1,16 +1,19 @@
-"""D3DP diffusion wrapper: DDIM sampling of H pose hypotheses.
+"""D3DP diffusion wrapper: the x0-predicting training forward and DDIM
+sampling of H pose hypotheses.
 
-Counterpart of d3dp_tpu/diffusion/d3dp.py on its fixed-interval sampling
-path (reference: common/diffusionpose.py:55-320). The H hypotheses and the
-flip-TTA copy are folded into one batch, so each DDIM step is one MixSTE2
-forward. The K-step loop is a Python loop; all randomness comes from an
-explicit torch.Generator or from `noise_override`.
+Counterpart of d3dp_tpu/diffusion/d3dp.py on its training forward and its
+fixed-interval sampling path (reference: common/diffusionpose.py:55-320).
+The H hypotheses and the flip-TTA copy are folded into one batch, so each
+DDIM step is one MixSTE2 forward. The K-step loop is a Python loop; all
+randomness comes from an explicit torch.Generator or from
+`noise_override` / `t_noise_override`.
 
 Reference semantics kept (they affect metric parity):
   * clamp to +-1.1*scale on both x_t and x_start
   * eta=1 with fresh noise injected on every DDIM step
   * flip-TTA averaging BEFORE the x_start clamp
   * all K intermediate x0 predictions returned, stacked at dim 1
+  * per-sample random t and noise in training
 """
 
 from dataclasses import dataclass, field
@@ -71,6 +74,50 @@ class D3DP:
         self._lr_perm = torch.as_tensor(
             make_lr_perm(cfg.model.num_joints, cfg.joints_left, cfg.joints_right),
             device=self.device)
+        # fp32 device copies of the (host fp64) tables of the training-time
+        # q_sample gather
+        self._sqrt_ac = torch.as_tensor(self.schedule.sqrt_alphas_cumprod,
+                                        dtype=torch.float32, device=self.device)
+        self._sqrt_1mac = torch.as_tensor(self.schedule.sqrt_one_minus_alphas_cumprod,
+                                          dtype=torch.float32, device=self.device)
+
+    def train_forward(self, x2d, x3d, train=True, generator=None, t_noise_override=None,
+                      droppath_masks=None):
+        """Denoise a q-sampled pose; returns the x0 prediction (B, F, J, 3)
+        with autograd (reference: prepare_targets + the train branch of
+        forward, diffusionpose.py:279-320): per-sample random t and noise.
+
+        t, the noise and the DropPath masks are drawn from `generator` (a
+        torch.Generator on the model's device); `t_noise_override=(t, noise)`
+        replaces the first two draws and `droppath_masks` the masks
+        (deterministic replay and parity tests; see MixSTE2.forward).
+
+        train=False is the JAX `deterministic=True` forward, which there runs
+        the fused stages with their custom backward. Here it is the composed
+        path without DropPath: the same function, and it has a backward,
+        which the fused eval flow has not.
+        """
+        cfg = self.cfg
+        dev = self.device
+        B = x3d.shape[0]
+        x2d = torch.as_tensor(x2d, dtype=torch.float32, device=dev)
+        x3d = torch.as_tensor(x3d, dtype=torch.float32, device=dev) / cfg.unit_scale
+        if t_noise_override is not None:
+            t = torch.as_tensor(t_noise_override[0], device=dev).long()
+            noise = torch.as_tensor(t_noise_override[1], dtype=torch.float32, device=dev)
+        elif generator is None:
+            raise ValueError("train_forward needs a torch.Generator or t_noise_override")
+        else:
+            t = torch.randint(0, cfg.timesteps, (B,), generator=generator, device=dev)
+            noise = torch.randn(x3d.shape, generator=generator, device=dev)
+
+        x_start = x3d * cfg.scale
+        x = (self._sqrt_ac[t][:, None, None, None] * x_start
+             + self._sqrt_1mac[t][:, None, None, None] * noise)
+        x = torch.clamp(x, -1.1 * cfg.scale, 1.1 * cfg.scale) / cfg.scale
+        pred = self.model(x2d, x, t, train=True, generator=generator,
+                          droppath_masks=droppath_masks, drop_path=train)
+        return pred * cfg.unit_scale
 
     @torch.inference_mode()
     def sample(self, x2d, x2d_flip=None, generator=None, noise_override=None):

@@ -91,8 +91,12 @@ class EvalResult:
 
 class Evaluator:
     def __init__(self, d3dp, receptive_field=243, batch_size=4, kps_left=None,
-                 kps_right=None, p2=False):
-        """`p2` adds Protocol-2 on host numpy."""
+                 kps_right=None, p2=False, light=False):
+        """`p2` adds Protocol-2 on host numpy. `light=True` computes only
+        P-Best (no JPMA reprojection), the reference's end-of-epoch
+        validation metric (main.py:455); it takes no P2."""
+        if light and p2:
+            raise ValueError("light evaluation computes P-Best only; it takes no p2")
         self.d3dp = d3dp
         self.device = d3dp.device
         self.rf = receptive_field
@@ -100,12 +104,15 @@ class Evaluator:
         self.kps_left = kps_left
         self.kps_right = kps_right
         self.p2 = p2
+        self.light = light
 
     def _score(self, preds, x2d, x3d, traj, cam, weights):
-        """All four P1 modes of one micro-batch -> (dict of (K,) tensors,
-        root-zeroed preds)."""
+        """All four P1 modes of one micro-batch (P-Best only when light) ->
+        (dict of (K,) tensors, root-zeroed preds)."""
         preds = preds.clone()
         preds[..., 0, :] = 0.0  # zero root (main.py:700)
+        if self.light:
+            return {"P_Best": mpjpe_diffusion(preds, x3d, weights=weights)}, preds
         B, K, H, F, J, _ = preds.shape
         pred_abs = preds + traj[:, None, None]  # JPMA reprojection (main.py:705-712)
         reproj = project_to_2d(pred_abs.reshape(B, K * H * F * J, 3), cam

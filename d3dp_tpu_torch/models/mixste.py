@@ -1,30 +1,40 @@
 """MixSTE2 spatio-temporal transformer denoiser as a torch nn.Module.
 
-Counterpart of d3dp_tpu/models/mixste.py `MixSTE2` on its fused path at
-fuse level 4 (`mixste.py:742-761`): every block is the attention stage
-(`ops.attention.attention_stage`) followed by the transposing MLP step
-(`ops.mlp.mlp_block_t`), which also applies the shared spatial/temporal
-LayerNorm and writes its output in the other stage's layout, so the network
-has no standalone spatial<->temporal transposes. On CUDA tensors those ops
-launch the hand-written kernels; on CPU tensors they run their plain torch
-versions.
+Counterpart of d3dp_tpu/models/mixste.py `MixSTE2` on its two default
+paths:
+
+* eval (`train=False`): the fused flow at fuse level 4 (`mixste.py:742-761`).
+  Every block is the attention stage (`ops.attention.attention_stage`)
+  followed by the transposing MLP step (`ops.mlp.mlp_block_t`), which also
+  applies the shared spatial/temporal LayerNorm and writes its output in the
+  other stage's layout. No autograd; weights come from a cast cache.
+* training (`train=True`): the composed block (`mixste.py:427-467`), with
+  autograd: pre-LN, qkv projection, the attention core
+  (`ops.attention.fused_attention_qkv_ad`, whose backward is a kernel too),
+  out-projection, MLP, per-row DropPath scales, then the shared norm and the
+  spatial<->temporal relayout as plain ops.
+
+On CUDA tensors the ops launch the hand-written kernels; on CPU tensors
+they run their plain torch versions.
 
 Module and parameter names are the original PyTorch MixSTE2's state_dict
 keys (the ones d3dp_tpu/train/convert_torch.py reads), so original
 checkpoints load with `load_state_dict`.
 
-Precision: parameters are fp32; the trunk computes in `cfg.dtype` (fp32 or
-bf16) with fp32 softmax and LayerNorm statistics; the regression head is
-fp32. Parity quirks kept: exact-erf GELU, LN eps 1e-6 in the blocks and
-1e-5 in the head, one shared spatial and one shared temporal norm after
-every depth, the temporal position embedding added once after the first
-spatial block.
+Precision (flax's `Dense(dtype=...)` policy): parameters are fp32; the trunk
+computes in `cfg.dtype` (fp32 or bf16): operands are cast to it, each
+layer's output and the residual stream are in it, softmax and LayerNorm
+statistics are fp32; the regression head is fp32. Parity quirks kept:
+exact-erf GELU, LN eps 1e-6 in the blocks and 1e-5 in the head, one shared
+spatial and one shared temporal norm after every depth, the temporal
+position embedding added once after the first spatial block.
 """
 
 import math
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -46,6 +56,7 @@ class MixSTEConfig:
     num_heads: int = 8
     mlp_ratio: float = 2.0
     qk_scale: Optional[float] = None
+    drop_path_rate: float = 0.0  # stochastic depth, training only
     dtype: torch.dtype = torch.float32  # compute dtype (bf16 for the fast path)
 
 
@@ -68,56 +79,94 @@ class SinusoidalPosEmb(nn.Module):
         return sinusoidal_time_embedding(t, self.dim)
 
 
+def _linear(lin, x):
+    """nn.Linear in x's dtype: fp32 parameters cast to it (differentiably)."""
+    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+
+
+def _layer_norm(norm, x):
+    """LayerNorm in fp32 (statistics, parameters, and the backward's sums),
+    output rounded to x's dtype, as flax's LayerNorm(dtype=...) computes."""
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias,
+                        norm.eps).to(x.dtype)
+
+
 class Mlp(nn.Module):
     def __init__(self, dim, hidden):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
+    def forward(self, x):
+        return _linear(self.fc2, F.gelu(_linear(self.fc1, x), approximate="none"))
+
 
 class Attention(nn.Module):
-    def __init__(self, dim):
+    def __init__(self, dim, num_heads, scale):
         super().__init__()
+        self.num_heads, self.scale = num_heads, scale
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
+    def forward(self, x):
+        o = attention.fused_attention_qkv_ad(_linear(self.qkv, x), self.num_heads, self.scale)
+        return _linear(self.proj, o)
+
 
 class Block(nn.Module):
-    """Parameter holder of one pre-LN block (norm1, attn, norm2, mlp)."""
+    """One pre-LN block (norm1, attn, norm2, mlp). `forward` is the composed
+    training path; the eval path reads the parameters through
+    `MixSTE2._weights`."""
 
-    def __init__(self, dim, hidden):
+    def __init__(self, dim, hidden, num_heads, scale):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=BLOCK_EPS)
-        self.attn = Attention(dim)
+        self.attn = Attention(dim, num_heads, scale)
         self.norm2 = nn.LayerNorm(dim, eps=BLOCK_EPS)
         self.mlp = Mlp(dim, hidden)
 
+    def forward(self, x, masks=None):
+        """x: (R, N, C) in the compute dtype. masks: None or the two per-row
+        DropPath scale vectors (R,) fp32, one per residual branch."""
+        dt = x.dtype
+        a = self.attn(_layer_norm(self.norm1, x))
+        if masks is not None:
+            a = (a * masks[0][:, None, None]).to(dt)
+        x = x + a
+        h = self.mlp(_layer_norm(self.norm2, x))
+        if masks is not None:
+            h = (h * masks[1][:, None, None]).to(dt)
+        return x + h
+
 
 class MixSTE2(nn.Module):
-    """forward(x2d, x3d, t): x2d (B, F, J, in_chans) conditioning keypoints,
-    x3d (B, F, J, 3) noisy pose, t (B,) timesteps -> (B, F, J, 3) fp32
-    clean-pose prediction. Hypotheses and flip-TTA are folded into B by the
-    sampler."""
+    """forward(x2d, x3d, t, train=False, ...): x2d (B, F, J, in_chans)
+    conditioning keypoints, x3d (B, F, J, 3) noisy pose, t (B,) timesteps ->
+    (B, F, J, 3) fp32 clean-pose prediction. Hypotheses and flip-TTA are
+    folded into B by the sampler."""
 
     def __init__(self, cfg: MixSTEConfig, device=None, seed=0):
         super().__init__()
         self.cfg = cfg
         C, J, Fr = cfg.embed_dim, cfg.num_joints, cfg.num_frames
         hidden = int(C * cfg.mlp_ratio)
+        scale = cfg.qk_scale or (C // cfg.num_heads) ** -0.5
         self.Spatial_patch_to_embedding = nn.Linear(cfg.in_chans + 3, C)
         self.Spatial_pos_embed = nn.Parameter(torch.zeros(1, J, C))
         self.Temporal_pos_embed = nn.Parameter(torch.zeros(1, Fr, C))
         self.time_mlp = nn.Sequential(
             SinusoidalPosEmb(C), nn.Linear(C, 2 * C), nn.GELU(), nn.Linear(2 * C, C))
-        self.STEblocks = nn.ModuleList(Block(C, hidden) for _ in range(cfg.depth))
-        self.TTEblocks = nn.ModuleList(Block(C, hidden) for _ in range(cfg.depth))
+        self.STEblocks = nn.ModuleList(
+            Block(C, hidden, cfg.num_heads, scale) for _ in range(cfg.depth))
+        self.TTEblocks = nn.ModuleList(
+            Block(C, hidden, cfg.num_heads, scale) for _ in range(cfg.depth))
         self.Spatial_norm = nn.LayerNorm(C, eps=BLOCK_EPS)
         self.Temporal_norm = nn.LayerNorm(C, eps=BLOCK_EPS)
         self.head = nn.Sequential(nn.LayerNorm(C, eps=HEAD_EPS), nn.Linear(C, 3))
         self._init_weights(seed)
         self.to(resolve_device(device))
-        self.requires_grad_(False)  # eval-only in this port so far
         self._cache = None
+        self._cache_key = None
 
     @torch.no_grad()
     def _init_weights(self, seed):
@@ -134,25 +183,32 @@ class MixSTE2(nn.Module):
                 m.bias.zero_()
 
     # -------------------------------------------------------- weight cache
-    def invalidate_weight_cache(self):
-        """Drop the cached compute-dtype weights; call after changing
-        parameters in place (`load_state_dict` and `.to()` call it)."""
-        self._cache = None
-
     def _apply(self, fn, *args, **kwargs):
-        self.invalidate_weight_cache()
+        self._cache = None  # `.to()` and friends may reuse freed storage
         return super()._apply(fn, *args, **kwargs)
 
-    def load_state_dict(self, *args, **kwargs):
-        self.invalidate_weight_cache()
-        return super().load_state_dict(*args, **kwargs)
+    def _front_weights(self):
+        """Embedding, time-MLP and spatial position weights in the compute
+        dtype, (out, in) for F.linear."""
+        dt = self.cfg.dtype
+
+        def linear(lin):
+            return lin.weight.to(dt), lin.bias.to(dt)
+
+        return dict(embed=linear(self.Spatial_patch_to_embedding),
+                    time1=linear(self.time_mlp[1]), time2=linear(self.time_mlp[3]),
+                    spatial_pos=self.Spatial_pos_embed.to(dt))
 
     @torch.no_grad()
     def _weights(self):
-        """Kernel-layout weights, built once and cached: matrices transposed
-        to (in, out) and cast to the compute dtype ONCE here, not on every
-        DDIM step; biases and LayerNorm parameters stay fp32."""
-        if self._cache is not None:
+        """Kernel-layout weights, cached: matrices transposed to (in, out)
+        and cast to the compute dtype once, not on every DDIM step; biases
+        and LayerNorm parameters stay fp32. The cache is keyed on every
+        parameter's storage and version counter, so it is rebuilt after any
+        change to a parameter: an optimizer step, `load_state_dict`, or an
+        in-place edit."""
+        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        if self._cache is not None and self._cache_key == key:
             return self._cache
         dt = self.cfg.dtype
 
@@ -171,13 +227,9 @@ class MixSTE2(nn.Module):
                 w1=mat(b.mlp.fc1), b1=vec(b.mlp.fc1.bias),
                 w2=mat(b.mlp.fc2), b2=vec(b.mlp.fc2.bias))
 
-        def linear(lin):  # (out, in) for F.linear, compute dtype
-            return lin.weight.to(dt), lin.bias.to(dt)
-
+        self._cache_key = key
         self._cache = dict(
-            embed=linear(self.Spatial_patch_to_embedding),
-            time1=linear(self.time_mlp[1]), time2=linear(self.time_mlp[3]),
-            spatial_pos=self.Spatial_pos_embed.to(dt),
+            **self._front_weights(),
             temporal_pos=self.Temporal_pos_embed.to(dt),
             ste=[block(b) for b in self.STEblocks],
             tte=[block(b) for b in self.TTEblocks],
@@ -201,19 +253,44 @@ class MixSTE2(nn.Module):
             w["w2"], w["b2"], out_norm[0], out_norm[1], BLOCK_EPS)
         return out.view(B * N, D1, C)
 
-    def forward(self, x2d, x3d, t):
-        cfg = self.cfg
-        dt = cfg.dtype
-        B, Fr, J, _ = x3d.shape
-        C = cfg.embed_dim
-        W = self._weights()
-
+    def _embed(self, x2d, x3d, t, W):
+        """Joint embedding + spatial position + time embedding -> (B, F, J, C)
+        in the compute dtype."""
+        dt = self.cfg.dtype
         x = F.linear(torch.cat([x2d, x3d], dim=-1).to(dt), *W["embed"])
-        temb = sinusoidal_time_embedding(t, C).to(dt)
+        temb = sinusoidal_time_embedding(t, self.cfg.embed_dim).to(dt)
         temb = F.gelu(F.linear(temb, *W["time1"]), approximate="none")
         temb = F.linear(temb, *W["time2"])
         x = x + W["spatial_pos"]  # (1, J, C) over (B, F, J, C)
-        x = x + temb[:, None, None, :]
+        return x + temb[:, None, None, :]
+
+    def _head(self, x):
+        """Head LayerNorm (eps 1e-5, output in the compute dtype), then the
+        fp32 regression head."""
+        ln, head = self.head[0], self.head[1]
+        x = F.layer_norm(x.float(), (self.cfg.embed_dim,), ln.weight, ln.bias, HEAD_EPS)
+        return F.linear(x.to(self.cfg.dtype).float(), head.weight, head.bias)
+
+    def forward(self, x2d, x3d, t, train=False, generator=None, droppath_masks=None,
+                drop_path=True):
+        """train=False (the JAX `deterministic=True`): the fused eval flow,
+        which has no backward. train=True: the composed path with autograd
+        and, where `cfg.drop_path_rate` > 0 and `drop_path`, DropPath. Its
+        masks are drawn from `generator` (a torch.Generator on the model's
+        device), or taken from `droppath_masks` = {"ste_i" / "tte_i": (m1,
+        m2)}, each (rows,) fp32, for every block whose rate is above 0
+        (parity tests). train=True with drop_path=False is the deterministic
+        function with a backward."""
+        if train:
+            return self._forward_composed(x2d, x3d, t, generator, droppath_masks, drop_path)
+        return self._forward_fused(x2d, x3d, t)
+
+    def _forward_fused(self, x2d, x3d, t):
+        cfg = self.cfg
+        B, Fr, J, _ = x3d.shape
+        C = cfg.embed_dim
+        W = self._weights()
+        x = self._embed(x2d, x3d, t, W)
 
         # transpose-free flow: each block leaves its output in the next
         # stage's layout, (B*F, J, C) <-> (B*J, F, C)
@@ -223,8 +300,47 @@ class MixSTE2(nn.Module):
             if i == 0:
                 h = h + W["temporal_pos"]  # (B*J, F, C) + (1, F, C)
             h = self._block(W["tte"][i], h, W["temporal_norm"], B)
-        x = h.view(B, Fr, J, C)
+        return self._head(h.view(B, Fr, J, C))
 
-        ln, head = self.head[0], self.head[1]
-        x = F.layer_norm(x.float(), (C,), ln.weight, ln.bias, HEAD_EPS).to(dt)
-        return F.linear(x.float(), head.weight, head.bias)  # fp32 head
+    def _droppath_masks(self, name, rate, n_rows, generator, given):
+        """The two per-row DropPath scale vectors of one block (1/keep where
+        kept, 0 where dropped; `mixste.py:383-396`), or None at rate 0."""
+        if rate <= 0.0:
+            return None
+        dev = self.Spatial_pos_embed.device
+        if given is not None:
+            return tuple(torch.as_tensor(m, dtype=torch.float32, device=dev)
+                         for m in given[name])
+        if generator is None:
+            raise ValueError("DropPath needs a torch.Generator or droppath_masks")
+        keep = 1.0 - rate
+
+        def draw():
+            u = torch.rand(n_rows, generator=generator, device=dev)
+            return torch.where(u < keep, 1.0 / keep, 0.0)
+        return draw(), draw()
+
+    def _forward_composed(self, x2d, x3d, t, generator, droppath_masks, drop_path):
+        cfg = self.cfg
+        B, Fr, J, _ = x3d.shape
+        C = cfg.embed_dim
+        rates = np.linspace(0, cfg.drop_path_rate if drop_path else 0.0, cfg.depth)
+        x = self._embed(x2d, x3d, t, self._front_weights())
+
+        def block(kind, i, h, norm):
+            """Block, shared norm, then the relayout (B*D1, N, C) ->
+            (B*N, D1, C) into the other stage's layout."""
+            masks = self._droppath_masks(f"{kind}_{i}", float(rates[i]), h.shape[0],
+                                         generator, droppath_masks)
+            blocks = self.STEblocks if kind == "ste" else self.TTEblocks
+            h = _layer_norm(norm, blocks[i](h, masks))
+            R, N, _ = h.shape
+            return h.view(B, R // B, N, C).transpose(1, 2).reshape(B * N, R // B, C)
+
+        h = x.reshape(B * Fr, J, C)
+        for i in range(cfg.depth):
+            h = block("ste", i, h, self.Spatial_norm)
+            if i == 0:
+                h = h + self.Temporal_pos_embed.to(cfg.dtype)
+            h = block("tte", i, h, self.Temporal_norm)
+        return self._head(h.view(B, Fr, J, C))

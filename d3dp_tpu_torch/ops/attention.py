@@ -1,14 +1,22 @@
-"""The fused pre-LN attention stage of a MixSTE block.
+"""MixSTE attention: the fused pre-LN stage (eval) and the attention core
+with its backward (training).
 
 `attention_stage` is the counterpart of `attention_stage_p` in the JAX
 package (`d3dp_tpu/ops/attention.py`): LN1 -> qkv projection -> per-head
 softmax attention -> out-projection -> residual -> LN2, returning
 (x2, y2) with x2 = x + proj(attn(qkv(LN1(x)))) and y2 = LN2(x2).
 
-On a CUDA tensor it launches the hand-written kernel in
-`csrc/attention_stage.cu`; on a CPU tensor it runs `attention_stage_plain`,
-the same math in plain torch ops and the same op order. There is no fallback
-between the two: a CUDA input the kernel does not take raises.
+`fused_attention_qkv` and `fused_attention_qkv_bwd` are the counterparts of
+the JAX package's `fused_attention_qkv` and `_fused_attention_qkv_bwd`:
+softmax attention read from the packed (R, N, 3C) qkv projection, and its
+backward, which recomputes the softmax from qkv. `fused_attention_qkv_ad`
+joins them as a `torch.autograd.Function` (the JAX `custom_vjp`).
+
+On a CUDA tensor each op launches its hand-written kernel
+(`csrc/attention_stage.cu`, `csrc/attention_qkv.cu`); on a CPU tensor it
+runs its `*_plain` version, the same math in plain torch ops and the same
+op order. There is no fallback between the two: a CUDA input the kernel does
+not take raises.
 """
 
 import ctypes
@@ -25,6 +33,23 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIG = [_P] * 13 + [_I, _I, _I, _I, _F, _F, _P]
 _FN = {torch.bfloat16: "d3dp_attention_stage_bf16",
        torch.float32: "d3dp_attention_stage_f32"}
+_SIG_FWD = [_P, _P, _I, _I, _I, _I, _F, _P]
+_SIG_BWD = [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
+_QKV_FN = {torch.bfloat16: ("d3dp_attention_qkv_fwd_bf16", "d3dp_attention_qkv_bwd_bf16"),
+           torch.float32: ("d3dp_attention_qkv_fwd_f32", "d3dp_attention_qkv_bwd_f32")}
+
+
+def _split(t, parts, num_heads):
+    """(R, N, parts*C) packed -> `parts` tensors of (R, h, N, d)."""
+    R, N, PC = t.shape
+    d = PC // (parts * num_heads)
+    return t.reshape(R, N, parts, num_heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def _merge(*xs):
+    """(R, h, N, d) tensors -> (R, N, len(xs)*h*d) packed."""
+    R, h, N, d = xs[0].shape
+    return torch.stack(xs, dim=2).permute(0, 3, 2, 1, 4).reshape(R, N, len(xs) * h * d)
 
 
 def attention_stage_plain(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
@@ -37,14 +62,11 @@ def attention_stage_plain(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
     bias, P.V runs on bf16 p with 1/l folded into the output, and the
     attention output rounds to bf16 before the projection.
     """
-    R, N, C = x.shape
     dt = x.dtype
-    d = C // num_heads
     x32 = x.float()
     y1 = layer_norm_rows(x32, ln1_s, ln1_b, eps)
     qkv = (_mm(y1.to(dt), wqkv) + bqkv.float()).to(dt)
-    qkv = qkv.view(R, N, 3, num_heads, d).permute(2, 0, 3, 1, 4)  # (3,R,h,N,d)
-    q, k, v = qkv[0], qkv[1], qkv[2]
+    q, k, v = _split(qkv, 3, num_heads)
     s = _mm(q, k.transpose(-1, -2)) * scale
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -53,8 +75,7 @@ def attention_stage_plain(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
         o = _mm(p / l, v)
     else:
         o = _mm(p.to(dt), v) * (1.0 / l)
-    o = o.to(dt).permute(0, 2, 1, 3).reshape(R, N, C)
-    branch = _mm(o, wp) + bp.float()
+    branch = _mm(_merge(o.to(dt)), wp) + bp.float()
     x2 = x32 + branch
     y2 = layer_norm_rows(x2, ln2_s, ln2_b, eps)
     return x2.to(dt), y2.to(dt)
@@ -107,3 +128,130 @@ def attention_stage(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
 
 
 attention_stage.launches = 0
+
+
+# ----------------------------------------------------- training attention core
+def fused_attention_qkv_plain(qkv, num_heads, scale):
+    """Plain torch ops in the TPU kernel's order (`_attn_head`): fp32
+    logits and softmax, p divided by l BEFORE the cast to the compute dtype,
+    P.V accumulated in fp32 and rounded to the compute dtype.
+    qkv: (R, N, 3C) -> (R, N, C)."""
+    dt = qkv.dtype
+    q, k, v = _split(qkv, 3, num_heads)
+    s = _mm(q, k.transpose(-1, -2)) * scale
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    a = (p / p.sum(dim=-1, keepdim=True)).to(dt)
+    return _merge(_mm(a, v).to(dt))
+
+
+def fused_attention_qkv_bwd_plain(qkv, dout, num_heads, scale):
+    """Plain torch ops of the TPU backward kernel (`_attn_bwd_kernel`):
+    recompute P in fp32, then dV = bf16(P)^T dO, dP = dO V^T,
+    dS = P o (dP - rowsum(dP o P)) * scale cast to the compute dtype,
+    dQ = dS K, dK = dS^T Q, all accumulated in fp32.
+    qkv (R, N, 3C), dout (R, N, C) -> d(qkv) (R, N, 3C) in qkv's dtype."""
+    dt = qkv.dtype
+    q, k, v = _split(qkv, 3, num_heads)
+    (do,) = _split(dout, 1, num_heads)
+    s = _mm(q, k.transpose(-1, -2)) * scale
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    p = e / e.sum(dim=-1, keepdim=True)
+    dv = _mm(p.to(dt).transpose(-1, -2), do)
+    dp = _mm(do, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = (ds * scale).to(dt)
+    dq = _mm(ds, k)
+    dk = _mm(ds.transpose(-1, -2), q)
+    return _merge(dq.to(dt), dk.to(dt), dv.to(dt))
+
+
+def _check_qkv(qkv, num_heads, what):
+    """Shape, dtype and head checks shared by the two kernels' wrappers."""
+    if qkv.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {qkv.device}")
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv must be (R, N, 3C), got {tuple(qkv.shape)}")
+    R, N, C3 = qkv.shape
+    C = C3 // 3
+    if qkv.dtype not in _QKV_FN:
+        raise ValueError(f"{what}: unsupported dtype {qkv.dtype}")
+    if C != num_heads * HEAD_DIM or num_heads > 65535:
+        raise ValueError(f"{what}: needs head_dim {HEAD_DIM} (C={C}, heads={num_heads})")
+    if not 1 <= N <= MAX_TOKENS:
+        raise ValueError(f"{what}: N={N} outside 1..{MAX_TOKENS}")
+    _build.check_operand(qkv, "qkv", qkv.dtype, (R, N, C3), qkv.device)
+    return R, N, C
+
+
+def _qkv_lib():
+    return _build.load("attention_qkv", {
+        **{fns[0]: _SIG_FWD for fns in _QKV_FN.values()},
+        **{fns[1]: _SIG_BWD for fns in _QKV_FN.values()}})
+
+
+def fused_attention_qkv(qkv, num_heads, scale):
+    """Softmax attention from the packed qkv projection, (R, N, 3C) ->
+    (R, N, C); see the module docstring."""
+    if qkv.device.type == "cpu":
+        return fused_attention_qkv_plain(qkv, num_heads, scale)
+    R, N, C = _check_qkv(qkv, num_heads, "fused_attention_qkv")
+    dev = qkv.device
+    out = torch.empty((R, N, C), dtype=qkv.dtype, device=dev)
+    lib = _qkv_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, _QKV_FN[qkv.dtype][0])(
+            qkv.data_ptr(), out.data_ptr(), R, N, C, num_heads, float(scale), stream)
+    _build.check(err, "fused_attention_qkv")
+    fused_attention_qkv.launches += 1
+    return out
+
+
+def fused_attention_qkv_bwd(qkv, dout, num_heads, scale):
+    """d(qkv) of `fused_attention_qkv` given the output gradient dout
+    (R, N, C); the softmax is recomputed from qkv."""
+    if qkv.device.type == "cpu":
+        return fused_attention_qkv_bwd_plain(qkv, dout, num_heads, scale)
+    R, N, C = _check_qkv(qkv, num_heads, "fused_attention_qkv_bwd")
+    dev = qkv.device
+    _build.check_operand(dout, "dout", qkv.dtype, (R, N, C), dev)
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((R, num_heads, 3, N), dtype=torch.float32, device=dev)
+    lib = _qkv_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, _QKV_FN[qkv.dtype][1])(
+            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), R, N, C,
+            num_heads, float(scale), stream)
+    _build.check(err, "fused_attention_qkv_bwd")
+    fused_attention_qkv_bwd.launches += 1
+    return dqkv
+
+
+fused_attention_qkv.launches = 0
+fused_attention_qkv_bwd.launches = 0
+
+
+class _FusedAttentionQKV(torch.autograd.Function):
+    """Forward saves only qkv; backward recomputes the softmax (the JAX
+    package's `_ad_fwd` / `_ad_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return fused_attention_qkv(qkv, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (qkv,) = ctx.saved_tensors
+        return (fused_attention_qkv_bwd(qkv, dout.contiguous(), ctx.num_heads, ctx.scale),
+                None, None)
+
+
+def fused_attention_qkv_ad(qkv, num_heads, scale):
+    """Differentiable `fused_attention_qkv`: the backward launches
+    `fused_attention_qkv_bwd`."""
+    return _FusedAttentionQKV.apply(qkv, num_heads, scale)

@@ -7,6 +7,8 @@
 // Matrix products: bf16 operands go through the tensor cores with
 // nvcuda::wmma 16x16x16 fragments and fp32 accumulation; fp32 operands use
 // plain FMAs (the fp32 path exists for parity checks, not for speed).
+// The per-head attention kernel at the end (`attend_kernel`) works on one
+// (sequence, head, query block) instead of token rows.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -221,6 +223,186 @@ __device__ __forceinline__ void gemm_rowblock(const float* As, int lda, const fl
 template <typename T>
 __host__ __device__ constexpr size_t bs_bytes() {
   return align128(sizeof(T) * kStages * slab_elems<T>());
+}
+
+// ------------------------------------------------------- per-head attention
+// Shared by the attention stage (attention_stage.cu) and the attention core
+// of the training path (attention_qkv.cu): softmax attention of one head,
+// read from the packed (R, N, 3C) qkv layout (q | k | v, heads of 64 packed
+// along each third), written to (R, N, C).
+constexpr int kHeadDim = 64;
+constexpr int kMaxKeys = 256;
+
+struct AttnLayout {
+  int QB, NK, ldq, ldk, ldv, lds, ldp;
+  size_t q, k, v, s, p, linv, total;
+};
+
+template <typename T>
+AttnLayout attn_layout(int N) {
+  constexpr bool f32 = std::is_same<T, float>::value;
+  AttnLayout L;
+  L.NK = cdiv(N, 16) * 16;
+  L.QB = L.NK < 64 ? L.NK : 64;
+  // fp32 reads K transposed (thread j walks row j): an odd row stride keeps
+  // those reads on distinct banks. bf16 rows keep wmma's 16-byte multiple.
+  L.ldq = f32 ? kHeadDim + 1 : kHeadDim + 8;
+  L.ldk = f32 ? kHeadDim + 1 : kHeadDim + 8;
+  L.ldv = f32 ? kHeadDim : kHeadDim + 8;
+  L.lds = L.NK + 4;
+  L.ldp = L.NK + 8;
+  size_t off = 0;
+  L.q = off; off += align128(sizeof(T) * L.QB * L.ldq);
+  L.k = off; off += align128(sizeof(T) * L.NK * L.ldk);
+  L.v = off; off += align128(sizeof(T) * L.NK * L.ldv);
+  // the logits buffer doubles as the bf16 path's fp32 P.V output
+  L.s = off; off += align128(sizeof(float) * L.QB * (L.lds > kHeadDim + 4 ? L.lds : kHeadDim + 4));
+  L.p = off; off += f32 ? 0 : align128(sizeof(bf16) * L.QB * L.ldp);
+  L.linv = off; off += align128(sizeof(float) * L.QB);
+  L.total = off;
+  return L;
+}
+
+// grid (sequence, head, query block). qkv: (R, N, 3C); out: (R, N, C).
+// One block holds <=64 queries and all <=256 keys (tail zero-filled) with the
+// fp32 logits, so the softmax is exact over the whole row.
+// fp32 always divides p by l before P.V. For bf16, kNormFirst picks the
+// order: true rounds p / l to bf16 before P.V (the TPU attention core's
+// `_attn_head`); false runs P.V on the unnormalised bf16 p and folds 1/l
+// into the output (the TPU attention stage's order).
+template <typename T, bool kNormFirst>
+__global__ void __launch_bounds__(kThreads)
+attend_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int C, float scale,
+              AttnLayout L) {
+  constexpr bool f32 = std::is_same<T, float>::value;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem + L.q);
+  T* Ks = reinterpret_cast<T*>(smem + L.k);
+  T* Vs = reinterpret_cast<T*>(smem + L.v);
+  float* Ss = reinterpret_cast<float*>(smem + L.s);
+  float* linv = reinterpret_cast<float*>(smem + L.linv);
+
+  const int seq = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * L.QB;
+  const int QB = L.QB, NK = L.NK;
+  const size_t ld3 = 3 * (size_t)C;
+  const T* base = qkv + (size_t)seq * N * ld3 + h * kHeadDim;
+  load_rows(Qs, L.ldq, base + (size_t)q0 * ld3, (int)ld3, QB, N - q0, kHeadDim);
+  load_rows(Ks, L.ldk, base + C, (int)ld3, NK, N, kHeadDim);
+  load_rows(Vs, L.ldv, base + 2 * C, (int)ld3, NK, N, kHeadDim);
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // S = Q K^T (unscaled), fp32
+  if constexpr (f32) {
+    for (int i = threadIdx.x; i < QB * NK; i += kThreads) {
+      const int qi = i / NK, kj = i % NK;
+      const float* a = Qs + qi * L.ldq;
+      const float* b = Ks + kj * L.ldk;
+      float acc = 0.f;
+#pragma unroll 16
+      for (int d = 0; d < kHeadDim; ++d) acc = fmaf(a[d], b[d], acc);
+      Ss[qi * L.lds + kj] = acc;
+    }
+  } else {
+    using namespace nvcuda;
+    const int nfj = NK / 16;
+    for (int f = warp; f < (QB / 16) * nfj; f += kWarps) {
+      const int fi = f / nfj, fj = f % nfj;
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < kHeadDim; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+        wmma::load_matrix_sync(a, Qs + fi * 16 * L.ldq + kk, L.ldq);
+        wmma::load_matrix_sync(b, Ks + fj * 16 * L.ldk + kk, L.ldk);
+        wmma::mma_sync(acc, a, b, acc);
+      }
+      wmma::store_matrix_sync(Ss + fi * 16 * L.lds + fj * 16, acc, L.lds, wmma::mem_row_major);
+    }
+  }
+  __syncthreads();
+
+  // exact softmax over the N valid keys of each row: s = dot * scale,
+  // m = max(s), p = exp(s - m), l = sum(p)
+  for (int r = warp; r < QB; r += kWarps) {
+    float* srow = Ss + r * L.lds;
+    float m = -INFINITY;
+    for (int j = lane; j < N; j += 32) {
+      const float s = srow[j] * scale;
+      srow[j] = s;
+      m = fmaxf(m, s);
+    }
+    m = warp_max(m);
+    float l = 0.f;
+    for (int j = lane; j < NK; j += 32) {
+      const float p = j < N ? expf(srow[j] - m) : 0.f;
+      srow[j] = p;
+      l += p;
+    }
+    l = warp_sum(l);
+    if constexpr (f32) {
+      for (int j = lane; j < N; j += 32) srow[j] = srow[j] / l;
+    } else {
+      bf16* prow = reinterpret_cast<bf16*>(smem + L.p) + r * L.ldp;
+      for (int j = lane; j < NK; j += 32)
+        prow[j] = __float2bfloat16(kNormFirst ? srow[j] / l : srow[j]);
+      if (lane == 0) linv[r] = kNormFirst ? 1.0f : 1.0f / l;
+    }
+  }
+  __syncthreads();
+
+  T* orow0 = out + ((size_t)seq * N + q0) * C + h * kHeadDim;
+  const int nq = min(QB, N - q0);
+  if constexpr (f32) {
+    // O = (P / l) V, written straight out
+    for (int i = threadIdx.x; i < nq * kHeadDim; i += kThreads) {
+      const int qi = i / kHeadDim, d = i % kHeadDim;
+      const float* p = Ss + qi * L.lds;
+      float acc = 0.f;
+      for (int j = 0; j < N; ++j) acc = fmaf(p[j], Vs[j * L.ldv + d], acc);
+      orow0[(size_t)qi * C + d] = acc;
+    }
+  } else {
+    // O = P V on the tensor cores into the (now free) logits buffer, then
+    // scaled by 1/l (or by 1 where p was normalised first) and rounded to
+    // bf16 on the way out
+    using namespace nvcuda;
+    const bf16* Ps = reinterpret_cast<const bf16*>(smem + L.p);
+    float* Os = Ss;
+    constexpr int ldo = kHeadDim + 4;
+    for (int f = warp; f < (QB / 16) * (kHeadDim / 16); f += kWarps) {
+      const int fi = f / (kHeadDim / 16), fj = f % (kHeadDim / 16);
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.f);
+      for (int kk = 0; kk < NK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+        wmma::load_matrix_sync(a, Ps + fi * 16 * L.ldp + kk, L.ldp);
+        wmma::load_matrix_sync(b, Vs + kk * L.ldv + fj * 16, L.ldv);
+        wmma::mma_sync(acc, a, b, acc);
+      }
+      wmma::store_matrix_sync(Os + fi * 16 * ldo + fj * 16, acc, ldo, wmma::mem_row_major);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < nq * kHeadDim; i += kThreads) {
+      const int qi = i / kHeadDim, d = i % kHeadDim;
+      orow0[(size_t)qi * C + d] = __float2bfloat16(Os[qi * ldo + d] * linv[qi]);
+    }
+  }
+}
+
+// Launch attend_kernel<T, kNormFirst> over R sequences of N tokens.
+template <typename T, bool kNormFirst>
+cudaError_t launch_attend(const T* qkv, T* out, int R, int N, int C, int heads, float scale,
+                          cudaStream_t stream) {
+  const AttnLayout L = attn_layout<T>(N);
+  cudaError_t e = cudaFuncSetAttribute(attend_kernel<T, kNormFirst>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (e != cudaSuccess) return e;
+  dim3 grid(R, heads, cdiv(N, L.QB));
+  attend_kernel<T, kNormFirst><<<grid, kThreads, L.total, stream>>>(qkv, out, N, C, scale, L);
+  return cudaGetLastError();
 }
 
 }  // namespace d3dp

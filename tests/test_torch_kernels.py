@@ -64,8 +64,14 @@ def np_rng():
 TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (3e-2, 2.0 ** -7)}
 
 
-def _excess(got, want, dtype):
-    atol, rel = TOL[dtype]
+# the attention core and its backward: unit-normal qkv at scale 1/8 gives
+# outputs and gradients of about 0.1, so the bf16 absolute term is 1e-2,
+# which a dropped or doubled 16-key tile would exceed
+TOL_QKV = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-2, 2.0 ** -7)}
+
+
+def _excess(got, want, dtype, tol=TOL):
+    atol, rel = tol[dtype]
     d = (got.float() - want.float()).abs()
     return (d - atol - rel * want.float().abs()).max().item()
 
@@ -102,6 +108,59 @@ def test_mlp_block_t_kernel_matches_plain(np_rng, dtype, shape):
     assert _excess(got, want, dtype) <= 0
 
 
+QKV_SHAPES = [(16, 17), (4, 243), (3, 1), (2, 256), (5, 100), (4, 129)]
+
+
+def _qkv_inputs(rng, R, N, dev, dtype, C=512):
+    qkv = torch.from_numpy(rng.randn(R, N, 3 * C).astype(np.float32)).to(dev, dtype)
+    dout = torch.from_numpy(rng.randn(R, N, C).astype(np.float32)).to(dev, dtype)
+    return qkv, dout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,N", QKV_SHAPES)
+def test_fused_attention_qkv_kernel_matches_plain(np_rng, dtype, R, N):
+    dev = _cuda()
+    qkv, _ = _qkv_inputs(np_rng, R, N, dev, dtype)
+    n0 = tattn.fused_attention_qkv.launches
+    got = tattn.fused_attention_qkv(qkv, 8, 0.125)
+    want = tattn.fused_attention_qkv_plain(qkv, 8, 0.125)
+    torch.cuda.synchronize()
+    assert tattn.fused_attention_qkv.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (R, N, 512)
+    assert _excess(got, want, dtype, TOL_QKV) <= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,N", QKV_SHAPES)
+def test_fused_attention_qkv_bwd_kernel_matches_plain(np_rng, dtype, R, N):
+    dev = _cuda()
+    qkv, dout = _qkv_inputs(np_rng, R, N, dev, dtype)
+    n0 = tattn.fused_attention_qkv_bwd.launches
+    got = tattn.fused_attention_qkv_bwd(qkv, dout, 8, 0.125)
+    want = tattn.fused_attention_qkv_bwd_plain(qkv, dout, 8, 0.125)
+    torch.cuda.synchronize()
+    assert tattn.fused_attention_qkv_bwd.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == qkv.shape
+    assert _excess(got, want, dtype, TOL_QKV) <= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,N", [(16, 17), (4, 243)])
+def test_fused_attention_qkv_bwd_kernel_matches_autograd_of_plain(np_rng, R, N):
+    """fp32: the backward kernel against torch.autograd through the plain
+    forward (summation order only)."""
+    dev = _cuda()
+    qkv, dout = _qkv_inputs(np_rng, R, N, dev, torch.float32)
+    qkv.requires_grad_(True)
+    (want,) = torch.autograd.grad(tattn.fused_attention_qkv_plain(qkv, 8, 0.125), qkv, dout)
+    got = tattn.fused_attention_qkv_bwd(qkv.detach(), dout, 8, 0.125)
+    torch.cuda.synchronize()
+    assert _excess(got, want, torch.float32, TOL_QKV) <= 0
+
+
 @pytest.mark.gpu
 def test_wrappers_raise_on_what_the_kernels_do_not_take(np_rng):
     """A CUDA input the kernel does not take raises; nothing falls back to
@@ -120,3 +179,15 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(np_rng):
     margs = _t(_mlp_inputs(np_rng, 2, 9, 17, 512, 1024), dev, torch.bfloat16)
     with pytest.raises(ValueError, match="w1 has dtype"):
         tmlp.mlp_block_t(*margs[:2], margs[2].float(), *margs[3:], 1e-6)
+    qkv, dout = _qkv_inputs(np_rng, 2, 17, dev, torch.bfloat16)
+    with pytest.raises(ValueError, match="N=300"):
+        tattn.fused_attention_qkv(torch.zeros(1, 300, 1536, device=dev), 8, 0.125)
+    with pytest.raises(ValueError, match="head_dim"):
+        tattn.fused_attention_qkv(qkv, 4, 0.125)
+    with pytest.raises(ValueError, match="dtype"):
+        tattn.fused_attention_qkv(qkv.half(), 8, 0.125)
+    with pytest.raises(ValueError, match="dout has dtype"):
+        tattn.fused_attention_qkv_bwd(qkv, dout.float(), 8, 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        tattn.fused_attention_qkv_bwd(qkv, dout.transpose(0, 1).contiguous().transpose(0, 1),
+                                      8, 0.125)

@@ -49,9 +49,40 @@ def test_sources_import_no_jax():
 def test_package_mirrors_layout():
     for m in ("device", "diffusion.schedule", "diffusion.d3dp", "geometry.camera",
               "geometry.quaternion", "ops.attention", "ops.mlp", "models.mixste",
-              "train.convert", "metrics.mpjpe", "metrics.procrustes_np", "data.windowing",
-              "data.prefetch", "data.generators", "data.synthetic", "eval.evaluator"):
+              "train.convert", "train.state", "metrics.mpjpe", "metrics.procrustes_np",
+              "data.windowing", "data.prefetch", "data.generators", "data.synthetic",
+              "eval.evaluator"):
         assert f"d3dp_tpu_torch.{m}" in _modules(), m
+
+
+def test_every_cuda_source_is_built_and_bound():
+    """Each csrc/*.cu is in the build list, and each built library is loaded
+    by an ops wrapper, so a new kernel cannot go unbuilt or unused."""
+    from d3dp_tpu_torch.ops import _build
+
+    sources = sorted(f.stem for f in (PKG / "ops" / "csrc").glob("*.cu"))
+    assert sorted(_build.SOURCES) == sources
+    assert "attention_qkv" in sources
+    wrappers = "".join(f.read_text() for f in (PKG / "ops").glob("*.py"))
+    for name in sources:
+        assert f'_build.load("{name}"' in wrappers, name
+
+
+def test_train_modules_import_no_jax():
+    """The training slice's modules, imported alone, pull in no JAX."""
+    code = (
+        "import sys\n"
+        "import d3dp_tpu_torch.train.state, d3dp_tpu_torch.ops.attention\n"
+        "import d3dp_tpu_torch.data.generators\n"
+        "from d3dp_tpu_torch.ops.attention import fused_attention_qkv_ad\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'd3dp_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked_for():
