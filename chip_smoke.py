@@ -5,25 +5,34 @@
 
 Builds the hand-written kernels from `d3dp_tpu_torch/ops/csrc/`, holds each
 against its plain torch version on the card, checks the full-width MixSTE2
-on the kernel path against the plain path (eval forward, and the training
-loss and gradients), then drives the port's two paths at MixSTE2's
-published width (C=512, 8 heads, depth 8, 243 frames) with random weights
-from a fixed seed:
+on the kernel path against the plain path (eval forward at every fuse
+level, and the training loss and gradients), then drives the port's paths
+at MixSTE2's published width (C=512, 8 heads, depth 8, 243 frames) with
+random weights from a fixed seed:
   * evaluation: multi-hypothesis DDIM sampling (H=5, K=5, bf16, flip-TTA)
-    and the four-mode Evaluator;
+    and the four-mode Evaluator, then one timed sampling call at each fuse
+    level 0-4;
   * training: the default train step (bf16 compute, fp32 AdamW at 6e-5,
     DropPath 0.1, batch 4 chunks of 243 frames from ChunkedGenerator),
     then light validation on the trained weights;
-and times both. Every phase raises on failure; the script exits non-zero
+  * the packed-attention op through its public wrapper;
+  * the H36M command line (`d3dp_tpu_torch.cli.main_h36m`, in process):
+    one training epoch with checkpoints, a resumed epoch, and evaluation of
+    the best checkpoint at every fuse level 0-4;
+and times them. Every phase raises on failure; the script exits non-zero
 without a CUDA device and prints nothing then but the reason. The last
 stdout line is the run's JSON status; the line before it the per-kernel
-JSON. Details also go to `chiprun_out/chip_smoke.json`.
+JSON. Details also go to `chiprun_out/chip_smoke.json`, and the command
+line's own output to `chiprun_out/chip_smoke_cli.log`.
 """
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -111,22 +120,45 @@ def max_err(torch, got, want, ulp_rel):
     return d.max().item(), (d - ulp_rel * want.float().abs()).max().item()
 
 
+def kernel_ops():
+    """{name: wrapper} of every kernel's op, each with its `.launches`."""
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import mlp as M
+
+    return {"attention_stage": A.attention_stage, "mlp_block_t": M.mlp_block_t,
+            "fused_attention_qkv": A.fused_attention_qkv,
+            "fused_attention_qkv_bwd": A.fused_attention_qkv_bwd, "mlp_block": M.mlp_block,
+            "attention_block": A.attention_block,
+            "fused_attention_packed": A.fused_attention_packed}
+
+
+def reset_counts():
+    for f in kernel_ops().values():
+        f.launches = 0
+
+
+def read_counts():
+    return {name: f.launches for name, f in kernel_ops().items()}
+
+
 @contextlib.contextmanager
 def plain_ops():
     """Run the model through the plain torch versions (comparison only)."""
     from d3dp_tpu_torch.ops import attention, mlp
 
-    saved = (attention.attention_stage, mlp.mlp_block_t, attention.fused_attention_qkv,
-             attention.fused_attention_qkv_bwd)
-    attention.attention_stage = attention.attention_stage_plain
-    mlp.mlp_block_t = mlp.mlp_block_t_plain
-    attention.fused_attention_qkv = attention.fused_attention_qkv_plain
-    attention.fused_attention_qkv_bwd = attention.fused_attention_qkv_bwd_plain
+    swaps = [(attention, "attention_stage"), (mlp, "mlp_block_t"),
+             (attention, "fused_attention_qkv"), (attention, "fused_attention_qkv_bwd"),
+             (mlp, "mlp_block"), (attention, "attention_block"),
+             (attention, "fused_attention_packed")]
+    saved = [getattr(mod, name) for mod, name in swaps]
+    plain = {"fused_attention_packed": "fused_attention_plain"}
+    for mod, name in swaps:
+        setattr(mod, name, getattr(mod, plain.get(name, name + "_plain")))
     try:
         yield
     finally:
-        (attention.attention_stage, mlp.mlp_block_t, attention.fused_attention_qkv,
-         attention.fused_attention_qkv_bwd) = saved
+        for (mod, name), f in zip(swaps, saved):
+            setattr(mod, name, f)
 
 
 def perturb_(torch, model, seed):
@@ -171,8 +203,7 @@ def phase_kernels(torch, record):
     from d3dp_tpu_torch.ops import mlp as M
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    errs = {"attention_stage": 0.0, "mlp_block_t": 0.0, "fused_attention_qkv": 0.0,
-            "fused_attention_qkv_bwd": 0.0}
+    errs = {name: 0.0 for name in kernel_ops()}
     for dt in (torch.float32, torch.bfloat16):
         name_dt = str(dt).split(".")[1]
         tol = TOL[name_dt]
@@ -234,8 +265,63 @@ def phase_kernels(torch, record):
                     f"forward: max|err| {e:.3e} (tol {tol:g}) {'ok' if ex <= tol else 'FAIL'}")
                 check(ex <= tol, f"fused_attention_qkv_bwd {label} disagrees with autograd")
             del qkv, dout, got, want
+        check_eval_kernels(torch, gen, dt, name_dt, errs)
     record["max_abs_err_bf16"] = errs
     return errs
+
+
+def block_inputs(torch, gen, R, N, dt):
+    """K6's operands: unit-normal packed qkv, a residual of 0.5, a 0.05
+    projection."""
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * s
+
+    return [rn(R, N, 3 * C).to(dt), rn(R, N, C, s=0.5).to(dt), rn(C, C, s=0.05).to(dt),
+            rn(C, s=0.02), 1 + rn(C, s=0.1), rn(C, s=0.1)]
+
+
+def packed_inputs(torch, gen, R, N, dt):
+    """K7's operands: unit-normal q, k, v, each (R, N, C)."""
+    return [torch.randn(R, N, C, generator=gen, device="cuda").to(dt) for _ in range(3)]
+
+
+def check_eval_kernels(torch, gen, dt, name_dt, errs):
+    """K5 (MLP rows), K6 (attention block) and K7 (packed attention) against
+    their plain versions at the eval path's shapes: K5 on the 165,240 token
+    rows of one block, K6 and K7 at the spatial and temporal stage shapes.
+    Tolerance: K5 and K6 as K2 and K1 (3e-2), K7 as K3 (1e-2), each plus one
+    bf16 ulp in bf16."""
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import mlp as M
+
+    ulp = BF16_ULP if dt == torch.bfloat16 else 0.0
+    tol = TOL[name_dt]
+    args = mlp_inputs(torch, gen, F, J, dt)
+    args[:2] = [a.view(-1, C) for a in args[:2]]
+    cases = [("mlp_block", f"rows{tuple(args[0].shape)}", tol,
+              lambda: (M.mlp_block(*args, 1e-6),), lambda: (M.mlp_block_plain(*args, 1e-6),))]
+    for label, R, N in (("spatial", ROWS * F, J), ("temporal", ROWS * J, F)):
+        b = block_inputs(torch, gen, R, N, dt)
+        p = packed_inputs(torch, gen, R, N, dt)
+        cases += [
+            ("attention_block", f"{label} qkv{tuple(b[0].shape)}", tol,
+             lambda b=b: A.attention_block(*b, HEADS, 0.125, 1e-6),
+             lambda b=b: A.attention_block_plain(*b, HEADS, 0.125, 1e-6)),
+            ("fused_attention_packed", f"{label} q{tuple(p[0].shape)}", TOL_QKV[name_dt],
+             lambda p=p: (A.fused_attention_packed(*p, HEADS, 0.125),),
+             lambda p=p: (A.fused_attention_plain(*p, HEADS, 0.125),))]
+    for name, label, tol_k, run, plain in cases:
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        es = [max_err(torch, g, w, ulp) for g, w in zip(got, want)]
+        ok = all(ex <= tol_k for _, ex in es)
+        log(f"[kernels] {name} {label} {name_dt}: max|err| "
+            f"{' / '.join(f'{e:.3e}' for e, _ in es)} (tol {tol_k:g}"
+            f"{' + 1 bf16 ulp' if ulp else ''}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} {label} {name_dt} disagrees with its plain version")
+        if dt == torch.bfloat16:
+            errs[name] = max(errs[name], *(e for e, _ in es))
+        del got, want
 
 
 def phase_model(torch, record):
@@ -259,6 +345,190 @@ def phase_model(torch, record):
         f"(tol 1e-4) {'ok' if ok else 'FAIL'}")
     check(ok, "MixSTE2 kernel path disagrees with the plain path")
     record["model_fp32_max_abs_err"] = err
+
+
+# launches of one D3DP.sample call (2*depth*K blocks) at each fuse level;
+# every other kernel launches 0 times
+LEVEL_KERNELS = {0: ("fused_attention_qkv",), 1: ("fused_attention_qkv", "mlp_block"),
+                 2: ("attention_block", "mlp_block"), 3: ("attention_block", "mlp_block_t"),
+                 4: ("attention_stage", "mlp_block_t")}
+
+
+def set_level(model, level):
+    """The same weights on another rung of the fuse-level ladder."""
+    model.cfg = dataclasses.replace(model.cfg, fuse_level=level)
+
+
+def phase_fuse_levels(torch, record, d3dp, x2d, x2d_f):
+    """MixSTE2 fp32, full width, depth 2: levels 0-3 against level 4 and
+    against the plain path (1e-4, fp32 summation order only); then one
+    bf16 D3DP.sample at the eval config per level, its launch counts, its
+    time (median of 3 CUDA-event timings after a warm-up call) and, at
+    levels 0-3, its device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from d3dp_tpu_torch.models import MixSTE2, MixSTEConfig
+
+    model = MixSTE2(MixSTEConfig(num_frames=F, embed_dim=C, depth=2), seed=5)
+    perturb_(torch, model, 6)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    xa = torch.randn(2, F, J, 2, generator=g, device="cuda") * 0.3
+    xb = torch.randn(2, F, J, 3, generator=g, device="cuda")
+    t = torch.tensor([999, 17], device="cuda", dtype=torch.int32)
+    with torch.no_grad():
+        ref = model(xa, xb, t)
+        errs = {}
+        for level in range(4):
+            set_level(model, level)
+            out = model(xa, xb, t)
+            with plain_ops():
+                plain = model(xa, xb, t)
+            torch.cuda.synchronize()
+            errs[level] = ((out - ref).abs().max().item(), (out - plain).abs().max().item())
+            ok = bool(torch.isfinite(out).all()) and max(errs[level]) <= 1e-4
+            log(f"[fuse-levels] MixSTE2 fp32 C={C} depth 2 level {level}: max|err| vs level 4 "
+                f"{errs[level][0]:.3e}, vs plain {errs[level][1]:.3e} (tol 1e-4) "
+                f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"MixSTE2 at fuse level {level} disagrees with level 4 or the plain path")
+    del model
+
+    per_call = 2 * DEPTH * K
+    rows = {}
+    for level in range(5):
+        set_level(d3dp.model, level)
+        g = torch.Generator(device="cuda").manual_seed(10 + level)
+        reset_counts()
+        preds = d3dp.sample(x2d, x2d_f, generator=g)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {n: per_call if n in LEVEL_KERNELS[level] else 0 for n in counts}
+        ok = counts == want and bool(torch.isfinite(preds).all())
+        sample_ms = time_ms(torch, lambda: d3dp.sample(x2d, x2d_f, generator=g), reps=3)
+        rows[level] = dict(sample_s=sample_ms / 1e3,
+                           hyp_frames_per_s=B * H * F * K * 1e3 / sample_ms,
+                           launches={n: c for n, c in counts.items() if c})
+        log(f"[fuse-levels] D3DP.sample B={B} H={H} K={K} F={F} bf16 flip-TTA at level {level}: "
+            f"{sample_ms / 1e3:.4f} s/call (median of 3), {rows[level]['hyp_frames_per_s']:.1f} "
+            f"hyp*frames/s; launches {rows[level]['launches']} (expected {per_call} of "
+            f"{', '.join(LEVEL_KERNELS[level])}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"D3DP.sample at fuse level {level}: launch counts or non-finite output")
+        if level < 4:  # level 4's breakdown is phase profile's
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                d3dp.sample(x2d, x2d_f, generator=g)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            rows[level]["profile"] = summarize_profile(
+                torch, prof, wall_ms, f"one D3DP.sample call at level {level}",
+                f"fuse-levels-profile L{level}", top=8)
+    set_level(d3dp.model, 4)
+    record["fuse_levels"] = dict(model_fp32_max_abs_err=errs, sample=rows)
+
+
+def phase_packed(torch, record):
+    """The packed-attention op (K7) has no caller on the model's paths; its
+    path is its public (B, N, h, d) wrapper `fused_attention`, called once at
+    each stage shape of the eval path."""
+    from d3dp_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    reset_counts()
+    for R, N in ((ROWS * F, J), (ROWS * J, F)):
+        q, k, v = (t.view(R, N, HEADS, C // HEADS)
+                   for t in packed_inputs(torch, gen, R, N, torch.bfloat16))
+        out = A.fused_attention(q, k, v, 0.125)
+        check(tuple(out.shape) == (R, N, HEADS, C // HEADS) and bool(torch.isfinite(out).all()),
+              "fused_attention: wrong shape or non-finite output")
+    torch.cuda.synchronize()
+    n = read_counts()["fused_attention_packed"]
+    log(f"[packed] fused_attention (B, N, h, d) bf16 at both stage shapes: launches {n} "
+        f"(expected 2) {'ok' if n == 2 else 'FAIL'}")
+    check(n == 2, "fused_attention did not launch its kernel")
+    record["launches"]["fused_attention_packed"] = n
+
+
+def report_lines(path):
+    """{(label, mode): [mm per step]} from an h36m_test_log file, for the
+    action-wise averages (Protocol 1)."""
+    out = {}
+    pat = re.compile(r"step (\d+) Protocol #1 +\(MPJPE\) action-wise average (\w+): (\S+) mm")
+    lines = open(path).read().splitlines()
+    for line in lines:
+        m = pat.match(line)
+        if m:
+            out.setdefault(m.group(2), []).append(float(m.group(3)))
+    return out, lines
+
+
+def phase_cli(torch, record):
+    """The H36M command line in process, at the published width with the
+    synthetic dataset: one training epoch with checkpoints, a resumed
+    second epoch, then `--evaluate best_epoch.ckpt` (H=5, K=5) at every
+    fuse level. Every report line must be a finite number and J-Best <=
+    P-Best. Checkpoints go to a directory under log/ (git-ignored) that is
+    removed afterwards; the command line's output goes to
+    chiprun_out/chip_smoke_cli.log."""
+    from d3dp_tpu_torch.cli import main_h36m
+
+    ckdir = os.path.join("log", "chip_smoke_cli")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    os.makedirs(ckdir)
+    base = ["-d", "synthetic", "--nolog", "-cs", str(C), "-dep", str(DEPTH), "-f", str(F),
+            "--dtype", "bfloat16", "-c", ckdir, "--eval-batch-size", str(B)]
+    # 6 test sequences of 400 synthetic frames: 2 windows each, 1 micro-batch
+    n_batches = 2 * 3 * math.ceil(math.ceil(400 / F) / B)
+    runs = [("train", ["-e", "1", "-cf", "1"]),
+            ("resume", ["-r", "epoch_1.ckpt", "-e", "2", "-cf", "1"])]
+    runs += [(f"eval L{level}", ["--evaluate", "best_epoch.ckpt", "-num_proposals", str(H),
+                                 "-sampling_timesteps", str(K), "--fuse-level", str(level)])
+             for level in range(5)]
+    out = {}
+    try:
+        with open(os.path.join("chiprun_out", "chip_smoke_cli.log"), "w") as f:
+            for name, extra in runs:
+                reset_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(f):
+                    print(f"==== {name}: {' '.join(base + extra)}", flush=True)
+                    main_h36m.main(base + extra)
+                torch.cuda.synchronize()
+                counts = {n: c for n, c in read_counts().items() if c}
+                out[name] = dict(seconds=time.perf_counter() - t0, launches=counts)
+                if name.startswith("eval"):
+                    level = int(name[-1])
+                    logf = os.path.join(ckdir, f"h36m_test_log_H{H}_K{K}.txt")
+                    avg, lines = report_lines(logf)
+                    os.replace(logf, os.path.join(ckdir, f"level{level}.txt"))
+                    nums = [float(x) for line in lines
+                            for x in re.findall(r": (\S+) mm$", line)]
+                    finite = len(nums) == len(lines) - 3 * 2 and all(map(math.isfinite, nums))
+                    jbest = all(j <= p + 1e-9 for j, p in zip(avg["J_Best"], avg["P_Best"]))
+                    want = {n: n_batches * 2 * DEPTH * K for n in LEVEL_KERNELS[level]}
+                    ok = finite and jbest and len(avg["P_Best"]) == K and counts == want
+                    out[name].update(action_avg_mm={m: v for m, v in avg.items()})
+                    log(f"[cli] {name}: {out[name]['seconds']:.1f} s, {len(nums)} report numbers "
+                        f"finite {finite}, J-Best <= P-Best {jbest}, last-step P1 action-wise "
+                        + ", ".join(f"{m} {v[-1]:.2f}" for m, v in avg.items())
+                        + f" mm; launches {counts} (expected {want}) {'ok' if ok else 'FAIL'}")
+                    check(ok, f"command line {name}: report lines or launch counts")
+                else:
+                    ck = "best_epoch.ckpt" if name == "train" else "epoch_2.ckpt"
+                    epoch_lines = [line for line in open(os.path.join(
+                        ckdir, "training_log.txt")).read().splitlines() if line.startswith("[")]
+                    ok = os.path.exists(os.path.join(ckdir, ck)) and \
+                        counts.get("fused_attention_qkv_bwd", 0) > 0 and \
+                        len(epoch_lines) == (1 if name == "train" else 2)
+                    log(f"[cli] {name}: {out[name]['seconds']:.1f} s, {ck} written, launches "
+                        f"{counts}; training log: {epoch_lines[-1] if epoch_lines else ''} "
+                        f"{'ok' if ok else 'FAIL'}")
+                    check(ok, f"command line {name}: no checkpoint, epoch line or backward")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    record["cli"] = out
+    record["launches"]["mlp_block"] = sum(out[f"eval L{lv}"]["launches"].get("mlp_block", 0)
+                                          for lv in (1, 2))
+    record["launches"]["attention_block"] = sum(
+        out[f"eval L{lv}"]["launches"].get("attention_block", 0) for lv in (2, 3))
 
 
 def phase_train_model(torch, record):
@@ -340,8 +610,7 @@ def phase_main(torch, record):
     x2d_f = torch.randn(B, F, J, 2, generator=g, device="cuda") * 0.3
     per_batch = 2 * DEPTH * K
 
-    A.attention_stage.launches = 0
-    M.mlp_block_t.launches = 0
+    reset_counts()
     preds = d3dp.sample(x2d, x2d_f, generator=g)
     torch.cuda.synchronize()
     counts = (A.attention_stage.launches, M.mlp_block_t.launches)
@@ -441,8 +710,7 @@ def phase_train(torch, record):
     losses = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    A.fused_attention_qkv.launches = 0
-    A.fused_attention_qkv_bwd.launches = 0
+    reset_counts()
     for i in range(TRAIN_STEPS):
         if i == warm:
             torch.cuda.synchronize()
@@ -514,7 +782,7 @@ def phase_train(torch, record):
     record["launches"].update(fused_attention_qkv=counts[0], fused_attention_qkv_bwd=counts[1])
 
 
-def summarize_profile(torch, prof, wall_ms, what, tag):
+def summarize_profile(torch, prof, wall_ms, what, tag, top=12):
     """Log and return the device kernels' time by name (device-side events
     only: an aten op's own entry repeats the device time of its kernels, and
     a user annotation such as `Optimizer.step` spans them again)."""
@@ -530,10 +798,10 @@ def summarize_profile(torch, prof, wall_ms, what, tag):
     busy = sum(ms for _, _, ms in kernels)
     log(f"[{tag}] {what}: wall {wall_ms:.1f} ms (profiled), device busy {busy:.1f} ms "
         f"({100 * busy / wall_ms:.1f}%), idle {100 * (1 - busy / wall_ms):.1f}%")
-    for name, n, ms in kernels[:12]:
+    for name, n, ms in kernels[:top]:
         log(f"[{tag}]   {100 * ms / busy:5.1f}%  {ms:9.3f} ms  x{n:<4d} {name[:90]}")
     return dict(wall_ms=wall_ms, device_busy_ms=busy,
-                top=[[k[:120], n, ms] for k, n, ms in kernels[:12]])
+                top=[[k[:120], n, ms] for k, n, ms in kernels[:top]])
 
 
 def phase_profile(torch, record, d3dp, x2d, x2d_f):
@@ -565,11 +833,34 @@ def library_attention(torch, Fn):
     return run
 
 
-def library_mlp(torch, Fn):
+def library_mlp(torch, Fn, transpose=True):
+    """F.linear, GELU, F.linear, the residual and layer_norm (the yardstick
+    of K5), then the relayout (of K2)."""
     def run(x, res, w1_t, b1, w2_t, b2, ls, lb):
         h = Fn.gelu(Fn.linear(x, w1_t, b1))
         y = Fn.layer_norm(res + Fn.linear(h, w2_t, b2), (C,), ls, lb, 1e-6)
-        return y.transpose(1, 2).contiguous()
+        return y.transpose(1, 2).contiguous() if transpose else y
+    return run
+
+
+def library_block(torch, Fn):
+    """SDPA on q/k/v views of the packed qkv, then F.linear, the residual
+    and layer_norm (the yardstick of K6)."""
+    def run(qkv, res, wp_t, bp, ls, lb):
+        R, N, _ = qkv.shape
+        q, k, v = qkv.view(R, N, 3, HEADS, C // HEADS).permute(2, 0, 3, 1, 4).unbind(0)
+        o = Fn.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(R, N, C)
+        x2 = res + Fn.linear(o, wp_t, bp)
+        return x2, Fn.layer_norm(x2, (C,), ls, lb, 1e-6)
+    return run
+
+
+def library_packed(torch, Fn):
+    """SDPA on (R, h, N, d) views of separate q, k, v (the yardstick of K7)."""
+    def run(q, k, v):
+        R, N, _ = q.shape
+        heads = [t.view(R, N, HEADS, C // HEADS).transpose(1, 2) for t in (q, k, v)]
+        return Fn.scaled_dot_product_attention(*heads).transpose(1, 2).reshape(R, N, C)
     return run
 
 
@@ -655,6 +946,7 @@ def phase_timing(torch, record, d3dp, x2d, x2d_f):
             library_ms=time_ms(torch, lambda: torch.autograd.grad(
                 lib_out, leaf, dout, retain_graph=True), reps=20))
         del qkv, dout, leaf, lib_out
+    rows.update(eval_kernel_rows(torch, Fn, gen))
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_ms(r["flops"], r["bytes"], PEAK_BF16)
         log(f"[timing] {name} bf16 x{tuple(r['shape'])}: kernel {r['ms']:.4f} ms, bound "
@@ -668,11 +960,56 @@ def phase_timing(torch, record, d3dp, x2d, x2d_f):
     return rows
 
 
+def eval_kernel_rows(torch, Fn, gen):
+    """K5 on one block's 165,240 token rows; K6 and K7 at the spatial and
+    temporal stage shapes; bf16."""
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import mlp as M
+
+    bf = torch.bfloat16
+    rows = {}
+    a = mlp_inputs(torch, gen, F, J, bf)
+    a[:2] = [t.view(-1, C) for t in a[:2]]
+    T = a[0].shape[0]
+    lib_m = library_mlp(torch, Fn, transpose=False)
+    lib_args = [a[0], a[1], a[2].t().contiguous(), a[3].to(bf), a[4].t().contiguous(),
+                a[5].to(bf), a[6].to(bf), a[7].to(bf)]
+    rows["mlp_block/rows"] = dict(
+        shape=list(a[0].shape), flops=4 * T * C * HIDDEN,
+        bytes=3 * T * C * 2 + 2 * C * HIDDEN * 2 + (HIDDEN + 3 * C) * 4,
+        ms=time_ms(torch, lambda: M.mlp_block(*a, 1e-6), reps=10),
+        plain_ms=time_ms(torch, lambda: M.mlp_block_plain(*a, 1e-6), reps=3),
+        library_ms=time_ms(torch, lambda: lib_m(*lib_args), reps=10))
+    del a, lib_args
+    lib_b, lib_p = library_block(torch, Fn), library_packed(torch, Fn)
+    for label, R, N in (("spatial", ROWS * F, J), ("temporal", ROWS * J, F)):
+        T = R * N
+        b = block_inputs(torch, gen, R, N, bf)
+        lib_args = [b[0], b[1], b[2].t().contiguous()] + [v.to(bf) for v in b[3:]]
+        rows[f"attention_block/{label}"] = dict(
+            shape=list(b[0].shape), flops=4 * T * N * C + 2 * T * C * C,
+            bytes=6 * T * C * 2 + C * C * 2 + 3 * C * 4,
+            ms=time_ms(torch, lambda: A.attention_block(*b, HEADS, 0.125, 1e-6), reps=10),
+            plain_ms=time_ms(torch, lambda: A.attention_block_plain(*b, HEADS, 0.125, 1e-6),
+                             reps=3),
+            library_ms=time_ms(torch, lambda: lib_b(*lib_args), reps=10))
+        del b, lib_args
+        p = packed_inputs(torch, gen, R, N, bf)
+        rows[f"fused_attention_packed/{label}"] = dict(
+            shape=list(p[0].shape), flops=4 * T * N * C, bytes=4 * T * C * 2,
+            ms=time_ms(torch, lambda: A.fused_attention_packed(*p, HEADS, 0.125), reps=10),
+            plain_ms=time_ms(torch, lambda: A.fused_attention_plain(*p, HEADS, 0.125), reps=3),
+            library_ms=time_ms(torch, lambda: lib_p(*p), reps=10))
+        del p
+    return rows
+
+
 def kernels_line(rows, errs, launches):
-    """One entry per kernel; times are the mean of its two shapes on its
-    path, which the path launches equally often. Launches: K1 and K2 from the
+    """One entry per kernel; times are the mean of its shapes on its path,
+    which the path launches equally often. Launches: K1 and K2 from the
     evaluation path's run (phase main), K3 and K4 from the training path's
-    (phase train)."""
+    (phase train), K5 and K6 from the command line's evaluation at the fuse
+    levels that run them (phase cli), K7 from its public op (phase packed)."""
     meta = {"attention_stage": ("d3dp_tpu_torch/ops/csrc/attention_stage.cu",
                                 "d3dp_tpu/ops/attention.py:396"),
             "mlp_block_t": ("d3dp_tpu_torch/ops/csrc/mlp_block_t.cu",
@@ -680,7 +1017,12 @@ def kernels_line(rows, errs, launches):
             "fused_attention_qkv": ("d3dp_tpu_torch/ops/csrc/attention_qkv.cu",
                                     "d3dp_tpu/ops/attention.py:69"),
             "fused_attention_qkv_bwd": ("d3dp_tpu_torch/ops/csrc/attention_qkv.cu",
-                                        "d3dp_tpu/ops/attention.py:133")}
+                                        "d3dp_tpu/ops/attention.py:133"),
+            "mlp_block": ("d3dp_tpu_torch/ops/csrc/mlp_block_t.cu", "d3dp_tpu/ops/mlp.py:80"),
+            "attention_block": ("d3dp_tpu_torch/ops/csrc/attention_block.cu",
+                                "d3dp_tpu/ops/attention.py:227"),
+            "fused_attention_packed": ("d3dp_tpu_torch/ops/csrc/attention_qkv.cu",
+                                       "d3dp_tpu/ops/attention.py:32")}
     out = []
     for name, (src, rep) in meta.items():
         rs = [r for k, r in rows.items() if k.startswith(name + "/")]
@@ -704,6 +1046,7 @@ def main():
         return 2
     record = {}
     t_all = time.perf_counter()
+    os.makedirs("chiprun_out", exist_ok=True)
     phase_env(torch, record)
     errs = phase_kernels(torch, record)
     phase_model(torch, record)
@@ -711,8 +1054,11 @@ def main():
     d3dp, x2d, x2d_f, _ = phase_main(torch, record)
     rows = phase_timing(torch, record, d3dp, x2d, x2d_f)
     phase_profile(torch, record, d3dp, x2d, x2d_f)
+    phase_fuse_levels(torch, record, d3dp, x2d, x2d_f)
     del d3dp
     phase_train(torch, record)
+    phase_packed(torch, record)
+    phase_cli(torch, record)
     line = kernels_line(rows, errs, record["launches"])
     record["kernels"] = line["kernels"]
     record["seconds"] = time.perf_counter() - t_all

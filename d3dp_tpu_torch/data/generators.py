@@ -193,6 +193,9 @@ class UnchunkedGenerator:
         self.poses_3d = [] if poses_3d is None else poses_3d
         self.poses_2d = poses_2d
 
+    def num_frames(self):
+        return sum(p.shape[0] for p in self.poses_2d)
+
     def next_epoch(self):
         for seq_cam, seq_3d, seq_2d in zip_longest(self.cameras, self.poses_3d,
                                                    self.poses_2d):

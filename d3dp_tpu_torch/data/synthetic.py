@@ -30,10 +30,31 @@ def smooth_noise(rng, T, shape, smoothing=9):
     return x[:T]
 
 
-def make_sequence(rng, T, num_joints=17, depth=4.0):
+# H36M 17-joint parent chain (after 32->17 reduction, shoulders reparented)
+_PARENTS17 = [-1, 0, 1, 2, 0, 4, 5, 0, 7, 8, 9, 8, 11, 12, 8, 14, 15]
+_BONE_LEN = np.array([0, 0.13, 0.44, 0.45, 0.13, 0.44, 0.45, 0.23, 0.25,
+                      0.12, 0.11, 0.15, 0.28, 0.25, 0.15, 0.28, 0.25],
+                     np.float32)
+
+
+def make_sequence(rng, T, num_joints=17, depth=4.0, structured=False):
     """One synthetic sequence: (pose3d_cam (T,J,3) with absolute root at
-    joint 0, pose2d (T,J,2) in normalised screen coords)."""
-    local = 0.35 * smooth_noise(rng, T, (num_joints, 3))
+    joint 0, pose2d (T,J,2) in normalised screen coords).
+
+    structured=True (`-k structured` on the command line) makes
+    skeleton-consistent poses: fixed bone lengths and smooth joint
+    rotations, so depth is inferable from 2D foreshortening.
+    """
+    if structured and num_joints == 17:
+        # smooth random unit directions per bone -> forward kinematics
+        dirs = smooth_noise(rng, T, (num_joints, 3), smoothing=15)
+        dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True) + 1e-6
+        local = np.zeros((T, num_joints, 3), np.float32)
+        for j, p in enumerate(_PARENTS17):
+            if p >= 0:
+                local[:, j] = local[:, p] + _BONE_LEN[j] * dirs[:, j]
+    else:
+        local = 0.35 * smooth_noise(rng, T, (num_joints, 3))
     local[:, 0] = 0.0  # root-relative: joint 0 at origin
     traj = 0.5 * smooth_noise(rng, T, (1, 3))
     traj[..., 2] += depth  # keep in front of camera

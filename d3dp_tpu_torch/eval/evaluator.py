@@ -91,10 +91,11 @@ class EvalResult:
 
 class Evaluator:
     def __init__(self, d3dp, receptive_field=243, batch_size=4, kps_left=None,
-                 kps_right=None, p2=False, light=False):
+                 kps_right=None, p2=False, light=False, quickdebug=False):
         """`p2` adds Protocol-2 on host numpy. `light=True` computes only
         P-Best (no JPMA reprojection), the reference's end-of-epoch
-        validation metric (main.py:455); it takes no P2."""
+        validation metric (main.py:455); it takes no P2. `quickdebug=True`
+        (the command line's --debug) stops after the first micro-batch."""
         if light and p2:
             raise ValueError("light evaluation computes P-Best only; it takes no p2")
         self.d3dp = d3dp
@@ -105,6 +106,7 @@ class Evaluator:
         self.kps_right = kps_right
         self.p2 = p2
         self.light = light
+        self.quickdebug = quickdebug
 
     def _score(self, preds, x2d, x3d, traj, cam, weights):
         """All four P1 modes of one micro-batch (P-Best only when light) ->
@@ -199,6 +201,8 @@ class Evaluator:
                 dispatched += 1
                 if dispatched % 16 == 0:
                     float(errors["P_Best"].sum())
+                if self.quickdebug:
+                    return result
         return result
 
     def _p2_host(self, preds, x3d, x2d, cam_vec, traj):

@@ -1,18 +1,30 @@
 """MixSTE2 spatio-temporal transformer denoiser as a torch nn.Module.
 
-Counterpart of d3dp_tpu/models/mixste.py `MixSTE2` on its two default
-paths:
+Counterpart of d3dp_tpu/models/mixste.py `MixSTE2` with
+`attention_impl="pallas"` at fuse levels 0 to 4:
 
-* eval (`train=False`): the fused flow at fuse level 4 (`mixste.py:742-761`).
-  Every block is the attention stage (`ops.attention.attention_stage`)
-  followed by the transposing MLP step (`ops.mlp.mlp_block_t`), which also
-  applies the shared spatial/temporal LayerNorm and writes its output in the
-  other stage's layout. No autograd; weights come from a cast cache.
-* training (`train=True`): the composed block (`mixste.py:427-467`), with
-  autograd: pre-LN, qkv projection, the attention core
-  (`ops.attention.fused_attention_qkv_ad`, whose backward is a kernel too),
-  out-projection, MLP, per-row DropPath scales, then the shared norm and the
-  spatial<->temporal relayout as plain ops.
+* eval (`train=False`) dispatches on `cfg.fuse_level`, as the JAX package's
+  ladder (`mixste.py:469-565`, flows `:742-788`) does:
+  - 0: the composed block below, without DropPath (attention core K3).
+  - 1: per block, LN1 and the qkv projection as plain ops, the attention
+    core (`ops.attention.fused_attention_qkv`), the out-projection, residual
+    and LN2 as plain ops, then the MLP half with the shared
+    spatial/temporal norm in one kernel (`ops.mlp.mlp_block`); the
+    spatial<->temporal relayouts and the temporal position embedding are
+    plain ops (`:762-788`).
+  - 2: as 1, with the attention, out-projection, residual and LN2 in one
+    kernel (`ops.attention.attention_block`).
+  - 3: the transpose-free flow (`:742-761`): as 2, with the MLP step
+    writing its output in the other stage's layout (`ops.mlp.mlp_block_t`).
+  - 4 (the default): the transpose-free flow with the whole attention half
+    in one kernel (`ops.attention.attention_stage`).
+  Levels 1-4 read kernel-layout weights from a cast cache; none has a
+  backward. Level 5 (the depth-resident kernel) is not ported yet.
+* training (`train=True`), at every level: the composed block
+  (`mixste.py:427-467`), with autograd: pre-LN, qkv projection, the attention
+  core (`ops.attention.fused_attention_qkv_ad`, whose backward is a kernel
+  too), out-projection, MLP, per-row DropPath scales, then the shared norm
+  and the spatial<->temporal relayout as plain ops.
 
 On CUDA tensors the ops launch the hand-written kernels; on CPU tensors
 they run their plain torch versions.
@@ -58,6 +70,14 @@ class MixSTEConfig:
     qk_scale: Optional[float] = None
     drop_path_rate: float = 0.0  # stochastic depth, training only
     dtype: torch.dtype = torch.float32  # compute dtype (bf16 for the fast path)
+    fuse_level: int = 4  # the eval path's kernel ladder, 0..4 (module docstring)
+
+    def __post_init__(self):
+        if self.fuse_level == 5:
+            raise NotImplementedError(
+                "fuse level 5 (the depth-resident kernel) is not ported yet")
+        if self.fuse_level not in range(5):
+            raise ValueError(f"fuse_level must be 0..4, got {self.fuse_level}")
 
 
 def sinusoidal_time_embedding(t, dim):
@@ -82,6 +102,11 @@ class SinusoidalPosEmb(nn.Module):
 def _linear(lin, x):
     """nn.Linear in x's dtype: fp32 parameters cast to it (differentiably)."""
     return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+
+
+def _cast_linear(lin, dt):
+    """(weight, bias) of an nn.Linear in dtype dt, (out, in) for F.linear."""
+    return lin.weight.to(dt), lin.bias.to(dt)
 
 
 def _layer_norm(norm, x):
@@ -191,12 +216,9 @@ class MixSTE2(nn.Module):
         """Embedding, time-MLP and spatial position weights in the compute
         dtype, (out, in) for F.linear."""
         dt = self.cfg.dtype
-
-        def linear(lin):
-            return lin.weight.to(dt), lin.bias.to(dt)
-
-        return dict(embed=linear(self.Spatial_patch_to_embedding),
-                    time1=linear(self.time_mlp[1]), time2=linear(self.time_mlp[3]),
+        return dict(embed=_cast_linear(self.Spatial_patch_to_embedding, dt),
+                    time1=_cast_linear(self.time_mlp[1], dt),
+                    time2=_cast_linear(self.time_mlp[3], dt),
                     spatial_pos=self.Spatial_pos_embed.to(dt))
 
     @torch.no_grad()
@@ -220,6 +242,7 @@ class MixSTE2(nn.Module):
 
         def block(b):
             return dict(
+                qkv_linear=_cast_linear(b.attn.qkv, dt), proj_linear=_cast_linear(b.attn.proj, dt),
                 wqkv=mat(b.attn.qkv), bqkv=vec(b.attn.qkv.bias),
                 wp=mat(b.attn.proj), bp=vec(b.attn.proj.bias),
                 ln1s=vec(b.norm1.weight), ln1b=vec(b.norm1.bias),
@@ -238,16 +261,34 @@ class MixSTE2(nn.Module):
         return self._cache
 
     # -------------------------------------------------------------- forward
-    def _block(self, w, h, out_norm, B):
-        """One block on (B*D1, N, C): the attention stage, then the MLP step
-        with the shared norm, emitted as (B*N, D1, C) in the other layout."""
+    def _attention_half(self, w, blk, h):
+        """(x2, y2) of one block's attention half on (R, N, C) at the
+        configured fuse level (1-4): x2 = h + attention branch, y2 = LN2(x2)."""
         cfg = self.cfg
+        scale = cfg.qk_scale or (cfg.embed_dim // cfg.num_heads) ** -0.5
+        if cfg.fuse_level == 4:
+            return attention.attention_stage(
+                h, w["wqkv"], w["bqkv"], w["wp"], w["bp"], w["ln1s"], w["ln1b"],
+                w["ln2s"], w["ln2b"], cfg.num_heads, scale, BLOCK_EPS)
+        qkv = F.linear(_layer_norm(blk.norm1, h), *w["qkv_linear"])
+        if cfg.fuse_level >= 2:
+            return attention.attention_block(qkv, h, w["wp"], w["bp"], w["ln2s"], w["ln2b"],
+                                             cfg.num_heads, scale, BLOCK_EPS)
+        o = attention.fused_attention_qkv(qkv, cfg.num_heads, scale)
+        x2 = h + F.linear(o, *w["proj_linear"])
+        return x2, _layer_norm(blk.norm2, x2)
+
+    def _block(self, w, blk, h, out_norm, B):
+        """One block on (B*D1, N, C): the attention half, then the MLP step
+        with the shared norm. Levels 3 and 4 emit (B*N, D1, C) in the other
+        stage's layout; levels 1 and 2 keep the layout."""
         R, N, C = h.shape
+        x2, y2 = self._attention_half(w, blk, h)
+        if self.cfg.fuse_level <= 2:
+            out = mlp.mlp_block(y2.view(R * N, C), x2.view(R * N, C), w["w1"], w["b1"],
+                                w["w2"], w["b2"], out_norm[0], out_norm[1], BLOCK_EPS)
+            return out.view(R, N, C)
         D1 = R // B
-        scale = cfg.qk_scale or (C // cfg.num_heads) ** -0.5
-        x2, y2 = attention.attention_stage(
-            h, w["wqkv"], w["bqkv"], w["wp"], w["bp"], w["ln1s"], w["ln1b"],
-            w["ln2s"], w["ln2b"], cfg.num_heads, scale, BLOCK_EPS)
         out = mlp.mlp_block_t(
             y2.view(B, D1, N, C), x2.view(B, D1, N, C), w["w1"], w["b1"],
             w["w2"], w["b2"], out_norm[0], out_norm[1], BLOCK_EPS)
@@ -273,8 +314,10 @@ class MixSTE2(nn.Module):
 
     def forward(self, x2d, x3d, t, train=False, generator=None, droppath_masks=None,
                 drop_path=True):
-        """train=False (the JAX `deterministic=True`): the fused eval flow,
-        which has no backward. train=True: the composed path with autograd
+        """train=False (the JAX `deterministic=True`): the eval path at
+        `cfg.fuse_level`, which has no backward (at level 0 it runs the
+        composed path under no_grad, without DropPath). train=True: the
+        composed path with autograd
         and, where `cfg.drop_path_rate` > 0 and `drop_path`, DropPath. Its
         masks are drawn from `generator` (a torch.Generator on the model's
         device), or taken from `droppath_masks` = {"ste_i" / "tte_i": (m1,
@@ -283,23 +326,36 @@ class MixSTE2(nn.Module):
         function with a backward."""
         if train:
             return self._forward_composed(x2d, x3d, t, generator, droppath_masks, drop_path)
+        if self.cfg.fuse_level == 0:
+            with torch.no_grad():
+                return self._forward_composed(x2d, x3d, t, None, None, drop_path=False)
         return self._forward_fused(x2d, x3d, t)
 
+    @torch.no_grad()
     def _forward_fused(self, x2d, x3d, t):
         cfg = self.cfg
         B, Fr, J, _ = x3d.shape
         C = cfg.embed_dim
         W = self._weights()
         x = self._embed(x2d, x3d, t, W)
-
-        # transpose-free flow: each block leaves its output in the next
-        # stage's layout, (B*F, J, C) <-> (B*J, F, C)
         h = x.reshape(B * Fr, J, C)
+        if cfg.fuse_level >= 3:
+            # transpose-free flow: each block leaves its output in the next
+            # stage's layout, (B*F, J, C) <-> (B*J, F, C)
+            for i in range(cfg.depth):
+                h = self._block(W["ste"][i], self.STEblocks[i], h, W["spatial_norm"], B)
+                if i == 0:
+                    h = h + W["temporal_pos"]  # (B*J, F, C) + (1, F, C)
+                h = self._block(W["tte"][i], self.TTEblocks[i], h, W["temporal_norm"], B)
+            return self._head(h.view(B, Fr, J, C))
+        # levels 1 and 2: the relayouts as plain ops between the blocks
         for i in range(cfg.depth):
-            h = self._block(W["ste"][i], h, W["spatial_norm"], B)
+            h = self._block(W["ste"][i], self.STEblocks[i], h, W["spatial_norm"], B)
+            h = h.view(B, Fr, J, C).transpose(1, 2).reshape(B * J, Fr, C)
             if i == 0:
-                h = h + W["temporal_pos"]  # (B*J, F, C) + (1, F, C)
-            h = self._block(W["tte"][i], h, W["temporal_norm"], B)
+                h = h + W["temporal_pos"]
+            h = self._block(W["tte"][i], self.TTEblocks[i], h, W["temporal_norm"], B)
+            h = h.view(B, J, Fr, C).transpose(1, 2).reshape(B * Fr, J, C)
         return self._head(h.view(B, Fr, J, C))
 
     def _droppath_masks(self, name, rate, n_rows, generator, given):

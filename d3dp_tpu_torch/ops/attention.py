@@ -1,10 +1,15 @@
-"""MixSTE attention: the fused pre-LN stage (eval) and the attention core
-with its backward (training).
+"""MixSTE attention: the fused pre-LN stage and block (eval), the attention
+core with its backward (training), and the packed-attention op.
 
 `attention_stage` is the counterpart of `attention_stage_p` in the JAX
 package (`d3dp_tpu/ops/attention.py`): LN1 -> qkv projection -> per-head
 softmax attention -> out-projection -> residual -> LN2, returning
-(x2, y2) with x2 = x + proj(attn(qkv(LN1(x)))) and y2 = LN2(x2).
+(x2, y2) with x2 = x + proj(attn(qkv(LN1(x)))) and y2 = LN2(x2) (fuse
+level 4).
+
+`attention_block` is the counterpart of `attention_block_p`: the same from
+a precomputed qkv projection and a residual, (x2, y2) with x2 = res +
+proj(attn(qkv)) (fuse levels 2 and 3).
 
 `fused_attention_qkv` and `fused_attention_qkv_bwd` are the counterparts of
 the JAX package's `fused_attention_qkv` and `_fused_attention_qkv_bwd`:
@@ -12,11 +17,15 @@ softmax attention read from the packed (R, N, 3C) qkv projection, and its
 backward, which recomputes the softmax from qkv. `fused_attention_qkv_ad`
 joins them as a `torch.autograd.Function` (the JAX `custom_vjp`).
 
+`fused_attention_packed` and `fused_attention` are the counterparts of the
+JAX package's public ops of the same names: softmax attention from separate
+q, k, v, packed (B, N, h*d) or as (B, N, h, d).
+
 On a CUDA tensor each op launches its hand-written kernel
-(`csrc/attention_stage.cu`, `csrc/attention_qkv.cu`); on a CPU tensor it
-runs its `*_plain` version, the same math in plain torch ops and the same
-op order. There is no fallback between the two: a CUDA input the kernel does
-not take raises.
+(`csrc/attention_stage.cu`, `csrc/attention_block.cu`,
+`csrc/attention_qkv.cu`); on a CPU tensor it runs its `*_plain` version, the
+same math in plain torch ops and the same op order. There is no fallback
+between the two: a CUDA input the kernel does not take raises.
 """
 
 import ctypes
@@ -37,6 +46,12 @@ _SIG_FWD = [_P, _P, _I, _I, _I, _I, _F, _P]
 _SIG_BWD = [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
 _QKV_FN = {torch.bfloat16: ("d3dp_attention_qkv_fwd_bf16", "d3dp_attention_qkv_bwd_bf16"),
            torch.float32: ("d3dp_attention_qkv_fwd_f32", "d3dp_attention_qkv_bwd_f32")}
+_SIG_PACKED = [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
+_PACKED_FN = {torch.bfloat16: "d3dp_attention_packed_bf16",
+              torch.float32: "d3dp_attention_packed_f32"}
+_SIG_BLOCK = [_P] * 9 + [_I, _I, _I, _I, _F, _F, _P]
+_BLOCK_FN = {torch.bfloat16: "d3dp_attention_block_bf16",
+             torch.float32: "d3dp_attention_block_f32"}
 
 
 def _split(t, parts, num_heads):
@@ -81,25 +96,32 @@ def attention_stage_plain(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
     return x2.to(dt), y2.to(dt)
 
 
+def _check_rows(x, num_heads, what, fns):
+    """Device, rank, dtype, head and token-count checks of a (R, N, C)
+    stage input; returns (R, N, C)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dim() != 3:
+        raise ValueError(f"x must be (R, N, C), got {tuple(x.shape)}")
+    R, N, C = x.shape
+    if x.dtype not in fns:
+        raise ValueError(f"{what}: unsupported dtype {x.dtype}")
+    if C != num_heads * HEAD_DIM or C % 64 or C > 1024:
+        raise ValueError(f"{what}: needs head_dim {HEAD_DIM} and "
+                         f"C % 64 == 0, C <= 1024 (C={C}, heads={num_heads})")
+    if not 1 <= N <= MAX_TOKENS:
+        raise ValueError(f"{what}: N={N} outside 1..{MAX_TOKENS}")
+    return R, N, C
+
+
 def attention_stage(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
                     num_heads, scale, eps):
     """(x2, y2) of the attention stage; see the module docstring."""
     if x.device.type == "cpu":
         return attention_stage_plain(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b,
                                      ln2_s, ln2_b, num_heads, scale, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"attention_stage: unsupported device {x.device}")
-    if x.dim() != 3:
-        raise ValueError(f"x must be (R, N, C), got {tuple(x.shape)}")
-    R, N, C = x.shape
+    R, N, C = _check_rows(x, num_heads, "attention_stage", _FN)
     dt = x.dtype
-    if dt not in _FN:
-        raise ValueError(f"attention_stage: unsupported dtype {dt}")
-    if C != num_heads * HEAD_DIM or C % 64 or C > 1024:
-        raise ValueError(f"attention_stage: needs head_dim {HEAD_DIM} and "
-                         f"C % 64 == 0, C <= 1024 (C={C}, heads={num_heads})")
-    if not 1 <= N <= MAX_TOKENS:
-        raise ValueError(f"attention_stage: N={N} outside 1..{MAX_TOKENS}")
     dev = x.device
     f32 = torch.float32
     for t, name, dtype, shape in (
@@ -131,18 +153,23 @@ attention_stage.launches = 0
 
 
 # ----------------------------------------------------- training attention core
-def fused_attention_qkv_plain(qkv, num_heads, scale):
-    """Plain torch ops in the TPU kernel's order (`_attn_head`): fp32
-    logits and softmax, p divided by l BEFORE the cast to the compute dtype,
-    P.V accumulated in fp32 and rounded to the compute dtype.
-    qkv: (R, N, 3C) -> (R, N, C)."""
-    dt = qkv.dtype
-    q, k, v = _split(qkv, 3, num_heads)
+def _attend_plain(q, k, v, scale):
+    """The TPU kernels' per-head order (`_attn_head`): fp32 logits and
+    softmax, p divided by l BEFORE the cast to the compute dtype, P.V
+    accumulated in fp32 and rounded to the compute dtype. q, k, v:
+    (R, h, N, d) -> (R, N, h*d)."""
+    dt = q.dtype
     s = _mm(q, k.transpose(-1, -2)) * scale
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     a = (p / p.sum(dim=-1, keepdim=True)).to(dt)
     return _merge(_mm(a, v).to(dt))
+
+
+def fused_attention_qkv_plain(qkv, num_heads, scale):
+    """Plain torch ops in the TPU kernel's order (`_attn_fused_qkv_kernel`).
+    qkv: (R, N, 3C) -> (R, N, C)."""
+    return _attend_plain(*_split(qkv, 3, num_heads), scale)
 
 
 def fused_attention_qkv_bwd_plain(qkv, dout, num_heads, scale):
@@ -188,7 +215,8 @@ def _check_qkv(qkv, num_heads, what):
 def _qkv_lib():
     return _build.load("attention_qkv", {
         **{fns[0]: _SIG_FWD for fns in _QKV_FN.values()},
-        **{fns[1]: _SIG_BWD for fns in _QKV_FN.values()}})
+        **{fns[1]: _SIG_BWD for fns in _QKV_FN.values()},
+        **{fn: _SIG_PACKED for fn in _PACKED_FN.values()}})
 
 
 def fused_attention_qkv(qkv, num_heads, scale):
@@ -255,3 +283,88 @@ def fused_attention_qkv_ad(qkv, num_heads, scale):
     """Differentiable `fused_attention_qkv`: the backward launches
     `fused_attention_qkv_bwd`."""
     return _FusedAttentionQKV.apply(qkv, num_heads, scale)
+
+
+# ------------------------------------------------------------ attention block
+def attention_block_plain(qkv, res, w, b, ln_s, ln_b, num_heads, scale, eps):
+    """Plain torch ops in the TPU kernel's order (`_attn_block_kernel`): the
+    attention core with p / l rounded to the compute dtype before P.V, its
+    output rounded to the compute dtype before the projection, then
+    x2 = res + (o W + b) and y2 = LN(x2) with fp32 statistics.
+    qkv (R, N, 3C), res (R, N, C) -> (x2, y2), each (R, N, C)."""
+    dt = qkv.dtype
+    o = fused_attention_qkv_plain(qkv, num_heads, scale)
+    x2 = res.float() + (_mm(o, w) + b.float())
+    y2 = layer_norm_rows(x2, ln_s, ln_b, eps)
+    return x2.to(dt), y2.to(dt)
+
+
+def attention_block(qkv, res, w, b, ln_s, ln_b, num_heads, scale, eps):
+    """(x2, y2) of the attention block; see the module docstring."""
+    if qkv.device.type == "cpu":
+        return attention_block_plain(qkv, res, w, b, ln_s, ln_b, num_heads, scale, eps)
+    R, N, C = _check_rows(res, num_heads, "attention_block", _BLOCK_FN)
+    dt = res.dtype
+    dev = res.device
+    f32 = torch.float32
+    for t, name, dtype, shape in (
+            (qkv, "qkv", dt, (R, N, 3 * C)), (res, "res", dt, (R, N, C)),
+            (w, "w", dt, (C, C)), (b, "b", f32, (C,)),
+            (ln_s, "ln_s", f32, (C,)), (ln_b, "ln_b", f32, (C,))):
+        _build.check_operand(t, name, dtype, shape, dev)
+    o = torch.empty((R, N, C), dtype=dt, device=dev)
+    x2 = torch.empty_like(res)
+    y2 = torch.empty_like(res)
+    lib = _build.load("attention_block", {fn: _SIG_BLOCK for fn in _BLOCK_FN.values()})
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, _BLOCK_FN[dt])(
+            qkv.data_ptr(), res.data_ptr(), w.data_ptr(), b.data_ptr(), ln_s.data_ptr(),
+            ln_b.data_ptr(), o.data_ptr(), x2.data_ptr(), y2.data_ptr(), R, N, C, num_heads,
+            float(scale), float(eps), stream)
+    _build.check(err, "attention_block")
+    attention_block.launches += 1
+    return x2, y2
+
+
+attention_block.launches = 0
+
+
+# ------------------------------------------------------- packed-heads attention
+def fused_attention_plain(q, k, v, num_heads, scale):
+    """Plain torch ops in the TPU kernel's order (`_attn_kernel`), from
+    separate packed q, k, v, each (B, N, h*d) -> (B, N, h*d)."""
+    return _attend_plain(*(_split(t, 1, num_heads)[0] for t in (q, k, v)), scale)
+
+
+def fused_attention_packed(q, k, v, num_heads, scale):
+    """Softmax attention from separate packed q, k, v, each (B, N, h*d) ->
+    (B, N, h*d); see the module docstring."""
+    if q.device.type == "cpu":
+        return fused_attention_plain(q, k, v, num_heads, scale)
+    R, N, C = _check_rows(q, num_heads, "fused_attention_packed", _PACKED_FN)
+    dev = q.device
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _build.check_operand(t, name, q.dtype, (R, N, C), dev)
+    out = torch.empty((R, N, C), dtype=q.dtype, device=dev)
+    lib = _qkv_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, _PACKED_FN[q.dtype])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), R, N, C, num_heads,
+            float(scale), stream)
+    _build.check(err, "fused_attention_packed")
+    fused_attention_packed.launches += 1
+    return out
+
+
+fused_attention_packed.launches = 0
+
+
+def fused_attention(q, k, v, scale):
+    """(B, N, h, d) convenience wrapper of `fused_attention_packed` (free
+    reshapes to and from the packed layout), as the JAX package's."""
+    B, N, h, d = q.shape
+    out = fused_attention_packed(q.reshape(B, N, h * d), k.reshape(B, N, h * d),
+                                 v.reshape(B, N, h * d), h, scale)
+    return out.reshape(B, N, h, d)

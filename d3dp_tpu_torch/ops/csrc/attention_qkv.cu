@@ -7,7 +7,9 @@
 // Replaces the TPU kernels of d3dp_tpu/ops/attention.py:
 //   `_attn_fused_qkv_kernel` (launcher `fused_attention_qkv`), and
 //   `_attn_bwd_kernel` (launcher `_fused_attention_qkv_bwd`),
-// the two halves of `fused_attention_qkv_ad`.
+// the two halves of `fused_attention_qkv_ad`; and
+//   `_attn_kernel` (launcher `fused_attention_packed`), the same forward
+// read from three separate packed (R, N, h*d) tensors q, k, v.
 //
 // What bounds them on the H100: at MixSTE's shapes (N = 17 or 243 tokens,
 // d = 64) both move more bytes than the tensor cores need time for: the
@@ -15,9 +17,12 @@
 // at N=243, both far under the card's ~295), the backward reads qkv and dO
 // and writes d(qkv). Logits never leave the chip.
 //
-// Forward: `attend_kernel` (common.cuh), shared with the attention stage,
-// with p divided by l BEFORE the cast to the compute type, as the TPU
-// kernel's `_attn_head` does (the stage folds 1/l in after P.V instead).
+// Forward: `attend_kernel` (common.cuh), shared with the attention stage
+// and block, with p divided by l BEFORE the cast to the compute type, as the
+// TPU kernel's `_attn_head` does (the stage folds 1/l in after P.V instead).
+// The packed-qkv forward reads rows of 3C; the separate-q/k/v forward (K7)
+// reads rows of C: same kernel, same bound (bytes: 4*T*C elements moved
+// against 4*T*N*C FLOPs).
 //
 // Backward. The TPU kernel holds a whole (sequence, head) in VMEM: P, dP and
 // the dK, dV sums over all query rows. At N=243 that does not fit a block's
@@ -295,8 +300,17 @@ template <typename T>
 int attention_qkv_fwd(const void* qkv, void* out, int R, int N, int C, int heads, float scale,
                       void* stream) {
   if (!shapes_ok(R, N, C, heads)) return (int)cudaErrorInvalidValue;
-  return (int)launch_attend<T, true>((const T*)qkv, (T*)out, R, N, C, heads, scale,
-                                     static_cast<cudaStream_t>(stream));
+  return (int)launch_attend_packed<T, true>((const T*)qkv, (T*)out, R, N, C, heads, scale,
+                                            static_cast<cudaStream_t>(stream));
+}
+
+// K7: the same attention core read from separate packed q, k, v (R, N, C).
+template <typename T>
+int attention_packed(const void* q, const void* k, const void* v, void* out, int R, int N, int C,
+                     int heads, float scale, void* stream) {
+  if (!shapes_ok(R, N, C, heads)) return (int)cudaErrorInvalidValue;
+  return (int)launch_attend<T, true>((const T*)q, (const T*)k, (const T*)v, C, (T*)out, R, N, C,
+                                     heads, scale, static_cast<cudaStream_t>(stream));
 }
 
 template <typename T, bool kKeys>
@@ -338,6 +352,16 @@ int d3dp_attention_qkv_fwd_bf16(const void* qkv, void* out, int R, int N, int C,
 int d3dp_attention_qkv_fwd_f32(const void* qkv, void* out, int R, int N, int C, int heads,
                                float scale, void* stream) {
   return d3dp::attention_qkv_fwd<float>(qkv, out, R, N, C, heads, scale, stream);
+}
+
+int d3dp_attention_packed_bf16(const void* q, const void* k, const void* v, void* out, int R,
+                               int N, int C, int heads, float scale, void* stream) {
+  return d3dp::attention_packed<d3dp::bf16>(q, k, v, out, R, N, C, heads, scale, stream);
+}
+
+int d3dp_attention_packed_f32(const void* q, const void* k, const void* v, void* out, int R,
+                              int N, int C, int heads, float scale, void* stream) {
+  return d3dp::attention_packed<float>(q, k, v, out, R, N, C, heads, scale, stream);
 }
 
 int d3dp_attention_qkv_bwd_bf16(const void* qkv, const void* dout, void* dqkv, void* stats,

@@ -29,7 +29,8 @@
 //                unnormalised bf16 p and 1/l is folded into the output,
 //                which is rounded to bf16 before the projection.
 //   3. proj_ln2: 32-token row blocks: o @ Wp into an fp32 row buffer, then
-//                the residual add and LN2 per row.
+//                the residual add and LN2 per row (`proj_ln2_kernel` in
+//                common.cuh, shared with attention_block.cu).
 // The split costs extra device-memory traffic (qkv and o written and read
 // back, x read twice); fusing the stage into one pass is later work.
 #include "common.cuh"
@@ -88,55 +89,6 @@ size_t ln_qkv_smem(int C) {
          align128(sizeof(float) * Cfg<T>::BM * (kBN + 4));
 }
 
-// ---------------------------------------------------------------- 3. proj + LN2
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-proj_ln2_kernel(const T* __restrict__ o, const T* __restrict__ x, const T* __restrict__ wp,
-                const float* __restrict__ bp, const float* __restrict__ ln2s,
-                const float* __restrict__ ln2b, T* __restrict__ x2, T* __restrict__ y2, int M,
-                int C, float eps) {
-  constexpr int BM = Cfg<T>::BM;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = C + Cfg<T>::PAD;
-  const int ldx = C + 4;
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = reinterpret_cast<T*>(smem + align128(sizeof(T) * BM * lda));
-  float* Xs = reinterpret_cast<float*>(smem + align128(sizeof(T) * BM * lda) + bs_bytes<T>());
-
-  const int row0 = blockIdx.x * BM;
-  load_rows(As, lda, o + (size_t)row0 * C, C, BM, M - row0, C);
-  __syncthreads();
-  for (int n0 = 0; n0 < C; n0 += kBN) gemm_rowblock(As, lda, wp + n0, C, C, Bs, Xs + n0, ldx);
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BM; r += kWarps) {
-    const int row = row0 + r;
-    if (row >= M) continue;
-    const T* xr = x + (size_t)row * C;
-    T* x2r = x2 + (size_t)row * C;
-    float v[32];
-#pragma unroll
-    for (int k = 0; k < 32; ++k)
-      if (k < C / 32) {
-        const int c = 32 * k + lane;
-        v[k] = to_f(xr[c]) + (Xs[r * ldx + c] + bp[c]);  // x + (proj + bp)
-        x2r[c] = from_f<T>(v[k]);
-      }
-    warp_layernorm(v, C, ln2s, ln2b, eps, lane);
-    T* y2r = y2 + (size_t)row * C;
-#pragma unroll
-    for (int k = 0; k < 32; ++k)
-      if (k < C / 32) y2r[32 * k + lane] = from_f<T>(v[k]);
-  }
-}
-
-template <typename T>
-size_t proj_ln2_smem(int C) {
-  return align128(sizeof(T) * Cfg<T>::BM * (C + Cfg<T>::PAD)) + bs_bytes<T>() +
-         align128(sizeof(float) * Cfg<T>::BM * (C + 4));
-}
-
 // ---------------------------------------------------------------- host entry
 template <typename T>
 int attention_stage(const void* x, const void* wqkv, const void* bqkv, const void* wp,
@@ -160,19 +112,12 @@ int attention_stage(const void* x, const void* wqkv, const void* bqkv, const voi
       (T*)qkv, M, C, eps);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  if ((e = launch_attend<T, false>((const T*)qkv, (T*)o, R, N, C, heads, scale, stream)) !=
-      cudaSuccess)
+  if ((e = launch_attend_packed<T, false>((const T*)qkv, (T*)o, R, N, C, heads, scale,
+                                          stream)) != cudaSuccess)
     return (int)e;
-
-  const size_t s3 = proj_ln2_smem<T>(C);
-  if ((e = cudaFuncSetAttribute(proj_ln2_kernel<T>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s3)) !=
-      cudaSuccess)
-    return (int)e;
-  proj_ln2_kernel<T><<<cdiv(M, BM), kThreads, s3, stream>>>(
-      (const T*)o, (const T*)x, (const T*)wp, (const float*)bp, (const float*)ln2s,
-      (const float*)ln2b, (T*)x2, (T*)y2, M, C, eps);
-  return (int)cudaGetLastError();
+  return (int)launch_proj_ln2<T>((const T*)o, (const T*)x, (const T*)wp, (const float*)bp,
+                                 (const float*)ln2s, (const float*)ln2b, (T*)x2, (T*)y2, M, C,
+                                 eps, stream);
 }
 
 }  // namespace d3dp

@@ -226,10 +226,12 @@ __host__ __device__ constexpr size_t bs_bytes() {
 }
 
 // ------------------------------------------------------- per-head attention
-// Shared by the attention stage (attention_stage.cu) and the attention core
-// of the training path (attention_qkv.cu): softmax attention of one head,
-// read from the packed (R, N, 3C) qkv layout (q | k | v, heads of 64 packed
-// along each third), written to (R, N, C).
+// Shared by the attention stage (attention_stage.cu), the attention block
+// (attention_block.cu) and the attention cores (attention_qkv.cu): softmax
+// attention of one head, read from q, k and v rows of `ld` elements (the
+// packed (R, N, 3C) qkv layout, q | k | v with heads of 64 packed along each
+// third, has ld = 3C and k, v at +C, +2C; separate (R, N, C) tensors have
+// ld = C), written to (R, N, C).
 constexpr int kHeadDim = 64;
 constexpr int kMaxKeys = 256;
 
@@ -263,7 +265,8 @@ AttnLayout attn_layout(int N) {
   return L;
 }
 
-// grid (sequence, head, query block). qkv: (R, N, 3C); out: (R, N, C).
+// grid (sequence, head, query block). q, k, v: rows of ld elements, N rows
+// per sequence; out: (R, N, C).
 // One block holds <=64 queries and all <=256 keys (tail zero-filled) with the
 // fp32 logits, so the softmax is exact over the whole row.
 // fp32 always divides p by l before P.V. For bf16, kNormFirst picks the
@@ -272,8 +275,8 @@ AttnLayout attn_layout(int N) {
 // into the output (the TPU attention stage's order).
 template <typename T, bool kNormFirst>
 __global__ void __launch_bounds__(kThreads)
-attend_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int C, float scale,
-              AttnLayout L) {
+attend_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              int ld, T* __restrict__ out, int N, int C, float scale, AttnLayout L) {
   constexpr bool f32 = std::is_same<T, float>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L.q);
@@ -284,11 +287,10 @@ attend_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int C, floa
 
   const int seq = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * L.QB;
   const int QB = L.QB, NK = L.NK;
-  const size_t ld3 = 3 * (size_t)C;
-  const T* base = qkv + (size_t)seq * N * ld3 + h * kHeadDim;
-  load_rows(Qs, L.ldq, base + (size_t)q0 * ld3, (int)ld3, QB, N - q0, kHeadDim);
-  load_rows(Ks, L.ldk, base + C, (int)ld3, NK, N, kHeadDim);
-  load_rows(Vs, L.ldv, base + 2 * C, (int)ld3, NK, N, kHeadDim);
+  const size_t off = (size_t)seq * N * ld + h * kHeadDim;
+  load_rows(Qs, L.ldq, q + off + (size_t)q0 * ld, ld, QB, N - q0, kHeadDim);
+  load_rows(Ks, L.ldk, k + off, ld, NK, N, kHeadDim);
+  load_rows(Vs, L.ldv, v + off, ld, NK, N, kHeadDim);
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -394,14 +396,90 @@ attend_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int C, floa
 
 // Launch attend_kernel<T, kNormFirst> over R sequences of N tokens.
 template <typename T, bool kNormFirst>
-cudaError_t launch_attend(const T* qkv, T* out, int R, int N, int C, int heads, float scale,
-                          cudaStream_t stream) {
+cudaError_t launch_attend(const T* q, const T* k, const T* v, int ld, T* out, int R, int N,
+                          int C, int heads, float scale, cudaStream_t stream) {
   const AttnLayout L = attn_layout<T>(N);
   cudaError_t e = cudaFuncSetAttribute(attend_kernel<T, kNormFirst>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (e != cudaSuccess) return e;
   dim3 grid(R, heads, cdiv(N, L.QB));
-  attend_kernel<T, kNormFirst><<<grid, kThreads, L.total, stream>>>(qkv, out, N, C, scale, L);
+  attend_kernel<T, kNormFirst><<<grid, kThreads, L.total, stream>>>(q, k, v, ld, out, N, C,
+                                                                    scale, L);
+  return cudaGetLastError();
+}
+
+// The packed (R, N, 3C) qkv layout: q | k | v thirds of each token row.
+template <typename T, bool kNormFirst>
+cudaError_t launch_attend_packed(const T* qkv, T* out, int R, int N, int C, int heads,
+                                 float scale, cudaStream_t stream) {
+  return launch_attend<T, kNormFirst>(qkv, qkv + C, qkv + 2 * C, 3 * C, out, R, N, C, heads,
+                                      scale, stream);
+}
+
+// ------------------------------------------------ out-projection + residual + LN
+// Shared by the attention stage (attention_stage.cu) and the attention block
+// (attention_block.cu): x2 = x + (o @ Wp + bp), y2 = LN2(x2), over token
+// rows; 32-token row blocks (16 in fp32): o @ Wp into an fp32 row buffer,
+// then the residual add and LN2 per row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+proj_ln2_kernel(const T* __restrict__ o, const T* __restrict__ x, const T* __restrict__ wp,
+                const float* __restrict__ bp, const float* __restrict__ ln2s,
+                const float* __restrict__ ln2b, T* __restrict__ x2, T* __restrict__ y2, int M,
+                int C, float eps) {
+  constexpr int BM = Cfg<T>::BM;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lda = C + Cfg<T>::PAD;
+  const int ldx = C + 4;
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = reinterpret_cast<T*>(smem + align128(sizeof(T) * BM * lda));
+  float* Xs = reinterpret_cast<float*>(smem + align128(sizeof(T) * BM * lda) + bs_bytes<T>());
+
+  const int row0 = blockIdx.x * BM;
+  load_rows(As, lda, o + (size_t)row0 * C, C, BM, M - row0, C);
+  __syncthreads();
+  for (int n0 = 0; n0 < C; n0 += kBN) gemm_rowblock(As, lda, wp + n0, C, C, Bs, Xs + n0, ldx);
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < BM; r += kWarps) {
+    const int row = row0 + r;
+    if (row >= M) continue;
+    const T* xr = x + (size_t)row * C;
+    T* x2r = x2 + (size_t)row * C;
+    float v[32];
+#pragma unroll
+    for (int k = 0; k < 32; ++k)
+      if (k < C / 32) {
+        const int c = 32 * k + lane;
+        v[k] = to_f(xr[c]) + (Xs[r * ldx + c] + bp[c]);  // x + (proj + bp)
+        x2r[c] = from_f<T>(v[k]);
+      }
+    warp_layernorm(v, C, ln2s, ln2b, eps, lane);
+    T* y2r = y2 + (size_t)row * C;
+#pragma unroll
+    for (int k = 0; k < 32; ++k)
+      if (k < C / 32) y2r[32 * k + lane] = from_f<T>(v[k]);
+  }
+}
+
+template <typename T>
+size_t proj_ln2_smem(int C) {
+  return align128(sizeof(T) * Cfg<T>::BM * (C + Cfg<T>::PAD)) + bs_bytes<T>() +
+         align128(sizeof(float) * Cfg<T>::BM * (C + 4));
+}
+
+// Launch proj_ln2_kernel over M token rows.
+template <typename T>
+cudaError_t launch_proj_ln2(const T* o, const T* x, const T* wp, const float* bp,
+                            const float* ln2s, const float* ln2b, T* x2, T* y2, int M, int C,
+                            float eps, cudaStream_t stream) {
+  const size_t smem = proj_ln2_smem<T>(C);
+  cudaError_t e = cudaFuncSetAttribute(proj_ln2_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  proj_ln2_kernel<T><<<cdiv(M, Cfg<T>::BM), kThreads, smem, stream>>>(o, x, wp, bp, ln2s, ln2b,
+                                                                      x2, y2, M, C, eps);
   return cudaGetLastError();
 }
 

@@ -1,0 +1,71 @@
+"""Checkpoints: the original's `torch.save` payload, written atomically.
+
+Counterpart of d3dp_tpu/train/checkpoint_io.py's pickle format. The payload
+is the original's (reference main.py:539-572; SURVEY.md section 5):
+{epoch, lr, random_state, optimizer, model_pos, min_loss}, with the port's
+MixSTE2 state_dict (the original's key names, without the DataParallel and
+diffusion-wrapper prefixes) under `model_pos`, the AdamW state_dict under
+`optimizer`, and the training generator's np.random.RandomState under
+`random_state`. `load_any` also reads an original `.bin`.
+
+A checkpoint holds pickled Python objects (the RandomState), as the
+original's does, so it is loaded with `weights_only=False`: load only
+checkpoints this program or the original wrote.
+"""
+
+import glob
+import os
+import re
+
+import torch
+
+from d3dp_tpu_torch.train.convert import load_reference_checkpoint
+
+_PREFIXES = ("module.", "pose_estimator.")
+
+
+def save_checkpoint(path, *, epoch, lr, model, optimizer=None, generator_random_state=None,
+                    min_loss=None):
+    """Write the payload to `path + ".tmp"`, then rename it over `path`, so
+    an interrupted save never leaves a truncated checkpoint."""
+    payload = {
+        "epoch": epoch,
+        "lr": lr,
+        "random_state": generator_random_state,
+        "optimizer": None if optimizer is None else optimizer.state_dict(),
+        "model_pos": model.state_dict(),
+        "min_loss": min_loss,
+    }
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def load_any(path):
+    """A checkpoint written by `save_checkpoint`, or an original `.bin`.
+
+    Returns {"model": MixSTE2 state_dict (CPU tensors), "epoch", "lr",
+    "optimizer", "random_state", "min_loss"}; for an original `.bin` the
+    last three are None (its optimizer state belongs to the original's
+    parameter order), as the JAX package's `load_any` returns them.
+    """
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if not isinstance(ckpt, dict) or "model_pos" not in ckpt:
+        raise ValueError(f"{path}: not a checkpoint (no 'model_pos' entry)")
+    if not any(k.startswith(_PREFIXES) for k in ckpt["model_pos"]):
+        return {"model": ckpt["model_pos"], "epoch": ckpt.get("epoch"), "lr": ckpt.get("lr"),
+                "optimizer": ckpt.get("optimizer"), "random_state": ckpt.get("random_state"),
+                "min_loss": ckpt.get("min_loss")}
+    sd, meta = load_reference_checkpoint(path)
+    return {"model": sd, "epoch": meta.get("epoch", 0), "lr": meta.get("lr"),
+            "optimizer": None, "random_state": None, "min_loss": None}
+
+
+def latest_checkpoint(directory):
+    """Newest epoch_N.ckpt in a directory, else best_epoch.ckpt, else None
+    (`--resume auto`)."""
+    candidates = glob.glob(os.path.join(directory, "epoch_*.ckpt"))
+    if candidates:
+        return max(candidates, key=lambda p: int(re.findall(r"epoch_(\d+)", p)[-1]))
+    best = os.path.join(directory, "best_epoch.ckpt")
+    return best if os.path.exists(best) else None

@@ -161,6 +161,72 @@ def test_fused_attention_qkv_bwd_kernel_matches_autograd_of_plain(np_rng, R, N):
     assert _excess(got, want, torch.float32, TOL_QKV) <= 0
 
 
+KERNEL_NS = [1, 17, 100, 129, 243, 256]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", KERNEL_NS)
+def test_mlp_block_kernel_matches_plain(np_rng, dtype, N):
+    """(R, C) rows with R = 3 * N: a partial last row block at every N but
+    256 (32 bf16 or 16 fp32 rows per block)."""
+    dev = _cuda()
+    args = _t(_mlp_inputs(np_rng, 1, 3 * N, 1, 512, 1024), dev, dtype)
+    args[:2] = [a.view(3 * N, 512) for a in args[:2]]
+    n0 = tmlp.mlp_block.launches
+    got = tmlp.mlp_block(*args, 1e-6)
+    want = tmlp.mlp_block_plain(*args, 1e-6)
+    torch.cuda.synchronize()
+    assert tmlp.mlp_block.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (3 * N, 512)
+    assert _excess(got, want, dtype) <= 0
+
+
+def _block_inputs(rng, R, N, dev, dtype, C=512):
+    """qkv at unit scale, a residual of 0.5 and a 0.05 projection keep x2 at
+    the main path's scale, where one bf16 ulp stays inside the tolerance."""
+    arrs = [rng.randn(R, N, 3 * C), rng.randn(R, N, C) * 0.5, rng.randn(C, C) * 0.05,
+            rng.randn(C) * 0.02, 1 + 0.1 * rng.randn(C), 0.1 * rng.randn(C)]
+    return _t([a.astype(np.float32) for a in arrs], dev, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", KERNEL_NS)
+def test_attention_block_kernel_matches_plain(np_rng, dtype, N):
+    dev = _cuda()
+    R = 5 if N > 100 else 19  # the proj/LN2 launch's 32-row blocks end partial
+    args = _block_inputs(np_rng, R, N, dev, dtype)
+    n0 = tattn.attention_block.launches
+    got = tattn.attention_block(*args, 8, 0.125, 1e-6)
+    want = tattn.attention_block_plain(*args, 8, 0.125, 1e-6)
+    torch.cuda.synchronize()
+    assert tattn.attention_block.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == (R, N, 512)
+        assert _excess(g, w, dtype) <= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", KERNEL_NS)
+def test_fused_attention_packed_kernel_matches_plain(np_rng, dtype, N):
+    dev = _cuda()
+    R = 3 if N > 100 else 7
+    q, k, v = (torch.from_numpy(np_rng.randn(R, N, 512).astype(np.float32)).to(dev, dtype)
+               for _ in range(3))
+    n0 = tattn.fused_attention_packed.launches
+    got = tattn.fused_attention_packed(q, k, v, 8, 0.125)
+    want = tattn.fused_attention_plain(q, k, v, 8, 0.125)
+    torch.cuda.synchronize()
+    assert tattn.fused_attention_packed.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (R, N, 512)
+    assert _excess(got, want, dtype, TOL_QKV) <= 0
+    # the (B, N, h, d) wrapper launches the same kernel
+    shaped = tattn.fused_attention(*(t.view(R, N, 8, 64) for t in (q, k, v)), 0.125)
+    assert torch.equal(shaped.reshape(R, N, 512), got)
+
+
 @pytest.mark.gpu
 def test_wrappers_raise_on_what_the_kernels_do_not_take(np_rng):
     """A CUDA input the kernel does not take raises; nothing falls back to
@@ -191,3 +257,16 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(np_rng):
     with pytest.raises(ValueError, match="contiguous"):
         tattn.fused_attention_qkv_bwd(qkv, dout.transpose(0, 1).contiguous().transpose(0, 1),
                                       8, 0.125)
+    with pytest.raises(ValueError, match="x must be"):
+        tmlp.mlp_block(*margs, 1e-6)
+    with pytest.raises(ValueError, match="res has shape"):
+        tmlp.mlp_block(margs[0].view(-1, 512), margs[1].view(-1, 512)[1:], *margs[2:], 1e-6)
+    bargs = _block_inputs(np_rng, 2, 17, dev, torch.bfloat16)
+    with pytest.raises(ValueError, match="qkv has shape"):
+        tattn.attention_block(bargs[0][:, :, :512].contiguous(), *bargs[1:], 8, 0.125, 1e-6)
+    with pytest.raises(ValueError, match="N=300"):
+        tattn.attention_block(torch.zeros(1, 300, 1536, device=dev, dtype=torch.bfloat16),
+                              torch.zeros(1, 300, 512, device=dev, dtype=torch.bfloat16),
+                              *bargs[2:], 8, 0.125, 1e-6)
+    with pytest.raises(ValueError, match="k has dtype"):
+        tattn.fused_attention_packed(dout, dout.float(), dout, 8, 0.125)

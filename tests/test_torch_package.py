@@ -51,7 +51,9 @@ def test_package_mirrors_layout():
               "geometry.quaternion", "ops.attention", "ops.mlp", "models.mixste",
               "train.convert", "train.state", "metrics.mpjpe", "metrics.procrustes_np",
               "data.windowing", "data.prefetch", "data.generators", "data.synthetic",
-              "eval.evaluator"):
+              "data.skeleton", "data.mocap", "data.h36m", "eval.evaluator",
+              "train.checkpoint_io", "cli.arguments", "cli.data_prep", "cli.main_h36m",
+              "utils.misc", "utils.logging", "utils.profiling"):
         assert f"d3dp_tpu_torch.{m}" in _modules(), m
 
 
@@ -62,7 +64,7 @@ def test_every_cuda_source_is_built_and_bound():
 
     sources = sorted(f.stem for f in (PKG / "ops" / "csrc").glob("*.cu"))
     assert sorted(_build.SOURCES) == sources
-    assert "attention_qkv" in sources
+    assert {"attention_qkv", "attention_block"} <= set(sources)
     wrappers = "".join(f.read_text() for f in (PKG / "ops").glob("*.py"))
     for name in sources:
         assert f'_build.load("{name}"' in wrappers, name
@@ -85,6 +87,21 @@ def test_train_modules_import_no_jax():
     assert "clean" in out.stdout
 
 
+def test_cli_modules_import_no_jax():
+    """The command line, imported alone, pulls in no JAX, flax or optax."""
+    code = (
+        "import sys\n"
+        "import d3dp_tpu_torch.cli.main_h36m\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'd3dp_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
+
+
 def test_entry_points_need_a_card_unless_cpu_is_asked_for():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
@@ -93,8 +110,12 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
     from d3dp_tpu_torch.models import MixSTE2, MixSTEConfig
 
     small = MixSTEConfig(num_frames=9, embed_dim=64, depth=1)
+    from d3dp_tpu_torch.cli import main_h36m
+
     for make in (lambda: resolve_device(), lambda: MixSTE2(small),
-                 lambda: D3DP(D3DPConfig(model=small))):
+                 lambda: D3DP(D3DPConfig(model=small)),
+                 lambda: main_h36m.main(["-d", "synthetic", "--nolog", "-cs", "64", "-dep", "1",
+                                         "-f", "9", "-e", "0"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert resolve_device("cpu") == torch.device("cpu")
