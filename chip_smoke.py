@@ -4,21 +4,25 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from `d3dp_tpu_torch/ops/csrc/`, holds each
-against its plain torch version on the card, checks the full-width MixSTE2
+against its plain torch version on the card (the depth-resident trunk
+kernel first at depth 1 in a child process under a time limit, so that a
+kernel that never finishes becomes an error), checks the full-width MixSTE2
 on the kernel path against the plain path (eval forward at every fuse
 level, and the training loss and gradients), then drives the port's paths
 at MixSTE2's published width (C=512, 8 heads, depth 8, 243 frames) with
 random weights from a fixed seed:
   * evaluation: multi-hypothesis DDIM sampling (H=5, K=5, bf16, flip-TTA)
     and the four-mode Evaluator, then one timed sampling call at each fuse
-    level 0-4;
+    level 0-5;
+  * fuse level 5 (the whole trunk in one launch) against level 4, its
+    kernel timed and profiled, and sampling with DDIM feature reuse;
   * training: the default train step (bf16 compute, fp32 AdamW at 6e-5,
     DropPath 0.1, batch 4 chunks of 243 frames from ChunkedGenerator),
     then light validation on the trained weights;
   * the packed-attention op through its public wrapper;
   * the H36M command line (`d3dp_tpu_torch.cli.main_h36m`, in process):
     one training epoch with checkpoints, a resumed epoch, and evaluation of
-    the best checkpoint at every fuse level 0-4;
+    the best checkpoint at every fuse level 0-5 and with feature reuse;
 and times them. Every phase raises on failure; the script exits non-zero
 without a CUDA device and prints nothing then but the reason. The last
 stdout line is the run's JSON status; the line before it the per-kernel
@@ -125,11 +129,14 @@ def kernel_ops():
     from d3dp_tpu_torch.ops import attention as A
     from d3dp_tpu_torch.ops import mlp as M
 
+    from d3dp_tpu_torch.ops import resident as R
+
     return {"attention_stage": A.attention_stage, "mlp_block_t": M.mlp_block_t,
             "fused_attention_qkv": A.fused_attention_qkv,
             "fused_attention_qkv_bwd": A.fused_attention_qkv_bwd, "mlp_block": M.mlp_block,
             "attention_block": A.attention_block,
-            "fused_attention_packed": A.fused_attention_packed}
+            "fused_attention_packed": A.fused_attention_packed,
+            "resident_block_stack": R.resident_block_stack}
 
 
 def reset_counts():
@@ -144,12 +151,12 @@ def read_counts():
 @contextlib.contextmanager
 def plain_ops():
     """Run the model through the plain torch versions (comparison only)."""
-    from d3dp_tpu_torch.ops import attention, mlp
+    from d3dp_tpu_torch.ops import attention, mlp, resident
 
     swaps = [(attention, "attention_stage"), (mlp, "mlp_block_t"),
              (attention, "fused_attention_qkv"), (attention, "fused_attention_qkv_bwd"),
              (mlp, "mlp_block"), (attention, "attention_block"),
-             (attention, "fused_attention_packed")]
+             (attention, "fused_attention_packed"), (resident, "resident_block_stack")]
     saved = [getattr(mod, name) for mod, name in swaps]
     plain = {"fused_attention_packed": "fused_attention_plain"}
     for mod, name in swaps:
@@ -266,8 +273,116 @@ def phase_kernels(torch, record):
                 check(ex <= tol, f"fused_attention_qkv_bwd {label} disagrees with autograd")
             del qkv, dout, got, want
         check_eval_kernels(torch, gen, dt, name_dt, errs)
+        check_resident_kernel(torch, dt, name_dt, errs)
     record["max_abs_err_bf16"] = errs
     return errs
+
+
+# The trunk kernel's first run: depth 1, 2 rows of 27 frames, both compute
+# dtypes, in a child process. A grid barrier that some block never reaches
+# would hang the launch; the child's time limit turns that into an error.
+PROBE = """
+import torch
+from d3dp_tpu_torch import disable_tf32
+from d3dp_tpu_torch.models import MixSTE2, MixSTEConfig
+from d3dp_tpu_torch.ops import resident as R
+disable_tf32()
+for dt in (torch.float32, torch.bfloat16):
+    m = MixSTE2(MixSTEConfig(num_frames=27, depth=1, dtype=dt), seed=1)
+    W = m._weights()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(2, 27, 17, 512, generator=g, device="cuda").to(dt)
+    args = (x, W["temporal_pos"][0], *W["resident"], 8, 0.125, 1e-6)
+    got = R.resident_block_stack(*args).float()
+    torch.cuda.synchronize()
+    want = R.resident_block_stack_plain(*args).float()
+    d = (got - want).abs()
+    ulp = 0.0 if dt == torch.float32 else 2.0 ** -7
+    print(f"{str(dt)[6:]} max|err| {d.max().item():.3e}", flush=True)
+    assert (d - ulp * want.abs()).max().item() <= (1e-4 if dt == torch.float32 else 3e-2)
+"""
+
+
+def probe_resident(torch):
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run([sys.executable, "-c", PROBE], capture_output=True, text=True,
+                           timeout=180)
+    except subprocess.TimeoutExpired:
+        raise RuntimeError("resident_block_stack: the depth-1 probe did not finish in 180 s "
+                           "(a grid barrier that not every block reaches?)") from None
+    ok = r.returncode == 0
+    log(f"[kernels] resident_block_stack depth-1 probe (child process, 180 s limit): "
+        f"{' / '.join(r.stdout.split(chr(10))[:2])} in {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"resident_block_stack probe failed:\n{r.stderr[-3000:]}")
+
+
+def resident_inputs(torch, dt, seed):
+    """K9's operands as the main path gives them: the embedded (ROWS, F, J,
+    C) stream of a seeded, perturbed full-width MixSTE2 (depth 8) and that
+    model's depth-stacked weights."""
+    from d3dp_tpu_torch.models import MixSTE2
+
+    model = MixSTE2(dataclasses.replace(main_config(torch).model, dtype=dt), seed=seed)
+    perturb_(torch, model, seed + 1)
+    W = model._weights()
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    x2d = torch.randn(ROWS, F, J, 2, generator=g, device="cuda") * 0.3
+    x3d = torch.randn(ROWS, F, J, 3, generator=g, device="cuda")
+    t = torch.randint(0, 1000, (ROWS,), generator=g, device="cuda")
+    with torch.no_grad():
+        x = model._embed(x2d, x3d, t, W)
+    return (x, W["temporal_pos"][0], *W["resident"])
+
+
+# K9 in bf16 at depth 8: its relative L2 distance from the fp32 math of the
+# same bf16 inputs may exceed the plain version's by at most this factor
+BF16_CHAIN_RATIO = 1.05
+
+
+def check_resident_kernel(torch, dt, name_dt, errs):
+    """K9 against its plain version on the eval path's 40 rows.
+    fp32, depth 8: 1e-4 (summation order only). bf16, depth 1 (one block
+    pair): K1/K2's tolerance, 3e-2 plus one bf16 ulp of the value. bf16,
+    depth 8: the rounding flips of 16 chained blocks compound on both
+    sides, so the two bf16 versions drift apart by several ulps; held
+    instead to be no further from the fp32 math of the same bf16 inputs
+    than the plain version is (relative L2, factor BF16_CHAIN_RATIO), with
+    the max |kernel - plain| reported."""
+    from d3dp_tpu_torch.ops import resident as R
+
+    x, tpos, sp, tp, shared = resident_inputs(torch, dt, 30)
+    depths = (DEPTH,) if dt == torch.float32 else (1, DEPTH)
+    for D in depths:
+        args = (x, tpos, tuple(w[:D] for w in sp), tuple(w[:D] for w in tp), shared)
+        got = R.resident_block_stack(*args, HEADS, 0.125, 1e-6)
+        want = R.resident_block_stack_plain(*args, HEADS, 0.125, 1e-6)
+        torch.cuda.synchronize()
+        ok = bool(torch.isfinite(got).all())
+        if dt == torch.float32 or D == 1:
+            ulp = BF16_ULP if dt == torch.bfloat16 else 0.0
+            tol = TOL[name_dt]
+            e, ex = max_err(torch, got, want, ulp)
+            ok = ok and ex <= tol
+            how = f"tol {tol:g}{' + 1 bf16 ulp' if ulp else ''}"
+        else:
+            e = (got.float() - want.float()).abs().max().item()
+            f32 = (x.float(), tpos, tuple(w[:D].float() for w in sp),
+                   tuple(w[:D].float() for w in tp), shared)
+            ref = R.resident_block_stack_plain(*f32, HEADS, 0.125, 1e-6)
+            rel_k = ((got.float() - ref).norm() / ref.norm()).item()
+            rel_p = ((want.float() - ref).norm() / ref.norm()).item()
+            ok = ok and rel_k <= BF16_CHAIN_RATIO * rel_p
+            how = (f"relative L2 from the fp32 math: kernel {rel_k:.4e}, plain {rel_p:.4e}, "
+                   f"tol {BF16_CHAIN_RATIO:g}x plain")
+            del ref
+        log(f"[kernels] resident_block_stack {name_dt} x{tuple(x.shape)} depth {D}: "
+            f"max|err| {e:.3e} ({how}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"resident_block_stack {name_dt} depth {D} disagrees with its plain version")
+        if dt == torch.bfloat16:
+            errs["resident_block_stack"] = max(errs["resident_block_stack"], e)
+        del got, want
 
 
 def block_inputs(torch, gen, R, N, dt):
@@ -347,11 +462,16 @@ def phase_model(torch, record):
     record["model_fp32_max_abs_err"] = err
 
 
-# launches of one D3DP.sample call (2*depth*K blocks) at each fuse level;
-# every other kernel launches 0 times
+# the kernels of each fuse level, each launched once per block (2*depth a
+# forward) at levels 0-4 and once per forward at level 5; every other
+# kernel launches 0 times
 LEVEL_KERNELS = {0: ("fused_attention_qkv",), 1: ("fused_attention_qkv", "mlp_block"),
                  2: ("attention_block", "mlp_block"), 3: ("attention_block", "mlp_block_t"),
-                 4: ("attention_stage", "mlp_block_t")}
+                 4: ("attention_stage", "mlp_block_t"), 5: ("resident_block_stack",)}
+
+
+def per_forward(level):
+    return 1 if level == 5 else 2 * DEPTH
 
 
 def set_level(model, level):
@@ -360,11 +480,11 @@ def set_level(model, level):
 
 
 def phase_fuse_levels(torch, record, d3dp, x2d, x2d_f):
-    """MixSTE2 fp32, full width, depth 2: levels 0-3 against level 4 and
-    against the plain path (1e-4, fp32 summation order only); then one
+    """MixSTE2 fp32, full width, depth 2: levels 0-3 and 5 against level 4
+    and against the plain path (1e-4, fp32 summation order only); then one
     bf16 D3DP.sample at the eval config per level, its launch counts, its
     time (median of 3 CUDA-event timings after a warm-up call) and, at
-    levels 0-3, its device time by kernel."""
+    levels 0-3, its device time by kernel (level 5's: phase resident)."""
     from torch.profiler import ProfilerActivity, profile
 
     from d3dp_tpu_torch.models import MixSTE2, MixSTEConfig
@@ -378,7 +498,7 @@ def phase_fuse_levels(torch, record, d3dp, x2d, x2d_f):
     with torch.no_grad():
         ref = model(xa, xb, t)
         errs = {}
-        for level in range(4):
+        for level in (0, 1, 2, 3, 5):
             set_level(model, level)
             out = model(xa, xb, t)
             with plain_ops():
@@ -392,9 +512,9 @@ def phase_fuse_levels(torch, record, d3dp, x2d, x2d_f):
             check(ok, f"MixSTE2 at fuse level {level} disagrees with level 4 or the plain path")
     del model
 
-    per_call = 2 * DEPTH * K
     rows = {}
-    for level in range(5):
+    for level in range(6):
+        per_call = per_forward(level) * K
         set_level(d3dp.model, level)
         g = torch.Generator(device="cuda").manual_seed(10 + level)
         reset_counts()
@@ -423,6 +543,154 @@ def phase_fuse_levels(torch, record, d3dp, x2d, x2d_f):
                 f"fuse-levels-profile L{level}", top=8)
     set_level(d3dp.model, 4)
     record["fuse_levels"] = dict(model_fp32_max_abs_err=errs, sample=rows)
+
+
+def resident_flops_bytes(x, D):
+    """K9's work at its inputs: the operations of 2*D blocks (qkv, proj,
+    MLP and attention products) and the bytes of the stream in and out,
+    the depth-stacked weights, tpos and the shared norms, each once."""
+    Bx, Fx, Jx, Cx = x.shape
+    T, item = Bx * Fx * Jx, x.element_size()
+    blk = 2 * T * Cx * 3 * Cx + 2 * T * Cx * Cx + 4 * T * Cx * HIDDEN
+    flops = D * (2 * blk + 4 * T * Cx * (Jx + Fx))
+    nbytes = (2 * T * Cx * item + 2 * D * (4 * Cx * Cx + 2 * Cx * HIDDEN) * item
+              + 2 * D * (3 * Cx + HIDDEN + 6 * Cx) * 4 + Fx * Cx * item + 4 * Cx * 4)
+    return flops, nbytes
+
+
+def library_trunk(torch, Fn, x, tpos, spatial, temporal, shared):
+    """The trunk in library calls, bf16 (K9's yardstick): per depth and kind
+    layer_norm, F.linear, SDPA on q/k/v views, F.linear, the residual,
+    layer_norm, F.linear, GELU, F.linear, the residual and the shared
+    layer_norm, with the relayouts as copies. Weights are re-laid out for
+    F.linear here, outside the timed call."""
+    bf = torch.bfloat16
+    D = spatial[0].shape[0]
+
+    def prep(ws):
+        wqkv, bqkv, wp, w1, b1, w2, vec = ws
+        return [(wqkv[d].t().contiguous(), bqkv[d, 0].to(bf), wp[d].t().contiguous(),
+                 w1[d].t().contiguous(), b1[d, 0].to(bf), w2[d].t().contiguous(),
+                 [v.to(bf) for v in vec[d]]) for d in range(D)]
+
+    sp, tp, sh = prep(spatial), prep(temporal), [v.to(bf) for v in shared]
+    tp_bf = tpos.to(bf)
+
+    def block(h, w, ns, nb):
+        wqkv, bqkv, wp, w1, b1, w2, (bp, l1s, l1b, l2s, l2b, b2) = w
+        R, N, _ = h.shape
+        qkv = Fn.linear(Fn.layer_norm(h, (C,), l1s, l1b, 1e-6), wqkv, bqkv)
+        q, k, v = qkv.view(R, N, 3, HEADS, C // HEADS).permute(2, 0, 3, 1, 4).unbind(0)
+        o = Fn.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(R, N, C)
+        x2 = h + Fn.linear(o, wp, bp)
+        m = Fn.linear(Fn.gelu(Fn.linear(Fn.layer_norm(x2, (C,), l2s, l2b, 1e-6), w1, b1)), w2, b2)
+        return Fn.layer_norm(x2 + m, (C,), ns, nb, 1e-6)
+
+    def run():
+        Bx, Fx, Jx, _ = x.shape
+        h = x.reshape(Bx * Fx, Jx, C)
+        for d in range(D):
+            h = block(h, sp[d], sh[0], sh[1]).view(Bx, Fx, Jx, C).transpose(1, 2)
+            h = h.reshape(Bx * Jx, Fx, C)
+            if d == 0:
+                h = h + tp_bf
+            h = block(h, tp[d], sh[2], sh[3]).view(Bx, Jx, Fx, C).transpose(1, 2)
+            h = h.reshape(Bx * Fx, Jx, C)
+        return h
+    return run
+
+
+def phase_resident(torch, record, d3dp, x2d, x2d_f, rows):
+    """Fuse level 5 on the main path's model (bf16, depth 8, 40 rows; fp32
+    level 5 against level 4 is phase fuse_levels', at depth 2): level 5
+    against level 4 on the same weights and inputs (exactly equal: the same
+    device code and roundings), with the forward's launch counts; one
+    profiled D3DP.sample at level 5 (K launches of K9; its unprofiled time
+    is phase fuse_levels'); one timed D3DP.sample with feature reuse
+    (interval 2, tap 2: level 4's kernels, 56 launches each at depth 8);
+    K9's time per launch against its bound, its plain version and the
+    library yardstick."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch.nn.functional as Fn
+    from d3dp_tpu_torch.diffusion import D3DP
+    from d3dp_tpu_torch.ops import resident as R
+
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(40)
+    xa = torch.randn(ROWS, F, J, 2, generator=g, device="cuda") * 0.3
+    xb = torch.randn(ROWS, F, J, 3, generator=g, device="cuda")
+    t = torch.randint(0, 1000, (ROWS,), generator=g, device="cuda")
+    res, counts = {}, {}
+    for level in (4, 5):
+        set_level(d3dp.model, level)
+        reset_counts()
+        res[level] = d3dp.model(xa, xb, t)
+        torch.cuda.synchronize()
+        counts[level] = {n: c for n, c in read_counts().items() if c}
+    diff = (res[5].float() - res[4].float()).abs().max().item()
+    equal = torch.equal(res[5], res[4]) and bool(torch.isfinite(res[5]).all())
+    want = {5: {"resident_block_stack": 1},
+            4: {"attention_stage": 2 * DEPTH, "mlp_block_t": 2 * DEPTH}}
+    ok = equal and counts == want
+    log(f"[resident] MixSTE2 bf16 C={C} depth {DEPTH} {ROWS} rows: level 5 vs level 4 max|diff| "
+        f"{diff:.3e}, equal {equal}; launches per forward {counts} {'ok' if ok else 'FAIL'}")
+    check(ok, "level 5 differs from level 4, or launch counts")
+    out["level5_vs_level4_bf16"] = diff
+    del res
+
+    # the level-5 main path: one sample call, counted and profiled
+    set_level(d3dp.model, 5)
+    g = torch.Generator(device="cuda").manual_seed(41)
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        preds = d3dp.sample(x2d, x2d_f, generator=g)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = {n: c for n, c in read_counts().items() if c}
+    ok = counts == {"resident_block_stack": K} and bool(torch.isfinite(preds).all())
+    log(f"[resident] D3DP.sample B={B} H={H} K={K} F={F} bf16 flip-TTA at level 5 (profiled): "
+        f"launches {counts} (expected {K} of resident_block_stack) {'ok' if ok else 'FAIL'}")
+    check(ok, "D3DP.sample at level 5: launch counts or non-finite output")
+    record["launches"]["resident_block_stack"] = counts.get("resident_block_stack", 0)
+    out["profile"] = summarize_profile(torch, prof, wall_ms, "one D3DP.sample call at level 5",
+                                       "resident-profile", top=6)
+
+    reuse = D3DP(dataclasses.replace(d3dp.cfg, reuse_interval=2, reuse_tap=2), model=d3dp.model)
+    want = {n: 3 * 2 * DEPTH + 2 * 2 * 2 for n in LEVEL_KERNELS[4]}
+    reset_counts()
+    preds = reuse.sample(x2d, x2d_f, generator=g)
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in read_counts().items() if c}
+    ok = counts == want and bool(torch.isfinite(preds).all()) and \
+        tuple(preds.shape) == (B, K, H, F, J, 3)
+    sample_ms = time_ms(torch, lambda: reuse.sample(x2d, x2d_f, generator=g), reps=3)
+    out["reuse"] = dict(sample_s=sample_ms / 1e3, launches=counts,
+                        hyp_frames_per_s=B * H * F * K * 1e3 / sample_ms)
+    log(f"[resident] D3DP.sample B={B} H={H} K={K} F={F} bf16 flip-TTA at level 5 + reuse "
+        f"interval 2 tap 2: {sample_ms / 1e3:.4f} s/call (median of 3), "
+        f"{out['reuse']['hyp_frames_per_s']:.1f} hyp*frames/s; launches {counts} "
+        f"(expected {want}) {'ok' if ok else 'FAIL'}")
+    check(ok, "D3DP.sample with reuse: launch counts, shape or non-finite output")
+    set_level(d3dp.model, 4)
+
+    args = resident_inputs(torch, torch.bfloat16, 30)
+    flops, nbytes = resident_flops_bytes(args[0], DEPTH)
+    lib = library_trunk(torch, Fn, *args)
+    row = dict(shape=list(args[0].shape), flops=flops, bytes=nbytes,
+               ms=time_ms(torch, lambda: R.resident_block_stack(*args, HEADS, 0.125, 1e-6),
+                          reps=5),
+               plain_ms=time_ms(torch, lambda: R.resident_block_stack_plain(
+                   *args, HEADS, 0.125, 1e-6), reps=2),
+               library_ms=time_ms(torch, lib, reps=5))
+    row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, PEAK_BF16)
+    log(f"[resident] resident_block_stack bf16 x{tuple(args[0].shape)} depth {DEPTH}: kernel "
+        f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+        f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB), plain {row['plain_ms']:.4f} ms, "
+        f"library {row['library_ms']:.4f} ms, {flops / row['ms'] / 1e9:.1f} TFLOP/s")
+    rows["resident_block_stack/trunk"] = row
+    record["resident"] = out
 
 
 def phase_packed(torch, record):
@@ -464,8 +732,10 @@ def phase_cli(torch, record):
     """The H36M command line in process, at the published width with the
     synthetic dataset: one training epoch with checkpoints, a resumed
     second epoch, then `--evaluate best_epoch.ckpt` (H=5, K=5) at every
-    fuse level. Every report line must be a finite number and J-Best <=
-    P-Best. Checkpoints go to a directory under log/ (git-ignored) that is
+    fuse level, and at level 4 with DDIM feature reuse (`--ddim-reuse 2
+    --ddim-reuse-tap 2`: steps 0, 2 and 4 run all 8 block pairs, steps 1
+    and 3 the first 2). Every report line must be a finite number and
+    J-Best <= P-Best. Checkpoints go to a directory under log/ (git-ignored) that is
     removed afterwards; the command line's output goes to
     chiprun_out/chip_smoke_cli.log."""
     from d3dp_tpu_torch.cli import main_h36m
@@ -477,15 +747,21 @@ def phase_cli(torch, record):
             "--dtype", "bfloat16", "-c", ckdir, "--eval-batch-size", str(B)]
     # 6 test sequences of 400 synthetic frames: 2 windows each, 1 micro-batch
     n_batches = 2 * 3 * math.ceil(math.ceil(400 / F) / B)
-    runs = [("train", ["-e", "1", "-cf", "1"]),
-            ("resume", ["-r", "epoch_1.ckpt", "-e", "2", "-cf", "1"])]
-    runs += [(f"eval L{level}", ["--evaluate", "best_epoch.ckpt", "-num_proposals", str(H),
-                                 "-sampling_timesteps", str(K), "--fuse-level", str(level)])
-             for level in range(5)]
+    runs = [("train", ["-e", "1", "-cf", "1"], None),
+            ("resume", ["-r", "epoch_1.ckpt", "-e", "2", "-cf", "1"], None)]
+    evaluate = ["--evaluate", "best_epoch.ckpt", "-num_proposals", str(H), "-sampling_timesteps",
+                str(K)]
+    runs += [(f"eval L{level}", evaluate + ["--fuse-level", str(level)],
+              {n: n_batches * per_forward(level) * K for n in LEVEL_KERNELS[level]})
+             for level in range(6)]
+    # reuse: 3 full steps of 2*depth blocks and 2 steps of 2*tap blocks
+    runs.append(("eval L4 reuse", evaluate + ["--fuse-level", "4", "--ddim-reuse", "2",
+                                              "--ddim-reuse-tap", "2"],
+                 {n: n_batches * (3 * 2 * DEPTH + 2 * 2 * 2) for n in LEVEL_KERNELS[4]}))
     out = {}
     try:
         with open(os.path.join("chiprun_out", "chip_smoke_cli.log"), "w") as f:
-            for name, extra in runs:
+            for name, extra, want in runs:
                 reset_counts()
                 t0 = time.perf_counter()
                 with contextlib.redirect_stdout(f):
@@ -494,16 +770,14 @@ def phase_cli(torch, record):
                 torch.cuda.synchronize()
                 counts = {n: c for n, c in read_counts().items() if c}
                 out[name] = dict(seconds=time.perf_counter() - t0, launches=counts)
-                if name.startswith("eval"):
-                    level = int(name[-1])
+                if want is not None:
                     logf = os.path.join(ckdir, f"h36m_test_log_H{H}_K{K}.txt")
                     avg, lines = report_lines(logf)
-                    os.replace(logf, os.path.join(ckdir, f"level{level}.txt"))
+                    os.replace(logf, os.path.join(ckdir, name.replace(" ", "_") + ".txt"))
                     nums = [float(x) for line in lines
                             for x in re.findall(r": (\S+) mm$", line)]
                     finite = len(nums) == len(lines) - 3 * 2 and all(map(math.isfinite, nums))
                     jbest = all(j <= p + 1e-9 for j, p in zip(avg["J_Best"], avg["P_Best"]))
-                    want = {n: n_batches * 2 * DEPTH * K for n in LEVEL_KERNELS[level]}
                     ok = finite and jbest and len(avg["P_Best"]) == K and counts == want
                     out[name].update(action_avg_mm={m: v for m, v in avg.items()})
                     log(f"[cli] {name}: {out[name]['seconds']:.1f} s, {len(nums)} report numbers "
@@ -1009,7 +1283,8 @@ def kernels_line(rows, errs, launches):
     which the path launches equally often. Launches: K1 and K2 from the
     evaluation path's run (phase main), K3 and K4 from the training path's
     (phase train), K5 and K6 from the command line's evaluation at the fuse
-    levels that run them (phase cli), K7 from its public op (phase packed)."""
+    levels that run them (phase cli), K7 from its public op (phase packed),
+    K9 from one D3DP.sample call at fuse level 5 (phase resident)."""
     meta = {"attention_stage": ("d3dp_tpu_torch/ops/csrc/attention_stage.cu",
                                 "d3dp_tpu/ops/attention.py:396"),
             "mlp_block_t": ("d3dp_tpu_torch/ops/csrc/mlp_block_t.cu",
@@ -1022,7 +1297,9 @@ def kernels_line(rows, errs, launches):
             "attention_block": ("d3dp_tpu_torch/ops/csrc/attention_block.cu",
                                 "d3dp_tpu/ops/attention.py:227"),
             "fused_attention_packed": ("d3dp_tpu_torch/ops/csrc/attention_qkv.cu",
-                                       "d3dp_tpu/ops/attention.py:32")}
+                                       "d3dp_tpu/ops/attention.py:32"),
+            "resident_block_stack": ("d3dp_tpu_torch/ops/csrc/resident.cu",
+                                     "d3dp_tpu/ops/resident.py:118")}
     out = []
     for name, (src, rep) in meta.items():
         rs = [r for k, r in rows.items() if k.startswith(name + "/")]
@@ -1048,6 +1325,7 @@ def main():
     t_all = time.perf_counter()
     os.makedirs("chiprun_out", exist_ok=True)
     phase_env(torch, record)
+    probe_resident(torch)
     errs = phase_kernels(torch, record)
     phase_model(torch, record)
     phase_train_model(torch, record)
@@ -1055,6 +1333,7 @@ def main():
     rows = phase_timing(torch, record, d3dp, x2d, x2d_f)
     phase_profile(torch, record, d3dp, x2d, x2d_f)
     phase_fuse_levels(torch, record, d3dp, x2d, x2d_f)
+    phase_resident(torch, record, d3dp, x2d, x2d_f, rows)
     del d3dp
     phase_train(torch, record)
     phase_packed(torch, record)

@@ -134,15 +134,20 @@ def build_parser(in_the_wild=False):
                              "the attention-core kernel, 1 = + MLP-block kernel, "
                              "2 = + attention-block kernel, 3 = transpose-free "
                              "flow, 4 = + attention-stage kernel (two kernels per "
-                             "block). 5 (depth-resident kernel) is not ported "
-                             "yet. Training always runs the composed block")
+                             "block), 5 = the whole trunk in one depth-resident "
+                             "kernel. Training always runs the composed block")
     parser.add_argument("--ddim-reuse", type=int, default=0, metavar="N",
-                        help="DDIM feature reuse interval (0/1 = off; >1 is "
-                             "not ported yet)")
+                        help="DDIM feature reuse (evaluation): run the full "
+                             "model every N-th step and the last, and in between "
+                             "only the first --ddim-reuse-tap block pairs plus "
+                             "the cached deep delta (0/1 = off)")
     parser.add_argument("--ddim-reuse-tap", type=int, default=2, metavar="D",
-                        help="with --ddim-reuse (not ported yet)")
+                        help="block pairs computed fresh on a reuse step "
+                             "(clamped to 1..-dep)")
     parser.add_argument("--ddim-reuse-adaptive", type=float, default=0.0,
-                        metavar="TAU", help="with --ddim-reuse (not ported yet)")
+                        metavar="TAU",
+                        help="also refresh when the noisy pose drifted more than "
+                             "TAU (relative L2) since the last refresh (0 = off)")
     parser.add_argument("--jax-cache", default=os.environ.get(
                             "JAX_COMPILATION_CACHE_DIR",
                             os.path.expanduser("~/.cache/d3dp_tpu/jax")),
@@ -196,8 +201,6 @@ def _not_ported(args):
     """The first flag set to a value whose feature the port lacks, as a
     message, or None."""
     checks = (
-        (args.fuse_level == 5, "--fuse-level 5 (the depth-resident kernel)"),
-        (args.ddim_reuse > 1, "--ddim-reuse > 1 (DDIM feature reuse)"),
         (args.p2_device, "--p2-device (Protocol-2 on the device)"),
         (args.dp != 0 or args.tp != 1, "--dp/--tp (multi-device meshes)"),
         (args.multihost, "--multihost"),

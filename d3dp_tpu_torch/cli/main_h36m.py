@@ -37,7 +37,8 @@ def _build_models(args, data, device=None):
     """Train-config, validation-config (H=1, K=1) and eval-config D3DPs over
     one MixSTE2 (reference: 3 D3DP instances sharing weights, main.py:228-230).
     The training D3DP draws DropPath 0.1; the other two sample on the eval
-    path at `--fuse-level`, which applies no DropPath."""
+    path at `--fuse-level`, which applies no DropPath. DDIM feature reuse
+    (`--ddim-reuse`, `-tap`, `-adaptive`) applies to the eval D3DP only."""
     cfg = MixSTEConfig(
         num_frames=args.number_of_frames,
         num_joints=data.num_joints,
@@ -59,7 +60,10 @@ def _build_models(args, data, device=None):
     d3dp_train = D3DP(D3DPConfig(**common), model=model)
     d3dp_valid = D3DP(D3DPConfig(num_proposals=1, sampling_timesteps=1, **common), model=model)
     d3dp_eval = D3DP(D3DPConfig(num_proposals=args.num_proposals,
-                                sampling_timesteps=args.sampling_timesteps, **common),
+                                sampling_timesteps=args.sampling_timesteps,
+                                reuse_interval=max(args.ddim_reuse, 1),
+                                reuse_tap=max(1, min(args.ddim_reuse_tap, args.dep)),
+                                reuse_tau=args.ddim_reuse_adaptive, **common),
                      model=model)
     return d3dp_train, d3dp_valid, d3dp_eval
 

@@ -2,11 +2,12 @@
 sampling of H pose hypotheses.
 
 Counterpart of d3dp_tpu/diffusion/d3dp.py on its training forward and its
-fixed-interval sampling path (reference: common/diffusionpose.py:55-320).
-The H hypotheses and the flip-TTA copy are folded into one batch, so each
-DDIM step is one MixSTE2 forward. The K-step loop is a Python loop; all
-randomness comes from an explicit torch.Generator or from
-`noise_override` / `t_noise_override`.
+sampling path, with DDIM feature reuse (reference:
+common/diffusionpose.py:55-320). The H hypotheses and the flip-TTA copy are
+folded into one batch, so each DDIM step is one MixSTE2 forward. The K-step
+loop is a Python loop (it stands in for the JAX package's `lax.scan` and,
+under reuse, its `lax.cond`); all randomness comes from an explicit
+torch.Generator or from `noise_override` / `t_noise_override`.
 
 Reference semantics kept (they affect metric parity):
   * clamp to +-1.1*scale on both x_t and x_start
@@ -36,6 +37,14 @@ def flip_pose(x, perm):
     return torch.index_select(x * sign, x.dim() - 2, perm)
 
 
+def reuse_schedule(n_steps, interval):
+    """Which DDIM steps run the full model under feature reuse, (n_steps,)
+    bool: every `interval`-th step, and always the last, whose x_start is
+    the headline prediction."""
+    steps = np.arange(n_steps)
+    return (steps % interval == 0) | (steps == n_steps - 1)
+
+
 def make_lr_perm(num_joints, joints_left, joints_right):
     """Permutation swapping left/right joint indices."""
     perm = np.arange(num_joints)
@@ -54,6 +63,15 @@ class D3DPConfig:
     eta: float = 1.0
     flip_tta: bool = True
     unit_scale: float = 1.0  # 1.0 for H36M (metres), 1000.0 for 3DHP (mm)
+    # DDIM feature reuse (FRDiff-style, arXiv:2312.03517): the full model runs
+    # on the steps of `reuse_schedule` and caches the deep block pairs'
+    # contribution to the stream; the steps between run only the first
+    # `reuse_tap` pairs and add it. interval <= 1 is off (the default).
+    # reuse_tau > 0 also refreshes whenever the noisy pose has drifted more
+    # than tau (relative L2 against the last refresh, max over the batch).
+    reuse_interval: int = 1
+    reuse_tap: int = 2
+    reuse_tau: float = 0.0
     joints_left: Tuple[int, ...] = (4, 5, 6, 11, 12, 13)
     joints_right: Tuple[int, ...] = (1, 2, 3, 14, 15, 16)
 
@@ -160,25 +178,52 @@ class D3DP:
             cond = torch.cat([cond, fold(x2d_flip)], dim=0)
         perm = self._lr_perm
 
-        def denoise(img, t):
-            """One flip-fused model evaluation -> x0 prediction (B,H,F,J,3)."""
+        def denoise(img, t, **reuse):
+            """One flip-fused model evaluation -> x0 prediction (B,H,F,J,3);
+            with `reuse` (reuse_tap=, deep_delta=) the model's reuse call,
+            and on a full call (x0 prediction, delta)."""
             x = (torch.clamp(img, -1.1 * scale, 1.1 * scale) / scale).reshape(B * H, Fr, J, 3)
             if flip:
                 x = torch.cat([x, flip_pose(x, perm)], dim=0)
             t_vec = torch.full((x.shape[0],), t, dtype=torch.int32, device=dev)
-            pred = self.model(cond, x, t_vec)
+            pred = self.model(cond, x, t_vec, **reuse)
+            delta = None
+            if isinstance(pred, tuple):
+                pred, delta = pred
             if flip:
                 pred_n, pred_f = pred.chunk(2, dim=0)
                 pred = (pred_n + flip_pose(pred_f, perm)) / 2
-            return pred.reshape(B, H, Fr, J, 3)
+            pred = pred.reshape(B, H, Fr, J, 3)
+            return pred if delta is None else (pred, delta)
+
+        reuse = cfg.reuse_interval > 1
+        full_steps = reuse_schedule(K, cfg.reuse_interval)
+        delta, img_ref = None, img0  # the cached delta and the pose it was taken at
+
+        def refresh(img, k):
+            """Under reuse: whether step k runs the full model."""
+            if full_steps[k]:
+                return True
+            if cfg.reuse_tau <= 0:
+                return False
+            drift = (torch.linalg.vector_norm((img - img_ref).reshape(B * H, -1), dim=-1)
+                     / (torch.linalg.vector_norm(img_ref.reshape(B * H, -1), dim=-1) + 1e-8))
+            return bool(drift.max() > cfg.reuse_tau)
 
         consts = self.schedule.ddim_step_constants(K, cfg.eta)
         img = img0
         preds = []
         for k in range(K):
             c = {name: float(v[k]) for name, v in consts.items()}  # fp32 values
-            x_start = torch.clamp(denoise(img, int(consts["t"][k])) * scale,
-                                  -1.1 * scale, 1.1 * scale)
+            t = int(consts["t"][k])
+            if not reuse:
+                pred = denoise(img, t)
+            elif refresh(img, k):
+                pred, delta = denoise(img, t, reuse_tap=cfg.reuse_tap)
+                img_ref = img
+            else:
+                pred = denoise(img, t, reuse_tap=cfg.reuse_tap, deep_delta=delta)
+            x_start = torch.clamp(pred * scale, -1.1 * scale, 1.1 * scale)
             if c["is_last"] > 0:
                 img = x_start
             else:

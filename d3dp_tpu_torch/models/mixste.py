@@ -1,7 +1,7 @@
 """MixSTE2 spatio-temporal transformer denoiser as a torch nn.Module.
 
 Counterpart of d3dp_tpu/models/mixste.py `MixSTE2` with
-`attention_impl="pallas"` at fuse levels 0 to 4:
+`attention_impl="pallas"` at fuse levels 0 to 5:
 
 * eval (`train=False`) dispatches on `cfg.fuse_level`, as the JAX package's
   ladder (`mixste.py:469-565`, flows `:742-788`) does:
@@ -18,8 +18,14 @@ Counterpart of d3dp_tpu/models/mixste.py `MixSTE2` with
     writing its output in the other stage's layout (`ops.mlp.mlp_block_t`).
   - 4 (the default): the transpose-free flow with the whole attention half
     in one kernel (`ops.attention.attention_stage`).
-  Levels 1-4 read kernel-layout weights from a cast cache; none has a
-  backward. Level 5 (the depth-resident kernel) is not ported yet.
+  - 5: the whole 2 x depth trunk in one kernel launch
+    (`ops.resident.resident_block_stack`, `mixste.py:707-741`); with DDIM
+    feature reuse taps it takes level 4's flow, as the JAX package does.
+  Levels 1-5 read kernel-layout weights from a cast cache; none has a
+  backward.
+* DDIM feature reuse (eval only, `reuse_tap` / `deep_delta` in `forward`):
+  taps at block-pair boundaries in the (B, F, J, C) layout, after the shared
+  norms, in every flow (`mixste.py:583-606`).
 * training (`train=True`), at every level: the composed block
   (`mixste.py:427-467`), with autograd: pre-LN, qkv projection, the attention
   core (`ops.attention.fused_attention_qkv_ad`, whose backward is a kernel
@@ -52,7 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from d3dp_tpu_torch.device import resolve_device
-from d3dp_tpu_torch.ops import attention, mlp
+from d3dp_tpu_torch.ops import attention, mlp, resident
 
 BLOCK_EPS = 1e-6
 HEAD_EPS = 1e-5
@@ -70,14 +76,15 @@ class MixSTEConfig:
     qk_scale: Optional[float] = None
     drop_path_rate: float = 0.0  # stochastic depth, training only
     dtype: torch.dtype = torch.float32  # compute dtype (bf16 for the fast path)
-    fuse_level: int = 4  # the eval path's kernel ladder, 0..4 (module docstring)
+    fuse_level: int = 4  # the eval path's kernel ladder, 0..5 (module docstring)
 
     def __post_init__(self):
-        if self.fuse_level == 5:
-            raise NotImplementedError(
-                "fuse level 5 (the depth-resident kernel) is not ported yet")
-        if self.fuse_level not in range(5):
-            raise ValueError(f"fuse_level must be 0..4, got {self.fuse_level}")
+        if self.fuse_level not in range(6):
+            raise ValueError(f"fuse_level must be 0..5, got {self.fuse_level}")
+
+    @property
+    def attn_scale(self):
+        return self.qk_scale or (self.embed_dim // self.num_heads) ** -0.5
 
 
 def sinusoidal_time_embedding(t, dim):
@@ -175,7 +182,7 @@ class MixSTE2(nn.Module):
         self.cfg = cfg
         C, J, Fr = cfg.embed_dim, cfg.num_joints, cfg.num_frames
         hidden = int(C * cfg.mlp_ratio)
-        scale = cfg.qk_scale or (C // cfg.num_heads) ** -0.5
+        scale = cfg.attn_scale
         self.Spatial_patch_to_embedding = nn.Linear(cfg.in_chans + 3, C)
         self.Spatial_pos_embed = nn.Parameter(torch.zeros(1, J, C))
         self.Temporal_pos_embed = nn.Parameter(torch.zeros(1, Fr, C))
@@ -225,48 +232,62 @@ class MixSTE2(nn.Module):
     def _weights(self):
         """Kernel-layout weights, cached: matrices transposed to (in, out)
         and cast to the compute dtype once, not on every DDIM step; biases
-        and LayerNorm parameters stay fp32. The cache is keyed on every
-        parameter's storage and version counter, so it is rebuilt after any
-        change to a parameter: an optimizer step, `load_state_dict`, or an
-        in-place edit."""
+        and LayerNorm parameters stay fp32. Each kind's weights are stacked
+        along depth in the level-5 kernel's layout (`resident`); the
+        per-block entries of levels 1-4 (`ste`, `tte`) are views into those
+        stacks. The cache is keyed on every parameter's storage and version
+        counter, so it is rebuilt after any change to a parameter: an
+        optimizer step, `load_state_dict`, or an in-place edit."""
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
         if self._cache is not None and self._cache_key == key:
             return self._cache
         dt = self.cfg.dtype
 
-        def mat(lin):
-            return lin.weight.t().to(dt).contiguous()
+        def stack(blocks):
+            """(wqkv, bqkv, wp, w1, b1, w2, vec) of `resident_block_stack`."""
+            def mats(get):
+                return torch.stack([get(b).weight.t().to(dt) for b in blocks])
 
-        def vec(p):
-            return p.detach().float().contiguous()
+            def vecs(get):
+                return torch.stack([get(b).float() for b in blocks])
 
-        def block(b):
-            return dict(
-                qkv_linear=_cast_linear(b.attn.qkv, dt), proj_linear=_cast_linear(b.attn.proj, dt),
-                wqkv=mat(b.attn.qkv), bqkv=vec(b.attn.qkv.bias),
-                wp=mat(b.attn.proj), bp=vec(b.attn.proj.bias),
-                ln1s=vec(b.norm1.weight), ln1b=vec(b.norm1.bias),
-                ln2s=vec(b.norm2.weight), ln2b=vec(b.norm2.bias),
-                w1=mat(b.mlp.fc1), b1=vec(b.mlp.fc1.bias),
-                w2=mat(b.mlp.fc2), b2=vec(b.mlp.fc2.bias))
+            return (mats(lambda b: b.attn.qkv), vecs(lambda b: b.attn.qkv.bias)[:, None],
+                    mats(lambda b: b.attn.proj), mats(lambda b: b.mlp.fc1),
+                    vecs(lambda b: b.mlp.fc1.bias)[:, None], mats(lambda b: b.mlp.fc2),
+                    vecs(lambda b: torch.stack([b.attn.proj.bias, b.norm1.weight, b.norm1.bias,
+                                                b.norm2.weight, b.norm2.bias, b.mlp.fc2.bias])))
 
+        def views(stacked, blocks):
+            wqkv, bqkv, wp, w1, b1, w2, v = stacked
+            return [dict(qkv_linear=_cast_linear(b.attn.qkv, dt),
+                         proj_linear=_cast_linear(b.attn.proj, dt),
+                         wqkv=wqkv[i], bqkv=bqkv[i, 0], wp=wp[i], bp=v[i, 0],
+                         ln1s=v[i, 1], ln1b=v[i, 2], ln2s=v[i, 3], ln2b=v[i, 4],
+                         w1=w1[i], b1=b1[i, 0], w2=w2[i], b2=v[i, 5])
+                    for i, b in enumerate(blocks)]
+
+        spatial, temporal = stack(self.STEblocks), stack(self.TTEblocks)
+        norms = torch.stack([self.Spatial_norm.weight, self.Spatial_norm.bias,
+                             self.Temporal_norm.weight, self.Temporal_norm.bias]).float()
         self._cache_key = key
         self._cache = dict(
             **self._front_weights(),
             temporal_pos=self.Temporal_pos_embed.to(dt),
-            ste=[block(b) for b in self.STEblocks],
-            tte=[block(b) for b in self.TTEblocks],
-            spatial_norm=(vec(self.Spatial_norm.weight), vec(self.Spatial_norm.bias)),
-            temporal_norm=(vec(self.Temporal_norm.weight), vec(self.Temporal_norm.bias)))
+            ste=views(spatial, self.STEblocks),
+            tte=views(temporal, self.TTEblocks),
+            resident=(spatial, temporal, norms),
+            spatial_norm=(norms[0], norms[1]),
+            temporal_norm=(norms[2], norms[3]))
         return self._cache
 
     # -------------------------------------------------------------- forward
     def _attention_half(self, w, blk, h):
         """(x2, y2) of one block's attention half on (R, N, C) at the
-        configured fuse level (1-4): x2 = h + attention branch, y2 = LN2(x2)."""
+        configured fuse level (1-4, and level 5's reuse flow): x2 = h +
+        attention branch, y2 = LN2(x2)."""
         cfg = self.cfg
-        scale = cfg.qk_scale or (cfg.embed_dim // cfg.num_heads) ** -0.5
-        if cfg.fuse_level == 4:
+        scale = cfg.attn_scale
+        if cfg.fuse_level >= 4:
             return attention.attention_stage(
                 h, w["wqkv"], w["bqkv"], w["wp"], w["bp"], w["ln1s"], w["ln1b"],
                 w["ln2s"], w["ln2b"], cfg.num_heads, scale, BLOCK_EPS)
@@ -280,7 +301,7 @@ class MixSTE2(nn.Module):
 
     def _block(self, w, blk, h, out_norm, B):
         """One block on (B*D1, N, C): the attention half, then the MLP step
-        with the shared norm. Levels 3 and 4 emit (B*N, D1, C) in the other
+        with the shared norm. Levels 3-5 emit (B*N, D1, C) in the other
         stage's layout; levels 1 and 2 keep the layout."""
         R, N, C = h.shape
         x2, y2 = self._attention_half(w, blk, h)
@@ -313,7 +334,7 @@ class MixSTE2(nn.Module):
         return F.linear(x.to(self.cfg.dtype).float(), head.weight, head.bias)
 
     def forward(self, x2d, x3d, t, train=False, generator=None, droppath_masks=None,
-                drop_path=True):
+                drop_path=True, reuse_tap=None, deep_delta=None):
         """train=False (the JAX `deterministic=True`): the eval path at
         `cfg.fuse_level`, which has no backward (at level 0 it runs the
         composed path under no_grad, without DropPath). train=True: the
@@ -323,40 +344,83 @@ class MixSTE2(nn.Module):
         device), or taken from `droppath_masks` = {"ste_i" / "tte_i": (m1,
         m2)}, each (rows,) fp32, for every block whose rate is above 0
         (parity tests). train=True with drop_path=False is the deterministic
-        function with a backward."""
-        if train:
-            return self._forward_composed(x2d, x3d, t, generator, droppath_masks, drop_path)
-        if self.cfg.fuse_level == 0:
-            with torch.no_grad():
-                return self._forward_composed(x2d, x3d, t, None, None, drop_path=False)
-        return self._forward_fused(x2d, x3d, t)
+        function with a backward.
 
-    @torch.no_grad()
-    def _forward_fused(self, x2d, x3d, t):
+        DDIM feature reuse (eval only; `diffusion/d3dp.py`):
+          * reuse_tap=d, deep_delta=None ("full" call): every block runs, and
+            the call returns (out, delta), delta being the (B, F, J, C)
+            stream after the last block pair minus the stream after pair
+            d-1, in the compute dtype;
+          * reuse_tap=d, deep_delta=delta ("reuse" call): only pairs 0..d-1
+            run, the final stream is their output plus delta, then the head.
+        """
+        if reuse_tap is not None:
+            if not 1 <= reuse_tap <= self.cfg.depth:
+                raise ValueError(f"reuse_tap must be 1..{self.cfg.depth}, got {reuse_tap}")
+            if train:
+                raise ValueError("feature reuse is an eval-only mode")
+        elif deep_delta is not None:
+            raise ValueError("deep_delta needs reuse_tap")
+        if train:
+            x, _ = self._trunk_composed(x2d, x3d, t, generator, droppath_masks, drop_path)
+            return self._head(x)
+        with torch.no_grad():
+            if self.cfg.fuse_level == 0:
+                x, tap = self._trunk_composed(x2d, x3d, t, None, None, False, reuse_tap,
+                                              deep_delta)
+            else:
+                x, tap = self._trunk_fused(x2d, x3d, t, reuse_tap, deep_delta)
+            out = self._head(x)
+        if reuse_tap is not None and deep_delta is None:
+            return out, x - tap
+        return out
+
+    def _pairs(self, x, pair, reuse_tap, deep_delta):
+        """Run the block pairs, pair(i, h) -> h on (B*F, J, C), on the
+        (B, F, J, C) stream x: all of them, or with `deep_delta` pairs
+        0..reuse_tap-1 only, the cached delta added to their output.
+        Returns (the stream after the trunk, the stream after pair
+        reuse_tap-1 or None), both (B, F, J, C)."""
+        h, tap = x.reshape(-1, *x.shape[2:]), None
+        for i in range(reuse_tap if deep_delta is not None else self.cfg.depth):
+            h = pair(i, h)
+            if reuse_tap == i + 1:
+                tap = h.view(x.shape)
+        if deep_delta is not None:
+            return tap + deep_delta.to(tap.dtype), tap
+        return h.view(x.shape), tap
+
+    def _trunk_fused(self, x2d, x3d, t, reuse_tap, deep_delta):
+        """The fused eval flow at cfg.fuse_level 1-5: (stream after the
+        trunk, tap stream or None), both (B, F, J, C)."""
         cfg = self.cfg
         B, Fr, J, _ = x3d.shape
         C = cfg.embed_dim
         W = self._weights()
         x = self._embed(x2d, x3d, t, W)
-        h = x.reshape(B * Fr, J, C)
+        if cfg.fuse_level == 5 and reuse_tap is None:
+            return resident.resident_block_stack(
+                x, W["temporal_pos"][0], *W["resident"], cfg.num_heads, cfg.attn_scale,
+                BLOCK_EPS), None
+        ste, tte = list(zip(W["ste"], self.STEblocks)), list(zip(W["tte"], self.TTEblocks))
         if cfg.fuse_level >= 3:
             # transpose-free flow: each block leaves its output in the next
             # stage's layout, (B*F, J, C) <-> (B*J, F, C)
-            for i in range(cfg.depth):
-                h = self._block(W["ste"][i], self.STEblocks[i], h, W["spatial_norm"], B)
+            def pair(i, h):
+                h = self._block(*ste[i], h, W["spatial_norm"], B)
                 if i == 0:
                     h = h + W["temporal_pos"]  # (B*J, F, C) + (1, F, C)
-                h = self._block(W["tte"][i], self.TTEblocks[i], h, W["temporal_norm"], B)
-            return self._head(h.view(B, Fr, J, C))
-        # levels 1 and 2: the relayouts as plain ops between the blocks
-        for i in range(cfg.depth):
-            h = self._block(W["ste"][i], self.STEblocks[i], h, W["spatial_norm"], B)
-            h = h.view(B, Fr, J, C).transpose(1, 2).reshape(B * J, Fr, C)
-            if i == 0:
-                h = h + W["temporal_pos"]
-            h = self._block(W["tte"][i], self.TTEblocks[i], h, W["temporal_norm"], B)
-            h = h.view(B, J, Fr, C).transpose(1, 2).reshape(B * Fr, J, C)
-        return self._head(h.view(B, Fr, J, C))
+                return self._block(*tte[i], h, W["temporal_norm"], B)
+        else:
+            # levels 1 and 2: the relayouts as plain ops between the blocks
+            def pair(i, h):
+                h = self._block(*ste[i], h, W["spatial_norm"], B)
+                h = h.view(B, Fr, J, C).transpose(1, 2).reshape(B * J, Fr, C)
+                if i == 0:
+                    h = h + W["temporal_pos"]
+                h = self._block(*tte[i], h, W["temporal_norm"], B)
+                return h.view(B, J, Fr, C).transpose(1, 2).reshape(B * Fr, J, C)
+        return self._pairs(x, pair, reuse_tap, deep_delta)
 
     def _droppath_masks(self, name, rate, n_rows, generator, given):
         """The two per-row DropPath scale vectors of one block (1/keep where
@@ -376,7 +440,10 @@ class MixSTE2(nn.Module):
             return torch.where(u < keep, 1.0 / keep, 0.0)
         return draw(), draw()
 
-    def _forward_composed(self, x2d, x3d, t, generator, droppath_masks, drop_path):
+    def _trunk_composed(self, x2d, x3d, t, generator, droppath_masks, drop_path,
+                        reuse_tap=None, deep_delta=None):
+        """The composed flow: (stream after the trunk, tap stream or None),
+        both (B, F, J, C)."""
         cfg = self.cfg
         B, Fr, J, _ = x3d.shape
         C = cfg.embed_dim
@@ -393,10 +460,10 @@ class MixSTE2(nn.Module):
             R, N, _ = h.shape
             return h.view(B, R // B, N, C).transpose(1, 2).reshape(B * N, R // B, C)
 
-        h = x.reshape(B * Fr, J, C)
-        for i in range(cfg.depth):
+        def pair(i, h):
             h = block("ste", i, h, self.Spatial_norm)
             if i == 0:
                 h = h + self.Temporal_pos_embed.to(cfg.dtype)
-            h = block("tte", i, h, self.Temporal_norm)
-        return self._head(h.view(B, Fr, J, C))
+            return block("tte", i, h, self.Temporal_norm)
+
+        return self._pairs(x, pair, reuse_tap, deep_delta)

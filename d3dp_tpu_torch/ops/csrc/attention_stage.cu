@@ -38,55 +38,14 @@
 namespace d3dp {
 
 // ---------------------------------------------------------------- 1. LN1 + qkv
+// `ln_qkv_tile` (common.cuh, shared with resident.cu), one row block a block.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ln_qkv_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
               const float* __restrict__ bqkv, const float* __restrict__ ln1s,
               const float* __restrict__ ln1b, T* __restrict__ qkv, int M, int C, float eps) {
-  constexpr int BM = Cfg<T>::BM;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = C + Cfg<T>::PAD;
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = reinterpret_cast<T*>(smem + align128(sizeof(T) * BM * lda));
-  float* Cs = reinterpret_cast<float*>(smem + align128(sizeof(T) * BM * lda) + bs_bytes<T>());
-  constexpr int ldc = kBN + 4;
-
-  const int row0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BM; r += kWarps) {
-    const int row = row0 + r;
-    if (row < M) {
-      float v[32];
-      const T* xr = x + (size_t)row * C;
-#pragma unroll
-      for (int k = 0; k < 32; ++k)
-        if (k < C / 32) v[k] = to_f(xr[32 * k + lane]);
-      warp_layernorm(v, C, ln1s, ln1b, eps, lane);
-#pragma unroll
-      for (int k = 0; k < 32; ++k)
-        if (k < C / 32) As[r * lda + 32 * k + lane] = from_f<T>(v[k]);
-    } else {
-      for (int c = lane; c < C; c += 32) As[r * lda + c] = from_f<T>(0.f);
-    }
-  }
-  __syncthreads();
-
-  const int N3 = 3 * C;
-  for (int n0 = 0; n0 < N3; n0 += kBN) {
-    gemm_rowblock(As, lda, wqkv + n0, N3, C, Bs, Cs, ldc);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * kBN; i += kThreads) {
-      const int r = i / kBN, c = i % kBN;
-      if (row0 + r < M)
-        qkv[(size_t)(row0 + r) * N3 + n0 + c] = from_f<T>(Cs[r * ldc + c] + bqkv[n0 + c]);
-    }
-  }
-}
-
-template <typename T>
-size_t ln_qkv_smem(int C) {
-  return align128(sizeof(T) * Cfg<T>::BM * (C + Cfg<T>::PAD)) + bs_bytes<T>() +
-         align128(sizeof(float) * Cfg<T>::BM * (kBN + 4));
+  ln_qkv_tile<T>(x, wqkv, bqkv, ln1s, ln1b, qkv, M, C, eps, smem, blockIdx.x);
 }
 
 // ---------------------------------------------------------------- host entry

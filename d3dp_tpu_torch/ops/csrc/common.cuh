@@ -265,27 +265,32 @@ AttnLayout attn_layout(int N) {
   return L;
 }
 
-// grid (sequence, head, query block). q, k, v: rows of ld elements, N rows
-// per sequence; out: (R, N, C).
+// One tile: (sequence `seq`, head `h`, query block `qb`). q, k, v: rows of ld
+// elements, N rows per sequence; out: (R, N, C).
 // One block holds <=64 queries and all <=256 keys (tail zero-filled) with the
 // fp32 logits, so the softmax is exact over the whole row.
 // fp32 always divides p by l before P.V. For bf16, kNormFirst picks the
 // order: true rounds p / l to bf16 before P.V (the TPU attention core's
 // `_attn_head`); false runs P.V on the unnormalised bf16 p and folds 1/l
 // into the output (the TPU attention stage's order).
+// The tile functions here take their tile coordinates as arguments and the
+// block's dynamic shared memory as `smem`, so a kernel may run one tile
+// (the `__global__` wrappers) or walk many (the depth-resident kernel,
+// resident.cu). Their pointers carry no __restrict__: in resident.cu a
+// buffer one tile reads was written by other blocks earlier in the same
+// launch, which rules out the read-only data path.
 template <typename T, bool kNormFirst>
-__global__ void __launch_bounds__(kThreads)
-attend_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              int ld, T* __restrict__ out, int N, int C, float scale, AttnLayout L) {
+__device__ __forceinline__ void attend_tile(const T* q, const T* k, const T* v, int ld, T* out,
+                                            int N, int C, float scale, const AttnLayout& L,
+                                            unsigned char* smem, int seq, int h, int qb) {
   constexpr bool f32 = std::is_same<T, float>::value;
-  extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L.q);
   T* Ks = reinterpret_cast<T*>(smem + L.k);
   T* Vs = reinterpret_cast<T*>(smem + L.v);
   float* Ss = reinterpret_cast<float*>(smem + L.s);
   float* linv = reinterpret_cast<float*>(smem + L.linv);
 
-  const int seq = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * L.QB;
+  const int q0 = qb * L.QB;
   const int QB = L.QB, NK = L.NK;
   const size_t off = (size_t)seq * N * ld + h * kHeadDim;
   load_rows(Qs, L.ldq, q + off + (size_t)q0 * ld, ld, QB, N - q0, kHeadDim);
@@ -394,6 +399,16 @@ attend_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
 }
 
+// grid (sequence, head, query block): one tile per block.
+template <typename T, bool kNormFirst>
+__global__ void __launch_bounds__(kThreads)
+attend_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              int ld, T* __restrict__ out, int N, int C, float scale, AttnLayout L) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  attend_tile<T, kNormFirst>(q, k, v, ld, out, N, C, scale, L, smem, blockIdx.x, blockIdx.y,
+                             blockIdx.z);
+}
+
 // Launch attend_kernel<T, kNormFirst> over R sequences of N tokens.
 template <typename T, bool kNormFirst>
 cudaError_t launch_attend(const T* q, const T* k, const T* v, int ld, T* out, int R, int N,
@@ -421,21 +436,20 @@ cudaError_t launch_attend_packed(const T* qkv, T* out, int R, int N, int C, int 
 // (attention_block.cu): x2 = x + (o @ Wp + bp), y2 = LN2(x2), over token
 // rows; 32-token row blocks (16 in fp32): o @ Wp into an fp32 row buffer,
 // then the residual add and LN2 per row.
+// One tile: the row block `tile` (BM token rows from BM * tile).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-proj_ln2_kernel(const T* __restrict__ o, const T* __restrict__ x, const T* __restrict__ wp,
-                const float* __restrict__ bp, const float* __restrict__ ln2s,
-                const float* __restrict__ ln2b, T* __restrict__ x2, T* __restrict__ y2, int M,
-                int C, float eps) {
+__device__ __forceinline__ void proj_ln2_tile(const T* o, const T* x, const T* wp,
+                                              const float* bp, const float* ln2s,
+                                              const float* ln2b, T* x2, T* y2, int M, int C,
+                                              float eps, unsigned char* smem, int tile) {
   constexpr int BM = Cfg<T>::BM;
-  extern __shared__ __align__(128) unsigned char smem[];
   const int lda = C + Cfg<T>::PAD;
   const int ldx = C + 4;
   T* As = reinterpret_cast<T*>(smem);
   T* Bs = reinterpret_cast<T*>(smem + align128(sizeof(T) * BM * lda));
   float* Xs = reinterpret_cast<float*>(smem + align128(sizeof(T) * BM * lda) + bs_bytes<T>());
 
-  const int row0 = blockIdx.x * BM;
+  const int row0 = tile * BM;
   load_rows(As, lda, o + (size_t)row0 * C, C, BM, M - row0, C);
   __syncthreads();
   for (int n0 = 0; n0 < C; n0 += kBN) gemm_rowblock(As, lda, wp + n0, C, C, Bs, Xs + n0, ldx);
@@ -464,6 +478,16 @@ proj_ln2_kernel(const T* __restrict__ o, const T* __restrict__ x, const T* __res
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kThreads)
+proj_ln2_kernel(const T* __restrict__ o, const T* __restrict__ x, const T* __restrict__ wp,
+                const float* __restrict__ bp, const float* __restrict__ ln2s,
+                const float* __restrict__ ln2b, T* __restrict__ x2, T* __restrict__ y2, int M,
+                int C, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  proj_ln2_tile<T>(o, x, wp, bp, ln2s, ln2b, x2, y2, M, C, eps, smem, blockIdx.x);
+}
+
+template <typename T>
 size_t proj_ln2_smem(int C) {
   return align128(sizeof(T) * Cfg<T>::BM * (C + Cfg<T>::PAD)) + bs_bytes<T>() +
          align128(sizeof(float) * Cfg<T>::BM * (C + 4));
@@ -481,6 +505,61 @@ cudaError_t launch_proj_ln2(const T* o, const T* x, const T* wp, const float* bp
   proj_ln2_kernel<T><<<cdiv(M, Cfg<T>::BM), kThreads, smem, stream>>>(o, x, wp, bp, ln2s, ln2b,
                                                                       x2, y2, M, C, eps);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- LN1 + qkv
+// The attention stage's first step (attention_stage.cu, resident.cu):
+// qkv = LN1(x) @ Wqkv + bqkv over token rows; one tile is the row block
+// `tile`: LN1 into shared memory, then the qkv projection in 64-column steps
+// on the tensor cores; qkv is rounded to the compute type after its bias (as
+// the TPU kernel does).
+template <typename T>
+__device__ __forceinline__ void ln_qkv_tile(const T* x, const T* wqkv, const float* bqkv,
+                                            const float* ln1s, const float* ln1b, T* qkv, int M,
+                                            int C, float eps, unsigned char* smem, int tile) {
+  constexpr int BM = Cfg<T>::BM;
+  const int lda = C + Cfg<T>::PAD;
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = reinterpret_cast<T*>(smem + align128(sizeof(T) * BM * lda));
+  float* Cs = reinterpret_cast<float*>(smem + align128(sizeof(T) * BM * lda) + bs_bytes<T>());
+  constexpr int ldc = kBN + 4;
+
+  const int row0 = tile * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < BM; r += kWarps) {
+    const int row = row0 + r;
+    if (row < M) {
+      float v[32];
+      const T* xr = x + (size_t)row * C;
+#pragma unroll
+      for (int k = 0; k < 32; ++k)
+        if (k < C / 32) v[k] = to_f(xr[32 * k + lane]);
+      warp_layernorm(v, C, ln1s, ln1b, eps, lane);
+#pragma unroll
+      for (int k = 0; k < 32; ++k)
+        if (k < C / 32) As[r * lda + 32 * k + lane] = from_f<T>(v[k]);
+    } else {
+      for (int c = lane; c < C; c += 32) As[r * lda + c] = from_f<T>(0.f);
+    }
+  }
+  __syncthreads();
+
+  const int N3 = 3 * C;
+  for (int n0 = 0; n0 < N3; n0 += kBN) {
+    gemm_rowblock(As, lda, wqkv + n0, N3, C, Bs, Cs, ldc);
+    __syncthreads();
+    for (int i = threadIdx.x; i < BM * kBN; i += kThreads) {
+      const int r = i / kBN, c = i % kBN;
+      if (row0 + r < M)
+        qkv[(size_t)(row0 + r) * N3 + n0 + c] = from_f<T>(Cs[r * ldc + c] + bqkv[n0 + c]);
+    }
+  }
+}
+
+template <typename T>
+size_t ln_qkv_smem(int C) {
+  return align128(sizeof(T) * Cfg<T>::BM * (C + Cfg<T>::PAD)) + bs_bytes<T>() +
+         align128(sizeof(float) * Cfg<T>::BM * (kBN + 4));
 }
 
 }  // namespace d3dp

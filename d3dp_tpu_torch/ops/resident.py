@@ -1,0 +1,144 @@
+"""The depth-resident MixSTE trunk: all 2 x depth blocks of the eval forward
+in one kernel launch (fuse level 5).
+
+`resident_block_stack` is the counterpart of the JAX package's
+`resident_block_stack` (`d3dp_tpu/ops/resident.py`), with its signature:
+the (B, F, J, C) embedded stream, the temporal position embedding (F, C),
+each kind's depth-stacked weights and the shared norms in, the stream after
+the trunk (before the head norm) out. It computes what the level-4 flow
+computes: per depth the spatial pair (`attention.attention_stage`, then
+`mlp.mlp_block_t` with the shared spatial norm), the temporal position
+embedding after the first spatial pair, then the temporal pair.
+
+On a CUDA tensor it launches the hand-written kernel (`csrc/resident.cu`),
+one cooperative launch whose blocks walk the trunk's phases with grid
+barriers between them, on groups of rows whose stream and scratch fit in
+the card's L2 cache (`group_rows`, from the L2 size the device reports
+through `torch.cuda.get_device_properties`). On a CPU tensor it runs
+`resident_block_stack_plain`, the loop over depths of the level-4 ops'
+plain versions. There is no fallback between the two: a CUDA input the
+kernel does not take raises.
+
+The JAX kernel's tile knobs `D3DP_RES_SP_TOKENS`, `D3DP_RES_TP_SEQS` and
+`D3DP_RES_UNROLL` choose the chunks of a row that Mosaic keeps in the TPU's
+VMEM; they have no meaning on Hopper and are not ported.
+"""
+
+import ctypes
+
+import torch
+
+from d3dp_tpu_torch.ops import _build
+from d3dp_tpu_torch.ops.attention import HEAD_DIM, MAX_TOKENS, attention_stage_plain
+from d3dp_tpu_torch.ops.mlp import mlp_block_t_plain
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_N_PTRS = 23
+_SIG = [ctypes.POINTER(ctypes.c_void_p)] + [_I] * 8 + [_F, _F, _P]
+_FN = {torch.bfloat16: "d3dp_resident_bf16", torch.float32: "d3dp_resident_f32"}
+_ERRORS = {-1: "the device has no cooperative launch",
+           -2: "the kernel's shared memory fits no block on an SM"}
+# (F, J, C)-sized buffers a row keeps in flight: the stream, qkv (3), o, x2,
+# y2 and the relayout buffer
+ROW_BUFFERS = 8
+
+
+def group_rows(B, F, J, C, itemsize, l2_bytes):
+    """Rows the kernel takes at a time: as many as keep their stream and
+    scratch in L2, at least 1 and at most B."""
+    return max(1, min(B, l2_bytes // (ROW_BUFFERS * F * J * C * itemsize)))
+
+
+def _kind(weights, d):
+    """Depth d of one kind's stacked weights, in the level-4 ops' argument
+    order: wqkv, bqkv, wp, bp, ln1s, ln1b, ln2s, ln2b, then the MLP's w1,
+    b1, w2, b2."""
+    wqkv, bqkv, wp, w1, b1, w2, vec = weights
+    bp, ln1s, ln1b, ln2s, ln2b, b2 = vec[d].unbind(0)
+    return ((wqkv[d], bqkv[d].reshape(-1), wp[d], bp, ln1s, ln1b, ln2s, ln2b),
+            (w1[d], b1[d].reshape(-1), w2[d], b2))
+
+
+def resident_block_stack_plain(x, tpos, spatial, temporal, shared, num_heads, scale, eps):
+    """Plain torch ops: the loop over depths of `attention_stage_plain` and
+    `mlp_block_t_plain` (the level-4 flow), the compute-dtype tpos add after
+    the first spatial pair."""
+    B, F, J, C = x.shape
+    h = x
+    for d in range(spatial[0].shape[0]):
+        stage, mlp = _kind(spatial, d)
+        x2, y2 = attention_stage_plain(h.reshape(B * F, J, C), *stage, num_heads, scale, eps)
+        h = mlp_block_t_plain(y2.view(B, F, J, C), x2.view(B, F, J, C), *mlp,
+                              shared[0], shared[1], eps)  # (B, J, F, C)
+        if d == 0:
+            h = h + tpos.to(x.dtype)
+        stage, mlp = _kind(temporal, d)
+        x2, y2 = attention_stage_plain(h.reshape(B * J, F, C), *stage, num_heads, scale, eps)
+        h = mlp_block_t_plain(y2.view(B, J, F, C), x2.view(B, J, F, C), *mlp,
+                              shared[2], shared[3], eps)  # (B, F, J, C)
+    return h
+
+
+def resident_block_stack(x, tpos, spatial, temporal, shared, num_heads, scale, eps):
+    """The (B, F, J, C) stream after the trunk; see the module docstring.
+
+    x: (B, F, J, C) in the compute dtype; tpos: (F, C); spatial, temporal:
+    (wqkv (D, C, 3C), bqkv (D, 1, 3C), wp (D, C, C), w1 (D, C, H),
+    b1 (D, 1, H), w2 (D, H, C), vec (D, 6, C)), matrices in the compute
+    dtype, bqkv, b1 and vec (rows bp, ln1s, ln1b, ln2s, ln2b, b2) fp32;
+    shared: (4, C) fp32 rows spatial norm scale, bias, temporal norm
+    scale, bias."""
+    if x.device.type == "cpu":
+        return resident_block_stack_plain(x, tpos, spatial, temporal, shared, num_heads,
+                                          scale, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"resident_block_stack: unsupported device {x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, F, J, C), got {tuple(x.shape)}")
+    B, F, J, C = x.shape
+    dt = x.dtype
+    if dt not in _FN:
+        raise ValueError(f"resident_block_stack: unsupported dtype {dt}")
+    if C != num_heads * HEAD_DIM or C % 64 or C > 1024:
+        raise ValueError(f"resident_block_stack: needs head_dim {HEAD_DIM} and C % 64 == 0, "
+                         f"C <= 1024 (C={C}, heads={num_heads})")
+    for n, what in ((F, "F"), (J, "J")):
+        if not 1 <= n <= MAX_TOKENS:
+            raise ValueError(f"resident_block_stack: {what}={n} outside 1..{MAX_TOKENS}")
+    D, H = spatial[0].shape[0], spatial[3].shape[-1]
+    if D < 1 or H % 64:
+        raise ValueError(f"resident_block_stack: needs depth >= 1 and H % 64 == 0 "
+                         f"(D={D}, H={H})")
+    dev = x.device
+    f32 = torch.float32
+    tpos = tpos.to(dt).contiguous()
+    _build.check_operand(x, "x", dt, (B, F, J, C), dev)
+    _build.check_operand(tpos, "tpos", dt, (F, C), dev)
+    _build.check_operand(shared, "shared", f32, (4, C), dev)
+    for kind, ws in (("spatial", spatial), ("temporal", temporal)):
+        for t, name, dtype, shape in zip(
+                ws, ("wqkv", "bqkv", "wp", "w1", "b1", "w2", "vec"),
+                (dt, f32, dt, dt, f32, dt, f32),
+                ((D, C, 3 * C), (D, 1, 3 * C), (D, C, C), (D, C, H), (D, 1, H), (D, H, C),
+                 (D, 6, C))):
+            _build.check_operand(t, f"{kind} {name}", dtype, shape, dev)
+    lib = _build.load("resident", {fn: _SIG for fn in _FN.values()})
+    G = group_rows(B, F, J, C, x.element_size(),
+                   torch.cuda.get_device_properties(dev).L2_cache_size)
+    with torch.cuda.device(dev):
+        out = torch.empty_like(x)
+        qkv = torch.empty((G * F * J, 3 * C), dtype=dt, device=dev)
+        o, x2, y2, tbuf = (torch.empty((G * F * J, C), dtype=dt, device=dev) for _ in range(4))
+        tensors = [x, tpos, *spatial, *temporal, shared, out, qkv, o, x2, y2, tbuf]
+        ptrs = (ctypes.c_void_p * _N_PTRS)(*(t.data_ptr() for t in tensors))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, _FN[dt])(ptrs, B, F, J, C, H, D, num_heads, G, float(scale),
+                                    float(eps), stream)
+    if err in _ERRORS:
+        raise RuntimeError(f"resident_block_stack: {_ERRORS[err]}")
+    _build.check(err, "resident_block_stack")
+    resident_block_stack.launches += 1
+    return out
+
+
+resident_block_stack.launches = 0

@@ -1,8 +1,9 @@
 """The port's H36M command line against the JAX package's, on the CPU:
 flags, data preparation, the action-wise evaluation at fuse level 2
 with the same weights and injected noise (3.1e-4 mm, the whole-pipeline
-tolerance), and a --debug training epoch whose checkpoints --evaluate and
---resume reload exactly."""
+tolerance; `run_evaluation_against_jax` is shared with the level-5 and
+feature-reuse tests), and a --debug training epoch whose checkpoints
+--evaluate and --resume reload exactly."""
 
 import re
 
@@ -42,13 +43,16 @@ SMALL = ["-d", "synthetic", "--nolog", "-f", "27", "-cs", "64", "-dep", "2", "-s
     ["-k", "structured", "-e", "3", "-b", "108", "-lr", "1e-4", "-lrd", "0.99", "--coverlr",
      "-no-da", "--dtype", "bfloat16", "--attention", "pallas", "--fuse-level", "0", "-r", "auto",
      "--subset", "0.5", "--downsample", "2", "--debug", "--profile", "prof", "--seed", "7"],
+    SMALL + ["--evaluate", "best_epoch.ckpt", "--fuse-level", "5"],
+    SMALL + ["--evaluate", "best_epoch.ckpt", "--ddim-reuse", "3", "--ddim-reuse-tap", "1",
+             "--ddim-reuse-adaptive", "0.05"],
 ])
 def test_parse_args_gives_jax_namespace(argv):
     assert vars(tparse(argv)) == vars(jparse(argv))
 
 
 @pytest.mark.parametrize("flag", [
-    ["--fuse-level", "5"], ["--ddim-reuse", "2"], ["--p2-device"], ["--dp", "2"], ["--tp", "2"],
+    ["--p2-device"], ["--dp", "2"], ["--tp", "2"],
     ["--multihost"], ["--coordinator-address", "localhost:1234"], ["--render"],
     ["--input-pipeline", "grain"], ["--ckpt-format", "orbax"],
 ])
@@ -56,6 +60,22 @@ def test_flags_not_ported_raise(flag, capsys):
     with pytest.raises(SystemExit):
         tparse(SMALL + flag)
     assert "not ported yet" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,want", [
+    ([], (1, 2, 0.0)),
+    (["--ddim-reuse", "1"], (1, 2, 0.0)),
+    (["--ddim-reuse", "2", "--ddim-reuse-tap", "9", "--ddim-reuse-adaptive", "0.5"], (2, 2, 0.5)),
+    (["--ddim-reuse", "3", "--ddim-reuse-tap", "0"], (3, 1, 0.0)),
+])
+def test_reuse_flags_map_as_in_jax(flags, want):
+    """--ddim-reuse N -> reuse_interval max(N, 1), the tap clamped to
+    1..-dep, the adaptive threshold as given; on the eval D3DP only."""
+    args = tparse(SMALL + flags)
+    data = tprep.prepare_data(args)
+    train, valid, ev = tmain._build_models(args, data, "cpu")
+    assert (ev.cfg.reuse_interval, ev.cfg.reuse_tap, ev.cfg.reuse_tau) == want
+    assert train.cfg.reuse_interval == valid.cfg.reuse_interval == 1
 
 
 def test_attention_xla_runs_only_on_the_cpu(capsys):
@@ -129,21 +149,27 @@ def _strip_numbers(path):
     return [re.sub(r"-?\d+\.\d+", "#", line) for line in open(path).read().splitlines()]
 
 
-def test_run_evaluation_level_2_matches_jax(tmp_path):
-    H, K, F = 2, 2, 27
+def run_evaluation_against_jax(tmp_path, level, K=2, extra=(), **reuse):
+    """run_evaluation of both command lines at `--fuse-level level` with
+    the `extra` flags, same weights and injected noise: 3.1e-4 mm per
+    action, mode and step, and log lines equal but for their numbers.
+    `reuse`: the JAX D3DPConfig's feature-reuse fields that `extra` sets
+    (the JAX test builds its D3DP itself; the port's comes from its own
+    `_build_models`)."""
+    H, F = 2, 27
     eval_argv = SMALL + ["-num_proposals", str(H), "-sampling_timesteps", str(K),
-                         "--fuse-level", "2", "--p2"]
+                         "--fuse-level", str(level), "--p2", *extra]
     jargs = jparse(eval_argv + ["-c", str(tmp_path / "jax")])
     targs = tparse(eval_argv + ["-c", str(tmp_path / "torch")])
     for a in (jargs, targs):
         (tmp_path / a.checkpoint.split("/")[-1]).mkdir()
     jdata, tdata = jprep.prepare_data(jargs), tprep.prepare_data(targs)
     jcfg = JMixSTEConfig(num_frames=F, embed_dim=64, depth=2, attention_impl="pallas",
-                         fuse_level=2)
+                         fuse_level=level)
     params = random_params(jcfg, seed=4, scale=0.02)
     jd = JD3DP(JD3DPConfig(model=jcfg, num_proposals=H, sampling_timesteps=K,
                            joints_left=tuple(jdata.joints_left),
-                           joints_right=tuple(jdata.joints_right)))
+                           joints_right=tuple(jdata.joints_right), **reuse))
     want = jmain.run_evaluation(jargs, jdata, jd, {"params": params}, jax.random.PRNGKey(0),
                                 noise_provider=_provider(5, H, K, F))
     _, _, td = tmain._build_models(targs, tdata, "cpu")
@@ -160,9 +186,14 @@ def test_run_evaluation_level_2_matches_jax(tmp_path):
                 assert np.isfinite(gm[m]).all()
                 np.testing.assert_allclose(gm[m], wm[m], atol=3.1e-4, rtol=0,
                                            err_msg=f"{action} {read} {m}")
-    log = "h36m_test_log_H2_K2.txt"
+    log = f"h36m_test_log_H{H}_K{K}.txt"
     lines = _strip_numbers(tmp_path / "torch" / log)
     assert lines == _strip_numbers(tmp_path / "jax" / log) and len(lines) > 3 * (1 + 8 * K)
+    return got
+
+
+def test_run_evaluation_level_2_matches_jax(tmp_path):
+    run_evaluation_against_jax(tmp_path, 2)
 
 
 def test_debug_training_checkpoints_reload(tmp_path, monkeypatch):

@@ -104,23 +104,23 @@ def _kernel_ops():
 
 
 def test_fuse_levels_agree_and_level_5_is_not_ported(rng):
-    """Every level computes the same function (fp32 summation order only),
-    and the eval path builds no autograd graph at any level."""
+    """Every level 0-5 computes the same function (fp32 summation order
+    only), the eval path builds no autograd graph at any level, and level
+    6 does not exist. (Level 5, the depth-resident trunk, is ported: the
+    name is kept from the ladder's earlier state.)"""
     model = MixSTE2(MixSTEConfig(**SMALL), device="cpu", seed=3)
     x2d, x3d = _t(rng.randn(2, 9, 17, 2).astype(np.float32),
                   rng.randn(2, 9, 17, 3).astype(np.float32))
     t = torch.tensor([5, 900])
     outs = []
-    for level in range(5):
+    for level in range(6):
         model.cfg = dataclasses.replace(model.cfg, fuse_level=level)
         out = model(x2d, x3d, t)
         assert not out.requires_grad
         outs.append(out)
-    for out in outs[:-1]:
-        torch.testing.assert_close(out, outs[-1], atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        MixSTEConfig(fuse_level=5)
-    with pytest.raises(ValueError):
+    for out in outs:
+        torch.testing.assert_close(out, outs[4], atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="0..5"):
         MixSTEConfig(fuse_level=6)
 
 

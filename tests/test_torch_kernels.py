@@ -270,3 +270,134 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(np_rng):
                               *bargs[2:], 8, 0.125, 1e-6)
     with pytest.raises(ValueError, match="k has dtype"):
         tattn.fused_attention_packed(dout, dout.float(), dout, 8, 0.125)
+
+
+def _resident_inputs(rng, B, F, dev, dtype, J=17, C=512, H=1024, D=2):
+    """K9's operands at the published width: a unit-scale stream, weights
+    of std 0.05 (matrices in the compute dtype), LN scales near 1."""
+    def kind():
+        vec = 0.05 * rng.randn(D, 6, C)
+        vec[:, [1, 3]] += 1.0
+        mats = [rng.randn(D, C, 3 * C), rng.randn(D, C, C), rng.randn(D, C, H),
+                rng.randn(D, H, C)]
+        wqkv, wp, w1, w2 = (torch.from_numpy((0.05 * m).astype(np.float32)).to(dev, dtype)
+                            for m in mats)
+        bqkv, b1, vec = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+            0.02 * rng.randn(D, 1, 3 * C), 0.02 * rng.randn(D, 1, H), vec))
+        return wqkv, bqkv, wp, w1, b1, w2, vec
+    x = torch.from_numpy(rng.randn(B, F, J, C).astype(np.float32)).to(dev, dtype)
+    tpos = torch.from_numpy((0.1 * rng.randn(F, C)).astype(np.float32)).to(dev)
+    shared = torch.from_numpy((0.05 * rng.randn(4, C) + np.array([1.0, 0, 1.0, 0])[:, None])
+                              .astype(np.float32)).to(dev)
+    return x, tpos, kind(), kind(), shared
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,F", [(2, 243), (15, 27)])
+def test_resident_kernel_matches_plain(np_rng, dtype, B, F):
+    """K9 at C=512: 2 rows of 243 frames (one row per group), and 15 rows of
+    27 frames (13 rows a group: a partial last group). fp32 at depth 2:
+    TOL. bf16: TOL at depth 1 (one block pair, as K1/K2); at depth 2 the
+    rounding flips of the chained blocks compound on both sides, so the
+    kernel is held to be no further than 1.05x the plain version from the
+    fp32 math of the same bf16 inputs (relative L2)."""
+    from d3dp_tpu_torch.ops import resident as tres
+
+    dev = _cuda()
+    x, tpos, sp, tp, shared = _resident_inputs(np_rng, B, F, dev, dtype)
+    for D in (1, 2):
+        args = (x, tpos, tuple(w[:D] for w in sp), tuple(w[:D] for w in tp), shared)
+        n0 = tres.resident_block_stack.launches
+        got = tres.resident_block_stack(*args, 8, 0.125, 1e-6)
+        want = tres.resident_block_stack_plain(*args, 8, 0.125, 1e-6)
+        torch.cuda.synchronize()
+        assert tres.resident_block_stack.launches == n0 + 1
+        assert got.dtype == dtype and got.shape == (B, F, 17, 512)
+        if dtype == torch.float32 or D == 1:
+            assert _excess(got, want, dtype) <= 0
+        else:
+            ref = tres.resident_block_stack_plain(
+                x.float(), tpos, tuple(w[:D].float() for w in sp),
+                tuple(w[:D].float() for w in tp), shared, 8, 0.125, 1e-6)
+            rel_k = (got.float() - ref).norm() / ref.norm()
+            rel_p = (want.float() - ref).norm() / ref.norm()
+            assert rel_k <= 1.05 * rel_p
+
+
+def _model(dtype, depth=2, level=5):
+    from d3dp_tpu_torch.models import MixSTE2, MixSTEConfig
+
+    m = MixSTE2(MixSTEConfig(depth=depth, dtype=dtype, fuse_level=level), seed=5)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.add_(torch.randn(p.shape, generator=g, device="cuda") * 0.02)
+    return m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_level_5_launches_k9_once_and_equals_level_4(np_rng, dtype):
+    """One K9 launch per forward at level 5 and no K1/K2; the output equals
+    level 4's bit for bit (same device code, same roundings)."""
+    import dataclasses
+
+    from d3dp_tpu_torch.ops import resident as tres
+
+    dev = _cuda()
+    model = _model(dtype)
+    x2d = torch.from_numpy(np_rng.randn(2, 243, 17, 2).astype(np.float32) * 0.3).to(dev)
+    x3d = torch.from_numpy(np_rng.randn(2, 243, 17, 3).astype(np.float32)).to(dev)
+    t = torch.tensor([999, 17], device=dev)
+    ops = (tres.resident_block_stack, tattn.attention_stage, tmlp.mlp_block_t)
+    n0 = [f.launches for f in ops]
+    out5 = model(x2d, x3d, t)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(ops, n0)] == [1, 0, 0]
+    model.cfg = dataclasses.replace(model.cfg, fuse_level=4)
+    out4 = model(x2d, x3d, t)
+    assert torch.equal(out5, out4)
+
+
+@pytest.mark.gpu
+def test_reuse_sample_launch_counts():
+    """Level 5 with reuse interval 2, tap 2, K=5, depth 8: steps 0, 2 and 4
+    run all 8 pairs, steps 1 and 3 the first 2, all on level 4's flow:
+    3 * 16 + 2 * 4 = 56 K1 and 56 K2, no K9."""
+    from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
+    from d3dp_tpu_torch.ops import resident as tres
+
+    dev = _cuda()
+    model = _model(torch.bfloat16, depth=8)
+    d3dp = D3DP(D3DPConfig(model=model.cfg, num_proposals=1, sampling_timesteps=5,
+                           reuse_interval=2, reuse_tap=2), model=model)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x2d = torch.randn(1, 243, 17, 2, generator=g, device=dev) * 0.3
+    ops = (tattn.attention_stage, tmlp.mlp_block_t, tres.resident_block_stack)
+    n0 = [f.launches for f in ops]
+    out = d3dp.sample(x2d, x2d.flip(2), generator=g)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(ops, n0)] == [56, 56, 0]
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.gpu
+def test_resident_raises_on_what_the_kernel_does_not_take(np_rng):
+    from d3dp_tpu_torch.ops import resident as tres
+
+    dev = _cuda()
+    x, tpos, sp, tp, shared = _resident_inputs(np_rng, 1, 27, dev, torch.bfloat16, D=1)
+    with pytest.raises(ValueError, match="head_dim"):
+        tres.resident_block_stack(x, tpos, sp, tp, shared, 4, 0.125, 1e-6)
+    with pytest.raises(ValueError, match="dtype"):
+        tres.resident_block_stack(x.half(), tpos, sp, tp, shared, 8, 0.125, 1e-6)
+    with pytest.raises(ValueError, match="F=300"):
+        tres.resident_block_stack(torch.zeros(1, 300, 17, 512, device=dev, dtype=torch.bfloat16),
+                                  tpos, sp, tp, shared, 8, 0.125, 1e-6)
+    with pytest.raises(ValueError, match="spatial w1 has dtype"):
+        tres.resident_block_stack(x, tpos, (*sp[:3], sp[3].float(), *sp[4:]), tp, shared, 8,
+                                  0.125, 1e-6)
+    with pytest.raises(ValueError, match="temporal vec has shape"):
+        tres.resident_block_stack(x, tpos, sp, (*tp[:6], tp[6][:, :5].contiguous()), shared, 8,
+                                  0.125, 1e-6)

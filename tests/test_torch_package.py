@@ -53,6 +53,7 @@ def test_package_mirrors_layout():
               "data.windowing", "data.prefetch", "data.generators", "data.synthetic",
               "data.skeleton", "data.mocap", "data.h36m", "eval.evaluator",
               "train.checkpoint_io", "cli.arguments", "cli.data_prep", "cli.main_h36m",
+              "ops.resident",
               "utils.misc", "utils.logging", "utils.profiling"):
         assert f"d3dp_tpu_torch.{m}" in _modules(), m
 
