@@ -19,6 +19,12 @@ random weights from a fixed seed:
   * training: the default train step (bf16 compute, fp32 AdamW at 6e-5,
     DropPath 0.1, batch 4 chunks of 243 frames from ChunkedGenerator),
     then light validation on the trained weights;
+  * the `D3DP_TRAIN_FUSED=1` training path: fp32 loss and gradients at
+    fuse levels 1-4 against the composed path, then timed steps at level 4
+    (the DropPath forms of the stage and MLP kernels, their backwards as
+    autograd Functions) beside the composed path's;
+  * evaluation with the head-major stage kernel (`D3DP_ATTN_VARIANT=hmqkv`)
+    against level 4 without it;
   * the packed-attention op through its public wrapper;
   * the H36M command line (`d3dp_tpu_torch.cli.main_h36m`, in process):
     one training epoch with checkpoints, a resumed epoch, and evaluation of
@@ -101,11 +107,11 @@ def stage_inputs(torch, gen, R, N, dt):
             1 + rn(C, s=0.1), rn(C, s=0.1)]
 
 
-def mlp_inputs(torch, gen, D1, D2, dt):
+def mlp_inputs(torch, gen, D1, D2, dt, rows=ROWS):
     def rn(*shape, s=1.0):
         return torch.randn(*shape, generator=gen, device="cuda") * s
 
-    return [rn(ROWS, D1, D2, C).to(dt), rn(ROWS, D1, D2, C).to(dt), rn(C, HIDDEN, s=0.05).to(dt),
+    return [rn(rows, D1, D2, C).to(dt), rn(rows, D1, D2, C).to(dt), rn(C, HIDDEN, s=0.05).to(dt),
             rn(HIDDEN, s=0.02), rn(HIDDEN, C, s=0.05).to(dt), rn(C, s=0.02), 1 + rn(C, s=0.1),
             rn(C, s=0.1)]
 
@@ -136,7 +142,9 @@ def kernel_ops():
             "fused_attention_qkv_bwd": A.fused_attention_qkv_bwd, "mlp_block": M.mlp_block,
             "attention_block": A.attention_block,
             "fused_attention_packed": A.fused_attention_packed,
-            "resident_block_stack": R.resident_block_stack}
+            "resident_block_stack": R.resident_block_stack,
+            "attention_stage_dp": A.attention_stage_dp, "mlp_block_t_dp": M.mlp_block_t_dp,
+            "mlp_block_dp": M.mlp_block_dp, "attention_stage_hm": A.attention_stage_hm}
 
 
 def reset_counts():
@@ -149,6 +157,23 @@ def read_counts():
 
 
 @contextlib.contextmanager
+def env_var(name, value):
+    """Set (or, with None, unset) one environment variable for a block."""
+    saved = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
+
+
+@contextlib.contextmanager
 def plain_ops():
     """Run the model through the plain torch versions (comparison only)."""
     from d3dp_tpu_torch.ops import attention, mlp, resident
@@ -156,7 +181,9 @@ def plain_ops():
     swaps = [(attention, "attention_stage"), (mlp, "mlp_block_t"),
              (attention, "fused_attention_qkv"), (attention, "fused_attention_qkv_bwd"),
              (mlp, "mlp_block"), (attention, "attention_block"),
-             (attention, "fused_attention_packed"), (resident, "resident_block_stack")]
+             (attention, "fused_attention_packed"), (resident, "resident_block_stack"),
+             (attention, "attention_stage_dp"), (mlp, "mlp_block_t_dp"), (mlp, "mlp_block_dp"),
+             (attention, "attention_stage_hm")]
     saved = [getattr(mod, name) for mod, name in swaps]
     plain = {"fused_attention_packed": "fused_attention_plain"}
     for mod, name in swaps:
@@ -273,7 +300,9 @@ def phase_kernels(torch, record):
                 check(ex <= tol, f"fused_attention_qkv_bwd {label} disagrees with autograd")
             del qkv, dout, got, want
         check_eval_kernels(torch, gen, dt, name_dt, errs)
+        check_train_fused_kernels(torch, gen, dt, name_dt, errs)
         check_resident_kernel(torch, dt, name_dt, errs)
+    check_backwards(torch, record)
     record["max_abs_err_bf16"] = errs
     return errs
 
@@ -437,6 +466,134 @@ def check_eval_kernels(torch, gen, dt, name_dt, errs):
         if dt == torch.bfloat16:
             errs[name] = max(errs[name], *(e for e, _ in es))
         del got, want
+
+
+def dp_scales(torch, gen, shape, keep=0.9):
+    """DropPath branch scales as the model draws them: 1/keep where kept, 0
+    where dropped, at least one of each."""
+    u = torch.rand(shape, generator=gen, device="cuda")
+    m = torch.where(u < keep, 1.0 / keep, 0.0)
+    m.view(-1)[0], m.view(-1)[-1] = 0.0, 1.0 / keep
+    return m
+
+
+# the stage and MLP shapes of the eval path (40 hypothesis rows) and of the
+# train step (4 chunks): (label, R, N) and (label, rows, D1, D2)
+STAGE_SHAPES = (("eval spatial", ROWS * F, J), ("eval temporal", ROWS * J, F),
+                ("train spatial", BT * F, J), ("train temporal", BT * J, F))
+MLP_SHAPES = (("eval spatial->temporal", ROWS, F, J), ("eval temporal->spatial", ROWS, J, F),
+              ("train spatial->temporal", BT, F, J), ("train temporal->spatial", BT, J, F))
+
+
+def check_train_fused_kernels(torch, gen, dt, name_dt, errs):
+    """The DropPath forms of K1, K2 and K5 and the head-major stage K8
+    against their plain versions, at the eval and the train shapes, with
+    scales of 0 and 1/keep; K8 also against K1 on the same inputs (the same
+    products in the same order: equal bit for bit). Tolerance as K1/K2's."""
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import mlp as M
+
+    ulp = BF16_ULP if dt == torch.bfloat16 else 0.0
+    tol = TOL[name_dt]
+    how = f"tol {tol:g}{' + 1 bf16 ulp' if ulp else ''}"
+
+    def compare(name, label, got, want):
+        es = [max_err(torch, g, w, ulp) for g, w in zip(got, want)]
+        ok = all(ex <= tol for _, ex in es)
+        log(f"[kernels] {name} {label} {name_dt}: max|err| "
+            f"{' / '.join(f'{e:.3e}' for e, _ in es)} ({how}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} {label} {name_dt} disagrees with its plain version")
+        if dt == torch.bfloat16:
+            errs[name] = max(errs[name], *(e for e, _ in es))
+
+    for label, R, N in STAGE_SHAPES:
+        args = stage_inputs(torch, gen, R, N, dt)
+        dp = dp_scales(torch, gen, (R,))
+        compare("attention_stage_dp", f"{label} x{(R, N, C)}",
+                A.attention_stage_dp(*args, dp, HEADS, 0.125, 1e-6),
+                A.attention_stage_dp_plain(*args, dp, HEADS, 0.125, 1e-6))
+        hm = [args[0], *A.stack_head_major(args[1], args[2], HEADS), *args[3:]]
+        got = A.attention_stage_hm(*hm, HEADS, 0.125, 1e-6)
+        compare("attention_stage_hm", f"{label} x{(R, N, C)}", got,
+                A.attention_stage_hm_plain(*hm, HEADS, 0.125, 1e-6))
+        k1 = A.attention_stage(*args, HEADS, 0.125, 1e-6)
+        torch.cuda.synchronize()
+        diff = max((g.float() - k.float()).abs().max().item() for g, k in zip(got, k1))
+        equal = all(torch.equal(g, k) for g, k in zip(got, k1))
+        log(f"[kernels] attention_stage_hm vs attention_stage {label} {name_dt}: max|diff| "
+            f"{diff:.3e}, equal {equal} {'ok' if equal else 'FAIL'}")
+        check(equal, f"attention_stage_hm {label} {name_dt} differs from attention_stage")
+        del args, dp, hm, got, k1
+    for label, rows, D1, D2 in MLP_SHAPES:
+        args = mlp_inputs(torch, gen, D1, D2, dt, rows)
+        dp = dp_scales(torch, gen, (rows, D1))
+        compare("mlp_block_t_dp", f"{label} x{(rows, D1, D2, C)}",
+                (M.mlp_block_t_dp(*args, dp, 1e-6),), (M.mlp_block_t_dp_plain(*args, dp, 1e-6),))
+        if label.endswith("spatial->temporal"):
+            r = [a.view(-1, C) for a in args[:2]] + args[2:]
+            dpr = dp_scales(torch, gen, (r[0].shape[0],))
+            compare("mlp_block_dp", f"{label.split()[0]} rows{tuple(r[0].shape)}",
+                    (M.mlp_block_dp(*r, dpr, 1e-6),), (M.mlp_block_dp_plain(*r, dpr, 1e-6),))
+            del r, dpr
+        del args, dp
+
+
+def check_backwards(torch, record):
+    """Each autograd Function of the train-fused path (kernel forward,
+    plain-op backward around K3 and K4) against torch.autograd through its
+    plain forward, fp32 at the train shapes: every gradient within 1e-3
+    relative in norm (summation order only)."""
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import mlp as M
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    f32 = torch.float32
+    worst = {}
+
+    def run(name, label, fused, plain, args, out_shapes):
+        cts = [torch.randn(sh, generator=gen, device="cuda") for sh in out_shapes]
+        grads = []
+        for fn in (fused, plain):
+            leaves = [a.clone().requires_grad_(True) for a in args]
+            o = fn(*leaves)
+            grads.append(torch.autograd.grad(o if isinstance(o, tuple) else (o,), leaves, cts))
+        torch.cuda.synchronize()
+        rel = max(((g - w).norm() / w.norm()).item() for g, w in zip(*grads))
+        ok = rel <= 1e-3
+        log(f"[backward] {name} {label} fp32: worst gradient rel {rel:.2e} of {len(args)} "
+            f"(tol 1e-3) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} {label}: backward disagrees with autograd of the plain forward")
+        worst[name] = max(worst.get(name, 0.0), rel)
+
+    for label, R, N in TRAIN_SHAPES:
+        args = stage_inputs(torch, gen, R, N, f32)
+        dp = dp_scales(torch, gen, (R,))
+        outs = [(R, N, C)] * 2
+        run("attention_stage_ad", label, lambda *a: A.attention_stage_ad(*a, HEADS, 0.125, 1e-6),
+            lambda *a: A.attention_stage_plain(*a, HEADS, 0.125, 1e-6), args, outs)
+        run("attention_stage_dp_ad", label,
+            lambda *a: A.attention_stage_dp_ad(*a, dp, HEADS, 0.125, 1e-6),
+            lambda *a: A.attention_stage_dp_plain(*a, dp, HEADS, 0.125, 1e-6), args, outs)
+        run("attention_block_ad", label, lambda *a: A.attention_block_ad(*a, HEADS, 0.125, 1e-6),
+            lambda *a: A.attention_block_plain(*a, HEADS, 0.125, 1e-6),
+            block_inputs(torch, gen, R, N, f32), outs)
+    for label, D1, D2 in (("spatial->temporal", F, J), ("temporal->spatial", J, F)):
+        args = mlp_inputs(torch, gen, D1, D2, f32, BT)
+        dp = dp_scales(torch, gen, (BT, D1))
+        outs = [(BT, D2, D1, C)]
+        run("mlp_block_t_ad", label, lambda *a: M.mlp_block_t_ad(*a, 1e-6),
+            lambda *a: M.mlp_block_t_plain(*a, 1e-6), args, outs)
+        run("mlp_block_t_dp_ad", label, lambda *a: M.mlp_block_t_dp_ad(*a, dp, 1e-6),
+            lambda *a: M.mlp_block_t_dp_plain(*a, dp, 1e-6), args, outs)
+        if label == "spatial->temporal":
+            r = [a.view(-1, C) for a in args[:2]] + args[2:]
+            dpr = dp_scales(torch, gen, (r[0].shape[0],))
+            outs = [tuple(r[0].shape)]
+            run("mlp_block_ad", "rows", lambda *a: M.mlp_block_ad(*a, 1e-6),
+                lambda *a: M.mlp_block_plain(*a, 1e-6), r, outs)
+            run("mlp_block_dp_ad", "rows", lambda *a: M.mlp_block_dp_ad(*a, dpr, 1e-6),
+                lambda *a: M.mlp_block_dp_plain(*a, dpr, 1e-6), r, outs)
+    record["backward_max_rel_err"] = worst
 
 
 def phase_model(torch, record):
@@ -1056,6 +1213,200 @@ def phase_train(torch, record):
     record["launches"].update(fused_attention_qkv=counts[0], fused_attention_qkv_bwd=counts[1])
 
 
+def train_fused_counts(level, depth):
+    """Launches of one D3DP_TRAIN_FUSED=1 train step with DropPath active on
+    every block but block 0 of each kind: those 2 blocks take the level's
+    fused ops, the others the composed block (levels 1-3) or the DropPath
+    forms (level 4); every attention core runs K3 once (forward or the
+    backward's recompute) and K4 once."""
+    n, k = 2 * depth, 2
+    core = {"fused_attention_qkv": n, "fused_attention_qkv_bwd": n}
+    return {1: {"mlp_block": k}, 2: {"attention_block": k, "mlp_block": k},
+            3: {"attention_block": k, "mlp_block_t": k},
+            4: {"attention_stage": k, "attention_stage_dp": n - k, "mlp_block_t": k,
+                "mlp_block_t_dp": n - k}}[level] | core
+
+
+def phase_train_fused(torch, record):
+    """The D3DP_TRAIN_FUSED=1 training path. Correctness: MixSTE2 fp32,
+    full width, depth 2, DropPath 0.1, at fuse levels 1-4: loss and every
+    gradient against the composed path under the same t, noise and masks
+    (loss 1e-5 relative, gradients 1e-3 relative in norm), with the
+    launches of each level's route. Timing: TRAIN_STEPS full-width bf16
+    steps at the train config (level 4) fed as phase train feeds them,
+    then as many on the composed path in the same run; launch counts per
+    step; one profiled fused step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from d3dp_tpu_torch.data.generators import ChunkedGenerator
+    from d3dp_tpu_torch.data.prefetch import Prefetcher
+    from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT, make_dataset
+    from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
+    from d3dp_tpu_torch.models import MixSTEConfig
+    from d3dp_tpu_torch.train.state import make_optimizer, make_train_step, weighted_mpjpe
+
+    out = {}
+    d3dp = D3DP(D3DPConfig(model=MixSTEConfig(num_frames=F, embed_dim=C, depth=2,
+                                              drop_path_rate=0.1)), seed=5)
+    perturb_(torch, d3dp.model, 6)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x2d = torch.randn(2, F, J, 2, generator=g, device="cuda") * 0.3
+    x3d = torch.randn(2, F, J, 3, generator=g, device="cuda") * 0.3
+    x3d[:, :, 0] = 0.0
+    noise = torch.randn(2, F, J, 3, generator=g, device="cuda")
+    t = torch.tensor([999, 17], device="cuda")
+    w = torch.ones(2, device="cuda")
+
+    def run(fused):
+        with env_var("D3DP_TRAIN_FUSED", "1" if fused else None):
+            d3dp.model.zero_grad(set_to_none=True)
+            masks = torch.Generator(device="cuda").manual_seed(9)  # same masks on both paths
+            reset_counts()
+            pred = d3dp.train_forward(x2d, x3d, generator=masks, t_noise_override=(t, noise))
+            loss = weighted_mpjpe(pred, x3d, w)
+            loss.backward()
+            torch.cuda.synchronize()
+            return (loss.item(), {n: p.grad.clone() for n, p in d3dp.model.named_parameters()},
+                    {n: c for n, c in read_counts().items() if c})
+
+    loss_c, grads_c, _ = run(False)
+    for level in (1, 2, 3, 4):
+        set_level(d3dp.model, level)
+        loss_f, grads_f, counts = run(True)
+        loss_rel = abs(loss_f - loss_c) / abs(loss_c)
+        rel = {n: ((grads_f[n] - grads_c[n]).norm() / grads_c[n].norm()).item() for n in grads_c}
+        worst = max(rel, key=rel.get)
+        want = train_fused_counts(level, 2)
+        ok = (math.isfinite(loss_f) and loss_rel <= 1e-5 and rel[worst] <= 1e-3
+              and counts == want)
+        log(f"[train-fused] MixSTE2 fp32 C={C} depth 2 B=2 DropPath 0.1 level {level}: loss "
+            f"fused {loss_f:.6f} composed {loss_c:.6f} (rel {loss_rel:.2e}, tol 1e-5); worst "
+            f"gradient {worst} rel {rel[worst]:.2e} (tol 1e-3); launches {counts} "
+            f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"train-fused level {level}: disagrees with the composed path, or launches")
+        out[f"level{level}"] = dict(loss_rel=loss_rel, worst_grad=worst,
+                                    worst_grad_rel=rel[worst])
+    del d3dp, grads_c, grads_f
+
+    cfg = train_config(torch)
+    d3dp = D3DP(cfg, seed=0)
+    step = make_train_step(d3dp, make_optimizer(d3dp.model.parameters(), 6e-5))
+    lr_kw = dict(kps_left=list(JOINTS_LEFT), kps_right=list(JOINTS_RIGHT))
+    gen = ChunkedGenerator(BT, *make_dataset(seed=5, lengths=(1200, 900, 1500, 700)), F,
+                           shuffle=True, random_seed=1234, augment=True, endless=True,
+                           pad_last=True, joints_left=list(JOINTS_LEFT),
+                           joints_right=list(JOINTS_RIGHT), **lr_kw)
+    batches = iter(Prefetcher(gen.next_epoch(), depth=2))
+    g = torch.Generator(device="cuda").manual_seed(11)
+    warm = 3
+
+    def timed(fused):
+        with env_var("D3DP_TRAIN_FUSED", "1" if fused else None):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            losses = []
+            for i in range(TRAIN_STEPS):
+                if i == warm:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                _, b3d, b2d, bw = next(batches)
+                losses.append(step(b2d, b3d, bw, generator=g))
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / (TRAIN_STEPS - warm)
+            return dict(step_s=step_s, frames_per_s=BT * F / step_s,
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                        losses=[v.item() for v in losses],
+                        launches={n: c for n, c in read_counts().items() if c}), b2d, b3d, bw
+
+    fused, *last = timed(True)
+    composed, *_ = timed(False)
+    want = {n: c * TRAIN_STEPS for n, c in train_fused_counts(4, DEPTH).items()}
+    want_c = {n: 2 * DEPTH * TRAIN_STEPS for n in ("fused_attention_qkv",
+                                                    "fused_attention_qkv_bwd")}
+    ok = (all(math.isfinite(v) for v in fused["losses"] + composed["losses"])
+          and fused["launches"] == want and composed["launches"] == want_c)
+    log(f"[train-fused] {TRAIN_STEPS} steps, batch {BT}x{F} frames, bf16, DropPath 0.1, level 4, "
+        f"D3DP_TRAIN_FUSED=1: loss {fused['losses'][0]:.4f} -> {fused['losses'][-1]:.4f}; "
+        f"launches {fused['launches']} (expected {want}) {'ok' if ok else 'FAIL'}")
+    check(ok, "train-fused steps: non-finite loss or launch counts")
+    for name, r in (("fused", fused), ("composed", composed)):
+        log(f"[train-fused] {name}: {r['step_s']:.4f} s/step (mean of steps {warm + 1}-"
+            f"{TRAIN_STEPS}, host loop with prefetch), {r['frames_per_s']:.1f} train frames/s, "
+            f"peak memory {r['peak_gb']:.2f} GB")
+    log(f"[train-fused] fused / composed s/step: {fused['step_s'] / composed['step_s']:.3f}")
+
+    with env_var("D3DP_TRAIN_FUSED", "1"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            step(*last, generator=g)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) * 1e3
+    prof_rec = summarize_profile(torch, prof, wall_ms, "one train-fused step",
+                                 "train-fused-profile")
+    if prof_rec["device_busy_ms"] is not None:
+        log(f"[train-fused-profile] against the unprofiled {fused['step_s'] * 1e3:.1f} ms/step "
+            f"the card is busy {100 * prof_rec['device_busy_ms'] / (fused['step_s'] * 1e3):.1f}% "
+            f"of a step")
+    batches.close()
+    out.update(fused=fused, composed=composed, profile=prof_rec)
+    record["train_fused"] = out
+    record["launches"].update(attention_stage_dp=fused["launches"].get("attention_stage_dp", 0),
+                              mlp_block_t_dp=fused["launches"].get("mlp_block_t_dp", 0))
+
+
+def phase_hmqkv(torch, record, d3dp, x2d, x2d_f):
+    """Evaluation with the head-major stage: one D3DP.sample at the eval
+    config at level 4 with D3DP_ATTN_VARIANT=hmqkv (K8 on both stages, 80
+    launches, no K1), held against the same call without the variant (K8
+    equals K1 bit for bit, so the samples are equal), and timed."""
+    set_level(d3dp.model, 4)
+    ref = d3dp.sample(x2d, x2d_f, generator=torch.Generator(device="cuda").manual_seed(50))
+    with env_var("D3DP_ATTN_VARIANT", "hmqkv"):
+        reset_counts()
+        out = d3dp.sample(x2d, x2d_f, generator=torch.Generator(device="cuda").manual_seed(50))
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in read_counts().items() if c}
+        g = torch.Generator(device="cuda").manual_seed(51)
+        sample_ms = time_ms(torch, lambda: d3dp.sample(x2d, x2d_f, generator=g), reps=3)
+    diff = (out - ref).abs().max().item()
+    equal = torch.equal(out, ref)
+    want = {"attention_stage_hm": 2 * DEPTH * K, "mlp_block_t": 2 * DEPTH * K}
+    ok = counts == want and bool(torch.isfinite(out).all()) and equal
+    log(f"[hmqkv] D3DP.sample B={B} H={H} K={K} F={F} bf16 flip-TTA at level 4, "
+        f"D3DP_ATTN_VARIANT=hmqkv: {sample_ms / 1e3:.4f} s/call (median of 3), "
+        f"{B * H * F * K * 1e3 / sample_ms:.1f} hyp*frames/s; launches {counts} (expected "
+        f"{want}); vs level 4 without the variant max|diff| {diff:.3e}, equal {equal} "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, "D3DP.sample with hmqkv: launch counts, non-finite output, or differs from K1")
+    record["hmqkv"] = dict(sample_s=sample_ms / 1e3, launches=counts, max_abs_diff=diff)
+    record["launches"]["attention_stage_hm"] = counts.get("attention_stage_hm", 0)
+
+
+def phase_public_dp(torch, record):
+    """The row-form MLP kernel's DropPath form (K5-dp) has no model path (the
+    level-4 flow runs the transposing form); its path is its public op,
+    `mlp_block_dp_ad` (the JAX `mlp_block_dp_p`), forward and backward once
+    at the train step's spatial token rows, bf16."""
+    from d3dp_tpu_torch.ops import mlp as M
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    args = mlp_inputs(torch, gen, F, J, torch.bfloat16, BT)
+    args[:2] = [a.view(-1, C).requires_grad_(True) for a in args[:2]]
+    dp = dp_scales(torch, gen, (BT * F * J,))
+    reset_counts()
+    out = M.mlp_block_dp_ad(*args, dp, 1e-6)
+    gx, gres = torch.autograd.grad(out, args[:2], torch.randn_like(out))
+    torch.cuda.synchronize()
+    n = read_counts()["mlp_block_dp"]
+    finite = all(bool(torch.isfinite(v).all()) for v in (out, gx, gres))
+    ok = n == 1 and finite
+    log(f"[public-dp] mlp_block_dp_ad bf16 rows{tuple(out.shape)} forward + backward: launches "
+        f"{n} (expected 1), finite {finite} {'ok' if ok else 'FAIL'}")
+    check(ok, "mlp_block_dp_ad did not launch its kernel, or non-finite")
+    record["launches"]["mlp_block_dp"] = n
+
+
 def summarize_profile(torch, prof, wall_ms, what, tag, top=12):
     """Log and return the device kernels' time by name (device-side events
     only: an aten op's own entry repeats the device time of its kernels, and
@@ -1096,23 +1447,30 @@ def phase_profile(torch, record, d3dp, x2d, x2d_f):
 
 
 def library_attention(torch, Fn):
-    def run(x, wqkv_t, bqkv, wp_t, bp, l1s, l1b, l2s, l2b):
+    """layer_norm, F.linear, SDPA, F.linear, the residual (its branch scaled
+    by dp where given) and layer_norm (the yardstick of K1, K1-dp, K8)."""
+    def run(x, wqkv_t, bqkv, wp_t, bp, l1s, l1b, l2s, l2b, dp=None):
         R, N, _ = x.shape
         y1 = Fn.layer_norm(x, (C,), l1s, l1b, 1e-6)
         qkv = Fn.linear(y1, wqkv_t, bqkv).view(R, N, 3, HEADS, C // HEADS)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
         o = Fn.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(R, N, C)
-        x2 = x + Fn.linear(o, wp_t, bp)
+        branch = Fn.linear(o, wp_t, bp)
+        x2 = x + (branch if dp is None else branch * dp[:, None, None])
         return x2, Fn.layer_norm(x2, (C,), l2s, l2b, 1e-6)
     return run
 
 
 def library_mlp(torch, Fn, transpose=True):
-    """F.linear, GELU, F.linear, the residual and layer_norm (the yardstick
-    of K5), then the relayout (of K2)."""
-    def run(x, res, w1_t, b1, w2_t, b2, ls, lb):
+    """F.linear, GELU, F.linear, the residual (its branch scaled by dp where
+    given) and layer_norm (the yardstick of K5, K5-dp), then the relayout
+    (of K2, K2-dp)."""
+    def run(x, res, w1_t, b1, w2_t, b2, ls, lb, dp=None):
         h = Fn.gelu(Fn.linear(x, w1_t, b1))
-        y = Fn.layer_norm(res + Fn.linear(h, w2_t, b2), (C,), ls, lb, 1e-6)
+        branch = Fn.linear(h, w2_t, b2)
+        if dp is not None:
+            branch = branch * dp.reshape(*dp.shape, *(1,) * (x.dim() - dp.dim()))
+        y = Fn.layer_norm(res + branch, (C,), ls, lb, 1e-6)
         return y.transpose(1, 2).contiguous() if transpose else y
     return run
 
@@ -1221,6 +1579,7 @@ def phase_timing(torch, record, d3dp, x2d, x2d_f):
                 lib_out, leaf, dout, retain_graph=True), reps=20))
         del qkv, dout, leaf, lib_out
     rows.update(eval_kernel_rows(torch, Fn, gen))
+    rows.update(train_fused_kernel_rows(torch, Fn, gen))
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_ms(r["flops"], r["bytes"], PEAK_BF16)
         log(f"[timing] {name} bf16 x{tuple(r['shape'])}: kernel {r['ms']:.4f} ms, bound "
@@ -1278,13 +1637,80 @@ def eval_kernel_rows(torch, Fn, gen):
     return rows
 
 
+def train_fused_kernel_rows(torch, Fn, gen):
+    """K1-dp, K2-dp and K5-dp at the train step's shapes, where their path
+    runs them; K8 at the eval path's stage shapes (its bound is K1's); bf16,
+    DropPath scales of 0 and 1/keep."""
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import mlp as M
+
+    bf = torch.bfloat16
+    rows = {}
+    lib_a = library_attention(torch, Fn)
+    for label, R, N in STAGE_SHAPES:
+        a = stage_inputs(torch, gen, R, N, bf)
+        T = R * N
+        flops = 2 * T * C * 3 * C + 4 * T * N * C + 2 * T * C * C
+        nbytes = 3 * T * C * 2 + 4 * C * C * 2 + 8 * C * 4
+        lib_args = [a[0], a[1].t().contiguous(), a[2].to(bf), a[3].t().contiguous(),
+                    a[4].to(bf)] + [v.to(bf) for v in a[5:]]
+        if label.startswith("train"):
+            dp = dp_scales(torch, gen, (R,))
+            rows[f"attention_stage_dp/{label.split()[1]}"] = dict(
+                shape=list(a[0].shape), flops=flops, bytes=nbytes + R * 4,
+                ms=time_ms(torch, lambda: A.attention_stage_dp(*a, dp, HEADS, 0.125, 1e-6),
+                           reps=10),
+                plain_ms=time_ms(torch, lambda: A.attention_stage_dp_plain(
+                    *a, dp, HEADS, 0.125, 1e-6), reps=3),
+                library_ms=time_ms(torch, lambda: lib_a(*lib_args, dp=dp.to(bf)), reps=10))
+        else:
+            hm = [a[0], *A.stack_head_major(a[1], a[2], HEADS), *a[3:]]
+            rows[f"attention_stage_hm/{label.split()[1]}"] = dict(
+                shape=list(a[0].shape), flops=flops, bytes=nbytes,
+                ms=time_ms(torch, lambda: A.attention_stage_hm(*hm, HEADS, 0.125, 1e-6),
+                           reps=10),
+                plain_ms=time_ms(torch, lambda: A.attention_stage_hm_plain(
+                    *hm, HEADS, 0.125, 1e-6), reps=3),
+                library_ms=time_ms(torch, lambda: lib_a(*lib_args), reps=10))
+        del a, lib_args
+    lib_t, lib_r = library_mlp(torch, Fn), library_mlp(torch, Fn, transpose=False)
+    for label, n_rows, D1, D2 in MLP_SHAPES[2:]:
+        a = mlp_inputs(torch, gen, D1, D2, bf, n_rows)
+        T = n_rows * D1 * D2
+        flops = 4 * T * C * HIDDEN
+        nbytes = 3 * T * C * 2 + 2 * C * HIDDEN * 2 + (HIDDEN + 3 * C) * 4
+        lib_args = [a[0], a[1], a[2].t().contiguous(), a[3].to(bf), a[4].t().contiguous(),
+                    a[5].to(bf), a[6].to(bf), a[7].to(bf)]
+        dp = dp_scales(torch, gen, (n_rows, D1))
+        rows[f"mlp_block_t_dp/{label.split()[1]}"] = dict(
+            shape=list(a[0].shape), flops=flops, bytes=nbytes + n_rows * D1 * 4,
+            ms=time_ms(torch, lambda: M.mlp_block_t_dp(*a, dp, 1e-6), reps=10),
+            plain_ms=time_ms(torch, lambda: M.mlp_block_t_dp_plain(*a, dp, 1e-6), reps=3),
+            library_ms=time_ms(torch, lambda: lib_t(*lib_args, dp=dp.to(bf)), reps=10))
+        if label.endswith("spatial->temporal"):
+            r = [t.view(-1, C) for t in a[:2]] + a[2:]
+            dpr = dp_scales(torch, gen, (T,))
+            lib_rows = [r[0], r[1]] + lib_args[2:]
+            rows["mlp_block_dp/rows"] = dict(
+                shape=list(r[0].shape), flops=flops, bytes=nbytes + T * 4,
+                ms=time_ms(torch, lambda: M.mlp_block_dp(*r, dpr, 1e-6), reps=10),
+                plain_ms=time_ms(torch, lambda: M.mlp_block_dp_plain(*r, dpr, 1e-6), reps=3),
+                library_ms=time_ms(torch, lambda: lib_r(*lib_rows, dp=dpr.to(bf)), reps=10))
+            del r, lib_rows
+        del a, lib_args
+    return rows
+
+
 def kernels_line(rows, errs, launches):
     """One entry per kernel; times are the mean of its shapes on its path,
     which the path launches equally often. Launches: K1 and K2 from the
     evaluation path's run (phase main), K3 and K4 from the training path's
     (phase train), K5 and K6 from the command line's evaluation at the fuse
     levels that run them (phase cli), K7 from its public op (phase packed),
-    K9 from one D3DP.sample call at fuse level 5 (phase resident)."""
+    K9 from one D3DP.sample call at fuse level 5 (phase resident), K1-dp
+    and K2-dp from the train-fused steps (phase train_fused), K5-dp from its
+    public op (phase public_dp), K8 from one D3DP.sample call with hmqkv
+    (phase hmqkv)."""
     meta = {"attention_stage": ("d3dp_tpu_torch/ops/csrc/attention_stage.cu",
                                 "d3dp_tpu/ops/attention.py:396"),
             "mlp_block_t": ("d3dp_tpu_torch/ops/csrc/mlp_block_t.cu",
@@ -1299,7 +1725,14 @@ def kernels_line(rows, errs, launches):
             "fused_attention_packed": ("d3dp_tpu_torch/ops/csrc/attention_qkv.cu",
                                        "d3dp_tpu/ops/attention.py:32"),
             "resident_block_stack": ("d3dp_tpu_torch/ops/csrc/resident.cu",
-                                     "d3dp_tpu/ops/resident.py:118")}
+                                     "d3dp_tpu/ops/resident.py:118"),
+            "attention_stage_dp": ("d3dp_tpu_torch/ops/csrc/attention_stage.cu",
+                                   "d3dp_tpu/ops/attention.py:974"),
+            "mlp_block_t_dp": ("d3dp_tpu_torch/ops/csrc/mlp_block_t.cu",
+                               "d3dp_tpu/ops/mlp.py:397"),
+            "mlp_block_dp": ("d3dp_tpu_torch/ops/csrc/mlp_block_t.cu", "d3dp_tpu/ops/mlp.py:378"),
+            "attention_stage_hm": ("d3dp_tpu_torch/ops/csrc/attention_stage.cu",
+                                   "d3dp_tpu/ops/attention.py:480")}
     out = []
     for name, (src, rep) in meta.items():
         rs = [r for k, r in rows.items() if k.startswith(name + "/")]
@@ -1334,9 +1767,12 @@ def main():
     phase_profile(torch, record, d3dp, x2d, x2d_f)
     phase_fuse_levels(torch, record, d3dp, x2d, x2d_f)
     phase_resident(torch, record, d3dp, x2d, x2d_f, rows)
+    phase_hmqkv(torch, record, d3dp, x2d, x2d_f)
     del d3dp
     phase_train(torch, record)
+    phase_train_fused(torch, record)
     phase_packed(torch, record)
+    phase_public_dp(torch, record)
     phase_cli(torch, record)
     line = kernels_line(rows, errs, record["launches"])
     record["kernels"] = line["kernels"]

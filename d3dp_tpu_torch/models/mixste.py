@@ -17,20 +17,30 @@ Counterpart of d3dp_tpu/models/mixste.py `MixSTE2` with
   - 3: the transpose-free flow (`:742-761`): as 2, with the MLP step
     writing its output in the other stage's layout (`ops.mlp.mlp_block_t`).
   - 4 (the default): the transpose-free flow with the whole attention half
-    in one kernel (`ops.attention.attention_stage`).
+    in one kernel (`ops.attention.attention_stage`; under the `hmqkv` lab
+    variant the head-major stage `ops.attention.attention_stage_hm`, with
+    its stacked weights cached).
   - 5: the whole 2 x depth trunk in one kernel launch
     (`ops.resident.resident_block_stack`, `mixste.py:707-741`); with DDIM
     feature reuse taps it takes level 4's flow, as the JAX package does.
-  Levels 1-5 read kernel-layout weights from a cast cache; none has a
-  backward.
+  Levels 1-5 read kernel-layout weights from a cast cache, without
+  autograd.
 * DDIM feature reuse (eval only, `reuse_tap` / `deep_delta` in `forward`):
   taps at block-pair boundaries in the (B, F, J, C) layout, after the shared
   norms, in every flow (`mixste.py:583-606`).
-* training (`train=True`), at every level: the composed block
+* training (`train=True`): by default, at every level, the composed block
   (`mixste.py:427-467`), with autograd: pre-LN, qkv projection, the attention
   core (`ops.attention.fused_attention_qkv_ad`, whose backward is a kernel
   too), out-projection, MLP, per-row DropPath scales, then the shared norm
   and the spatial<->temporal relayout as plain ops.
+  With `D3DP_TRAIN_FUSED=1` (the JAX package's lab switch, `:406-426`) and
+  fuse level >= 1, each block takes its level's fused ops through their
+  autograd Functions (`*_ad`, backwards in plain ops around the attention
+  core's kernels) where the JAX `Block` does: every block at level >= 4
+  (level 5 trains as 4: its kernel is eval-only), active DropPath riding
+  the `*_dp` ops as per-row branch scales; at levels 1-3 only the blocks
+  whose DropPath rate is 0, the others composed. Weights go through
+  autograd in kernel layout.
 
 On CUDA tensors the ops launch the hand-written kernels; on CPU tensors
 they run their plain torch versions.
@@ -49,6 +59,7 @@ position embedding added once after the first spatial block.
 """
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -235,9 +246,11 @@ class MixSTE2(nn.Module):
         and LayerNorm parameters stay fp32. Each kind's weights are stacked
         along depth in the level-5 kernel's layout (`resident`); the
         per-block entries of levels 1-4 (`ste`, `tte`) are views into those
-        stacks. The cache is keyed on every parameter's storage and version
-        counter, so it is rebuilt after any change to a parameter: an
-        optimizer step, `load_state_dict`, or an in-place edit."""
+        stacks, beside each block's head-major qkv stacks (`hm`, for the
+        `hmqkv` variant). The cache is keyed on every parameter's storage
+        and version counter, so it is rebuilt after any change to a
+        parameter: an optimizer step, `load_state_dict`, or an in-place
+        edit."""
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
         if self._cache is not None and self._cache_key == key:
             return self._cache
@@ -263,7 +276,9 @@ class MixSTE2(nn.Module):
                          proj_linear=_cast_linear(b.attn.proj, dt),
                          wqkv=wqkv[i], bqkv=bqkv[i, 0], wp=wp[i], bp=v[i, 0],
                          ln1s=v[i, 1], ln1b=v[i, 2], ln2s=v[i, 3], ln2b=v[i, 4],
-                         w1=w1[i], b1=b1[i, 0], w2=w2[i], b2=v[i, 5])
+                         w1=w1[i], b1=b1[i, 0], w2=w2[i], b2=v[i, 5],
+                         hm=attention.stack_head_major(wqkv[i], bqkv[i, 0],
+                                                       self.cfg.num_heads))
                     for i, b in enumerate(blocks)]
 
         spatial, temporal = stack(self.STEblocks), stack(self.TTEblocks)
@@ -288,6 +303,10 @@ class MixSTE2(nn.Module):
         cfg = self.cfg
         scale = cfg.attn_scale
         if cfg.fuse_level >= 4:
+            if attention.stage_kernel(h) == "head_major":
+                return attention.attention_stage_hm(
+                    h, *w["hm"], w["wp"], w["bp"], w["ln1s"], w["ln1b"], w["ln2s"],
+                    w["ln2b"], cfg.num_heads, scale, BLOCK_EPS)
             return attention.attention_stage(
                 h, w["wqkv"], w["bqkv"], w["wp"], w["bp"], w["ln1s"], w["ln1b"],
                 w["ln2s"], w["ln2b"], cfg.num_heads, scale, BLOCK_EPS)
@@ -338,7 +357,8 @@ class MixSTE2(nn.Module):
         """train=False (the JAX `deterministic=True`): the eval path at
         `cfg.fuse_level`, which has no backward (at level 0 it runs the
         composed path under no_grad, without DropPath). train=True: the
-        composed path with autograd
+        composed path with autograd (or, with `D3DP_TRAIN_FUSED=1` at fuse
+        level >= 1, the fused ops with their backwards; module docstring)
         and, where `cfg.drop_path_rate` > 0 and `drop_path`, DropPath. Its
         masks are drawn from `generator` (a torch.Generator on the model's
         device), or taken from `droppath_masks` = {"ste_i" / "tte_i": (m1,
@@ -362,7 +382,10 @@ class MixSTE2(nn.Module):
         elif deep_delta is not None:
             raise ValueError("deep_delta needs reuse_tap")
         if train:
-            x, _ = self._trunk_composed(x2d, x3d, t, generator, droppath_masks, drop_path)
+            fused = (self.cfg.fuse_level >= 1
+                     and os.environ.get("D3DP_TRAIN_FUSED", "0") == "1")
+            x, _ = self._trunk_composed(x2d, x3d, t, generator, droppath_masks, drop_path,
+                                        fused=fused)
             return self._head(x)
         with torch.no_grad():
             if self.cfg.fuse_level == 0:
@@ -441,9 +464,11 @@ class MixSTE2(nn.Module):
         return draw(), draw()
 
     def _trunk_composed(self, x2d, x3d, t, generator, droppath_masks, drop_path,
-                        reuse_tap=None, deep_delta=None):
+                        reuse_tap=None, deep_delta=None, fused=False):
         """The composed flow: (stream after the trunk, tap stream or None),
-        both (B, F, J, C)."""
+        both (B, F, J, C). fused: the training flow of `D3DP_TRAIN_FUSED=1`,
+        where the blocks that the JAX `Block` sends to its fused path take
+        `_train_block_fused`."""
         cfg = self.cfg
         B, Fr, J, _ = x3d.shape
         C = cfg.embed_dim
@@ -456,6 +481,8 @@ class MixSTE2(nn.Module):
             masks = self._droppath_masks(f"{kind}_{i}", float(rates[i]), h.shape[0],
                                          generator, droppath_masks)
             blocks = self.STEblocks if kind == "ste" else self.TTEblocks
+            if fused and (masks is None or cfg.fuse_level >= 4):
+                return self._train_block_fused(blocks[i], h, norm, masks, B)
             h = _layer_norm(norm, blocks[i](h, masks))
             R, N, _ = h.shape
             return h.view(B, R // B, N, C).transpose(1, 2).reshape(B * N, R // B, C)
@@ -467,3 +494,51 @@ class MixSTE2(nn.Module):
             return block("tte", i, h, self.Temporal_norm)
 
         return self._pairs(x, pair, reuse_tap, deep_delta)
+
+    def _train_block_fused(self, blk, h, norm, masks, B):
+        """One block of the `D3DP_TRAIN_FUSED=1` training flow on (B*D1, N,
+        C), as the JAX `Block._fused` runs it at cfg.fuse_level (5 as 4),
+        through the ops' autograd Functions; returns (B*N, D1, C) in the
+        other stage's layout, the shared norm applied. masks: the block's two
+        DropPath scale vectors (R,) or None (level >= 4 only)."""
+        cfg = self.cfg
+        dt = cfg.dtype
+        R, N, C = h.shape
+        D1 = R // B
+        level = min(cfg.fuse_level, 4)
+        scale = cfg.attn_scale
+        dp_attn, dp_mlp = masks if masks is not None else (None, None)
+
+        def mat(lin):
+            """The kernels' (in, out) layout in the compute dtype, through
+            autograd."""
+            return lin.weight.t().contiguous().to(dt)
+
+        if level >= 4:
+            stage = (h, mat(blk.attn.qkv), blk.attn.qkv.bias, mat(blk.attn.proj),
+                     blk.attn.proj.bias, blk.norm1.weight, blk.norm1.bias, blk.norm2.weight,
+                     blk.norm2.bias)
+            if dp_attn is None:
+                x2, y2 = attention.attention_stage_ad(*stage, cfg.num_heads, scale, BLOCK_EPS)
+            else:
+                x2, y2 = attention.attention_stage_dp_ad(*stage, dp_attn, cfg.num_heads, scale,
+                                                         BLOCK_EPS)
+        elif level >= 2:
+            qkv = _linear(blk.attn.qkv, _layer_norm(blk.norm1, h))
+            x2, y2 = attention.attention_block_ad(
+                qkv, h, mat(blk.attn.proj), blk.attn.proj.bias, blk.norm2.weight,
+                blk.norm2.bias, cfg.num_heads, scale, BLOCK_EPS)
+        else:
+            x2 = h + blk.attn(_layer_norm(blk.norm1, h))
+            y2 = _layer_norm(blk.norm2, x2)
+        w = (mat(blk.mlp.fc1), blk.mlp.fc1.bias, mat(blk.mlp.fc2), blk.mlp.fc2.bias,
+             norm.weight, norm.bias)
+        if level <= 2:
+            out = mlp.mlp_block_ad(y2.reshape(R * N, C), x2.reshape(R * N, C), *w, BLOCK_EPS)
+            return out.view(B, D1, N, C).transpose(1, 2).reshape(B * N, D1, C)
+        y2, x2 = y2.view(B, D1, N, C), x2.view(B, D1, N, C)
+        if dp_mlp is None:
+            out = mlp.mlp_block_t_ad(y2, x2, *w, BLOCK_EPS)
+        else:
+            out = mlp.mlp_block_t_dp_ad(y2, x2, *w, dp_mlp.view(B, D1), BLOCK_EPS)
+        return out.view(B * N, D1, C)

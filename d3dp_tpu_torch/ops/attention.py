@@ -1,11 +1,25 @@
-"""MixSTE attention: the fused pre-LN stage and block (eval), the attention
-core with its backward (training), and the packed-attention op.
+"""MixSTE attention: the fused pre-LN stage and block, the attention core
+with its backward, and the packed-attention op.
 
 `attention_stage` is the counterpart of `attention_stage_p` in the JAX
 package (`d3dp_tpu/ops/attention.py`): LN1 -> qkv projection -> per-head
 softmax attention -> out-projection -> residual -> LN2, returning
 (x2, y2) with x2 = x + proj(attn(qkv(LN1(x)))) and y2 = LN2(x2) (fuse
-level 4).
+level 4). `attention_stage_dp` is `attention_stage_dp_p`: the same with the
+branch, projection bias included, scaled per sequence by a DropPath scale
+before the residual add (training at level 4). `attention_stage_hm` is the
+head-major stage of the `hmqkv` lab variant (`_attn_stage_kernel_hm`): the
+same function with the qkv weights stacked (h, C, 3d) outside the kernel
+(`stack_head_major`).
+
+The lab switches are read where the JAX package reads them, when an op is
+called: `stage_variant` resolves `D3DP_ATTN_VARIANT_T` (N >= 128) or
+`D3DP_ATTN_VARIANT_S`, then `D3DP_ATTN_VARIANT`. "", "loop" and "batched"
+(the production math) run the stage kernel, "hmqkv" the head-major one;
+every other value, a `D3DP_SPATIAL_GROUP` that groups the stage, and bf16
+with `D3DP_SOFTMAX_FOLD` other than 1 raise "not ported yet" instead of
+computing something else than the JAX package. The DropPath form ignores
+the variant, as in JAX, but for bf16exp.
 
 `attention_block` is the counterpart of `attention_block_p`: the same from
 a precomputed qkv projection and a residual, (x2, y2) with x2 = res +
@@ -16,6 +30,14 @@ the JAX package's `fused_attention_qkv` and `_fused_attention_qkv_bwd`:
 softmax attention read from the packed (R, N, 3C) qkv projection, and its
 backward, which recomputes the softmax from qkv. `fused_attention_qkv_ad`
 joins them as a `torch.autograd.Function` (the JAX `custom_vjp`).
+
+Training with `D3DP_TRAIN_FUSED=1` differentiates the fused ops through
+`torch.autograd.Function`s whose backwards are the JAX custom VJPs' math in
+plain torch ops, in the forward's operand dtypes with fp32 accumulation:
+`attention_stage_ad` / `attention_stage_dp_ad` (`_stage_bwd_impl`: LN1 and
+qkv recomputed, the attention core through `fused_attention_qkv` and
+`fused_attention_qkv_bwd`) and `attention_block_ad`
+(`_attention_block_p_bwd`). The DropPath scale gets no gradient.
 
 `fused_attention_packed` and `fused_attention` are the counterparts of the
 JAX package's public ops of the same names: softmax attention from separate
@@ -29,19 +51,26 @@ between the two: a CUDA input the kernel does not take raises.
 """
 
 import ctypes
+import os
 
 import torch
 
 from d3dp_tpu_torch.ops import _build
-from d3dp_tpu_torch.ops.common import layer_norm_rows, matmul_f32acc as _mm
+from d3dp_tpu_torch.ops.common import layer_norm_rows, matmul_f32acc as _mm, matmul_f32out
+from d3dp_tpu_torch.ops.norm import ln_bwd_rows, ln_stats
 
 HEAD_DIM = 64
 MAX_TOKENS = 256
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIG = [_P] * 13 + [_I, _I, _I, _I, _F, _F, _P]
+_SIG_DP = [_P] * 14 + [_I, _I, _I, _I, _F, _F, _P]
 _FN = {torch.bfloat16: "d3dp_attention_stage_bf16",
        torch.float32: "d3dp_attention_stage_f32"}
+_DP_FN = {torch.bfloat16: "d3dp_attention_stage_dp_bf16",
+          torch.float32: "d3dp_attention_stage_dp_f32"}
+_HM_FN = {torch.bfloat16: "d3dp_attention_stage_hm_bf16",
+          torch.float32: "d3dp_attention_stage_hm_f32"}
 _SIG_FWD = [_P, _P, _I, _I, _I, _I, _F, _P]
 _SIG_BWD = [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
 _QKV_FN = {torch.bfloat16: ("d3dp_attention_qkv_fwd_bf16", "d3dp_attention_qkv_bwd_bf16"),
@@ -52,6 +81,69 @@ _PACKED_FN = {torch.bfloat16: "d3dp_attention_packed_bf16",
 _SIG_BLOCK = [_P] * 9 + [_I, _I, _I, _I, _F, _F, _P]
 _BLOCK_FN = {torch.bfloat16: "d3dp_attention_block_bf16",
              torch.float32: "d3dp_attention_block_f32"}
+
+
+# ------------------------------------------------------------- lab switches
+def stage_variant(n_tokens=None):
+    """The attention-stage variant the JAX package's `_stage_variant` picks
+    for a stage of n_tokens tokens: the per-stage `D3DP_ATTN_VARIANT_T`
+    (n_tokens >= 128) or `D3DP_ATTN_VARIANT_S` first (an empty value pins
+    the default), then `D3DP_ATTN_VARIANT`, else "batched" for the temporal
+    stage and "" for the spatial one; without n_tokens the global switch."""
+    if n_tokens is not None:
+        v = os.environ.get("D3DP_ATTN_VARIANT_T" if n_tokens >= 128 else "D3DP_ATTN_VARIANT_S")
+        if v is not None:
+            return v
+        v = os.environ.get("D3DP_ATTN_VARIANT")
+        if v is not None:
+            return v
+        return "batched" if n_tokens >= 128 else ""
+    return os.environ.get("D3DP_ATTN_VARIANT", "")
+
+
+def spatial_group():
+    """`D3DP_SPATIAL_GROUP` as the JAX package reads it (0 when unset)."""
+    v = os.environ.get("D3DP_SPATIAL_GROUP", "")
+    return int(v) if v else 0
+
+
+def not_ported(what):
+    return NotImplementedError(f"{what} is not ported yet: d3dp_tpu_torch has no kernel "
+                               "for this lab switch of the JAX package")
+
+
+def check_softmax_fold(dtype):
+    """The bf16 stage kernels fold 1/l into the attention output unless
+    `D3DP_SOFTMAX_FOLD` is other than 1 (JAX `_attn_stage_kernel`)."""
+    v = os.environ.get("D3DP_SOFTMAX_FOLD", "1")
+    if dtype == torch.bfloat16 and v != "1":
+        raise not_ported(f"D3DP_SOFTMAX_FOLD={v}")
+
+
+# the variants that compute the production per-head math
+_K1_VARIANTS = ("", "loop", "batched")
+
+
+def stage_kernel(x, dp=False):
+    """The stage kernel the lab switches select for x (R, N, C), as the JAX
+    package's `_attention_stage_fwd` selects it: "packed" (K1) or
+    "head_major" (K8). The DropPath form (dp=True) runs K1 whatever the
+    variant, except bf16exp in bf16. Raises for what is not ported."""
+    R, N = x.shape[0], x.shape[1]
+    check_softmax_fold(x.dtype)
+    v = stage_variant(N)
+    if dp:
+        if v == "bf16exp" and x.dtype == torch.bfloat16:
+            raise not_ported(f"the attention-stage variant {v!r}")
+        return "packed"
+    g = spatial_group()
+    if g > 1 and N <= 32 and R % g == 0:
+        raise not_ported(f"D3DP_SPATIAL_GROUP={g} (grouped spatial attention)")
+    if v == "hmqkv":
+        return "head_major"
+    if v not in _K1_VARIANTS:
+        raise not_ported(f"the attention-stage variant {v!r}")
+    return "packed"
 
 
 def _split(t, parts, num_heads):
@@ -67,21 +159,20 @@ def _merge(*xs):
     return torch.stack(xs, dim=2).permute(0, 3, 2, 1, 4).reshape(R, N, len(xs) * h * d)
 
 
-def attention_stage_plain(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
-                          num_heads, scale, eps):
-    """Plain torch ops, in the order of the TPU kernel's production math.
+def stack_head_major(wqkv, bqkv, num_heads):
+    """qkv weights (C, 3C) and bias (3C,) -> the head-major stacks of the
+    `hmqkv` variant, (h, C, 3d) and (h, 1, 3d): head i's q, k and v columns
+    side by side (JAX `_attention_stage_fwd`, `:789-799`). Differentiable."""
+    C = wqkv.shape[0]
+    d = C // num_heads
+    w = wqkv.reshape(C, 3, num_heads, d).permute(2, 0, 1, 3).reshape(num_heads, C, 3 * d)
+    b = bqkv.reshape(3, num_heads, d).permute(1, 0, 2).reshape(num_heads, 1, 3 * d)
+    return w.contiguous(), b.contiguous()
 
-    x: (R, N, C) in the compute dtype (fp32 or bf16); wqkv (C, 3C) and
-    wp (C, C) in the compute dtype; biases and LN params fp32.
-    fp32: p is divided by l before P.V. bf16: qkv rounds to bf16 after its
-    bias, P.V runs on bf16 p with 1/l folded into the output, and the
-    attention output rounds to bf16 before the projection.
-    """
-    dt = x.dtype
-    x32 = x.float()
-    y1 = layer_norm_rows(x32, ln1_s, ln1_b, eps)
-    qkv = (_mm(y1.to(dt), wqkv) + bqkv.float()).to(dt)
-    q, k, v = _split(qkv, 3, num_heads)
+
+def _stage_tail_plain(x32, q, k, v, wp, bp, ln2_s, ln2_b, scale, eps, dt, dp_row):
+    """Attention from (R, h, N, d) q, k, v in the stage kernels' order, then
+    the out-projection, the (DropPath-scaled) residual and LN2."""
     s = _mm(q, k.transpose(-1, -2)) * scale
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -91,9 +182,51 @@ def attention_stage_plain(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
     else:
         o = _mm(p.to(dt), v) * (1.0 / l)
     branch = _mm(_merge(o.to(dt)), wp) + bp.float()
+    if dp_row is not None:
+        branch = branch * dp_row.float()[:, None, None]
     x2 = x32 + branch
     y2 = layer_norm_rows(x2, ln2_s, ln2_b, eps)
     return x2.to(dt), y2.to(dt)
+
+
+def attention_stage_plain(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
+                          num_heads, scale, eps, dp_row=None):
+    """Plain torch ops, in the order of the TPU kernel's production math.
+
+    x: (R, N, C) in the compute dtype (fp32 or bf16); wqkv (C, 3C) and
+    wp (C, C) in the compute dtype; biases and LN params fp32.
+    fp32: p is divided by l before P.V. bf16: qkv rounds to bf16 after its
+    bias, P.V runs on bf16 p with 1/l folded into the output, and the
+    attention output rounds to bf16 before the projection. dp_row (R,)
+    fp32: the DropPath form's branch scales.
+    """
+    dt = x.dtype
+    x32 = x.float()
+    y1 = layer_norm_rows(x32, ln1_s, ln1_b, eps)
+    qkv = (_mm(y1.to(dt), wqkv) + bqkv.float()).to(dt)
+    q, k, v = _split(qkv, 3, num_heads)
+    return _stage_tail_plain(x32, q, k, v, wp, bp, ln2_s, ln2_b, scale, eps, dt, dp_row)
+
+
+def attention_stage_dp_plain(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b, dp_row,
+                             num_heads, scale, eps):
+    """`attention_stage_plain` with the branch scaled by dp_row (R,)."""
+    return attention_stage_plain(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
+                                 num_heads, scale, eps, dp_row=dp_row)
+
+
+def attention_stage_hm_plain(x, wqkv_hm, bqkv_hm, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
+                             num_heads, scale, eps):
+    """Plain torch ops of the head-major stage (`_attn_stage_kernel_hm`):
+    per-head qkv projections from the (h, C, 3d) stack, rounded to the
+    compute dtype after their bias, then the stage's attention and tail."""
+    dt = x.dtype
+    x32 = x.float()
+    y1 = layer_norm_rows(x32, ln1_s, ln1_b, eps).to(dt)
+    qkv = torch.stack([(_mm(y1, wqkv_hm[i]) + bqkv_hm[i].float()).to(dt)
+                       for i in range(num_heads)], dim=1)  # (R, h, N, 3d)
+    q, k, v = qkv.chunk(3, dim=-1)
+    return _stage_tail_plain(x32, q, k, v, wp, bp, ln2_s, ln2_b, scale, eps, dt, None)
 
 
 def _check_rows(x, num_heads, what, fns):
@@ -114,42 +247,92 @@ def _check_rows(x, num_heads, what, fns):
     return R, N, C
 
 
-def attention_stage(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
-                    num_heads, scale, eps):
-    """(x2, y2) of the attention stage; see the module docstring."""
-    if x.device.type == "cpu":
-        return attention_stage_plain(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b,
-                                     ln2_s, ln2_b, num_heads, scale, eps)
-    R, N, C = _check_rows(x, num_heads, "attention_stage", _FN)
+def _launch_stage(what, fns, sig, x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
+                  dp_row, num_heads, scale, eps, head_major=False):
+    """Check the operands of one of the stage's three forms and launch it;
+    returns (x2, y2)."""
+    R, N, C = _check_rows(x, num_heads, what, fns)
     dt = x.dtype
     dev = x.device
     f32 = torch.float32
-    for t, name, dtype, shape in (
-            (x, "x", dt, (R, N, C)), (wqkv, "wqkv", dt, (C, 3 * C)),
-            (bqkv, "bqkv", f32, (3 * C,)), (wp, "wp", dt, (C, C)),
-            (bp, "bp", f32, (C,)), (ln1_s, "ln1_s", f32, (C,)),
-            (ln1_b, "ln1_b", f32, (C,)), (ln2_s, "ln2_s", f32, (C,)),
-            (ln2_b, "ln2_b", f32, (C,))):
+    d3 = 3 * HEAD_DIM
+    wshape, bshape = ((num_heads, C, d3), (num_heads, 1, d3)) if head_major else \
+        ((C, 3 * C), (3 * C,))
+    checks = [(x, "x", dt, (R, N, C)), (wqkv, "wqkv", dt, wshape), (bqkv, "bqkv", f32, bshape),
+              (wp, "wp", dt, (C, C)), (bp, "bp", f32, (C,)), (ln1_s, "ln1_s", f32, (C,)),
+              (ln1_b, "ln1_b", f32, (C,)), (ln2_s, "ln2_s", f32, (C,)),
+              (ln2_b, "ln2_b", f32, (C,))]
+    if dp_row is not None:
+        checks.append((dp_row, "dp_row", f32, (R,)))
+    for t, name, dtype, shape in checks:
         _build.check_operand(t, name, dtype, shape, dev)
-    qkv = torch.empty((R, N, 3 * C), dtype=dt, device=dev)
+    qkv = torch.empty((R, N, 3 * C), dtype=dt, device=dev)  # (h, R*N, 3d) when head-major
     o = torch.empty((R, N, C), dtype=dt, device=dev)
     x2 = torch.empty_like(x)
     y2 = torch.empty_like(x)
-    lib = _build.load("attention_stage", {fn: _SIG for fn in _FN.values()})
+    lib = _build.load("attention_stage", {**{fn: _SIG for fn in _FN.values()},
+                                          **{fn: _SIG for fn in _HM_FN.values()},
+                                          **{fn: _SIG_DP for fn in _DP_FN.values()}})
+    weights = [x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b]
+    ptrs = [t.data_ptr() for t in weights + ([dp_row] if dp_row is not None else [])]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, _FN[dt])(
-            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wp.data_ptr(),
-            bp.data_ptr(), ln1_s.data_ptr(), ln1_b.data_ptr(),
-            ln2_s.data_ptr(), ln2_b.data_ptr(), qkv.data_ptr(), o.data_ptr(),
-            x2.data_ptr(), y2.data_ptr(), R, N, C, num_heads, float(scale),
-            float(eps), stream)
-    _build.check(err, "attention_stage")
-    attention_stage.launches += 1
+        err = getattr(lib, fns[dt])(*ptrs, qkv.data_ptr(), o.data_ptr(), x2.data_ptr(),
+                                    y2.data_ptr(), R, N, C, num_heads, float(scale), float(eps),
+                                    stream)
+    _build.check(err, what)
     return x2, y2
 
 
+def attention_stage(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
+                    num_heads, scale, eps):
+    """(x2, y2) of the attention stage; see the module docstring. Under the
+    `hmqkv` variant it stacks the weights head-major and runs
+    `attention_stage_hm`, as the JAX package does."""
+    if stage_kernel(x) == "head_major":
+        return attention_stage_hm(x, *stack_head_major(wqkv, bqkv, num_heads), wp, bp, ln1_s,
+                                  ln1_b, ln2_s, ln2_b, num_heads, scale, eps)
+    if x.device.type == "cpu":
+        return attention_stage_plain(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b,
+                                     ln2_s, ln2_b, num_heads, scale, eps)
+    out = _launch_stage("attention_stage", _FN, _SIG, x, wqkv, bqkv, wp, bp, ln1_s, ln1_b,
+                        ln2_s, ln2_b, None, num_heads, scale, eps)
+    attention_stage.launches += 1
+    return out
+
+
+def attention_stage_dp(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b, dp_row,
+                       num_heads, scale, eps):
+    """(x2, y2) of the attention stage with the branch, projection bias
+    included, scaled by dp_row (R,) fp32 before the residual add."""
+    stage_kernel(x, dp=True)
+    if x.device.type == "cpu":
+        return attention_stage_dp_plain(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
+                                        dp_row, num_heads, scale, eps)
+    out = _launch_stage("attention_stage_dp", _DP_FN, _SIG_DP, x, wqkv, bqkv, wp, bp, ln1_s,
+                        ln1_b, ln2_s, ln2_b, dp_row, num_heads, scale, eps)
+    attention_stage_dp.launches += 1
+    return out
+
+
+def attention_stage_hm(x, wqkv_hm, bqkv_hm, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
+                       num_heads, scale, eps):
+    """(x2, y2) of the head-major attention stage (the `hmqkv` variant's
+    kernel): qkv weights (h, C, 3d) and bias (h, 1, 3d) from
+    `stack_head_major`, the rest as `attention_stage`."""
+    check_softmax_fold(x.dtype)
+    if x.device.type == "cpu":
+        return attention_stage_hm_plain(x, wqkv_hm, bqkv_hm, wp, bp, ln1_s, ln1_b, ln2_s,
+                                        ln2_b, num_heads, scale, eps)
+    out = _launch_stage("attention_stage_hm", _HM_FN, _SIG, x, wqkv_hm, bqkv_hm, wp, bp, ln1_s,
+                        ln1_b, ln2_s, ln2_b, None, num_heads, scale, eps, head_major=True)
+    attention_stage_hm.launches += 1
+    return out
+
+
 attention_stage.launches = 0
+attention_stage_dp.launches = 0
+attention_stage_hm.launches = 0
 
 
 # ----------------------------------------------------- training attention core
@@ -285,6 +468,101 @@ def fused_attention_qkv_ad(qkv, num_heads, scale):
     return _FusedAttentionQKV.apply(qkv, num_heads, scale)
 
 
+# ------------------------------------------------- the stage's backward (training)
+def attention_stage_bwd(x, wqkv, bqkv, wp, ln1_s, ln1_b, ln2_s, x2, gx2, gy2, num_heads,
+                        scale, eps, dp_row=None):
+    """Gradients of `attention_stage` (or `attention_stage_dp`) given those
+    of (x2, y2): the JAX package's `_stage_bwd_impl` in plain torch ops.
+    LN1 and the qkv projection are recomputed (qkv in the compute dtype
+    with its bias added there, as the JAX backward does), the attention core
+    through `fused_attention_qkv` and `fused_attention_qkv_bwd`; matrix
+    products take the compute-dtype operands and accumulate in fp32. With
+    dp_row the branch-side cotangent is dp_row * ds while the residual's
+    stays unscaled. Returns (dx, dwqkv, dbqkv, dwp, dbp, dln1_s, dln1_b,
+    dln2_s, dln2_b); weight and bias gradients in the dtype of wqkv / wp,
+    as the JAX VJP returns them."""
+    R, N, C = x.shape
+    g = spatial_group()
+    if g > 1 and N <= 32 and R % g == 0:
+        raise NotImplementedError("D3DP_SPATIAL_GROUP is an eval/sampling-path optimization; "
+                                  "the stage backward recomputes ungrouped attention -- unset "
+                                  "it for training")
+    md = x.dtype
+    f32 = torch.float32
+    xhat, rstd = ln_stats(x.float().reshape(R * N, C), eps)
+    y1 = (xhat * ln1_s.float() + ln1_b.float()).to(md)
+    qkv = (matmul_f32out(y1, wqkv).to(md) + bqkv.to(md)).reshape(R, N, 3 * C)
+    a = fused_attention_qkv(qkv, num_heads, scale)
+
+    ds, dln2_s, dln2_b = ln_bwd_rows(x2.reshape(R * N, C).float(), ln2_s,
+                                     gy2.reshape(R * N, C), eps)
+    if gx2 is not None:
+        ds = ds + gx2.reshape(R * N, C).float()
+    # x2 = x + [dp *] (a @ wp + bp)
+    ds_b = ds if dp_row is None else ds * dp_row.float().repeat_interleave(N)[:, None]
+    ds_m = ds_b.to(md)
+    dwp = matmul_f32out(a.reshape(R * N, C).to(md).t(), ds_m).to(wp.dtype)
+    dbp = ds_b.sum(dim=0).to(wp.dtype)
+    da = matmul_f32out(ds_m, wp.t()).to(qkv.dtype).reshape(R, N, C)
+    dqkv = fused_attention_qkv_bwd(qkv, da, num_heads, scale)
+
+    dqkv_m = dqkv.reshape(R * N, 3 * C).to(md)
+    dbqkv = dqkv_m.to(f32).sum(dim=0).to(wqkv.dtype)
+    dwqkv = matmul_f32out(y1.t(), dqkv_m).to(wqkv.dtype)
+    dy1 = matmul_f32out(dqkv_m, wqkv.t())
+
+    # LN1 backward on the recomputed statistics
+    gs1 = dy1 * ln1_s.float()
+    dx1 = rstd * (gs1 - gs1.mean(dim=-1, keepdim=True)
+                  - xhat * (gs1 * xhat).mean(dim=-1, keepdim=True))
+    dln1_s = (dy1 * xhat).sum(dim=0).to(ln1_s.dtype)
+    dln1_b = dy1.sum(dim=0).to(ln1_s.dtype)
+    dx = (ds + dx1).reshape(R, N, C).to(x.dtype)
+    return (dx, dwqkv, dbqkv, dwp, dbp, dln1_s, dln1_b, dln2_s.to(ln2_s.dtype),
+            dln2_b.to(ln2_s.dtype))
+
+
+class _AttentionStage(torch.autograd.Function):
+    """Forward: `attention_stage` (K1, or K8 under `hmqkv`) or, with dp_row,
+    `attention_stage_dp`; backward: `attention_stage_bwd` (the JAX
+    `attention_stage_p` / `attention_stage_dp_p` custom VJPs)."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b, dp_row, num_heads,
+                scale, eps):
+        if dp_row is None:
+            x2, y2 = attention_stage(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
+                                     num_heads, scale, eps)
+        else:
+            x2, y2 = attention_stage_dp(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
+                                        dp_row, num_heads, scale, eps)
+        ctx.save_for_backward(x, wqkv, bqkv, wp, ln1_s, ln1_b, ln2_s, x2, dp_row)
+        ctx.cfg = (num_heads, scale, eps)
+        return x2, y2
+
+    @staticmethod
+    def backward(ctx, gx2, gy2):
+        x, wqkv, bqkv, wp, ln1_s, ln1_b, ln2_s, x2, dp_row = ctx.saved_tensors
+        grads = attention_stage_bwd(x, wqkv, bqkv, wp, ln1_s, ln1_b, ln2_s, x2, gx2, gy2,
+                                    *ctx.cfg, dp_row=dp_row)
+        return (*grads, None, None, None, None)
+
+
+def attention_stage_ad(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b, num_heads, scale,
+                       eps):
+    """Differentiable `attention_stage` (the JAX `attention_stage_p`)."""
+    return _AttentionStage.apply(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b, None,
+                                 num_heads, scale, eps)
+
+
+def attention_stage_dp_ad(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b, dp_row, num_heads,
+                          scale, eps):
+    """Differentiable `attention_stage_dp` (the JAX `attention_stage_dp_p`);
+    dp_row gets no gradient."""
+    return _AttentionStage.apply(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b, dp_row,
+                                 num_heads, scale, eps)
+
+
 # ------------------------------------------------------------ attention block
 def attention_block_plain(qkv, res, w, b, ln_s, ln_b, num_heads, scale, eps):
     """Plain torch ops in the TPU kernel's order (`_attn_block_kernel`): the
@@ -328,6 +606,44 @@ def attention_block(qkv, res, w, b, ln_s, ln_b, num_heads, scale, eps):
 
 
 attention_block.launches = 0
+
+
+class _AttentionBlock(torch.autograd.Function):
+    """Forward: `attention_block`; backward: the JAX package's
+    `_attention_block_p_bwd` in plain torch ops (the attention recomputed
+    by `fused_attention_qkv`, the projection and LN2 chain with fp32
+    operands, d(qkv) from `fused_attention_qkv_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, qkv, res, w, b, ln_s, ln_b, num_heads, scale, eps):
+        x2, y2 = attention_block(qkv, res, w, b, ln_s, ln_b, num_heads, scale, eps)
+        ctx.save_for_backward(qkv, res, w, ln_s, x2)
+        ctx.cfg = (num_heads, scale, eps)
+        return x2, y2
+
+    @staticmethod
+    def backward(ctx, gx2, gy2):
+        qkv, res, w, ln_s, x2 = ctx.saved_tensors
+        num_heads, scale, eps = ctx.cfg
+        R, N, C = x2.shape
+        ds, dln_s, dln_b = ln_bwd_rows(x2.reshape(R * N, C).float(), ln_s,
+                                       gy2.reshape(R * N, C), eps)
+        if gx2 is not None:
+            ds = ds + gx2.reshape(R * N, C).float()
+        # x2 = res + (a @ w + b)
+        dres = ds.to(res.dtype).reshape(R, N, C)
+        a = fused_attention_qkv(qkv, num_heads, scale)
+        dw = torch.matmul(a.reshape(R * N, C).float().t(), ds).to(w.dtype)
+        db = ds.sum(dim=0).to(w.dtype)
+        da = torch.matmul(ds, w.float().t()).to(qkv.dtype).reshape(R, N, C)
+        dqkv = fused_attention_qkv_bwd(qkv, da, num_heads, scale)
+        return (dqkv, dres, dw, db, dln_s.to(ln_s.dtype), dln_b.to(ln_s.dtype),
+                None, None, None)
+
+
+def attention_block_ad(qkv, res, w, b, ln_s, ln_b, num_heads, scale, eps):
+    """Differentiable `attention_block` (the JAX `attention_block_p`)."""
+    return _AttentionBlock.apply(qkv, res, w, b, ln_s, ln_b, num_heads, scale, eps)
 
 
 # ------------------------------------------------------- packed-heads attention

@@ -2,10 +2,15 @@
 //   y1 = LN1(x); qkv = y1 @ Wqkv + bqkv; o = softmax(q k^T * scale) v per head;
 //   x2 = x + (o @ Wp + bp); y2 = LN2(x2).     Writes x2 and y2.
 //
-// Replaces the TPU kernel d3dp_tpu/ops/attention.py `_attn_stage_kernel`
-// (launcher `_attention_stage_fwd`), the production per-head math; its lab
-// schedules (batched, pipelined, phasesplit, bf16exp, noy2, grouped spatial)
-// are not ported.
+// Replaces the TPU kernels d3dp_tpu/ops/attention.py `_attn_stage_kernel`
+// (launcher `_attention_stage_fwd`), the production per-head math, with its
+// DropPath input (`has_dp`, API `attention_stage_dp_p`: the branch,
+// projection bias included, scaled per sequence in fp32 before the residual
+// add; entry points `d3dp_attention_stage_dp_*`), and `_attn_stage_kernel_hm`
+// (the `hmqkv` variant: qkv weights stacked head-major (h, C, 3d) outside
+// the kernel; entry points `d3dp_attention_stage_hm_*`). `batched` computes
+// the production math and runs this kernel too; the other lab schedules
+// (pipelined, phasesplit, bf16exp, noy2, grouped spatial) are not ported.
 //
 // What bounds it on the H100: the two projections (2*T*C*3C + 2*T*C*C FLOPs
 // over T tokens) dominate; attention adds 4*T*N*C. At the MixSTE shapes
@@ -33,27 +38,53 @@
 //                common.cuh, shared with attention_block.cu).
 // The split costs extra device-memory traffic (qkv and o written and read
 // back, x read twice); fusing the stage into one pass is later work.
+//
+// DropPath form: proj_ln2 scales each token row's branch by dp[row / N].
+// Head-major form: ln_qkv writes qkv head-major, (h, R*N, 3d) (each 64-column
+// step of the (h, C, 3d) weights covers the same columns, in the same k
+// order, as the packed step for them), and attend reads head h's q, k and v
+// from its slab with row stride 3d. Same products in the same order as the
+// packed stage, so the two forms agree bit for bit.
 #include "common.cuh"
 
 namespace d3dp {
 
 // ---------------------------------------------------------------- 1. LN1 + qkv
 // `ln_qkv_tile` (common.cuh, shared with resident.cu), one row block a block.
-template <typename T>
+template <typename T, bool kHeadMajor>
 __global__ void __launch_bounds__(kThreads)
 ln_qkv_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
               const float* __restrict__ bqkv, const float* __restrict__ ln1s,
               const float* __restrict__ ln1b, T* __restrict__ qkv, int M, int C, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  ln_qkv_tile<T>(x, wqkv, bqkv, ln1s, ln1b, qkv, M, C, eps, smem, blockIdx.x);
+  ln_qkv_tile<T, kHeadMajor>(x, wqkv, bqkv, ln1s, ln1b, qkv, M, C, eps, smem, blockIdx.x);
+}
+
+// ------------------------------------------------- 2. attention (head-major)
+// grid (sequence, head, query block) over the (h, M, 3d) qkv: head h's slab
+// starts at h * M * 3d. attend_tile adds h * kHeadDim to its input offset
+// (the head's column in the packed layout), which a slab does not have, so
+// the slab pointer is taken back by it.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attend_hm_kernel(const T* __restrict__ qkv_hm, T* __restrict__ out, int M, int N, int C,
+                 float scale, AttnLayout L) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int d3 = 3 * kHeadDim;
+  const int h = blockIdx.y;
+  const T* q = qkv_hm + (size_t)h * M * d3 - h * kHeadDim;
+  attend_tile<T, false>(q, q + kHeadDim, q + 2 * kHeadDim, d3, out, N, C, scale, L, smem,
+                        blockIdx.x, h, blockIdx.z);
 }
 
 // ---------------------------------------------------------------- host entry
-template <typename T>
+// dp: nullptr, or R fp32 branch scales (one per sequence). kHeadMajor: wqkv
+// (h, C, 3d), bqkv (h, 3d) and the qkv scratch (h, R*N, 3d).
+template <typename T, bool kHeadMajor>
 int attention_stage(const void* x, const void* wqkv, const void* bqkv, const void* wp,
                     const void* bp, const void* ln1s, const void* ln1b, const void* ln2s,
-                    const void* ln2b, void* qkv, void* o, void* x2, void* y2, int R, int N,
-                    int C, int heads, float scale, float eps, void* stream_) {
+                    const void* ln2b, const void* dp, void* qkv, void* o, void* x2, void* y2,
+                    int R, int N, int C, int heads, float scale, float eps, void* stream_) {
   if (R < 1 || N < 1 || N > kMaxKeys || C % 64 != 0 || C > 1024 || heads * kHeadDim != C ||
       R > 0x7fffffff / N || heads > 65535)
     return (int)cudaErrorInvalidValue;
@@ -63,42 +94,81 @@ int attention_stage(const void* x, const void* wqkv, const void* bqkv, const voi
   cudaError_t e;
 
   const size_t s1 = ln_qkv_smem<T>(C);
-  if ((e = cudaFuncSetAttribute(ln_qkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)s1)) != cudaSuccess)
+  if ((e = cudaFuncSetAttribute(ln_qkv_kernel<T, kHeadMajor>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1)) !=
+      cudaSuccess)
     return (int)e;
-  ln_qkv_kernel<T><<<cdiv(M, BM), kThreads, s1, stream>>>(
+  ln_qkv_kernel<T, kHeadMajor><<<cdiv(M, BM), kThreads, s1, stream>>>(
       (const T*)x, (const T*)wqkv, (const float*)bqkv, (const float*)ln1s, (const float*)ln1b,
       (T*)qkv, M, C, eps);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  if ((e = launch_attend_packed<T, false>((const T*)qkv, (T*)o, R, N, C, heads, scale,
-                                          stream)) != cudaSuccess)
-    return (int)e;
+  if constexpr (kHeadMajor) {
+    const AttnLayout L = attn_layout<T>(N);
+    if ((e = cudaFuncSetAttribute(attend_hm_kernel<T>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total)) !=
+        cudaSuccess)
+      return (int)e;
+    attend_hm_kernel<T><<<dim3(R, heads, cdiv(N, L.QB)), kThreads, L.total, stream>>>(
+        (const T*)qkv, (T*)o, M, N, C, scale, L);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  } else {
+    if ((e = launch_attend_packed<T, false>((const T*)qkv, (T*)o, R, N, C, heads, scale,
+                                            stream)) != cudaSuccess)
+      return (int)e;
+  }
   return (int)launch_proj_ln2<T>((const T*)o, (const T*)x, (const T*)wp, (const float*)bp,
                                  (const float*)ln2s, (const float*)ln2b, (T*)x2, (T*)y2, M, C,
-                                 eps, stream);
+                                 eps, stream, (const float*)dp, N);
 }
 
 }  // namespace d3dp
 
+#define D3DP_STAGE_ARGS                                                                         \
+  const void *x, const void *wqkv, const void *bqkv, const void *wp, const void *bp,           \
+      const void *ln1s, const void *ln1b, const void *ln2s, const void *ln2b
+#define D3DP_STAGE_TAIL                                                                         \
+  void *qkv, void *o, void *x2, void *y2, int R, int N, int C, int heads, float scale,         \
+      float eps, void *stream
+
 extern "C" {
 
-int d3dp_attention_stage_bf16(const void* x, const void* wqkv, const void* bqkv, const void* wp,
-                              const void* bp, const void* ln1s, const void* ln1b,
-                              const void* ln2s, const void* ln2b, void* qkv, void* o, void* x2,
-                              void* y2, int R, int N, int C, int heads, float scale, float eps,
-                              void* stream) {
-  return d3dp::attention_stage<d3dp::bf16>(x, wqkv, bqkv, wp, bp, ln1s, ln1b, ln2s, ln2b, qkv,
-                                           o, x2, y2, R, N, C, heads, scale, eps, stream);
+// K1: x (R, N, C); wqkv (C, 3C); qkv scratch (R, N, 3C).
+int d3dp_attention_stage_bf16(D3DP_STAGE_ARGS, D3DP_STAGE_TAIL) {
+  return d3dp::attention_stage<d3dp::bf16, false>(x, wqkv, bqkv, wp, bp, ln1s, ln1b, ln2s, ln2b,
+                                                  nullptr, qkv, o, x2, y2, R, N, C, heads,
+                                                  scale, eps, stream);
 }
 
-int d3dp_attention_stage_f32(const void* x, const void* wqkv, const void* bqkv, const void* wp,
-                             const void* bp, const void* ln1s, const void* ln1b,
-                             const void* ln2s, const void* ln2b, void* qkv, void* o, void* x2,
-                             void* y2, int R, int N, int C, int heads, float scale, float eps,
-                             void* stream) {
-  return d3dp::attention_stage<float>(x, wqkv, bqkv, wp, bp, ln1s, ln1b, ln2s, ln2b, qkv, o,
-                                      x2, y2, R, N, C, heads, scale, eps, stream);
+int d3dp_attention_stage_f32(D3DP_STAGE_ARGS, D3DP_STAGE_TAIL) {
+  return d3dp::attention_stage<float, false>(x, wqkv, bqkv, wp, bp, ln1s, ln1b, ln2s, ln2b,
+                                             nullptr, qkv, o, x2, y2, R, N, C, heads, scale, eps,
+                                             stream);
+}
+
+// K1 with DropPath: dp (R,) fp32.
+int d3dp_attention_stage_dp_bf16(D3DP_STAGE_ARGS, const void* dp, D3DP_STAGE_TAIL) {
+  return d3dp::attention_stage<d3dp::bf16, false>(x, wqkv, bqkv, wp, bp, ln1s, ln1b, ln2s, ln2b,
+                                                  dp, qkv, o, x2, y2, R, N, C, heads, scale, eps,
+                                                  stream);
+}
+
+int d3dp_attention_stage_dp_f32(D3DP_STAGE_ARGS, const void* dp, D3DP_STAGE_TAIL) {
+  return d3dp::attention_stage<float, false>(x, wqkv, bqkv, wp, bp, ln1s, ln1b, ln2s, ln2b, dp,
+                                             qkv, o, x2, y2, R, N, C, heads, scale, eps, stream);
+}
+
+// K8: wqkv (h, C, 3d), bqkv (h, 1, 3d); qkv scratch (h, R*N, 3d).
+int d3dp_attention_stage_hm_bf16(D3DP_STAGE_ARGS, D3DP_STAGE_TAIL) {
+  return d3dp::attention_stage<d3dp::bf16, true>(x, wqkv, bqkv, wp, bp, ln1s, ln1b, ln2s, ln2b,
+                                                 nullptr, qkv, o, x2, y2, R, N, C, heads, scale,
+                                                 eps, stream);
+}
+
+int d3dp_attention_stage_hm_f32(D3DP_STAGE_ARGS, D3DP_STAGE_TAIL) {
+  return d3dp::attention_stage<float, true>(x, wqkv, bqkv, wp, bp, ln1s, ln1b, ln2s, ln2b,
+                                            nullptr, qkv, o, x2, y2, R, N, C, heads, scale, eps,
+                                            stream);
 }
 
 }  // extern "C"

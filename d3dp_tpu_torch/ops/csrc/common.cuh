@@ -437,11 +437,15 @@ cudaError_t launch_attend_packed(const T* qkv, T* out, int R, int N, int C, int 
 // rows; 32-token row blocks (16 in fp32): o @ Wp into an fp32 row buffer,
 // then the residual add and LN2 per row.
 // One tile: the row block `tile` (BM token rows from BM * tile).
+// DropPath: with dp, the branch (projection and its bias) of token row r is
+// scaled by dp[r / dp_div] in fp32 before the residual add (dp_div = N: one
+// scale per sequence); dp == nullptr leaves the arithmetic as it is without.
 template <typename T>
 __device__ __forceinline__ void proj_ln2_tile(const T* o, const T* x, const T* wp,
                                               const float* bp, const float* ln2s,
                                               const float* ln2b, T* x2, T* y2, int M, int C,
-                                              float eps, unsigned char* smem, int tile) {
+                                              float eps, unsigned char* smem, int tile,
+                                              const float* dp = nullptr, int dp_div = 1) {
   constexpr int BM = Cfg<T>::BM;
   const int lda = C + Cfg<T>::PAD;
   const int ldx = C + 4;
@@ -461,12 +465,15 @@ __device__ __forceinline__ void proj_ln2_tile(const T* o, const T* x, const T* w
     if (row >= M) continue;
     const T* xr = x + (size_t)row * C;
     T* x2r = x2 + (size_t)row * C;
+    const float keep = dp ? dp[row / dp_div] : 1.f;
     float v[32];
 #pragma unroll
     for (int k = 0; k < 32; ++k)
       if (k < C / 32) {
         const int c = 32 * k + lane;
-        v[k] = to_f(xr[c]) + (Xs[r * ldx + c] + bp[c]);  // x + (proj + bp)
+        const float branch = Xs[r * ldx + c] + bp[c];
+        // x + (proj + bp), or x + dp * (proj + bp) rounded apart (no FMA)
+        v[k] = dp ? to_f(xr[c]) + __fmul_rn(branch, keep) : to_f(xr[c]) + branch;
         x2r[c] = from_f<T>(v[k]);
       }
     warp_layernorm(v, C, ln2s, ln2b, eps, lane);
@@ -482,9 +489,9 @@ __global__ void __launch_bounds__(kThreads)
 proj_ln2_kernel(const T* __restrict__ o, const T* __restrict__ x, const T* __restrict__ wp,
                 const float* __restrict__ bp, const float* __restrict__ ln2s,
                 const float* __restrict__ ln2b, T* __restrict__ x2, T* __restrict__ y2, int M,
-                int C, float eps) {
+                int C, float eps, const float* __restrict__ dp, int dp_div) {
   extern __shared__ __align__(128) unsigned char smem[];
-  proj_ln2_tile<T>(o, x, wp, bp, ln2s, ln2b, x2, y2, M, C, eps, smem, blockIdx.x);
+  proj_ln2_tile<T>(o, x, wp, bp, ln2s, ln2b, x2, y2, M, C, eps, smem, blockIdx.x, dp, dp_div);
 }
 
 template <typename T>
@@ -493,17 +500,19 @@ size_t proj_ln2_smem(int C) {
          align128(sizeof(float) * Cfg<T>::BM * (C + 4));
 }
 
-// Launch proj_ln2_kernel over M token rows.
+// Launch proj_ln2_kernel over M token rows (dp, dp_div: see proj_ln2_tile).
 template <typename T>
 cudaError_t launch_proj_ln2(const T* o, const T* x, const T* wp, const float* bp,
                             const float* ln2s, const float* ln2b, T* x2, T* y2, int M, int C,
-                            float eps, cudaStream_t stream) {
+                            float eps, cudaStream_t stream, const float* dp = nullptr,
+                            int dp_div = 1) {
   const size_t smem = proj_ln2_smem<T>(C);
   cudaError_t e = cudaFuncSetAttribute(proj_ln2_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   proj_ln2_kernel<T><<<cdiv(M, Cfg<T>::BM), kThreads, smem, stream>>>(o, x, wp, bp, ln2s, ln2b,
-                                                                      x2, y2, M, C, eps);
+                                                                      x2, y2, M, C, eps, dp,
+                                                                      dp_div);
   return cudaGetLastError();
 }
 
@@ -513,7 +522,12 @@ cudaError_t launch_proj_ln2(const T* o, const T* x, const T* wp, const float* bp
 // `tile`: LN1 into shared memory, then the qkv projection in 64-column steps
 // on the tensor cores; qkv is rounded to the compute type after its bias (as
 // the TPU kernel does).
-template <typename T>
+// kHeadMajor (the head-major stage): Wqkv is stacked (h, C, 3d) and bqkv
+// (h, 3d), head h's q | k | v columns side by side, and qkv is written
+// head-major, (h, M, 3d). Each 64-column step then covers the same columns,
+// in the same k order, as the packed layout's step for them, so the values
+// are the packed ones, bit for bit.
+template <typename T, bool kHeadMajor = false>
 __device__ __forceinline__ void ln_qkv_tile(const T* x, const T* wqkv, const float* bqkv,
                                             const float* ln1s, const float* ln1b, T* qkv, int M,
                                             int C, float eps, unsigned char* smem, int tile) {
@@ -546,12 +560,24 @@ __device__ __forceinline__ void ln_qkv_tile(const T* x, const T* wqkv, const flo
 
   const int N3 = 3 * C;
   for (int n0 = 0; n0 < N3; n0 += kBN) {
-    gemm_rowblock(As, lda, wqkv + n0, N3, C, Bs, Cs, ldc);
+    // this step's weight columns (row stride ldw) and output columns (row
+    // stride ldq); the bias index is n0 + c in both layouts
+    const T* w = wqkv + n0;
+    T* q = qkv + n0;
+    int ldw = N3, ldq = N3;
+    if constexpr (kHeadMajor) {
+      constexpr int d3 = 3 * kHeadDim;
+      const int h = n0 / d3, c0 = n0 % d3;
+      w = wqkv + (size_t)h * C * d3 + c0;
+      q = qkv + (size_t)h * M * d3 + c0;
+      ldw = ldq = d3;
+    }
+    gemm_rowblock(As, lda, w, ldw, C, Bs, Cs, ldc);
     __syncthreads();
     for (int i = threadIdx.x; i < BM * kBN; i += kThreads) {
       const int r = i / kBN, c = i % kBN;
       if (row0 + r < M)
-        qkv[(size_t)(row0 + r) * N3 + n0 + c] = from_f<T>(Cs[r * ldc + c] + bqkv[n0 + c]);
+        q[(size_t)(row0 + r) * ldq + c] = from_f<T>(Cs[r * ldc + c] + bqkv[n0 + c]);
     }
   }
 }

@@ -37,12 +37,17 @@ struct MlpLayout {
 // kTranspose: token row t = (b, i, j) of (B, D1, D2) goes to output row
 // (b, j, i); otherwise to row t (D1, D2 unused). Pointers carry no
 // __restrict__ (see attend_tile in common.cuh).
+// DropPath: with dp, the branch (fc2 and its bias) of token row t is scaled
+// by dp[t / D2] in fp32 before the residual add: one scale per (b, i) of the
+// transposing form's (B, D1) and, with D2 = 1, one per row of the rows
+// form; dp == nullptr leaves the arithmetic as it is without.
 template <typename T, bool kTranspose>
 __device__ __forceinline__ void mlp_tile(const T* x, const T* res, const T* w1, const float* b1,
                                          const T* w2, const float* b2, const float* lns,
                                          const float* lnb, T* out, int D1, int D2, int M, int C,
                                          int H, float eps, const MlpLayout<T>& L,
-                                         unsigned char* smem, int tile) {
+                                         unsigned char* smem, int tile,
+                                         const float* dp = nullptr) {
   constexpr int BM = Cfg<T>::BM;
   constexpr int ldc = kBN + 4;
   T* As = reinterpret_cast<T*>(smem + L.a);
@@ -81,12 +86,15 @@ __device__ __forceinline__ void mlp_tile(const T* x, const T* res, const T* w1, 
       orow_idx = (size_t)(b * D2 + j) * D1 + i;
     }
     const T* rr = res + (size_t)t * C;
+    const float keep = dp ? dp[t / D2] : 1.f;
     float v[32];
 #pragma unroll
     for (int k = 0; k < 32; ++k)
       if (k < C / 32) {
         const int c = 32 * k + lane;
-        v[k] = to_f(rr[c]) + (Ss[r * L.lds + c] + b2[c]);  // res + (out + b2)
+        const float branch = Ss[r * L.lds + c] + b2[c];
+        // res + (out + b2), or res + dp * (out + b2) rounded apart (no FMA)
+        v[k] = dp ? to_f(rr[c]) + __fmul_rn(branch, keep) : to_f(rr[c]) + branch;
       }
     warp_layernorm(v, C, lns, lnb, eps, lane);
     T* orow = out + orow_idx * C;

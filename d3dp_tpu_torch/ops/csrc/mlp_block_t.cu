@@ -6,10 +6,12 @@
 //
 // Replaces the TPU kernels d3dp_tpu/ops/mlp.py `_mlp_block_t_kernel`
 // (launcher `_mlp_block_t_fwd`) and `_mlp_block_kernel` (launcher
-// `_mlp_block_fwd`, API `mlp_block_p`, fuse levels 1 and 2); their lab
-// switches (bf16gelu, nogelu) and the training-only DropPath input are not
-// ported. The GELU uses CUDA's erff where the TPU kernels evaluate the A&S
-// 7.1.26 polynomial (<=1.5e-7 abs).
+// `_mlp_block_fwd`, API `mlp_block_p`, fuse levels 1 and 2), with their
+// DropPath input (`has_dp`, APIs `mlp_block_t_dp_p` and `mlp_block_dp_p`):
+// a per-row fp32 scale of the branch, fc2's bias included, before the
+// residual add (the `*_dp_*` entry points). Their lab switches (bf16gelu,
+// nogelu) are not ported. The GELU uses CUDA's erff where the TPU kernels
+// evaluate the A&S 7.1.26 polynomial (<=1.5e-7 abs).
 //
 // What bounds both on the H100: 4*T*C*H FLOPs for T tokens against 3*T*C
 // activation elements moved (x, res in; y out) -- about 680 FLOPs per byte
@@ -35,16 +37,19 @@ mlp_block_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __
                    const float* __restrict__ b1, const T* __restrict__ w2,
                    const float* __restrict__ b2, const float* __restrict__ lns,
                    const float* __restrict__ lnb, T* __restrict__ out, int D1, int D2, int M,
-                   int C, int H, float eps, MlpLayout<T> L) {
+                   int C, int H, float eps, MlpLayout<T> L, const float* __restrict__ dp) {
   extern __shared__ __align__(128) unsigned char smem[];
   mlp_tile<T, kTranspose>(x, res, w1, b1, w2, b2, lns, lnb, out, D1, D2, M, C, H, eps, L, smem,
-                          blockIdx.x);
+                          blockIdx.x, dp);
 }
 
+// dp: nullptr, or B * D1 fp32 branch scales (the rows form passes D1 = R,
+// D2 = 1: one scale per row)
 template <typename T, bool kTranspose>
 int mlp_block_any(const void* x, const void* res, const void* w1, const void* b1,
-                  const void* w2, const void* b2, const void* lns, const void* lnb, void* out,
-                  int B, int D1, int D2, int C, int H, float eps, void* stream_) {
+                  const void* w2, const void* b2, const void* lns, const void* lnb,
+                  const void* dp, void* out, int B, int D1, int D2, int C, int H, float eps,
+                  void* stream_) {
   if (B < 1 || D1 < 1 || D2 < 1 || C % 64 != 0 || C > 1024 || H % 64 != 0 ||
       (long long)B * D1 * D2 > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -56,7 +61,8 @@ int mlp_block_any(const void* x, const void* res, const void* w1, const void* b1
   mlp_block_kernel<T, kTranspose><<<cdiv(M, Cfg<T>::BM), kThreads, L.total,
                                       static_cast<cudaStream_t>(stream_)>>>(
       (const T*)x, (const T*)res, (const T*)w1, (const float*)b1, (const T*)w2,
-      (const float*)b2, (const float*)lns, (const float*)lnb, (T*)out, D1, D2, M, C, H, eps, L);
+      (const float*)b2, (const float*)lns, (const float*)lnb, (T*)out, D1, D2, M, C, H, eps, L,
+      (const float*)dp);
   return (int)cudaGetLastError();
 }
 
@@ -68,31 +74,65 @@ int d3dp_mlp_block_t_bf16(const void* x, const void* res, const void* w1, const 
                           const void* w2, const void* b2, const void* lns, const void* lnb,
                           void* out, int B, int D1, int D2, int C, int H, float eps,
                           void* stream) {
-  return d3dp::mlp_block_any<d3dp::bf16, true>(x, res, w1, b1, w2, b2, lns, lnb, out, B, D1, D2,
-                                               C, H, eps, stream);
+  return d3dp::mlp_block_any<d3dp::bf16, true>(x, res, w1, b1, w2, b2, lns, lnb, nullptr, out,
+                                               B, D1, D2, C, H, eps, stream);
 }
 
 int d3dp_mlp_block_t_f32(const void* x, const void* res, const void* w1, const void* b1,
                          const void* w2, const void* b2, const void* lns, const void* lnb,
                          void* out, int B, int D1, int D2, int C, int H, float eps,
                          void* stream) {
-  return d3dp::mlp_block_any<float, true>(x, res, w1, b1, w2, b2, lns, lnb, out, B, D1, D2, C, H,
-                                          eps, stream);
+  return d3dp::mlp_block_any<float, true>(x, res, w1, b1, w2, b2, lns, lnb, nullptr, out, B, D1,
+                                          D2, C, H, eps, stream);
+}
+
+// K2 with DropPath: dp (B, D1) fp32.
+int d3dp_mlp_block_t_dp_bf16(const void* x, const void* res, const void* w1, const void* b1,
+                             const void* w2, const void* b2, const void* lns, const void* lnb,
+                             const void* dp, void* out, int B, int D1, int D2, int C, int H,
+                             float eps, void* stream) {
+  return d3dp::mlp_block_any<d3dp::bf16, true>(x, res, w1, b1, w2, b2, lns, lnb, dp, out, B, D1,
+                                               D2, C, H, eps, stream);
+}
+
+int d3dp_mlp_block_t_dp_f32(const void* x, const void* res, const void* w1, const void* b1,
+                            const void* w2, const void* b2, const void* lns, const void* lnb,
+                            const void* dp, void* out, int B, int D1, int D2, int C, int H,
+                            float eps, void* stream) {
+  return d3dp::mlp_block_any<float, true>(x, res, w1, b1, w2, b2, lns, lnb, dp, out, B, D1, D2,
+                                          C, H, eps, stream);
 }
 
 // K5: (R, C) rows in, (R, C) rows out.
 int d3dp_mlp_block_bf16(const void* x, const void* res, const void* w1, const void* b1,
                         const void* w2, const void* b2, const void* lns, const void* lnb,
                         void* out, int R, int C, int H, float eps, void* stream) {
-  return d3dp::mlp_block_any<d3dp::bf16, false>(x, res, w1, b1, w2, b2, lns, lnb, out, 1, R, 1,
-                                                C, H, eps, stream);
+  return d3dp::mlp_block_any<d3dp::bf16, false>(x, res, w1, b1, w2, b2, lns, lnb, nullptr, out,
+                                                1, R, 1, C, H, eps, stream);
 }
 
 int d3dp_mlp_block_f32(const void* x, const void* res, const void* w1, const void* b1,
                        const void* w2, const void* b2, const void* lns, const void* lnb,
                        void* out, int R, int C, int H, float eps, void* stream) {
-  return d3dp::mlp_block_any<float, false>(x, res, w1, b1, w2, b2, lns, lnb, out, 1, R, 1, C, H,
-                                           eps, stream);
+  return d3dp::mlp_block_any<float, false>(x, res, w1, b1, w2, b2, lns, lnb, nullptr, out, 1, R,
+                                           1, C, H, eps, stream);
+}
+
+// K5 with DropPath: dp (R,) fp32.
+int d3dp_mlp_block_dp_bf16(const void* x, const void* res, const void* w1, const void* b1,
+                           const void* w2, const void* b2, const void* lns, const void* lnb,
+                           const void* dp, void* out, int R, int C, int H, float eps,
+                           void* stream) {
+  return d3dp::mlp_block_any<d3dp::bf16, false>(x, res, w1, b1, w2, b2, lns, lnb, dp, out, 1, R,
+                                                1, C, H, eps, stream);
+}
+
+int d3dp_mlp_block_dp_f32(const void* x, const void* res, const void* w1, const void* b1,
+                          const void* w2, const void* b2, const void* lns, const void* lnb,
+                          const void* dp, void* out, int R, int C, int H, float eps,
+                          void* stream) {
+  return d3dp::mlp_block_any<float, false>(x, res, w1, b1, w2, b2, lns, lnb, dp, out, 1, R, 1, C,
+                                           H, eps, stream);
 }
 
 }  // extern "C"

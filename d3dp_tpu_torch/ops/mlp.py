@@ -8,49 +8,92 @@ relayout of MixSTE rides the output write (fuse levels 3 and 4).
 `mlp_block` is the counterpart of `mlp_block_p`: the same function on
 (R, C) token rows, written row for row (fuse levels 1 and 2).
 
+`mlp_block_t_dp` and `mlp_block_dp` are `mlp_block_t_dp_p` and
+`mlp_block_dp_p`: the branch, fc2's bias included, scaled by a DropPath
+scale in fp32 before the residual add, one per (b, i) of (B, D1) or one
+per row (training at level 4). `D3DP_MLP_VARIANT` (bf16gelu, nogelu) is not
+ported: any value raises "not ported yet" when an op is called.
+
+Training with `D3DP_TRAIN_FUSED=1` differentiates them through
+`torch.autograd.Function`s (`mlp_block_ad`, `mlp_block_dp_ad`,
+`mlp_block_t_ad`, `mlp_block_t_dp_ad`) whose backward is the JAX package's
+`_mlp_bwd_impl` in plain torch ops: the hidden activation recomputed, the
+matrix products on compute-dtype operands with fp32 accumulation, the GELU
+derivative in fp32 with the exact erf. The DropPath scale gets no gradient.
+
 On a CUDA tensor each launches its hand-written kernel (both forms of one
 kernel in `csrc/mlp_block_t.cu`); on a CPU tensor it runs its `*_plain`
 version. There is no fallback between the two.
 """
 
 import ctypes
+import math
+import os
 
 import torch
 import torch.nn.functional as F
 
 from d3dp_tpu_torch.ops import _build
-from d3dp_tpu_torch.ops.common import layer_norm_rows, matmul_f32acc as _mm
+from d3dp_tpu_torch.ops.common import layer_norm_rows, matmul_f32acc as _mm, matmul_f32out
+from d3dp_tpu_torch.ops.norm import ln_bwd_rows
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIG_T = [_P] * 9 + [_I, _I, _I, _I, _I, _F, _P]
 _SIG_ROWS = [_P] * 9 + [_I, _I, _I, _F, _P]
+_SIG_T_DP = [_P] * 10 + [_I, _I, _I, _I, _I, _F, _P]
+_SIG_ROWS_DP = [_P] * 10 + [_I, _I, _I, _F, _P]
 _FN_T = {torch.bfloat16: "d3dp_mlp_block_t_bf16", torch.float32: "d3dp_mlp_block_t_f32"}
 _FN_ROWS = {torch.bfloat16: "d3dp_mlp_block_bf16", torch.float32: "d3dp_mlp_block_f32"}
+_FN_T_DP = {torch.bfloat16: "d3dp_mlp_block_t_dp_bf16",
+            torch.float32: "d3dp_mlp_block_t_dp_f32"}
+_FN_ROWS_DP = {torch.bfloat16: "d3dp_mlp_block_dp_bf16", torch.float32: "d3dp_mlp_block_dp_f32"}
 
 
-def _mlp_ln(x, res, w1, b1, w2, b2, ln_s, ln_b, eps):
+def check_mlp_variant():
+    """`D3DP_MLP_VARIANT` as the JAX package's MLP kernels read it: its lab
+    values (bf16gelu, nogelu) are not ported."""
+    v = os.environ.get("D3DP_MLP_VARIANT", "")
+    if v:
+        raise NotImplementedError(f"D3DP_MLP_VARIANT={v} is not ported yet: d3dp_tpu_torch "
+                                  "has no kernel for this lab switch of the JAX package")
+
+
+def _mlp_ln(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp=None):
     """The TPU kernels' order: h = GELU(x W1 + b1) in fp32, rounded to the
-    compute dtype; s = res + (h W2 + b2); LN(s) in fp32."""
+    compute dtype; s = res + [dp *] (h W2 + b2); LN(s) in fp32. dp
+    broadcasts against the leading axes of x."""
     h = F.gelu(_mm(x, w1) + b1.float(), approximate="none")
     branch = _mm(h.to(x.dtype), w2) + b2.float()
+    if dp is not None:
+        branch = branch * dp.float().reshape(*dp.shape, *(1,) * (x.dim() - dp.dim()))
     return layer_norm_rows(res.float() + branch, ln_s, ln_b, eps)
 
 
-def mlp_block_t_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps):
+def mlp_block_t_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp=None):
     """Plain torch ops in the TPU kernel's order, rounded to the compute
-    dtype and transposed (B, D1, D2, C) -> (B, D2, D1, C)."""
-    y = _mlp_ln(x, res, w1, b1, w2, b2, ln_s, ln_b, eps)
+    dtype and transposed (B, D1, D2, C) -> (B, D2, D1, C); dp (B, D1)."""
+    y = _mlp_ln(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp)
     return y.to(x.dtype).transpose(1, 2).contiguous()
 
 
-def mlp_block_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps):
-    """Plain torch ops in the TPU kernel's order on (R, C) rows."""
-    return _mlp_ln(x, res, w1, b1, w2, b2, ln_s, ln_b, eps).to(x.dtype)
+def mlp_block_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp=None):
+    """Plain torch ops in the TPU kernel's order on (R, C) rows; dp (R,)."""
+    return _mlp_ln(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp).to(x.dtype)
 
 
-def _launch(what, fns, x, res, w1, b1, w2, b2, ln_s, ln_b, eps, out_shape, dims):
+def mlp_block_t_dp_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps):
+    return mlp_block_t_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp)
+
+
+def mlp_block_dp_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps):
+    return mlp_block_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp)
+
+
+def _launch(what, fns, sigs, x, res, w1, b1, w2, b2, ln_s, ln_b, eps, out_shape, dims,
+            dp=None, dp_shape=None):
     """Check the operands of either form and launch its kernel; `dims` are
-    the integer shape arguments the C entry point takes before C and H."""
+    the integer shape arguments the C entry point takes before C and H;
+    dp: the DropPath form's scales, of dp_shape."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     C = x.shape[-1]
@@ -67,45 +110,169 @@ def _launch(what, fns, x, res, w1, b1, w2, b2, ln_s, ln_b, eps, out_shape, dims)
             (x, "x", dt, x.shape), (res, "res", dt, x.shape),
             (w1, "w1", dt, (C, H)), (b1, "b1", f32, (H,)),
             (w2, "w2", dt, (H, C)), (b2, "b2", f32, (C,)),
-            (ln_s, "ln_s", f32, (C,)), (ln_b, "ln_b", f32, (C,))):
+            (ln_s, "ln_s", f32, (C,)), (ln_b, "ln_b", f32, (C,))) + (
+                ((dp, "dp", f32, dp_shape),) if dp is not None else ()):
         _build.check_operand(t, name, dtype, shape, dev)
     out = torch.empty(out_shape, dtype=dt, device=dev)
-    lib = _build.load("mlp_block_t", {**{fn: _SIG_T for fn in _FN_T.values()},
-                                      **{fn: _SIG_ROWS for fn in _FN_ROWS.values()}})
+    lib = _build.load("mlp_block_t", {fn: sig for fns_, sig in sigs for fn in fns_.values()})
+    ptrs = [t.data_ptr() for t in (x, res, w1, b1, w2, b2, ln_s, ln_b)]
+    if dp is not None:
+        ptrs.append(dp.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fns[dt])(
-            x.data_ptr(), res.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
-            out.data_ptr(), *dims, C, H, float(eps), stream)
+        err = getattr(lib, fns[dt])(*ptrs, out.data_ptr(), *dims, C, H, float(eps), stream)
     _build.check(err, what)
     return out
 
 
+# every entry point of the library, for its one load
+_SIGS = ((_FN_T, _SIG_T), (_FN_ROWS, _SIG_ROWS), (_FN_T_DP, _SIG_T_DP),
+         (_FN_ROWS_DP, _SIG_ROWS_DP))
+
+
 def mlp_block_t(x, res, w1, b1, w2, b2, ln_s, ln_b, eps):
     """LN(res + MLP(x)) written transposed; see the module docstring."""
+    check_mlp_variant()
     if x.device.type == "cpu":
         return mlp_block_t_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps)
     if x.dim() != 4:
         raise ValueError(f"x must be (B, D1, D2, C), got {tuple(x.shape)}")
     B, D1, D2, C = x.shape
-    out = _launch("mlp_block_t", _FN_T, x, res, w1, b1, w2, b2, ln_s, ln_b, eps,
+    out = _launch("mlp_block_t", _FN_T, _SIGS, x, res, w1, b1, w2, b2, ln_s, ln_b, eps,
                   (B, D2, D1, C), (B, D1, D2))
     mlp_block_t.launches += 1
     return out
 
 
+def mlp_block_t_dp(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps):
+    """`mlp_block_t` with the branch scaled by dp (B, D1) fp32."""
+    check_mlp_variant()
+    if x.device.type == "cpu":
+        return mlp_block_t_dp_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps)
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, D1, D2, C), got {tuple(x.shape)}")
+    B, D1, D2, C = x.shape
+    out = _launch("mlp_block_t_dp", _FN_T_DP, _SIGS, x, res, w1, b1, w2, b2, ln_s, ln_b, eps,
+                  (B, D2, D1, C), (B, D1, D2), dp, (B, D1))
+    mlp_block_t_dp.launches += 1
+    return out
+
+
 def mlp_block(x, res, w1, b1, w2, b2, ln_s, ln_b, eps):
     """LN(res + MLP(x)) on (R, C) rows; see the module docstring."""
+    check_mlp_variant()
     if x.device.type == "cpu":
         return mlp_block_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps)
     if x.dim() != 2:
         raise ValueError(f"x must be (R, C), got {tuple(x.shape)}")
-    out = _launch("mlp_block", _FN_ROWS, x, res, w1, b1, w2, b2, ln_s, ln_b, eps,
+    out = _launch("mlp_block", _FN_ROWS, _SIGS, x, res, w1, b1, w2, b2, ln_s, ln_b, eps,
                   x.shape, (x.shape[0],))
     mlp_block.launches += 1
     return out
 
 
+def mlp_block_dp(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps):
+    """`mlp_block` with the branch scaled by dp (R,) fp32."""
+    check_mlp_variant()
+    if x.device.type == "cpu":
+        return mlp_block_dp_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps)
+    if x.dim() != 2:
+        raise ValueError(f"x must be (R, C), got {tuple(x.shape)}")
+    out = _launch("mlp_block_dp", _FN_ROWS_DP, _SIGS, x, res, w1, b1, w2, b2, ln_s, ln_b, eps,
+                  x.shape, (x.shape[0],), dp, (x.shape[0],))
+    mlp_block_dp.launches += 1
+    return out
+
+
 mlp_block_t.launches = 0
+mlp_block_t_dp.launches = 0
 mlp_block.launches = 0
+mlp_block_dp.launches = 0
+
+
+# ------------------------------------------------------------ training
+def mlp_bwd_rows(x, res, w1, b1, w2, b2, ln_s, gy, eps, dp=None):
+    """Gradients of the rows form given dy = gy (R, C): the JAX package's
+    `_mlp_bwd_impl` in plain torch ops. dp (R, 1) or None. Returns (dx,
+    dres, dw1, db1, dw2, db2, dln_s, dln_b); weight and bias gradients in
+    their parameters' dtypes, as the JAX VJP returns them."""
+    md = x.dtype
+    pre = matmul_f32out(x, w1) + b1.float()
+    h = F.gelu(pre, approximate="none")
+    hb = h.to(md)
+    branch32 = matmul_f32out(hb, w2) + b2.float()
+    if dp is not None:
+        dp32 = dp.float()
+        branch32 = branch32 * dp32
+    s32 = res.float() + branch32
+
+    ds, dln_s, dln_b = ln_bwd_rows(s32, ln_s, gy, eps)
+    dres = ds.to(res.dtype)
+    ds_b = ds if dp is None else ds * dp32
+    ds_m = ds_b.to(md)
+    dw2 = matmul_f32out(hb.t(), ds_m).to(w2.dtype)
+    db2 = ds_b.sum(dim=0).to(b2.dtype)
+    dh = matmul_f32out(ds_m, w2.t())
+    # d gelu(p) = 0.5 * (1 + erf(p / sqrt2)) + p * pdf(p)
+    dpre = dh * (0.5 * (1.0 + torch.erf(pre * 2.0 ** -0.5))
+                 + pre * torch.exp(-0.5 * pre * pre) * (2.0 * math.pi) ** -0.5)
+    dpre_m = dpre.to(md)
+    dw1 = matmul_f32out(x.t(), dpre_m).to(w1.dtype)
+    db1 = dpre.sum(dim=0).to(b1.dtype)
+    dx = matmul_f32out(dpre_m, w1.t()).to(x.dtype)
+    return dx, dres, dw1, db1, dw2, db2, dln_s.to(ln_s.dtype), dln_b.to(ln_s.dtype)
+
+
+class _MlpBlock(torch.autograd.Function):
+    """Forward: one of the four MLP ops (rows or transposed, with or without
+    DropPath); backward: `mlp_bwd_rows`, the transposed form's output
+    gradient and scales brought back to its input rows first (the JAX
+    `_mlp_block_t_p_bwd` / `_mlp_block_t_dp_p_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps, transpose):
+        if transpose:
+            op = mlp_block_t if dp is None else mlp_block_t_dp
+        else:
+            op = mlp_block if dp is None else mlp_block_dp
+        args = (x, res, w1, b1, w2, b2, ln_s, ln_b) + (() if dp is None else (dp,))
+        out = op(*args, eps)
+        ctx.save_for_backward(x, res, w1, b1, w2, b2, ln_s, dp)
+        ctx.cfg = (eps, transpose)
+        return out
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, res, w1, b1, w2, b2, ln_s, dp = ctx.saved_tensors
+        eps, transpose = ctx.cfg
+        C = x.shape[-1]
+        if transpose:
+            B, D1, D2, _ = x.shape
+            gy = gy.transpose(1, 2)
+            if dp is not None:
+                dp = dp[:, :, None].expand(B, D1, D2)
+        grads = mlp_bwd_rows(x.reshape(-1, C), res.reshape(-1, C), w1, b1, w2, b2, ln_s,
+                             gy.reshape(-1, C), eps,
+                             None if dp is None else dp.reshape(-1, 1))
+        return (grads[0].reshape(x.shape), grads[1].reshape(res.shape), *grads[2:],
+                None, None, None)
+
+
+def mlp_block_ad(x, res, w1, b1, w2, b2, ln_s, ln_b, eps):
+    """Differentiable `mlp_block` (the JAX `mlp_block_p`)."""
+    return _MlpBlock.apply(x, res, w1, b1, w2, b2, ln_s, ln_b, None, eps, False)
+
+
+def mlp_block_dp_ad(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps):
+    """Differentiable `mlp_block_dp` (the JAX `mlp_block_dp_p`)."""
+    return _MlpBlock.apply(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps, False)
+
+
+def mlp_block_t_ad(x, res, w1, b1, w2, b2, ln_s, ln_b, eps):
+    """Differentiable `mlp_block_t` (the JAX `mlp_block_t_p`)."""
+    return _MlpBlock.apply(x, res, w1, b1, w2, b2, ln_s, ln_b, None, eps, True)
+
+
+def mlp_block_t_dp_ad(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps):
+    """Differentiable `mlp_block_t_dp` (the JAX `mlp_block_t_dp_p`)."""
+    return _MlpBlock.apply(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps, True)

@@ -29,8 +29,9 @@ import ctypes
 import torch
 
 from d3dp_tpu_torch.ops import _build
-from d3dp_tpu_torch.ops.attention import HEAD_DIM, MAX_TOKENS, attention_stage_plain
-from d3dp_tpu_torch.ops.mlp import mlp_block_t_plain
+from d3dp_tpu_torch.ops.attention import (HEAD_DIM, MAX_TOKENS, attention_stage_plain,
+                                          check_softmax_fold, not_ported, stage_variant)
+from d3dp_tpu_torch.ops.mlp import check_mlp_variant, mlp_block_t_plain
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _N_PTRS = 23
@@ -87,7 +88,15 @@ def resident_block_stack(x, tpos, spatial, temporal, shared, num_heads, scale, e
     b1 (D, 1, H), w2 (D, H, C), vec (D, 6, C)), matrices in the compute
     dtype, bqkv, b1 and vec (rows bp, ln1s, ln1b, ln2s, ln2b, b2) fp32;
     shared: (4, C) fp32 rows spatial norm scale, bias, temporal norm
-    scale, bias."""
+    scale, bias.
+
+    The JAX kernel reads `D3DP_ATTN_VARIANT=bf16exp` and
+    `D3DP_SOFTMAX_FOLD` (bf16) and `D3DP_MLP_VARIANT`; their lab values are
+    not ported and raise."""
+    if x.dtype == torch.bfloat16 and stage_variant() == "bf16exp":
+        raise not_ported("D3DP_ATTN_VARIANT=bf16exp")
+    check_softmax_fold(x.dtype)
+    check_mlp_variant()
     if x.device.type == "cpu":
         return resident_block_stack_plain(x, tpos, spatial, temporal, shared, num_heads,
                                           scale, eps)

@@ -1,0 +1,291 @@
+"""The attention-stage lab switches and the head-major stage (K8) against
+the JAX package, on the CPU.
+
+The JAX package reads `D3DP_ATTN_VARIANT[_T|_S]`, `D3DP_SPATIAL_GROUP`,
+`D3DP_SOFTMAX_FOLD` and `D3DP_MLP_VARIANT` when it traces a kernel; the port
+reads them when an op is called. Values that select the production math
+(``""``, loop, batched) run the stage kernel, `hmqkv` the head-major one,
+and every other value raises "not ported yet" where the JAX package would
+compute something else. The JAX kernels read the switches at trace time,
+so the tests that set one drop JAX's compilation caches around it.
+
+Tolerances: K8's plain version against `_attention_stage_fwd` under hmqkv
+(interpret mode) as K1's, fp32 2e-5 and bf16 3e-2 plus one bf16 ulp
+(tests/test_torch_ops.py); MixSTE2 at level 4 (and level 5's reuse flow)
+with hmqkv against JAX 1e-4; the fused training flow with hmqkv 2e-4.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from d3dp_tpu.models import MixSTE2 as JMixSTE2, MixSTEConfig as JMixSTEConfig
+from d3dp_tpu.ops.attention import _attention_stage_fwd
+from d3dp_tpu.ops.mlp import _mlp_block_fwd
+from d3dp_tpu_torch.models import MixSTE2
+from d3dp_tpu_torch.ops import attention as tattn
+from d3dp_tpu_torch.ops import mlp as tmlp
+from d3dp_tpu_torch.ops import resident as tres
+from d3dp_tpu_torch.train.convert import state_dict_from_flax
+from tests.test_torch_kernels import _mlp_inputs, _stage_inputs, _t
+from tests.test_torch_model import SMALL, port_model, random_params
+from tests.test_torch_ops import DTYPES, _assert_close, _jax_args
+from tests.test_torch_train import (_batch, _droppath_masks, _jax_loss_and_grads,
+                                    _port_loss_and_grads)
+
+torch.set_num_threads(1)
+
+SWITCHES = ("D3DP_ATTN_VARIANT", "D3DP_ATTN_VARIANT_T", "D3DP_ATTN_VARIANT_S",
+            "D3DP_SPATIAL_GROUP", "D3DP_SOFTMAX_FOLD", "D3DP_MLP_VARIANT", "D3DP_TRAIN_FUSED")
+
+
+@pytest.fixture
+def env(monkeypatch):
+    """monkeypatch with every switch unset and JAX's caches dropped before
+    and after, so no trace made under another setting is reused."""
+    for k in SWITCHES:
+        monkeypatch.delenv(k, raising=False)
+    jax.clear_caches()
+    yield monkeypatch
+    monkeypatch.undo()
+    jax.clear_caches()
+
+
+def _stage_args(rng, R=4, N=17, C=128, dtype=torch.float32):
+    arrs = _stage_inputs(rng, R, N, C)
+    return arrs, _t(arrs, dtype=dtype)
+
+
+# ------------------------------------------------------- variant resolution
+@pytest.mark.parametrize("n_tokens,setting,want", [
+    (243, {}, "batched"), (17, {}, ""),
+    (243, {"D3DP_ATTN_VARIANT": "hmqkv"}, "hmqkv"),
+    (17, {"D3DP_ATTN_VARIANT": "hmqkv", "D3DP_ATTN_VARIANT_S": ""}, ""),
+    (243, {"D3DP_ATTN_VARIANT": "hmqkv", "D3DP_ATTN_VARIANT_T": "loop"}, "loop"),
+    (128, {"D3DP_ATTN_VARIANT_S": "hmqkv"}, "batched"),
+    (127, {"D3DP_ATTN_VARIANT_S": "hmqkv"}, "hmqkv")])
+def test_stage_variant_resolves_as_jax(env, n_tokens, setting, want):
+    from d3dp_tpu.ops.attention import _stage_variant
+
+    for k, v in setting.items():
+        env.setenv(k, v)
+    assert tattn.stage_variant(n_tokens) == _stage_variant(n_tokens) == want
+
+
+@pytest.mark.parametrize("variant", ["", "loop", "batched"])
+def test_production_variants_run_the_stage(env, rng, variant):
+    env.setenv("D3DP_ATTN_VARIANT", variant)
+    _, args = _stage_args(rng)
+    for a, b in zip(tattn.attention_stage(*args, 2, 0.125, 1e-6),
+                    tattn.attention_stage_plain(*args, 2, 0.125, 1e-6)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("variant", ["bf16exp", "pipelined", "phasesplit", "noy2", "other"])
+def test_unported_stage_variants_raise(env, rng, variant):
+    """Every other variant raises, on the spatial and the temporal stage, in
+    both dtypes; the DropPath form ignores the variant as the JAX package
+    does, but for bf16exp in bf16."""
+    env.setenv("D3DP_ATTN_VARIANT", variant)
+    for N in (17, 130):
+        for dt in (torch.float32, torch.bfloat16):
+            _, args = _stage_args(rng, R=2, N=N, dtype=dt)
+            with pytest.raises(NotImplementedError, match="not ported yet"):
+                tattn.attention_stage(*args, 2, 0.125, 1e-6)
+            dp = torch.ones(2)
+            if variant == "bf16exp" and dt == torch.bfloat16:
+                with pytest.raises(NotImplementedError, match="not ported yet"):
+                    tattn.attention_stage_dp(*args, dp, 2, 0.125, 1e-6)
+            else:
+                for a, b in zip(tattn.attention_stage_dp(*args, dp, 2, 0.125, 1e-6),
+                                tattn.attention_stage_plain(*args, 2, 0.125, 1e-6)):
+                    assert torch.equal(a, b)
+
+
+def test_spatial_group_and_softmax_fold_raise_where_jax_changes_the_math(env, rng):
+    """D3DP_SPATIAL_GROUP=g groups a stage of N <= 32 tokens whose rows
+    divide by g (JAX `_attention_stage_fwd`); D3DP_SOFTMAX_FOLD=0 changes
+    the bf16 order only. Elsewhere both leave the math alone."""
+    env.setenv("D3DP_SPATIAL_GROUP", "2")
+    _, args = _stage_args(rng, R=4, N=17)
+    with pytest.raises(NotImplementedError, match="D3DP_SPATIAL_GROUP=2"):
+        tattn.attention_stage(*args, 2, 0.125, 1e-6)
+    _, odd = _stage_args(rng, R=3, N=17)
+    tattn.attention_stage(*odd, 2, 0.125, 1e-6)  # 3 rows: JAX does not group
+    env.setenv("D3DP_SPATIAL_GROUP", "1")
+    env.setenv("D3DP_SOFTMAX_FOLD", "0")
+    tattn.attention_stage(*args, 2, 0.125, 1e-6)
+    _, args16 = _stage_args(rng, R=4, N=17, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="D3DP_SOFTMAX_FOLD=0"):
+        tattn.attention_stage(*args16, 2, 0.125, 1e-6)
+
+
+def test_mlp_variant_nogelu_is_other_math_and_raises(env, rng):
+    """The fault and its repair: under D3DP_MLP_VARIANT=nogelu the JAX MLP
+    op drops the GELU (other math than the plain GELU version), and the
+    port raises instead of returning the GELU result."""
+    C, H = 64, 128
+    arrs = _mlp_inputs(rng, 1, 23, 1, C, H)
+    arrs[:2] = [a.reshape(23, C) for a in arrs[:2]]
+    targs = _t(arrs)
+    plain = tmlp.mlp_block_plain(*targs, 1e-6).numpy()
+    np.testing.assert_allclose(
+        np.asarray(_mlp_block_fwd(*_jax_args(arrs, jnp.float32), 1e-6, interpret=True)),
+        plain, atol=2e-5)
+    env.setenv("D3DP_MLP_VARIANT", "nogelu")
+    jax.clear_caches()
+    nogelu = np.asarray(_mlp_block_fwd(*_jax_args(arrs, jnp.float32), 1e-6, interpret=True))
+    assert np.abs(nogelu - plain).max() > 1e-2
+    mrows = targs[:8]
+    m4 = [a.reshape(1, 23, 1, C) if a.dim() == 2 and a.shape[0] == 23 else a for a in mrows]
+    for call in (lambda: tmlp.mlp_block(*mrows, 1e-6),
+                 lambda: tmlp.mlp_block_dp(*mrows, torch.ones(23), 1e-6),
+                 lambda: tmlp.mlp_block_t(*m4, 1e-6),
+                 lambda: tmlp.mlp_block_t_dp(*m4, torch.ones(1, 23), 1e-6)):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            call()
+    env.setenv("D3DP_MLP_VARIANT", "bf16gelu")
+    with pytest.raises(NotImplementedError, match="D3DP_MLP_VARIANT=bf16gelu"):
+        tmlp.mlp_block(*mrows, 1e-6)
+
+
+@pytest.mark.parametrize("level,setting", [
+    (4, ("D3DP_ATTN_VARIANT", "pipelined")), (3, ("D3DP_MLP_VARIANT", "nogelu")),
+    (5, ("D3DP_MLP_VARIANT", "nogelu")), (4, ("D3DP_SPATIAL_GROUP", "3"))])
+def test_model_refuses_unported_switches(env, rng, level, setting):
+    """MixSTE2 at a fuse level whose kernels read the switch raises at its
+    first call; level 0 (the composed path, whose JAX counterpart reads no
+    switch) still runs."""
+    model = MixSTE2(dataclasses.replace(_cfg(), fuse_level=level), device="cpu", seed=2)
+    x2d, x3d = _t([rng.randn(3, 9, 17, 2).astype(np.float32),
+                   rng.randn(3, 9, 17, 3).astype(np.float32)])
+    t = torch.tensor([1, 50, 999])
+    env.setenv(*setting)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        model(x2d, x3d, t)
+    model.cfg = dataclasses.replace(model.cfg, fuse_level=0)
+    assert torch.isfinite(model(x2d, x3d, t)).all()
+
+
+def _cfg():
+    from d3dp_tpu_torch.models import MixSTEConfig
+    return MixSTEConfig(**SMALL)
+
+
+def test_resident_refuses_bf16exp(env, rng):
+    env.setenv("D3DP_ATTN_VARIANT", "bf16exp")
+    model = MixSTE2(dataclasses.replace(_cfg(), fuse_level=5, dtype=torch.bfloat16),
+                    device="cpu", seed=2)
+    W = model._weights()
+    x = torch.zeros(1, 9, 17, 64, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="bf16exp"):
+        tres.resident_block_stack(x, W["temporal_pos"][0], *W["resident"], 8, 0.35, 1e-6)
+
+
+# ------------------------------------------------------------------- K8
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [17, 27, 130])
+def test_attention_stage_hm_plain_matches_jax(env, rng, N, dtype):
+    """K8's plain version against `_attention_stage_fwd` under hmqkv (the
+    head-major Pallas kernel, weights stacked inside the JAX launcher)."""
+    env.setenv("D3DP_ATTN_VARIANT", "hmqkv")
+    R, C, h = 3, 128, 2
+    arrs = _stage_inputs(rng, R, N, C)
+    want = _attention_stage_fwd(*_jax_args(arrs, DTYPES[dtype]), h, (C // h) ** -0.5, 1e-6,
+                                interpret=True)
+    args = _t(arrs, dtype=dtype)
+    whm, bhm = tattn.stack_head_major(args[1], args[2], h)
+    got = tattn.attention_stage_hm_plain(args[0], whm, bhm, *args[3:], h, (C // h) ** -0.5,
+                                         1e-6)
+    for g, w in zip(got, want):
+        _assert_close(g, w, dtype)
+    # the public op under hmqkv is the head-major stage, bit for bit
+    for a, b in zip(tattn.attention_stage(*args, h, (C // h) ** -0.5, 1e-6), got):
+        assert torch.equal(a, b)
+
+
+def test_stack_head_major_layout(rng):
+    """Head i's block is [q_i | k_i | v_i], each d columns of wqkv and d
+    entries of bqkv; the stacking is differentiable."""
+    C, h = 128, 2
+    d = C // h
+    w = torch.from_numpy(rng.randn(C, 3 * C).astype(np.float32)).requires_grad_(True)
+    b = torch.from_numpy(rng.randn(3 * C).astype(np.float32))
+    whm, bhm = tattn.stack_head_major(w, b, h)
+    assert whm.shape == (h, C, 3 * d) and bhm.shape == (h, 1, 3 * d)
+    for i in range(h):
+        for part in range(3):
+            cols = slice(part * C + i * d, part * C + (i + 1) * d)
+            assert torch.equal(whm[i, :, part * d:(part + 1) * d], w[:, cols])
+            assert torch.equal(bhm[i, 0, part * d:(part + 1) * d], b[cols])
+    (g,) = torch.autograd.grad(whm.sum() * 2, w)
+    assert torch.equal(g, torch.full_like(w, 2.0))
+
+
+def test_hm_and_packed_stage_agree(rng):
+    """K8 and K1 compute one function (fp32, summation order only)."""
+    _, args = _stage_args(rng, R=3, N=20)
+    whm, bhm = tattn.stack_head_major(args[1], args[2], 2)
+    for a, b in zip(tattn.attention_stage_hm_plain(args[0], whm, bhm, *args[3:], 2, 0.125, 1e-6),
+                    tattn.attention_stage_plain(*args, 2, 0.125, 1e-6)):
+        torch.testing.assert_close(a, b, atol=2e-6, rtol=0)
+
+
+@pytest.mark.parametrize("reuse", [False, True])
+def test_mixste_level_4_hmqkv_matches_jax(env, rng, reuse):
+    """MixSTE2 at fuse level 4 with D3DP_ATTN_VARIANT=hmqkv against JAX at
+    level 4 with hmqkv (1e-4); the port takes the head-major op on every
+    stage, with the weights stacked once in the weight cache. reuse: level
+    5's reuse flow (a full call with a tap), which is level 4's."""
+    env.setenv("D3DP_ATTN_VARIANT", "hmqkv")
+    level = 5 if reuse else 4
+    jcfg = JMixSTEConfig(**SMALL, attention_impl="pallas", fuse_level=level)
+    params = random_params(jcfg, seed=1)
+    B, F, J = 3, 9, 17
+    x2d = rng.randn(B, F, J, 2).astype(np.float32)
+    x3d = rng.randn(B, F, J, 3).astype(np.float32)
+    t = rng.randint(0, 1000, (B,)).astype(np.int32)
+    kw = dict(reuse_tap=1) if reuse else {}
+    want = JMixSTE2(jcfg).apply({"params": params}, x2d, x3d, t, **kw)
+    model = port_model(params, **SMALL, fuse_level=level)
+    calls = []
+    env.setattr(tattn, "attention_stage_hm",
+                lambda *a, _f=tattn.attention_stage_hm: calls.append(1) or _f(*a))
+    env.setattr(tattn, "attention_stage",
+                lambda *a: pytest.fail("the packed stage ran under hmqkv"))
+    got = model(*_t([x2d, x3d, t]), **kw)
+    assert len(calls) == 2 * SMALL["depth"]
+    if reuse:
+        (want, want_d), (got, got_d) = want, got
+        np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    W = model._weights()
+    assert torch.equal(W["ste"][0]["hm"][0],
+                       tattn.stack_head_major(W["ste"][0]["wqkv"], W["ste"][0]["bqkv"], 8)[0])
+
+
+def test_train_fused_hmqkv_matches_jax(env):
+    """With D3DP_TRAIN_FUSED=1 at level 4 and hmqkv, the rate-0 blocks run
+    the head-major stage (weights stacked inside the autograd forward) and
+    the DropPath blocks the packed one, as in JAX; loss and gradients
+    against JAX (2e-4)."""
+    env.setenv("D3DP_TRAIN_FUSED", "1")
+    env.setenv("D3DP_ATTN_VARIANT", "hmqkv")
+    cfg = dict(SMALL, drop_path_rate=0.1, fuse_level=4)
+    params = random_params(JMixSTEConfig(**SMALL), seed=3)
+    batch = _batch(4)
+    masks = _droppath_masks(cfg, 5)
+    jloss, jgrads = _jax_loss_and_grads(params, cfg, "pallas", batch, masks, env)
+    calls = []
+    env.setattr(tattn, "attention_stage_hm",
+                lambda *a, _f=tattn.attention_stage_hm: calls.append(1) or _f(*a))
+    tloss, tgrads = _port_loss_and_grads(params, cfg, batch, masks)
+    assert len(calls) == 2
+    want = state_dict_from_flax(jgrads, cfg["depth"])
+    assert abs(tloss - jloss) <= 2e-4 * abs(jloss)
+    for name, g in tgrads.items():
+        np.testing.assert_allclose(g, want[name].numpy(), atol=2e-4, rtol=0, err_msg=name)

@@ -401,3 +401,191 @@ def test_resident_raises_on_what_the_kernel_does_not_take(np_rng):
     with pytest.raises(ValueError, match="temporal vec has shape"):
         tres.resident_block_stack(x, tpos, sp, (*tp[:6], tp[6][:, :5].contiguous()), shared, 8,
                                   0.125, 1e-6)
+
+
+# ------------------------------------- DropPath forms (K1-dp, K2-dp, K5-dp)
+def _dp_scales(rng, shape, dev, keep=0.9):
+    """0 where dropped, 1/keep where kept, at least one of each."""
+    m = np.where(rng.rand(*shape) < keep, 1.0 / keep, 0.0).astype(np.float32)
+    m.flat[0], m.flat[-1] = 0.0, 1.0 / keep
+    return torch.from_numpy(m).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,N", [(64, 17), (6, 243), (5, 100), (3, 1)])
+def test_attention_stage_dp_kernel_matches_plain(np_rng, dtype, R, N):
+    dev = _cuda()
+    args = _t(_stage_inputs(np_rng, R, N, 512, w_scale=0.05), dev, dtype)
+    args[0] = args[0] * 0.5
+    dp = _dp_scales(np_rng, (R,), dev)
+    n0 = tattn.attention_stage_dp.launches
+    got = tattn.attention_stage_dp(*args, dp, 8, 0.125, 1e-6)
+    want = tattn.attention_stage_dp_plain(*args, dp, 8, 0.125, 1e-6)
+    torch.cuda.synchronize()
+    assert tattn.attention_stage_dp.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert _excess(g, w, dtype) <= 0
+    assert torch.equal(got[0][0], args[0][0])  # a dropped sequence's branch vanishes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 243, 17), (3, 17, 243)])
+def test_mlp_block_t_dp_kernel_matches_plain(np_rng, dtype, shape):
+    dev = _cuda()
+    args = _t(_mlp_inputs(np_rng, *shape, 512, 1024), dev, dtype)
+    dp = _dp_scales(np_rng, shape[:2], dev)
+    n0 = tmlp.mlp_block_t_dp.launches
+    got = tmlp.mlp_block_t_dp(*args, dp, 1e-6)
+    want = tmlp.mlp_block_t_dp_plain(*args, dp, 1e-6)
+    torch.cuda.synchronize()
+    assert tmlp.mlp_block_t_dp.launches == n0 + 1
+    assert _excess(got, want, dtype) <= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [1, 17, 243])
+def test_mlp_block_dp_kernel_matches_plain(np_rng, dtype, N):
+    dev = _cuda()
+    args = _t(_mlp_inputs(np_rng, 1, 3 * N, 1, 512, 1024), dev, dtype)
+    args[:2] = [a.view(3 * N, 512) for a in args[:2]]
+    dp = _dp_scales(np_rng, (3 * N,), dev)
+    n0 = tmlp.mlp_block_dp.launches
+    got = tmlp.mlp_block_dp(*args, dp, 1e-6)
+    want = tmlp.mlp_block_dp_plain(*args, dp, 1e-6)
+    torch.cuda.synchronize()
+    assert tmlp.mlp_block_dp.launches == n0 + 1
+    assert _excess(got, want, dtype) <= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dp_kernels_with_unit_scales_equal_the_kernels_without(np_rng, dtype):
+    """dp = 1 multiplies exactly: the DropPath kernels then give the plain
+    kernels' outputs bit for bit."""
+    dev = _cuda()
+    args = _t(_stage_inputs(np_rng, 6, 243, 512, w_scale=0.05), dev, dtype)
+    for a, b in zip(tattn.attention_stage_dp(*args, torch.ones(6, device=dev), 8, 0.125, 1e-6),
+                    tattn.attention_stage(*args, 8, 0.125, 1e-6)):
+        assert torch.equal(a, b)
+    margs = _t(_mlp_inputs(np_rng, 2, 17, 243, 512, 1024), dev, dtype)
+    assert torch.equal(tmlp.mlp_block_t_dp(*margs, torch.ones(2, 17, device=dev), 1e-6),
+                       tmlp.mlp_block_t(*margs, 1e-6))
+    rows = [a.view(-1, 512) for a in margs[:2]] + margs[2:]
+    assert torch.equal(tmlp.mlp_block_dp(*rows, torch.ones(2 * 17 * 243, device=dev), 1e-6),
+                       tmlp.mlp_block(*rows, 1e-6))
+
+
+# ------------------------------------------------- head-major stage (K8)
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,N", [(64, 17), (6, 243), (5, 100), (3, 1)])
+def test_attention_stage_hm_kernel_matches_plain_and_k1(np_rng, dtype, R, N):
+    """K8 against its plain version at K1's tolerance, and equal to K1 bit
+    for bit (the same products in the same order)."""
+    dev = _cuda()
+    args = _t(_stage_inputs(np_rng, R, N, 512, w_scale=0.05), dev, dtype)
+    args[0] = args[0] * 0.5
+    whm, bhm = tattn.stack_head_major(args[1], args[2], 8)
+    hm = (args[0], whm, bhm, *args[3:])
+    n0 = tattn.attention_stage_hm.launches
+    got = tattn.attention_stage_hm(*hm, 8, 0.125, 1e-6)
+    want = tattn.attention_stage_hm_plain(*hm, 8, 0.125, 1e-6)
+    k1 = tattn.attention_stage(*args, 8, 0.125, 1e-6)
+    torch.cuda.synchronize()
+    assert tattn.attention_stage_hm.launches == n0 + 1
+    for g, w, k in zip(got, want, k1):
+        assert _excess(g, w, dtype) <= 0
+        assert torch.equal(g, k)
+
+
+# ----------------------------------------------- backwards (training, fp32)
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["stage", "stage_dp", "block", "mlp", "mlp_dp", "mlp_t",
+                                   "mlp_t_dp"])
+def test_fused_backward_matches_autograd_of_plain(np_rng, which):
+    """Each autograd Function on the card (kernel forward, plain-op backward
+    around K3/K4) against torch.autograd through its plain forward, fp32:
+    every gradient within 1e-3 relative in norm."""
+    dev = _cuda()
+    R, N = (6, 243) if which.startswith("stage") else (12, 17)
+    if which.startswith("stage"):
+        args = _t(_stage_inputs(np_rng, R, N, 512, w_scale=0.05), dev)
+        dp = _dp_scales(np_rng, (R,), dev) if which == "stage_dp" else None
+        fused = (lambda *a: tattn.attention_stage_dp_ad(*a, dp, 8, 0.125, 1e-6)) if dp is not None \
+            else (lambda *a: tattn.attention_stage_ad(*a, 8, 0.125, 1e-6))
+        plain = lambda *a: tattn.attention_stage_plain(*a, 8, 0.125, 1e-6, dp_row=dp)  # noqa
+        outs = [(R, N, 512)] * 2
+    elif which == "block":
+        args = _block_inputs(np_rng, R, N, dev, torch.float32)
+        fused = lambda *a: tattn.attention_block_ad(*a, 8, 0.125, 1e-6)  # noqa
+        plain = lambda *a: tattn.attention_block_plain(*a, 8, 0.125, 1e-6)  # noqa
+        outs = [(R, N, 512)] * 2
+    else:
+        args = _t(_mlp_inputs(np_rng, 2, R, N, 512, 1024), dev)
+        t = which.startswith("mlp_t")
+        if not t:
+            args[:2] = [a.view(-1, 512) for a in args[:2]]
+        dp = _dp_scales(np_rng, (2, R) if t else (2 * R * N,), dev) if "dp" in which else None
+        ad = {(True, True): tmlp.mlp_block_t_dp_ad, (True, False): tmlp.mlp_block_t_ad,
+              (False, True): tmlp.mlp_block_dp_ad, (False, False): tmlp.mlp_block_ad}
+        f = ad[t, dp is not None]
+        fused = (lambda *a: f(*a, dp, 1e-6)) if dp is not None else (lambda *a: f(*a, 1e-6))
+        p = tmlp.mlp_block_t_plain if t else tmlp.mlp_block_plain
+        plain = lambda *a: p(*a, 1e-6, dp)  # noqa: E731
+        outs = [(2, N, R, 512) if t else (2 * R * N, 512)]
+    cts = [torch.randn(s, device=dev) for s in outs]
+    grads = []
+    for fn in (fused, plain):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        o = fn(*leaves)
+        grads.append(torch.autograd.grad(o if isinstance(o, tuple) else (o,), leaves, cts))
+    torch.cuda.synchronize()
+    for g, w in zip(*grads):
+        assert ((g - w).norm() / w.norm()).item() <= 1e-3
+
+
+@pytest.mark.gpu
+def test_train_fused_step_launch_counts(monkeypatch):
+    """D3DP_TRAIN_FUSED=1 at level 4, depth 2, DropPath 0.1: one train step
+    launches K1 and K2 on the 2 rate-0 blocks, their DropPath forms on the
+    other 2, and K3 + K4 once per stage backward."""
+    from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
+    from d3dp_tpu_torch.models import MixSTEConfig
+    from d3dp_tpu_torch.train.state import make_optimizer, make_train_step
+
+    dev = _cuda()
+    monkeypatch.setenv("D3DP_TRAIN_FUSED", "1")
+    d3dp = D3DP(D3DPConfig(model=MixSTEConfig(depth=2, drop_path_rate=0.1,
+                                              dtype=torch.bfloat16)), seed=0)
+    step = make_train_step(d3dp, make_optimizer(d3dp.model.parameters(), 6e-5))
+    g = torch.Generator(device=dev).manual_seed(0)
+    x2d = torch.randn(2, 243, 17, 2, generator=g, device=dev) * 0.3
+    x3d = torch.randn(2, 243, 17, 3, generator=g, device=dev) * 0.3
+    ops = (tattn.attention_stage, tattn.attention_stage_dp, tmlp.mlp_block_t,
+           tmlp.mlp_block_t_dp, tattn.fused_attention_qkv, tattn.fused_attention_qkv_bwd)
+    n0 = [f.launches for f in ops]
+    loss = step(x2d, x3d, torch.ones(2, device=dev), generator=g)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(ops, n0)] == [2, 2, 2, 2, 4, 4]
+    assert torch.isfinite(loss)
+
+
+@pytest.mark.gpu
+def test_dp_and_hm_wrappers_raise_on_what_the_kernels_do_not_take(np_rng):
+    dev = _cuda()
+    args = _t(_stage_inputs(np_rng, 2, 17, 512), dev, torch.float32)
+    with pytest.raises(ValueError, match="dp_row has shape"):
+        tattn.attention_stage_dp(*args, torch.ones(3, device=dev), 8, 0.125, 1e-6)
+    with pytest.raises(ValueError, match="dp_row has dtype"):
+        tattn.attention_stage_dp(*args, torch.ones(2, device=dev).double(), 8, 0.125, 1e-6)
+    with pytest.raises(ValueError, match="wqkv has shape"):
+        tattn.attention_stage_hm(*args, 8, 0.125, 1e-6)
+    margs = _t(_mlp_inputs(np_rng, 2, 9, 17, 512, 1024), dev, torch.bfloat16)
+    with pytest.raises(ValueError, match="dp has shape"):
+        tmlp.mlp_block_t_dp(*margs, torch.ones(2, 17, device=dev), 1e-6)
+    rows = [a.view(-1, 512) for a in margs[:2]] + margs[2:]
+    with pytest.raises(ValueError, match="dp is on"):
+        tmlp.mlp_block_dp(*rows, torch.ones(2 * 9 * 17), 1e-6)
