@@ -26,6 +26,12 @@ random weights from a fixed seed:
   * evaluation with the head-major stage kernel (`D3DP_ATTN_VARIANT=hmqkv`)
     against level 4 without it;
   * the packed-attention op through its public wrapper;
+  * the lab switches (`D3DP_SOFTMAX_FOLD=0`, `D3DP_ATTN_VARIANT=bf16exp` and
+    noy2, `D3DP_SPATIAL_GROUP`, `D3DP_MLP_VARIANT=bf16gelu` and nogelu):
+    each switch's instantiation of K1, K1-dp, K2, K2-dp, K5, K5-dp, K8 and
+    K9 against its plain version and timed, then sampling at levels 1, 4
+    and 5, a train-fused step and the public ops under each switch, with
+    launch counts, level 5 equal to level 4 under every global switch;
   * the H36M command line (`d3dp_tpu_torch.cli.main_h36m`, in process):
     one training epoch with checkpoints, a resumed epoch, and evaluation of
     the best checkpoint at every fuse level 0-5 and with feature reuse;
@@ -329,6 +335,19 @@ for dt in (torch.float32, torch.bfloat16):
     ulp = 0.0 if dt == torch.float32 else 2.0 ** -7
     print(f"{str(dt)[6:]} max|err| {d.max().item():.3e}", flush=True)
     assert (d - ulp * want.abs()).max().item() <= (1e-4 if dt == torch.float32 else 3e-2)
+# bf16 under the switches K9 reads, against the plain version with the same options
+import os
+for name, value in (("D3DP_SOFTMAX_FOLD", "0"), ("D3DP_ATTN_VARIANT", "bf16exp"),
+                    ("D3DP_MLP_VARIANT", "bf16gelu"), ("D3DP_MLP_VARIANT", "nogelu")):
+    os.environ[name] = value
+    opts, gelu = R.resident_options(dt)
+    got = R.resident_block_stack(*args).float()
+    torch.cuda.synchronize()
+    want = R.resident_block_stack_plain(*args, opts=opts, gelu=gelu).float()
+    d = (got - want).abs()
+    print(f"{name}={value} bf16 max|err| {d.max().item():.3e}", flush=True)
+    assert (d - ulp * want.abs()).max().item() <= 3e-2
+    del os.environ[name]
 """
 
 
@@ -342,7 +361,7 @@ def probe_resident(torch):
                            "(a grid barrier that not every block reaches?)") from None
     ok = r.returncode == 0
     log(f"[kernels] resident_block_stack depth-1 probe (child process, 180 s limit): "
-        f"{' / '.join(r.stdout.split(chr(10))[:2])} in {time.perf_counter() - t0:.1f} s "
+        f"{' / '.join(r.stdout.strip().splitlines())} in {time.perf_counter() - t0:.1f} s "
         f"{'ok' if ok else 'FAIL'}")
     check(ok, f"resident_block_stack probe failed:\n{r.stderr[-3000:]}")
 
@@ -715,12 +734,12 @@ def resident_flops_bytes(x, D):
     return flops, nbytes
 
 
-def library_trunk(torch, Fn, x, tpos, spatial, temporal, shared):
+def library_trunk(torch, Fn, x, tpos, spatial, temporal, shared, act=True):
     """The trunk in library calls, bf16 (K9's yardstick): per depth and kind
     layer_norm, F.linear, SDPA on q/k/v views, F.linear, the residual,
-    layer_norm, F.linear, GELU, F.linear, the residual and the shared
-    layer_norm, with the relayouts as copies. Weights are re-laid out for
-    F.linear here, outside the timed call."""
+    layer_norm, F.linear, GELU (without act: none), F.linear, the residual
+    and the shared layer_norm, with the relayouts as copies. Weights are
+    re-laid out for F.linear here, outside the timed call."""
     bf = torch.bfloat16
     D = spatial[0].shape[0]
 
@@ -740,7 +759,8 @@ def library_trunk(torch, Fn, x, tpos, spatial, temporal, shared):
         q, k, v = qkv.view(R, N, 3, HEADS, C // HEADS).permute(2, 0, 3, 1, 4).unbind(0)
         o = Fn.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(R, N, C)
         x2 = h + Fn.linear(o, wp, bp)
-        m = Fn.linear(Fn.gelu(Fn.linear(Fn.layer_norm(x2, (C,), l2s, l2b, 1e-6), w1, b1)), w2, b2)
+        h1 = Fn.linear(Fn.layer_norm(x2, (C,), l2s, l2b, 1e-6), w1, b1)
+        m = Fn.linear(Fn.gelu(h1) if act else h1, w2, b2)
         return Fn.layer_norm(x2 + m, (C,), ns, nb, 1e-6)
 
     def run():
@@ -1407,6 +1427,411 @@ def phase_public_dp(torch, record):
     record["launches"]["mlp_block_dp"] = n
 
 
+# ------------------------------------------------------------- lab switches
+# Each switch instantiation of a kernel: name -> (the environment that
+# selects it, the line of the TPU kernel's switch it replaces)
+LAB = {
+    "attention_stage[fold0]": ({"D3DP_SOFTMAX_FOLD": "0"}, "d3dp_tpu/ops/attention.py:432"),
+    "attention_stage[bf16exp]": ({"D3DP_ATTN_VARIANT": "bf16exp"},
+                                 "d3dp_tpu/ops/attention.py:593"),
+    "attention_stage[noy2]": ({"D3DP_ATTN_VARIANT": "noy2"}, "d3dp_tpu/ops/attention.py:468"),
+    "attention_stage[group8]": ({"D3DP_SPATIAL_GROUP": "8"}, "d3dp_tpu/ops/attention.py:434"),
+    "attention_stage[group15]": ({"D3DP_SPATIAL_GROUP": "15"}, "d3dp_tpu/ops/attention.py:434"),
+    "attention_stage[group18]": ({"D3DP_SPATIAL_GROUP": "18"}, "d3dp_tpu/ops/attention.py:434"),
+    "attention_stage_dp[fold0]": ({"D3DP_SOFTMAX_FOLD": "0"}, "d3dp_tpu/ops/attention.py:432"),
+    "attention_stage_dp[bf16exp]": ({"D3DP_ATTN_VARIANT": "bf16exp"},
+                                    "d3dp_tpu/ops/attention.py:593"),
+    "attention_stage_hm[fold0]": ({"D3DP_SOFTMAX_FOLD": "0", "D3DP_ATTN_VARIANT": "hmqkv"},
+                                  "d3dp_tpu/ops/attention.py:544"),
+    "mlp_block_t[bf16gelu]": ({"D3DP_MLP_VARIANT": "bf16gelu"}, "d3dp_tpu/ops/mlp.py:69"),
+    "mlp_block_t[nogelu]": ({"D3DP_MLP_VARIANT": "nogelu"}, "d3dp_tpu/ops/mlp.py:67"),
+    "mlp_block[bf16gelu]": ({"D3DP_MLP_VARIANT": "bf16gelu"}, "d3dp_tpu/ops/mlp.py:69"),
+    "mlp_block[nogelu]": ({"D3DP_MLP_VARIANT": "nogelu"}, "d3dp_tpu/ops/mlp.py:67"),
+    "mlp_block_t_dp[bf16gelu]": ({"D3DP_MLP_VARIANT": "bf16gelu"}, "d3dp_tpu/ops/mlp.py:69"),
+    "mlp_block_t_dp[nogelu]": ({"D3DP_MLP_VARIANT": "nogelu"}, "d3dp_tpu/ops/mlp.py:67"),
+    "mlp_block_dp[bf16gelu]": ({"D3DP_MLP_VARIANT": "bf16gelu"}, "d3dp_tpu/ops/mlp.py:69"),
+    "mlp_block_dp[nogelu]": ({"D3DP_MLP_VARIANT": "nogelu"}, "d3dp_tpu/ops/mlp.py:67"),
+    "resident_block_stack[fold0]": ({"D3DP_SOFTMAX_FOLD": "0"}, "d3dp_tpu/ops/resident.py:229"),
+    "resident_block_stack[bf16exp]": ({"D3DP_ATTN_VARIANT": "bf16exp"},
+                                      "d3dp_tpu/ops/resident.py:231"),
+    "resident_block_stack[bf16gelu]": ({"D3DP_MLP_VARIANT": "bf16gelu"},
+                                       "d3dp_tpu/ops/mlp.py:69"),
+    "resident_block_stack[nogelu]": ({"D3DP_MLP_VARIANT": "nogelu"}, "d3dp_tpu/ops/mlp.py:67"),
+}
+
+
+@contextlib.contextmanager
+def env_vars(settings):
+    """Set several environment variables for a block."""
+    with contextlib.ExitStack() as stack:
+        for name, value in settings.items():
+            stack.enter_context(env_var(name, value))
+        yield
+
+
+def level4_chain(R, A, M, args):
+    """The trunk on args through the level-4 kernels (`attention_stage`,
+    `mlp_block_t`, each reading the switches itself), in the loop of
+    `resident_block_stack_plain`."""
+    saved = R.attention_stage_plain, R.mlp_block_t_plain
+    R.attention_stage_plain = lambda *a, opts=0: A.attention_stage(*a)
+    R.mlp_block_t_plain = lambda *a, gelu=0: M.mlp_block_t(*a)
+    try:
+        return R.resident_block_stack_plain(*args, HEADS, 0.125, 1e-6)
+    finally:
+        R.attention_stage_plain, R.mlp_block_t_plain = saved
+
+
+def lab_kernels(torch, rows, errs):
+    """Each switch instantiation against its plain version with the same
+    options, at the shapes of its path (K1, K2, K5, K8, K9: eval, 40
+    hypothesis rows, K9 at depth 1; K1-dp, K2-dp, K5-dp: train), bf16, and
+    fp32 where the switch applies there (noy2, grouping, nogelu): K1/K2's
+    bands, 3e-2 plus one bf16 ulp in bf16 and 1e-4 in fp32. noy2's x2 must
+    equal production K1's, K8 under fold0 K1 under fold0, and grouped K1 in
+    fp32 ungrouped K1 too (1e-4). K9 at depth 1 (two chained blocks, where
+    a bf16 rounding flip compounds past K1/K2's band over the 40 rows) must
+    equal the level-4 kernels under the switch bit for bit (each held above)
+    and lie within one bf16 ulp (2^-7) of its plain version in relative L2;
+    the depth-1 probe holds it to the band on 2 rows. Then each is timed in bf16 beside its
+    plain version (with the same options) and, where one library call
+    computes the same function, that call: for the grouped stage the
+    ungrouped library stage, for noy2 the library stage without LN2, for
+    nogelu the library MLP without GELU; none rounds like fold0, bf16exp or
+    bf16gelu. Bounds are those of the kernel the switch modifies."""
+    import torch.nn.functional as Fn
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import mlp as M
+    from d3dp_tpu_torch.ops import resident as R
+
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    bf, f32 = torch.bfloat16, torch.float32
+    sc = 0.125
+
+    def held(name, label, dt, pairs, equal=True):
+        torch.cuda.synchronize()
+        ulp = BF16_ULP if dt == bf else 0.0
+        tol = TOL[str(dt).split(".")[1]]
+        es = [max_err(torch, g, w, ulp) for g, w in pairs]
+        ok = all(ex <= tol for _, ex in es) and equal
+        log(f"[lab] {name} {label} {str(dt)[6:]}: max|err| {' / '.join(f'{e:.3e}' for e, _ in es)} "
+            f"(tol {tol:g}{' + 1 bf16 ulp' if ulp else ''}){'' if equal is True else ', equal'} "
+            f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} {label} {dt} disagrees with its plain version")
+        if dt == bf:
+            errs[name] = max(errs.get(name, 0.0), *(e for e, _ in es))
+
+    def timed(name, label, shape, run, plain, flops, nbytes, lib=None):
+        with env_vars(LAB[name][0]):
+            rows[f"{name}/{label}"] = dict(
+                shape=list(shape), flops=flops, bytes=nbytes, ms=time_ms(torch, run, reps=5),
+                plain_ms=time_ms(torch, plain, reps=2),
+                library_ms=None if lib is None else time_ms(torch, lib, reps=5))
+
+    def lib_stage_args(a):
+        return [a[0], a[1].t().contiguous(), a[2].to(bf), a[3].t().contiguous(),
+                a[4].to(bf)] + [v.to(bf) for v in a[5:]]
+
+    def lib_mlp_args(a):
+        return [a[0], a[1], a[2].t().contiguous(), a[3].to(bf), a[4].t().contiguous(),
+                a[5].to(bf), a[6].to(bf), a[7].to(bf)]
+
+    lib_a, lib_a_x2 = library_attention(torch, Fn), library_attention(torch, Fn, with_y2=False)
+    stage_opts = {"fold0": A.OPT_NORM_FIRST, "bf16exp": A.OPT_BF16_EXP, "noy2": A.OPT_NO_Y2}
+    for label, Rr, N in (("spatial", ROWS * F, J), ("temporal", ROWS * J, F)):
+        T = Rr * N
+        flops = 2 * T * C * 3 * C + 4 * T * N * C + 2 * T * C * C
+        nbytes = 3 * T * C * 2 + 4 * C * C * 2 + 8 * C * 4
+        for dt in (f32, bf):
+            a = stage_inputs(torch, gen, Rr, N, dt)
+            base = A.attention_stage(*a, HEADS, sc, 1e-6)
+            for sw, opt in stage_opts.items():
+                if dt == f32 and sw != "noy2":
+                    continue
+                name = f"attention_stage[{sw}]"
+                with env_vars(LAB[name][0]):
+                    got = A.attention_stage(*a, HEADS, sc, 1e-6)
+                want = A.attention_stage_plain(*a, HEADS, sc, 1e-6, opts=opt)
+                if sw == "noy2":
+                    held(name, label, dt, [(got[0], want[0])], torch.equal(got[0], base[0]))
+                else:
+                    held(name, label, dt, list(zip(got, want)))
+                if dt == bf:
+                    la = lib_stage_args(a)
+                    timed(name, label, a[0].shape,
+                          lambda: A.attention_stage(*a, HEADS, sc, 1e-6),
+                          lambda opt=opt: A.attention_stage_plain(*a, HEADS, sc, 1e-6, opts=opt),
+                          flops, nbytes - (T * C * 2 if sw == "noy2" else 0),
+                          (lambda: lib_a_x2(*la)) if sw == "noy2" else None)
+                del got, want
+            if label == "spatial":
+                la = lib_stage_args(a) if dt == bf else None
+                for g in (8, 15, 18):
+                    name = f"attention_stage[group{g}]"
+                    with env_vars(LAB[name][0]):
+                        got = A.attention_stage(*a, HEADS, sc, 1e-6)
+                    want = A.attention_stage_plain(a[0].view(Rr // g, g * N, C), *a[1:], HEADS,
+                                                   sc, 1e-6, mask_block=N)
+                    pairs = [(gv, w.view(Rr, N, C)) for gv, w in zip(got, want)]
+                    held(name, label, dt, pairs + (list(zip(got, base)) if dt == f32 else []))
+                    if dt == bf:
+                        timed(name, label, a[0].shape,
+                              lambda: A.attention_stage(*a, HEADS, sc, 1e-6),
+                              lambda g=g: A.attention_stage_plain(
+                                  a[0].view(Rr // g, g * N, C), *a[1:], HEADS, sc, 1e-6,
+                                  mask_block=N),
+                              flops, nbytes, lambda: lib_a(*la))
+                    del got, want
+            if dt == bf:
+                name = "attention_stage_hm[fold0]"
+                hm = [a[0], *A.stack_head_major(a[1], a[2], HEADS), *a[3:]]
+                with env_vars(LAB[name][0]):
+                    got = A.attention_stage_hm(*hm, HEADS, sc, 1e-6)
+                with env_vars(LAB["attention_stage[fold0]"][0]):
+                    k1 = A.attention_stage(*a, HEADS, sc, 1e-6)
+                want = A.attention_stage_hm_plain(*hm, HEADS, sc, 1e-6, opts=A.OPT_NORM_FIRST)
+                held(name, label, dt, list(zip(got, want)),
+                     all(torch.equal(g_, k_) for g_, k_ in zip(got, k1)))
+                timed(name, label, a[0].shape, lambda: A.attention_stage_hm(*hm, HEADS, sc, 1e-6),
+                      lambda: A.attention_stage_hm_plain(*hm, HEADS, sc, 1e-6,
+                                                         opts=A.OPT_NORM_FIRST), flops, nbytes)
+                del got, k1, want, hm
+            del a, base
+    for label, Rr, N in TRAIN_SHAPES:
+        T = Rr * N
+        flops = 2 * T * C * 3 * C + 4 * T * N * C + 2 * T * C * C
+        nbytes = 3 * T * C * 2 + 4 * C * C * 2 + 8 * C * 4 + Rr * 4
+        a = stage_inputs(torch, gen, Rr, N, bf)
+        dp = dp_scales(torch, gen, (Rr,))
+        for sw in ("fold0", "bf16exp"):
+            name = f"attention_stage_dp[{sw}]"
+            opt = stage_opts[sw]
+            with env_vars(LAB[name][0]):
+                got = A.attention_stage_dp(*a, dp, HEADS, sc, 1e-6)
+            held(name, f"train {label}", bf, list(zip(got, A.attention_stage_dp_plain(
+                *a, dp, HEADS, sc, 1e-6, opts=opt))))
+            timed(name, label, a[0].shape,
+                  lambda: A.attention_stage_dp(*a, dp, HEADS, sc, 1e-6),
+                  lambda opt=opt: A.attention_stage_dp_plain(*a, dp, HEADS, sc, 1e-6, opts=opt),
+                  flops, nbytes)
+        del a, dp
+
+    gelus = {"bf16gelu": M.GELU_BF16, "nogelu": M.GELU_NONE}
+    libs = {(t, act): library_mlp(torch, Fn, transpose=t, act=act)
+            for t in (True, False) for act in (True, False)}
+    for label, n_rows, D1, D2 in MLP_SHAPES:
+        T = n_rows * D1 * D2
+        flops = 4 * T * C * HIDDEN
+        nbytes = 3 * T * C * 2 + 2 * C * HIDDEN * 2 + (HIDDEN + 3 * C) * 4
+        train = label.startswith("train")
+        for dt in ((bf,) if train or D1 == J else (f32, bf)):
+            a = mlp_inputs(torch, gen, D1, D2, dt, n_rows)
+            r = [t.view(-1, C) for t in a[:2]] + a[2:]
+            dp = dp_scales(torch, gen, (n_rows, D1)) if train else None
+            dpr = dp_scales(torch, gen, (T,)) if train else None
+            forms = [("mlp_block_t_dp" if train else "mlp_block_t", a, dp, True)]
+            if D1 == F:  # the rows form on the spatial->temporal token rows
+                forms.append(("mlp_block_dp" if train else "mlp_block", r, dpr, False))
+            for sw, gelu in gelus.items():
+                if dt == f32 and sw == "bf16gelu":
+                    continue
+                for base_name, args, scales, t in forms:
+                    name = f"{base_name}[{sw}]"
+                    op = getattr(M, base_name)
+                    plain = M.mlp_block_t_plain if t else M.mlp_block_plain
+                    extra = () if scales is None else (scales,)
+                    with env_vars(LAB[name][0]):
+                        got = op(*args, *extra, 1e-6)
+                    held(name, label if t else f"{label.split()[0]} rows", dt,
+                         [(got, plain(*args, 1e-6, scales, gelu=gelu))])
+                    if dt == bf:
+                        lib = libs[t, sw != "nogelu"]
+                        la = lib_mlp_args(args)
+                        ls = None if scales is None else scales.to(bf)
+                        timed(name, label.split()[1] if t else "rows", args[0].shape,
+                              lambda op=op, args=args, extra=extra: op(*args, *extra, 1e-6),
+                              lambda plain=plain, args=args, scales=scales, gelu=gelu: plain(
+                                  *args, 1e-6, scales, gelu=gelu),
+                              flops, nbytes + (0 if scales is None else scales.numel() * 4),
+                              (lambda lib=lib, la=la, ls=ls: lib(*la, dp=ls))
+                              if sw == "nogelu" else None)
+                    del got
+            del a, r, dp, dpr
+
+    x, tpos, sp, tp, shared = resident_inputs(torch, bf, 30)
+    one = (x, tpos, tuple(w[:1] for w in sp), tuple(w[:1] for w in tp), shared)
+    full = (x, tpos, sp, tp, shared)
+    flops, nbytes = resident_flops_bytes(x, DEPTH)
+    for sw in ("fold0", "bf16exp", "bf16gelu", "nogelu"):
+        name = f"resident_block_stack[{sw}]"
+        with env_vars(LAB[name][0]):
+            opts, gelu = R.resident_options(bf)
+            got = R.resident_block_stack(*one, HEADS, sc, 1e-6)
+            chain = level4_chain(R, A, M, one)
+        want = R.resident_block_stack_plain(*one, HEADS, sc, 1e-6, opts=opts, gelu=gelu)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+        equal = torch.equal(got, chain)
+        ok = equal and rel <= BF16_ULP
+        log(f"[lab] {name} x{tuple(x.shape)} depth 1 bf16: equal to the level-4 kernels under "
+            f"the switch {equal}; vs plain max|err| {e:.3e}, relative L2 {rel:.3e} (tol one "
+            f"bf16 ulp, {BF16_ULP:g}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} differs from the level-4 kernels or from its plain version")
+        errs[name] = e
+        del got, chain, want
+        lib = library_trunk(torch, Fn, *full, act=False) if sw == "nogelu" else None
+        with env_vars(LAB[name][0]):
+            rows[f"{name}/trunk"] = dict(
+                shape=list(x.shape), flops=flops, bytes=nbytes,
+                ms=time_ms(torch, lambda: R.resident_block_stack(*full, HEADS, sc, 1e-6), reps=2),
+                plain_ms=time_ms(torch, lambda opts=opts, gelu=gelu: R.resident_block_stack_plain(
+                    *full, HEADS, sc, 1e-6, opts=opts, gelu=gelu), reps=1),
+                library_ms=None if lib is None else time_ms(torch, lib, reps=3))
+        del lib
+    for key, r in rows.items():
+        if "[" in key:
+            r["bound_ms"], r["bound_by"] = bound_ms(r["flops"], r["bytes"], PEAK_BF16)
+            lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+            log(f"[lab-timing] {key} bf16 x{tuple(r['shape'])}: kernel {r['ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+                f"library {lib}")
+
+
+def phase_lab_switches(torch, record, d3dp, x2d, x2d_f, rows):
+    """The lab switches on their paths. Kernels: `lab_kernels`. Paths, bf16
+    at the eval and train configs, counts set to 0 before each run:
+    D3DP.sample at level 4 in production and under fold0, bf16exp, group 8,
+    bf16gelu and nogelu, each timed (median of 2 after a warm-up call), with
+    80 K1 + 80 K2 launches; untimed under group 15 and 18; under hmqkv with
+    fold0 (80 K8, equal to the fold0 call with K1); at level 5 under fold0,
+    bf16exp, bf16gelu and nogelu (5 K9 each, equal to level 4's call under
+    the same switch bit for bit; bf16exp and bf16gelu timed); at level 1
+    under bf16gelu and nogelu (80 K5); one D3DP_TRAIN_FUSED=1 step at level
+    4 under fold0, bf16exp, bf16gelu and nogelu (14 K1-dp or K2-dp each);
+    `mlp_block_dp_ad` under bf16gelu and nogelu (1 K5-dp each); noy2 by its
+    public op at the two eval stage shapes (its model output is undefined:
+    y2 is never written). Returns the errors and the launches per
+    instantiation."""
+    from d3dp_tpu_torch.diffusion import D3DP
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import mlp as M
+    from d3dp_tpu_torch.train.state import make_optimizer, make_train_step
+
+    t0 = time.perf_counter()
+    errs, launches, out = {}, {}, {}
+    lab_kernels(torch, rows, errs)
+
+    def sample(tag, settings, level, seed, reps, want):
+        set_level(d3dp.model, level)
+        with env_vars(settings):
+            reset_counts()
+            res = d3dp.sample(x2d, x2d_f, generator=torch.Generator(device="cuda").manual_seed(seed))
+            torch.cuda.synchronize()
+            counts = {n: c for n, c in read_counts().items() if c}
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            ms = time_ms(torch, lambda: d3dp.sample(x2d, x2d_f, generator=g), reps) if reps else None
+        ok = counts == want and bool(torch.isfinite(res).all())
+        log(f"[lab] D3DP.sample B={B} H={H} K={K} F={F} bf16 level {level} {tag}: "
+            + (f"{ms / 1e3:.4f} s/call (median of {reps}), "
+               f"{B * H * F * K * 1e3 / ms:.1f} hyp*frames/s; " if ms else "")
+            + f"launches {counts} (expected {want}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"D3DP.sample at level {level} under {tag}: launch counts or non-finite output")
+        out[f"sample L{level} {tag}"] = dict(sample_s=None if ms is None else ms / 1e3,
+                                             launches=counts)
+        return res, counts
+
+    l4 = {"attention_stage": 2 * DEPTH * K, "mlp_block_t": 2 * DEPTH * K}
+    prod, _ = sample("production", {}, 4, 70, 2, l4)
+    at4 = {}
+    for tag, settings in (("fold0", {"D3DP_SOFTMAX_FOLD": "0"}),
+                          ("bf16exp", {"D3DP_ATTN_VARIANT": "bf16exp"}),
+                          ("group8", {"D3DP_SPATIAL_GROUP": "8"}),
+                          ("group15", {"D3DP_SPATIAL_GROUP": "15"}),
+                          ("group18", {"D3DP_SPATIAL_GROUP": "18"}),
+                          ("bf16gelu", {"D3DP_MLP_VARIANT": "bf16gelu"}),
+                          ("nogelu", {"D3DP_MLP_VARIANT": "nogelu"})):
+        at4[tag], counts = sample(tag, settings, 4, 70, 0 if tag in ("group15", "group18") else 2,
+                                  l4)
+        out[f"sample L4 {tag}"]["max_abs_diff_vs_production"] = \
+            (at4[tag] - prod).abs().max().item()
+        for kind in ("attention_stage", "mlp_block_t"):
+            if f"{kind}[{tag}]" in LAB:
+                launches[f"{kind}[{tag}]"] = counts.get(kind, 0)
+    hm, counts = sample("hmqkv fold0", LAB["attention_stage_hm[fold0]"][0], 4, 70, 0,
+                        {"attention_stage_hm": 2 * DEPTH * K, "mlp_block_t": 2 * DEPTH * K})
+    check(torch.equal(hm, at4["fold0"]), "K8 under fold0 differs from K1 under fold0")
+    launches["attention_stage_hm[fold0]"] = counts.get("attention_stage_hm", 0)
+    for tag in ("fold0", "bf16exp", "bf16gelu", "nogelu"):
+        name = f"resident_block_stack[{tag}]"
+        res, counts = sample(tag, LAB[name][0], 5, 70, 2 if tag in ("bf16exp", "bf16gelu") else 0,
+                             {"resident_block_stack": K})
+        equal = torch.equal(res, at4[tag])
+        log(f"[lab] level 5 vs level 4 under {tag}: max|diff| "
+            f"{(res - at4[tag]).abs().max().item():.3e}, equal {equal} {'ok' if equal else 'FAIL'}")
+        check(equal, f"level 5 differs from level 4 under {tag}")
+        launches[name] = counts.get("resident_block_stack", 0)
+    for tag in ("bf16gelu", "nogelu"):
+        _, counts = sample(tag, LAB[f"mlp_block[{tag}]"][0], 1, 70, 0,
+                           {"fused_attention_qkv": 2 * DEPTH * K, "mlp_block": 2 * DEPTH * K})
+        launches[f"mlp_block[{tag}]"] = counts.get("mlp_block", 0)
+    set_level(d3dp.model, 4)
+
+    # the train-fused path: one step under each switch that reaches K1-dp or K2-dp
+    train = D3DP(train_config(torch), seed=0)
+    step = make_train_step(train, make_optimizer(train.model.parameters(), 6e-5))
+    g = torch.Generator(device="cuda").manual_seed(71)
+    b2d = torch.randn(BT, F, J, 2, generator=g, device="cuda") * 0.3
+    b3d = torch.randn(BT, F, J, 3, generator=g, device="cuda") * 0.3
+    want = train_fused_counts(4, DEPTH)
+    for tag, name in (("fold0", "attention_stage_dp[fold0]"),
+                      ("bf16exp", "attention_stage_dp[bf16exp]"),
+                      ("bf16gelu", "mlp_block_t_dp[bf16gelu]"),
+                      ("nogelu", "mlp_block_t_dp[nogelu]")):
+        with env_vars({**LAB[name][0], "D3DP_TRAIN_FUSED": "1"}):
+            reset_counts()
+            loss = step(b2d, b3d, torch.ones(BT, device="cuda"), generator=g)
+            torch.cuda.synchronize()
+            counts = {n: c for n, c in read_counts().items() if c}
+        ok = counts == want and math.isfinite(loss.item())
+        log(f"[lab] D3DP_TRAIN_FUSED=1 step, batch {BT}x{F}, bf16, level 4 under {tag}: loss "
+            f"{loss.item():.4f}; launches {counts} {'ok' if ok else 'FAIL'}")
+        check(ok, f"train-fused step under {tag}: launch counts or non-finite loss")
+        launches[name] = counts.get(name.split("[")[0], 0)
+    del train, step
+
+    # K5-dp through its public op, and noy2 through the stage op
+    gen = torch.Generator(device="cuda").manual_seed(72)
+    a = mlp_inputs(torch, gen, F, J, torch.bfloat16, BT)
+    a[:2] = [v.view(-1, C).requires_grad_(True) for v in a[:2]]
+    dp = dp_scales(torch, gen, (BT * F * J,))
+    for tag in ("bf16gelu", "nogelu"):
+        with env_vars(LAB[f"mlp_block_dp[{tag}]"][0]):
+            reset_counts()
+            y = M.mlp_block_dp_ad(*a, dp, 1e-6)
+            grads = torch.autograd.grad(y, a[:2], torch.randn_like(y))
+            torch.cuda.synchronize()
+        n = read_counts()["mlp_block_dp"]
+        ok = n == 1 and all(bool(torch.isfinite(v).all()) for v in (y, *grads))
+        log(f"[lab] mlp_block_dp_ad under {tag} forward + backward: launches {n} "
+            f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"mlp_block_dp_ad under {tag}: launches or non-finite")
+        launches[f"mlp_block_dp[{tag}]"] = n
+    reset_counts()
+    with env_vars(LAB["attention_stage[noy2]"][0]):
+        for Rr, N in ((ROWS * F, J), (ROWS * J, F)):
+            x2, _ = A.attention_stage(*stage_inputs(torch, gen, Rr, N, torch.bfloat16), HEADS,
+                                      0.125, 1e-6)
+            check(bool(torch.isfinite(x2).all()), "noy2: non-finite x2")
+    torch.cuda.synchronize()
+    launches["attention_stage[noy2]"] = read_counts()["attention_stage"]
+    check(launches["attention_stage[noy2]"] == 2, "noy2: the stage op did not launch K1")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[lab] phase lab_switches: {out['seconds']:.1f} s")
+    record["lab_switches"] = out
+    return errs, launches
+
+
 def summarize_profile(torch, prof, wall_ms, what, tag, top=12):
     """Log and return the device kernels' time by name (device-side events
     only: an aten op's own entry repeats the device time of its kernels, and
@@ -1446,9 +1871,10 @@ def phase_profile(torch, record, d3dp, x2d, x2d_f):
                                           "profile")
 
 
-def library_attention(torch, Fn):
+def library_attention(torch, Fn, with_y2=True):
     """layer_norm, F.linear, SDPA, F.linear, the residual (its branch scaled
-    by dp where given) and layer_norm (the yardstick of K1, K1-dp, K8)."""
+    by dp where given) and, with_y2, layer_norm (the yardstick of K1, K1-dp,
+    K8; without y2, of K1 under noy2)."""
     def run(x, wqkv_t, bqkv, wp_t, bp, l1s, l1b, l2s, l2b, dp=None):
         R, N, _ = x.shape
         y1 = Fn.layer_norm(x, (C,), l1s, l1b, 1e-6)
@@ -1457,16 +1883,17 @@ def library_attention(torch, Fn):
         o = Fn.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(R, N, C)
         branch = Fn.linear(o, wp_t, bp)
         x2 = x + (branch if dp is None else branch * dp[:, None, None])
-        return x2, Fn.layer_norm(x2, (C,), l2s, l2b, 1e-6)
+        return (x2, Fn.layer_norm(x2, (C,), l2s, l2b, 1e-6)) if with_y2 else x2
     return run
 
 
-def library_mlp(torch, Fn, transpose=True):
-    """F.linear, GELU, F.linear, the residual (its branch scaled by dp where
-    given) and layer_norm (the yardstick of K5, K5-dp), then the relayout
-    (of K2, K2-dp)."""
+def library_mlp(torch, Fn, transpose=True, act=True):
+    """F.linear, GELU (without act: none, nogelu's function), F.linear, the
+    residual (its branch scaled by dp where given) and layer_norm (the
+    yardstick of K5, K5-dp), then the relayout (of K2, K2-dp)."""
     def run(x, res, w1_t, b1, w2_t, b2, ls, lb, dp=None):
-        h = Fn.gelu(Fn.linear(x, w1_t, b1))
+        h = Fn.linear(x, w1_t, b1)
+        h = Fn.gelu(h) if act else h
         branch = Fn.linear(h, w2_t, b2)
         if dp is not None:
             branch = branch * dp.reshape(*dp.shape, *(1,) * (x.dim() - dp.dim()))
@@ -1710,7 +2137,8 @@ def kernels_line(rows, errs, launches):
     K9 from one D3DP.sample call at fuse level 5 (phase resident), K1-dp
     and K2-dp from the train-fused steps (phase train_fused), K5-dp from its
     public op (phase public_dp), K8 from one D3DP.sample call with hmqkv
-    (phase hmqkv)."""
+    (phase hmqkv); each lab-switch instantiation from its path in phase
+    lab_switches (`phase_lab_switches`)."""
     meta = {"attention_stage": ("d3dp_tpu_torch/ops/csrc/attention_stage.cu",
                                 "d3dp_tpu/ops/attention.py:396"),
             "mlp_block_t": ("d3dp_tpu_torch/ops/csrc/mlp_block_t.cu",
@@ -1733,12 +2161,16 @@ def kernels_line(rows, errs, launches):
             "mlp_block_dp": ("d3dp_tpu_torch/ops/csrc/mlp_block_t.cu", "d3dp_tpu/ops/mlp.py:378"),
             "attention_stage_hm": ("d3dp_tpu_torch/ops/csrc/attention_stage.cu",
                                    "d3dp_tpu/ops/attention.py:480")}
+    # each lab-switch instantiation (phase lab_switches): the source of the
+    # kernel it runs, the line of the TPU kernel's switch
+    meta.update({name: (meta[name.split("[")[0]][0], rep) for name, (_, rep) in LAB.items()})
     out = []
     for name, (src, rep) in meta.items():
         rs = [r for k, r in rows.items() if k.startswith(name + "/")]
 
         def mean(key):
-            return sum(r[key] for r in rs) / len(rs)
+            vals = [r[key] for r in rs]
+            return None if None in vals else sum(vals) / len(vals)
         bound_by = "operations" if all(r["bound_by"] == "operations" for r in rs) else "bytes"
         out.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                     "launches": launches[name], "max_abs_err": errs[name], "ms": mean("ms"),
@@ -1768,11 +2200,14 @@ def main():
     phase_fuse_levels(torch, record, d3dp, x2d, x2d_f)
     phase_resident(torch, record, d3dp, x2d, x2d_f, rows)
     phase_hmqkv(torch, record, d3dp, x2d, x2d_f)
-    del d3dp
     phase_train(torch, record)
     phase_train_fused(torch, record)
     phase_packed(torch, record)
     phase_public_dp(torch, record)
+    lab_errs, lab_launches = phase_lab_switches(torch, record, d3dp, x2d, x2d_f, rows)
+    errs.update(lab_errs)
+    record["launches"].update(lab_launches)
+    del d3dp
     phase_cli(torch, record)
     line = kernels_line(rows, errs, record["launches"])
     record["kernels"] = line["kernels"]

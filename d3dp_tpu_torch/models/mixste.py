@@ -303,7 +303,7 @@ class MixSTE2(nn.Module):
         cfg = self.cfg
         scale = cfg.attn_scale
         if cfg.fuse_level >= 4:
-            if attention.stage_kernel(h) == "head_major":
+            if attention.stage_config(h)[0] == "head_major":
                 return attention.attention_stage_hm(
                     h, *w["hm"], w["wp"], w["bp"], w["ln1s"], w["ln1b"], w["ln2s"],
                     w["ln2b"], cfg.num_heads, scale, BLOCK_EPS)

@@ -13,13 +13,23 @@ same function with the qkv weights stacked (h, C, 3d) outside the kernel
 (`stack_head_major`).
 
 The lab switches are read where the JAX package reads them, when an op is
-called: `stage_variant` resolves `D3DP_ATTN_VARIANT_T` (N >= 128) or
-`D3DP_ATTN_VARIANT_S`, then `D3DP_ATTN_VARIANT`. "", "loop" and "batched"
-(the production math) run the stage kernel, "hmqkv" the head-major one;
-every other value, a `D3DP_SPATIAL_GROUP` that groups the stage, and bf16
-with `D3DP_SOFTMAX_FOLD` other than 1 raise "not ported yet" instead of
-computing something else than the JAX package. The DropPath form ignores
-the variant, as in JAX, but for bf16exp.
+called, and resolved as `_attention_stage_fwd` resolves them
+(`stage_config`): `stage_variant` picks `D3DP_ATTN_VARIANT_T` (N >= 128)
+or `D3DP_ATTN_VARIANT_S`, then `D3DP_ATTN_VARIANT`. "hmqkv" runs the
+head-major stage (K8); every other value runs the stage kernel (K1) with
+options: "", "loop", "batched", "pipelined", "phasesplit" and any unknown
+value compute the production math (the TPU schedules differ in issue order
+only); "bf16exp" (bf16) takes p = bf16(exp(bf16(s - m))) with l summed in
+fp32 from it; "noy2" writes x2 alone and leaves y2 unwritten.
+`D3DP_SOFTMAX_FOLD` other than 1 (bf16, K1 and K8) rounds p / l to bf16
+before P.V instead of folding 1/l into the output. `D3DP_SPATIAL_GROUP=g`
+on a stage of N <= 32 tokens whose R rows divide by g folds g sequences
+into one of g*N tokens (a view) with a block-diagonal mask, each query
+seeing only its own sequence's keys; under it "hmqkv" runs K1, and
+"batched" raises as the JAX package's assert does. The DropPath form
+never groups and keeps "", "batched" and "bf16exp", any other variant
+running as "". The options reach the kernels as the `OPT_*` flags and the
+mask block (`csrc/common.cuh`); the plain versions take the same.
 
 `attention_block` is the counterpart of `attention_block_p`: the same from
 a precomputed qkv projection and a residual, (x2, y2) with x2 = res +
@@ -63,8 +73,8 @@ HEAD_DIM = 64
 MAX_TOKENS = 256
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIG = [_P] * 13 + [_I, _I, _I, _I, _F, _F, _P]
-_SIG_DP = [_P] * 14 + [_I, _I, _I, _I, _F, _F, _P]
+_SIG = [_P] * 13 + [_I] * 6 + [_F, _F, _P]
+_SIG_DP = [_P] * 14 + [_I] * 6 + [_F, _F, _P]
 _FN = {torch.bfloat16: "d3dp_attention_stage_bf16",
        torch.float32: "d3dp_attention_stage_f32"}
 _DP_FN = {torch.bfloat16: "d3dp_attention_stage_dp_bf16",
@@ -107,43 +117,42 @@ def spatial_group():
     return int(v) if v else 0
 
 
-def not_ported(what):
-    return NotImplementedError(f"{what} is not ported yet: d3dp_tpu_torch has no kernel "
-                               "for this lab switch of the JAX package")
+# the stage kernels' lab-switch flags (kOpt* in csrc/common.cuh)
+OPT_NORM_FIRST = 1  # bf16: p / l rounded before P.V (D3DP_SOFTMAX_FOLD != 1)
+OPT_BF16_EXP = 2  # bf16: p = bf16(exp(bf16(s - m))) (bf16exp)
+OPT_NO_Y2 = 4  # x2 only, y2 left unwritten (noy2)
 
 
-def check_softmax_fold(dtype):
-    """The bf16 stage kernels fold 1/l into the attention output unless
-    `D3DP_SOFTMAX_FOLD` is other than 1 (JAX `_attn_stage_kernel`)."""
-    v = os.environ.get("D3DP_SOFTMAX_FOLD", "1")
-    if dtype == torch.bfloat16 and v != "1":
-        raise not_ported(f"D3DP_SOFTMAX_FOLD={v}")
+def fold_opts(dtype):
+    """OPT_NORM_FIRST where `D3DP_SOFTMAX_FOLD` is other than 1 in bf16 (the
+    JAX stage kernels' `fold_div`; fp32 always divides first), else 0."""
+    return OPT_NORM_FIRST if (dtype == torch.bfloat16
+                              and os.environ.get("D3DP_SOFTMAX_FOLD", "1") != "1") else 0
 
 
-# the variants that compute the production per-head math
-_K1_VARIANTS = ("", "loop", "batched")
-
-
-def stage_kernel(x, dp=False):
-    """The stage kernel the lab switches select for x (R, N, C), as the JAX
-    package's `_attention_stage_fwd` selects it: "packed" (K1) or
-    "head_major" (K8). The DropPath form (dp=True) runs K1 whatever the
-    variant, except bf16exp in bf16. Raises for what is not ported."""
+def stage_config(x, dp=False):
+    """(kernel, opts, group) the lab switches select for the stage on x
+    (R, N, C), resolved as the JAX package's `_attention_stage_fwd`:
+    kernel "packed" (K1) or "head_major" (K8), opts the OPT_* flags, and
+    group g > 1 where g sequences fold into one masked attention (1
+    otherwise). dp: the DropPath form."""
     R, N = x.shape[0], x.shape[1]
-    check_softmax_fold(x.dtype)
+    opts = fold_opts(x.dtype)
+    g = 1 if dp else spatial_group()
+    group = g if g > 1 and N <= 32 and R % g == 0 else 1
     v = stage_variant(N)
-    if dp:
-        if v == "bf16exp" and x.dtype == torch.bfloat16:
-            raise not_ported(f"the attention-stage variant {v!r}")
-        return "packed"
-    g = spatial_group()
-    if g > 1 and N <= 32 and R % g == 0:
-        raise not_ported(f"D3DP_SPATIAL_GROUP={g} (grouped spatial attention)")
-    if v == "hmqkv":
-        return "head_major"
-    if v not in _K1_VARIANTS:
-        raise not_ported(f"the attention-stage variant {v!r}")
-    return "packed"
+    if dp and v not in ("", "batched", "bf16exp"):
+        v = ""  # the lab variants do not carry the DropPath input
+    if v == "batched" and group > 1:
+        raise ValueError(f"D3DP_SPATIAL_GROUP={g} and the batched attention variant do not "
+                         "compose (the JAX stage kernel asserts the same)")
+    if v == "hmqkv" and group == 1:
+        return "head_major", opts, 1
+    if v == "bf16exp" and x.dtype == torch.bfloat16:
+        opts |= OPT_BF16_EXP
+    if v == "noy2":
+        opts |= OPT_NO_Y2
+    return "packed", opts, group
 
 
 def _split(t, parts, num_heads):
@@ -170,68 +179,88 @@ def stack_head_major(wqkv, bqkv, num_heads):
     return w.contiguous(), b.contiguous()
 
 
-def _stage_tail_plain(x32, q, k, v, wp, bp, ln2_s, ln2_b, scale, eps, dt, dp_row):
+def _stage_tail_plain(x32, q, k, v, wp, bp, ln2_s, ln2_b, scale, eps, dt, dp_row, opts=0,
+                      mask_block=0):
     """Attention from (R, h, N, d) q, k, v in the stage kernels' order, then
-    the out-projection, the (DropPath-scaled) residual and LN2."""
+    the out-projection, the (DropPath-scaled) residual and LN2; opts and
+    mask_block: the lab switches, as `attention_stage_plain` takes them."""
     s = _mm(q, k.transpose(-1, -2)) * scale
+    if mask_block:
+        blk = torch.arange(s.shape[-1], device=s.device) // mask_block
+        s = s + torch.where(blk[:, None] == blk[None, :], 0.0, -1e30)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
+    if opts & OPT_BF16_EXP and dt == torch.bfloat16:
+        p = torch.exp((s - m).to(dt)).float()
+    else:
+        p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     if dt == torch.float32:
         o = _mm(p / l, v)
+    elif opts & OPT_NORM_FIRST:
+        o = _mm((p / l).to(dt), v)
     else:
         o = _mm(p.to(dt), v) * (1.0 / l)
     branch = _mm(_merge(o.to(dt)), wp) + bp.float()
     if dp_row is not None:
         branch = branch * dp_row.float()[:, None, None]
     x2 = x32 + branch
+    if opts & OPT_NO_Y2:
+        return x2.to(dt), torch.empty_like(x2, dtype=dt)
     y2 = layer_norm_rows(x2, ln2_s, ln2_b, eps)
     return x2.to(dt), y2.to(dt)
 
 
 def attention_stage_plain(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
-                          num_heads, scale, eps, dp_row=None):
-    """Plain torch ops, in the order of the TPU kernel's production math.
+                          num_heads, scale, eps, dp_row=None, opts=0, mask_block=0):
+    """Plain torch ops, in the order of the TPU kernel's math.
 
     x: (R, N, C) in the compute dtype (fp32 or bf16); wqkv (C, 3C) and
     wp (C, C) in the compute dtype; biases and LN params fp32.
     fp32: p is divided by l before P.V. bf16: qkv rounds to bf16 after its
     bias, P.V runs on bf16 p with 1/l folded into the output, and the
     attention output rounds to bf16 before the projection. dp_row (R,)
-    fp32: the DropPath form's branch scales.
+    fp32: the DropPath form's branch scales. opts: the OPT_* lab switches
+    (OPT_NORM_FIRST: p / l rounded to bf16 before P.V; OPT_BF16_EXP:
+    p = bf16(exp(bf16(s - m))), l its fp32 sum; OPT_NO_Y2: y2 left
+    unwritten). mask_block > 0: x holds whole blocks of mask_block tokens
+    (the grouped fold) and JAX's additive -1e30 block-diagonal mask keeps
+    each query to its own block.
     """
     dt = x.dtype
     x32 = x.float()
     y1 = layer_norm_rows(x32, ln1_s, ln1_b, eps)
     qkv = (_mm(y1.to(dt), wqkv) + bqkv.float()).to(dt)
     q, k, v = _split(qkv, 3, num_heads)
-    return _stage_tail_plain(x32, q, k, v, wp, bp, ln2_s, ln2_b, scale, eps, dt, dp_row)
+    return _stage_tail_plain(x32, q, k, v, wp, bp, ln2_s, ln2_b, scale, eps, dt, dp_row, opts,
+                             mask_block)
 
 
 def attention_stage_dp_plain(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b, dp_row,
-                             num_heads, scale, eps):
+                             num_heads, scale, eps, opts=0):
     """`attention_stage_plain` with the branch scaled by dp_row (R,)."""
     return attention_stage_plain(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
-                                 num_heads, scale, eps, dp_row=dp_row)
+                                 num_heads, scale, eps, dp_row=dp_row, opts=opts)
 
 
 def attention_stage_hm_plain(x, wqkv_hm, bqkv_hm, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
-                             num_heads, scale, eps):
+                             num_heads, scale, eps, opts=0):
     """Plain torch ops of the head-major stage (`_attn_stage_kernel_hm`):
     per-head qkv projections from the (h, C, 3d) stack, rounded to the
-    compute dtype after their bias, then the stage's attention and tail."""
+    compute dtype after their bias, then the stage's attention and tail
+    (opts: OPT_NORM_FIRST, the one switch the JAX kernel reads)."""
     dt = x.dtype
     x32 = x.float()
     y1 = layer_norm_rows(x32, ln1_s, ln1_b, eps).to(dt)
     qkv = torch.stack([(_mm(y1, wqkv_hm[i]) + bqkv_hm[i].float()).to(dt)
                        for i in range(num_heads)], dim=1)  # (R, h, N, 3d)
     q, k, v = qkv.chunk(3, dim=-1)
-    return _stage_tail_plain(x32, q, k, v, wp, bp, ln2_s, ln2_b, scale, eps, dt, None)
+    return _stage_tail_plain(x32, q, k, v, wp, bp, ln2_s, ln2_b, scale, eps, dt, None, opts)
 
 
-def _check_rows(x, num_heads, what, fns):
+def _check_rows(x, num_heads, what, fns, mask_block=0):
     """Device, rank, dtype, head and token-count checks of a (R, N, C)
-    stage input; returns (R, N, C)."""
+    stage input (N whole blocks of mask_block <= 32 tokens where masked);
+    returns (R, N, C)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dim() != 3:
@@ -242,16 +271,19 @@ def _check_rows(x, num_heads, what, fns):
     if C != num_heads * HEAD_DIM or C % 64 or C > 1024:
         raise ValueError(f"{what}: needs head_dim {HEAD_DIM} and "
                          f"C % 64 == 0, C <= 1024 (C={C}, heads={num_heads})")
-    if not 1 <= N <= MAX_TOKENS:
+    if mask_block:
+        if not 1 <= mask_block <= 32 or N % mask_block:
+            raise ValueError(f"{what}: N={N} is not whole blocks of {mask_block} <= 32 tokens")
+    elif not 1 <= N <= MAX_TOKENS:
         raise ValueError(f"{what}: N={N} outside 1..{MAX_TOKENS}")
     return R, N, C
 
 
 def _launch_stage(what, fns, sig, x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
-                  dp_row, num_heads, scale, eps, head_major=False):
-    """Check the operands of one of the stage's three forms and launch it;
-    returns (x2, y2)."""
-    R, N, C = _check_rows(x, num_heads, what, fns)
+                  dp_row, num_heads, scale, eps, head_major=False, opts=0, mask_block=0):
+    """Check the operands of one of the stage's three forms and launch it
+    with the lab switches opts and mask_block; returns (x2, y2)."""
+    R, N, C = _check_rows(x, num_heads, what, fns, mask_block)
     dt = x.dtype
     dev = x.device
     f32 = torch.float32
@@ -278,39 +310,48 @@ def _launch_stage(what, fns, sig, x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, fns[dt])(*ptrs, qkv.data_ptr(), o.data_ptr(), x2.data_ptr(),
-                                    y2.data_ptr(), R, N, C, num_heads, float(scale), float(eps),
-                                    stream)
+                                    y2.data_ptr(), R, N, C, num_heads, opts, mask_block,
+                                    float(scale), float(eps), stream)
     _build.check(err, what)
     return x2, y2
 
 
 def attention_stage(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
                     num_heads, scale, eps):
-    """(x2, y2) of the attention stage; see the module docstring. Under the
-    `hmqkv` variant it stacks the weights head-major and runs
-    `attention_stage_hm`, as the JAX package does."""
-    if stage_kernel(x) == "head_major":
+    """(x2, y2) of the attention stage under the lab switches
+    (`stage_config`; see the module docstring). Under the `hmqkv` variant
+    it stacks the weights head-major and runs `attention_stage_hm`, as the
+    JAX package does; grouped, it runs on the (R/g, g*N, C) view of x with
+    the block mask."""
+    kernel, opts, group = stage_config(x)
+    if kernel == "head_major":
         return attention_stage_hm(x, *stack_head_major(wqkv, bqkv, num_heads), wp, bp, ln1_s,
                                   ln1_b, ln2_s, ln2_b, num_heads, scale, eps)
+    R, N, C = x.shape
+    mask_block = N if group > 1 else 0
+    xg = x.view(R // group, group * N, C) if group > 1 else x
     if x.device.type == "cpu":
-        return attention_stage_plain(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b,
-                                     ln2_s, ln2_b, num_heads, scale, eps)
-    out = _launch_stage("attention_stage", _FN, _SIG, x, wqkv, bqkv, wp, bp, ln1_s, ln1_b,
-                        ln2_s, ln2_b, None, num_heads, scale, eps)
-    attention_stage.launches += 1
-    return out
+        x2, y2 = attention_stage_plain(xg, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
+                                       num_heads, scale, eps, opts=opts, mask_block=mask_block)
+    else:
+        x2, y2 = _launch_stage("attention_stage", _FN, _SIG, xg, wqkv, bqkv, wp, bp, ln1_s,
+                               ln1_b, ln2_s, ln2_b, None, num_heads, scale, eps, opts=opts,
+                               mask_block=mask_block)
+        attention_stage.launches += 1
+    return x2.view(R, N, C), y2.view(R, N, C)
 
 
 def attention_stage_dp(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b, dp_row,
                        num_heads, scale, eps):
     """(x2, y2) of the attention stage with the branch, projection bias
-    included, scaled by dp_row (R,) fp32 before the residual add."""
-    stage_kernel(x, dp=True)
+    included, scaled by dp_row (R,) fp32 before the residual add; the lab
+    switches as `stage_config(x, dp=True)` resolves them."""
+    _, opts, _ = stage_config(x, dp=True)
     if x.device.type == "cpu":
         return attention_stage_dp_plain(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
-                                        dp_row, num_heads, scale, eps)
+                                        dp_row, num_heads, scale, eps, opts=opts)
     out = _launch_stage("attention_stage_dp", _DP_FN, _SIG_DP, x, wqkv, bqkv, wp, bp, ln1_s,
-                        ln1_b, ln2_s, ln2_b, dp_row, num_heads, scale, eps)
+                        ln1_b, ln2_s, ln2_b, dp_row, num_heads, scale, eps, opts=opts)
     attention_stage_dp.launches += 1
     return out
 
@@ -319,13 +360,15 @@ def attention_stage_hm(x, wqkv_hm, bqkv_hm, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
                        num_heads, scale, eps):
     """(x2, y2) of the head-major attention stage (the `hmqkv` variant's
     kernel): qkv weights (h, C, 3d) and bias (h, 1, 3d) from
-    `stack_head_major`, the rest as `attention_stage`."""
-    check_softmax_fold(x.dtype)
+    `stack_head_major`, the rest as `attention_stage`; `D3DP_SOFTMAX_FOLD`
+    is the one switch it reads (`fold_opts`)."""
+    opts = fold_opts(x.dtype)
     if x.device.type == "cpu":
         return attention_stage_hm_plain(x, wqkv_hm, bqkv_hm, wp, bp, ln1_s, ln1_b, ln2_s,
-                                        ln2_b, num_heads, scale, eps)
+                                        ln2_b, num_heads, scale, eps, opts=opts)
     out = _launch_stage("attention_stage_hm", _HM_FN, _SIG, x, wqkv_hm, bqkv_hm, wp, bp, ln1_s,
-                        ln1_b, ln2_s, ln2_b, None, num_heads, scale, eps, head_major=True)
+                        ln1_b, ln2_s, ln2_b, None, num_heads, scale, eps, head_major=True,
+                        opts=opts)
     attention_stage_hm.launches += 1
     return out
 

@@ -33,8 +33,8 @@ int attention_block(const void* qkv, const void* res, const void* wp, const void
       R > 0x7fffffff / N || heads > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  cudaError_t e = launch_attend_packed<T, true>((const T*)qkv, (T*)o, R, N, C, heads, scale,
-                                                stream);
+  cudaError_t e = launch_attend_packed<T>((const T*)qkv, (T*)o, R, N, C, heads, scale,
+                                          norm_first_opts(), stream);
   if (e != cudaSuccess) return (int)e;
   return (int)launch_proj_ln2<T>((const T*)o, (const T*)res, (const T*)wp, (const float*)bp,
                                  (const float*)lns, (const float*)lnb, (T*)x2, (T*)y2, R * N, C,

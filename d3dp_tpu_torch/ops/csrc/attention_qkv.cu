@@ -300,8 +300,8 @@ template <typename T>
 int attention_qkv_fwd(const void* qkv, void* out, int R, int N, int C, int heads, float scale,
                       void* stream) {
   if (!shapes_ok(R, N, C, heads)) return (int)cudaErrorInvalidValue;
-  return (int)launch_attend_packed<T, true>((const T*)qkv, (T*)out, R, N, C, heads, scale,
-                                            static_cast<cudaStream_t>(stream));
+  return (int)launch_attend_packed<T>((const T*)qkv, (T*)out, R, N, C, heads, scale,
+                                      norm_first_opts(), static_cast<cudaStream_t>(stream));
 }
 
 // K7: the same attention core read from separate packed q, k, v (R, N, C).
@@ -309,8 +309,8 @@ template <typename T>
 int attention_packed(const void* q, const void* k, const void* v, void* out, int R, int N, int C,
                      int heads, float scale, void* stream) {
   if (!shapes_ok(R, N, C, heads)) return (int)cudaErrorInvalidValue;
-  return (int)launch_attend<T, true>((const T*)q, (const T*)k, (const T*)v, C, (T*)out, R, N, C,
-                                     heads, scale, static_cast<cudaStream_t>(stream));
+  return (int)launch_attend<T>((const T*)q, (const T*)k, (const T*)v, C, (T*)out, R, N, C, heads,
+                               scale, norm_first_opts(), static_cast<cudaStream_t>(stream));
 }
 
 template <typename T, bool kKeys>

@@ -3,14 +3,26 @@
 //   x2 = x + (o @ Wp + bp); y2 = LN2(x2).     Writes x2 and y2.
 //
 // Replaces the TPU kernels d3dp_tpu/ops/attention.py `_attn_stage_kernel`
-// (launcher `_attention_stage_fwd`), the production per-head math, with its
-// DropPath input (`has_dp`, API `attention_stage_dp_p`: the branch,
-// projection bias included, scaled per sequence in fp32 before the residual
-// add; entry points `d3dp_attention_stage_dp_*`), and `_attn_stage_kernel_hm`
-// (the `hmqkv` variant: qkv weights stacked head-major (h, C, 3d) outside
-// the kernel; entry points `d3dp_attention_stage_hm_*`). `batched` computes
-// the production math and runs this kernel too; the other lab schedules
-// (pipelined, phasesplit, bf16exp, noy2, grouped spatial) are not ported.
+// (launcher `_attention_stage_fwd`) with its DropPath input (`has_dp`, API
+// `attention_stage_dp_p`: the branch, projection bias included, scaled per
+// sequence in fp32 before the residual add; entry points
+// `d3dp_attention_stage_dp_*`), and `_attn_stage_kernel_hm` (the `hmqkv`
+// variant: qkv weights stacked head-major (h, C, 3d) outside the kernel;
+// entry points `d3dp_attention_stage_hm_*`).
+//
+// The TPU kernel's lab switches arrive as `opts` and `mask_block` (the
+// kOpt* flags in common.cuh); 0, 0 is the production math, which the
+// `loop`, `batched`, `pipelined` and `phasesplit` schedules all compute:
+//   kOptNormFirst (D3DP_SOFTMAX_FOLD != 1, bf16; all three forms): attend
+//     rounds p / l to bf16 before P.V instead of folding 1/l into the output;
+//   kOptBf16Exp (D3DP_ATTN_VARIANT=bf16exp, bf16; K1 and its DropPath form):
+//     attend takes p = bf16(exp(bf16(s - m))) and sums l from it in fp32;
+//   kOptNoY2 (noy2; K1 only): proj_ln2 writes x2 alone, y2 stays unwritten;
+//   mask_block (D3DP_SPATIAL_GROUP=g; K1 only): the caller folds g sequences
+//     of N0 <= 32 tokens into one of g * N0 (a view), and attend masks every
+//     key outside the query's own block of N0, as JAX's additive -1e30 mask
+//     does. A block of <=64 queries then reads only the whole blocks its
+//     queries span, at most 64 + 2 * 32 keys, so g * N0 may exceed 256.
 //
 // What bounds it on the H100: the two projections (2*T*C*3C + 2*T*C*C FLOPs
 // over T tokens) dominate; attention adds 4*T*N*C. At the MixSTE shapes
@@ -68,26 +80,29 @@ ln_qkv_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attend_hm_kernel(const T* __restrict__ qkv_hm, T* __restrict__ out, int M, int N, int C,
-                 float scale, AttnLayout L) {
+                 float scale, AttnLayout L, AttnOpts opts) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int d3 = 3 * kHeadDim;
   const int h = blockIdx.y;
   const T* q = qkv_hm + (size_t)h * M * d3 - h * kHeadDim;
-  attend_tile<T, false>(q, q + kHeadDim, q + 2 * kHeadDim, d3, out, N, C, scale, L, smem,
-                        blockIdx.x, h, blockIdx.z);
+  attend_tile<T>(q, q + kHeadDim, q + 2 * kHeadDim, d3, out, N, C, scale, L, opts, smem,
+                 blockIdx.x, h, blockIdx.z);
 }
 
 // ---------------------------------------------------------------- host entry
 // dp: nullptr, or R fp32 branch scales (one per sequence). kHeadMajor: wqkv
-// (h, C, 3d), bqkv (h, 3d) and the qkv scratch (h, R*N, 3d).
+// (h, C, 3d), bqkv (h, 3d) and the qkv scratch (h, R*N, 3d). opts, mask_block:
+// the lab switches (file header; 0, 0 for production).
 template <typename T, bool kHeadMajor>
 int attention_stage(const void* x, const void* wqkv, const void* bqkv, const void* wp,
                     const void* bp, const void* ln1s, const void* ln1b, const void* ln2s,
                     const void* ln2b, const void* dp, void* qkv, void* o, void* x2, void* y2,
-                    int R, int N, int C, int heads, float scale, float eps, void* stream_) {
-  if (R < 1 || N < 1 || N > kMaxKeys || C % 64 != 0 || C > 1024 || heads * kHeadDim != C ||
-      R > 0x7fffffff / N || heads > 65535)
+                    int R, int N, int C, int heads, int opts, int mask_block, float scale,
+                    float eps, void* stream_) {
+  if (R < 1 || N < 1 || !attn_keys_ok(N, mask_block) || C % 64 != 0 || C > 1024 ||
+      heads * kHeadDim != C || R > 0x7fffffff / N || heads > 65535)
     return (int)cudaErrorInvalidValue;
+  const AttnOpts ao = attn_opts(opts, mask_block);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const int M = R * N;
   constexpr int BM = Cfg<T>::BM;
@@ -104,22 +119,22 @@ int attention_stage(const void* x, const void* wqkv, const void* bqkv, const voi
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   if constexpr (kHeadMajor) {
-    const AttnLayout L = attn_layout<T>(N);
+    const AttnLayout L = attn_layout<T>(N, mask_block);
     if ((e = cudaFuncSetAttribute(attend_hm_kernel<T>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total)) !=
         cudaSuccess)
       return (int)e;
     attend_hm_kernel<T><<<dim3(R, heads, cdiv(N, L.QB)), kThreads, L.total, stream>>>(
-        (const T*)qkv, (T*)o, M, N, C, scale, L);
+        (const T*)qkv, (T*)o, M, N, C, scale, L, ao);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   } else {
-    if ((e = launch_attend_packed<T, false>((const T*)qkv, (T*)o, R, N, C, heads, scale,
-                                            stream)) != cudaSuccess)
+    if ((e = launch_attend_packed<T>((const T*)qkv, (T*)o, R, N, C, heads, scale, ao,
+                                     stream)) != cudaSuccess)
       return (int)e;
   }
   return (int)launch_proj_ln2<T>((const T*)o, (const T*)x, (const T*)wp, (const float*)bp,
                                  (const float*)ln2s, (const float*)ln2b, (T*)x2, (T*)y2, M, C,
-                                 eps, stream, (const float*)dp, N);
+                                 eps, stream, (const float*)dp, N, !(opts & kOptNoY2));
 }
 
 }  // namespace d3dp
@@ -128,47 +143,40 @@ int attention_stage(const void* x, const void* wqkv, const void* bqkv, const voi
   const void *x, const void *wqkv, const void *bqkv, const void *wp, const void *bp,           \
       const void *ln1s, const void *ln1b, const void *ln2s, const void *ln2b
 #define D3DP_STAGE_TAIL                                                                         \
-  void *qkv, void *o, void *x2, void *y2, int R, int N, int C, int heads, float scale,         \
-      float eps, void *stream
+  void *qkv, void *o, void *x2, void *y2, int R, int N, int C, int heads, int opts,           \
+      int mask_block, float scale, float eps, void *stream
+#define D3DP_STAGE_CALL(T, HM, DP)                                                              \
+  d3dp::attention_stage<T, HM>(x, wqkv, bqkv, wp, bp, ln1s, ln1b, ln2s, ln2b, DP, qkv, o, x2, \
+                               y2, R, N, C, heads, opts, mask_block, scale, eps, stream)
 
 extern "C" {
 
+// Each entry: opts, mask_block as in the file header (0, 0: production).
 // K1: x (R, N, C); wqkv (C, 3C); qkv scratch (R, N, 3C).
 int d3dp_attention_stage_bf16(D3DP_STAGE_ARGS, D3DP_STAGE_TAIL) {
-  return d3dp::attention_stage<d3dp::bf16, false>(x, wqkv, bqkv, wp, bp, ln1s, ln1b, ln2s, ln2b,
-                                                  nullptr, qkv, o, x2, y2, R, N, C, heads,
-                                                  scale, eps, stream);
+  return D3DP_STAGE_CALL(d3dp::bf16, false, nullptr);
 }
 
 int d3dp_attention_stage_f32(D3DP_STAGE_ARGS, D3DP_STAGE_TAIL) {
-  return d3dp::attention_stage<float, false>(x, wqkv, bqkv, wp, bp, ln1s, ln1b, ln2s, ln2b,
-                                             nullptr, qkv, o, x2, y2, R, N, C, heads, scale, eps,
-                                             stream);
+  return D3DP_STAGE_CALL(float, false, nullptr);
 }
 
 // K1 with DropPath: dp (R,) fp32.
 int d3dp_attention_stage_dp_bf16(D3DP_STAGE_ARGS, const void* dp, D3DP_STAGE_TAIL) {
-  return d3dp::attention_stage<d3dp::bf16, false>(x, wqkv, bqkv, wp, bp, ln1s, ln1b, ln2s, ln2b,
-                                                  dp, qkv, o, x2, y2, R, N, C, heads, scale, eps,
-                                                  stream);
+  return D3DP_STAGE_CALL(d3dp::bf16, false, dp);
 }
 
 int d3dp_attention_stage_dp_f32(D3DP_STAGE_ARGS, const void* dp, D3DP_STAGE_TAIL) {
-  return d3dp::attention_stage<float, false>(x, wqkv, bqkv, wp, bp, ln1s, ln1b, ln2s, ln2b, dp,
-                                             qkv, o, x2, y2, R, N, C, heads, scale, eps, stream);
+  return D3DP_STAGE_CALL(float, false, dp);
 }
 
 // K8: wqkv (h, C, 3d), bqkv (h, 1, 3d); qkv scratch (h, R*N, 3d).
 int d3dp_attention_stage_hm_bf16(D3DP_STAGE_ARGS, D3DP_STAGE_TAIL) {
-  return d3dp::attention_stage<d3dp::bf16, true>(x, wqkv, bqkv, wp, bp, ln1s, ln1b, ln2s, ln2b,
-                                                 nullptr, qkv, o, x2, y2, R, N, C, heads, scale,
-                                                 eps, stream);
+  return D3DP_STAGE_CALL(d3dp::bf16, true, nullptr);
 }
 
 int d3dp_attention_stage_hm_f32(D3DP_STAGE_ARGS, D3DP_STAGE_TAIL) {
-  return d3dp::attention_stage<float, true>(x, wqkv, bqkv, wp, bp, ln1s, ln1b, ln2s, ln2b,
-                                            nullptr, qkv, o, x2, y2, R, N, C, heads, scale, eps,
-                                            stream);
+  return D3DP_STAGE_CALL(float, true, nullptr);
 }
 
 }  // extern "C"

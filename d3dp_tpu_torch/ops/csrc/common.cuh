@@ -15,6 +15,7 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
@@ -234,18 +235,71 @@ __host__ __device__ constexpr size_t bs_bytes() {
 // ld = C), written to (R, N, C).
 constexpr int kHeadDim = 64;
 constexpr int kMaxKeys = 256;
+// grouped attention (mask_block > 0) folds sequences of at most this many
+// tokens (JAX `_attention_stage_fwd` groups only stages of N <= 32)
+constexpr int kMaxMaskBlock = 32;
+
+// The lab switches of the TPU stage kernels that change the attention math,
+// as the C entry points take them: one int of flags and the mask block.
+//   kOptNormFirst  (D3DP_SOFTMAX_FOLD != 1, bf16): p / l rounded to bf16
+//                  before P.V, where production folds 1/l into the output;
+//   kOptBf16Exp    (D3DP_ATTN_VARIANT=bf16exp, bf16): p = bf16(exp(bf16(s - m))),
+//                  l summed in fp32 from that p;
+//   kOptNoY2       (D3DP_ATTN_VARIANT=noy2): LN2 and the y2 write skipped;
+//   mask_block > 0 (D3DP_SPATIAL_GROUP): query i sees key j only where
+//                  i / mask_block == j / mask_block, JAX's additive -1e30
+//                  block-diagonal mask (p of every other key is 0 exactly).
+// All off (0, 0) is the production math.
+constexpr int kOptNormFirst = 1;
+constexpr int kOptBf16Exp = 2;
+constexpr int kOptNoY2 = 4;
+
+struct AttnOpts {
+  bool norm_first = false;
+  bool bf16_exp = false;
+  int mask_block = 0;
+};
+
+inline AttnOpts attn_opts(int opts, int mask_block) {
+  AttnOpts o;
+  o.norm_first = opts & kOptNormFirst;
+  o.bf16_exp = opts & kOptBf16Exp;
+  o.mask_block = mask_block;
+  return o;
+}
+
+// The attention cores' order (K3, K6, K7): p / l before P.V.
+inline AttnOpts norm_first_opts() { return attn_opts(kOptNormFirst, 0); }
+
+// Whether an attention of N tokens (under mask_block) fits the tile: all
+// N <= kMaxKeys keys, or N whole blocks of at most kMaxMaskBlock tokens.
+inline bool attn_keys_ok(int N, int mask_block) {
+  return mask_block > 0
+             ? mask_block <= kMaxMaskBlock && N % mask_block == 0 && cdiv(N, 64) <= 65535
+             : N <= kMaxKeys;
+}
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
 
 struct AttnLayout {
   int QB, NK, ldq, ldk, ldv, lds, ldp;
   size_t q, k, v, s, p, linv, total;
 };
 
+// NK: the keys a tile holds, rounded up to 16. Unmasked, all N. Under a mask
+// of block mb, only the blocks its QB queries span: at most (QB - 1) / mb + 2
+// of them (a query block starts anywhere in a block).
 template <typename T>
-AttnLayout attn_layout(int N) {
+AttnLayout attn_layout(int N, int mask_block = 0) {
   constexpr bool f32 = std::is_same<T, float>::value;
   AttnLayout L;
-  L.NK = cdiv(N, 16) * 16;
-  L.QB = L.NK < 64 ? L.NK : 64;
+  const int NQ = cdiv(N, 16) * 16;
+  L.QB = NQ < 64 ? NQ : 64;
+  int keys = N;
+  if (mask_block > 0) keys = std::min(N, ((L.QB - 1) / mask_block + 2) * mask_block);
+  L.NK = cdiv(keys, 16) * 16;
   // fp32 reads K transposed (thread j walks row j): an odd row stride keeps
   // those reads on distinct banks. bf16 rows keep wmma's 16-byte multiple.
   L.ldq = f32 ? kHeadDim + 1 : kHeadDim + 8;
@@ -267,22 +321,26 @@ AttnLayout attn_layout(int N) {
 
 // One tile: (sequence `seq`, head `h`, query block `qb`). q, k, v: rows of ld
 // elements, N rows per sequence; out: (R, N, C).
-// One block holds <=64 queries and all <=256 keys (tail zero-filled) with the
-// fp32 logits, so the softmax is exact over the whole row.
-// fp32 always divides p by l before P.V. For bf16, kNormFirst picks the
-// order: true rounds p / l to bf16 before P.V (the TPU attention core's
-// `_attn_head`); false runs P.V on the unnormalised bf16 p and folds 1/l
-// into the output (the TPU attention stage's order).
+// One block holds <=64 queries and all their keys (tail zero-filled) with
+// the fp32 logits, so the softmax is exact over the whole row: all <=256
+// keys of the sequence, or under a mask only the window of whole blocks the
+// queries span (attn_layout), every key outside it having p = 0 exactly.
+// fp32 always divides p by l before P.V. For bf16, opts.norm_first picks
+// the order: true rounds p / l to bf16 before P.V (the TPU attention core's
+// `_attn_head`, and the stage under D3DP_SOFTMAX_FOLD=0); false runs P.V on
+// the unnormalised bf16 p and folds 1/l into the output (the TPU attention
+// stage's order). opts.bf16_exp (bf16 only) and opts.mask_block: AttnOpts.
 // The tile functions here take their tile coordinates as arguments and the
 // block's dynamic shared memory as `smem`, so a kernel may run one tile
 // (the `__global__` wrappers) or walk many (the depth-resident kernel,
 // resident.cu). Their pointers carry no __restrict__: in resident.cu a
 // buffer one tile reads was written by other blocks earlier in the same
 // launch, which rules out the read-only data path.
-template <typename T, bool kNormFirst>
+template <typename T>
 __device__ __forceinline__ void attend_tile(const T* q, const T* k, const T* v, int ld, T* out,
                                             int N, int C, float scale, const AttnLayout& L,
-                                            unsigned char* smem, int seq, int h, int qb) {
+                                            const AttnOpts& opts, unsigned char* smem, int seq,
+                                            int h, int qb) {
   constexpr bool f32 = std::is_same<T, float>::value;
   T* Qs = reinterpret_cast<T*>(smem + L.q);
   T* Ks = reinterpret_cast<T*>(smem + L.k);
@@ -292,10 +350,18 @@ __device__ __forceinline__ void attend_tile(const T* q, const T* k, const T* v, 
 
   const int q0 = qb * L.QB;
   const int QB = L.QB, NK = L.NK;
+  const int nq = min(QB, N - q0);
+  // the keys [k0, k0 + nk) of the sequence this tile reads
+  const int mb = opts.mask_block;
+  int k0 = 0, nk = N;
+  if (mb > 0) {
+    k0 = q0 / mb * mb;
+    nk = min(N, (q0 + nq - 1) / mb * mb + mb) - k0;
+  }
   const size_t off = (size_t)seq * N * ld + h * kHeadDim;
   load_rows(Qs, L.ldq, q + off + (size_t)q0 * ld, ld, QB, N - q0, kHeadDim);
-  load_rows(Ks, L.ldk, k + off, ld, NK, N, kHeadDim);
-  load_rows(Vs, L.ldv, v + off, ld, NK, N, kHeadDim);
+  load_rows(Ks, L.ldk, k + off + (size_t)k0 * ld, ld, NK, nk, kHeadDim);
+  load_rows(Vs, L.ldv, v + off + (size_t)k0 * ld, ld, NK, nk, kHeadDim);
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -330,12 +396,19 @@ __device__ __forceinline__ void attend_tile(const T* q, const T* k, const T* v, 
   }
   __syncthreads();
 
-  // exact softmax over the N valid keys of each row: s = dot * scale,
-  // m = max(s), p = exp(s - m), l = sum(p)
+  // exact softmax over the keys [j0, j1) of each row, its own block under a
+  // mask: s = dot * scale, m = max(s), p = exp(s - m) (p = 0 elsewhere),
+  // l = sum(p)
+  const bool bf16_exp = !f32 && opts.bf16_exp;
   for (int r = warp; r < QB; r += kWarps) {
     float* srow = Ss + r * L.lds;
+    int j0 = 0, j1 = nk;
+    if (mb > 0 && r < nq) {
+      j0 = (q0 + r) / mb * mb - k0;
+      j1 = min(j0 + mb, nk);
+    }
     float m = -INFINITY;
-    for (int j = lane; j < N; j += 32) {
+    for (int j = j0 + lane; j < j1; j += 32) {
       const float s = srow[j] * scale;
       srow[j] = s;
       m = fmaxf(m, s);
@@ -343,31 +416,34 @@ __device__ __forceinline__ void attend_tile(const T* q, const T* k, const T* v, 
     m = warp_max(m);
     float l = 0.f;
     for (int j = lane; j < NK; j += 32) {
-      const float p = j < N ? expf(srow[j] - m) : 0.f;
+      float p = 0.f;
+      if (j >= j0 && j < j1) {
+        const float z = srow[j] - m;
+        p = bf16_exp ? bf16_round(expf(bf16_round(z))) : expf(z);
+      }
       srow[j] = p;
       l += p;
     }
     l = warp_sum(l);
     if constexpr (f32) {
-      for (int j = lane; j < N; j += 32) srow[j] = srow[j] / l;
+      for (int j = lane; j < nk; j += 32) srow[j] = srow[j] / l;
     } else {
       bf16* prow = reinterpret_cast<bf16*>(smem + L.p) + r * L.ldp;
       for (int j = lane; j < NK; j += 32)
-        prow[j] = __float2bfloat16(kNormFirst ? srow[j] / l : srow[j]);
-      if (lane == 0) linv[r] = kNormFirst ? 1.0f : 1.0f / l;
+        prow[j] = __float2bfloat16(opts.norm_first ? srow[j] / l : srow[j]);
+      if (lane == 0) linv[r] = opts.norm_first ? 1.0f : 1.0f / l;
     }
   }
   __syncthreads();
 
   T* orow0 = out + ((size_t)seq * N + q0) * C + h * kHeadDim;
-  const int nq = min(QB, N - q0);
   if constexpr (f32) {
     // O = (P / l) V, written straight out
     for (int i = threadIdx.x; i < nq * kHeadDim; i += kThreads) {
       const int qi = i / kHeadDim, d = i % kHeadDim;
       const float* p = Ss + qi * L.lds;
       float acc = 0.f;
-      for (int j = 0; j < N; ++j) acc = fmaf(p[j], Vs[j * L.ldv + d], acc);
+      for (int j = 0; j < nk; ++j) acc = fmaf(p[j], Vs[j * L.ldv + d], acc);
       orow0[(size_t)qi * C + d] = acc;
     }
   } else {
@@ -400,35 +476,36 @@ __device__ __forceinline__ void attend_tile(const T* q, const T* k, const T* v, 
 }
 
 // grid (sequence, head, query block): one tile per block.
-template <typename T, bool kNormFirst>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attend_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              int ld, T* __restrict__ out, int N, int C, float scale, AttnLayout L) {
+              int ld, T* __restrict__ out, int N, int C, float scale, AttnLayout L,
+              AttnOpts opts) {
   extern __shared__ __align__(128) unsigned char smem[];
-  attend_tile<T, kNormFirst>(q, k, v, ld, out, N, C, scale, L, smem, blockIdx.x, blockIdx.y,
-                             blockIdx.z);
+  attend_tile<T>(q, k, v, ld, out, N, C, scale, L, opts, smem, blockIdx.x, blockIdx.y,
+                 blockIdx.z);
 }
 
-// Launch attend_kernel<T, kNormFirst> over R sequences of N tokens.
-template <typename T, bool kNormFirst>
+// Launch attend_kernel<T> over R sequences of N tokens.
+template <typename T>
 cudaError_t launch_attend(const T* q, const T* k, const T* v, int ld, T* out, int R, int N,
-                          int C, int heads, float scale, cudaStream_t stream) {
-  const AttnLayout L = attn_layout<T>(N);
-  cudaError_t e = cudaFuncSetAttribute(attend_kernel<T, kNormFirst>,
+                          int C, int heads, float scale, const AttnOpts& opts,
+                          cudaStream_t stream) {
+  const AttnLayout L = attn_layout<T>(N, opts.mask_block);
+  cudaError_t e = cudaFuncSetAttribute(attend_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (e != cudaSuccess) return e;
   dim3 grid(R, heads, cdiv(N, L.QB));
-  attend_kernel<T, kNormFirst><<<grid, kThreads, L.total, stream>>>(q, k, v, ld, out, N, C,
-                                                                    scale, L);
+  attend_kernel<T><<<grid, kThreads, L.total, stream>>>(q, k, v, ld, out, N, C, scale, L, opts);
   return cudaGetLastError();
 }
 
 // The packed (R, N, 3C) qkv layout: q | k | v thirds of each token row.
-template <typename T, bool kNormFirst>
+template <typename T>
 cudaError_t launch_attend_packed(const T* qkv, T* out, int R, int N, int C, int heads,
-                                 float scale, cudaStream_t stream) {
-  return launch_attend<T, kNormFirst>(qkv, qkv + C, qkv + 2 * C, 3 * C, out, R, N, C, heads,
-                                      scale, stream);
+                                 float scale, const AttnOpts& opts, cudaStream_t stream) {
+  return launch_attend<T>(qkv, qkv + C, qkv + 2 * C, 3 * C, out, R, N, C, heads, scale, opts,
+                          stream);
 }
 
 // ------------------------------------------------ out-projection + residual + LN
@@ -440,12 +517,14 @@ cudaError_t launch_attend_packed(const T* qkv, T* out, int R, int N, int C, int 
 // DropPath: with dp, the branch (projection and its bias) of token row r is
 // scaled by dp[r / dp_div] in fp32 before the residual add (dp_div = N: one
 // scale per sequence); dp == nullptr leaves the arithmetic as it is without.
+// with_y2 = false (kOptNoY2) writes x2 only: no LN2, y2 left as it was.
 template <typename T>
 __device__ __forceinline__ void proj_ln2_tile(const T* o, const T* x, const T* wp,
                                               const float* bp, const float* ln2s,
                                               const float* ln2b, T* x2, T* y2, int M, int C,
                                               float eps, unsigned char* smem, int tile,
-                                              const float* dp = nullptr, int dp_div = 1) {
+                                              const float* dp = nullptr, int dp_div = 1,
+                                              bool with_y2 = true) {
   constexpr int BM = Cfg<T>::BM;
   const int lda = C + Cfg<T>::PAD;
   const int ldx = C + 4;
@@ -476,6 +555,7 @@ __device__ __forceinline__ void proj_ln2_tile(const T* o, const T* x, const T* w
         v[k] = dp ? to_f(xr[c]) + __fmul_rn(branch, keep) : to_f(xr[c]) + branch;
         x2r[c] = from_f<T>(v[k]);
       }
+    if (!with_y2) continue;
     warp_layernorm(v, C, ln2s, ln2b, eps, lane);
     T* y2r = y2 + (size_t)row * C;
 #pragma unroll
@@ -489,9 +569,10 @@ __global__ void __launch_bounds__(kThreads)
 proj_ln2_kernel(const T* __restrict__ o, const T* __restrict__ x, const T* __restrict__ wp,
                 const float* __restrict__ bp, const float* __restrict__ ln2s,
                 const float* __restrict__ ln2b, T* __restrict__ x2, T* __restrict__ y2, int M,
-                int C, float eps, const float* __restrict__ dp, int dp_div) {
+                int C, float eps, const float* __restrict__ dp, int dp_div, bool with_y2) {
   extern __shared__ __align__(128) unsigned char smem[];
-  proj_ln2_tile<T>(o, x, wp, bp, ln2s, ln2b, x2, y2, M, C, eps, smem, blockIdx.x, dp, dp_div);
+  proj_ln2_tile<T>(o, x, wp, bp, ln2s, ln2b, x2, y2, M, C, eps, smem, blockIdx.x, dp, dp_div,
+                   with_y2);
 }
 
 template <typename T>
@@ -500,19 +581,20 @@ size_t proj_ln2_smem(int C) {
          align128(sizeof(float) * Cfg<T>::BM * (C + 4));
 }
 
-// Launch proj_ln2_kernel over M token rows (dp, dp_div: see proj_ln2_tile).
+// Launch proj_ln2_kernel over M token rows (dp, dp_div, with_y2: see
+// proj_ln2_tile).
 template <typename T>
 cudaError_t launch_proj_ln2(const T* o, const T* x, const T* wp, const float* bp,
                             const float* ln2s, const float* ln2b, T* x2, T* y2, int M, int C,
                             float eps, cudaStream_t stream, const float* dp = nullptr,
-                            int dp_div = 1) {
+                            int dp_div = 1, bool with_y2 = true) {
   const size_t smem = proj_ln2_smem<T>(C);
   cudaError_t e = cudaFuncSetAttribute(proj_ln2_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   proj_ln2_kernel<T><<<cdiv(M, Cfg<T>::BM), kThreads, smem, stream>>>(o, x, wp, bp, ln2s, ln2b,
                                                                       x2, y2, M, C, eps, dp,
-                                                                      dp_div);
+                                                                      dp_div, with_y2);
   return cudaGetLastError();
 }
 

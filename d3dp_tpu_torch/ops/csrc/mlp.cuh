@@ -1,7 +1,7 @@
 // The MLP half-block as a tile function, shared by the MLP-block kernels
 // (mlp_block_t.cu, whose header describes the design) and the
 // depth-resident kernel (resident.cu):
-//   y = LN(res + (GELU_erf(x @ W1 + b1) @ W2 + b2)) over one block of BM
+//   y = LN(res + (GELU(x @ W1 + b1) @ W2 + b2)) over one block of BM
 // token rows, each written whole to its output row.
 #pragma once
 
@@ -9,8 +9,38 @@
 
 namespace d3dp {
 
+// The activation, per launch: D3DP_MLP_VARIANT of the TPU MLP kernels
+// (`_gelu_inkernel`, d3dp_tpu/ops/mlp.py).
+constexpr int kGeluErf = 0;   // production: 0.5 v (1 + erf(v / sqrt 2)), fp32
+constexpr int kGeluBf16 = 1;  // bf16gelu (bf16 only): the A&S 7.1.26 erf in bf16
+constexpr int kGeluNone = 2;  // nogelu: the identity
+
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+}
+
+// bf16gelu as the JAX kernel spells it: z = v / sqrt 2 in fp32, |z| rounded
+// to bf16 and sign(z), then t = 1 / (1 + p |z|), the polynomial in t, erf =
+// sign * (1 - poly * exp(-|z|^2)) and 0.5 * bf16(v) * (1 + erf) with every
+// constant and every operation rounded to bf16 (JAX's weak-typed constants
+// take the bf16 operand's type).
+__device__ __forceinline__ float gelu_bf16(float v) {
+  const float z = v * 0.70710678118654752f;
+  const float a = bf16_round(fabsf(z));
+  const float sgn = (float)((z > 0.f) - (z < 0.f));
+  const float t = bf16_round(1.f / bf16_round(1.f + bf16_round(bf16_round(0.3275911f) * a)));
+  float p = bf16_round(t * bf16_round(1.061405429f));
+  p = bf16_round(t * bf16_round(bf16_round(-1.453152027f) + p));
+  p = bf16_round(t * bf16_round(bf16_round(1.421413741f) + p));
+  p = bf16_round(t * bf16_round(bf16_round(-0.284496736f) + p));
+  p = bf16_round(t * bf16_round(bf16_round(0.254829592f) + p));
+  const float e = bf16_round(expf(bf16_round(-a * a)));
+  const float erf = bf16_round(sgn * bf16_round(1.f - bf16_round(p * e)));
+  return bf16_round(bf16_round(0.5f * bf16_round(v)) * bf16_round(1.f + erf));
+}
+
+__device__ __forceinline__ float activation(float v, int mode) {
+  return mode == kGeluNone ? v : mode == kGeluBf16 ? gelu_bf16(v) : gelu_erf(v);
 }
 
 template <typename T>
@@ -41,13 +71,14 @@ struct MlpLayout {
 // by dp[t / D2] in fp32 before the residual add: one scale per (b, i) of the
 // transposing form's (B, D1) and, with D2 = 1, one per row of the rows
 // form; dp == nullptr leaves the arithmetic as it is without.
+// gelu_mode: one of the kGelu* activations (kGeluBf16 only in bf16).
 template <typename T, bool kTranspose>
 __device__ __forceinline__ void mlp_tile(const T* x, const T* res, const T* w1, const float* b1,
                                          const T* w2, const float* b2, const float* lns,
                                          const float* lnb, T* out, int D1, int D2, int M, int C,
                                          int H, float eps, const MlpLayout<T>& L,
                                          unsigned char* smem, int tile,
-                                         const float* dp = nullptr) {
+                                         const float* dp = nullptr, int gelu_mode = kGeluErf) {
   constexpr int BM = Cfg<T>::BM;
   constexpr int ldc = kBN + 4;
   T* As = reinterpret_cast<T*>(smem + L.a);
@@ -66,7 +97,7 @@ __device__ __forceinline__ void mlp_tile(const T* x, const T* res, const T* w1, 
     __syncthreads();
     for (int i = threadIdx.x; i < BM * kBN; i += kThreads) {
       const int r = i / kBN, c = i % kBN;
-      Hs[r * L.ldh + n0 + c] = from_f<T>(gelu_erf(Cs[r * ldc + c] + b1[n0 + c]));
+      Hs[r * L.ldh + n0 + c] = from_f<T>(activation(Cs[r * ldc + c] + b1[n0 + c], gelu_mode));
     }
   }
   __syncthreads();

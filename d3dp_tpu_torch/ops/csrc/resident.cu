@@ -9,7 +9,11 @@
 // spatial/temporal norm, whose output write carries the relayout.
 //
 // Replaces the TPU kernel d3dp_tpu/ops/resident.py `_resident_kernel`
-// (launcher `resident_block_stack`). Its tile knobs (D3DP_RES_SP_TOKENS,
+// (launcher `resident_block_stack`). Its lab switches arrive per launch as
+// the stage's `opts` (kOptNormFirst for D3DP_SOFTMAX_FOLD != 1 and
+// kOptBf16Exp for the global D3DP_ATTN_VARIANT=bf16exp, both bf16 only) and
+// the MLP's `gelu` (D3DP_MLP_VARIANT, kGelu* in mlp.cuh), and reach the same
+// tile functions as at level 4. Its tile knobs (D3DP_RES_SP_TOKENS,
 // D3DP_RES_TP_SEQS, D3DP_RES_UNROLL) size Mosaic VMEM chunks and are not
 // ported.
 //
@@ -34,8 +38,8 @@
 //     add (depth 0 only), then the same four for the temporal block. Every
 //     block reaches every barrier: no block returns early;
 //   * the tile bodies are the level-4 kernels' own device functions
-//     (`ln_qkv_tile`, `attend_tile<T, false>`, `proj_ln2_tile`,
-//     `mlp_tile<T, true>`), in the same order with the same roundings, so
+//     (`ln_qkv_tile`, `attend_tile`, `proj_ln2_tile`, `mlp_tile<T, true>`)
+//     with the same options, in the same order with the same roundings, so
 //     level 5 computes what level 4 computes, bit for bit;
 //   * rows go in groups of G, chosen by the caller so that the group's
 //     stream and scratch (stream, qkv, o, x2, y2 and the relayout buffer:
@@ -80,6 +84,8 @@ struct ResidentArgs {
   int B, F, J, C, H, D, heads, G;
   float scale, eps;
   AttnLayout Ls, Lt;     // attention layouts for N = J and N = F
+  AttnOpts ao;           // the attention's lab switches (no mask)
+  int gelu;              // the MLP's activation, kGelu*
   MlpLayout<T> Lm;
 };
 
@@ -105,8 +111,8 @@ __device__ __forceinline__ void block_phases(const ResidentArgs<T>& a, const Kin
   grid.sync();
   const int nqb = cdiv(N, L.QB), n_att = R * a.heads * nqb;
   for (int t = blockIdx.x; t < n_att; t += gridDim.x) {
-    attend_tile<T, false>(a.qkv, a.qkv + C, a.qkv + 2 * C, C3, a.o, N, C, a.scale, L, smem,
-                          t % R, (t / R) % a.heads, t / (R * a.heads));
+    attend_tile<T>(a.qkv, a.qkv + C, a.qkv + 2 * C, C3, a.o, N, C, a.scale, L, a.ao, smem,
+                   t % R, (t / R) % a.heads, t / (R * a.heads));
     __syncthreads();
   }
   grid.sync();
@@ -119,7 +125,7 @@ __device__ __forceinline__ void block_phases(const ResidentArgs<T>& a, const Kin
   for (int t = blockIdx.x; t < n_rows; t += gridDim.x) {
     mlp_tile<T, true>(a.y2, a.x2, w.w1 + (size_t)d * C * H, w.b1 + (size_t)d * H,
                       w.w2 + (size_t)d * H * C, vec + 5 * C, lns, lnb, dst, D1, N, M, C, H, a.eps,
-                      a.Lm, smem, t);
+                      a.Lm, smem, t, nullptr, a.gelu);
     __syncthreads();
   }
   grid.sync();
@@ -188,8 +194,11 @@ inline bool shape_ok(int B, int F, int J, int C, int H, int D, int heads, int G)
 
 template <typename T>
 int resident(const void* const* ptrs, int B, int F, int J, int C, int H, int D, int heads, int G,
-             float scale, float eps, void* stream) {
-  if (!shape_ok(B, F, J, C, H, D, heads, G)) return (int)cudaErrorInvalidValue;
+             int opts, int gelu, float scale, float eps, void* stream) {
+  constexpr bool f32 = std::is_same<T, float>::value;
+  if (!shape_ok(B, F, J, C, H, D, heads, G) || (opts & kOptNoY2) || gelu < kGeluErf ||
+      gelu > kGeluNone || (f32 && gelu == kGeluBf16))
+    return (int)cudaErrorInvalidValue;
   int blocks = 0;
   size_t smem = 0;
   const int err = resident_grid<T>(C, H, F, J, &blocks, &smem);
@@ -216,6 +225,8 @@ int resident(const void* const* ptrs, int B, int F, int J, int C, int H, int D, 
   a.eps = eps;
   a.Ls = attn_layout<T>(J);
   a.Lt = attn_layout<T>(F);
+  a.ao = attn_opts(opts, 0);
+  a.gelu = gelu;
   a.Lm = MlpLayout<T>(C, H);
   void* args[] = {&a};
   cudaError_t e = cudaLaunchCooperativeKernel((const void*)resident_kernel<T>, dim3(blocks),
@@ -231,17 +242,21 @@ extern "C" {
 
 // ptrs: x, tpos, the spatial kind's seven (wqkv, bqkv, wp, w1, b1, w2, vec),
 // the temporal kind's seven, shared, out, then the scratch qkv, o, x2, y2
-// and the relayout buffer, each sized for G rows. Returns 0, a cudaError_t,
-// or -1 (no cooperative launch on this device) / -2 (the kernel's shared
-// memory fits no block on an SM).
+// and the relayout buffer, each sized for G rows. opts: kOptNormFirst |
+// kOptBf16Exp (common.cuh); gelu: a kGelu* activation (mlp.cuh). Returns 0,
+// a cudaError_t, or -1 (no cooperative launch on this device) / -2 (the
+// kernel's shared memory fits no block on an SM).
 int d3dp_resident_bf16(const void* const* ptrs, int B, int F, int J, int C, int H, int D,
-                       int heads, int G, float scale, float eps, void* stream) {
-  return d3dp::resident<d3dp::bf16>(ptrs, B, F, J, C, H, D, heads, G, scale, eps, stream);
+                       int heads, int G, int opts, int gelu, float scale, float eps,
+                       void* stream) {
+  return d3dp::resident<d3dp::bf16>(ptrs, B, F, J, C, H, D, heads, G, opts, gelu, scale, eps,
+                                    stream);
 }
 
 int d3dp_resident_f32(const void* const* ptrs, int B, int F, int J, int C, int H, int D,
-                      int heads, int G, float scale, float eps, void* stream) {
-  return d3dp::resident<float>(ptrs, B, F, J, C, H, D, heads, G, scale, eps, stream);
+                      int heads, int G, int opts, int gelu, float scale, float eps,
+                      void* stream) {
+  return d3dp::resident<float>(ptrs, B, F, J, C, H, D, heads, G, opts, gelu, scale, eps, stream);
 }
 
 }  // extern "C"

@@ -11,15 +11,23 @@ relayout of MixSTE rides the output write (fuse levels 3 and 4).
 `mlp_block_t_dp` and `mlp_block_dp` are `mlp_block_t_dp_p` and
 `mlp_block_dp_p`: the branch, fc2's bias included, scaled by a DropPath
 scale in fp32 before the residual add, one per (b, i) of (B, D1) or one
-per row (training at level 4). `D3DP_MLP_VARIANT` (bf16gelu, nogelu) is not
-ported: any value raises "not ported yet" when an op is called.
+per row (training at level 4).
+
+The lab switch `D3DP_MLP_VARIANT` is read when an op is called and picks
+the activation as the JAX kernels' `_gelu_inkernel` does (`gelu_mode`):
+"nogelu" the identity (both dtypes), "bf16gelu" in bf16 the erf polynomial
+evaluated op by op in bf16 (`gelu_bf16`), any other value, and bf16gelu in
+fp32, the exact GELU. The kernels take it as an int (`GELU_*`, kGelu* in
+`csrc/mlp.cuh`), the plain versions as their `gelu` argument.
 
 Training with `D3DP_TRAIN_FUSED=1` differentiates them through
 `torch.autograd.Function`s (`mlp_block_ad`, `mlp_block_dp_ad`,
 `mlp_block_t_ad`, `mlp_block_t_dp_ad`) whose backward is the JAX package's
 `_mlp_bwd_impl` in plain torch ops: the hidden activation recomputed, the
 matrix products on compute-dtype operands with fp32 accumulation, the GELU
-derivative in fp32 with the exact erf. The DropPath scale gets no gradient.
+derivative in fp32 with the exact erf -- the exact GELU's whatever
+`D3DP_MLP_VARIANT` the forward ran, as in JAX. The DropPath scale gets no
+gradient.
 
 On a CUDA tensor each launches its hand-written kernel (both forms of one
 kernel in `csrc/mlp_block_t.cu`); on a CPU tensor it runs its `*_plain`
@@ -38,10 +46,10 @@ from d3dp_tpu_torch.ops.common import layer_norm_rows, matmul_f32acc as _mm, mat
 from d3dp_tpu_torch.ops.norm import ln_bwd_rows
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIG_T = [_P] * 9 + [_I, _I, _I, _I, _I, _F, _P]
-_SIG_ROWS = [_P] * 9 + [_I, _I, _I, _F, _P]
-_SIG_T_DP = [_P] * 10 + [_I, _I, _I, _I, _I, _F, _P]
-_SIG_ROWS_DP = [_P] * 10 + [_I, _I, _I, _F, _P]
+_SIG_T = [_P] * 9 + [_I] * 6 + [_F, _P]
+_SIG_ROWS = [_P] * 9 + [_I] * 4 + [_F, _P]
+_SIG_T_DP = [_P] * 10 + [_I] * 6 + [_F, _P]
+_SIG_ROWS_DP = [_P] * 10 + [_I] * 4 + [_F, _P]
 _FN_T = {torch.bfloat16: "d3dp_mlp_block_t_bf16", torch.float32: "d3dp_mlp_block_t_f32"}
 _FN_ROWS = {torch.bfloat16: "d3dp_mlp_block_bf16", torch.float32: "d3dp_mlp_block_f32"}
 _FN_T_DP = {torch.bfloat16: "d3dp_mlp_block_t_dp_bf16",
@@ -49,51 +57,86 @@ _FN_T_DP = {torch.bfloat16: "d3dp_mlp_block_t_dp_bf16",
 _FN_ROWS_DP = {torch.bfloat16: "d3dp_mlp_block_dp_bf16", torch.float32: "d3dp_mlp_block_dp_f32"}
 
 
-def check_mlp_variant():
-    """`D3DP_MLP_VARIANT` as the JAX package's MLP kernels read it: its lab
-    values (bf16gelu, nogelu) are not ported."""
+# the activations of D3DP_MLP_VARIANT (kGelu* in csrc/mlp.cuh)
+GELU_ERF, GELU_BF16, GELU_NONE = 0, 1, 2
+
+
+def gelu_mode(dtype):
+    """The activation `D3DP_MLP_VARIANT` selects for the compute dtype, as
+    the JAX kernels' `_gelu_inkernel`: nogelu -> GELU_NONE, bf16gelu in
+    bf16 -> GELU_BF16, anything else -> GELU_ERF."""
     v = os.environ.get("D3DP_MLP_VARIANT", "")
-    if v:
-        raise NotImplementedError(f"D3DP_MLP_VARIANT={v} is not ported yet: d3dp_tpu_torch "
-                                  "has no kernel for this lab switch of the JAX package")
+    if v == "nogelu":
+        return GELU_NONE
+    if v == "bf16gelu" and dtype == torch.bfloat16:
+        return GELU_BF16
+    return GELU_ERF
 
 
-def _mlp_ln(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp=None):
-    """The TPU kernels' order: h = GELU(x W1 + b1) in fp32, rounded to the
+def gelu_bf16(h32):
+    """The JAX kernels' bf16gelu (`_gelu_inkernel`, `_erf_poly_from_abs`):
+    |z| and sign(z) of z = h / sqrt 2 from fp32, then the A&S 7.1.26 erf
+    polynomial and 0.5 * bf16(h) * (1 + erf), every constant and every
+    operation rounded to bf16 (JAX's weak-typed constants take the bf16
+    operand's type); fp32 out."""
+    bf = torch.bfloat16
+
+    def c(v):
+        return torch.tensor(v, dtype=bf, device=h32.device)
+
+    z = h32 * 2.0 ** -0.5
+    a, sgn = z.abs().to(bf), torch.sign(z).to(bf)
+    t = c(1.0) / (c(1.0) + c(0.3275911) * a)
+    poly = t * (c(0.254829592) + t * (c(-0.284496736) + t * (
+        c(1.421413741) + t * (c(-1.453152027) + t * c(1.061405429)))))
+    erf = sgn * (c(1.0) - poly * torch.exp(-a * a))
+    return (c(0.5) * h32.to(bf) * (c(1.0) + erf)).float()
+
+
+def _activation(h32, gelu):
+    if gelu == GELU_NONE:
+        return h32
+    if gelu == GELU_BF16:
+        return gelu_bf16(h32)
+    return F.gelu(h32, approximate="none")
+
+
+def _mlp_ln(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp=None, gelu=GELU_ERF):
+    """The TPU kernels' order: h = act(x W1 + b1) in fp32, rounded to the
     compute dtype; s = res + [dp *] (h W2 + b2); LN(s) in fp32. dp
-    broadcasts against the leading axes of x."""
-    h = F.gelu(_mm(x, w1) + b1.float(), approximate="none")
+    broadcasts against the leading axes of x; gelu: a GELU_* activation."""
+    h = _activation(_mm(x, w1) + b1.float(), gelu)
     branch = _mm(h.to(x.dtype), w2) + b2.float()
     if dp is not None:
         branch = branch * dp.float().reshape(*dp.shape, *(1,) * (x.dim() - dp.dim()))
     return layer_norm_rows(res.float() + branch, ln_s, ln_b, eps)
 
 
-def mlp_block_t_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp=None):
+def mlp_block_t_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp=None, gelu=GELU_ERF):
     """Plain torch ops in the TPU kernel's order, rounded to the compute
     dtype and transposed (B, D1, D2, C) -> (B, D2, D1, C); dp (B, D1)."""
-    y = _mlp_ln(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp)
+    y = _mlp_ln(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp, gelu)
     return y.to(x.dtype).transpose(1, 2).contiguous()
 
 
-def mlp_block_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp=None):
+def mlp_block_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp=None, gelu=GELU_ERF):
     """Plain torch ops in the TPU kernel's order on (R, C) rows; dp (R,)."""
-    return _mlp_ln(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp).to(x.dtype)
+    return _mlp_ln(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp, gelu).to(x.dtype)
 
 
-def mlp_block_t_dp_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps):
-    return mlp_block_t_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp)
+def mlp_block_t_dp_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps, gelu=GELU_ERF):
+    return mlp_block_t_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp, gelu)
 
 
-def mlp_block_dp_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps):
-    return mlp_block_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp)
+def mlp_block_dp_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps, gelu=GELU_ERF):
+    return mlp_block_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp, gelu)
 
 
-def _launch(what, fns, sigs, x, res, w1, b1, w2, b2, ln_s, ln_b, eps, out_shape, dims,
+def _launch(what, fns, sigs, x, res, w1, b1, w2, b2, ln_s, ln_b, eps, out_shape, dims, gelu,
             dp=None, dp_shape=None):
     """Check the operands of either form and launch its kernel; `dims` are
     the integer shape arguments the C entry point takes before C and H;
-    dp: the DropPath form's scales, of dp_shape."""
+    gelu: a GELU_* activation; dp: the DropPath form's scales, of dp_shape."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     C = x.shape[-1]
@@ -120,7 +163,8 @@ def _launch(what, fns, sigs, x, res, w1, b1, w2, b2, ln_s, ln_b, eps, out_shape,
         ptrs.append(dp.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fns[dt])(*ptrs, out.data_ptr(), *dims, C, H, float(eps), stream)
+        err = getattr(lib, fns[dt])(*ptrs, out.data_ptr(), *dims, C, H, gelu, float(eps),
+                                    stream)
     _build.check(err, what)
     return out
 
@@ -132,54 +176,54 @@ _SIGS = ((_FN_T, _SIG_T), (_FN_ROWS, _SIG_ROWS), (_FN_T_DP, _SIG_T_DP),
 
 def mlp_block_t(x, res, w1, b1, w2, b2, ln_s, ln_b, eps):
     """LN(res + MLP(x)) written transposed; see the module docstring."""
-    check_mlp_variant()
+    gelu = gelu_mode(x.dtype)
     if x.device.type == "cpu":
-        return mlp_block_t_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps)
+        return mlp_block_t_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, gelu=gelu)
     if x.dim() != 4:
         raise ValueError(f"x must be (B, D1, D2, C), got {tuple(x.shape)}")
     B, D1, D2, C = x.shape
     out = _launch("mlp_block_t", _FN_T, _SIGS, x, res, w1, b1, w2, b2, ln_s, ln_b, eps,
-                  (B, D2, D1, C), (B, D1, D2))
+                  (B, D2, D1, C), (B, D1, D2), gelu)
     mlp_block_t.launches += 1
     return out
 
 
 def mlp_block_t_dp(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps):
     """`mlp_block_t` with the branch scaled by dp (B, D1) fp32."""
-    check_mlp_variant()
+    gelu = gelu_mode(x.dtype)
     if x.device.type == "cpu":
-        return mlp_block_t_dp_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps)
+        return mlp_block_t_dp_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps, gelu=gelu)
     if x.dim() != 4:
         raise ValueError(f"x must be (B, D1, D2, C), got {tuple(x.shape)}")
     B, D1, D2, C = x.shape
     out = _launch("mlp_block_t_dp", _FN_T_DP, _SIGS, x, res, w1, b1, w2, b2, ln_s, ln_b, eps,
-                  (B, D2, D1, C), (B, D1, D2), dp, (B, D1))
+                  (B, D2, D1, C), (B, D1, D2), gelu, dp, (B, D1))
     mlp_block_t_dp.launches += 1
     return out
 
 
 def mlp_block(x, res, w1, b1, w2, b2, ln_s, ln_b, eps):
     """LN(res + MLP(x)) on (R, C) rows; see the module docstring."""
-    check_mlp_variant()
+    gelu = gelu_mode(x.dtype)
     if x.device.type == "cpu":
-        return mlp_block_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps)
+        return mlp_block_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, gelu=gelu)
     if x.dim() != 2:
         raise ValueError(f"x must be (R, C), got {tuple(x.shape)}")
     out = _launch("mlp_block", _FN_ROWS, _SIGS, x, res, w1, b1, w2, b2, ln_s, ln_b, eps,
-                  x.shape, (x.shape[0],))
+                  x.shape, (x.shape[0],), gelu)
     mlp_block.launches += 1
     return out
 
 
 def mlp_block_dp(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps):
     """`mlp_block` with the branch scaled by dp (R,) fp32."""
-    check_mlp_variant()
+    gelu = gelu_mode(x.dtype)
     if x.device.type == "cpu":
-        return mlp_block_dp_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps)
+        return mlp_block_dp_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps, gelu=gelu)
     if x.dim() != 2:
         raise ValueError(f"x must be (R, C), got {tuple(x.shape)}")
     out = _launch("mlp_block_dp", _FN_ROWS_DP, _SIGS, x, res, w1, b1, w2, b2, ln_s, ln_b, eps,
-                  x.shape, (x.shape[0],), dp, (x.shape[0],))
+                  x.shape, (x.shape[0],), gelu, dp, (x.shape[0],))
     mlp_block_dp.launches += 1
     return out
 

@@ -19,6 +19,12 @@ through `torch.cuda.get_device_properties`). On a CPU tensor it runs
 plain versions. There is no fallback between the two: a CUDA input the
 kernel does not take raises.
 
+The lab switches the JAX kernel reads reach the same tile functions as at
+level 4: `D3DP_SOFTMAX_FOLD` other than 1 (bf16) and the global
+`D3DP_ATTN_VARIANT=bf16exp` (bf16; the per-stage `_T`/`_S` variables do
+not reach this kernel, as in JAX) as the stage's OPT_* flags, and
+`D3DP_MLP_VARIANT` as the MLP's activation (`resident_options`).
+
 The JAX kernel's tile knobs `D3DP_RES_SP_TOKENS`, `D3DP_RES_TP_SEQS` and
 `D3DP_RES_UNROLL` choose the chunks of a row that Mosaic keeps in the TPU's
 VMEM; they have no meaning on Hopper and are not ported.
@@ -29,13 +35,13 @@ import ctypes
 import torch
 
 from d3dp_tpu_torch.ops import _build
-from d3dp_tpu_torch.ops.attention import (HEAD_DIM, MAX_TOKENS, attention_stage_plain,
-                                          check_softmax_fold, not_ported, stage_variant)
-from d3dp_tpu_torch.ops.mlp import check_mlp_variant, mlp_block_t_plain
+from d3dp_tpu_torch.ops.attention import (HEAD_DIM, MAX_TOKENS, OPT_BF16_EXP,
+                                          attention_stage_plain, fold_opts, stage_variant)
+from d3dp_tpu_torch.ops.mlp import GELU_ERF, gelu_mode, mlp_block_t_plain
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _N_PTRS = 23
-_SIG = [ctypes.POINTER(ctypes.c_void_p)] + [_I] * 8 + [_F, _F, _P]
+_SIG = [ctypes.POINTER(ctypes.c_void_p)] + [_I] * 10 + [_F, _F, _P]
 _FN = {torch.bfloat16: "d3dp_resident_bf16", torch.float32: "d3dp_resident_f32"}
 _ERRORS = {-1: "the device has no cooperative launch",
            -2: "the kernel's shared memory fits no block on an SM"}
@@ -60,23 +66,37 @@ def _kind(weights, d):
             (w1[d], b1[d].reshape(-1), w2[d], b2))
 
 
-def resident_block_stack_plain(x, tpos, spatial, temporal, shared, num_heads, scale, eps):
+def resident_options(dtype):
+    """(opts, gelu) of the lab switches the JAX kernel reads for the
+    compute dtype: the stage's OPT_* flags (`D3DP_SOFTMAX_FOLD`, the global
+    `D3DP_ATTN_VARIANT=bf16exp`) and the MLP's GELU_* activation."""
+    opts = fold_opts(dtype)
+    if dtype == torch.bfloat16 and stage_variant() == "bf16exp":
+        opts |= OPT_BF16_EXP
+    return opts, gelu_mode(dtype)
+
+
+def resident_block_stack_plain(x, tpos, spatial, temporal, shared, num_heads, scale, eps,
+                               opts=0, gelu=GELU_ERF):
     """Plain torch ops: the loop over depths of `attention_stage_plain` and
-    `mlp_block_t_plain` (the level-4 flow), the compute-dtype tpos add after
-    the first spatial pair."""
+    `mlp_block_t_plain` (the level-4 flow) with the lab switches opts and
+    gelu (`resident_options`), the compute-dtype tpos add after the first
+    spatial pair."""
     B, F, J, C = x.shape
     h = x
     for d in range(spatial[0].shape[0]):
         stage, mlp = _kind(spatial, d)
-        x2, y2 = attention_stage_plain(h.reshape(B * F, J, C), *stage, num_heads, scale, eps)
+        x2, y2 = attention_stage_plain(h.reshape(B * F, J, C), *stage, num_heads, scale, eps,
+                                       opts=opts)
         h = mlp_block_t_plain(y2.view(B, F, J, C), x2.view(B, F, J, C), *mlp,
-                              shared[0], shared[1], eps)  # (B, J, F, C)
+                              shared[0], shared[1], eps, gelu=gelu)  # (B, J, F, C)
         if d == 0:
             h = h + tpos.to(x.dtype)
         stage, mlp = _kind(temporal, d)
-        x2, y2 = attention_stage_plain(h.reshape(B * J, F, C), *stage, num_heads, scale, eps)
+        x2, y2 = attention_stage_plain(h.reshape(B * J, F, C), *stage, num_heads, scale, eps,
+                                       opts=opts)
         h = mlp_block_t_plain(y2.view(B, J, F, C), x2.view(B, J, F, C), *mlp,
-                              shared[2], shared[3], eps)  # (B, F, J, C)
+                              shared[2], shared[3], eps, gelu=gelu)  # (B, F, J, C)
     return h
 
 
@@ -88,18 +108,11 @@ def resident_block_stack(x, tpos, spatial, temporal, shared, num_heads, scale, e
     b1 (D, 1, H), w2 (D, H, C), vec (D, 6, C)), matrices in the compute
     dtype, bqkv, b1 and vec (rows bp, ln1s, ln1b, ln2s, ln2b, b2) fp32;
     shared: (4, C) fp32 rows spatial norm scale, bias, temporal norm
-    scale, bias.
-
-    The JAX kernel reads `D3DP_ATTN_VARIANT=bf16exp` and
-    `D3DP_SOFTMAX_FOLD` (bf16) and `D3DP_MLP_VARIANT`; their lab values are
-    not ported and raise."""
-    if x.dtype == torch.bfloat16 and stage_variant() == "bf16exp":
-        raise not_ported("D3DP_ATTN_VARIANT=bf16exp")
-    check_softmax_fold(x.dtype)
-    check_mlp_variant()
+    scale, bias. The lab switches as `resident_options` reads them."""
+    opts, gelu = resident_options(x.dtype)
     if x.device.type == "cpu":
         return resident_block_stack_plain(x, tpos, spatial, temporal, shared, num_heads,
-                                          scale, eps)
+                                          scale, eps, opts=opts, gelu=gelu)
     if x.device.type != "cuda":
         raise ValueError(f"resident_block_stack: unsupported device {x.device}")
     if x.dim() != 4:
@@ -141,8 +154,8 @@ def resident_block_stack(x, tpos, spatial, temporal, shared, num_heads, scale, e
         tensors = [x, tpos, *spatial, *temporal, shared, out, qkv, o, x2, y2, tbuf]
         ptrs = (ctypes.c_void_p * _N_PTRS)(*(t.data_ptr() for t in tensors))
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, _FN[dt])(ptrs, B, F, J, C, H, D, num_heads, G, float(scale),
-                                    float(eps), stream)
+        err = getattr(lib, _FN[dt])(ptrs, B, F, J, C, H, D, num_heads, G, opts, gelu,
+                                    float(scale), float(eps), stream)
     if err in _ERRORS:
         raise RuntimeError(f"resident_block_stack: {_ERRORS[err]}")
     _build.check(err, "resident_block_stack")

@@ -6,6 +6,7 @@ feature-reuse tests), and a --debug training epoch whose checkpoints
 --evaluate and --resume reload exactly."""
 
 import re
+import sys
 
 import jax
 import numpy as np
@@ -252,10 +253,18 @@ def test_logging_and_profiling_utils(tmp_path, capsys):
     log.flush()
     assert "hello" in capsys.readouterr().out
     assert (tmp_path / "out.log").read_text() == "hello\n"
-    w = TensorBoardWriter(str(tmp_path / "tb"))
-    w.add_scalar("a", 1.0, 1)
-    w.add_text("t", "x")
-    w.close()
+    before = set(sys.modules)
+    try:
+        w = TensorBoardWriter(str(tmp_path / "tb"))
+        w.add_scalar("a", 1.0, 1)
+        w.add_text("t", "x")
+        w.close()
+    finally:
+        # the writer's backends leave sys.modules as they found it: a later
+        # test in this process that blocks their import must not find them
+        for name in set(sys.modules) - before:
+            if name.startswith(("torch.utils.tensorboard", "tensorboardX")):
+                del sys.modules[name]
     TensorBoardWriter(str(tmp_path / "off"), enabled=False).add_scalar("a", 1.0, 1)
     with trace(str(tmp_path / "prof")):
         torch.ones(4).sum()

@@ -3,16 +3,17 @@ the JAX package, on the CPU.
 
 The JAX package reads `D3DP_ATTN_VARIANT[_T|_S]`, `D3DP_SPATIAL_GROUP`,
 `D3DP_SOFTMAX_FOLD` and `D3DP_MLP_VARIANT` when it traces a kernel; the port
-reads them when an op is called. Values that select the production math
-(``""``, loop, batched) run the stage kernel, `hmqkv` the head-major one,
-and every other value raises "not ported yet" where the JAX package would
-compute something else. The JAX kernels read the switches at trace time,
-so the tests that set one drop JAX's compilation caches around it.
+reads them when an op is called. `hmqkv` runs the head-major stage, every
+other variant the stage kernel with the options the JAX package's
+resolution gives it (tests/test_torch_lab_switches.py holds the rest of
+them). The JAX kernels read the switches at trace time, so the tests that
+set one drop JAX's compilation caches around it.
 
 Tolerances: K8's plain version against `_attention_stage_fwd` under hmqkv
 (interpret mode) as K1's, fp32 2e-5 and bf16 3e-2 plus one bf16 ulp
-(tests/test_torch_ops.py); MixSTE2 at level 4 (and level 5's reuse flow)
-with hmqkv against JAX 1e-4; the fused training flow with hmqkv 2e-4.
+(tests/test_torch_ops.py), 5e-2 for bf16exp in bf16 (the JAX suite's band,
+tests/test_pallas_ops.py:196); MixSTE2 under a switch against JAX 1e-4;
+the fused training flow with hmqkv 2e-4.
 """
 
 import dataclasses
@@ -31,7 +32,7 @@ from d3dp_tpu_torch.ops import attention as tattn
 from d3dp_tpu_torch.ops import mlp as tmlp
 from d3dp_tpu_torch.ops import resident as tres
 from d3dp_tpu_torch.train.convert import state_dict_from_flax
-from tests.test_torch_kernels import _mlp_inputs, _stage_inputs, _t
+from tests.test_torch_kernels import _excess, _mlp_inputs, _stage_inputs, _t
 from tests.test_torch_model import SMALL, port_model, random_params
 from tests.test_torch_ops import DTYPES, _assert_close, _jax_args
 from tests.test_torch_train import (_batch, _droppath_masks, _jax_loss_and_grads,
@@ -87,88 +88,115 @@ def test_production_variants_run_the_stage(env, rng, variant):
 
 @pytest.mark.parametrize("variant", ["bf16exp", "pipelined", "phasesplit", "noy2", "other"])
 def test_unported_stage_variants_raise(env, rng, variant):
-    """Every other variant raises, on the spatial and the temporal stage, in
-    both dtypes; the DropPath form ignores the variant as the JAX package
-    does, but for bf16exp in bf16."""
+    """Each variant runs the stage kernel's math that the JAX kernel runs
+    under it, on the spatial and the temporal stage, in both dtypes, and so
+    does the DropPath form (which keeps bf16exp and runs noy2 and unknown
+    values as production): against `_attention_stage_fwd` under the same
+    switch. noy2 writes x2 alone, equal to the production x2 bit for bit."""
     env.setenv("D3DP_ATTN_VARIANT", variant)
     for N in (17, 130):
         for dt in (torch.float32, torch.bfloat16):
-            _, args = _stage_args(rng, R=2, N=N, dtype=dt)
-            with pytest.raises(NotImplementedError, match="not ported yet"):
-                tattn.attention_stage(*args, 2, 0.125, 1e-6)
-            dp = torch.ones(2)
-            if variant == "bf16exp" and dt == torch.bfloat16:
-                with pytest.raises(NotImplementedError, match="not ported yet"):
-                    tattn.attention_stage_dp(*args, dp, 2, 0.125, 1e-6)
-            else:
-                for a, b in zip(tattn.attention_stage_dp(*args, dp, 2, 0.125, 1e-6),
-                                tattn.attention_stage_plain(*args, 2, 0.125, 1e-6)):
-                    assert torch.equal(a, b)
+            arrs, args = _stage_args(rng, R=2, N=N, dtype=dt)
+            dp = torch.tensor([0.0, 1.0 / 0.9])
+            jargs = _jax_args(arrs, DTYPES[dt])
+            want = _attention_stage_fwd(*jargs, 2, 0.125, 1e-6, interpret=True)
+            want_dp = _attention_stage_fwd(*jargs, 2, 0.125, 1e-6, interpret=True,
+                                           dp_row=jnp.asarray(dp.numpy()))
+            got = tattn.attention_stage(*args, 2, 0.125, 1e-6)
+            got_dp = tattn.attention_stage_dp(*args, dp, 2, 0.125, 1e-6)
+            band = {torch.bfloat16: (5e-2, 0.0)} if variant == "bf16exp" else None
+            n_out = 1 if variant == "noy2" else 2
+            for g, w in list(zip(got, want))[:n_out] + list(zip(got_dp, want_dp)):
+                if band and dt == torch.bfloat16:
+                    w32 = torch.from_numpy(np.array(w.astype(jnp.float32)))
+                    assert _excess(g, w32, dt, band) <= 0
+                else:
+                    _assert_close(g, w, dt)
+            if variant == "noy2":
+                assert torch.equal(got[0], tattn.attention_stage_plain(*args, 2, 0.125, 1e-6)[0])
 
 
 def test_spatial_group_and_softmax_fold_raise_where_jax_changes_the_math(env, rng):
     """D3DP_SPATIAL_GROUP=g groups a stage of N <= 32 tokens whose rows
-    divide by g (JAX `_attention_stage_fwd`); D3DP_SOFTMAX_FOLD=0 changes
-    the bf16 order only. Elsewhere both leave the math alone."""
+    divide by g (JAX `_attention_stage_fwd`): the masked stage against JAX
+    grouped (2e-5) and the ungrouped stage (1e-5); 3 rows do not group.
+    D3DP_SOFTMAX_FOLD=0 changes the bf16 order only: fp32 is the production
+    stage bit for bit, bf16 the JAX kernel's order at K1's band."""
+    arrs, args = _stage_args(rng, R=4, N=17)
+    ungrouped = tattn.attention_stage(*args, 2, 0.125, 1e-6)
     env.setenv("D3DP_SPATIAL_GROUP", "2")
-    _, args = _stage_args(rng, R=4, N=17)
-    with pytest.raises(NotImplementedError, match="D3DP_SPATIAL_GROUP=2"):
-        tattn.attention_stage(*args, 2, 0.125, 1e-6)
+    want = _attention_stage_fwd(*_jax_args(arrs, jnp.float32), 2, 0.125, 1e-6, interpret=True)
+    got = tattn.attention_stage(*args, 2, 0.125, 1e-6)
+    for g, w, u in zip(got, want, ungrouped):
+        _assert_close(g, w, torch.float32)
+        torch.testing.assert_close(g, u, atol=1e-5, rtol=0)
     _, odd = _stage_args(rng, R=3, N=17)
-    tattn.attention_stage(*odd, 2, 0.125, 1e-6)  # 3 rows: JAX does not group
+    for a, b in zip(tattn.attention_stage(*odd, 2, 0.125, 1e-6),
+                    tattn.attention_stage_plain(*odd, 2, 0.125, 1e-6)):
+        assert torch.equal(a, b)  # 3 rows: JAX does not group
     env.setenv("D3DP_SPATIAL_GROUP", "1")
     env.setenv("D3DP_SOFTMAX_FOLD", "0")
-    tattn.attention_stage(*args, 2, 0.125, 1e-6)
-    _, args16 = _stage_args(rng, R=4, N=17, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="D3DP_SOFTMAX_FOLD=0"):
-        tattn.attention_stage(*args16, 2, 0.125, 1e-6)
+    jax.clear_caches()
+    for a, b in zip(tattn.attention_stage(*args, 2, 0.125, 1e-6), ungrouped):
+        assert torch.equal(a, b)
+    arrs16, args16 = _stage_args(rng, R=4, N=17, dtype=torch.bfloat16)
+    want16 = _attention_stage_fwd(*_jax_args(arrs16, jnp.bfloat16), 2, 0.125, 1e-6,
+                                  interpret=True)
+    for g, w in zip(tattn.attention_stage(*args16, 2, 0.125, 1e-6), want16):
+        _assert_close(g, w, torch.bfloat16)
 
 
 def test_mlp_variant_nogelu_is_other_math_and_raises(env, rng):
-    """The fault and its repair: under D3DP_MLP_VARIANT=nogelu the JAX MLP
-    op drops the GELU (other math than the plain GELU version), and the
-    port raises instead of returning the GELU result."""
+    """Under D3DP_MLP_VARIANT=nogelu the JAX MLP op drops the GELU (other
+    math than the plain GELU version), and so do the port's four MLP ops,
+    against the JAX kernels (2e-5); bf16gelu in fp32 is the exact GELU in
+    both packages."""
     C, H = 64, 128
     arrs = _mlp_inputs(rng, 1, 23, 1, C, H)
     arrs[:2] = [a.reshape(23, C) for a in arrs[:2]]
     targs = _t(arrs)
+    jargs = _jax_args(arrs, jnp.float32)
     plain = tmlp.mlp_block_plain(*targs, 1e-6).numpy()
     np.testing.assert_allclose(
-        np.asarray(_mlp_block_fwd(*_jax_args(arrs, jnp.float32), 1e-6, interpret=True)),
-        plain, atol=2e-5)
+        np.asarray(_mlp_block_fwd(*jargs, 1e-6, interpret=True)), plain, atol=2e-5)
     env.setenv("D3DP_MLP_VARIANT", "nogelu")
     jax.clear_caches()
-    nogelu = np.asarray(_mlp_block_fwd(*_jax_args(arrs, jnp.float32), 1e-6, interpret=True))
+    nogelu = np.asarray(_mlp_block_fwd(*jargs, 1e-6, interpret=True))
     assert np.abs(nogelu - plain).max() > 1e-2
     mrows = targs[:8]
     m4 = [a.reshape(1, 23, 1, C) if a.dim() == 2 and a.shape[0] == 23 else a for a in mrows]
-    for call in (lambda: tmlp.mlp_block(*mrows, 1e-6),
-                 lambda: tmlp.mlp_block_dp(*mrows, torch.ones(23), 1e-6),
-                 lambda: tmlp.mlp_block_t(*m4, 1e-6),
-                 lambda: tmlp.mlp_block_t_dp(*m4, torch.ones(1, 23), 1e-6)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            call()
+    ones = torch.ones(23)
+    for got in (tmlp.mlp_block(*mrows, 1e-6), tmlp.mlp_block_dp(*mrows, ones, 1e-6),
+                tmlp.mlp_block_t(*m4, 1e-6).reshape(23, C),
+                tmlp.mlp_block_t_dp(*m4, ones.view(1, 23), 1e-6).reshape(23, C)):
+        np.testing.assert_allclose(got.numpy(), nogelu, atol=2e-5)
     env.setenv("D3DP_MLP_VARIANT", "bf16gelu")
-    with pytest.raises(NotImplementedError, match="D3DP_MLP_VARIANT=bf16gelu"):
-        tmlp.mlp_block(*mrows, 1e-6)
+    jax.clear_caches()
+    np.testing.assert_allclose(
+        np.asarray(_mlp_block_fwd(*jargs, 1e-6, interpret=True)), plain, atol=2e-5)
+    assert torch.equal(tmlp.mlp_block(*mrows, 1e-6), torch.from_numpy(plain))
 
 
 @pytest.mark.parametrize("level,setting", [
     (4, ("D3DP_ATTN_VARIANT", "pipelined")), (3, ("D3DP_MLP_VARIANT", "nogelu")),
     (5, ("D3DP_MLP_VARIANT", "nogelu")), (4, ("D3DP_SPATIAL_GROUP", "3"))])
 def test_model_refuses_unported_switches(env, rng, level, setting):
-    """MixSTE2 at a fuse level whose kernels read the switch raises at its
-    first call; level 0 (the composed path, whose JAX counterpart reads no
-    switch) still runs."""
-    model = MixSTE2(dataclasses.replace(_cfg(), fuse_level=level), device="cpu", seed=2)
-    x2d, x3d = _t([rng.randn(3, 9, 17, 2).astype(np.float32),
-                   rng.randn(3, 9, 17, 3).astype(np.float32)])
-    t = torch.tensor([1, 50, 999])
+    """MixSTE2 fp32 at a fuse level whose kernels read the switch, against
+    the JAX model at that level under the same switch (1e-4); level 0 (the
+    composed path, whose JAX counterpart reads no switch) is unchanged by
+    it."""
+    jcfg = JMixSTEConfig(**SMALL, attention_impl="pallas", fuse_level=level)
+    params = random_params(jcfg, seed=1)
+    x2d = rng.randn(3, 9, 17, 2).astype(np.float32)
+    x3d = rng.randn(3, 9, 17, 3).astype(np.float32)
+    t = np.array([1, 50, 999], np.int32)
+    model = port_model(params, **SMALL, fuse_level=0)
+    composed = model(*_t([x2d, x3d, t]))
     env.setenv(*setting)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        model(x2d, x3d, t)
-    model.cfg = dataclasses.replace(model.cfg, fuse_level=0)
-    assert torch.isfinite(model(x2d, x3d, t)).all()
+    want = JMixSTE2(jcfg).apply({"params": params}, x2d, x3d, t)
+    assert torch.equal(model(*_t([x2d, x3d, t])), composed)
+    model.cfg = dataclasses.replace(model.cfg, fuse_level=level)
+    np.testing.assert_allclose(model(*_t([x2d, x3d, t])).numpy(), np.asarray(want), atol=1e-4)
 
 
 def _cfg():
@@ -177,13 +205,25 @@ def _cfg():
 
 
 def test_resident_refuses_bf16exp(env, rng):
-    env.setenv("D3DP_ATTN_VARIANT", "bf16exp")
+    """Under the global D3DP_ATTN_VARIANT=bf16exp the trunk (level 5, bf16)
+    computes what the level-4 ops compute under it, bit for bit, and not
+    what they compute without it."""
     model = MixSTE2(dataclasses.replace(_cfg(), fuse_level=5, dtype=torch.bfloat16),
                     device="cpu", seed=2)
     W = model._weights()
-    x = torch.zeros(1, 9, 17, 64, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bf16exp"):
-        tres.resident_block_stack(x, W["temporal_pos"][0], *W["resident"], 8, 0.35, 1e-6)
+    x = torch.from_numpy(rng.randn(2, 9, 17, 64).astype(np.float32)).to(torch.bfloat16)
+    args = (x, W["temporal_pos"][0], *W["resident"], 8, 0.35, 1e-6)
+    base = tres.resident_block_stack(*args)
+    env.setenv("D3DP_ATTN_VARIANT", "bf16exp")
+    got = tres.resident_block_stack(*args)
+    assert torch.equal(got, tres.resident_block_stack_plain(*args, opts=tattn.OPT_BF16_EXP))
+    assert not torch.equal(got, base)
+    x3d = torch.from_numpy(rng.randn(2, 9, 17, 3).astype(np.float32))
+    x2d = torch.from_numpy(rng.randn(2, 9, 17, 2).astype(np.float32))
+    t = torch.tensor([5, 600])
+    level5 = model(x2d, x3d, t)
+    model.cfg = dataclasses.replace(model.cfg, fuse_level=4)
+    assert torch.equal(model(x2d, x3d, t), level5)
 
 
 # ------------------------------------------------------------------- K8

@@ -589,3 +589,132 @@ def test_dp_and_hm_wrappers_raise_on_what_the_kernels_do_not_take(np_rng):
     rows = [a.view(-1, 512) for a in margs[:2]] + margs[2:]
     with pytest.raises(ValueError, match="dp is on"):
         tmlp.mlp_block_dp(*rows, torch.ones(2 * 9 * 17), 1e-6)
+
+
+# ------------------------------------------------------------ lab switches
+# name: (environment variable, value, the stage option it sets in bf16)
+STAGE_SWITCHES = {"fold0": ("D3DP_SOFTMAX_FOLD", "0", tattn.OPT_NORM_FIRST),
+                  "bf16exp": ("D3DP_ATTN_VARIANT", "bf16exp", tattn.OPT_BF16_EXP),
+                  "noy2": ("D3DP_ATTN_VARIANT", "noy2", tattn.OPT_NO_Y2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("switch", ["fold0", "bf16exp", "noy2"])
+@pytest.mark.parametrize("R,N", [(64, 17), (6, 243), (5, 100)])
+def test_attention_stage_switch_kernels_match_plain(monkeypatch, np_rng, switch, dtype, R, N):
+    """K1 under each stage switch against its plain version with the same
+    options (TOL); noy2's x2 equal to production K1's bit for bit; fold0 and
+    bf16exp also in the DropPath form, fold0 in K8 (equal to K1)."""
+    dev = _cuda()
+    name, value, opt = STAGE_SWITCHES[switch]
+    args = _t(_stage_inputs(np_rng, R, N, 512, w_scale=0.05), dev, dtype)
+    args[0] = args[0] * 0.5
+    base = tattn.attention_stage(*args, 8, 0.125, 1e-6)
+    monkeypatch.setenv(name, value)
+    opts = opt if dtype == torch.bfloat16 or switch == "noy2" else 0
+    n0 = tattn.attention_stage.launches
+    got = tattn.attention_stage(*args, 8, 0.125, 1e-6)
+    want = tattn.attention_stage_plain(*args, 8, 0.125, 1e-6, opts=opts)
+    torch.cuda.synchronize()
+    assert tattn.attention_stage.launches == n0 + 1
+    if switch == "noy2":
+        assert _excess(got[0], want[0], dtype) <= 0 and torch.equal(got[0], base[0])
+        return
+    for g, w in zip(got, want):
+        assert _excess(g, w, dtype) <= 0
+    dp = _dp_scales(np_rng, (R,), dev)
+    for g, w in zip(tattn.attention_stage_dp(*args, dp, 8, 0.125, 1e-6),
+                    tattn.attention_stage_dp_plain(*args, dp, 8, 0.125, 1e-6, opts=opts)):
+        assert _excess(g, w, dtype) <= 0
+    if switch == "fold0":
+        hm = (args[0], *tattn.stack_head_major(args[1], args[2], 8), *args[3:])
+        got_hm = tattn.attention_stage_hm(*hm, 8, 0.125, 1e-6)
+        for g, w, k in zip(got_hm, tattn.attention_stage_hm_plain(*hm, 8, 0.125, 1e-6,
+                                                                  opts=opts), got):
+            assert _excess(g, w, dtype) <= 0 and torch.equal(g, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,R", [(2, 4), (8, 64), (15, 30), (18, 36)])
+def test_grouped_attention_stage_kernel_matches_plain(monkeypatch, np_rng, dtype, g, R):
+    """D3DP_SPATIAL_GROUP=g on 17-token sequences: K1 on the (R/g, 17g)
+    fold with the block mask (g = 18: 306 keys, past 256) against the plain
+    version on the same fold (TOL), and in fp32 against ungrouped K1."""
+    dev = _cuda()
+    args = _t(_stage_inputs(np_rng, R, 17, 512, w_scale=0.05), dev, dtype)
+    args[0] = args[0] * 0.5
+    ungrouped = tattn.attention_stage(*args, 8, 0.125, 1e-6)
+    monkeypatch.setenv("D3DP_SPATIAL_GROUP", str(g))
+    n0 = tattn.attention_stage.launches
+    got = tattn.attention_stage(*args, 8, 0.125, 1e-6)
+    want = tattn.attention_stage_plain(args[0].view(R // g, 17 * g, 512), *args[1:], 8, 0.125,
+                                       1e-6, mask_block=17)
+    torch.cuda.synchronize()
+    assert tattn.attention_stage.launches == n0 + 1
+    for gv, w, u in zip(got, want, ungrouped):
+        assert _excess(gv, w.view(R, 17, 512), dtype) <= 0
+        if dtype == torch.float32:
+            assert _excess(gv, u, dtype) <= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["bf16gelu", "nogelu"])
+@pytest.mark.parametrize("form", ["t", "t_dp", "rows", "rows_dp"])
+def test_mlp_variant_kernels_match_plain(monkeypatch, np_rng, form, variant, dtype):
+    """K2, K2-dp, K5 and K5-dp under D3DP_MLP_VARIANT against their plain
+    versions with the same activation (TOL); bf16gelu in fp32 is the exact
+    GELU, bit for bit the production kernel."""
+    dev = _cuda()
+    args = _t(_mlp_inputs(np_rng, 3, 243, 17, 512, 1024), dev, dtype)
+    t = form.startswith("t")
+    if not t:
+        args[:2] = [a.view(-1, 512) for a in args[:2]]
+    dp = _dp_scales(np_rng, (3, 243) if t else (3 * 243 * 17,), dev) if "dp" in form else None
+    op = {"t": tmlp.mlp_block_t, "t_dp": tmlp.mlp_block_t_dp, "rows": tmlp.mlp_block,
+          "rows_dp": tmlp.mlp_block_dp}[form]
+    plain = tmlp.mlp_block_t_plain if t else tmlp.mlp_block_plain
+    run = (lambda: op(*args, dp, 1e-6)) if dp is not None else (lambda: op(*args, 1e-6))
+    base = run()
+    monkeypatch.setenv("D3DP_MLP_VARIANT", variant)
+    gelu = tmlp.gelu_mode(dtype)
+    n0 = op.launches
+    got = run()
+    want = plain(*args, 1e-6, dp, gelu=gelu)
+    torch.cuda.synchronize()
+    assert op.launches == n0 + 1
+    assert _excess(got, want, dtype) <= 0
+    assert torch.equal(got, base) == (gelu == tmlp.GELU_ERF)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("setting", [("D3DP_SOFTMAX_FOLD", "0"),
+                                     ("D3DP_ATTN_VARIANT", "bf16exp"),
+                                     ("D3DP_MLP_VARIANT", "bf16gelu"),
+                                     ("D3DP_MLP_VARIANT", "nogelu")])
+def test_resident_kernel_under_switch_matches_plain_and_level_4(monkeypatch, np_rng, setting):
+    """K9 in bf16 under a global switch: at depth 1 against its plain version
+    with the same options (TOL), and level 5 equal to level 4 bit for bit."""
+    import dataclasses
+
+    from d3dp_tpu_torch.ops import resident as tres
+
+    dev = _cuda()
+    monkeypatch.setenv(*setting)
+    x, tpos, sp, tp, shared = _resident_inputs(np_rng, 2, 27, dev, torch.bfloat16, D=1)
+    opts, gelu = tres.resident_options(torch.bfloat16)
+    assert (opts, gelu) != (0, tmlp.GELU_ERF)
+    got = tres.resident_block_stack(x, tpos, sp, tp, shared, 8, 0.125, 1e-6)
+    want = tres.resident_block_stack_plain(x, tpos, sp, tp, shared, 8, 0.125, 1e-6, opts=opts,
+                                           gelu=gelu)
+    torch.cuda.synchronize()
+    assert _excess(got, want, torch.bfloat16) <= 0
+    model = _model(torch.bfloat16)
+    x2d = torch.from_numpy(np_rng.randn(2, 243, 17, 2).astype(np.float32) * 0.3).to(dev)
+    x3d = torch.from_numpy(np_rng.randn(2, 243, 17, 3).astype(np.float32)).to(dev)
+    t = torch.tensor([999, 17], device=dev)
+    out5 = model(x2d, x3d, t)
+    model.cfg = dataclasses.replace(model.cfg, fuse_level=4)
+    assert torch.equal(out5, model(x2d, x3d, t))
