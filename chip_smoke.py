@@ -225,14 +225,30 @@ def phase_env(torch, record):
     out = _build.build_all()
     dt = time.perf_counter() - t0
     log(f"[env] kernels built in {dt:.1f} s -> {out}")
+    ptxas = []
     for name in _build.SOURCES:
         logf = out / f"{name}.log"
         if logf.exists():
-            for line in logf.read_text().splitlines():
-                if "Used" in line or "spill" in line:
-                    log(f"[env] ptxas {name}: {line.strip()}")
+            rep = _build.ptxas_report(logf.read_text())
+            for r, full in zip(rep, _build.demangle([r["kernel"] for r in rep])):
+                r.update(source=name, kernel=full.split("(")[0])
+                ptxas.append(r)
+    # every kernel's registers and spills, then those of the attention tile's
+    # bf16 instantiations and of the depth-resident kernel, which inlines them
+    for r in ptxas:
+        log(f"[env] ptxas {r['source']}: {r['kernel']}: {r.get('registers')} registers, "
+            f"{r.get('spill_stores')} bytes spill stores, {r.get('spill_loads')} bytes spill "
+            f"loads, {r.get('stack')} bytes stack")
+    tile = [r for r in ptxas if ("attend" in r["kernel"] or "resident" in r["kernel"])
+            and "<float" not in r["kernel"]]
+    check(tile, "no attention-tile or K9 instantiation in the ptxas output")
+    spills = sorted({f"{r['kernel']} ({r['spill_stores']} / {r['spill_loads']} bytes)"
+                     for r in tile if r.get("spill_stores") or r.get("spill_loads")})
+    log(f"[env] bf16 attention tile and K9: {len(tile)} instantiations, spilling: "
+        f"{', '.join(spills) if spills else 'none'}")
     disable_tf32()
-    record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=dt)
+    record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=dt,
+                  ptxas=ptxas)
     return card
 
 
@@ -449,11 +465,11 @@ def packed_inputs(torch, gen, R, N, dt):
 
 
 def check_eval_kernels(torch, gen, dt, name_dt, errs):
-    """K5 (MLP rows), K6 (attention block) and K7 (packed attention) against
-    their plain versions at the eval path's shapes: K5 on the 165,240 token
-    rows of one block, K6 and K7 at the spatial and temporal stage shapes.
-    Tolerance: K5 and K6 as K2 and K1 (3e-2), K7 as K3 (1e-2), each plus one
-    bf16 ulp in bf16."""
+    """K5 (MLP rows), K6 (attention block), K7 (packed attention) and K1's
+    attend launch alone against their plain versions at the eval path's
+    shapes: K5 on the 165,240 token rows of one block, the others at the
+    spatial and temporal stage shapes. Tolerance: K5 and K6 as K2 and K1
+    (3e-2), K7 and attend as K3 (1e-2), each plus one bf16 ulp in bf16."""
     from d3dp_tpu_torch.ops import attention as A
     from d3dp_tpu_torch.ops import mlp as M
 
@@ -472,7 +488,11 @@ def check_eval_kernels(torch, gen, dt, name_dt, errs):
              lambda b=b: A.attention_block_plain(*b, HEADS, 0.125, 1e-6)),
             ("fused_attention_packed", f"{label} q{tuple(p[0].shape)}", TOL_QKV[name_dt],
              lambda p=p: (A.fused_attention_packed(*p, HEADS, 0.125),),
-             lambda p=p: (A.fused_attention_plain(*p, HEADS, 0.125),))]
+             lambda p=p: (A.fused_attention_plain(*p, HEADS, 0.125),)),
+            # K1's attend launch alone (the tile every attention kernel runs)
+            ("attend_qkv", f"{label} qkv{tuple(b[0].shape)}", TOL_QKV[name_dt],
+             lambda b=b: (A.attend_qkv(b[0], HEADS, 0.125),),
+             lambda b=b: (A.attend_qkv_plain(b[0], HEADS, 0.125),))]
     for name, label, tol_k, run, plain in cases:
         got, want = run(), plain()
         torch.cuda.synchronize()
@@ -483,7 +503,7 @@ def check_eval_kernels(torch, gen, dt, name_dt, errs):
             f"{' + 1 bf16 ulp' if ulp else ''}) {'ok' if ok else 'FAIL'}")
         check(ok, f"{name} {label} {name_dt} disagrees with its plain version")
         if dt == torch.bfloat16:
-            errs[name] = max(errs[name], *(e for e, _ in es))
+            errs[name] = max(errs.get(name, 0.0), *(e for e, _ in es))
         del got, want
 
 
@@ -1989,9 +2009,12 @@ def phase_timing(torch, record, d3dp, x2d, x2d_f):
         lib_fwd = library_attention_qkv(torch, Fn, qkv)
         leaf = qkv.clone().requires_grad_(True)
         lib_out = lib_fwd(leaf)
+        # three medians in one run: the spread a K3 time carries
+        k3_runs = [time_ms(torch, lambda: A.fused_attention_qkv(qkv, HEADS, 0.125), reps=20)
+                   for _ in range(3)]
         rows[f"fused_attention_qkv/{label}"] = dict(
             shape=list(qkv.shape), flops=4 * T * N * C, bytes=(3 * C + C) * T * 2,
-            ms=time_ms(torch, lambda: A.fused_attention_qkv(qkv, HEADS, 0.125), reps=20),
+            ms=statistics.median(k3_runs), ms_runs=k3_runs,
             plain_ms=time_ms(torch, lambda: A.fused_attention_qkv_plain(qkv, HEADS, 0.125),
                              reps=5),
             library_ms=time_ms(torch, lambda: lib_fwd(qkv), reps=20))
@@ -2013,6 +2036,8 @@ def phase_timing(torch, record, d3dp, x2d, x2d_f):
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['flops'] / 1e9:.1f} GFLOP, "
             f"{r['bytes'] / 1e6:.1f} MB), plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']:.4f} ms, {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s"
+            + (f", repeats {', '.join(f'{v:.4f}' for v in r['ms_runs'])} ms"
+               if "ms_runs" in r else "")
             + (f", split costs {r['split_extra_bytes'] / 1e9:.3f} GB extra "
                f"({r['split_extra_bytes'] / HBM * 1e3:.3f} ms at full HBM rate)"
                if "split_extra_bytes" in r else ""))
@@ -2021,8 +2046,8 @@ def phase_timing(torch, record, d3dp, x2d, x2d_f):
 
 
 def eval_kernel_rows(torch, Fn, gen):
-    """K5 on one block's 165,240 token rows; K6 and K7 at the spatial and
-    temporal stage shapes; bf16."""
+    """K5 on one block's 165,240 token rows; K6, K7 and K1's attend launch
+    alone at the spatial and temporal stage shapes; bf16."""
     from d3dp_tpu_torch.ops import attention as A
     from d3dp_tpu_torch.ops import mlp as M
 
@@ -2053,7 +2078,16 @@ def eval_kernel_rows(torch, Fn, gen):
             plain_ms=time_ms(torch, lambda: A.attention_block_plain(*b, HEADS, 0.125, 1e-6),
                              reps=3),
             library_ms=time_ms(torch, lambda: lib_b(*lib_args), reps=10))
-        del b, lib_args
+        del lib_args
+        # K1's attend launch alone on the stage's packed qkv (ld = 3C); SDPA
+        # on its q, k, v views as the yardstick
+        lib_q = library_attention_qkv(torch, Fn, b[0])
+        rows[f"attend/{label}"] = dict(
+            shape=list(b[0].shape), flops=4 * T * N * C, bytes=4 * T * C * 2,
+            ms=time_ms(torch, lambda: A.attend_qkv(b[0], HEADS, 0.125), reps=10),
+            plain_ms=time_ms(torch, lambda: A.attend_qkv_plain(b[0], HEADS, 0.125), reps=3),
+            library_ms=time_ms(torch, lambda: lib_q(b[0]), reps=10))
+        del b, lib_q
         p = packed_inputs(torch, gen, R, N, bf)
         rows[f"fused_attention_packed/{label}"] = dict(
             shape=list(p[0].shape), flops=4 * T * N * C, bytes=4 * T * C * 2,

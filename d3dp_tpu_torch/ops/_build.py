@@ -13,6 +13,7 @@ package on a machine with no `nvcc`.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -104,6 +105,43 @@ def load(name, signatures):
             f.restype = ctypes.c_int
         _libs[name] = lib
     return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PROPS = re.compile(r"Function properties for (\S+)")
+_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(text):
+    """[{kernel, registers, stack, spill_stores, spill_loads}] of each entry
+    function in one library's `-Xptxas=-v` output (`<name>.log`); kernel is
+    the mangled name. The spill line counted is the one under the entry's
+    own "Function properties" (a called function has its own)."""
+    out, cur, props = [], None, None
+    for line in text.splitlines():
+        if m := _ENTRY.search(line):
+            cur = {"kernel": m.group(1)}
+            out.append(cur)
+        elif m := _PROPS.search(line):
+            props = m.group(1)
+        elif cur is not None and props == cur["kernel"] and (m := _SPILL.search(line)):
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        elif cur is not None and (m := _REGS.search(line)):
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def demangle(names):
+    """The C++ names of mangled symbols (`c++filt`), or the names as they
+    are where the tool is missing."""
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True)
+    lines = out.stdout.splitlines()
+    return lines if out.returncode == 0 and len(lines) == len(names) else list(names)
 
 
 def check(err, what):

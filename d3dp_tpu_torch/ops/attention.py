@@ -49,6 +49,10 @@ qkv recomputed, the attention core through `fused_attention_qkv` and
 `fused_attention_qkv_bwd`) and `attention_block_ad`
 (`_attention_block_p_bwd`). The DropPath scale gets no gradient.
 
+`attend_qkv` is the stage's attention phase alone (K1's attend launch) on a
+packed qkv, with the stage's switches: a handle to time and test the
+attention tile every kernel above shares. No model path calls it.
+
 `fused_attention_packed` and `fused_attention` are the counterparts of the
 JAX package's public ops of the same names: softmax attention from separate
 q, k, v, packed (B, N, h*d) or as (B, N, h, d).
@@ -88,6 +92,9 @@ _QKV_FN = {torch.bfloat16: ("d3dp_attention_qkv_fwd_bf16", "d3dp_attention_qkv_b
 _SIG_PACKED = [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
 _PACKED_FN = {torch.bfloat16: "d3dp_attention_packed_bf16",
               torch.float32: "d3dp_attention_packed_f32"}
+_SIG_ATTEND = [_P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
+_ATTEND_FN = {torch.bfloat16: "d3dp_attend_packed_bf16",
+              torch.float32: "d3dp_attend_packed_f32"}
 _SIG_BLOCK = [_P] * 9 + [_I, _I, _I, _I, _F, _F, _P]
 _BLOCK_FN = {torch.bfloat16: "d3dp_attention_block_bf16",
              torch.float32: "d3dp_attention_block_f32"}
@@ -179,11 +186,10 @@ def stack_head_major(wqkv, bqkv, num_heads):
     return w.contiguous(), b.contiguous()
 
 
-def _stage_tail_plain(x32, q, k, v, wp, bp, ln2_s, ln2_b, scale, eps, dt, dp_row, opts=0,
-                      mask_block=0):
-    """Attention from (R, h, N, d) q, k, v in the stage kernels' order, then
-    the out-projection, the (DropPath-scaled) residual and LN2; opts and
-    mask_block: the lab switches, as `attention_stage_plain` takes them."""
+def _stage_attend_plain(q, k, v, scale, dt, opts=0, mask_block=0):
+    """Attention from (R, h, N, d) q, k, v in the stage kernels' order, fp32
+    (R, h, N, d) before its rounding to dt; opts and mask_block: the lab
+    switches, as `attention_stage_plain` takes them."""
     s = _mm(q, k.transpose(-1, -2)) * scale
     if mask_block:
         blk = torch.arange(s.shape[-1], device=s.device) // mask_block
@@ -200,6 +206,14 @@ def _stage_tail_plain(x32, q, k, v, wp, bp, ln2_s, ln2_b, scale, eps, dt, dp_row
         o = _mm((p / l).to(dt), v)
     else:
         o = _mm(p.to(dt), v) * (1.0 / l)
+    return o
+
+
+def _stage_tail_plain(x32, q, k, v, wp, bp, ln2_s, ln2_b, scale, eps, dt, dp_row, opts=0,
+                      mask_block=0):
+    """`_stage_attend_plain`, then the out-projection, the (DropPath-scaled)
+    residual and LN2."""
+    o = _stage_attend_plain(q, k, v, scale, dt, opts, mask_block)
     branch = _mm(_merge(o.to(dt)), wp) + bp.float()
     if dp_row is not None:
         branch = branch * dp_row.float()[:, None, None]
@@ -442,7 +456,8 @@ def _qkv_lib():
     return _build.load("attention_qkv", {
         **{fns[0]: _SIG_FWD for fns in _QKV_FN.values()},
         **{fns[1]: _SIG_BWD for fns in _QKV_FN.values()},
-        **{fn: _SIG_PACKED for fn in _PACKED_FN.values()}})
+        **{fn: _SIG_PACKED for fn in _PACKED_FN.values()},
+        **{fn: _SIG_ATTEND for fn in _ATTEND_FN.values()}})
 
 
 def fused_attention_qkv(qkv, num_heads, scale):
@@ -486,6 +501,36 @@ def fused_attention_qkv_bwd(qkv, dout, num_heads, scale):
 
 fused_attention_qkv.launches = 0
 fused_attention_qkv_bwd.launches = 0
+
+
+def attend_qkv_plain(qkv, num_heads, scale, opts=0):
+    """Plain torch ops of the attention stage's attention phase alone, in its
+    order (`_stage_attend_plain`), from the packed (R, N, 3C) qkv ->
+    (R, N, C) in qkv's dtype."""
+    o = _stage_attend_plain(*_split(qkv, 3, num_heads), scale, qkv.dtype, opts)
+    return _merge(o.to(qkv.dtype))
+
+
+def attend_qkv(qkv, num_heads, scale, opts=0):
+    """The attention stage's attend launch alone (the second of K1's three
+    launches, the tile every attention kernel shares) on a packed qkv, with
+    the stage's switches as flags (OPT_NORM_FIRST, OPT_BF16_EXP): a way to
+    time and test that launch by itself. No model path calls it."""
+    if qkv.device.type == "cpu":
+        return attend_qkv_plain(qkv, num_heads, scale, opts)
+    R, N, C = _check_qkv(qkv, num_heads, "attend_qkv")
+    out = torch.empty((R, N, C), dtype=qkv.dtype, device=qkv.device)
+    lib = _qkv_lib()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = getattr(lib, _ATTEND_FN[qkv.dtype])(
+            qkv.data_ptr(), out.data_ptr(), R, N, C, num_heads, opts, 0, float(scale), stream)
+    _build.check(err, "attend_qkv")
+    attend_qkv.launches += 1
+    return out
+
+
+attend_qkv.launches = 0
 
 
 class _FusedAttentionQKV(torch.autograd.Function):

@@ -22,7 +22,16 @@
 // TPU kernel's `_attn_head` does (the stage folds 1/l in after P.V instead).
 // The packed-qkv forward reads rows of 3C; the separate-q/k/v forward (K7)
 // reads rows of C: same kernel, same bound (bytes: 4*T*C elements moved
-// against 4*T*N*C FLOPs).
+// against 4*T*N*C FLOPs). What the tile does about it: in bf16 above 32 keys
+// a tile is a whole (sequence, head), so each key and value row is read
+// once (cp.async in 64-key groups, the products on the first keys start
+// while the rest land), and the logits, the exact softmax and P never leave
+// registers (mma.sync m16n8k16, 16 query rows a warp); a persistent grid
+// copies the next tile while the current one computes. At 17 keys the
+// shared-memory body stays: one 32-query block per (sequence, head), small
+// enough for several per SM.
+// `d3dp_attend_packed_*` launches the same tile in the stage's order, with
+// its switches: K1's attend launch alone, for timing and tests.
 //
 // Backward. The TPU kernel holds a whole (sequence, head) in VMEM: P, dP and
 // the dK, dV sums over all query rows. At N=243 that does not fit a block's
@@ -313,6 +322,19 @@ int attention_packed(const void* q, const void* k, const void* v, void* out, int
                                scale, norm_first_opts(), static_cast<cudaStream_t>(stream));
 }
 
+// The attention stage's attend launch alone (K1's second launch) on a packed
+// qkv, with the stage's lab switches: opts (kOpt* flags) and mask_block.
+template <typename T>
+int attend_packed(const void* qkv, void* out, int R, int N, int C, int heads, int opts,
+                  int mask_block, float scale, void* stream) {
+  if (R < 1 || N < 1 || !attn_keys_ok(N, mask_block) || C % 64 != 0 || heads * kHeadDim != C ||
+      heads > 65535 || R > 0x7fffffff / N)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_attend_packed<T>((const T*)qkv, (T*)out, R, N, C, heads, scale,
+                                      attn_opts(opts, mask_block),
+                                      static_cast<cudaStream_t>(stream));
+}
+
 template <typename T, bool kKeys>
 cudaError_t launch_bwd(const BwdLayout& L, dim3 grid, const T* qkv, const T* dout, T* dqkv,
                        float* stats, int N, int C, float scale, cudaStream_t stream) {
@@ -362,6 +384,17 @@ int d3dp_attention_packed_bf16(const void* q, const void* k, const void* v, void
 int d3dp_attention_packed_f32(const void* q, const void* k, const void* v, void* out, int R,
                               int N, int C, int heads, float scale, void* stream) {
   return d3dp::attention_packed<float>(q, k, v, out, R, N, C, heads, scale, stream);
+}
+
+int d3dp_attend_packed_bf16(const void* qkv, void* out, int R, int N, int C, int heads, int opts,
+                            int mask_block, float scale, void* stream) {
+  return d3dp::attend_packed<d3dp::bf16>(qkv, out, R, N, C, heads, opts, mask_block, scale,
+                                         stream);
+}
+
+int d3dp_attend_packed_f32(const void* qkv, void* out, int R, int N, int C, int heads, int opts,
+                           int mask_block, float scale, void* stream) {
+  return d3dp::attend_packed<float>(qkv, out, R, N, C, heads, opts, mask_block, scale, stream);
 }
 
 int d3dp_attention_qkv_bwd_bf16(const void* qkv, const void* dout, void* dqkv, void* stats,

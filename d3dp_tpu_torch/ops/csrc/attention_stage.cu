@@ -37,11 +37,17 @@
 //                projection in 64-column steps on the tensor cores; qkv is
 //                rounded to the compute type after its bias (as the TPU
 //                kernel does) and written to a scratch buffer.
-//   2. attend:   one block per (sequence, head, block of <=64 queries); all
-//                keys of the sequence (<=256, tail masked) sit in shared
-//                memory with the fp32 logits, so the softmax is exact over
-//                the whole row with no online rescaling (`attend_kernel` in
-//                common.cuh, shared with attention_qkv.cu).
+//   2. attend:   `attend_kernel` (common.cuh, shared with attention_qkv.cu,
+//                attention_block.cu and resident.cu). Bytes bound it (qkv
+//                in, o out). bf16 above 32 keys: one block per (sequence,
+//                head) reads each key and value row once with cp.async in
+//                64-key groups; each warp keeps its 16 query rows' fp32
+//                logits for all keys (<=256) in mma.sync registers, so the
+//                softmax stays exact over the whole row with no online
+//                rescaling, and P goes to the P.V product in registers; a
+//                persistent grid copies the next tile while one computes.
+//                Spatial (17 keys), grouped views excepted, and fp32 keep the
+//                shared-memory body (one block per <=64 queries).
 //                fp32: p is divided by l before P.V; bf16: P.V runs on the
 //                unnormalised bf16 p and 1/l is folded into the output,
 //                which is rounded to bf16 before the projection.
@@ -70,23 +76,6 @@ ln_qkv_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
               const float* __restrict__ ln1b, T* __restrict__ qkv, int M, int C, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   ln_qkv_tile<T, kHeadMajor>(x, wqkv, bqkv, ln1s, ln1b, qkv, M, C, eps, smem, blockIdx.x);
-}
-
-// ------------------------------------------------- 2. attention (head-major)
-// grid (sequence, head, query block) over the (h, M, 3d) qkv: head h's slab
-// starts at h * M * 3d. attend_tile adds h * kHeadDim to its input offset
-// (the head's column in the packed layout), which a slab does not have, so
-// the slab pointer is taken back by it.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attend_hm_kernel(const T* __restrict__ qkv_hm, T* __restrict__ out, int M, int N, int C,
-                 float scale, AttnLayout L, AttnOpts opts) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int d3 = 3 * kHeadDim;
-  const int h = blockIdx.y;
-  const T* q = qkv_hm + (size_t)h * M * d3 - h * kHeadDim;
-  attend_tile<T>(q, q + kHeadDim, q + 2 * kHeadDim, d3, out, N, C, scale, L, opts, smem,
-                 blockIdx.x, h, blockIdx.z);
 }
 
 // ---------------------------------------------------------------- host entry
@@ -119,19 +108,16 @@ int attention_stage(const void* x, const void* wqkv, const void* bqkv, const voi
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   if constexpr (kHeadMajor) {
-    const AttnLayout L = attn_layout<T>(N, mask_block);
-    if ((e = cudaFuncSetAttribute(attend_hm_kernel<T>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total)) !=
-        cudaSuccess)
-      return (int)e;
-    attend_hm_kernel<T><<<dim3(R, heads, cdiv(N, L.QB)), kThreads, L.total, stream>>>(
-        (const T*)qkv, (T*)o, M, N, C, scale, L, ao);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    // head h's slab starts at h * M * 3d; the tile adds h * kHeadDim (the
+    // head's column in token rows), which a slab does not have
+    constexpr int d3 = 3 * kHeadDim;
+    const T* slab = (const T*)qkv;
+    e = launch_attend<T>(slab, slab + kHeadDim, slab + 2 * kHeadDim, d3, (T*)o, R, N, C, heads,
+                         scale, ao, stream, (long long)M * d3 - kHeadDim);
   } else {
-    if ((e = launch_attend_packed<T>((const T*)qkv, (T*)o, R, N, C, heads, scale, ao,
-                                     stream)) != cudaSuccess)
-      return (int)e;
+    e = launch_attend_packed<T>((const T*)qkv, (T*)o, R, N, C, heads, scale, ao, stream);
   }
+  if (e != cudaSuccess) return (int)e;
   return (int)launch_proj_ln2<T>((const T*)o, (const T*)x, (const T*)wp, (const float*)bp,
                                  (const float*)ln2s, (const float*)ln2b, (T*)x2, (T*)y2, M, C,
                                  eps, stream, (const float*)dp, N, !(opts & kOptNoY2));

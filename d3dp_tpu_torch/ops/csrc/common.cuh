@@ -7,8 +7,21 @@
 // Matrix products: bf16 operands go through the tensor cores with
 // nvcuda::wmma 16x16x16 fragments and fp32 accumulation; fp32 operands use
 // plain FMAs (the fp32 path exists for parity checks, not for speed).
-// The per-head attention kernel at the end (`attend_kernel`) works on one
-// (sequence, head, query block) instead of token rows.
+// The per-head attention (`attend_tile`, `attend_kernel`) works on one
+// (sequence, head) instead of token rows. It replaces the attention inside
+// the TPU kernels of d3dp_tpu/ops/attention.py (`_attn_kernel`,
+// `_attn_fused_qkv_kernel`, `_attn_block_kernel`, `_attn_stage_kernel`,
+// `_attn_stage_kernel_hm`) and d3dp_tpu/ops/resident.py
+// (`_resident_kernel`). Bytes bound it (about 30 FLOPs per byte at 243
+// keys): in bf16 above 32 keys it reads each key and value row once per
+// (sequence, head) with cp.async in 64-key groups, and keeps the logits,
+// the exact softmax and P in the registers of mma.sync m16n8k16 fragments
+// (`attend_tile_mma`). At 255 registers a thread one block fills an SM, so
+// the standalone launches walk the tiles from a persistent grid and copy
+// the next tile into a second buffer while the current one computes
+// (`attend_mma_kernel`); the depth-resident kernel computes S in parts.
+// 32 keys or fewer, and fp32, keep the shared-memory body
+// (`attend_tile_smem`), one block per (sequence, head, <=64 queries).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -125,10 +138,26 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
+// the same, writing 16 zero bytes (and reading nothing) where !valid
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// wait_group with a count known only after unrolling (0..4)
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    default: cp_async_wait<4>(); break;
+  }
 }
 
 // Start copying a kBK x kBN slab of row-major B (global, row stride ldb)
@@ -283,18 +312,69 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// The bf16 tensor-core tile (`attend_tile_mma`): each warp owns 16 query
+// rows, so a pass of the 8 warps covers kPassRows queries; it takes the
+// attentions of more than kSmemMaxKeys keys, and every masked one.
+constexpr int kPassRows = 16 * kWarps;
+constexpr int kSmemMaxKeys = 32;
+// bf16 rows of 64 in shared memory, padded by 16 bytes: the 8 row addresses
+// of one ldmatrix fall on distinct banks
+constexpr int kLdh = kHeadDim + 8;
+
 struct AttnLayout {
   int QB, NK, ldq, ldk, ldv, lds, ldp;
+  // 16-key fragments of the tensor-core tile (4, 8 or 16), 0 for the
+  // shared-memory body
+  int nkf;
   size_t q, k, v, s, p, linv, total;
 };
 
+// The key-fragment count of the tensor-core tile for N unmasked keys. Under
+// a mask of block mb <= 32 a warp's 16 rows span at most
+// (15 / mb + 2) * mb <= 64 keys: 4 fragments.
+inline int attn_key_frags(int N, int mask_block) {
+  return mask_block > 0 || N <= 64 ? 4 : N <= 128 ? 8 : 16;
+}
+
+// Tensor-core tile (bf16, N > kSmemMaxKeys or masked): Q, K and V rows of
+// kLdh, nothing else. Unmasked, one tile holds all N queries (QB = N rounded
+// to 16) and all keys (NK = 16 * nkf). Under a mask of block mb a tile holds
+// one pass of queries and the whole blocks they span (at most
+// (QB - 1) / mb + 2 of them), plus 16 * nkf zero rows, since a warp reads
+// 16 * nkf rows from its own window's start.
+inline AttnLayout attn_layout_mma(int N, int mask_block) {
+  AttnLayout L;
+  const int NQ = cdiv(N, 16) * 16;
+  L.nkf = attn_key_frags(N, mask_block);
+  if (mask_block > 0) {
+    L.QB = std::min(NQ, kPassRows);
+    const int win = std::min(N, ((L.QB - 1) / mask_block + 2) * mask_block);
+    L.NK = cdiv(win, 16) * 16 + 16 * L.nkf;
+  } else {
+    L.QB = NQ;
+    L.NK = 16 * L.nkf;
+  }
+  L.ldq = L.ldk = L.ldv = kLdh;
+  L.lds = L.ldp = 0;
+  size_t off = 0;
+  L.q = off; off += align128(sizeof(bf16) * L.QB * kLdh);
+  L.k = off; off += align128(sizeof(bf16) * L.NK * kLdh);
+  L.v = off; off += align128(sizeof(bf16) * L.NK * kLdh);
+  L.s = L.p = L.linv = off;
+  L.total = off;
+  return L;
+}
+
+// Shared-memory body (fp32; bf16 of at most kSmemMaxKeys unmasked keys).
 // NK: the keys a tile holds, rounded up to 16. Unmasked, all N. Under a mask
 // of block mb, only the blocks its QB queries span: at most (QB - 1) / mb + 2
 // of them (a query block starts anywhere in a block).
 template <typename T>
 AttnLayout attn_layout(int N, int mask_block = 0) {
   constexpr bool f32 = std::is_same<T, float>::value;
+  if (!f32 && (mask_block > 0 || N > kSmemMaxKeys)) return attn_layout_mma(N, mask_block);
   AttnLayout L;
+  L.nkf = 0;
   const int NQ = cdiv(N, 16) * 16;
   L.QB = NQ < 64 ? NQ : 64;
   int keys = N;
@@ -321,10 +401,6 @@ AttnLayout attn_layout(int N, int mask_block = 0) {
 
 // One tile: (sequence `seq`, head `h`, query block `qb`). q, k, v: rows of ld
 // elements, N rows per sequence; out: (R, N, C).
-// One block holds <=64 queries and all their keys (tail zero-filled) with
-// the fp32 logits, so the softmax is exact over the whole row: all <=256
-// keys of the sequence, or under a mask only the window of whole blocks the
-// queries span (attn_layout), every key outside it having p = 0 exactly.
 // fp32 always divides p by l before P.V. For bf16, opts.norm_first picks
 // the order: true rounds p / l to bf16 before P.V (the TPU attention core's
 // `_attn_head`, and the stage under D3DP_SOFTMAX_FOLD=0); false runs P.V on
@@ -336,11 +412,17 @@ AttnLayout attn_layout(int N, int mask_block = 0) {
 // resident.cu). Their pointers carry no __restrict__: in resident.cu a
 // buffer one tile reads was written by other blocks earlier in the same
 // launch, which rules out the read-only data path.
+//
+// The shared-memory body: one block holds <=64 queries and all their keys
+// (tail zero-filled) with the fp32 logits, so the softmax is exact over the
+// whole row: all <=256 keys of the sequence, or under a mask only the
+// window of whole blocks the queries span (attn_layout), every key outside
+// it having p = 0 exactly.
 template <typename T>
-__device__ __forceinline__ void attend_tile(const T* q, const T* k, const T* v, int ld, T* out,
-                                            int N, int C, float scale, const AttnLayout& L,
-                                            const AttnOpts& opts, unsigned char* smem, int seq,
-                                            int h, int qb) {
+__device__ __forceinline__ void attend_tile_smem(const T* q, const T* k, const T* v, int ld,
+                                                 T* out, int N, int C, float scale,
+                                                 const AttnLayout& L, const AttnOpts& opts,
+                                                 unsigned char* smem, int seq, int h, int qb) {
   constexpr bool f32 = std::is_same<T, float>::value;
   T* Qs = reinterpret_cast<T*>(smem + L.q);
   T* Ks = reinterpret_cast<T*>(smem + L.k);
@@ -475,28 +557,639 @@ __device__ __forceinline__ void attend_tile(const T* q, const T* k, const T* v, 
   }
 }
 
-// grid (sequence, head, query block): one tile per block.
+// ------------------------------------------- tensor-core tile (bf16, mma.sync)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+// d += a b for one m16n8k16 product: a 16 x 16 bf16 (row), b 16 x 8 bf16
+// (col), d 16 x 8 fp32. Thread (g = lane / 4, t = lane % 4) holds d[0..1] at
+// row g, columns 2t, 2t + 1, and d[2..3] at row g + 8.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// 2^x on the special-function unit (ex2.approx, 2 ulp), subnormal results
+// flushed to zero: one instruction, where exp2f adds a predicated rescale
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Start copying rows [r0, r1) of one head (64 bf16 a row, global row stride
+// ld) into shared rows of kLdh; rows at or past `valid` are zero-filled.
+__device__ __forceinline__ void copy_head_rows(bf16* dst, const bf16* src, int ld, int r0, int r1,
+                                               int valid) {
+  for (int i = threadIdx.x; i < (r1 - r0) * 8; i += kThreads) {
+    const int r = r0 + i / 8, c = (i % 8) * 8;
+    const bool ok = r < valid;
+    cp_async16_zfill(dst + r * kLdh + c, ok ? src + (size_t)r * ld + c : src, ok);
+  }
+}
+
+// The bf16 tile on the tensor cores, NKF 16-key fragments (attn_layout_mma).
+// Unmasked, one tile is a whole (sequence, head): its K and V rows are read
+// once and its queries go in passes of kPassRows. Each warp owns 16 query
+// rows and keeps S for all its keys in registers (2 * NKF m16n8 fp32
+// fragments; in parts in the depth-resident kernel); the row max and sum
+// come from quad shuffles; keys at or past nk, and outside the query's own
+// block under a mask, get s = -inf by index, so p = 0 exactly. The accumulator layout of m16n8k16 is its A layout, so P
+// goes from S to bf16 A fragments in registers, and P.V reads V with
+// ldmatrix.trans. Each output row's arithmetic (the MMA order along keys,
+// the shuffle order of m and l) is the same whatever the tile's other rows,
+// R, or the caller's tile walk.
+
+// Where one tile's queries and keys lie: queries [q0, q0 + nq) of its
+// sequence (nqr: nq rounded up to 16) and keys [k0, k0 + nk).
+struct MmaTile {
+  int q0, nq, nqr, k0, nk;
+};
+
+__device__ __forceinline__ MmaTile mma_tile(int N, const AttnLayout& L, int mb, int qb) {
+  MmaTile t;
+  t.q0 = qb * L.QB;
+  t.nq = min(L.QB, N - t.q0);
+  t.nqr = cdiv(t.nq, 16) * 16;
+  t.k0 = 0;
+  t.nk = N;
+  if (mb > 0) {
+    t.k0 = t.q0 / mb * mb;
+    t.nk = min(N, (t.q0 + t.nq - 1) / mb * mb + mb) - t.k0;
+  }
+  return t;
+}
+
+// Start the tile's copies into smem as NKF / 4 + 1 cp.async groups: pass 0's
+// queries with keys 0-63, one group per further 64 keys (at NKF = 4, and so
+// under a mask, one group of all keys), then V and the later passes'
+// queries, so Q.K^T on the first keys starts while the rest land.
+template <int NKF>
+__device__ __forceinline__ void attend_mma_copy(const bf16* q, const bf16* k, const bf16* v,
+                                                int ld, int N, const AttnLayout& L, int mb,
+                                                unsigned char* smem, int seq, int h, int qb) {
+  constexpr int kKeyGroups = NKF / 4;
+  const MmaTile t = mma_tile(N, L, mb, qb);
+  bf16* Qs = reinterpret_cast<bf16*>(smem + L.q);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + L.k);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + L.v);
+  const size_t off = (size_t)seq * N * ld + h * kHeadDim;
+  const bf16* qg = q + off + (size_t)t.q0 * ld;
+  const bf16* kg = k + off + (size_t)t.k0 * ld;
+  const int nr0 = min(t.nqr, kPassRows);
+  const int kchunk = kKeyGroups == 1 ? L.NK : 64;
+  copy_head_rows(Qs, qg, ld, 0, nr0, t.nq);
+#pragma unroll
+  for (int c = 0; c < kKeyGroups; ++c) {
+    copy_head_rows(Ks, kg, ld, c * kchunk, min(L.NK, (c + 1) * kchunk), t.nk);
+    cp_async_commit();
+  }
+  copy_head_rows(Vs, v + off + (size_t)t.k0 * ld, ld, 0, L.NK, t.nk);
+  copy_head_rows(Qs, qg, ld, nr0, t.nqr, t.nq);
+  cp_async_commit();
+}
+
+// S = Q K^T (unscaled) of a warp's 16 query rows (A fragments qa) against KF
+// 16-key fragments from Kh, the first of their key rows in shared memory:
+// s[j][e] holds key 8j + 2(lane % 4) + (e & 1) of row lane / 4 + 8(e >> 1).
+template <int KF>
+__device__ __forceinline__ void mma_logits(float (&s)[2 * KF][4],
+                                           const uint32_t (&qa)[kHeadDim / 16][4],
+                                           const bf16* Kh, int lane) {
+  const int lrow = lane % 8, lmat = lane / 8;
+#pragma unroll
+  for (int j = 0; j < 2 * KF; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int f = 0; f < KF; ++f)
+#pragma unroll
+    for (int ks = 0; ks < kHeadDim / 16; ++ks) {
+      uint32_t b[4];
+      ldsm_x4(b, Kh + (16 * f + (lmat >> 1) * 8 + lrow) * kLdh + ks * 16 + (lmat & 1) * 8);
+      mma_16816(s[2 * f], qa[ks], b[0], b[1]);
+      mma_16816(s[2 * f + 1], qa[ks], b[2], b[3]);
+    }
+}
+
+// s = dot * scale, and s = -inf (so p = 0 exactly) for every key outside the
+// row's [j0, j1) of the warp's window, by index; kbase: the window index of
+// s's first key. Unmasked, only the fragments reaching past j1 are checked.
+template <int KF>
+__device__ __forceinline__ void scale_mask(float (&s)[2 * KF][4], float scale, int kbase, int tq,
+                                           const int (&j0)[2], const int (&j1)[2], bool masked) {
+#pragma unroll
+  for (int j = 0; j < 2 * KF; ++j) {
+    const bool edge = masked || kbase + 8 * j + 8 > j1[0];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = kbase + 8 * j + 2 * tq + (e & 1), i = e >> 1;
+      float x = s[j][e] * scale;
+      if (edge && (key < j0[i] || key >= j1[i])) x = -INFINITY;
+      s[j][e] = x;
+    }
+  }
+}
+
+// p = exp(s - m) in place, and l += p key by key where `sum`. exp(s - m) as
+// 2^(s log2(e) - m log2(e)), one FMA and one ex2 a key; under bf16_exp
+// p = bf16(exp(bf16(s - m))).
+template <int KF>
+__device__ __forceinline__ void softmax_exp(float (&s)[2 * KF][4], const float (&m)[2],
+                                            float (&l)[2], bool bf16_exp, bool sum) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float ml[2] = {m[0] * kLog2e, m[1] * kLog2e};
+  if (bf16_exp) {
+#pragma unroll
+    for (int j = 0; j < 2 * KF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = bf16_round(expf(bf16_round(s[j][e] - m[e >> 1])));
+        if (sum) l[e >> 1] += s[j][e];
+      }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 2 * KF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2_ftz(fmaf(s[j][e], kLog2e, -ml[e >> 1]));
+        if (sum) l[e >> 1] += s[j][e];
+      }
+  }
+}
+
+// P (times 1/l first where `norm`) rounded to bf16 as the A fragments of
+// P.V's 16-key steps: the accumulator layout of S is the A layout.
+template <int KF>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[KF][4], const float (&p)[2 * KF][4],
+                                       const float (&inv)[2], bool norm) {
+  const float c0 = norm ? inv[0] : 1.f, c1 = norm ? inv[1] : 1.f;
+#pragma unroll
+  for (int f = 0; f < KF; ++f) {
+    pa[f][0] = pack_bf16(p[2 * f][0] * c0, p[2 * f][1] * c0);
+    pa[f][1] = pack_bf16(p[2 * f][2] * c1, p[2 * f][3] * c1);
+    pa[f][2] = pack_bf16(p[2 * f + 1][0] * c0, p[2 * f + 1][1] * c0);
+    pa[f][3] = pack_bf16(p[2 * f + 1][2] * c1, p[2 * f + 1][3] * c1);
+  }
+}
+
+// O += P V over KF 16-key steps from Vh (the first of their value rows), V
+// read with ldmatrix.trans.
+template <int KF>
+__device__ __forceinline__ void mma_pv(float (&o)[kHeadDim / 8][4], const uint32_t (&pa)[KF][4],
+                                       const bf16* Vh, int lane) {
+  const int lrow = lane % 8, lmat = lane / 8;
+#pragma unroll
+  for (int f = 0; f < KF; ++f)
+#pragma unroll
+    for (int dp = 0; dp < kHeadDim / 16; ++dp) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, Vh + (16 * f + (lmat & 1) * 8 + lrow) * kLdh + dp * 16 + (lmat >> 1) * 8);
+      mma_16816(o[2 * dp], pa[f], b[0], b[1]);
+      mma_16816(o[2 * dp + 1], pa[f], b[2], b[3]);
+    }
+}
+
+// The tile's arithmetic on the copies attend_mma_copy started into smem,
+// which are the only cp.async groups in flight, with S kept whole in
+// registers (the standalone launches). `loaded()` runs once all of them have
+// landed (after pass 0's softmax), on every thread: a caller that walks
+// tiles starts the next tile's copies there, into another buffer.
+template <int NKF, typename Loaded>
+__device__ __forceinline__ void attend_mma_compute(bf16* out, int N, int C, float scale,
+                                                   const AttnLayout& L, const AttnOpts& opts,
+                                                   unsigned char* smem, int seq, int h, int qb,
+                                                   Loaded&& loaded) {
+  constexpr int kKeyGroups = NKF / 4;
+  constexpr int kGroupFrags = NKF / kKeyGroups;
+  constexpr float kLog2e = 1.4426950408889634f;
+  const bf16* Qs = reinterpret_cast<const bf16*>(smem + L.q);
+  const bf16* Ks = reinterpret_cast<const bf16*>(smem + L.k);
+  const bf16* Vs = reinterpret_cast<const bf16*>(smem + L.v);
+  const int mb = opts.mask_block;
+  const MmaTile t = mma_tile(N, L, mb, qb);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int lrow = lane % 8, lmat = lane / 8;
+  bf16* orow = out + ((size_t)seq * N + t.q0) * C + h * kHeadDim;
+  for (int pass = 0; pass * kPassRows < t.nqr; ++pass) {
+    const int r0 = pass * kPassRows + warp * 16;  // the warp's first row in the tile
+    const bool active = r0 < t.nq;
+    // the warp's keys: rows [kw, kw + 16 * NKF) of Ks and Vs
+    const int kw = mb > 0 && active ? (t.q0 + r0) / mb * mb - t.k0 : 0;
+
+    // S = Q K^T (unscaled), fp32, in registers
+    float s[2 * NKF][4];
+#pragma unroll
+    for (int j = 0; j < 2 * NKF; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    uint32_t qa[kHeadDim / 16][4];
+#pragma unroll
+    for (int f = 0; f < NKF; ++f) {
+      if (f % kGroupFrags == 0) {
+        if (pass == 0) {
+          // this thread's copies of key group f / kGroupFrags landed, then everyone's
+          cp_async_wait_upto(kKeyGroups - f / kGroupFrags);
+          __syncthreads();
+        }
+        if (f == 0 && active) {
+#pragma unroll
+          for (int ks = 0; ks < kHeadDim / 16; ++ks)
+            ldsm_x4(qa[ks], Qs + (r0 + (lmat & 1) * 8 + lrow) * kLdh + ks * 16 + (lmat >> 1) * 8);
+        }
+      }
+      if (!active) continue;
+#pragma unroll
+      for (int ks = 0; ks < kHeadDim / 16; ++ks) {
+        uint32_t b[4];
+        ldsm_x4(b, Ks + (kw + 16 * f + (lmat >> 1) * 8 + lrow) * kLdh + ks * 16 + (lmat & 1) * 8);
+        mma_16816(s[2 * f], qa[ks], b[0], b[1]);
+        mma_16816(s[2 * f + 1], qa[ks], b[2], b[3]);
+      }
+    }
+
+    // exact softmax of rows r0 + g (e = 0, 1) and r0 + g + 8 (e = 2, 3) over
+    // their keys [j0, j1) of the warp's window: s = dot * scale, m = max(s),
+    // p = exp(s - m), l = sum(p), then P rounded to bf16 as the A fragments
+    // of P.V's 16-key steps
+    float inv[2] = {1.f, 1.f};
+    uint32_t pa[NKF][4];
+    if (active) {
+      int j0[2] = {0, 0}, j1[2] = {t.nk - kw, t.nk - kw};
+      if (mb > 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          j0[i] = (t.q0 + r0 + g + 8 * i) / mb * mb - t.k0 - kw;
+          j1[i] = min(j0[i] + mb, t.nk - kw);
+        }
+      }
+      float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 2 * NKF; ++j) {
+        // unmasked, only the fragments reaching past nk hold keys to drop
+        const bool edge = mb > 0 || 8 * j + 8 > t.nk;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = 8 * j + 2 * tq + (e & 1), i = e >> 1;
+          float x = s[j][e] * scale;
+          if (edge && (key < j0[i] || key >= j1[i])) x = -INFINITY;
+          s[j][e] = x;
+          m[i] = fmaxf(m[i], x);
+        }
+      }
+      float l[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+        m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
+      }
+      if (opts.bf16_exp) {
+#pragma unroll
+        for (int j = 0; j < 2 * NKF; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] = bf16_round(expf(bf16_round(s[j][e] - m[e >> 1])));
+            l[e >> 1] += s[j][e];
+          }
+      } else {
+        // exp(s - m) as 2^(s log2(e) - m log2(e)): one FMA and one ex2 a key
+        const float ml[2] = {m[0] * kLog2e, m[1] * kLog2e};
+#pragma unroll
+        for (int j = 0; j < 2 * NKF; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] = ex2_ftz(fmaf(s[j][e], kLog2e, -ml[e >> 1]));
+            l[e >> 1] += s[j][e];
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        inv[i] = 1.0f / l[i];
+      }
+      if (opts.norm_first) {
+        // p / l, as p times 1 / l, before the rounding
+#pragma unroll
+        for (int j = 0; j < 2 * NKF; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] *= inv[e >> 1];
+        inv[0] = inv[1] = 1.f;
+      }
+#pragma unroll
+      for (int f = 0; f < NKF; ++f) {
+        pa[f][0] = pack_bf16(s[2 * f][0], s[2 * f][1]);
+        pa[f][1] = pack_bf16(s[2 * f][2], s[2 * f][3]);
+        pa[f][2] = pack_bf16(s[2 * f + 1][0], s[2 * f + 1][1]);
+        pa[f][3] = pack_bf16(s[2 * f + 1][2], s[2 * f + 1][3]);
+      }
+    }
+
+    if (pass == 0) {
+      cp_async_wait<0>();  // V and the later passes' queries
+      __syncthreads();
+      loaded();
+    }
+    if (!active) continue;
+    // O = P V
+    float o[kHeadDim / 8][4];
+#pragma unroll
+    for (int j = 0; j < kHeadDim / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll
+    for (int f = 0; f < NKF; ++f) {
+#pragma unroll
+      for (int dp = 0; dp < kHeadDim / 16; ++dp) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, Vs + (kw + 16 * f + (lmat & 1) * 8 + lrow) * kLdh + dp * 16 +
+                             (lmat >> 1) * 8);
+        mma_16816(o[2 * dp], pa[f], b[0], b[1]);
+        mma_16816(o[2 * dp + 1], pa[f], b[2], b[3]);
+      }
+    }
+    // scaled by 1/l (or by 1 where p was normalised first), rounded to bf16
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + g + 8 * i;
+      if (r >= t.nq) continue;
+      bf16* orr = orow + (size_t)r * C + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < kHeadDim / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orr + 8 * j) =
+            pack_bf16(o[j][2 * i] * inv[i], o[j][2 * i + 1] * inv[i]);
+    }
+  }
+}
+
+// The same arithmetic as attend_mma_compute, for the depth-resident kernel,
+// which inlines the tile beside its other phases and shares their
+// registers: the keys go in parts of KF 16-key fragments, and S is computed
+// again for each use (the row max; l, where p / l comes first; P.V), so a
+// thread holds 8 * KF logits, not 8 * NKF. The bits are those of S kept
+// whole: each key's s and p come from the same operations, l adds the keys
+// in the same order, and P.V takes the 16-key steps in the same order.
+template <int NKF, int KF>
+__device__ __forceinline__ void attend_mma_compute_parts(bf16* out, int N, int C, float scale,
+                                                         const AttnLayout& L,
+                                                         const AttnOpts& opts,
+                                                         unsigned char* smem, int seq, int h,
+                                                         int qb) {
+  constexpr int kKeyGroups = NKF / 4;
+  constexpr int kParts = NKF / KF;
+  const bf16* Qs = reinterpret_cast<const bf16*>(smem + L.q);
+  const bf16* Ks = reinterpret_cast<const bf16*>(smem + L.k);
+  const bf16* Vs = reinterpret_cast<const bf16*>(smem + L.v);
+  const int mb = opts.mask_block;
+  const MmaTile t = mma_tile(N, L, mb, qb);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  bf16* orow = out + ((size_t)seq * N + t.q0) * C + h * kHeadDim;
+  for (int pass = 0; pass * kPassRows < t.nqr; ++pass) {
+    const int r0 = pass * kPassRows + warp * 16;  // the warp's first row in the tile
+    const bool active = r0 < t.nq;
+    // the warp's keys: rows [kw, kw + 16 * NKF) of Ks and Vs; row r0 + g +
+    // 8i sees its keys [j0[i], j1[i]) of them
+    const int kw = mb > 0 && active ? (t.q0 + r0) / mb * mb - t.k0 : 0;
+    int j0[2] = {0, 0}, j1[2] = {t.nk - kw, t.nk - kw};
+    if (mb > 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        j0[i] = (t.q0 + r0 + g + 8 * i) / mb * mb - t.k0 - kw;
+        j1[i] = min(j0[i] + mb, t.nk - kw);
+      }
+    }
+    const bf16* Kw = Ks + kw * kLdh;
+    const bf16* Vw = Vs + kw * kLdh;
+    uint32_t qa[kHeadDim / 16][4];
+    float s[2 * KF][4];
+    uint32_t pa[KF][4];
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv[2] = {1.f, 1.f};
+
+    // 1. m = the row max of s = dot * scale over the row's keys
+#pragma unroll 1
+    for (int pt = 0; pt < kParts; ++pt) {
+      if (pass == 0) {
+        // this thread's copies of the part's key groups landed, then everyone's
+        cp_async_wait_upto(kKeyGroups + 1 - cdiv((pt + 1) * KF, 4));
+        __syncthreads();
+      }
+      if (!active) continue;
+      if (pt == 0) {
+        const int lrow = lane % 8, lmat = lane / 8;
+#pragma unroll
+        for (int ks = 0; ks < kHeadDim / 16; ++ks)
+          ldsm_x4(qa[ks], Qs + (r0 + (lmat & 1) * 8 + lrow) * kLdh + ks * 16 + (lmat >> 1) * 8);
+      }
+      mma_logits<KF>(s, qa, Kw + 16 * KF * pt * kLdh, lane);
+      scale_mask<KF>(s, scale, 16 * KF * pt, tq, j0, j1, mb > 0);
+#pragma unroll
+      for (int j = 0; j < 2 * KF; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], s[j][e]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
+    }
+
+    // 2. p = exp(s - m) and l = sum(p) before P.V where p / l comes first
+    if (active && opts.norm_first) {
+#pragma unroll 1
+      for (int pt = 0; pt < kParts; ++pt) {
+        mma_logits<KF>(s, qa, Kw + 16 * KF * pt * kLdh, lane);
+        scale_mask<KF>(s, scale, 16 * KF * pt, tq, j0, j1, mb > 0);
+        softmax_exp<KF>(s, m, l, opts.bf16_exp, true);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        inv[i] = 1.0f / l[i];
+      }
+    }
+
+    if (pass == 0) {
+      cp_async_wait<0>();  // V and the later passes' queries
+      __syncthreads();
+    }
+    if (!active) continue;
+    // 3. O = P V: p / l rounded to bf16 under norm_first (the output then
+    // scaled by 1), else the unnormalised p, and 1/l on the output
+    float o[kHeadDim / 8][4];
+#pragma unroll
+    for (int j = 0; j < kHeadDim / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll 1
+    for (int pt = 0; pt < kParts; ++pt) {
+      mma_logits<KF>(s, qa, Kw + 16 * KF * pt * kLdh, lane);
+      scale_mask<KF>(s, scale, 16 * KF * pt, tq, j0, j1, mb > 0);
+      softmax_exp<KF>(s, m, l, opts.bf16_exp, !opts.norm_first);
+      pack_p<KF>(pa, s, inv, opts.norm_first);
+      mma_pv<KF>(o, pa, Vw + 16 * KF * pt * kLdh, lane);
+    }
+    if (opts.norm_first) {
+      inv[0] = inv[1] = 1.f;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        inv[i] = 1.0f / l[i];
+      }
+    }
+    // scaled by 1/l (or by 1 where p was normalised first), rounded to bf16
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + g + 8 * i;
+      if (r >= t.nq) continue;
+      bf16* orr = orow + (size_t)r * C + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < kHeadDim / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orr + 8 * j) =
+            pack_bf16(o[j][2 * i] * inv[i], o[j][2 * i + 1] * inv[i]);
+    }
+  }
+}
+
+// One tensor-core tile, its copies and its arithmetic, as the depth-resident
+// kernel walks them: S in parts of kResidentFrags 16-key fragments, the same
+// bits as the standalone launches' S kept whole.
+constexpr int kResidentFrags = 4;
+template <int NKF>
+__device__ __forceinline__ void attend_tile_mma(const bf16* q, const bf16* k, const bf16* v,
+                                                int ld, bf16* out, int N, int C, float scale,
+                                                const AttnLayout& L, const AttnOpts& opts,
+                                                unsigned char* smem, int seq, int h, int qb) {
+  attend_mma_copy<NKF>(q, k, v, ld, N, L, opts.mask_block, smem, seq, h, qb);
+  attend_mma_compute_parts<NKF, kResidentFrags>(out, N, C, scale, L, opts, smem, seq, h, qb);
+}
+
+// Every caller's tile (the depth-resident kernel walks these): the
+// tensor-core tile for L.nkf > 0 (bf16), else the shared-memory body.
+template <typename T>
+__device__ __forceinline__ void attend_tile(const T* q, const T* k, const T* v, int ld, T* out,
+                                            int N, int C, float scale, const AttnLayout& L,
+                                            const AttnOpts& opts, unsigned char* smem, int seq,
+                                            int h, int qb) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    switch (L.nkf) {
+      case 4: attend_tile_mma<4>(q, k, v, ld, out, N, C, scale, L, opts, smem, seq, h, qb); return;
+      case 8: attend_tile_mma<8>(q, k, v, ld, out, N, C, scale, L, opts, smem, seq, h, qb); return;
+      case 16:
+        attend_tile_mma<16>(q, k, v, ld, out, N, C, scale, L, opts, smem, seq, h, qb);
+        return;
+      default: break;
+    }
+  }
+  attend_tile_smem<T>(q, k, v, ld, out, N, C, scale, L, opts, smem, seq, h, qb);
+}
+
+// The shared-memory body's launch: grid (sequence, head, query block), one
+// tile per block. hs: see launch_attend.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attend_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              int ld, T* __restrict__ out, int N, int C, float scale, AttnLayout L,
-              AttnOpts opts) {
+              long long hs, int ld, T* __restrict__ out, int N, int C, float scale,
+              AttnLayout L, AttnOpts opts) {
   extern __shared__ __align__(128) unsigned char smem[];
-  attend_tile<T>(q, k, v, ld, out, N, C, scale, L, opts, smem, blockIdx.x, blockIdx.y,
-                 blockIdx.z);
+  const long long o = blockIdx.y * hs;
+  attend_tile_smem<T>(q + o, k + o, v + o, ld, out, N, C, scale, L, opts, smem, blockIdx.x,
+                      blockIdx.y, blockIdx.z);
 }
 
-// Launch attend_kernel<T> over R sequences of N tokens.
+// The tensor-core tile's launch: a persistent grid that walks the tiles
+// (head fastest, then sequence, then query block) with two shared-memory
+// buffers. Each tile starts the next one's copies into the other buffer
+// once its own have landed, so pass 0's P.V and the later passes run while
+// the next tile's keys and values arrive: one block fills an SM (255
+// registers a thread), so no other block hides the copies.
+template <int NKF>
+__global__ void __launch_bounds__(kThreads)
+attend_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, long long hs, int ld, bf16* __restrict__ out,
+                  int R, int N, int C, int heads, float scale, AttnLayout L, AttnOpts opts) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n = R * heads * cdiv(N, L.QB);
+  auto copy = [&](int t, unsigned char* buf) {
+    const int h = t % heads;
+    const long long o = h * hs;
+    attend_mma_copy<NKF>(q + o, k + o, v + o, ld, N, L, opts.mask_block, buf, t / heads % R, h,
+                         t / (heads * R));
+  };
+  int t = blockIdx.x;
+  if (t < n) copy(t, smem);
+  for (int i = 0; t < n; ++i, t += gridDim.x) {
+    const int tn = t + gridDim.x;
+    attend_mma_compute<NKF>(out, N, C, scale, L, opts, smem + (i & 1) * L.total, t / heads % R,
+                            t % heads, t / (heads * R), [&] {
+                              if (tn < n) copy(tn, smem + ((i + 1) & 1) * L.total);
+                            });
+    __syncthreads();  // the tile after next overwrites this buffer
+  }
+}
+
+template <int NKF>
+cudaError_t launch_attend_mma(const bf16* q, const bf16* k, const bf16* v, long long hs, int ld,
+                              bf16* out, int R, int N, int C, int heads, float scale,
+                              const AttnLayout& L, const AttnOpts& opts, cudaStream_t stream) {
+  const long long n = (long long)R * heads * cdiv(N, L.QB);
+  if (n > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int smem = (int)(2 * L.total);
+  cudaError_t e = cudaFuncSetAttribute(attend_mma_kernel<NKF>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attend_mma_kernel<NKF>,
+                                                         kThreads, smem)) != cudaSuccess)
+    return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int blocks = (int)std::min(n, (long long)per_sm * sms);
+  attend_mma_kernel<NKF><<<blocks, kThreads, smem, stream>>>(q, k, v, hs, ld, out, R, N, C,
+                                                             heads, scale, L, opts);
+  return cudaGetLastError();
+}
+
+// Launch the tile over R sequences of N tokens, heads of kHeadDim. A tile
+// reads head h at column h * kHeadDim of rows of ld elements; hs is a further
+// offset of h * hs elements (0 for token rows holding every head; the
+// head-major slabs of attention_stage.cu, one per head, M * 3d apart).
 template <typename T>
 cudaError_t launch_attend(const T* q, const T* k, const T* v, int ld, T* out, int R, int N,
                           int C, int heads, float scale, const AttnOpts& opts,
-                          cudaStream_t stream) {
+                          cudaStream_t stream, long long hs = 0) {
   const AttnLayout L = attn_layout<T>(N, opts.mask_block);
+  if constexpr (std::is_same<T, bf16>::value) {
+    switch (L.nkf) {
+      case 4:
+        return launch_attend_mma<4>(q, k, v, hs, ld, out, R, N, C, heads, scale, L, opts, stream);
+      case 8:
+        return launch_attend_mma<8>(q, k, v, hs, ld, out, R, N, C, heads, scale, L, opts, stream);
+      case 16:
+        return launch_attend_mma<16>(q, k, v, hs, ld, out, R, N, C, heads, scale, L, opts,
+                                     stream);
+      default: break;
+    }
+  }
   cudaError_t e = cudaFuncSetAttribute(attend_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (e != cudaSuccess) return e;
-  dim3 grid(R, heads, cdiv(N, L.QB));
-  attend_kernel<T><<<grid, kThreads, L.total, stream>>>(q, k, v, ld, out, N, C, scale, L, opts);
+  attend_kernel<T><<<dim3(R, heads, cdiv(N, L.QB)), kThreads, L.total, stream>>>(
+      q, k, v, hs, ld, out, N, C, scale, L, opts);
   return cudaGetLastError();
 }
 

@@ -40,7 +40,10 @@
 //   * the tile bodies are the level-4 kernels' own device functions
 //     (`ln_qkv_tile`, `attend_tile`, `proj_ln2_tile`, `mlp_tile<T, true>`)
 //     with the same options, in the same order with the same roundings, so
-//     level 5 computes what level 4 computes, bit for bit;
+//     level 5 computes what level 4 computes, bit for bit. The attend phase
+//     walks (sequence, head) tiles: at F > 32 frames `attend_tile` picks the
+//     tensor-core tile of the level-4 launch (its key-fragment count from
+//     the layout), whose rows' arithmetic does not depend on the walk;
 //   * rows go in groups of G, chosen by the caller so that the group's
 //     stream and scratch (stream, qkv, o, x2, y2 and the relayout buffer:
 //     8 x F*J*C elements a row) fit in L2; the caller allocates the scratch

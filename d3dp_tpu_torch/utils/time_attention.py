@@ -1,0 +1,143 @@
+"""Time the attention kernels of one or more checkouts of the port in turns
+on one card, for A/B comparisons:
+
+    python -m d3dp_tpu_torch.utils.time_attention --trees OLD . . OLD --reps 3
+
+Each entry of `--trees` is a directory holding a checkout (its
+`d3dp_tpu_torch/` builds its own kernels at first use); a child process per
+(repetition, tree) imports the package from there and times, in bf16 with
+CUDA events (median of `--iters` launches after one warm-up), every kernel
+that runs the attention tile at its main path's shapes: K3 at the train
+step's (972 x 17, 68 x 243), K7, K6, K1 and K8 at the eval path's
+(9,720 x 17, 680 x 243 for 40 hypothesis rows), and K1's attend launch
+alone where the checkout has it; with `--sample` also `D3DP.sample` at the
+eval config at fuse levels 4 and 5 (K1 and K9). The inputs come from one
+seed, so every tree sees the same values. Prints one JSON line per child and a summary
+(per kernel and tree: the medians of every repetition), also written to
+`chiprun_out/time_attention.json`. Needs a CUDA card.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+_CHILD = r'''
+import json, statistics, sys
+import torch
+from d3dp_tpu_torch import disable_tf32
+from d3dp_tpu_torch.ops import attention as A
+
+disable_tf32()
+ITERS = int(sys.argv[1])
+C, HEADS, ROWS, BT, F, J = 512, 8, 40, 4, 243, 17
+bf = torch.bfloat16
+gen = torch.Generator(device="cuda").manual_seed(11)
+
+
+def rn(*shape, s=1.0):
+    return torch.randn(*shape, generator=gen, device="cuda") * s
+
+
+def ms(fn):
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(ITERS):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e))
+    return statistics.median(out)
+
+
+res = {}
+for label, R, N in (("spatial", BT * F, J), ("temporal", BT * J, F)):
+    qkv = rn(R, N, 3 * C).to(bf)
+    res[f"fused_attention_qkv/{label}"] = ms(lambda: A.fused_attention_qkv(qkv, HEADS, 0.125))
+for label, R, N in (("spatial", ROWS * F, J), ("temporal", ROWS * J, F)):
+    qkv = rn(R, N, 3 * C).to(bf)
+    q, k, v = (t.contiguous() for t in qkv.split(C, dim=-1))
+    res[f"fused_attention_packed/{label}"] = ms(
+        lambda: A.fused_attention_packed(q, k, v, HEADS, 0.125))
+    if hasattr(A, "attend_qkv"):
+        res[f"attend/{label}"] = ms(lambda: A.attend_qkv(qkv, HEADS, 0.125))
+    res_ = rn(R, N, C, s=0.5).to(bf)
+    blk = [qkv, res_, rn(C, C, s=0.05).to(bf), rn(C, s=0.02), 1 + rn(C, s=0.1), rn(C, s=0.1)]
+    res[f"attention_block/{label}"] = ms(lambda: A.attention_block(*blk, HEADS, 0.125, 1e-6))
+    del q, k, v, qkv, blk
+    st = [rn(R, N, C, s=0.5).to(bf), rn(C, 3 * C, s=0.05).to(bf), rn(3 * C, s=0.02),
+          rn(C, C, s=0.05).to(bf), rn(C, s=0.02), 1 + rn(C, s=0.1), rn(C, s=0.1),
+          1 + rn(C, s=0.1), rn(C, s=0.1)]
+    res[f"attention_stage/{label}"] = ms(lambda: A.attention_stage(*st, HEADS, 0.125, 1e-6))
+    hm = [st[0], *A.stack_head_major(st[1], st[2], HEADS), *st[3:]]
+    res[f"attention_stage_hm/{label}"] = ms(
+        lambda: A.attention_stage_hm(*hm, HEADS, 0.125, 1e-6))
+    del st, hm
+if sys.argv[2] == "1":
+    # D3DP.sample at the eval config (B=4 windows, H=5, K=5, flip-TTA, depth 8,
+    # random weights from seed 0) at fuse levels 4 and 5, host clock around
+    # synchronised calls
+    import dataclasses, time
+    from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT
+    from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
+    from d3dp_tpu_torch.models import MixSTEConfig
+
+    d3dp = D3DP(D3DPConfig(model=MixSTEConfig(num_frames=F, embed_dim=C, depth=8,
+                                              num_heads=HEADS, dtype=bf),
+                           num_proposals=5, sampling_timesteps=5,
+                           joints_left=tuple(JOINTS_LEFT), joints_right=tuple(JOINTS_RIGHT)),
+                seed=0)
+    x2d, x2d_f = rn(BT, F, J, 2, s=0.3), rn(BT, F, J, 2, s=0.3)
+    for level in (4, 5):
+        d3dp.model.cfg = dataclasses.replace(d3dp.model.cfg, fuse_level=level)
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d3dp.sample(x2d, x2d_f, generator=torch.Generator(device="cuda").manual_seed(3))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res[f"sample/level{level}"] = statistics.median(times[1:])
+print("RESULT " + json.dumps(res), flush=True)
+'''
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--trees", nargs="+", default=["."])
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--sample", action="store_true",
+                    help="also time D3DP.sample at fuse levels 4 and 5 (median of 3)")
+    args = ap.parse_args(argv)
+    runs = []
+    for rep in range(args.reps):
+        for tree in args.trees:
+            out = subprocess.run([sys.executable, "-c", _CHILD, str(args.iters), str(int(args.sample))], cwd=tree,
+                                 capture_output=True, text=True, timeout=900)
+            line = [x for x in out.stdout.splitlines() if x.startswith("RESULT ")]
+            if out.returncode != 0 or not line:
+                print(out.stdout[-2000:], out.stderr[-4000:], file=sys.stderr)
+                raise SystemExit(f"time_attention: tree {tree} failed (rc {out.returncode})")
+            res = json.loads(line[0][len("RESULT "):])
+            runs.append({"rep": rep, "tree": tree, "ms": res})
+            print(json.dumps(runs[-1]), flush=True)
+    summary = {}
+    for r in runs:
+        for name, v in r["ms"].items():
+            summary.setdefault(name, {}).setdefault(r["tree"], []).append(v)
+    for name, by_tree in summary.items():
+        print(f"{name:34s} " + "  ".join(
+            f"{t}: {', '.join(f'{v:.4f}' for v in vs)}" for t, vs in by_tree.items()), flush=True)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "time_attention.json"), "w") as f:
+        json.dump({"runs": runs, "summary": summary}, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

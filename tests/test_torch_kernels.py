@@ -109,6 +109,10 @@ def test_mlp_block_t_kernel_matches_plain(np_rng, dtype, shape):
 
 
 QKV_SHAPES = [(16, 17), (4, 243), (3, 1), (2, 256), (5, 100), (4, 129)]
+# the attention tile's edges: the shared-memory body ends at 32 keys; the
+# tensor-core tile's key fragments (64, 128, 256 keys) and its passes of 128
+# queries
+TILE_EDGE_SHAPES = [(5, 32), (5, 33), (4, 64), (4, 65), (3, 192), (3, 255)]
 
 
 def _qkv_inputs(rng, R, N, dev, dtype, C=512):
@@ -119,7 +123,7 @@ def _qkv_inputs(rng, R, N, dev, dtype, C=512):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("R,N", QKV_SHAPES)
+@pytest.mark.parametrize("R,N", QKV_SHAPES + TILE_EDGE_SHAPES)
 def test_fused_attention_qkv_kernel_matches_plain(np_rng, dtype, R, N):
     dev = _cuda()
     qkv, _ = _qkv_inputs(np_rng, R, N, dev, dtype)
@@ -209,7 +213,7 @@ def test_attention_block_kernel_matches_plain(np_rng, dtype, N):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N", KERNEL_NS)
+@pytest.mark.parametrize("N", KERNEL_NS + [n for _, n in TILE_EDGE_SHAPES])
 def test_fused_attention_packed_kernel_matches_plain(np_rng, dtype, N):
     dev = _cuda()
     R = 3 if N > 100 else 7
@@ -225,6 +229,50 @@ def test_fused_attention_packed_kernel_matches_plain(np_rng, dtype, N):
     # the (B, N, h, d) wrapper launches the same kernel
     shaped = tattn.fused_attention(*(t.view(R, N, 8, 64) for t in (q, k, v)), 0.125)
     assert torch.equal(shaped.reshape(R, N, 512), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("opts", [0, tattn.OPT_NORM_FIRST, tattn.OPT_BF16_EXP])
+@pytest.mark.parametrize("R,N", [(16, 17), (4, 243)] + TILE_EDGE_SHAPES)
+def test_attend_qkv_kernel_matches_plain(np_rng, dtype, opts, R, N):
+    """The stage's attend launch alone against its plain version (TOL_QKV),
+    with each switch that reaches the tile; with p / l first it is K3's
+    launch, equal to K3 bit for bit."""
+    dev = _cuda()
+    qkv, _ = _qkv_inputs(np_rng, R, N, dev, dtype)
+    n0 = tattn.attend_qkv.launches
+    got = tattn.attend_qkv(qkv, 8, 0.125, opts)
+    want = tattn.attend_qkv_plain(qkv, 8, 0.125, opts)
+    torch.cuda.synchronize()
+    assert tattn.attend_qkv.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (R, N, 512)
+    assert _excess(got, want, dtype, TOL_QKV) <= 0
+    if opts == tattn.OPT_NORM_FIRST:
+        assert torch.equal(got, tattn.fused_attention_qkv(qkv, 8, 0.125))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["attend", "qkv", "packed"])
+@pytest.mark.parametrize("N", [17, 243])
+def test_attention_rows_do_not_depend_on_the_batch(np_rng, dtype, op, N):
+    """A sequence's attention output is the same bit for bit computed alone
+    and inside batches of 7 and 680 sequences: each row's arithmetic does
+    not depend on R or the tile walk (what level 5 = level 4 rests on)."""
+    dev = _cuda()
+    qkv = torch.from_numpy(np_rng.randn(680, N, 1536).astype(np.float32)).to(dev, dtype)
+    if op == "packed":
+        q, k, v = (t.contiguous() for t in qkv.split(512, dim=-1))
+        run = lambda a, b: tattn.fused_attention_packed(q[a:b], k[a:b], v[a:b], 8, 0.125)  # noqa
+    else:
+        f = tattn.attend_qkv if op == "attend" else tattn.fused_attention_qkv
+        run = lambda a, b: f(qkv[a:b], 8, 0.125)  # noqa: E731
+    full, seven = run(0, 680), run(0, 7)
+    for i in (0, 3, 6):
+        alone = run(i, i + 1)
+        assert torch.equal(alone[0], seven[i]) and torch.equal(alone[0], full[i])
+    assert torch.equal(seven, full[:7])
 
 
 @pytest.mark.gpu
@@ -325,10 +373,11 @@ def test_resident_kernel_matches_plain(np_rng, dtype, B, F):
             assert rel_k <= 1.05 * rel_p
 
 
-def _model(dtype, depth=2, level=5):
+def _model(dtype, depth=2, level=5, frames=243):
     from d3dp_tpu_torch.models import MixSTE2, MixSTEConfig
 
-    m = MixSTE2(MixSTEConfig(depth=depth, dtype=dtype, fuse_level=level), seed=5)
+    m = MixSTE2(MixSTEConfig(num_frames=frames, depth=depth, dtype=dtype, fuse_level=level),
+                seed=5)
     g = torch.Generator(device="cuda").manual_seed(6)
     with torch.no_grad():
         for p in m.parameters():
@@ -338,17 +387,19 @@ def _model(dtype, depth=2, level=5):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_level_5_launches_k9_once_and_equals_level_4(np_rng, dtype):
+@pytest.mark.parametrize("F", [243, 100, 48])
+def test_level_5_launches_k9_once_and_equals_level_4(np_rng, dtype, F):
     """One K9 launch per forward at level 5 and no K1/K2; the output equals
-    level 4's bit for bit (same device code, same roundings)."""
+    level 4's bit for bit (same roundings; in bf16 at F > 32 K9 computes S
+    in parts where K1 keeps it whole: 16, 8 and 4 key fragments)."""
     import dataclasses
 
     from d3dp_tpu_torch.ops import resident as tres
 
     dev = _cuda()
-    model = _model(dtype)
-    x2d = torch.from_numpy(np_rng.randn(2, 243, 17, 2).astype(np.float32) * 0.3).to(dev)
-    x3d = torch.from_numpy(np_rng.randn(2, 243, 17, 3).astype(np.float32)).to(dev)
+    model = _model(dtype, frames=F)
+    x2d = torch.from_numpy(np_rng.randn(2, F, 17, 2).astype(np.float32) * 0.3).to(dev)
+    x3d = torch.from_numpy(np_rng.randn(2, F, 17, 3).astype(np.float32)).to(dev)
     t = torch.tensor([999, 17], device=dev)
     ops = (tres.resident_block_stack, tattn.attention_stage, tmlp.mlp_block_t)
     n0 = [f.launches for f in ops]

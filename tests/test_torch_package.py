@@ -71,6 +71,28 @@ def test_every_cuda_source_is_built_and_bound():
         assert f'_build.load("{name}"' in wrappers, name
 
 
+def test_ptxas_report_reads_each_entry_functions_own_lines():
+    """Registers and spills per entry function, from `-Xptxas=-v` output; a
+    called (not inlined) function's spill line is not its caller's."""
+    from d3dp_tpu_torch.ops import _build
+
+    text = """ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'
+ptxas info    : Function properties for _Z1av
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'
+ptxas info    : Function properties for _Z1bv
+    32 bytes stack frame, 28 bytes spill stores, 24 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 32 bytes cumulative stack size
+ptxas info    : Function properties for _Z1cv
+    0 bytes stack frame, 48 bytes spill stores, 48 bytes spill loads
+"""
+    assert _build.ptxas_report(text) == [
+        {"kernel": "_Z1av", "stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 48},
+        {"kernel": "_Z1bv", "stack": 32, "spill_stores": 28, "spill_loads": 24,
+         "registers": 255}]
+
+
 def test_train_modules_import_no_jax():
     """The training slice's modules, imported alone, pull in no JAX."""
     code = (
