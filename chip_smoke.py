@@ -233,18 +233,21 @@ def phase_env(torch, record):
             for r, full in zip(rep, _build.demangle([r["kernel"] for r in rep])):
                 r.update(source=name, kernel=full.split("(")[0])
                 ptxas.append(r)
-    # every kernel's registers and spills, then those of the attention tile's
-    # bf16 instantiations and of the depth-resident kernel, which inlines them
+    # every kernel's registers and spills, then those of the bf16 attention
+    # tile's and MLP tile's kernels and of the depth-resident kernel, which
+    # runs both
     for r in ptxas:
         log(f"[env] ptxas {r['source']}: {r['kernel']}: {r.get('registers')} registers, "
             f"{r.get('spill_stores')} bytes spill stores, {r.get('spill_loads')} bytes spill "
             f"loads, {r.get('stack')} bytes stack")
-    tile = [r for r in ptxas if ("attend" in r["kernel"] or "resident" in r["kernel"])
+    tile = [r for r in ptxas if any(k in r["kernel"] for k in ("attend", "resident", "mlp_block"))
             and "<float" not in r["kernel"]]
-    check(tile, "no attention-tile or K9 instantiation in the ptxas output")
+    check(any("mlp_block" in r["kernel"] for r in tile) and
+          any("resident" in r["kernel"] for r in tile),
+          "no bf16 MLP-tile or K9 kernel in the ptxas output")
     spills = sorted({f"{r['kernel']} ({r['spill_stores']} / {r['spill_loads']} bytes)"
                      for r in tile if r.get("spill_stores") or r.get("spill_loads")})
-    log(f"[env] bf16 attention tile and K9: {len(tile)} instantiations, spilling: "
+    log(f"[env] bf16 attention tile, MLP tile and K9: {len(tile)} kernels, spilling: "
         f"{', '.join(spills) if spills else 'none'}")
     disable_tf32()
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=dt,
@@ -321,12 +324,39 @@ def phase_kernels(torch, record):
                     f"forward: max|err| {e:.3e} (tol {tol:g}) {'ok' if ex <= tol else 'FAIL'}")
                 check(ex <= tol, f"fused_attention_qkv_bwd {label} disagrees with autograd")
             del qkv, dout, got, want
+        check_mlp_tile_edges(torch, gen, dt, name_dt, errs)
         check_eval_kernels(torch, gen, dt, name_dt, errs)
         check_train_fused_kernels(torch, gen, dt, name_dt, errs)
         check_resident_kernel(torch, dt, name_dt, errs)
     check_backwards(torch, record)
     record["max_abs_err_bf16"] = errs
     return errs
+
+
+def check_mlp_tile_edges(torch, gen, dt, name_dt, errs):
+    """K5 and K5-dp on token-row counts around the MLP tile's 64 rows (fp32:
+    16): fewer than a tile, one under and over a multiple of 64, and
+    3 x 243 x 17 (41 rows in the last tile), against their plain versions."""
+    from d3dp_tpu_torch.ops import mlp as M
+
+    tol = TOL[name_dt]
+    ulp = BF16_ULP if dt == torch.bfloat16 else 0.0
+    for R in (17, 127, 129, 3 * F * J):
+        args = mlp_inputs(torch, gen, R, 1, dt, rows=1)
+        args[:2] = [a.view(R, C) for a in args[:2]]
+        dp = dp_scales(torch, gen, (R,))
+        for name, got, want in (
+                ("mlp_block", M.mlp_block(*args, 1e-6), M.mlp_block_plain(*args, 1e-6)),
+                ("mlp_block_dp", M.mlp_block_dp(*args, dp, 1e-6),
+                 M.mlp_block_dp_plain(*args, dp, 1e-6))):
+            torch.cuda.synchronize()
+            e, ex = max_err(torch, got, want, ulp)
+            log(f"[kernels] {name} tile edge {name_dt} rows({R}, {C}): max|err| {e:.3e} "
+                f"(tol {tol:g}{' + 1 bf16 ulp' if ulp else ''}) {'ok' if ex <= tol else 'FAIL'}")
+            check(ex <= tol, f"{name} on {R} rows {name_dt} disagrees with its plain version")
+            if dt == torch.bfloat16:
+                errs[name] = max(errs[name], e)
+        del args, dp
 
 
 # The trunk kernel's first run: depth 1, 2 rows of 27 frames, both compute

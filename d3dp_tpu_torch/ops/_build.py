@@ -144,9 +144,13 @@ def demangle(names):
     return lines if out.returncode == 0 and len(lines) == len(names) else list(names)
 
 
+# the launchers' own codes beside cudaError_t (kNoTensorMap in csrc/mlp.cuh)
+_OWN_ERRORS = {-3: "cuTensorMapEncodeTiled is unavailable or refused a weight map"}
+
+
 def check(err, what):
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err}")
+        raise RuntimeError(f"{what}: {_OWN_ERRORS.get(err, f'CUDA error {err}')}")
 
 
 def check_operand(t, name, dtype, shape, device):

@@ -4,9 +4,13 @@
 // whole token rows: a row of C channels never splits across blocks, so the
 // LayerNorms that close each stage see a full row in shared memory.
 //
-// Matrix products: bf16 operands go through the tensor cores with
-// nvcuda::wmma 16x16x16 fragments and fp32 accumulation; fp32 operands use
-// plain FMAs (the fp32 path exists for parity checks, not for speed).
+// Matrix products: the MLP tile (mlp.cuh) runs on Hopper's wgmma, 64 rows a
+// warpgroup, its operands fed to shared memory by TMA; the stage tiles here
+// (`ln_qkv_tile`, `proj_ln2_tile`) put bf16 operands through the tensor
+// cores with nvcuda::wmma 16x16x16 fragments and fp32 accumulation, 32 rows
+// a block, each weight slab behind a block-wide barrier, so they run far
+// below the card's rate; fp32 operands use plain FMAs (the fp32 path exists
+// for parity checks, not for speed).
 // The per-head attention (`attend_tile`, `attend_kernel`) works on one
 // (sequence, head) instead of token rows. It replaces the attention inside
 // the TPU kernels of d3dp_tpu/ops/attention.py (`_attn_kernel`,

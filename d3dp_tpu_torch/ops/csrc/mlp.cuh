@@ -1,9 +1,55 @@
-// The MLP half-block as a tile function, shared by the MLP-block kernels
-// (mlp_block_t.cu, whose header describes the design) and the
-// depth-resident kernel (resident.cu):
-//   y = LN(res + (GELU(x @ W1 + b1) @ W2 + b2)) over one block of BM
-// token rows, each written whole to its output row.
+// The MLP half-block as tile walks, shared by the MLP-block kernels
+// (mlp_block_t.cu) and the depth-resident kernel (resident.cu):
+//   y = LN(res + (act(x @ W1 + b1) @ W2 + b2)) over tiles of token rows,
+// each row written whole to its output row.
+//
+// What bounds it on the H100: operations. 4*T*C*H FLOPs for T tokens against
+// 3*T*C activation elements moved (x, res in; y out): about 680 FLOPs a byte
+// in bf16 at C=512, H=1024, above the card's 295, provided the hidden
+// activation h (T x H) never reaches device memory. Short of that bound:
+// every tile reads all of W1 and W2 (2 MiB in bf16) from L2, so the weight
+// stream an SM needs falls as the tile's rows grow; and the tile has to
+// keep its 64 x C fp32 output in registers while h passes through.
+//
+// bf16 (`mlp_walk_bf16`): a tile is 64 token rows, one wgmma M; one block
+// of two warpgroups fills an SM (227 KB of shared memory, 255 registers).
+//   * x (64 x C) sits in shared memory in the 128-byte swizzled layout the
+//     wgmma descriptors read, loaded with cp.async, rows past M zero-filled.
+//   * The hidden dimension goes in chunks of 128. fc1: warpgroup w computes
+//     h's columns 64w..64w+63 of the chunk with wgmma.mma_async m64n64k16
+//     (fp32 in 32 registers), adds b1, applies the activation (a template
+//     argument, one mode a code path), rounds to bf16 and writes them to a
+//     swizzled 64 x 128 buffer (two buffers, alternating). fc2: both
+//     warpgroups add h_chunk @ W2[chunk, :] into their half of the 64 x C
+//     output, warpgroup w owning columns w*C/2.. (m64n256k16 at C=512, 128
+//     fp32 registers a thread kept across all chunks). h exists a chunk at a
+//     time and never leaves the SM.
+//   * W1 and W2 reach shared memory through a ring of kRing 32 KB slabs
+//     (128 x 128 of W1, 32 x C of W2, in the weights' own row-major layout,
+//     which wgmma reads as an MN-major B), copied by the tensor memory
+//     accelerator (TMA, thread 0 issuing) and completing on an mbarrier a
+//     stage. Thread 0 refills a stage once both warpgroups' wgmmas that read
+//     it have retired, so warpgroup 0 waits on warpgroup 1's products there:
+//     the two share the SM's tensor cores, and a non-blocking refill
+//     measured slower.
+//   * The epilogue works on the accumulator fragments: + b2, the DropPath
+//     scale, + res (read from shared memory, where cp.async put it while the
+//     last chunk's fc2 ran), the LayerNorm's two passes (quad shuffles inside
+//     a warp, a 2 x 64 exchange between the warpgroups), then each row to its
+//     output row.
+//   * A block walks tiles blockIdx.x, + gridDim.x, ...: the ring runs on
+//     across tile boundaries (the slab sequence repeats every tile), the
+//     next tile's x loads after the epilogue, and the standalone launches
+//     stage the output rows in shared memory and write them with bulk copies
+//     that complete under the next tile's products.
+// Shared memory: x 64 KB, h 2 x 16 KB, ring 4 x 32 KB, at C = 512.
+//
+// fp32 (`mlp_tile_f32`, parity checks): 16 token rows a block, x, h and the
+// fp32 output rows in shared memory, the products by `gemm_rowblock`'s FMA
+// path.
 #pragma once
+
+#include <cuda.h>
 
 #include "common.cuh"
 
@@ -14,6 +60,10 @@ namespace d3dp {
 constexpr int kGeluErf = 0;   // production: 0.5 v (1 + erf(v / sqrt 2)), fp32
 constexpr int kGeluBf16 = 1;  // bf16gelu (bf16 only): the A&S 7.1.26 erf in bf16
 constexpr int kGeluNone = 2;  // nogelu: the identity
+
+// Returned by the launchers when cuTensorMapEncodeTiled cannot be reached or
+// refuses a weight map.
+constexpr int kNoTensorMap = -3;
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
@@ -43,96 +93,718 @@ __device__ __forceinline__ float activation(float v, int mode) {
   return mode == kGeluNone ? v : mode == kGeluBf16 ? gelu_bf16(v) : gelu_erf(v);
 }
 
+// The production GELU of the bf16 tile: erf by A&S 7.1.26 (|error| <= 1.5e-7,
+// the TPU kernels' own `_erf32`), branch-free with the fast exponential and
+// reciprocal, where erff's branches diverge inside a warp; h is rounded to
+// bf16 right after.
+__device__ __forceinline__ float gelu_poly(float v) {
+  const float z = v * 0.70710678118654752f;
+  const float a = fabsf(z);
+  const float t = __fdividef(1.f, fmaf(0.3275911f, a, 1.f));
+  const float p =
+      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f), 1.421413741f),
+                       -0.284496736f),
+               0.254829592f);
+  const float erf = copysignf(1.f - p * __expf(-a * a), z);
+  return 0.5f * v * (1.f + erf);
+}
+
+template <int kMode>
+__device__ __forceinline__ float activation_bf16(float v) {
+  return kMode == kGeluNone ? v : kMode == kGeluBf16 ? gelu_bf16(v) : gelu_poly(v);
+}
+
+// One walk's operands. Token row t = (b, i, j) of (B, D1, D2) goes to output
+// row (b, j, i) under kTranspose, else to row t. DropPath: with dp, the
+// branch (fc2 and its bias) of row t is scaled by dp[t / D2] in fp32 before
+// the residual add (one scale per (b, i); the rows form passes D2 = 1);
+// dp == nullptr leaves the arithmetic as it is without. gelu: a kGelu*
+// activation (kGeluBf16 only in bf16). Pointers carry no __restrict__ (see
+// attend_tile in common.cuh).
 template <typename T>
-struct MlpLayout {
+struct MlpArgs {
+  const T* x;
+  const T* res;
+  const T* w1;        // (C, H); fp32 only: bf16 reads W1 through a TMA map
+  const float* b1;    // (H,)
+  const T* w2;        // (H, C); fp32 only: bf16 reads W2 through a TMA map
+  const float* b2;    // (C,)
+  const float* lns;   // (C,) the closing LayerNorm's scale
+  const float* lnb;   // (C,) and bias
+  T* out;
+  const float* dp;
+  int depth;  // bf16: the depth the TMA maps of the weight stacks are read at
+  int D1, D2, M, C, H, gelu;
+  float eps;
+};
+
+__device__ __forceinline__ size_t mlp_out_row(int t, int D1, int D2, bool transpose) {
+  if (!transpose) return (size_t)t;
+  const int plane = D1 * D2;
+  const int b = t / plane, rem = t % plane;
+  return (size_t)(b * D2 + rem % D2) * D1 + rem / D2;
+}
+
+template <typename T> struct MlpLayout;
+
+// ------------------------------------------------------------------ fp32
+template <>
+struct MlpLayout<float> {
+  static constexpr int kRows = Cfg<float>::BM;
   int lda, ldh, lds;
   size_t a, h, s, c, b, total;
   MlpLayout() = default;
-  explicit MlpLayout(int C, int H) {
-    constexpr int BM = Cfg<T>::BM;
-    lda = C + Cfg<T>::PAD;
-    ldh = H + Cfg<T>::PAD;
+  MlpLayout(int C, int H) {
+    lda = C + Cfg<float>::PAD;
+    ldh = H + Cfg<float>::PAD;
     lds = C + 4;
     size_t off = 0;
-    a = off; off += align128(sizeof(T) * BM * lda);
-    h = off; off += align128(sizeof(T) * BM * ldh);
-    s = off; off += align128(sizeof(float) * BM * lds);
-    c = off; off += align128(sizeof(float) * BM * (kBN + 4));
-    b = off; off += bs_bytes<T>();
+    a = off; off += align128(sizeof(float) * kRows * lda);
+    h = off; off += align128(sizeof(float) * kRows * ldh);
+    s = off; off += align128(sizeof(float) * kRows * lds);
+    c = off; off += align128(sizeof(float) * kRows * (kBN + 4));
+    b = off; off += bs_bytes<float>();
     total = off;
   }
 };
 
-// One tile: the row block `tile` (BM token rows from BM * tile).
-// kTranspose: token row t = (b, i, j) of (B, D1, D2) goes to output row
-// (b, j, i); otherwise to row t (D1, D2 unused). Pointers carry no
-// __restrict__ (see attend_tile in common.cuh).
-// DropPath: with dp, the branch (fc2 and its bias) of token row t is scaled
-// by dp[t / D2] in fp32 before the residual add: one scale per (b, i) of the
-// transposing form's (B, D1) and, with D2 = 1, one per row of the rows
-// form; dp == nullptr leaves the arithmetic as it is without.
-// gelu_mode: one of the kGelu* activations (kGeluBf16 only in bf16).
-template <typename T, bool kTranspose>
-__device__ __forceinline__ void mlp_tile(const T* x, const T* res, const T* w1, const float* b1,
-                                         const T* w2, const float* b2, const float* lns,
-                                         const float* lnb, T* out, int D1, int D2, int M, int C,
-                                         int H, float eps, const MlpLayout<T>& L,
-                                         unsigned char* smem, int tile,
-                                         const float* dp = nullptr, int gelu_mode = kGeluErf) {
-  constexpr int BM = Cfg<T>::BM;
+template <bool kTranspose>
+__device__ __forceinline__ void mlp_tile_f32(const MlpArgs<float>& a, const MlpLayout<float>& L,
+                                             unsigned char* smem, int tile) {
+  constexpr int BM = MlpLayout<float>::kRows;
   constexpr int ldc = kBN + 4;
-  T* As = reinterpret_cast<T*>(smem + L.a);
-  T* Hs = reinterpret_cast<T*>(smem + L.h);
+  const int C = a.C, H = a.H, M = a.M;
+  float* As = reinterpret_cast<float*>(smem + L.a);
+  float* Hs = reinterpret_cast<float*>(smem + L.h);
   float* Ss = reinterpret_cast<float*>(smem + L.s);
   float* Cs = reinterpret_cast<float*>(smem + L.c);
-  T* Bs = reinterpret_cast<T*>(smem + L.b);
+  float* Bs = reinterpret_cast<float*>(smem + L.b);
 
   const int row0 = tile * BM;
-  load_rows(As, L.lda, x + (size_t)row0 * C, C, BM, M - row0, C);
+  load_rows(As, L.lda, a.x + (size_t)row0 * C, C, BM, M - row0, C);
   __syncthreads();
 
-  // h = GELU(x @ W1 + b1), 64 hidden columns at a time
+  // h = act(x @ W1 + b1), 64 hidden columns at a time
   for (int n0 = 0; n0 < H; n0 += kBN) {
-    gemm_rowblock(As, L.lda, w1 + n0, H, C, Bs, Cs, ldc);
+    gemm_rowblock(As, L.lda, a.w1 + n0, H, C, Bs, Cs, ldc);
     __syncthreads();
     for (int i = threadIdx.x; i < BM * kBN; i += kThreads) {
       const int r = i / kBN, c = i % kBN;
-      Hs[r * L.ldh + n0 + c] = from_f<T>(activation(Cs[r * ldc + c] + b1[n0 + c], gelu_mode));
+      Hs[r * L.ldh + n0 + c] = activation(Cs[r * ldc + c] + a.b1[n0 + c], a.gelu);
     }
   }
   __syncthreads();
   // h @ W2 into the fp32 row buffer
-  for (int n0 = 0; n0 < C; n0 += kBN) gemm_rowblock(Hs, L.ldh, w2 + n0, C, H, Bs, Ss + n0, L.lds);
+  for (int n0 = 0; n0 < C; n0 += kBN)
+    gemm_rowblock(Hs, L.ldh, a.w2 + n0, C, H, Bs, Ss + n0, L.lds);
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < BM; r += kWarps) {
     const int t = row0 + r;
     if (t >= M) continue;
-    size_t orow_idx = t;
-    if constexpr (kTranspose) {
-      const int plane = D1 * D2;
-      const int b = t / plane, rem = t % plane;
-      const int i = rem / D2, j = rem % D2;
-      orow_idx = (size_t)(b * D2 + j) * D1 + i;
-    }
-    const T* rr = res + (size_t)t * C;
-    const float keep = dp ? dp[t / D2] : 1.f;
+    const float* rr = a.res + (size_t)t * C;
+    const float keep = a.dp ? a.dp[t / a.D2] : 1.f;
     float v[32];
 #pragma unroll
     for (int k = 0; k < 32; ++k)
       if (k < C / 32) {
         const int c = 32 * k + lane;
-        const float branch = Ss[r * L.lds + c] + b2[c];
+        const float branch = Ss[r * L.lds + c] + a.b2[c];
         // res + (out + b2), or res + dp * (out + b2) rounded apart (no FMA)
-        v[k] = dp ? to_f(rr[c]) + __fmul_rn(branch, keep) : to_f(rr[c]) + branch;
+        v[k] = a.dp ? rr[c] + __fmul_rn(branch, keep) : rr[c] + branch;
       }
-    warp_layernorm(v, C, lns, lnb, eps, lane);
-    T* orow = out + orow_idx * C;
+    warp_layernorm(v, C, a.lns, a.lnb, a.eps, lane);
+    float* orow = a.out + mlp_out_row(t, a.D1, a.D2, kTranspose) * C;
 #pragma unroll
     for (int k = 0; k < 32; ++k)
-      if (k < C / 32) orow[32 * k + lane] = from_f<T>(v[k]);
+      if (k < C / 32) orow[32 * k + lane] = v[k];
   }
+}
+
+// ------------------------------------------------------ Hopper primitives
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarriers, by shared address
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_inval(uint32_t bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// order this thread's generic-proxy shared-memory writes before later
+// async-proxy accesses (wgmma operand reads, TMA writes)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// TMA: the box at (c0, c1, c2) of a 3-D map to shared address dst,
+// completing on bar
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Bulk copy of `bytes` (a multiple of 16) from shared address src to global
+// dst, in this thread's bulk group; the waits: until the group has read its
+// shared memory, and until its writes are done.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// A wgmma shared-memory operand at shared address `at` in the 128-byte
+// swizzled layout: rows of 128 bytes, 8-row atoms of 1024 bytes (1024-byte
+// aligned) stacked along the operand's strided dimension; lbo: the bytes
+// between its 64-element columns of atoms (an MN-major operand wider than 64,
+// else unused).
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t at, uint32_t lbo = 0) {
+  return (uint64_t)((at >> 4) & 0x3FFF) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)(1024 >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accumulator reads or writes across a
+// wgmma issue or wait
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (+)= A @ B on one warpgroup, bf16 operands from shared memory (A K-major,
+// B MN-major: the weights' row-major (K, N) as they are), fp32 D in the
+// m64nNk16 fragment layout: d[i] is row 16 * warp + lane / 4 + 8 * (i / 2 % 2),
+// column 8 * (i / 4) + 2 * (lane % 4) + i % 2. scale_d == 0 overwrites D.
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+
+// ------------------------------------------------------------------ bf16
+constexpr int kMlpRows = 64;    // token rows a tile: one wgmma M
+constexpr int kHid = 128;       // hidden columns a chunk: 64 a warpgroup
+constexpr int kW1Rows = 128;    // a W1 slab: 128 x 128 (two 64-column TMA boxes)
+constexpr int kW2Rows = 32;     // a W2 slab: 32 x C (C / 64 TMA boxes)
+constexpr int kRing = 4;        // slabs in the ring
+constexpr int kSlabBytes = 32768;
+constexpr int kAtom = 1024;     // an 8-row swizzle atom of 128-byte rows
+
+template <>
+struct MlpLayout<bf16> {
+  static constexpr int kRows = kMlpRows;
+  // byte offsets from the 1024-aligned base (`mlp_base`)
+  size_t x, h, ring, stats, bars, total;
+  MlpLayout() = default;
+  MlpLayout(int C, int) {
+    x = 0;                                            // 64 x C: C / 64 blocks of 8 KB
+    h = x + (size_t)kMlpRows * C * sizeof(bf16);      // 2 x (64 x 128): two blocks each
+    ring = h + 2 * kMlpRows * kHid * sizeof(bf16);
+    stats = ring + (size_t)kRing * kSlabBytes;        // [pass][warpgroup][row] fp32
+    bars = stats + 2 * 2 * kMlpRows * sizeof(float);  // kRing full, then kRing empty
+    total = bars + 2 * kRing * sizeof(uint64_t) + kAtom;  // + the base's alignment
+  }
+};
+
+// smem rounded up to a 1024-byte boundary, by pointer arithmetic so that
+// the compiler keeps the shared address space (plain LDS/STS)
+__device__ __forceinline__ unsigned char* mlp_base(unsigned char* smem) {
+  return smem + ((kAtom - (smem_addr(smem) & (kAtom - 1))) & (kAtom - 1));
+}
+
+// Rows of tile `tile` of src (M x C) into the swizzled 64 x C buffer at dst
+// with cp.async (one commit group); rows at or past M zero-filled.
+__device__ __forceinline__ void mlp_load_rows(unsigned char* xs, const bf16* x, int tile, int M,
+                                              int C) {
+  const int gpr = C / 8, row0 = tile * kMlpRows;  // 16-byte groups a row
+  for (int v = threadIdx.x; v < kMlpRows * gpr; v += kThreads) {
+    const int r = v / gpr, g = v % gpr;
+    const bool ok = row0 + r < M;
+    cp_async16_zfill(xs + (g >> 3) * (kMlpRows * 128) + r * 128 + (((g & 7) ^ (r & 7)) << 4),
+                     x + (size_t)(ok ? row0 + r : 0) * C + 8 * g, ok);
+  }
+  cp_async_commit();
+}
+
+// h = act(acc1 + b1) in bf16 into the swizzled 64-column block hb, from the
+// m64n64 fragments of acc1 (rows r0, r0 + 8; columns 8 jj + cq, + 1). The
+// activation is a template argument: a select per element would evaluate
+// every mode's arithmetic.
+template <int kMode>
+__device__ __forceinline__ void mlp_store_h(const float (&acc1)[32], const float* b1,
+                                            unsigned char* hb, int r0, int cq) {
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const float2 bb = *reinterpret_cast<const float2*>(b1 + 8 * jj + cq);
+    const int sw = ((jj ^ (r0 & 7)) << 4) + 2 * cq;
+    *reinterpret_cast<__nv_bfloat162*>(hb + r0 * 128 + sw) =
+        __floats2bfloat162_rn(activation_bf16<kMode>(acc1[4 * jj] + bb.x),
+                              activation_bf16<kMode>(acc1[4 * jj + 1] + bb.y));
+    *reinterpret_cast<__nv_bfloat162*>(hb + (r0 + 8) * 128 + sw) =
+        __floats2bfloat162_rn(activation_bf16<kMode>(acc1[4 * jj + 2] + bb.x),
+                              activation_bf16<kMode>(acc1[4 * jj + 3] + bb.y));
+  }
+}
+
+// Walk the tiles blockIdx.x, blockIdx.x + gridDim.x, ... below n_tiles.
+// Every thread of the block calls it; smem is the dynamic shared memory,
+// MlpLayout<bf16>(C, H).total bytes, free on entry and on return.
+// Needs C % 128 == 0, C <= 512, H % 128 == 0.
+// tw1, tw2: TMA maps over the depth-stacked (D, C, H) W1 and (D, H, C) W2
+// in kernel parameter space (`encode_mlp_maps`). kWide (C == 512): fc2 as
+// one m64n256k16 a step over the warpgroup's 256 columns, reading h once;
+// else C / 128 m64n64k16 (one instruction form a kernel: ptxas serializes
+// the wgmma pipeline when one accumulator meets two). kAsyncStore: the
+// output rows are staged in shared memory and written by bulk copies that
+// complete under the next tile's products; else stored from the registers
+// (the depth-resident kernel, whose phase ends with its one tile a block).
+template <bool kTranspose, bool kWide, bool kAsyncStore>
+__device__ __forceinline__ void mlp_walk_bf16(const MlpArgs<bf16>& a, const CUtensorMap* tw1,
+                                              const CUtensorMap* tw2, const MlpLayout<bf16>& L,
+                                              unsigned char* smem_raw, int n_tiles) {
+  const int first = blockIdx.x;
+  if (first >= n_tiles) return;
+  const int C = a.C, M = a.M;
+  const int mine = (n_tiles - 1 - first) / gridDim.x + 1;
+  const int nq = C / 128;             // 64-column output blocks a warpgroup
+  const int nw1 = C / kW1Rows;        // W1 slabs a chunk
+  const int per_chunk = nw1 + kHid / kW2Rows;
+  const int per_tile = (a.H / kHid) * per_chunk;
+  const uint32_t total = (uint32_t)mine * per_tile;
+
+  unsigned char* base = mlp_base(smem_raw);
+  unsigned char* xs = base + L.x;
+  unsigned char* hs = base + L.h;
+  float* stats = reinterpret_cast<float*>(base + L.stats);
+  // the ring's barriers: full[s] at full + 8 s, empty[s] at empty + 8 s
+  const uint32_t full = smem_addr(base + L.bars), empty = full + 8 * kRing;
+  // shared-space addresses of the wgmma operands
+  const uint32_t xs_at = smem_addr(xs), hs_at = smem_addr(hs), ring_at = smem_addr(base + L.ring);
+
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int r0 = 16 * (tid % 128 / 32) + lane / 4;  // this thread's rows r0, r0 + 8
+  const int cq = 2 * (lane % 4);                    // and column pair in each 8
+
+  // slab l of the walk: chunk j = l % per_tile / per_chunk; the first nw1 of
+  // a chunk are W1's rows 128 s.., columns 128 j..; the rest W2's rows
+  // 128 j + 32 s.., all columns
+  auto issue = [&](uint32_t l) {
+    const int q = (int)(l % per_tile), j = q / per_chunk, s = q % per_chunk;
+    const uint32_t bar = full + 8 * (l % kRing);
+    const uint32_t dst = ring_at + (l % kRing) * kSlabBytes;
+    if (s < nw1) {
+      mbar_expect_tx(bar, kW1Rows * kHid * sizeof(bf16));
+      tma_load_3d(dst, tw1, bar, kHid * j, kW1Rows * s, a.depth);
+      tma_load_3d(dst + kW1Rows * 128, tw1, bar, kHid * j + 64, kW1Rows * s, a.depth);
+    } else {
+      mbar_expect_tx(bar, kW2Rows * C * sizeof(bf16));
+      for (int b = 0; b < C / 64; ++b)
+        tma_load_3d(dst + b * (kW2Rows * 128), tw2, bar, 64 * b,
+                    kHid * j + kW2Rows * (s - nw1), a.depth);
+    }
+  };
+  // Slabs before l have retired on this warpgroup: one arrival from each;
+  // thread 0 then refills each freed stage with the slab kRing further on,
+  // once both warpgroups have arrived.
+  uint32_t released = 0;
+  auto release_upto = [&](uint32_t l) {
+    for (; released < l; ++released) {
+      const uint32_t e = empty + 8 * (released % kRing);
+      if (tid % 128 == 0) mbar_arrive(e);
+      if (tid == 0 && released + kRing < total) {
+        mbar_wait(e, (released / kRing) & 1);
+        issue(released + kRing);
+      }
+    }
+    __syncwarp();
+  };
+  // wait for slab l
+  auto acquire = [&](uint32_t l) {
+    mbar_wait(full + 8 * (l % kRing), (l / kRing) & 1);
+    __syncwarp();  // the wgmma instructions that follow are warp-aligned
+  };
+
+  fence_proxy_async();  // earlier generic writes to this memory before the TMA's
+  if (tid == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (uint32_t l = 0; l < kRing && l < total; ++l) issue(l);
+  __syncwarp();
+  mlp_load_rows(xs, a.x, first, M, C);
+
+  uint32_t next = 0;  // the next slab to consume
+  float acc2[128];
+#pragma unroll
+  for (int q = 0; q < 128; ++q) acc2[q] = 0.f;  // no value live into the walk
+  for (int i = 0; i < mine; ++i) {
+    const int tile = first + i * gridDim.x;
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();  // x landed for every thread
+
+    for (int j = 0; j < a.H / kHid; ++j) {
+      // fc1: this warpgroup's 64 hidden columns of the chunk
+      float acc1[32];
+#pragma unroll
+      for (int q = 0; q < 32; ++q) acc1[q] = 0.f;
+      for (int s = 0; s < nw1; ++s, ++next) {
+        acquire(next);
+        const uint32_t w = ring_at + (next % kRing) * kSlabBytes + wg * (kW1Rows * 128);
+        fence_acc(acc1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kW1Rows / 16; ++kk) {
+          const int k = kW1Rows * s + 16 * kk;
+          wgmma_n64(acc1, wgmma_desc(xs_at + (k >> 6) * (kMlpRows * 128) + (k & 63) * 2),
+                    wgmma_desc(w + kk * 16 * 128), s > 0 || kk > 0);
+        }
+        wgmma_commit();
+        fence_acc(acc1);
+        wgmma_wait<1>();
+        release_upto(next);
+      }
+      wgmma_wait<0>();
+      fence_acc(acc1);
+      release_upto(next);
+      // + b1, the activation, bf16, into this warpgroup's 64 columns of h
+      unsigned char* hb = hs + (j & 1) * (kMlpRows * kHid * 2) + wg * (kMlpRows * 128);
+      const float* b1 = a.b1 + kHid * j + 64 * wg;
+      if (a.gelu == kGeluErf)
+        mlp_store_h<kGeluErf>(acc1, b1, hb, r0, cq);
+      else if (a.gelu == kGeluBf16)
+        mlp_store_h<kGeluBf16>(acc1, b1, hb, r0, cq);
+      else
+        mlp_store_h<kGeluNone>(acc1, b1, hb, r0, cq);
+      fence_proxy_async();
+      __syncthreads();  // both halves of the chunk written; the last chunk: x is free
+      if (j == a.H / kHid - 1) mlp_load_rows(xs, a.res, tile, M, C);  // for the epilogue
+
+      // fc2: this warpgroup's columns of out += h_chunk @ W2[chunk, :]
+      const uint32_t hc = hs_at + (j & 1) * (kMlpRows * kHid * 2);
+      for (int s = 0; s < kHid / kW2Rows; ++s, ++next) {
+        acquire(next);
+        const uint32_t w = ring_at + (next % kRing) * kSlabBytes + wg * nq * (kW2Rows * 128);
+        fence_acc(acc2);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kW2Rows / 16; ++kk) {
+          const int k = kW2Rows * s + 16 * kk;
+          const uint64_t da = wgmma_desc(hc + (k >> 6) * (kMlpRows * 128) + (k & 63) * 2);
+          const int first_k = j == 0 && s == 0 && kk == 0;
+          if constexpr (kWide) {
+            wgmma_n256(acc2, da, wgmma_desc(w + kk * 16 * 128, kW2Rows * 128), !first_k);
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if (q < nq)
+                wgmma_n64(*reinterpret_cast<float(*)[32]>(acc2 + 32 * q), da,
+                          wgmma_desc(w + q * (kW2Rows * 128) + kk * 16 * 128), !first_k);
+          }
+        }
+        wgmma_commit();
+        fence_acc(acc2);
+        wgmma_wait<1>();
+        release_upto(next);
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc2);
+    release_upto(next);
+
+    // epilogue: + b2, DropPath, + res; LayerNorm over the C columns of a row
+    // (this warpgroup holds C / 2 of them); the store
+    const int ta = tile * kMlpRows + r0, tb = ta + 8;
+    const bool va = ta < M, vb = tb < M;
+    const float ka = a.dp && va ? a.dp[ta / a.D2] : 1.f;
+    const float kb = a.dp && vb ? a.dp[tb / a.D2] : 1.f;
+    cp_async_wait<0>();
+    __syncthreads();  // the tile's res rows landed in the x buffer (zeros past M)
+    const unsigned char* resa = xs + r0 * 128 + 2 * cq;
+    const unsigned char* resb = resa + 8 * 128;
+    float sa = 0.f, sb = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q < nq) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          float* d = acc2 + 32 * q + 4 * jj;
+          const int c = wg * (C / 2) + 64 * q + 8 * jj + cq;
+          const float2 bb = *reinterpret_cast<const float2*>(a.b2 + c);
+          const int at = (wg * nq + q) * (kMlpRows * 128) + ((jj ^ (r0 & 7)) << 4);
+          const float2 ra = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(resa + at));
+          const float2 rb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(resb + at));
+          // res + (out + b2), or res + dp * (out + b2) rounded apart (no FMA)
+          if (a.dp) {
+            d[0] = ra.x + __fmul_rn(d[0] + bb.x, ka);
+            d[1] = ra.y + __fmul_rn(d[1] + bb.y, ka);
+            d[2] = rb.x + __fmul_rn(d[2] + bb.x, kb);
+            d[3] = rb.y + __fmul_rn(d[3] + bb.y, kb);
+          } else {
+            d[0] = ra.x + (d[0] + bb.x);
+            d[1] = ra.y + (d[1] + bb.y);
+            d[2] = rb.x + (d[2] + bb.x);
+            d[3] = rb.y + (d[3] + bb.y);
+          }
+          sa += d[0] + d[1];
+          sb += d[2] + d[3];
+        }
+      }
+    // a row's sum over the quad, then over both warpgroups
+    auto row_sums = [&](float& x, float& y, float* st) {
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        x += __shfl_xor_sync(0xffffffffu, x, o);
+        y += __shfl_xor_sync(0xffffffffu, y, o);
+      }
+      if (lane % 4 == 0) {
+        st[wg * kMlpRows + r0] = x;
+        st[wg * kMlpRows + r0 + 8] = y;
+      }
+      __syncthreads();
+      x = st[r0] + st[kMlpRows + r0];
+      y = st[r0 + 8] + st[kMlpRows + r0 + 8];
+    };
+    row_sums(sa, sb, stats);
+    const float mua = sa / C, mub = sb / C;
+    sa = sb = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q < nq) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float* d = acc2 + 32 * q + 4 * jj;
+          sa += (d[0] - mua) * (d[0] - mua) + (d[1] - mua) * (d[1] - mua);
+          sb += (d[2] - mub) * (d[2] - mub) + (d[3] - mub) * (d[3] - mub);
+        }
+      }
+    row_sums(sa, sb, stats + 2 * kMlpRows);
+    const float rsa = rsqrtf(sa / C + a.eps), rsb = rsqrtf(sb / C + a.eps);
+    // the staged rows: pitch 2C + 16 bytes spreads a warp's 8 rows over the
+    // banks; the last rows reach into h's first buffer, free here
+    const int pitch = 2 * C + 16;
+    bf16* outa = kAsyncStore ? reinterpret_cast<bf16*>(xs + r0 * pitch)
+                             : a.out + mlp_out_row(va ? ta : 0, a.D1, a.D2, kTranspose) * C;
+    bf16* outb = kAsyncStore ? reinterpret_cast<bf16*>(xs + (r0 + 8) * pitch)
+                             : a.out + mlp_out_row(vb ? tb : 0, a.D1, a.D2, kTranspose) * C;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q < nq) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float* d = acc2 + 32 * q + 4 * jj;
+          const int c = wg * (C / 2) + 64 * q + 8 * jj + cq;
+          const float2 s = *reinterpret_cast<const float2*>(a.lns + c);
+          const float2 b = *reinterpret_cast<const float2*>(a.lnb + c);
+          if (kAsyncStore || va)
+            *reinterpret_cast<__nv_bfloat162*>(outa + c) =
+                __floats2bfloat162_rn((d[0] - mua) * rsa * s.x + b.x, (d[1] - mua) * rsa * s.y + b.y);
+          if (kAsyncStore || vb)
+            *reinterpret_cast<__nv_bfloat162*>(outb + c) =
+                __floats2bfloat162_rn((d[2] - mub) * rsb * s.x + b.x, (d[3] - mub) * rsb * s.y + b.y);
+        }
+      }
+    if constexpr (kAsyncStore) {
+      fence_proxy_async();
+      __syncthreads();  // the tile's rows are staged
+      const int t = tile * kMlpRows + tid;
+      if (tid < kMlpRows && t < M)
+        bulk_store(a.out + mlp_out_row(t, a.D1, a.D2, kTranspose) * C,
+                   xs_at + tid * pitch, 2 * C);
+    }
+    if (i + 1 < mine) {
+      if (kAsyncStore && tid < kMlpRows) bulk_wait_read();
+      __syncthreads();  // every read of res and of the staged rows is done
+      mlp_load_rows(xs, a.x, tile + gridDim.x, M, C);
+    }
+  }
+  if (kAsyncStore && tid < kMlpRows) bulk_wait();
+  __syncthreads();  // every wait on the ring is done
+  if (tid == 0)
+    for (int s = 0; s < 2 * kRing; ++s) mbar_inval(full + 8 * s);
+  __syncthreads();  // the caller may reuse the memory
+}
+
+// The bf16 walk as a function of its own: the depth-resident kernel calls
+// it between its other phases, whose registers it then does not share.
+template <bool kTranspose, bool kWide>
+__device__ __noinline__ void mlp_walk_bf16_call(const MlpArgs<bf16>& a, const CUtensorMap* tw1,
+                                                const CUtensorMap* tw2,
+                                                const MlpLayout<bf16>& L,
+                                                unsigned char* smem, int n_tiles) {
+  mlp_walk_bf16<kTranspose, kWide, false>(a, tw1, tw2, L, smem, n_tiles);
+}
+
+// Whether the bf16 walk takes its kWide form at C channels.
+__host__ __device__ constexpr bool mlp_wide(int C) { return C == 512; }
+
+// The walk of either type: bf16 as above (kCall: through mlp_walk_bf16_call,
+// kWide picked at run time; else kWide as given, which the caller matches
+// to mlp_wide(C)), fp32 one 16-row tile at a time (tw1, tw2 unused).
+template <typename T, bool kTranspose, bool kCall = false, bool kWide = false>
+__device__ __forceinline__ void mlp_walk(const MlpArgs<T>& a, const CUtensorMap* tw1,
+                                         const CUtensorMap* tw2, const MlpLayout<T>& L,
+                                         unsigned char* smem, int n_tiles) {
+  if constexpr (std::is_same<T, bf16>::value && kCall) {
+    if (mlp_wide(a.C))
+      mlp_walk_bf16_call<kTranspose, true>(a, tw1, tw2, L, smem, n_tiles);
+    else
+      mlp_walk_bf16_call<kTranspose, false>(a, tw1, tw2, L, smem, n_tiles);
+  } else if constexpr (std::is_same<T, bf16>::value) {
+    mlp_walk_bf16<kTranspose, kWide, true>(a, tw1, tw2, L, smem, n_tiles);
+  } else {
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      mlp_tile_f32<kTranspose>(a, L, smem, t);
+      __syncthreads();  // the next tile overwrites shared memory
+    }
+  }
+}
+
+// ------------------------------------------------------------------ host
+// A TMA map over D stacked row-major (rows, cols) bf16 matrices at base:
+// boxes of 64 columns (128 bytes, 128-byte swizzle) x box_rows rows of one
+// matrix. cuTensorMapEncodeTiled comes from the driver through the runtime
+// (cudaGetDriverEntryPoint), so the libraries need no -lcuda. Returns 0 or
+// kNoTensorMap.
+inline int encode_weight_map(CUtensorMap* map, const void* base, int D, int rows, int cols,
+                             int box_rows) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return kNoTensorMap;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return kNoTensorMap;
+#endif
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)D};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * sizeof(bf16),
+                                 (cuuint64_t)rows * cols * sizeof(bf16)};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+                 CUDA_SUCCESS
+             ? 0
+             : kNoTensorMap;
+}
+
+// The maps of D stacked (C, H) W1 and (H, C) W2 the bf16 walk reads.
+inline int encode_mlp_maps(CUtensorMap* tw1, CUtensorMap* tw2, const void* w1, const void* w2,
+                           int D, int C, int H) {
+  const int e = encode_weight_map(tw1, w1, D, C, H, kW1Rows);
+  return e ? e : encode_weight_map(tw2, w2, D, H, C, kW2Rows);
+}
+
+// The shapes the walk of T takes.
+template <typename T>
+inline bool mlp_shape_ok(int C, int H) {
+  if (std::is_same<T, bf16>::value) return C % 128 == 0 && C <= 512 && H % kHid == 0 && H > 0;
+  return C % 64 == 0 && C <= 1024 && H % 64 == 0 && H > 0;
 }
 
 }  // namespace d3dp

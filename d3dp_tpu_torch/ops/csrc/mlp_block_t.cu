@@ -9,41 +9,70 @@
 // `_mlp_block_fwd`, API `mlp_block_p`, fuse levels 1 and 2), with their
 // DropPath input (`has_dp`, APIs `mlp_block_t_dp_p` and `mlp_block_dp_p`):
 // a per-row fp32 scale of the branch, fc2's bias included, before the
-// residual add (the `*_dp_*` entry points). The GELU uses CUDA's erff where
-// the TPU kernels evaluate the A&S 7.1.26 polynomial (<=1.5e-7 abs). Their
-// lab switch D3DP_MLP_VARIANT arrives as each entry point's `gelu` (kGelu*
-// in mlp.cuh): bf16gelu (bf16 only) evaluates that polynomial op by op in
-// bf16, as the TPU kernel does; nogelu puts the identity in its place.
+// residual add (the `*_dp_*` entry points). The GELU's erf is the TPU
+// kernels' own A&S 7.1.26 polynomial (<=1.5e-7 abs) in bf16 and CUDA's erff
+// in fp32. Their lab switch D3DP_MLP_VARIANT arrives as each entry point's
+// `gelu` (kGelu* in mlp.cuh): bf16gelu (bf16 only) evaluates that polynomial
+// op by op in bf16, as the TPU kernel does; nogelu puts the identity in its
+// place.
 //
-// What bounds both on the H100: 4*T*C*H FLOPs for T tokens against 3*T*C
-// activation elements moved (x, res in; y out) -- about 680 FLOPs per byte
-// in bf16 at C=512, H=1024, so the tensor cores set the bound.
+// What bounds both on the H100: operations (4*T*C*H FLOPs for T tokens,
+// about 680 FLOPs per byte moved in bf16 at C=512, H=1024), and short of
+// that the 2 MiB of weights every tile streams from L2 and the registers
+// that hold the tile's output while h passes through.
 //
-// Design. The LayerNorm needs all C outputs of a row, so one block owns
-// whole rows: 32 tokens (bf16; 16 in fp32). Its x rows, the whole hidden
-// activation h (32 x 1024, rounded to the compute type as the TPU kernel
-// does) and the fp32 output rows stay in shared memory, so h never touches
-// device memory. W1 and W2 stream through a 64 x 64 staging tile. Each token
-// row (b, i, j) is written whole to output row (b, j, i): a C-wide
-// contiguous store, so the relayout costs no extra pass (the rows form
-// writes it to row t). Tokens are taken in flat order, so the 243-frame axis
-// simply ends in a partial last block. The body is `mlp_tile` (mlp.cuh,
-// shared with resident.cu), one row block a block.
+// Design. The body is `mlp_walk` (mlp.cuh, shared with resident.cu, whose
+// header describes the tile): in bf16, 64 token rows a tile on wgmma, the
+// weights through a TMA-fed ring of shared-memory slabs, h a 128-column
+// chunk at a time in shared memory; in fp32, 16 rows a tile on FMAs. The
+// LayerNorm needs all C outputs of a row, so a tile owns whole rows, and
+// each token row (b, i, j) is written whole to output row (b, j, i): a
+// C-wide store, so the relayout costs no extra pass (the rows form writes
+// it to row t). Tokens are taken in flat order, so the 243-frame axis simply
+// ends in a partial last tile. In bf16 one block fills an SM, so the launch
+// is a persistent grid of one block an SM walking the tiles; C = 512 takes
+// the m64n256k16 fc2 (`mlp_wide`), other widths four-wide blocks of
+// m64n64k16. The weight maps are encoded on the host at every launch (a few
+// microseconds), from the pointers the launch is given.
 #include "mlp.cuh"
 
 namespace d3dp {
 
-template <typename T, bool kTranspose>
-__global__ void __launch_bounds__(kThreads)
-mlp_block_kernel(const T* __restrict__ x, const T* __restrict__ res, const T* __restrict__ w1,
-                   const float* __restrict__ b1, const T* __restrict__ w2,
-                   const float* __restrict__ b2, const float* __restrict__ lns,
-                   const float* __restrict__ lnb, T* __restrict__ out, int D1, int D2, int M,
-                   int C, int H, float eps, MlpLayout<T> L, const float* __restrict__ dp,
-                   int gelu_mode) {
+template <typename T>
+struct MlpParams {
+  CUtensorMap tw1, tw2;  // bf16: the weights' TMA maps
+  MlpArgs<T> a;
+  MlpLayout<T> L;
+  int n_tiles;
+};
+
+// kWide: bf16 at C = 512 (mlp_wide)
+template <typename T, bool kTranspose, bool kWide>
+__global__ void __launch_bounds__(kThreads) mlp_block_kernel(const __grid_constant__ MlpParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  mlp_tile<T, kTranspose>(x, res, w1, b1, w2, b2, lns, lnb, out, D1, D2, M, C, H, eps, L, smem,
-                          blockIdx.x, dp, gelu_mode);
+  mlp_walk<T, kTranspose, false, kWide>(p.a, &p.tw1, &p.tw2, p.L, smem, p.n_tiles);
+}
+
+template <typename T, bool kTranspose, bool kWide>
+cudaError_t launch_mlp(const MlpParams<T>& p, cudaStream_t stream) {
+  auto kernel = mlp_block_kernel<T, kTranspose, kWide>;
+  const int smem = (int)p.L.total;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  int blocks = p.n_tiles;
+  if constexpr (std::is_same<T, bf16>::value) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return e;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+        cudaSuccess)
+      return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    blocks = std::min(blocks, per_sm * sms);
+  }
+  kernel<<<blocks, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 // dp: nullptr, or B * D1 fp32 branch scales (the rows form passes D1 = R,
@@ -54,21 +83,25 @@ int mlp_block_any(const void* x, const void* res, const void* w1, const void* b1
                   const void* dp, void* out, int B, int D1, int D2, int C, int H, int gelu,
                   float eps, void* stream_) {
   constexpr bool f32 = std::is_same<T, float>::value;
-  if (B < 1 || D1 < 1 || D2 < 1 || C % 64 != 0 || C > 1024 || H % 64 != 0 ||
+  if (B < 1 || D1 < 1 || D2 < 1 || !mlp_shape_ok<T>(C, H) ||
       (long long)B * D1 * D2 > 0x7fffffffLL || gelu < kGeluErf || gelu > kGeluNone ||
       (f32 && gelu == kGeluBf16))
     return (int)cudaErrorInvalidValue;
+  MlpParams<T> p{};
+  if constexpr (!f32) {
+    const int e = encode_mlp_maps(&p.tw1, &p.tw2, w1, w2, 1, C, H);
+    if (e) return e;
+  }
   const int M = B * D1 * D2;
-  const MlpLayout<T> L(C, H);
-  cudaError_t e = cudaFuncSetAttribute(mlp_block_kernel<T, kTranspose>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
-  if (e != cudaSuccess) return (int)e;
-  mlp_block_kernel<T, kTranspose><<<cdiv(M, Cfg<T>::BM), kThreads, L.total,
-                                      static_cast<cudaStream_t>(stream_)>>>(
-      (const T*)x, (const T*)res, (const T*)w1, (const float*)b1, (const T*)w2,
-      (const float*)b2, (const float*)lns, (const float*)lnb, (T*)out, D1, D2, M, C, H, eps, L,
-      (const float*)dp, gelu);
-  return (int)cudaGetLastError();
+  p.a = MlpArgs<T>{(const T*)x, (const T*)res, (const T*)w1, (const float*)b1, (const T*)w2,
+                   (const float*)b2, (const float*)lns, (const float*)lnb, (T*)out,
+                   (const float*)dp, 0, D1, D2, M, C, H, gelu, eps};
+  p.L = MlpLayout<T>(C, H);
+  p.n_tiles = cdiv(M, MlpLayout<T>::kRows);
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if constexpr (!f32)
+    if (mlp_wide(C)) return (int)launch_mlp<T, kTranspose, true>(p, stream);
+  return (int)launch_mlp<T, kTranspose, false>(p, stream);
 }
 
 }  // namespace d3dp

@@ -38,12 +38,18 @@
 //     add (depth 0 only), then the same four for the temporal block. Every
 //     block reaches every barrier: no block returns early;
 //   * the tile bodies are the level-4 kernels' own device functions
-//     (`ln_qkv_tile`, `attend_tile`, `proj_ln2_tile`, `mlp_tile<T, true>`)
+//     (`ln_qkv_tile`, `attend_tile`, `proj_ln2_tile`, the MLP's `mlp_walk`)
 //     with the same options, in the same order with the same roundings, so
 //     level 5 computes what level 4 computes, bit for bit. The attend phase
 //     walks (sequence, head) tiles: at F > 32 frames `attend_tile` picks the
 //     tensor-core tile of the level-4 launch (its key-fragment count from
-//     the layout), whose rows' arithmetic does not depend on the walk;
+//     the layout), whose rows' arithmetic does not depend on the walk. The
+//     MLP phase runs the standalone launch's walk (64-row wgmma tiles in
+//     bf16, its TMA ring set up and torn down inside the phase, the weight
+//     maps over each kind's depth stack, read at depth d), called as a
+//     function of its own (`mlp_walk_bf16_call`: inlined among K9's other
+//     phases it spilled) and storing from registers; a row's result does
+//     not depend on which block takes its tile;
 //   * rows go in groups of G, chosen by the caller so that the group's
 //     stream and scratch (stream, qkv, o, x2, y2 and the relayout buffer:
 //     8 x F*J*C elements a row) fit in L2; the caller allocates the scratch
@@ -73,6 +79,7 @@ struct KindWeights {
   const float* b1;    // (D, H)
   const T* w2;        // (D, H, C)
   const float* vec;   // (D, 6, C): bp, ln1s, ln1b, ln2s, ln2b, b2
+  CUtensorMap tw1, tw2;  // bf16: TMA maps over w1 and w2 (encode_mlp_maps)
 };
 
 template <typename T>
@@ -125,17 +132,15 @@ __device__ __forceinline__ void block_phases(const ResidentArgs<T>& a, const Kin
     __syncthreads();
   }
   grid.sync();
-  for (int t = blockIdx.x; t < n_rows; t += gridDim.x) {
-    mlp_tile<T, true>(a.y2, a.x2, w.w1 + (size_t)d * C * H, w.b1 + (size_t)d * H,
-                      w.w2 + (size_t)d * H * C, vec + 5 * C, lns, lnb, dst, D1, N, M, C, H, a.eps,
-                      a.Lm, smem, t, nullptr, a.gelu);
-    __syncthreads();
-  }
+  const MlpArgs<T> m{a.y2, a.x2, w.w1 + (size_t)d * C * H, w.b1 + (size_t)d * H,
+                     w.w2 + (size_t)d * H * C, vec + 5 * C, lns, lnb, dst, nullptr, d, D1,
+                     N, M, C, H, a.gelu, a.eps};
+  mlp_walk<T, true, true>(m, &w.tw1, &w.tw2, a.Lm, smem, cdiv(M, MlpLayout<T>::kRows));
   grid.sync();
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) resident_kernel(ResidentArgs<T> a) {
+__global__ void __launch_bounds__(kThreads) resident_kernel(const __grid_constant__ ResidentArgs<T> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
   const size_t row = (size_t)a.F * a.J * a.C;
@@ -189,9 +194,10 @@ int resident_grid(int C, int H, int F, int J, int* blocks, size_t* smem) {
   return 0;
 }
 
-inline bool shape_ok(int B, int F, int J, int C, int H, int D, int heads, int G) {
+template <typename T>
+bool shape_ok(int B, int F, int J, int C, int H, int D, int heads, int G) {
   return B >= 1 && F >= 1 && J >= 1 && F <= kMaxKeys && J <= kMaxKeys && C % 64 == 0 &&
-         C <= 1024 && heads * kHeadDim == C && H >= 64 && H % 64 == 0 && D >= 1 && G >= 1 &&
+         C <= 1024 && heads * kHeadDim == C && mlp_shape_ok<T>(C, H) && D >= 1 && G >= 1 &&
          G <= B && (long long)G * F * J * 3 * C <= 0x7fffffffLL;
 }
 
@@ -199,7 +205,7 @@ template <typename T>
 int resident(const void* const* ptrs, int B, int F, int J, int C, int H, int D, int heads, int G,
              int opts, int gelu, float scale, float eps, void* stream) {
   constexpr bool f32 = std::is_same<T, float>::value;
-  if (!shape_ok(B, F, J, C, H, D, heads, G) || (opts & kOptNoY2) || gelu < kGeluErf ||
+  if (!shape_ok<T>(B, F, J, C, H, D, heads, G) || (opts & kOptNoY2) || gelu < kGeluErf ||
       gelu > kGeluNone || (f32 && gelu == kGeluBf16))
     return (int)cudaErrorInvalidValue;
   int blocks = 0;
@@ -211,11 +217,16 @@ int resident(const void* const* ptrs, int B, int F, int J, int C, int H, int D, 
                           (const T*)ptrs[i + 3], (const float*)ptrs[i + 4],
                           (const T*)ptrs[i + 5], (const float*)ptrs[i + 6]};
   };
-  ResidentArgs<T> a;
+  ResidentArgs<T> a{};
   a.x = (const T*)ptrs[0];
   a.tpos = (const T*)ptrs[1];
   a.sp = kind(2);
   a.tp = kind(9);
+  if constexpr (!f32) {
+    int e = encode_mlp_maps(&a.sp.tw1, &a.sp.tw2, ptrs[5], ptrs[7], D, C, H);
+    if (!e) e = encode_mlp_maps(&a.tp.tw1, &a.tp.tw2, ptrs[12], ptrs[14], D, C, H);
+    if (e) return e;
+  }
   a.shared = (const float*)ptrs[16];
   a.out = (T*)ptrs[17];
   a.qkv = (T*)ptrs[18];

@@ -132,6 +132,17 @@ def mlp_block_dp_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps, gelu=GELU_ER
     return mlp_block_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, dp, gelu)
 
 
+def check_shape(what, C, H, dtype):
+    """Raise unless the kernels take C channels and H hidden units in dtype:
+    bf16 (the wgmma tile: 128-column output blocks, C / 2 a warpgroup, and
+    128-column hidden chunks) C % 128 == 0, C <= 512, H % 128 == 0; fp32
+    C % 64 == 0, C <= 1024, H % 64 == 0."""
+    step, c_max = (128, 512) if dtype == torch.bfloat16 else (64, 1024)
+    if C % step or C > c_max or H % step or H < step:
+        raise ValueError(f"{what}: needs C % {step} == 0, C <= {c_max} and "
+                         f"H % {step} == 0 in {dtype} (C={C}, H={H})")
+
+
 def _launch(what, fns, sigs, x, res, w1, b1, w2, b2, ln_s, ln_b, eps, out_shape, dims, gelu,
             dp=None, dp_shape=None):
     """Check the operands of either form and launch its kernel; `dims` are
@@ -144,9 +155,7 @@ def _launch(what, fns, sigs, x, res, w1, b1, w2, b2, ln_s, ln_b, eps, out_shape,
     dt = x.dtype
     if dt not in fns:
         raise ValueError(f"{what}: unsupported dtype {dt}")
-    if C % 64 or C > 1024 or H % 64:
-        raise ValueError(f"{what}: needs C % 64 == 0, C <= 1024 and "
-                         f"H % 64 == 0 (C={C}, H={H})")
+    check_shape(what, C, H, dt)
     dev = x.device
     f32 = torch.float32
     for t, name, dtype, shape in (

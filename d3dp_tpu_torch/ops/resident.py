@@ -37,7 +37,8 @@ import torch
 from d3dp_tpu_torch.ops import _build
 from d3dp_tpu_torch.ops.attention import (HEAD_DIM, MAX_TOKENS, OPT_BF16_EXP,
                                           attention_stage_plain, fold_opts, stage_variant)
-from d3dp_tpu_torch.ops.mlp import GELU_ERF, gelu_mode, mlp_block_t_plain
+from d3dp_tpu_torch.ops.mlp import (GELU_ERF, check_shape as check_mlp_shape, gelu_mode,
+                                    mlp_block_t_plain)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _N_PTRS = 23
@@ -128,9 +129,9 @@ def resident_block_stack(x, tpos, spatial, temporal, shared, num_heads, scale, e
         if not 1 <= n <= MAX_TOKENS:
             raise ValueError(f"resident_block_stack: {what}={n} outside 1..{MAX_TOKENS}")
     D, H = spatial[0].shape[0], spatial[3].shape[-1]
-    if D < 1 or H % 64:
-        raise ValueError(f"resident_block_stack: needs depth >= 1 and H % 64 == 0 "
-                         f"(D={D}, H={H})")
+    if D < 1:
+        raise ValueError(f"resident_block_stack: needs depth >= 1 (D={D})")
+    check_mlp_shape("resident_block_stack", C, H, dt)
     dev = x.device
     f32 = torch.float32
     tpos = tpos.to(dt).contiguous()

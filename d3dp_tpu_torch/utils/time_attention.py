@@ -1,5 +1,5 @@
-"""Time the attention kernels of one or more checkouts of the port in turns
-on one card, for A/B comparisons:
+"""Time the attention and MLP kernels of one or more checkouts of the port
+in turns on one card, for A/B comparisons:
 
     python -m d3dp_tpu_torch.utils.time_attention --trees OLD . . OLD --reps 3
 
@@ -10,9 +10,13 @@ CUDA events (median of `--iters` launches after one warm-up), every kernel
 that runs the attention tile at its main path's shapes: K3 at the train
 step's (972 x 17, 68 x 243), K7, K6, K1 and K8 at the eval path's
 (9,720 x 17, 680 x 243 for 40 hypothesis rows), and K1's attend launch
-alone where the checkout has it; with `--sample` also `D3DP.sample` at the
-eval config at fuse levels 4 and 5 (K1 and K9). The inputs come from one
-seed, so every tree sees the same values. Prints one JSON line per child and a summary
+alone where the checkout has it; with `--mlp` the MLP kernels instead: K2
+(both relayouts) and K5 at the eval path's 40 x 243 x 17 token rows, K2-dp
+and K5-dp at the train step's 4 x 243 x 17, and beside each shape the
+library sequence computing the same function (F.linear, GELU, F.linear,
+layer_norm; timed here, never called by the port); with `--sample` also
+`D3DP.sample` at the eval config at fuse levels 4 and 5 (K1 and K2; K9).
+The inputs come from one seed, so every tree sees the same values. Prints one JSON line per child and a summary
 (per kernel and tree: the medians of every repetition), also written to
 `chiprun_out/time_attention.json`. Needs a CUDA card.
 """
@@ -31,6 +35,7 @@ from d3dp_tpu_torch.ops import attention as A
 
 disable_tf32()
 ITERS = int(sys.argv[1])
+MLP = sys.argv[3] == "1"
 C, HEADS, ROWS, BT, F, J = 512, 8, 40, 4, 243, 17
 bf = torch.bfloat16
 gen = torch.Generator(device="cuda").manual_seed(11)
@@ -55,10 +60,37 @@ def ms(fn):
 
 
 res = {}
-for label, R, N in (("spatial", BT * F, J), ("temporal", BT * J, F)):
+if MLP:
+    import torch.nn.functional as Fn
+    from d3dp_tpu_torch.ops import mlp as M
+
+    H = 2 * C
+    w = [rn(C, H, s=0.05).to(bf), rn(H, s=0.01), rn(H, C, s=0.05).to(bf), rn(C, s=0.01),
+         1 + rn(C, s=0.1), rn(C, s=0.1)]
+    lw = [w[0].t().contiguous(), w[1].to(bf), w[2].t().contiguous(), w[3].to(bf),
+          w[4].to(bf), w[5].to(bf)]
+    for label, B0, D1, D2 in (("eval s->t", ROWS, F, J), ("eval t->s", ROWS, J, F),
+                              ("train s->t", BT, F, J)):
+        x, r = rn(B0, D1, D2, C).to(bf), rn(B0, D1, D2, C).to(bf)
+        xr, rr = x.view(-1, C), r.view(-1, C)
+        dp = torch.ones(B0, D1, device="cuda")
+        dpr = torch.ones(B0 * D1 * D2, device="cuda")
+        if label.startswith("train"):
+            res[f"mlp_block_t_dp/{label}"] = ms(lambda: M.mlp_block_t_dp(x, r, *w, dp, 1e-6))
+            res[f"mlp_block_dp/{label}"] = ms(lambda: M.mlp_block_dp(xr, rr, *w, dpr, 1e-6))
+        else:
+            res[f"mlp_block_t/{label}"] = ms(lambda: M.mlp_block_t(x, r, *w, 1e-6))
+            if label.endswith("s->t"):
+                res[f"mlp_block/{label}"] = ms(lambda: M.mlp_block(xr, rr, *w, 1e-6))
+        if not label.endswith("t->s"):
+            res[f"library/{label}"] = ms(lambda: Fn.layer_norm(
+                rr + Fn.linear(Fn.gelu(Fn.linear(xr, lw[0], lw[1])), lw[2], lw[3]), (C,),
+                lw[4], lw[5], 1e-6))
+        del x, r, xr, rr
+for label, R, N in () if MLP else (("spatial", BT * F, J), ("temporal", BT * J, F)):
     qkv = rn(R, N, 3 * C).to(bf)
     res[f"fused_attention_qkv/{label}"] = ms(lambda: A.fused_attention_qkv(qkv, HEADS, 0.125))
-for label, R, N in (("spatial", ROWS * F, J), ("temporal", ROWS * J, F)):
+for label, R, N in () if MLP else (("spatial", ROWS * F, J), ("temporal", ROWS * J, F)):
     qkv = rn(R, N, 3 * C).to(bf)
     q, k, v = (t.contiguous() for t in qkv.split(C, dim=-1))
     res[f"fused_attention_packed/{label}"] = ms(
@@ -113,11 +145,15 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--sample", action="store_true",
                     help="also time D3DP.sample at fuse levels 4 and 5 (median of 3)")
+    ap.add_argument("--mlp", action="store_true",
+                    help="time the MLP kernels and the library sequence instead of the "
+                         "attention kernels")
     args = ap.parse_args(argv)
     runs = []
     for rep in range(args.reps):
         for tree in args.trees:
-            out = subprocess.run([sys.executable, "-c", _CHILD, str(args.iters), str(int(args.sample))], cwd=tree,
+            out = subprocess.run([sys.executable, "-c", _CHILD, str(args.iters),
+                                  str(int(args.sample)), str(int(args.mlp))], cwd=tree,
                                  capture_output=True, text=True, timeout=900)
             line = [x for x in out.stdout.splitlines() if x.startswith("RESULT ")]
             if out.returncode != 0 or not line:

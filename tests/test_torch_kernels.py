@@ -712,12 +712,13 @@ def test_grouped_attention_stage_kernel_matches_plain(monkeypatch, np_rng, dtype
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("variant", ["bf16gelu", "nogelu"])
+@pytest.mark.parametrize("variant", ["bf16gelu", "nogelu", ""])
 @pytest.mark.parametrize("form", ["t", "t_dp", "rows", "rows_dp"])
 def test_mlp_variant_kernels_match_plain(monkeypatch, np_rng, form, variant, dtype):
-    """K2, K2-dp, K5 and K5-dp under D3DP_MLP_VARIANT against their plain
-    versions with the same activation (TOL); bf16gelu in fp32 is the exact
-    GELU, bit for bit the production kernel."""
+    """K2, K2-dp, K5 and K5-dp under D3DP_MLP_VARIANT ("" the production
+    GELU) against their plain versions with the same activation (TOL), on
+    3 x 243 x 17 = 12,393 token rows (41 in the bf16 tile's last 64);
+    bf16gelu in fp32 is the exact GELU, bit for bit the production kernel."""
     dev = _cuda()
     args = _t(_mlp_inputs(np_rng, 3, 243, 17, 512, 1024), dev, dtype)
     t = form.startswith("t")
@@ -769,3 +770,61 @@ def test_resident_kernel_under_switch_matches_plain_and_level_4(monkeypatch, np_
     out5 = model(x2d, x3d, t)
     model.cfg = dataclasses.replace(model.cfg, fuse_level=4)
     assert torch.equal(out5, model(x2d, x3d, t))
+
+
+# The bf16 MLP tile takes 64 token rows (fp32: 16): fewer than one tile, one
+# under and one over a multiple of 64, and 3 x 243 x 17 = 12,393 rows (41 in
+# the last tile)
+MLP_TILE_ROWS = [17, 63, 65, 127, 129, 12393]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", MLP_TILE_ROWS)
+def test_mlp_block_tile_edges_match_plain(np_rng, dtype, R):
+    """K5 and K5-dp on R token rows around the tile's 64 rows: the missing
+    rows of the last tile are zero-filled on load and never stored."""
+    dev = _cuda()
+    args = _t(_mlp_inputs(np_rng, 1, R, 1, 512, 1024), dev, dtype)
+    args[:2] = [a.view(R, 512) for a in args[:2]]
+    dp = _dp_scales(np_rng, (R,), dev)
+    n0 = tmlp.mlp_block.launches, tmlp.mlp_block_dp.launches
+    got = tmlp.mlp_block(*args, 1e-6)
+    got_dp = tmlp.mlp_block_dp(*args, dp, 1e-6)
+    want = tmlp.mlp_block_plain(*args, 1e-6)
+    want_dp = tmlp.mlp_block_dp_plain(*args, dp, 1e-6)
+    torch.cuda.synchronize()
+    assert (tmlp.mlp_block.launches, tmlp.mlp_block_dp.launches) == (n0[0] + 1, n0[1] + 1)
+    assert got.shape == got_dp.shape == (R, 512)
+    assert _excess(got, want, dtype) <= 0
+    assert _excess(got_dp, want_dp, dtype) <= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resident_depth_2_with_a_partial_mlp_tile_equals_level_4_kernels(np_rng, dtype):
+    """K9 at depth 2 on 3 rows of 27 frames (one group of 3 x 27 x 17 = 1,377
+    token rows: 21 bf16 tiles of 64 and 33 rows, or 86 fp32 tiles of 16 and
+    one row) equals the level-4 chain of K1 and K2 launches bit for bit."""
+    from d3dp_tpu_torch.ops import resident as tres
+
+    dev = _cuda()
+    x, tpos, sp, tp, shared = _resident_inputs(np_rng, 3, 27, dev, dtype)
+    assert tres.group_rows(3, 27, 17, 512, x.element_size(),
+                           torch.cuda.get_device_properties(dev).L2_cache_size) == 3
+    got = tres.resident_block_stack(x, tpos, sp, tp, shared, 8, 0.125, 1e-6)
+    B, F, J, C = x.shape
+    h = x
+    for d in range(2):
+        stage, mlp = tres._kind(sp, d)
+        x2, y2 = tattn.attention_stage(h.reshape(B * F, J, C), *stage, 8, 0.125, 1e-6)
+        h = tmlp.mlp_block_t(y2.view(B, F, J, C), x2.view(B, F, J, C), *mlp, shared[0],
+                             shared[1], 1e-6)
+        if d == 0:
+            h = h + tpos.to(dtype)
+        stage, mlp = tres._kind(tp, d)
+        x2, y2 = tattn.attention_stage(h.reshape(B * J, F, C), *stage, 8, 0.125, 1e-6)
+        h = tmlp.mlp_block_t(y2.view(B, J, F, C), x2.view(B, J, F, C), *mlp, shared[2],
+                             shared[3], 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(got, h)

@@ -79,3 +79,18 @@ def test_cpu_wrappers_run_plain_and_count_no_launch(rng):
     assert tattn.attention_stage.launches == n_attn
     assert tmlp.mlp_block_t.launches == n_mlp
 
+
+@pytest.mark.parametrize("dtype,C,H,ok", [
+    (torch.bfloat16, 512, 1024, True), (torch.bfloat16, 128, 128, True),
+    (torch.bfloat16, 384, 1152, True), (torch.bfloat16, 640, 1280, False),
+    (torch.bfloat16, 192, 384, False), (torch.bfloat16, 512, 1088, False),
+    (torch.float32, 192, 448, True), (torch.float32, 1088, 64, False)])
+def test_mlp_kernel_shape_rule(dtype, C, H, ok):
+    """The shapes the MLP kernels take, checked before a launch: the bf16
+    tile's output blocks of 128 columns (C / 2 a warpgroup, at most 256) and
+    hidden chunks of 128; fp32 steps of 64 columns up to C = 1024."""
+    if ok:
+        tmlp.check_shape("mlp", C, H, dtype)
+    else:
+        with pytest.raises(ValueError, match=f"C={C}, H={H}"):
+            tmlp.check_shape("mlp", C, H, dtype)
