@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from `d3dp_tpu_torch/ops/csrc/`, holds each
-against its plain torch version on the card (the depth-resident trunk
+against its plain torch version on the card (the stage kernels also at
+token-row counts around their 64-row tiles; the depth-resident trunk
 kernel first at depth 1 in a child process under a time limit, so that a
 kernel that never finishes becomes an error), checks the full-width MixSTE2
 on the kernel path against the plain path (eval forward at every fuse
@@ -15,7 +16,8 @@ random weights from a fixed seed:
     and the four-mode Evaluator, then one timed sampling call at each fuse
     level 0-5;
   * fuse level 5 (the whole trunk in one launch) against level 4, its
-    kernel timed and profiled, and sampling with DDIM feature reuse;
+    kernel timed and profiled, its time split by phase from the build with
+    per-phase clocks, and sampling with DDIM feature reuse;
   * training: the default train step (bf16 compute, fp32 AdamW at 6e-5,
     DropPath 0.1, batch 4 chunks of 243 frames from ChunkedGenerator),
     then light validation on the trained weights;
@@ -222,7 +224,7 @@ def phase_env(torch, record):
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    out = _build.build_all()
+    out = _build.build_all(_build.SOURCES + tuple(_build.VARIANTS))
     dt = time.perf_counter() - t0
     log(f"[env] kernels built in {dt:.1f} s -> {out}")
     ptxas = []
@@ -234,21 +236,21 @@ def phase_env(torch, record):
                 r.update(source=name, kernel=full.split("(")[0])
                 ptxas.append(r)
     # every kernel's registers and spills, then those of the bf16 attention
-    # tile's and MLP tile's kernels and of the depth-resident kernel, which
-    # runs both
+    # tile's, MLP tile's and stage GEMM walks' kernels and of the
+    # depth-resident kernel, which runs them all
     for r in ptxas:
         log(f"[env] ptxas {r['source']}: {r['kernel']}: {r.get('registers')} registers, "
             f"{r.get('spill_stores')} bytes spill stores, {r.get('spill_loads')} bytes spill "
             f"loads, {r.get('stack')} bytes stack")
-    tile = [r for r in ptxas if any(k in r["kernel"] for k in ("attend", "resident", "mlp_block"))
-            and "<float" not in r["kernel"]]
-    check(any("mlp_block" in r["kernel"] for r in tile) and
-          any("resident" in r["kernel"] for r in tile),
-          "no bf16 MLP-tile or K9 kernel in the ptxas output")
+    tile = [r for r in ptxas if any(k in r["kernel"] for k in (
+        "attend", "resident", "mlp_block", "ln_qkv_walk", "proj_ln2_walk"))
+        and "<float" not in r["kernel"]]
+    for k in ("mlp_block", "resident", "ln_qkv_walk", "proj_ln2_walk"):
+        check(any(k in r["kernel"] for r in tile), f"no bf16 {k} kernel in the ptxas output")
     spills = sorted({f"{r['kernel']} ({r['spill_stores']} / {r['spill_loads']} bytes)"
                      for r in tile if r.get("spill_stores") or r.get("spill_loads")})
-    log(f"[env] bf16 attention tile, MLP tile and K9: {len(tile)} kernels, spilling: "
-        f"{', '.join(spills) if spills else 'none'}")
+    log(f"[env] bf16 attention tile, MLP tile, stage walks and K9: {len(tile)} kernels, "
+        f"spilling: {', '.join(spills) if spills else 'none'}")
     disable_tf32()
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=dt,
                   ptxas=ptxas)
@@ -325,6 +327,7 @@ def phase_kernels(torch, record):
                 check(ex <= tol, f"fused_attention_qkv_bwd {label} disagrees with autograd")
             del qkv, dout, got, want
         check_mlp_tile_edges(torch, gen, dt, name_dt, errs)
+        check_stage_tile_edges(torch, gen, dt, name_dt, errs)
         check_eval_kernels(torch, gen, dt, name_dt, errs)
         check_train_fused_kernels(torch, gen, dt, name_dt, errs)
         check_resident_kernel(torch, dt, name_dt, errs)
@@ -357,6 +360,55 @@ def check_mlp_tile_edges(torch, gen, dt, name_dt, errs):
             if dt == torch.bfloat16:
                 errs[name] = max(errs[name], e)
         del args, dp
+
+
+# (R, N) of 17, 63, 65, 127, 129 and 12,393 token rows: fewer than a stage
+# tile of 64 rows (fp32: 16), one under and over one and two tiles, and 729
+# spatial sequences (41 rows in the last tile)
+STAGE_TILE_SHAPES = ((1, 17), (7, 9), (5, 13), (127, 1), (3, 43), (729, 17))
+
+
+def check_stage_tile_edges(torch, gen, dt, name_dt, errs):
+    """The stage kernels on token-row counts around the GEMM walks' 64-row
+    tiles: K1, K1-dp, K8, K1 under noy2 (x2 only) and K6 against their plain
+    versions; K8 equal to K1 and noy2's x2 equal to K1's, bit for bit."""
+    from d3dp_tpu_torch.ops import attention as A
+
+    tol = TOL[name_dt]
+    ulp = BF16_ULP if dt == torch.bfloat16 else 0.0
+    scale = (C // HEADS) ** -0.5
+    for R, N in STAGE_TILE_SHAPES:
+        a = stage_inputs(torch, gen, R, N, dt)
+        dp = dp_scales(torch, gen, (R,))
+        hm = [a[0], *A.stack_head_major(a[1], a[2], HEADS), *a[3:]]
+        b = block_inputs(torch, gen, R, N, dt)
+        k1 = A.attention_stage(*a, HEADS, scale, 1e-6)
+        k8 = A.attention_stage_hm(*hm, HEADS, scale, 1e-6)
+        with env_var("D3DP_ATTN_VARIANT", "noy2"):
+            noy2 = A.attention_stage(*a, HEADS, scale, 1e-6)[:1]
+        pairs = (("attention_stage", k1, A.attention_stage_plain(*a, HEADS, scale, 1e-6)),
+                 ("attention_stage_dp", A.attention_stage_dp(*a, dp, HEADS, scale, 1e-6),
+                  A.attention_stage_dp_plain(*a, dp, HEADS, scale, 1e-6)),
+                 ("attention_stage_hm", k8, A.attention_stage_hm_plain(*hm, HEADS, scale, 1e-6)),
+                 ("attention_stage[noy2]", noy2, A.attention_stage_plain(
+                     *a, HEADS, scale, 1e-6, opts=A.OPT_NO_Y2)[:1]),
+                 ("attention_block", A.attention_block(*b, HEADS, scale, 1e-6),
+                  A.attention_block_plain(*b, HEADS, scale, 1e-6)))
+        torch.cuda.synchronize()
+        for name, got, want in pairs:
+            e = max(max_err(torch, g, w, ulp)[0] for g, w in zip(got, want))
+            ex = max(max_err(torch, g, w, ulp)[1] for g, w in zip(got, want))
+            log(f"[kernels] {name} tile edge {name_dt} ({R}, {N}) = {R * N} token rows: "
+                f"max|err| {e:.3e} (tol {tol:g}{' + 1 bf16 ulp' if ulp else ''}) "
+                f"{'ok' if ex <= tol else 'FAIL'}")
+            check(ex <= tol, f"{name} on {R} x {N} {name_dt} disagrees with its plain version")
+            if dt == torch.bfloat16:
+                errs[name] = max(errs.get(name, 0.0), e)
+        same = all(torch.equal(g, w) for g, w in zip(k8, k1)) and torch.equal(noy2[0], k1[0])
+        log(f"[kernels] attention_stage_hm and noy2's x2 equal to attention_stage {name_dt} "
+            f"({R}, {N}): {same}")
+        check(same, f"K8 or noy2's x2 differs from K1 on {R} x {N} {name_dt}")
+        del a, dp, hm, b, k1, k8, noy2, pairs
 
 
 # The trunk kernel's first run: depth 1, 2 rows of 27 frames, both compute
@@ -917,7 +969,32 @@ def phase_resident(torch, record, d3dp, x2d, x2d_f, rows):
         f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB), plain {row['plain_ms']:.4f} ms, "
         f"library {row['library_ms']:.4f} ms, {flops / row['ms'] / 1e9:.1f} TFLOP/s")
     rows["resident_block_stack/trunk"] = row
+    out["phase_clocks"] = resident_phase_split(torch, args, row["ms"])
     record["resident"] = out
+
+
+def resident_phase_split(torch, args, k9_ms):
+    """K9's time by phase at the eval shape, from the build with per-phase
+    clocks: each phase's mean cycles a block spends in its tiles and waiting
+    at the grid barrier after them, as shares of all of them and as ms of
+    the kernel's event-timed k9_ms; with the rows grouped by `group_rows`,
+    and one row a group (the grouping the L2 rule gave at this shape)."""
+    from d3dp_tpu_torch.ops import resident as R
+
+    out = {}
+    for tag, group in (("grouped", None), ("one row a group", 1)):
+        sums = R.resident_phase_clocks(*args, HEADS, 0.125, 1e-6, group=group)
+        total = sum(w + b for w, b in sums.values())
+        split = {p: dict(tiles=w / total, barrier=b / total) for p, (w, b) in sums.items()}
+        scale = k9_ms if group is None else None
+        out[tag] = dict(shares=split, k9_ms=scale,
+                        barrier_share=sum(v["barrier"] for v in split.values()))
+        log(f"[resident] K9 phase clocks, {tag} ({'G = group_rows' if group is None else 'G = 1'}"
+            f"): barrier share {out[tag]['barrier_share']:.4f}; " + "; ".join(
+                f"{p} {v['tiles']:.4f} + {v['barrier']:.4f}"
+                + (f" ({(v['tiles'] + v['barrier']) * scale:.3f} ms)" if scale else "")
+                for p, v in split.items()))
+    return out
 
 
 def phase_packed(torch, record):

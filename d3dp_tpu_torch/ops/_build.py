@@ -23,8 +23,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("attention_stage", "attention_block", "attention_qkv", "mlp_block_t", "resident")
+# libraries built from one of the sources with extra flags, on demand only:
+# name -> (source, flags)
+VARIANTS = {"resident_clocks": ("resident", ("-DD3DP_PHASE_CLOCKS",))}
+# -split-compile=0: the device optimizer runs on every core, which shortens the
+# build of the depth-resident kernel (every walk inlined, three instantiations)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-split-compile=0", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _libs = {}
@@ -53,15 +58,16 @@ def _lib_path(name):
     return build_dir() / f"lib{name}.so"
 
 
-def build_all():
-    """Compile every missing library, all `nvcc` processes at once.
+def build_all(names=SOURCES):
+    """Compile every missing library of `names` (SOURCES or VARIANTS), all
+    `nvcc` processes at once.
 
     Returns the build directory. Each library's compiler output (register
     and spill counts from `-Xptxas=-v`) is kept in `<name>.log` beside it.
     """
     with _lock:
         out = build_dir()
-        todo = [n for n in SOURCES if not (out / f"lib{n}.so").exists()]
+        todo = [n for n in names if not (out / f"lib{n}.so").exists()]
         if not todo:
             return out
         out.mkdir(parents=True, exist_ok=True)
@@ -71,7 +77,8 @@ def build_all():
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=out)
             os.close(fd)
             log = open(out / f"{n}.log", "w")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{n}.cu")]
+            src, flags = VARIANTS.get(n, (n, ()))
+            cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", tmp, str(CSRC / f"{src}.cu")]
             procs.append((n, tmp, log,
                           subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
         failed = []
@@ -97,7 +104,7 @@ def load(name, signatures):
     """
     lib = _libs.get(name)
     if lib is None:
-        build_all()
+        build_all((name,) if name in VARIANTS else SOURCES)
         lib = ctypes.CDLL(str(_lib_path(name)))
         for fn, argtypes in signatures.items():
             f = getattr(lib, fn)

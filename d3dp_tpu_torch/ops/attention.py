@@ -271,6 +271,16 @@ def attention_stage_hm_plain(x, wqkv_hm, bqkv_hm, wp, bp, ln1_s, ln1_b, ln2_s, l
     return _stage_tail_plain(x32, q, k, v, wp, bp, ln2_s, ln2_b, scale, eps, dt, None, opts)
 
 
+def check_stage_shape(what, C, dtype):
+    """Raise unless the stage kernels' GEMM steps take C channels in dtype:
+    bf16 (the wgmma walks of csrc/stage.cuh: C / 2 output columns a
+    warpgroup in 64-column boxes) C % 128 == 0, C <= 512; fp32 C % 64 == 0,
+    C <= 1024."""
+    step, c_max = (128, 512) if dtype == torch.bfloat16 else (64, 1024)
+    if C % step or not 0 < C <= c_max:
+        raise ValueError(f"{what}: needs C % {step} == 0 and C <= {c_max} in {dtype} (C={C})")
+
+
 def _check_rows(x, num_heads, what, fns, mask_block=0):
     """Device, rank, dtype, head and token-count checks of a (R, N, C)
     stage input (N whole blocks of mask_block <= 32 tokens where masked);
@@ -282,9 +292,9 @@ def _check_rows(x, num_heads, what, fns, mask_block=0):
     R, N, C = x.shape
     if x.dtype not in fns:
         raise ValueError(f"{what}: unsupported dtype {x.dtype}")
-    if C != num_heads * HEAD_DIM or C % 64 or C > 1024:
-        raise ValueError(f"{what}: needs head_dim {HEAD_DIM} and "
-                         f"C % 64 == 0, C <= 1024 (C={C}, heads={num_heads})")
+    if C != num_heads * HEAD_DIM:
+        raise ValueError(f"{what}: needs head_dim {HEAD_DIM} (C={C}, heads={num_heads})")
+    check_stage_shape(what, C, x.dtype)
     if mask_block:
         if not 1 <= mask_block <= 32 or N % mask_block:
             raise ValueError(f"{what}: N={N} is not whole blocks of {mask_block} <= 32 tokens")

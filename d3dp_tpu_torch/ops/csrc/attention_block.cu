@@ -13,15 +13,18 @@
 // temporal at 989 TFLOP/s): bytes set the bound.
 //
 // Design: the attention stage (attention_stage.cu) without its first launch.
-//   1. attend:   `attend_kernel` (common.cuh) on the packed qkv, p divided by
-//                l BEFORE the cast to the compute type, as the TPU kernel
+//   1. attend:   `launch_attend` (common.cuh) on the packed qkv, p divided
+//                by l BEFORE the cast to the compute type, as the TPU kernel
 //                does (`:244`; the stage folds 1/l in after P.V instead);
 //                the attention output is rounded to the compute type into
 //                a scratch buffer (the TPU kernel's `acc_ref`).
-//   2. proj_ln2: `proj_ln2_kernel` (common.cuh), the stage's third launch.
+//   2. proj_ln2: `launch_proj_ln2` (stage.cuh), the stage's third launch:
+//                in bf16 a persistent grid of 64-row wgmma tiles with Wp
+//                streamed by TMA, the residual add and LN2 from the
+//                fragments, x2 and y2 out by TMA stores.
 // The split writes o and reads it back (2*T*C elements); one fused pass
 // per (sequence, query block) is later work.
-#include "common.cuh"
+#include "stage.cuh"
 
 namespace d3dp {
 
@@ -29,16 +32,16 @@ template <typename T>
 int attention_block(const void* qkv, const void* res, const void* wp, const void* bp,
                     const void* lns, const void* lnb, void* o, void* x2, void* y2, int R, int N,
                     int C, int heads, float scale, float eps, void* stream_) {
-  if (R < 1 || N < 1 || N > kMaxKeys || C % 64 != 0 || C > 1024 || heads * kHeadDim != C ||
+  if (R < 1 || N < 1 || N > kMaxKeys || !stage_shape_ok<T>(C) || heads * kHeadDim != C ||
       R > 0x7fffffff / N || heads > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   cudaError_t e = launch_attend_packed<T>((const T*)qkv, (T*)o, R, N, C, heads, scale,
                                           norm_first_opts(), stream);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_proj_ln2<T>((const T*)o, (const T*)res, (const T*)wp, (const float*)bp,
-                                 (const float*)lns, (const float*)lnb, (T*)x2, (T*)y2, R * N, C,
-                                 eps, stream);
+  return launch_proj_ln2<T>((const T*)o, (const T*)res, (const T*)wp, (const float*)bp,
+                            (const float*)lns, (const float*)lnb, (T*)x2, (T*)y2, R * N, C, eps,
+                            stream);
 }
 
 }  // namespace d3dp

@@ -140,7 +140,8 @@ BwdLayout bwd_layout(int N) {
   constexpr bool f32 = std::is_same<T, float>::value;
   BwdLayout L;
   L.NP = cdiv(N, 16) * 16;
-  L.RB = Cfg<T>::BM < L.NP ? Cfg<T>::BM : L.NP;
+  const int rows = f32 ? kF32Rows : 32;  // own rows a block: 16 in fp32, 32 in bf16
+  L.RB = rows < L.NP ? rows : L.NP;
   // fp32 walks rows of both X and Y per thread: an odd stride spreads them
   // over the banks. bf16 rows keep wmma's 16-byte multiple.
   L.ldx = f32 ? kHeadDim + 1 : kHeadDim + 8;

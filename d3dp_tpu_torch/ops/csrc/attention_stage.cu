@@ -31,13 +31,16 @@
 //
 // Design. A temporal sequence (243 x 512) is 249 KB in bf16 and its qkv
 // 746 KB, more than a block's 227 KB of shared memory, so the TPU design
-// (one whole sequence tile in VMEM) cannot carry over. This first version
-// runs the stage as three launches behind one C entry point:
-//   1. ln_qkv:   32-token row blocks: LN1 into shared memory, then the qkv
-//                projection in 64-column steps on the tensor cores; qkv is
-//                rounded to the compute type after its bias (as the TPU
-//                kernel does) and written to a scratch buffer.
-//   2. attend:   `attend_kernel` (common.cuh, shared with attention_qkv.cu,
+// (one whole sequence tile in VMEM) cannot carry over. The stage runs as
+// three launches behind one C entry point:
+//   1. ln_qkv:   `launch_ln_qkv` (stage.cuh, shared with resident.cu): in
+//                bf16 a persistent grid walking 128-row tiles, LN1 into
+//                swizzled shared memory, the qkv projection on wgmma
+//                m64n128k16 (a warpgroup per 64 rows) in 128-column chunks
+//                with Wqkv streamed by TMA through a ring of 16 KB slabs
+//                both warpgroups read, + bqkv, bf16, out by TMA stores; qkv
+//                goes to a scratch buffer.
+//   2. attend:   `launch_attend` (common.cuh, shared with attention_qkv.cu,
 //                attention_block.cu and resident.cu). Bytes bound it (qkv
 //                in, o out). bf16 above 32 keys: one block per (sequence,
 //                head) reads each key and value row once with cp.async in
@@ -51,32 +54,25 @@
 //                fp32: p is divided by l before P.V; bf16: P.V runs on the
 //                unnormalised bf16 p and 1/l is folded into the output,
 //                which is rounded to bf16 before the projection.
-//   3. proj_ln2: 32-token row blocks: o @ Wp into an fp32 row buffer, then
-//                the residual add and LN2 per row (`proj_ln2_kernel` in
-//                common.cuh, shared with attention_block.cu).
+//   3. proj_ln2: `launch_proj_ln2` (stage.cuh, shared with
+//                attention_block.cu): in bf16 the same walk shape, o @ Wp on
+//                wgmma (m64n256k16 a warpgroup at C = 512) with x loaded
+//                beside o, then the residual add and LN2 from the fragments,
+//                x2 and y2 out by TMA stores.
+//   fp32 runs the row-block tiles of common.cuh in steps 1 and 3.
 // The split costs extra device-memory traffic (qkv and o written and read
-// back, x read twice); fusing the stage into one pass is later work.
+// back, x read twice); at the eval shape that is about 1 GB a stage, 0.3
+// ms at 3.35 TB/s, against the 0.36-0.43 ms the products bound it to.
 //
 // DropPath form: proj_ln2 scales each token row's branch by dp[row / N].
-// Head-major form: ln_qkv writes qkv head-major, (h, R*N, 3d) (each 64-column
-// step of the (h, C, 3d) weights covers the same columns, in the same k
-// order, as the packed step for them), and attend reads head h's q, k and v
-// from its slab with row stride 3d. Same products in the same order as the
-// packed stage, so the two forms agree bit for bit.
-#include "common.cuh"
+// Head-major form: ln_qkv loads each 64-column box of the (h, C, 3d) weights
+// to where the packed step loads the same columns from (C, 3C), and writes
+// qkv head-major, (h, R*N, 3d); attend reads head h's q, k and v from its
+// slab with row stride 3d. Same products in the same order as the packed
+// stage, so the two forms agree bit for bit.
+#include "stage.cuh"
 
 namespace d3dp {
-
-// ---------------------------------------------------------------- 1. LN1 + qkv
-// `ln_qkv_tile` (common.cuh, shared with resident.cu), one row block a block.
-template <typename T, bool kHeadMajor>
-__global__ void __launch_bounds__(kThreads)
-ln_qkv_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
-              const float* __restrict__ bqkv, const float* __restrict__ ln1s,
-              const float* __restrict__ ln1b, T* __restrict__ qkv, int M, int C, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  ln_qkv_tile<T, kHeadMajor>(x, wqkv, bqkv, ln1s, ln1b, qkv, M, C, eps, smem, blockIdx.x);
-}
 
 // ---------------------------------------------------------------- host entry
 // dp: nullptr, or R fp32 branch scales (one per sequence). kHeadMajor: wqkv
@@ -88,39 +84,30 @@ int attention_stage(const void* x, const void* wqkv, const void* bqkv, const voi
                     const void* ln2b, const void* dp, void* qkv, void* o, void* x2, void* y2,
                     int R, int N, int C, int heads, int opts, int mask_block, float scale,
                     float eps, void* stream_) {
-  if (R < 1 || N < 1 || !attn_keys_ok(N, mask_block) || C % 64 != 0 || C > 1024 ||
+  if (R < 1 || N < 1 || !attn_keys_ok(N, mask_block) || !stage_shape_ok<T>(C) ||
       heads * kHeadDim != C || R > 0x7fffffff / N || heads > 65535)
     return (int)cudaErrorInvalidValue;
   const AttnOpts ao = attn_opts(opts, mask_block);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const int M = R * N;
-  constexpr int BM = Cfg<T>::BM;
-  cudaError_t e;
-
-  const size_t s1 = ln_qkv_smem<T>(C);
-  if ((e = cudaFuncSetAttribute(ln_qkv_kernel<T, kHeadMajor>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1)) !=
-      cudaSuccess)
-    return (int)e;
-  ln_qkv_kernel<T, kHeadMajor><<<cdiv(M, BM), kThreads, s1, stream>>>(
-      (const T*)x, (const T*)wqkv, (const float*)bqkv, (const float*)ln1s, (const float*)ln1b,
-      (T*)qkv, M, C, eps);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
+  int e = launch_ln_qkv<T, kHeadMajor>((const T*)x, (const T*)wqkv, (const float*)bqkv,
+                                       (const float*)ln1s, (const float*)ln1b, (T*)qkv, M, C,
+                                       eps, stream);
+  if (e) return e;
   if constexpr (kHeadMajor) {
     // head h's slab starts at h * M * 3d; the tile adds h * kHeadDim (the
     // head's column in token rows), which a slab does not have
     constexpr int d3 = 3 * kHeadDim;
     const T* slab = (const T*)qkv;
-    e = launch_attend<T>(slab, slab + kHeadDim, slab + 2 * kHeadDim, d3, (T*)o, R, N, C, heads,
-                         scale, ao, stream, (long long)M * d3 - kHeadDim);
+    e = (int)launch_attend<T>(slab, slab + kHeadDim, slab + 2 * kHeadDim, d3, (T*)o, R, N, C,
+                              heads, scale, ao, stream, (long long)M * d3 - kHeadDim);
   } else {
-    e = launch_attend_packed<T>((const T*)qkv, (T*)o, R, N, C, heads, scale, ao, stream);
+    e = (int)launch_attend_packed<T>((const T*)qkv, (T*)o, R, N, C, heads, scale, ao, stream);
   }
-  if (e != cudaSuccess) return (int)e;
-  return (int)launch_proj_ln2<T>((const T*)o, (const T*)x, (const T*)wp, (const float*)bp,
-                                 (const float*)ln2s, (const float*)ln2b, (T*)x2, (T*)y2, M, C,
-                                 eps, stream, (const float*)dp, N, !(opts & kOptNoY2));
+  if (e) return e;
+  return launch_proj_ln2<T>((const T*)o, (const T*)x, (const T*)wp, (const float*)bp,
+                            (const float*)ln2s, (const float*)ln2b, (T*)x2, (T*)y2, M, C, eps,
+                            stream, (const float*)dp, N, !(opts & kOptNoY2));
 }
 
 }  // namespace d3dp

@@ -2,17 +2,16 @@
 //
 // Every kernel runs 256 threads (8 warps) per block and works on a block of
 // whole token rows: a row of C channels never splits across blocks, so the
-// LayerNorms that close each stage see a full row in shared memory.
+// LayerNorms that close each stage see a full row in one block.
 //
-// Matrix products: the MLP tile (mlp.cuh) runs on Hopper's wgmma, 64 rows a
-// warpgroup, its operands fed to shared memory by TMA; the stage tiles here
-// (`ln_qkv_tile`, `proj_ln2_tile`) put bf16 operands through the tensor
-// cores with nvcuda::wmma 16x16x16 fragments and fp32 accumulation, 32 rows
-// a block, each weight slab behind a block-wide barrier, so they run far
-// below the card's rate; fp32 operands use plain FMAs (the fp32 path exists
-// for parity checks, not for speed).
-// The per-head attention (`attend_tile`, `attend_kernel`) works on one
-// (sequence, head) instead of token rows. It replaces the attention inside
+// Matrix products: in bf16 every GEMM runs on Hopper's wgmma, 64 rows a
+// warpgroup, its weights fed to shared memory by TMA: the MLP walk
+// (mlp.cuh) and the stage's ln_qkv and proj_ln2 walks (stage.cuh). The
+// fp32 tiles here (`ln_qkv_tile`, `proj_ln2_tile`, and the MLP's) use plain
+// FMAs, 16 rows a block (the fp32 path exists for parity checks, not for
+// speed).
+// The per-head attention (`attend_tile_smem`, `attend_mma_walk`) works on
+// one (sequence, head) instead of token rows. It replaces the attention inside
 // the TPU kernels of d3dp_tpu/ops/attention.py (`_attn_kernel`,
 // `_attn_fused_qkv_kernel`, `_attn_block_kernel`, `_attn_stage_kernel`,
 // `_attn_stage_kernel_hm`) and d3dp_tpu/ops/resident.py
@@ -20,12 +19,14 @@
 // keys): in bf16 above 32 keys it reads each key and value row once per
 // (sequence, head) with cp.async in 64-key groups, and keeps the logits,
 // the exact softmax and P in the registers of mma.sync m16n8k16 fragments
-// (`attend_tile_mma`). At 255 registers a thread one block fills an SM, so
-// the standalone launches walk the tiles from a persistent grid and copy
-// the next tile into a second buffer while the current one computes
-// (`attend_mma_kernel`); the depth-resident kernel computes S in parts.
-// 32 keys or fewer, and fp32, keep the shared-memory body
-// (`attend_tile_smem`), one block per (sequence, head, <=64 queries).
+// (`attend_mma_compute`). At 255 registers a thread one block fills an SM,
+// so the launches and the depth-resident kernel walk the tiles from a
+// persistent grid and copy the next tile into a second buffer while the
+// current one computes (`attend_mma_walk`); the depth-resident kernel
+// computes S in parts. 32 keys or fewer, and fp32, keep the shared-memory
+// body (`attend_tile_smem`), one block per (sequence, head, <=64 queries)
+// in the launches, one warp per (sequence, head) in the depth-resident
+// kernel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -46,18 +47,10 @@ constexpr int kBK = 64;  // rows of B staged in shared memory per step
 
 using bf16 = __nv_bfloat16;
 
-template <typename T> struct Cfg;
-// bf16: 32 token rows per block; rows padded by 8 elements (16 bytes) so
-// wmma fragment loads from consecutive rows fall on different banks.
-template <> struct Cfg<bf16> {
-  static constexpr int BM = 32;
-  static constexpr int PAD = 8;
-};
-// fp32: 16 token rows per block (the fp32 rows take twice the bytes).
-template <> struct Cfg<float> {
-  static constexpr int BM = 16;
-  static constexpr int PAD = 4;
-};
+// fp32 row-block tiles (the MLP's and the stage's): 16 token rows a block,
+// rows padded by 4 elements.
+constexpr int kF32Rows = 16;
+constexpr int kF32Pad = 4;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -110,17 +103,32 @@ __device__ __forceinline__ void warp_layernorm(float (&v)[32], int C, const floa
     }
 }
 
+// A team of kTeam threads that share a piece of work: the block (kThreads)
+// or one warp (32). team_tid: this thread's index in its team; team_sync:
+// the team's barrier.
+template <int kTeam>
+__device__ __forceinline__ int team_tid() {
+  return kTeam == kThreads ? (int)threadIdx.x : (int)threadIdx.x % kTeam;
+}
+template <int kTeam>
+__device__ __forceinline__ void team_sync() {
+  static_assert(kTeam == kThreads || kTeam == 32, "a team is the block or one warp");
+  if constexpr (kTeam == kThreads) __syncthreads();
+  else __syncwarp();
+}
+
 // Copy `rows` rows of `cols` elements (global, row stride ldg) into shared
-// memory (row stride lds); rows at or past `valid` are zero-filled. Moves
-// 16-byte vectors where every row start is 16-byte aligned (base pointers
-// are: the callers pass 16-byte-aligned buffers and offsets).
-template <typename T>
+// memory (row stride lds) on a team of kTeam threads; rows at or past
+// `valid` are zero-filled. Moves 16-byte vectors where every row start is
+// 16-byte aligned (base pointers are: the callers pass 16-byte-aligned
+// buffers and offsets).
+template <typename T, int kTeam = kThreads>
 __device__ __forceinline__ void load_rows(T* dst, int lds, const T* src, int ldg, int rows,
                                           int valid, int cols) {
   constexpr int vec = 16 / sizeof(T);
   if (cols % vec == 0 && lds % vec == 0 && ldg % vec == 0) {
     const int vc = cols / vec;
-    for (int i = threadIdx.x; i < rows * vc; i += kThreads) {
+    for (int i = team_tid<kTeam>(); i < rows * vc; i += kTeam) {
       const int r = i / vc, c = (i % vc) * vec;
       *reinterpret_cast<uint4*>(dst + r * lds + c) =
           r < valid ? *reinterpret_cast<const uint4*>(src + (size_t)r * ldg + c)
@@ -128,7 +136,7 @@ __device__ __forceinline__ void load_rows(T* dst, int lds, const T* src, int ldg
     }
     return;
   }
-  for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
+  for (int i = team_tid<kTeam>(); i < rows * cols; i += kTeam) {
     const int r = i / cols, c = i % cols;
     dst[r * lds + c] = r < valid ? src[(size_t)r * ldg + c] : from_f<T>(0.f);
   }
@@ -164,12 +172,30 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
   }
 }
 
+// load_rows with every 16-byte copy in flight at once (cp.async, no commit):
+// the caller commits and waits before its barrier. Rows that are not 16-byte
+// vectors take load_rows.
+template <typename T, int kTeam>
+__device__ __forceinline__ void load_rows_async(T* dst, int lds, const T* src, int ldg, int rows,
+                                                int valid, int cols) {
+  constexpr int vec = 16 / sizeof(T);
+  if (cols % vec || lds % vec || ldg % vec) {
+    load_rows<T, kTeam>(dst, lds, src, ldg, rows, valid, cols);
+    return;
+  }
+  const int vc = cols / vec;
+  for (int i = team_tid<kTeam>(); i < rows * vc; i += kTeam) {
+    const int r = i / vc, c = (i % vc) * vec;
+    const bool ok = r < valid;
+    cp_async16_zfill(dst + r * lds + c, src + (size_t)(ok ? r : 0) * ldg + c, ok);
+  }
+}
+
 // Start copying a kBK x kBN slab of row-major B (global, row stride ldb)
 // into one stage of Bs (row stride kBN + PAD).
-template <typename T>
-__device__ __forceinline__ void stage_b_async(T* Bs, const T* B, int ldb) {
-  constexpr int ldbs = kBN + Cfg<T>::PAD;
-  constexpr int vec = 16 / sizeof(T);
+__device__ __forceinline__ void stage_b_async(float* Bs, const float* B, int ldb) {
+  constexpr int ldbs = kBN + kF32Pad;
+  constexpr int vec = 4;
 #pragma unroll
   for (int i = 0; i < (kBK * kBN / vec) / kThreads; ++i) {
     const int v = threadIdx.x + i * kThreads;
@@ -178,20 +204,17 @@ __device__ __forceinline__ void stage_b_async(T* Bs, const T* B, int ldb) {
   }
 }
 
-template <typename T>
-__host__ __device__ constexpr int slab_elems() {
-  return kBK * (kBN + Cfg<T>::PAD);
-}
+__host__ __device__ constexpr int slab_elems() { return kBK * (kBN + kF32Pad); }
 
-// The slab pipeline shared by both GEMM flavours: calls mma(slab, k0) for
-// every kBK-deep slab of B in order, with the next slabs' copies in flight.
-template <typename T, typename Mma>
-__device__ __forceinline__ void pipeline_b(const T* B, int ldb, int K, T* Bs, Mma mma) {
+// The fp32 GEMM's slab pipeline: calls mma(slab, k0) for every kBK-deep
+// slab of B in order, with the next slabs' copies in flight.
+template <typename Mma>
+__device__ __forceinline__ void pipeline_b(const float* B, int ldb, int K, float* Bs, Mma mma) {
   const int nk = K / kBK;
   __syncthreads();  // every stage of Bs is free (earlier users are done)
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) stage_b_async(Bs + s * slab_elems<T>(), B + (size_t)s * kBK * ldb, ldb);
+    if (s < nk) stage_b_async(Bs + s * slab_elems(), B + (size_t)s * kBK * ldb, ldb);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -199,42 +222,20 @@ __device__ __forceinline__ void pipeline_b(const T* B, int ldb, int K, T* Bs, Mm
     __syncthreads();               // everyone's did; slab kt-1 is consumed
     const int nxt = kt + kStages - 1;
     if (nxt < nk)
-      stage_b_async(Bs + (nxt % kStages) * slab_elems<T>(), B + (size_t)nxt * kBK * ldb, ldb);
+      stage_b_async(Bs + (nxt % kStages) * slab_elems(), B + (size_t)nxt * kBK * ldb, ldb);
     cp_async_commit();  // possibly empty: keeps the group count uniform
-    mma(Bs + (kt % kStages) * slab_elems<T>(), kt * kBK);
+    mma(Bs + (kt % kStages) * slab_elems(), kt * kBK);
   }
   cp_async_wait<0>();
 }
 
-// Block GEMM: Out[BM x kBN] (fp32, shared, row stride ldo) =
-//   As[BM x K] (shared, row stride lda) @ B[K x kBN] (global, row stride ldb).
+// Block GEMM, fp32: Out[16 x kBN] (shared, row stride ldo) =
+//   As[16 x K] (shared, row stride lda) @ B[K x kBN] (global, row stride ldb).
 // K % kBK == 0; B streams through the kStages slabs of Bs.
-// bf16: each of the 8 warps owns one 16x16 accumulator fragment of the
-// 32x64 output.
-__device__ __forceinline__ void gemm_rowblock(const bf16* As, int lda, const bf16* B, int ldb,
-                                              int K, bf16* Bs, float* Out, int ldo) {
-  using namespace nvcuda;
-  constexpr int ldbs = kBN + Cfg<bf16>::PAD;
-  const int warp = threadIdx.x / 32;
-  const int wr = warp / 4, wc = warp % 4;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fill_fragment(acc, 0.f);
-  pipeline_b(B, ldb, K, Bs, [&](const bf16* slab, int k0) {
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, As + wr * 16 * lda + k0 + kk, lda);
-      wmma::load_matrix_sync(b, slab + kk * ldbs + wc * 16, ldbs);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-  });
-  wmma::store_matrix_sync(Out + wr * 16 * ldo + wc * 16, acc, ldo, wmma::mem_row_major);
-}
 // fp32: thread t owns row t/16 and the four columns 4*(t%16)..+3.
 __device__ __forceinline__ void gemm_rowblock(const float* As, int lda, const float* B, int ldb,
                                               int K, float* Bs, float* Out, int ldo) {
-  constexpr int ldbs = kBN + Cfg<float>::PAD;
+  constexpr int ldbs = kBN + kF32Pad;
   const int r = threadIdx.x / 16, c = (threadIdx.x % 16) * 4;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   pipeline_b(B, ldb, K, Bs, [&](const float* slab, int k0) {
@@ -254,9 +255,8 @@ __device__ __forceinline__ void gemm_rowblock(const float* As, int lda, const fl
 }
 
 // bytes of the kStages B slabs
-template <typename T>
 __host__ __device__ constexpr size_t bs_bytes() {
-  return align128(sizeof(T) * kStages * slab_elems<T>());
+  return align128(sizeof(float) * kStages * slab_elems());
 }
 
 // ------------------------------------------------------- per-head attention
@@ -316,7 +316,7 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// The bf16 tensor-core tile (`attend_tile_mma`): each warp owns 16 query
+// The bf16 tensor-core tile (`attend_mma_compute`): each warp owns 16 query
 // rows, so a pass of the 8 warps covers kPassRows queries; it takes the
 // attentions of more than kSmemMaxKeys keys, and every masked one.
 constexpr int kPassRows = 16 * kWarps;
@@ -421,8 +421,11 @@ AttnLayout attn_layout(int N, int mask_block = 0) {
 // (tail zero-filled) with the fp32 logits, so the softmax is exact over the
 // whole row: all <=256 keys of the sequence, or under a mask only the
 // window of whole blocks the queries span (attn_layout), every key outside
-// it having p = 0 exactly.
-template <typename T>
+// it having p = 0 exactly. kTeam: the threads that share the tile, the
+// block or one warp (the depth-resident kernel runs a tile a warp, each in
+// its own L.total bytes); each fragment and each row goes through the same
+// operations in the same order either way, so the bits are the same.
+template <typename T, int kTeam = kThreads>
 __device__ __forceinline__ void attend_tile_smem(const T* q, const T* k, const T* v, int ld,
                                                  T* out, int N, int C, float scale,
                                                  const AttnLayout& L, const AttnOpts& opts,
@@ -445,15 +448,18 @@ __device__ __forceinline__ void attend_tile_smem(const T* q, const T* k, const T
     nk = min(N, (q0 + nq - 1) / mb * mb + mb) - k0;
   }
   const size_t off = (size_t)seq * N * ld + h * kHeadDim;
-  load_rows(Qs, L.ldq, q + off + (size_t)q0 * ld, ld, QB, N - q0, kHeadDim);
-  load_rows(Ks, L.ldk, k + off + (size_t)k0 * ld, ld, NK, nk, kHeadDim);
-  load_rows(Vs, L.ldv, v + off + (size_t)k0 * ld, ld, NK, nk, kHeadDim);
-  __syncthreads();
+  load_rows_async<T, kTeam>(Qs, L.ldq, q + off + (size_t)q0 * ld, ld, QB, N - q0, kHeadDim);
+  load_rows_async<T, kTeam>(Ks, L.ldk, k + off + (size_t)k0 * ld, ld, NK, nk, kHeadDim);
+  load_rows_async<T, kTeam>(Vs, L.ldv, v + off + (size_t)k0 * ld, ld, NK, nk, kHeadDim);
+  cp_async_commit();
+  cp_async_wait<0>();
+  team_sync<kTeam>();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  constexpr int kTeamWarps = kTeam / 32;
+  const int tid = team_tid<kTeam>(), warp = tid / 32, lane = tid % 32;
   // S = Q K^T (unscaled), fp32
   if constexpr (f32) {
-    for (int i = threadIdx.x; i < QB * NK; i += kThreads) {
+    for (int i = tid; i < QB * NK; i += kTeam) {
       const int qi = i / NK, kj = i % NK;
       const float* a = Qs + qi * L.ldq;
       const float* b = Ks + kj * L.ldk;
@@ -465,7 +471,7 @@ __device__ __forceinline__ void attend_tile_smem(const T* q, const T* k, const T
   } else {
     using namespace nvcuda;
     const int nfj = NK / 16;
-    for (int f = warp; f < (QB / 16) * nfj; f += kWarps) {
+    for (int f = warp; f < (QB / 16) * nfj; f += kTeamWarps) {
       const int fi = f / nfj, fj = f % nfj;
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       wmma::fill_fragment(acc, 0.f);
@@ -480,13 +486,15 @@ __device__ __forceinline__ void attend_tile_smem(const T* q, const T* k, const T
       wmma::store_matrix_sync(Ss + fi * 16 * L.lds + fj * 16, acc, L.lds, wmma::mem_row_major);
     }
   }
-  __syncthreads();
+  team_sync<kTeam>();
 
   // exact softmax over the keys [j0, j1) of each row, its own block under a
   // mask: s = dot * scale, m = max(s), p = exp(s - m) (p = 0 elsewhere),
-  // l = sum(p)
+  // l = sum(p); rows past the queries are left as they are (P.V's output
+  // rows past them are never stored, and a product row reads only its own
+  // P row)
   const bool bf16_exp = !f32 && opts.bf16_exp;
-  for (int r = warp; r < QB; r += kWarps) {
+  for (int r = warp; r < nq; r += kTeamWarps) {
     float* srow = Ss + r * L.lds;
     int j0 = 0, j1 = nk;
     if (mb > 0 && r < nq) {
@@ -520,12 +528,12 @@ __device__ __forceinline__ void attend_tile_smem(const T* q, const T* k, const T
       if (lane == 0) linv[r] = opts.norm_first ? 1.0f : 1.0f / l;
     }
   }
-  __syncthreads();
+  team_sync<kTeam>();
 
   T* orow0 = out + ((size_t)seq * N + q0) * C + h * kHeadDim;
   if constexpr (f32) {
     // O = (P / l) V, written straight out
-    for (int i = threadIdx.x; i < nq * kHeadDim; i += kThreads) {
+    for (int i = tid; i < nq * kHeadDim; i += kTeam) {
       const int qi = i / kHeadDim, d = i % kHeadDim;
       const float* p = Ss + qi * L.lds;
       float acc = 0.f;
@@ -540,7 +548,7 @@ __device__ __forceinline__ void attend_tile_smem(const T* q, const T* k, const T
     const bf16* Ps = reinterpret_cast<const bf16*>(smem + L.p);
     float* Os = Ss;
     constexpr int ldo = kHeadDim + 4;
-    for (int f = warp; f < (QB / 16) * (kHeadDim / 16); f += kWarps) {
+    for (int f = warp; f < (QB / 16) * (kHeadDim / 16); f += kTeamWarps) {
       const int fi = f / (kHeadDim / 16), fj = f % (kHeadDim / 16);
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       wmma::fill_fragment(acc, 0.f);
@@ -553,8 +561,8 @@ __device__ __forceinline__ void attend_tile_smem(const T* q, const T* k, const T
       }
       wmma::store_matrix_sync(Os + fi * 16 * ldo + fj * 16, acc, ldo, wmma::mem_row_major);
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < nq * kHeadDim; i += kThreads) {
+    team_sync<kTeam>();
+    for (int i = tid; i < nq * kHeadDim; i += kTeam) {
       const int qi = i / kHeadDim, d = i % kHeadDim;
       orow0[(size_t)qi * C + d] = __float2bfloat16(Os[qi * ldo + d] * linv[qi]);
     }
@@ -944,12 +952,12 @@ __device__ __forceinline__ void attend_mma_compute(bf16* out, int N, int C, floa
 // thread holds 8 * KF logits, not 8 * NKF. The bits are those of S kept
 // whole: each key's s and p come from the same operations, l adds the keys
 // in the same order, and P.V takes the 16-key steps in the same order.
-template <int NKF, int KF>
+template <int NKF, int KF, typename Loaded>
 __device__ __forceinline__ void attend_mma_compute_parts(bf16* out, int N, int C, float scale,
                                                          const AttnLayout& L,
                                                          const AttnOpts& opts,
                                                          unsigned char* smem, int seq, int h,
-                                                         int qb) {
+                                                         int qb, Loaded&& loaded) {
   constexpr int kKeyGroups = NKF / 4;
   constexpr int kParts = NKF / KF;
   const bf16* Qs = reinterpret_cast<const bf16*>(smem + L.q);
@@ -1028,6 +1036,7 @@ __device__ __forceinline__ void attend_mma_compute_parts(bf16* out, int N, int C
     if (pass == 0) {
       cp_async_wait<0>();  // V and the later passes' queries
       __syncthreads();
+      loaded();
     }
     if (!active) continue;
     // 3. O = P V: p / l rounded to bf16 under norm_first (the output then
@@ -1067,39 +1076,6 @@ __device__ __forceinline__ void attend_mma_compute_parts(bf16* out, int N, int C
   }
 }
 
-// One tensor-core tile, its copies and its arithmetic, as the depth-resident
-// kernel walks them: S in parts of kResidentFrags 16-key fragments, the same
-// bits as the standalone launches' S kept whole.
-constexpr int kResidentFrags = 4;
-template <int NKF>
-__device__ __forceinline__ void attend_tile_mma(const bf16* q, const bf16* k, const bf16* v,
-                                                int ld, bf16* out, int N, int C, float scale,
-                                                const AttnLayout& L, const AttnOpts& opts,
-                                                unsigned char* smem, int seq, int h, int qb) {
-  attend_mma_copy<NKF>(q, k, v, ld, N, L, opts.mask_block, smem, seq, h, qb);
-  attend_mma_compute_parts<NKF, kResidentFrags>(out, N, C, scale, L, opts, smem, seq, h, qb);
-}
-
-// Every caller's tile (the depth-resident kernel walks these): the
-// tensor-core tile for L.nkf > 0 (bf16), else the shared-memory body.
-template <typename T>
-__device__ __forceinline__ void attend_tile(const T* q, const T* k, const T* v, int ld, T* out,
-                                            int N, int C, float scale, const AttnLayout& L,
-                                            const AttnOpts& opts, unsigned char* smem, int seq,
-                                            int h, int qb) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    switch (L.nkf) {
-      case 4: attend_tile_mma<4>(q, k, v, ld, out, N, C, scale, L, opts, smem, seq, h, qb); return;
-      case 8: attend_tile_mma<8>(q, k, v, ld, out, N, C, scale, L, opts, smem, seq, h, qb); return;
-      case 16:
-        attend_tile_mma<16>(q, k, v, ld, out, N, C, scale, L, opts, smem, seq, h, qb);
-        return;
-      default: break;
-    }
-  }
-  attend_tile_smem<T>(q, k, v, ld, out, N, C, scale, L, opts, smem, seq, h, qb);
-}
-
 // The shared-memory body's launch: grid (sequence, head, query block), one
 // tile per block. hs: see launch_attend.
 template <typename T>
@@ -1113,18 +1089,22 @@ attend_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
                       blockIdx.y, blockIdx.z);
 }
 
-// The tensor-core tile's launch: a persistent grid that walks the tiles
-// (head fastest, then sequence, then query block) with two shared-memory
-// buffers. Each tile starts the next one's copies into the other buffer
-// once its own have landed, so pass 0's P.V and the later passes run while
-// the next tile's keys and values arrive: one block fills an SM (255
-// registers a thread), so no other block hides the copies.
-template <int NKF>
-__global__ void __launch_bounds__(kThreads)
-attend_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, long long hs, int ld, bf16* __restrict__ out,
-                  int R, int N, int C, int heads, float scale, AttnLayout L, AttnOpts opts) {
-  extern __shared__ __align__(128) unsigned char smem[];
+// The tensor-core tile's walk: blocks take the tiles blockIdx.x, + gridDim.x,
+// ... (head fastest, then sequence, then query block) with two buffers of
+// L.total bytes at smem. Each tile starts the next one's copies into the
+// other buffer once its own have landed, so pass 0's P.V and the later
+// passes run while the next tile's keys and values arrive: one block fills
+// an SM (255 registers a thread), so no other block hides the copies.
+// KF == NKF keeps S whole in registers (the standalone launch); KF <
+// NKF computes it in parts of KF fragments (the depth-resident kernel, which
+// inlines the walk beside its other phases), with the same bits. hs: see
+// launch_attend.
+constexpr int kResidentFrags = 4;
+template <int NKF, int KF>
+__device__ __forceinline__ void attend_mma_walk(const bf16* q, const bf16* k, const bf16* v,
+                                                long long hs, int ld, bf16* out, int R, int N,
+                                                int C, int heads, float scale, const AttnLayout& L,
+                                                const AttnOpts& opts, unsigned char* smem) {
   const int n = R * heads * cdiv(N, L.QB);
   auto copy = [&](int t, unsigned char* buf) {
     const int h = t % heads;
@@ -1136,12 +1116,47 @@ attend_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (t < n) copy(t, smem);
   for (int i = 0; t < n; ++i, t += gridDim.x) {
     const int tn = t + gridDim.x;
-    attend_mma_compute<NKF>(out, N, C, scale, L, opts, smem + (i & 1) * L.total, t / heads % R,
-                            t % heads, t / (heads * R), [&] {
-                              if (tn < n) copy(tn, smem + ((i + 1) & 1) * L.total);
-                            });
+    auto next = [&] {
+      if (tn < n) copy(tn, smem + ((i + 1) & 1) * L.total);
+    };
+    unsigned char* buf = smem + (i & 1) * L.total;
+    if constexpr (KF == NKF)
+      attend_mma_compute<NKF>(out, N, C, scale, L, opts, buf, t / heads % R, t % heads,
+                              t / (heads * R), next);
+    else
+      attend_mma_compute_parts<NKF, KF>(out, N, C, scale, L, opts, buf, t / heads % R,
+                                        t % heads, t / (heads * R), next);
     __syncthreads();  // the tile after next overwrites this buffer
   }
+}
+
+// The tensor-core tile's launch: a persistent grid of one block an SM.
+template <int NKF>
+__global__ void __launch_bounds__(kThreads)
+attend_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, long long hs, int ld, bf16* __restrict__ out,
+                  int R, int N, int C, int heads, float scale, AttnLayout L, AttnOpts opts) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  attend_mma_walk<NKF, NKF>(q, k, v, hs, ld, out, R, N, C, heads, scale, L, opts, smem);
+}
+
+// The blocks of a persistent grid over n_tiles tiles: as many as fit on
+// the device's SMs at smem bytes a block (one an SM for the bf16 walks), at
+// most n_tiles; also raises the kernel's dynamic shared-memory limit.
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, int smem, int n_tiles, int* blocks) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+      cudaSuccess)
+    return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = std::min(n_tiles, per_sm * sms);
+  return cudaSuccess;
 }
 
 template <int NKF>
@@ -1151,18 +1166,9 @@ cudaError_t launch_attend_mma(const bf16* q, const bf16* k, const bf16* v, long 
   const long long n = (long long)R * heads * cdiv(N, L.QB);
   if (n > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int smem = (int)(2 * L.total);
-  cudaError_t e = cudaFuncSetAttribute(attend_mma_kernel<NKF>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int blocks = 0;
+  const cudaError_t e = persistent_grid(attend_mma_kernel<NKF>, smem, (int)n, &blocks);
   if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attend_mma_kernel<NKF>,
-                                                         kThreads, smem)) != cudaSuccess)
-    return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int blocks = (int)std::min(n, (long long)per_sm * sms);
   attend_mma_kernel<NKF><<<blocks, kThreads, smem, stream>>>(q, k, v, hs, ld, out, R, N, C,
                                                              heads, scale, L, opts);
   return cudaGetLastError();
@@ -1206,28 +1212,26 @@ cudaError_t launch_attend_packed(const T* qkv, T* out, int R, int N, int C, int 
 }
 
 // ------------------------------------------------ out-projection + residual + LN
-// Shared by the attention stage (attention_stage.cu) and the attention block
-// (attention_block.cu): x2 = x + (o @ Wp + bp), y2 = LN2(x2), over token
-// rows; 32-token row blocks (16 in fp32): o @ Wp into an fp32 row buffer,
-// then the residual add and LN2 per row.
-// One tile: the row block `tile` (BM token rows from BM * tile).
+// fp32 (parity checks; bf16 runs `proj_ln2_walk_bf16`, stage.cuh):
+// x2 = x + (o @ Wp + bp), y2 = LN2(x2) over token rows, one tile the row
+// block `tile` of kF32Rows rows: o @ Wp into an fp32 row buffer, then the
+// residual add and LN2 per row.
 // DropPath: with dp, the branch (projection and its bias) of token row r is
 // scaled by dp[r / dp_div] in fp32 before the residual add (dp_div = N: one
 // scale per sequence); dp == nullptr leaves the arithmetic as it is without.
 // with_y2 = false (kOptNoY2) writes x2 only: no LN2, y2 left as it was.
-template <typename T>
-__device__ __forceinline__ void proj_ln2_tile(const T* o, const T* x, const T* wp,
+__device__ __forceinline__ void proj_ln2_tile(const float* o, const float* x, const float* wp,
                                               const float* bp, const float* ln2s,
-                                              const float* ln2b, T* x2, T* y2, int M, int C,
-                                              float eps, unsigned char* smem, int tile,
+                                              const float* ln2b, float* x2, float* y2, int M,
+                                              int C, float eps, unsigned char* smem, int tile,
                                               const float* dp = nullptr, int dp_div = 1,
                                               bool with_y2 = true) {
-  constexpr int BM = Cfg<T>::BM;
-  const int lda = C + Cfg<T>::PAD;
+  constexpr int BM = kF32Rows;
+  const int lda = C + kF32Pad;
   const int ldx = C + 4;
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = reinterpret_cast<T*>(smem + align128(sizeof(T) * BM * lda));
-  float* Xs = reinterpret_cast<float*>(smem + align128(sizeof(T) * BM * lda) + bs_bytes<T>());
+  float* As = reinterpret_cast<float*>(smem);
+  float* Bs = reinterpret_cast<float*>(smem + align128(sizeof(float) * BM * lda));
+  float* Xs = reinterpret_cast<float*>(smem + align128(sizeof(float) * BM * lda) + bs_bytes());
 
   const int row0 = tile * BM;
   load_rows(As, lda, o + (size_t)row0 * C, C, BM, M - row0, C);
@@ -1239,8 +1243,8 @@ __device__ __forceinline__ void proj_ln2_tile(const T* o, const T* x, const T* w
   for (int r = warp; r < BM; r += kWarps) {
     const int row = row0 + r;
     if (row >= M) continue;
-    const T* xr = x + (size_t)row * C;
-    T* x2r = x2 + (size_t)row * C;
+    const float* xr = x + (size_t)row * C;
+    float* x2r = x2 + (size_t)row * C;
     const float keep = dp ? dp[row / dp_div] : 1.f;
     float v[32];
 #pragma unroll
@@ -1249,72 +1253,42 @@ __device__ __forceinline__ void proj_ln2_tile(const T* o, const T* x, const T* w
         const int c = 32 * k + lane;
         const float branch = Xs[r * ldx + c] + bp[c];
         // x + (proj + bp), or x + dp * (proj + bp) rounded apart (no FMA)
-        v[k] = dp ? to_f(xr[c]) + __fmul_rn(branch, keep) : to_f(xr[c]) + branch;
-        x2r[c] = from_f<T>(v[k]);
+        v[k] = dp ? xr[c] + __fmul_rn(branch, keep) : xr[c] + branch;
+        x2r[c] = v[k];
       }
     if (!with_y2) continue;
     warp_layernorm(v, C, ln2s, ln2b, eps, lane);
-    T* y2r = y2 + (size_t)row * C;
+    float* y2r = y2 + (size_t)row * C;
 #pragma unroll
     for (int k = 0; k < 32; ++k)
-      if (k < C / 32) y2r[32 * k + lane] = from_f<T>(v[k]);
+      if (k < C / 32) y2r[32 * k + lane] = v[k];
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-proj_ln2_kernel(const T* __restrict__ o, const T* __restrict__ x, const T* __restrict__ wp,
-                const float* __restrict__ bp, const float* __restrict__ ln2s,
-                const float* __restrict__ ln2b, T* __restrict__ x2, T* __restrict__ y2, int M,
-                int C, float eps, const float* __restrict__ dp, int dp_div, bool with_y2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  proj_ln2_tile<T>(o, x, wp, bp, ln2s, ln2b, x2, y2, M, C, eps, smem, blockIdx.x, dp, dp_div,
-                   with_y2);
-}
-
-template <typename T>
-size_t proj_ln2_smem(int C) {
-  return align128(sizeof(T) * Cfg<T>::BM * (C + Cfg<T>::PAD)) + bs_bytes<T>() +
-         align128(sizeof(float) * Cfg<T>::BM * (C + 4));
-}
-
-// Launch proj_ln2_kernel over M token rows (dp, dp_div, with_y2: see
-// proj_ln2_tile).
-template <typename T>
-cudaError_t launch_proj_ln2(const T* o, const T* x, const T* wp, const float* bp,
-                            const float* ln2s, const float* ln2b, T* x2, T* y2, int M, int C,
-                            float eps, cudaStream_t stream, const float* dp = nullptr,
-                            int dp_div = 1, bool with_y2 = true) {
-  const size_t smem = proj_ln2_smem<T>(C);
-  cudaError_t e = cudaFuncSetAttribute(proj_ln2_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  proj_ln2_kernel<T><<<cdiv(M, Cfg<T>::BM), kThreads, smem, stream>>>(o, x, wp, bp, ln2s, ln2b,
-                                                                      x2, y2, M, C, eps, dp,
-                                                                      dp_div, with_y2);
-  return cudaGetLastError();
+inline size_t proj_ln2_smem(int C) {
+  return align128(sizeof(float) * kF32Rows * (C + kF32Pad)) + bs_bytes() +
+         align128(sizeof(float) * kF32Rows * (C + 4));
 }
 
 // ---------------------------------------------------------------- LN1 + qkv
-// The attention stage's first step (attention_stage.cu, resident.cu):
-// qkv = LN1(x) @ Wqkv + bqkv over token rows; one tile is the row block
-// `tile`: LN1 into shared memory, then the qkv projection in 64-column steps
-// on the tensor cores; qkv is rounded to the compute type after its bias (as
-// the TPU kernel does).
+// fp32 (parity checks; bf16 runs `ln_qkv_walk_bf16`, stage.cuh): qkv =
+// LN1(x) @ Wqkv + bqkv over token rows; one tile is the row block `tile`:
+// LN1 into shared memory, then the qkv projection in 64-column steps.
 // kHeadMajor (the head-major stage): Wqkv is stacked (h, C, 3d) and bqkv
 // (h, 3d), head h's q | k | v columns side by side, and qkv is written
 // head-major, (h, M, 3d). Each 64-column step then covers the same columns,
 // in the same k order, as the packed layout's step for them, so the values
 // are the packed ones, bit for bit.
-template <typename T, bool kHeadMajor = false>
-__device__ __forceinline__ void ln_qkv_tile(const T* x, const T* wqkv, const float* bqkv,
-                                            const float* ln1s, const float* ln1b, T* qkv, int M,
-                                            int C, float eps, unsigned char* smem, int tile) {
-  constexpr int BM = Cfg<T>::BM;
-  const int lda = C + Cfg<T>::PAD;
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = reinterpret_cast<T*>(smem + align128(sizeof(T) * BM * lda));
-  float* Cs = reinterpret_cast<float*>(smem + align128(sizeof(T) * BM * lda) + bs_bytes<T>());
+template <bool kHeadMajor = false>
+__device__ __forceinline__ void ln_qkv_tile(const float* x, const float* wqkv, const float* bqkv,
+                                            const float* ln1s, const float* ln1b, float* qkv,
+                                            int M, int C, float eps, unsigned char* smem,
+                                            int tile) {
+  constexpr int BM = kF32Rows;
+  const int lda = C + kF32Pad;
+  float* As = reinterpret_cast<float*>(smem);
+  float* Bs = reinterpret_cast<float*>(smem + align128(sizeof(float) * BM * lda));
+  float* Cs = reinterpret_cast<float*>(smem + align128(sizeof(float) * BM * lda) + bs_bytes());
   constexpr int ldc = kBN + 4;
 
   const int row0 = tile * BM;
@@ -1323,16 +1297,16 @@ __device__ __forceinline__ void ln_qkv_tile(const T* x, const T* wqkv, const flo
     const int row = row0 + r;
     if (row < M) {
       float v[32];
-      const T* xr = x + (size_t)row * C;
+      const float* xr = x + (size_t)row * C;
 #pragma unroll
       for (int k = 0; k < 32; ++k)
-        if (k < C / 32) v[k] = to_f(xr[32 * k + lane]);
+        if (k < C / 32) v[k] = xr[32 * k + lane];
       warp_layernorm(v, C, ln1s, ln1b, eps, lane);
 #pragma unroll
       for (int k = 0; k < 32; ++k)
-        if (k < C / 32) As[r * lda + 32 * k + lane] = from_f<T>(v[k]);
+        if (k < C / 32) As[r * lda + 32 * k + lane] = v[k];
     } else {
-      for (int c = lane; c < C; c += 32) As[r * lda + c] = from_f<T>(0.f);
+      for (int c = lane; c < C; c += 32) As[r * lda + c] = 0.f;
     }
   }
   __syncthreads();
@@ -1341,8 +1315,8 @@ __device__ __forceinline__ void ln_qkv_tile(const T* x, const T* wqkv, const flo
   for (int n0 = 0; n0 < N3; n0 += kBN) {
     // this step's weight columns (row stride ldw) and output columns (row
     // stride ldq); the bias index is n0 + c in both layouts
-    const T* w = wqkv + n0;
-    T* q = qkv + n0;
+    const float* w = wqkv + n0;
+    float* q = qkv + n0;
     int ldw = N3, ldq = N3;
     if constexpr (kHeadMajor) {
       constexpr int d3 = 3 * kHeadDim;
@@ -1355,16 +1329,14 @@ __device__ __forceinline__ void ln_qkv_tile(const T* x, const T* wqkv, const flo
     __syncthreads();
     for (int i = threadIdx.x; i < BM * kBN; i += kThreads) {
       const int r = i / kBN, c = i % kBN;
-      if (row0 + r < M)
-        q[(size_t)(row0 + r) * ldq + c] = from_f<T>(Cs[r * ldc + c] + bqkv[n0 + c]);
+      if (row0 + r < M) q[(size_t)(row0 + r) * ldq + c] = Cs[r * ldc + c] + bqkv[n0 + c];
     }
   }
 }
 
-template <typename T>
-size_t ln_qkv_smem(int C) {
-  return align128(sizeof(T) * Cfg<T>::BM * (C + Cfg<T>::PAD)) + bs_bytes<T>() +
-         align128(sizeof(float) * Cfg<T>::BM * (kBN + 4));
+inline size_t ln_qkv_smem(int C) {
+  return align128(sizeof(float) * kF32Rows * (C + kF32Pad)) + bs_bytes() +
+         align128(sizeof(float) * kF32Rows * (kBN + 4));
 }
 
 }  // namespace d3dp

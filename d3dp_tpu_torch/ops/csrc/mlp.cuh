@@ -37,11 +37,12 @@
 //     last chunk's fc2 ran), the LayerNorm's two passes (quad shuffles inside
 //     a warp, a 2 x 64 exchange between the warpgroups), then each row to its
 //     output row.
-//   * A block walks tiles blockIdx.x, + gridDim.x, ...: the ring runs on
+//   * A block walks tiles blockIdx.x, + gridDim.x, ...: the ring
+//     (`WeightRing`, shared with the stage walks of stage.cuh) runs on
 //     across tile boundaries (the slab sequence repeats every tile), the
-//     next tile's x loads after the epilogue, and the standalone launches
-//     stage the output rows in shared memory and write them with bulk copies
-//     that complete under the next tile's products.
+//     next tile's x loads after the epilogue, and the output rows are staged
+//     in shared memory and written with bulk copies that complete under the
+//     next tile's products.
 // Shared memory: x 64 KB, h 2 x 16 KB, ring 4 x 32 KB, at C = 512.
 //
 // fp32 (`mlp_tile_f32`, parity checks): 16 token rows a block, x, h and the
@@ -120,7 +121,7 @@ __device__ __forceinline__ float activation_bf16(float v) {
 // the residual add (one scale per (b, i); the rows form passes D2 = 1);
 // dp == nullptr leaves the arithmetic as it is without. gelu: a kGelu*
 // activation (kGeluBf16 only in bf16). Pointers carry no __restrict__ (see
-// attend_tile in common.cuh).
+// attend_tile_smem in common.cuh).
 template <typename T>
 struct MlpArgs {
   const T* x;
@@ -150,20 +151,20 @@ template <typename T> struct MlpLayout;
 // ------------------------------------------------------------------ fp32
 template <>
 struct MlpLayout<float> {
-  static constexpr int kRows = Cfg<float>::BM;
+  static constexpr int kRows = kF32Rows;
   int lda, ldh, lds;
   size_t a, h, s, c, b, total;
   MlpLayout() = default;
   MlpLayout(int C, int H) {
-    lda = C + Cfg<float>::PAD;
-    ldh = H + Cfg<float>::PAD;
+    lda = C + kF32Pad;
+    ldh = H + kF32Pad;
     lds = C + 4;
     size_t off = 0;
     a = off; off += align128(sizeof(float) * kRows * lda);
     h = off; off += align128(sizeof(float) * kRows * ldh);
     s = off; off += align128(sizeof(float) * kRows * lds);
     c = off; off += align128(sizeof(float) * kRows * (kBN + 4));
-    b = off; off += bs_bytes<float>();
+    b = off; off += bs_bytes();
     total = off;
   }
 };
@@ -287,6 +288,12 @@ __device__ __forceinline__ void bulk_wait_read() {
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
+// order this thread's completed bulk-copy writes to global memory (the async
+// proxy) before its later generic accesses, and so before a barrier after
+// which other blocks read them (the depth-resident kernel's next phase)
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
 
 // A wgmma shared-memory operand at shared address `at` in the 128-byte
 // swizzled layout: rows of 128 bytes, 8-row atoms of 1024 bytes (1024-byte
@@ -334,6 +341,26 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t 
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -367,14 +394,107 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_
 }
 
 
+constexpr int kSlabBytes = 32768;  // a weight slab
+constexpr int kAtom = 1024;        // an 8-row swizzle atom of 128-byte rows
+
+// A ring of kSlabs weight slabs of kBytes in shared memory, fed by the
+// tensor memory accelerator and read by both warpgroups' wgmmas. Slab l of
+// a walk (l = 0, 1, ... below `total`) lands in stage l % kSlabs and
+// completes on that stage's full barrier; each warpgroup arrives on its
+// empty barrier once its wgmmas reading the slab have retired, and thread 0
+// then refills the stage with slab l + kSlabs, so warpgroup 0 waits on
+// warpgroup 1's products there (the two share the SM's tensor cores, and a
+// non-blocking refill measured slower). `issue(l, dst, bar)` starts slab l's
+// copies into shared address dst, completing on bar; it runs on thread 0.
+template <int kSlabs, int kBytes = kSlabBytes>
+struct WeightRing {
+  uint32_t full;      // full[s] at full + 8 s, empty[s] at full + 8 (kSlabs + s)
+  uint32_t slabs;     // stage s at slabs + s * kBytes
+  uint32_t total;     // slabs in the walk
+  uint32_t released;  // slabs before this one are released by this thread
+
+  __device__ __forceinline__ uint32_t slab(uint32_t l) const {
+    return slabs + (l % kSlabs) * kBytes;
+  }
+  // Every thread of the block: barriers at bars (2 kSlabs x 8 bytes), the
+  // stages at ring; thread 0 starts the first kSlabs slabs.
+  template <typename Issue>
+  __device__ __forceinline__ void start(unsigned char* bars, unsigned char* ring, uint32_t n,
+                                        Issue&& issue) {
+    full = smem_addr(bars);
+    slabs = smem_addr(ring);
+    total = n;
+    released = 0;
+    fence_proxy_async();  // earlier generic writes to this memory before the TMA's
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kSlabs; ++s) {
+        mbar_init(full + 8 * s, 1);
+        mbar_init(full + 8 * (kSlabs + s), 2);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (uint32_t l = 0; l < kSlabs && l < total; ++l) issue(l, slab(l), full + 8 * (l % kSlabs));
+    __syncwarp();
+  }
+  // wait for slab l
+  __device__ __forceinline__ void acquire(uint32_t l) const {
+    mbar_wait(full + 8 * (l % kSlabs), (l / kSlabs) & 1);
+    __syncwarp();  // the wgmma instructions that follow are warp-aligned
+  }
+  // Slabs before l have retired on this warpgroup: one arrival from each;
+  // thread 0 then refills each freed stage with the slab kSlabs further on,
+  // once both warpgroups have arrived.
+  template <typename Issue>
+  __device__ __forceinline__ void release_upto(uint32_t l, Issue&& issue) {
+    for (; released < l; ++released) {
+      const uint32_t e = full + 8 * (kSlabs + released % kSlabs);
+      if (threadIdx.x % 128 == 0) mbar_arrive(e);
+      if (threadIdx.x == 0 && released + kSlabs < total) {
+        mbar_wait(e, (released / kSlabs) & 1);
+        const uint32_t n = released + kSlabs;
+        issue(n, slab(n), full + 8 * (n % kSlabs));
+      }
+    }
+    __syncwarp();
+  }
+  // Every thread, once every wait on the ring is done: the barriers are
+  // invalidated and the memory is free for the caller on return.
+  __device__ __forceinline__ void stop() const {
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int s = 0; s < 2 * kSlabs; ++s) mbar_inval(full + 8 * s);
+    __syncthreads();
+  }
+};
+
+// A row's two partial sums x, y (rows r0 and r0 + 8 of a 64-row wgmma
+// fragment, over this warpgroup's columns) summed over the quad, then over
+// both warpgroups through st (2 x 64 floats): the full-row sums, on every
+// thread. One block barrier.
+__device__ __forceinline__ void wg_row_sums(float& x, float& y, float* st, int wg, int r0,
+                                            int lane) {
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    x += __shfl_xor_sync(0xffffffffu, x, o);
+    y += __shfl_xor_sync(0xffffffffu, y, o);
+  }
+  if (lane % 4 == 0) {
+    st[wg * 64 + r0] = x;
+    st[wg * 64 + r0 + 8] = y;
+  }
+  __syncthreads();
+  x = st[r0] + st[64 + r0];
+  y = st[r0 + 8] + st[64 + r0 + 8];
+}
+
 // ------------------------------------------------------------------ bf16
 constexpr int kMlpRows = 64;    // token rows a tile: one wgmma M
 constexpr int kHid = 128;       // hidden columns a chunk: 64 a warpgroup
 constexpr int kW1Rows = 128;    // a W1 slab: 128 x 128 (two 64-column TMA boxes)
 constexpr int kW2Rows = 32;     // a W2 slab: 32 x C (C / 64 TMA boxes)
 constexpr int kRing = 4;        // slabs in the ring
-constexpr int kSlabBytes = 32768;
-constexpr int kAtom = 1024;     // an 8-row swizzle atom of 128-byte rows
 
 template <>
 struct MlpLayout<bf16> {
@@ -440,11 +560,12 @@ __device__ __forceinline__ void mlp_store_h(const float (&acc1)[32], const float
 // in kernel parameter space (`encode_mlp_maps`). kWide (C == 512): fc2 as
 // one m64n256k16 a step over the warpgroup's 256 columns, reading h once;
 // else C / 128 m64n64k16 (one instruction form a kernel: ptxas serializes
-// the wgmma pipeline when one accumulator meets two). kAsyncStore: the
-// output rows are staged in shared memory and written by bulk copies that
-// complete under the next tile's products; else stored from the registers
-// (the depth-resident kernel, whose phase ends with its one tile a block).
-template <bool kTranspose, bool kWide, bool kAsyncStore>
+// the wgmma pipeline when one accumulator meets two). The output rows are
+// staged in shared memory and written by bulk copies that complete under the
+// next tile's products; on return they are complete and ordered before the
+// caller's later accesses (the depth-resident kernel's next phase reads them
+// from other blocks after a grid barrier).
+template <bool kTranspose, bool kWide>
 __device__ __forceinline__ void mlp_walk_bf16(const MlpArgs<bf16>& a, const CUtensorMap* tw1,
                                               const CUtensorMap* tw2, const MlpLayout<bf16>& L,
                                               unsigned char* smem_raw, int n_tiles) {
@@ -462,10 +583,8 @@ __device__ __forceinline__ void mlp_walk_bf16(const MlpArgs<bf16>& a, const CUte
   unsigned char* xs = base + L.x;
   unsigned char* hs = base + L.h;
   float* stats = reinterpret_cast<float*>(base + L.stats);
-  // the ring's barriers: full[s] at full + 8 s, empty[s] at empty + 8 s
-  const uint32_t full = smem_addr(base + L.bars), empty = full + 8 * kRing;
   // shared-space addresses of the wgmma operands
-  const uint32_t xs_at = smem_addr(xs), hs_at = smem_addr(hs), ring_at = smem_addr(base + L.ring);
+  const uint32_t xs_at = smem_addr(xs), hs_at = smem_addr(hs);
 
   const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
   const int r0 = 16 * (tid % 128 / 32) + lane / 4;  // this thread's rows r0, r0 + 8
@@ -474,10 +593,8 @@ __device__ __forceinline__ void mlp_walk_bf16(const MlpArgs<bf16>& a, const CUte
   // slab l of the walk: chunk j = l % per_tile / per_chunk; the first nw1 of
   // a chunk are W1's rows 128 s.., columns 128 j..; the rest W2's rows
   // 128 j + 32 s.., all columns
-  auto issue = [&](uint32_t l) {
+  auto issue = [&](uint32_t l, uint32_t dst, uint32_t bar) {
     const int q = (int)(l % per_tile), j = q / per_chunk, s = q % per_chunk;
-    const uint32_t bar = full + 8 * (l % kRing);
-    const uint32_t dst = ring_at + (l % kRing) * kSlabBytes;
     if (s < nw1) {
       mbar_expect_tx(bar, kW1Rows * kHid * sizeof(bf16));
       tma_load_3d(dst, tw1, bar, kHid * j, kW1Rows * s, a.depth);
@@ -489,39 +606,8 @@ __device__ __forceinline__ void mlp_walk_bf16(const MlpArgs<bf16>& a, const CUte
                     kHid * j + kW2Rows * (s - nw1), a.depth);
     }
   };
-  // Slabs before l have retired on this warpgroup: one arrival from each;
-  // thread 0 then refills each freed stage with the slab kRing further on,
-  // once both warpgroups have arrived.
-  uint32_t released = 0;
-  auto release_upto = [&](uint32_t l) {
-    for (; released < l; ++released) {
-      const uint32_t e = empty + 8 * (released % kRing);
-      if (tid % 128 == 0) mbar_arrive(e);
-      if (tid == 0 && released + kRing < total) {
-        mbar_wait(e, (released / kRing) & 1);
-        issue(released + kRing);
-      }
-    }
-    __syncwarp();
-  };
-  // wait for slab l
-  auto acquire = [&](uint32_t l) {
-    mbar_wait(full + 8 * (l % kRing), (l / kRing) & 1);
-    __syncwarp();  // the wgmma instructions that follow are warp-aligned
-  };
-
-  fence_proxy_async();  // earlier generic writes to this memory before the TMA's
-  if (tid == 0) {
-    for (int s = 0; s < kRing; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 2);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (tid == 0)
-    for (uint32_t l = 0; l < kRing && l < total; ++l) issue(l);
-  __syncwarp();
+  WeightRing<kRing> ring;
+  ring.start(base + L.bars, base + L.ring, total, issue);
   mlp_load_rows(xs, a.x, first, M, C);
 
   uint32_t next = 0;  // the next slab to consume
@@ -540,8 +626,8 @@ __device__ __forceinline__ void mlp_walk_bf16(const MlpArgs<bf16>& a, const CUte
 #pragma unroll
       for (int q = 0; q < 32; ++q) acc1[q] = 0.f;
       for (int s = 0; s < nw1; ++s, ++next) {
-        acquire(next);
-        const uint32_t w = ring_at + (next % kRing) * kSlabBytes + wg * (kW1Rows * 128);
+        ring.acquire(next);
+        const uint32_t w = ring.slab(next) + wg * (kW1Rows * 128);
         fence_acc(acc1);
         wgmma_fence();
 #pragma unroll
@@ -553,11 +639,11 @@ __device__ __forceinline__ void mlp_walk_bf16(const MlpArgs<bf16>& a, const CUte
         wgmma_commit();
         fence_acc(acc1);
         wgmma_wait<1>();
-        release_upto(next);
+        ring.release_upto(next, issue);
       }
       wgmma_wait<0>();
       fence_acc(acc1);
-      release_upto(next);
+      ring.release_upto(next, issue);
       // + b1, the activation, bf16, into this warpgroup's 64 columns of h
       unsigned char* hb = hs + (j & 1) * (kMlpRows * kHid * 2) + wg * (kMlpRows * 128);
       const float* b1 = a.b1 + kHid * j + 64 * wg;
@@ -574,8 +660,8 @@ __device__ __forceinline__ void mlp_walk_bf16(const MlpArgs<bf16>& a, const CUte
       // fc2: this warpgroup's columns of out += h_chunk @ W2[chunk, :]
       const uint32_t hc = hs_at + (j & 1) * (kMlpRows * kHid * 2);
       for (int s = 0; s < kHid / kW2Rows; ++s, ++next) {
-        acquire(next);
-        const uint32_t w = ring_at + (next % kRing) * kSlabBytes + wg * nq * (kW2Rows * 128);
+        ring.acquire(next);
+        const uint32_t w = ring.slab(next) + wg * nq * (kW2Rows * 128);
         fence_acc(acc2);
         wgmma_fence();
 #pragma unroll
@@ -596,12 +682,12 @@ __device__ __forceinline__ void mlp_walk_bf16(const MlpArgs<bf16>& a, const CUte
         wgmma_commit();
         fence_acc(acc2);
         wgmma_wait<1>();
-        release_upto(next);
+        ring.release_upto(next, issue);
       }
     }
     wgmma_wait<0>();
     fence_acc(acc2);
-    release_upto(next);
+    ring.release_upto(next, issue);
 
     // epilogue: + b2, DropPath, + res; LayerNorm over the C columns of a row
     // (this warpgroup holds C / 2 of them); the store
@@ -641,22 +727,7 @@ __device__ __forceinline__ void mlp_walk_bf16(const MlpArgs<bf16>& a, const CUte
           sb += d[2] + d[3];
         }
       }
-    // a row's sum over the quad, then over both warpgroups
-    auto row_sums = [&](float& x, float& y, float* st) {
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        x += __shfl_xor_sync(0xffffffffu, x, o);
-        y += __shfl_xor_sync(0xffffffffu, y, o);
-      }
-      if (lane % 4 == 0) {
-        st[wg * kMlpRows + r0] = x;
-        st[wg * kMlpRows + r0 + 8] = y;
-      }
-      __syncthreads();
-      x = st[r0] + st[kMlpRows + r0];
-      y = st[r0 + 8] + st[kMlpRows + r0 + 8];
-    };
-    row_sums(sa, sb, stats);
+    wg_row_sums(sa, sb, stats, wg, r0, lane);
     const float mua = sa / C, mub = sb / C;
     sa = sb = 0.f;
 #pragma unroll
@@ -669,15 +740,13 @@ __device__ __forceinline__ void mlp_walk_bf16(const MlpArgs<bf16>& a, const CUte
           sb += (d[2] - mub) * (d[2] - mub) + (d[3] - mub) * (d[3] - mub);
         }
       }
-    row_sums(sa, sb, stats + 2 * kMlpRows);
+    wg_row_sums(sa, sb, stats + 2 * kMlpRows, wg, r0, lane);
     const float rsa = rsqrtf(sa / C + a.eps), rsb = rsqrtf(sb / C + a.eps);
     // the staged rows: pitch 2C + 16 bytes spreads a warp's 8 rows over the
     // banks; the last rows reach into h's first buffer, free here
     const int pitch = 2 * C + 16;
-    bf16* outa = kAsyncStore ? reinterpret_cast<bf16*>(xs + r0 * pitch)
-                             : a.out + mlp_out_row(va ? ta : 0, a.D1, a.D2, kTranspose) * C;
-    bf16* outb = kAsyncStore ? reinterpret_cast<bf16*>(xs + (r0 + 8) * pitch)
-                             : a.out + mlp_out_row(vb ? tb : 0, a.D1, a.D2, kTranspose) * C;
+    bf16* outa = reinterpret_cast<bf16*>(xs + r0 * pitch);
+    bf16* outb = reinterpret_cast<bf16*>(xs + (r0 + 8) * pitch);
 #pragma unroll
     for (int q = 0; q < 4; ++q)
       if (q < nq) {
@@ -687,62 +756,42 @@ __device__ __forceinline__ void mlp_walk_bf16(const MlpArgs<bf16>& a, const CUte
           const int c = wg * (C / 2) + 64 * q + 8 * jj + cq;
           const float2 s = *reinterpret_cast<const float2*>(a.lns + c);
           const float2 b = *reinterpret_cast<const float2*>(a.lnb + c);
-          if (kAsyncStore || va)
-            *reinterpret_cast<__nv_bfloat162*>(outa + c) =
-                __floats2bfloat162_rn((d[0] - mua) * rsa * s.x + b.x, (d[1] - mua) * rsa * s.y + b.y);
-          if (kAsyncStore || vb)
-            *reinterpret_cast<__nv_bfloat162*>(outb + c) =
+          *reinterpret_cast<__nv_bfloat162*>(outa + c) =
+              __floats2bfloat162_rn((d[0] - mua) * rsa * s.x + b.x, (d[1] - mua) * rsa * s.y + b.y);
+          *reinterpret_cast<__nv_bfloat162*>(outb + c) =
                 __floats2bfloat162_rn((d[2] - mub) * rsb * s.x + b.x, (d[3] - mub) * rsb * s.y + b.y);
         }
       }
-    if constexpr (kAsyncStore) {
-      fence_proxy_async();
-      __syncthreads();  // the tile's rows are staged
-      const int t = tile * kMlpRows + tid;
-      if (tid < kMlpRows && t < M)
-        bulk_store(a.out + mlp_out_row(t, a.D1, a.D2, kTranspose) * C,
-                   xs_at + tid * pitch, 2 * C);
-    }
+    fence_proxy_async();
+    __syncthreads();  // the tile's rows are staged
+    const int t = tile * kMlpRows + tid;
+    if (tid < kMlpRows && t < M)
+      bulk_store(a.out + mlp_out_row(t, a.D1, a.D2, kTranspose) * C, xs_at + tid * pitch, 2 * C);
     if (i + 1 < mine) {
-      if (kAsyncStore && tid < kMlpRows) bulk_wait_read();
+      if (tid < kMlpRows) bulk_wait_read();
       __syncthreads();  // every read of res and of the staged rows is done
       mlp_load_rows(xs, a.x, tile + gridDim.x, M, C);
     }
   }
-  if (kAsyncStore && tid < kMlpRows) bulk_wait();
-  __syncthreads();  // every wait on the ring is done
-  if (tid == 0)
-    for (int s = 0; s < 2 * kRing; ++s) mbar_inval(full + 8 * s);
-  __syncthreads();  // the caller may reuse the memory
-}
-
-// The bf16 walk as a function of its own: the depth-resident kernel calls
-// it between its other phases, whose registers it then does not share.
-template <bool kTranspose, bool kWide>
-__device__ __noinline__ void mlp_walk_bf16_call(const MlpArgs<bf16>& a, const CUtensorMap* tw1,
-                                                const CUtensorMap* tw2,
-                                                const MlpLayout<bf16>& L,
-                                                unsigned char* smem, int n_tiles) {
-  mlp_walk_bf16<kTranspose, kWide, false>(a, tw1, tw2, L, smem, n_tiles);
+  if (tid < kMlpRows) {
+    bulk_wait();
+    fence_proxy_async_global();
+  }
+  ring.stop();  // the caller may reuse the memory
 }
 
 // Whether the bf16 walk takes its kWide form at C channels.
 __host__ __device__ constexpr bool mlp_wide(int C) { return C == 512; }
 
-// The walk of either type: bf16 as above (kCall: through mlp_walk_bf16_call,
-// kWide picked at run time; else kWide as given, which the caller matches
-// to mlp_wide(C)), fp32 one 16-row tile at a time (tw1, tw2 unused).
-template <typename T, bool kTranspose, bool kCall = false, bool kWide = false>
+// The walk of either type: bf16 as above (kWide as given, which the caller
+// matches to mlp_wide(C)), fp32 one 16-row tile at a time (tw1, tw2 and
+// kWide unused).
+template <typename T, bool kTranspose, bool kWide = false>
 __device__ __forceinline__ void mlp_walk(const MlpArgs<T>& a, const CUtensorMap* tw1,
                                          const CUtensorMap* tw2, const MlpLayout<T>& L,
                                          unsigned char* smem, int n_tiles) {
-  if constexpr (std::is_same<T, bf16>::value && kCall) {
-    if (mlp_wide(a.C))
-      mlp_walk_bf16_call<kTranspose, true>(a, tw1, tw2, L, smem, n_tiles);
-    else
-      mlp_walk_bf16_call<kTranspose, false>(a, tw1, tw2, L, smem, n_tiles);
-  } else if constexpr (std::is_same<T, bf16>::value) {
-    mlp_walk_bf16<kTranspose, kWide, true>(a, tw1, tw2, L, smem, n_tiles);
+  if constexpr (std::is_same<T, bf16>::value) {
+    mlp_walk_bf16<kTranspose, kWide>(a, tw1, tw2, L, smem, n_tiles);
   } else {
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
       mlp_tile_f32<kTranspose>(a, L, smem, t);

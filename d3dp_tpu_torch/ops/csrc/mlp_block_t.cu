@@ -50,27 +50,19 @@ struct MlpParams {
 template <typename T, bool kTranspose, bool kWide>
 __global__ void __launch_bounds__(kThreads) mlp_block_kernel(const __grid_constant__ MlpParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  mlp_walk<T, kTranspose, false, kWide>(p.a, &p.tw1, &p.tw2, p.L, smem, p.n_tiles);
+  mlp_walk<T, kTranspose, kWide>(p.a, &p.tw1, &p.tw2, p.L, smem, p.n_tiles);
 }
 
 template <typename T, bool kTranspose, bool kWide>
 cudaError_t launch_mlp(const MlpParams<T>& p, cudaStream_t stream) {
   auto kernel = mlp_block_kernel<T, kTranspose, kWide>;
   const int smem = (int)p.L.total;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
   int blocks = p.n_tiles;
-  if constexpr (std::is_same<T, bf16>::value) {
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-      return e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
-        cudaSuccess)
-      return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    blocks = std::min(blocks, per_sm * sms);
-  }
+  const cudaError_t e =
+      std::is_same<T, bf16>::value
+          ? persistent_grid(kernel, smem, p.n_tiles, &blocks)
+          : cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
   kernel<<<blocks, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }

@@ -27,8 +27,8 @@
 // depth in VMEM: 4.2 MB in bf16, plus its scratch. A Hopper block has 227 KB
 // of shared memory, so the stream cannot stay in one block, and blocks
 // cannot hand a row from one depth to the next in order. Here the whole
-// grid works on one group of rows at a time and the residual stream stays
-// in device memory, small enough to stay in the 50 MB L2:
+// grid works on one group of rows at a time, the residual stream and the
+// scratch in device memory:
 //   * one cooperative launch (`cudaLaunchCooperativeKernel`) of as many
 //     256-thread blocks as can be co-resident, one dynamic shared-memory
 //     size, the largest any phase needs (one block per SM);
@@ -37,30 +37,40 @@
 //     ln_qkv, attend, proj_ln2 and the MLP for the spatial block, the tpos
 //     add (depth 0 only), then the same four for the temporal block. Every
 //     block reaches every barrier: no block returns early;
-//   * the tile bodies are the level-4 kernels' own device functions
-//     (`ln_qkv_tile`, `attend_tile`, `proj_ln2_tile`, the MLP's `mlp_walk`)
-//     with the same options, in the same order with the same roundings, so
-//     level 5 computes what level 4 computes, bit for bit. The attend phase
-//     walks (sequence, head) tiles: at F > 32 frames `attend_tile` picks the
-//     tensor-core tile of the level-4 launch (its key-fragment count from
-//     the layout), whose rows' arithmetic does not depend on the walk. The
-//     MLP phase runs the standalone launch's walk (64-row wgmma tiles in
-//     bf16, its TMA ring set up and torn down inside the phase, the weight
-//     maps over each kind's depth stack, read at depth d), called as a
-//     function of its own (`mlp_walk_bf16_call`: inlined among K9's other
-//     phases it spilled) and storing from registers; a row's result does
-//     not depend on which block takes its tile;
-//   * rows go in groups of G, chosen by the caller so that the group's
-//     stream and scratch (stream, qkv, o, x2, y2 and the relayout buffer:
-//     8 x F*J*C elements a row) fit in L2; the caller allocates the scratch
-//     for G rows, and the kernel allocates nothing.
-// Each grid barrier costs microseconds; at the eval shape a launch passes
-// 40 groups x 65 of them.
+//   * the tile bodies are the level-4 kernels' own device functions with
+//     the same options, in the same order with the same roundings, so level
+//     5 computes what level 4 computes, bit for bit. In bf16 the GEMM phases
+//     run the standalone launches' walks (stage.cuh: ln_qkv, proj_ln2;
+//     mlp.cuh: the MLP): wgmma tiles with the weights streamed by TMA (the
+//     maps over each kind's depth stacks, read at depth d) and the outputs
+//     written by TMA or bulk stores, complete and fenced before the barrier.
+//     They are inlined: as functions of their own they ran slower a tile on
+//     the H100, their saved registers and operands in local memory beside an
+//     L1 the shared memory leaves small. The attend phase at F > 32 frames
+//     runs the level-4 launch's double-buffered tensor-core walk with S in
+//     parts; at 32 or fewer (spatial), the shared-memory body a tile a warp,
+//     eight tiles in flight a block (one tile a block waits on its loads).
+//     A row's arithmetic does not depend on which block or warp takes its
+//     tile;
+//   * rows go in groups of G, chosen by the caller so that every GEMM phase
+//     has several waves of 64-row tiles on the SMs (`group_rows`): a group
+//     of one row gives each phase at most one tile a block, half the SMs
+//     idle in the MLP, and a grid barrier for every tile's latency. The
+//     group's stream and scratch
+//     then exceed L2 and go through device memory (about 2.5 GB a stage at
+//     the eval shape, 12 ms a forward at 3.35 TB/s, below the products'
+//     time). The caller allocates the scratch for G rows; the kernel
+//     allocates nothing.
+// Each grid barrier costs microseconds; at the eval shape a launch passes 2
+// groups x 65 of them, together about 3% of the launch (the waits measured
+// by a build with -DD3DP_PHASE_CLOCKS, which sums, per phase, the cycles
+// each block spends in its tiles and waiting at the barrier after them:
+// `d3dp_resident_phase_clocks`), so the phases keep their barriers.
 #include <cooperative_groups.h>
 
 #include <algorithm>
 
-#include "mlp.cuh"
+#include "stage.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -79,7 +89,8 @@ struct KindWeights {
   const float* b1;    // (D, H)
   const T* w2;        // (D, H, C)
   const float* vec;   // (D, 6, C): bp, ln1s, ln1b, ln2s, ln2b, b2
-  CUtensorMap tw1, tw2;  // bf16: TMA maps over w1 and w2 (encode_mlp_maps)
+  // bf16: TMA maps over wqkv, wp (`encode_weight_map`), w1 and w2 (`encode_mlp_maps`)
+  CUtensorMap twqkv, twp, tw1, tw2;
 };
 
 template <typename T>
@@ -97,95 +108,178 @@ struct ResidentArgs {
   AttnOpts ao;           // the attention's lab switches (no mask)
   int gelu;              // the MLP's activation, kGelu*
   MlpLayout<T> Lm;
+  QkvLayout Lq;          // bf16: the stage walks' layouts
+  ProjLayout Lp;
+  CUtensorMap tq, tx2, ty2;  // bf16: TMA maps over the qkv, x2 and y2 scratch
 };
+
+// Per-phase clocks (a build with -DD3DP_PHASE_CLOCKS): for each phase
+// (spatial ln_qkv, attend, proj_ln2, MLP; the tpos add; the temporal four),
+// the SM cycles thread 0 of each block spends in its own tiles and waiting
+// at the grid barrier after them, summed over blocks, groups and depths.
+constexpr int kPhases = 9;
+#ifdef D3DP_PHASE_CLOCKS
+__device__ unsigned long long g_phase_clocks[kPhases][2];
+#endif
+
+// The grid barrier closing phase `phase`; t: the clock at the phase's start,
+// advanced to the next one's.
+__device__ __forceinline__ void phase_end(cg::grid_group& grid, int phase, long long& t) {
+#ifdef D3DP_PHASE_CLOCKS
+  const long long t1 = clock64();
+  grid.sync();
+  const long long t2 = clock64();
+  if (threadIdx.x == 0) {
+    atomicAdd(&g_phase_clocks[phase][0], (unsigned long long)(t1 - t));
+    atomicAdd(&g_phase_clocks[phase][1], (unsigned long long)(t2 - t1));
+  }
+  t = t2;
+#else
+  (void)phase;
+  (void)t;
+  grid.sync();
+#endif
+}
 
 // One block of the trunk at depth d on the group's G*D1 sequences of N
 // tokens, h: the attention stage into x2 and y2, then the MLP with the
 // shared norm (lns, lnb), written relayouted to dst as (G, N, D1, C).
-// Four grid barriers.
-template <typename T>
+// Four grid barriers, phases p0 .. p0 + 3. kWide: bf16 at C = 512
+// (`mlp_wide`), the walks' m64n256k16 form.
+template <typename T, bool kWide>
 __device__ __forceinline__ void block_phases(const ResidentArgs<T>& a, const KindWeights<T>& w,
                                              int d, const T* h, int G, int D1, int N,
                                              const AttnLayout& L, const float* lns,
                                              const float* lnb, T* dst, unsigned char* smem,
-                                             cg::grid_group& grid) {
-  constexpr int BM = Cfg<T>::BM;
+                                             cg::grid_group& grid, int p0, long long& t) {
+  constexpr bool f32 = std::is_same<T, float>::value;
   const int C = a.C, C3 = 3 * C, H = a.H;
-  const int R = G * D1, M = R * N, n_rows = cdiv(M, BM);
+  const int R = G * D1, M = R * N;
   const float* vec = w.vec + (size_t)d * 6 * C;
-  for (int t = blockIdx.x; t < n_rows; t += gridDim.x) {
-    ln_qkv_tile<T>(h, w.wqkv + (size_t)d * C * C3, w.bqkv + (size_t)d * C3, vec + C, vec + 2 * C,
-                   a.qkv, M, C, a.eps, smem, t);
-    __syncthreads();  // the next tile overwrites shared memory
+  if constexpr (f32) {
+    for (int i = blockIdx.x; i < cdiv(M, kF32Rows); i += gridDim.x) {
+      ln_qkv_tile(h, w.wqkv + (size_t)d * C * C3, w.bqkv + (size_t)d * C3, vec + C, vec + 2 * C,
+                  a.qkv, M, C, a.eps, smem, i);
+      __syncthreads();  // the next tile overwrites shared memory
+    }
+  } else {
+    const QkvArgs q{h, w.bqkv + (size_t)d * C3, vec + C, vec + 2 * C, d, M, C, a.eps};
+    ln_qkv_walk_bf16<false>(q, &w.twqkv, &a.tq, a.Lq, smem, cdiv(M, kQkvRows));
   }
-  grid.sync();
-  const int nqb = cdiv(N, L.QB), n_att = R * a.heads * nqb;
-  for (int t = blockIdx.x; t < n_att; t += gridDim.x) {
-    attend_tile<T>(a.qkv, a.qkv + C, a.qkv + 2 * C, C3, a.o, N, C, a.scale, L, a.ao, smem,
-                   t % R, (t / R) % a.heads, t / (R * a.heads));
-    __syncthreads();
+  phase_end(grid, p0, t);
+  const T* q = a.qkv;
+  if constexpr (f32) {
+    const int n_att = R * a.heads * cdiv(N, L.QB);
+    for (int i = blockIdx.x; i < n_att; i += gridDim.x) {
+      attend_tile_smem<T>(q, q + C, q + 2 * C, C3, a.o, N, C, a.scale, L, a.ao, smem, i % R,
+                          (i / R) % a.heads, i / (R * a.heads));
+      __syncthreads();
+    }
+  } else if (L.nkf == 0) {
+    // the shared-memory body (N <= 32: one query block) a tile a warp, each
+    // in its own L.total bytes: a block's tile alone would leave the SM
+    // waiting on its loads
+    const int warp = threadIdx.x / 32, n_att = R * a.heads;
+    unsigned char* ws = smem + warp * align128(L.total);
+    for (int i = blockIdx.x * kWarps + warp; i < n_att; i += gridDim.x * kWarps) {
+      attend_tile_smem<T, 32>(q, q + C, q + 2 * C, C3, a.o, N, C, a.scale, L, a.ao, ws, i % R,
+                              i / R, 0);
+      __syncwarp();  // the next tile overwrites the warp's shared memory
+    }
+  } else if (L.nkf == 4) {
+    attend_mma_walk<4, kResidentFrags>(q, q + C, q + 2 * C, 0, C3, a.o, R, N, C, a.heads,
+                                       a.scale, L, a.ao, smem);
+  } else if (L.nkf == 8) {
+    attend_mma_walk<8, kResidentFrags>(q, q + C, q + 2 * C, 0, C3, a.o, R, N, C, a.heads,
+                                       a.scale, L, a.ao, smem);
+  } else {
+    attend_mma_walk<16, kResidentFrags>(q, q + C, q + 2 * C, 0, C3, a.o, R, N, C, a.heads,
+                                        a.scale, L, a.ao, smem);
   }
-  grid.sync();
-  for (int t = blockIdx.x; t < n_rows; t += gridDim.x) {
-    proj_ln2_tile<T>(a.o, h, w.wp + (size_t)d * C * C, vec, vec + 3 * C, vec + 4 * C, a.x2, a.y2,
-                     M, C, a.eps, smem, t);
-    __syncthreads();
+  phase_end(grid, p0 + 1, t);
+  if constexpr (f32) {
+    for (int i = blockIdx.x; i < cdiv(M, kF32Rows); i += gridDim.x) {
+      proj_ln2_tile(a.o, h, w.wp + (size_t)d * C * C, vec, vec + 3 * C, vec + 4 * C, a.x2, a.y2,
+                    M, C, a.eps, smem, i);
+      __syncthreads();
+    }
+  } else {
+    const ProjArgs p{a.o, h, vec, vec + 3 * C, vec + 4 * C, nullptr, 1, d, M, C, a.eps, true};
+    proj_ln2_walk_bf16<kWide>(p, &w.twp, &a.tx2, &a.ty2, a.Lp, smem, cdiv(M, kStageRows));
   }
-  grid.sync();
+  phase_end(grid, p0 + 2, t);
   const MlpArgs<T> m{a.y2, a.x2, w.w1 + (size_t)d * C * H, w.b1 + (size_t)d * H,
                      w.w2 + (size_t)d * H * C, vec + 5 * C, lns, lnb, dst, nullptr, d, D1,
                      N, M, C, H, a.gelu, a.eps};
-  mlp_walk<T, true, true>(m, &w.tw1, &w.tw2, a.Lm, smem, cdiv(M, MlpLayout<T>::kRows));
-  grid.sync();
+  mlp_walk<T, true, kWide>(m, &w.tw1, &w.tw2, a.Lm, smem, cdiv(M, MlpLayout<T>::kRows));
+  phase_end(grid, p0 + 3, t);
 }
 
-template <typename T>
+template <typename T, bool kWide>
 __global__ void __launch_bounds__(kThreads) resident_kernel(const __grid_constant__ ResidentArgs<T> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
   const size_t row = (size_t)a.F * a.J * a.C;
+  long long t = 0;
+#ifdef D3DP_PHASE_CLOCKS
+  t = clock64();
+#endif
   for (int r0 = 0; r0 < a.B; r0 += a.G) {
     const int G = min(a.G, a.B - r0);
     T* stream = a.out + r0 * row;
     for (int d = 0; d < a.D; ++d) {
       // spatial: (G*F, J, C) in, (G, J, F, C) out to the relayout buffer
-      block_phases(a, a.sp, d, d == 0 ? a.x + r0 * row : stream, G, a.F, a.J, a.Ls, a.shared,
-                   a.shared + a.C, a.tbuf, smem, grid);
+      block_phases<T, kWide>(a, a.sp, d, d == 0 ? a.x + r0 * row : stream, G, a.F, a.J, a.Ls,
+                             a.shared, a.shared + a.C, a.tbuf, smem, grid, 0, t);
       if (d == 0) {
         // + tpos on the rounded MLP output, rounded again: the level-4
-        // flow's add of two compute-type tensors
-        const size_t n = (size_t)G * row;
+        // flow's add of two compute-type tensors, 16 bytes a thread
+        constexpr int kVec = 16 / sizeof(T);
+        const size_t n = (size_t)G * row / kVec;
         for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n;
              i += (size_t)gridDim.x * kThreads) {
-          const size_t c = i % a.C, f = (i / a.C) % a.F;
-          a.tbuf[i] = from_f<T>(to_f(a.tbuf[i]) + to_f(a.tpos[f * a.C + c]));
+          const size_t c = i * kVec % a.C, f = (i * kVec / a.C) % a.F;
+          uint4 u = reinterpret_cast<const uint4*>(a.tbuf)[i];
+          const uint4 p = *reinterpret_cast<const uint4*>(a.tpos + f * a.C + c);
+          T* v = reinterpret_cast<T*>(&u);
+          const T* pv = reinterpret_cast<const T*>(&p);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) v[e] = from_f<T>(to_f(v[e]) + to_f(pv[e]));
+          reinterpret_cast<uint4*>(a.tbuf)[i] = u;
         }
-        grid.sync();
+        phase_end(grid, 4, t);
       }
       // temporal: (G*J, F, C) in, (G, F, J, C) out to the stream
-      block_phases(a, a.tp, d, a.tbuf, G, a.J, a.F, a.Lt, a.shared + 2 * a.C,
-                   a.shared + 3 * a.C, stream, smem, grid);
+      block_phases<T, kWide>(a, a.tp, d, a.tbuf, G, a.J, a.F, a.Lt, a.shared + 2 * a.C,
+                             a.shared + 3 * a.C, stream, smem, grid, 5, t);
     }
   }
 }
 
-// The grid of the cooperative launch: as many blocks as can be co-resident
-// at the largest shared-memory size any phase needs.
-template <typename T>
-int resident_grid(int C, int H, int F, int J, int* blocks, size_t* smem) {
+// The grid of the cooperative launch of `kernel`: as many blocks as can be
+// co-resident at the largest shared-memory size any phase needs.
+template <typename T, typename Kernel>
+int resident_grid(Kernel kernel, int C, int H, int F, int J, int* blocks, size_t* smem) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
     return (int)e;
   if (!coop) return kNoCooperativeLaunch;
-  *smem = std::max({ln_qkv_smem<T>(C), proj_ln2_smem<T>(C), MlpLayout<T>(C, H).total,
-                    attn_layout<T>(J).total, attn_layout<T>(F).total});
-  if ((e = cudaFuncSetAttribute(resident_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  constexpr bool f32 = std::is_same<T, float>::value;
+  // the attend phases: a tile a block (fp32), a tile a warp (bf16's
+  // shared-memory body) or the double-buffered tensor-core walk
+  auto attend = [](const AttnLayout& L) {
+    return f32 ? L.total : L.nkf == 0 ? kWarps * align128(L.total) : 2 * L.total;
+  };
+  *smem = std::max({f32 ? ln_qkv_smem(C) : QkvLayout(C).total,
+                    f32 ? proj_ln2_smem(C) : ProjLayout(C).total, MlpLayout<T>(C, H).total,
+                    attend(attn_layout<T>(J)), attend(attn_layout<T>(F))});
+  if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)*smem)) != cudaSuccess)
     return (int)e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, resident_kernel<T>, kThreads,
-                                                         *smem)) != cudaSuccess)
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, *smem)) !=
+      cudaSuccess)
     return (int)e;
   if (per_sm < 1) return kNoOccupancy;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
@@ -196,8 +290,8 @@ int resident_grid(int C, int H, int F, int J, int* blocks, size_t* smem) {
 
 template <typename T>
 bool shape_ok(int B, int F, int J, int C, int H, int D, int heads, int G) {
-  return B >= 1 && F >= 1 && J >= 1 && F <= kMaxKeys && J <= kMaxKeys && C % 64 == 0 &&
-         C <= 1024 && heads * kHeadDim == C && mlp_shape_ok<T>(C, H) && D >= 1 && G >= 1 &&
+  return B >= 1 && F >= 1 && J >= 1 && F <= kMaxKeys && J <= kMaxKeys && stage_shape_ok<T>(C) &&
+         heads * kHeadDim == C && mlp_shape_ok<T>(C, H) && D >= 1 && G >= 1 &&
          G <= B && (long long)G * F * J * 3 * C <= 0x7fffffffLL;
 }
 
@@ -208,9 +302,13 @@ int resident(const void* const* ptrs, int B, int F, int J, int C, int H, int D, 
   if (!shape_ok<T>(B, F, J, C, H, D, heads, G) || (opts & kOptNoY2) || gelu < kGeluErf ||
       gelu > kGeluNone || (f32 && gelu == kGeluBf16))
     return (int)cudaErrorInvalidValue;
+  // bf16 at C = 512 runs the walks' m64n256k16 form
+  auto kernel = &resident_kernel<T, false>;
+  if constexpr (!f32)
+    if (mlp_wide(C)) kernel = &resident_kernel<T, true>;
   int blocks = 0;
   size_t smem = 0;
-  const int err = resident_grid<T>(C, H, F, J, &blocks, &smem);
+  const int err = resident_grid<T>(kernel, C, H, F, J, &blocks, &smem);
   if (err != 0) return err;
   auto kind = [&](int i) {
     return KindWeights<T>{(const T*)ptrs[i], (const float*)ptrs[i + 1], (const T*)ptrs[i + 2],
@@ -223,8 +321,19 @@ int resident(const void* const* ptrs, int B, int F, int J, int C, int H, int D, 
   a.sp = kind(2);
   a.tp = kind(9);
   if constexpr (!f32) {
-    int e = encode_mlp_maps(&a.sp.tw1, &a.sp.tw2, ptrs[5], ptrs[7], D, C, H);
-    if (!e) e = encode_mlp_maps(&a.tp.tw1, &a.tp.tw2, ptrs[12], ptrs[14], D, C, H);
+    for (int i : {2, 9}) {
+      KindWeights<T>& k = i == 2 ? a.sp : a.tp;
+      int e = encode_weight_map(&k.twqkv, ptrs[i], D, C, 3 * C, kQkvSlabRows);
+      if (!e) e = encode_weight_map(&k.twp, ptrs[i + 2], D, C, C, kProjSlabRows);
+      if (!e) e = encode_mlp_maps(&k.tw1, &k.tw2, ptrs[i + 3], ptrs[i + 5], D, C, H);
+      if (e) return e;
+    }
+    a.Lq = QkvLayout(C);
+    a.Lp = ProjLayout(C);
+    const int rows = G * F * J;  // the scratch's token rows
+    int e = encode_weight_map(&a.tq, ptrs[18], 1, rows, 3 * C, kStageRows);
+    if (!e) e = encode_weight_map(&a.tx2, ptrs[20], 1, rows, C, kStageRows);
+    if (!e) e = encode_weight_map(&a.ty2, ptrs[21], 1, rows, C, kStageRows);
     if (e) return e;
   }
   a.shared = (const float*)ptrs[16];
@@ -243,7 +352,7 @@ int resident(const void* const* ptrs, int B, int F, int J, int C, int H, int D, 
   a.gelu = gelu;
   a.Lm = MlpLayout<T>(C, H);
   void* args[] = {&a};
-  cudaError_t e = cudaLaunchCooperativeKernel((const void*)resident_kernel<T>, dim3(blocks),
+  cudaError_t e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
                                               dim3(kThreads), args, smem,
                                               static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
@@ -272,5 +381,16 @@ int d3dp_resident_f32(const void* const* ptrs, int B, int F, int J, int C, int H
                       void* stream) {
   return d3dp::resident<float>(ptrs, B, F, J, C, H, D, heads, G, opts, gelu, scale, eps, stream);
 }
+
+#ifdef D3DP_PHASE_CLOCKS
+// The per-phase sums since the last call, d3dp::kPhases x {in the tiles, at
+// the barrier} cycles, into out; the sums restart from 0.
+int d3dp_resident_phase_clocks(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, d3dp::g_phase_clocks, sizeof(d3dp::g_phase_clocks));
+  if (e != cudaSuccess) return (int)e;
+  static const unsigned long long zero[d3dp::kPhases][2] = {};
+  return (int)cudaMemcpyToSymbol(d3dp::g_phase_clocks, zero, sizeof(zero));
+}
+#endif
 
 }  // extern "C"

@@ -12,9 +12,16 @@ embedding after the first spatial pair, then the temporal pair.
 
 On a CUDA tensor it launches the hand-written kernel (`csrc/resident.cu`),
 one cooperative launch whose blocks walk the trunk's phases with grid
-barriers between them, on groups of rows whose stream and scratch fit in
-the card's L2 cache (`group_rows`, from the L2 size the device reports
-through `torch.cuda.get_device_properties`). On a CPU tensor it runs
+barriers between them, on groups of rows large enough that every GEMM phase
+(ln_qkv, proj_ln2, the MLP) has several waves of 64-row tiles on the SMs
+the device reports (`group_rows`): a group of one row gives each phase at
+most one tile a block, so each phase costs a tile's latency and a grid
+barrier, with half the SMs idle in the MLP. The group's stream and scratch
+go through device memory, about 2.5 GB a stage at the eval shape (12 ms a
+forward at 3.35 TB/s), below the time of the products.
+`resident_phase_clocks` runs the kernel once from a build that sums each
+phase's cycles in its tiles and at its barrier, the measure of what the
+barriers cost. On a CPU tensor it runs
 `resident_block_stack_plain`, the loop over depths of the level-4 ops'
 plain versions. There is no fallback between the two: a CUDA input the
 kernel does not take raises.
@@ -46,15 +53,22 @@ _SIG = [ctypes.POINTER(ctypes.c_void_p)] + [_I] * 10 + [_F, _F, _P]
 _FN = {torch.bfloat16: "d3dp_resident_bf16", torch.float32: "d3dp_resident_f32"}
 _ERRORS = {-1: "the device has no cooperative launch",
            -2: "the kernel's shared memory fits no block on an SM"}
-# (F, J, C)-sized buffers a row keeps in flight: the stream, qkv (3), o, x2,
-# y2 and the relayout buffer
-ROW_BUFFERS = 8
+# the token rows of a GEMM phase's tile, and the waves of them a group gives
+# the SMs
+TILE_ROWS = 64
+WAVES = 16
+# the phases the clocks build times, in the kernel's order
+PHASES = ("spatial ln_qkv", "spatial attend", "spatial proj_ln2", "spatial mlp", "tpos add",
+          "temporal ln_qkv", "temporal attend", "temporal proj_ln2", "temporal mlp")
 
 
-def group_rows(B, F, J, C, itemsize, l2_bytes):
-    """Rows the kernel takes at a time: as many as keep their stream and
-    scratch in L2, at least 1 and at most B."""
-    return max(1, min(B, l2_bytes // (ROW_BUFFERS * F * J * C * itemsize)))
+def group_rows(B, F, J, sms):
+    """Rows the kernel takes at a time: enough that each GEMM phase has
+    WAVES waves of TILE_ROWS-row tiles on `sms` SMs, at most B, with the
+    groups as even as their count allows."""
+    G = max(1, min(B, -(-WAVES * sms * TILE_ROWS // (F * J))))
+    n = -(-B // G)
+    return -(-B // n)
 
 
 def _kind(weights, d):
@@ -114,6 +128,37 @@ def resident_block_stack(x, tpos, spatial, temporal, shared, num_heads, scale, e
     if x.device.type == "cpu":
         return resident_block_stack_plain(x, tpos, spatial, temporal, shared, num_heads,
                                           scale, eps, opts=opts, gelu=gelu)
+    out = _launch(x, tpos, spatial, temporal, shared, num_heads, scale, eps, opts, gelu)
+    resident_block_stack.launches += 1
+    return out
+
+
+resident_block_stack.launches = 0
+
+
+def resident_phase_clocks(x, tpos, spatial, temporal, shared, num_heads, scale, eps,
+                          group=None):
+    """Run the kernel once on CUDA operands of `resident_block_stack` from
+    the build with per-phase clocks (-DD3DP_PHASE_CLOCKS) and return
+    {phase: (cycles in its tiles, cycles at the grid barrier after them)}
+    for each of PHASES, SM cycles of thread 0 of each block summed over the
+    blocks (one an SM), row groups and depths; group: the rows a group, in
+    place of `group_rows`'. Not a model path: a measurement of where K9's
+    time goes."""
+    opts, gelu = resident_options(x.dtype)
+    lib = _launch(x, tpos, spatial, temporal, shared, num_heads, scale, eps, opts, gelu,
+                  clocks=True, group=group)[1]
+    torch.cuda.synchronize(x.device)
+    sums = (ctypes.c_ulonglong * (2 * len(PHASES)))()
+    _build.check(lib.d3dp_resident_phase_clocks(sums), "resident_phase_clocks")
+    return {p: (sums[2 * i], sums[2 * i + 1]) for i, p in enumerate(PHASES)}
+
+
+def _launch(x, tpos, spatial, temporal, shared, num_heads, scale, eps, opts, gelu, clocks=False,
+            group=None):
+    """Check the operands and launch the kernel on groups of `group` rows (by
+    default `group_rows`'); with clocks, from the build with per-phase
+    clocks, returning (out, that library)."""
     if x.device.type != "cuda":
         raise ValueError(f"resident_block_stack: unsupported device {x.device}")
     if x.dim() != 4:
@@ -145,9 +190,12 @@ def resident_block_stack(x, tpos, spatial, temporal, shared, num_heads, scale, e
                 ((D, C, 3 * C), (D, 1, 3 * C), (D, C, C), (D, C, H), (D, 1, H), (D, H, C),
                  (D, 6, C))):
             _build.check_operand(t, f"{kind} {name}", dtype, shape, dev)
-    lib = _build.load("resident", {fn: _SIG for fn in _FN.values()})
-    G = group_rows(B, F, J, C, x.element_size(),
-                   torch.cuda.get_device_properties(dev).L2_cache_size)
+    sigs = {fn: _SIG for fn in _FN.values()}
+    if clocks:
+        lib = _build.load("resident_clocks", {**sigs, "d3dp_resident_phase_clocks": [_P]})
+    else:
+        lib = _build.load("resident", sigs)
+    G = group or group_rows(B, F, J, torch.cuda.get_device_properties(dev).multi_processor_count)
     with torch.cuda.device(dev):
         out = torch.empty_like(x)
         qkv = torch.empty((G * F * J, 3 * C), dtype=dt, device=dev)
@@ -160,8 +208,4 @@ def resident_block_stack(x, tpos, spatial, temporal, shared, num_heads, scale, e
     if err in _ERRORS:
         raise RuntimeError(f"resident_block_stack: {_ERRORS[err]}")
     _build.check(err, "resident_block_stack")
-    resident_block_stack.launches += 1
-    return out
-
-
-resident_block_stack.launches = 0
+    return (out, lib) if clocks else out

@@ -14,8 +14,14 @@ alone where the checkout has it; with `--mlp` the MLP kernels instead: K2
 (both relayouts) and K5 at the eval path's 40 x 243 x 17 token rows, K2-dp
 and K5-dp at the train step's 4 x 243 x 17, and beside each shape the
 library sequence computing the same function (F.linear, GELU, F.linear,
-layer_norm; timed here, never called by the port); with `--sample` also
-`D3DP.sample` at the eval config at fuse levels 4 and 5 (K1 and K2; K9).
+layer_norm; timed here, never called by the port); with `--stage` the
+stage kernels instead: K1 and K8 at the eval path's spatial and temporal
+shapes, each also split into its ln_qkv, attend and proj_ln2 launches
+(device time from `torch.profiler`), K6 likewise, K1-dp at the train
+step's shapes, the library stage (layer_norm, F.linear, SDPA, F.linear,
+the residual, layer_norm) beside each shape, and K9 on 40 rows at depth 8;
+with `--sample` (implied by `--stage`) also `D3DP.sample` at the eval
+config at fuse levels 4 and 5 (K1 and K2; K9).
 The inputs come from one seed, so every tree sees the same values. Prints one JSON line per child and a summary
 (per kernel and tree: the medians of every repetition), also written to
 `chiprun_out/time_attention.json`. Needs a CUDA card.
@@ -36,6 +42,7 @@ from d3dp_tpu_torch.ops import attention as A
 disable_tf32()
 ITERS = int(sys.argv[1])
 MLP = sys.argv[3] == "1"
+STAGE = sys.argv[4] == "1"
 C, HEADS, ROWS, BT, F, J = 512, 8, 40, 4, 243, 17
 bf = torch.bfloat16
 gen = torch.Generator(device="cuda").manual_seed(11)
@@ -45,11 +52,11 @@ def rn(*shape, s=1.0):
     return torch.randn(*shape, generator=gen, device="cuda") * s
 
 
-def ms(fn):
+def ms(fn, iters=ITERS):
     fn()
     torch.cuda.synchronize()
     out = []
-    for _ in range(ITERS):
+    for _ in range(iters):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
@@ -87,10 +94,78 @@ if MLP:
                 rr + Fn.linear(Fn.gelu(Fn.linear(xr, lw[0], lw[1])), lw[2], lw[3]), (C,),
                 lw[4], lw[5], 1e-6))
         del x, r, xr, rr
-for label, R, N in () if MLP else (("spatial", BT * F, J), ("temporal", BT * J, F)):
+if STAGE:
+    import torch.nn.functional as Fn
+    from torch.profiler import ProfilerActivity, profile
+    from d3dp_tpu_torch.ops import resident as RS
+
+    def split(fn, reps=5):
+        """Device ms per call of each of the stage's launches, by kernel name."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            for k in ("ln_qkv", "attend", "proj_ln2"):
+                if k in e.key and e.self_device_time_total > 0:
+                    out[k] = out.get(k, 0.0) + e.self_device_time_total / reps / 1e3
+        return out
+
+    def lib_stage(st):
+        lw = [st[1].t().contiguous(), st[2].to(bf), st[3].t().contiguous(), st[4].to(bf)] + [
+            v.to(bf) for v in st[5:]]
+        x = st[0]
+
+        def run():
+            R, N, _ = x.shape
+            qkv = Fn.linear(Fn.layer_norm(x, (C,), lw[4], lw[5], 1e-6), lw[0], lw[1])
+            q, k, v = qkv.view(R, N, 3, HEADS, C // HEADS).permute(2, 0, 3, 1, 4).unbind(0)
+            o = Fn.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(R, N, C)
+            x2 = x + Fn.linear(o, lw[2], lw[3])
+            return x2, Fn.layer_norm(x2, (C,), lw[6], lw[7], 1e-6)
+        return run
+
+    w = [rn(C, 3 * C, s=0.05).to(bf), rn(3 * C, s=0.02), rn(C, C, s=0.05).to(bf), rn(C, s=0.02),
+         1 + rn(C, s=0.1), rn(C, s=0.1), 1 + rn(C, s=0.1), rn(C, s=0.1)]
+    for label, R, N in (("spatial", ROWS * F, J), ("temporal", ROWS * J, F)):
+        st = [rn(R, N, C, s=0.5).to(bf), *w]
+        hm = [st[0], *A.stack_head_major(st[1], st[2], HEADS), *st[3:]]
+        blk = [rn(R, N, 3 * C).to(bf), st[0], w[2], w[3], w[6], w[7]]
+        for name, fn in (("K1", lambda: A.attention_stage(*st, HEADS, 0.125, 1e-6)),
+                         ("K8", lambda: A.attention_stage_hm(*hm, HEADS, 0.125, 1e-6)),
+                         ("K6", lambda: A.attention_block(*blk, HEADS, 0.125, 1e-6))):
+            res[f"{name}/{label}"] = ms(fn)
+            for k, v in split(fn).items():
+                res[f"{name} {k}/{label}"] = v
+        res[f"library stage/{label}"] = ms(lib_stage(st))
+        del st, hm, blk
+    for label, R, N in (("train spatial", BT * F, J), ("train temporal", BT * J, F)):
+        st = [rn(R, N, C, s=0.5).to(bf), *w]
+        dp = torch.where(torch.rand(R, generator=gen, device="cuda") < 0.9, 1 / 0.9, 0.0)
+        res[f"K1-dp/{label}"] = ms(lambda: A.attention_stage_dp(*st, dp, HEADS, 0.125, 1e-6))
+        res[f"library stage/{label}"] = ms(lib_stage(st))
+    # K9 on the eval path's 40 rows at depth 8, random weights of std 0.05
+    D, HID = 8, 2 * C
+
+    def kind():
+        vec = rn(D, 6, C, s=0.05)
+        vec[:, [1, 3]] += 1.0
+        return (rn(D, C, 3 * C, s=0.05).to(bf), rn(D, 1, 3 * C, s=0.02),
+                rn(D, C, C, s=0.05).to(bf), rn(D, C, HID, s=0.05).to(bf), rn(D, 1, HID, s=0.02),
+                rn(D, HID, C, s=0.05).to(bf), vec)
+    trunk = (rn(ROWS, F, J, C).to(bf), rn(F, C, s=0.1), kind(), kind(),
+             rn(4, C, s=0.05) + torch.tensor([1.0, 0, 1.0, 0], device="cuda")[:, None])
+    res["K9/eval depth 8"] = ms(lambda: RS.resident_block_stack(*trunk, HEADS, 0.125, 1e-6),
+                                iters=5)
+    del trunk
+ATTN = not (MLP or STAGE)
+for label, R, N in (("spatial", BT * F, J), ("temporal", BT * J, F)) if ATTN else ():
     qkv = rn(R, N, 3 * C).to(bf)
     res[f"fused_attention_qkv/{label}"] = ms(lambda: A.fused_attention_qkv(qkv, HEADS, 0.125))
-for label, R, N in () if MLP else (("spatial", ROWS * F, J), ("temporal", ROWS * J, F)):
+for label, R, N in (("spatial", ROWS * F, J), ("temporal", ROWS * J, F)) if ATTN else ():
     qkv = rn(R, N, 3 * C).to(bf)
     q, k, v = (t.contiguous() for t in qkv.split(C, dim=-1))
     res[f"fused_attention_packed/{label}"] = ms(
@@ -109,7 +184,7 @@ for label, R, N in () if MLP else (("spatial", ROWS * F, J), ("temporal", ROWS *
     res[f"attention_stage_hm/{label}"] = ms(
         lambda: A.attention_stage_hm(*hm, HEADS, 0.125, 1e-6))
     del st, hm
-if sys.argv[2] == "1":
+if sys.argv[2] == "1" or STAGE:
     # D3DP.sample at the eval config (B=4 windows, H=5, K=5, flip-TTA, depth 8,
     # random weights from seed 0) at fuse levels 4 and 5, host clock around
     # synchronised calls
@@ -148,12 +223,16 @@ def main(argv=None):
     ap.add_argument("--mlp", action="store_true",
                     help="time the MLP kernels and the library sequence instead of the "
                          "attention kernels")
+    ap.add_argument("--stage", action="store_true",
+                    help="time the stage kernels (K1, K8, K6 split by launch; K1-dp; K9; "
+                         "the library stage) and D3DP.sample at levels 4 and 5 instead")
     args = ap.parse_args(argv)
     runs = []
     for rep in range(args.reps):
         for tree in args.trees:
             out = subprocess.run([sys.executable, "-c", _CHILD, str(args.iters),
-                                  str(int(args.sample)), str(int(args.mlp))], cwd=tree,
+                                  str(int(args.sample)), str(int(args.mlp)),
+                                  str(int(args.stage))], cwd=tree,
                                  capture_output=True, text=True, timeout=900)
             line = [x for x in out.stdout.splitlines() if x.startswith("RESULT ")]
             if out.returncode != 0 or not line:

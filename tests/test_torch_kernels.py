@@ -810,8 +810,87 @@ def test_resident_depth_2_with_a_partial_mlp_tile_equals_level_4_kernels(np_rng,
 
     dev = _cuda()
     x, tpos, sp, tp, shared = _resident_inputs(np_rng, 3, 27, dev, dtype)
-    assert tres.group_rows(3, 27, 17, 512, x.element_size(),
-                           torch.cuda.get_device_properties(dev).L2_cache_size) == 3
+    assert tres.group_rows(3, 27, 17,
+                           torch.cuda.get_device_properties(dev).multi_processor_count) == 3
+    got = tres.resident_block_stack(x, tpos, sp, tp, shared, 8, 0.125, 1e-6)
+    B, F, J, C = x.shape
+    h = x
+    for d in range(2):
+        stage, mlp = tres._kind(sp, d)
+        x2, y2 = tattn.attention_stage(h.reshape(B * F, J, C), *stage, 8, 0.125, 1e-6)
+        h = tmlp.mlp_block_t(y2.view(B, F, J, C), x2.view(B, F, J, C), *mlp, shared[0],
+                             shared[1], 1e-6)
+        if d == 0:
+            h = h + tpos.to(dtype)
+        stage, mlp = tres._kind(tp, d)
+        x2, y2 = tattn.attention_stage(h.reshape(B * J, F, C), *stage, 8, 0.125, 1e-6)
+        h = tmlp.mlp_block_t(y2.view(B, J, F, C), x2.view(B, J, F, C), *mlp, shared[2],
+                             shared[3], 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(got, h)
+
+
+# (R, N) of 17, 63, 65, 127, 129 and 12,393 token rows: fewer than a stage
+# tile of 64 rows (fp32: 16), one under and over one and two tiles, and 729
+# spatial sequences (41 rows in the last tile)
+STAGE_TILE_SHAPES = [(1, 17), (7, 9), (5, 13), (127, 1), (3, 43), (729, 17)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,N", STAGE_TILE_SHAPES)
+def test_stage_tile_edges_match_plain(monkeypatch, np_rng, dtype, R, N):
+    """K1, K1-dp, K8, K1 under noy2 and K6 on token-row counts around the
+    GEMM walks' 64-row tiles: the missing rows of the last tile are
+    zero-filled on load and never stored. K8 equals K1 and noy2's x2 equals
+    K1's, bit for bit."""
+    dev = _cuda()
+    args = _t(_stage_inputs(np_rng, R, N, 512, w_scale=0.05), dev, dtype)
+    args[0] = args[0] * 0.5
+    dp = _dp_scales(np_rng, (R,), dev)
+    whm, bhm = tattn.stack_head_major(args[1], args[2], 8)
+    hm = (args[0], whm, bhm, *args[3:])
+    blk = _block_inputs(np_rng, R, N, dev, dtype)
+    ops = (tattn.attention_stage, tattn.attention_stage_dp, tattn.attention_stage_hm,
+           tattn.attention_block)
+    n0 = [f.launches for f in ops]
+    k1 = tattn.attention_stage(*args, 8, 0.125, 1e-6)
+    pairs = [(k1, tattn.attention_stage_plain(*args, 8, 0.125, 1e-6)),
+             (tattn.attention_stage_dp(*args, dp, 8, 0.125, 1e-6),
+              tattn.attention_stage_dp_plain(*args, dp, 8, 0.125, 1e-6)),
+             (tattn.attention_stage_hm(*hm, 8, 0.125, 1e-6),
+              tattn.attention_stage_hm_plain(*hm, 8, 0.125, 1e-6)),
+             (tattn.attention_block(*blk, 8, 0.125, 1e-6),
+              tattn.attention_block_plain(*blk, 8, 0.125, 1e-6))]
+    monkeypatch.setenv("D3DP_ATTN_VARIANT", "noy2")
+    noy2 = tattn.attention_stage(*args, 8, 0.125, 1e-6)[0]
+    noy2_want = tattn.attention_stage_plain(*args, 8, 0.125, 1e-6, opts=tattn.OPT_NO_Y2)[0]
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(ops, n0)] == [2, 1, 1, 1]
+    for got, want in pairs:
+        for g, w in zip(got, want):
+            assert g.shape == (R, N, 512)
+            assert _excess(g, w, dtype) <= 0
+    assert _excess(noy2, noy2_want, dtype) <= 0
+    assert torch.equal(noy2, k1[0])
+    assert all(torch.equal(g, k) for g, k in zip(pairs[2][0], k1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resident_groups_equal_level_4_kernels(monkeypatch, np_rng, dtype):
+    """K9 at depth 2 over three row groups (WAVES = 1 on the card's SMs: 40
+    rows of 27 frames go as 14, 14 and 12, each group's 6,426 or 5,508
+    token rows ending in a partial 64-row tile) equals the level-4 chain of
+    K1 and K2 launches bit for bit."""
+    from d3dp_tpu_torch.ops import resident as tres
+
+    dev = _cuda()
+    monkeypatch.setattr(tres, "WAVES", 1)
+    x, tpos, sp, tp, shared = _resident_inputs(np_rng, 40, 27, dev, dtype)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    G = tres.group_rows(40, 27, 17, sms)
+    assert 1 < G < 40 and (40 % G or G * 27 * 17 % 64)
     got = tres.resident_block_stack(x, tpos, sp, tp, shared, 8, 0.125, 1e-6)
     B, F, J, C = x.shape
     h = x

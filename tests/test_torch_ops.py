@@ -94,3 +94,18 @@ def test_mlp_kernel_shape_rule(dtype, C, H, ok):
     else:
         with pytest.raises(ValueError, match=f"C={C}, H={H}"):
             tmlp.check_shape("mlp", C, H, dtype)
+
+
+@pytest.mark.parametrize("dtype,C,ok", [
+    (torch.bfloat16, 512, True), (torch.bfloat16, 128, True), (torch.bfloat16, 384, True),
+    (torch.bfloat16, 640, False), (torch.bfloat16, 192, False), (torch.bfloat16, 64, False),
+    (torch.float32, 64, True), (torch.float32, 1024, True), (torch.float32, 1088, False)])
+def test_stage_kernel_shape_rule(dtype, C, ok):
+    """The widths the stage kernels (K1, K1-dp, K8, K6) take, checked before
+    a launch: the bf16 GEMM walks' C / 2 output columns a warpgroup in
+    64-column boxes, at most 512; fp32 steps of 64 columns up to 1024."""
+    if ok:
+        tattn.check_stage_shape("stage", C, dtype)
+    else:
+        with pytest.raises(ValueError, match=f"C={C}"):
+            tattn.check_stage_shape("stage", C, dtype)

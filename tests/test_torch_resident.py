@@ -137,11 +137,19 @@ def test_run_evaluation_level_5_matches_jax(tmp_path):
     run_evaluation_against_jax(tmp_path, 5)
 
 
-@pytest.mark.parametrize("B,F,J,C,itemsize,l2,want", [
-    (40, 243, 17, 512, 2, 50 * 2 ** 20, 1),   # the eval shape in bf16: 33.8 MB a row
-    (40, 243, 17, 512, 4, 50 * 2 ** 20, 1),   # fp32: a row exceeds L2, still 1
-    (2, 9, 5, 64, 4, 50 * 2 ** 20, 2),        # never more than B
-    (40, 27, 17, 512, 2, 50 * 2 ** 20, 13),   # 3.76 MB a row
+@pytest.mark.parametrize("B,F,J,sms,want", [
+    (40, 243, 17, 132, 20),      # the eval shape: 33 rows give 16 waves; two even groups
+    (40, 243, 17, 66, 14),       # half the SMs: 17 rows, so three groups of at most 14
+    (2, 9, 5, 132, 2),           # never more than B
+    (40, 27, 17, 132, 40),       # short windows: all rows in one group
+    (10240, 243, 17, 132, 33),   # 1024 padded windows x H=5 x flip: 311 groups of 33
 ])
-def test_group_rows(B, F, J, C, itemsize, l2, want):
-    assert tres.group_rows(B, F, J, C, itemsize, l2) == want
+def test_group_rows(B, F, J, sms, want):
+    """Rows a K9 group takes: enough for WAVES waves of 64-row tiles in
+    every GEMM phase on `sms` SMs, at most B, balanced over the groups."""
+    G = tres.group_rows(B, F, J, sms)
+    assert G == want
+    groups = -(-B // G)
+    assert G * groups >= B and G * (groups - 1) < B
+    if G < B:
+        assert G * F * J >= tres.WAVES * sms * tres.TILE_ROWS * (groups - 1) / groups
