@@ -5,7 +5,8 @@
 
 Builds the hand-written kernels from `d3dp_tpu_torch/ops/csrc/`, holds each
 against its plain torch version on the card (the stage kernels also at
-token-row counts around their 64-row tiles; the depth-resident trunk
+token-row counts around their 64-row tiles, the attention backward at its
+tiles' edges and for bit-determinism; the depth-resident trunk
 kernel first at depth 1 in a child process under a time limit, so that a
 kernel that never finishes becomes an error), checks the full-width MixSTE2
 on the kernel path against the plain path (eval forward at every fuse
@@ -236,21 +237,26 @@ def phase_env(torch, record):
                 r.update(source=name, kernel=full.split("(")[0])
                 ptxas.append(r)
     # every kernel's registers and spills, then those of the bf16 attention
-    # tile's, MLP tile's and stage GEMM walks' kernels and of the
-    # depth-resident kernel, which runs them all
+    # tile's, attention backward's, MLP tile's and stage GEMM walks' kernels
+    # and of the depth-resident kernel, which runs all but the backward
     for r in ptxas:
         log(f"[env] ptxas {r['source']}: {r['kernel']}: {r.get('registers')} registers, "
             f"{r.get('spill_stores')} bytes spill stores, {r.get('spill_loads')} bytes spill "
             f"loads, {r.get('stack')} bytes stack")
-    tile = [r for r in ptxas if any(k in r["kernel"] for k in (
-        "attend", "resident", "mlp_block", "ln_qkv_walk", "proj_ln2_walk"))
-        and "<float" not in r["kernel"]]
-    for k in ("mlp_block", "resident", "ln_qkv_walk", "proj_ln2_walk"):
+    bf16_keys = ("attend", "attn_bwd_block", "attn_bwd_warp", "resident", "mlp_block",
+                 "ln_qkv_walk", "proj_ln2_walk")
+    tile = [r for r in ptxas if any(k in r["kernel"] for k in bf16_keys)
+            and "<float" not in r["kernel"]]
+    for k in bf16_keys[1:]:
         check(any(k in r["kernel"] for r in tile), f"no bf16 {k} kernel in the ptxas output")
+    for r in tile:
+        if "attn_bwd" in r["kernel"]:
+            log(f"[env] bf16 attention backward {r['kernel']}: {r.get('registers')} registers, "
+                f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes spilled")
     spills = sorted({f"{r['kernel']} ({r['spill_stores']} / {r['spill_loads']} bytes)"
                      for r in tile if r.get("spill_stores") or r.get("spill_loads")})
-    log(f"[env] bf16 attention tile, MLP tile, stage walks and K9: {len(tile)} kernels, "
-        f"spilling: {', '.join(spills) if spills else 'none'}")
+    log(f"[env] bf16 attention tile and backward, MLP tile, stage walks and K9: {len(tile)} "
+        f"kernels, spilling: {', '.join(spills) if spills else 'none'}")
     disable_tf32()
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=dt,
                   ptxas=ptxas)
@@ -326,6 +332,7 @@ def phase_kernels(torch, record):
                     f"forward: max|err| {e:.3e} (tol {tol:g}) {'ok' if ex <= tol else 'FAIL'}")
                 check(ex <= tol, f"fused_attention_qkv_bwd {label} disagrees with autograd")
             del qkv, dout, got, want
+        check_bwd_tiles(torch, gen, dt, name_dt)
         check_mlp_tile_edges(torch, gen, dt, name_dt, errs)
         check_stage_tile_edges(torch, gen, dt, name_dt, errs)
         check_eval_kernels(torch, gen, dt, name_dt, errs)
@@ -360,6 +367,47 @@ def check_mlp_tile_edges(torch, gen, dt, name_dt, errs):
             if dt == torch.bfloat16:
                 errs[name] = max(errs[name], e)
         del args, dp
+
+
+# (R, N) around K4's tiles: a warp a tile at 16 and 32 keys or fewer, a block
+# a tile of 64, 128 or 256 keys above, rows past a 16-row group
+BWD_TILE_SHAPES = ((3, 1), (6, 16), (5, 32), (5, 33), (4, 48), (4, 63), (3, 64), (4, 65),
+                   (3, 128), (3, 129), (3, 255), (2, 256))
+
+
+def check_bwd_tiles(torch, gen, dt, name_dt):
+    """K4 at its tiles' edges against its plain version; in bf16 also
+    deterministic: two calls give the same bits, and a sequence's d(qkv) is
+    the same at R = 1 as inside R = 5 (N = 17 and 243)."""
+    from d3dp_tpu_torch.ops import attention as A
+
+    tol = TOL_QKV[name_dt]
+    ulp = BF16_ULP if dt == torch.bfloat16 else 0.0
+    for R, N in BWD_TILE_SHAPES:
+        qkv, dout = qkv_inputs(torch, gen, R, N, dt)
+        got = A.fused_attention_qkv_bwd(qkv, dout, HEADS, 0.125)
+        want = A.fused_attention_qkv_bwd_plain(qkv, dout, HEADS, 0.125)
+        torch.cuda.synchronize()
+        e, ex = max_err(torch, got, want, ulp)
+        log(f"[kernels] fused_attention_qkv_bwd tile edge {name_dt} qkv{tuple(qkv.shape)}: "
+            f"max|err| {e:.3e} (tol {tol:g}{' + 1 bf16 ulp' if ulp else ''}) "
+            f"{'ok' if ex <= tol else 'FAIL'}")
+        check(ex <= tol, f"fused_attention_qkv_bwd at N={N} {name_dt} disagrees with its "
+                         "plain version")
+    if dt != torch.bfloat16:
+        return
+    for N in (J, F):
+        qkv, dout = qkv_inputs(torch, gen, 5, N, dt)
+        a = A.fused_attention_qkv_bwd(qkv, dout, HEADS, 0.125)
+        b = A.fused_attention_qkv_bwd(qkv, dout, HEADS, 0.125)
+        one = A.fused_attention_qkv_bwd(qkv[2:3].contiguous(), dout[2:3].contiguous(), HEADS,
+                                        0.125)
+        torch.cuda.synchronize()
+        ok = torch.equal(a, b) and torch.equal(one[0], a[2])
+        log(f"[kernels] fused_attention_qkv_bwd bf16 N={N}: two calls equal "
+            f"{torch.equal(a, b)}, a sequence at R = 1 equal to it inside R = 5 "
+            f"{torch.equal(one[0], a[2])} {'ok' if ok else 'FAIL'}")
+        check(ok, f"fused_attention_qkv_bwd at N={N} is not deterministic")
 
 
 # (R, N) of 17, 63, 65, 127, 129 and 12,393 token rows: fewer than a stage

@@ -86,7 +86,9 @@ _DP_FN = {torch.bfloat16: "d3dp_attention_stage_dp_bf16",
 _HM_FN = {torch.bfloat16: "d3dp_attention_stage_hm_bf16",
           torch.float32: "d3dp_attention_stage_hm_f32"}
 _SIG_FWD = [_P, _P, _I, _I, _I, _I, _F, _P]
-_SIG_BWD = [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
+# the backward: fp32 takes a stats scratch (its two launches' hand-over), bf16 none
+_SIG_BWD = {torch.bfloat16: [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+            torch.float32: [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]}
 _QKV_FN = {torch.bfloat16: ("d3dp_attention_qkv_fwd_bf16", "d3dp_attention_qkv_bwd_bf16"),
            torch.float32: ("d3dp_attention_qkv_fwd_f32", "d3dp_attention_qkv_bwd_f32")}
 _SIG_PACKED = [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
@@ -465,7 +467,7 @@ def _check_qkv(qkv, num_heads, what):
 def _qkv_lib():
     return _build.load("attention_qkv", {
         **{fns[0]: _SIG_FWD for fns in _QKV_FN.values()},
-        **{fns[1]: _SIG_BWD for fns in _QKV_FN.values()},
+        **{fns[1]: _SIG_BWD[dt] for dt, fns in _QKV_FN.items()},
         **{fn: _SIG_PACKED for fn in _PACKED_FN.values()},
         **{fn: _SIG_ATTEND for fn in _ATTEND_FN.values()}})
 
@@ -497,13 +499,17 @@ def fused_attention_qkv_bwd(qkv, dout, num_heads, scale):
     dev = qkv.device
     _build.check_operand(dout, "dout", qkv.dtype, (R, N, C), dev)
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((R, num_heads, 3, N), dtype=torch.float32, device=dev)
+    # fp32's query pass hands (m, l, D) per row and head to its key pass; the
+    # bf16 kernel keeps them in shared memory
+    stats = []
+    if qkv.dtype == torch.float32:
+        stats = [torch.empty((R, num_heads, 3, N), dtype=torch.float32, device=dev)]
     lib = _qkv_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, _QKV_FN[qkv.dtype][1])(
-            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), R, N, C,
-            num_heads, float(scale), stream)
+            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), *[t.data_ptr() for t in stats],
+            R, N, C, num_heads, float(scale), stream)
     _build.check(err, "fused_attention_qkv_bwd")
     fused_attention_qkv_bwd.launches += 1
     return dqkv

@@ -21,7 +21,12 @@ shapes, each also split into its ln_qkv, attend and proj_ln2 launches
 step's shapes, the library stage (layer_norm, F.linear, SDPA, F.linear,
 the residual, layer_norm) beside each shape, and K9 on 40 rows at depth 8;
 with `--sample` (implied by `--stage`) also `D3DP.sample` at the eval
-config at fuse levels 4 and 5 (K1 and K2; K9).
+config at fuse levels 4 and 5 (K1 and K2; K9); with `--bwd` the training
+attention core instead: K4 (the backward) and K3 at the train step's shapes,
+SDPA's forward and backward beside each (also as device time per call from
+`torch.profiler`, without the host's launch cost), and the full-width bf16 train step
+(ms per step, random weights and batch from a seed), composed and with
+`D3DP_TRAIN_FUSED=1` at fuse level 4.
 The inputs come from one seed, so every tree sees the same values. Prints one JSON line per child and a summary
 (per kernel and tree: the medians of every repetition), also written to
 `chiprun_out/time_attention.json`. Needs a CUDA card.
@@ -43,6 +48,7 @@ disable_tf32()
 ITERS = int(sys.argv[1])
 MLP = sys.argv[3] == "1"
 STAGE = sys.argv[4] == "1"
+BWD = sys.argv[5] == "1"
 C, HEADS, ROWS, BT, F, J = 512, 8, 40, 4, 243, 17
 bf = torch.bfloat16
 gen = torch.Generator(device="cuda").manual_seed(11)
@@ -161,7 +167,67 @@ if STAGE:
     res["K9/eval depth 8"] = ms(lambda: RS.resident_block_stack(*trunk, HEADS, 0.125, 1e-6),
                                 iters=5)
     del trunk
-ATTN = not (MLP or STAGE)
+if BWD:
+    import os, time
+    import torch.nn.functional as Fn
+    from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT
+    from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
+    from d3dp_tpu_torch.models import MixSTEConfig
+    from d3dp_tpu_torch.train.state import make_optimizer, make_train_step
+
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_ms(fn, reps=10):
+        """Device time per call of every kernel fn launches (torch.profiler):
+        the event time of one call also holds the host's launch cost."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()) / reps / 1e3
+
+    for label, R, N in (("train spatial", BT * F, J), ("train temporal", BT * J, F)):
+        qkv, dout = rn(R, N, 3 * C).to(bf), rn(R, N, C).to(bf)
+        leaf = qkv.clone().requires_grad_(True)
+
+        def sdpa(x):
+            q, k, v = x.view(R, N, 3, HEADS, C // HEADS).permute(2, 0, 3, 1, 4).unbind(0)
+            return Fn.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(R, N, C)
+        out = sdpa(leaf)
+        for name, fn in (
+                ("K4", lambda: A.fused_attention_qkv_bwd(qkv, dout, HEADS, 0.125)),
+                ("K3", lambda: A.fused_attention_qkv(qkv, HEADS, 0.125)),
+                ("SDPA", lambda: sdpa(qkv)),
+                ("SDPA backward", lambda: torch.autograd.grad(out, leaf, dout,
+                                                              retain_graph=True))):
+            res[f"{name}/{label}"] = ms(fn)
+            res[f"{name} device/{label}"] = dev_ms(fn)
+        del qkv, dout, leaf, out
+    # the train step at the train config (4 chunks of 243 frames, bf16,
+    # DropPath 0.1, AdamW), one random batch, host clock around synchronised
+    # steps: mean of 10 after 3 warm-up steps
+    d3dp = D3DP(D3DPConfig(model=MixSTEConfig(num_frames=F, embed_dim=C, depth=8,
+                                              num_heads=HEADS, drop_path_rate=0.1, dtype=bf),
+                           num_proposals=1, sampling_timesteps=1,
+                           joints_left=tuple(JOINTS_LEFT), joints_right=tuple(JOINTS_RIGHT)),
+                seed=0)
+    step = make_train_step(d3dp, make_optimizer(d3dp.model.parameters(), 6e-5))
+    x2d, x3d, w = rn(BT, F, J, 2, s=0.3), rn(BT, F, J, 3, s=0.3), torch.ones(BT, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for name, fused in (("train step composed", "0"), ("train step fused level 4", "1")):
+        os.environ["D3DP_TRAIN_FUSED"] = fused
+        for i in range(13):
+            if i == 3:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            step(x2d, x3d, w, generator=g)
+        torch.cuda.synchronize()
+        res[name] = (time.perf_counter() - t0) * 1e3 / 10
+    os.environ.pop("D3DP_TRAIN_FUSED")
+    del d3dp, step
+ATTN = not (MLP or STAGE or BWD)
 for label, R, N in (("spatial", BT * F, J), ("temporal", BT * J, F)) if ATTN else ():
     qkv = rn(R, N, 3 * C).to(bf)
     res[f"fused_attention_qkv/{label}"] = ms(lambda: A.fused_attention_qkv(qkv, HEADS, 0.125))
@@ -226,13 +292,17 @@ def main(argv=None):
     ap.add_argument("--stage", action="store_true",
                     help="time the stage kernels (K1, K8, K6 split by launch; K1-dp; K9; "
                          "the library stage) and D3DP.sample at levels 4 and 5 instead")
+    ap.add_argument("--bwd", action="store_true",
+                    help="time K4 and K3 at the train shapes beside SDPA's forward and "
+                         "backward, and the train step (composed, and fused at level 4) "
+                         "instead")
     args = ap.parse_args(argv)
     runs = []
     for rep in range(args.reps):
         for tree in args.trees:
             out = subprocess.run([sys.executable, "-c", _CHILD, str(args.iters),
                                   str(int(args.sample)), str(int(args.mlp)),
-                                  str(int(args.stage))], cwd=tree,
+                                  str(int(args.stage)), str(int(args.bwd))], cwd=tree,
                                  capture_output=True, text=True, timeout=900)
             line = [x for x in out.stdout.splitlines() if x.startswith("RESULT ")]
             if out.returncode != 0 or not line:

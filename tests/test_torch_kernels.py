@@ -136,9 +136,14 @@ def test_fused_attention_qkv_kernel_matches_plain(np_rng, dtype, R, N):
     assert _excess(got, want, dtype, TOL_QKV) <= 0
 
 
+# the backward's own tiles: a warp a tile at 16 and 32 keys, a block a tile
+# of 64, 128 or 256 keys above
+BWD_EDGE_SHAPES = [(6, 16), (4, 48), (4, 63), (3, 64), (3, 128), (3, 129)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("R,N", QKV_SHAPES)
+@pytest.mark.parametrize("R,N", QKV_SHAPES + TILE_EDGE_SHAPES + BWD_EDGE_SHAPES)
 def test_fused_attention_qkv_bwd_kernel_matches_plain(np_rng, dtype, R, N):
     dev = _cuda()
     qkv, dout = _qkv_inputs(np_rng, R, N, dev, dtype)
@@ -149,6 +154,21 @@ def test_fused_attention_qkv_bwd_kernel_matches_plain(np_rng, dtype, R, N):
     assert tattn.fused_attention_qkv_bwd.launches == n0 + 1
     assert got.dtype == dtype and got.shape == qkv.shape
     assert _excess(got, want, dtype, TOL_QKV) <= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [17, 243])
+def test_fused_attention_qkv_bwd_is_deterministic(np_rng, N):
+    """bf16: two calls give the same bits, and a sequence's d(qkv) does not
+    depend on the other sequences of the batch (R = 1 against R = 5)."""
+    dev = _cuda()
+    qkv, dout = _qkv_inputs(np_rng, 5, N, dev, torch.bfloat16)
+    a = tattn.fused_attention_qkv_bwd(qkv, dout, 8, 0.125)
+    b = tattn.fused_attention_qkv_bwd(qkv, dout, 8, 0.125)
+    one = tattn.fused_attention_qkv_bwd(qkv[2:3].contiguous(), dout[2:3].contiguous(), 8, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(one[0], a[2])
 
 
 @pytest.mark.gpu

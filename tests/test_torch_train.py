@@ -58,7 +58,9 @@ def _np(x):
 
 # ------------------------------------------------------- attention core
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("R,N", [(16, 17), (4, 243)])
+# the train step's shapes, and the card tiles' edges (a warp a tile at 32
+# keys or fewer; 64, 128 and 256 keys a block tile)
+@pytest.mark.parametrize("R,N", [(16, 17), (4, 243), (2, 1), (2, 33), (2, 65), (1, 256)])
 def test_attention_qkv_plain_matches_jax(rng, R, N, dtype):
     qkv = rng.randn(R, N, 3 * 512).astype(np.float32)
     dout = rng.randn(R, N, 512).astype(np.float32)
