@@ -35,14 +35,24 @@ random weights from a fixed seed:
     K9 against its plain version and timed, then sampling at levels 1, 4
     and 5, a train-fused step and the public ops under each switch, with
     launch counts, level 5 equal to level 4 under every global switch;
+  * Protocol-2 on the device (`Evaluator(p2_device=True)`) against the
+    host's, with the alignment's time and host synchronizations;
   * the H36M command line (`d3dp_tpu_torch.cli.main_h36m`, in process):
     one training epoch with checkpoints, a resumed epoch, and evaluation of
-    the best checkpoint at every fuse level 0-5 and with feature reuse;
-and times them. Every phase raises on failure; the script exits non-zero
+    the best checkpoint at every fuse level 0-5, with feature reuse and
+    with `--p2-device`;
+  * the MPI-INF-3DHP command line (`d3dp_tpu_torch.cli.main_3dhp`, in
+    process): a training epoch, a resumed epoch, and evaluation at the 3DHP
+    config (H=20, K=10, 2 windows a micro-batch: 80 hypothesis rows) at
+    fuse levels 4 and 5 with the four .mat exports, then the PCK/AUC tables
+    of the exports;
+and times them. The stage, MLP and trunk kernels are also held against
+their plain versions at the 3DHP evaluation's 80 hypothesis rows. Every phase raises on failure; the script exits non-zero
 without a CUDA device and prints nothing then but the reason. The last
 stdout line is the run's JSON status; the line before it the per-kernel
 JSON. Details also go to `chiprun_out/chip_smoke.json`, and the command
-line's own output to `chiprun_out/chip_smoke_cli.log`.
+lines' own output to `chiprun_out/chip_smoke_cli.log` and
+`chiprun_out/chip_smoke_cli_3dhp.log`.
 """
 
 import contextlib
@@ -61,6 +71,10 @@ import numpy as np
 
 B, H, K, F, J, C, HEADS, HIDDEN, DEPTH = 4, 5, 5, 243, 17, 512, 8, 1024, 8
 ROWS = 2 * B * H  # flip-TTA doubles the hypothesis-folded batch
+# the MPI-INF-3DHP evaluation config (README's main_3dhp command line): 2
+# windows a micro-batch, H=20, K=10, flip-TTA: 80 hypothesis rows
+B_3DHP, H_3DHP, K_3DHP = 2, 20, 10
+ROWS_3DHP = 2 * B_3DHP * H_3DHP
 BT = 4  # training batch: 4 chunks of 243 frames (bench.py's train config)
 TRAIN_SHAPES = (("spatial", BT * F, J), ("temporal", BT * J, F))  # (label, R, N)
 TRAIN_STEPS = 20
@@ -338,6 +352,7 @@ def phase_kernels(torch, record):
         check_eval_kernels(torch, gen, dt, name_dt, errs)
         check_train_fused_kernels(torch, gen, dt, name_dt, errs)
         check_resident_kernel(torch, dt, name_dt, errs)
+        check_3dhp_rows(torch, gen, dt, name_dt, errs)
     check_backwards(torch, record)
     record["max_abs_err_bf16"] = errs
     return errs
@@ -512,8 +527,8 @@ def probe_resident(torch):
     check(ok, f"resident_block_stack probe failed:\n{r.stderr[-3000:]}")
 
 
-def resident_inputs(torch, dt, seed):
-    """K9's operands as the main path gives them: the embedded (ROWS, F, J,
+def resident_inputs(torch, dt, seed, rows=ROWS):
+    """K9's operands as the main path gives them: the embedded (rows, F, J,
     C) stream of a seeded, perturbed full-width MixSTE2 (depth 8) and that
     model's depth-stacked weights."""
     from d3dp_tpu_torch.models import MixSTE2
@@ -522,9 +537,9 @@ def resident_inputs(torch, dt, seed):
     perturb_(torch, model, seed + 1)
     W = model._weights()
     g = torch.Generator(device="cuda").manual_seed(seed + 2)
-    x2d = torch.randn(ROWS, F, J, 2, generator=g, device="cuda") * 0.3
-    x3d = torch.randn(ROWS, F, J, 3, generator=g, device="cuda")
-    t = torch.randint(0, 1000, (ROWS,), generator=g, device="cuda")
+    x2d = torch.randn(rows, F, J, 2, generator=g, device="cuda") * 0.3
+    x3d = torch.randn(rows, F, J, 3, generator=g, device="cuda")
+    t = torch.randint(0, 1000, (rows,), generator=g, device="cuda")
     with torch.no_grad():
         x = model._embed(x2d, x3d, t, W)
     return (x, W["temporal_pos"][0], *W["resident"])
@@ -577,6 +592,61 @@ def check_resident_kernel(torch, dt, name_dt, errs):
         if dt == torch.bfloat16:
             errs["resident_block_stack"] = max(errs["resident_block_stack"], e)
         del got, want
+
+
+def check_3dhp_rows(torch, gen, dt, name_dt, errs):
+    """K1 and K2 against their plain versions at the 3DHP evaluation's 80
+    hypothesis rows (19,440 spatial sequences of 17 tokens, 1,360 temporal
+    ones of 243; 330,480 token rows through the MLP), at K1/K2's tolerance;
+    then K9 at depth 2 on those rows, in `group_rows`' grouping for them,
+    against the level-4 chain of K1 and K2 launches: equal bit for bit."""
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import mlp as M
+    from d3dp_tpu_torch.ops import resident as R
+
+    ulp = BF16_ULP if dt == torch.bfloat16 else 0.0
+    tol = TOL[name_dt]
+    for label, Rn, N in (("spatial", ROWS_3DHP * F, J), ("temporal", ROWS_3DHP * J, F)):
+        args = stage_inputs(torch, gen, Rn, N, dt)
+        got = A.attention_stage(*args, HEADS, (C // HEADS) ** -0.5, 1e-6)
+        want = A.attention_stage_plain(*args, HEADS, (C // HEADS) ** -0.5, 1e-6)
+        torch.cuda.synchronize()
+        es = [max_err(torch, g, w, ulp) for g, w in zip(got, want)]
+        ok = all(ex <= tol for _, ex in es)
+        log(f"[kernels] attention_stage 3DHP {label} {name_dt} x{tuple(args[0].shape)}: "
+            f"max|err| x2 {es[0][0]:.3e} y2 {es[1][0]:.3e} (tol {tol:g}"
+            f"{' + 1 bf16 ulp' if ulp else ''}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"attention_stage at the 3DHP rows ({label}, {name_dt}) disagrees with its "
+                  "plain version")
+        if dt == torch.bfloat16:
+            errs["attention_stage"] = max(errs["attention_stage"], *(e for e, _ in es))
+        del args, got, want
+    for label, D1, D2 in (("spatial->temporal", F, J), ("temporal->spatial", J, F)):
+        args = mlp_inputs(torch, gen, D1, D2, dt, rows=ROWS_3DHP)
+        got = M.mlp_block_t(*args, 1e-6)
+        want = M.mlp_block_t_plain(*args, 1e-6)
+        torch.cuda.synchronize()
+        e, ex = max_err(torch, got, want, ulp)
+        log(f"[kernels] mlp_block_t 3DHP {label} {name_dt} x{tuple(args[0].shape)}: max|err| "
+            f"{e:.3e} (tol {tol:g}{' + 1 bf16 ulp' if ulp else ''}) {'ok' if ex <= tol else 'FAIL'}")
+        check(ex <= tol, f"mlp_block_t at the 3DHP rows ({label}, {name_dt}) disagrees with its "
+                         "plain version")
+        if dt == torch.bfloat16:
+            errs["mlp_block_t"] = max(errs["mlp_block_t"], e)
+        del args, got, want
+    x, tpos, sp, tp, shared = resident_inputs(torch, dt, 60, rows=ROWS_3DHP)
+    args = (x, tpos, tuple(w[:2] for w in sp), tuple(w[:2] for w in tp), shared)
+    groups = R.group_rows(ROWS_3DHP, F, J, torch.cuda.get_device_properties(0).multi_processor_count)
+    got = R.resident_block_stack(*args, HEADS, 0.125, 1e-6)
+    want = level4_chain(R, A, M, args)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want) and bool(torch.isfinite(got).all())
+    log(f"[kernels] resident_block_stack 3DHP {name_dt} x{tuple(x.shape)} depth 2, {groups} "
+        f"rows a group: max|diff| to the level-4 chain "
+        f"{(got.float() - want.float()).abs().max().item():.3e}, equal {equal} "
+        f"{'ok' if equal else 'FAIL'}")
+    check(equal, f"resident_block_stack at the 3DHP rows ({name_dt}) differs from level 4")
+    del x, args, got, want
 
 
 def block_inputs(torch, gen, R, N, dt):
@@ -1068,16 +1138,17 @@ def phase_packed(torch, record):
 
 
 def report_lines(path):
-    """{(label, mode): [mm per step]} from an h36m_test_log file, for the
-    action-wise averages (Protocol 1)."""
-    out = {}
-    pat = re.compile(r"step (\d+) Protocol #1 +\(MPJPE\) action-wise average (\w+): (\S+) mm")
+    """({mode: [mm per step]} of the action-wise averages under Protocol 1,
+    the same under Protocol 2, the file's lines) from an h36m_test_log
+    file."""
+    out = {"1": {}, "2": {}}
+    pat = re.compile(r"step (\d+) Protocol #(\d) +\(MPJPE\) action-wise average (\w+): (\S+) mm")
     lines = open(path).read().splitlines()
     for line in lines:
         m = pat.match(line)
         if m:
-            out.setdefault(m.group(2), []).append(float(m.group(3)))
-    return out, lines
+            out[m.group(2)].setdefault(m.group(3), []).append(float(m.group(4)))
+    return out["1"], out["2"], lines
 
 
 def phase_cli(torch, record):
@@ -1086,8 +1157,9 @@ def phase_cli(torch, record):
     second epoch, then `--evaluate best_epoch.ckpt` (H=5, K=5) at every
     fuse level, and at level 4 with DDIM feature reuse (`--ddim-reuse 2
     --ddim-reuse-tap 2`: steps 0, 2 and 4 run all 8 block pairs, steps 1
-    and 3 the first 2). Every report line must be a finite number and
-    J-Best <= P-Best. Checkpoints go to a directory under log/ (git-ignored) that is
+    and 3 the first 2), and at level 4 with `--p2-device` (Protocol-2 on the
+    device: 4 x K more action-wise lines, Protocol-1 equal to the level-4
+    run's). Every report line must be a finite number and J-Best <= P-Best. Checkpoints go to a directory under log/ (git-ignored) that is
     removed afterwards; the command line's output goes to
     chiprun_out/chip_smoke_cli.log."""
     from d3dp_tpu_torch.cli import main_h36m
@@ -1110,6 +1182,8 @@ def phase_cli(torch, record):
     runs.append(("eval L4 reuse", evaluate + ["--fuse-level", "4", "--ddim-reuse", "2",
                                               "--ddim-reuse-tap", "2"],
                  {n: n_batches * (3 * 2 * DEPTH + 2 * 2 * 2) for n in LEVEL_KERNELS[4]}))
+    runs.append(("eval L4 p2-device", evaluate + ["--fuse-level", "4", "--p2-device"],
+                 {n: n_batches * per_forward(4) * K for n in LEVEL_KERNELS[4]}))
     out = {}
     try:
         with open(os.path.join("chiprun_out", "chip_smoke_cli.log"), "w") as f:
@@ -1124,17 +1198,26 @@ def phase_cli(torch, record):
                 out[name] = dict(seconds=time.perf_counter() - t0, launches=counts)
                 if want is not None:
                     logf = os.path.join(ckdir, f"h36m_test_log_H{H}_K{K}.txt")
-                    avg, lines = report_lines(logf)
+                    avg, avg2, lines = report_lines(logf)
                     os.replace(logf, os.path.join(ckdir, name.replace(" ", "_") + ".txt"))
                     nums = [float(x) for line in lines
                             for x in re.findall(r": (\S+) mm$", line)]
                     finite = len(nums) == len(lines) - 3 * 2 and all(map(math.isfinite, nums))
                     jbest = all(j <= p + 1e-9 for j, p in zip(avg["J_Best"], avg["P_Best"]))
                     ok = finite and jbest and len(avg["P_Best"]) == K and counts == want
+                    if "--p2-device" in extra:
+                        # P2's action-wise lines, and P1 as the run without it
+                        ok = ok and sum(map(len, avg2.values())) == 4 * K and \
+                            avg == out["eval L4"]["action_avg_mm"]
+                        out[name].update(action_avg_p2_mm=avg2)
+                    else:
+                        ok = ok and not avg2
                     out[name].update(action_avg_mm={m: v for m, v in avg.items()})
                     log(f"[cli] {name}: {out[name]['seconds']:.1f} s, {len(nums)} report numbers "
                         f"finite {finite}, J-Best <= P-Best {jbest}, last-step P1 action-wise "
                         + ", ".join(f"{m} {v[-1]:.2f}" for m, v in avg.items())
+                        + (", P2 " + ", ".join(f"{m} {v[-1]:.2f}" for m, v in avg2.items())
+                           if avg2 else "")
                         + f" mm; launches {counts} (expected {want}) {'ok' if ok else 'FAIL'}")
                     check(ok, f"command line {name}: report lines or launch counts")
                 else:
@@ -1155,6 +1238,162 @@ def phase_cli(torch, record):
                                           for lv in (1, 2))
     record["launches"]["attention_block"] = sum(
         out[f"eval L{lv}"]["launches"].get("attention_block", 0) for lv in (2, 3))
+
+
+def write_3dhp_annotations(directory, data, frames):
+    """TS*/annot_data.mat for the PCK/AUC tables, from the synthetic test
+    sequences: annot3 (3, 17, frames) absolute poses in mm (the stored
+    sequences keep the root trajectory in joint 14, the other joints
+    relative to it), their valid masks, and seeded activity labels 1-7."""
+    import scipy.io as sio
+
+    from d3dp_tpu_torch.data.mpi3dhp import ROOT_JOINT
+
+    _, _, p3_test, _, valid = data
+    rs = np.random.RandomState(0)
+    for key, p3 in p3_test.items():
+        gt = p3.copy()
+        root = gt[:, ROOT_JOINT : ROOT_JOINT + 1]
+        gt[:, :ROOT_JOINT] += root
+        gt[:, ROOT_JOINT + 1 :] += root
+        os.makedirs(os.path.join(directory, key))
+        sio.savemat(os.path.join(directory, key, "annot_data.mat"),
+                    {"annot3": gt.transpose(2, 1, 0), "valid_frame": valid[key],
+                     "activity_annotation": rs.randint(1, 8, frames)})
+
+
+def phase_cli_3dhp(torch, record):
+    """The MPI-INF-3DHP command line in process at the published width, bf16,
+    on its synthetic data (4 training and 2 test sequences, TS1 and TS2, of
+    600 frames): one training epoch with checkpoints, a resumed epoch, then
+    `--evaluate best_epoch.ckpt` at the 3DHP evaluation config (H=20, K=10,
+    2 windows a micro-batch: 80 hypothesis rows, 2 x 2 micro-batches) at
+    fuse levels 4 and 5 from the same seed. Each run is timed, and each
+    evaluation's seconds per micro-batch taken from Evaluator3DHP.evaluate's
+    wall time (the .mat exports included). Held: every log number finite;
+    the four exports (3, 17, 600, 10) per sequence; level 5's exports and
+    log lines equal to level 4's bit for bit; exact launch counts; and the
+    PCK/AUC tables of the level-4 exports against annotations written from
+    the same synthetic test data, with finite MPJPE, PCK and AUC at every
+    step. Checkpoints and exports go to a directory under log/ (git-ignored)
+    that is removed afterwards; the command line's output goes to
+    chiprun_out/chip_smoke_cli_3dhp.log."""
+    import scipy.io as sio
+
+    from d3dp_tpu_torch.cli import main_3dhp
+    from d3dp_tpu_torch.data.mpi3dhp import make_synthetic
+    from d3dp_tpu_torch.eval.evaluator_3dhp import MODES
+    from d3dp_tpu_torch.metrics.pck_auc import evaluate_3dhp_mat
+
+    frames, seed = 600, 1
+    ckdir = os.path.join("log", "chip_smoke_cli_3dhp")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    os.makedirs(ckdir)
+    base = ["-d", "synthetic", "--nolog", "-cs", str(C), "-dep", str(DEPTH), "-f", str(F),
+            "--dtype", "bfloat16", "-c", ckdir, "--synthetic-frames", str(frames),
+            "--seed", str(seed)]
+    n_batches = 2 * math.ceil(math.ceil(frames / F) / B_3DHP)
+    evaluate = ["--evaluate", "best_epoch.ckpt", "-num_proposals", str(H_3DHP),
+                "-sampling_timesteps", str(K_3DHP), "--eval-batch-size", str(B_3DHP)]
+    runs = [("train", ["-e", "1", "-cf", "1"], None),
+            ("resume", ["-r", "epoch_1.ckpt", "-e", "2", "-cf", "1"], None)]
+    runs += [(f"eval L{level}", evaluate + ["--fuse-level", str(level)],
+              {n: n_batches * per_forward(level) * K_3DHP for n in LEVEL_KERNELS[level]})
+             for level in (4, 5)]
+    evaluate_s = []
+    real_evaluate = main_3dhp.Evaluator3DHP.evaluate
+
+    def timed_evaluate(self, *a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real_evaluate(self, *a, **k)
+        finally:
+            evaluate_s.append(time.perf_counter() - t0)
+
+    out = {}
+    log_name = f"3dhp_test_log_H{H_3DHP}_K{K_3DHP}.txt"
+    try:
+        main_3dhp.Evaluator3DHP.evaluate = timed_evaluate
+        with open(os.path.join("chiprun_out", "chip_smoke_cli_3dhp.log"), "w") as f:
+            for name, extra, want in runs:
+                reset_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(f):
+                    print(f"==== {name}: {' '.join(base + extra)}", flush=True)
+                    main_3dhp.main(base + extra)
+                torch.cuda.synchronize()
+                counts = {n: c for n, c in read_counts().items() if c}
+                out[name] = dict(seconds=time.perf_counter() - t0, launches=counts,
+                                 evaluate_s=evaluate_s[-1])
+                if want is None:
+                    ck = "best_epoch.ckpt" if name == "train" else "epoch_2.ckpt"
+                    epoch_lines = [line for line in open(os.path.join(
+                        ckdir, "training_log.txt")).read().splitlines() if line.startswith("[")]
+                    nums = [float(x) for x in re.findall(r" (\S+)", epoch_lines[-1])[1::2]]
+                    ok = os.path.exists(os.path.join(ckdir, ck)) and \
+                        counts.get("fused_attention_qkv_bwd", 0) > 0 and \
+                        len(epoch_lines) == (1 if name == "train" else 2) and \
+                        all(map(math.isfinite, nums))
+                    log(f"[cli-3dhp] {name}: {out[name]['seconds']:.1f} s (validation "
+                        f"{evaluate_s[-1]:.2f} s), {ck} written, launches {counts}; training "
+                        f"log: {epoch_lines[-1]} {'ok' if ok else 'FAIL'}")
+                    check(ok, f"3DHP command line {name}: no checkpoint, epoch line or backward")
+                    continue
+                run_dir = os.path.join(ckdir, name.replace(" ", "_"))
+                os.makedirs(run_dir)
+                for fname in [f"inference_data_{m}.mat" for m in MODES] + [log_name]:
+                    os.replace(os.path.join(ckdir, fname), os.path.join(run_dir, fname))
+                lines = open(os.path.join(run_dir, log_name)).read().splitlines()
+                nums = [float(x) for line in lines for x in re.findall(r": (\S+) mm$", line)]
+                finite = len(nums) == len(lines) == 2 * K_3DHP and all(map(math.isfinite, nums))
+                exports = {m: sio.loadmat(os.path.join(run_dir, f"inference_data_{m}.mat"))
+                           for m in MODES}
+                shapes = all(exports[m][k].shape == (3, J, frames, K_3DHP)
+                             and np.isfinite(exports[m][k]).all()
+                             for m in MODES for k in ("TS1", "TS2"))
+                ok = finite and shapes and counts == want
+                out[name].update(per_micro_batch_s=evaluate_s[-1] / n_batches,
+                                 log_mm=nums, lines=lines)
+                log(f"[cli-3dhp] {name}: {out[name]['seconds']:.1f} s, evaluate "
+                    f"{evaluate_s[-1]:.2f} s = {out[name]['per_micro_batch_s']:.3f} s per "
+                    f"micro-batch of {B_3DHP} windows ({n_batches} micro-batches, H={H_3DHP}, "
+                    f"K={K_3DHP}, {ROWS_3DHP} hypothesis rows); {len(nums)} log numbers finite "
+                    f"{finite}, last step P_Best {nums[-2]:.2f} P_Agg {nums[-1]:.2f} mm; exports "
+                    f"(3, {J}, {frames}, {K_3DHP}) per sequence {shapes}; launches {counts} "
+                    f"(expected {want}) {'ok' if ok else 'FAIL'}")
+                check(ok, f"3DHP command line {name}: log numbers, exports or launch counts")
+                out[name]["exports"] = exports
+        # level 5 against level 4: the same seed, so the same draws
+        e4, e5 = out["eval L4"].pop("exports"), out["eval L5"].pop("exports")
+        equal = all(np.array_equal(e4[m][k], e5[m][k]) for m in MODES for k in ("TS1", "TS2"))
+        same_log = out["eval L4"]["lines"] == out["eval L5"]["lines"]
+        log(f"[cli-3dhp] level 5 exports equal to level 4's bit for bit {equal}, log lines "
+            f"equal {same_log} {'ok' if equal and same_log else 'FAIL'}")
+        check(equal and same_log, "3DHP evaluation: level 5 differs from level 4")
+
+        annot = os.path.join(ckdir, "3dhp_test")
+        write_3dhp_annotations(annot, make_synthetic(seed=seed, frames=frames), frames)
+        out["pck_auc"] = {}
+        for m in MODES:
+            summaries = evaluate_3dhp_mat(
+                os.path.join(ckdir, "eval_L4", f"inference_data_{m}.mat"), annot, m,
+                os.path.join(ckdir, "pck"), n_seq=2)
+            finite = sorted(summaries) == list(range(1, K_3DHP + 1)) and all(
+                math.isfinite(v) for sm in summaries.values() for v in sm.values())
+            last = summaries[K_3DHP]
+            out["pck_auc"][m] = last
+            log(f"[cli-3dhp] PCK/AUC of the level-4 {m} export, step {K_3DHP}: MPJPE "
+                f"{last['mpjpe']:.2f} mm, PCK {last['pck']:.2f}, AUC {last['auc']:.2f}; "
+                f"{len(summaries)} steps finite {finite} {'ok' if finite else 'FAIL'}")
+            check(finite, f"PCK/AUC of the {m} export: missing steps or non-finite numbers")
+        n_csv = len(os.listdir(os.path.join(ckdir, "pck")))
+        check(n_csv == 2 * len(MODES) * K_3DHP, f"PCK/AUC wrote {n_csv} CSV files")
+    finally:
+        main_3dhp.Evaluator3DHP.evaluate = real_evaluate
+        shutil.rmtree(ckdir, ignore_errors=True)
+    for name in ("eval L4", "eval L5"):
+        out[name].pop("lines", None)
+    record["cli_3dhp"] = out
 
 
 def phase_train_model(torch, record):
@@ -1278,6 +1517,87 @@ def phase_main(torch, record):
                   metrics_p1_mm={m: p1[m].tolist() for m in MODES},
                   metrics_p2_mm={m: p2m[m].tolist() for m in MODES})
     return d3dp, x2d, x2d_f, counts
+
+
+def phase_p2_device(torch, record, d3dp):
+    """Protocol-2 on the device against Protocol-2 on the host, on the main
+    path's model (H=5, K=5, bf16, level 4) and evaluation set, one injected
+    noise stream for every run: `Evaluator(p2_device=True)`'s P1 equal to
+    `Evaluator(p2=True)`'s bit for bit, its P2 within tests/test_eval.py's
+    bound (rtol 2e-3, atol 5e-3 mm). Wall times of host P2, device P2 and
+    P1 alone, in the order host, device, P1 alone, device, host. First,
+    what the alignment costs on one micro-batch's 24,300 poses (P-Best's,
+    J-Best's and J-Agg's; P-Agg aligns 4,860): its CUDA-event time, the
+    SVD's alone, and the host synchronizations a call makes (torch's sync
+    debug mode)."""
+    import warnings
+
+    from d3dp_tpu_torch.data.generators import UnchunkedGenerator
+    from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT, make_dataset
+    from d3dp_tpu_torch.eval import MODES, Evaluator
+    from d3dp_tpu_torch.metrics.procrustes import procrustes_align
+
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(51)
+    M = B * K * H * F
+    pose = torch.randn(M, J, 3, generator=g, device="cuda") * 100
+    target = pose + torch.randn(M, J, 3, generator=g, device="cuda") * 10
+    cov = torch.randn(M, 3, 3, generator=g, device="cuda")
+    out["align_ms"] = time_ms(torch, lambda: procrustes_align(pose, target), reps=5)
+    out["svd_ms"] = time_ms(torch, lambda: torch.linalg.svd(cov), reps=5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            procrustes_align(pose, target)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out["syncs_per_align"] = sum("synchroniz" in str(w.message).lower() for w in caught)
+    log(f"[p2] procrustes_align on {M} poses of {J} joints: {out['align_ms']:.4f} ms (CUDA "
+        f"events, median of 5), torch.linalg.svd of {M} 3x3 alone {out['svd_ms']:.4f} ms; "
+        f"{out['syncs_per_align']} host synchronization(s) per call")
+    del pose, target, cov
+
+    lengths = (300, 250, 400, 486, 729)
+    data = make_dataset(seed=3, lengths=lengths)
+    n_batches = sum(math.ceil(math.ceil(n / F) / B) for n in lengths)
+
+    def provider():
+        rs = np.random.RandomState(50)
+        return lambda n: (rs.randn(n, H, F, J, 3).astype(np.float32),
+                          rs.randn(K, n, H, F, J, 3).astype(np.float32))
+
+    res, walls = {}, {}
+    for name, kw in (("host", dict(p2=True)), ("device", dict(p2_device=True)), ("p1", {}),
+                     ("device", dict(p2_device=True)), ("host", dict(p2=True))):
+        ev = Evaluator(d3dp, receptive_field=F, batch_size=B, kps_left=list(JOINTS_LEFT),
+                       kps_right=list(JOINTS_RIGHT), **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = ev.evaluate(UnchunkedGenerator(*data), noise_provider=provider())
+        got = (r.averages_mm(), r.averages_p2_mm() if kw else None)
+        torch.cuda.synchronize()
+        walls.setdefault(name, []).append(time.perf_counter() - t0)
+        res.setdefault(name, got)
+    (h1, h2), (d1, d2), (p1, _) = res["host"], res["device"], res["p1"]
+    p1_equal = all(np.array_equal(d1[m], h1[m]) and np.array_equal(p1[m], h1[m]) for m in MODES)
+    p2_close = all(np.isfinite(d2[m]).all() and
+                   np.allclose(d2[m], h2[m], rtol=2e-3, atol=5e-3) for m in MODES)
+    worst = max(float(np.abs(d2[m] - h2[m]).max()) for m in MODES)
+    ok = p1_equal and p2_close
+    log(f"[p2] Evaluator {len(lengths)} seqs / {n_batches} micro-batches of {B}, H={H} K={K} "
+        f"bf16: wall s host P2 {walls['host']}, device P2 {walls['device']}, P1 alone "
+        f"{walls['p1']}; P1 equal {p1_equal}; device P2 vs host max|diff| {worst:.3e} mm "
+        f"(rtol 2e-3, atol 5e-3) {'ok' if ok else 'FAIL'}")
+    for m in MODES:
+        log(f"[p2]   {m}: P2 host {np.array2string(h2[m], precision=4)} device "
+            f"{np.array2string(d2[m], precision=4)} mm")
+    check(ok, "Evaluator(p2_device=True): P1 differs from host P2's run or P2 out of bound")
+    out.update(wall_s=walls, micro_batches=n_batches, p2_max_abs_diff_mm=worst,
+               p2_host_mm={m: h2[m].tolist() for m in MODES},
+               p2_device_mm={m: d2[m].tolist() for m in MODES})
+    record["p2_device"] = out
 
 
 def train_config(torch):
@@ -2384,6 +2704,7 @@ def main():
     phase_model(torch, record)
     phase_train_model(torch, record)
     d3dp, x2d, x2d_f, _ = phase_main(torch, record)
+    phase_p2_device(torch, record, d3dp)
     rows = phase_timing(torch, record, d3dp, x2d, x2d_f)
     phase_profile(torch, record, d3dp, x2d, x2d_f)
     phase_fuse_levels(torch, record, d3dp, x2d, x2d_f)
@@ -2398,6 +2719,7 @@ def main():
     record["launches"].update(lab_launches)
     del d3dp
     phase_cli(torch, record)
+    phase_cli_3dhp(torch, record)
     line = kernels_line(rows, errs, record["launches"])
     record["kernels"] = line["kernels"]
     record["seconds"] = time.perf_counter() - t_all

@@ -1,4 +1,4 @@
-"""Command-line flags of the H36M entry point.
+"""Command-line flags of the H36M and MPI-INF-3DHP entry points.
 
 Counterpart of d3dp_tpu/cli/arguments.py: the same flag names, defaults and
 mutual exclusions (reference common/arguments.py:10-125 plus the JAX
@@ -115,7 +115,7 @@ def build_parser(in_the_wild=False):
     parser.add_argument("--debug", action="store_true", default=False)
     parser.add_argument("--p2", action="store_true", default=False)
     parser.add_argument("--p2-device", action="store_true", default=False,
-                        help="Protocol-2 inside the eval step (not ported yet)")
+                        help="Protocol-2 on the device beside Protocol-1 (implies --p2)")
 
     # ---------------------- extensions of the JAX package ----------------------
     parser.add_argument("--dtype", default="float32",
@@ -201,7 +201,6 @@ def _not_ported(args):
     """The first flag set to a value whose feature the port lacks, as a
     message, or None."""
     checks = (
-        (args.p2_device, "--p2-device (Protocol-2 on the device)"),
         (args.dp != 0 or args.tp != 1, "--dp/--tp (multi-device meshes)"),
         (args.multihost, "--multihost"),
         (bool(args.coordinator_address) or args.num_hosts != 0 or args.host_id != -1,
@@ -235,6 +234,8 @@ def parse_args(argv=None, in_the_wild=False):
     msg = _not_ported(args)
     if msg:
         parser.error(msg)
+    if args.p2_device:
+        args.p2 = True  # --p2-device implies Protocol-2 reporting
     return args
 
 

@@ -138,6 +138,7 @@ def run_evaluation(args, data, d3dp_eval, noise_provider=None):
         kps_left=data.kps_left,
         kps_right=data.kps_right,
         p2=args.p2,
+        p2_device=args.p2_device,
         quickdebug=args.debug,
     )
 
@@ -213,6 +214,27 @@ def run_evaluation(args, data, d3dp_eval, noise_provider=None):
     return results
 
 
+def _resume(args, ckpt, model, optimizer, train_generator, lr, min_loss):
+    """Full resume from a `load_any` checkpoint (reference main.py:330-345):
+    the weights; the AdamW state and the training generator's random state
+    where the checkpoint has an optimizer state; its lr unless --coverlr;
+    its min_loss. Returns (epoch, lr, min_loss)."""
+    model.load_state_dict(ckpt["model"])
+    if ckpt.get("optimizer") is not None:
+        optimizer.load_state_dict(ckpt["optimizer"])
+        if ckpt.get("random_state") is not None:
+            train_generator.set_random_state(ckpt["random_state"])
+    else:
+        print("WARNING: this checkpoint does not contain an optimizer "
+              "state. The optimizer will be reinitialized.")
+    if not args.coverlr and ckpt.get("lr") is not None:
+        lr = ckpt["lr"]
+    set_lr(optimizer, lr)
+    if ckpt.get("min_loss") is not None:
+        min_loss = ckpt["min_loss"]
+    return ckpt["epoch"], lr, min_loss
+
+
 def run_training(args, data, d3dp_train, d3dp_valid, writer, resume_ckpt=None):
     """Training loop (reference: main.py:304-592): ChunkedGenerator ->
     Prefetcher -> train step, light validation (P-Best at H=1, K=1), lr
@@ -257,20 +279,8 @@ def run_training(args, data, d3dp_train, d3dp_valid, writer, resume_ckpt=None):
 
     if args.resume:
         ckpt = resume_ckpt or load_any(os.path.join(args.checkpoint, args.resume))
-        epoch = ckpt["epoch"]
-        model.load_state_dict(ckpt["model"])
-        if ckpt.get("optimizer") is not None:
-            optimizer.load_state_dict(ckpt["optimizer"])
-            if ckpt.get("random_state") is not None:
-                train_generator.set_random_state(ckpt["random_state"])
-        else:
-            print("WARNING: this checkpoint does not contain an optimizer "
-                  "state. The optimizer will be reinitialized.")
-        if not args.coverlr and ckpt.get("lr") is not None:
-            lr = ckpt["lr"]
-        set_lr(optimizer, lr)
-        if ckpt.get("min_loss") is not None:
-            min_loss = ckpt["min_loss"]
+        epoch, lr, min_loss = _resume(args, ckpt, model, optimizer, train_generator, lr,
+                                      min_loss)
 
     print("** Note: reported losses are averaged over all frames.")
     log_path = os.path.join(args.checkpoint, "training_log.txt")

@@ -9,8 +9,9 @@ the final partial batch and returns a 0/1 weight mask. Same seed, same
 batches as the JAX package's Python extraction path (`use_native=False`);
 the native chunk assembler is not ported.
 
-`UnchunkedGenerator` is reduced to what the evaluator uses: flip-TTA is
-fused into the sampler, so it never builds a flipped duplicate.
+`UnchunkedGenerator` is reduced to what the evaluators use: flip-TTA is
+fused into the sampler, so it never builds a flipped duplicate; the 3DHP
+evaluator's (valid, key) yield is kept.
 """
 
 from itertools import zip_longest
@@ -182,23 +183,34 @@ class ChunkedGenerator:
 
 class UnchunkedGenerator:
     """Yields (cam (1, 9), pose3d (1, T, J, 3), pose2d (1, T, J, 2)) per
-    sequence; cam and pose3d are None where not given."""
+    sequence; cam and pose3d are None where not given. With `valid_frames`
+    (one (T,) mask per sequence, the 3DHP test set) it yields (cam, pose3d,
+    pose2d, valid, key) instead, `key` from `keys` or the sequence's index.
+    (reference: common/generators.py:174-249 and its 3DHP dict variant)"""
 
-    def __init__(self, cameras, poses_3d, poses_2d):
+    def __init__(self, cameras, poses_3d, poses_2d, valid_frames=None, keys=None):
         if poses_3d is not None and len(poses_3d) != len(poses_2d):
             raise ValueError("poses_3d and poses_2d differ in sequence count")
         if cameras is not None and len(cameras) != len(poses_2d):
             raise ValueError("cameras and poses_2d differ in sequence count")
+        if valid_frames is not None and len(valid_frames) != len(poses_2d):
+            raise ValueError("valid_frames and poses_2d differ in sequence count")
         self.cameras = [] if cameras is None else cameras
         self.poses_3d = [] if poses_3d is None else poses_3d
         self.poses_2d = poses_2d
+        self.valid_frames = valid_frames
+        self.keys = keys
 
     def num_frames(self):
         return sum(p.shape[0] for p in self.poses_2d)
 
     def next_epoch(self):
-        for seq_cam, seq_3d, seq_2d in zip_longest(self.cameras, self.poses_3d,
-                                                   self.poses_2d):
-            yield (None if seq_cam is None else np.expand_dims(seq_cam, 0),
-                   None if seq_3d is None else np.expand_dims(seq_3d, 0),
-                   np.expand_dims(seq_2d, 0))
+        for idx, (seq_cam, seq_3d, seq_2d) in enumerate(
+                zip_longest(self.cameras, self.poses_3d, self.poses_2d)):
+            item = (None if seq_cam is None else np.expand_dims(seq_cam, 0),
+                    None if seq_3d is None else np.expand_dims(seq_3d, 0),
+                    np.expand_dims(seq_2d, 0))
+            if self.valid_frames is not None:
+                key = self.keys[idx] if self.keys is not None else idx
+                item += (self.valid_frames[idx], key)
+            yield item

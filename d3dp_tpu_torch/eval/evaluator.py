@@ -5,8 +5,9 @@ sequence, flip the 2D inputs by keypoint symmetry, window to the receptive
 field, micro-batch the windows (padded to a fixed size with 0/1 weights),
 DDIM-sample (B,K,H,F,J,3) hypothesis stacks, and score the four
 aggregation modes (J-Best, P-Best, P-Agg, J-Agg/JPMA) per micro-batch into
-frame-weighted sums. The P1 metrics stay on the device until read;
-Protocol-2 runs on host numpy for bit parity with the reference.
+frame-weighted sums. The P1 metrics stay on the device until read.
+Protocol-2 runs on host numpy for bit parity with the reference, or with
+`p2_device` on the device beside P1 (metrics/procrustes.py).
 """
 
 from dataclasses import dataclass, field
@@ -22,6 +23,11 @@ from d3dp_tpu_torch.metrics.mpjpe import (
     mpjpe_diffusion,
     mpjpe_diffusion_all_min,
     mpjpe_diffusion_reproj,
+)
+from d3dp_tpu_torch.metrics.procrustes import (
+    p_mpjpe_diffusion,
+    p_mpjpe_diffusion_all_min,
+    p_mpjpe_diffusion_reproj,
 )
 from d3dp_tpu_torch.metrics.procrustes_np import (
     p_mpjpe_diffusion_all_min_np,
@@ -91,12 +97,15 @@ class EvalResult:
 
 class Evaluator:
     def __init__(self, d3dp, receptive_field=243, batch_size=4, kps_left=None,
-                 kps_right=None, p2=False, light=False, quickdebug=False):
-        """`p2` adds Protocol-2 on host numpy. `light=True` computes only
-        P-Best (no JPMA reprojection), the reference's end-of-epoch
-        validation metric (main.py:455); it takes no P2. `quickdebug=True`
-        (the command line's --debug) stops after the first micro-batch."""
-        if light and p2:
+                 kps_right=None, p2=False, light=False, quickdebug=False, p2_device=False):
+        """`p2` adds Protocol-2 on host numpy. `p2_device=True` (implies p2)
+        computes Protocol-2 on the device beside P1 instead, and defers its
+        vectors as it does P1's: no host copy per micro-batch. `light=True`
+        computes only P-Best (no JPMA reprojection), the reference's
+        end-of-epoch validation metric (main.py:455); it takes no P2.
+        `quickdebug=True` (the command line's --debug) stops after the first
+        micro-batch."""
+        if light and (p2 or p2_device):
             raise ValueError("light evaluation computes P-Best only; it takes no p2")
         self.d3dp = d3dp
         self.device = d3dp.device
@@ -104,17 +113,19 @@ class Evaluator:
         self.bs = batch_size
         self.kps_left = kps_left
         self.kps_right = kps_right
-        self.p2 = p2
+        self.p2 = p2 or p2_device
+        self.p2_device = p2_device
         self.light = light
         self.quickdebug = quickdebug
 
     def _score(self, preds, x2d, x3d, traj, cam, weights):
-        """All four P1 modes of one micro-batch (P-Best only when light) ->
-        (dict of (K,) tensors, root-zeroed preds)."""
+        """All four P1 modes of one micro-batch (P-Best only when light), and
+        with p2_device the four P2 modes -> (dict of (K,) tensors, the P2
+        dict or None, root-zeroed preds)."""
         preds = preds.clone()
         preds[..., 0, :] = 0.0  # zero root (main.py:700)
         if self.light:
-            return {"P_Best": mpjpe_diffusion(preds, x3d, weights=weights)}, preds
+            return {"P_Best": mpjpe_diffusion(preds, x3d, weights=weights)}, None, preds
         B, K, H, F, J, _ = preds.shape
         pred_abs = preds + traj[:, None, None]  # JPMA reprojection (main.py:705-712)
         reproj = project_to_2d(pred_abs.reshape(B, K * H * F * J, 3), cam
@@ -125,7 +136,15 @@ class Evaluator:
             "P_Agg": mpjpe_diffusion_all_min(preds, x3d, mean_pos=True, weights=weights),
             "J_Agg": mpjpe_diffusion_reproj(preds, x3d, reproj, x2d, weights=weights),
         }
-        return errors, preds
+        errors_p2 = None
+        if self.p2_device:
+            errors_p2 = {
+                "J_Best": p_mpjpe_diffusion_all_min(preds, x3d, weights=weights),
+                "P_Best": p_mpjpe_diffusion(preds, x3d, weights=weights),
+                "P_Agg": p_mpjpe_diffusion_all_min(preds, x3d, mean_pos=True, weights=weights),
+                "J_Agg": p_mpjpe_diffusion_reproj(preds, x3d, reproj, x2d, weights=weights),
+            }
+        return errors, errors_p2, preds
 
     def evaluate(self, generator, rng=None, noise_provider=None):
         """Run the eval loop over an UnchunkedGenerator.
@@ -190,9 +209,9 @@ class Evaluator:
                     noise = provider_noise(noise_provider, n, pad, bs)
                 preds = self.d3dp.sample(x2d, take(w2d_f), generator=rng,
                                          noise_override=noise)
-                errors, preds = self._score(preds, x2d, take(w3d), take(traj), cams, weights)
-                errors_p2 = None
-                if self.p2:
+                errors, errors_p2, preds = self._score(preds, x2d, take(w3d), take(traj),
+                                                       cams, weights)
+                if self.p2 and not self.p2_device:
                     errors_p2 = self._p2_host(preds[:n].cpu().numpy(), w3d[lo:hi],
                                               w2d[lo:hi], cam_vec, traj[lo:hi])
                 result.add(errors, errors_p2, weight=n * rf)

@@ -8,7 +8,9 @@ vectors:
   target:    (B, F, J, 3)
 
   P-Best `mpjpe_diffusion`, P-Agg its `mean_pos=True`, J-Best
-  `mpjpe_diffusion_all_min`, J-Agg (JPMA) `mpjpe_diffusion_reproj`.
+  `mpjpe_diffusion_all_min`, J-Agg (JPMA) `mpjpe_diffusion_reproj`;
+  the valid-frame-masked 3DHP form `mpjpe_diffusion_3dhp`; and the
+  reference's other losses `n_mpjpe` and the velocity errors.
 """
 
 import torch
@@ -19,11 +21,21 @@ def _norm(x, dim=-1):
     return torch.sqrt(torch.sum(torch.square(x), dim=dim))
 
 
-def mpjpe(predicted, target):
-    """Mean per-joint position error. (loss.py:6-20)"""
+def _check_shapes(predicted, target):
     if predicted.shape != target.shape:
         raise ValueError(f"shapes differ: {tuple(predicted.shape)} vs {tuple(target.shape)}")
-    return torch.mean(_norm(predicted - target))
+
+
+def mpjpe(predicted, target, return_joints_err=False):
+    """Mean per-joint position error. (loss.py:6-20) With
+    `return_joints_err`, also the per-joint mean over all other axes, in mm
+    (the input in metres)."""
+    _check_shapes(predicted, target)
+    errors = _norm(predicted - target)
+    if return_joints_err:
+        per_joint = torch.mean(errors.reshape(-1, errors.shape[-1]), dim=0) * 1000
+        return torch.mean(errors), per_joint
+    return torch.mean(errors)
 
 
 def _wmean(errors, weights, keep_axes):
@@ -76,3 +88,44 @@ def mpjpe_diffusion_reproj(predicted, target, reproj_2d, target_2d, weights=None
     onehot = joint_select_by_reproj(errors_2d)
     errors_select = torch.sum(errors * onehot, dim=2)  # (B,K,F,J)
     return _wmean(errors_select, weights, keep_axes=(1,))
+
+
+def mpjpe_diffusion_3dhp(predicted, target, valid_frame, mean_pos=False):
+    """Valid-frame-masked P-Best (or P-Agg with mean_pos) for MPI-INF-3DHP,
+    -> (K,). valid_frame: (B, F) 0/1. A masked mean rather than the
+    reference's boolean indexing, so the shapes stay fixed.
+    (reference: common/loss.py:109-145)"""
+    mask = valid_frame.to(predicted.dtype)  # (B, F)
+    J = predicted.shape[4]
+    denom = torch.sum(mask) * J
+    if not mean_pos:
+        errors = _norm(predicted - target[:, None, None]) * mask[:, None, None, :, None]
+        return torch.amin(torch.sum(errors, dim=(0, 3, 4)) / denom, dim=1)
+    mean_pose = torch.mean(predicted, dim=2)
+    errors = _norm(mean_pose - target[:, None]) * mask[:, None, :, None]
+    return torch.sum(errors, dim=(0, 2, 3)) / denom
+
+
+def n_mpjpe(predicted, target):
+    """MPJPE after the optimal per-frame scale of the prediction.
+    (loss.py:398-408)"""
+    _check_shapes(predicted, target)
+    norm_predicted = torch.mean(torch.sum(predicted ** 2, dim=3, keepdim=True), dim=2,
+                                keepdim=True)
+    norm_target = torch.mean(torch.sum(target * predicted, dim=3, keepdim=True), dim=2,
+                             keepdim=True)
+    return mpjpe(norm_target / norm_predicted * predicted, target)
+
+
+def mean_velocity_error_train(predicted, target, axis=1):
+    """Mean per-joint velocity error along the frame axis. (loss.py:411-423)"""
+    _check_shapes(predicted, target)
+    vel_p = torch.diff(predicted, dim=axis)
+    vel_t = torch.diff(target, dim=axis)
+    return torch.mean(_norm(vel_p - vel_t))
+
+
+def mean_velocity_error(predicted, target, axis=0):
+    """The reference's numpy-convention variant: frames on axis 0.
+    (loss.py:425-434)"""
+    return mean_velocity_error_train(predicted, target, axis=axis)

@@ -820,6 +820,27 @@ def test_mlp_block_tile_edges_match_plain(np_rng, dtype, R):
     assert _excess(got_dp, want_dp, dtype) <= 0
 
 
+def _level_4_chain(x, tpos, sp, tp, shared):
+    """The depth-2 trunk as fuse level 4 runs it: K1 and K2 launches, the
+    temporal position embedding added after the first spatial pair."""
+    from d3dp_tpu_torch.ops import resident as tres
+
+    B, F, J, C = x.shape
+    h = x
+    for d in range(2):
+        stage, mlp = tres._kind(sp, d)
+        x2, y2 = tattn.attention_stage(h.reshape(B * F, J, C), *stage, 8, 0.125, 1e-6)
+        h = tmlp.mlp_block_t(y2.view(B, F, J, C), x2.view(B, F, J, C), *mlp, shared[0],
+                             shared[1], 1e-6)
+        if d == 0:
+            h = h + tpos.to(x.dtype)
+        stage, mlp = tres._kind(tp, d)
+        x2, y2 = tattn.attention_stage(h.reshape(B * J, F, C), *stage, 8, 0.125, 1e-6)
+        h = tmlp.mlp_block_t(y2.view(B, J, F, C), x2.view(B, J, F, C), *mlp, shared[2],
+                             shared[3], 1e-6)
+    return h
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_resident_depth_2_with_a_partial_mlp_tile_equals_level_4_kernels(np_rng, dtype):
@@ -833,21 +854,9 @@ def test_resident_depth_2_with_a_partial_mlp_tile_equals_level_4_kernels(np_rng,
     assert tres.group_rows(3, 27, 17,
                            torch.cuda.get_device_properties(dev).multi_processor_count) == 3
     got = tres.resident_block_stack(x, tpos, sp, tp, shared, 8, 0.125, 1e-6)
-    B, F, J, C = x.shape
-    h = x
-    for d in range(2):
-        stage, mlp = tres._kind(sp, d)
-        x2, y2 = tattn.attention_stage(h.reshape(B * F, J, C), *stage, 8, 0.125, 1e-6)
-        h = tmlp.mlp_block_t(y2.view(B, F, J, C), x2.view(B, F, J, C), *mlp, shared[0],
-                             shared[1], 1e-6)
-        if d == 0:
-            h = h + tpos.to(dtype)
-        stage, mlp = tres._kind(tp, d)
-        x2, y2 = tattn.attention_stage(h.reshape(B * J, F, C), *stage, 8, 0.125, 1e-6)
-        h = tmlp.mlp_block_t(y2.view(B, J, F, C), x2.view(B, J, F, C), *mlp, shared[2],
-                             shared[3], 1e-6)
+    want = _level_4_chain(x, tpos, sp, tp, shared)
     torch.cuda.synchronize()
-    assert torch.equal(got, h)
+    assert torch.equal(got, want)
 
 
 # (R, N) of 17, 63, 65, 127, 129 and 12,393 token rows: fewer than a stage
@@ -912,18 +921,59 @@ def test_resident_groups_equal_level_4_kernels(monkeypatch, np_rng, dtype):
     G = tres.group_rows(40, 27, 17, sms)
     assert 1 < G < 40 and (40 % G or G * 27 * 17 % 64)
     got = tres.resident_block_stack(x, tpos, sp, tp, shared, 8, 0.125, 1e-6)
-    B, F, J, C = x.shape
-    h = x
-    for d in range(2):
-        stage, mlp = tres._kind(sp, d)
-        x2, y2 = tattn.attention_stage(h.reshape(B * F, J, C), *stage, 8, 0.125, 1e-6)
-        h = tmlp.mlp_block_t(y2.view(B, F, J, C), x2.view(B, F, J, C), *mlp, shared[0],
-                             shared[1], 1e-6)
-        if d == 0:
-            h = h + tpos.to(dtype)
-        stage, mlp = tres._kind(tp, d)
-        x2, y2 = tattn.attention_stage(h.reshape(B * J, F, C), *stage, 8, 0.125, 1e-6)
-        h = tmlp.mlp_block_t(y2.view(B, J, F, C), x2.view(B, J, F, C), *mlp, shared[2],
-                             shared[3], 1e-6)
+    want = _level_4_chain(x, tpos, sp, tp, shared)
     torch.cuda.synchronize()
-    assert torch.equal(got, h)
+    assert torch.equal(got, want)
+
+
+# the 3DHP evaluation's shapes (H=20, 2 windows a micro-batch, flip-TTA): 80
+# hypothesis rows of 243 frames, 19,440 spatial sequences of 17 tokens and
+# 1,360 temporal ones of 243
+ROWS_3DHP = 80
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,N", [(ROWS_3DHP * 243, 17), (ROWS_3DHP * 17, 243)])
+def test_attention_stage_kernel_matches_plain_at_3dhp_rows(np_rng, dtype, R, N):
+    dev = _cuda()
+    args = _t(_stage_inputs(np_rng, R, N, 512, w_scale=0.05), dev, dtype)
+    args[0] = args[0] * 0.5
+    n0 = tattn.attention_stage.launches
+    got = tattn.attention_stage(*args, 8, 0.125, 1e-6)
+    want = tattn.attention_stage_plain(*args, 8, 0.125, 1e-6)
+    torch.cuda.synchronize()
+    assert tattn.attention_stage.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert _excess(g, w, dtype) <= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(ROWS_3DHP, 243, 17), (ROWS_3DHP, 17, 243)])
+def test_mlp_block_t_kernel_matches_plain_at_3dhp_rows(np_rng, dtype, shape):
+    dev = _cuda()
+    args = _t(_mlp_inputs(np_rng, *shape, 512, 1024), dev, dtype)
+    n0 = tmlp.mlp_block_t.launches
+    got = tmlp.mlp_block_t(*args, 1e-6)
+    want = tmlp.mlp_block_t_plain(*args, 1e-6)
+    torch.cuda.synchronize()
+    assert tmlp.mlp_block_t.launches == n0 + 1
+    assert _excess(got, want, dtype) <= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resident_depth_2_at_3dhp_rows_equals_level_4_kernels(np_rng, dtype):
+    """K9 at depth 2 on the 80 rows of 243 frames, in `group_rows`' grouping
+    for them, equals the level-4 chain of K1 and K2 launches bit for bit."""
+    from d3dp_tpu_torch.ops import resident as tres
+
+    dev = _cuda()
+    x, tpos, sp, tp, shared = _resident_inputs(np_rng, ROWS_3DHP, 243, dev, dtype)
+    n0 = tres.resident_block_stack.launches
+    got = tres.resident_block_stack(x, tpos, sp, tp, shared, 8, 0.125, 1e-6)
+    want = _level_4_chain(x, tpos, sp, tp, shared)
+    torch.cuda.synchronize()
+    assert tres.resident_block_stack.launches == n0 + 1
+    assert torch.equal(got, want)

@@ -53,7 +53,8 @@ def test_package_mirrors_layout():
               "data.windowing", "data.prefetch", "data.generators", "data.synthetic",
               "data.skeleton", "data.mocap", "data.h36m", "eval.evaluator",
               "train.checkpoint_io", "cli.arguments", "cli.data_prep", "cli.main_h36m",
-              "ops.resident",
+              "ops.resident", "metrics.procrustes", "metrics.pck_auc", "data.mpi3dhp",
+              "eval.aggregation", "eval.evaluator_3dhp", "cli.main_3dhp",
               "utils.misc", "utils.logging", "utils.profiling"):
         assert f"d3dp_tpu_torch.{m}" in _modules(), m
 
@@ -111,10 +112,10 @@ def test_train_modules_import_no_jax():
 
 
 def test_cli_modules_import_no_jax():
-    """The command line, imported alone, pulls in no JAX, flax or optax."""
+    """The command lines, imported alone, pull in no JAX, flax or optax."""
     code = (
         "import sys\n"
-        "import d3dp_tpu_torch.cli.main_h36m\n"
+        "import d3dp_tpu_torch.cli.main_h36m, d3dp_tpu_torch.cli.main_3dhp\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'd3dp_tpu')]\n"
         "assert not bad, bad\n"
@@ -133,12 +134,12 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
     from d3dp_tpu_torch.models import MixSTE2, MixSTEConfig
 
     small = MixSTEConfig(num_frames=9, embed_dim=64, depth=1)
-    from d3dp_tpu_torch.cli import main_h36m
+    from d3dp_tpu_torch.cli import main_3dhp, main_h36m
 
+    argv = ["-d", "synthetic", "--nolog", "-cs", "64", "-dep", "1", "-f", "9", "-e", "0"]
     for make in (lambda: resolve_device(), lambda: MixSTE2(small),
                  lambda: D3DP(D3DPConfig(model=small)),
-                 lambda: main_h36m.main(["-d", "synthetic", "--nolog", "-cs", "64", "-dep", "1",
-                                         "-f", "9", "-e", "0"])):
+                 lambda: main_h36m.main(argv), lambda: main_3dhp.main(argv)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert resolve_device("cpu") == torch.device("cpu")
