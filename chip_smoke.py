@@ -46,13 +46,18 @@ random weights from a fixed seed:
     config (H=20, K=10, 2 windows a micro-batch: 80 hypothesis rows) at
     fuse levels 4 and 5 with the four .mat exports, then the PCK/AUC tables
     of the exports;
+  * the in-the-wild, render and draw entry points (phase wild): the
+    in-the-wild pipeline on a 1,000-frame track at fuse levels 4 and 5,
+    `--render --viz-export` and main_draw on the synthetic data, the
+    in-the-wild `main` on an npz track where cv2 is installed, and the
+    plots and the gif where matplotlib is;
 and times them. The stage, MLP and trunk kernels are also held against
 their plain versions at the 3DHP evaluation's 80 hypothesis rows. Every phase raises on failure; the script exits non-zero
 without a CUDA device and prints nothing then but the reason. The last
 stdout line is the run's JSON status; the line before it the per-kernel
 JSON. Details also go to `chiprun_out/chip_smoke.json`, and the command
-lines' own output to `chiprun_out/chip_smoke_cli.log` and
-`chiprun_out/chip_smoke_cli_3dhp.log`.
+lines' own output to `chiprun_out/chip_smoke_cli.log`,
+`chiprun_out/chip_smoke_cli_3dhp.log` and `chiprun_out/chip_smoke_wild.log`.
 """
 
 import contextlib
@@ -1396,6 +1401,240 @@ def phase_cli_3dhp(torch, record):
     record["cli_3dhp"] = out
 
 
+# the in-the-wild track: 1,000 frames of COCO-layout keypoints in a
+# 1920x1080 frame, 5 windows of 243 (the last right-aligned), 4 a sampling
+# call at -b 1024 (2 calls, the second padded by 3 rows)
+WILD_FRAMES, WILD_SIZE = 1000, (1920, 1080)
+
+
+def wild_track(frames, seed):
+    """A seeded (frames, 17, 2) pixel track: one pose about 320 px tall,
+    drifting across the frame, each joint jittered."""
+    rs = np.random.RandomState(seed)
+    pose = rs.randn(17, 2) * np.array([80.0, 160.0])
+    drift = np.cumsum(rs.randn(frames, 1, 2) * 2.0, axis=0)
+    jitter = rs.randn(frames, 17, 2) * 3.0
+    return (np.array([WILD_SIZE[0] / 2, WILD_SIZE[1] / 2]) + pose + drift + jitter
+            ).astype(np.float32)
+
+
+def np_qrot(q, v):
+    """Rotate (..., 3) vectors by the quaternion q (4,) in float64 numpy
+    (the formula of common/quaternion.py)."""
+    q, v = np.asarray(q, np.float64), np.asarray(v, np.float64)
+    qvec = np.broadcast_to(q[1:], v.shape)
+    uv = np.cross(qvec, v)
+    return v + 2 * (q[0] * uv + np.cross(qvec, uv))
+
+
+def phase_wild(torch, record):
+    """The in-the-wild, render and draw entry points at the published width,
+    bf16, H=5, K=5, flip-TTA, weights from a seed:
+      * `in_the_wild.inference.lift_keypoints` (the pipeline after the
+        detector and the frame size) on a 1,000-frame track at fuse levels 4
+        and 5 from one checkpoint and seed: predictions (5, 5, 1000, 17, 3)
+        finite, level 5 equal to level 4 bit for bit, exact launch counts
+        (2 sampling calls), the world frame of H36M_ROT against a float64
+        numpy rotation of the same stack at 1e-5 with min z = 0, both .npy
+        exports written; seconds per micro-batch from the sampler's wall
+        time;
+      * the H36M command line's `--render --viz-export` (and `--viz-output`
+        as a gif where matplotlib is installed) on the synthetic data: the
+        export (Ftot, 17, 3) finite and equal to stitch_windows of the
+        evaluator's prediction return, exact launch counts;
+      * main_draw on the synthetic data (with its plots where matplotlib is
+        installed): (5, 5, Ftot, 17, 3) hypotheses and finite reprojections;
+      * the in-the-wild `main` (what `inference_video` runs) on an npz
+        track beside a 1920x1080 mp4 where cv2 is installed, its plots
+        where matplotlib is: equal to the level-4 run.
+    A step whose library is not installed is left out with a line saying so.
+    Outputs go to a directory under log/ (git-ignored) that is removed
+    afterwards; the entry points' own output to
+    chiprun_out/chip_smoke_wild.log."""
+    import importlib.util
+
+    from d3dp_tpu_torch.cli import main_draw, main_h36m
+    from d3dp_tpu_torch.cli.arguments import parse_args
+    from d3dp_tpu_torch.data.windowing import stitch_windows
+    from d3dp_tpu_torch.eval import Evaluator
+    from d3dp_tpu_torch.in_the_wild import inference
+    from d3dp_tpu_torch.models import MixSTE2, MixSTEConfig
+    from d3dp_tpu_torch.train.checkpoint_io import save_checkpoint
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "cv2")}
+    log("[wild] in this Python environment: " + ", ".join(
+        f"{m} {'installed' if v else 'not installed'}" for m, v in have.items()))
+    seed = 1
+    home = os.getcwd()
+    workdir = os.path.join(home, "log", "chip_smoke_wild")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    bs = 1024 // F
+    n_batches = math.ceil(math.ceil(WILD_FRAMES / F) / bs)
+    wild_argv = ["-f", str(F), "-cs", str(C), "-dep", str(DEPTH), "--dtype", "bfloat16",
+                 "-num_proposals", str(H), "-sampling_timesteps", str(K), "-b", "1024",
+                 "--seed", str(seed)]
+    out = dict(have)
+    sample_s, returned = [], []
+    real_sample, real_evaluate = inference.sample_video_keypoints, Evaluator.evaluate
+
+    def timed_sample(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real_sample(*a, **k)  # ends in the stack's copy to the host
+        finally:
+            sample_s.append(time.perf_counter() - t0)
+
+    def recorded_evaluate(self, *a, **k):
+        res = real_evaluate(self, *a, **k)
+        returned.append(res)
+        return res
+
+    def run(f, fn, *a):
+        reset_counts()
+        with contextlib.redirect_stdout(f):
+            res = fn(*a)
+        torch.cuda.synchronize()
+        return res, {n: c for n, c in read_counts().items() if c}
+
+    try:
+        os.chdir(workdir)
+        inference.sample_video_keypoints = timed_sample
+        Evaluator.evaluate = recorded_evaluate
+        model = MixSTE2(MixSTEConfig(num_frames=F, embed_dim=C, depth=DEPTH, num_heads=HEADS),
+                        "cuda", seed=seed)
+        perturb_(torch, model, seed)
+        ckpt = os.path.join(workdir, "wild.ckpt")
+        save_checkpoint(ckpt, epoch=0, lr=0.0, model=model)
+        del model
+        kps = wild_track(WILD_FRAMES, seed)
+        shape = (K, H, WILD_FRAMES, J, 3)
+        lifted = {}
+        with open(os.path.join(home, "chiprun_out", "chip_smoke_wild.log"), "w") as f:
+            for level in (4, 5):
+                args = parse_args(wild_argv + ["--fuse-level", str(level)], in_the_wild=True)
+                args.video_name, args.evaluate = f"wild_L{level}", ckpt
+                (pred, world), counts = run(f, inference.lift_keypoints, args, kps, *WILD_SIZE)
+                want = {n: n_batches * per_forward(level) * K for n in LEVEL_KERNELS[level]}
+                saved = [np.load(os.path.join("outputs", args.video_name, name)) for name in
+                         (f"test_3d_{args.video_name}_output.npy",
+                          f"test_3d_output_{args.video_name}_postprocess.npy")]
+                ok = (pred.shape == world.shape == shape and np.isfinite(pred).all()
+                      and np.isfinite(world).all() and counts == want
+                      and np.array_equal(saved[0], pred) and np.array_equal(saved[1], world))
+                out[f"L{level}"] = dict(sample_s=sample_s[-1], launches=counts,
+                                        per_micro_batch_s=sample_s[-1] / n_batches)
+                log(f"[wild] level {level}: {WILD_FRAMES} frames, {n_batches} micro-batches of "
+                    f"{bs} windows (H={H}, K={K}, {ROWS} hypothesis rows): sampling "
+                    f"{sample_s[-1]:.3f} s = {sample_s[-1] / n_batches:.3f} s per micro-batch "
+                    f"({record['card']}); prediction {pred.shape} finite "
+                    f"{bool(np.isfinite(pred).all())}, both exports written; launches {counts} "
+                    f"(expected {want}) {'ok' if ok else 'FAIL'}")
+                check(ok, f"in-the-wild level {level}: shapes, exports or launch counts")
+                lifted[level] = (pred, world)
+            equal = np.array_equal(lifted[4][0], lifted[5][0]) and \
+                np.array_equal(lifted[4][1], lifted[5][1])
+            ref = np_qrot(inference.H36M_ROT, lifted[4][0])
+            ref[..., 2] -= ref[..., 2].min()
+            err = float(np.abs(lifted[4][1] - ref).max())
+            zmin = float(lifted[4][1][..., 2].min())
+            ok = equal and err <= 1e-5 and zmin == 0.0
+            out.update(level5_equal=equal, world_max_abs_err=err)
+            log(f"[wild] level 5 equal to level 4 bit for bit {equal}; world frame against "
+                f"numpy qrot max |err| {err:.2e} (<= 1e-5), min z {zmin} "
+                f"{'ok' if ok else 'FAIL'}")
+            check(ok, "in-the-wild: level 5 differs from level 4, or the world frame is off")
+
+            # --render on the synthetic data (S9 "Act0 1": a third of 1,200
+            # frames, 2 windows, one micro-batch of -b 4 windows)
+            frames = 1200 // 3
+            syn = ["-d", "synthetic", "--synthetic-frames", "1200", "--nolog", "-cs", str(C),
+                   "-dep", str(DEPTH), "-f", str(F)]
+            render_argv = syn + ["--dtype", "bfloat16", "-num_proposals", str(H),
+                                 "-sampling_timesteps", str(K), "-b", str(B), "--seed",
+                                 str(seed), "-c", os.path.join(workdir, "ck"), "--render",
+                                 "--viz-subject", "S9", "--viz-action", "Act0 1",
+                                 "--viz-export", "render.npy"]
+            if have["matplotlib"]:
+                render_argv += ["--viz-output", "render.gif", "--viz-limit", "5"]
+            else:
+                log("[wild] --viz-output left out: matplotlib is not installed here "
+                    "(the gif is held on the CPU by tests/test_torch_draw_render.py)")
+            _, counts = run(f, main_h36m.main, render_argv)
+            export = np.load("render.npy")
+            stitched = stitch_windows(returned[-1][:, -1, 0], frames)
+            want = {n: per_forward(4) * K for n in LEVEL_KERNELS[4]}
+            gif = have["matplotlib"] and os.path.getsize("render.gif") > 1000
+            ok = export.shape == (frames, J, 3) and np.isfinite(export).all() and \
+                np.array_equal(export, stitched) and counts == want and \
+                (gif or not have["matplotlib"])
+            out["render"] = dict(launches=counts, gif=gif)
+            log(f"[wild] --render --viz-export: {export.shape} finite "
+                f"{bool(np.isfinite(export).all())}, equal to stitch_windows of the prediction "
+                f"return {np.array_equal(export, stitched)}; gif written {gif}; launches "
+                f"{counts} (expected {want}) {'ok' if ok else 'FAIL'}")
+            check(ok, "--render: export, animation or launch counts")
+
+            draw_argv = syn + ["--dtype", "bfloat16", "-num_proposals", str(H),
+                               "-sampling_timesteps", str(K), "--seed", str(seed),
+                               "--viz-limit", "3"]
+            if have["matplotlib"]:
+                h, counts = run(f, main_draw.main, draw_argv)
+                plots = sorted(os.listdir(os.path.join("plot", "synthetic", "S9_Act0_1_0")))
+            else:
+                log("[wild] main_draw's plots left out: matplotlib is not installed here "
+                    "(held on the CPU by tests/test_torch_draw_render.py); its hypotheses "
+                    "run here")
+                h, counts = run(f, main_draw.hypotheses, parse_args(draw_argv))
+                plots = []
+            ok = h["preds"].shape == (K, H, frames, J, 3) and np.isfinite(h["preds"]).all() \
+                and np.isfinite(h["pred_2d"]).all() and counts == want and \
+                len(plots) == (3 if have["matplotlib"] else 0)
+            out["draw"] = dict(launches=counts, plots=len(plots))
+            log(f"[wild] main_draw: hypotheses {h['preds'].shape} and reprojections finite, "
+                f"{len(plots)} plots; launches {counts} (expected {want}) "
+                f"{'ok' if ok else 'FAIL'}")
+            check(ok, "main_draw: hypotheses, plots or launch counts")
+
+            if have["cv2"]:
+                import cv2
+
+                vw = cv2.VideoWriter("wild.mp4", cv2.VideoWriter_fourcc(*"mp4v"), 25, WILD_SIZE)
+                for _ in range(10):
+                    vw.write(np.full((WILD_SIZE[1], WILD_SIZE[0], 3), 128, np.uint8))
+                vw.release()
+                np.savez("wild.npz", kpts=kps)
+                # inference_video's namespace, plots only where matplotlib is
+                args = parse_args(wild_argv + ["--viz-limit", "2"], in_the_wild=True)
+                args.detector_2d, args.video_name, args.viz_video = "npz", "wild", "wild.mp4"
+                args.evaluate, args.render_frames = ckpt, have["matplotlib"]
+                if not have["matplotlib"]:
+                    log("[wild] in-the-wild main's plots left out: matplotlib is not installed "
+                        "here (held on the CPU by tests/test_torch_wild.py)")
+                world, counts = run(f, inference.main, args)
+                plot_dir = os.path.join("outputs", "wild", "wild_wild_0")
+                plots = os.listdir(plot_dir) if os.path.isdir(plot_dir) else []
+                want = {n: n_batches * per_forward(4) * K for n in LEVEL_KERNELS[4]}
+                ok = np.array_equal(world, lifted[4][1]) and counts == want and \
+                    len(plots) == (2 if have["matplotlib"] else 0)
+                out["inference_main"] = dict(launches=counts, plots=len(plots))
+                log(f"[wild] in-the-wild main on an npz track beside a {WILD_SIZE[0]}x"
+                    f"{WILD_SIZE[1]} mp4 (frame size from cv2): equal to the level-4 run "
+                    f"{np.array_equal(world, lifted[4][1])}, {len(plots)} plots; launches "
+                    f"{counts} (expected {want}) {'ok' if ok else 'FAIL'}")
+                check(ok, "in-the-wild main: prediction, plots or launch counts")
+            else:
+                log("[wild] in-the-wild main left out: cv2 (the frame size) is not installed "
+                    "here (held on the CPU by tests/test_torch_wild.py); its pipeline "
+                    "after the detector and the frame size ran above")
+    finally:
+        os.chdir(home)
+        inference.sample_video_keypoints = real_sample
+        Evaluator.evaluate = real_evaluate
+        shutil.rmtree(workdir, ignore_errors=True)
+    record["wild"] = out
+
+
 def phase_train_model(torch, record):
     """MixSTE2 fp32, full width, depth 2, DropPath 0.1: one train_forward
     loss and every gradient on the kernel path (K3 forward, K4 backward)
@@ -2720,6 +2959,7 @@ def main():
     del d3dp
     phase_cli(torch, record)
     phase_cli_3dhp(torch, record)
+    phase_wild(torch, record)
     line = kernels_line(rows, errs, record["launches"])
     record["kernels"] = line["kernels"]
     record["seconds"] = time.perf_counter() - t_all

@@ -205,7 +205,6 @@ def _not_ported(args):
         (args.multihost, "--multihost"),
         (bool(args.coordinator_address) or args.num_hosts != 0 or args.host_id != -1,
          "--coordinator-address/--num-hosts/--host-id (multi-host)"),
-        (args.render, "--render"),
         (args.input_pipeline == "grain", "--input-pipeline grain"),
         (args.ckpt_format == "orbax", "--ckpt-format orbax"),
     )

@@ -1,4 +1,4 @@
-"""Human3.6M entry point: train and evaluate.
+"""Human3.6M entry point: train, evaluate and render.
 
     python -m d3dp_tpu_torch.cli.main_h36m -d synthetic --nolog ...
 
@@ -21,6 +21,7 @@ import torch
 
 from d3dp_tpu_torch.cli.arguments import device_of, parse_args
 from d3dp_tpu_torch.cli.data_prep import fetch, prepare_data
+from d3dp_tpu_torch.cli.render import run_render
 from d3dp_tpu_torch.data.generators import ChunkedGenerator, UnchunkedGenerator
 from d3dp_tpu_torch.data.prefetch import Prefetcher
 from d3dp_tpu_torch.device import disable_tf32, resolve_device
@@ -425,6 +426,9 @@ def run_with_args(args):
         if args.evaluate:
             print("Evaluating...")
             return run_evaluation(args, data, d3dp_eval)
+        if args.render:
+            print("Rendering...")
+            return run_render(args, data, d3dp_eval, _generator(device, args.seed))
         return run_training(args, data, d3dp_train, d3dp_valid, writer, resume_ckpt=loaded_ckpt)
     finally:
         if writer is not None:

@@ -9,14 +9,32 @@ the final partial batch and returns a 0/1 weight mask. Same seed, same
 batches as the JAX package's Python extraction path (`use_native=False`);
 the native chunk assembler is not ported.
 
-`UnchunkedGenerator` is reduced to what the evaluators use: flip-TTA is
-fused into the sampler, so it never builds a flipped duplicate; the 3DHP
-evaluator's (valid, key) yield is kept.
+`UnchunkedGenerator` yields whole sequences; with `augment` it stacks the
+flipped copy beside each (the evaluators fuse flip-TTA into the sampler and
+leave it off), and it keeps the 3DHP evaluator's (valid, key) yield.
 """
 
 from itertools import zip_longest
 
 import numpy as np
+
+
+def flip_sequence(seq, left, right):
+    """A mirrored copy of (T, J, C) poses: x negated, left and right joints
+    swapped."""
+    seq = seq.copy()
+    seq[..., 0] *= -1
+    seq[:, left + right] = seq[:, right + left]
+    return seq
+
+
+def flip_camera(cam):
+    """A copy of a (9,) intrinsic vector for the mirrored image: the
+    principal point cx and the tangential p1 change sign."""
+    cam = np.array(cam)
+    cam[2] *= -1
+    cam[7] *= -1
+    return cam
 
 
 def chunk_schedule(seq_lengths, chunk_length, augment):
@@ -113,13 +131,6 @@ class ChunkedGenerator:
                            "edge")
         return chunk
 
-    @staticmethod
-    def _flip(chunk, left, right):
-        chunk = chunk.copy()
-        chunk[..., 0] *= -1
-        chunk[:, left + right] = chunk[:, right + left]
-        return chunk
-
     def assemble_batch(self, chunks):
         """One batch from a slice of the chunk table: flip augmentation (with
         the camera sign flips), edge padding, fixed-shape pad_last rows. A
@@ -133,11 +144,8 @@ class ChunkedGenerator:
         if self.cameras is not None:
             batch_cam = np.empty((bs, self.cameras[0].shape[-1]), dtype=np.float32)
             for i, (seq_i, _, _, flip) in enumerate(chunks):
-                cam = np.array(self.cameras[int(seq_i)], dtype=np.float32)
-                if flip:
-                    cam[2] *= -1  # principal point cx
-                    cam[7] *= -1  # tangential p1
-                batch_cam[i] = cam
+                cam = np.asarray(self.cameras[int(seq_i)], dtype=np.float32)
+                batch_cam[i] = flip_camera(cam) if flip else cam
 
         L = self.chunk_length
         batch_2d = np.empty((bs, L) + self.poses_2d[0].shape[1:], dtype=np.float32)
@@ -147,11 +155,11 @@ class ChunkedGenerator:
         for i, (seq_i, start, end, flip) in enumerate(chunks):
             seq_i, start, end = int(seq_i), int(start), int(end)
             chunk_2d = self._extract(self.poses_2d, seq_i, start, end)
-            batch_2d[i] = self._flip(chunk_2d, self.kps_left, self.kps_right) if flip \
+            batch_2d[i] = flip_sequence(chunk_2d, self.kps_left, self.kps_right) if flip \
                 else chunk_2d
             if batch_3d is not None:
                 chunk_3d = self._extract(self.poses_3d, seq_i, start, end)
-                batch_3d[i] = self._flip(chunk_3d, self.joints_left, self.joints_right) \
+                batch_3d[i] = flip_sequence(chunk_3d, self.joints_left, self.joints_right) \
                     if flip else chunk_3d
 
         if self.pad_last and n < bs:
@@ -182,13 +190,20 @@ class ChunkedGenerator:
 
 
 class UnchunkedGenerator:
-    """Yields (cam (1, 9), pose3d (1, T, J, 3), pose2d (1, T, J, 2)) per
-    sequence; cam and pose3d are None where not given. With `valid_frames`
-    (one (T,) mask per sequence, the 3DHP test set) it yields (cam, pose3d,
-    pose2d, valid, key) instead, `key` from `keys` or the sequence's index.
-    (reference: common/generators.py:174-249 and its 3DHP dict variant)"""
+    """Yields (cam (N, 9), pose3d (N, T, J, 3), pose2d (N, T, J, 2)) per
+    sequence, N = 1, or N = 2 with `augment`: the flipped copy (keypoints
+    by `kps_left`/`kps_right`, poses by `joints_left`/`joints_right`, the
+    camera's cx and p1 negated) stacked after the original. cam and pose3d
+    are None where not given. With `valid_frames` (one (T,) mask per
+    sequence, the 3DHP test set) it yields (cam, pose3d, pose2d, valid, key)
+    instead, `key` from `keys` or the sequence's index.
+    (reference: common/generators.py:174-249 and its 3DHP dict variant; the
+    constructor's `augment` is honoured, where the reference sets it False
+    and relies on set_augment)"""
 
-    def __init__(self, cameras, poses_3d, poses_2d, valid_frames=None, keys=None):
+    def __init__(self, cameras, poses_3d, poses_2d, augment=False, kps_left=None,
+                 kps_right=None, joints_left=None, joints_right=None, valid_frames=None,
+                 keys=None):
         if poses_3d is not None and len(poses_3d) != len(poses_2d):
             raise ValueError("poses_3d and poses_2d differ in sequence count")
         if cameras is not None and len(cameras) != len(poses_2d):
@@ -198,18 +213,36 @@ class UnchunkedGenerator:
         self.cameras = [] if cameras is None else cameras
         self.poses_3d = [] if poses_3d is None else poses_3d
         self.poses_2d = poses_2d
+        self.augment = bool(augment)
+        self.kps_left = kps_left
+        self.kps_right = kps_right
+        self.joints_left = joints_left
+        self.joints_right = joints_right
         self.valid_frames = valid_frames
         self.keys = keys
 
     def num_frames(self):
         return sum(p.shape[0] for p in self.poses_2d)
 
+    def augment_enabled(self):
+        return self.augment
+
+    def set_augment(self, augment):
+        self.augment = augment
+
     def next_epoch(self):
         for idx, (seq_cam, seq_3d, seq_2d) in enumerate(
                 zip_longest(self.cameras, self.poses_3d, self.poses_2d)):
-            item = (None if seq_cam is None else np.expand_dims(seq_cam, 0),
-                    None if seq_3d is None else np.expand_dims(seq_3d, 0),
-                    np.expand_dims(seq_2d, 0))
+            cam = None if seq_cam is None else [seq_cam]
+            p3 = None if seq_3d is None else [seq_3d]
+            p2 = [seq_2d]
+            if self.augment:
+                if cam is not None:
+                    cam.append(flip_camera(seq_cam))
+                if p3 is not None:
+                    p3.append(flip_sequence(seq_3d, self.joints_left, self.joints_right))
+                p2.append(flip_sequence(seq_2d, self.kps_left, self.kps_right))
+            item = tuple(None if x is None else np.stack(x) for x in (cam, p3, p2))
             if self.valid_frames is not None:
                 key = self.keys[idx] if self.keys is not None else idx
                 item += (self.valid_frames[idx], key)

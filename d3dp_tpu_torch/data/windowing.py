@@ -9,6 +9,7 @@ same size on the device; the ragged sequence never reaches it.
 """
 
 import numpy as np
+import torch
 
 
 def window_sequence(seq, receptive_field):
@@ -41,6 +42,42 @@ def stitch_windows(windows, total_frames):
     else:
         out[:] = windows[-1][:total_frames]
     return out
+
+
+def stitch_hypotheses(preds, total_frames):
+    """stitch_windows of every (K, H) hypothesis: (W, K, H, rf, J, 3) ->
+    (K, H, total_frames, J, 3)."""
+    K, H = preds.shape[1:3]
+    return np.stack([np.stack([stitch_windows(preds[:, k, h], total_frames) for h in range(H)])
+                     for k in range(K)])
+
+
+def sample_windows(d3dp, w2d, w2d_flip, bs, generator):
+    """DDIM-sample every window, `bs` windows a `D3DP.sample` call ->
+    (W, K, H, rf, J, 3) numpy.
+
+    The window sampler shared by main_draw's hypothesis collector and the
+    in-the-wild pipeline. The last micro-batch is padded to `bs` rows with
+    copies of its first row, so every call has one shape; the pad rows are
+    dropped, and the stack is copied to the host once, after the loop.
+    `generator` is a torch.Generator on the sampler's device, drawn from in
+    order across the micro-batches.
+    """
+    W = w2d.shape[0]
+    dev = d3dp.device
+    parts = []
+    for lo in range(0, W, bs):
+        hi = min(lo + bs, W)
+        pad = bs - (hi - lo)
+        a, b = w2d[lo:hi], w2d_flip[lo:hi]
+        if pad:
+            a = np.concatenate([a, np.repeat(a[:1], pad, 0)], 0)
+            b = np.concatenate([b, np.repeat(b[:1], pad, 0)], 0)
+        out = d3dp.sample(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev),
+                          torch.from_numpy(np.ascontiguousarray(b, np.float32)).to(dev),
+                          generator=generator)
+        parts.append(out[: hi - lo])
+    return torch.cat(parts).cpu().numpy()
 
 
 def window_batch(poses_2d, poses_3d, receptive_field, valid_frame=None):

@@ -146,7 +146,7 @@ class Evaluator:
             }
         return errors, errors_p2, preds
 
-    def evaluate(self, generator, rng=None, noise_provider=None):
+    def evaluate(self, generator, rng=None, noise_provider=None, return_predictions=False):
         """Run the eval loop over an UnchunkedGenerator.
 
         `rng`: torch.Generator on the sampler's device, drawn from in order
@@ -156,7 +156,10 @@ class Evaluator:
         that replace the sampler's draws (pad rows get zeros; their outputs
         carry weight 0).
 
-        Returns an EvalResult.
+        Returns an EvalResult; with `return_predictions` (the --render path)
+        instead the root-zeroed prediction stack (W, K, H, F, J, 3) numpy of
+        all windows of the first sequence, copied to the host once, after
+        its last micro-batch. No metric is computed then.
         """
         result = EvalResult()
         rf, bs, dev = self.rf, self.bs, self.device
@@ -189,6 +192,7 @@ class Evaluator:
         for cam_vec, w2d, w2d_f, w3d, traj in Prefetcher(prep(), depth=2):
             W = w2d.shape[0]
             n_batches = (W + bs - 1) // bs
+            pred_parts = []
             for b in range(n_batches):
                 lo, hi = b * bs, min((b + 1) * bs, W)
                 n = hi - lo
@@ -209,6 +213,9 @@ class Evaluator:
                     noise = provider_noise(noise_provider, n, pad, bs)
                 preds = self.d3dp.sample(x2d, take(w2d_f), generator=rng,
                                          noise_override=noise)
+                if return_predictions:
+                    pred_parts.append(preds[:n])
+                    continue
                 errors, errors_p2, preds = self._score(preds, x2d, take(w3d), take(traj),
                                                        cams, weights)
                 if self.p2 and not self.p2_device:
@@ -222,6 +229,10 @@ class Evaluator:
                     float(errors["P_Best"].sum())
                 if self.quickdebug:
                     return result
+            if return_predictions:
+                preds = torch.cat(pred_parts)
+                preds[..., 0, :] = 0.0  # zero root (main.py:700)
+                return preds.cpu().numpy()
         return result
 
     def _p2_host(self, preds, x3d, x2d, cam_vec, traj):

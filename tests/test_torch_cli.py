@@ -55,7 +55,7 @@ def test_parse_args_gives_jax_namespace(argv):
 
 @pytest.mark.parametrize("flag", [
     ["--dp", "2"], ["--tp", "2"],
-    ["--multihost"], ["--coordinator-address", "localhost:1234"], ["--render"],
+    ["--multihost"], ["--coordinator-address", "localhost:1234"],
     ["--input-pipeline", "grain"], ["--ckpt-format", "orbax"],
 ])
 def test_flags_not_ported_raise(flag, capsys):

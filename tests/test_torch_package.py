@@ -55,6 +55,8 @@ def test_package_mirrors_layout():
               "train.checkpoint_io", "cli.arguments", "cli.data_prep", "cli.main_h36m",
               "ops.resident", "metrics.procrustes", "metrics.pck_auc", "data.mpi3dhp",
               "eval.aggregation", "eval.evaluator_3dhp", "cli.main_3dhp",
+              "viz.visualization", "in_the_wild.inference", "cli.render", "cli.main_draw",
+              "cli.main_in_the_wild",
               "utils.misc", "utils.logging", "utils.profiling"):
         assert f"d3dp_tpu_torch.{m}" in _modules(), m
 
@@ -116,6 +118,8 @@ def test_cli_modules_import_no_jax():
     code = (
         "import sys\n"
         "import d3dp_tpu_torch.cli.main_h36m, d3dp_tpu_torch.cli.main_3dhp\n"
+        "import d3dp_tpu_torch.cli.main_draw, d3dp_tpu_torch.cli.main_in_the_wild\n"
+        "import d3dp_tpu_torch.in_the_wild.inference\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'd3dp_tpu')]\n"
         "assert not bad, bad\n"
@@ -134,12 +138,15 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
     from d3dp_tpu_torch.models import MixSTE2, MixSTEConfig
 
     small = MixSTEConfig(num_frames=9, embed_dim=64, depth=1)
-    from d3dp_tpu_torch.cli import main_3dhp, main_h36m
+    from d3dp_tpu_torch.cli import main_3dhp, main_draw, main_h36m, main_in_the_wild
+    from d3dp_tpu_torch.in_the_wild import inference_video
 
     argv = ["-d", "synthetic", "--nolog", "-cs", "64", "-dep", "1", "-f", "9", "-e", "0"]
     for make in (lambda: resolve_device(), lambda: MixSTE2(small),
                  lambda: D3DP(D3DPConfig(model=small)),
-                 lambda: main_h36m.main(argv), lambda: main_3dhp.main(argv)):
+                 lambda: main_h36m.main(argv), lambda: main_3dhp.main(argv),
+                 lambda: main_draw.main(argv), lambda: main_in_the_wild.main(argv),
+                 lambda: inference_video("video.mp4", "npz", argv=argv[3:])):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert resolve_device("cpu") == torch.device("cpu")
