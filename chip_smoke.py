@@ -51,6 +51,14 @@ random weights from a fixed seed:
     `--render --viz-export` and main_draw on the synthetic data, the
     in-the-wild `main` on an npz track where cv2 is installed, and the
     plots and the gif where matplotlib is;
+  * data-parallel training and evaluation (phase dp, `parallel/`): two
+    ranks sharing the card over gloo train 3 steps (2 chunks a rank, fp32
+    and bf16) and evaluate one Eval-config micro-batch (2 windows, 20
+    hypothesis rows a rank) at fuse levels 4 and 5, against one process on
+    the same batches and noise (bf16 parameters without the qkv key
+    bias, whose exact gradient is zero), with exact launch counts a rank; a world
+    of one over NCCL equal to the run without a mesh; NCCL over two cards
+    where the box has them; K1, K2 and K9 at a rank's 20 rows;
 and times them. The stage, MLP and trunk kernels are also held against
 their plain versions at the 3DHP evaluation's 80 hypothesis rows. Every phase raises on failure; the script exits non-zero
 without a CUDA device and prints nothing then but the reason. The last
@@ -58,6 +66,8 @@ stdout line is the run's JSON status; the line before it the per-kernel
 JSON. Details also go to `chiprun_out/chip_smoke.json`, and the command
 lines' own output to `chiprun_out/chip_smoke_cli.log`,
 `chiprun_out/chip_smoke_cli_3dhp.log` and `chiprun_out/chip_smoke_wild.log`.
+Phase dp's per-rank launch counts are a `{"dp_launches": ...}` line of
+their own, before the last two lines.
 """
 
 import contextlib
@@ -599,58 +609,59 @@ def check_resident_kernel(torch, dt, name_dt, errs):
         del got, want
 
 
-def check_3dhp_rows(torch, gen, dt, name_dt, errs):
+def check_3dhp_rows(torch, gen, dt, name_dt, errs, rows=ROWS_3DHP, tag="3DHP"):
     """K1 and K2 against their plain versions at the 3DHP evaluation's 80
     hypothesis rows (19,440 spatial sequences of 17 tokens, 1,360 temporal
     ones of 243; 330,480 token rows through the MLP), at K1/K2's tolerance;
     then K9 at depth 2 on those rows, in `group_rows`' grouping for them,
-    against the level-4 chain of K1 and K2 launches: equal bit for bit."""
+    against the level-4 chain of K1 and K2 launches: equal bit for bit.
+    `rows` and `tag`: another row count (phase dp's 20 a rank)."""
     from d3dp_tpu_torch.ops import attention as A
     from d3dp_tpu_torch.ops import mlp as M
     from d3dp_tpu_torch.ops import resident as R
 
     ulp = BF16_ULP if dt == torch.bfloat16 else 0.0
     tol = TOL[name_dt]
-    for label, Rn, N in (("spatial", ROWS_3DHP * F, J), ("temporal", ROWS_3DHP * J, F)):
+    for label, Rn, N in (("spatial", rows * F, J), ("temporal", rows * J, F)):
         args = stage_inputs(torch, gen, Rn, N, dt)
         got = A.attention_stage(*args, HEADS, (C // HEADS) ** -0.5, 1e-6)
         want = A.attention_stage_plain(*args, HEADS, (C // HEADS) ** -0.5, 1e-6)
         torch.cuda.synchronize()
         es = [max_err(torch, g, w, ulp) for g, w in zip(got, want)]
         ok = all(ex <= tol for _, ex in es)
-        log(f"[kernels] attention_stage 3DHP {label} {name_dt} x{tuple(args[0].shape)}: "
+        log(f"[kernels] attention_stage {tag} {label} {name_dt} x{tuple(args[0].shape)}: "
             f"max|err| x2 {es[0][0]:.3e} y2 {es[1][0]:.3e} (tol {tol:g}"
             f"{' + 1 bf16 ulp' if ulp else ''}) {'ok' if ok else 'FAIL'}")
-        check(ok, f"attention_stage at the 3DHP rows ({label}, {name_dt}) disagrees with its "
+        check(ok, f"attention_stage at the {tag} rows ({label}, {name_dt}) disagrees with its "
                   "plain version")
         if dt == torch.bfloat16:
             errs["attention_stage"] = max(errs["attention_stage"], *(e for e, _ in es))
         del args, got, want
     for label, D1, D2 in (("spatial->temporal", F, J), ("temporal->spatial", J, F)):
-        args = mlp_inputs(torch, gen, D1, D2, dt, rows=ROWS_3DHP)
+        args = mlp_inputs(torch, gen, D1, D2, dt, rows=rows)
         got = M.mlp_block_t(*args, 1e-6)
         want = M.mlp_block_t_plain(*args, 1e-6)
         torch.cuda.synchronize()
         e, ex = max_err(torch, got, want, ulp)
-        log(f"[kernels] mlp_block_t 3DHP {label} {name_dt} x{tuple(args[0].shape)}: max|err| "
+        log(f"[kernels] mlp_block_t {tag} {label} {name_dt} x{tuple(args[0].shape)}: max|err| "
             f"{e:.3e} (tol {tol:g}{' + 1 bf16 ulp' if ulp else ''}) {'ok' if ex <= tol else 'FAIL'}")
-        check(ex <= tol, f"mlp_block_t at the 3DHP rows ({label}, {name_dt}) disagrees with its "
+        check(ex <= tol, f"mlp_block_t at the {tag} rows ({label}, {name_dt}) disagrees with its "
                          "plain version")
         if dt == torch.bfloat16:
             errs["mlp_block_t"] = max(errs["mlp_block_t"], e)
         del args, got, want
-    x, tpos, sp, tp, shared = resident_inputs(torch, dt, 60, rows=ROWS_3DHP)
+    x, tpos, sp, tp, shared = resident_inputs(torch, dt, 60, rows=rows)
     args = (x, tpos, tuple(w[:2] for w in sp), tuple(w[:2] for w in tp), shared)
-    groups = R.group_rows(ROWS_3DHP, F, J, torch.cuda.get_device_properties(0).multi_processor_count)
+    groups = R.group_rows(rows, F, J, torch.cuda.get_device_properties(0).multi_processor_count)
     got = R.resident_block_stack(*args, HEADS, 0.125, 1e-6)
     want = level4_chain(R, A, M, args)
     torch.cuda.synchronize()
     equal = torch.equal(got, want) and bool(torch.isfinite(got).all())
-    log(f"[kernels] resident_block_stack 3DHP {name_dt} x{tuple(x.shape)} depth 2, {groups} "
+    log(f"[kernels] resident_block_stack {tag} {name_dt} x{tuple(x.shape)} depth 2, {groups} "
         f"rows a group: max|diff| to the level-4 chain "
         f"{(got.float() - want.float()).abs().max().item():.3e}, equal {equal} "
         f"{'ok' if equal else 'FAIL'}")
-    check(equal, f"resident_block_stack at the 3DHP rows ({name_dt}) differs from level 4")
+    check(equal, f"resident_block_stack at the {tag} rows ({name_dt}) differs from level 4")
     del x, args, got, want
 
 
@@ -1172,8 +1183,10 @@ def phase_cli(torch, record):
     ckdir = os.path.join("log", "chip_smoke_cli")
     shutil.rmtree(ckdir, ignore_errors=True)
     os.makedirs(ckdir)
+    # --dp 1: the one-process path, whose launches this process counts (the
+    # command lines take every card by default)
     base = ["-d", "synthetic", "--nolog", "-cs", str(C), "-dep", str(DEPTH), "-f", str(F),
-            "--dtype", "bfloat16", "-c", ckdir, "--eval-batch-size", str(B)]
+            "--dtype", "bfloat16", "-c", ckdir, "--eval-batch-size", str(B), "--dp", "1"]
     # 6 test sequences of 400 synthetic frames: 2 windows each, 1 micro-batch
     n_batches = 2 * 3 * math.ceil(math.ceil(400 / F) / B)
     runs = [("train", ["-e", "1", "-cf", "1"], None),
@@ -1296,7 +1309,7 @@ def phase_cli_3dhp(torch, record):
     os.makedirs(ckdir)
     base = ["-d", "synthetic", "--nolog", "-cs", str(C), "-dep", str(DEPTH), "-f", str(F),
             "--dtype", "bfloat16", "-c", ckdir, "--synthetic-frames", str(frames),
-            "--seed", str(seed)]
+            "--seed", str(seed), "--dp", "1"]  # one process, as phase cli
     n_batches = 2 * math.ceil(math.ceil(frames / F) / B_3DHP)
     evaluate = ["--evaluate", "best_epoch.ckpt", "-num_proposals", str(H_3DHP),
                 "-sampling_timesteps", str(K_3DHP), "--eval-batch-size", str(B_3DHP)]
@@ -1549,7 +1562,7 @@ def phase_wild(torch, record):
             # frames, 2 windows, one micro-batch of -b 4 windows)
             frames = 1200 // 3
             syn = ["-d", "synthetic", "--synthetic-frames", "1200", "--nolog", "-cs", str(C),
-                   "-dep", str(DEPTH), "-f", str(F)]
+                   "-dep", str(DEPTH), "-f", str(F), "--dp", "1"]  # one process, as phase cli
             render_argv = syn + ["--dtype", "bfloat16", "-num_proposals", str(H),
                                  "-sampling_timesteps", str(K), "-b", str(B), "--seed",
                                  str(seed), "-c", os.path.join(workdir, "ck"), "--render",
@@ -2876,6 +2889,355 @@ def train_fused_kernel_rows(torch, Fn, gen):
     return rows
 
 
+# ------------------------------------------------------------- phase dp
+DP_STEPS = 3
+DP_B = 4  # the Eval config's windows a micro-batch (DP_B / 2 = 2 a rank: 20 rows)
+# bf16 training against one process. The key third of a qkv bias has a
+# gradient that is zero in exact arithmetic (softmax ignores a constant
+# added to a row's logits), so in bf16 it is rounding noise, which the two
+# runs sum in other orders and AdamW normalizes to full-size steps. Such a
+# slice is left out of the parameter check where its one-process gradient
+# at the first step is zero to rounding: its largest entry under one bf16
+# unit (2^-8) of the largest of its query and value thirds (3.0e-6 read on
+# an H100). Its gap is reported. The later losses are held at
+# BF16_LOSS_TOL relative (1.85e-4 and 1.13e-4 read there).
+KEY_BIAS_ZERO = 2.0 ** -8
+BF16_LOSS_TOL = 1e-3
+
+
+def dp_train(torch, mesh, dtype):
+    """DP_STEPS train steps at the train config (DropPath 0.1, AdamW 6e-5)
+    in `dtype`, batches of BT chunks from a seeded ChunkedGenerator through
+    the Prefetcher (under a mesh with `shard_batch_fn`, BT / dp chunks a
+    rank), weights from seed 0 perturbed by seed 1. Returns (losses,
+    parameters on the host, seconds per step, K3 / K4 launches per step,
+    `key_bias_grads` after the first step, the D3DP)."""
+    from d3dp_tpu_torch.data.generators import ChunkedGenerator
+    from d3dp_tpu_torch.data.prefetch import Prefetcher
+    from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT, make_dataset
+    from d3dp_tpu_torch.diffusion import D3DP
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.parallel import shard_batch_fn
+    from d3dp_tpu_torch.train.state import make_optimizer, make_train_step
+
+    dev = torch.device("cuda") if mesh is None else mesh.device
+    cfg = train_config(torch)
+    d3dp = D3DP(dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype)),
+                device=dev, seed=0)
+    perturb_(torch, d3dp.model, 1)
+    step = make_train_step(d3dp, make_optimizer(d3dp.model.parameters(), 6e-5), mesh=mesh)
+    lr_kw = dict(kps_left=list(JOINTS_LEFT), kps_right=list(JOINTS_RIGHT),
+                 joints_left=list(JOINTS_LEFT), joints_right=list(JOINTS_RIGHT))
+    gen = ChunkedGenerator(BT, *make_dataset(seed=5, lengths=(1200, 900)), F, shuffle=True,
+                           random_seed=1234, augment=True, pad_last=True, **lr_kw)
+    batches = iter(Prefetcher(gen.next_epoch(), depth=2,
+                              to_device=None if mesh is None else shard_batch_fn(mesh)))
+    g = torch.Generator(device=dev).manual_seed(11)
+    losses, seconds, counts, key_grads = [], [], [], None
+    for _ in range(DP_STEPS):
+        _, b3, b2, w = next(batches)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(b2, b3, w, generator=g).item())
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        counts.append((A.fused_attention_qkv.launches, A.fused_attention_qkv_bwd.launches))
+        key_grads = key_grads or key_bias_grads(torch, d3dp.model)
+    batches.close()
+    params = {n: p.detach().float().cpu() for n, p in d3dp.model.named_parameters()}
+    return losses, params, seconds, counts, key_grads, d3dp
+
+
+def key_bias_grads(torch, model):
+    """{name: (max|g| of the key third, max|g| of the query and value
+    thirds)} of every qkv bias's gradient."""
+    out = {}
+    for n, p in model.named_parameters():
+        if n.endswith("attn.qkv.bias"):
+            g = p.grad.float().abs()
+            out[n] = (g[C:2 * C].max().item(), torch.cat([g[:C], g[2 * C:]]).max().item())
+    return out
+
+
+def param_gaps(torch, params, want, left_out=()):
+    """(max over tensors of the relative L2 distance, max over tensors of
+    max|diff| / max|p|) of `params` from `want`, with the key third of
+    each qkv bias named in `left_out` removed."""
+    def kept(n, p):
+        return torch.cat([p[:C], p[2 * C:]]) if n in left_out else p
+
+    pairs = [(kept(n, params[n]), kept(n, p)) for n, p in want.items()]
+    return (max(((a - b).norm() / b.norm()).item() for a, b in pairs),
+            max((a - b).abs().max().item() / b.abs().max().item() for a, b in pairs))
+
+
+def dp_eval(torch, mesh):
+    """One Eval-config micro-batch (DP_B windows of a 972-frame synthetic
+    sequence, H=5, K=5, flip-TTA, bf16) through the Evaluator at fuse
+    levels 4 and 5, each after an untimed warm-up call, on one noise seed.
+    Returns {level: (P1 mode -> (K,) list, seconds, launches)}."""
+    from d3dp_tpu_torch.data.generators import UnchunkedGenerator
+    from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT, make_dataset
+    from d3dp_tpu_torch.diffusion import D3DP
+    from d3dp_tpu_torch.eval import MODES, Evaluator
+
+    dev = torch.device("cuda") if mesh is None else mesh.device
+    d3dp = D3DP(main_config(torch), device=dev, seed=0)
+    perturb_(torch, d3dp.model, 1)
+    data = make_dataset(seed=3, lengths=(DP_B * F,))
+    ev = Evaluator(d3dp, receptive_field=F, batch_size=DP_B, mesh=mesh,
+                   kps_left=list(JOINTS_LEFT), kps_right=list(JOINTS_RIGHT))
+    out = {}
+    for level in (4, 5):
+        set_level(d3dp.model, level)
+        for timed in (False, True):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ev.evaluate(UnchunkedGenerator(*data),
+                              torch.Generator(device=dev).manual_seed(21)).averages_mm()
+            torch.cuda.synchronize()
+        out[level] = ({m: res[m].tolist() for m in MODES}, time.perf_counter() - t0,
+                      read_counts())
+    return out
+
+
+def dp_train_rep(torch, mesh, ref):
+    """dp_train in fp32 and bf16 on `mesh`, against the one-process `ref`:
+    each step's loss relative to it, and the parameters' `param_gaps` from
+    it; in bf16 without the key-bias slices whose reference gradient is
+    zero to rounding (KEY_BIAS_ZERO), whose own gaps are reported."""
+    rep = {}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        losses, params, step_s, counts, _, d3dp = dp_train(torch, mesh, dt)
+        want = ref[name]
+        ratios = {n: k / qv for n, (k, qv) in want["key_grads"].items()}
+        left_out = sorted(n for n, r in ratios.items() if r <= KEY_BIAS_ZERO) \
+            if dt == torch.bfloat16 else []
+        rel_l2, rel_max = param_gaps(torch, params, want["params"], left_out)
+        key = [(params[n][C:2 * C], want["params"][n][C:2 * C]) for n in left_out]
+        rep[name] = dict(
+            losses=losses, step_s=step_s, step_counts=counts,
+            loss_rel=[abs(a - b) / abs(b) for a, b in zip(losses, want["losses"])],
+            param_rel_l2=rel_l2, param_rel_max=rel_max,
+            param_rel_l2_all=param_gaps(torch, params, want["params"])[0],
+            key_ratio_max=max(ratios.values()), left_out=len(left_out),
+            key_rel_l2=max((((a - b).norm() / b.norm()).item() for a, b in key), default=0.0),
+            key_max_diff=max(((a - b).abs().max().item() for a, b in key), default=0.0),
+            finite=all(bool(torch.isfinite(p).all()) for p in params.values()))
+    return rep, d3dp
+
+
+def dp_rank(out_dir, devices):
+    """One rank of phase dp (a spawned process): dp_train (fp32 and bf16)
+    and dp_eval on a mesh over `devices`, each rank's numbers against the
+    one-process reference in out_dir/ref.pt, the gradient all-reduce and a
+    micro-batch's error all-reduce timed; the report to
+    out_dir/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from d3dp_tpu_torch import disable_tf32
+    from d3dp_tpu_torch.parallel import make_mesh
+
+    disable_tf32()
+    mesh = make_mesh(dp=2, devices=devices)
+    ref = torch.load(os.path.join(out_dir, "ref.pt"), weights_only=False)
+    train, d3dp = dp_train_rep(torch, mesh, ref["train"])
+    model_params = list(d3dp.model.parameters())
+
+    def timed(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps
+
+    # the gradients' all-reduce alone, as one flat fp32 tensor (the step's
+    # DistributedDataParallel reduces them in buckets while its backward runs)
+    n_grad = sum(p.numel() for p in model_params)
+    flat = torch.zeros(n_grad, device=mesh.device)
+    grad_s = timed(lambda: dist.all_reduce(flat))
+    del d3dp, model_params, flat
+    small = torch.zeros(4 * K + K * H, device=mesh.device)
+    err_s = timed(lambda: dist.all_reduce(small))
+    ev = dp_eval(torch, mesh)
+    rep = dict(rank=mesh.rank, device=str(mesh.device), train=train, grad_allreduce_s=grad_s,
+               grad_floats=n_grad, error_allreduce_s=err_s,
+               eval={str(k): v for k, v in ev.items()},
+               eval_vs_ref=max(abs(a - b) for m, v in ev[4][0].items()
+                               for a, b in zip(v, ref["eval"][4][0][m])),
+               level5_equal=ev[5][0] == ev[4][0])
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(rep, f)
+
+
+def check_dp_ranks(torch, out_dir, label, record):
+    """Read and check the two ranks' reports of one multi-rank part.
+    Training is held at loss 1e-5 and parameters 1e-3 relative (L2); in
+    bf16 the losses after the first step (the same parameters on both
+    sides) at BF16_LOSS_TOL, and the parameters without the key-bias
+    slices that KEY_BIAS_ZERO leaves out (their gaps reported)."""
+    per_step = 2 * DEPTH
+    reps = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            rep = json.load(f)
+        reps.append(rep)
+        e4, e5 = rep["eval"]["4"], rep["eval"]["5"]
+        counts4 = (e4[2]["attention_stage"], e4[2]["mlp_block_t"])
+        counts5 = e5[2]["resident_block_stack"]
+        t32, t16 = rep["train"]["float32"], rep["train"]["bfloat16"]
+        ok_counts = (all(tuple(c) == (per_step, per_step)
+                         for t in (t32, t16) for c in t["step_counts"])
+                     and counts4 == (2 * DEPTH * K,) * 2 and counts5 == K)
+        ok_train = (max(t32["loss_rel"]) <= 1e-5 and t32["param_rel_l2"] <= 1e-3
+                    and t16["loss_rel"][0] <= 1e-5 and max(t16["loss_rel"]) <= BF16_LOSS_TOL
+                    and t16["param_rel_l2"] <= 1e-3 and t32["finite"] and t16["finite"]
+                    and all(math.isfinite(v) for v in t16["losses"]))
+        ok = ok_train and rep["eval_vs_ref"] <= 3.1e-4 and rep["level5_equal"] and ok_counts
+        for name, t in (("fp32", t32), ("bf16", t16)):
+            log(f"[dp] {label} rank {r} on {rep['device']}: {name} train losses "
+                f"{' '.join(f'{v:.6f}' for v in t['losses'])}; against one process: losses "
+                f"{' '.join(f'{v:.2e}' for v in t['loss_rel'])} relative, parameters relative L2 "
+                f"{t['param_rel_l2']:.3e} (max|diff| / max|p| {t['param_rel_max']:.3e}); "
+                f"s/step {' '.join(f'{v:.4f}' for v in t['step_s'])}")
+        log(f"[dp] {label} rank {r}: bf16 key-bias slices left out {t16['left_out']} of "
+            f"{2 * DEPTH} (largest reference key/query-value gradient ratio "
+            f"{t16['key_ratio_max']:.3e}, rule <= {KEY_BIAS_ZERO:g}; fp32 "
+            f"{t32['key_ratio_max']:.3e}): their gap relative L2 {t16['key_rel_l2']:.3e}, "
+            f"max|diff| {t16['key_max_diff']:.3e}; every bf16 parameter relative L2 "
+            f"{t16['param_rel_l2_all']:.3e}")
+        log(f"[dp] {label} rank {r}: tolerances loss 1e-5, parameters 1e-3, bf16 later "
+            f"losses {BF16_LOSS_TOL:g}; evaluator level 4 four modes max|diff| "
+            f"{rep['eval_vs_ref']:.3e} mm "
+            f"(tol 3.1e-4), level 5 equal to level 4 {rep['level5_equal']}; launches a step "
+            f"K3/K4 {t16['step_counts']}, level 4 K1/K2 {counts4}, level 5 K9 {counts5} "
+            f"{'ok' if ok else 'FAIL'}")
+        log(f"[dp] {label} rank {r}: s/micro-batch level 4 {e4[1]:.4f} level 5 {e5[1]:.4f}; "
+            f"gradient all-reduce ({rep['grad_floats']} fp32) {rep['grad_allreduce_s'] * 1e3:.2f} "
+            f"ms, error all-reduce {rep['error_allreduce_s'] * 1e3:.3f} ms")
+        check(ok, f"phase dp {label}: rank {r} disagrees with one process or miscounts launches")
+    same = all(reps[0]["train"][n]["losses"] == reps[1]["train"][n]["losses"]
+               for n in ("float32", "bfloat16"))
+    same = same and all(reps[0]["eval"][lv][0] == reps[1]["eval"][lv][0] for lv in ("4", "5"))
+    check(same, f"phase dp {label}: the ranks' losses or metrics differ")
+    log("[dp] " + json.dumps({"dp_launches": [
+        {"part": label, "rank": rep["rank"],
+         "fused_attention_qkv": rep["train"]["bfloat16"]["step_counts"][0][0],
+         "fused_attention_qkv_bwd": rep["train"]["bfloat16"]["step_counts"][0][1],
+         "attention_stage": rep["eval"]["4"][2]["attention_stage"],
+         "mlp_block_t": rep["eval"]["4"][2]["mlp_block_t"],
+         "resident_block_stack": rep["eval"]["5"][2]["resident_block_stack"]}
+        for rep in reps]}))
+    record.setdefault("dp", {})[label] = reps
+
+
+def check_dp_rows(torch, errs):
+    """K1, K2 and K9 (the level-4 chain at depth 2, and its plain version
+    at depth 1) at the 20 hypothesis rows that a rank of phase dp samples,
+    bf16."""
+    from d3dp_tpu_torch.ops import resident as R
+
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    check_3dhp_rows(torch, gen, torch.bfloat16, "bfloat16", errs, rows=DP_B * H, tag="dp rank")
+    x, tpos, sp, tp, shared = resident_inputs(torch, torch.bfloat16, 61, rows=DP_B * H)
+    args = (x, tpos, tuple(w[:1] for w in sp), tuple(w[:1] for w in tp), shared)
+    got = R.resident_block_stack(*args, HEADS, 0.125, 1e-6)
+    want = R.resident_block_stack_plain(*args, HEADS, 0.125, 1e-6)
+    torch.cuda.synchronize()
+    e, ex = max_err(torch, got, want, BF16_ULP)
+    log(f"[dp] resident_block_stack bfloat16 x{tuple(x.shape)} depth 1 against its plain "
+        f"version: max|err| {e:.3e} (tol {TOL['bfloat16']:g} + 1 bf16 ulp) "
+        f"{'ok' if ex <= TOL['bfloat16'] else 'FAIL'}")
+    check(ex <= TOL["bfloat16"], "resident_block_stack at a rank's 20 rows disagrees with its "
+                                 "plain version")
+    errs["resident_block_stack"] = max(errs["resident_block_stack"], e)
+    del x, args, got, want
+
+
+def phase_dp(torch, record, errs):
+    """Data-parallel training and evaluation (`parallel/`) at the published
+    width, against one process on the same batches, weights and noise:
+      (a) two ranks sharing the one card over gloo
+          (`make_mesh(devices=["cuda:0", "cuda:0"])`): DP_STEPS train steps
+          at BT chunks (2 a rank) and one Eval-config micro-batch (2
+          windows, 20 hypothesis rows a rank) at levels 4 and 5; loss 1e-5
+          relative, parameters 1e-3 relative L2, the four modes 3.1e-4 mm,
+          level 5 equal to level 4, exact launch counts a rank; K1, K2 and
+          K9 against their plain versions at 20 rows;
+      (b) a world of one over NCCL: the same code, equal to the run
+          without a mesh;
+      (c) NCCL at world size 2 over two cards, where the box has them
+          (else a line says it was not run).
+    Per rank: seconds per step and per micro-batch, the all-reduces' times."""
+    import socket
+
+    import torch.distributed as dist
+
+    from d3dp_tpu_torch.parallel import make_mesh, spawn
+
+    t_phase = time.perf_counter()
+    check_dp_rows(torch, errs)
+
+    # the one-process reference
+    ref = {}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        losses, params, step_s, _, key_grads, d3dp = dp_train(torch, None, dt)
+        ref[name] = dict(losses=losses, params=params, key_grads=key_grads)
+        log(f"[dp] one process {name}: train losses {' '.join(f'{v:.6f}' for v in losses)}, "
+            f"s/step {' '.join(f'{v:.4f}' for v in step_s)}")
+        del d3dp
+    ev = dp_eval(torch, None)
+    out_dir = os.path.join(os.getcwd(), "log", "chip_smoke_dp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    torch.save(dict(train=ref, eval=ev), os.path.join(out_dir, "ref.pt"))
+    log(f"[dp] one process: s/micro-batch ({DP_B} windows) level 4 {ev[4][1]:.4f} level 5 "
+        f"{ev[5][1]:.4f}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    spawn(dp_rank, 2, out_dir, ["cuda:0", "cuda:0"], backend="gloo")
+    log(f"[dp] (a) two ranks on one card over gloo: {time.perf_counter() - t0:.1f} s with the "
+        "processes' start")
+    check_dp_ranks(torch, out_dir, "gloo, 2 ranks on cuda:0", record)
+
+    # (b) a world of one over NCCL: the mesh code path, equal to no mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(dp=1, devices=["cuda:0"])
+        l1, p1, _, c1, _, d3dp = dp_train(torch, mesh, torch.bfloat16)
+        del d3dp
+        ev1 = dp_eval(torch, mesh)
+    finally:
+        dist.destroy_process_group()
+    want = ref["bfloat16"]
+    same_l = l1 == want["losses"]
+    same_p = all(torch.equal(p1[n], p) for n, p in want["params"].items())
+    ok = same_l and same_p and ev1[4][0] == ev[4][0] and ev1[5][0] == ev[5][0]
+    log(f"[dp] (b) a world of one over NCCL, bf16: losses equal {same_l}, parameters equal "
+        f"{same_p}, evaluator levels 4 and 5 equal {ev1[4][0] == ev[4][0]} "
+        f"{ev1[5][0] == ev[5][0]}; launches a step {c1} {'ok' if ok else 'FAIL'}")
+    check(ok, "phase dp (b): the world-of-one mesh run differs from the run without a mesh")
+
+    if torch.cuda.device_count() >= 2:
+        spawn(dp_rank, 2, out_dir, ["cuda:0", "cuda:1"], backend="nccl")
+        check_dp_ranks(torch, out_dir, "nccl, 2 ranks on cuda:0 and cuda:1", record)
+    else:
+        log(f"[dp] (c) NCCL at world size 2: not run, the box has "
+            f"{torch.cuda.device_count()} card")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    record.setdefault("dp", {})["seconds"] = time.perf_counter() - t_phase
+    log(f"[dp] phase dp: {record['dp']['seconds']:.1f} s")
+
+
 def kernels_line(rows, errs, launches):
     """One entry per kernel; times are the mean of its shapes on its path,
     which the path launches equally often. Launches: K1 and K2 from the
@@ -2960,6 +3322,7 @@ def main():
     phase_cli(torch, record)
     phase_cli_3dhp(torch, record)
     phase_wild(torch, record)
+    phase_dp(torch, record, errs)
     line = kernels_line(rows, errs, record["launches"])
     record["kernels"] = line["kernels"]
     record["seconds"] = time.perf_counter() - t_all

@@ -7,10 +7,22 @@ the same namespace here. Flags whose feature the port does not have yet
 raise a "not ported yet" error when set to anything but their default;
 none is silently ignored. `--jax-cache` and `--num-virtual-devices` are
 accepted and inert.
+
+`launch` is the counterpart of the JAX package's `apply_platform_args`
+for the process group: the command lines run one process a device (a
+rank), started here with torch.multiprocessing or by torchrun.
 """
 
 import argparse
+import contextlib
 import os
+
+import torch
+import torch.distributed as dist
+
+from d3dp_tpu_torch.device import resolve_device
+from d3dp_tpu_torch.parallel.mesh import auto_mesh, mesh_size
+from d3dp_tpu_torch.parallel.multihost import initialize_multihost, spawn
 
 
 def build_parser(in_the_wild=False):
@@ -168,14 +180,20 @@ def build_parser(in_the_wild=False):
                         help="thread = background prefetcher; grain is not "
                              "ported yet")
     parser.add_argument("--multihost", action="store_true",
-                        help="multi-host training (not ported yet)")
+                        help="join the process group from torchrun's environment "
+                             "(use the coordinator flags for manual bring-up)")
     parser.add_argument("--coordinator-address", default="", metavar="HOST:PORT",
-                        help="multi-host coordinator (not ported yet)")
-    parser.add_argument("--num-hosts", type=int, default=0, metavar="N")
-    parser.add_argument("--host-id", type=int, default=-1, metavar="I")
+                        help="multi-host coordinator (implies --multihost)")
+    parser.add_argument("--num-hosts", type=int, default=0, metavar="N",
+                        help="with --coordinator-address: the number of processes, "
+                             "one a device")
+    parser.add_argument("--host-id", type=int, default=-1, metavar="I",
+                        help="with --coordinator-address: this process's rank; it "
+                             "drives card I modulo the host's card count")
     parser.add_argument("--dp", type=int, default=0,
-                        help="data-parallel mesh size (only the default, one "
-                             "device, is ported)")
+                        help="data-parallel mesh size (0 = all devices: every "
+                             "card, or one CPU rank with --platform cpu; N > 1 "
+                             "starts one process a rank)")
     parser.add_argument("--tp", type=int, default=1,
                         help="tensor-parallel mesh size (only 1 is ported)")
     parser.add_argument("--seed", type=int, default=1,
@@ -201,10 +219,7 @@ def _not_ported(args):
     """The first flag set to a value whose feature the port lacks, as a
     message, or None."""
     checks = (
-        (args.dp != 0 or args.tp != 1, "--dp/--tp (multi-device meshes)"),
-        (args.multihost, "--multihost"),
-        (bool(args.coordinator_address) or args.num_hosts != 0 or args.host_id != -1,
-         "--coordinator-address/--num-hosts/--host-id (multi-host)"),
+        (args.tp != 1, "--tp (the tensor-parallel split)"),
         (args.input_pipeline == "grain", "--input-pipeline grain"),
         (args.ckpt_format == "orbax", "--ckpt-format orbax"),
     )
@@ -224,7 +239,9 @@ def parse_args(argv=None, in_the_wild=False):
         parser.error("--export-training-curves and --no-eval cannot be set "
                      "at the same time")
     if (args.num_hosts or args.host_id >= 0) and not args.coordinator_address:
-        parser.error("--num-hosts/--host-id require --coordinator-address")
+        parser.error("--num-hosts/--host-id require --coordinator-address "
+                     "(without it, the process group is read from torchrun's "
+                     "environment and would silently ignore them)")
     if args.platform not in ("", "cpu", "cuda", "gpu"):
         parser.error(f"--platform {args.platform}: the port runs on cpu or cuda")
     if args.attention == "xla" and args.platform != "cpu":
@@ -238,7 +255,63 @@ def parse_args(argv=None, in_the_wild=False):
     return args
 
 
-def device_of(args):
-    """The torch device the command line asks for: the CPU with --platform
-    cpu, else the card."""
+def device_of(args, mesh=None):
+    """The torch device the command line asks for: this rank's under a
+    mesh, the CPU with --platform cpu, else the card."""
+    if mesh is not None:
+        return mesh.device
     return "cpu" if args.platform == "cpu" else None
+
+
+def _visible_devices(args):
+    """One entry per rank under a running process group (rank r on card r
+    modulo the card count); without one, every card, or on the CPU --dp
+    CPU ranks (one by default)."""
+    cpu = args.platform == "cpu"
+    if dist.is_initialized():
+        world = dist.get_world_size()
+        return ["cpu"] * world if cpu else [
+            f"cuda:{r % torch.cuda.device_count()}" for r in range(world)]
+    if cpu:
+        return ["cpu"] * max(args.dp, 1)
+    resolve_device(None)  # no card: raise, as every entry point does
+    return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+
+
+def _run_rank(entry, args, devices):
+    """entry(args, mesh) on this rank; the ranks other than 0 print nothing."""
+    mesh = auto_mesh(args.dp, args.tp, devices)
+    if mesh is None or mesh.rank == 0:
+        return entry(args, mesh)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        return entry(args, mesh)
+
+
+def launch(entry, args):
+    """Run `entry(args, mesh)` on every rank the command line asks for.
+
+    With --multihost or --coordinator-address, or under torchrun (its
+    RANK / WORLD_SIZE environment), this process joins the process group
+    (`initialize_multihost`) and runs its rank. Otherwise --dp/--tp resolve
+    over the visible devices as JAX's `auto_mesh` does: one device runs
+    entry(args, None) here, today's path with no process group; more start
+    one worker process a rank (start method spawn) over a process group on
+    localhost, nccl on the cards and gloo on the CPU. Returns entry's
+    result: rank 0's where the ranks ran in worker processes (a copy).
+    Logs, checkpoints and exports come from rank 0."""
+    backend = "gloo" if args.platform == "cpu" else "nccl"
+    joining = args.multihost or args.coordinator_address or (
+        "RANK" in os.environ and "WORLD_SIZE" in os.environ)
+    if joining and not dist.is_initialized():
+        rank, world = initialize_multihost(
+            coordinator_address=args.coordinator_address or None,
+            num_processes=args.num_hosts or None,
+            process_id=args.host_id if args.host_id >= 0 else None, backend=backend)
+        print(f"multihost: process {rank}/{world}")
+    if dist.is_initialized():
+        return _run_rank(entry, args, _visible_devices(args))
+    devices = _visible_devices(args)
+    world = mesh_size(args.dp, args.tp, len(devices))
+    if world == 1:
+        return entry(args, None)
+    return spawn(_run_rank, world, entry, args, devices[:world], backend=backend)

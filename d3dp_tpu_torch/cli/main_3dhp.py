@@ -3,8 +3,9 @@ exports and the Python PCK/AUC stage.
 
     python -m d3dp_tpu_torch.cli.main_3dhp -d synthetic --nolog ...
 
-Counterpart of d3dp_tpu/cli/main_3dhp.py (reference main_3dhp.py) on one
-device: the H36M command line's flags (cli/arguments.py), mm-scaled
+Counterpart of d3dp_tpu/cli/main_3dhp.py (reference main_3dhp.py), on
+every card by default, one process a card, as main_h36m: the H36M command
+line's flags (cli/arguments.py), mm-scaled
 diffusion (unit_scale 1000), pelvis(14)-rooted data, valid-frame-masked
 metrics, per-TS cameras and the inference_data_<mode>.mat exports
 (main_3dhp.py:903-912), then the PCK/AUC tables
@@ -21,8 +22,8 @@ from time import time
 import numpy as np
 import torch
 
-from d3dp_tpu_torch.cli.arguments import device_of, parse_args
-from d3dp_tpu_torch.cli.main_h36m import _generator, _resume
+from d3dp_tpu_torch.cli.arguments import device_of, launch, parse_args
+from d3dp_tpu_torch.cli.main_h36m import _generator, _log_file, _resume, eval_batch_size, mesh_note
 from d3dp_tpu_torch.data.generators import ChunkedGenerator, UnchunkedGenerator
 from d3dp_tpu_torch.data.mpi3dhp import (
     KPS_LEFT,
@@ -37,6 +38,7 @@ from d3dp_tpu_torch.device import disable_tf32, resolve_device
 from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
 from d3dp_tpu_torch.eval.evaluator_3dhp import MODES, Evaluator3DHP
 from d3dp_tpu_torch.models import MixSTE2, MixSTEConfig
+from d3dp_tpu_torch.parallel import process_index, round_up_batch, shard_batch_fn
 from d3dp_tpu_torch.train.checkpoint_io import latest_checkpoint, load_any, save_checkpoint
 from d3dp_tpu_torch.train.state import get_lr, make_optimizer, make_train_step, set_lr
 from d3dp_tpu_torch.utils.logging import Logger, TensorBoardWriter
@@ -91,18 +93,18 @@ def _test_generator(data):
                               valid_frames=[valid[k] for k in keys], keys=keys), keys
 
 
-def run_training(args, data, d3dp_train, d3dp_valid, writer=None, resume_ckpt=None):
+def run_training(args, data, d3dp_train, d3dp_valid, writer=None, resume_ckpt=None, mesh=None):
     """Training loop (reference main_3dhp.py:370-600): ChunkedGenerator ->
     Prefetcher -> train step (root joint 14 zeroed), validation P-Best at
     H=1, K=1 over the test sequences, lr decay, and the epoch and best
-    checkpoints. Returns the optimizer."""
+    checkpoints. Returns the optimizer. `mesh`: as main_h36m.run_training."""
     model = d3dp_train.model
     dev = d3dp_train.device
     p3_train, p2_train = data[:2]
 
     lr = args.learning_rate
     optimizer = make_optimizer(model.parameters(), lr, weight_decay=0.1)
-    step = make_train_step(d3dp_train, optimizer, root_joint=ROOT_JOINT)
+    step = make_train_step(d3dp_train, optimizer, root_joint=ROOT_JOINT, mesh=mesh)
 
     train_generator = ChunkedGenerator(
         args.batch_size // args.stride, None, list(p3_train.values()),
@@ -113,7 +115,8 @@ def run_training(args, data, d3dp_train, d3dp_valid, writer=None, resume_ckpt=No
     print(f"INFO: Training on {sum(p.shape[0] for p in p2_train.values())} frames")
 
     validator = Evaluator3DHP(d3dp_valid, receptive_field=args.number_of_frames,
-                              batch_size=args.eval_batch_size or 2, quickdebug=args.debug)
+                              batch_size=round_up_batch(args.eval_batch_size or 2, mesh),
+                              quickdebug=args.debug, mesh=mesh)
 
     epoch, min_loss = 0, args.min_loss
     g_train = _generator(dev, args.seed, 1)
@@ -128,7 +131,9 @@ def run_training(args, data, d3dp_train, d3dp_valid, writer=None, resume_ckpt=No
     while epoch < args.epochs:
         start_time = time()
         step_losses, step_weights = [], []
-        for _, b3, b2, w in Prefetcher(train_generator.next_epoch(), depth=2):
+        to_device = None if mesh is None else shard_batch_fn(mesh)
+        for _, b3, b2, w in Prefetcher(train_generator.next_epoch(), to_device=to_device,
+                                       depth=2):
             step_losses.append(step(b2, b3, w, generator=g_train))
             step_weights.append(int(w.sum()) * args.number_of_frames)
             if args.debug:
@@ -148,7 +153,7 @@ def run_training(args, data, d3dp_train, d3dp_valid, writer=None, resume_ckpt=No
         if valid_pbest is not None:
             msg += " 3d_pos_valid %f" % valid_pbest
         print(msg)
-        with open(log_path, "a") as f:
+        with _log_file(log_path) as f:
             f.write(msg + "\n")
         if writer is not None:
             writer.add_scalar("Loss/3d training loss", train_loss, epoch + 1)
@@ -176,23 +181,25 @@ def run_training(args, data, d3dp_train, d3dp_valid, writer=None, resume_ckpt=No
     return optimizer
 
 
-def run_evaluation(args, data, d3dp_eval, noise_provider=None):
+def run_evaluation(args, data, d3dp_eval, noise_provider=None, mesh=None):
     """Evaluate the test sequences: the masked P-Best / P-Agg per DDIM step
     into 3dhp_test_log_H{H}_K{K}.txt, the four inference_data_<mode>.mat
     exports into the checkpoint directory, then the PCK/AUC tables when
     3dhp_test/TS*/annot_data.mat exists. `noise_provider` (optional)
-    replaces the sampler's draws (parity tests). Returns {"P_Best",
-    "P_Agg"}: (K,) in mm."""
+    replaces the sampler's draws (parity tests). `mesh` (optional): the
+    micro-batches' windows split over its ranks; rank 0 writes the log, the
+    exports and the tables. Returns {"P_Best", "P_Agg"}: (K,) in mm."""
     test_generator, test_keys = _test_generator(data)
     evaluator = Evaluator3DHP(d3dp_eval, receptive_field=args.number_of_frames,
-                              batch_size=args.eval_batch_size or 2, quickdebug=args.debug)
+                              batch_size=eval_batch_size(args, mesh, 2), quickdebug=args.debug,
+                              mesh=mesh)
     rng = _generator(d3dp_eval.device, args.seed, 3)
     results, exports = evaluator.evaluate(test_generator, rng, export_dir=args.checkpoint,
                                           noise_provider=noise_provider)
 
     log_path = os.path.join(
         args.checkpoint, f"3dhp_test_log_H{args.num_proposals}_K{args.sampling_timesteps}.txt")
-    with open(log_path, "a") as f:
+    with _log_file(log_path) as f:
         for ii in range(len(results["P_Best"])):
             for mode in ("P_Best", "P_Agg"):
                 msg = "step %d : Protocol #1 Error (MPJPE) %s: %f mm" % (
@@ -202,7 +209,8 @@ def run_evaluation(args, data, d3dp_eval, noise_provider=None):
 
     # the MATLAB harness's tables, in Python, when the annotations are present
     annot_dir = "3dhp_test"
-    if os.path.isdir(os.path.join(annot_dir, "TS1")):
+    # the exports are rank 0's (the other ranks print nothing)
+    if process_index() == 0 and os.path.isdir(os.path.join(annot_dir, "TS1")):
         from d3dp_tpu_torch.metrics.pck_auc import evaluate_3dhp_mat
 
         for mode in MODES:
@@ -218,13 +226,15 @@ def run_evaluation(args, data, d3dp_eval, noise_provider=None):
     return results
 
 
-def run_with_args(args):
-    device = resolve_device(device_of(args))
+def run_with_args(args, mesh=None):
+    """The command line on this process's device: one device without a
+    `mesh`, else this rank of it (`cli.arguments.launch`)."""
+    device = resolve_device(device_of(args, mesh))
     if device.type == "cuda":
         disable_tf32()
     timestamp = "{0:%Y%m%dT%H-%M-%S}".format(datetime.now())
     writer = None
-    if not args.nolog:
+    if not args.nolog and process_index() == 0:
         logdir = args.log + "_" + timestamp
         os.makedirs(logdir, exist_ok=True)
         writer = TensorBoardWriter(logdir)
@@ -233,6 +243,7 @@ def run_with_args(args):
     print("Evaluate!" if args.evaluate else "Train!")
     print("Torch device:", device,
           torch.cuda.get_device_name(device) if device.type == "cuda" else "")
+    mesh_note(mesh)
 
     if args.checkpoint == "":
         args.checkpoint = args.log + "_" + timestamp
@@ -261,15 +272,16 @@ def run_with_args(args):
     try:
         if args.evaluate:
             print("Evaluating...")
-            return run_evaluation(args, data, d3dp_eval)
-        return run_training(args, data, d3dp_train, d3dp_valid, writer, resume_ckpt=loaded_ckpt)
+            return run_evaluation(args, data, d3dp_eval, mesh=mesh)
+        return run_training(args, data, d3dp_train, d3dp_valid, writer, resume_ckpt=loaded_ckpt,
+                            mesh=mesh)
     finally:
         if writer is not None:
             writer.close()
 
 
 def main(argv=None):
-    return run_with_args(parse_args(argv))
+    return launch(run_with_args, parse_args(argv))
 
 
 if __name__ == "__main__":

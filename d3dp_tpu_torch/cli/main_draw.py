@@ -8,7 +8,8 @@ subject/action/camera, stitches the windows to the whole sequence,
 reprojects every hypothesis to 2D, and plots each of the first frames in 3D
 with the mean pose and the JPMA-selected pose overlaid, under
 ./plot/<dataset>/. Weights come from `--seed`, or from `-c`/`--evaluate`.
-Runs on the card unless `--platform cpu`.
+Runs on the card unless `--platform cpu`, on every card by default (one
+process a card; rank 0 plots), as main_h36m.
 """
 
 import os
@@ -16,9 +17,9 @@ import os
 import numpy as np
 import torch
 
-from d3dp_tpu_torch.cli.arguments import device_of, parse_args
+from d3dp_tpu_torch.cli.arguments import device_of, launch, parse_args
 from d3dp_tpu_torch.cli.data_prep import prepare_data
-from d3dp_tpu_torch.cli.main_h36m import _build_models, _generator
+from d3dp_tpu_torch.cli.main_h36m import _build_models, _generator, mesh_note
 from d3dp_tpu_torch.data.generators import flip_sequence
 from d3dp_tpu_torch.data.windowing import sample_windows, stitch_hypotheses, window_sequence
 from d3dp_tpu_torch.device import disable_tf32, resolve_device
@@ -26,23 +27,26 @@ from d3dp_tpu_torch.geometry.camera import project_to_2d
 from d3dp_tpu_torch.train.checkpoint_io import load_any
 
 
-def collect_predictions(d3dp, seq_2d, kps_left, kps_right, rf, bs, generator):
+def collect_predictions(d3dp, seq_2d, kps_left, kps_right, rf, bs, generator, mesh=None):
     """Sample every window of one (Ftot, J, 2) sequence, `bs` windows a call
     -> stitched (K, H, Ftot, J, 3) numpy. `generator`: a torch.Generator on
-    the sampler's device."""
+    the sampler's device; `mesh` as in `sample_windows`."""
     w2d = window_sequence(seq_2d, rf)
     w2d_f = window_sequence(flip_sequence(seq_2d, kps_left, kps_right), rf)
-    return stitch_hypotheses(sample_windows(d3dp, w2d, w2d_f, bs, generator), seq_2d.shape[0])
+    return stitch_hypotheses(sample_windows(d3dp, w2d, w2d_f, bs, generator, mesh),
+                             seq_2d.shape[0])
 
 
-def hypotheses(args):
+def hypotheses(args, mesh=None):
     """Everything main_draw plots, without plotting: a dict of the
     root-zeroed hypotheses `preds` (K, H, Ftot, J, 3), their reprojections
     `pred_2d` (K, H, Ftot, J, 2), the root-zeroed ground truth `gt`, the
-    input `seq_2d`, and `subject`, `action`, `camera`, `skeleton`."""
-    device = resolve_device(device_of(args))
+    input `seq_2d`, and `subject`, `action`, `camera`, `skeleton`. `mesh`:
+    this rank's (`cli.arguments.launch`); every rank returns the dict."""
+    device = resolve_device(device_of(args, mesh))
     if device.type == "cuda":
         disable_tf32()
+    mesh_note(mesh)
     data = prepare_data(args)
     _, _, d3dp = _build_models(args, data, device)
     if args.evaluate:
@@ -59,7 +63,7 @@ def hypotheses(args):
     preds = collect_predictions(d3dp, seq_2d, data.kps_left, data.kps_right,
                                 args.number_of_frames,
                                 max(args.batch_size // args.number_of_frames, 1),
-                                _generator(device, args.seed))
+                                _generator(device, args.seed), mesh=mesh)
     # root-zero and reproject every hypothesis (main_draw.py:479-536)
     traj = seq_3d[:, :1].copy()
     gt = seq_3d.copy()
@@ -74,9 +78,16 @@ def hypotheses(args):
 
 
 def main(argv=None):
-    args = parse_args(argv)
+    return launch(draw, parse_args(argv))
+
+
+def draw(args, mesh=None):
+    """main_draw on this process's device or rank: the hypotheses, then
+    rank 0's plots. Returns the `hypotheses` dict."""
     print("Drawing...")
-    h = hypotheses(args)
+    h = hypotheses(args, mesh)
+    if mesh is not None and mesh.rank != 0:
+        return h
 
     from d3dp_tpu_torch.viz.visualization import draw_3d_image_select
 

@@ -3,10 +3,11 @@
     python -m d3dp_tpu_torch.cli.main_h36m -d synthetic --nolog ...
 
 Counterpart of d3dp_tpu/cli/main_h36m.py (reference main.py: train loop
-:304-592, evaluate :596-794, action-wise loop :952-1046) on one device:
-the same flags (cli/arguments.py), log-file names and line formats, and
-checkpoints with the original's payload (train/checkpoint_io.py). Runs on
-the card unless `--platform cpu`.
+:304-592, evaluate :596-794, action-wise loop :952-1046): the same flags
+(cli/arguments.py), log-file names and line formats, and checkpoints with
+the original's payload (train/checkpoint_io.py). Runs on the card unless
+`--platform cpu`; on every card by default, one process a card, as the
+JAX package's mesh covers every device (`--dp`, `cli.arguments.launch`).
 """
 
 import copy
@@ -19,7 +20,7 @@ from time import time
 import numpy as np
 import torch
 
-from d3dp_tpu_torch.cli.arguments import device_of, parse_args
+from d3dp_tpu_torch.cli.arguments import device_of, launch, parse_args
 from d3dp_tpu_torch.cli.data_prep import fetch, prepare_data
 from d3dp_tpu_torch.cli.render import run_render
 from d3dp_tpu_torch.data.generators import ChunkedGenerator, UnchunkedGenerator
@@ -28,6 +29,7 @@ from d3dp_tpu_torch.device import disable_tf32, resolve_device
 from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
 from d3dp_tpu_torch.eval import MODES, Evaluator
 from d3dp_tpu_torch.models import MixSTE2, MixSTEConfig
+from d3dp_tpu_torch.parallel import process_index, round_up_batch, shard_batch_fn
 from d3dp_tpu_torch.train.checkpoint_io import latest_checkpoint, load_any, save_checkpoint
 from d3dp_tpu_torch.train.state import get_lr, make_optimizer, make_train_step, set_lr
 from d3dp_tpu_torch.utils.logging import Logger, TensorBoardWriter
@@ -76,6 +78,12 @@ def _log_path(args):
     )
 
 
+def _log_file(path):
+    """`path` opened for appending; on the ranks other than 0, os.devnull
+    (rank 0 alone writes the logs)."""
+    return open(path if process_index() == 0 else os.devnull, "a")
+
+
 def _print_and_log(f, msg):
     print(msg)
     if f is not None:
@@ -84,7 +92,7 @@ def _print_and_log(f, msg):
 
 def report_result(args, result, action=None):
     """Per-action report, reference format (main.py:745-789)."""
-    with open(_log_path(args), "a") as f:
+    with _log_file(_log_path(args)) as f:
         if action is None:
             print("----------")
         else:
@@ -110,12 +118,30 @@ def _generator(device, seed, salt=0):
     return torch.Generator(device=device).manual_seed((seed << 32) + salt)
 
 
-def run_evaluation(args, data, d3dp_eval, noise_provider=None):
+def mesh_note(mesh):
+    """JAX's mesh line, where there is a mesh."""
+    if mesh is not None:
+        print(f"INFO: {mesh.size}-device mesh (dp={mesh.dp}, tp={mesh.tp})")
+
+
+def eval_batch_size(args, mesh, default):
+    """The eval micro-batch: --eval-batch-size (else `default`), rounded up
+    to the mesh's batch quantum, saying so as the JAX command line does."""
+    asked = args.eval_batch_size or default
+    bs = round_up_batch(asked, mesh)
+    if bs != asked:
+        print(f"INFO: eval batch size rounded up to {bs} (multiple of the dp={mesh.dp} "
+              "mesh axis; extra rows are weight-0 padding windows)")
+    return bs
+
+
+def run_evaluation(args, data, d3dp_eval, noise_provider=None, mesh=None):
     """Action-wise evaluation. (reference: main.py:901-1046)
 
     Each action samples from its own generator, seeded from `--seed` and a
     stable hash of the action name. `noise_provider` (optional) is forwarded
     to Evaluator.evaluate and replaces the sampler's draws (parity tests).
+    `mesh` (optional): the micro-batches' windows split over its ranks.
     Returns {action: EvalResult}, or {subject: {action: EvalResult}} with
     --by-subject.
     """
@@ -135,12 +161,13 @@ def run_evaluation(args, data, d3dp_eval, noise_provider=None):
     evaluator = Evaluator(
         d3dp_eval,
         receptive_field=args.number_of_frames,
-        batch_size=args.eval_batch_size or args.batch_size,
+        batch_size=eval_batch_size(args, mesh, args.batch_size),
         kps_left=data.kps_left,
         kps_right=data.kps_right,
         p2=args.p2,
         p2_device=args.p2_device,
         quickdebug=args.debug,
+        mesh=mesh,
     )
 
     def fetch_actions(actions):
@@ -174,7 +201,7 @@ def run_evaluation(args, data, d3dp_eval, noise_provider=None):
             gen = UnchunkedGenerator(cams, p3, p2)
             # stable per-action seed (hash() is salted per process)
             rng = _generator(d3dp_eval.device, args.seed, zlib.crc32(action_key.encode()) % 2**31)
-            if args.profile and not per_action:  # trace the first action
+            if args.profile and not per_action and process_index() == 0:  # the first action
                 with profiler_trace(args.profile):
                     result = evaluator.evaluate(gen, rng, noise_provider=noise_provider)
                     # EvalResult defers the device reads: finish inside the trace
@@ -186,7 +213,7 @@ def run_evaluation(args, data, d3dp_eval, noise_provider=None):
             per_action[action_key] = result
 
         # action-wise averages (main.py:998-1046)
-        with open(_log_path(args), "a") as f:
+        with _log_file(_log_path(args)) as f:
             avg = {m: np.mean([r.averages_mm()[m] for r in per_action.values()], axis=0)
                    for m in MODES}
             K = len(avg["P_Best"])
@@ -236,10 +263,13 @@ def _resume(args, ckpt, model, optimizer, train_generator, lr, min_loss):
     return ckpt["epoch"], lr, min_loss
 
 
-def run_training(args, data, d3dp_train, d3dp_valid, writer, resume_ckpt=None):
+def run_training(args, data, d3dp_train, d3dp_valid, writer, resume_ckpt=None, mesh=None):
     """Training loop (reference: main.py:304-592): ChunkedGenerator ->
     Prefetcher -> train step, light validation (P-Best at H=1, K=1), lr
-    decay, and the epoch and best checkpoints. Returns the optimizer."""
+    decay, and the epoch and best checkpoints. Returns the optimizer.
+    `mesh` (optional): each batch's rows split over its ranks, padded with
+    weight-0 rows to a multiple of dp, and the gradients summed over them
+    (train.state.make_train_step)."""
     model = d3dp_train.model
     dev = d3dp_train.device
     subjects_train = args.subjects_train.split(",")
@@ -253,7 +283,7 @@ def run_training(args, data, d3dp_train, d3dp_valid, writer, resume_ckpt=None):
 
     lr = args.learning_rate
     optimizer = make_optimizer(model.parameters(), lr, weight_decay=0.1)
-    step = make_train_step(d3dp_train, optimizer)
+    step = make_train_step(d3dp_train, optimizer, mesh=mesh)
 
     train_generator = ChunkedGenerator(
         args.batch_size // args.stride, cams_train, poses_train, poses_train_2d,
@@ -268,8 +298,9 @@ def run_training(args, data, d3dp_train, d3dp_valid, writer, resume_ckpt=None):
 
     validator = Evaluator(
         d3dp_valid, receptive_field=args.number_of_frames,
-        batch_size=args.eval_batch_size or args.batch_size,
-        kps_left=data.kps_left, kps_right=data.kps_right, quickdebug=args.debug, light=True)
+        batch_size=round_up_batch(args.eval_batch_size or args.batch_size, mesh),
+        kps_left=data.kps_left, kps_right=data.kps_right, quickdebug=args.debug, light=True,
+        mesh=mesh)
 
     epoch = 0
     min_loss = args.min_loss
@@ -288,12 +319,16 @@ def run_training(args, data, d3dp_train, d3dp_valid, writer, resume_ckpt=None):
 
     while epoch < args.epochs:
         start_time = time()
-        profiling = bool(args.profile) and not train_curve  # the first epoch of this run
+        # the first epoch of this run, on rank 0
+        profiling = bool(args.profile) and not train_curve and process_index() == 0
         # losses stay on the device until the epoch ends: reading each one
         # would make the host wait for every step
         step_losses, step_weights = [], []
+        # under a mesh: this rank's rows on its device, the weights global
+        to_device = None if mesh is None else shard_batch_fn(mesh)
         with profiler_trace(args.profile, enabled=profiling):
-            for _, b3, b2, w in Prefetcher(train_generator.next_epoch(), depth=2):
+            for _, b3, b2, w in Prefetcher(train_generator.next_epoch(), to_device=to_device,
+                                           depth=2):
                 step_losses.append(step(b2, b3, w, generator=g_train))
                 step_weights.append(int(w.sum()) * args.number_of_frames)
                 if args.debug:
@@ -318,7 +353,7 @@ def run_training(args, data, d3dp_train, d3dp_valid, writer, resume_ckpt=None):
             msg = "[%d] time %.2f lr %f 3d_train %f 3d_pos_valid %f" % (
                 epoch + 1, elapsed, lr, train_loss * 1000, valid_pbest)
         print(msg)
-        with open(log_path, "a") as f:
+        with _log_file(log_path) as f:
             f.write(msg + "\n")
         if writer is not None:
             writer.add_scalar("Loss/3d training loss", train_loss * 1000, epoch + 1)
@@ -346,13 +381,13 @@ def run_training(args, data, d3dp_train, d3dp_valid, writer, resume_ckpt=None):
             min_loss = valid_pbest
             print("save best checkpoint")
             _save(os.path.join(args.checkpoint, "best_epoch.ckpt"))
-            with open(log_path, "a") as f:
+            with _log_file(log_path) as f:
                 f.write("best epoch\n")
 
         train_curve.append(train_loss * 1000)
         if valid_pbest is not None:
             valid_curve.append(valid_pbest)
-        if args.export_training_curves and epoch > 3:
+        if args.export_training_curves and epoch > 3 and process_index() == 0:
             _plot_curves(args, epoch, train_curve, valid_curve)
     return optimizer
 
@@ -377,15 +412,17 @@ def _plot_curves(args, epoch, train_curve, valid_curve):
     plt.close("all")
 
 
-def run_with_args(args):
-    device = resolve_device(device_of(args))
+def run_with_args(args, mesh=None):
+    """The command line on this process's device: one device without a
+    `mesh`, else this rank of it (`cli.arguments.launch`)."""
+    device = resolve_device(device_of(args, mesh))
     if device.type == "cuda":
         disable_tf32()
     description = "Evaluate!" if args.evaluate else "Train!"
     timestamp = "{0:%Y%m%dT%H-%M-%S}".format(datetime.now())
 
     writer = None
-    if not args.nolog:
+    if not args.nolog and process_index() == 0:
         logdir = args.log + "_" + timestamp
         os.makedirs(logdir, exist_ok=True)
         writer = TensorBoardWriter(logdir)
@@ -395,6 +432,7 @@ def run_with_args(args):
     print(description)
     print("Torch device:", device,
           torch.cuda.get_device_name(device) if device.type == "cuda" else "")
+    mesh_note(mesh)
 
     if args.checkpoint == "":
         args.checkpoint = args.log + "_" + timestamp
@@ -425,18 +463,19 @@ def run_with_args(args):
     try:
         if args.evaluate:
             print("Evaluating...")
-            return run_evaluation(args, data, d3dp_eval)
+            return run_evaluation(args, data, d3dp_eval, mesh=mesh)
         if args.render:
             print("Rendering...")
-            return run_render(args, data, d3dp_eval, _generator(device, args.seed))
-        return run_training(args, data, d3dp_train, d3dp_valid, writer, resume_ckpt=loaded_ckpt)
+            return run_render(args, data, d3dp_eval, _generator(device, args.seed), mesh=mesh)
+        return run_training(args, data, d3dp_train, d3dp_valid, writer, resume_ckpt=loaded_ckpt,
+                            mesh=mesh)
     finally:
         if writer is not None:
             writer.close()
 
 
 def main(argv=None):
-    return run_with_args(parse_args(argv))
+    return launch(run_with_args, parse_args(argv))
 
 
 if __name__ == "__main__":

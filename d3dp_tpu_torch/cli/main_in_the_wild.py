@@ -11,13 +11,13 @@ and Protocol-2 always reported. Direct video inference is
 """
 
 from d3dp_tpu_torch.cli import main_h36m
-from d3dp_tpu_torch.cli.arguments import parse_args
+from d3dp_tpu_torch.cli.arguments import launch, parse_args
 
 
 def main(argv=None):
     args = parse_args(argv, in_the_wild=True)
     args.p2 = True  # the reference main_in_the_wild.py always reports P2
-    return main_h36m.run_with_args(args)
+    return launch(main_h36m.run_with_args, args)
 
 
 if __name__ == "__main__":

@@ -10,6 +10,7 @@ from d3dp_tpu_torch.data.generators import UnchunkedGenerator
 from d3dp_tpu_torch.data.windowing import stitch_windows
 from d3dp_tpu_torch.eval import Evaluator
 from d3dp_tpu_torch.geometry.camera import camera_to_world, image_coordinates
+from d3dp_tpu_torch.parallel import process_index, round_up_batch
 
 
 def _to_world(poses, cam, translation):
@@ -17,7 +18,7 @@ def _to_world(poses, cam, translation):
                            cam["orientation"], translation).numpy()
 
 
-def run_render(args, data, d3dp_eval, rng=None, noise_provider=None):
+def run_render(args, data, d3dp_eval, rng=None, noise_provider=None, mesh=None):
     """Sample every window of `--viz-subject`/`--viz-action`/`--viz-camera`
     (`-b` windows a micro-batch), stitch the last DDIM step's first
     hypothesis into a (Ftot, 17, 3) camera-frame sequence, write it to
@@ -25,8 +26,11 @@ def run_render(args, data, d3dp_eval, rng=None, noise_provider=None):
     in the world frame, beside the ground truth where the action has one.
 
     `rng` (a torch.Generator on the sampler's device) or `noise_provider`
-    (Evaluator.evaluate's) gives the sampling noise. Returns the prediction:
-    the exported array, or the world-frame one when animated."""
+    (Evaluator.evaluate's) gives the sampling noise. `mesh` (optional): each
+    micro-batch's windows split over its ranks (`-b` rounded up to a
+    multiple of dp), the export and the animation written by rank 0.
+    Returns the prediction: the exported array, or the world-frame one when
+    animated."""
     input_keypoints = data.keypoints[args.viz_subject][args.viz_action][args.viz_camera].copy()
     ground_truth = None
     poses = data.poses_3d.get(args.viz_subject, {}).get(args.viz_action)
@@ -41,19 +45,19 @@ def run_render(args, data, d3dp_eval, rng=None, noise_provider=None):
                              kps_left=data.kps_left, kps_right=data.kps_right,
                              joints_left=data.joints_left, joints_right=data.joints_right)
     evaluator = Evaluator(d3dp_eval, receptive_field=args.number_of_frames,
-                          batch_size=args.batch_size, kps_left=data.kps_left,
-                          kps_right=data.kps_right)
+                          batch_size=round_up_batch(args.batch_size, mesh),
+                          kps_left=data.kps_left, kps_right=data.kps_right, mesh=mesh)
     preds = evaluator.evaluate(gen, rng, noise_provider=noise_provider,
                                return_predictions=True)
     # (W, K, H, F, J, 3): the last DDIM step's first hypothesis (the
     # reference squeezes its H=1, K=1 render model, main.py:810)
     prediction = stitch_windows(preds[:, -1, 0], input_keypoints.shape[0])
 
-    if args.viz_export is not None:
+    if args.viz_export is not None and process_index() == 0:
         print("Exporting joint positions to", args.viz_export)
         np.save(args.viz_export, prediction)
 
-    if args.viz_output is not None:
+    if args.viz_output is not None and process_index() == 0:
         cam = data.cameras[args.viz_subject][args.viz_camera]
         if ground_truth is not None:
             trajectory = ground_truth[:, :1]

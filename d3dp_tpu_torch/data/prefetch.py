@@ -16,10 +16,13 @@ class _Stop:
 
 class Prefetcher:
     """Iterate `iterable` in a worker thread, at most `depth` items ahead.
-    An exception raised by the iterable is re-raised in the consumer."""
+    `to_device` (optional) maps each item in the worker, e.g. a data-parallel
+    rank's placement of its rows (`parallel.shard_batch_fn`). An exception
+    raised by the iterable is re-raised in the consumer."""
 
-    def __init__(self, iterable, depth=2):
+    def __init__(self, iterable, to_device=None, depth=2):
         self.iterable = iterable
+        self.to_device = to_device or (lambda x: x)
         self.depth = depth
 
     def __iter__(self):
@@ -30,6 +33,7 @@ class Prefetcher:
         def worker():
             try:
                 for item in self.iterable:
+                    item = self.to_device(item)
                     while not stop.is_set():
                         try:
                             q.put(item, timeout=0.1)

@@ -11,6 +11,8 @@ same size on the device; the ragged sequence never reaches it.
 import numpy as np
 import torch
 
+from d3dp_tpu_torch.parallel.mesh import batch_rows, gather_rows, rank_noise, round_up_batch
+
 
 def window_sequence(seq, receptive_field):
     """(T, ...) -> (W, receptive_field, ...) numpy windows."""
@@ -52,7 +54,7 @@ def stitch_hypotheses(preds, total_frames):
                      for k in range(K)])
 
 
-def sample_windows(d3dp, w2d, w2d_flip, bs, generator):
+def sample_windows(d3dp, w2d, w2d_flip, bs, generator, mesh=None):
     """DDIM-sample every window, `bs` windows a `D3DP.sample` call ->
     (W, K, H, rf, J, 3) numpy.
 
@@ -62,9 +64,18 @@ def sample_windows(d3dp, w2d, w2d_flip, bs, generator):
     dropped, and the stack is copied to the host once, after the loop.
     `generator` is a torch.Generator on the sampler's device, drawn from in
     order across the micro-batches.
+
+    Under a data-parallel `mesh` (parallel/mesh.py) bs is rounded up to the
+    batch quantum, each rank draws the global micro-batch's noise and
+    samples its rows, and the ranks' rows are gathered once, after the loop
+    (the reference wraps its model in DataParallel, main.py:246-248).
     """
     W = w2d.shape[0]
     dev = d3dp.device
+    rows = slice(None)
+    if mesh is not None:
+        bs = round_up_batch(bs, mesh)
+        rows = batch_rows(bs, mesh)
     parts = []
     for lo in range(0, W, bs):
         hi = min(lo + bs, W)
@@ -73,10 +84,14 @@ def sample_windows(d3dp, w2d, w2d_flip, bs, generator):
         if pad:
             a = np.concatenate([a, np.repeat(a[:1], pad, 0)], 0)
             b = np.concatenate([b, np.repeat(b[:1], pad, 0)], 0)
-        out = d3dp.sample(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev),
-                          torch.from_numpy(np.ascontiguousarray(b, np.float32)).to(dev),
-                          generator=generator)
-        parts.append(out[: hi - lo])
+        kw = dict(generator=generator)
+        if mesh is not None:
+            kw = dict(noise_override=rank_noise(d3dp, bs, generator, mesh))
+        out = d3dp.sample(torch.from_numpy(np.ascontiguousarray(a[rows], np.float32)).to(dev),
+                          torch.from_numpy(np.ascontiguousarray(b[rows], np.float32)).to(dev), **kw)
+        parts.append(out if mesh is not None else out[: hi - lo])
+    if mesh is not None:
+        return gather_rows(parts, bs, mesh)[:W].cpu().numpy()
     return torch.cat(parts).cpu().numpy()
 
 

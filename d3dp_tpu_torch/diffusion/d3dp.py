@@ -100,7 +100,7 @@ class D3DP:
                                           dtype=torch.float32, device=self.device)
 
     def train_forward(self, x2d, x3d, train=True, generator=None, t_noise_override=None,
-                      droppath_masks=None):
+                      droppath_masks=None, module=None):
         """Denoise a q-sampled pose; returns the x0 prediction (B, F, J, 3)
         with autograd (reference: prepare_targets + the train branch of
         forward, diffusionpose.py:279-320): per-sample random t and noise.
@@ -109,6 +109,8 @@ class D3DP:
         torch.Generator on the model's device); `t_noise_override=(t, noise)`
         replaces the first two draws and `droppath_masks` the masks
         (deterministic replay and parity tests; see MixSTE2.forward).
+        `module` runs the denoiser in place of `self.model` (a data-parallel
+        step's DistributedDataParallel wrapper of it).
 
         train=False is the JAX `deterministic=True` forward, which there runs
         the fused stages with their custom backward. Here it is the composed
@@ -126,16 +128,38 @@ class D3DP:
         elif generator is None:
             raise ValueError("train_forward needs a torch.Generator or t_noise_override")
         else:
-            t = torch.randint(0, cfg.timesteps, (B,), generator=generator, device=dev)
-            noise = torch.randn(x3d.shape, generator=generator, device=dev)
+            t, noise = self.train_noise(B, generator)
 
         x_start = x3d * cfg.scale
         x = (self._sqrt_ac[t][:, None, None, None] * x_start
              + self._sqrt_1mac[t][:, None, None, None] * noise)
         x = torch.clamp(x, -1.1 * cfg.scale, 1.1 * cfg.scale) / cfg.scale
-        pred = self.model(x2d, x, t, train=True, generator=generator,
-                          droppath_masks=droppath_masks, drop_path=train)
+        pred = (module or self.model)(x2d, x, t, train=True, generator=generator,
+                                      droppath_masks=droppath_masks, drop_path=train)
         return pred * cfg.unit_scale
+
+    def train_noise(self, B, generator):
+        """The training forward's draws for a batch of B: t (B,) and the
+        noise (B, F, J, 3), from `generator` in train_forward's order. A
+        data-parallel rank draws them for the global batch and keeps its
+        rows, so its run draws what one device's run draws."""
+        m = self.cfg.model
+        t = torch.randint(0, self.cfg.timesteps, (B,), generator=generator, device=self.device)
+        noise = torch.randn((B, m.num_frames, m.num_joints, 3), generator=generator,
+                            device=self.device)
+        return t, noise
+
+    def sample_noise(self, B, generator):
+        """`sample`'s draws for a batch of B: img0 (B, H, F, J, 3) and the
+        step noises (K, B, H, F, J, 3), from `generator` in sample's order
+        (drawn for the global batch on a data-parallel rank, as
+        train_noise)."""
+        cfg, m = self.cfg, self.cfg.model
+        shape = (B, cfg.num_proposals, m.num_frames, m.num_joints, 3)
+        img0 = torch.randn(shape, generator=generator, device=self.device)
+        step_noises = torch.randn((cfg.sampling_timesteps, *shape), generator=generator,
+                                  device=self.device)
+        return img0, step_noises
 
     @torch.inference_mode()
     def sample(self, x2d, x2d_flip=None, generator=None, noise_override=None):
@@ -166,8 +190,7 @@ class D3DP:
         elif generator is None:
             raise ValueError("sample needs a torch.Generator or noise_override")
         else:
-            img0 = torch.randn((B, H, Fr, J, 3), generator=generator, device=dev)
-            step_noises = torch.randn((K, B, H, Fr, J, 3), generator=generator, device=dev)
+            img0, step_noises = self.sample_noise(B, generator)
 
         def fold(x):  # (B,F,J,C) -> (B*H,F,J,C), each window repeated H times
             x = torch.as_tensor(x, dtype=f32, device=dev)

@@ -25,18 +25,21 @@ def select_p_agg(preds):
     return torch.mean(preds, dim=2)
 
 
-def select_p_best(preds, target, weights=None):
+def select_p_best(preds, target, weights=None, per_kh=None):
     """The hypothesis of least mean error per DDIM step, one for the whole
     micro-batch, as the reference picks it (main_3dhp.py:787-797).
     -> (B, K, F, J, 3). `weights`: optional (B,) 0/1 mask keeping padded
-    windows out of the selection statistic (the reference never pads)."""
-    errors = _norm(preds - target[:, None, None])  # (B, K, H, F, J)
-    if weights is not None:
-        w = weights[:, None, None, None, None].to(errors.dtype)
-        denom = torch.sum(weights) * errors.shape[3] * errors.shape[4]
-        per_kh = torch.sum(errors * w, dim=(0, 3, 4)) / denom  # (K, H)
-    else:
-        per_kh = torch.mean(errors, dim=(0, 3, 4))  # (K, H)
+    windows out of the selection statistic (the reference never pads).
+    `per_kh`: the (K, H) statistic where the caller has it (a data-parallel
+    rank passes the micro-batch's, summed over the ranks)."""
+    if per_kh is None:
+        errors = _norm(preds - target[:, None, None])  # (B, K, H, F, J)
+        if weights is not None:
+            w = weights[:, None, None, None, None].to(errors.dtype)
+            denom = torch.sum(weights) * errors.shape[3] * errors.shape[4]
+            per_kh = torch.sum(errors * w, dim=(0, 3, 4)) / denom  # (K, H)
+        else:
+            per_kh = torch.mean(errors, dim=(0, 3, 4))  # (K, H)
     idx = torch.argmin(per_kh, dim=1)  # (K,)
     return torch.take_along_dim(preds, idx[None, :, None, None, None, None], dim=2)[:, :, 0]
 

@@ -8,7 +8,9 @@ normalisation by the frame size, 2D-only windowed DDIM sampling, window
 stitching, camera-to-world with the fixed H36M rotation, the height rebase,
 the two .npy exports and per-frame 3D plots. cv2 (frame size, video
 splitting) and matplotlib (the plots) are imported where they are used:
-`lift_keypoints` runs without either.
+`lift_keypoints` runs without either. `inference_video` samples on every
+card by default, one process a card, as the command lines do; rank 0 writes
+the exports and the plots.
 """
 
 import os
@@ -17,13 +19,14 @@ import time
 import numpy as np
 import torch
 
-from d3dp_tpu_torch.cli.arguments import device_of, parse_args
+from d3dp_tpu_torch.cli.arguments import device_of, launch, parse_args
 from d3dp_tpu_torch.data.generators import flip_sequence
 from d3dp_tpu_torch.data.windowing import sample_windows, stitch_hypotheses, window_sequence
 from d3dp_tpu_torch.device import disable_tf32, resolve_device
 from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
 from d3dp_tpu_torch.geometry.camera import camera_to_world, normalize_screen_coordinates
 from d3dp_tpu_torch.models import MixSTEConfig
+from d3dp_tpu_torch.parallel import process_index
 from d3dp_tpu_torch.train.checkpoint_io import load_any
 
 # COCO-17 keypoint layout of the external detectors
@@ -124,15 +127,17 @@ def video_frame_size(video_path):
     return w, h
 
 
-def sample_video_keypoints(d3dp, keypoints_norm, rf, bs, generator):
+def sample_video_keypoints(d3dp, keypoints_norm, rf, bs, generator, mesh=None):
     """2D-only windowed sampling of a normalised COCO-layout (Ftot, 17, 2)
     track, with its keypoint-symmetry flip -> stitched (K, H, Ftot, 17, 3)
-    numpy. `generator`: a torch.Generator on the sampler's device."""
+    numpy. `generator`: a torch.Generator on the sampler's device; `mesh`
+    as in `sample_windows`."""
     kl, kr = COCO_METADATA["keypoints_symmetry"]
     seq = np.asarray(keypoints_norm, np.float32)
     w2d = window_sequence(seq, rf)
     w2d_f = window_sequence(flip_sequence(seq, kl, kr), rf)
-    return stitch_hypotheses(sample_windows(d3dp, w2d, w2d_f, bs, generator), seq.shape[0])
+    return stitch_hypotheses(sample_windows(d3dp, w2d, w2d_f, bs, generator, mesh),
+                             seq.shape[0])
 
 
 def world_frame(prediction):
@@ -145,7 +150,7 @@ def world_frame(prediction):
     return pred_world
 
 
-def lift_keypoints(args, keypoints, frame_width, frame_height):
+def lift_keypoints(args, keypoints, frame_width, frame_height, mesh=None):
     """Pixel keypoints (Ftot, 17, >=2) of a frame_width x frame_height video
     -> (prediction (K, H, Ftot, 17, 3) in the camera frame, the same in the
     world frame, height-rebased), both also saved under
@@ -153,8 +158,9 @@ def lift_keypoints(args, keypoints, frame_width, frame_height):
     `-f`, `--dtype`, `--fuse-level`, H, K, reuse) with the COCO joint
     symmetry and the checkpoint `args.evaluate`'s weights; `-b` // `-f`
     windows a sampling call; the noise comes from `--seed`. Runs on the card
-    unless `--platform cpu`."""
-    device = resolve_device(device_of(args))
+    unless `--platform cpu`; `mesh`: this rank's (`cli.arguments.launch`),
+    the windows split over its ranks, the exports written by rank 0."""
+    device = resolve_device(device_of(args, mesh))
     if device.type == "cuda":
         disable_tf32()
     keypoints_norm = normalize_screen_coordinates(
@@ -176,29 +182,32 @@ def lift_keypoints(args, keypoints, frame_width, frame_height):
     with Timer("sampling"):
         prediction = sample_video_keypoints(
             d3dp, keypoints_norm, args.number_of_frames,
-            max(args.batch_size // args.number_of_frames, 1), generator)
+            max(args.batch_size // args.number_of_frames, 1), generator, mesh=mesh)
 
-    save_dir = os.path.join("outputs", args.video_name)
-    os.makedirs(save_dir, exist_ok=True)
-    np.save(os.path.join(save_dir, f"test_3d_{args.video_name}_output.npy"), prediction)
     pred_world = world_frame(prediction)
-    np.save(os.path.join(save_dir, f"test_3d_output_{args.video_name}_postprocess.npy"),
-            pred_world)
+    if process_index() == 0:
+        save_dir = os.path.join("outputs", args.video_name)
+        os.makedirs(save_dir, exist_ok=True)
+        np.save(os.path.join(save_dir, f"test_3d_{args.video_name}_output.npy"), prediction)
+        np.save(os.path.join(save_dir, f"test_3d_output_{args.video_name}_postprocess.npy"),
+                pred_world)
     return prediction, pred_world
 
 
-def main(args):
+def main(args, mesh=None):
     """The whole pipeline for one video (videopose_diffusion.py:64-208):
     keypoints from `args.detector_2d`, frame size from `args.viz_video`,
     `lift_keypoints`, then (unless `args.render_frames` is False) plots of
     the first `--viz-limit` frames (10 by default) under outputs/<video_name>/.
-    Returns the world-frame prediction."""
-    resolve_device(device_of(args))  # no card and no --platform cpu: fail before the detector
+    `mesh`: this rank's, as in lift_keypoints; rank 0 plots. Returns the
+    world-frame prediction."""
+    # no card and no --platform cpu: fail before the detector
+    resolve_device(device_of(args, mesh))
     keypoints = get_detector_2d(args.detector_2d)(args.viz_video)
     frame_width, frame_height = video_frame_size(args.viz_video)
-    _, pred_world = lift_keypoints(args, keypoints, frame_width, frame_height)
+    _, pred_world = lift_keypoints(args, keypoints, frame_width, frame_height, mesh)
 
-    if getattr(args, "render_frames", True):
+    if getattr(args, "render_frames", True) and process_index() == 0:
         from d3dp_tpu_torch.data.h36m import H36M_JOINTS_REMOVED, h36m_skeleton
         from d3dp_tpu_torch.viz.visualization import draw_3d_image
 
@@ -214,7 +223,9 @@ def main(args):
 def inference_video(video_path, detector_2d, checkpoint=None, argv=None):
     """video -> 2D -> multi-hypothesis 3D. (videopose_diffusion.py:210-232)
     `argv`: the command line's flags (`parse_args(in_the_wild=True)`);
-    `checkpoint` defaults to the reference's path."""
+    `checkpoint` defaults to the reference's path. Runs `main` on every
+    rank the flags ask for (`cli.arguments.launch`); returns the world-frame
+    prediction (rank 0's where the ranks ran in worker processes)."""
     args = parse_args(argv or [], in_the_wild=True)
     args.detector_2d = detector_2d
     basename = os.path.basename(video_path)
@@ -222,4 +233,4 @@ def inference_video(video_path, detector_2d, checkpoint=None, argv=None):
     args.viz_video = video_path
     args.evaluate = checkpoint or "./checkpoint/in_the_wild_best_epoch.bin"
     with Timer(video_path):
-        return main(args)
+        return launch(main, args)

@@ -11,6 +11,11 @@ vectors:
   `mpjpe_diffusion_all_min`, J-Agg (JPMA) `mpjpe_diffusion_reproj`;
   the valid-frame-masked 3DHP form `mpjpe_diffusion_3dhp`; and the
   reference's other losses `n_mpjpe` and the velocity errors.
+
+A data-parallel rank scores its rows of a micro-batch: it passes `total`,
+the global micro-batch's weight sum, so the ranks' results sum to the
+global mean, and P-Best's `per_hypothesis=True`, the (K, H) means before
+the minimum over H, which is taken after the sum over the ranks.
 """
 
 import torch
@@ -38,9 +43,10 @@ def mpjpe(predicted, target, return_joints_err=False):
     return torch.mean(errors)
 
 
-def _wmean(errors, weights, keep_axes):
+def _wmean(errors, weights, keep_axes, total=None):
     """Mean of `errors` over all axes except `keep_axes`, with optional (B,)
-    0/1 `weights` masking padded rows of axis 0 (fixed-size eval batches)."""
+    0/1 `weights` masking padded rows of axis 0 (fixed-size eval batches);
+    `total` replaces the weights' sum in the denominator."""
     reduce_axes = tuple(a for a in range(errors.dim()) if a not in keep_axes)
     if weights is None:
         return torch.mean(errors, dim=reduce_axes)
@@ -49,26 +55,29 @@ def _wmean(errors, weights, keep_axes):
     for a in reduce_axes:
         if a != 0:
             n_other *= errors.shape[a]
-    return torch.sum(errors * w, dim=reduce_axes) / (torch.sum(weights) * n_other)
+    total = torch.sum(weights) if total is None else total
+    return torch.sum(errors * w, dim=reduce_axes) / (total * n_other)
 
 
-def mpjpe_diffusion(predicted, target, mean_pos=False, weights=None):
-    """P-Best (default) or P-Agg (mean_pos) MPJPE, -> (K,). (loss.py:78-107)"""
+def mpjpe_diffusion(predicted, target, mean_pos=False, weights=None, total=None,
+                    per_hypothesis=False):
+    """P-Best (default) or P-Agg (mean_pos) MPJPE, -> (K,). (loss.py:78-107)
+    P-Best with `per_hypothesis`: the (K, H) means, before the minimum."""
     if not mean_pos:
         errors = _norm(predicted - target[:, None, None])  # (B,K,H,F,J)
-        per_kh = _wmean(errors, weights, keep_axes=(1, 2))  # (K,H)
-        return torch.amin(per_kh, dim=1)
+        per_kh = _wmean(errors, weights, keep_axes=(1, 2), total=total)  # (K,H)
+        return per_kh if per_hypothesis else torch.amin(per_kh, dim=1)
     mean_pose = torch.mean(predicted, dim=2)  # (B,K,F,J,3)
     errors = _norm(mean_pose - target[:, None])  # (B,K,F,J)
-    return _wmean(errors, weights, keep_axes=(1,))
+    return _wmean(errors, weights, keep_axes=(1,), total=total)
 
 
-def mpjpe_diffusion_all_min(predicted, target, mean_pos=False, weights=None):
+def mpjpe_diffusion_all_min(predicted, target, mean_pos=False, weights=None, total=None):
     """J-Best (per-joint oracle over H) or P-Agg, -> (K,). (loss.py:22-52)"""
     if not mean_pos:
         errors = _norm(predicted - target[:, None, None])  # (B,K,H,F,J)
-        return _wmean(torch.amin(errors, dim=2), weights, keep_axes=(1,))
-    return mpjpe_diffusion(predicted, target, mean_pos=True, weights=weights)
+        return _wmean(torch.amin(errors, dim=2), weights, keep_axes=(1,), total=total)
+    return mpjpe_diffusion(predicted, target, mean_pos=True, weights=weights, total=total)
 
 
 def joint_select_by_reproj(errors_2d):
@@ -80,27 +89,30 @@ def joint_select_by_reproj(errors_2d):
     return onehot.movedim(-1, 2)
 
 
-def mpjpe_diffusion_reproj(predicted, target, reproj_2d, target_2d, weights=None):
+def mpjpe_diffusion_reproj(predicted, target, reproj_2d, target_2d, weights=None, total=None):
     """J-Agg / JPMA: per-joint hypothesis chosen by 2D reprojection, -> (K,).
     reproj_2d: (B,K,H,F,J,2); target_2d: (B,F,J,2). (loss.py:54-76)"""
     errors = _norm(predicted - target[:, None, None])  # (B,K,H,F,J)
     errors_2d = _norm(reproj_2d - target_2d[:, None, None])
     onehot = joint_select_by_reproj(errors_2d)
     errors_select = torch.sum(errors * onehot, dim=2)  # (B,K,F,J)
-    return _wmean(errors_select, weights, keep_axes=(1,))
+    return _wmean(errors_select, weights, keep_axes=(1,), total=total)
 
 
-def mpjpe_diffusion_3dhp(predicted, target, valid_frame, mean_pos=False):
+def mpjpe_diffusion_3dhp(predicted, target, valid_frame, mean_pos=False, total=None,
+                         per_hypothesis=False):
     """Valid-frame-masked P-Best (or P-Agg with mean_pos) for MPI-INF-3DHP,
     -> (K,). valid_frame: (B, F) 0/1. A masked mean rather than the
-    reference's boolean indexing, so the shapes stay fixed.
-    (reference: common/loss.py:109-145)"""
+    reference's boolean indexing, so the shapes stay fixed. `total`
+    replaces the mask's sum in the denominator; `per_hypothesis` as in
+    mpjpe_diffusion. (reference: common/loss.py:109-145)"""
     mask = valid_frame.to(predicted.dtype)  # (B, F)
     J = predicted.shape[4]
-    denom = torch.sum(mask) * J
+    denom = (torch.sum(mask) if total is None else total) * J
     if not mean_pos:
         errors = _norm(predicted - target[:, None, None]) * mask[:, None, None, :, None]
-        return torch.amin(torch.sum(errors, dim=(0, 3, 4)) / denom, dim=1)
+        per_kh = torch.sum(errors, dim=(0, 3, 4)) / denom
+        return per_kh if per_hypothesis else torch.amin(per_kh, dim=1)
     mean_pose = torch.mean(predicted, dim=2)
     errors = _norm(mean_pose - target[:, None]) * mask[:, None, :, None]
     return torch.sum(errors, dim=(0, 2, 3)) / denom

@@ -79,30 +79,34 @@ def _align_hypotheses(predicted, target, mean_pos):
     return aligned.reshape(out_shape), target_b
 
 
-def p_mpjpe_diffusion(predicted, target, mean_pos=False, weights=None):
+def p_mpjpe_diffusion(predicted, target, mean_pos=False, weights=None, total=None,
+                      per_hypothesis=False):
     """P-Best / P-Agg under Protocol 2, -> (K,). (loss.py:262-331)
 
-    `weights`: optional (B,) 0/1 mask excluding padded windows."""
+    `weights`: optional (B,) 0/1 mask excluding padded windows; `total` and
+    `per_hypothesis` as in metrics.mpjpe.mpjpe_diffusion."""
     aligned, target_b = _align_hypotheses(predicted, target, mean_pos)
     errors = _norm(aligned - target_b)
     if not mean_pos:
-        return torch.amin(_wmean(errors, weights, keep_axes=(1, 2)), dim=1)
-    return _wmean(errors, weights, keep_axes=(1,))
+        per_kh = _wmean(errors, weights, keep_axes=(1, 2), total=total)
+        return per_kh if per_hypothesis else torch.amin(per_kh, dim=1)
+    return _wmean(errors, weights, keep_axes=(1,), total=total)
 
 
-def p_mpjpe_diffusion_all_min(predicted, target, mean_pos=False, weights=None):
+def p_mpjpe_diffusion_all_min(predicted, target, mean_pos=False, weights=None, total=None):
     """J-Best / P-Agg under Protocol 2, -> (K,). (loss.py:190-260)"""
     aligned, target_b = _align_hypotheses(predicted, target, mean_pos)
     errors = _norm(aligned - target_b)
     if not mean_pos:
-        return _wmean(torch.amin(errors, dim=2), weights, keep_axes=(1,))
-    return _wmean(errors, weights, keep_axes=(1,))
+        return _wmean(torch.amin(errors, dim=2), weights, keep_axes=(1,), total=total)
+    return _wmean(errors, weights, keep_axes=(1,), total=total)
 
 
-def p_mpjpe_diffusion_reproj(predicted, target, reproj_2d, target_2d, weights=None):
+def p_mpjpe_diffusion_reproj(predicted, target, reproj_2d, target_2d, weights=None,
+                             total=None):
     """J-Agg / JPMA under Protocol 2, -> (K,). (loss.py:333-395)"""
     aligned, target_b = _align_hypotheses(predicted, target, mean_pos=False)
     errors = _norm(aligned - target_b)  # (B, K, H, F, J)
     errors_2d = _norm(reproj_2d - target_2d[:, None, None])
     errors_select = torch.sum(errors * joint_select_by_reproj(errors_2d), dim=2)
-    return _wmean(errors_select, weights, keep_axes=(1,))
+    return _wmean(errors_select, weights, keep_axes=(1,), total=total)

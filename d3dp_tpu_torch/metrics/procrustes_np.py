@@ -79,12 +79,14 @@ def p_mpjpe_np(predicted, target):
     return np.mean(_norm(aligned - target))
 
 
-def p_mpjpe_diffusion_np(predicted, target, mean_pos=False):
+def p_mpjpe_diffusion_np(predicted, target, mean_pos=False, per_hypothesis=False):
+    """P-Best / P-Agg; P-Best with `per_hypothesis` the (K, H) means before
+    the minimum (a data-parallel rank's share)."""
     aligned, target_b = _align_hypotheses_np(predicted, target, mean_pos)
     errors = _norm(aligned - target_b)
     if not mean_pos:
         per_kh = np.mean(errors, axis=(0, 3, 4))
-        return np.min(per_kh, axis=1)
+        return per_kh if per_hypothesis else np.min(per_kh, axis=1)
     return np.mean(errors, axis=(0, 2, 3))
 
 

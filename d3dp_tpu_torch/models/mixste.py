@@ -463,6 +463,22 @@ class MixSTE2(nn.Module):
             return torch.where(u < keep, 1.0 / keep, 0.0)
         return draw(), draw()
 
+    def draw_droppath_masks(self, B, generator, rows=slice(None)):
+        """The DropPath masks of a training forward on a batch of B, drawn
+        from `generator` in the order that forward draws them, as the
+        `droppath_masks` dict. `rows`: the batch rows to keep (a
+        data-parallel rank draws for the global batch and keeps its own);
+        spatial rows are b-major (B*F), temporal ones B*J."""
+        cfg = self.cfg
+        rates = np.linspace(0, cfg.drop_path_rate, cfg.depth)
+        out = {}
+        for i, rate in enumerate(rates):
+            for kind, per in (("ste", cfg.num_frames), ("tte", cfg.num_joints)):
+                masks = self._droppath_masks(f"{kind}_{i}", float(rate), B * per, generator, None)
+                if masks is not None:
+                    out[f"{kind}_{i}"] = tuple(m.view(B, per)[rows].reshape(-1) for m in masks)
+        return out
+
     def _trunk_composed(self, x2d, x3d, t, generator, droppath_masks, drop_path,
                         reuse_tap=None, deep_delta=None, fused=False):
         """The composed flow: (stream after the trunk, tap stream or None),

@@ -8,6 +8,12 @@ diffusion-wrapper prefixes) under `model_pos`, the AdamW state_dict under
 `optimizer`, and the training generator's np.random.RandomState under
 `random_state`. `load_any` also reads an original `.bin`.
 
+Under a data-parallel process group every rank calls `save_checkpoint`
+and only rank 0 writes (the ranks' weights are equal), the others waiting
+at a barrier until the file is in place; every rank loads on resume. The
+keys are the model's own, with no `module.` prefix, so a checkpoint moves
+between runs on any number of ranks.
+
 A checkpoint holds pickled Python objects (the RandomState), as the
 original's does, so it is loaded with `weights_only=False`: load only
 checkpoints this program or the original wrote.
@@ -18,7 +24,9 @@ import os
 import re
 
 import torch
+import torch.distributed as dist
 
+from d3dp_tpu_torch.parallel.mesh import process_index
 from d3dp_tpu_torch.train.convert import load_reference_checkpoint
 
 _PREFIXES = ("module.", "pose_estimator.")
@@ -27,18 +35,22 @@ _PREFIXES = ("module.", "pose_estimator.")
 def save_checkpoint(path, *, epoch, lr, model, optimizer=None, generator_random_state=None,
                     min_loss=None):
     """Write the payload to `path + ".tmp"`, then rename it over `path`, so
-    an interrupted save never leaves a truncated checkpoint."""
-    payload = {
-        "epoch": epoch,
-        "lr": lr,
-        "random_state": generator_random_state,
-        "optimizer": None if optimizer is None else optimizer.state_dict(),
-        "model_pos": model.state_dict(),
-        "min_loss": min_loss,
-    }
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    an interrupted save never leaves a truncated checkpoint. Rank 0 writes;
+    under a process group every rank waits at a barrier until it has."""
+    if process_index() == 0:
+        payload = {
+            "epoch": epoch,
+            "lr": lr,
+            "random_state": generator_random_state,
+            "optimizer": None if optimizer is None else optimizer.state_dict(),
+            "model_pos": model.state_dict(),
+            "min_loss": min_loss,
+        }
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def load_any(path):

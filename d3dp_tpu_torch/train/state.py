@@ -8,6 +8,10 @@ the step updates them in place and returns only the loss.
 """
 
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
+
+from d3dp_tpu_torch.parallel.mesh import batch_rows
 
 
 def make_optimizer(params, learning_rate, weight_decay=0.1):
@@ -27,15 +31,18 @@ def set_lr(optimizer, lr):
     return optimizer
 
 
-def weighted_mpjpe(pred, target, weights):
+def weighted_mpjpe(pred, target, weights, total=None):
     """Masked MPJPE: mean over valid batch rows only. weights: (B,) 0/1; the
-    denominator is sum(w) * F * J."""
+    denominator is sum(w) * F * J, or total * F * J where `total` is given
+    (a data-parallel rank's share of the global batch's mean: the ranks'
+    shares sum to it)."""
     err = torch.sqrt(torch.sum(torch.square(pred - target), dim=-1))  # (B, F, J)
     w = weights[:, None, None].to(err.dtype)
-    return torch.sum(err * w) / (torch.sum(weights) * err.shape[1] * err.shape[2])
+    total = torch.sum(weights) if total is None else total
+    return torch.sum(err * w) / (total * err.shape[1] * err.shape[2])
 
 
-def make_train_step(d3dp, optimizer, root_joint=0):
+def make_train_step(d3dp, optimizer, root_joint=0, mesh=None):
     """Build the train step.
 
     step(x2d, x3d, weights, generator=None, t_noise_override=None) -> loss,
@@ -43,7 +50,24 @@ def make_train_step(d3dp, optimizer, root_joint=0):
     x3d arrives with the trajectory in the root joint; it is root-zeroed here
     before both conditioning and loss (main.py:381-382 -- joint 0 for H36M).
     Inputs may be numpy arrays or tensors; they move to the model's device.
+
+    Under a data-parallel `mesh` (parallel/mesh.py), x2d and x3d are this
+    rank's rows of the global batch (`shard_batch_fn`) and `weights` the
+    global batch's (B,) weights; t, the noise and the DropPath masks are
+    drawn for the global batch from `generator` (the same seed on every
+    rank) and each rank keeps its rows, and `t_noise_override` is global
+    too. Each rank's loss is its share of the global weighted mean (the
+    global sum of weights in the denominator), so the gradients summed over
+    the ranks are the global mean's: DistributedDataParallel averages them
+    over the ranks while the backward runs, so its loss is that share
+    times the world size. The step returns the global mean, summed over
+    the ranks. The ranks' parameters start equal (the wrapper broadcasts
+    rank 0's) and stay equal: each applies the same gradients. The wrapper
+    runs `d3dp.model` itself, so the sampler and its weight cache read the
+    trained parameters as they do on one device.
     """
+    if mesh is not None:
+        return _make_dp_step(d3dp, optimizer, root_joint, mesh)
     dev = d3dp.device
 
     def step(x2d, x3d, weights, generator=None, t_noise_override=None):
@@ -58,5 +82,44 @@ def make_train_step(d3dp, optimizer, root_joint=0):
         loss.backward()
         optimizer.step()
         return loss.detach()
+
+    return step
+
+
+def _make_dp_step(d3dp, optimizer, root_joint, mesh):
+    dev = d3dp.device
+    ddp = DistributedDataParallel(d3dp.model)
+    dropping = d3dp.cfg.model.drop_path_rate > 0
+
+    def step(x2d, x3d, weights, generator=None, t_noise_override=None):
+        w_global = torch.as_tensor(weights, dtype=torch.float32)
+        B = w_global.shape[0]
+        rows = batch_rows(B, mesh)
+        if t_noise_override is None:
+            if generator is None:
+                raise ValueError("the train step needs a torch.Generator or t_noise_override")
+            t, noise = d3dp.train_noise(B, generator)
+        else:
+            t, noise = (torch.as_tensor(a, device=dev) for a in t_noise_override)
+        masks = None
+        if dropping:
+            if generator is None:
+                raise ValueError("DropPath needs a torch.Generator")
+            masks = d3dp.model.draw_droppath_masks(B, generator, rows)
+        x2d = torch.as_tensor(x2d, dtype=torch.float32, device=dev)
+        x3d = torch.as_tensor(x3d, dtype=torch.float32, device=dev).clone()
+        x3d[:, :, root_joint] = 0.0
+        pred = d3dp.train_forward(x2d, x3d, train=True, t_noise_override=(t[rows], noise[rows]),
+                                  droppath_masks=masks, module=ddp)
+        # the global weight sum as a device tensor: the division is then the
+        # one-device step's, bit for bit at world size 1
+        total = torch.full((), float(w_global.sum()), device=dev)
+        loss = weighted_mpjpe(pred, x3d, w_global[rows].to(dev), total=total)
+        optimizer.zero_grad(set_to_none=True)
+        (loss * mesh.size).backward()
+        optimizer.step()
+        loss = loss.detach().clone()
+        dist.all_reduce(loss)
+        return loss
 
     return step

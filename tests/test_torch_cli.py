@@ -54,14 +54,29 @@ def test_parse_args_gives_jax_namespace(argv):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--dp", "2"], ["--tp", "2"],
-    ["--multihost"], ["--coordinator-address", "localhost:1234"],
-    ["--input-pipeline", "grain"], ["--ckpt-format", "orbax"],
+    ["--tp", "2"], ["--input-pipeline", "grain"], ["--ckpt-format", "orbax"],
 ])
 def test_flags_not_ported_raise(flag, capsys):
     with pytest.raises(SystemExit):
         tparse(SMALL + flag)
     assert "not ported yet" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", [
+    ["--dp", "2"], ["--multihost"], ["--coordinator-address", "localhost:1234"],
+    ["--coordinator-address", "localhost:1234", "--num-hosts", "2", "--host-id", "1"],
+])
+def test_parallel_flags_give_jax_namespace(flag):
+    """The data-parallel and multi-host flags parse as the JAX package's
+    (their runs: tests/test_torch_cli_dp.py)."""
+    assert vars(tparse(SMALL + flag)) == vars(jparse(SMALL + flag))
+
+
+def test_host_flags_need_the_coordinator(capsys):
+    for parse in (tparse, jparse):
+        with pytest.raises(SystemExit):
+            parse(SMALL + ["--num-hosts", "2"])
+    assert "require --coordinator-address" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flags,want", [

@@ -56,7 +56,7 @@ def test_package_mirrors_layout():
               "ops.resident", "metrics.procrustes", "metrics.pck_auc", "data.mpi3dhp",
               "eval.aggregation", "eval.evaluator_3dhp", "cli.main_3dhp",
               "viz.visualization", "in_the_wild.inference", "cli.render", "cli.main_draw",
-              "cli.main_in_the_wild",
+              "cli.main_in_the_wild", "parallel.mesh", "parallel.multihost",
               "utils.misc", "utils.logging", "utils.profiling"):
         assert f"d3dp_tpu_torch.{m}" in _modules(), m
 
