@@ -59,6 +59,14 @@ random weights from a fixed seed:
     bias, whose exact gradient is zero), with exact launch counts a rank; a world
     of one over NCCL equal to the run without a mesh; NCCL over two cards
     where the box has them; K1, K2 and K9 at a rank's 20 rows;
+  * tensor-parallel evaluation and training (phase tp, `--tp`): the partial
+    forms of the stage, block and MLP kernels and the residual-LayerNorm
+    epilogue against their plain versions at tp 2 and 4, their sums over
+    the ranks against the whole kernels, each timed at a rank's rows; two
+    ranks at tp=2 sharing the card over gloo evaluate one Eval-config
+    window at fuse levels 2-5 (level 5 on the gathered weights, equal to
+    one process bit for bit) and train 3 steps (fp32 and bf16) against one
+    process, with exact launch counts a rank;
 and times them. The stage, MLP and trunk kernels are also held against
 their plain versions at the 3DHP evaluation's 80 hypothesis rows. Every phase raises on failure; the script exits non-zero
 without a CUDA device and prints nothing then but the reason. The last
@@ -66,8 +74,8 @@ stdout line is the run's JSON status; the line before it the per-kernel
 JSON. Details also go to `chiprun_out/chip_smoke.json`, and the command
 lines' own output to `chiprun_out/chip_smoke_cli.log`,
 `chiprun_out/chip_smoke_cli_3dhp.log` and `chiprun_out/chip_smoke_wild.log`.
-Phase dp's per-rank launch counts are a `{"dp_launches": ...}` line of
-their own, before the last two lines.
+Phase dp's and phase tp's per-rank launch counts are `{"dp_launches": ...}`
+and `{"tp_launches": ...}` lines of their own, before the last two lines.
 """
 
 import contextlib
@@ -174,6 +182,7 @@ def kernel_ops():
     from d3dp_tpu_torch.ops import mlp as M
 
     from d3dp_tpu_torch.ops import resident as R
+    from d3dp_tpu_torch.ops.residual_ln import residual_ln
 
     return {"attention_stage": A.attention_stage, "mlp_block_t": M.mlp_block_t,
             "fused_attention_qkv": A.fused_attention_qkv,
@@ -182,7 +191,10 @@ def kernel_ops():
             "fused_attention_packed": A.fused_attention_packed,
             "resident_block_stack": R.resident_block_stack,
             "attention_stage_dp": A.attention_stage_dp, "mlp_block_t_dp": M.mlp_block_t_dp,
-            "mlp_block_dp": M.mlp_block_dp, "attention_stage_hm": A.attention_stage_hm}
+            "mlp_block_dp": M.mlp_block_dp, "attention_stage_hm": A.attention_stage_hm,
+            "attention_stage_partial": A.attention_stage_partial,
+            "attention_block_partial": A.attention_block_partial,
+            "mlp_block_partial": M.mlp_block_partial, "residual_ln": residual_ln}
 
 
 def reset_counts():
@@ -273,7 +285,7 @@ def phase_env(torch, record):
             f"{r.get('spill_stores')} bytes spill stores, {r.get('spill_loads')} bytes spill "
             f"loads, {r.get('stack')} bytes stack")
     bf16_keys = ("attend", "attn_bwd_block", "attn_bwd_warp", "resident", "mlp_block",
-                 "ln_qkv_walk", "proj_ln2_walk")
+                 "ln_qkv_walk", "proj_ln2_walk", "residual_ln")
     tile = [r for r in ptxas if any(k in r["kernel"] for k in bf16_keys)
             and "<float" not in r["kernel"]]
     for k in bf16_keys[1:]:
@@ -284,7 +296,8 @@ def phase_env(torch, record):
                 f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes spilled")
     spills = sorted({f"{r['kernel']} ({r['spill_stores']} / {r['spill_loads']} bytes)"
                      for r in tile if r.get("spill_stores") or r.get("spill_loads")})
-    log(f"[env] bf16 attention tile and backward, MLP tile, stage walks and K9: {len(tile)} "
+    log(f"[env] bf16 attention tile and backward, MLP tile, stage walks (their tensor-parallel "
+        f"partial forms among them), residual_ln and K9: {len(tile)} "
         f"kernels, spilling: {', '.join(spills) if spills else 'none'}")
     disable_tf32()
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=dt,
@@ -2909,15 +2922,16 @@ def dp_train(torch, mesh, dtype):
     """DP_STEPS train steps at the train config (DropPath 0.1, AdamW 6e-5)
     in `dtype`, batches of BT chunks from a seeded ChunkedGenerator through
     the Prefetcher (under a mesh with `shard_batch_fn`, BT / dp chunks a
-    rank), weights from seed 0 perturbed by seed 1. Returns (losses,
-    parameters on the host, seconds per step, K3 / K4 launches per step,
-    `key_bias_grads` after the first step, the D3DP)."""
+    rank), weights from seed 0 perturbed by seed 1 (then split over the
+    mesh's tp ranks, phase tp). Returns (losses, the whole parameters on the
+    host, seconds per step, K3 / K4 launches per step, `key_bias_grads`
+    after the first step where the model is not split, the D3DP)."""
     from d3dp_tpu_torch.data.generators import ChunkedGenerator
     from d3dp_tpu_torch.data.prefetch import Prefetcher
     from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT, make_dataset
     from d3dp_tpu_torch.diffusion import D3DP
     from d3dp_tpu_torch.ops import attention as A
-    from d3dp_tpu_torch.parallel import shard_batch_fn
+    from d3dp_tpu_torch.parallel import gather_params, shard_batch_fn, shard_model_params
     from d3dp_tpu_torch.train.state import make_optimizer, make_train_step
 
     dev = torch.device("cuda") if mesh is None else mesh.device
@@ -2925,6 +2939,7 @@ def dp_train(torch, mesh, dtype):
     d3dp = D3DP(dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype)),
                 device=dev, seed=0)
     perturb_(torch, d3dp.model, 1)
+    shard_model_params(d3dp.model, mesh)
     step = make_train_step(d3dp, make_optimizer(d3dp.model.parameters(), 6e-5), mesh=mesh)
     lr_kw = dict(kps_left=list(JOINTS_LEFT), kps_right=list(JOINTS_RIGHT),
                  joints_left=list(JOINTS_LEFT), joints_right=list(JOINTS_RIGHT))
@@ -2943,9 +2958,10 @@ def dp_train(torch, mesh, dtype):
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         counts.append((A.fused_attention_qkv.launches, A.fused_attention_qkv_bwd.launches))
-        key_grads = key_grads or key_bias_grads(torch, d3dp.model)
+        if d3dp.model.tp is None:
+            key_grads = key_grads or key_bias_grads(torch, d3dp.model)
     batches.close()
-    params = {n: p.detach().float().cpu() for n, p in d3dp.model.named_parameters()}
+    params = {n: p.float().cpu() for n, p in gather_params(d3dp.model).items()}
     return losses, params, seconds, counts, key_grads, d3dp
 
 
@@ -3238,6 +3254,475 @@ def phase_dp(torch, record, errs):
     log(f"[dp] phase dp: {record['dp']['seconds']:.1f} s")
 
 
+# ------------------------------------------------------------- phase tp
+TP = 2  # the tensor-parallel ranks of the multi-rank parts
+# the Eval-config micro-batch cut to one window (10 hypothesis rows): every
+# call all-reduces about 165 fp32 activations of 85 MB through the host
+TP_WINDOWS = 1
+TP_ROWS = 2 * TP_WINDOWS * H
+TP_EDGES = ((1, 17), (7, 9), (127, 1), (3, 43))  # (R, N): token rows around the 64-row tiles
+TP_MLP_EDGES = ((1, 63, 1), (1, 65, 1), (1, 129, 1), (3, 7, 5))  # (rows, D1, D2)
+
+
+def tp_index(torch, n, tp, j, parts=1):
+    """Rank j's entries of an axis of n = parts * X: its X / tp slice of
+    each part (qkv's q, k and v: a head-aligned share of each)."""
+    x, per = n // parts, n // parts // tp
+    return torch.cat([torch.arange(p * x + j * per, p * x + (j + 1) * per)
+                      for p in range(parts)]).cuda()
+
+
+def tp_stage_args(torch, a, tp, j):
+    """Rank j's K1-tp operands (x, wqkv, bqkv, ln1_s, ln1_b, wp) from the
+    whole K1's (`stage_inputs`' order)."""
+    idx, cl = tp_index(torch, 3 * C, tp, j, 3), C // tp
+    return (a[0], a[1][:, idx].contiguous(), a[2][idx].contiguous(), a[5], a[6],
+            a[3][j * cl:(j + 1) * cl].contiguous())
+
+
+def tp_block_args(torch, b, tp, j):
+    """Rank j's K6-tp operands (qkv, wp) from the whole K6's."""
+    cl = C // tp
+    return (b[0][..., tp_index(torch, 3 * C, tp, j, 3)].contiguous(),
+            b[2][j * cl:(j + 1) * cl].contiguous())
+
+
+def tp_mlp_args(torch, a, tp, j):
+    """Rank j's K2/K5-tp operands (x rows, w1, b1, w2) from the whole K2's."""
+    hl = HIDDEN // tp
+    return (a[0].reshape(-1, C), a[2][:, j * hl:(j + 1) * hl].contiguous(),
+            a[3][j * hl:(j + 1) * hl].contiguous(), a[4][j * hl:(j + 1) * hl].contiguous())
+
+
+def check_tp_kernels(torch, errs):
+    """Phase tp (i): K1-tp, K6-tp, K2/K5-tp and residual_ln against their
+    plain versions, at tp 2 and 4 (4 and 2 heads a rank; 512 and 256 hidden
+    units), at the eval path's 40 rows and at token-row counts around the
+    tiles, fp32 and bf16; the ranks' partials summed and finished by
+    residual_ln against the whole K1, K6, K2 (transposed) and K5 (rows) at
+    the same bounds: fp32 1e-4, bf16 3e-2 + 1 bf16 ulp."""
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import mlp as M
+    from d3dp_tpu_torch.ops import residual_ln as RL
+
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    scale = (C // HEADS) ** -0.5
+    for dt, name_dt in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        ulp = BF16_ULP if dt == torch.bfloat16 else 0.0
+        tol = TOL[name_dt]
+
+        def held(name, label, got, want):
+            es = [max_err(torch, g, w, ulp) for g, w in zip(got, want)]
+            ok = all(ex <= tol for _, ex in es)
+            log(f"[tp] {name} {label} {name_dt}: max|err| "
+                f"{' / '.join(f'{e:.3e}' for e, _ in es)} (tol {tol:g}"
+                f"{' + 1 bf16 ulp' if ulp else ''}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"{name} {label} {name_dt} disagrees")
+            if dt == torch.bfloat16:
+                errs[name] = max(errs.get(name, 0.0), *(e for e, _ in es))
+
+        for tp in (2, 4):
+            heads = HEADS // tp
+            shapes = (("spatial", ROWS * F, J), ("temporal", ROWS * J, F)) + tuple(
+                (f"edge ({r}, {n})", r, n) for r, n in TP_EDGES)
+            for label, R, N in shapes:
+                tag = f"tp {tp} {label} x({R}, {N}, {C})"
+                a = stage_inputs(torch, gen, R, N, dt)
+                parts = []
+                for j in range(tp):
+                    sa = tp_stage_args(torch, a, tp, j)
+                    parts.append(A.attention_stage_partial(*sa, heads, scale, 1e-6))
+                    held("attention_stage_partial", f"{tag} rank {j}", parts[-1:],
+                         (A.attention_stage_partial_plain(*sa, heads, scale, 1e-6),))
+                total = sum(parts[1:], parts[0])
+                got = RL.residual_ln(a[0], total, a[4], a[7], a[8], 1e-6)
+                held("residual_ln", f"{tag} attention half", got,
+                     RL.residual_ln_plain(a[0], total, a[4], a[7], a[8], 1e-6))
+                held("attention_stage_partial", f"{tag} sum + residual_ln against K1", got,
+                     A.attention_stage(*a, HEADS, scale, 1e-6))
+                b = block_inputs(torch, gen, R, N, dt)
+                parts = []
+                for j in range(tp):
+                    qkv_j, wp_j = tp_block_args(torch, b, tp, j)
+                    parts.append(A.attention_block_partial(qkv_j, wp_j, heads, scale))
+                    held("attention_block_partial", f"{tag} rank {j}", parts[-1:],
+                         (A.attention_block_partial_plain(qkv_j, wp_j, heads, scale),))
+                total = sum(parts[1:], parts[0])
+                held("attention_block_partial", f"{tag} sum + residual_ln against K6",
+                     RL.residual_ln(b[1], total, b[3], b[4], b[5], 1e-6),
+                     A.attention_block(*b, HEADS, scale, 1e-6))
+                del a, b, parts, total, got
+            mlp_shapes = (("spatial->temporal", ROWS, F, J), ("temporal->spatial", ROWS, J, F)) \
+                + tuple((f"edge {(r, d1, d2)}", r, d1, d2) for r, d1, d2 in TP_MLP_EDGES)
+            for label, rows, D1, D2 in mlp_shapes:
+                tag = f"tp {tp} {label} x({rows}, {D1}, {D2}, {C})"
+                a = mlp_inputs(torch, gen, D1, D2, dt, rows=rows)
+                parts = []
+                for j in range(tp):
+                    ma = tp_mlp_args(torch, a, tp, j)
+                    parts.append(M.mlp_block_partial(*ma))
+                    held("mlp_block_partial", f"{tag} rank {j}", parts[-1:],
+                         (M.mlp_block_partial_plain(*ma),))
+                total = sum(parts[1:], parts[0]).view(a[1].shape)
+                got = RL.residual_ln(a[1], total, *a[5:], 1e-6, with_x2=False, transpose=True)
+                held("residual_ln", f"{tag} MLP half, transposed", (got,),
+                     (RL.residual_ln_plain(a[1], total, *a[5:], 1e-6, with_x2=False,
+                                           transpose=True),))
+                held("mlp_block_partial", f"{tag} sum + residual_ln against K2", (got,),
+                     (M.mlp_block_t(*a, 1e-6),))
+                rows_args = [t.reshape(-1, C) for t in a[:2]] + a[2:]
+                held("mlp_block_partial", f"{tag} sum + residual_ln against K5",
+                     (RL.residual_ln(rows_args[1], total.view(-1, C), *a[5:], 1e-6,
+                                     with_x2=False),),
+                     (M.mlp_block(*rows_args, 1e-6),))
+                del a, parts, total, got, rows_args
+    torch.cuda.synchronize()
+
+
+def library_stage_partial(torch, Fn, heads):
+    """layer_norm, F.linear, SDPA on the rank's heads, F.linear without a
+    bias in fp32 out (the yardstick of K1-tp)."""
+    def run(x, wqkv_t, bqkv, wp_t, l1s, l1b):
+        R, N, _ = x.shape
+        y1 = Fn.layer_norm(x, (C,), l1s, l1b, 1e-6)
+        q, k, v = Fn.linear(y1, wqkv_t, bqkv).view(R, N, 3, heads, 64).permute(
+            2, 0, 3, 1, 4).unbind(0)
+        o = Fn.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(R, N, heads * 64)
+        return Fn.linear(o, wp_t).float()
+    return run
+
+
+def tp_kernel_rows(torch, Fn, rows=TP_ROWS, tp=TP):
+    """Phase tp (iv): each new form timed (bf16, CUDA events) at a rank's
+    shapes on phase tp's path (`rows` hypothesis rows, `tp` ranks), beside
+    the whole kernel at the same rows, its plain version, one library
+    sequence for the same work and its bound."""
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import mlp as M
+    from d3dp_tpu_torch.ops import residual_ln as RL
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    heads, cl, hl = HEADS // tp, C // tp, HIDDEN // tp
+    scale = (C // HEADS) ** -0.5
+    out = {}
+    for label, R, N in (("spatial", rows * F, J), ("temporal", rows * J, F)):
+        T = R * N
+        a = stage_inputs(torch, gen, R, N, bf)
+        sa = tp_stage_args(torch, a, tp, 0)
+        lib = library_stage_partial(torch, Fn, heads)
+        lib_args = (sa[0], sa[1].t().contiguous(), sa[2].to(bf), sa[5].t().contiguous(),
+                    sa[3].to(bf), sa[4].to(bf))
+        out[f"attention_stage_partial/{label}"] = dict(
+            shape=list(a[0].shape), tp=tp,
+            flops=2 * T * C * 3 * cl + 4 * T * N * cl + 2 * T * cl * C,
+            bytes=T * C * 2 + (3 * C * cl + cl * C) * 2 + (3 * cl + 2 * C) * 4 + T * C * 4,
+            ms=time_ms(torch, lambda: A.attention_stage_partial(*sa, heads, scale, 1e-6),
+                       reps=10),
+            whole_ms=time_ms(torch, lambda: A.attention_stage(*a, HEADS, scale, 1e-6), reps=10),
+            plain_ms=time_ms(torch, lambda: A.attention_stage_partial_plain(
+                *sa, heads, scale, 1e-6), reps=3),
+            library_ms=time_ms(torch, lambda: lib(*lib_args), reps=10))
+        part = A.attention_stage_partial(*sa, heads, scale, 1e-6)
+        rl = (a[0], part, a[4], a[7], a[8], 1e-6)
+        out[f"residual_ln/{label} attention half"] = dict(
+            shape=list(a[0].shape), tp=tp, flops=10 * T * C,
+            bytes=T * C * (2 + 4 + 2 + 2) + 3 * C * 4,
+            ms=time_ms(torch, lambda: RL.residual_ln(*rl), reps=10),
+            plain_ms=time_ms(torch, lambda: RL.residual_ln_plain(*rl), reps=3),
+            library_ms=time_ms(torch, lambda: Fn.layer_norm(
+                a[0].float() + (part + a[4]), (C,), a[7], a[8], 1e-6), reps=10))
+        b = block_inputs(torch, gen, R, N, bf)
+        qkv_j, wp_j = tp_block_args(torch, b, tp, 0)
+        wp_t = wp_j.t().contiguous()
+
+        def lib_block():
+            q, k, v = qkv_j.view(R, N, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
+            o = Fn.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(R, N, cl)
+            return Fn.linear(o, wp_t).float()
+        out[f"attention_block_partial/{label}"] = dict(
+            shape=list(qkv_j.shape), tp=tp, flops=4 * T * N * cl + 2 * T * cl * C,
+            bytes=T * 3 * cl * 2 + cl * C * 2 + T * C * 4,
+            ms=time_ms(torch, lambda: A.attention_block_partial(qkv_j, wp_j, heads, scale),
+                       reps=10),
+            whole_ms=time_ms(torch, lambda: A.attention_block(*b, HEADS, scale, 1e-6), reps=10),
+            plain_ms=time_ms(torch, lambda: A.attention_block_partial_plain(
+                qkv_j, wp_j, heads, scale), reps=3),
+            library_ms=time_ms(torch, lib_block, reps=10))
+        del a, sa, lib_args, part, rl, b, qkv_j, wp_j, wp_t
+    for label, D1, D2 in (("spatial->temporal", F, J), ("temporal->spatial", J, F)):
+        T = rows * D1 * D2
+        a = mlp_inputs(torch, gen, D1, D2, bf, rows=rows)
+        ma = tp_mlp_args(torch, a, tp, 0)
+        lib_w = (ma[1].t().contiguous(), ma[2].to(bf), ma[3].t().contiguous())
+        out[f"mlp_block_partial/{label}"] = dict(
+            shape=list(ma[0].shape), tp=tp, flops=4 * T * C * hl,
+            bytes=T * C * 2 + 2 * C * hl * 2 + hl * 4 + T * C * 4,
+            ms=time_ms(torch, lambda: M.mlp_block_partial(*ma), reps=10),
+            whole_ms=time_ms(torch, lambda: M.mlp_block_t(*a, 1e-6), reps=10),
+            plain_ms=time_ms(torch, lambda: M.mlp_block_partial_plain(*ma), reps=3),
+            library_ms=time_ms(torch, lambda: Fn.linear(Fn.gelu(Fn.linear(
+                ma[0], lib_w[0], lib_w[1])), lib_w[2]).float(), reps=10))
+        part = M.mlp_block_partial(*ma).view(a[1].shape)
+        rl = (a[1], part, *a[5:], 1e-6)
+        out[f"residual_ln/{label} MLP half"] = dict(
+            shape=list(a[1].shape), tp=tp, flops=10 * T * C,
+            bytes=T * C * (2 + 4 + 2) + 3 * C * 4,
+            ms=time_ms(torch, lambda: RL.residual_ln(*rl, with_x2=False, transpose=True),
+                       reps=10),
+            plain_ms=time_ms(torch, lambda: RL.residual_ln_plain(*rl, with_x2=False,
+                                                                 transpose=True), reps=3),
+            library_ms=time_ms(torch, lambda: Fn.layer_norm(
+                a[1].float() + (part + a[5]), (C,), a[6], a[7], 1e-6).transpose(1, 2)
+                .contiguous(), reps=10))
+        del a, ma, lib_w, part, rl
+    for name, r in out.items():
+        r["bound_ms"], r["bound_by"] = bound_ms(r["flops"], r["bytes"], PEAK_BF16)
+        log(f"[tp] timing {name} bf16 x{tuple(r['shape'])} (a rank of tp {tp}): kernel "
+            f"{r['ms']:.4f} ms"
+            + (f", the whole kernel at these rows {r['whole_ms']:.4f} ms" if "whole_ms" in r
+               else "")
+            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {r['flops'] / 1e9:.2f} GFLOP, "
+            f"{r['bytes'] / 1e6:.1f} MB), plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms")
+    return out
+
+
+def tp_eval(torch, mesh, dtype, levels):
+    """The Eval config (H=5, K=5, flip-TTA) on one micro-batch of TP_WINDOWS
+    windows of a synthetic sequence through the Evaluator at each fuse
+    level, in `dtype`, on one noise seed; the weights from seed 0 perturbed
+    by seed 1, then split over the mesh's tp ranks. Returns {level: (P1
+    mode -> (K,) list, seconds, launches, the prediction on the host)}."""
+    from d3dp_tpu_torch.data.generators import UnchunkedGenerator
+    from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT, make_dataset
+    from d3dp_tpu_torch.diffusion import D3DP
+    from d3dp_tpu_torch.eval import MODES, Evaluator
+    from d3dp_tpu_torch.parallel import shard_model_params
+
+    dev = torch.device("cuda") if mesh is None else mesh.device
+    cfg = main_config(torch)
+    d3dp = D3DP(dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype)),
+                device=dev, seed=0)
+    perturb_(torch, d3dp.model, 1)
+    shard_model_params(d3dp.model, mesh)
+    preds = []
+    sample = d3dp.sample
+
+    def recorded_sample(*a, **k):
+        preds.append(sample(*a, **k))
+        return preds[-1]
+    d3dp.sample = recorded_sample
+    data = make_dataset(seed=3, lengths=(TP_WINDOWS * F,))
+    ev = Evaluator(d3dp, receptive_field=F, batch_size=TP_WINDOWS, mesh=mesh,
+                   kps_left=list(JOINTS_LEFT), kps_right=list(JOINTS_RIGHT))
+    out = {}
+    for level in levels:
+        set_level(d3dp.model, level)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ev.evaluate(UnchunkedGenerator(*data),
+                          torch.Generator(device=dev).manual_seed(21)).averages_mm()
+        torch.cuda.synchronize()
+        out[level] = ({m: res[m].tolist() for m in MODES}, time.perf_counter() - t0,
+                      read_counts(), preds[-1].float().cpu())
+    return out
+
+
+TP_LEVELS = {"float32": (4, 5), "bfloat16": (2, 3, 4, 5)}
+# the fp32 four modes at tp=2 against one process: the whole-pipeline
+# tolerance (3.1e-4 mm) plus one part in 1e6 of the mode. The tp ranks sum
+# each row-parallel product as two fp32 halves where one process sums it
+# in one pass, a rounding apart (2^-23 relative) at each of the 16 block
+# halves' two sums, carried through 5 DDIM steps: 5.2e-4 mm was read on an
+# NVIDIA H100 80GB HBM3; the launches, level 5 (bit for bit) and the fp32
+# training (losses 1.4e-7 relative) leave it no other cause.
+TP_MODE_TOL, TP_MODE_REL = 3.1e-4, 1e-6
+
+
+def tp_rank(out_dir, devices):
+    """One rank of phase tp (a spawned process): DP_STEPS train steps (fp32
+    and bf16) and tp_eval (fp32 at levels 4 and 5, bf16 at 2-5) on a
+    (dp=1, tp=TP) mesh over `devices`, each against the one-process
+    reference in out_dir/ref.pt; one fp32 activation's all-reduce timed;
+    the report to out_dir/rank<r>.json and the predictions to
+    out_dir/rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from d3dp_tpu_torch import disable_tf32
+    from d3dp_tpu_torch.parallel import make_mesh
+
+    disable_tf32()
+    mesh = make_mesh(dp=1, tp=TP, devices=devices)
+    ref = torch.load(os.path.join(out_dir, "ref.pt"), weights_only=False)
+    train, d3dp = dp_train_rep(torch, mesh, ref["train"])
+    del d3dp
+    # one block half's fp32 partial at the path's rows, all-reduced over the group
+    act = torch.zeros(TP_ROWS * F * J * C, device=mesh.device)
+    dist.all_reduce(act, group=mesh.tp_group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        dist.all_reduce(act, group=mesh.tp_group)
+    torch.cuda.synchronize()
+    act_s = (time.perf_counter() - t0) / 5
+    evals, preds = {}, {}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        ev = tp_eval(torch, mesh, dt, TP_LEVELS[name])
+        evals[name] = {str(lv): v[:3] for lv, v in ev.items()}
+        preds[name] = {lv: v[3] for lv, v in ev.items()}
+    rep = dict(rank=mesh.rank, device=str(mesh.device), train=train, eval=evals,
+               act_allreduce_s=act_s, act_bytes=act.numel() * 4)
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(rep, f)
+    torch.save(preds, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def check_tp_ranks(torch, out_dir, ref_eval, record):
+    """Phase tp (ii) and (iii): read and hold the ranks' reports. Training
+    as phase dp holds it (`check_dp_ranks`), every bf16 loss at
+    BF16_LOSS_TOL; the evaluator at fp32 levels 4
+    and 5 within 3.1e-4 mm of one process; bf16 level 4's prediction no
+    farther from one process's fp32 prediction than 1.05x one process's bf16
+    prediction; level 5 (K9 on the gathered weights) equal to one process's
+    bit for bit; the launches a call: 80 K1-tp, 80 K2-tp, 160 residual_ln
+    and no K1 or K2 at level 4; 80 K6-tp with 80 K2/K5-tp and 160
+    residual_ln at levels 2 and 3; 5 K9 at level 5; 16 K3 + 16 K4 a train
+    step."""
+    per_call = 2 * DEPTH * K
+    reps, launches = [], {}
+    for r in range(TP):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            rep = json.load(f)
+        preds = torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+        reps.append(rep)
+        t32, t16 = rep["train"]["float32"], rep["train"]["bfloat16"]
+        # bf16: unlike phase dp's row split, the tp forward itself rounds
+        # differently (the row-parallel products summed in fp32, not each
+        # rounded to bf16 once), so the first loss is held as the later ones
+        ok_train = (max(t32["loss_rel"]) <= 1e-5 and t32["param_rel_l2"] <= 1e-3
+                    and max(t16["loss_rel"]) <= BF16_LOSS_TOL
+                    and t16["param_rel_l2"] <= 1e-3 and t32["finite"] and t16["finite"]
+                    and all(math.isfinite(v) for v in t16["losses"]))
+        ok_steps = all(tuple(c) == (2 * DEPTH, 2 * DEPTH) for t in (t32, t16)
+                       for c in t["step_counts"])
+        e32, e16 = rep["eval"]["float32"], rep["eval"]["bfloat16"]
+        pairs = [(a, b) for lv in ("4", "5") for m, v in e32[lv][0].items()
+                 for a, b in zip(v, ref_eval["float32"][int(lv)][0][m])]
+        mode_gap = max(abs(a - b) for a, b in pairs)
+        mode_max = max(abs(b) for _, b in pairs)
+        mode_tol = TP_MODE_TOL + TP_MODE_REL * mode_max
+        want32 = ref_eval["float32"][4][3]
+        d_tp = (preds["bfloat16"][4] - want32).norm().item()
+        d_one = (ref_eval["bfloat16"][4][3] - want32).norm().item()
+        equal5 = all(torch.equal(preds[n][5], ref_eval[n][5][3]) for n in preds)
+        c4, c3, c2 = e16["4"][2], e16["3"][2], e16["2"][2]
+        ok_launch = (
+            c4["attention_stage_partial"] == c4["mlp_block_partial"] == per_call
+            and c4["residual_ln"] == 2 * per_call and c4["attention_stage"] == 0
+            and c4["mlp_block_t"] == 0 and e32["4"][2]["attention_stage_partial"] == per_call
+            and all(c["attention_block_partial"] == c["mlp_block_partial"] == per_call
+                    and c["residual_ln"] == 2 * per_call and c["attention_block"] == 0
+                    and c["mlp_block"] == c["mlp_block_t"] == 0 for c in (c3, c2))
+            and e16["5"][2]["resident_block_stack"] == K and ok_steps)
+        ok = (ok_train and mode_gap <= mode_tol and d_tp <= 1.05 * d_one and equal5
+              and ok_launch)
+        for name, t in (("fp32", t32), ("bf16", t16)):
+            log(f"[tp] rank {r} on {rep['device']}: {name} train losses "
+                f"{' '.join(f'{v:.6f}' for v in t['losses'])}; against one process: losses "
+                f"{' '.join(f'{v:.2e}' for v in t['loss_rel'])} relative, parameters relative "
+                f"L2 {t['param_rel_l2']:.3e} (every parameter {t['param_rel_l2_all']:.3e}; "
+                f"max|diff| / max|p| {t['param_rel_max']:.3e}); s/step "
+                f"{' '.join(f'{v:.4f}' for v in t['step_s'])}; K3/K4 a step {t['step_counts']}")
+        log(f"[tp] rank {r}: evaluator fp32 levels 4, 5 four modes max|diff| to one process "
+            f"{mode_gap:.3e} mm at modes up to {mode_max:.3f} mm (tol {TP_MODE_TOL:g} + "
+            f"{TP_MODE_REL:g} x {mode_max:.3f} = {mode_tol:.3e}); bf16 level 4 prediction's L2 "
+            f"distance from one "
+            f"process's fp32 {d_tp:.5e} against one process's bf16 {d_one:.5e} (tol 1.05x); "
+            f"level 5 equal to one process's (fp32, bf16) {equal5}; launches a call: level 4 "
+            f"K1-tp {c4['attention_stage_partial']} K2-tp {c4['mlp_block_partial']} "
+            f"residual_ln {c4['residual_ln']} K1 {c4['attention_stage']} K2 {c4['mlp_block_t']}; "
+            f"level 3 K6-tp {c3['attention_block_partial']} K2/K5-tp {c3['mlp_block_partial']}; "
+            f"level 2 K6-tp {c2['attention_block_partial']} K2/K5-tp {c2['mlp_block_partial']}; "
+            f"level 5 K9 {e16['5'][2]['resident_block_stack']}; train {ok_train}, launches "
+            f"{ok_launch} {'ok' if ok else 'FAIL'}")
+        log(f"[tp] rank {r}: s/micro-batch ({TP_WINDOWS} window, {TP_ROWS} rows) fp32 level 4 "
+            f"{e32['4'][1]:.4f} level 5 {e32['5'][1]:.4f}; bf16 levels 2-5 "
+            + " ".join(f"{e16[lv][1]:.4f}" for lv in ("2", "3", "4", "5"))
+            + f"; one fp32 activation all-reduce ({rep['act_bytes'] / 1e6:.1f} MB, gloo) "
+            f"{rep['act_allreduce_s'] * 1e3:.2f} ms = "
+            f"{rep['act_allreduce_s'] * 1e3 / (rep['act_bytes'] / 1e6):.3f} ms/MB")
+        check(ok, f"phase tp: rank {r} disagrees with one process or miscounts launches")
+        if r == 0:
+            launches.update(attention_stage_partial=c4["attention_stage_partial"],
+                            mlp_block_partial=c4["mlp_block_partial"],
+                            residual_ln=c4["residual_ln"],
+                            attention_block_partial=c3["attention_block_partial"])
+    same = all(reps[0]["train"][n]["losses"] == reps[1]["train"][n]["losses"]
+               for n in ("float32", "bfloat16"))
+    same = same and all(reps[0]["eval"][n][lv][0] == reps[1]["eval"][n][lv][0]
+                        for n in reps[0]["eval"] for lv in reps[0]["eval"][n])
+    check(same, "phase tp: the ranks' losses or metrics differ")
+    log("[tp] " + json.dumps({"tp_launches": [
+        {"rank": rep["rank"], **{f"level{lv} {k}": v for lv, e in rep["eval"]["bfloat16"].items()
+                                 for k, v in e[2].items() if v}} for rep in reps]}))
+    record["tp"] = dict(ranks=reps)
+    return launches
+
+
+def phase_tp(torch, record, errs, rows):
+    """Tensor parallelism (`--tp`, parallel/mesh.py's split, parallel/tp.py,
+    the partial forms and residual_ln) at the published width:
+      (i) K1-tp, K6-tp, K2/K5-tp and residual_ln against their plain
+          versions at tp 2 and 4 and at the tiles' edges, the partials'
+          sums against the whole kernels (`check_tp_kernels`), and each
+          timed at a rank's rows (`tp_kernel_rows`, into `rows`);
+      (ii) two ranks sharing the card over gloo at tp=2: the Eval config on
+          one window (10 hypothesis rows), fp32 at levels 4 and 5 and bf16
+          at levels 2-5, against one process on the same weights and noise;
+      (iii) DP_STEPS train steps at tp=2, fp32 and bf16, against one
+          process at phase dp's rules (the first bf16 loss too at
+          BF16_LOSS_TOL: the tp forward rounds otherwise in bf16);
+      (iv) each rank's seconds per step and per micro-batch and the fp32
+          activation all-reduce's ms per MB.
+    Returns the ranks' launches of the new kernels (rank 0's)."""
+    import torch.nn.functional as Fn
+
+    from d3dp_tpu_torch.parallel import spawn
+
+    t_phase = time.perf_counter()
+    check_tp_kernels(torch, errs)
+    rows.update(tp_kernel_rows(torch, Fn))
+    ref = {}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        losses, params, step_s, _, key_grads, d3dp = dp_train(torch, None, dt)
+        ref[name] = dict(losses=losses, params=params, key_grads=key_grads)
+        log(f"[tp] one process {name}: train losses {' '.join(f'{v:.6f}' for v in losses)}, "
+            f"s/step {' '.join(f'{v:.4f}' for v in step_s)}")
+        del d3dp
+    ref_eval = {name: tp_eval(torch, None, dt, TP_LEVELS[name])
+                for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16))}
+    log(f"[tp] one process: s/micro-batch ({TP_WINDOWS} window) fp32 level 4 "
+        f"{ref_eval['float32'][4][1]:.4f} level 5 {ref_eval['float32'][5][1]:.4f}; bf16 levels "
+        f"2-5 " + " ".join(f"{ref_eval['bfloat16'][lv][1]:.4f}" for lv in (2, 3, 4, 5)))
+    out_dir = os.path.join(os.getcwd(), "log", "chip_smoke_tp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    torch.save(dict(train=ref), os.path.join(out_dir, "ref.pt"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn(tp_rank, TP, out_dir, ["cuda:0"] * TP, backend="gloo")
+    log(f"[tp] two ranks on one card over gloo: {time.perf_counter() - t0:.1f} s with the "
+        "processes' start")
+    launches = check_tp_ranks(torch, out_dir, ref_eval, record)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    record["tp"]["seconds"] = time.perf_counter() - t_phase
+    log(f"[tp] phase tp: {record['tp']['seconds']:.1f} s")
+    return launches
+
+
 def kernels_line(rows, errs, launches):
     """One entry per kernel; times are the mean of its shapes on its path,
     which the path launches equally often. Launches: K1 and K2 from the
@@ -3248,7 +3733,9 @@ def kernels_line(rows, errs, launches):
     and K2-dp from the train-fused steps (phase train_fused), K5-dp from its
     public op (phase public_dp), K8 from one D3DP.sample call with hmqkv
     (phase hmqkv); each lab-switch instantiation from its path in phase
-    lab_switches (`phase_lab_switches`)."""
+    lab_switches (`phase_lab_switches`); the tensor-parallel forms and
+    residual_ln from rank 0's Evaluator call in phase tp (level 4; K6-tp at
+    level 3), timed at that rank's rows."""
     meta = {"attention_stage": ("d3dp_tpu_torch/ops/csrc/attention_stage.cu",
                                 "d3dp_tpu/ops/attention.py:396"),
             "mlp_block_t": ("d3dp_tpu_torch/ops/csrc/mlp_block_t.cu",
@@ -3270,7 +3757,17 @@ def kernels_line(rows, errs, launches):
                                "d3dp_tpu/ops/mlp.py:397"),
             "mlp_block_dp": ("d3dp_tpu_torch/ops/csrc/mlp_block_t.cu", "d3dp_tpu/ops/mlp.py:378"),
             "attention_stage_hm": ("d3dp_tpu_torch/ops/csrc/attention_stage.cu",
-                                   "d3dp_tpu/ops/attention.py:480")}
+                                   "d3dp_tpu/ops/attention.py:480"),
+            # the tensor-parallel forms (phase tp): each stands in for the
+            # TPU kernel that XLA runs on gathered operands under --tp
+            "attention_stage_partial": ("d3dp_tpu_torch/ops/csrc/attention_stage.cu",
+                                        "d3dp_tpu/ops/attention.py:396"),
+            "attention_block_partial": ("d3dp_tpu_torch/ops/csrc/attention_block.cu",
+                                        "d3dp_tpu/ops/attention.py:227"),
+            "mlp_block_partial": ("d3dp_tpu_torch/ops/csrc/mlp_block_t.cu",
+                                  "d3dp_tpu/ops/mlp.py:156"),
+            "residual_ln": ("d3dp_tpu_torch/ops/csrc/residual_ln.cu",
+                            "d3dp_tpu/ops/mlp.py:156")}
     # each lab-switch instantiation (phase lab_switches): the source of the
     # kernel it runs, the line of the TPU kernel's switch
     meta.update({name: (meta[name.split("[")[0]][0], rep) for name, (_, rep) in LAB.items()})
@@ -3323,6 +3820,7 @@ def main():
     phase_cli_3dhp(torch, record)
     phase_wild(torch, record)
     phase_dp(torch, record, errs)
+    record["launches"].update(phase_tp(torch, record, errs, rows))
     line = kernels_line(rows, errs, record["launches"])
     record["kernels"] = line["kernels"]
     record["seconds"] = time.perf_counter() - t_all

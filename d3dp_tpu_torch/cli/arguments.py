@@ -195,7 +195,9 @@ def build_parser(in_the_wild=False):
                              "card, or one CPU rank with --platform cpu; N > 1 "
                              "starts one process a rank)")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel mesh size (only 1 is ported)")
+                        help="tensor-parallel mesh size (attention heads and MLP "
+                             "hidden units split over N ranks; with --dp, dp x tp "
+                             "ranks)")
     parser.add_argument("--seed", type=int, default=1,
                         help="global seed (reference fixes 1, main.py:67-71)")
     parser.add_argument("--eval-batch-size", type=int, default=0, metavar="N",
@@ -219,7 +221,6 @@ def _not_ported(args):
     """The first flag set to a value whose feature the port lacks, as a
     message, or None."""
     checks = (
-        (args.tp != 1, "--tp (the tensor-parallel split)"),
         (args.input_pipeline == "grain", "--input-pipeline grain"),
         (args.ckpt_format == "orbax", "--ckpt-format orbax"),
     )
@@ -265,15 +266,15 @@ def device_of(args, mesh=None):
 
 def _visible_devices(args):
     """One entry per rank under a running process group (rank r on card r
-    modulo the card count); without one, every card, or on the CPU --dp
-    CPU ranks (one by default)."""
+    modulo the card count); without one, every card, or on the CPU --dp x
+    --tp CPU ranks (one by default)."""
     cpu = args.platform == "cpu"
     if dist.is_initialized():
         world = dist.get_world_size()
         return ["cpu"] * world if cpu else [
             f"cuda:{r % torch.cuda.device_count()}" for r in range(world)]
     if cpu:
-        return ["cpu"] * max(args.dp, 1)
+        return ["cpu"] * (max(args.dp, 1) * max(args.tp, 1))
     resolve_device(None)  # no card: raise, as every entry point does
     return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
 

@@ -38,7 +38,12 @@ from d3dp_tpu_torch.device import disable_tf32, resolve_device
 from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
 from d3dp_tpu_torch.eval.evaluator_3dhp import MODES, Evaluator3DHP
 from d3dp_tpu_torch.models import MixSTE2, MixSTEConfig
-from d3dp_tpu_torch.parallel import process_index, round_up_batch, shard_batch_fn
+from d3dp_tpu_torch.parallel import (
+    process_index,
+    round_up_batch,
+    shard_batch_fn,
+    shard_model_params,
+)
 from d3dp_tpu_torch.train.checkpoint_io import latest_checkpoint, load_any, save_checkpoint
 from d3dp_tpu_torch.train.state import get_lr, make_optimizer, make_train_step, set_lr
 from d3dp_tpu_torch.utils.logging import Logger, TensorBoardWriter
@@ -268,6 +273,7 @@ def run_with_args(args, mesh=None):
         print("Loading checkpoint", chk_filename)
         loaded_ckpt = load_any(chk_filename)
         model.load_state_dict(loaded_ckpt["model"])
+    shard_model_params(model, mesh)  # the tensor-parallel split, as the JAX command line
 
     try:
         if args.evaluate:

@@ -24,6 +24,7 @@ from d3dp_tpu_torch.data.generators import flip_sequence
 from d3dp_tpu_torch.data.windowing import sample_windows, stitch_hypotheses, window_sequence
 from d3dp_tpu_torch.device import disable_tf32, resolve_device
 from d3dp_tpu_torch.geometry.camera import project_to_2d
+from d3dp_tpu_torch.parallel import shard_model_params
 from d3dp_tpu_torch.train.checkpoint_io import load_any
 
 
@@ -52,6 +53,7 @@ def hypotheses(args, mesh=None):
     if args.evaluate:
         ckpt = load_any(os.path.join(args.checkpoint, args.evaluate))
         d3dp.model.load_state_dict(ckpt["model"])
+    shard_model_params(d3dp.model, mesh)
 
     subject = args.viz_subject or args.subjects_test.split(",")[0]
     action = args.viz_action or data.actions_of(subject)[0]

@@ -29,8 +29,18 @@ from d3dp_tpu_torch.device import disable_tf32, resolve_device
 from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
 from d3dp_tpu_torch.eval import MODES, Evaluator
 from d3dp_tpu_torch.models import MixSTE2, MixSTEConfig
-from d3dp_tpu_torch.parallel import process_index, round_up_batch, shard_batch_fn
-from d3dp_tpu_torch.train.checkpoint_io import latest_checkpoint, load_any, save_checkpoint
+from d3dp_tpu_torch.parallel import (
+    process_index,
+    round_up_batch,
+    shard_batch_fn,
+    shard_model_params,
+)
+from d3dp_tpu_torch.train.checkpoint_io import (
+    latest_checkpoint,
+    load_any,
+    save_checkpoint,
+    shard_checkpoint,
+)
 from d3dp_tpu_torch.train.state import get_lr, make_optimizer, make_train_step, set_lr
 from d3dp_tpu_torch.utils.logging import Logger, TensorBoardWriter
 from d3dp_tpu_torch.utils.profiling import trace as profiler_trace
@@ -246,7 +256,9 @@ def _resume(args, ckpt, model, optimizer, train_generator, lr, min_loss):
     """Full resume from a `load_any` checkpoint (reference main.py:330-345):
     the weights; the AdamW state and the training generator's random state
     where the checkpoint has an optimizer state; its lr unless --coverlr;
-    its min_loss. Returns (epoch, lr, min_loss)."""
+    its min_loss (a tensor-parallel rank takes its slices of the weights
+    and moments). Returns (epoch, lr, min_loss)."""
+    ckpt = shard_checkpoint(ckpt, model)
     model.load_state_dict(ckpt["model"])
     if ckpt.get("optimizer") is not None:
         optimizer.load_state_dict(ckpt["optimizer"])
@@ -459,6 +471,8 @@ def run_with_args(args, mesh=None):
         loaded_ckpt = load_any(chk_filename)
         print("This model was trained for {} epochs".format(loaded_ckpt.get("epoch")))
         model.load_state_dict(loaded_ckpt["model"])
+    # the tensor-parallel split, where the JAX command line shards its params
+    shard_model_params(model, mesh)
 
     try:
         if args.evaluate:

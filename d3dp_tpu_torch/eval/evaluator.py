@@ -59,15 +59,17 @@ def provider_noise(noise_provider, n, pad, bs):
 
 
 class RankSums:
-    """One micro-batch's error vectors summed over the ranks by an
-    all-reduce that is started here and not waited for. Calling it waits
-    and returns {mode: (K,)}; a (K, H) entry (P-Best's per-hypothesis
-    means) becomes its minimum over H, taken after the sum."""
+    """One micro-batch's error vectors summed over the dp group's ranks
+    (`group`: the mesh's dp group; the ranks of a tp group hold the same
+    rows) by an all-reduce that is started here and not waited for. Calling
+    it waits and returns {mode: (K,)}; a (K, H) entry (P-Best's
+    per-hypothesis means) becomes its minimum over H, taken after the
+    sum."""
 
-    def __init__(self, parts):
+    def __init__(self, parts, group=None):
         self.shapes = [(m, tuple(v.shape)) for m, v in parts.items()]
         self.flat = torch.cat([v.reshape(-1).float() for v in parts.values()])
-        self.work = dist.all_reduce(self.flat, async_op=True)
+        self.work = dist.all_reduce(self.flat, group=group, async_op=True)
 
     def __call__(self):
         self.work.wait()
@@ -276,8 +278,8 @@ class Evaluator:
                                                         traj)
                 local = errors
                 if mesh is not None:
-                    errors = RankSums(errors)
-                    errors_p2 = None if errors_p2 is None else RankSums(errors_p2)
+                    errors = RankSums(errors, mesh.dp_group)
+                    errors_p2 = None if errors_p2 is None else RankSums(errors_p2, mesh.dp_group)
                 result.add(errors, errors_p2, weight=n * rf)
                 # backpressure: one sync every 16 micro-batches keeps the host
                 # from queueing unbounded device work

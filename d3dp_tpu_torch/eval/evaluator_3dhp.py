@@ -86,7 +86,7 @@ class Evaluator3DHP:
         if totals is not None:
             per_kh = mpjpe_diffusion(preds, x3d, weights=win_weights, total=windows,
                                      per_hypothesis=True)
-            dist.all_reduce(per_kh)
+            dist.all_reduce(per_kh, group=self.mesh.dp_group)
         # JPMA in pixel space with the sequence's camera (main_3dhp.py:806-835)
         pred_abs = preds + traj[:, None, None]
         proj = project_to_2d if distortion else project_to_2d_linear
@@ -176,7 +176,8 @@ class Evaluator3DHP:
                     preds, x2d, take(w3d), take(traj), take(wv, fill=0.0), win_w, cam,
                     distortion, width, height, totals=totals)
                 local = errors
-                pending.append((errors if mesh is None else RankSums(errors), n * rf))
+                pending.append((errors if mesh is None else RankSums(errors, mesh.dp_group),
+                                n * rf))
                 for m in MODES:
                     sel_parts[m].append(selections[m] if mesh is not None else selections[m][:n])
                 # backpressure: one sync every 16 micro-batches keeps the host

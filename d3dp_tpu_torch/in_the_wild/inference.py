@@ -26,7 +26,7 @@ from d3dp_tpu_torch.device import disable_tf32, resolve_device
 from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
 from d3dp_tpu_torch.geometry.camera import camera_to_world, normalize_screen_coordinates
 from d3dp_tpu_torch.models import MixSTEConfig
-from d3dp_tpu_torch.parallel import process_index
+from d3dp_tpu_torch.parallel import process_index, shard_model_params
 from d3dp_tpu_torch.train.checkpoint_io import load_any
 
 # COCO-17 keypoint layout of the external detectors
@@ -178,6 +178,7 @@ def lift_keypoints(args, keypoints, frame_width, frame_height, mesh=None):
         reuse_tau=args.ddim_reuse_adaptive), device=device, seed=args.seed)
     print("Loading checkpoint", args.evaluate)
     d3dp.model.load_state_dict(load_any(args.evaluate)["model"])
+    shard_model_params(d3dp.model, mesh)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     with Timer("sampling"):
         prediction = sample_video_keypoints(

@@ -42,6 +42,24 @@ Counterpart of d3dp_tpu/models/mixste.py `MixSTE2` with
   whose DropPath rate is 0, the others composed. Weights go through
   autograd in kernel layout.
 
+* tensor parallel (`parallel.mesh.shard_params`, `--tp`): the model holds
+  its rank's head-aligned shares of qkv, fc1 and the time MLP's first layer
+  and the matching input columns of the out-projection, fc2 and the time
+  MLP's second layer (`self.tp`). The composed path (level 0, training)
+  runs the column-parallel layers on `parallel.tp.copy_to_tp` of their
+  input and sums the row-parallel ones' fp32 partials with
+  `reduce_from_tp` before their bias; the attention core runs on the
+  rank's heads. Levels 1-4 run each block half's partial form
+  (`ops.attention.attention_stage_partial` at 4,
+  `attention_block_partial` at 2-3, the attention core and a plain
+  projection at 1; `ops.mlp.mlp_block_partial`), the sum over the tp group,
+  then `ops.residual_ln`. Level 5 runs the depth-resident kernel on the
+  tp group's gathered weights, gathered once per weight version (one
+  launch holds the whole trunk, with no room for an all-reduce between its
+  phases; XLA does the same with the JAX package's Pallas call); with
+  reuse taps it takes level 4's split flow. The `hmqkv` variant and
+  `D3DP_TRAIN_FUSED=1` have no tp form yet and raise.
+
 On CUDA tensors the ops launch the hand-written kernels; on CPU tensors
 they run their plain torch versions.
 
@@ -70,6 +88,10 @@ from torch import nn
 
 from d3dp_tpu_torch.device import resolve_device
 from d3dp_tpu_torch.ops import attention, mlp, resident
+from d3dp_tpu_torch.ops.common import matmul_f32acc
+from d3dp_tpu_torch.ops.residual_ln import residual_ln
+from d3dp_tpu_torch.parallel.mesh import gather_params
+from d3dp_tpu_torch.parallel.tp import copy_to_tp, reduce_from_tp
 
 BLOCK_EPS = 1e-6
 HEAD_EPS = 1e-5
@@ -127,6 +149,16 @@ def _cast_linear(lin, dt):
     return lin.weight.to(dt), lin.bias.to(dt)
 
 
+def _row_parallel(x, w, b, group):
+    """F.linear(x, w, b) in x's dtype, w and b in it; under a tp `group`, w
+    holds the rank's input columns: the fp32 partial products summed over
+    the group, the bias added once, after the sum."""
+    if group is None:
+        return F.linear(x, w, b)
+    part = F.linear(x.float(), w.float())
+    return (reduce_from_tp(part, group) + b.float()).to(x.dtype)
+
+
 def _layer_norm(norm, x):
     """LayerNorm in fp32 (statistics, parameters, and the backward's sums),
     output rounded to x's dtype, as flax's LayerNorm(dtype=...) computes."""
@@ -139,9 +171,11 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        self.tp_group = None  # the tp group once split (`shard_params`)
 
     def forward(self, x):
-        return _linear(self.fc2, F.gelu(_linear(self.fc1, x), approximate="none"))
+        h = F.gelu(_linear(self.fc1, copy_to_tp(x, self.tp_group)), approximate="none")
+        return _row_parallel(h, *_cast_linear(self.fc2, h.dtype), self.tp_group)
 
 
 class Attention(nn.Module):
@@ -150,10 +184,12 @@ class Attention(nn.Module):
         self.num_heads, self.scale = num_heads, scale
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
+        self.tp_group = None  # the tp group once split; num_heads is then the rank's
 
     def forward(self, x):
-        o = attention.fused_attention_qkv_ad(_linear(self.qkv, x), self.num_heads, self.scale)
-        return _linear(self.proj, o)
+        qkv = _linear(self.qkv, copy_to_tp(x, self.tp_group))
+        o = attention.fused_attention_qkv_ad(qkv, self.num_heads, self.scale)
+        return _row_parallel(o, *_cast_linear(self.proj, o.dtype), self.tp_group)
 
 
 class Block(nn.Module):
@@ -210,6 +246,8 @@ class MixSTE2(nn.Module):
         self.to(resolve_device(device))
         self._cache = None
         self._cache_key = None
+        self.tp = None  # a parallel.mesh.TensorParallel once split (`shard_params`)
+        self._noted_gather = False
 
     @torch.no_grad()
     def _init_weights(self, seed):
@@ -250,25 +288,12 @@ class MixSTE2(nn.Module):
         `hmqkv` variant). The cache is keyed on every parameter's storage
         and version counter, so it is rebuilt after any change to a
         parameter: an optimizer step, `load_state_dict`, or an in-place
-        edit."""
+        edit. Under tp (`self.tp`) the per-block entries are the rank's
+        shares, and `resident` is left to `_resident_weights`."""
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
         if self._cache is not None and self._cache_key == key:
             return self._cache
         dt = self.cfg.dtype
-
-        def stack(blocks):
-            """(wqkv, bqkv, wp, w1, b1, w2, vec) of `resident_block_stack`."""
-            def mats(get):
-                return torch.stack([get(b).weight.t().to(dt) for b in blocks])
-
-            def vecs(get):
-                return torch.stack([get(b).float() for b in blocks])
-
-            return (mats(lambda b: b.attn.qkv), vecs(lambda b: b.attn.qkv.bias)[:, None],
-                    mats(lambda b: b.attn.proj), mats(lambda b: b.mlp.fc1),
-                    vecs(lambda b: b.mlp.fc1.bias)[:, None], mats(lambda b: b.mlp.fc2),
-                    vecs(lambda b: torch.stack([b.attn.proj.bias, b.norm1.weight, b.norm1.bias,
-                                                b.norm2.weight, b.norm2.bias, b.mlp.fc2.bias])))
 
         def views(stacked, blocks):
             wqkv, bqkv, wp, w1, b1, w2, v = stacked
@@ -277,11 +302,13 @@ class MixSTE2(nn.Module):
                          wqkv=wqkv[i], bqkv=bqkv[i, 0], wp=wp[i], bp=v[i, 0],
                          ln1s=v[i, 1], ln1b=v[i, 2], ln2s=v[i, 3], ln2b=v[i, 4],
                          w1=w1[i], b1=b1[i, 0], w2=w2[i], b2=v[i, 5],
-                         hm=attention.stack_head_major(wqkv[i], bqkv[i, 0],
-                                                       self.cfg.num_heads))
+                         # hmqkv has no tp form (the stage op raises under tp)
+                         hm=None if self.tp is not None else attention.stack_head_major(
+                             wqkv[i], bqkv[i, 0], self.cfg.num_heads))
                     for i, b in enumerate(blocks)]
 
-        spatial, temporal = stack(self.STEblocks), stack(self.TTEblocks)
+        P = dict(self.named_parameters())
+        spatial, temporal = self._stack(P, "STEblocks"), self._stack(P, "TTEblocks")
         norms = torch.stack([self.Spatial_norm.weight, self.Spatial_norm.bias,
                              self.Temporal_norm.weight, self.Temporal_norm.bias]).float()
         self._cache_key = key
@@ -290,10 +317,52 @@ class MixSTE2(nn.Module):
             temporal_pos=self.Temporal_pos_embed.to(dt),
             ste=views(spatial, self.STEblocks),
             tte=views(temporal, self.TTEblocks),
-            resident=(spatial, temporal, norms),
+            resident=None if self.tp is not None else (spatial, temporal, norms),
+            norms=norms,
             spatial_norm=(norms[0], norms[1]),
             temporal_norm=(norms[2], norms[3]))
         return self._cache
+
+    @torch.no_grad()
+    def _resident_weights(self, W):
+        """(the level-5 kernel's stacks, the time MLP's weights) of the
+        `_weights` cache W. Under tp both come from the tp group's gathered
+        weights, built once a weight version (a collective over the group):
+        the kernel holds the whole trunk in one launch, with no room for the
+        all-reduces between its phases, and level 5 then computes as on
+        one process."""
+        if W["resident"] is None:
+            if not self._noted_gather:
+                print(f"INFO: fuse level 5 under tp={self.tp.size}: each rank runs the "
+                      "depth-resident kernel on the tp group's gathered weights")
+                self._noted_gather = True
+            whole = gather_params(self)
+            dt = self.cfg.dtype
+            W["resident"] = (self._stack(whole, "STEblocks"), self._stack(whole, "TTEblocks"),
+                             W["norms"])
+            W["time_whole"] = {f"time{i}": (whole[f"time_mlp.{k}.weight"].to(dt),
+                                            whole[f"time_mlp.{k}.bias"].to(dt))
+                               for i, k in ((1, 1), (2, 3))}
+        return W["resident"], W.get("time_whole", {})
+
+    def _stack(self, P, prefix):
+        """(wqkv, bqkv, wp, w1, b1, w2, vec) of `resident_block_stack` from
+        the parameters P {name: tensor} of blocks `prefix`.i, each kind
+        stacked along depth, matrices (in, out) in the compute dtype."""
+        dt, depth = self.cfg.dtype, self.cfg.depth
+
+        def mats(name):
+            return torch.stack([P[f"{prefix}.{i}.{name}.weight"].t().to(dt)
+                                for i in range(depth)])
+
+        def vecs(*names):
+            return torch.stack([torch.stack([P[f"{prefix}.{i}.{n}"] for n in names])
+                                for i in range(depth)]).float()
+
+        return (mats("attn.qkv"), vecs("attn.qkv.bias"), mats("attn.proj"), mats("mlp.fc1"),
+                vecs("mlp.fc1.bias"), mats("mlp.fc2"),
+                vecs("attn.proj.bias", "norm1.weight", "norm1.bias", "norm2.weight",
+                     "norm2.bias", "mlp.fc2.bias"))
 
     # -------------------------------------------------------------- forward
     def _attention_half(self, w, blk, h):
@@ -302,6 +371,8 @@ class MixSTE2(nn.Module):
         attention branch, y2 = LN2(x2)."""
         cfg = self.cfg
         scale = cfg.attn_scale
+        if self.tp is not None:
+            return self._attention_half_tp(w, blk, h)
         if cfg.fuse_level >= 4:
             if attention.stage_config(h)[0] == "head_major":
                 return attention.attention_stage_hm(
@@ -318,12 +389,50 @@ class MixSTE2(nn.Module):
         x2 = h + F.linear(o, *w["proj_linear"])
         return x2, _layer_norm(blk.norm2, x2)
 
+    def _attention_half_tp(self, w, blk, h):
+        """`_attention_half` on a rank of the tp group: the level's partial
+        form over the rank's heads (K1-tp at 4, K6-tp at 2-3; at 1 the
+        attention core and the projection as plain ops), the fp32 partials
+        summed over the group, then residual_ln (+ bp, the residual, LN2)."""
+        cfg = self.cfg
+        heads = blk.attn.num_heads
+        if cfg.fuse_level >= 4:  # (the op raises under the hmqkv variant)
+            part = attention.attention_stage_partial(h, w["wqkv"], w["bqkv"], w["ln1s"],
+                                                     w["ln1b"], w["wp"], heads, cfg.attn_scale,
+                                                     BLOCK_EPS)
+        else:
+            qkv = F.linear(_layer_norm(blk.norm1, h), *w["qkv_linear"])
+            if cfg.fuse_level >= 2:
+                part = attention.attention_block_partial(qkv, w["wp"], heads, cfg.attn_scale)
+            else:
+                o = attention.fused_attention_qkv(qkv, heads, cfg.attn_scale)
+                part = matmul_f32acc(o, w["wp"])
+        part = reduce_from_tp(part, self.tp.group)
+        return residual_ln(h, part, w["bp"], w["ln2s"], w["ln2b"], BLOCK_EPS)
+
+    def _mlp_half_tp(self, w, x2, y2, out_norm, B):
+        """The MLP step on a rank of the tp group: K2/K5-tp over the rank's
+        hidden units, the fp32 partials summed over the group, then
+        residual_ln with the shared norm, in the layout `_block` emits."""
+        R, N, C = x2.shape
+        part = mlp.mlp_block_partial(y2.view(R * N, C), w["w1"], w["b1"], w["w2"])
+        part = reduce_from_tp(part, self.tp.group)
+        if self.cfg.fuse_level <= 2:
+            return residual_ln(x2, part.view(R, N, C), w["b2"], *out_norm, BLOCK_EPS,
+                               with_x2=False)
+        D1 = R // B
+        out = residual_ln(x2.view(B, D1, N, C), part.view(B, D1, N, C), w["b2"], *out_norm,
+                          BLOCK_EPS, with_x2=False, transpose=True)
+        return out.view(B * N, D1, C)
+
     def _block(self, w, blk, h, out_norm, B):
         """One block on (B*D1, N, C): the attention half, then the MLP step
         with the shared norm. Levels 3-5 emit (B*N, D1, C) in the other
         stage's layout; levels 1 and 2 keep the layout."""
         R, N, C = h.shape
         x2, y2 = self._attention_half(w, blk, h)
+        if self.tp is not None:
+            return self._mlp_half_tp(w, x2, y2, out_norm, B)
         if self.cfg.fuse_level <= 2:
             out = mlp.mlp_block(y2.view(R * N, C), x2.view(R * N, C), w["w1"], w["b1"],
                                 w["w2"], w["b2"], out_norm[0], out_norm[1], BLOCK_EPS)
@@ -334,14 +443,17 @@ class MixSTE2(nn.Module):
             w["w2"], w["b2"], out_norm[0], out_norm[1], BLOCK_EPS)
         return out.view(B * N, D1, C)
 
-    def _embed(self, x2d, x3d, t, W):
+    def _embed(self, x2d, x3d, t, W, whole=False):
         """Joint embedding + spatial position + time embedding -> (B, F, J, C)
-        in the compute dtype."""
+        in the compute dtype. Under tp the time MLP is split over the group
+        (its second layer's partials summed), unless `whole`: W holds its
+        gathered weights."""
         dt = self.cfg.dtype
+        group = None if self.tp is None or whole else self.tp.group
         x = F.linear(torch.cat([x2d, x3d], dim=-1).to(dt), *W["embed"])
         temb = sinusoidal_time_embedding(t, self.cfg.embed_dim).to(dt)
-        temb = F.gelu(F.linear(temb, *W["time1"]), approximate="none")
-        temb = F.linear(temb, *W["time2"])
+        temb = F.gelu(F.linear(copy_to_tp(temb, group), *W["time1"]), approximate="none")
+        temb = _row_parallel(temb, *W["time2"], group)
         x = x + W["spatial_pos"]  # (1, J, C) over (B, F, J, C)
         return x + temb[:, None, None, :]
 
@@ -384,6 +496,8 @@ class MixSTE2(nn.Module):
         if train:
             fused = (self.cfg.fuse_level >= 1
                      and os.environ.get("D3DP_TRAIN_FUSED", "0") == "1")
+            if fused and self.tp is not None:
+                raise NotImplementedError("D3DP_TRAIN_FUSED=1 under --tp is not ported yet")
             x, _ = self._trunk_composed(x2d, x3d, t, generator, droppath_masks, drop_path,
                                         fused=fused)
             return self._head(x)
@@ -420,11 +534,13 @@ class MixSTE2(nn.Module):
         B, Fr, J, _ = x3d.shape
         C = cfg.embed_dim
         W = self._weights()
-        x = self._embed(x2d, x3d, t, W)
         if cfg.fuse_level == 5 and reuse_tap is None:
+            stacks, time_mlp = self._resident_weights(W)
+            x = self._embed(x2d, x3d, t, {**W, **time_mlp}, whole=True)
             return resident.resident_block_stack(
-                x, W["temporal_pos"][0], *W["resident"], cfg.num_heads, cfg.attn_scale,
+                x, W["temporal_pos"][0], *stacks, cfg.num_heads, cfg.attn_scale,
                 BLOCK_EPS), None
+        x = self._embed(x2d, x3d, t, W)
         ste, tte = list(zip(W["ste"], self.STEblocks)), list(zip(W["tte"], self.TTEblocks))
         if cfg.fuse_level >= 3:
             # transpose-free flow: each block leaves its output in the next

@@ -35,6 +35,15 @@ mask block (`csrc/common.cuh`); the plain versions take the same.
 a precomputed qkv projection and a residual, (x2, y2) with x2 = res +
 proj(attn(qkv)) (fuse levels 2 and 3).
 
+`attention_stage_partial` and `attention_block_partial` are the
+tensor-parallel partial forms of the two (K1-tp, K6-tp): on a rank that
+holds `num_heads` of the model's heads (its head-aligned share of qkv and
+its rows of the out-projection, `parallel.mesh.shard_params`) they stop
+after the projection and return its raw fp32 product, with no bias,
+residual or LN2; the ranks' products are summed and `ops.residual_ln`
+finishes the half. They take the stage's lab switches as the stage does
+(`stage_config`; "hmqkv" raises: its tp form is not ported).
+
 `fused_attention_qkv` and `fused_attention_qkv_bwd` are the counterparts of
 the JAX package's `fused_attention_qkv` and `_fused_attention_qkv_bwd`:
 softmax attention read from the packed (R, N, 3C) qkv projection, and its
@@ -100,6 +109,12 @@ _ATTEND_FN = {torch.bfloat16: "d3dp_attend_packed_bf16",
 _SIG_BLOCK = [_P] * 9 + [_I, _I, _I, _I, _F, _F, _P]
 _BLOCK_FN = {torch.bfloat16: "d3dp_attention_block_bf16",
              torch.float32: "d3dp_attention_block_f32"}
+_SIG_STAGE_PART = [_P] * 9 + [_I] * 6 + [_F, _F, _P]
+_STAGE_PART_FN = {torch.bfloat16: "d3dp_attention_stage_partial_bf16",
+                  torch.float32: "d3dp_attention_stage_partial_f32"}
+_SIG_BLOCK_PART = [_P] * 4 + [_I] * 4 + [_F, _P]
+_BLOCK_PART_FN = {torch.bfloat16: "d3dp_attention_block_partial_bf16",
+                  torch.float32: "d3dp_attention_block_partial_f32"}
 
 
 # ------------------------------------------------------------- lab switches
@@ -283,10 +298,12 @@ def check_stage_shape(what, C, dtype):
         raise ValueError(f"{what}: needs C % {step} == 0 and C <= {c_max} in {dtype} (C={C})")
 
 
-def _check_rows(x, num_heads, what, fns, mask_block=0):
+def _check_rows(x, num_heads, what, fns, mask_block=0, partial=False):
     """Device, rank, dtype, head and token-count checks of a (R, N, C)
     stage input (N whole blocks of mask_block <= 32 tokens where masked);
-    returns (R, N, C)."""
+    returns (R, N, C). partial: a tensor-parallel rank's `num_heads` heads,
+    C_l = num_heads * 64 of the C channels (an even count in bf16, whose
+    qkv walk takes 128-column chunks of the 3 * C_l)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dim() != 3:
@@ -294,7 +311,12 @@ def _check_rows(x, num_heads, what, fns, mask_block=0):
     R, N, C = x.shape
     if x.dtype not in fns:
         raise ValueError(f"{what}: unsupported dtype {x.dtype}")
-    if C != num_heads * HEAD_DIM:
+    if partial:
+        c_l = num_heads * HEAD_DIM
+        if num_heads < 1 or C % c_l or (x.dtype == torch.bfloat16 and num_heads % 2):
+            raise ValueError(f"{what}: a rank's {num_heads} heads of {HEAD_DIM} do not split "
+                             f"C={C} (bf16 needs an even count)")
+    elif C != num_heads * HEAD_DIM:
         raise ValueError(f"{what}: needs head_dim {HEAD_DIM} (C={C}, heads={num_heads})")
     check_stage_shape(what, C, x.dtype)
     if mask_block:
@@ -303,6 +325,14 @@ def _check_rows(x, num_heads, what, fns, mask_block=0):
     elif not 1 <= N <= MAX_TOKENS:
         raise ValueError(f"{what}: N={N} outside 1..{MAX_TOKENS}")
     return R, N, C
+
+
+def _stage_lib():
+    """attention_stage.cu's library, every entry point bound."""
+    return _build.load("attention_stage", {
+        **{fn: _SIG for fn in _FN.values()}, **{fn: _SIG for fn in _HM_FN.values()},
+        **{fn: _SIG_DP for fn in _DP_FN.values()},
+        **{fn: _SIG_STAGE_PART for fn in _STAGE_PART_FN.values()}})
 
 
 def _launch_stage(what, fns, sig, x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
@@ -328,9 +358,7 @@ def _launch_stage(what, fns, sig, x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln
     o = torch.empty((R, N, C), dtype=dt, device=dev)
     x2 = torch.empty_like(x)
     y2 = torch.empty_like(x)
-    lib = _build.load("attention_stage", {**{fn: _SIG for fn in _FN.values()},
-                                          **{fn: _SIG for fn in _HM_FN.values()},
-                                          **{fn: _SIG_DP for fn in _DP_FN.values()}})
+    lib = _stage_lib()
     weights = [x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b]
     ptrs = [t.data_ptr() for t in weights + ([dp_row] if dp_row is not None else [])]
     with torch.cuda.device(dev):
@@ -402,6 +430,66 @@ def attention_stage_hm(x, wqkv_hm, bqkv_hm, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
 attention_stage.launches = 0
 attention_stage_dp.launches = 0
 attention_stage_hm.launches = 0
+
+
+# ------------------------------------------------- tensor-parallel partial forms
+def attention_stage_partial_plain(x, wqkv, bqkv, ln1_s, ln1_b, wp, num_heads, scale, eps, opts=0,
+                                  mask_block=0):
+    """Plain torch ops of K1-tp in the stage's order: LN1 over the whole
+    row, qkv over the rank's `num_heads` heads (wqkv (C, 3 C_l) with their
+    q, k and v columns, bqkv (3 C_l,), C_l = num_heads * 64), the stage's
+    attention, then o (R, N, C_l) @ wp (C_l, C) -> the fp32 (R, N, C)
+    product, no bias, residual or LN2. opts, mask_block: as
+    `attention_stage_plain`'s (OPT_NO_Y2 has no meaning here)."""
+    dt = x.dtype
+    y1 = layer_norm_rows(x.float(), ln1_s, ln1_b, eps)
+    qkv = (_mm(y1.to(dt), wqkv) + bqkv.float()).to(dt)
+    o = _stage_attend_plain(*_split(qkv, 3, num_heads), scale, dt, opts, mask_block)
+    return _mm(_merge(o.to(dt)), wp)
+
+
+def attention_stage_partial(x, wqkv, bqkv, ln1_s, ln1_b, wp, num_heads, scale, eps):
+    """K1-tp: a tensor-parallel rank's share of the attention stage on x
+    (R, N, C), its fp32 (R, N, C) out-projection product (see
+    `attention_stage_partial_plain`), under the lab switches as
+    `attention_stage` resolves them."""
+    kernel, opts, group = stage_config(x)
+    if kernel == "head_major":
+        raise NotImplementedError("D3DP_ATTN_VARIANT=hmqkv under --tp (the head-major stage's "
+                                  "tensor-parallel form) is not ported yet")
+    opts &= ~OPT_NO_Y2
+    R, N, C = x.shape
+    mask_block = N if group > 1 else 0
+    xg = x.view(R // group, group * N, C) if group > 1 else x
+    if x.device.type == "cpu":
+        part = attention_stage_partial_plain(xg, wqkv, bqkv, ln1_s, ln1_b, wp, num_heads, scale,
+                                             eps, opts, mask_block)
+        return part.view(R, N, C)
+    Rg, Ng, _ = _check_rows(xg, num_heads, "attention_stage_partial", _STAGE_PART_FN,
+                            mask_block, partial=True)
+    dt, dev, f32 = x.dtype, x.device, torch.float32
+    c_l = num_heads * HEAD_DIM
+    for t, name, dtype, shape in (
+            (xg, "x", dt, (Rg, Ng, C)), (wqkv, "wqkv", dt, (C, 3 * c_l)),
+            (bqkv, "bqkv", f32, (3 * c_l,)), (ln1_s, "ln1_s", f32, (C,)),
+            (ln1_b, "ln1_b", f32, (C,)), (wp, "wp", dt, (c_l, C))):
+        _build.check_operand(t, name, dtype, shape, dev)
+    qkv = torch.empty((Rg, Ng, 3 * c_l), dtype=dt, device=dev)
+    o = torch.empty((Rg, Ng, c_l), dtype=dt, device=dev)
+    part = torch.empty((Rg, Ng, C), dtype=f32, device=dev)
+    lib = _stage_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, _STAGE_PART_FN[dt])(
+            xg.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), ln1_s.data_ptr(), ln1_b.data_ptr(),
+            wp.data_ptr(), qkv.data_ptr(), o.data_ptr(), part.data_ptr(), Rg, Ng, C, num_heads,
+            opts, mask_block, float(scale), float(eps), stream)
+    _build.check(err, "attention_stage_partial")
+    attention_stage_partial.launches += 1
+    return part.view(R, N, C)
+
+
+attention_stage_partial.launches = 0
 
 
 # ----------------------------------------------------- training attention core
@@ -697,7 +785,7 @@ def attention_block(qkv, res, w, b, ln_s, ln_b, num_heads, scale, eps):
     o = torch.empty((R, N, C), dtype=dt, device=dev)
     x2 = torch.empty_like(res)
     y2 = torch.empty_like(res)
-    lib = _build.load("attention_block", {fn: _SIG_BLOCK for fn in _BLOCK_FN.values()})
+    lib = _block_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, _BLOCK_FN[dt])(
@@ -710,6 +798,52 @@ def attention_block(qkv, res, w, b, ln_s, ln_b, num_heads, scale, eps):
 
 
 attention_block.launches = 0
+
+
+def _block_lib():
+    """attention_block.cu's library, both forms bound."""
+    return _build.load("attention_block", {
+        **{fn: _SIG_BLOCK for fn in _BLOCK_FN.values()},
+        **{fn: _SIG_BLOCK_PART for fn in _BLOCK_PART_FN.values()}})
+
+
+def attention_block_partial_plain(qkv, wp, num_heads, scale):
+    """Plain torch ops of K6-tp: the block's attention on the rank's
+    `num_heads` heads of qkv (R, N, 3 C_l) in `attention_block_plain`'s
+    order, then o @ wp (C_l, C) -> the fp32 (R, N, C) product, no bias,
+    residual or LN2."""
+    return _mm(fused_attention_qkv_plain(qkv, num_heads, scale), wp)
+
+
+def attention_block_partial(qkv, wp, num_heads, scale):
+    """K6-tp: a tensor-parallel rank's share of the attention block (levels
+    2-3), its fp32 (R, N, C) out-projection product; see
+    `attention_block_partial_plain`."""
+    if qkv.device.type == "cpu":
+        return attention_block_partial_plain(qkv, wp, num_heads, scale)
+    R, N, c_l = _check_qkv(qkv, num_heads, "attention_block_partial")
+    dt, dev = qkv.dtype, qkv.device
+    if wp.dim() != 2 or wp.shape[0] != c_l:
+        raise ValueError(f"wp must be ({c_l}, C), got {tuple(wp.shape)}")
+    C = wp.shape[1]
+    check_stage_shape("attention_block_partial", C, dt)
+    if C % c_l:
+        raise ValueError(f"attention_block_partial: {num_heads} heads do not split C={C}")
+    _build.check_operand(wp, "wp", dt, (c_l, C), dev)
+    o = torch.empty((R, N, c_l), dtype=dt, device=dev)
+    part = torch.empty((R, N, C), dtype=torch.float32, device=dev)
+    lib = _block_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, _BLOCK_PART_FN[dt])(qkv.data_ptr(), wp.data_ptr(), o.data_ptr(),
+                                               part.data_ptr(), R, N, C, num_heads, float(scale),
+                                               stream)
+    _build.check(err, "attention_block_partial")
+    attention_block_partial.launches += 1
+    return part
+
+
+attention_block_partial.launches = 0
 
 
 class _AttentionBlock(torch.autograd.Function):

@@ -24,6 +24,14 @@
 //                fragments, x2 and y2 out by TMA stores.
 // The split writes o and reads it back (2*T*C elements); one fused pass
 // per (sequence, query block) is later work.
+//
+// Tensor-parallel partial form (`d3dp_attention_block_partial_*`, levels
+// 2-3 on a rank holding `heads` of the h heads): attend on the rank's qkv
+// (R, N, 3 * C_l), C_l = heads * 64, then its rows of the projection, (C_l,
+// C), written raw in fp32 (R, N, C): no bias, residual or LN2, which follow
+// the all-reduce over the ranks (residual_ln.cu). The projection is the
+// walk's `kPartial` epilogue (`launch_proj_partial`, stage.cuh), shared
+// with the stage's partial form.
 #include "stage.cuh"
 
 namespace d3dp {
@@ -44,6 +52,20 @@ int attention_block(const void* qkv, const void* res, const void* wp, const void
                             stream);
 }
 
+template <typename T>
+int attention_block_partial(const void* qkv, const void* wp, void* o, void* part, int R, int N,
+                            int C, int heads, float scale, void* stream_) {
+  const int Cl = heads * kHeadDim;
+  if (R < 1 || N < 1 || N > kMaxKeys || !stage_shape_ok<T>(C) || heads < 1 || Cl > C ||
+      R > 0x7fffffff / N)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  cudaError_t e = launch_attend_packed<T>((const T*)qkv, (T*)o, R, N, Cl, heads, scale,
+                                          norm_first_opts(), stream);
+  if (e != cudaSuccess) return (int)e;
+  return launch_proj_partial<T>((const T*)o, (const T*)wp, (float*)part, R * N, Cl, C, stream);
+}
+
 }  // namespace d3dp
 
 extern "C" {
@@ -61,6 +83,19 @@ int d3dp_attention_block_f32(const void* qkv, const void* res, const void* wp, c
                              int N, int C, int heads, float scale, float eps, void* stream) {
   return d3dp::attention_block<float>(qkv, res, wp, bp, lns, lnb, o, x2, y2, R, N, C, heads,
                                       scale, eps, stream);
+}
+
+// K6-tp: qkv (R, N, 3 * heads * 64), wp (heads * 64, C), o scratch (R, N,
+// heads * 64), part (R, N, C) fp32.
+int d3dp_attention_block_partial_bf16(const void* qkv, const void* wp, void* o, void* part, int R,
+                                      int N, int C, int heads, float scale, void* stream) {
+  return d3dp::attention_block_partial<d3dp::bf16>(qkv, wp, o, part, R, N, C, heads, scale,
+                                                   stream);
+}
+
+int d3dp_attention_block_partial_f32(const void* qkv, const void* wp, void* o, void* part, int R,
+                                     int N, int C, int heads, float scale, void* stream) {
+  return d3dp::attention_block_partial<float>(qkv, wp, o, part, R, N, C, heads, scale, stream);
 }
 
 }  // extern "C"

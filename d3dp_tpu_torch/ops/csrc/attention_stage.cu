@@ -65,6 +65,20 @@
 // ms at 3.35 TB/s, against the 0.36-0.43 ms the products bound it to.
 //
 // DropPath form: proj_ln2 scales each token row's branch by dp[row / N].
+// Tensor-parallel partial form (`d3dp_attention_stage_partial_*`, the
+// stage of a rank holding `heads` of the h heads, heads = h / tp): LN1 on
+// the whole row, then ln_qkv over the rank's heads only (Wqkv (C, 3 * C_l),
+// C_l = heads * 64: the rank's heads of q, of k and of v), attend on those
+// heads, and the projection over the rank's C_l rows of Wp, (C_l, C),
+// written raw in fp32 (R, N, C) with no bias, residual or LN2: the caller
+// all-reduces the ranks' partials and runs residual_ln.cu. The three
+// launches are K1's (`launch_ln_qkv` with `heads` beside C; the
+// projection walk's `kPartial` epilogue, `launch_proj_partial`). The TPU
+// package has no such kernel: under its tp mesh XLA runs the stage kernel
+// on gathered operands. Bounds as K1's, by the rank's share of the
+// products, plus C fp32 partials a token row out (4 bytes a value: the
+// all-reduce's operand).
+//
 // Head-major form: ln_qkv loads each 64-column box of the (h, C, 3d) weights
 // to where the packed step loads the same columns from (C, 3C), and writes
 // qkv head-major, (h, R*N, 3d); attend reads head h's q, k and v from its
@@ -92,7 +106,7 @@ int attention_stage(const void* x, const void* wqkv, const void* bqkv, const voi
   const int M = R * N;
   int e = launch_ln_qkv<T, kHeadMajor>((const T*)x, (const T*)wqkv, (const float*)bqkv,
                                        (const float*)ln1s, (const float*)ln1b, (T*)qkv, M, C,
-                                       eps, stream);
+                                       heads, eps, stream);
   if (e) return e;
   if constexpr (kHeadMajor) {
     // head h's slab starts at h * M * 3d; the tile adds h * kHeadDim (the
@@ -108,6 +122,31 @@ int attention_stage(const void* x, const void* wqkv, const void* bqkv, const voi
   return launch_proj_ln2<T>((const T*)o, (const T*)x, (const T*)wp, (const float*)bp,
                             (const float*)ln2s, (const float*)ln2b, (T*)x2, (T*)y2, M, C, eps,
                             stream, (const float*)dp, N, !(opts & kOptNoY2));
+}
+
+// The tensor-parallel partial form (file header): x (R, N, C); wqkv (C, 3 *
+// heads * 64); wp (heads * 64, C); qkv scratch (R, N, 3 * heads * 64), o
+// (R, N, heads * 64); part (R, N, C) fp32.
+template <typename T>
+int attention_stage_partial(const void* x, const void* wqkv, const void* bqkv, const void* ln1s,
+                            const void* ln1b, const void* wp, void* qkv, void* o, void* part,
+                            int R, int N, int C, int heads, int opts, int mask_block,
+                            float scale, float eps, void* stream_) {
+  const int Cl = heads * kHeadDim;
+  if (R < 1 || N < 1 || !attn_keys_ok(N, mask_block) || !stage_shape_ok<T>(C) || heads < 1 ||
+      Cl > C || (std::is_same<T, bf16>::value ? (3 * Cl) % kQkvChunk : Cl % 64) ||
+      R > 0x7fffffff / N)
+    return (int)cudaErrorInvalidValue;
+  const AttnOpts ao = attn_opts(opts & ~kOptNoY2, mask_block);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const int M = R * N;
+  int e = launch_ln_qkv<T, false>((const T*)x, (const T*)wqkv, (const float*)bqkv,
+                                  (const float*)ln1s, (const float*)ln1b, (T*)qkv, M, C, heads,
+                                  eps, stream);
+  if (e) return e;
+  e = (int)launch_attend_packed<T>((const T*)qkv, (T*)o, R, N, Cl, heads, scale, ao, stream);
+  if (e) return e;
+  return launch_proj_partial<T>((const T*)o, (const T*)wp, (float*)part, M, Cl, C, stream);
 }
 
 }  // namespace d3dp
@@ -151,5 +190,20 @@ int d3dp_attention_stage_hm_bf16(D3DP_STAGE_ARGS, D3DP_STAGE_TAIL) {
 int d3dp_attention_stage_hm_f32(D3DP_STAGE_ARGS, D3DP_STAGE_TAIL) {
   return D3DP_STAGE_CALL(float, true, nullptr);
 }
+
+// K1-tp: a rank's `heads` heads; part (R, N, C) fp32 (the partial form above).
+#define D3DP_PARTIAL_ARGS                                                                       \
+  const void *x, const void *wqkv, const void *bqkv, const void *ln1s, const void *ln1b,       \
+      const void *wp, void *qkv, void *o, void *part, int R, int N, int C, int heads, int opts, \
+      int mask_block, float scale, float eps, void *stream
+#define D3DP_PARTIAL_CALL(T)                                                                    \
+  d3dp::attention_stage_partial<T>(x, wqkv, bqkv, ln1s, ln1b, wp, qkv, o, part, R, N, C, heads, \
+                                   opts, mask_block, scale, eps, stream)
+
+int d3dp_attention_stage_partial_bf16(D3DP_PARTIAL_ARGS) {
+  return D3DP_PARTIAL_CALL(d3dp::bf16);
+}
+
+int d3dp_attention_stage_partial_f32(D3DP_PARTIAL_ARGS) { return D3DP_PARTIAL_CALL(float); }
 
 }  // extern "C"

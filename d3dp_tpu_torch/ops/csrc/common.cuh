@@ -1270,10 +1270,43 @@ inline size_t proj_ln2_smem(int C) {
          align128(sizeof(float) * kF32Rows * (C + 4));
 }
 
+// fp32 tensor-parallel partial (bf16 runs `proj_ln2_walk_bf16<., true>`):
+// part = o @ Wp over token rows, o (M, K) a rank's K = C / tp attention
+// channels and Wp (K, C) its rows of the projection, written raw in fp32
+// (M, C): no bias, residual or LN2, which follow the all-reduce over the
+// ranks (residual_ln.cu).
+__device__ __forceinline__ void proj_partial_tile(const float* o, const float* wp, float* part,
+                                                  int M, int K, int C, unsigned char* smem,
+                                                  int tile) {
+  constexpr int BM = kF32Rows;
+  const int lda = K + kF32Pad;
+  const int ldx = C + 4;
+  float* As = reinterpret_cast<float*>(smem);
+  float* Bs = reinterpret_cast<float*>(smem + align128(sizeof(float) * BM * lda));
+  float* Xs = reinterpret_cast<float*>(smem + align128(sizeof(float) * BM * lda) + bs_bytes());
+
+  const int row0 = tile * BM;
+  load_rows(As, lda, o + (size_t)row0 * K, K, BM, M - row0, K);
+  __syncthreads();
+  for (int n0 = 0; n0 < C; n0 += kBN) gemm_rowblock(As, lda, wp + n0, C, K, Bs, Xs + n0, ldx);
+  __syncthreads();
+  for (int i = threadIdx.x; i < BM * C; i += kThreads) {
+    const int r = i / C, c = i % C;
+    if (row0 + r < M) part[(size_t)(row0 + r) * C + c] = Xs[r * ldx + c];
+  }
+}
+
+inline size_t proj_partial_smem(int K, int C) {
+  return align128(sizeof(float) * kF32Rows * (K + kF32Pad)) + bs_bytes() +
+         align128(sizeof(float) * kF32Rows * (C + 4));
+}
+
 // ---------------------------------------------------------------- LN1 + qkv
 // fp32 (parity checks; bf16 runs `ln_qkv_walk_bf16`, stage.cuh): qkv =
 // LN1(x) @ Wqkv + bqkv over token rows; one tile is the row block `tile`:
 // LN1 into shared memory, then the qkv projection in 64-column steps.
+// `heads` heads of kHeadDim: qkv has 3 * heads * kHeadDim columns, which is
+// 3C but for a tensor-parallel rank's share (C / tp of each of q, k, v).
 // kHeadMajor (the head-major stage): Wqkv is stacked (h, C, 3d) and bqkv
 // (h, 3d), head h's q | k | v columns side by side, and qkv is written
 // head-major, (h, M, 3d). Each 64-column step then covers the same columns,
@@ -1282,8 +1315,8 @@ inline size_t proj_ln2_smem(int C) {
 template <bool kHeadMajor = false>
 __device__ __forceinline__ void ln_qkv_tile(const float* x, const float* wqkv, const float* bqkv,
                                             const float* ln1s, const float* ln1b, float* qkv,
-                                            int M, int C, float eps, unsigned char* smem,
-                                            int tile) {
+                                            int M, int C, int heads, float eps,
+                                            unsigned char* smem, int tile) {
   constexpr int BM = kF32Rows;
   const int lda = C + kF32Pad;
   float* As = reinterpret_cast<float*>(smem);
@@ -1311,7 +1344,7 @@ __device__ __forceinline__ void ln_qkv_tile(const float* x, const float* wqkv, c
   }
   __syncthreads();
 
-  const int N3 = 3 * C;
+  const int N3 = 3 * heads * kHeadDim;
   for (int n0 = 0; n0 < N3; n0 += kBN) {
     // this step's weight columns (row stride ldw) and output columns (row
     // stride ldq); the bias index is n0 + c in both layouts

@@ -137,6 +137,7 @@ struct MlpArgs {
   int depth;  // bf16: the depth the TMA maps of the weight stacks are read at
   int D1, D2, M, C, H, gelu;
   float eps;
+  float* part;  // the partial form: (M, C) fp32 out; res, b2, lns, lnb, out, dp unused
 };
 
 __device__ __forceinline__ size_t mlp_out_row(int t, int D1, int D2, bool transpose) {
@@ -199,6 +200,13 @@ __device__ __forceinline__ void mlp_tile_f32(const MlpArgs<float>& a, const MlpL
   for (int n0 = 0; n0 < C; n0 += kBN)
     gemm_rowblock(Hs, L.ldh, a.w2 + n0, C, H, Bs, Ss + n0, L.lds);
   __syncthreads();
+  if (a.part) {  // the partial form: the raw product out
+    for (int i = threadIdx.x; i < BM * C; i += kThreads) {
+      const int r = i / C, c = i % C;
+      if (row0 + r < M) a.part[(size_t)(row0 + r) * C + c] = Ss[r * L.lds + c];
+    }
+    return;
+  }
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < BM; r += kWarps) {
@@ -564,8 +572,12 @@ __device__ __forceinline__ void mlp_store_h(const float (&acc1)[32], const float
 // staged in shared memory and written by bulk copies that complete under the
 // next tile's products; on return they are complete and ordered before the
 // caller's later accesses (the depth-resident kernel's next phase reads them
-// from other blocks after a grid barrier).
-template <bool kTranspose, bool kWide>
+// from other blocks after a grid barrier). kPartial (a tensor-parallel rank's
+// share: W1's H / tp columns and W2's H / tp rows in a.H): the fp32 fc2
+// product goes raw to a.part (M, C) in rows from the fragments, with no b2,
+// residual or LayerNorm (those follow the all-reduce over the ranks, with
+// the transposed write); the next tile's x loads under the last chunk's fc2.
+template <bool kTranspose, bool kWide, bool kPartial = false>
 __device__ __forceinline__ void mlp_walk_bf16(const MlpArgs<bf16>& a, const CUtensorMap* tw1,
                                               const CUtensorMap* tw2, const MlpLayout<bf16>& L,
                                               unsigned char* smem_raw, int n_tiles) {
@@ -655,7 +667,13 @@ __device__ __forceinline__ void mlp_walk_bf16(const MlpArgs<bf16>& a, const CUte
         mlp_store_h<kGeluNone>(acc1, b1, hb, r0, cq);
       fence_proxy_async();
       __syncthreads();  // both halves of the chunk written; the last chunk: x is free
-      if (j == a.H / kHid - 1) mlp_load_rows(xs, a.res, tile, M, C);  // for the epilogue
+      if (j == a.H / kHid - 1) {
+        if constexpr (kPartial) {
+          if (i + 1 < mine) mlp_load_rows(xs, a.x, tile + gridDim.x, M, C);
+        } else {
+          mlp_load_rows(xs, a.res, tile, M, C);  // for the epilogue
+        }
+      }
 
       // fc2: this warpgroup's columns of out += h_chunk @ W2[chunk, :]
       const uint32_t hc = hs_at + (j & 1) * (kMlpRows * kHid * 2);
@@ -688,6 +706,24 @@ __device__ __forceinline__ void mlp_walk_bf16(const MlpArgs<bf16>& a, const CUte
     wgmma_wait<0>();
     fence_acc(acc2);
     ring.release_upto(next, issue);
+
+    if constexpr (kPartial) {
+      const int ta = tile * kMlpRows + r0, tb = ta + 8;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q < nq) {
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const float* d = acc2 + 32 * q + 4 * jj;
+            const int c = wg * (C / 2) + 64 * q + 8 * jj + cq;
+            if (ta < M)
+              *reinterpret_cast<float2*>(a.part + (size_t)ta * C + c) = make_float2(d[0], d[1]);
+            if (tb < M)
+              *reinterpret_cast<float2*>(a.part + (size_t)tb * C + c) = make_float2(d[2], d[3]);
+          }
+        }
+      continue;
+    }
 
     // epilogue: + b2, DropPath, + res; LayerNorm over the C columns of a row
     // (this warpgroup holds C / 2 of them); the store
@@ -785,13 +821,13 @@ __host__ __device__ constexpr bool mlp_wide(int C) { return C == 512; }
 
 // The walk of either type: bf16 as above (kWide as given, which the caller
 // matches to mlp_wide(C)), fp32 one 16-row tile at a time (tw1, tw2 and
-// kWide unused).
-template <typename T, bool kTranspose, bool kWide = false>
+// kWide unused; the partial form where a.part is set).
+template <typename T, bool kTranspose, bool kWide = false, bool kPartial = false>
 __device__ __forceinline__ void mlp_walk(const MlpArgs<T>& a, const CUtensorMap* tw1,
                                          const CUtensorMap* tw2, const MlpLayout<T>& L,
                                          unsigned char* smem, int n_tiles) {
   if constexpr (std::is_same<T, bf16>::value) {
-    mlp_walk_bf16<kTranspose, kWide>(a, tw1, tw2, L, smem, n_tiles);
+    mlp_walk_bf16<kTranspose, kWide, kPartial>(a, tw1, tw2, L, smem, n_tiles);
   } else {
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
       mlp_tile_f32<kTranspose>(a, L, smem, t);

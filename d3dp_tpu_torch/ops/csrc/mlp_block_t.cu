@@ -46,16 +46,16 @@ struct MlpParams {
   int n_tiles;
 };
 
-// kWide: bf16 at C = 512 (mlp_wide)
-template <typename T, bool kTranspose, bool kWide>
+// kWide: bf16 at C = 512 (mlp_wide); kPartial: the tensor-parallel partial
+template <typename T, bool kTranspose, bool kWide, bool kPartial = false>
 __global__ void __launch_bounds__(kThreads) mlp_block_kernel(const __grid_constant__ MlpParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  mlp_walk<T, kTranspose, kWide>(p.a, &p.tw1, &p.tw2, p.L, smem, p.n_tiles);
+  mlp_walk<T, kTranspose, kWide, kPartial>(p.a, &p.tw1, &p.tw2, p.L, smem, p.n_tiles);
 }
 
-template <typename T, bool kTranspose, bool kWide>
+template <typename T, bool kTranspose, bool kWide, bool kPartial = false>
 cudaError_t launch_mlp(const MlpParams<T>& p, cudaStream_t stream) {
-  auto kernel = mlp_block_kernel<T, kTranspose, kWide>;
+  auto kernel = mlp_block_kernel<T, kTranspose, kWide, kPartial>;
   const int smem = (int)p.L.total;
   int blocks = p.n_tiles;
   const cudaError_t e =
@@ -94,6 +94,37 @@ int mlp_block_any(const void* x, const void* res, const void* w1, const void* b1
   if constexpr (!f32)
     if (mlp_wide(C)) return (int)launch_mlp<T, kTranspose, true>(p, stream);
   return (int)launch_mlp<T, kTranspose, false>(p, stream);
+}
+
+// The tensor-parallel partial form (K2/K5-tp): part = act(x @ W1 + b1) @ W2
+// over R token rows, raw in fp32 (R, C), with W1 (C, H) and b1 (H,) the
+// rank's H = H_model / tp hidden columns and W2 (H, C) their rows: no b2,
+// residual or LayerNorm, and no transpose; the caller all-reduces the ranks'
+// partials and runs residual_ln.cu, which writes the rows or the other
+// stage's layout. One form serves K2 and K5. The walk is theirs with the
+// `kPartial` epilogue; it bounds as theirs at the rank's share of the FLOPs,
+// plus C fp32 partials a row out.
+template <typename T>
+int mlp_block_partial(const void* x, const void* w1, const void* b1, const void* w2, void* part,
+                      int R, int C, int H, int gelu, void* stream_) {
+  constexpr bool f32 = std::is_same<T, float>::value;
+  if (R < 1 || !mlp_shape_ok<T>(C, H) || gelu < kGeluErf || gelu > kGeluNone ||
+      (f32 && gelu == kGeluBf16))
+    return (int)cudaErrorInvalidValue;
+  MlpParams<T> p{};
+  if constexpr (!f32) {
+    const int e = encode_mlp_maps(&p.tw1, &p.tw2, w1, w2, 1, C, H);
+    if (e) return e;
+  }
+  p.a = MlpArgs<T>{(const T*)x, nullptr, (const T*)w1, (const float*)b1, (const T*)w2, nullptr,
+                   nullptr, nullptr, nullptr, nullptr, 0, R, 1, R, C, H, gelu, 0.f,
+                   (float*)part};
+  p.L = MlpLayout<T>(C, H);
+  p.n_tiles = cdiv(R, MlpLayout<T>::kRows);
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if constexpr (!f32)
+    if (mlp_wide(C)) return (int)launch_mlp<T, false, true, true>(p, stream);
+  return (int)launch_mlp<T, false, false, true>(p, stream);
 }
 
 }  // namespace d3dp
@@ -150,6 +181,18 @@ int d3dp_mlp_block_dp_bf16(D3DP_MLP_ARGS, const void* dp, void* out, int R, int 
 int d3dp_mlp_block_dp_f32(D3DP_MLP_ARGS, const void* dp, void* out, int R, int C, int H,
                           int gelu, float eps, void* stream) {
   return D3DP_MLP_CALL(float, false, dp, 1, R, 1);
+}
+
+// K2/K5-tp: x (R, C); w1 (C, H), b1 (H,), w2 (H, C) a rank's share; part
+// (R, C) fp32.
+int d3dp_mlp_block_partial_bf16(const void* x, const void* w1, const void* b1, const void* w2,
+                                void* part, int R, int C, int H, int gelu, void* stream) {
+  return d3dp::mlp_block_partial<d3dp::bf16>(x, w1, b1, w2, part, R, C, H, gelu, stream);
+}
+
+int d3dp_mlp_block_partial_f32(const void* x, const void* w1, const void* b1, const void* w2,
+                               void* part, int R, int C, int H, int gelu, void* stream) {
+  return d3dp::mlp_block_partial<float>(x, w1, b1, w2, part, R, C, H, gelu, stream);
 }
 
 }  // extern "C"

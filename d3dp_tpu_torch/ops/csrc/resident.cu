@@ -159,11 +159,11 @@ __device__ __forceinline__ void block_phases(const ResidentArgs<T>& a, const Kin
   if constexpr (f32) {
     for (int i = blockIdx.x; i < cdiv(M, kF32Rows); i += gridDim.x) {
       ln_qkv_tile(h, w.wqkv + (size_t)d * C * C3, w.bqkv + (size_t)d * C3, vec + C, vec + 2 * C,
-                  a.qkv, M, C, a.eps, smem, i);
+                  a.qkv, M, C, a.heads, a.eps, smem, i);
       __syncthreads();  // the next tile overwrites shared memory
     }
   } else {
-    const QkvArgs q{h, w.bqkv + (size_t)d * C3, vec + C, vec + 2 * C, d, M, C, a.eps};
+    const QkvArgs q{h, w.bqkv + (size_t)d * C3, vec + C, vec + 2 * C, d, M, C, a.eps, a.heads};
     ln_qkv_walk_bf16<false>(q, &w.twqkv, &a.tq, a.Lq, smem, cdiv(M, kQkvRows));
   }
   phase_end(grid, p0, t);
@@ -204,7 +204,8 @@ __device__ __forceinline__ void block_phases(const ResidentArgs<T>& a, const Kin
       __syncthreads();
     }
   } else {
-    const ProjArgs p{a.o, h, vec, vec + 3 * C, vec + 4 * C, nullptr, 1, d, M, C, a.eps, true};
+    const ProjArgs p{a.o, h, vec, vec + 3 * C, vec + 4 * C, nullptr, 1, d, M, C, a.eps, true,
+                     C, nullptr};
     proj_ln2_walk_bf16<kWide>(p, &w.twp, &a.tx2, &a.ty2, a.Lp, smem, cdiv(M, kStageRows));
   }
   phase_end(grid, p0 + 2, t);

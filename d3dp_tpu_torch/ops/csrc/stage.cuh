@@ -148,6 +148,7 @@ struct QkvArgs {
   int depth;           // the depth the packed Wqkv map is read at
   int M, C;
   float eps;
+  int heads;           // qkv's heads: C / kHeadDim, or a tensor-parallel rank's share
 };
 
 struct QkvLayout {
@@ -174,7 +175,9 @@ __device__ __forceinline__ int2 qkv_box(int b, int heads, int depth) {
 
 // Walk the kQkvRows-row tiles blockIdx.x, + gridDim.x, ... below n_tiles.
 // Every thread of the block calls it; smem: QkvLayout(C).total bytes, free
-// on entry and on return. Needs C % 128 == 0, C <= 512. Warpgroup w owns
+// on entry and on return. Needs C % 128 == 0, C <= 512 and an even a.heads
+// (3 * a.heads * kHeadDim output columns in 128-column chunks; a.heads is
+// C / kHeadDim but for a tensor-parallel rank's share). Warpgroup w owns
 // the tile's rows 64w..64w + 63; both read each weight slab. tw: the TMA map
 // over Wqkv, packed (D, C, 3C) or head-major (h, C, 3d), 64-row boxes. The
 // output boxes go out by TMA stores through tq, the map over qkv (packed
@@ -186,8 +189,8 @@ __device__ __forceinline__ void ln_qkv_walk_bf16(const QkvArgs& a, const CUtenso
                                                  unsigned char* smem_raw, int n_tiles) {
   const int first = blockIdx.x;
   if (first >= n_tiles) return;
-  const int C = a.C, M = a.M, heads = C / kHeadDim;
-  const int nchunk = 3 * C / kQkvChunk;
+  const int C = a.C, M = a.M, heads = a.heads;
+  const int nchunk = 3 * heads * kHeadDim / kQkvChunk;
   const int per_chunk = C / kQkvSlabRows;
   const int per_tile = nchunk * per_chunk;
   const int mine = (n_tiles - 1 - first) / gridDim.x + 1;
@@ -307,6 +310,8 @@ struct ProjArgs {
   int M, C;
   float eps;
   bool with_y2;
+  int K;               // o's columns and Wp's rows: C, or a tensor-parallel rank's C / tp
+  float* part;         // kPartial: the raw fp32 product (M, C)
 };
 
 struct ProjLayout {
@@ -324,20 +329,25 @@ struct ProjLayout {
 };
 
 // Walk the tiles blockIdx.x, + gridDim.x, ... below n_tiles, as
-// ln_qkv_walk_bf16. tw: the TMA map over the depth-stacked (D, C, C) Wp,
-// 32-row boxes. kWide (C == 512, `mlp_wide`): m64n256k16, else m64n64k16
-// blocks (one instruction form a kernel). x2 and y2 go out by TMA stores
-// through tx2 and ty2 (maps over (1, M', C), M' >= M rows).
-template <bool kWide>
+// ln_qkv_walk_bf16. tw: the TMA map over the depth-stacked (D, K, C) Wp,
+// 32-row boxes (K = C but in the partial form). kWide (C == 512,
+// `mlp_wide`): m64n256k16, else m64n64k16 blocks (one instruction form a
+// kernel). x2 and y2 go out by TMA stores through tx2 and ty2 (maps over
+// (1, M', C), M' >= M rows). kPartial (a tensor-parallel rank's share: o
+// (M, K) its K = C / tp attention channels, Wp its K rows): the fp32
+// product goes raw to a.part (M, C) straight from the fragments, with no
+// bias, residual, x2 or LN2 (those follow the all-reduce over the ranks);
+// x is not read and tx2, ty2 are unused.
+template <bool kWide, bool kPartial = false>
 __device__ __forceinline__ void proj_ln2_walk_bf16(const ProjArgs& a, const CUtensorMap* tw,
                                                    const CUtensorMap* tx2, const CUtensorMap* ty2,
                                                    const ProjLayout& L, unsigned char* smem_raw,
                                                    int n_tiles) {
   const int first = blockIdx.x;
   if (first >= n_tiles) return;
-  const int C = a.C, M = a.M;
+  const int C = a.C, M = a.M, K = a.K;
   const int nq = C / 128;  // 64-column output blocks a warpgroup
-  const int per_tile = C / kProjSlabRows;
+  const int per_tile = K / kProjSlabRows;
   const int mine = (n_tiles - 1 - first) / gridDim.x + 1;
 
   unsigned char* base = mlp_base(smem_raw);
@@ -358,8 +368,8 @@ __device__ __forceinline__ void proj_ln2_walk_bf16(const ProjArgs& a, const CUte
   };
   WeightRing<kProjRing> ring;
   ring.start(base + L.bars, base + L.ring, (uint32_t)mine * per_tile, issue);
-  mlp_load_rows(as, a.o, first, M, C);
-  mlp_load_rows(rs, a.x, first, M, C);
+  mlp_load_rows(as, a.o, first, M, K);
+  if constexpr (!kPartial) mlp_load_rows(rs, a.x, first, M, C);
 
   uint32_t next = 0;
   float acc[128];
@@ -367,7 +377,7 @@ __device__ __forceinline__ void proj_ln2_walk_bf16(const ProjArgs& a, const CUte
   for (int q = 0; q < 128; ++q) acc[q] = 0.f;  // no value live into the walk
   for (int i = 0; i < mine; ++i) {
     const int tile = first + i * gridDim.x, row0 = tile * kStageRows;
-    cp_async_wait<1>();
+    cp_async_wait<kPartial ? 0 : 1>();
     fence_proxy_async();
     __syncthreads();  // o landed for every thread (x may still be in flight)
 
@@ -399,6 +409,29 @@ __device__ __forceinline__ void proj_ln2_walk_bf16(const ProjArgs& a, const CUte
     wgmma_wait<0>();
     fence_acc(acc);
     ring.release_upto(next, issue);
+
+    if constexpr (kPartial) {
+      // the raw fp32 product, rows past M dropped
+      const int ta = row0 + r0, tb = ta + 8;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q < nq) {
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const float* d = acc + 32 * q + 4 * jj;
+            const int c = wg * (C / 2) + 64 * q + 8 * jj + cq;
+            if (ta < M)
+              *reinterpret_cast<float2*>(a.part + (size_t)ta * C + c) = make_float2(d[0], d[1]);
+            if (tb < M)
+              *reinterpret_cast<float2*>(a.part + (size_t)tb * C + c) = make_float2(d[2], d[3]);
+          }
+        }
+      if (i + 1 < mine) {
+        __syncthreads();  // both warpgroups' products have read o
+        mlp_load_rows(as, a.o, tile + gridDim.x, M, K);
+      }
+      continue;
+    }
 
     // epilogue: + bp, DropPath, + x, x2; LN2 over the C columns of a row
     // (this warpgroup holds C / 2 of them); y2
@@ -515,10 +548,10 @@ __global__ void __launch_bounds__(kThreads) ln_qkv_walk_kernel(const __grid_cons
   ln_qkv_walk_bf16<kHeadMajor>(p.a, &p.tw, &p.tq, p.L, smem, p.n_tiles);
 }
 
-template <bool kWide>
+template <bool kWide, bool kPartial = false>
 __global__ void __launch_bounds__(kThreads) proj_ln2_walk_kernel(const __grid_constant__ ProjParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  proj_ln2_walk_bf16<kWide>(p.a, &p.tw, &p.tx2, &p.ty2, p.L, smem, p.n_tiles);
+  proj_ln2_walk_bf16<kWide, kPartial>(p.a, &p.tw, &p.tx2, &p.ty2, p.L, smem, p.n_tiles);
 }
 
 // fp32: one row block a block (common.cuh)
@@ -526,9 +559,10 @@ template <bool kHeadMajor>
 __global__ void __launch_bounds__(kThreads)
 ln_qkv_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
               const float* __restrict__ bqkv, const float* __restrict__ ln1s,
-              const float* __restrict__ ln1b, float* __restrict__ qkv, int M, int C, float eps) {
+              const float* __restrict__ ln1b, float* __restrict__ qkv, int M, int C, int heads,
+              float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  ln_qkv_tile<kHeadMajor>(x, wqkv, bqkv, ln1s, ln1b, qkv, M, C, eps, smem, blockIdx.x);
+  ln_qkv_tile<kHeadMajor>(x, wqkv, bqkv, ln1s, ln1b, qkv, M, C, heads, eps, smem, blockIdx.x);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -542,6 +576,13 @@ proj_ln2_kernel(const float* __restrict__ o, const float* __restrict__ x,
                 with_y2);
 }
 
+__global__ void __launch_bounds__(kThreads)
+proj_partial_kernel(const float* __restrict__ o, const float* __restrict__ wp,
+                    float* __restrict__ part, int M, int K, int C) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  proj_partial_tile(o, wp, part, M, K, C, smem, blockIdx.x);
+}
+
 // The shapes the stage's GEMM steps take in T (the bf16 walks: 128-column
 // output blocks, C / 2 a warpgroup; head_dim 64 in both).
 template <typename T>
@@ -550,21 +591,24 @@ inline bool stage_shape_ok(int C) {
   return C % 64 == 0 && C <= 1024 && C > 0;
 }
 
-// qkv = LN1(x) @ Wqkv + bqkv over M token rows (kHeadMajor: Wqkv (h, C, 3d),
-// bqkv (h, 3d), qkv (h, M, 3d)). Returns 0, a cudaError_t or kNoTensorMap.
+// qkv = LN1(x) @ Wqkv + bqkv over M token rows, `heads` heads (C /
+// kHeadDim, or a tensor-parallel rank's share: Wqkv (C, 3 * heads * 64),
+// packed only) (kHeadMajor: Wqkv (h, C, 3d), bqkv (h, 3d), qkv (h, M, 3d)).
+// Returns 0, a cudaError_t or kNoTensorMap.
 template <typename T, bool kHeadMajor>
 int launch_ln_qkv(const T* x, const T* wqkv, const float* bqkv, const float* ln1s,
-                  const float* ln1b, T* qkv, int M, int C, float eps, cudaStream_t stream) {
+                  const float* ln1b, T* qkv, int M, int C, int heads, float eps,
+                  cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
     QkvParams p{};
-    const int heads = C / kHeadDim, d3 = 3 * kHeadDim;
+    const int d3 = 3 * kHeadDim, n3 = heads * d3;
     const int e = kHeadMajor ? encode_weight_map(&p.tw, wqkv, heads, C, d3, kQkvSlabRows)
-                             : encode_weight_map(&p.tw, wqkv, 1, C, 3 * C, kQkvSlabRows);
+                             : encode_weight_map(&p.tw, wqkv, 1, C, n3, kQkvSlabRows);
     if (e) return e;
     if (kHeadMajor ? encode_weight_map(&p.tq, qkv, heads, M, d3, kStageRows)
-                   : encode_weight_map(&p.tq, qkv, 1, M, 3 * C, kStageRows))
+                   : encode_weight_map(&p.tq, qkv, 1, M, n3, kStageRows))
       return kNoTensorMap;
-    p.a = QkvArgs{x, bqkv, ln1s, ln1b, 0, M, C, eps};
+    p.a = QkvArgs{x, bqkv, ln1s, ln1b, 0, M, C, eps, heads};
     p.L = QkvLayout(C);
     p.n_tiles = cdiv(M, kQkvRows);
     auto kernel = &ln_qkv_walk_kernel<kHeadMajor>;
@@ -578,7 +622,7 @@ int launch_ln_qkv(const T* x, const T* wqkv, const float* bqkv, const float* ln1
         ln_qkv_kernel<kHeadMajor>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (ce != cudaSuccess) return (int)ce;
     ln_qkv_kernel<kHeadMajor><<<cdiv(M, kF32Rows), kThreads, smem, stream>>>(
-        x, wqkv, bqkv, ln1s, ln1b, qkv, M, C, eps);
+        x, wqkv, bqkv, ln1s, ln1b, qkv, M, C, heads, eps);
   }
   return (int)cudaGetLastError();
 }
@@ -597,7 +641,7 @@ int launch_proj_ln2(const T* o, const T* x, const T* wp, const float* bp, const 
     if (!e) e = encode_weight_map(&p.tx2, x2, 1, M, C, kStageRows);
     if (!e) e = encode_weight_map(&p.ty2, y2, 1, M, C, kStageRows);
     if (e) return e;
-    p.a = ProjArgs{o, x, bp, ln2s, ln2b, dp, dp_div, 0, M, C, eps, with_y2};
+    p.a = ProjArgs{o, x, bp, ln2s, ln2b, dp, dp_div, 0, M, C, eps, with_y2, C, nullptr};
     p.L = ProjLayout(C);
     p.n_tiles = cdiv(M, kStageRows);
     auto kernel = mlp_wide(C) ? &proj_ln2_walk_kernel<true> : &proj_ln2_walk_kernel<false>;
@@ -612,6 +656,36 @@ int launch_proj_ln2(const T* o, const T* x, const T* wp, const float* bp, const 
     if (ce != cudaSuccess) return (int)ce;
     proj_ln2_kernel<<<cdiv(M, kF32Rows), kThreads, smem, stream>>>(
         o, x, wp, bp, ln2s, ln2b, x2, y2, M, C, eps, dp, dp_div, with_y2);
+  }
+  return (int)cudaGetLastError();
+}
+
+// part = o @ Wp over M token rows, raw in fp32 (M, C): a tensor-parallel
+// rank's share of the projection, o (M, K) its K = C / tp attention channels
+// and Wp (K, C) its rows. Returns 0, a cudaError_t or kNoTensorMap.
+template <typename T>
+int launch_proj_partial(const T* o, const T* wp, float* part, int M, int K, int C,
+                        cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    ProjParams p{};
+    const int e = encode_weight_map(&p.tw, wp, 1, K, C, kProjSlabRows);
+    if (e) return e;
+    p.a = ProjArgs{o, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 0, M, C, 0.f, false, K,
+                   part};
+    p.L = ProjLayout(C);
+    p.n_tiles = cdiv(M, kStageRows);
+    auto kernel =
+        mlp_wide(C) ? &proj_ln2_walk_kernel<true, true> : &proj_ln2_walk_kernel<false, true>;
+    int blocks = 0;
+    const cudaError_t ce = persistent_grid(kernel, (int)p.L.total, p.n_tiles, &blocks);
+    if (ce != cudaSuccess) return (int)ce;
+    kernel<<<blocks, kThreads, p.L.total, stream>>>(p);
+  } else {
+    const size_t smem = proj_partial_smem(K, C);
+    const cudaError_t ce = cudaFuncSetAttribute(
+        proj_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (ce != cudaSuccess) return (int)ce;
+    proj_partial_kernel<<<cdiv(M, kF32Rows), kThreads, smem, stream>>>(o, wp, part, M, K, C);
   }
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,13 @@ relayout of MixSTE rides the output write (fuse levels 3 and 4).
 `mlp_block` is the counterpart of `mlp_block_p`: the same function on
 (R, C) token rows, written row for row (fuse levels 1 and 2).
 
+`mlp_block_partial` is the tensor-parallel partial form of both (K2/K5-tp):
+on a rank holding H / tp of the hidden units (its columns of fc1 and rows
+of fc2, `parallel.mesh.shard_params`) it returns the raw fp32 fc2 product
+of (R, C) rows, with no fc2 bias, residual, LayerNorm or transpose; the
+ranks' products are summed and `ops.residual_ln` finishes the half, in
+either layout.
+
 `mlp_block_t_dp` and `mlp_block_dp` are `mlp_block_t_dp_p` and
 `mlp_block_dp_p`: the branch, fc2's bias included, scaled by a DropPath
 scale in fp32 before the residual add, one per (b, i) of (B, D1) or one
@@ -55,6 +62,9 @@ _FN_ROWS = {torch.bfloat16: "d3dp_mlp_block_bf16", torch.float32: "d3dp_mlp_bloc
 _FN_T_DP = {torch.bfloat16: "d3dp_mlp_block_t_dp_bf16",
             torch.float32: "d3dp_mlp_block_t_dp_f32"}
 _FN_ROWS_DP = {torch.bfloat16: "d3dp_mlp_block_dp_bf16", torch.float32: "d3dp_mlp_block_dp_f32"}
+_SIG_PART = [_P] * 5 + [_I] * 4 + [_P]
+_FN_PART = {torch.bfloat16: "d3dp_mlp_block_partial_bf16",
+            torch.float32: "d3dp_mlp_block_partial_f32"}
 
 
 # the activations of D3DP_MLP_VARIANT (kGelu* in csrc/mlp.cuh)
@@ -180,7 +190,7 @@ def _launch(what, fns, sigs, x, res, w1, b1, w2, b2, ln_s, ln_b, eps, out_shape,
 
 # every entry point of the library, for its one load
 _SIGS = ((_FN_T, _SIG_T), (_FN_ROWS, _SIG_ROWS), (_FN_T_DP, _SIG_T_DP),
-         (_FN_ROWS_DP, _SIG_ROWS_DP))
+         (_FN_ROWS_DP, _SIG_ROWS_DP), (_FN_PART, _SIG_PART))
 
 
 def mlp_block_t(x, res, w1, b1, w2, b2, ln_s, ln_b, eps):
@@ -241,6 +251,47 @@ mlp_block_t.launches = 0
 mlp_block_t_dp.launches = 0
 mlp_block.launches = 0
 mlp_block_dp.launches = 0
+
+
+def mlp_block_partial_plain(x, w1, b1, w2, gelu=GELU_ERF):
+    """Plain torch ops of K2/K5-tp in the TPU kernels' order: h = act(x W1
+    + b1) in fp32, rounded to the compute dtype, then h W2 -> fp32; x (R,
+    C), w1 (C, H), b1 (H,), w2 (H, C) with H a rank's share."""
+    h = _activation(_mm(x, w1) + b1.float(), gelu)
+    return _mm(h.to(x.dtype), w2)
+
+
+def mlp_block_partial(x, w1, b1, w2):
+    """K2/K5-tp: a tensor-parallel rank's share of the MLP half on (R, C)
+    rows, its fp32 (R, C) fc2 product; see the module docstring."""
+    gelu = gelu_mode(x.dtype)
+    if x.device.type == "cpu":
+        return mlp_block_partial_plain(x, w1, b1, w2, gelu)
+    if x.device.type != "cuda":
+        raise ValueError(f"mlp_block_partial: unsupported device {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"x must be (R, C), got {tuple(x.shape)}")
+    R, C = x.shape
+    H = w1.shape[-1]
+    dt, dev, f32 = x.dtype, x.device, torch.float32
+    if dt not in _FN_PART:
+        raise ValueError(f"mlp_block_partial: unsupported dtype {dt}")
+    check_shape("mlp_block_partial", C, H, dt)
+    for t, name, dtype, shape in ((x, "x", dt, (R, C)), (w1, "w1", dt, (C, H)),
+                                  (b1, "b1", f32, (H,)), (w2, "w2", dt, (H, C))):
+        _build.check_operand(t, name, dtype, shape, dev)
+    part = torch.empty((R, C), dtype=f32, device=dev)
+    lib = _build.load("mlp_block_t", {fn: sig for fns_, sig in _SIGS for fn in fns_.values()})
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, _FN_PART[dt])(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                                         w2.data_ptr(), part.data_ptr(), R, C, H, gelu, stream)
+    _build.check(err, "mlp_block_partial")
+    mlp_block_partial.launches += 1
+    return part
+
+
+mlp_block_partial.launches = 0
 
 
 # ------------------------------------------------------------ training

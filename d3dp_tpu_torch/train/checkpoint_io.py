@@ -8,11 +8,15 @@ diffusion-wrapper prefixes) under `model_pos`, the AdamW state_dict under
 `optimizer`, and the training generator's np.random.RandomState under
 `random_state`. `load_any` also reads an original `.bin`.
 
-Under a data-parallel process group every rank calls `save_checkpoint`
-and only rank 0 writes (the ranks' weights are equal), the others waiting
-at a barrier until the file is in place; every rank loads on resume. The
-keys are the model's own, with no `module.` prefix, so a checkpoint moves
-between runs on any number of ranks.
+Under a process group every rank calls `save_checkpoint` and only rank 0
+writes (the ranks' weights are equal), the others waiting at a barrier
+until the file is in place; every rank loads on resume. The keys are the
+model's own, with no `module.` prefix. Under tensor parallelism
+(`parallel.mesh.shard_params`) the split parameters and their AdamW
+moments (`exp_avg`, `exp_avg_sq`) are gathered over the tp group into the
+whole tensors first, and `shard_checkpoint` slices a loaded checkpoint for
+a rank, so a checkpoint moves between runs on any number of ranks and any
+(dp, tp) layout.
 
 A checkpoint holds pickled Python objects (the RandomState), as the
 original's does, so it is loaded with `weights_only=False`: load only
@@ -26,24 +30,68 @@ import re
 import torch
 import torch.distributed as dist
 
-from d3dp_tpu_torch.parallel.mesh import process_index
+from d3dp_tpu_torch.parallel.mesh import (
+    gather_params,
+    gather_tensor,
+    mixste_param_spec,
+    process_index,
+    shard_tensor,
+    split_state_dict,
+)
 from d3dp_tpu_torch.train.convert import load_reference_checkpoint
 
 _PREFIXES = ("module.", "pose_estimator.")
+
+
+def _moments(opt_state, model, fn):
+    """The AdamW state_dict with fn(name, spec, tensor) applied to each
+    parameter's `exp_avg` and `exp_avg_sq` (its keys are the parameters'
+    positions in model.parameters(), the optimizer's one group)."""
+    names = [n for n, _ in model.named_parameters()]
+    spec = mixste_param_spec(dict(model.named_parameters()))
+    state = {}
+    for i, st in opt_state["state"].items():
+        st = dict(st)
+        for k in ("exp_avg", "exp_avg_sq"):
+            if k in st:
+                st[k] = fn(names[i], spec[names[i]], st[k])
+        state[i] = st
+    return dict(opt_state, state=state)
+
+
+def shard_checkpoint(ckpt, model):
+    """A `load_any` checkpoint for a model that `shard_params` split: the
+    weights and the AdamW moments sliced to its rank; unchanged for an
+    unsplit model."""
+    tp = model.tp
+    if tp is None:
+        return ckpt
+    out = dict(ckpt, model=split_state_dict(ckpt["model"], tp.size, tp.index))
+    if ckpt.get("optimizer") is not None:
+        out["optimizer"] = _moments(ckpt["optimizer"], model, lambda n, spec, t: shard_tensor(
+            n, t, spec, tp.size, tp.index).contiguous())
+    return out
 
 
 def save_checkpoint(path, *, epoch, lr, model, optimizer=None, generator_random_state=None,
                     min_loss=None):
     """Write the payload to `path + ".tmp"`, then rename it over `path`, so
     an interrupted save never leaves a truncated checkpoint. Rank 0 writes;
-    under a process group every rank waits at a barrier until it has."""
+    under a process group every rank waits at a barrier until it has. A
+    split model's weights and moments are gathered over its tp group first
+    (every rank takes part)."""
+    model_pos = gather_params(model)
+    opt_state = None if optimizer is None else optimizer.state_dict()
+    if opt_state is not None and model.tp is not None:
+        opt_state = _moments(opt_state, model, lambda n, spec, t: gather_tensor(
+            n, t, spec, model.tp))
     if process_index() == 0:
         payload = {
             "epoch": epoch,
             "lr": lr,
             "random_state": generator_random_state,
-            "optimizer": None if optimizer is None else optimizer.state_dict(),
-            "model_pos": model.state_dict(),
+            "optimizer": opt_state,
+            "model_pos": model_pos,
             "min_loss": min_loss,
         }
         tmp = path + ".tmp"

@@ -65,6 +65,14 @@ def make_train_step(d3dp, optimizer, root_joint=0, mesh=None):
     rank 0's) and stay equal: each applies the same gradients. The wrapper
     runs `d3dp.model` itself, so the sampler and its weight cache read the
     trained parameters as they do on one device.
+
+    Under a mesh with tp > 1 (`d3dp.model` split by `parallel.mesh.
+    shard_params` first) the ranks of a tp group take the same rows and
+    draws; data parallelism runs over the dp group alone (the wrapper over
+    `mesh.dp_group`, none at dp 1), the loss scaled by dp and summed over
+    that group. The gradients of the replicated parameters come out equal
+    across a tp group by construction (`parallel.tp`), so its ranks apply
+    the same updates to them.
     """
     if mesh is not None:
         return _make_dp_step(d3dp, optimizer, root_joint, mesh)
@@ -88,7 +96,7 @@ def make_train_step(d3dp, optimizer, root_joint=0, mesh=None):
 
 def _make_dp_step(d3dp, optimizer, root_joint, mesh):
     dev = d3dp.device
-    ddp = DistributedDataParallel(d3dp.model)
+    ddp = DistributedDataParallel(d3dp.model, process_group=mesh.dp_group) if mesh.dp > 1 else None
     dropping = d3dp.cfg.model.drop_path_rate > 0
 
     def step(x2d, x3d, weights, generator=None, t_noise_override=None):
@@ -116,10 +124,10 @@ def _make_dp_step(d3dp, optimizer, root_joint, mesh):
         total = torch.full((), float(w_global.sum()), device=dev)
         loss = weighted_mpjpe(pred, x3d, w_global[rows].to(dev), total=total)
         optimizer.zero_grad(set_to_none=True)
-        (loss * mesh.size).backward()
+        (loss * mesh.dp).backward()
         optimizer.step()
         loss = loss.detach().clone()
-        dist.all_reduce(loss)
+        dist.all_reduce(loss, group=mesh.dp_group)
         return loss
 
     return step

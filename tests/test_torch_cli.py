@@ -54,7 +54,7 @@ def test_parse_args_gives_jax_namespace(argv):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--tp", "2"], ["--input-pipeline", "grain"], ["--ckpt-format", "orbax"],
+    ["--input-pipeline", "grain"], ["--ckpt-format", "orbax"],
 ])
 def test_flags_not_ported_raise(flag, capsys):
     with pytest.raises(SystemExit):
@@ -65,10 +65,12 @@ def test_flags_not_ported_raise(flag, capsys):
 @pytest.mark.parametrize("flag", [
     ["--dp", "2"], ["--multihost"], ["--coordinator-address", "localhost:1234"],
     ["--coordinator-address", "localhost:1234", "--num-hosts", "2", "--host-id", "1"],
+    ["--tp", "2"], ["--dp", "2", "--tp", "2"],
 ])
 def test_parallel_flags_give_jax_namespace(flag):
-    """The data-parallel and multi-host flags parse as the JAX package's
-    (their runs: tests/test_torch_cli_dp.py)."""
+    """The data-parallel, tensor-parallel and multi-host flags parse as the
+    JAX package's (their runs: tests/test_torch_cli_dp.py,
+    tests/test_torch_cli_tp.py)."""
     assert vars(tparse(SMALL + flag)) == vars(jparse(SMALL + flag))
 
 

@@ -977,3 +977,54 @@ def test_resident_depth_2_at_3dhp_rows_equals_level_4_kernels(np_rng, dtype):
     torch.cuda.synchronize()
     assert tres.resident_block_stack.launches == n0 + 1
     assert torch.equal(got, want)
+
+
+def _rank_share(n_parts, width, tp, j):
+    """Indices of rank j's share of an axis of n_parts parts of `width`."""
+    per = width // tp
+    return torch.cat([torch.arange(p * width + j * per, p * width + (j + 1) * per)
+                      for p in range(n_parts)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("R,N", [(64, 17), (6, 243), (3, 1)])
+def test_tp_partial_forms_match_plain(np_rng, dtype, tp, R, N):
+    """The tensor-parallel forms on each rank's share at C=512, 8 heads:
+    K1-tp, K6-tp and K2/K5-tp against their plain versions (fp32 outputs,
+    so the bf16 ulp term is that of fp32 values), and residual_ln in both
+    layouts against its plain version."""
+    from d3dp_tpu_torch.ops import residual_ln as trl
+
+    dev = _cuda()
+    C, heads, H = 512, 8, 1024
+    a = _t(_stage_inputs(np_rng, R, N, C), dev, dtype)
+    m = _t(_mlp_inputs(np_rng, R, N, 1, C, H), dev, dtype)
+    qkv = torch.from_numpy(np_rng.randn(R, N, 3 * C).astype(np.float32)).to(dev, dtype)
+    for j in range(tp):
+        qi = _rank_share(3, C, tp, j).to(dev)
+        cs, hs = _rank_share(1, C, tp, j).to(dev), _rank_share(1, H, tp, j).to(dev)
+        stage = (a[0], a[1][:, qi].contiguous(), a[2][qi].contiguous(), a[5], a[6],
+                 a[3][cs].contiguous())
+        block = (qkv[..., qi].contiguous(), a[3][cs].contiguous())
+        mlp = (m[0].reshape(-1, C), m[2][:, hs].contiguous(), m[3][hs].contiguous(),
+               m[4][hs].contiguous())
+        for got, want in (
+                (tattn.attention_stage_partial(*stage, heads // tp, 0.125, 1e-6),
+                 tattn.attention_stage_partial_plain(*stage, heads // tp, 0.125, 1e-6)),
+                (tattn.attention_block_partial(*block, heads // tp, 0.125),
+                 tattn.attention_block_partial_plain(*block, heads // tp, 0.125)),
+                (tmlp.mlp_block_partial(*mlp), tmlp.mlp_block_partial_plain(*mlp))):
+            torch.cuda.synchronize()
+            assert got.dtype == torch.float32 and got.shape == want.shape
+            assert _excess(got, want, dtype) <= 0
+    part = torch.from_numpy(np_rng.randn(R, N, 1, C).astype(np.float32)).to(dev)
+    for transpose in (False, True):
+        args = (m[1], part, m[5], m[6], m[7], 1e-6)
+        got = trl.residual_ln(*args, transpose=transpose)
+        want = trl.residual_ln_plain(*args, transpose=transpose)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            assert _excess(g, w, dtype) <= 0

@@ -57,7 +57,8 @@ def test_package_mirrors_layout():
               "eval.aggregation", "eval.evaluator_3dhp", "cli.main_3dhp",
               "viz.visualization", "in_the_wild.inference", "cli.render", "cli.main_draw",
               "cli.main_in_the_wild", "parallel.mesh", "parallel.multihost",
-              "utils.misc", "utils.logging", "utils.profiling"):
+              "parallel.tp", "ops.residual_ln", "utils.misc", "utils.logging",
+              "utils.profiling"):
         assert f"d3dp_tpu_torch.{m}" in _modules(), m
 
 
@@ -97,11 +98,13 @@ ptxas info    : Function properties for _Z1cv
 
 
 def test_train_modules_import_no_jax():
-    """The training slice's modules, imported alone, pull in no JAX."""
+    """The training slice's modules, with the tensor-parallel ones, imported
+    alone, pull in no JAX."""
     code = (
         "import sys\n"
         "import d3dp_tpu_torch.train.state, d3dp_tpu_torch.ops.attention\n"
         "import d3dp_tpu_torch.data.generators\n"
+        "import d3dp_tpu_torch.parallel.tp, d3dp_tpu_torch.ops.residual_ln\n"
         "from d3dp_tpu_torch.ops.attention import fused_attention_qkv_ad\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'd3dp_tpu')]\n"

@@ -1,10 +1,13 @@
-"""Data-parallel runs of the port for tests/test_torch_parallel.py and
-tests/test_torch_cli_dp.py: the ranks' side, imported by the spawned rank
-processes, so it imports torch and the port only (no JAX).
+"""Data- and tensor-parallel runs of the port for
+tests/test_torch_parallel.py and tests/test_torch_tp.py: the ranks' side,
+imported by the spawned rank processes, so it imports torch and the port
+only (no JAX).
 
 `run_tasks(inputs, mesh)` runs every task on one rank of `mesh`, or on one
-device with mesh=None (the port's dp=1 reference), and returns numpy
-results; `rank_main(inputs_path, out_dir)` is the spawned ranks' entry.
+device with mesh=None (the port's one-process reference), and returns
+numpy results (parameters whole, gathered over a tp group);
+`rank_main(inputs_path, out_dir, dp, tp)` is the spawned ranks' entry.
+`inputs["cfg"]`, where given, replaces the model config CFG.
 """
 
 import os
@@ -17,7 +20,7 @@ from d3dp_tpu_torch.data.windowing import sample_windows
 from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
 from d3dp_tpu_torch.eval import Evaluator, Evaluator3DHP
 from d3dp_tpu_torch.models import MixSTEConfig
-from d3dp_tpu_torch.parallel import make_mesh, shard_batch_fn
+from d3dp_tpu_torch.parallel import gather_params, make_mesh, shard_batch_fn, shard_model_params
 from d3dp_tpu_torch.train import checkpoint_io
 from d3dp_tpu_torch.train.state import make_optimizer, make_train_step
 
@@ -38,11 +41,13 @@ def provider(seed, n_h, n_k, bs):
     return fn
 
 
-def d3dp(inputs, drop_path_rate=0.0, **kw):
-    """The port's D3DP on the CPU with the inputs' weights."""
-    cfg = MixSTEConfig(**CFG, drop_path_rate=drop_path_rate)
+def d3dp(inputs, drop_path_rate=0.0, mesh=None, **kw):
+    """The port's D3DP on the CPU with the inputs' weights, split over the
+    mesh's tp ranks (`shard_model_params`)."""
+    cfg = MixSTEConfig(**inputs.get("cfg", CFG), drop_path_rate=drop_path_rate)
     out = D3DP(D3DPConfig(model=cfg, **kw), device="cpu")
     out.model.load_state_dict(inputs["state_dict"])
+    shard_model_params(out.model, mesh)
     return out
 
 
@@ -52,7 +57,7 @@ def _train(inputs, mesh):
     DropPath masks are drawn for the padded batch, as under dp=2); the
     loss and the parameters after each step, and a checkpoint of the
     result with the number of writes this rank made."""
-    td = d3dp(inputs, drop_path_rate=0.1)
+    td = d3dp(inputs, drop_path_rate=0.1, mesh=mesh)
     opt = make_optimizer(td.model.parameters(), LR_TRAIN)
     step = make_train_step(td, opt, mesh=mesh)
     g = torch.Generator().manual_seed(inputs["train_seed"])
@@ -67,7 +72,7 @@ def _train(inputs, mesh):
                           for a in batch)
         _, b3, b2, bw = batch
         losses.append(float(step(b2, b3, bw, generator=g, t_noise_override=(t, noise))))
-        params.append({n: p.detach().numpy().copy() for n, p in td.model.named_parameters()})
+        params.append({n: p.numpy().copy() for n, p in gather_params(td.model).items()})
     writes = []
     save = torch.save
     try:
@@ -84,7 +89,7 @@ def _evaluate(inputs, mesh):
     prediction return of the first sequence."""
     lr = dict(kps_left=inputs["kps_left"], kps_right=inputs["kps_right"])
     td = d3dp(inputs, num_proposals=H, sampling_timesteps=K, joints_left=inputs["joints_left"],
-              joints_right=inputs["joints_right"])
+              joints_right=inputs["joints_right"], mesh=mesh)
     out = {}
     for name, kw in (("p2", dict(p2=True)), ("p2_device", dict(p2_device=True)),
                      ("light", dict(light=True))):
@@ -101,7 +106,7 @@ def _evaluate(inputs, mesh):
 
 def _evaluate_3dhp(inputs, mesh):
     td = d3dp(inputs, num_proposals=H, sampling_timesteps=K, joints_left=inputs["kps_3dhp"][0],
-              joints_right=inputs["kps_3dhp"][1], unit_scale=1000.0)
+              joints_right=inputs["kps_3dhp"][1], unit_scale=1000.0, mesh=mesh)
     p3, p2, valid = inputs["data_3dhp"]
     keys = list(p2)
     gen = UnchunkedGenerator(None, [p3[k] for k in keys], [p2[k] for k in keys],
@@ -114,7 +119,7 @@ def _sample_windows(inputs, mesh):
     """sample_windows with the global draws replaced by the inputs' stream
     (JAX's key-driven draws in the tests), one entry a micro-batch."""
     td = d3dp(inputs, num_proposals=H, sampling_timesteps=K, joints_left=inputs["joints_left"],
-              joints_right=inputs["joints_right"])
+              joints_right=inputs["joints_right"], mesh=mesh)
     draws = iter(inputs["window_noise"])
     td.sample_noise = lambda B, generator: tuple(torch.from_numpy(a) for a in next(draws))
     w2d, w2d_f, bs = inputs["windows"]
@@ -130,11 +135,13 @@ def run_tasks(inputs, mesh=None):
                 sample_windows=None if mesh is None else _sample_windows(inputs, mesh))
 
 
-def rank_main(inputs_path, out_dir):
-    """One spawned rank: a CPU mesh over the process group, every task,
-    the results into out_dir/rank<r>.pt."""
+def rank_main(inputs_path, out_dir, dp=2, tp=1, tasks=run_tasks):
+    """One spawned rank: a (dp, tp) CPU mesh over the process group,
+    `tasks(inputs, mesh)` (every task by default), the results into
+    out_dir/rank<r>.pt; the checkpoint to out_dir/dp<dp>[tp<tp>].ckpt."""
     inputs = torch.load(inputs_path, weights_only=False)
-    mesh = make_mesh(dp=2, devices=["cpu", "cpu"])
-    inputs = dict(inputs, ckpt_path=os.path.join(out_dir, "dp2.ckpt"))
-    out = run_tasks(inputs, mesh)
+    mesh = make_mesh(dp=dp, tp=tp, devices=["cpu"] * (dp * tp))
+    name = f"dp{dp}" + (f"tp{tp}" if tp > 1 else "")
+    inputs = dict(inputs, ckpt_path=os.path.join(out_dir, f"{name}.ckpt"))
+    out = tasks(inputs, mesh)
     torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
