@@ -2,6 +2,7 @@
 """Smoke run of the d3dp_tpu_torch port on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --tp-depth 4   # only the tp rounding probe below
 
 Builds the hand-written kernels from `d3dp_tpu_torch/ops/csrc/`, holds each
 against its plain torch version on the card (the stage kernels also at
@@ -59,24 +60,41 @@ random weights from a fixed seed:
     bias, whose exact gradient is zero), with exact launch counts a rank; a world
     of one over NCCL equal to the run without a mesh; NCCL over two cards
     where the box has them; K1, K2 and K9 at a rank's 20 rows;
+  * the host side of training (phase host): the native chunk assembler
+    (asserted to run, timed a batch against numpy), and the command line
+    with `--ckpt-format orbax --input-pipeline grain` (a training epoch
+    against the default flags' and a resumed epoch);
   * tensor-parallel evaluation and training (phase tp, `--tp`): the partial
-    forms of the stage, block and MLP kernels and the residual-LayerNorm
-    epilogue against their plain versions at tp 2 and 4, their sums over
-    the ranks against the whole kernels, each timed at a rank's rows; two
-    ranks at tp=2 sharing the card over gloo evaluate one Eval-config
-    window at fuse levels 2-5 (level 5 on the gathered weights, equal to
-    one process bit for bit) and train 3 steps (fp32 and bf16) against one
-    process, with exact launch counts a rank;
+    forms of the stage (K1-tp and the head-major K8-tp), block and MLP
+    kernels and the residual-LayerNorm epilogue (with and without its
+    DropPath scale) against their plain versions at tp 2 and 4, their sums
+    over the ranks against the whole kernels (K1-dp, K2-dp and K5-dp
+    through the DropPath form), each timed at a rank's rows; two ranks at
+    tp=2 sharing the card over gloo evaluate one Eval-config window at
+    fuse levels 2-5 (level 5 on the gathered weights, equal to one process
+    bit for bit) and at bf16 level 4 under `D3DP_ATTN_VARIANT=hmqkv`
+    (equal to level 4 bit for bit), train 3
+    steps (fp32 and bf16) and 2 `D3DP_TRAIN_FUSED=1` steps (level 4,
+    DropPath 0.1) against one process, with exact launch counts a rank;
 and times them. The stage, MLP and trunk kernels are also held against
 their plain versions at the 3DHP evaluation's 80 hypothesis rows. Every phase raises on failure; the script exits non-zero
 without a CUDA device and prints nothing then but the reason. The last
 stdout line is the run's JSON status; the line before it the per-kernel
 JSON. Details also go to `chiprun_out/chip_smoke.json`, and the command
 lines' own output to `chiprun_out/chip_smoke_cli.log`,
-`chiprun_out/chip_smoke_cli_3dhp.log` and `chiprun_out/chip_smoke_wild.log`.
+`chiprun_out/chip_smoke_host.log`, `chiprun_out/chip_smoke_cli_3dhp.log` and
+`chiprun_out/chip_smoke_wild.log`.
 Phase dp's and phase tp's per-rank launch counts are `{"dp_launches": ...}`
 and `{"tp_launches": ...}` lines of their own, before the last two lines.
+
+`--tp-depth N` runs only a probe of the tensor-parallel rounding: phase
+tp's fp32 level-4 evaluation, with and without hmqkv, at depth N on two
+ranks over gloo against one process, printing the four modes' gap beside
+phase tp's tolerance (TP_MODE_TOL + TP_MODE_REL of the mode) and whether
+the hmqkv prediction equals the one without it.
 """
+
+import argparse
 
 import contextlib
 import dataclasses
@@ -176,6 +194,21 @@ def max_err(torch, got, want, ulp_rel):
     return d.max().item(), (d - ulp_rel * want.float().abs()).max().item()
 
 
+class ResidualLnDp:
+    """residual_ln's DropPath launches (`residual_ln.dp_launches`, the
+    kernel's `dp` option) as an op's `.launches`."""
+
+    @property
+    def launches(self):
+        from d3dp_tpu_torch.ops.residual_ln import residual_ln
+        return residual_ln.dp_launches
+
+    @launches.setter
+    def launches(self, n):
+        from d3dp_tpu_torch.ops.residual_ln import residual_ln
+        residual_ln.dp_launches = n
+
+
 def kernel_ops():
     """{name: wrapper} of every kernel's op, each with its `.launches`."""
     from d3dp_tpu_torch.ops import attention as A
@@ -194,7 +227,9 @@ def kernel_ops():
             "mlp_block_dp": M.mlp_block_dp, "attention_stage_hm": A.attention_stage_hm,
             "attention_stage_partial": A.attention_stage_partial,
             "attention_block_partial": A.attention_block_partial,
-            "mlp_block_partial": M.mlp_block_partial, "residual_ln": residual_ln}
+            "mlp_block_partial": M.mlp_block_partial, "residual_ln": residual_ln,
+            "attention_stage_hm_partial": A.attention_stage_hm_partial,
+            "residual_ln[dp]": ResidualLnDp()}
 
 
 def reset_counts():
@@ -1269,6 +1304,115 @@ def phase_cli(torch, record):
                                           for lv in (1, 2))
     record["launches"]["attention_block"] = sum(
         out[f"eval L{lv}"]["launches"].get("attention_block", 0) for lv in (2, 3))
+
+
+def phase_host(torch, record):
+    """The host side of training (phase host): ChunkedGenerator over
+    synthetic data at the train config's batch (BT chunks of F frames)
+    takes the native (C++) chunk assembler (asserted: the box has g++), its
+    epoch byte-identical to the numpy path's, each path's ms a batch beside
+    phase train's step, and the assembler's g++ build timed; then the H36M
+    command line in process at the published width, depth cut to 2 (the
+    checkpoint a quarter of depth 8's), with `--ckpt-format orbax
+    --input-pipeline grain` (grain runs the default Prefetcher): one
+    training epoch, whose epoch_1.orbax (a DCP directory, written
+    asynchronously) loads to the weights of the same epoch run with the
+    default flags (pickle), whose training log line it repeats (losses
+    within 1e-4 relative), then `-r auto` resuming from it for a second
+    epoch, which writes epoch_2.orbax. Under log/chip_smoke_host (removed
+    afterwards); the command line's output to
+    chiprun_out/chip_smoke_host.log."""
+    import tempfile
+    from pathlib import Path
+
+    from d3dp_tpu_torch.cli import main_h36m
+    from d3dp_tpu_torch.data import native
+    from d3dp_tpu_torch.data.generators import ChunkedGenerator
+    from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT, make_dataset
+    from d3dp_tpu_torch.train import checkpoint_io
+
+    t_phase = time.perf_counter()
+    lr_kw = dict(kps_left=list(JOINTS_LEFT), kps_right=list(JOINTS_RIGHT),
+                 joints_left=list(JOINTS_LEFT), joints_right=list(JOINTS_RIGHT))
+    # 90 windows of 243 frames, twice with flip augmentation: 45 batches
+    data = make_dataset(seed=5, lengths=(6000, 4500, 7500, 3500))
+
+    def gen(use_native):
+        return ChunkedGenerator(BT, *data, F, shuffle=True, random_seed=1234, augment=True,
+                                pad_last=True, use_native=use_native, **lr_kw)
+    nat, npy = gen(True), gen(False)
+    batch_ms, epochs = {}, {}
+    for name, g in (("native", nat), ("numpy", npy)):
+        list(g.next_epoch())  # warm
+        t0 = time.perf_counter()
+        epochs[name] = list(g.next_epoch())
+        batch_ms[name] = (time.perf_counter() - t0) * 1e3 / len(epochs[name])
+    a, b = epochs["native"], epochs["numpy"]
+    same = len(a) == len(b) and all(np.asarray(x).tobytes() == np.asarray(y).tobytes()
+                                    for ba, bb in zip(a, b) for x, y in zip(ba, bb))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        native._build(Path(tmp) / "libchunk_assembler.so")
+        build_s = time.perf_counter() - t0
+    step_ms = record["train"]["step_s"] * 1e3
+    ok = nat.assembler == "native" and npy.assembler == "numpy" and same
+    log(f"[host] ChunkedGenerator (use_native=True) took the {nat.assembler} path; "
+        f"{len(a)} batches of {BT}x{F} frames, ms a batch: native {batch_ms['native']:.4f}, "
+        f"numpy {batch_ms['numpy']:.4f} (a train step, phase train: {step_ms:.1f} ms; the "
+        f"Prefetcher's worker assembles behind it); the assembler's g++ build {build_s:.2f} s; "
+        f"native and numpy byte-identical {same} {'ok' if ok else 'FAIL'}")
+    check(ok, "phase host: the native assembler did not run or the batches differ")
+
+    root = os.path.join("log", "chip_smoke_host")
+    shutil.rmtree(root, ignore_errors=True)
+    base = ["-d", "synthetic", "--nolog", "-cs", str(C), "-dep", "2", "-f", str(F),
+            "--dtype", "bfloat16", "--eval-batch-size", str(B), "--dp", "1", "-cf", "1"]
+    new = ["--ckpt-format", "orbax", "--input-pipeline", "grain"]
+    runs = (("default flags", "default", ["-e", "1"]), ("orbax + grain", "new", ["-e", "1"] + new),
+            ("orbax + grain resumed", "new", ["-e", "2", "-r", "auto"] + new))
+    out = {}
+    try:
+        with open(os.path.join("chiprun_out", "chip_smoke_host.log"), "w") as f:
+            for name, sub, extra in runs:
+                ckdir = os.path.join(root, sub)
+                os.makedirs(ckdir, exist_ok=True)
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(f):
+                    print(f"==== {name}: {' '.join(base + extra)}", flush=True)
+                    main_h36m.main(base + ["-c", ckdir] + extra)
+                torch.cuda.synchronize()
+                with open(os.path.join(ckdir, "training_log.txt")) as lf:
+                    lines = [line for line in lf.read().splitlines() if line.startswith("[")]
+                out[name] = dict(seconds=time.perf_counter() - t0, log=lines)
+        nums = [[float(v) for v in re.findall(r"(?:3d_train|3d_pos_valid) ([\d.]+)",
+                                              out[n]["log"][0])]
+                for n in ("default flags", "orbax + grain")]
+        losses_ok = len(nums[0]) == len(nums[1]) > 0 and all(
+            abs(x - y) <= 1e-4 * abs(y) for x, y in zip(*nums))
+        orbax1 = os.path.join(root, "new", "epoch_1.orbax")
+        got = checkpoint_io.load_any(orbax1)
+        want = checkpoint_io.load_any(os.path.join(root, "default", "epoch_1.ckpt"))
+        gap = max((got["model"][k].float() - v.float()).abs().max().item()
+                  for k, v in want["model"].items())
+        resumed = out["orbax + grain resumed"]["log"]
+        ok = (losses_ok and os.path.isdir(orbax1) and got["epoch"] == 1
+              and got["random_state"] is not None and got["optimizer"] is not None
+              and len(resumed) == 2 and resumed[1].startswith("[2] ")
+              and os.path.isdir(os.path.join(root, "new", "epoch_2.orbax"))
+              and not os.path.exists(os.path.join(root, "new", "epoch_2.ckpt")))
+        log(f"[host] command line --ckpt-format orbax --input-pipeline grain: epoch "
+            f"{out['orbax + grain']['seconds']:.1f} s against {out['default flags']['seconds']:.1f}"
+            f" s with the default flags; training log {out['orbax + grain']['log'][0]!r} against "
+            f"{out['default flags']['log'][0]!r} (1e-4 relative: {losses_ok}); epoch_1.orbax's "
+            f"weights against epoch_1.ckpt's max|diff| {gap:.3e}; resumed: "
+            f"{resumed[-1] if resumed else None!r} {'ok' if ok else 'FAIL'}")
+        check(ok, "phase host: the orbax/grain command line disagrees or did not resume")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    record["host"] = dict(assembler=nat.assembler, batch_ms=batch_ms, build_s=build_s,
+                          cli={k: v["seconds"] for k, v in out.items()}, weight_gap=gap,
+                          seconds=time.perf_counter() - t_phase)
+    log(f"[host] phase host: {record['host']['seconds']:.1f} s")
 
 
 def write_3dhp_annotations(directory, data, frames):
@@ -2918,14 +3062,15 @@ KEY_BIAS_ZERO = 2.0 ** -8
 BF16_LOSS_TOL = 1e-3
 
 
-def dp_train(torch, mesh, dtype):
-    """DP_STEPS train steps at the train config (DropPath 0.1, AdamW 6e-5)
+def dp_train(torch, mesh, dtype, steps=DP_STEPS):
+    """`steps` train steps at the train config (DropPath 0.1, AdamW 6e-5)
     in `dtype`, batches of BT chunks from a seeded ChunkedGenerator through
     the Prefetcher (under a mesh with `shard_batch_fn`, BT / dp chunks a
     rank), weights from seed 0 perturbed by seed 1 (then split over the
     mesh's tp ranks, phase tp). Returns (losses, the whole parameters on the
     host, seconds per step, K3 / K4 launches per step, `key_bias_grads`
-    after the first step where the model is not split, the D3DP)."""
+    after the first step where the model is not split, the D3DP); the last
+    step's launches of every kernel in `dp_train.launches`."""
     from d3dp_tpu_torch.data.generators import ChunkedGenerator
     from d3dp_tpu_torch.data.prefetch import Prefetcher
     from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT, make_dataset
@@ -2949,7 +3094,7 @@ def dp_train(torch, mesh, dtype):
                               to_device=None if mesh is None else shard_batch_fn(mesh)))
     g = torch.Generator(device=dev).manual_seed(11)
     losses, seconds, counts, key_grads = [], [], [], None
-    for _ in range(DP_STEPS):
+    for _ in range(steps):
         _, b3, b2, w = next(batches)
         reset_counts()
         torch.cuda.synchronize()
@@ -2958,6 +3103,7 @@ def dp_train(torch, mesh, dtype):
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         counts.append((A.fused_attention_qkv.launches, A.fused_attention_qkv_bwd.launches))
+        dp_train.launches = {n: c for n, c in read_counts().items() if c}
         if d3dp.model.tp is None:
             key_grads = key_grads or key_bias_grads(torch, d3dp.model)
     batches.close()
@@ -3019,14 +3165,14 @@ def dp_eval(torch, mesh):
     return out
 
 
-def dp_train_rep(torch, mesh, ref):
+def dp_train_rep(torch, mesh, ref, steps=DP_STEPS):
     """dp_train in fp32 and bf16 on `mesh`, against the one-process `ref`:
     each step's loss relative to it, and the parameters' `param_gaps` from
     it; in bf16 without the key-bias slices whose reference gradient is
     zero to rounding (KEY_BIAS_ZERO), whose own gaps are reported."""
     rep = {}
     for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        losses, params, step_s, counts, _, d3dp = dp_train(torch, mesh, dt)
+        losses, params, step_s, counts, _, d3dp = dp_train(torch, mesh, dt, steps)
         want = ref[name]
         ratios = {n: k / qv for n, (k, qv) in want["key_grads"].items()}
         left_out = sorted(n for n, r in ratios.items() if r <= KEY_BIAS_ZERO) \
@@ -3041,7 +3187,8 @@ def dp_train_rep(torch, mesh, ref):
             key_ratio_max=max(ratios.values()), left_out=len(left_out),
             key_rel_l2=max((((a - b).norm() / b.norm()).item() for a, b in key), default=0.0),
             key_max_diff=max(((a - b).abs().max().item() for a, b in key), default=0.0),
-            finite=all(bool(torch.isfinite(p).all()) for p in params.values()))
+            finite=all(bool(torch.isfinite(p).all()) for p in params.values()),
+            launches=dp_train.launches)
     return rep, d3dp
 
 
@@ -3295,12 +3442,17 @@ def tp_mlp_args(torch, a, tp, j):
 
 
 def check_tp_kernels(torch, errs):
-    """Phase tp (i): K1-tp, K6-tp, K2/K5-tp and residual_ln against their
-    plain versions, at tp 2 and 4 (4 and 2 heads a rank; 512 and 256 hidden
-    units), at the eval path's 40 rows and at token-row counts around the
-    tiles, fp32 and bf16; the ranks' partials summed and finished by
-    residual_ln against the whole K1, K6, K2 (transposed) and K5 (rows) at
-    the same bounds: fp32 1e-4, bf16 3e-2 + 1 bf16 ulp."""
+    """Phase tp (i): K1-tp, K8-tp (the head-major partial stage), K6-tp,
+    K2/K5-tp and residual_ln against their plain versions, at tp 2 and 4
+    (4 and 2 heads a rank; 512 and 256 hidden units), at the eval path's 40
+    rows and at token-row counts around the tiles, fp32 and bf16; the
+    ranks' partials summed and finished by residual_ln against the whole
+    K1, K8, K6, K2 (transposed) and K5 (rows); then residual_ln with its
+    DropPath scale (`dp`) at the train step's shapes, in its three layouts,
+    against its plain version and, after the K1-tp and K2/K5-tp partials,
+    against K1-dp, K2-dp and K5-dp; all at the same bounds: fp32 1e-4,
+    bf16 3e-2 + 1 bf16 ulp. K8-tp's partial is also compared with K1-tp's
+    bit for bit (the two load the same weight columns to the same places)."""
     from d3dp_tpu_torch.ops import attention as A
     from d3dp_tpu_torch.ops import mlp as M
     from d3dp_tpu_torch.ops import residual_ln as RL
@@ -3340,6 +3492,21 @@ def check_tp_kernels(torch, errs):
                      RL.residual_ln_plain(a[0], total, a[4], a[7], a[8], 1e-6))
                 held("attention_stage_partial", f"{tag} sum + residual_ln against K1", got,
                      A.attention_stage(*a, HEADS, scale, 1e-6))
+                hm_parts, same = [], True
+                for j in range(tp):
+                    sa = tp_stage_args(torch, a, tp, j)
+                    hm = (sa[0], *A.stack_head_major(sa[1], sa[2], heads), *sa[3:])
+                    hm_parts.append(A.attention_stage_hm_partial(*hm, heads, scale, 1e-6))
+                    held("attention_stage_hm_partial", f"{tag} rank {j}", hm_parts[-1:],
+                         (A.attention_stage_hm_partial_plain(*hm, heads, scale, 1e-6),))
+                    same = same and torch.equal(hm_parts[-1], parts[j])
+                got = RL.residual_ln(a[0], sum(hm_parts[1:], hm_parts[0]), a[4], a[7], a[8], 1e-6)
+                held("attention_stage_hm_partial", f"{tag} sum + residual_ln against K8", got,
+                     A.attention_stage_hm(a[0], *A.stack_head_major(a[1], a[2], HEADS), *a[3:],
+                                          HEADS, scale, 1e-6))
+                log(f"[tp] attention_stage_hm_partial {tag} {name_dt}: equal to K1-tp's partial "
+                    f"bit for bit {same}")
+                del hm_parts
                 b = block_inputs(torch, gen, R, N, dt)
                 parts = []
                 for j in range(tp):
@@ -3376,7 +3543,51 @@ def check_tp_kernels(torch, errs):
                                      with_x2=False),),
                      (M.mlp_block(*rows_args, 1e-6),))
                 del a, parts, total, got, rows_args
+            check_residual_ln_dp(torch, gen, held, scale, dt, tp)
     torch.cuda.synchronize()
+
+
+def check_residual_ln_dp(torch, gen, held, scale, dt, tp):
+    """residual_ln's DropPath form (`dp`) in dt at the train step's shapes
+    and at token-row counts around its 8-row blocks, after the `tp` ranks'
+    K1-tp and K2/K5-tp partials: against its plain version and against
+    K1-dp (dp (R,), one a sequence), K2-dp (transposed) and K5-dp (rows; dp
+    (rows, D1), one a (b, i), repeated over its D2 rows for K5-dp's one a
+    row); `held` holds each at phase tp's bounds."""
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import mlp as M
+    from d3dp_tpu_torch.ops import residual_ln as RL
+
+    heads = HEADS // tp
+    for label, R, N in TRAIN_SHAPES + tuple((f"edge ({r}, {n})", r, n) for r, n in TP_EDGES):
+        tag = f"tp {tp} train {label} x({R}, {N}, {C}) dp ({R},)"
+        a = stage_inputs(torch, gen, R, N, dt)
+        dp = dp_scales(torch, gen, (R,))
+        total = sum(A.attention_stage_partial(*tp_stage_args(torch, a, tp, j), heads, scale, 1e-6)
+                    for j in range(tp))
+        got = RL.residual_ln(a[0], total, a[4], a[7], a[8], 1e-6, dp=dp)
+        held("residual_ln[dp]", f"{tag} attention half", got,
+             RL.residual_ln_plain(a[0], total, a[4], a[7], a[8], 1e-6, dp=dp))
+        held("residual_ln[dp]", f"{tag} sum + residual_ln against K1-dp", got,
+             A.attention_stage_dp(*a, dp, HEADS, scale, 1e-6))
+    for label, rows, D1, D2 in (("spatial->temporal", BT, F, J), ("temporal->spatial", BT, J, F)) \
+            + tuple((f"edge {(r, d1, d2)}", r, d1, d2) for r, d1, d2 in TP_MLP_EDGES):
+        tag = f"tp {tp} train {label} x({rows}, {D1}, {D2}, {C}) dp ({rows}, {D1})"
+        a = mlp_inputs(torch, gen, D1, D2, dt, rows=rows)
+        dp = dp_scales(torch, gen, (rows, D1))
+        total = sum(M.mlp_block_partial(*tp_mlp_args(torch, a, tp, j))
+                    for j in range(tp)).view(a[1].shape)
+        rows = [t.reshape(-1, C) for t in a[:2]] + a[2:]
+        for transpose, what, ref, want in (
+                (True, "MLP half, transposed", "K2-dp", M.mlp_block_t_dp(*a, dp, 1e-6)),
+                (False, "MLP half, rows", "K5-dp", M.mlp_block_dp(
+                    *rows, dp.repeat_interleave(D2, dim=1).reshape(-1), 1e-6).view(a[1].shape))):
+            got = RL.residual_ln(a[1], total, *a[5:], 1e-6, with_x2=False, transpose=transpose,
+                                 dp=dp)
+            held("residual_ln[dp]", f"{tag} {what}", (got,),
+                 (RL.residual_ln_plain(a[1], total, *a[5:], 1e-6, with_x2=False,
+                                       transpose=transpose, dp=dp),))
+            held("residual_ln[dp]", f"{tag} sum + residual_ln against {ref}", (got,), (want,))
 
 
 def library_stage_partial(torch, Fn, heads):
@@ -3394,9 +3605,11 @@ def library_stage_partial(torch, Fn, heads):
 
 def tp_kernel_rows(torch, Fn, rows=TP_ROWS, tp=TP):
     """Phase tp (iv): each new form timed (bf16, CUDA events) at a rank's
-    shapes on phase tp's path (`rows` hypothesis rows, `tp` ranks), beside
-    the whole kernel at the same rows, its plain version, one library
-    sequence for the same work and its bound."""
+    shapes on phase tp's path (`rows` hypothesis rows, `tp` ranks; K8-tp
+    with the K1-tp row's work and library sequence; residual_ln's DropPath
+    form at the train step's shapes, where the train-fused tp step runs
+    it), beside the whole kernel at the same rows, its plain version, one
+    library sequence for the same work and its bound."""
     from d3dp_tpu_torch.ops import attention as A
     from d3dp_tpu_torch.ops import mlp as M
     from d3dp_tpu_torch.ops import residual_ln as RL
@@ -3449,7 +3662,51 @@ def tp_kernel_rows(torch, Fn, rows=TP_ROWS, tp=TP):
             plain_ms=time_ms(torch, lambda: A.attention_block_partial_plain(
                 qkv_j, wp_j, heads, scale), reps=3),
             library_ms=time_ms(torch, lib_block, reps=10))
-        del a, sa, lib_args, part, rl, b, qkv_j, wp_j, wp_t
+        hm = (sa[0], *A.stack_head_major(sa[1], sa[2], heads), *sa[3:])
+        whole_hm = (a[0], *A.stack_head_major(a[1], a[2], HEADS), *a[3:])
+        out[f"attention_stage_hm_partial/{label}"] = dict(
+            out[f"attention_stage_partial/{label}"],
+            ms=time_ms(torch, lambda: A.attention_stage_hm_partial(*hm, heads, scale, 1e-6),
+                       reps=10),
+            whole_ms=time_ms(torch, lambda: A.attention_stage_hm(*whole_hm, HEADS, scale, 1e-6),
+                             reps=10),
+            plain_ms=time_ms(torch, lambda: A.attention_stage_hm_partial_plain(
+                *hm, heads, scale, 1e-6), reps=3))
+        del a, sa, lib_args, part, rl, b, qkv_j, wp_j, wp_t, hm, whole_hm
+    # the DropPath form of residual_ln at the train step's shapes (the
+    # D3DP_TRAIN_FUSED=1 step under tp runs it; every row on every rank)
+    for label, R, N in TRAIN_SHAPES:
+        T = R * N
+        a = stage_inputs(torch, gen, R, N, bf)
+        part = torch.randn(R, N, C, generator=gen, device="cuda")
+        dp = dp_scales(torch, gen, (R,))
+        rl = (a[0], part, a[4], a[7], a[8], 1e-6)
+        out[f"residual_ln[dp]/train {label} attention half"] = dict(
+            shape=list(a[0].shape), tp=tp, flops=11 * T * C,
+            bytes=T * C * (2 + 4 + 2 + 2) + 3 * C * 4 + R * 4,
+            ms=time_ms(torch, lambda: RL.residual_ln(*rl, dp=dp), reps=10),
+            plain_ms=time_ms(torch, lambda: RL.residual_ln_plain(*rl, dp=dp), reps=3),
+            library_ms=time_ms(torch, lambda: Fn.layer_norm(
+                a[0].float() + dp[:, None, None] * (part + a[4]), (C,), a[7], a[8], 1e-6),
+                reps=10))
+        del a, part, dp, rl
+    for label, D1, D2 in (("spatial->temporal", F, J), ("temporal->spatial", J, F)):
+        a = mlp_inputs(torch, gen, D1, D2, bf, rows=BT)
+        part = torch.randn(a[1].shape, generator=gen, device="cuda")
+        dp = dp_scales(torch, gen, (BT, D1))
+        T = BT * D1 * D2
+        rl = (a[1], part, *a[5:], 1e-6)
+        out[f"residual_ln[dp]/train {label} MLP half"] = dict(
+            shape=list(a[1].shape), tp=tp, flops=11 * T * C,
+            bytes=T * C * (2 + 4 + 2) + 3 * C * 4 + BT * D1 * 4,
+            ms=time_ms(torch, lambda: RL.residual_ln(*rl, with_x2=False, transpose=True, dp=dp),
+                       reps=10),
+            plain_ms=time_ms(torch, lambda: RL.residual_ln_plain(
+                *rl, with_x2=False, transpose=True, dp=dp), reps=3),
+            library_ms=time_ms(torch, lambda: Fn.layer_norm(
+                a[1].float() + dp[:, :, None, None] * (part + a[5]), (C,), a[6], a[7],
+                1e-6).transpose(1, 2).contiguous(), reps=10))
+        del a, part, dp, rl
     for label, D1, D2 in (("spatial->temporal", F, J), ("temporal->spatial", J, F)):
         T = rows * D1 * D2
         a = mlp_inputs(torch, gen, D1, D2, bf, rows=rows)
@@ -3488,12 +3745,13 @@ def tp_kernel_rows(torch, Fn, rows=TP_ROWS, tp=TP):
     return out
 
 
-def tp_eval(torch, mesh, dtype, levels):
+def tp_eval(torch, mesh, dtype, levels, depth=DEPTH):
     """The Eval config (H=5, K=5, flip-TTA) on one micro-batch of TP_WINDOWS
     windows of a synthetic sequence through the Evaluator at each fuse
-    level, in `dtype`, on one noise seed; the weights from seed 0 perturbed
-    by seed 1, then split over the mesh's tp ranks. Returns {level: (P1
-    mode -> (K,) list, seconds, launches, the prediction on the host)}."""
+    level, in `dtype`, on one noise seed; the weights (`depth` blocks) from
+    seed 0 perturbed by seed 1, then split over the mesh's tp ranks. Returns
+    {level: (P1 mode -> (K,) list, seconds, launches, the prediction on the
+    host)}."""
     from d3dp_tpu_torch.data.generators import UnchunkedGenerator
     from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT, make_dataset
     from d3dp_tpu_torch.diffusion import D3DP
@@ -3502,7 +3760,8 @@ def tp_eval(torch, mesh, dtype, levels):
 
     dev = torch.device("cuda") if mesh is None else mesh.device
     cfg = main_config(torch)
-    d3dp = D3DP(dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype)),
+    d3dp = D3DP(dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype,
+                                                                   depth=depth)),
                 device=dev, seed=0)
     perturb_(torch, d3dp.model, 1)
     shard_model_params(d3dp.model, mesh)
@@ -3531,6 +3790,16 @@ def tp_eval(torch, mesh, dtype, levels):
 
 
 TP_LEVELS = {"float32": (4, 5), "bfloat16": (2, 3, 4, 5)}
+# the D3DP_TRAIN_FUSED=1 steps at tp=2 (each all-reduces 64 fp32
+# activations of 34 MB through the host)
+TP_FUSED_STEPS = 2
+# the train-fused step's launches at level 4, depth 8, DropPath 0.1 (block 0
+# of each kind at rate 0, blocks 1-7 with masks): every block half's
+# partial form, its residual_ln (28 with a DropPath scale), and the
+# attention core's forward (recomputed by the backward) and backward
+TP_FUSED_LAUNCHES = {"attention_stage_partial": 2 * DEPTH, "mlp_block_partial": 2 * DEPTH,
+                     "residual_ln": 4 * DEPTH, "residual_ln[dp]": 4 * (DEPTH - 1),
+                     "fused_attention_qkv": 2 * DEPTH, "fused_attention_qkv_bwd": 2 * DEPTH}
 # the fp32 four modes at tp=2 against one process: the whole-pipeline
 # tolerance (3.1e-4 mm) plus one part in 1e6 of the mode. The tp ranks sum
 # each row-parallel product as two fp32 halves where one process sums it
@@ -3543,9 +3812,11 @@ TP_MODE_TOL, TP_MODE_REL = 3.1e-4, 1e-6
 
 def tp_rank(out_dir, devices):
     """One rank of phase tp (a spawned process): DP_STEPS train steps (fp32
-    and bf16) and tp_eval (fp32 at levels 4 and 5, bf16 at 2-5) on a
-    (dp=1, tp=TP) mesh over `devices`, each against the one-process
-    reference in out_dir/ref.pt; one fp32 activation's all-reduce timed;
+    and bf16), TP_FUSED_STEPS `D3DP_TRAIN_FUSED=1` steps (fp32 and bf16,
+    level 4, DropPath 0.1), tp_eval (fp32 at levels 4 and 5, bf16 at 2-5)
+    and tp_eval at bf16 level 4 under `D3DP_ATTN_VARIANT=hmqkv` on a (dp=1,
+    tp=TP) mesh over `devices`, training against the one-process reference
+    in out_dir/ref.pt; one fp32 activation's all-reduce timed;
     the report to out_dir/rank<r>.json and the predictions to
     out_dir/rank<r>.pt."""
     import torch
@@ -3558,6 +3829,9 @@ def tp_rank(out_dir, devices):
     mesh = make_mesh(dp=1, tp=TP, devices=devices)
     ref = torch.load(os.path.join(out_dir, "ref.pt"), weights_only=False)
     train, d3dp = dp_train_rep(torch, mesh, ref["train"])
+    del d3dp
+    with env_var("D3DP_TRAIN_FUSED", "1"):
+        fused, d3dp = dp_train_rep(torch, mesh, ref["fused"], steps=TP_FUSED_STEPS)
     del d3dp
     # one block half's fp32 partial at the path's rows, all-reduced over the group
     act = torch.zeros(TP_ROWS * F * J * C, device=mesh.device)
@@ -3573,8 +3847,12 @@ def tp_rank(out_dir, devices):
         ev = tp_eval(torch, mesh, dt, TP_LEVELS[name])
         evals[name] = {str(lv): v[:3] for lv, v in ev.items()}
         preds[name] = {lv: v[3] for lv, v in ev.items()}
-    rep = dict(rank=mesh.rank, device=str(mesh.device), train=train, eval=evals,
-               act_allreduce_s=act_s, act_bytes=act.numel() * 4)
+    with env_var("D3DP_ATTN_VARIANT", "hmqkv"):
+        ev = tp_eval(torch, mesh, torch.bfloat16, (4,))[4]
+    hm = ev[:3]
+    preds["bfloat16"]["hm"] = ev[3]
+    rep = dict(rank=mesh.rank, device=str(mesh.device), train=train, eval=evals, fused=fused,
+               hm=hm, act_allreduce_s=act_s, act_bytes=act.numel() * 4)
     with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
         json.dump(rep, f)
     torch.save(preds, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
@@ -3672,13 +3950,68 @@ def check_tp_ranks(torch, out_dir, ref_eval, record):
     return launches
 
 
+def check_tp_last_paths(torch, out_dir, record):
+    """Phase tp (v) and (vi): the ranks' `D3DP_TRAIN_FUSED=1` steps held as
+    phase dp holds training (fp32 losses 1e-5 relative, parameters 1e-3
+    relative L2; bf16 losses at BF16_LOSS_TOL), with the launches of
+    TP_FUSED_LAUNCHES a step; the bf16 hmqkv level-4 evaluator's prediction
+    equal bit for bit to the rank's bf16 level-4 prediction without the
+    switch (K8-tp's partial is K1-tp's; that prediction is held against one
+    process by `check_tp_ranks`), with 80 K8-tp, 80 K2-tp and 160
+    residual_ln a call and no K1-tp; the ranks equal. Returns rank 0's launches of K8-tp (bf16 call)
+    and of residual_ln's DropPath form (bf16 step)."""
+    per_call = 2 * DEPTH * K
+    reps, launches = [], {}
+    for r in range(TP):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            rep = json.load(f)
+        preds = torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+        reps.append(rep)
+        f32, f16 = rep["fused"]["float32"], rep["fused"]["bfloat16"]
+        ok_train = (max(f32["loss_rel"]) <= 1e-5 and f32["param_rel_l2"] <= 1e-3
+                    and max(f16["loss_rel"]) <= BF16_LOSS_TOL and f16["param_rel_l2"] <= 1e-3
+                    and f32["finite"] and f16["finite"])
+        ok_fused_launch = all(t["launches"] == TP_FUSED_LAUNCHES for t in (f32, f16))
+        h16 = rep["hm"]
+        same_as_k1 = torch.equal(preds["bfloat16"]["hm"], preds["bfloat16"][4])
+        c = h16[2]
+        ok_hm = (same_as_k1
+                 and c.get("attention_stage_hm_partial") == c.get("mlp_block_partial") == per_call
+                 and c.get("residual_ln") == 2 * per_call
+                 and not c.get("attention_stage_partial") and not c.get("attention_stage_hm"))
+        for name, t in (("fp32", f32), ("bf16", f16)):
+            log(f"[tp] rank {r}: {name} D3DP_TRAIN_FUSED=1 (level 4, DropPath 0.1) train losses "
+                f"{' '.join(f'{v:.6f}' for v in t['losses'])}; against one process: losses "
+                f"{' '.join(f'{v:.2e}' for v in t['loss_rel'])} relative, parameters relative "
+                f"L2 {t['param_rel_l2']:.3e} (every parameter {t['param_rel_l2_all']:.3e}); "
+                f"s/step {' '.join(f'{v:.4f}' for v in t['step_s'])}; launches a step "
+                f"{t['launches']}")
+        log(f"[tp] rank {r}: hmqkv evaluator bf16 level 4 prediction equal to the rank's level 4 "
+            f"without hmqkv {same_as_k1}; s/micro-batch {h16[1]:.4f}; "
+            f"launches a bf16 call { {n: v for n, v in c.items() if v} }; "
+            f"train {ok_train}, train launches {ok_fused_launch}, hmqkv {ok_hm} "
+            f"{'ok' if ok_train and ok_fused_launch and ok_hm else 'FAIL'}")
+        check(ok_train and ok_fused_launch and ok_hm,
+              f"phase tp: rank {r}'s train-fused or hmqkv run disagrees with one process or "
+              "miscounts launches")
+        if r == 0:
+            launches.update(attention_stage_hm_partial=c["attention_stage_hm_partial"],
+                            **{"residual_ln[dp]": f16["launches"].get("residual_ln[dp]", 0)})
+    same = all(reps[0]["fused"][n]["losses"] == reps[1]["fused"][n]["losses"]
+               for n in ("float32", "bfloat16")) and reps[0]["hm"][0] == reps[1]["hm"][0]
+    check(same, "phase tp: the ranks' train-fused losses or hmqkv metrics differ")
+    return launches
+
+
 def phase_tp(torch, record, errs, rows):
     """Tensor parallelism (`--tp`, parallel/mesh.py's split, parallel/tp.py,
     the partial forms and residual_ln) at the published width:
-      (i) K1-tp, K6-tp, K2/K5-tp and residual_ln against their plain
-          versions at tp 2 and 4 and at the tiles' edges, the partials'
-          sums against the whole kernels (`check_tp_kernels`), and each
-          timed at a rank's rows (`tp_kernel_rows`, into `rows`);
+      (i) K1-tp, K8-tp, K6-tp, K2/K5-tp and residual_ln (with and without
+          its DropPath scale) against their plain versions at tp 2 and 4
+          and at the tiles' edges, the partials' sums against the whole
+          kernels (K8, and K1-dp, K2-dp, K5-dp through residual_ln's
+          DropPath form; `check_tp_kernels`), and each timed at a rank's
+          rows (`tp_kernel_rows`, into `rows`);
       (ii) two ranks sharing the card over gloo at tp=2: the Eval config on
           one window (10 hypothesis rows), fp32 at levels 4 and 5 and bf16
           at levels 2-5, against one process on the same weights and noise;
@@ -3686,7 +4019,14 @@ def phase_tp(torch, record, errs, rows):
           process at phase dp's rules (the first bf16 loss too at
           BF16_LOSS_TOL: the tp forward rounds otherwise in bf16);
       (iv) each rank's seconds per step and per micro-batch and the fp32
-          activation all-reduce's ms per MB.
+          activation all-reduce's ms per MB;
+      (v) TP_FUSED_STEPS `D3DP_TRAIN_FUSED=1` steps at tp=2 (level 4,
+          DropPath 0.1: K1-tp and K2-tp with their backwards, residual_ln
+          with the DropPath scale), fp32 and bf16, against one process at
+          phase dp's rules, with TP_FUSED_LAUNCHES a step;
+      (vi) the Eval config's window at bf16 level 4 under hmqkv (K8-tp),
+          equal bit for bit to the rank's level 4 without it (held against
+          one process in (ii)), 80 K8-tp a call.
     Returns the ranks' launches of the new kernels (rank 0's)."""
     import torch.nn.functional as Fn
 
@@ -3702,6 +4042,15 @@ def phase_tp(torch, record, errs, rows):
         log(f"[tp] one process {name}: train losses {' '.join(f'{v:.6f}' for v in losses)}, "
             f"s/step {' '.join(f'{v:.4f}' for v in step_s)}")
         del d3dp
+    ref_fused = {}
+    with env_var("D3DP_TRAIN_FUSED", "1"):
+        for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            losses, params, step_s, _, key_grads, d3dp = dp_train(torch, None, dt, TP_FUSED_STEPS)
+            ref_fused[name] = dict(losses=losses, params=params, key_grads=key_grads)
+            log(f"[tp] one process {name} D3DP_TRAIN_FUSED=1: train losses "
+                f"{' '.join(f'{v:.6f}' for v in losses)}, s/step "
+                f"{' '.join(f'{v:.4f}' for v in step_s)}")
+            del d3dp
     ref_eval = {name: tp_eval(torch, None, dt, TP_LEVELS[name])
                 for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16))}
     log(f"[tp] one process: s/micro-batch ({TP_WINDOWS} window) fp32 level 4 "
@@ -3710,17 +4059,72 @@ def phase_tp(torch, record, errs, rows):
     out_dir = os.path.join(os.getcwd(), "log", "chip_smoke_tp")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
-    torch.save(dict(train=ref), os.path.join(out_dir, "ref.pt"))
+    torch.save(dict(train=ref, fused=ref_fused), os.path.join(out_dir, "ref.pt"))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     spawn(tp_rank, TP, out_dir, ["cuda:0"] * TP, backend="gloo")
     log(f"[tp] two ranks on one card over gloo: {time.perf_counter() - t0:.1f} s with the "
         "processes' start")
     launches = check_tp_ranks(torch, out_dir, ref_eval, record)
+    launches.update(check_tp_last_paths(torch, out_dir, record))
     shutil.rmtree(out_dir, ignore_errors=True)
     record["tp"]["seconds"] = time.perf_counter() - t_phase
     log(f"[tp] phase tp: {record['tp']['seconds']:.1f} s")
     return launches
+
+
+def tp_depth_rank(out_dir, devices, depth):
+    """One rank of the `--tp-depth` probe: tp_eval in fp32 at level 4 and
+    `depth`, without and with hmqkv; the results to out_dir/rank<r>.pt."""
+    import torch
+
+    from d3dp_tpu_torch import disable_tf32
+    from d3dp_tpu_torch.parallel import make_mesh
+
+    disable_tf32()
+    mesh = make_mesh(dp=1, tp=TP, devices=devices)
+    out = {}
+    for variant in (None, "hmqkv"):
+        with env_var("D3DP_ATTN_VARIANT", variant):
+            out[variant] = tp_eval(torch, mesh, torch.float32, (4,), depth)[4]
+    torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def tp_depth_probe(torch, depth):
+    """The `--tp-depth` probe (module docstring): returns 0 once it has
+    printed its readings, whether or not they fit phase tp's tolerance."""
+    from d3dp_tpu_torch import disable_tf32
+    from d3dp_tpu_torch.parallel import spawn
+
+    disable_tf32()
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                       capture_output=True, text=True, timeout=60,
+                       check=True).stdout.strip().splitlines()[0])
+    ref = tp_eval(torch, None, torch.float32, (4,), depth)[4]
+    out_dir = os.path.join(os.getcwd(), "log", "chip_smoke_tp_depth")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    spawn(tp_depth_rank, TP, out_dir, ["cuda:0"] * TP, depth, backend="gloo")
+    readings = []
+    for r in range(TP):
+        got = torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+        for variant, (modes, secs, _, pred) in got.items():
+            pairs = [(a, b) for m, v in modes.items() for a, b in zip(v, ref[0][m])]
+            gap = max(abs(a - b) for a, b in pairs)
+            mode_max = max(abs(b) for _, b in pairs)
+            tol = TP_MODE_TOL + TP_MODE_REL * mode_max
+            readings.append(dict(rank=r, variant=variant or "", depth=depth, mode_gap_mm=gap,
+                                 mode_max_mm=mode_max, tol_mm=tol, within=gap <= tol,
+                                 pred_l2_gap=(pred - ref[3]).norm().item(), seconds=secs))
+        same = torch.equal(got[None][3], got["hmqkv"][3])
+        log(f"[tp-depth] rank {r}, depth {depth}, fp32 level 4: four modes max|diff| to one "
+            f"process " + ", ".join(f"{x['variant'] or 'K1-tp'} {x['mode_gap_mm']:.3e} mm"
+                                    for x in readings if x["rank"] == r)
+            + f" at modes up to {readings[-1]['mode_max_mm']:.3f} mm (tol "
+            f"{readings[-1]['tol_mm']:.3e}); hmqkv prediction equal to K1-tp's {same}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(json.dumps({"tp_depth": readings}))
+    return 0
 
 
 def kernels_line(rows, errs, launches):
@@ -3735,7 +4139,10 @@ def kernels_line(rows, errs, launches):
     (phase hmqkv); each lab-switch instantiation from its path in phase
     lab_switches (`phase_lab_switches`); the tensor-parallel forms and
     residual_ln from rank 0's Evaluator call in phase tp (level 4; K6-tp at
-    level 3), timed at that rank's rows."""
+    level 3), timed at that rank's rows; K8-tp from rank 0's bf16 Evaluator
+    call under hmqkv (level 4), timed at that rank's rows; residual_ln's
+    DropPath form from rank 0's last bf16 `D3DP_TRAIN_FUSED=1` step in
+    phase tp, timed at the train step's shapes."""
     meta = {"attention_stage": ("d3dp_tpu_torch/ops/csrc/attention_stage.cu",
                                 "d3dp_tpu/ops/attention.py:396"),
             "mlp_block_t": ("d3dp_tpu_torch/ops/csrc/mlp_block_t.cu",
@@ -3767,7 +4174,14 @@ def kernels_line(rows, errs, launches):
             "mlp_block_partial": ("d3dp_tpu_torch/ops/csrc/mlp_block_t.cu",
                                   "d3dp_tpu/ops/mlp.py:156"),
             "residual_ln": ("d3dp_tpu_torch/ops/csrc/residual_ln.cu",
-                            "d3dp_tpu/ops/mlp.py:156")}
+                            "d3dp_tpu/ops/mlp.py:156"),
+            # the last tp forms: K8-tp (hmqkv under --tp) and residual_ln's
+            # DropPath form (D3DP_TRAIN_FUSED=1 under --tp, where K1-dp and
+            # K2-dp run on gathered operands in JAX)
+            "attention_stage_hm_partial": ("d3dp_tpu_torch/ops/csrc/attention_stage.cu",
+                                           "d3dp_tpu/ops/attention.py:480"),
+            "residual_ln[dp]": ("d3dp_tpu_torch/ops/csrc/residual_ln.cu",
+                                "d3dp_tpu/ops/attention.py:974")}
     # each lab-switch instantiation (phase lab_switches): the source of the
     # kernel it runs, the line of the TPU kernel's switch
     meta.update({name: (meta[name.split("[")[0]][0], rep) for name, (_, rep) in LAB.items()})
@@ -3786,13 +4200,19 @@ def kernels_line(rows, errs, launches):
     return {"kernels": out}
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
+    ap.add_argument("--tp-depth", type=int, metavar="N",
+                    help="run only the tensor-parallel rounding probe at depth N")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 2
+    if args.tp_depth:
+        return tp_depth_probe(torch, args.tp_depth)
     record = {}
     t_all = time.perf_counter()
     os.makedirs("chiprun_out", exist_ok=True)
@@ -3817,6 +4237,7 @@ def main():
     record["launches"].update(lab_launches)
     del d3dp
     phase_cli(torch, record)
+    phase_host(torch, record)
     phase_cli_3dhp(torch, record)
     phase_wild(torch, record)
     phase_dp(torch, record, errs)

@@ -3,10 +3,14 @@
 Counterpart of d3dp_tpu/cli/arguments.py: the same flag names, defaults and
 mutual exclusions (reference common/arguments.py:10-125 plus the JAX
 package's extensions), so a command line written for `main.py` parses to
-the same namespace here. Flags whose feature the port does not have yet
-raise a "not ported yet" error when set to anything but their default;
-none is silently ignored. `--jax-cache` and `--num-virtual-devices` are
-accepted and inert.
+the same namespace here, and every value runs. `--input-pipeline grain`
+runs the same background Prefetcher as `thread` (the JAX package's grain
+pipeline yields the same batches, and grain imports JAX) and
+`--ckpt-format orbax` a torch.distributed.checkpoint
+directory (`train/checkpoint_io.py`), which the JAX package cannot read.
+`--jax-cache` and `--num-virtual-devices` are accepted and inert: the
+kernels' build directory (`ops/_build.py`, keyed by a hash of the sources)
+is the port's counterpart of the compilation cache.
 
 `launch` is the counterpart of the JAX package's `apply_platform_args`
 for the process group: the command lines run one process a device (a
@@ -164,8 +168,9 @@ def build_parser(in_the_wild=False):
                             "JAX_COMPILATION_CACHE_DIR",
                             os.path.expanduser("~/.cache/d3dp_tpu/jax")),
                         metavar="DIR",
-                        help="accepted for compatibility and inert: the port "
-                             "has no compilation cache")
+                        help="accepted for compatibility and inert: the port's "
+                             "kernels are built once into d3dp_tpu_torch/_build/, "
+                             "keyed by a hash of their sources")
     parser.add_argument("--platform", default="",
                         help="cpu = run on the CPU (every op's plain torch "
                              "version); empty, cuda or gpu = the card")
@@ -174,11 +179,14 @@ def build_parser(in_the_wild=False):
     parser.add_argument("--ckpt-format", default="pickle",
                         choices=["pickle", "orbax"],
                         help="pickle = one atomic torch.save file with the "
-                             "original's payload; orbax is not ported yet")
+                             "original's payload; orbax = the same payload as a "
+                             "torch.distributed.checkpoint directory (epoch_N.orbax), "
+                             "written asynchronously (not the JAX package's orbax)")
     parser.add_argument("--input-pipeline", default="thread",
                         choices=["thread", "grain"],
-                        help="thread = background prefetcher; grain is not "
-                             "ported yet")
+                        help="thread = background prefetcher; grain = the same "
+                             "prefetcher (the JAX package's grain pipeline yields "
+                             "the same batches; grain imports JAX, so it is not used)")
     parser.add_argument("--multihost", action="store_true",
                         help="join the process group from torchrun's environment "
                              "(use the coordinator flags for manual bring-up)")
@@ -217,19 +225,6 @@ def build_parser(in_the_wild=False):
     return parser
 
 
-def _not_ported(args):
-    """The first flag set to a value whose feature the port lacks, as a
-    message, or None."""
-    checks = (
-        (args.input_pipeline == "grain", "--input-pipeline grain"),
-        (args.ckpt_format == "orbax", "--ckpt-format orbax"),
-    )
-    for hit, what in checks:
-        if hit:
-            return f"{what} is not ported yet"
-    return None
-
-
 def parse_args(argv=None, in_the_wild=False):
     parser = build_parser(in_the_wild=in_the_wild)
     args = parser.parse_args(argv)
@@ -248,9 +243,6 @@ def parse_args(argv=None, in_the_wild=False):
     if args.attention == "xla" and args.platform != "cpu":
         parser.error("--attention xla is the plain path, which runs only on the CPU: "
                      "pass --platform cpu, or use --attention auto|pallas on the card")
-    msg = _not_ported(args)
-    if msg:
-        parser.error(msg)
     if args.p2_device:
         args.p2 = True  # --p2-device implies Protocol-2 reporting
     return args

@@ -13,7 +13,6 @@ metrics, per-TS cameras and the inference_data_<mode>.mat exports
 present. Runs on the card unless `--platform cpu`.
 """
 
-import copy
 import os
 import sys
 from datetime import datetime
@@ -23,7 +22,14 @@ import numpy as np
 import torch
 
 from d3dp_tpu_torch.cli.arguments import device_of, launch, parse_args
-from d3dp_tpu_torch.cli.main_h36m import _generator, _log_file, _resume, eval_batch_size, mesh_note
+from d3dp_tpu_torch.cli.main_h36m import (
+    _generator,
+    _log_file,
+    _resume,
+    checkpoint_saver,
+    eval_batch_size,
+    mesh_note,
+)
 from d3dp_tpu_torch.data.generators import ChunkedGenerator, UnchunkedGenerator
 from d3dp_tpu_torch.data.mpi3dhp import (
     KPS_LEFT,
@@ -44,7 +50,7 @@ from d3dp_tpu_torch.parallel import (
     shard_batch_fn,
     shard_model_params,
 )
-from d3dp_tpu_torch.train.checkpoint_io import latest_checkpoint, load_any, save_checkpoint
+from d3dp_tpu_torch.train.checkpoint_io import latest_checkpoint, load_any, wait_for_checkpoints
 from d3dp_tpu_torch.train.state import get_lr, make_optimizer, make_train_step, set_lr
 from d3dp_tpu_torch.utils.logging import Logger, TensorBoardWriter
 
@@ -100,9 +106,11 @@ def _test_generator(data):
 
 def run_training(args, data, d3dp_train, d3dp_valid, writer=None, resume_ckpt=None, mesh=None):
     """Training loop (reference main_3dhp.py:370-600): ChunkedGenerator ->
-    Prefetcher -> train step (root joint 14 zeroed), validation P-Best at
-    H=1, K=1 over the test sequences, lr decay, and the epoch and best
-    checkpoints. Returns the optimizer. `mesh`: as main_h36m.run_training."""
+    Prefetcher (under either `--input-pipeline`) -> train step (root joint 14
+    zeroed), validation P-Best at H=1, K=1 over the test sequences, lr
+    decay, and the epoch and best checkpoints in `--ckpt-format`, waited for
+    before returning. Returns the optimizer. `mesh`: as
+    main_h36m.run_training."""
     model = d3dp_train.model
     dev = d3dp_train.device
     p3_train, p2_train = data[:2]
@@ -127,6 +135,7 @@ def run_training(args, data, d3dp_train, d3dp_valid, writer=None, resume_ckpt=No
     g_train = _generator(dev, args.seed, 1)
     g_valid = _generator(dev, args.seed, 2)
     log_path = os.path.join(args.checkpoint, "training_log.txt")
+    save = checkpoint_saver(args, model, optimizer, train_generator)
 
     if args.resume:
         ckpt = resume_ckpt or load_any(os.path.join(args.checkpoint, args.resume))
@@ -170,19 +179,14 @@ def run_training(args, data, d3dp_train, d3dp_valid, writer=None, resume_ckpt=No
         set_lr(optimizer, lr)
         epoch += 1
 
-        def _save(path):
-            save_checkpoint(path, epoch=epoch, lr=lr, model=model, optimizer=optimizer,
-                            generator_random_state=copy.deepcopy(train_generator.random_state()),
-                            min_loss=min_loss)
-
         if epoch % args.checkpoint_frequency == 0:
-            chk_path = os.path.join(args.checkpoint, f"epoch_{epoch}.ckpt")
-            print("Saving checkpoint to", chk_path)
-            _save(chk_path)
+            path = save(os.path.join(args.checkpoint, f"epoch_{epoch}"), epoch, lr, min_loss)
+            print("Saving checkpoint to", path)
         if valid_pbest is not None and valid_pbest < min_loss:
             min_loss = valid_pbest
             print("save best checkpoint")
-            _save(os.path.join(args.checkpoint, "best_epoch.ckpt"))
+            save(os.path.join(args.checkpoint, "best_epoch"), epoch, lr, min_loss)
+    wait_for_checkpoints()
     return optimizer
 
 

@@ -38,8 +38,9 @@ from d3dp_tpu_torch.parallel import (
 from d3dp_tpu_torch.train.checkpoint_io import (
     latest_checkpoint,
     load_any,
-    save_checkpoint,
+    save_checkpoint_any,
     shard_checkpoint,
+    wait_for_checkpoints,
 )
 from d3dp_tpu_torch.train.state import get_lr, make_optimizer, make_train_step, set_lr
 from d3dp_tpu_torch.utils.logging import Logger, TensorBoardWriter
@@ -275,10 +276,28 @@ def _resume(args, ckpt, model, optimizer, train_generator, lr, min_loss):
     return ckpt["epoch"], lr, min_loss
 
 
+def checkpoint_saver(args, model, optimizer, train_generator):
+    """save(path stem, epoch, lr, min_loss) in `--ckpt-format`: `<stem>.ckpt`
+    (pickle) or `<stem>.orbax` (a DCP directory, written asynchronously as
+    the JAX command line writes its orbax saves); returns the path."""
+    ext = "orbax" if args.ckpt_format == "orbax" else "ckpt"
+
+    def save(stem, epoch, lr, min_loss):
+        path = f"{stem}.{ext}"
+        save_checkpoint_any(path, args.ckpt_format, epoch=epoch, lr=lr, model=model,
+                            optimizer=optimizer,
+                            generator_random_state=copy.deepcopy(train_generator.random_state()),
+                            min_loss=min_loss, wait=False)
+        return path
+    return save
+
+
 def run_training(args, data, d3dp_train, d3dp_valid, writer, resume_ckpt=None, mesh=None):
     """Training loop (reference: main.py:304-592): ChunkedGenerator ->
-    Prefetcher -> train step, light validation (P-Best at H=1, K=1), lr
-    decay, and the epoch and best checkpoints. Returns the optimizer.
+    Prefetcher (under either `--input-pipeline`) -> train step, light
+    validation (P-Best at H=1, K=1), lr decay, and the epoch and best
+    checkpoints in `--ckpt-format`, waited for before returning. Returns
+    the optimizer.
     `mesh` (optional): each batch's rows split over its ranks, padded with
     weight-0 rows to a multiple of dp, and the gradients summed over them
     (train.state.make_train_step)."""
@@ -328,6 +347,7 @@ def run_training(args, data, d3dp_train, d3dp_valid, writer, resume_ckpt=None, m
 
     print("** Note: reported losses are averaged over all frames.")
     log_path = os.path.join(args.checkpoint, "training_log.txt")
+    save = checkpoint_saver(args, model, optimizer, train_generator)
 
     while epoch < args.epochs:
         start_time = time()
@@ -379,20 +399,14 @@ def run_training(args, data, d3dp_train, d3dp_valid, writer, resume_ckpt=None, m
         set_lr(optimizer, lr)
         epoch += 1
 
-        def _save(path):
-            save_checkpoint(path, epoch=epoch, lr=lr, model=model, optimizer=optimizer,
-                            generator_random_state=copy.deepcopy(train_generator.random_state()),
-                            min_loss=min_loss)
-
         if epoch % args.checkpoint_frequency == 0:
-            chk_path = os.path.join(args.checkpoint, f"epoch_{epoch}.ckpt")
-            print("Saving checkpoint to", chk_path)
-            _save(chk_path)
+            path = save(os.path.join(args.checkpoint, f"epoch_{epoch}"), epoch, lr, min_loss)
+            print("Saving checkpoint to", path)
 
         if valid_pbest is not None and valid_pbest < min_loss:
             min_loss = valid_pbest
             print("save best checkpoint")
-            _save(os.path.join(args.checkpoint, "best_epoch.ckpt"))
+            save(os.path.join(args.checkpoint, "best_epoch"), epoch, lr, min_loss)
             with _log_file(log_path) as f:
                 f.write("best epoch\n")
 
@@ -401,6 +415,7 @@ def run_training(args, data, d3dp_train, d3dp_valid, writer, resume_ckpt=None, m
             valid_curve.append(valid_pbest)
         if args.export_training_curves and epoch > 3 and process_index() == 0:
             _plot_curves(args, epoch, train_curve, valid_curve)
+    wait_for_checkpoints()
     return optimizer
 
 

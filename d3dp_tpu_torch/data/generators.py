@@ -6,12 +6,16 @@ padding, horizontal-flip augmentation (with the camera sign flips),
 per-epoch shuffling from a dedicated np.random.RandomState whose state can
 be saved and restored, and the fixed-size batch mode (`pad_last`) that pads
 the final partial batch and returns a 0/1 weight mask. Same seed, same
-batches as the JAX package's Python extraction path (`use_native=False`);
-the native chunk assembler is not ported.
+batches as the JAX package's. With `use_native` (the default, as in JAX)
+the chunks are extracted and flipped by the C++ assembler (`data/native.py`),
+bit for bit the numpy path's; where it cannot be built the numpy path runs,
+and `ChunkedGenerator.assembler` says which ran ("native" or "numpy").
 
 `UnchunkedGenerator` yields whole sequences; with `augment` it stacks the
 flipped copy beside each (the evaluators fuse flip-TTA into the sampler and
 leave it off), and it keeps the 3DHP evaluator's (valid, key) yield.
+`UnchunkedGeneratorSeq2Seq` edge-pads each sequence by pad +- causal_shift
+first (the reference's UnchunkedGenerator_Seq2Seq).
 """
 
 from itertools import zip_longest
@@ -77,7 +81,7 @@ class ChunkedGenerator:
     def __init__(self, batch_size, cameras, poses_3d, poses_2d, chunk_length,
                  shuffle=True, random_seed=1234, augment=False, kps_left=None,
                  kps_right=None, joints_left=None, joints_right=None, endless=False,
-                 pad_last=False):
+                 pad_last=False, use_native=True):
         if poses_3d is not None and len(poses_3d) != len(poses_2d):
             raise ValueError("poses_3d and poses_2d differ in sequence count")
         if cameras is not None and len(cameras) != len(poses_2d):
@@ -104,6 +108,34 @@ class ChunkedGenerator:
         self.kps_right = kps_right
         self.joints_left = joints_left
         self.joints_right = joints_right
+        self._native = None
+        if use_native:
+            from d3dp_tpu_torch.data import native
+
+            if native.available():
+                self._native = native
+                self._banks = [native.SequenceBank(poses_2d)] + (
+                    [native.SequenceBank(poses_3d)] if poses_3d is not None else [])
+                self._flips = [self._flip_tables(poses_2d[0], kps_left, kps_right)]
+                if poses_3d is not None:
+                    self._flips.append(self._flip_tables(poses_3d[0], joints_left,
+                                                         joints_right))
+        # which extraction path assemble_batch takes
+        self.assembler = "numpy" if self._native is None else "native"
+
+    @staticmethod
+    def _flip_tables(seq, left, right):
+        """(joint permutation, channel signs) of the flip on (T, J, C) poses:
+        left and right joints swapped, x negated."""
+        perm = np.arange(seq.shape[1])
+        if left is not None:
+            perm[list(left)] = right
+            perm[list(right)] = left
+        return perm, np.array([-1.0] + [1.0] * (seq.shape[2] - 1), np.float32)
+
+    def num_frames(self):
+        """Chunks an epoch yields, counting the pad_last rows."""
+        return self.num_batches * self.batch_size
 
     def random_state(self):
         return self.random
@@ -152,6 +184,11 @@ class ChunkedGenerator:
         batch_3d = None
         if self.poses_3d is not None:
             batch_3d = np.empty((bs, L) + self.poses_3d[0].shape[1:], dtype=np.float32)
+        if self._native is not None:
+            table = np.asarray(chunks, dtype=np.int64).reshape(n, 4)
+            for bank, (perm, sign), out in zip(self._banks, self._flips, (batch_2d, batch_3d)):
+                self._native.assemble_chunks(bank, table, L, perm, sign, out=out[:n])
+            chunks = ()  # extracted
         for i, (seq_i, start, end, flip) in enumerate(chunks):
             seq_i, start, end = int(seq_i), int(start), int(end)
             chunk_2d = self._extract(self.poses_2d, seq_i, start, end)
@@ -199,11 +236,13 @@ class UnchunkedGenerator:
     instead, `key` from `keys` or the sequence's index.
     (reference: common/generators.py:174-249 and its 3DHP dict variant; the
     constructor's `augment` is honoured, where the reference sets it False
-    and relies on set_augment)"""
+    and relies on set_augment). `pad` and `causal_shift` are kept for
+    `UnchunkedGeneratorSeq2Seq`; this generator does not pad, as the JAX
+    package's does not."""
 
-    def __init__(self, cameras, poses_3d, poses_2d, augment=False, kps_left=None,
-                 kps_right=None, joints_left=None, joints_right=None, valid_frames=None,
-                 keys=None):
+    def __init__(self, cameras, poses_3d, poses_2d, pad=0, causal_shift=0, augment=False,
+                 kps_left=None, kps_right=None, joints_left=None, joints_right=None,
+                 valid_frames=None, keys=None):
         if poses_3d is not None and len(poses_3d) != len(poses_2d):
             raise ValueError("poses_3d and poses_2d differ in sequence count")
         if cameras is not None and len(cameras) != len(poses_2d):
@@ -220,6 +259,8 @@ class UnchunkedGenerator:
         self.joints_right = joints_right
         self.valid_frames = valid_frames
         self.keys = keys
+        self.pad = pad
+        self.causal_shift = causal_shift
 
     def num_frames(self):
         return sum(p.shape[0] for p in self.poses_2d)
@@ -247,3 +288,27 @@ class UnchunkedGenerator:
                 key = self.keys[idx] if self.keys is not None else idx
                 item += (self.valid_frames[idx], key)
             yield item
+
+
+class UnchunkedGeneratorSeq2Seq(UnchunkedGenerator):
+    """`UnchunkedGenerator` whose sequences, 2D and 3D, are edge-padded by
+    pad + causal_shift frames before and pad - causal_shift after; yields
+    (cam, pose3d, pose2d) per sequence, with the flipped copy stacked after
+    each with `augment`. (reference: common/generators.py:251-327, the
+    JAX package's UnchunkedGeneratorSeq2Seq; no entry point uses it)"""
+
+    def next_epoch(self):
+        pad = ((self.pad + self.causal_shift, self.pad - self.causal_shift), (0, 0), (0, 0))
+        for seq_cam, seq_3d, seq_2d in zip_longest(self.cameras, self.poses_3d, self.poses_2d):
+            seq_2d = np.pad(seq_2d, pad, "edge")
+            seq_3d = None if seq_3d is None else np.pad(seq_3d, pad, "edge")
+            cam = None if seq_cam is None else [seq_cam]
+            p3 = None if seq_3d is None else [seq_3d]
+            p2 = [seq_2d]
+            if self.augment:
+                if cam is not None:
+                    cam.append(flip_camera(seq_cam))
+                if p3 is not None:
+                    p3.append(flip_sequence(seq_3d, self.joints_left, self.joints_right))
+                p2.append(flip_sequence(seq_2d, self.kps_left, self.kps_right))
+            yield tuple(None if x is None else np.stack(x) for x in (cam, p3, p2))

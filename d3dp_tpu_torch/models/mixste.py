@@ -19,7 +19,8 @@ Counterpart of d3dp_tpu/models/mixste.py `MixSTE2` with
   - 4 (the default): the transpose-free flow with the whole attention half
     in one kernel (`ops.attention.attention_stage`; under the `hmqkv` lab
     variant the head-major stage `ops.attention.attention_stage_hm`, with
-    its stacked weights cached).
+    its stacked weights cached, and under tp its partial form
+    `attention_stage_hm_partial` on the rank's stacks).
   - 5: the whole 2 x depth trunk in one kernel launch
     (`ops.resident.resident_block_stack`, `mixste.py:707-741`); with DDIM
     feature reuse taps it takes level 4's flow, as the JAX package does.
@@ -57,8 +58,18 @@ Counterpart of d3dp_tpu/models/mixste.py `MixSTE2` with
   tp group's gathered weights, gathered once per weight version (one
   launch holds the whole trunk, with no room for an all-reduce between its
   phases; XLA does the same with the JAX package's Pallas call); with
-  reuse taps it takes level 4's split flow. The `hmqkv` variant and
-  `D3DP_TRAIN_FUSED=1` have no tp form yet and raise.
+  reuse taps it takes level 4's split flow. Under the `hmqkv` variant
+  level 4 runs the head-major partial form (K8-tp) on the rank's cached
+  head-major stacks. `D3DP_TRAIN_FUSED=1` trains through the partial forms'
+  autograd Functions (`attention_stage_partial_ad` at 4,
+  `attention_block_partial_ad` at 2-3, `mlp_block_partial_ad`) and
+  `ops.residual_ln.residual_ln_ad`, whose DropPath scale makes each half
+  what K1-dp and K2-dp compute (`_train_block_fused_tp`): the operands a
+  partial form reads whole (the block's input, LN1's parameters, LN2's
+  output) pass `copy_to_tp`, so their gradients sum over the group; the
+  bias, residual and norm after the sum get their whole gradient on every
+  rank. The DropPath masks are drawn per step from one generator state, so
+  the ranks of a tp group draw the same ones.
 
 On CUDA tensors the ops launch the hand-written kernels; on CPU tensors
 they run their plain torch versions.
@@ -89,7 +100,7 @@ from torch import nn
 from d3dp_tpu_torch.device import resolve_device
 from d3dp_tpu_torch.ops import attention, mlp, resident
 from d3dp_tpu_torch.ops.common import matmul_f32acc
-from d3dp_tpu_torch.ops.residual_ln import residual_ln
+from d3dp_tpu_torch.ops.residual_ln import residual_ln, residual_ln_ad
 from d3dp_tpu_torch.parallel.mesh import gather_params
 from d3dp_tpu_torch.parallel.tp import copy_to_tp, reduce_from_tp
 
@@ -285,11 +296,12 @@ class MixSTE2(nn.Module):
         along depth in the level-5 kernel's layout (`resident`); the
         per-block entries of levels 1-4 (`ste`, `tte`) are views into those
         stacks, beside each block's head-major qkv stacks (`hm`, for the
-        `hmqkv` variant). The cache is keyed on every parameter's storage
-        and version counter, so it is rebuilt after any change to a
-        parameter: an optimizer step, `load_state_dict`, or an in-place
-        edit. Under tp (`self.tp`) the per-block entries are the rank's
-        shares, and `resident` is left to `_resident_weights`."""
+        `hmqkv` variant; a rank's heads under tp). The cache is keyed on
+        every parameter's storage and version counter, so it is rebuilt
+        after any change to a parameter: an optimizer step,
+        `load_state_dict`, or an in-place edit. Under tp (`self.tp`) the
+        per-block entries are the rank's shares, and `resident` is left to
+        `_resident_weights`."""
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
         if self._cache is not None and self._cache_key == key:
             return self._cache
@@ -302,9 +314,8 @@ class MixSTE2(nn.Module):
                          wqkv=wqkv[i], bqkv=bqkv[i, 0], wp=wp[i], bp=v[i, 0],
                          ln1s=v[i, 1], ln1b=v[i, 2], ln2s=v[i, 3], ln2b=v[i, 4],
                          w1=w1[i], b1=b1[i, 0], w2=w2[i], b2=v[i, 5],
-                         # hmqkv has no tp form (the stage op raises under tp)
-                         hm=None if self.tp is not None else attention.stack_head_major(
-                             wqkv[i], bqkv[i, 0], self.cfg.num_heads))
+                         # the rank's heads under tp
+                         hm=attention.stack_head_major(wqkv[i], bqkv[i, 0], b.attn.num_heads))
                     for i, b in enumerate(blocks)]
 
         P = dict(self.named_parameters())
@@ -391,12 +402,16 @@ class MixSTE2(nn.Module):
 
     def _attention_half_tp(self, w, blk, h):
         """`_attention_half` on a rank of the tp group: the level's partial
-        form over the rank's heads (K1-tp at 4, K6-tp at 2-3; at 1 the
-        attention core and the projection as plain ops), the fp32 partials
-        summed over the group, then residual_ln (+ bp, the residual, LN2)."""
+        form over the rank's heads (K1-tp at 4, K8-tp there under `hmqkv`,
+        K6-tp at 2-3; at 1 the attention core and the projection as plain
+        ops), the fp32 partials summed over the group, then residual_ln (+
+        bp, the residual, LN2)."""
         cfg = self.cfg
         heads = blk.attn.num_heads
-        if cfg.fuse_level >= 4:  # (the op raises under the hmqkv variant)
+        if cfg.fuse_level >= 4 and attention.stage_config(h)[0] == "head_major":
+            part = attention.attention_stage_hm_partial(h, *w["hm"], w["ln1s"], w["ln1b"],
+                                                        w["wp"], heads, cfg.attn_scale, BLOCK_EPS)
+        elif cfg.fuse_level >= 4:
             part = attention.attention_stage_partial(h, w["wqkv"], w["bqkv"], w["ln1s"],
                                                      w["ln1b"], w["wp"], heads, cfg.attn_scale,
                                                      BLOCK_EPS)
@@ -496,8 +511,6 @@ class MixSTE2(nn.Module):
         if train:
             fused = (self.cfg.fuse_level >= 1
                      and os.environ.get("D3DP_TRAIN_FUSED", "0") == "1")
-            if fused and self.tp is not None:
-                raise NotImplementedError("D3DP_TRAIN_FUSED=1 under --tp is not ported yet")
             x, _ = self._trunk_composed(x2d, x3d, t, generator, droppath_masks, drop_path,
                                         fused=fused)
             return self._head(x)
@@ -614,6 +627,8 @@ class MixSTE2(nn.Module):
                                          generator, droppath_masks)
             blocks = self.STEblocks if kind == "ste" else self.TTEblocks
             if fused and (masks is None or cfg.fuse_level >= 4):
+                if self.tp is not None:
+                    return self._train_block_fused_tp(blocks[i], h, norm, masks, B)
                 return self._train_block_fused(blocks[i], h, norm, masks, B)
             h = _layer_norm(norm, blocks[i](h, masks))
             R, N, _ = h.shape
@@ -634,17 +649,12 @@ class MixSTE2(nn.Module):
         other stage's layout, the shared norm applied. masks: the block's two
         DropPath scale vectors (R,) or None (level >= 4 only)."""
         cfg = self.cfg
-        dt = cfg.dtype
         R, N, C = h.shape
         D1 = R // B
         level = min(cfg.fuse_level, 4)
         scale = cfg.attn_scale
         dp_attn, dp_mlp = masks if masks is not None else (None, None)
-
-        def mat(lin):
-            """The kernels' (in, out) layout in the compute dtype, through
-            autograd."""
-            return lin.weight.t().contiguous().to(dt)
+        mat = self._mat
 
         if level >= 4:
             stage = (h, mat(blk.attn.qkv), blk.attn.qkv.bias, mat(blk.attn.proj),
@@ -674,3 +684,48 @@ class MixSTE2(nn.Module):
         else:
             out = mlp.mlp_block_t_dp_ad(y2, x2, *w, dp_mlp.view(B, D1), BLOCK_EPS)
         return out.view(B * N, D1, C)
+
+    def _mat(self, lin):
+        """An nn.Linear's weight in the kernels' (in, out) layout in the
+        compute dtype, through autograd."""
+        return lin.weight.t().contiguous().to(self.cfg.dtype)
+
+    def _train_block_fused_tp(self, blk, h, norm, masks, B):
+        """`_train_block_fused` on a rank of the tp group: each half's
+        partial form over the rank's heads or hidden units with its
+        backward (K1-tp at level 4, or K8-tp under `hmqkv`; K6-tp at 2-3; the
+        composed tp attention at 1; K2/K5-tp), the fp32 partials summed over
+        the group, then `residual_ln_ad` with the block's DropPath scale
+        (the DropPath forms' math: K1-dp, K2-dp). Operands that a partial
+        form reads whole pass `copy_to_tp`: their gradients, the ranks'
+        shares, sum over the group."""
+        cfg = self.cfg
+        R, N, C = h.shape
+        D1 = R // B
+        level = min(cfg.fuse_level, 4)
+        heads, scale, group = blk.attn.num_heads, cfg.attn_scale, self.tp.group
+        dp_attn, dp_mlp = masks if masks is not None else (None, None)
+        mat = self._mat
+        if level >= 2:
+            if level >= 4:
+                part = attention.attention_stage_partial_ad(
+                    copy_to_tp(h, group), mat(blk.attn.qkv), blk.attn.qkv.bias,
+                    copy_to_tp(blk.norm1.weight, group), copy_to_tp(blk.norm1.bias, group),
+                    mat(blk.attn.proj), heads, scale, BLOCK_EPS)
+            else:
+                qkv = _linear(blk.attn.qkv, copy_to_tp(_layer_norm(blk.norm1, h), group))
+                part = attention.attention_block_partial_ad(qkv, mat(blk.attn.proj), heads, scale)
+            x2, y2 = residual_ln_ad(h, reduce_from_tp(part, group), blk.attn.proj.bias,
+                                    blk.norm2.weight, blk.norm2.bias, BLOCK_EPS, dp=dp_attn)
+        else:
+            x2 = h + blk.attn(_layer_norm(blk.norm1, h))
+            y2 = _layer_norm(blk.norm2, x2)
+        part = mlp.mlp_block_partial_ad(copy_to_tp(y2.reshape(R * N, C), group),
+                                        mat(blk.mlp.fc1), blk.mlp.fc1.bias, mat(blk.mlp.fc2))
+        part = reduce_from_tp(part, group).view(B, D1, N, C)
+        out = residual_ln_ad(x2.view(B, D1, N, C), part, blk.mlp.fc2.bias, norm.weight,
+                             norm.bias, BLOCK_EPS, with_x2=False, transpose=level >= 3,
+                             dp=None if dp_mlp is None else dp_mlp.view(B, D1))
+        if level >= 3:
+            return out.view(B * N, D1, C)
+        return out.transpose(1, 2).reshape(B * N, D1, C)

@@ -20,6 +20,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+from d3dp_tpu_torch.ops import tuning
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("attention_stage", "attention_block", "attention_qkv", "mlp_block_t", "resident",
@@ -101,10 +103,13 @@ def load(name, signatures):
     """ctypes handle of library `name`, building it first if needed.
 
     signatures: {function name: argtypes list}; every function returns the
-    `cudaError_t` of its launches as an int.
+    `cudaError_t` of its launches as an int. The first load is the first
+    kernel launch of the process: it checks the card the tiles were tuned
+    on (`ops.tuning.check_tile_generation`).
     """
     lib = _libs.get(name)
     if lib is None:
+        tuning.check_tile_generation()
         build_all((name,) if name in VARIANTS else SOURCES)
         lib = ctypes.CDLL(str(_lib_path(name)))
         for fn, argtypes in signatures.items():

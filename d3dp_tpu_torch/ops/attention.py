@@ -42,7 +42,13 @@ its rows of the out-projection, `parallel.mesh.shard_params`) they stop
 after the projection and return its raw fp32 product, with no bias,
 residual or LN2; the ranks' products are summed and `ops.residual_ln`
 finishes the half. They take the stage's lab switches as the stage does
-(`stage_config`; "hmqkv" raises: its tp form is not ported).
+(`stage_config`); under "hmqkv" the stage's partial form is the head-major
+one, `attention_stage_hm_partial` (K8-tp), on the rank's qkv stacked
+head-major (`stack_head_major` of the rank's wqkv and bqkv).
+`attention_stage_partial_ad` and `attention_block_partial_ad` are the two
+with their backwards (plain torch ops around the attention core's backward
+kernel on the rank's heads, as `attention_stage_bwd` and the block's
+Function compute theirs), for `D3DP_TRAIN_FUSED=1` under tp.
 
 `fused_attention_qkv` and `fused_attention_qkv_bwd` are the counterparts of
 the JAX package's `fused_attention_qkv` and `_fused_attention_qkv_bwd`:
@@ -112,6 +118,8 @@ _BLOCK_FN = {torch.bfloat16: "d3dp_attention_block_bf16",
 _SIG_STAGE_PART = [_P] * 9 + [_I] * 6 + [_F, _F, _P]
 _STAGE_PART_FN = {torch.bfloat16: "d3dp_attention_stage_partial_bf16",
                   torch.float32: "d3dp_attention_stage_partial_f32"}
+_HM_PART_FN = {torch.bfloat16: "d3dp_attention_stage_hm_partial_bf16",
+               torch.float32: "d3dp_attention_stage_hm_partial_f32"}
 _SIG_BLOCK_PART = [_P] * 4 + [_I] * 4 + [_F, _P]
 _BLOCK_PART_FN = {torch.bfloat16: "d3dp_attention_block_partial_bf16",
                   torch.float32: "d3dp_attention_block_partial_f32"}
@@ -195,9 +203,11 @@ def _merge(*xs):
 def stack_head_major(wqkv, bqkv, num_heads):
     """qkv weights (C, 3C) and bias (3C,) -> the head-major stacks of the
     `hmqkv` variant, (h, C, 3d) and (h, 1, 3d): head i's q, k and v columns
-    side by side (JAX `_attention_stage_fwd`, `:789-799`). Differentiable."""
+    side by side (JAX `_attention_stage_fwd`, `:789-799`). A tensor-parallel
+    rank's (C, 3 C_l) and (3 C_l,) of its `num_heads` heads stack the same
+    way, to the whole model's stacks sliced to those heads. Differentiable."""
     C = wqkv.shape[0]
-    d = C // num_heads
+    d = wqkv.shape[1] // (3 * num_heads)
     w = wqkv.reshape(C, 3, num_heads, d).permute(2, 0, 1, 3).reshape(num_heads, C, 3 * d)
     b = bqkv.reshape(3, num_heads, d).permute(1, 0, 2).reshape(num_heads, 1, 3 * d)
     return w.contiguous(), b.contiguous()
@@ -332,7 +342,8 @@ def _stage_lib():
     return _build.load("attention_stage", {
         **{fn: _SIG for fn in _FN.values()}, **{fn: _SIG for fn in _HM_FN.values()},
         **{fn: _SIG_DP for fn in _DP_FN.values()},
-        **{fn: _SIG_STAGE_PART for fn in _STAGE_PART_FN.values()}})
+        **{fn: _SIG_STAGE_PART for fn in _STAGE_PART_FN.values()},
+        **{fn: _SIG_STAGE_PART for fn in _HM_PART_FN.values()}})
 
 
 def _launch_stage(what, fns, sig, x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
@@ -448,15 +459,77 @@ def attention_stage_partial_plain(x, wqkv, bqkv, ln1_s, ln1_b, wp, num_heads, sc
     return _mm(_merge(o.to(dt)), wp)
 
 
+def attention_stage_hm_partial_plain(x, wqkv_hm, bqkv_hm, ln1_s, ln1_b, wp, num_heads, scale,
+                                     eps, opts=0):
+    """Plain torch ops of K8-tp in the head-major stage's order: LN1 over
+    the whole row, the rank's `num_heads` heads' qkv from their head-major
+    stacks (h_l, C, 3d) and (h_l, 1, 3d) (`stack_head_major` of the rank's
+    wqkv and bqkv), the stage's attention, then o (R, N, C_l) @ wp (C_l, C)
+    -> the fp32 (R, N, C) product, no bias, residual or LN2. opts:
+    OPT_NORM_FIRST, the one switch the head-major stage reads."""
+    dt = x.dtype
+    y1 = layer_norm_rows(x.float(), ln1_s, ln1_b, eps).to(dt)
+    qkv = torch.stack([(_mm(y1, wqkv_hm[i]) + bqkv_hm[i].float()).to(dt)
+                       for i in range(num_heads)], dim=1)  # (R, h_l, N, 3d)
+    o = _stage_attend_plain(*qkv.chunk(3, dim=-1), scale, dt, opts)
+    return _mm(_merge(o.to(dt)), wp)
+
+
+def _launch_partial(what, fns, x, wqkv, bqkv, ln1_s, ln1_b, wp, num_heads, scale, eps, opts,
+                    mask_block=0, head_major=False):
+    """Check the operands of K1-tp (packed wqkv (C, 3 C_l), bqkv (3 C_l,))
+    or K8-tp (head-major (h_l, C, 3d), (h_l, 1, 3d)) and launch it; returns
+    the fp32 (R, N, C) partial."""
+    R, N, C = _check_rows(x, num_heads, what, fns, mask_block, partial=True)
+    dt, dev, f32 = x.dtype, x.device, torch.float32
+    c_l = num_heads * HEAD_DIM
+    d3 = 3 * HEAD_DIM
+    wshape, bshape = ((num_heads, C, d3), (num_heads, 1, d3)) if head_major else \
+        ((C, 3 * c_l), (3 * c_l,))
+    for t, name, dtype, shape in (
+            (x, "x", dt, (R, N, C)), (wqkv, "wqkv", dt, wshape), (bqkv, "bqkv", f32, bshape),
+            (ln1_s, "ln1_s", f32, (C,)), (ln1_b, "ln1_b", f32, (C,)), (wp, "wp", dt, (c_l, C))):
+        _build.check_operand(t, name, dtype, shape, dev)
+    # qkv scratch: (R, N, 3 C_l) packed, (h_l, R*N, 3d) head-major
+    qkv = torch.empty((R, N, 3 * c_l), dtype=dt, device=dev)
+    o = torch.empty((R, N, c_l), dtype=dt, device=dev)
+    part = torch.empty((R, N, C), dtype=f32, device=dev)
+    lib = _stage_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, fns[dt])(
+            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), ln1_s.data_ptr(), ln1_b.data_ptr(),
+            wp.data_ptr(), qkv.data_ptr(), o.data_ptr(), part.data_ptr(), R, N, C, num_heads,
+            opts, mask_block, float(scale), float(eps), stream)
+    _build.check(err, what)
+    return part
+
+
+def attention_stage_hm_partial(x, wqkv_hm, bqkv_hm, ln1_s, ln1_b, wp, num_heads, scale, eps):
+    """K8-tp: a tensor-parallel rank's share of the head-major stage (the
+    `hmqkv` variant) on x (R, N, C), its fp32 (R, N, C) out-projection
+    product; see `attention_stage_hm_partial_plain`. `D3DP_SOFTMAX_FOLD` is
+    the one switch it reads (`fold_opts`)."""
+    opts = fold_opts(x.dtype)
+    if x.device.type == "cpu":
+        return attention_stage_hm_partial_plain(x, wqkv_hm, bqkv_hm, ln1_s, ln1_b, wp,
+                                                num_heads, scale, eps, opts)
+    part = _launch_partial("attention_stage_hm_partial", _HM_PART_FN, x, wqkv_hm, bqkv_hm,
+                           ln1_s, ln1_b, wp, num_heads, scale, eps, opts, head_major=True)
+    attention_stage_hm_partial.launches += 1
+    return part
+
+
 def attention_stage_partial(x, wqkv, bqkv, ln1_s, ln1_b, wp, num_heads, scale, eps):
     """K1-tp: a tensor-parallel rank's share of the attention stage on x
     (R, N, C), its fp32 (R, N, C) out-projection product (see
     `attention_stage_partial_plain`), under the lab switches as
-    `attention_stage` resolves them."""
+    `attention_stage` resolves them: under `hmqkv` it stacks the rank's
+    weights head-major and runs `attention_stage_hm_partial` (K8-tp)."""
     kernel, opts, group = stage_config(x)
     if kernel == "head_major":
-        raise NotImplementedError("D3DP_ATTN_VARIANT=hmqkv under --tp (the head-major stage's "
-                                  "tensor-parallel form) is not ported yet")
+        return attention_stage_hm_partial(x, *stack_head_major(wqkv, bqkv, num_heads), ln1_s,
+                                          ln1_b, wp, num_heads, scale, eps)
     opts &= ~OPT_NO_Y2
     R, N, C = x.shape
     mask_block = N if group > 1 else 0
@@ -465,31 +538,14 @@ def attention_stage_partial(x, wqkv, bqkv, ln1_s, ln1_b, wp, num_heads, scale, e
         part = attention_stage_partial_plain(xg, wqkv, bqkv, ln1_s, ln1_b, wp, num_heads, scale,
                                              eps, opts, mask_block)
         return part.view(R, N, C)
-    Rg, Ng, _ = _check_rows(xg, num_heads, "attention_stage_partial", _STAGE_PART_FN,
-                            mask_block, partial=True)
-    dt, dev, f32 = x.dtype, x.device, torch.float32
-    c_l = num_heads * HEAD_DIM
-    for t, name, dtype, shape in (
-            (xg, "x", dt, (Rg, Ng, C)), (wqkv, "wqkv", dt, (C, 3 * c_l)),
-            (bqkv, "bqkv", f32, (3 * c_l,)), (ln1_s, "ln1_s", f32, (C,)),
-            (ln1_b, "ln1_b", f32, (C,)), (wp, "wp", dt, (c_l, C))):
-        _build.check_operand(t, name, dtype, shape, dev)
-    qkv = torch.empty((Rg, Ng, 3 * c_l), dtype=dt, device=dev)
-    o = torch.empty((Rg, Ng, c_l), dtype=dt, device=dev)
-    part = torch.empty((Rg, Ng, C), dtype=f32, device=dev)
-    lib = _stage_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, _STAGE_PART_FN[dt])(
-            xg.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), ln1_s.data_ptr(), ln1_b.data_ptr(),
-            wp.data_ptr(), qkv.data_ptr(), o.data_ptr(), part.data_ptr(), Rg, Ng, C, num_heads,
-            opts, mask_block, float(scale), float(eps), stream)
-    _build.check(err, "attention_stage_partial")
+    part = _launch_partial("attention_stage_partial", _STAGE_PART_FN, xg, wqkv, bqkv, ln1_s,
+                           ln1_b, wp, num_heads, scale, eps, opts, mask_block)
     attention_stage_partial.launches += 1
     return part.view(R, N, C)
 
 
 attention_stage_partial.launches = 0
+attention_stage_hm_partial.launches = 0
 
 
 # ----------------------------------------------------- training attention core
@@ -661,18 +717,16 @@ def fused_attention_qkv_ad(qkv, num_heads, scale):
 
 
 # ------------------------------------------------- the stage's backward (training)
-def attention_stage_bwd(x, wqkv, bqkv, wp, ln1_s, ln1_b, ln2_s, x2, gx2, gy2, num_heads,
-                        scale, eps, dp_row=None):
-    """Gradients of `attention_stage` (or `attention_stage_dp`) given those
-    of (x2, y2): the JAX package's `_stage_bwd_impl` in plain torch ops.
-    LN1 and the qkv projection are recomputed (qkv in the compute dtype
-    with its bias added there, as the JAX backward does), the attention core
-    through `fused_attention_qkv` and `fused_attention_qkv_bwd`; matrix
-    products take the compute-dtype operands and accumulate in fp32. With
-    dp_row the branch-side cotangent is dp_row * ds while the residual's
-    stays unscaled. Returns (dx, dwqkv, dbqkv, dwp, dbp, dln1_s, dln1_b,
-    dln2_s, dln2_b); weight and bias gradients in the dtype of wqkv / wp,
-    as the JAX VJP returns them."""
+def _stage_branch_bwd(x, wqkv, bqkv, wp, ln1_s, ln1_b, ds_b, num_heads, scale, eps):
+    """The stage's branch backward given the fp32 gradient ds_b (R*N, C) of
+    its projection output (o @ wp, before bias and residual): LN1 and the
+    qkv projection recomputed (qkv in the compute dtype with its bias added
+    there, as the JAX backward does), the attention core through
+    `fused_attention_qkv` and `fused_attention_qkv_bwd`, products on
+    compute-dtype operands with fp32 accumulation. `num_heads` heads of wqkv
+    (C, 3 C_l): the whole stage's, or a tensor-parallel rank's. Returns (dx
+    of LN1's input in fp32 (R*N, C), dwqkv, dbqkv, dwp, dln1_s, dln1_b);
+    weight and bias gradients in the dtype of wqkv / wp."""
     R, N, C = x.shape
     g = spatial_group()
     if g > 1 and N <= 32 and R % g == 0:
@@ -681,24 +735,18 @@ def attention_stage_bwd(x, wqkv, bqkv, wp, ln1_s, ln1_b, ln2_s, x2, gx2, gy2, nu
                                   "it for training")
     md = x.dtype
     f32 = torch.float32
+    c3 = wqkv.shape[1]
     xhat, rstd = ln_stats(x.float().reshape(R * N, C), eps)
     y1 = (xhat * ln1_s.float() + ln1_b.float()).to(md)
-    qkv = (matmul_f32out(y1, wqkv).to(md) + bqkv.to(md)).reshape(R, N, 3 * C)
+    qkv = (matmul_f32out(y1, wqkv).to(md) + bqkv.to(md)).reshape(R, N, c3)
     a = fused_attention_qkv(qkv, num_heads, scale)
 
-    ds, dln2_s, dln2_b = ln_bwd_rows(x2.reshape(R * N, C).float(), ln2_s,
-                                     gy2.reshape(R * N, C), eps)
-    if gx2 is not None:
-        ds = ds + gx2.reshape(R * N, C).float()
-    # x2 = x + [dp *] (a @ wp + bp)
-    ds_b = ds if dp_row is None else ds * dp_row.float().repeat_interleave(N)[:, None]
     ds_m = ds_b.to(md)
-    dwp = matmul_f32out(a.reshape(R * N, C).to(md).t(), ds_m).to(wp.dtype)
-    dbp = ds_b.sum(dim=0).to(wp.dtype)
-    da = matmul_f32out(ds_m, wp.t()).to(qkv.dtype).reshape(R, N, C)
+    dwp = matmul_f32out(a.reshape(R * N, c3 // 3).to(md).t(), ds_m).to(wp.dtype)
+    da = matmul_f32out(ds_m, wp.t()).to(qkv.dtype).reshape(R, N, c3 // 3)
     dqkv = fused_attention_qkv_bwd(qkv, da, num_heads, scale)
 
-    dqkv_m = dqkv.reshape(R * N, 3 * C).to(md)
+    dqkv_m = dqkv.reshape(R * N, c3).to(md)
     dbqkv = dqkv_m.to(f32).sum(dim=0).to(wqkv.dtype)
     dwqkv = matmul_f32out(y1.t(), dqkv_m).to(wqkv.dtype)
     dy1 = matmul_f32out(dqkv_m, wqkv.t())
@@ -709,6 +757,28 @@ def attention_stage_bwd(x, wqkv, bqkv, wp, ln1_s, ln1_b, ln2_s, x2, gx2, gy2, nu
                   - xhat * (gs1 * xhat).mean(dim=-1, keepdim=True))
     dln1_s = (dy1 * xhat).sum(dim=0).to(ln1_s.dtype)
     dln1_b = dy1.sum(dim=0).to(ln1_s.dtype)
+    return dx1, dwqkv, dbqkv, dwp, dln1_s, dln1_b
+
+
+def attention_stage_bwd(x, wqkv, bqkv, wp, ln1_s, ln1_b, ln2_s, x2, gx2, gy2, num_heads,
+                        scale, eps, dp_row=None):
+    """Gradients of `attention_stage` (or `attention_stage_dp`) given those
+    of (x2, y2): the JAX package's `_stage_bwd_impl` in plain torch ops, the
+    LN2 backward on x2, then `_stage_branch_bwd`. With dp_row the
+    branch-side cotangent is dp_row * ds while the residual's stays
+    unscaled. Returns (dx, dwqkv, dbqkv, dwp, dbp, dln1_s, dln1_b, dln2_s,
+    dln2_b); weight and bias gradients in the dtype of wqkv / wp, as the JAX
+    VJP returns them."""
+    R, N, C = x.shape
+    ds, dln2_s, dln2_b = ln_bwd_rows(x2.reshape(R * N, C).float(), ln2_s,
+                                     gy2.reshape(R * N, C), eps)
+    if gx2 is not None:
+        ds = ds + gx2.reshape(R * N, C).float()
+    # x2 = x + [dp *] (a @ wp + bp)
+    ds_b = ds if dp_row is None else ds * dp_row.float().repeat_interleave(N)[:, None]
+    dbp = ds_b.sum(dim=0).to(wp.dtype)
+    dx1, dwqkv, dbqkv, dwp, dln1_s, dln1_b = _stage_branch_bwd(
+        x, wqkv, bqkv, wp, ln1_s, ln1_b, ds_b, num_heads, scale, eps)
     dx = (ds + dx1).reshape(R, N, C).to(x.dtype)
     return (dx, dwqkv, dbqkv, dwp, dbp, dln1_s, dln1_b, dln2_s.to(ln2_s.dtype),
             dln2_b.to(ln2_s.dtype))
@@ -753,6 +823,37 @@ def attention_stage_dp_ad(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b, dp_
     dp_row gets no gradient."""
     return _AttentionStage.apply(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b, dp_row,
                                  num_heads, scale, eps)
+
+
+class _AttentionStagePartial(torch.autograd.Function):
+    """Forward: `attention_stage_partial` (K1-tp, or K8-tp under `hmqkv`);
+    backward: `_stage_branch_bwd` on the rank's heads given the gradient of
+    the fp32 partial. x, ln1_s and ln1_b get the rank's share of their
+    gradients: the caller passes them through `parallel.tp.copy_to_tp`,
+    whose backward sums the shares over the tp group."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, ln1_s, ln1_b, wp, num_heads, scale, eps):
+        part = attention_stage_partial(x, wqkv, bqkv, ln1_s, ln1_b, wp, num_heads, scale, eps)
+        ctx.save_for_backward(x, wqkv, bqkv, ln1_s, ln1_b, wp)
+        ctx.cfg = (num_heads, scale, eps)
+        return part
+
+    @staticmethod
+    def backward(ctx, gpart):
+        x, wqkv, bqkv, ln1_s, ln1_b, wp = ctx.saved_tensors
+        R, N, C = x.shape
+        dx1, dwqkv, dbqkv, dwp, dln1_s, dln1_b = _stage_branch_bwd(
+            x, wqkv, bqkv, wp, ln1_s, ln1_b, gpart.reshape(R * N, C).float(), *ctx.cfg)
+        return (dx1.reshape(R, N, C).to(x.dtype), dwqkv, dbqkv, dln1_s, dln1_b, dwp,
+                None, None, None)
+
+
+def attention_stage_partial_ad(x, wqkv, bqkv, ln1_s, ln1_b, wp, num_heads, scale, eps):
+    """Differentiable `attention_stage_partial` (K1-tp, or K8-tp under
+    `hmqkv`): a tensor-parallel rank's fp32 partial of the stage, whose
+    backward is the JAX stage VJP's branch part on the rank's heads."""
+    return _AttentionStagePartial.apply(x, wqkv, bqkv, ln1_s, ln1_b, wp, num_heads, scale, eps)
 
 
 # ------------------------------------------------------------ attention block
@@ -882,6 +983,35 @@ class _AttentionBlock(torch.autograd.Function):
 def attention_block_ad(qkv, res, w, b, ln_s, ln_b, num_heads, scale, eps):
     """Differentiable `attention_block` (the JAX `attention_block_p`)."""
     return _AttentionBlock.apply(qkv, res, w, b, ln_s, ln_b, num_heads, scale, eps)
+
+
+class _AttentionBlockPartial(torch.autograd.Function):
+    """Forward: `attention_block_partial` (K6-tp); backward: the block
+    Function's projection and attention-core backward on the rank's heads
+    (fp32 operands for the projection, d(qkv) from
+    `fused_attention_qkv_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, qkv, wp, num_heads, scale):
+        ctx.save_for_backward(qkv, wp)
+        ctx.cfg = (num_heads, scale)
+        return attention_block_partial(qkv, wp, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, gpart):
+        qkv, wp = ctx.saved_tensors
+        num_heads, scale = ctx.cfg
+        R, N, c3 = qkv.shape
+        ds = gpart.reshape(R * N, -1).float()
+        a = fused_attention_qkv(qkv, num_heads, scale)
+        dw = torch.matmul(a.reshape(R * N, c3 // 3).float().t(), ds).to(wp.dtype)
+        da = torch.matmul(ds, wp.float().t()).to(qkv.dtype).reshape(R, N, c3 // 3)
+        return fused_attention_qkv_bwd(qkv, da, num_heads, scale), dw, None, None
+
+
+def attention_block_partial_ad(qkv, wp, num_heads, scale):
+    """Differentiable `attention_block_partial` (K6-tp)."""
+    return _AttentionBlockPartial.apply(qkv, wp, num_heads, scale)
 
 
 # ------------------------------------------------------- packed-heads attention

@@ -79,6 +79,15 @@
 // products, plus C fp32 partials a token row out (4 bytes a value: the
 // all-reduce's operand).
 //
+// Head-major tensor-parallel form (`d3dp_attention_stage_hm_partial_*`,
+// K8-tp, the `hmqkv` variant under tp): K1-tp with the rank's qkv weights
+// stacked head-major, (heads, C, 3d) and (heads, 3d): `launch_ln_qkv<T,
+// true>` over the rank's heads, attend on their slabs, and the same raw
+// projection. No new kernel: the walks are K8's (ln_qkv, attend) and
+// K1-tp's (the projection's kPartial epilogue); only the host entry is new.
+// The TPU package has none: under its tp mesh XLA runs `_attn_stage_kernel_hm`
+// on gathered operands.
+//
 // Head-major form: ln_qkv loads each 64-column box of the (h, C, 3d) weights
 // to where the packed step loads the same columns from (C, 3C), and writes
 // qkv head-major, (h, R*N, 3d); attend reads head h's q, k and v from its
@@ -124,10 +133,11 @@ int attention_stage(const void* x, const void* wqkv, const void* bqkv, const voi
                             stream, (const float*)dp, N, !(opts & kOptNoY2));
 }
 
-// The tensor-parallel partial form (file header): x (R, N, C); wqkv (C, 3 *
-// heads * 64); wp (heads * 64, C); qkv scratch (R, N, 3 * heads * 64), o
-// (R, N, heads * 64); part (R, N, C) fp32.
-template <typename T>
+// The tensor-parallel partial forms (file header): x (R, N, C); wp (heads *
+// 64, C); o (R, N, heads * 64); part (R, N, C) fp32. K1-tp: wqkv (C, 3 *
+// heads * 64), qkv scratch (R, N, 3 * heads * 64). K8-tp (kHeadMajor): wqkv
+// (heads, C, 3d), bqkv (heads, 3d), qkv scratch (heads, R*N, 3d).
+template <typename T, bool kHeadMajor>
 int attention_stage_partial(const void* x, const void* wqkv, const void* bqkv, const void* ln1s,
                             const void* ln1b, const void* wp, void* qkv, void* o, void* part,
                             int R, int N, int C, int heads, int opts, int mask_block,
@@ -135,16 +145,24 @@ int attention_stage_partial(const void* x, const void* wqkv, const void* bqkv, c
   const int Cl = heads * kHeadDim;
   if (R < 1 || N < 1 || !attn_keys_ok(N, mask_block) || !stage_shape_ok<T>(C) || heads < 1 ||
       Cl > C || (std::is_same<T, bf16>::value ? (3 * Cl) % kQkvChunk : Cl % 64) ||
-      R > 0x7fffffff / N)
+      R > 0x7fffffff / N || (kHeadMajor && mask_block))
     return (int)cudaErrorInvalidValue;
   const AttnOpts ao = attn_opts(opts & ~kOptNoY2, mask_block);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const int M = R * N;
-  int e = launch_ln_qkv<T, false>((const T*)x, (const T*)wqkv, (const float*)bqkv,
-                                  (const float*)ln1s, (const float*)ln1b, (T*)qkv, M, C, heads,
-                                  eps, stream);
+  int e = launch_ln_qkv<T, kHeadMajor>((const T*)x, (const T*)wqkv, (const float*)bqkv,
+                                       (const float*)ln1s, (const float*)ln1b, (T*)qkv, M, C,
+                                       heads, eps, stream);
   if (e) return e;
-  e = (int)launch_attend_packed<T>((const T*)qkv, (T*)o, R, N, Cl, heads, scale, ao, stream);
+  if constexpr (kHeadMajor) {
+    // as K8: head h's slab starts at h * M * 3d (see attention_stage)
+    constexpr int d3 = 3 * kHeadDim;
+    const T* slab = (const T*)qkv;
+    e = (int)launch_attend<T>(slab, slab + kHeadDim, slab + 2 * kHeadDim, d3, (T*)o, R, N, Cl,
+                              heads, scale, ao, stream, (long long)M * d3 - kHeadDim);
+  } else {
+    e = (int)launch_attend_packed<T>((const T*)qkv, (T*)o, R, N, Cl, heads, scale, ao, stream);
+  }
   if (e) return e;
   return launch_proj_partial<T>((const T*)o, (const T*)wp, (float*)part, M, Cl, C, stream);
 }
@@ -196,14 +214,23 @@ int d3dp_attention_stage_hm_f32(D3DP_STAGE_ARGS, D3DP_STAGE_TAIL) {
   const void *x, const void *wqkv, const void *bqkv, const void *ln1s, const void *ln1b,       \
       const void *wp, void *qkv, void *o, void *part, int R, int N, int C, int heads, int opts, \
       int mask_block, float scale, float eps, void *stream
-#define D3DP_PARTIAL_CALL(T)                                                                    \
-  d3dp::attention_stage_partial<T>(x, wqkv, bqkv, ln1s, ln1b, wp, qkv, o, part, R, N, C, heads, \
-                                   opts, mask_block, scale, eps, stream)
+#define D3DP_PARTIAL_CALL(T, HM)                                                                \
+  d3dp::attention_stage_partial<T, HM>(x, wqkv, bqkv, ln1s, ln1b, wp, qkv, o, part, R, N, C,    \
+                                       heads, opts, mask_block, scale, eps, stream)
 
 int d3dp_attention_stage_partial_bf16(D3DP_PARTIAL_ARGS) {
-  return D3DP_PARTIAL_CALL(d3dp::bf16);
+  return D3DP_PARTIAL_CALL(d3dp::bf16, false);
 }
 
-int d3dp_attention_stage_partial_f32(D3DP_PARTIAL_ARGS) { return D3DP_PARTIAL_CALL(float); }
+int d3dp_attention_stage_partial_f32(D3DP_PARTIAL_ARGS) { return D3DP_PARTIAL_CALL(float, false); }
+
+// K8-tp: the head-major form of K1-tp; wqkv (heads, C, 3d), bqkv (heads, 3d).
+int d3dp_attention_stage_hm_partial_bf16(D3DP_PARTIAL_ARGS) {
+  return D3DP_PARTIAL_CALL(d3dp::bf16, true);
+}
+
+int d3dp_attention_stage_hm_partial_f32(D3DP_PARTIAL_ARGS) {
+  return D3DP_PARTIAL_CALL(float, true);
+}
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // The residual-LayerNorm epilogue of a tensor-parallel block half, for Hopper
 // (sm_90a):
 //   x2 = res + (part + bias);  y = LN(x2)
+// or, with DropPath scales dp, x2 = res + dp[row / dp_div] * (part + bias),
 // over token rows, part the fp32 sum of the ranks' partial products (the
 // all-reduce of K1-tp's, K6-tp's or K2/K5-tp's outputs). Writes x2 (unless
 // given no buffer: the MLP half needs only y) and y in the compute type; y
@@ -14,6 +15,12 @@
 // (`warp_layernorm`). The TPU package has no such kernel: under its tp mesh
 // XLA inserts the all-reduce and runs the stage and MLP kernels on gathered
 // operands.
+//
+// DropPath (training under tp with `D3DP_TRAIN_FUSED=1`): the branch, its
+// bias included, is scaled by one fp32 value a group of dp_div rows before
+// the residual add, as the DropPath forms of the stage and MLP kernels scale
+// theirs (K1-dp `proj_ln2`: one a sequence of N tokens; K2-dp / K5-dp: one
+// a (b, i) of (B, D1), D2 rows). dp == nullptr leaves the arithmetic as it is.
 //
 // What bounds it on the H100: bytes. Each row reads C fp32 partials and C
 // residual values and writes one or two C-wide rows: at the eval shape
@@ -33,19 +40,21 @@ template <typename T, bool kTranspose>
 __global__ void __launch_bounds__(kThreads)
 residual_ln_kernel(const T* __restrict__ res, const float* __restrict__ part,
                    const float* __restrict__ bias, const float* __restrict__ lns,
-                   const float* __restrict__ lnb, T* __restrict__ x2, T* __restrict__ y, int D1,
-                   int D2, int M, int C, float eps) {
+                   const float* __restrict__ lnb, const float* __restrict__ dp, int dp_div,
+                   T* __restrict__ x2, T* __restrict__ y, int D1, int D2, int M, int C,
+                   float eps) {
   const int lane = threadIdx.x % 32;
   const int t = blockIdx.x * kWarps + threadIdx.x / 32;
   if (t >= M) return;
   const T* rr = res + (size_t)t * C;
   const float* pr = part + (size_t)t * C;
+  const float s = dp ? dp[t / dp_div] : 1.f;
   float v[32];
 #pragma unroll
   for (int k = 0; k < 32; ++k)
     if (k < C / 32) {
       const int c = 32 * k + lane;
-      v[k] = to_f(rr[c]) + (pr[c] + bias[c]);
+      v[k] = to_f(rr[c]) + __fmul_rn(s, pr[c] + bias[c]);
       if (x2) x2[(size_t)t * C + c] = from_f<T>(v[k]);
     }
   warp_layernorm(v, C, lns, lnb, eps, lane);
@@ -56,13 +65,14 @@ residual_ln_kernel(const T* __restrict__ res, const float* __restrict__ part,
 }
 
 // res, part (B, D1, D2, C) as rows (res in T, part fp32); bias, lns, lnb
-// (C,) fp32; x2 (rows, in T) or nullptr; y (B, D1, D2, C), or (B, D2, D1,
-// C) with transpose.
+// (C,) fp32; dp nullptr, or the fp32 scales of groups of dp_div rows; x2
+// (rows, in T) or nullptr; y (B, D1, D2, C), or (B, D2, D1, C) with
+// transpose.
 template <typename T>
 int residual_ln(const void* res, const void* part, const void* bias, const void* lns,
-                const void* lnb, void* x2, void* y, int B, int D1, int D2, int C, int transpose,
-                float eps, void* stream_) {
-  if (B < 1 || D1 < 1 || D2 < 1 || C < 32 || C > 1024 || C % 32 ||
+                const void* lnb, const void* dp, int dp_div, void* x2, void* y, int B, int D1,
+                int D2, int C, int transpose, float eps, void* stream_) {
+  if (B < 1 || D1 < 1 || D2 < 1 || C < 32 || C > 1024 || C % 32 || dp_div < 1 ||
       (long long)B * D1 * D2 > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const int M = B * D1 * D2;
@@ -70,7 +80,7 @@ int residual_ln(const void* res, const void* part, const void* bias, const void*
   auto kernel = transpose ? &residual_ln_kernel<T, true> : &residual_ln_kernel<T, false>;
   kernel<<<cdiv(M, kWarps), kThreads, 0, stream>>>(
       (const T*)res, (const float*)part, (const float*)bias, (const float*)lns,
-      (const float*)lnb, (T*)x2, (T*)y, D1, D2, M, C, eps);
+      (const float*)lnb, (const float*)dp, dp_div, (T*)x2, (T*)y, D1, D2, M, C, eps);
   return (int)cudaGetLastError();
 }
 
@@ -78,18 +88,19 @@ int residual_ln(const void* res, const void* part, const void* bias, const void*
 
 extern "C" {
 
+// dp: nullptr (no DropPath) or the scales of groups of dp_div rows.
 int d3dp_residual_ln_bf16(const void* res, const void* part, const void* bias, const void* lns,
-                          const void* lnb, void* x2, void* y, int B, int D1, int D2, int C,
-                          int transpose, float eps, void* stream) {
-  return d3dp::residual_ln<d3dp::bf16>(res, part, bias, lns, lnb, x2, y, B, D1, D2, C, transpose,
-                                       eps, stream);
+                          const void* lnb, const void* dp, int dp_div, void* x2, void* y, int B,
+                          int D1, int D2, int C, int transpose, float eps, void* stream) {
+  return d3dp::residual_ln<d3dp::bf16>(res, part, bias, lns, lnb, dp, dp_div, x2, y, B, D1, D2,
+                                       C, transpose, eps, stream);
 }
 
 int d3dp_residual_ln_f32(const void* res, const void* part, const void* bias, const void* lns,
-                         const void* lnb, void* x2, void* y, int B, int D1, int D2, int C,
-                         int transpose, float eps, void* stream) {
-  return d3dp::residual_ln<float>(res, part, bias, lns, lnb, x2, y, B, D1, D2, C, transpose, eps,
-                                  stream);
+                         const void* lnb, const void* dp, int dp_div, void* x2, void* y, int B,
+                         int D1, int D2, int C, int transpose, float eps, void* stream) {
+  return d3dp::residual_ln<float>(res, part, bias, lns, lnb, dp, dp_div, x2, y, B, D1, D2, C,
+                                  transpose, eps, stream);
 }
 
 }  // extern "C"

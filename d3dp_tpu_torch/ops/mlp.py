@@ -13,7 +13,9 @@ on a rank holding H / tp of the hidden units (its columns of fc1 and rows
 of fc2, `parallel.mesh.shard_params`) it returns the raw fp32 fc2 product
 of (R, C) rows, with no fc2 bias, residual, LayerNorm or transpose; the
 ranks' products are summed and `ops.residual_ln` finishes the half, in
-either layout.
+either layout (with a DropPath scale under training: K2-dp's and K5-dp's
+tp form). `mlp_block_partial_ad` is it with its backward, for
+`D3DP_TRAIN_FUSED=1` under tp.
 
 `mlp_block_t_dp` and `mlp_block_dp` are `mlp_block_t_dp_p` and
 `mlp_block_dp_p`: the branch, fc2's bias included, scaled by a DropPath
@@ -295,15 +297,42 @@ mlp_block_partial.launches = 0
 
 
 # ------------------------------------------------------------ training
+def _hidden(x, w1, b1):
+    """(fc1's fp32 pre-activation, the exact GELU of it in x's dtype)."""
+    pre = matmul_f32out(x, w1) + b1.float()
+    return pre, F.gelu(pre, approximate="none").to(x.dtype)
+
+
+def _mlp_branch_bwd(x, w1, b1, w2, ds_b, hidden=None):
+    """The MLP branch's backward given the fp32 gradient ds_b (R, C) of its
+    fc2 product (h W2, before bias, DropPath and residual): the hidden
+    activation recomputed (or `hidden`, `_hidden`'s pair), products on
+    compute-dtype operands with fp32 accumulation, the exact GELU's
+    derivative in fp32. H hidden units of w1 (C, H): the whole MLP's, or a
+    tensor-parallel rank's. Returns (dx, dw1, db1, dw2) in their operands'
+    dtypes."""
+    md = x.dtype
+    pre, hb = hidden if hidden is not None else _hidden(x, w1, b1)
+    ds_m = ds_b.to(md)
+    dw2 = matmul_f32out(hb.t(), ds_m).to(w2.dtype)
+    dh = matmul_f32out(ds_m, w2.t())
+    # d gelu(p) = 0.5 * (1 + erf(p / sqrt2)) + p * pdf(p)
+    dpre = dh * (0.5 * (1.0 + torch.erf(pre * 2.0 ** -0.5))
+                 + pre * torch.exp(-0.5 * pre * pre) * (2.0 * math.pi) ** -0.5)
+    dpre_m = dpre.to(md)
+    dw1 = matmul_f32out(x.t(), dpre_m).to(w1.dtype)
+    db1 = dpre.sum(dim=0).to(b1.dtype)
+    dx = matmul_f32out(dpre_m, w1.t()).to(x.dtype)
+    return dx, dw1, db1, dw2
+
+
 def mlp_bwd_rows(x, res, w1, b1, w2, b2, ln_s, gy, eps, dp=None):
     """Gradients of the rows form given dy = gy (R, C): the JAX package's
-    `_mlp_bwd_impl` in plain torch ops. dp (R, 1) or None. Returns (dx,
-    dres, dw1, db1, dw2, db2, dln_s, dln_b); weight and bias gradients in
-    their parameters' dtypes, as the JAX VJP returns them."""
-    md = x.dtype
-    pre = matmul_f32out(x, w1) + b1.float()
-    h = F.gelu(pre, approximate="none")
-    hb = h.to(md)
+    `_mlp_bwd_impl` in plain torch ops, the LayerNorm's backward on the
+    recomputed fp32 sum, then `_mlp_branch_bwd`. dp (R, 1) or None. Returns
+    (dx, dres, dw1, db1, dw2, db2, dln_s, dln_b); weight and bias gradients
+    in their parameters' dtypes, as the JAX VJP returns them."""
+    pre, hb = _hidden(x, w1, b1)
     branch32 = matmul_f32out(hb, w2) + b2.float()
     if dp is not None:
         dp32 = dp.float()
@@ -313,17 +342,8 @@ def mlp_bwd_rows(x, res, w1, b1, w2, b2, ln_s, gy, eps, dp=None):
     ds, dln_s, dln_b = ln_bwd_rows(s32, ln_s, gy, eps)
     dres = ds.to(res.dtype)
     ds_b = ds if dp is None else ds * dp32
-    ds_m = ds_b.to(md)
-    dw2 = matmul_f32out(hb.t(), ds_m).to(w2.dtype)
     db2 = ds_b.sum(dim=0).to(b2.dtype)
-    dh = matmul_f32out(ds_m, w2.t())
-    # d gelu(p) = 0.5 * (1 + erf(p / sqrt2)) + p * pdf(p)
-    dpre = dh * (0.5 * (1.0 + torch.erf(pre * 2.0 ** -0.5))
-                 + pre * torch.exp(-0.5 * pre * pre) * (2.0 * math.pi) ** -0.5)
-    dpre_m = dpre.to(md)
-    dw1 = matmul_f32out(x.t(), dpre_m).to(w1.dtype)
-    db1 = dpre.sum(dim=0).to(b1.dtype)
-    dx = matmul_f32out(dpre_m, w1.t()).to(x.dtype)
+    dx, dw1, db1, dw2 = _mlp_branch_bwd(x, w1, b1, w2, ds_b, (pre, hb))
     return dx, dres, dw1, db1, dw2, db2, dln_s.to(ln_s.dtype), dln_b.to(ln_s.dtype)
 
 
@@ -380,3 +400,25 @@ def mlp_block_t_ad(x, res, w1, b1, w2, b2, ln_s, ln_b, eps):
 def mlp_block_t_dp_ad(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps):
     """Differentiable `mlp_block_t_dp` (the JAX `mlp_block_t_dp_p`)."""
     return _MlpBlock.apply(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps, True)
+
+
+class _MlpBlockPartial(torch.autograd.Function):
+    """Forward: `mlp_block_partial` (K2/K5-tp); backward: `_mlp_branch_bwd`
+    on the rank's hidden units given the gradient of the fp32 partial. x
+    gets the rank's share of its gradient: the caller passes it through
+    `parallel.tp.copy_to_tp`."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2):
+        ctx.save_for_backward(x, w1, b1, w2)
+        return mlp_block_partial(x, w1, b1, w2)
+
+    @staticmethod
+    def backward(ctx, gpart):
+        x, w1, b1, w2 = ctx.saved_tensors
+        return _mlp_branch_bwd(x, w1, b1, w2, gpart.float())
+
+
+def mlp_block_partial_ad(x, w1, b1, w2):
+    """Differentiable `mlp_block_partial` (K2/K5-tp) on (R, C) rows."""
+    return _MlpBlockPartial.apply(x, w1, b1, w2)

@@ -53,13 +53,39 @@ def test_parse_args_gives_jax_namespace(argv):
     assert vars(tparse(argv)) == vars(jparse(argv))
 
 
+def _debug_epoch_log(directory, extra):
+    """One --debug training epoch (-cf 1) into `directory`: its training
+    log line without the elapsed time."""
+    tmain.main(SMALL + ["-c", str(directory), "-b", "108", "--debug", "-e", "1", "-cf", "1",
+                        *extra])
+    return [re.sub(r"time [\d.]+ ", "", line)
+            for line in (directory / "training_log.txt").read_text().splitlines()]
+
+
 @pytest.mark.parametrize("flag", [
     ["--input-pipeline", "grain"], ["--ckpt-format", "orbax"],
 ])
-def test_flags_not_ported_raise(flag, capsys):
-    with pytest.raises(SystemExit):
-        tparse(SMALL + flag)
-    assert "not ported yet" in capsys.readouterr().err
+def test_flags_not_ported_raise(flag, tmp_path):
+    """The two flags the port once refused here parse to the JAX package's
+    namespace and run: a --debug training epoch under each writes the
+    default flags' log line, and its epoch checkpoint (epoch_1.orbax, a DCP
+    directory, under orbax) loads to the default run's payload bit for bit
+    (the thread-pool pipeline assembles the same batches)."""
+    assert vars(tparse(SMALL + flag)) == vars(jparse(SMALL + flag))
+    got = _debug_epoch_log(tmp_path / "flag", flag)
+    assert got == _debug_epoch_log(tmp_path / "default", []) and got[0].startswith("[1] ")
+    ext = "orbax" if "orbax" in flag else "ckpt"
+    a = load_any(str(tmp_path / "flag" / f"epoch_1.{ext}"))
+    b = load_any(str(tmp_path / "default" / "epoch_1.ckpt"))
+    assert a.keys() == b.keys() and a["epoch"] == b["epoch"] == 1 and a["lr"] == b["lr"]
+    for k, v in b["model"].items():
+        assert torch.equal(a["model"][k], v), k
+    for i, st in b["optimizer"]["state"].items():
+        for key, val in st.items():
+            assert torch.equal(a["optimizer"]["state"][i][key], val), (i, key)
+    assert a["optimizer"]["param_groups"] == b["optimizer"]["param_groups"]
+    for x, y in zip(a["random_state"].get_state(), b["random_state"].get_state()):
+        assert np.array_equal(x, y)
 
 
 @pytest.mark.parametrize("flag", [

@@ -1028,3 +1028,63 @@ def test_tp_partial_forms_match_plain(np_rng, dtype, tp, R, N):
         for g, w in zip(got, want):
             assert g.dtype == dtype and g.shape == w.shape
             assert _excess(g, w, dtype) <= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("R,N", [(64, 17), (6, 243), (3, 1), (7, 9)])
+def test_tp_hm_partial_matches_plain_and_k1_tp(np_rng, dtype, tp, R, N):
+    """K8-tp (the head-major stage's partial form) on each rank's
+    head-major stacks at C=512, 8 heads: against its plain version, and
+    equal to K1-tp's partial on the same rank bit for bit (both load each
+    64-column box of the qkv weights to the same place)."""
+    dev = _cuda()
+    C, heads = 512, 8
+    a = _t(_stage_inputs(np_rng, R, N, C), dev, dtype)
+    for j in range(tp):
+        qi = _rank_share(3, C, tp, j).to(dev)
+        cs = _rank_share(1, C, tp, j).to(dev)
+        stage = (a[0], a[1][:, qi].contiguous(), a[2][qi].contiguous(), a[5], a[6],
+                 a[3][cs].contiguous())
+        hm = (stage[0], *tattn.stack_head_major(stage[1], stage[2], heads // tp), *stage[3:])
+        got = tattn.attention_stage_hm_partial(*hm, heads // tp, 0.125, 1e-6)
+        want = tattn.attention_stage_hm_partial_plain(*hm, heads // tp, 0.125, 1e-6)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == want.shape == (R, N, C)
+        assert _excess(got, want, dtype) <= 0
+        assert torch.equal(got, tattn.attention_stage_partial(*stage, heads // tp, 0.125, 1e-6))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["attention", "mlp_rows", "mlp_t"])
+def test_residual_ln_dp_kernel_matches_plain(np_rng, dtype, layout):
+    """residual_ln with its DropPath scale against its plain version: dp
+    (R,) over (R, N, C) rows of 17 tokens (x2 and y), dp (B, D1) over (B,
+    D1, D2, C) rows, in place and transposed (y); unit scales equal the op
+    without them bit for bit."""
+    from d3dp_tpu_torch.ops import residual_ln as trl
+
+    dev = _cuda()
+    C = 512
+    shape = (130, 17, C) if layout == "attention" else (3, 27, 17, C)
+    res = torch.from_numpy(np_rng.randn(*shape).astype(np.float32)).to(dev, dtype)
+    part = torch.from_numpy(np_rng.randn(*shape).astype(np.float32)).to(dev)
+    vec = [torch.from_numpy((np_rng.randn(C) * s + o).astype(np.float32)).to(dev)
+           for s, o in ((0.02, 0.0), (0.1, 1.0), (0.1, 0.0))]
+    dp_shape = shape[:1] if layout == "attention" else shape[:2]
+    dp = torch.from_numpy(np.where(np_rng.rand(*dp_shape) < 0.9, 1 / 0.9, 0.0)
+                          .astype(np.float32)).to(dev)
+    kw = {} if layout == "attention" else dict(with_x2=False, transpose=layout == "mlp_t")
+    got = trl.residual_ln(res, part, *vec, 1e-6, dp=dp, **kw)
+    want = trl.residual_ln_plain(res, part, *vec, 1e-6, dp=dp, **kw)
+    ones = trl.residual_ln(res, part, *vec, 1e-6, dp=torch.ones_like(dp), **kw)
+    without = trl.residual_ln(res, part, *vec, 1e-6, **kw)
+    torch.cuda.synchronize()
+    if layout != "attention":
+        got, want, ones, without = (got,), (want,), (ones,), (without,)
+    for g, w, o, n in zip(got, want, ones, without):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _excess(g, w, dtype) <= 0
+        assert torch.equal(o, n)

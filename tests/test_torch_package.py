@@ -28,7 +28,7 @@ def test_import_leaves_jax_and_reference_out():
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'd3dp_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'd3dp_tpu', 'grain')]\n"
         "assert not bad, bad\n"
         "print('clean', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -38,7 +38,7 @@ def test_import_leaves_jax_and_reference_out():
 
 
 def test_sources_import_no_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|d3dp_tpu)(\.|\s|$)", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|d3dp_tpu|grain)(\.|\s|$)", re.M)
     files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
     for f in files:
@@ -58,7 +58,8 @@ def test_package_mirrors_layout():
               "viz.visualization", "in_the_wild.inference", "cli.render", "cli.main_draw",
               "cli.main_in_the_wild", "parallel.mesh", "parallel.multihost",
               "parallel.tp", "ops.residual_ln", "utils.misc", "utils.logging",
-              "utils.profiling"):
+              "utils.profiling", "data.native", "data.prefetch", "utils.graph",
+              "ops.tuning"):
         assert f"d3dp_tpu_torch.{m}" in _modules(), m
 
 
@@ -98,16 +99,20 @@ ptxas info    : Function properties for _Z1cv
 
 
 def test_train_modules_import_no_jax():
-    """The training slice's modules, with the tensor-parallel ones, imported
-    alone, pull in no JAX."""
+    """The training slice's modules, with the tensor-parallel ones, the host
+    pipeline (the native assembler, the Prefetcher of either
+    `--input-pipeline`), the checkpoint formats and the graph helpers,
+    imported alone, pull in no JAX and no grain."""
     code = (
         "import sys\n"
         "import d3dp_tpu_torch.train.state, d3dp_tpu_torch.ops.attention\n"
         "import d3dp_tpu_torch.data.generators\n"
         "import d3dp_tpu_torch.parallel.tp, d3dp_tpu_torch.ops.residual_ln\n"
+        "import d3dp_tpu_torch.data.native, d3dp_tpu_torch.data.prefetch\n"
+        "import d3dp_tpu_torch.train.checkpoint_io, d3dp_tpu_torch.utils.graph\n"
         "from d3dp_tpu_torch.ops.attention import fused_attention_qkv_ad\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'd3dp_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'd3dp_tpu', 'grain', 'orbax')]\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -190,20 +190,47 @@ def test_partial_forms_sum_to_the_whole(kind, tp, rng):
 
 
 def test_unported_tp_paths_raise(monkeypatch):
-    """The hmqkv variant's stage and the D3DP_TRAIN_FUSED=1 path have no
-    tensor-parallel form: both raise on a split model."""
+    """The two paths that had no tensor-parallel form (and raised here) now
+    run on a split model through their tp forms: under the hmqkv variant
+    level 4 takes the head-major partial stage (K8-tp) on the rank's cached
+    head-major stacks, and with D3DP_TRAIN_FUSED=1 training takes the
+    partial forms' autograd Functions and `residual_ln_ad` (K8-tp again
+    under hmqkv), with a gradient for every parameter. Rank 0 of 2 without a
+    process group computes its own share only; the two ranks' results
+    against JAX and one process are tests/test_torch_tp_fused.py's.
+    shard_params' own errors still raise."""
+    from d3dp_tpu_torch.models import mixste as tmixste
+
     model = MixSTE2(MixSTEConfig(**CFG, fuse_level=4), device="cpu")
     tmesh.shard_params(model, tmesh.Mesh(1, 2, 0, (torch.device("cpu"),) * 2))
     assert model.STEblocks[0].attn.num_heads == 2 and model.tp.size == 2
-    x2d, x3d = (torch.zeros(1, 27, 17, n) for n in (2, 3))
-    t = torch.zeros(1, dtype=torch.long)
+    calls = {}
+    for mod, name in ((tattn, "attention_stage_hm_partial"), (tattn, "attention_stage_partial"),
+                      (tattn, "attention_stage_partial_ad"), (tmlp, "mlp_block_partial_ad"),
+                      (tmixste, "residual_ln_ad")):
+        def wrap(*a, _f=getattr(mod, name), _n=name, **k):
+            calls[_n] = calls.get(_n, 0) + 1
+            return _f(*a, **k)
+        monkeypatch.setattr(mod, name, wrap)
+    rng = np.random.RandomState(2)
+    x2d, x3d = (torch.from_numpy(rng.randn(1, 27, 17, n).astype(np.float32) * 0.3)
+                for n in (2, 3))
+    t = torch.tensor([500])
     monkeypatch.setenv("D3DP_ATTN_VARIANT", "hmqkv")
-    with pytest.raises(NotImplementedError, match="hmqkv under --tp"):
-        model(x2d, x3d, t)
-    monkeypatch.delenv("D3DP_ATTN_VARIANT")
+    out = model(x2d, x3d, t)
+    assert out.shape == (1, 27, 17, 3) and torch.isfinite(out).all()
+    assert calls == {"attention_stage_hm_partial": 4}
     monkeypatch.setenv("D3DP_TRAIN_FUSED", "1")
-    with pytest.raises(NotImplementedError, match="D3DP_TRAIN_FUSED=1 under --tp"):
-        model(x2d, x3d, t, train=True, drop_path=False)
+    for variant, want in (("hmqkv", 4), ("", 0)):
+        calls.clear()
+        monkeypatch.setenv("D3DP_ATTN_VARIANT", variant)
+        model.zero_grad()
+        model(x2d, x3d, t, train=True, drop_path=False).square().mean().backward()
+        assert calls == {"attention_stage_partial_ad": 4, "attention_stage_partial": 4,
+                         "mlp_block_partial_ad": 4, "residual_ln_ad": 8,
+                         **({"attention_stage_hm_partial": want} if want else {})}
+        assert all(p.grad is not None and torch.isfinite(p.grad).all()
+                   for p in model.parameters())
     with pytest.raises(ValueError, match="already split"):
         tmesh.shard_params(model, tmesh.Mesh(1, 2, 0, (torch.device("cpu"),) * 2))
     with pytest.raises(ValueError, match="must divide"):

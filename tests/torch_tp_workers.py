@@ -6,9 +6,14 @@ JAX), beside tests/torch_dp_workers.py, whose `rank_main` starts them.
 level 5 with DDIM feature reuse on injected noise, the gradients of one
 training forward, and a checkpoint round trip. `train_eval_tasks(inputs,
 mesh)`: the training steps, the Evaluator (host and device P2) and the 3DHP
-evaluator of torch_dp_workers. With mesh=None, the one-process reference.
+evaluator of torch_dp_workers. `fused_tasks(inputs, mesh)`: the paths that
+tp took last: `sample` at level 4 under `D3DP_ATTN_VARIANT=hmqkv`, the loss
+and every gradient of one `D3DP_TRAIN_FUSED=1` forward at fuse levels 1, 2
+and 4 with DropPath, a few such steps, and the `--ckpt-format orbax` (DCP)
+checkpoints across tp 1 and 2. With mesh=None, the one-process reference.
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -16,9 +21,10 @@ import torch
 
 from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
 from d3dp_tpu_torch.models import MixSTEConfig
+from d3dp_tpu_torch.parallel import mesh as tmesh
 from d3dp_tpu_torch.parallel import shard_model_params
 from d3dp_tpu_torch.train import checkpoint_io
-from d3dp_tpu_torch.train.state import make_optimizer
+from d3dp_tpu_torch.train.state import make_optimizer, make_train_step, weighted_mpjpe
 from tests import torch_dp_workers as W
 
 LEVELS = (0, 1, 2, 3, 4, 5)
@@ -127,3 +133,115 @@ def rng_batch(seed, B, F, J=17):
     rng = np.random.RandomState(seed)
     return ((rng.randn(B, F, J, 2) * 0.3).astype(np.float32),
             (rng.randn(B, F, J, 3) * 0.3).astype(np.float32))
+
+
+# ------------------------------------------------------------ fused_tasks
+FUSED_LEVELS = (1, 2, 4)
+FUSED_STEPS = 3
+
+
+@contextlib.contextmanager
+def env(name, value):
+    """One environment variable set for a block (a lab switch)."""
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name)
+        else:
+            os.environ[name] = saved
+
+
+def whole_grads(model):
+    """{name: gradient} of every parameter, a split one's gathered over its
+    tp group (every rank takes part)."""
+    spec = tmesh.mixste_param_spec(dict(model.named_parameters()))
+    out = {}
+    for n, p in model.named_parameters():
+        g = p.grad if model.tp is None else tmesh.gather_tensor(n, p.grad, spec[n], model.tp)
+        out[n] = g.numpy().copy()
+    return out
+
+
+def _fused(inputs):
+    """The inputs with the training model's config and weights."""
+    return dict(inputs, cfg=inputs["fused_cfg"], state_dict=inputs["fused_state_dict"])
+
+
+def _fused_grads(inputs, mesh, level):
+    """Loss and every (gathered) gradient of one fp32 `D3DP_TRAIN_FUSED=1`
+    training forward at `level`, DropPath 0.1 with the inputs' masks, and
+    the replicated parameters' gradients as this rank holds them."""
+    d = sampler(_fused(inputs), mesh, level, drop_path_rate=0.1)
+    x2d, x3d, t, noise, w = (torch.from_numpy(a) for a in inputs["fused_batch"])
+    pred = d.train_forward(x2d, x3d, t_noise_override=(t, noise),
+                           droppath_masks=inputs["fused_masks"])
+    loss = weighted_mpjpe(pred, x3d, w)
+    loss.backward()
+    spec = tmesh.mixste_param_spec(dict(d.model.named_parameters()))
+    return dict(loss=float(loss.detach()), grads=whole_grads(d.model),
+                replicated={n: p.grad.numpy().copy() for n, p in d.model.named_parameters()
+                            if spec[n] is None})
+
+
+def _fused_steps(inputs, mesh):
+    """FUSED_STEPS `D3DP_TRAIN_FUSED=1` AdamW steps at level 4 (DropPath
+    0.1 drawn by the step from one seeded generator): the losses, the whole
+    parameters after them, the replicated ones as this rank holds them, and
+    the model and optimizer (for the checkpoint task)."""
+    d = sampler(_fused(inputs), mesh, 4, drop_path_rate=0.1)
+    opt = make_optimizer(d.model.parameters(), W.LR_TRAIN)
+    step = make_train_step(d, opt, mesh=mesh)
+    g = torch.Generator().manual_seed(13)
+    x2d, x3d, _, _, w = inputs["fused_batch"]
+    losses = [float(step(x2d, x3d, w, generator=g)) for _ in range(FUSED_STEPS)]
+    spec = tmesh.mixste_param_spec(dict(d.model.named_parameters()))
+    whole = {n: p.numpy().copy() for n, p in tmesh.gather_params(d.model).items()}
+    replicated = {n: p.detach().numpy().copy() for n, p in d.model.named_parameters()
+                  if spec[n] is None}
+    return dict(losses=losses, params=whole, replicated=replicated), d, opt
+
+
+def _dcp_checkpoints(inputs, mesh, d, opt):
+    """`--ckpt-format orbax`: save the stepped model and optimizer as a DCP
+    directory (asynchronously, then waited for) to inputs["dcp_out"]; under
+    a mesh also load the one-process directory inputs["dcp_ref"] into a
+    split model (`shard_checkpoint`) and save it again as a pickle, to
+    inputs["dcp_back"]: both are free of the tp layout."""
+    rs = np.random.RandomState(21)
+    rs.rand(7)
+    checkpoint_io.save_checkpoint_any(inputs["dcp_out"], "orbax", epoch=3, lr=W.LR_TRAIN,
+                                      model=d.model, optimizer=opt, generator_random_state=rs,
+                                      min_loss=12.5, wait=False)
+    checkpoint_io.wait_for_checkpoints()
+    if mesh is None:
+        return None
+    e = sampler(_fused(inputs), mesh, 4)
+    opt2 = make_optimizer(e.model.parameters(), W.LR_TRAIN)
+    ck = checkpoint_io.shard_checkpoint(checkpoint_io.load_any(inputs["dcp_ref"]), e.model)
+    e.model.load_state_dict(ck["model"])
+    opt2.load_state_dict(ck["optimizer"])
+    checkpoint_io.save_checkpoint(inputs["dcp_back"], epoch=ck["epoch"], lr=ck["lr"],
+                                  model=e.model, optimizer=opt2,
+                                  generator_random_state=ck["random_state"],
+                                  min_loss=ck["min_loss"])
+    return True
+
+
+def fused_tasks(inputs, mesh=None):
+    torch.set_num_threads(1)
+    x2d, x2d_f = (torch.from_numpy(a) for a in inputs["sample_x2d"])
+    with env("D3DP_ATTN_VARIANT", "hmqkv"):
+        d = sampler(inputs, mesh, 4, sampling_timesteps=W.K)
+        hm = d.sample(x2d, x2d_f, noise_override=inputs["sample_noise"]).numpy()
+    with env("D3DP_TRAIN_FUSED", "1"):
+        grads = {level: _fused_grads(inputs, mesh, level) for level in FUSED_LEVELS}
+        steps, d, opt = _fused_steps(inputs, mesh)
+    name = "dcp_tp2" if mesh is not None else "dcp_tp1"
+    inputs = dict(inputs, dcp_out=os.path.join(inputs["tmp"], f"{name}.orbax"),
+                  dcp_ref=os.path.join(inputs["tmp"], "dcp_tp1.orbax"),
+                  dcp_back=os.path.join(inputs["tmp"], "dcp_tp1_at_tp2.ckpt"))
+    return dict(hm_sample=hm, fused_grads=grads, fused_steps=steps,
+                dcp=_dcp_checkpoints(inputs, mesh, d, opt))
