@@ -71,11 +71,14 @@ random weights from a fixed seed:
     over the ranks against the whole kernels (K1-dp, K2-dp and K5-dp
     through the DropPath form), each timed at a rank's rows; two ranks at
     tp=2 sharing the card over gloo evaluate one Eval-config window at
-    fuse levels 2-5 (level 5 on the gathered weights, equal to one process
-    bit for bit) and at bf16 level 4 under `D3DP_ATTN_VARIANT=hmqkv`
-    (equal to level 4 bit for bit), train 3
-    steps (fp32 and bf16) and 2 `D3DP_TRAIN_FUSED=1` steps (level 4,
-    DropPath 0.1) against one process, with exact launch counts a rank;
+    fuse levels 2-5 and at bf16 level 4 under `D3DP_ATTN_VARIANT=hmqkv`,
+    the whole kernels on the gathered weights, equal to one process bit
+    for bit, train 3 steps (fp32 and bf16) and 2 `D3DP_TRAIN_FUSED=1`
+    steps (level 4, DropPath 0.1) against one process, and one bf16
+    `D3DP_TRAIN_FUSED=1` step at level 3 and one under hmqkv, with exact
+    launch counts a rank;
+  * `D3DP.sample` at a per-call H and K (phase call_args), at fuse levels 4
+    and 5, against a sampler configured with them;
 and times them. The stage, MLP and trunk kernels are also held against
 their plain versions at the 3DHP evaluation's 80 hypothesis rows. Every phase raises on failure; the script exits non-zero
 without a CUDA device and prints nothing then but the reason. The last
@@ -87,11 +90,10 @@ lines' own output to `chiprun_out/chip_smoke_cli.log`,
 Phase dp's and phase tp's per-rank launch counts are `{"dp_launches": ...}`
 and `{"tp_launches": ...}` lines of their own, before the last two lines.
 
-`--tp-depth N` runs only a probe of the tensor-parallel rounding: phase
-tp's fp32 level-4 evaluation, with and without hmqkv, at depth N on two
-ranks over gloo against one process, printing the four modes' gap beside
-phase tp's tolerance (TP_MODE_TOL + TP_MODE_REL of the mode) and whether
-the hmqkv prediction equals the one without it.
+`--tp-depth N` runs only a probe of tensor-parallel evaluation at another
+depth: phase tp's fp32 level-4 evaluation, with and without hmqkv, at
+depth N on two ranks over gloo against one process, printing the four
+modes' gap and whether each prediction equals one process's.
 """
 
 import argparse
@@ -2307,6 +2309,46 @@ def phase_hmqkv(torch, record, d3dp, x2d, x2d_f):
     record["launches"]["attention_stage_hm"] = counts.get("attention_stage_hm", 0)
 
 
+CALL_HK = (3, 2)  # a per-call H and K other than the Eval config's
+
+
+def phase_call_args(torch, record, d3dp, x2d, x2d_f):
+    """`D3DP.sample(..., num_proposals=, sampling_timesteps=)`: the Eval
+    config's sampler (H=K=5) called at CALL_HK on injected noise, at fuse
+    levels 4 and 5, equal bit for bit to a sampler configured with that H
+    and K on the same model and noise, with that call's launches (K1 and K2
+    2 x depth x K at level 4, K9 K at level 5)."""
+    from d3dp_tpu_torch.diffusion import D3DP
+
+    h, k = CALL_HK
+    fixed = D3DP(dataclasses.replace(d3dp.cfg, num_proposals=h, sampling_timesteps=k),
+                 model=d3dp.model)
+    g = torch.Generator(device="cuda").manual_seed(60)
+    noise = (torch.randn(B, h, F, J, 3, generator=g, device="cuda"),
+             torch.randn(k, B, h, F, J, 3, generator=g, device="cuda"))
+    out = {}
+    for level in (4, 5):
+        set_level(d3dp.model, level)
+        reset_counts()
+        got = d3dp.sample(x2d, x2d_f, noise_override=noise, num_proposals=h,
+                          sampling_timesteps=k)
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in read_counts().items() if c}
+        want = {n: per_forward(level) * k for n in LEVEL_KERNELS[level]}
+        equal = torch.equal(got, fixed.sample(x2d, x2d_f, noise_override=noise))
+        ok = (tuple(got.shape) == (B, k, h, F, J, 3) and bool(torch.isfinite(got).all())
+              and equal and counts == want)
+        log(f"[call_args] D3DP.sample(num_proposals={h}, sampling_timesteps={k}) on the "
+            f"H={H}, K={K} sampler at level {level}: shape {tuple(got.shape)}, equal to a "
+            f"sampler configured with H={h}, K={k} {equal}; launches {counts} (expected "
+            f"{want}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"D3DP.sample at a per-call H and K at level {level}: differs from a "
+              "configured sampler, or launch counts")
+        out[level] = dict(launches=counts, equal=equal)
+    set_level(d3dp.model, 4)
+    record["call_args"] = out
+
+
 def phase_public_dp(torch, record):
     """The row-form MLP kernel's DropPath form (K5-dp) has no model path (the
     level-4 flow runs the transposing form); its path is its public op,
@@ -3062,9 +3104,9 @@ KEY_BIAS_ZERO = 2.0 ** -8
 BF16_LOSS_TOL = 1e-3
 
 
-def dp_train(torch, mesh, dtype, steps=DP_STEPS):
+def dp_train(torch, mesh, dtype, steps=DP_STEPS, level=None):
     """`steps` train steps at the train config (DropPath 0.1, AdamW 6e-5)
-    in `dtype`, batches of BT chunks from a seeded ChunkedGenerator through
+    in `dtype` (at fuse level `level`, default the config's), batches of BT chunks from a seeded ChunkedGenerator through
     the Prefetcher (under a mesh with `shard_batch_fn`, BT / dp chunks a
     rank), weights from seed 0 perturbed by seed 1 (then split over the
     mesh's tp ranks, phase tp). Returns (losses, the whole parameters on the
@@ -3081,8 +3123,9 @@ def dp_train(torch, mesh, dtype, steps=DP_STEPS):
 
     dev = torch.device("cuda") if mesh is None else mesh.device
     cfg = train_config(torch)
-    d3dp = D3DP(dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype)),
-                device=dev, seed=0)
+    model_cfg = dataclasses.replace(cfg.model, dtype=dtype,
+                                    fuse_level=cfg.model.fuse_level if level is None else level)
+    d3dp = D3DP(dataclasses.replace(cfg, model=model_cfg), device=dev, seed=0)
     perturb_(torch, d3dp.model, 1)
     shard_model_params(d3dp.model, mesh)
     step = make_train_step(d3dp, make_optimizer(d3dp.model.parameters(), 6e-5), mesh=mesh)
@@ -3748,10 +3791,11 @@ def tp_kernel_rows(torch, Fn, rows=TP_ROWS, tp=TP):
 def tp_eval(torch, mesh, dtype, levels, depth=DEPTH):
     """The Eval config (H=5, K=5, flip-TTA) on one micro-batch of TP_WINDOWS
     windows of a synthetic sequence through the Evaluator at each fuse
-    level, in `dtype`, on one noise seed; the weights (`depth` blocks) from
-    seed 0 perturbed by seed 1, then split over the mesh's tp ranks. Returns
-    {level: (P1 mode -> (K,) list, seconds, launches, the prediction on the
-    host)}."""
+    level, in `dtype`, on one noise seed, each after an untimed warm-up
+    call (the first of which, under tp, gathers the weights); the weights
+    (`depth` blocks) from seed 0 perturbed by seed 1, then split over the
+    mesh's tp ranks. Returns {level: (P1 mode -> (K,) list, seconds,
+    launches, the prediction on the host)}."""
     from d3dp_tpu_torch.data.generators import UnchunkedGenerator
     from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT, make_dataset
     from d3dp_tpu_torch.diffusion import D3DP
@@ -3778,14 +3822,15 @@ def tp_eval(torch, mesh, dtype, levels, depth=DEPTH):
     out = {}
     for level in levels:
         set_level(d3dp.model, level)
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = ev.evaluate(UnchunkedGenerator(*data),
-                          torch.Generator(device=dev).manual_seed(21)).averages_mm()
-        torch.cuda.synchronize()
+        for _ in range(2):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ev.evaluate(UnchunkedGenerator(*data),
+                              torch.Generator(device=dev).manual_seed(21)).averages_mm()
+            torch.cuda.synchronize()
         out[level] = ({m: res[m].tolist() for m in MODES}, time.perf_counter() - t0,
-                      read_counts(), preds[-1].float().cpu())
+                      {n: c for n, c in read_counts().items() if c}, preds[-1].float().cpu())
     return out
 
 
@@ -3800,25 +3845,41 @@ TP_FUSED_STEPS = 2
 TP_FUSED_LAUNCHES = {"attention_stage_partial": 2 * DEPTH, "mlp_block_partial": 2 * DEPTH,
                      "residual_ln": 4 * DEPTH, "residual_ln[dp]": 4 * (DEPTH - 1),
                      "fused_attention_qkv": 2 * DEPTH, "fused_attention_qkv_bwd": 2 * DEPTH}
-# the fp32 four modes at tp=2 against one process: the whole-pipeline
-# tolerance (3.1e-4 mm) plus one part in 1e6 of the mode. The tp ranks sum
-# each row-parallel product as two fp32 halves where one process sums it
-# in one pass, a rounding apart (2^-23 relative) at each of the 16 block
-# halves' two sums, carried through 5 DDIM steps: 5.2e-4 mm was read on an
-# NVIDIA H100 80GB HBM3; the launches, level 5 (bit for bit) and the fp32
-# training (losses 1.4e-7 relative) leave it no other cause.
-TP_MODE_TOL, TP_MODE_REL = 3.1e-4, 1e-6
+# one bf16 D3DP_TRAIN_FUSED=1 step on each of the other two partial forms'
+# paths, (fuse level, D3DP_ATTN_VARIANT): level 3 runs K6-tp on the two
+# blocks at DropPath rate 0 (levels 1-3 compose the others); hmqkv runs
+# K8-tp in place of K1-tp
+TP_EXTRA = {"level 3": (3, None), "hmqkv": (4, "hmqkv")}
+TP_EXTRA_LAUNCHES = {
+    "level 3": {"attention_block_partial": 2, "mlp_block_partial": 2, "residual_ln": 4,
+                "attention_stage_partial": 0, "residual_ln[dp]": 0},
+    "hmqkv": {"attention_stage_hm_partial": 2 * DEPTH, "attention_stage_partial": 0,
+              "mlp_block_partial": 2 * DEPTH, "residual_ln": 4 * DEPTH,
+              "residual_ln[dp]": 4 * (DEPTH - 1)}}
+
+
+def tp_extra_steps(torch, mesh):
+    """One bf16 `D3DP_TRAIN_FUSED=1` step on each path of TP_EXTRA: {name:
+    (losses, seconds, launches)}."""
+    out = {}
+    with env_var("D3DP_TRAIN_FUSED", "1"):
+        for name, (level, variant) in TP_EXTRA.items():
+            with env_var("D3DP_ATTN_VARIANT", variant):
+                losses, _, step_s, _, _, d3dp = dp_train(torch, mesh, torch.bfloat16, 1, level)
+            out[name] = dict(losses=losses, step_s=step_s, launches=dp_train.launches)
+            del d3dp
+    return out
 
 
 def tp_rank(out_dir, devices):
     """One rank of phase tp (a spawned process): DP_STEPS train steps (fp32
     and bf16), TP_FUSED_STEPS `D3DP_TRAIN_FUSED=1` steps (fp32 and bf16,
-    level 4, DropPath 0.1), tp_eval (fp32 at levels 4 and 5, bf16 at 2-5)
-    and tp_eval at bf16 level 4 under `D3DP_ATTN_VARIANT=hmqkv` on a (dp=1,
-    tp=TP) mesh over `devices`, training against the one-process reference
-    in out_dir/ref.pt; one fp32 activation's all-reduce timed;
-    the report to out_dir/rank<r>.json and the predictions to
-    out_dir/rank<r>.pt."""
+    level 4, DropPath 0.1) and the TP_EXTRA steps, tp_eval (fp32 at levels
+    4 and 5, bf16 at 2-5) and tp_eval at bf16 level 4 under
+    `D3DP_ATTN_VARIANT=hmqkv` on a (dp=1, tp=TP) mesh over `devices`,
+    training against the one-process reference in out_dir/ref.pt; one fp32
+    activation's all-reduce timed; the report to out_dir/rank<r>.json and
+    the predictions to out_dir/rank<r>.pt."""
     import torch
     import torch.distributed as dist
 
@@ -3833,7 +3894,9 @@ def tp_rank(out_dir, devices):
     with env_var("D3DP_TRAIN_FUSED", "1"):
         fused, d3dp = dp_train_rep(torch, mesh, ref["fused"], steps=TP_FUSED_STEPS)
     del d3dp
-    # one block half's fp32 partial at the path's rows, all-reduced over the group
+    extra = tp_extra_steps(torch, mesh)
+    # gloo's rate: one block half's fp32 partial at the eval rows, all-reduced
+    # over the group (the training tp flows all-reduce such activations)
     act = torch.zeros(TP_ROWS * F * J * C, device=mesh.device)
     dist.all_reduce(act, group=mesh.tp_group)
     torch.cuda.synchronize()
@@ -3852,7 +3915,7 @@ def tp_rank(out_dir, devices):
     hm = ev[:3]
     preds["bfloat16"]["hm"] = ev[3]
     rep = dict(rank=mesh.rank, device=str(mesh.device), train=train, eval=evals, fused=fused,
-               hm=hm, act_allreduce_s=act_s, act_bytes=act.numel() * 4)
+               extra=extra, hm=hm, act_allreduce_s=act_s, act_bytes=act.numel() * 4)
     with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
         json.dump(rep, f)
     torch.save(preds, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
@@ -3861,16 +3924,12 @@ def tp_rank(out_dir, devices):
 def check_tp_ranks(torch, out_dir, ref_eval, record):
     """Phase tp (ii) and (iii): read and hold the ranks' reports. Training
     as phase dp holds it (`check_dp_ranks`), every bf16 loss at
-    BF16_LOSS_TOL; the evaluator at fp32 levels 4
-    and 5 within 3.1e-4 mm of one process; bf16 level 4's prediction no
-    farther from one process's fp32 prediction than 1.05x one process's bf16
-    prediction; level 5 (K9 on the gathered weights) equal to one process's
-    bit for bit; the launches a call: 80 K1-tp, 80 K2-tp, 160 residual_ln
-    and no K1 or K2 at level 4; 80 K6-tp with 80 K2/K5-tp and 160
-    residual_ln at levels 2 and 3; 5 K9 at level 5; 16 K3 + 16 K4 a train
-    step."""
-    per_call = 2 * DEPTH * K
-    reps, launches = [], {}
+    BF16_LOSS_TOL; the evaluator at fp32 levels 4 and 5 and bf16 levels
+    2-5 equal to one process: the predictions bit for bit, the four modes
+    and the launches a call the same (each level's whole kernels,
+    LEVEL_KERNELS, 2 x depth x K a call, K9 K; no tp form); 16 K3 + 16 K4
+    a train step."""
+    reps = []
     for r in range(TP):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             rep = json.load(f)
@@ -3886,27 +3945,18 @@ def check_tp_ranks(torch, out_dir, ref_eval, record):
                     and all(math.isfinite(v) for v in t16["losses"]))
         ok_steps = all(tuple(c) == (2 * DEPTH, 2 * DEPTH) for t in (t32, t16)
                        for c in t["step_counts"])
-        e32, e16 = rep["eval"]["float32"], rep["eval"]["bfloat16"]
-        pairs = [(a, b) for lv in ("4", "5") for m, v in e32[lv][0].items()
-                 for a, b in zip(v, ref_eval["float32"][int(lv)][0][m])]
-        mode_gap = max(abs(a - b) for a, b in pairs)
-        mode_max = max(abs(b) for _, b in pairs)
-        mode_tol = TP_MODE_TOL + TP_MODE_REL * mode_max
-        want32 = ref_eval["float32"][4][3]
-        d_tp = (preds["bfloat16"][4] - want32).norm().item()
-        d_one = (ref_eval["bfloat16"][4][3] - want32).norm().item()
-        equal5 = all(torch.equal(preds[n][5], ref_eval[n][5][3]) for n in preds)
-        c4, c3, c2 = e16["4"][2], e16["3"][2], e16["2"][2]
-        ok_launch = (
-            c4["attention_stage_partial"] == c4["mlp_block_partial"] == per_call
-            and c4["residual_ln"] == 2 * per_call and c4["attention_stage"] == 0
-            and c4["mlp_block_t"] == 0 and e32["4"][2]["attention_stage_partial"] == per_call
-            and all(c["attention_block_partial"] == c["mlp_block_partial"] == per_call
-                    and c["residual_ln"] == 2 * per_call and c["attention_block"] == 0
-                    and c["mlp_block"] == c["mlp_block_t"] == 0 for c in (c3, c2))
-            and e16["5"][2]["resident_block_stack"] == K and ok_steps)
-        ok = (ok_train and mode_gap <= mode_tol and d_tp <= 1.05 * d_one and equal5
-              and ok_launch)
+        held = []
+        for name, levels in TP_LEVELS.items():
+            for lv in levels:
+                modes, secs, counts = rep["eval"][name][str(lv)]
+                want = {k: per_forward(lv) * K for k in LEVEL_KERNELS[lv]}
+                held.append(dict(
+                    what=f"{name} level {lv}", seconds=secs, counts=counts,
+                    equal=torch.equal(preds[name][lv], ref_eval[name][lv][3]),
+                    modes_equal=modes == ref_eval[name][lv][0],
+                    launches_ok=counts == want == ref_eval[name][lv][2]))
+        ok_eval = all(h["equal"] and h["modes_equal"] and h["launches_ok"] for h in held)
+        ok = ok_train and ok_steps and ok_eval
         for name, t in (("fp32", t32), ("bf16", t16)):
             log(f"[tp] rank {r} on {rep['device']}: {name} train losses "
                 f"{' '.join(f'{v:.6f}' for v in t['losses'])}; against one process: losses "
@@ -3914,52 +3964,34 @@ def check_tp_ranks(torch, out_dir, ref_eval, record):
                 f"L2 {t['param_rel_l2']:.3e} (every parameter {t['param_rel_l2_all']:.3e}; "
                 f"max|diff| / max|p| {t['param_rel_max']:.3e}); s/step "
                 f"{' '.join(f'{v:.4f}' for v in t['step_s'])}; K3/K4 a step {t['step_counts']}")
-        log(f"[tp] rank {r}: evaluator fp32 levels 4, 5 four modes max|diff| to one process "
-            f"{mode_gap:.3e} mm at modes up to {mode_max:.3f} mm (tol {TP_MODE_TOL:g} + "
-            f"{TP_MODE_REL:g} x {mode_max:.3f} = {mode_tol:.3e}); bf16 level 4 prediction's L2 "
-            f"distance from one "
-            f"process's fp32 {d_tp:.5e} against one process's bf16 {d_one:.5e} (tol 1.05x); "
-            f"level 5 equal to one process's (fp32, bf16) {equal5}; launches a call: level 4 "
-            f"K1-tp {c4['attention_stage_partial']} K2-tp {c4['mlp_block_partial']} "
-            f"residual_ln {c4['residual_ln']} K1 {c4['attention_stage']} K2 {c4['mlp_block_t']}; "
-            f"level 3 K6-tp {c3['attention_block_partial']} K2/K5-tp {c3['mlp_block_partial']}; "
-            f"level 2 K6-tp {c2['attention_block_partial']} K2/K5-tp {c2['mlp_block_partial']}; "
-            f"level 5 K9 {e16['5'][2]['resident_block_stack']}; train {ok_train}, launches "
-            f"{ok_launch} {'ok' if ok else 'FAIL'}")
-        log(f"[tp] rank {r}: s/micro-batch ({TP_WINDOWS} window, {TP_ROWS} rows) fp32 level 4 "
-            f"{e32['4'][1]:.4f} level 5 {e32['5'][1]:.4f}; bf16 levels 2-5 "
-            + " ".join(f"{e16[lv][1]:.4f}" for lv in ("2", "3", "4", "5"))
-            + f"; one fp32 activation all-reduce ({rep['act_bytes'] / 1e6:.1f} MB, gloo) "
+        for h in held:
+            log(f"[tp] rank {r}: evaluator {h['what']}: prediction equal to one process's "
+                f"{h['equal']}, four modes equal {h['modes_equal']}; launches a call "
+                f"{h['counts']} (one process's, no tp form: {h['launches_ok']}); "
+                f"s/micro-batch ({TP_WINDOWS} window, {TP_ROWS} rows) {h['seconds']:.4f}")
+        log(f"[tp] rank {r}: train {ok_train}, steps {ok_steps}, evaluation {ok_eval}; one fp32 "
+            f"activation all-reduce ({rep['act_bytes'] / 1e6:.1f} MB, gloo) "
             f"{rep['act_allreduce_s'] * 1e3:.2f} ms = "
-            f"{rep['act_allreduce_s'] * 1e3 / (rep['act_bytes'] / 1e6):.3f} ms/MB")
+            f"{rep['act_allreduce_s'] * 1e3 / (rep['act_bytes'] / 1e6):.3f} ms/MB "
+            f"{'ok' if ok else 'FAIL'}")
         check(ok, f"phase tp: rank {r} disagrees with one process or miscounts launches")
-        if r == 0:
-            launches.update(attention_stage_partial=c4["attention_stage_partial"],
-                            mlp_block_partial=c4["mlp_block_partial"],
-                            residual_ln=c4["residual_ln"],
-                            attention_block_partial=c3["attention_block_partial"])
     same = all(reps[0]["train"][n]["losses"] == reps[1]["train"][n]["losses"]
                for n in ("float32", "bfloat16"))
     same = same and all(reps[0]["eval"][n][lv][0] == reps[1]["eval"][n][lv][0]
                         for n in reps[0]["eval"] for lv in reps[0]["eval"][n])
     check(same, "phase tp: the ranks' losses or metrics differ")
-    log("[tp] " + json.dumps({"tp_launches": [
-        {"rank": rep["rank"], **{f"level{lv} {k}": v for lv, e in rep["eval"]["bfloat16"].items()
-                                 for k, v in e[2].items() if v}} for rep in reps]}))
     record["tp"] = dict(ranks=reps)
-    return launches
 
 
-def check_tp_last_paths(torch, out_dir, record):
+def check_tp_last_paths(torch, out_dir, ref_extra, ref_hm, record):
     """Phase tp (v) and (vi): the ranks' `D3DP_TRAIN_FUSED=1` steps held as
     phase dp holds training (fp32 losses 1e-5 relative, parameters 1e-3
     relative L2; bf16 losses at BF16_LOSS_TOL), with the launches of
-    TP_FUSED_LAUNCHES a step; the bf16 hmqkv level-4 evaluator's prediction
-    equal bit for bit to the rank's bf16 level-4 prediction without the
-    switch (K8-tp's partial is K1-tp's; that prediction is held against one
-    process by `check_tp_ranks`), with 80 K8-tp, 80 K2-tp and 160
-    residual_ln a call and no K1-tp; the ranks equal. Returns rank 0's launches of K8-tp (bf16 call)
-    and of residual_ln's DropPath form (bf16 step)."""
+    TP_FUSED_LAUNCHES a step; the TP_EXTRA steps' losses at BF16_LOSS_TOL of
+    one process's, with TP_EXTRA_LAUNCHES; the bf16 hmqkv level-4
+    evaluator's prediction equal bit for bit to one process's, with 80 K8
+    and 80 K2 a call and no tp form; the ranks equal. Returns rank 0's
+    launches of the tp forms on these steps (bf16)."""
     per_call = 2 * DEPTH * K
     reps, launches = [], {}
     for r in range(TP):
@@ -3972,13 +4004,17 @@ def check_tp_last_paths(torch, out_dir, record):
                     and max(f16["loss_rel"]) <= BF16_LOSS_TOL and f16["param_rel_l2"] <= 1e-3
                     and f32["finite"] and f16["finite"])
         ok_fused_launch = all(t["launches"] == TP_FUSED_LAUNCHES for t in (f32, f16))
+        extra = rep["extra"]
+        extra_rel = {n: abs(e["losses"][0] - ref_extra[n]["losses"][0])
+                     / abs(ref_extra[n]["losses"][0]) for n, e in extra.items()}
+        ok_extra = all(extra_rel[n] <= BF16_LOSS_TOL and all(
+            e["launches"].get(k, 0) == v for k, v in TP_EXTRA_LAUNCHES[n].items())
+            for n, e in extra.items())
         h16 = rep["hm"]
-        same_as_k1 = torch.equal(preds["bfloat16"]["hm"], preds["bfloat16"][4])
+        equal_hm = torch.equal(preds["bfloat16"]["hm"], ref_hm[3])
         c = h16[2]
-        ok_hm = (same_as_k1
-                 and c.get("attention_stage_hm_partial") == c.get("mlp_block_partial") == per_call
-                 and c.get("residual_ln") == 2 * per_call
-                 and not c.get("attention_stage_partial") and not c.get("attention_stage_hm"))
+        ok_hm = (equal_hm and h16[0] == ref_hm[0]
+                 and c == {"attention_stage_hm": per_call, "mlp_block_t": per_call} == ref_hm[2])
         for name, t in (("fp32", f32), ("bf16", f16)):
             log(f"[tp] rank {r}: {name} D3DP_TRAIN_FUSED=1 (level 4, DropPath 0.1) train losses "
                 f"{' '.join(f'{v:.6f}' for v in t['losses'])}; against one process: losses "
@@ -3986,20 +4022,34 @@ def check_tp_last_paths(torch, out_dir, record):
                 f"L2 {t['param_rel_l2']:.3e} (every parameter {t['param_rel_l2_all']:.3e}); "
                 f"s/step {' '.join(f'{v:.4f}' for v in t['step_s'])}; launches a step "
                 f"{t['launches']}")
-        log(f"[tp] rank {r}: hmqkv evaluator bf16 level 4 prediction equal to the rank's level 4 "
-            f"without hmqkv {same_as_k1}; s/micro-batch {h16[1]:.4f}; "
-            f"launches a bf16 call { {n: v for n, v in c.items() if v} }; "
-            f"train {ok_train}, train launches {ok_fused_launch}, hmqkv {ok_hm} "
-            f"{'ok' if ok_train and ok_fused_launch and ok_hm else 'FAIL'}")
-        check(ok_train and ok_fused_launch and ok_hm,
+        for n, e in extra.items():
+            log(f"[tp] rank {r}: bf16 D3DP_TRAIN_FUSED=1 step ({n}) loss {e['losses'][0]:.6f}, "
+                f"{extra_rel[n]:.2e} relative of one process's; {e['step_s'][0]:.4f} s; "
+                f"launches {e['launches']}")
+        log(f"[tp] rank {r}: hmqkv evaluator bf16 level 4 prediction equal to one process's "
+            f"{equal_hm}; s/micro-batch {h16[1]:.4f}; launches a call {c}; train {ok_train}, "
+            f"train launches {ok_fused_launch}, extra steps {ok_extra}, hmqkv {ok_hm} "
+            f"{'ok' if ok_train and ok_fused_launch and ok_extra and ok_hm else 'FAIL'}")
+        check(ok_train and ok_fused_launch and ok_extra and ok_hm,
               f"phase tp: rank {r}'s train-fused or hmqkv run disagrees with one process or "
               "miscounts launches")
         if r == 0:
-            launches.update(attention_stage_hm_partial=c["attention_stage_hm_partial"],
-                            **{"residual_ln[dp]": f16["launches"].get("residual_ln[dp]", 0)})
+            launches.update({k: f16["launches"].get(k, 0) for k in (
+                "attention_stage_partial", "mlp_block_partial", "residual_ln",
+                "residual_ln[dp]")},
+                attention_block_partial=extra["level 3"]["launches"]["attention_block_partial"],
+                attention_stage_hm_partial=extra["hmqkv"]["launches"][
+                    "attention_stage_hm_partial"])
     same = all(reps[0]["fused"][n]["losses"] == reps[1]["fused"][n]["losses"]
                for n in ("float32", "bfloat16")) and reps[0]["hm"][0] == reps[1]["hm"][0]
+    same = same and all(reps[0]["extra"][n]["losses"] == reps[1]["extra"][n]["losses"]
+                        for n in TP_EXTRA)
     check(same, "phase tp: the ranks' train-fused losses or hmqkv metrics differ")
+    log("[tp] " + json.dumps({"tp_launches": [
+        {"rank": rep["rank"], "train_fused": rep["fused"]["bfloat16"]["launches"],
+         **{n: e["launches"] for n, e in rep["extra"].items()},
+         "eval": {f"{n} level {lv}": e[2] for n, es in rep["eval"].items()
+                  for lv, e in es.items()}, "eval hmqkv": rep["hm"][2]} for rep in reps]}))
     return launches
 
 
@@ -4014,7 +4064,8 @@ def phase_tp(torch, record, errs, rows):
           rows (`tp_kernel_rows`, into `rows`);
       (ii) two ranks sharing the card over gloo at tp=2: the Eval config on
           one window (10 hypothesis rows), fp32 at levels 4 and 5 and bf16
-          at levels 2-5, against one process on the same weights and noise;
+          at levels 2-5, equal to one process on the same weights and noise
+          (the whole kernels on the gathered weights);
       (iii) DP_STEPS train steps at tp=2, fp32 and bf16, against one
           process at phase dp's rules (the first bf16 loss too at
           BF16_LOSS_TOL: the tp forward rounds otherwise in bf16);
@@ -4023,11 +4074,11 @@ def phase_tp(torch, record, errs, rows):
       (v) TP_FUSED_STEPS `D3DP_TRAIN_FUSED=1` steps at tp=2 (level 4,
           DropPath 0.1: K1-tp and K2-tp with their backwards, residual_ln
           with the DropPath scale), fp32 and bf16, against one process at
-          phase dp's rules, with TP_FUSED_LAUNCHES a step;
-      (vi) the Eval config's window at bf16 level 4 under hmqkv (K8-tp),
-          equal bit for bit to the rank's level 4 without it (held against
-          one process in (ii)), 80 K8-tp a call.
-    Returns the ranks' launches of the new kernels (rank 0's)."""
+          phase dp's rules, with TP_FUSED_LAUNCHES a step; one bf16 step
+          at level 3 (K6-tp) and one under hmqkv (K8-tp), TP_EXTRA;
+      (vi) the Eval config's window at bf16 level 4 under hmqkv (K8 on the
+          gathered weights), equal bit for bit to one process's.
+    Returns the ranks' launches of the tp forms (rank 0's)."""
     import torch.nn.functional as Fn
 
     from d3dp_tpu_torch.parallel import spawn
@@ -4051,11 +4102,17 @@ def phase_tp(torch, record, errs, rows):
                 f"{' '.join(f'{v:.6f}' for v in losses)}, s/step "
                 f"{' '.join(f'{v:.4f}' for v in step_s)}")
             del d3dp
+    ref_extra = tp_extra_steps(torch, None)
     ref_eval = {name: tp_eval(torch, None, dt, TP_LEVELS[name])
                 for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16))}
+    with env_var("D3DP_ATTN_VARIANT", "hmqkv"):
+        ref_hm = tp_eval(torch, None, torch.bfloat16, (4,))[4]
     log(f"[tp] one process: s/micro-batch ({TP_WINDOWS} window) fp32 level 4 "
         f"{ref_eval['float32'][4][1]:.4f} level 5 {ref_eval['float32'][5][1]:.4f}; bf16 levels "
-        f"2-5 " + " ".join(f"{ref_eval['bfloat16'][lv][1]:.4f}" for lv in (2, 3, 4, 5)))
+        f"2-5 " + " ".join(f"{ref_eval['bfloat16'][lv][1]:.4f}" for lv in (2, 3, 4, 5))
+        + f", hmqkv {ref_hm[1]:.4f}; bf16 D3DP_TRAIN_FUSED=1 step "
+        + ", ".join(f"{n} {e['step_s'][0]:.4f} s (loss {e['losses'][0]:.6f})"
+                    for n, e in ref_extra.items()))
     out_dir = os.path.join(os.getcwd(), "log", "chip_smoke_tp")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
@@ -4065,8 +4122,8 @@ def phase_tp(torch, record, errs, rows):
     spawn(tp_rank, TP, out_dir, ["cuda:0"] * TP, backend="gloo")
     log(f"[tp] two ranks on one card over gloo: {time.perf_counter() - t0:.1f} s with the "
         "processes' start")
-    launches = check_tp_ranks(torch, out_dir, ref_eval, record)
-    launches.update(check_tp_last_paths(torch, out_dir, record))
+    check_tp_ranks(torch, out_dir, ref_eval, record)
+    launches = check_tp_last_paths(torch, out_dir, ref_extra, ref_hm, record)
     shutil.rmtree(out_dir, ignore_errors=True)
     record["tp"]["seconds"] = time.perf_counter() - t_phase
     log(f"[tp] phase tp: {record['tp']['seconds']:.1f} s")
@@ -4092,7 +4149,7 @@ def tp_depth_rank(out_dir, devices, depth):
 
 def tp_depth_probe(torch, depth):
     """The `--tp-depth` probe (module docstring): returns 0 once it has
-    printed its readings, whether or not they fit phase tp's tolerance."""
+    printed its readings, whatever they are."""
     from d3dp_tpu_torch import disable_tf32
     from d3dp_tpu_torch.parallel import spawn
 
@@ -4110,18 +4167,16 @@ def tp_depth_probe(torch, depth):
         got = torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
         for variant, (modes, secs, _, pred) in got.items():
             pairs = [(a, b) for m, v in modes.items() for a, b in zip(v, ref[0][m])]
-            gap = max(abs(a - b) for a, b in pairs)
-            mode_max = max(abs(b) for _, b in pairs)
-            tol = TP_MODE_TOL + TP_MODE_REL * mode_max
-            readings.append(dict(rank=r, variant=variant or "", depth=depth, mode_gap_mm=gap,
-                                 mode_max_mm=mode_max, tol_mm=tol, within=gap <= tol,
+            readings.append(dict(rank=r, variant=variant or "", depth=depth,
+                                 mode_gap_mm=max(abs(a - b) for a, b in pairs),
+                                 mode_max_mm=max(abs(b) for _, b in pairs),
+                                 equal=torch.equal(pred, ref[3]),
                                  pred_l2_gap=(pred - ref[3]).norm().item(), seconds=secs))
-        same = torch.equal(got[None][3], got["hmqkv"][3])
         log(f"[tp-depth] rank {r}, depth {depth}, fp32 level 4: four modes max|diff| to one "
-            f"process " + ", ".join(f"{x['variant'] or 'K1-tp'} {x['mode_gap_mm']:.3e} mm"
+            f"process " + ", ".join(f"{x['variant'] or 'K1'} {x['mode_gap_mm']:.3e} mm "
+                                    f"(prediction equal {x['equal']})"
                                     for x in readings if x["rank"] == r)
-            + f" at modes up to {readings[-1]['mode_max_mm']:.3f} mm (tol "
-            f"{readings[-1]['tol_mm']:.3e}); hmqkv prediction equal to K1-tp's {same}")
+            + f" at modes up to {readings[-1]['mode_max_mm']:.3f} mm")
     shutil.rmtree(out_dir, ignore_errors=True)
     log(json.dumps({"tp_depth": readings}))
     return 0
@@ -4137,12 +4192,13 @@ def kernels_line(rows, errs, launches):
     and K2-dp from the train-fused steps (phase train_fused), K5-dp from its
     public op (phase public_dp), K8 from one D3DP.sample call with hmqkv
     (phase hmqkv); each lab-switch instantiation from its path in phase
-    lab_switches (`phase_lab_switches`); the tensor-parallel forms and
-    residual_ln from rank 0's Evaluator call in phase tp (level 4; K6-tp at
-    level 3), timed at that rank's rows; K8-tp from rank 0's bf16 Evaluator
-    call under hmqkv (level 4), timed at that rank's rows; residual_ln's
-    DropPath form from rank 0's last bf16 `D3DP_TRAIN_FUSED=1` step in
-    phase tp, timed at the train step's shapes."""
+    lab_switches (`phase_lab_switches`); the tensor-parallel forms from
+    rank 0's `D3DP_TRAIN_FUSED=1` steps in phase tp (evaluation under tp
+    runs the whole kernels on the gathered weights): K1-tp, K2/K5-tp,
+    residual_ln and its DropPath form from the last bf16 level-4 step, K6-tp
+    from the level-3 step, K8-tp from the hmqkv step, each timed at a
+    rank's eval rows (residual_ln's DropPath form at the train step's
+    shapes)."""
     meta = {"attention_stage": ("d3dp_tpu_torch/ops/csrc/attention_stage.cu",
                                 "d3dp_tpu/ops/attention.py:396"),
             "mlp_block_t": ("d3dp_tpu_torch/ops/csrc/mlp_block_t.cu",
@@ -4165,8 +4221,9 @@ def kernels_line(rows, errs, launches):
             "mlp_block_dp": ("d3dp_tpu_torch/ops/csrc/mlp_block_t.cu", "d3dp_tpu/ops/mlp.py:378"),
             "attention_stage_hm": ("d3dp_tpu_torch/ops/csrc/attention_stage.cu",
                                    "d3dp_tpu/ops/attention.py:480"),
-            # the tensor-parallel forms (phase tp): each stands in for the
-            # TPU kernel that XLA runs on gathered operands under --tp
+            # the tensor-parallel forms (phase tp), on the train-fused tp
+            # step: each stands in for the TPU kernel that XLA runs on
+            # gathered operands under --tp
             "attention_stage_partial": ("d3dp_tpu_torch/ops/csrc/attention_stage.cu",
                                         "d3dp_tpu/ops/attention.py:396"),
             "attention_block_partial": ("d3dp_tpu_torch/ops/csrc/attention_block.cu",
@@ -4175,9 +4232,8 @@ def kernels_line(rows, errs, launches):
                                   "d3dp_tpu/ops/mlp.py:156"),
             "residual_ln": ("d3dp_tpu_torch/ops/csrc/residual_ln.cu",
                             "d3dp_tpu/ops/mlp.py:156"),
-            # the last tp forms: K8-tp (hmqkv under --tp) and residual_ln's
-            # DropPath form (D3DP_TRAIN_FUSED=1 under --tp, where K1-dp and
-            # K2-dp run on gathered operands in JAX)
+            # K8-tp (hmqkv under --tp) and residual_ln's DropPath form
+            # (where K1-dp and K2-dp run on gathered operands in JAX)
             "attention_stage_hm_partial": ("d3dp_tpu_torch/ops/csrc/attention_stage.cu",
                                            "d3dp_tpu/ops/attention.py:480"),
             "residual_ln[dp]": ("d3dp_tpu_torch/ops/csrc/residual_ln.cu",
@@ -4228,6 +4284,7 @@ def main(argv=None):
     phase_fuse_levels(torch, record, d3dp, x2d, x2d_f)
     phase_resident(torch, record, d3dp, x2d, x2d_f, rows)
     phase_hmqkv(torch, record, d3dp, x2d, x2d_f)
+    phase_call_args(torch, record, d3dp, x2d, x2d_f)
     phase_train(torch, record)
     phase_train_fused(torch, record)
     phase_packed(torch, record)

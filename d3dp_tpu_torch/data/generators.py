@@ -75,13 +75,14 @@ class ChunkedGenerator:
     next_epoch() yields (cam (B, 9), pose3d (B, L, J, 3), pose2d (B, L, J, 2))
     per batch, plus weights (B,) with `pad_last`; cam and pose3d are None
     where not given. `endless` makes next_epoch() run forever, resuming
-    mid-epoch where the previous iterator stopped.
+    mid-epoch where the previous iterator stopped. `pad` and `causal_shift`
+    are stored and, as in the JAX package, take no part in the extraction.
     """
 
     def __init__(self, batch_size, cameras, poses_3d, poses_2d, chunk_length,
-                 shuffle=True, random_seed=1234, augment=False, kps_left=None,
-                 kps_right=None, joints_left=None, joints_right=None, endless=False,
-                 pad_last=False, use_native=True):
+                 pad=0, causal_shift=0, shuffle=True, random_seed=1234, augment=False,
+                 kps_left=None, kps_right=None, joints_left=None, joints_right=None,
+                 endless=False, pad_last=False, use_native=True):
         if poses_3d is not None and len(poses_3d) != len(poses_2d):
             raise ValueError("poses_3d and poses_2d differ in sequence count")
         if cameras is not None and len(cameras) != len(poses_2d):
@@ -96,6 +97,8 @@ class ChunkedGenerator:
         self.batch_size = batch_size
         self.random = np.random.RandomState(random_seed)
         self.shuffle = shuffle
+        self.pad = pad
+        self.causal_shift = causal_shift
         self.endless = endless
         self.state = None
         self.pad_last = pad_last
@@ -137,11 +140,18 @@ class ChunkedGenerator:
         """Chunks an epoch yields, counting the pad_last rows."""
         return self.num_batches * self.batch_size
 
+    def batch_num(self):
+        """Batches an epoch yields."""
+        return self.num_batches
+
     def random_state(self):
         return self.random
 
     def set_random_state(self, random):
         self.random = random
+
+    def augment_enabled(self):
+        return self.augment
 
     def _epoch_order(self):
         """(first_batch, chunk_table) of the epoch being (re)entered: a fresh

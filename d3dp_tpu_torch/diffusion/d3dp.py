@@ -149,25 +149,28 @@ class D3DP:
                             device=self.device)
         return t, noise
 
-    def sample_noise(self, B, generator):
+    def sample_noise(self, B, generator, num_proposals=None, sampling_timesteps=None):
         """`sample`'s draws for a batch of B: img0 (B, H, F, J, 3) and the
         step noises (K, B, H, F, J, 3), from `generator` in sample's order
         (drawn for the global batch on a data-parallel rank, as
-        train_noise)."""
+        train_noise); H and K as `sample` takes them."""
         cfg, m = self.cfg, self.cfg.model
-        shape = (B, cfg.num_proposals, m.num_frames, m.num_joints, 3)
+        H = num_proposals or cfg.num_proposals
+        K = sampling_timesteps or cfg.sampling_timesteps
+        shape = (B, H, m.num_frames, m.num_joints, 3)
         img0 = torch.randn(shape, generator=generator, device=self.device)
-        step_noises = torch.randn((cfg.sampling_timesteps, *shape), generator=generator,
-                                  device=self.device)
+        step_noises = torch.randn((K, *shape), generator=generator, device=self.device)
         return img0, step_noises
 
     @torch.inference_mode()
-    def sample(self, x2d, x2d_flip=None, generator=None, noise_override=None):
+    def sample(self, x2d, x2d_flip=None, generator=None, noise_override=None,
+               num_proposals=None, sampling_timesteps=None):
         """DDIM-sample H hypotheses, returning all K intermediate x0 preds.
 
         x2d: (B, F, J, 2); x2d_flip: its keypoint-symmetry-flipped copy
         (required with cfg.flip_tta). Returns (B, K, H, F, J, 3) fp32 in the
-        dataset's units (unit_scale applied).
+        dataset's units (unit_scale applied). H and K are this call's
+        `num_proposals` and `sampling_timesteps`, by default the config's.
 
         Noise is drawn from `generator` (a torch.Generator on the sampler's
         device) unless `noise_override=(img0, step_noises)` gives img0
@@ -175,7 +178,8 @@ class D3DP:
         parity tests (the last step's noise is multiplied by sigma=0).
         """
         cfg = self.cfg
-        H, K = cfg.num_proposals, cfg.sampling_timesteps
+        H = num_proposals or cfg.num_proposals
+        K = sampling_timesteps or cfg.sampling_timesteps
         B, Fr, J, _ = x2d.shape
         dev = self.device
         flip = cfg.flip_tta
@@ -190,7 +194,7 @@ class D3DP:
         elif generator is None:
             raise ValueError("sample needs a torch.Generator or noise_override")
         else:
-            img0, step_noises = self.sample_noise(B, generator)
+            img0, step_noises = self.sample_noise(B, generator, H, K)
 
         def fold(x):  # (B,F,J,C) -> (B*H,F,J,C), each window repeated H times
             x = torch.as_tensor(x, dtype=f32, device=dev)

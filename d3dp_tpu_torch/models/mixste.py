@@ -19,8 +19,7 @@ Counterpart of d3dp_tpu/models/mixste.py `MixSTE2` with
   - 4 (the default): the transpose-free flow with the whole attention half
     in one kernel (`ops.attention.attention_stage`; under the `hmqkv` lab
     variant the head-major stage `ops.attention.attention_stage_hm`, with
-    its stacked weights cached, and under tp its partial form
-    `attention_stage_hm_partial` on the rank's stacks).
+    its stacked weights cached).
   - 5: the whole 2 x depth trunk in one kernel launch
     (`ops.resident.resident_block_stack`, `mixste.py:707-741`); with DDIM
     feature reuse taps it takes level 4's flow, as the JAX package does.
@@ -50,19 +49,15 @@ Counterpart of d3dp_tpu/models/mixste.py `MixSTE2` with
   runs the column-parallel layers on `parallel.tp.copy_to_tp` of their
   input and sums the row-parallel ones' fp32 partials with
   `reduce_from_tp` before their bias; the attention core runs on the
-  rank's heads. Levels 1-4 run each block half's partial form
-  (`ops.attention.attention_stage_partial` at 4,
-  `attention_block_partial` at 2-3, the attention core and a plain
-  projection at 1; `ops.mlp.mlp_block_partial`), the sum over the tp group,
-  then `ops.residual_ln`. Level 5 runs the depth-resident kernel on the
-  tp group's gathered weights, gathered once per weight version (one
-  launch holds the whole trunk, with no room for an all-reduce between its
-  phases; XLA does the same with the JAX package's Pallas call); with
-  reuse taps it takes level 4's split flow. Under the `hmqkv` variant
-  level 4 runs the head-major partial form (K8-tp) on the rank's cached
-  head-major stacks. `D3DP_TRAIN_FUSED=1` trains through the partial forms'
-  autograd Functions (`attention_stage_partial_ad` at 4,
-  `attention_block_partial_ad` at 2-3, `mlp_block_partial_ad`) and
+  rank's heads. Evaluation at levels 1-5 (and level 5's reuse flow) runs
+  the one-process flow, the whole kernels, on the tp group's gathered
+  weights, gathered once per weight version into the `_weights` cache: the
+  JAX package's ops have no partitioning of their own, so under its ('dp',
+  'tp') mesh XLA runs each Pallas call whole on gathered operands, and
+  every rank then computes what one process computes, bit for bit.
+  `D3DP_TRAIN_FUSED=1` trains through the partial forms' autograd
+  Functions (`attention_stage_partial_ad` at 4, K8-tp inside it under
+  `hmqkv`, `attention_block_partial_ad` at 2-3, `mlp_block_partial_ad`) and
   `ops.residual_ln.residual_ln_ad`, whose DropPath scale makes each half
   what K1-dp and K2-dp compute (`_train_block_fused_tp`): the operands a
   partial form reads whole (the block's input, LN1's parameters, LN2's
@@ -99,8 +94,7 @@ from torch import nn
 
 from d3dp_tpu_torch.device import resolve_device
 from d3dp_tpu_torch.ops import attention, mlp, resident
-from d3dp_tpu_torch.ops.common import matmul_f32acc
-from d3dp_tpu_torch.ops.residual_ln import residual_ln, residual_ln_ad
+from d3dp_tpu_torch.ops.residual_ln import residual_ln_ad
 from d3dp_tpu_torch.parallel.mesh import gather_params
 from d3dp_tpu_torch.parallel.tp import copy_to_tp, reduce_from_tp
 
@@ -158,6 +152,12 @@ def _linear(lin, x):
 def _cast_linear(lin, dt):
     """(weight, bias) of an nn.Linear in dtype dt, (out, in) for F.linear."""
     return lin.weight.to(dt), lin.bias.to(dt)
+
+
+def _cast_named(P, name, dt):
+    """(weight, bias) of the linear layer `name` in the parameters P {name:
+    tensor}, in dtype dt, (out, in) for F.linear."""
+    return P[f"{name}.weight"].to(dt), P[f"{name}.bias"].to(dt)
 
 
 def _row_parallel(x, w, b, group):
@@ -258,7 +258,6 @@ class MixSTE2(nn.Module):
         self._cache = None
         self._cache_key = None
         self.tp = None  # a parallel.mesh.TensorParallel once split (`shard_params`)
-        self._noted_gather = False
 
     @torch.no_grad()
     def _init_weights(self, seed):
@@ -279,82 +278,62 @@ class MixSTE2(nn.Module):
         self._cache = None  # `.to()` and friends may reuse freed storage
         return super()._apply(fn, *args, **kwargs)
 
-    def _front_weights(self):
+    def _front_weights(self, P=None):
         """Embedding, time-MLP and spatial position weights in the compute
-        dtype, (out, in) for F.linear."""
+        dtype, (out, in) for F.linear, from the parameters P {name: tensor}
+        (default: the model's own)."""
         dt = self.cfg.dtype
-        return dict(embed=_cast_linear(self.Spatial_patch_to_embedding, dt),
-                    time1=_cast_linear(self.time_mlp[1], dt),
-                    time2=_cast_linear(self.time_mlp[3], dt),
-                    spatial_pos=self.Spatial_pos_embed.to(dt))
+        P = dict(self.named_parameters()) if P is None else P
+        return dict(embed=_cast_named(P, "Spatial_patch_to_embedding", dt),
+                    time1=_cast_named(P, "time_mlp.1", dt),
+                    time2=_cast_named(P, "time_mlp.3", dt),
+                    spatial_pos=P["Spatial_pos_embed"].to(dt))
 
     @torch.no_grad()
     def _weights(self):
-        """Kernel-layout weights, cached: matrices transposed to (in, out)
-        and cast to the compute dtype once, not on every DDIM step; biases
-        and LayerNorm parameters stay fp32. Each kind's weights are stacked
-        along depth in the level-5 kernel's layout (`resident`); the
-        per-block entries of levels 1-4 (`ste`, `tte`) are views into those
-        stacks, beside each block's head-major qkv stacks (`hm`, for the
-        `hmqkv` variant; a rank's heads under tp). The cache is keyed on
+        """Kernel-layout weights of the eval path, cached: matrices
+        transposed to (in, out) and cast to the compute dtype once, not on
+        every DDIM step; biases and LayerNorm parameters stay fp32. Each
+        kind's weights are stacked along depth in the level-5 kernel's
+        layout (`resident`); the per-block entries of levels 1-4 (`ste`,
+        `tte`) are views into those stacks, beside each block's head-major
+        qkv stacks (`hm`, for the `hmqkv` variant). The cache is keyed on
         every parameter's storage and version counter, so it is rebuilt
         after any change to a parameter: an optimizer step,
-        `load_state_dict`, or an in-place edit. Under tp (`self.tp`) the
-        per-block entries are the rank's shares, and `resident` is left to
-        `_resident_weights`."""
+        `load_state_dict`, or an in-place edit. Under tp (`self.tp`) it is
+        built from the tp group's gathered weights (a collective over the
+        group, once per weight version), so every rank runs one process's
+        kernels on one process's weights."""
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
         if self._cache is not None and self._cache_key == key:
             return self._cache
-        dt = self.cfg.dtype
+        cfg = self.cfg
+        dt = cfg.dtype
+        P = dict(self.named_parameters()) if self.tp is None else gather_params(self)
 
-        def views(stacked, blocks):
+        def views(stacked, prefix):
             wqkv, bqkv, wp, w1, b1, w2, v = stacked
-            return [dict(qkv_linear=_cast_linear(b.attn.qkv, dt),
-                         proj_linear=_cast_linear(b.attn.proj, dt),
+            return [dict(qkv_linear=_cast_named(P, f"{prefix}.{i}.attn.qkv", dt),
+                         proj_linear=_cast_named(P, f"{prefix}.{i}.attn.proj", dt),
                          wqkv=wqkv[i], bqkv=bqkv[i, 0], wp=wp[i], bp=v[i, 0],
                          ln1s=v[i, 1], ln1b=v[i, 2], ln2s=v[i, 3], ln2b=v[i, 4],
                          w1=w1[i], b1=b1[i, 0], w2=w2[i], b2=v[i, 5],
-                         # the rank's heads under tp
-                         hm=attention.stack_head_major(wqkv[i], bqkv[i, 0], b.attn.num_heads))
-                    for i, b in enumerate(blocks)]
+                         hm=attention.stack_head_major(wqkv[i], bqkv[i, 0], cfg.num_heads))
+                    for i in range(cfg.depth)]
 
-        P = dict(self.named_parameters())
         spatial, temporal = self._stack(P, "STEblocks"), self._stack(P, "TTEblocks")
-        norms = torch.stack([self.Spatial_norm.weight, self.Spatial_norm.bias,
-                             self.Temporal_norm.weight, self.Temporal_norm.bias]).float()
+        norms = torch.stack([P["Spatial_norm.weight"], P["Spatial_norm.bias"],
+                             P["Temporal_norm.weight"], P["Temporal_norm.bias"]]).float()
         self._cache_key = key
         self._cache = dict(
-            **self._front_weights(),
-            temporal_pos=self.Temporal_pos_embed.to(dt),
-            ste=views(spatial, self.STEblocks),
-            tte=views(temporal, self.TTEblocks),
-            resident=None if self.tp is not None else (spatial, temporal, norms),
-            norms=norms,
+            **self._front_weights(P),
+            temporal_pos=P["Temporal_pos_embed"].to(dt),
+            ste=views(spatial, "STEblocks"),
+            tte=views(temporal, "TTEblocks"),
+            resident=(spatial, temporal, norms),
             spatial_norm=(norms[0], norms[1]),
             temporal_norm=(norms[2], norms[3]))
         return self._cache
-
-    @torch.no_grad()
-    def _resident_weights(self, W):
-        """(the level-5 kernel's stacks, the time MLP's weights) of the
-        `_weights` cache W. Under tp both come from the tp group's gathered
-        weights, built once a weight version (a collective over the group):
-        the kernel holds the whole trunk in one launch, with no room for the
-        all-reduces between its phases, and level 5 then computes as on
-        one process."""
-        if W["resident"] is None:
-            if not self._noted_gather:
-                print(f"INFO: fuse level 5 under tp={self.tp.size}: each rank runs the "
-                      "depth-resident kernel on the tp group's gathered weights")
-                self._noted_gather = True
-            whole = gather_params(self)
-            dt = self.cfg.dtype
-            W["resident"] = (self._stack(whole, "STEblocks"), self._stack(whole, "TTEblocks"),
-                             W["norms"])
-            W["time_whole"] = {f"time{i}": (whole[f"time_mlp.{k}.weight"].to(dt),
-                                            whole[f"time_mlp.{k}.bias"].to(dt))
-                               for i, k in ((1, 1), (2, 3))}
-        return W["resident"], W.get("time_whole", {})
 
     def _stack(self, P, prefix):
         """(wqkv, bqkv, wp, w1, b1, w2, vec) of `resident_block_stack` from
@@ -382,8 +361,6 @@ class MixSTE2(nn.Module):
         attention branch, y2 = LN2(x2)."""
         cfg = self.cfg
         scale = cfg.attn_scale
-        if self.tp is not None:
-            return self._attention_half_tp(w, blk, h)
         if cfg.fuse_level >= 4:
             if attention.stage_config(h)[0] == "head_major":
                 return attention.attention_stage_hm(
@@ -400,54 +377,12 @@ class MixSTE2(nn.Module):
         x2 = h + F.linear(o, *w["proj_linear"])
         return x2, _layer_norm(blk.norm2, x2)
 
-    def _attention_half_tp(self, w, blk, h):
-        """`_attention_half` on a rank of the tp group: the level's partial
-        form over the rank's heads (K1-tp at 4, K8-tp there under `hmqkv`,
-        K6-tp at 2-3; at 1 the attention core and the projection as plain
-        ops), the fp32 partials summed over the group, then residual_ln (+
-        bp, the residual, LN2)."""
-        cfg = self.cfg
-        heads = blk.attn.num_heads
-        if cfg.fuse_level >= 4 and attention.stage_config(h)[0] == "head_major":
-            part = attention.attention_stage_hm_partial(h, *w["hm"], w["ln1s"], w["ln1b"],
-                                                        w["wp"], heads, cfg.attn_scale, BLOCK_EPS)
-        elif cfg.fuse_level >= 4:
-            part = attention.attention_stage_partial(h, w["wqkv"], w["bqkv"], w["ln1s"],
-                                                     w["ln1b"], w["wp"], heads, cfg.attn_scale,
-                                                     BLOCK_EPS)
-        else:
-            qkv = F.linear(_layer_norm(blk.norm1, h), *w["qkv_linear"])
-            if cfg.fuse_level >= 2:
-                part = attention.attention_block_partial(qkv, w["wp"], heads, cfg.attn_scale)
-            else:
-                o = attention.fused_attention_qkv(qkv, heads, cfg.attn_scale)
-                part = matmul_f32acc(o, w["wp"])
-        part = reduce_from_tp(part, self.tp.group)
-        return residual_ln(h, part, w["bp"], w["ln2s"], w["ln2b"], BLOCK_EPS)
-
-    def _mlp_half_tp(self, w, x2, y2, out_norm, B):
-        """The MLP step on a rank of the tp group: K2/K5-tp over the rank's
-        hidden units, the fp32 partials summed over the group, then
-        residual_ln with the shared norm, in the layout `_block` emits."""
-        R, N, C = x2.shape
-        part = mlp.mlp_block_partial(y2.view(R * N, C), w["w1"], w["b1"], w["w2"])
-        part = reduce_from_tp(part, self.tp.group)
-        if self.cfg.fuse_level <= 2:
-            return residual_ln(x2, part.view(R, N, C), w["b2"], *out_norm, BLOCK_EPS,
-                               with_x2=False)
-        D1 = R // B
-        out = residual_ln(x2.view(B, D1, N, C), part.view(B, D1, N, C), w["b2"], *out_norm,
-                          BLOCK_EPS, with_x2=False, transpose=True)
-        return out.view(B * N, D1, C)
-
     def _block(self, w, blk, h, out_norm, B):
         """One block on (B*D1, N, C): the attention half, then the MLP step
         with the shared norm. Levels 3-5 emit (B*N, D1, C) in the other
         stage's layout; levels 1 and 2 keep the layout."""
         R, N, C = h.shape
         x2, y2 = self._attention_half(w, blk, h)
-        if self.tp is not None:
-            return self._mlp_half_tp(w, x2, y2, out_norm, B)
         if self.cfg.fuse_level <= 2:
             out = mlp.mlp_block(y2.view(R * N, C), x2.view(R * N, C), w["w1"], w["b1"],
                                 w["w2"], w["b2"], out_norm[0], out_norm[1], BLOCK_EPS)
@@ -461,8 +396,8 @@ class MixSTE2(nn.Module):
     def _embed(self, x2d, x3d, t, W, whole=False):
         """Joint embedding + spatial position + time embedding -> (B, F, J, C)
         in the compute dtype. Under tp the time MLP is split over the group
-        (its second layer's partials summed), unless `whole`: W holds its
-        gathered weights."""
+        (its second layer's partials summed), unless `whole`: W holds the
+        whole weights (the eval cache's, gathered over the group)."""
         dt = self.cfg.dtype
         group = None if self.tp is None or whole else self.tp.group
         x = F.linear(torch.cat([x2d, x3d], dim=-1).to(dt), *W["embed"])
@@ -547,13 +482,11 @@ class MixSTE2(nn.Module):
         B, Fr, J, _ = x3d.shape
         C = cfg.embed_dim
         W = self._weights()
+        x = self._embed(x2d, x3d, t, W, whole=True)
         if cfg.fuse_level == 5 and reuse_tap is None:
-            stacks, time_mlp = self._resident_weights(W)
-            x = self._embed(x2d, x3d, t, {**W, **time_mlp}, whole=True)
             return resident.resident_block_stack(
-                x, W["temporal_pos"][0], *stacks, cfg.num_heads, cfg.attn_scale,
+                x, W["temporal_pos"][0], *W["resident"], cfg.num_heads, cfg.attn_scale,
                 BLOCK_EPS), None
-        x = self._embed(x2d, x3d, t, W)
         ste, tte = list(zip(W["ste"], self.STEblocks)), list(zip(W["tte"], self.TTEblocks))
         if cfg.fuse_level >= 3:
             # transpose-free flow: each block leaves its output in the next

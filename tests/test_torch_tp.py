@@ -11,8 +11,9 @@ partial form's plain version summed over the ranks and finished by
 JAX Pallas kernel in interpret mode (2e-5, the ops tolerance). Then two
 gloo ranks at tp=2 (started once for the module): `D3DP.sample` at fuse
 levels 0-5 and with feature reuse at level 5 on injected noise (5e-4, the
-DDIM replay tolerance, against JAX and one process; level 5, which runs on
-the gathered weights, equal to one process bit for bit), the replicated
+DDIM replay tolerance, against JAX and one process; levels 1-5, which run
+the whole kernels on the gathered weights, equal to one process bit for
+bit), the replicated
 parameters' gradients equal across the ranks, and a checkpoint round trip
 (a one-process save loaded by the ranks and saved again: equal bit for
 bit, AdamW moments included).
@@ -191,23 +192,29 @@ def test_partial_forms_sum_to_the_whole(kind, tp, rng):
 
 def test_unported_tp_paths_raise(monkeypatch):
     """The two paths that had no tensor-parallel form (and raised here) now
-    run on a split model through their tp forms: under the hmqkv variant
-    level 4 takes the head-major partial stage (K8-tp) on the rank's cached
-    head-major stacks, and with D3DP_TRAIN_FUSED=1 training takes the
-    partial forms' autograd Functions and `residual_ln_ad` (K8-tp again
-    under hmqkv), with a gradient for every parameter. Rank 0 of 2 without a
-    process group computes its own share only; the two ranks' results
-    against JAX and one process are tests/test_torch_tp_fused.py's.
-    shard_params' own errors still raise."""
+    run on a split model: under the hmqkv variant level 4 evaluates with
+    the whole head-major stage (K8) on the tp group's gathered weights, as
+    XLA runs the JAX package's Pallas call, equal to one process bit for
+    bit, and with D3DP_TRAIN_FUSED=1 training takes the partial forms'
+    autograd Functions and `residual_ln_ad` (K8-tp under hmqkv), with a
+    gradient for every parameter. Rank 0 of 2 without a process group
+    computes its own share only (the gather stands in for the collective
+    with the whole weights); the two ranks' results against JAX and one
+    process are tests/test_torch_tp_fused.py's. shard_params' own errors
+    still raise."""
     from d3dp_tpu_torch.models import mixste as tmixste
 
     model = MixSTE2(MixSTEConfig(**CFG, fuse_level=4), device="cpu")
+    one = MixSTE2(MixSTEConfig(**CFG, fuse_level=4), device="cpu")
+    whole = {k: v.detach().clone() for k, v in model.state_dict().items()}
     tmesh.shard_params(model, tmesh.Mesh(1, 2, 0, (torch.device("cpu"),) * 2))
     assert model.STEblocks[0].attn.num_heads == 2 and model.tp.size == 2
     calls = {}
+    monkeypatch.setattr(tmixste, "gather_params",
+                        lambda m: calls.update(gather=calls.get("gather", 0) + 1) or whole)
     for mod, name in ((tattn, "attention_stage_hm_partial"), (tattn, "attention_stage_partial"),
-                      (tattn, "attention_stage_partial_ad"), (tmlp, "mlp_block_partial_ad"),
-                      (tmixste, "residual_ln_ad")):
+                      (tattn, "attention_stage_hm"), (tattn, "attention_stage_partial_ad"),
+                      (tmlp, "mlp_block_partial_ad"), (tmixste, "residual_ln_ad")):
         def wrap(*a, _f=getattr(mod, name), _n=name, **k):
             calls[_n] = calls.get(_n, 0) + 1
             return _f(*a, **k)
@@ -219,7 +226,9 @@ def test_unported_tp_paths_raise(monkeypatch):
     monkeypatch.setenv("D3DP_ATTN_VARIANT", "hmqkv")
     out = model(x2d, x3d, t)
     assert out.shape == (1, 27, 17, 3) and torch.isfinite(out).all()
-    assert calls == {"attention_stage_hm_partial": 4}
+    assert calls == {"gather": 1, "attention_stage_hm": 4}
+    calls.clear()
+    assert torch.equal(out, one(x2d, x3d, t))
     monkeypatch.setenv("D3DP_TRAIN_FUSED", "1")
     for variant, want in (("hmqkv", 4), ("", 0)):
         calls.clear()
@@ -286,17 +295,19 @@ def test_sample_matches_jax_and_one_process(runs, level):
     assert got0.shape == want.shape == (2, W.K, W.H, 27, 17, 3)
     np.testing.assert_allclose(got0, want, atol=5e-4, rtol=0)
     np.testing.assert_allclose(got0, one["sample"][level], atol=5e-4, rtol=0)
-    if level == 5:  # the same kernel on the gathered weights: one process's bits
+    if level >= 1:  # the same kernels on the gathered weights: one process's bits
         np.testing.assert_array_equal(got0, one["sample"][level])
 
 
 def test_sample_with_reuse_at_level_5_matches_one_process(runs):
-    """Feature reuse at level 5 runs level 4's split flow under tp."""
+    """Feature reuse at level 5 runs level 4's flow, on the gathered
+    weights under tp: one process's bits."""
     _, ranks, one, _ = runs
     got = ranks[0]["sample"]["5 reuse"]
     assert got.shape == (2, 3, W.H, 27, 17, 3)
     np.testing.assert_array_equal(got, ranks[1]["sample"]["5 reuse"])
     np.testing.assert_allclose(got, one["sample"]["5 reuse"], atol=5e-4, rtol=0)
+    np.testing.assert_array_equal(got, one["sample"]["5 reuse"])
 
 
 def test_replicated_gradients_equal_across_the_tp_group(runs):

@@ -16,8 +16,8 @@ custom VJPs (2e-4, tests/test_torch_droppath_fused.py's bound).
 
 Two gloo ranks at tp=2 (started once for the module,
 `torch_tp_workers.fused_tasks`): `sample` at level 4 under hmqkv against
-JAX under `make_mesh(dp=1, tp=2)` + `shard_params` and one process (5e-4,
-tests/test_torch_tp.py's bound); the loss and every gradient of a
+JAX under `make_mesh(dp=1, tp=2)` + `shard_params` (5e-4,
+tests/test_torch_tp.py's bound) and one process (bit for bit); the loss and every gradient of a
 `D3DP_TRAIN_FUSED=1` forward at fuse levels 1, 2 and 4 with DropPath
 against one process (loss 1e-5 relative, gradients 2e-5) and JAX's
 `value_and_grad` under the same switch and mesh (loss 2e-5 relative,
@@ -308,8 +308,9 @@ def jax_mesh():
 
 
 def test_hmqkv_sample_matches_jax_and_one_process(runs, env):
-    """Level 4 under hmqkv (K8-tp on each rank): equal on both ranks, within
-    5e-4 of JAX's head-major stage under the tp mesh and of one process."""
+    """Level 4 under hmqkv (K8 on each rank, whole, on the tp group's
+    gathered weights): equal on both ranks, within 5e-4 of JAX's head-major
+    stage under the tp mesh, and equal to one process bit for bit."""
     inputs, ranks, one, _ = runs
     env.setenv("D3DP_ATTN_VARIANT", "hmqkv")
     jcfg = JMixSTEConfig(**CFG, attention_impl="pallas", fuse_level=4)
@@ -322,6 +323,8 @@ def test_hmqkv_sample_matches_jax_and_one_process(runs, env):
     assert got.shape == want.shape == (2, W.K, W.H, 27, 17, 3)
     np.testing.assert_allclose(got, want, atol=5e-4, rtol=0)
     np.testing.assert_allclose(got, one["hm_sample"], atol=5e-4, rtol=0)
+    # K8 runs whole on the gathered weights: one process's bits
+    np.testing.assert_array_equal(got, one["hm_sample"])
 
 
 @pytest.mark.parametrize("level", TW.FUSED_LEVELS)

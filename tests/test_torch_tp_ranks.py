@@ -13,7 +13,9 @@ the Evaluator's four modes with host and device P2 (3.1e-4 mm against one
 process; against JAX one process's own distance, 1.5e-3 mm at these
 weights' 320-410 mm errors, plus 3.1e-4), the 3DHP evaluator (errors 1e-3
 mm, against JAX on top of one process's distance; exports 0.05 mm). The
-ranks of a tp group return equal results.
+ranks of a tp group return equal results, and their evaluation (level 4,
+the whole kernels on the tp group's gathered weights) equals one
+process's bit for bit.
 """
 
 import functools
@@ -169,6 +171,8 @@ def test_evaluator_matches_jax_and_one_process(runs, name):
                 ref = one["evaluate"][name][i][m]
                 np.testing.assert_allclose(g[m], ref, atol=3.1e-4, rtol=0,
                                            err_msg=f"{name} {i} {m} vs one process")
+                # level 4 runs one process's kernels on the gathered weights
+                np.testing.assert_array_equal(g[m], ref, err_msg=f"{name} {i} {m}")
                 # the errors are 320-410 mm at this width, where one process
                 # is itself up to 1.5e-3 mm (4e-6 relative) from JAX
                 dist = np.abs(ref - wants[i][m])
