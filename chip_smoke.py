@@ -321,8 +321,8 @@ def phase_env(torch, record):
         log(f"[env] ptxas {r['source']}: {r['kernel']}: {r.get('registers')} registers, "
             f"{r.get('spill_stores')} bytes spill stores, {r.get('spill_loads')} bytes spill "
             f"loads, {r.get('stack')} bytes stack")
-    bf16_keys = ("attend", "attn_bwd_block", "attn_bwd_warp", "resident", "mlp_block",
-                 "ln_qkv_walk", "proj_ln2_walk", "residual_ln")
+    bf16_keys = ("attend", "attend_short", "attn_bwd_block", "attn_bwd_warp", "resident",
+                 "mlp_block", "ln_qkv_walk", "proj_ln2_walk", "residual_ln")
     tile = [r for r in ptxas if any(k in r["kernel"] for k in bf16_keys)
             and "<float" not in r["kernel"]]
     for k in bf16_keys[1:]:
@@ -331,6 +331,15 @@ def phase_env(torch, record):
         if "attn_bwd" in r["kernel"]:
             log(f"[env] bf16 attention backward {r['kernel']}: {r.get('registers')} registers, "
                 f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes spilled")
+    # the short tile (bf16, N <= 32 keys: every spatial stage), in each
+    # library that launches it (K9 inlines it)
+    short = [r for r in tile if "attend_short" in r["kernel"]]
+    for r in short:
+        log(f"[env] bf16 short attention tile ({r['source']}): {r.get('registers')} registers, "
+            f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes spilled, "
+            f"{r.get('stack')} bytes stack")
+    check(all(not r.get("spill_stores") and not r.get("spill_loads") for r in short),
+          "the short attention tile spills")
     spills = sorted({f"{r['kernel']} ({r['spill_stores']} / {r['spill_loads']} bytes)"
                      for r in tile if r.get("spill_stores") or r.get("spill_loads")})
     log(f"[env] bf16 attention tile and backward, MLP tile, stage walks (their tensor-parallel "
@@ -1172,7 +1181,13 @@ def resident_phase_split(torch, args, k9_ms):
         split = {p: dict(tiles=w / total, barrier=b / total) for p, (w, b) in sums.items()}
         scale = k9_ms if group is None else None
         out[tag] = dict(shares=split, k9_ms=scale,
-                        barrier_share=sum(v["barrier"] for v in split.values()))
+                        barrier_share=sum(v["barrier"] for v in split.values()),
+                        spatial_attend_cycles=sums["spatial attend"])
+        w, b = sums["spatial attend"]
+        log(f"[resident] K9 spatial attend phase ({tag}): {w} cycles in its tiles, {b} at "
+            f"its barrier (summed over blocks), {split['spatial attend']['tiles']:.4f} + "
+            f"{split['spatial attend']['barrier']:.4f} of the launch"
+            + (f", {(w + b) / total * scale:.3f} ms" if scale else ""))
         log(f"[resident] K9 phase clocks, {tag} ({'G = group_rows' if group is None else 'G = 1'}"
             f"): barrier share {out[tag]['barrier_share']:.4f}; " + "; ".join(
                 f"{p} {v['tiles']:.4f} + {v['barrier']:.4f}"
@@ -2800,9 +2815,23 @@ def summarize_profile(torch, prof, wall_ms, what, tag, top=12):
                 top=[[k[:120], n, ms] for k, n, ms in kernels[:top]])
 
 
+def attend_split(torch, prof):
+    """Device ms of the attend launches in a profile: the short tile's
+    (spatial, N = 17) and the tensor-core tile's (temporal, N = 243)."""
+    out = {"spatial": 0.0, "temporal": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for kind, key in (("spatial", "attend_short"), ("temporal", "attend_mma")):
+            if key in e.key:
+                out[kind] += e.self_device_time_total / 1e3
+    return out
+
+
 def phase_profile(torch, record, d3dp, x2d, x2d_f):
     """Where one D3DP.sample call's device time goes, by kernel
-    (torch.profiler over a warm call)."""
+    (torch.profiler over a warm call), and the attend launches' share of it
+    split into spatial and temporal."""
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -2815,6 +2844,12 @@ def phase_profile(torch, record, d3dp, x2d, x2d_f):
         wall_ms = (time.perf_counter() - t0) * 1e3
     record["profile"] = summarize_profile(torch, prof, wall_ms, "one D3DP.sample call",
                                           "profile")
+    busy = record["profile"]["device_busy_ms"]
+    if busy:
+        split = attend_split(torch, prof)
+        record["profile"]["attend_ms"] = split
+        log("[profile] attend launches: " + "; ".join(
+            f"{k} {ms:.3f} ms ({100 * ms / busy:.1f}% of busy)" for k, ms in split.items()))
 
 
 def library_attention(torch, Fn, with_y2=True):

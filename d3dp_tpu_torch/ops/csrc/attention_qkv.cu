@@ -13,11 +13,11 @@
 //
 // What bounds them on the H100: at MixSTE's shapes (N = 17 or 243 tokens,
 // d = 64) both move more bytes than the tensor cores need time for: the
-// forward reads qkv and writes o (about 1.8 FLOPs per byte at N=17 and 30
-// at N=243, both far under the card's ~295), the backward reads qkv and dO
+// forward reads qkv and writes o (N / 2 FLOPs per byte: 8.5 at N=17 and
+// 121.5 at N=243, both under the card's ~295), the backward reads qkv and dO
 // and writes d(qkv). Logits never leave the chip.
 //
-// Forward: `attend_kernel` (common.cuh), shared with the attention stage
+// Forward: `launch_attend` (common.cuh), shared with the attention stage
 // and block, with p divided by l BEFORE the cast to the compute type, as the
 // TPU kernel's `_attn_head` does (the stage folds 1/l in after P.V instead).
 // The packed-qkv forward reads rows of 3C; the separate-q/k/v forward (K7)
@@ -27,9 +27,11 @@
 // once (cp.async in 64-key groups, the products on the first keys start
 // while the rest land), and the logits, the exact softmax and P never leave
 // registers (mma.sync m16n8k16, 16 query rows a warp); a persistent grid
-// copies the next tile while the current one computes. At 17 keys the
-// shared-memory body stays: one 32-query block per (sequence, head), small
-// enough for several per SM.
+// copies the next tile while the current one computes. At 32 keys or fewer
+// (the spatial 17) the short tile: a sequence with all its heads a tile,
+// its rows brought by bulk copies into a ring that runs ahead of the
+// warps, a warp a head (`attend_short_walk`). fp32 runs the shared-memory
+// body.
 // `d3dp_attend_packed_*` launches the same tile in the stage's order, with
 // its switches: K1's attend launch alone, for timing and tests.
 //

@@ -49,7 +49,10 @@
 //                softmax stays exact over the whole row with no online
 //                rescaling, and P goes to the P.V product in registers; a
 //                persistent grid copies the next tile while one computes.
-//                Spatial (17 keys), grouped views excepted, and fp32 keep the
+//                Spatial (17 keys), grouped views excepted: the short tile, a
+//                sequence with all its heads a tile on a persistent grid,
+//                its rows brought by bulk copies into a ring of stages,
+//                a warp a head on mma.sync registers. fp32 keeps the
 //                shared-memory body (one block per <=64 queries).
 //                fp32: p is divided by l before P.V; bf16: P.V runs on the
 //                unnormalised bf16 p and 1/l is folded into the output,

@@ -10,28 +10,32 @@
 // fp32 tiles here (`ln_qkv_tile`, `proj_ln2_tile`, and the MLP's) use plain
 // FMAs, 16 rows a block (the fp32 path exists for parity checks, not for
 // speed).
-// The per-head attention (`attend_tile_smem`, `attend_mma_walk`) works on
-// one (sequence, head) instead of token rows. It replaces the attention inside
-// the TPU kernels of d3dp_tpu/ops/attention.py (`_attn_kernel`,
-// `_attn_fused_qkv_kernel`, `_attn_block_kernel`, `_attn_stage_kernel`,
-// `_attn_stage_kernel_hm`) and d3dp_tpu/ops/resident.py
-// (`_resident_kernel`). Bytes bound it (about 30 FLOPs per byte at 243
-// keys): in bf16 above 32 keys it reads each key and value row once per
-// (sequence, head) with cp.async in 64-key groups, and keeps the logits,
-// the exact softmax and P in the registers of mma.sync m16n8k16 fragments
-// (`attend_mma_compute`). At 255 registers a thread one block fills an SM,
-// so the launches and the depth-resident kernel walk the tiles from a
-// persistent grid and copy the next tile into a second buffer while the
-// current one computes (`attend_mma_walk`); the depth-resident kernel
-// computes S in parts. 32 keys or fewer, and fp32, keep the shared-memory
-// body (`attend_tile_smem`), one block per (sequence, head, <=64 queries)
-// in the launches, one warp per (sequence, head) in the depth-resident
-// kernel.
+// The per-head attention (`attend_short_walk`, `attend_mma_walk`,
+// `attend_tile_smem`) works on sequences and heads instead of token rows. It
+// replaces the attention inside the TPU kernels of d3dp_tpu/ops/attention.py
+// (`_attn_kernel`, `_attn_fused_qkv_kernel`, `_attn_block_kernel`,
+// `_attn_stage_kernel`, `_attn_stage_kernel_hm`) and d3dp_tpu/ops/resident.py
+// (`_resident_kernel`). Bytes bound it (N / 2 FLOPs a byte: 8.5 at 17 keys,
+// 121.5 at 243, under the card's ~295). Which body runs:
+//   * bf16, N <= 32 unmasked keys (the spatial stages, N = 17): the short
+//     tile, a sequence with all its heads a tile, its rows brought by 1-D
+//     bulk copies on mbarriers into a ring of stages that runs ahead of the
+//     warps, a warp a head on mma.sync registers (`attend_short_walk`); the
+//     launches and the depth-resident kernel run the same walk;
+//   * bf16 above 32 keys, or masked (the grouped lab switch): the tensor-core
+//     tile, one (sequence, head) a tile, its key and value rows read once
+//     with cp.async in 64-key groups, the logits, the exact softmax and P in
+//     mma.sync m16n8k16 registers (`attend_mma_compute`). At 255 registers a
+//     thread one block fills an SM, so the launches and the depth-resident
+//     kernel walk the tiles from a persistent grid and copy the next tile
+//     into a second buffer while the current one computes
+//     (`attend_mma_walk`); the depth-resident kernel computes S in parts;
+//   * fp32 (the parity path): the shared-memory body (`attend_tile_smem`),
+//     one block per (sequence, head, <=64 queries).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <algorithm>
 #include <cmath>
@@ -259,6 +263,67 @@ __host__ __device__ constexpr size_t bs_bytes() {
   return align128(sizeof(float) * kStages * slab_elems());
 }
 
+// ------------------------------------------------------ Hopper primitives
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarriers, by shared address
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_inval(uint32_t bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// order this thread's generic-proxy shared-memory writes before later
+// async-proxy accesses (wgmma operand reads, TMA writes)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Bulk copy of `bytes` (a multiple of 16) from shared address src to global
+// dst, in this thread's bulk group; the waits: until the group has read its
+// shared memory, and until its writes are done.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// order this thread's completed bulk-copy writes to global memory (the async
+// proxy) before its later generic accesses, and so before a barrier after
+// which other blocks read them (the depth-resident kernel's next phase)
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // ------------------------------------------------------- per-head attention
 // Shared by the attention stage (attention_stage.cu), the attention block
 // (attention_block.cu) and the attention cores (attention_qkv.cu): softmax
@@ -318,19 +383,25 @@ __device__ __forceinline__ float bf16_round(float v) {
 
 // The bf16 tensor-core tile (`attend_mma_compute`): each warp owns 16 query
 // rows, so a pass of the 8 warps covers kPassRows queries; it takes the
-// attentions of more than kSmemMaxKeys keys, and every masked one.
+// attentions of more than kShortMaxKeys keys, and every masked one. The
+// short tile (`attend_short_walk`) takes the rest in bf16: N <= kShortMaxKeys
+// unmasked keys.
 constexpr int kPassRows = 16 * kWarps;
-constexpr int kSmemMaxKeys = 32;
+constexpr int kShortMaxKeys = 32;
 // bf16 rows of 64 in shared memory, padded by 16 bytes: the 8 row addresses
 // of one ldmatrix fall on distinct banks
 constexpr int kLdh = kHeadDim + 8;
 
+// Whether a bf16 attention of N keys under mask_block runs the short tile.
+__host__ __device__ inline bool attend_short_ok(int N, int mask_block) {
+  return mask_block == 0 && N <= kShortMaxKeys;
+}
+
 struct AttnLayout {
-  int QB, NK, ldq, ldk, ldv, lds, ldp;
-  // 16-key fragments of the tensor-core tile (4, 8 or 16), 0 for the
-  // shared-memory body
+  int QB, NK, ldq, ldk, ldv, lds;
+  // 16-key fragments of the tensor-core tile (4, 8 or 16), 0 for fp32
   int nkf;
-  size_t q, k, v, s, p, linv, total;
+  size_t q, k, v, s, total;
 };
 
 // The key-fragment count of the tensor-core tile for N unmasked keys. Under
@@ -340,7 +411,7 @@ inline int attn_key_frags(int N, int mask_block) {
   return mask_block > 0 || N <= 64 ? 4 : N <= 128 ? 8 : 16;
 }
 
-// Tensor-core tile (bf16, N > kSmemMaxKeys or masked): Q, K and V rows of
+// Tensor-core tile (bf16, N > kShortMaxKeys or masked): Q, K and V rows of
 // kLdh, nothing else. Unmasked, one tile holds all N queries (QB = N rounded
 // to 16) and all keys (NK = 16 * nkf). Under a mask of block mb a tile holds
 // one pass of queries and the whole blocks they span (at most
@@ -359,24 +430,21 @@ inline AttnLayout attn_layout_mma(int N, int mask_block) {
     L.NK = 16 * L.nkf;
   }
   L.ldq = L.ldk = L.ldv = kLdh;
-  L.lds = L.ldp = 0;
+  L.lds = 0;
   size_t off = 0;
   L.q = off; off += align128(sizeof(bf16) * L.QB * kLdh);
   L.k = off; off += align128(sizeof(bf16) * L.NK * kLdh);
   L.v = off; off += align128(sizeof(bf16) * L.NK * kLdh);
-  L.s = L.p = L.linv = off;
+  L.s = off;
   L.total = off;
   return L;
 }
 
-// Shared-memory body (fp32; bf16 of at most kSmemMaxKeys unmasked keys).
-// NK: the keys a tile holds, rounded up to 16. Unmasked, all N. Under a mask
-// of block mb, only the blocks its QB queries span: at most (QB - 1) / mb + 2
-// of them (a query block starts anywhere in a block).
-template <typename T>
-AttnLayout attn_layout(int N, int mask_block = 0) {
-  constexpr bool f32 = std::is_same<T, float>::value;
-  if (!f32 && (mask_block > 0 || N > kSmemMaxKeys)) return attn_layout_mma(N, mask_block);
+// fp32's shared-memory body (the parity path). NK: the keys a tile holds,
+// rounded up to 16. Unmasked, all N. Under a mask of block mb, only the
+// blocks its QB queries span: at most (QB - 1) / mb + 2 of them (a query
+// block starts anywhere in a block).
+inline AttnLayout attn_layout_f32(int N, int mask_block = 0) {
   AttnLayout L;
   L.nkf = 0;
   const int NQ = cdiv(N, 16) * 16;
@@ -384,32 +452,23 @@ AttnLayout attn_layout(int N, int mask_block = 0) {
   int keys = N;
   if (mask_block > 0) keys = std::min(N, ((L.QB - 1) / mask_block + 2) * mask_block);
   L.NK = cdiv(keys, 16) * 16;
-  // fp32 reads K transposed (thread j walks row j): an odd row stride keeps
-  // those reads on distinct banks. bf16 rows keep wmma's 16-byte multiple.
-  L.ldq = f32 ? kHeadDim + 1 : kHeadDim + 8;
-  L.ldk = f32 ? kHeadDim + 1 : kHeadDim + 8;
-  L.ldv = f32 ? kHeadDim : kHeadDim + 8;
+  // K is read transposed (thread j walks row j): an odd row stride keeps
+  // those reads on distinct banks
+  L.ldq = L.ldk = kHeadDim + 1;
+  L.ldv = kHeadDim;
   L.lds = L.NK + 4;
-  L.ldp = L.NK + 8;
   size_t off = 0;
-  L.q = off; off += align128(sizeof(T) * L.QB * L.ldq);
-  L.k = off; off += align128(sizeof(T) * L.NK * L.ldk);
-  L.v = off; off += align128(sizeof(T) * L.NK * L.ldv);
-  // the logits buffer doubles as the bf16 path's fp32 P.V output
-  L.s = off; off += align128(sizeof(float) * L.QB * (L.lds > kHeadDim + 4 ? L.lds : kHeadDim + 4));
-  L.p = off; off += f32 ? 0 : align128(sizeof(bf16) * L.QB * L.ldp);
-  L.linv = off; off += align128(sizeof(float) * L.QB);
+  L.q = off; off += align128(sizeof(float) * L.QB * L.ldq);
+  L.k = off; off += align128(sizeof(float) * L.NK * L.ldk);
+  L.v = off; off += align128(sizeof(float) * L.NK * L.ldv);
+  L.s = off; off += align128(sizeof(float) * L.QB * L.lds);
   L.total = off;
   return L;
 }
 
-// One tile: (sequence `seq`, head `h`, query block `qb`). q, k, v: rows of ld
-// elements, N rows per sequence; out: (R, N, C).
-// fp32 always divides p by l before P.V. For bf16, opts.norm_first picks
-// the order: true rounds p / l to bf16 before P.V (the TPU attention core's
-// `_attn_head`, and the stage under D3DP_SOFTMAX_FOLD=0); false runs P.V on
-// the unnormalised bf16 p and folds 1/l into the output (the TPU attention
-// stage's order). opts.bf16_exp (bf16 only) and opts.mask_block: AttnOpts.
+// One fp32 tile: (sequence `seq`, head `h`, query block `qb`). q, k, v:
+// rows of ld elements, N rows per sequence; out: (R, N, C). p is divided by
+// l before P.V. opts.mask_block: AttnOpts.
 // The tile functions here take their tile coordinates as arguments and the
 // block's dynamic shared memory as `smem`, so a kernel may run one tile
 // (the `__global__` wrappers) or walk many (the depth-resident kernel,
@@ -417,25 +476,18 @@ AttnLayout attn_layout(int N, int mask_block = 0) {
 // buffer one tile reads was written by other blocks earlier in the same
 // launch, which rules out the read-only data path.
 //
-// The shared-memory body: one block holds <=64 queries and all their keys
-// (tail zero-filled) with the fp32 logits, so the softmax is exact over the
-// whole row: all <=256 keys of the sequence, or under a mask only the
-// window of whole blocks the queries span (attn_layout), every key outside
-// it having p = 0 exactly. kTeam: the threads that share the tile, the
-// block or one warp (the depth-resident kernel runs a tile a warp, each in
-// its own L.total bytes); each fragment and each row goes through the same
-// operations in the same order either way, so the bits are the same.
-template <typename T, int kTeam = kThreads>
-__device__ __forceinline__ void attend_tile_smem(const T* q, const T* k, const T* v, int ld,
-                                                 T* out, int N, int C, float scale,
+// One block holds <=64 queries and all their keys (tail zero-filled) with
+// the fp32 logits, so the softmax is exact over the whole row: all <=256
+// keys of the sequence, or under a mask only the window of whole blocks the
+// queries span (attn_layout_f32), every key outside it having p = 0 exactly.
+__device__ __forceinline__ void attend_tile_smem(const float* q, const float* k, const float* v,
+                                                 int ld, float* out, int N, int C, float scale,
                                                  const AttnLayout& L, const AttnOpts& opts,
                                                  unsigned char* smem, int seq, int h, int qb) {
-  constexpr bool f32 = std::is_same<T, float>::value;
-  T* Qs = reinterpret_cast<T*>(smem + L.q);
-  T* Ks = reinterpret_cast<T*>(smem + L.k);
-  T* Vs = reinterpret_cast<T*>(smem + L.v);
+  float* Qs = reinterpret_cast<float*>(smem + L.q);
+  float* Ks = reinterpret_cast<float*>(smem + L.k);
+  float* Vs = reinterpret_cast<float*>(smem + L.v);
   float* Ss = reinterpret_cast<float*>(smem + L.s);
-  float* linv = reinterpret_cast<float*>(smem + L.linv);
 
   const int q0 = qb * L.QB;
   const int QB = L.QB, NK = L.NK;
@@ -448,56 +500,34 @@ __device__ __forceinline__ void attend_tile_smem(const T* q, const T* k, const T
     nk = min(N, (q0 + nq - 1) / mb * mb + mb) - k0;
   }
   const size_t off = (size_t)seq * N * ld + h * kHeadDim;
-  load_rows_async<T, kTeam>(Qs, L.ldq, q + off + (size_t)q0 * ld, ld, QB, N - q0, kHeadDim);
-  load_rows_async<T, kTeam>(Ks, L.ldk, k + off + (size_t)k0 * ld, ld, NK, nk, kHeadDim);
-  load_rows_async<T, kTeam>(Vs, L.ldv, v + off + (size_t)k0 * ld, ld, NK, nk, kHeadDim);
+  load_rows_async<float, kThreads>(Qs, L.ldq, q + off + (size_t)q0 * ld, ld, QB, N - q0,
+                                   kHeadDim);
+  load_rows_async<float, kThreads>(Ks, L.ldk, k + off + (size_t)k0 * ld, ld, NK, nk, kHeadDim);
+  load_rows_async<float, kThreads>(Vs, L.ldv, v + off + (size_t)k0 * ld, ld, NK, nk, kHeadDim);
   cp_async_commit();
   cp_async_wait<0>();
-  team_sync<kTeam>();
+  __syncthreads();
 
-  constexpr int kTeamWarps = kTeam / 32;
-  const int tid = team_tid<kTeam>(), warp = tid / 32, lane = tid % 32;
-  // S = Q K^T (unscaled), fp32
-  if constexpr (f32) {
-    for (int i = tid; i < QB * NK; i += kTeam) {
-      const int qi = i / NK, kj = i % NK;
-      const float* a = Qs + qi * L.ldq;
-      const float* b = Ks + kj * L.ldk;
-      float acc = 0.f;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // S = Q K^T (unscaled)
+  for (int i = tid; i < QB * NK; i += kThreads) {
+    const int qi = i / NK, kj = i % NK;
+    const float* a = Qs + qi * L.ldq;
+    const float* b = Ks + kj * L.ldk;
+    float acc = 0.f;
 #pragma unroll 16
-      for (int d = 0; d < kHeadDim; ++d) acc = fmaf(a[d], b[d], acc);
-      Ss[qi * L.lds + kj] = acc;
-    }
-  } else {
-    using namespace nvcuda;
-    const int nfj = NK / 16;
-    for (int f = warp; f < (QB / 16) * nfj; f += kTeamWarps) {
-      const int fi = f / nfj, fj = f % nfj;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kHeadDim; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, Qs + fi * 16 * L.ldq + kk, L.ldq);
-        wmma::load_matrix_sync(b, Ks + fj * 16 * L.ldk + kk, L.ldk);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(Ss + fi * 16 * L.lds + fj * 16, acc, L.lds, wmma::mem_row_major);
-    }
+    for (int d = 0; d < kHeadDim; ++d) acc = fmaf(a[d], b[d], acc);
+    Ss[qi * L.lds + kj] = acc;
   }
-  team_sync<kTeam>();
+  __syncthreads();
 
   // exact softmax over the keys [j0, j1) of each row, its own block under a
   // mask: s = dot * scale, m = max(s), p = exp(s - m) (p = 0 elsewhere),
-  // l = sum(p); rows past the queries are left as they are (P.V's output
-  // rows past them are never stored, and a product row reads only its own
-  // P row)
-  const bool bf16_exp = !f32 && opts.bf16_exp;
-  for (int r = warp; r < nq; r += kTeamWarps) {
+  // l = sum(p), then p / l; rows past the queries are left as they are
+  for (int r = warp; r < nq; r += kWarps) {
     float* srow = Ss + r * L.lds;
     int j0 = 0, j1 = nk;
-    if (mb > 0 && r < nq) {
+    if (mb > 0) {
       j0 = (q0 + r) / mb * mb - k0;
       j1 = min(j0 + mb, nk);
     }
@@ -510,62 +540,23 @@ __device__ __forceinline__ void attend_tile_smem(const T* q, const T* k, const T
     m = warp_max(m);
     float l = 0.f;
     for (int j = lane; j < NK; j += 32) {
-      float p = 0.f;
-      if (j >= j0 && j < j1) {
-        const float z = srow[j] - m;
-        p = bf16_exp ? bf16_round(expf(bf16_round(z))) : expf(z);
-      }
+      const float p = j >= j0 && j < j1 ? expf(srow[j] - m) : 0.f;
       srow[j] = p;
       l += p;
     }
     l = warp_sum(l);
-    if constexpr (f32) {
-      for (int j = lane; j < nk; j += 32) srow[j] = srow[j] / l;
-    } else {
-      bf16* prow = reinterpret_cast<bf16*>(smem + L.p) + r * L.ldp;
-      for (int j = lane; j < NK; j += 32)
-        prow[j] = __float2bfloat16(opts.norm_first ? srow[j] / l : srow[j]);
-      if (lane == 0) linv[r] = opts.norm_first ? 1.0f : 1.0f / l;
-    }
+    for (int j = lane; j < nk; j += 32) srow[j] = srow[j] / l;
   }
-  team_sync<kTeam>();
+  __syncthreads();
 
-  T* orow0 = out + ((size_t)seq * N + q0) * C + h * kHeadDim;
-  if constexpr (f32) {
-    // O = (P / l) V, written straight out
-    for (int i = tid; i < nq * kHeadDim; i += kTeam) {
-      const int qi = i / kHeadDim, d = i % kHeadDim;
-      const float* p = Ss + qi * L.lds;
-      float acc = 0.f;
-      for (int j = 0; j < nk; ++j) acc = fmaf(p[j], Vs[j * L.ldv + d], acc);
-      orow0[(size_t)qi * C + d] = acc;
-    }
-  } else {
-    // O = P V on the tensor cores into the (now free) logits buffer, then
-    // scaled by 1/l (or by 1 where p was normalised first) and rounded to
-    // bf16 on the way out
-    using namespace nvcuda;
-    const bf16* Ps = reinterpret_cast<const bf16*>(smem + L.p);
-    float* Os = Ss;
-    constexpr int ldo = kHeadDim + 4;
-    for (int f = warp; f < (QB / 16) * (kHeadDim / 16); f += kTeamWarps) {
-      const int fi = f / (kHeadDim / 16), fj = f % (kHeadDim / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < NK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, Ps + fi * 16 * L.ldp + kk, L.ldp);
-        wmma::load_matrix_sync(b, Vs + kk * L.ldv + fj * 16, L.ldv);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(Os + fi * 16 * ldo + fj * 16, acc, ldo, wmma::mem_row_major);
-    }
-    team_sync<kTeam>();
-    for (int i = tid; i < nq * kHeadDim; i += kTeam) {
-      const int qi = i / kHeadDim, d = i % kHeadDim;
-      orow0[(size_t)qi * C + d] = __float2bfloat16(Os[qi * ldo + d] * linv[qi]);
-    }
+  // O = (P / l) V, written straight out
+  float* orow0 = out + ((size_t)seq * N + q0) * C + h * kHeadDim;
+  for (int i = tid; i < nq * kHeadDim; i += kThreads) {
+    const int qi = i / kHeadDim, d = i % kHeadDim;
+    const float* p = Ss + qi * L.lds;
+    float acc = 0.f;
+    for (int j = 0; j < nk; ++j) acc = fmaf(p[j], Vs[j * L.ldv + d], acc);
+    orow0[(size_t)qi * C + d] = acc;
   }
 }
 
@@ -1076,17 +1067,300 @@ __device__ __forceinline__ void attend_mma_compute_parts(bf16* out, int N, int C
   }
 }
 
-// The shared-memory body's launch: grid (sequence, head, query block), one
-// tile per block. hs: see launch_attend.
+// ------------------------------------------ short tile (bf16, N <= 32 keys)
+// bf16 attention over N <= kShortMaxKeys unmasked keys: the spatial stages
+// (N = 17 joints) of K1, K1-dp, K8, K6, K3, K7 and the depth-resident
+// kernel. What bounds it on the H100: bytes. At the eval shape (9,720
+// sequences of 17 tokens, C = 512) it reads 0.508 GB of qkv and writes 0.169
+// GB of o, 0.202 ms at 3.35 TB/s, against 5.75 GFLOP (8.5 FLOPs a byte; the
+// card's ridge is about 295). Design:
+//   * a tile is one sequence with all its heads: its qkv is one contiguous
+//     N x 3C slab (52 KB at N = 17, C = 512) in the packed layout;
+//   * one thread of warp 0 arms a stage's mbarrier with the tile's bytes and
+//     the warp's lanes start 1-D bulk copies (cp.async.bulk, no tensor map)
+//     of its rows into a ring of stages, each source row (the packed
+//     layout's q | k | v row of 3C; separate q, k and v rows of C each; a
+//     head-major slab's row of 3 x 64) to a shared row padded by 16 bytes,
+//     so the 8 row addresses of an ldmatrix fall on distinct banks (one copy
+//     of the whole slab would put them on one bank). The persistent grid
+//     walks the sequences; a stage is refilled with the tile `stages` further
+//     on once every warp has released it, so the next tiles' copies run
+//     while the current one computes;
+//   * warp w takes head w (heads w, w + 8, ... where there are more): S,
+//     the exact softmax and P live in mma.sync m16n8k16 registers (32 query
+//     rows x 32 keys, or 16 x 16 at N <= 16; the helpers of the tensor-core
+//     tile), rows and keys at or past N are read from a zero row by index
+//     and keys past N get s = -inf, so p = 0 exactly; P is repacked in
+//     registers as the A operand of P.V;
+//   * O is scaled and rounded in registers, staged in the warp's own head's
+//     q columns of the stage (read already) and written as whole 128-byte
+//     lines with 16-byte stores.
+// Each output row's arithmetic (the MMA order along keys, the shuffle order
+// of m and l) depends on neither R, the walk, nor the source layout, so K8
+// equals K1 and level 5 level 4, bit for bit.
+constexpr int kShortStages = 2;     // the standalone launch's ring,
+constexpr int kShortBlocks = 2;     // with two blocks an SM
+constexpr int kShortMaxStages = 4;  // the most the depth-resident kernel's smem holds
+constexpr int kShortPad = 8;        // bf16 elements padding each shared row: 16 bytes
+// shared memory before the ring: full and empty mbarriers of each stage,
+// then a zero row of kHeadDim bf16
+constexpr int kShortZero = 2 * kShortMaxStages * 8;
+constexpr int kShortHeader = 256;
+constexpr size_t kSmemPerBlock = 232448;  // 227 KB, the most a block may use
+
+// where a tile's rows come from
+constexpr int kShortPacked = 0;     // (R, N, 3C): q | k | v, ld = 3C
+constexpr int kShortSeparate = 1;   // three (R, N, C) tensors, ld = C
+constexpr int kShortHeadMajor = 2;  // (heads, R * N, 3 x 64) slabs, ld = 3 x 64
+
+struct ShortLayout {
+  int src, N, C, heads, ld;
+  long long hstride;  // head-major: elements from one head's slab to the next
+  // shared, in bf16 elements: head h's q row r at h * sh + r * sr, its k and
+  // v rows at + ko and + vo; the copies of one source row o (separate: q, k,
+  // v; head-major: the heads) dso apart
+  int sr, sh, ko, vo, dso;
+  int ncopy, copy_bytes;  // a tile's bulk copies and each one's bytes
+  int tile_bytes, stage_bytes, stages;
+  int total;  // the dynamic shared memory of a block
+};
+
+// The layout of a short tile over `src` rows with as many stages as fit in
+// smem_max bytes, at most max_stages; false where not one fits.
+inline bool short_layout(ShortLayout& L, int src, int N, int C, int heads, int ld,
+                         long long hstride, size_t smem_max, int max_stages) {
+  L.src = src;
+  L.N = N;
+  L.C = C;
+  L.heads = heads;
+  L.ld = ld;
+  L.hstride = hstride;
+  if (src == kShortHeadMajor) {
+    L.sr = 3 * kHeadDim + kShortPad;
+    L.sh = L.dso = N * L.sr;
+    L.ko = kHeadDim;
+    L.vo = 2 * kHeadDim;
+    L.ncopy = heads * N;
+    L.copy_bytes = 3 * kHeadDim * sizeof(bf16);
+  } else {
+    L.sr = 3 * C + kShortPad;
+    L.sh = kHeadDim;
+    L.ko = L.dso = C;
+    L.vo = 2 * C;
+    L.ncopy = src == kShortPacked ? N : 3 * N;
+    L.copy_bytes = (src == kShortPacked ? 3 * C : C) * sizeof(bf16);
+  }
+  L.tile_bytes = N * 3 * C * sizeof(bf16);
+  L.stage_bytes = (int)align128(sizeof(bf16) * (src == kShortHeadMajor ? heads : 1) * N * L.sr);
+  const long long room = (long long)smem_max - kShortHeader;
+  L.stages = (int)std::min<long long>(max_stages, room > 0 ? room / L.stage_bytes : 0);
+  L.total = kShortHeader + L.stages * L.stage_bytes;
+  return L.stages >= 1;
+}
+
+// Global 16-byte src to shared address dst, `bytes` (a multiple of 16),
+// completing on the mbarrier bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+struct ShortArgs {
+  const bf16 *q, *k, *v;  // see launch_attend_short
+  bf16* out;              // (R, N, C)
+  int R;
+  float scale;
+  AttnOpts opts;
+};
+
+// Head h of the tile in the stage at st, on one warp: O into the head's q
+// columns of the stage, then out to sequence seq's rows.
+__device__ __forceinline__ void attend_short_head(const ShortLayout& L, const ShortArgs& a,
+                                                  bf16* st, const bf16* zero, int seq, int h,
+                                                  int lane) {
+  const int N = L.N;
+  const int g = lane / 4, tq = lane % 4, lrow = lane % 8, lmat = lane / 8;
+  bf16* qh = st + h * L.sh;
+  // the lane's ldmatrix row: row r of the head's q, k or v, or the zero row
+  auto at = [&](int r, int col) -> const bf16* { return r < N ? qh + r * L.sr + col : zero; };
+  const bool two = N > 16;  // a second 16-row block of queries and of keys
+  const int j0[2] = {0, 0}, j1[2] = {N, N};
+#pragma unroll 1
+  for (int rb = 0; rb < (two ? 2 : 1); ++rb) {
+    uint32_t qa[kHeadDim / 16][4];
+    const bf16* qp = at(16 * rb + (lmat & 1) * 8 + lrow, 0);
+#pragma unroll
+    for (int ks = 0; ks < kHeadDim / 16; ++ks) ldsm_x4(qa[ks], qp + ks * 16 + (lmat >> 1) * 8);
+    // S = Q K^T (unscaled): s[j][e] holds key 8j + 2tq + (e & 1) of row
+    // 16rb + g + 8(e >> 1)
+    float s[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      if (f == 1 && !two) break;
+      const bf16* kp = at(16 * f + (lmat >> 1) * 8 + lrow, L.ko);
+#pragma unroll
+      for (int ks = 0; ks < kHeadDim / 16; ++ks) {
+        uint32_t b[4];
+        ldsm_x4(b, kp + ks * 16 + (lmat & 1) * 8);
+        mma_16816(s[2 * f], qa[ks], b[0], b[1]);
+        mma_16816(s[2 * f + 1], qa[ks], b[2], b[3]);
+      }
+    }
+    // the exact softmax of rows 16rb + g (e = 0, 1) and + 8 (e = 2, 3)
+    scale_mask<2>(s, a.scale, 0, tq, j0, j1, false);
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv[2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], s[j][e]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
+    }
+    softmax_exp<2>(s, m, l, a.opts.bf16_exp, true);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      inv[i] = 1.0f / l[i];
+    }
+    // P (p / l first under norm_first) as P.V's A fragments; O = P V
+    uint32_t pa[2][4];
+    pack_p<2>(pa, s, inv, a.opts.norm_first);
+    float o[kHeadDim / 8][4];
+#pragma unroll
+    for (int j = 0; j < kHeadDim / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      if (f == 1 && !two) break;
+      const bf16* vp = at(16 * f + (lmat & 1) * 8 + lrow, L.vo);
+#pragma unroll
+      for (int dp = 0; dp < kHeadDim / 16; ++dp) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, vp + dp * 16 + (lmat >> 1) * 8);
+        mma_16816(o[2 * dp], pa[f], b[0], b[1]);
+        mma_16816(o[2 * dp + 1], pa[f], b[2], b[3]);
+      }
+    }
+    // scaled by 1/l (or by 1 where p was normalised first), rounded to bf16,
+    // staged over the rows' q, which this warp alone reads and has read
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 * rb + g + 8 * i;
+      const float c = a.opts.norm_first ? 1.f : inv[i];
+      if (r >= N) continue;
+      bf16* d = qh + r * L.sr + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < kHeadDim / 8; ++j)
+        *reinterpret_cast<uint32_t*>(d + 8 * j) = pack_bf16(o[j][2 * i] * c, o[j][2 * i + 1] * c);
+    }
+  }
+  __syncwarp();
+  // the head's N x 64 outputs, 8 lanes a 128-byte row
+  bf16* og = a.out + (size_t)seq * N * L.C + h * kHeadDim;
+  for (int i = lane; i < N * 8; i += 32) {
+    const int r = i / 8, c = (i % 8) * 8;
+    *reinterpret_cast<uint4*>(og + (size_t)r * L.C + c) =
+        *reinterpret_cast<const uint4*>(qh + r * L.sr + c);
+  }
+}
+
+// The short tile's walk over the a.R sequences: blocks take the tiles
+// blockIdx.x, + gridDim.x, ..., through the ring of L.stages stages at
+// smem + kShortHeader (L.total bytes in all). Every thread of the block
+// calls it; the memory is free for the caller on return. The inputs may
+// have been written by other blocks before a grid barrier (the
+// depth-resident kernel), the outputs are plain stores.
+__device__ __forceinline__ void attend_short_walk(const ShortLayout& L, const ShortArgs& a,
+                                                  unsigned char* smem) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const uint32_t bars = smem_addr(smem);
+  bf16* zero = reinterpret_cast<bf16*>(smem + kShortZero);
+  unsigned char* ring = smem + kShortHeader;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kShortMaxStages + s); };
+  // on warp 0: start tile t's copies into stage s
+  auto issue = [&](int t, int s) {
+    if (lane == 0) mbar_expect_tx(full(s), L.tile_bytes);
+    __syncwarp();
+    const uint32_t dst = smem_addr(ring + (size_t)s * L.stage_bytes);
+    for (int c = lane; c < L.ncopy; c += 32) {
+      const int o = c / L.N, r = c - o * L.N;
+      const bf16* src = L.src == kShortPacked     ? a.q
+                        : L.src == kShortSeparate ? (o == 0 ? a.q : o == 1 ? a.k : a.v)
+                                                  : a.q + o * L.hstride;
+      bulk_load(dst + sizeof(bf16) * (o * L.dso + r * L.sr), src + ((size_t)t * L.N + r) * L.ld,
+                L.copy_bytes, full(s));
+    }
+  };
+  if (threadIdx.x < kHeadDim * sizeof(bf16) / 16)
+    reinterpret_cast<uint4*>(zero)[threadIdx.x] = make_uint4(0u, 0u, 0u, 0u);
+  fence_proxy_async();  // earlier generic writes to the ring before the copies'
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L.stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 0) {
+    fence_proxy_async_global();  // inputs other blocks wrote, before the copies read them
+    for (int i = 0; i < L.stages; ++i)
+      if (blockIdx.x + i * gridDim.x < a.R) issue(blockIdx.x + i * gridDim.x, i);
+  }
+  for (int i = 0, t = blockIdx.x; t < a.R; ++i, t += gridDim.x) {
+    const int s = i % L.stages;
+    const uint32_t parity = (i / L.stages) & 1;
+    mbar_wait(full(s), parity);
+    bf16* st = reinterpret_cast<bf16*>(ring + (size_t)s * L.stage_bytes);
+    for (int h = warp; h < L.heads; h += kWarps) attend_short_head(L, a, st, zero, t, h, lane);
+    fence_proxy_async();  // the staged outputs before the stage's next copies
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+    const int tn = t + L.stages * gridDim.x;
+    if (warp == 0 && tn < a.R) {
+      mbar_wait(empty(s), parity);
+      issue(tn, s);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int s = 0; s < L.stages; ++s) {
+      mbar_inval(full(s));
+      mbar_inval(empty(s));
+    }
+  __syncthreads();
+}
+
+// The short tile's launch: a persistent grid, kMinBlocks blocks an SM (the
+// registers' cap: kShortBlocks).
+template <int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+attend_short_kernel(const __grid_constant__ ShortArgs a, const __grid_constant__ ShortLayout L) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  attend_short_walk(L, a, smem);
+}
+
+// fp32's launch: grid (sequence, head, query block), one tile per block. hs:
+// see launch_attend.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attend_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              long long hs, int ld, T* __restrict__ out, int N, int C, float scale,
-              AttnLayout L, AttnOpts opts) {
+              long long hs, int ld, T* __restrict__ out, int N, int C, float scale, AttnLayout L,
+              AttnOpts opts) {
+  static_assert(std::is_same<T, float>::value, "bf16 runs the short or the tensor-core tile");
   extern __shared__ __align__(128) unsigned char smem[];
   const long long o = blockIdx.y * hs;
-  attend_tile_smem<T>(q + o, k + o, v + o, ld, out, N, C, scale, L, opts, smem, blockIdx.x,
-                      blockIdx.y, blockIdx.z);
+  attend_tile_smem(q + o, k + o, v + o, ld, out, N, C, scale, L, opts, smem, blockIdx.x,
+                   blockIdx.y, blockIdx.z);
 }
 
 // The tensor-core tile's walk: blocks take the tiles blockIdx.x, + gridDim.x,
@@ -1174,33 +1448,70 @@ cudaError_t launch_attend_mma(const bf16* q, const bf16* k, const bf16* v, long 
   return cudaGetLastError();
 }
 
-// Launch the tile over R sequences of N tokens, heads of kHeadDim. A tile
-// reads head h at column h * kHeadDim of rows of ld elements; hs is a further
-// offset of h * hs elements (0 for token rows holding every head; the
-// head-major slabs of attention_stage.cu, one per head, M * 3d apart).
+// The short tile over R sequences (launch_attend's arguments): q, k, v are
+// the packed layout (hs = 0, ld = 3C, k = q + C, v = q + 2C), separate
+// tensors (hs = 0, ld = C) or head-major slabs (hs != 0, ld = 3 x 64,
+// k = q + 64, v = q + 128); anything else, or a pointer off 16 bytes, is an
+// error to the caller. (A template, so that only the sources that launch
+// it compile the kernel.)
+template <int kMinBlocks = kShortBlocks>
+cudaError_t launch_attend_short(const bf16* q, const bf16* k, const bf16* v, long long hs, int ld,
+                                bf16* out, int R, int N, int C, int heads, float scale,
+                                const AttnOpts& opts, cudaStream_t stream) {
+  int src;
+  if (hs != 0)
+    src = ld == 3 * kHeadDim && k == q + kHeadDim && v == q + 2 * kHeadDim ? kShortHeadMajor : -1;
+  else if (ld == 3 * C && k == q + C && v == q + 2 * C)
+    src = kShortPacked;
+  else
+    src = ld == C ? kShortSeparate : -1;
+  auto off16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (src < 0 || R < 1 || N < 1 || heads * kHeadDim != C || off16(q) || off16(k) || off16(v) ||
+      off16(out))
+    return cudaErrorInvalidValue;
+  ShortLayout L;
+  if (!short_layout(L, src, N, C, heads, ld, hs + kHeadDim, kSmemPerBlock, kShortStages))
+    return cudaErrorInvalidValue;
+  int blocks = 0;
+  const cudaError_t e = persistent_grid(attend_short_kernel<kMinBlocks>, L.total, R, &blocks);
+  if (e != cudaSuccess) return e;
+  attend_short_kernel<kMinBlocks><<<blocks, kThreads, L.total, stream>>>(
+      ShortArgs{q, k, v, out, R, scale, opts}, L);
+  return cudaGetLastError();
+}
+
+// Launch the attention over R sequences of N tokens, heads of kHeadDim. A
+// tile reads head h at column h * kHeadDim of rows of ld elements; hs is a
+// further offset of h * hs elements (0 for token rows holding every head;
+// the head-major slabs of attention_stage.cu, one per head, M * 3d apart).
+// bf16: the short tile at N <= 32 unmasked keys, else the tensor-core tile;
+// fp32: the shared-memory body.
 template <typename T>
 cudaError_t launch_attend(const T* q, const T* k, const T* v, int ld, T* out, int R, int N,
                           int C, int heads, float scale, const AttnOpts& opts,
                           cudaStream_t stream, long long hs = 0) {
-  const AttnLayout L = attn_layout<T>(N, opts.mask_block);
   if constexpr (std::is_same<T, bf16>::value) {
+    if (attend_short_ok(N, opts.mask_block))
+      return launch_attend_short(q, k, v, hs, ld, out, R, N, C, heads, scale, opts, stream);
+    const AttnLayout L = attn_layout_mma(N, opts.mask_block);
     switch (L.nkf) {
       case 4:
         return launch_attend_mma<4>(q, k, v, hs, ld, out, R, N, C, heads, scale, L, opts, stream);
       case 8:
         return launch_attend_mma<8>(q, k, v, hs, ld, out, R, N, C, heads, scale, L, opts, stream);
-      case 16:
+      default:
         return launch_attend_mma<16>(q, k, v, hs, ld, out, R, N, C, heads, scale, L, opts,
                                      stream);
-      default: break;
     }
+  } else {
+    const AttnLayout L = attn_layout_f32(N, opts.mask_block);
+    cudaError_t e = cudaFuncSetAttribute(attend_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+    if (e != cudaSuccess) return e;
+    attend_kernel<T><<<dim3(R, heads, cdiv(N, L.QB)), kThreads, L.total, stream>>>(
+        q, k, v, hs, ld, out, N, C, scale, L, opts);
+    return cudaGetLastError();
   }
-  cudaError_t e = cudaFuncSetAttribute(attend_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
-  if (e != cudaSuccess) return e;
-  attend_kernel<T><<<dim3(R, heads, cdiv(N, L.QB)), kThreads, L.total, stream>>>(
-      q, k, v, hs, ld, out, N, C, scale, L, opts);
-  return cudaGetLastError();
 }
 
 // The packed (R, N, 3C) qkv layout: q | k | v thirds of each token row.

@@ -48,10 +48,11 @@
 //     the H100, their saved registers and operands in local memory beside an
 //     L1 the shared memory leaves small. The attend phase at F > 32 frames
 //     runs the level-4 launch's double-buffered tensor-core walk with S in
-//     parts; at 32 or fewer (spatial), the shared-memory body a tile a warp,
-//     eight tiles in flight a block (one tile a block waits on its loads).
-//     A row's arithmetic does not depend on which block or warp takes its
-//     tile;
+//     parts; at 32 or fewer (spatial), the level-4 launch's short tile walk,
+//     its ring of bulk copies as deep as the kernel's shared memory holds
+//     (four stages of a 17-token sequence's 52 KB at C = 512; the launch
+//     takes two a block, two blocks an SM). A row's arithmetic does not
+//     depend on which block or warp takes its tile;
 //   * rows go in groups of G, chosen by the caller so that every GEMM phase
 //     has several waves of 64-row tiles on the SMs (`group_rows`): a group
 //     of one row gives each phase at most one tile a block, half the SMs
@@ -105,6 +106,7 @@ struct ResidentArgs {
   int B, F, J, C, H, D, heads, G;
   float scale, eps;
   AttnLayout Ls, Lt;     // attention layouts for N = J and N = F
+  ShortLayout Ss, St;    // bf16: the short tile's, where N <= 32 (attend_short_ok)
   AttnOpts ao;           // the attention's lab switches (no mask)
   int gelu;              // the MLP's activation, kGelu*
   MlpLayout<T> Lm;
@@ -149,7 +151,8 @@ __device__ __forceinline__ void phase_end(cg::grid_group& grid, int phase, long 
 template <typename T, bool kWide>
 __device__ __forceinline__ void block_phases(const ResidentArgs<T>& a, const KindWeights<T>& w,
                                              int d, const T* h, int G, int D1, int N,
-                                             const AttnLayout& L, const float* lns,
+                                             const AttnLayout& L, const ShortLayout& S,
+                                             const float* lns,
                                              const float* lnb, T* dst, unsigned char* smem,
                                              cg::grid_group& grid, int p0, long long& t) {
   constexpr bool f32 = std::is_same<T, float>::value;
@@ -171,21 +174,14 @@ __device__ __forceinline__ void block_phases(const ResidentArgs<T>& a, const Kin
   if constexpr (f32) {
     const int n_att = R * a.heads * cdiv(N, L.QB);
     for (int i = blockIdx.x; i < n_att; i += gridDim.x) {
-      attend_tile_smem<T>(q, q + C, q + 2 * C, C3, a.o, N, C, a.scale, L, a.ao, smem, i % R,
-                          (i / R) % a.heads, i / (R * a.heads));
+      attend_tile_smem(q, q + C, q + 2 * C, C3, a.o, N, C, a.scale, L, a.ao, smem, i % R,
+                       (i / R) % a.heads, i / (R * a.heads));
       __syncthreads();
     }
-  } else if (L.nkf == 0) {
-    // the shared-memory body (N <= 32: one query block) a tile a warp, each
-    // in its own L.total bytes: a block's tile alone would leave the SM
-    // waiting on its loads
-    const int warp = threadIdx.x / 32, n_att = R * a.heads;
-    unsigned char* ws = smem + warp * align128(L.total);
-    for (int i = blockIdx.x * kWarps + warp; i < n_att; i += gridDim.x * kWarps) {
-      attend_tile_smem<T, 32>(q, q + C, q + 2 * C, C3, a.o, N, C, a.scale, L, a.ao, ws, i % R,
-                              i / R, 0);
-      __syncwarp();  // the next tile overwrites the warp's shared memory
-    }
+  } else if (attend_short_ok(N, 0)) {
+    // the level-4 launch's short tile, its ring as deep as the kernel's
+    // shared memory holds (S.stages)
+    attend_short_walk(S, ShortArgs{q, q + C, q + 2 * C, a.o, R, a.scale, a.ao}, smem);
   } else if (L.nkf == 4) {
     attend_mma_walk<4, kResidentFrags>(q, q + C, q + 2 * C, 0, C3, a.o, R, N, C, a.heads,
                                        a.scale, L, a.ao, smem);
@@ -231,7 +227,7 @@ __global__ void __launch_bounds__(kThreads) resident_kernel(const __grid_constan
     for (int d = 0; d < a.D; ++d) {
       // spatial: (G*F, J, C) in, (G, J, F, C) out to the relayout buffer
       block_phases<T, kWide>(a, a.sp, d, d == 0 ? a.x + r0 * row : stream, G, a.F, a.J, a.Ls,
-                             a.shared, a.shared + a.C, a.tbuf, smem, grid, 0, t);
+                             a.Ss, a.shared, a.shared + a.C, a.tbuf, smem, grid, 0, t);
       if (d == 0) {
         // + tpos on the rounded MLP output, rounded again: the level-4
         // flow's add of two compute-type tensors, 16 bytes a thread
@@ -251,7 +247,7 @@ __global__ void __launch_bounds__(kThreads) resident_kernel(const __grid_constan
         phase_end(grid, 4, t);
       }
       // temporal: (G*J, F, C) in, (G, F, J, C) out to the stream
-      block_phases<T, kWide>(a, a.tp, d, a.tbuf, G, a.J, a.F, a.Lt, a.shared + 2 * a.C,
+      block_phases<T, kWide>(a, a.tp, d, a.tbuf, G, a.J, a.F, a.Lt, a.St, a.shared + 2 * a.C,
                              a.shared + 3 * a.C, stream, smem, grid, 5, t);
     }
   }
@@ -268,14 +264,22 @@ int resident_grid(Kernel kernel, int C, int H, int F, int J, int* blocks, size_t
     return (int)e;
   if (!coop) return kNoCooperativeLaunch;
   constexpr bool f32 = std::is_same<T, float>::value;
-  // the attend phases: a tile a block (fp32), a tile a warp (bf16's
-  // shared-memory body) or the double-buffered tensor-core walk
-  auto attend = [](const AttnLayout& L) {
-    return f32 ? L.total : L.nkf == 0 ? kWarps * align128(L.total) : 2 * L.total;
+  // the attend phases: a tile a block (fp32), the short tile's ring (at
+  // least one stage; it takes as many as the largest phase leaves room for)
+  // or the double-buffered tensor-core walk
+  const int heads = C / kHeadDim;
+  auto attend = [&](int N) -> size_t {
+    if (f32) return attn_layout_f32(N).total;
+    ShortLayout S;
+    if (attend_short_ok(N, 0)) {
+      short_layout(S, kShortPacked, N, C, heads, 3 * C, 0, (size_t)1 << 30, 1);
+      return S.total;
+    }
+    return 2 * attn_layout_mma(N, 0).total;
   };
   *smem = std::max({f32 ? ln_qkv_smem(C) : QkvLayout(C).total,
                     f32 ? proj_ln2_smem(C) : ProjLayout(C).total, MlpLayout<T>(C, H).total,
-                    attend(attn_layout<T>(J)), attend(attn_layout<T>(F))});
+                    attend(J), attend(F)});
   if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)*smem)) != cudaSuccess)
     return (int)e;
@@ -347,8 +351,22 @@ int resident(const void* const* ptrs, int B, int F, int J, int C, int H, int D, 
   a.B = B; a.F = F; a.J = J; a.C = C; a.H = H; a.D = D; a.heads = heads; a.G = G;
   a.scale = scale;
   a.eps = eps;
-  a.Ls = attn_layout<T>(J);
-  a.Lt = attn_layout<T>(F);
+  if constexpr (f32) {
+    a.Ls = attn_layout_f32(J);
+    a.Lt = attn_layout_f32(F);
+  } else {
+    a.Ls = attn_layout_mma(J, 0);
+    a.Lt = attn_layout_mma(F, 0);
+    // the short tile's ring in the kernel's shared memory (resident_grid
+    // sized it for one stage at least)
+    for (int i : {0, 1}) {
+      ShortLayout& S = i == 0 ? a.Ss : a.St;
+      const int N = i == 0 ? J : F;
+      if (attend_short_ok(N, 0) &&
+          !short_layout(S, kShortPacked, N, C, heads, 3 * C, 0, smem, kShortMaxStages))
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   a.ao = attn_opts(opts, 0);
   a.gelu = gelu;
   a.Lm = MlpLayout<T>(C, H);

@@ -19,7 +19,8 @@ stage kernels instead: K1 and K8 at the eval path's spatial and temporal
 shapes, each also split into its ln_qkv, attend and proj_ln2 launches
 (device time from `torch.profiler`), K6 likewise, K1-dp at the train
 step's shapes, the library stage (layer_norm, F.linear, SDPA, F.linear,
-the residual, layer_norm) beside each shape, and K9 on 40 rows at depth 8;
+the residual, layer_norm) beside each shape, and K9 on 40 rows at depth 8
+with its spatial attend phase's share of the launch (`resident_phase_clocks`);
 with `--sample` (implied by `--stage`) also `D3DP.sample` at the eval
 config at fuse levels 4 and 5 (K1 and K2; K9); with `--bwd` the training
 attention core instead: K4 (the backward) and K3 at the train step's shapes,
@@ -166,6 +167,13 @@ if STAGE:
              rn(4, C, s=0.05) + torch.tensor([1.0, 0, 1.0, 0], device="cuda")[:, None])
     res["K9/eval depth 8"] = ms(lambda: RS.resident_block_stack(*trunk, HEADS, 0.125, 1e-6),
                                 iters=5)
+    # K9's spatial attend phase from the build with per-phase clocks: its
+    # share of the launch's block cycles (tiles and barrier), and that share
+    # of the event-timed launch
+    sums = RS.resident_phase_clocks(*trunk, HEADS, 0.125, 1e-6)
+    share = sum(sums["spatial attend"]) / sum(w + b for w, b in sums.values())
+    res["K9 spatial attend share/eval depth 8"] = share
+    res["K9 spatial attend ms/eval depth 8"] = share * res["K9/eval depth 8"]
     del trunk
 if BWD:
     import os, time

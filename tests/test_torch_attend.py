@@ -33,7 +33,8 @@ def _bf16_ulp(x):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("opts", [0, tattn.OPT_NORM_FIRST])
-@pytest.mark.parametrize("R,N", [(8, 17), (3, 65), (2, 243)])
+@pytest.mark.parametrize("R,N", [(8, 17), (3, 65), (2, 243), (5, 1), (4, 2), (3, 31),
+                                 (3, 32)])
 def test_attend_qkv_plain_matches_jax_attention_core(rng, R, N, opts, dtype):
     qkv = rng.randn(R, N, 3 * 512).astype(np.float32)
     want = np.asarray(fused_attention_qkv(jnp.asarray(qkv).astype(DTYPES[dtype]), 8, 0.125,

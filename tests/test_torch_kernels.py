@@ -295,6 +295,104 @@ def test_attention_rows_do_not_depend_on_the_batch(np_rng, dtype, op, N):
     assert torch.equal(seven, full[:7])
 
 
+# The short tile (bf16, N <= 32 unmasked keys): every query and key
+# fragment edge (1, 2, 16, 17, 31, 32 tokens), rows R of one sequence, 7,
+# the eval path's 9,720 spatial sequences and the train step's 4 x 243, so
+# the ring's last stages are partly filled and a block may hold no tile.
+SHORT_NS = [1, 2, 16, 17, 31, 32]
+SHORT_RS = [1, 7, 9720, 4 * 243]
+
+
+def _short_qkv(R, N, seed):
+    """Unit-normal packed qkv (R, N, 3 x 512) in bf16, drawn on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(R, N, 1536, generator=g, device="cuda").to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", [0, tattn.OPT_NORM_FIRST, tattn.OPT_BF16_EXP,
+                                  tattn.OPT_NORM_FIRST | tattn.OPT_BF16_EXP])
+@pytest.mark.parametrize("N", SHORT_NS)
+@pytest.mark.parametrize("R", SHORT_RS)
+def test_short_tile_packed_matches_plain(R, N, opts):
+    """The short tile on the packed layout (K1's attend launch) against its
+    plain version at TOL_QKV, under each switch that reaches it."""
+    _cuda()
+    qkv = _short_qkv(R, N, 100 * N + R % 97)
+    n0 = tattn.attend_qkv.launches
+    got = tattn.attend_qkv(qkv, 8, 0.125, opts)
+    want = tattn.attend_qkv_plain(qkv, 8, 0.125, opts)
+    torch.cuda.synchronize()
+    assert tattn.attend_qkv.launches == n0 + 1
+    assert got.shape == (R, N, 512) and bool(torch.isfinite(got).all())
+    assert _excess(got, want, torch.bfloat16, TOL_QKV) <= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", SHORT_NS)
+@pytest.mark.parametrize("R", SHORT_RS)
+def test_short_tile_separate_matches_plain(R, N):
+    """The short tile on separate q, k, v (K7) against its plain version."""
+    _cuda()
+    q, k, v = (t.contiguous() for t in _short_qkv(R, N, 200 * N + R % 89).split(512, dim=-1))
+    n0 = tattn.fused_attention_packed.launches
+    got = tattn.fused_attention_packed(q, k, v, 8, 0.125)
+    want = tattn.fused_attention_plain(q, k, v, 8, 0.125)
+    torch.cuda.synchronize()
+    assert tattn.fused_attention_packed.launches == n0 + 1
+    assert _excess(got, want, torch.bfloat16, TOL_QKV) <= 0
+    # the same tile on the packed layout with p / l first (K3's order)
+    qkv = torch.cat([q, k, v], dim=-1)
+    assert torch.equal(got, tattn.fused_attention_qkv(qkv, 8, 0.125))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", SHORT_NS)
+@pytest.mark.parametrize("R", SHORT_RS)
+def test_short_tile_head_major_stage_matches_plain_and_k1(np_rng, R, N):
+    """K8 (the short tile on head-major slabs) against its plain version at
+    K1's tolerance and equal to K1 (the packed layout) bit for bit."""
+    dev = _cuda()
+    args = _t(_stage_inputs(np_rng, 1, 1, 512, w_scale=0.05), dev, torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(N)
+    args[0] = (torch.randn(R, N, 512, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    whm, bhm = tattn.stack_head_major(args[1], args[2], 8)
+    hm = (args[0], whm, bhm, *args[3:])
+    n0, n1 = tattn.attention_stage_hm.launches, tattn.attention_stage.launches
+    got = tattn.attention_stage_hm(*hm, 8, 0.125, 1e-6)
+    want = tattn.attention_stage_hm_plain(*hm, 8, 0.125, 1e-6)
+    k1 = tattn.attention_stage(*args, 8, 0.125, 1e-6)
+    torch.cuda.synchronize()
+    assert tattn.attention_stage_hm.launches == n0 + 1
+    assert tattn.attention_stage.launches == n1 + 1
+    for gt, w, k in zip(got, want, k1):
+        assert _excess(gt, w, torch.bfloat16) <= 0
+        assert torch.equal(gt, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["attend", "packed", "stage_hm"])
+@pytest.mark.parametrize("N", SHORT_NS)
+def test_short_tile_rows_do_not_depend_on_the_batch(np_rng, op, N):
+    """A sequence alone equals itself inside R = 5, bit for bit, on each
+    source layout of the short tile."""
+    dev = _cuda()
+    qkv = _short_qkv(5, N, 300 + N)
+    if op == "attend":
+        run = lambda a, b: tattn.attend_qkv(qkv[a:b], 8, 0.125)  # noqa: E731
+    elif op == "packed":
+        q, k, v = (t.contiguous() for t in qkv.split(512, dim=-1))
+        run = lambda a, b: tattn.fused_attention_packed(q[a:b], k[a:b], v[a:b], 8, 0.125)  # noqa
+    else:
+        args = _t(_stage_inputs(np_rng, 5, N, 512, w_scale=0.05), dev, torch.bfloat16)
+        whm, bhm = tattn.stack_head_major(args[1], args[2], 8)
+        run = lambda a, b: tattn.attention_stage_hm(args[0][a:b] * 0.5, whm, bhm, *args[3:],  # noqa
+                                                    8, 0.125, 1e-6)[0]
+    five = run(0, 5)
+    for i in range(5):
+        assert torch.equal(run(i, i + 1)[0], five[i])
+
+
 @pytest.mark.gpu
 def test_wrappers_raise_on_what_the_kernels_do_not_take(np_rng):
     """A CUDA input the kernel does not take raises; nothing falls back to
