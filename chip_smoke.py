@@ -17,6 +17,12 @@ random weights from a fixed seed:
   * evaluation: multi-hypothesis DDIM sampling (H=5, K=5, bf16, flip-TTA)
     and the four-mode Evaluator, then one timed sampling call at each fuse
     level 0-5;
+  * fp32, the default dtype of every entry point (phases timing and
+    resident): `D3DP.sample` at the eval config at fuse level 4 (timed and
+    profiled), and every eval kernel's fp32 form at the bf16 rows' shapes
+    (K1 also split into its three launches; K9 at depth 8) against its
+    bound at the three-pass TF32 rate, the FMA figure, its plain version
+    and the library calls in fp32 with TF32 off;
   * fuse level 5 (the whole trunk in one launch) against level 4, its
     kernel timed and profiled, its time split by phase from the build with
     per-phase clocks, and sampling with DDIM feature reuse;
@@ -83,7 +89,9 @@ and times them. The stage, MLP and trunk kernels are also held against
 their plain versions at the 3DHP evaluation's 80 hypothesis rows. Every phase raises on failure; the script exits non-zero
 without a CUDA device and prints nothing then but the reason. The last
 stdout line is the run's JSON status; the line before it the per-kernel
-JSON. Details also go to `chiprun_out/chip_smoke.json`, and the command
+JSON. Details also go to `chiprun_out/chip_smoke.json` (the fp32 rows under
+`kernel_rows_fp32` and `resident.trunk_fp32`, the fp32 sample under
+`sample_seconds_fp32` and `profile_fp32`), and the command
 lines' own output to `chiprun_out/chip_smoke_cli.log`,
 `chiprun_out/chip_smoke_host.log`, `chiprun_out/chip_smoke_cli_3dhp.log` and
 `chiprun_out/chip_smoke_wild.log`.
@@ -122,6 +130,12 @@ BT = 4  # training batch: 4 chunks of 243 frames (bench.py's train config)
 TRAIN_SHAPES = (("spatial", BT * F, J), ("temporal", BT * J, F))  # (label, R, N)
 TRAIN_STEPS = 20
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
+# fp32: the tensor cores give an fp32-accurate product in three TF32 passes
+# (the fp32 kernels' tf32x3), so fp32's least time is 3 x FLOPs at the dense
+# TF32 rate; beside it the FMA figure, FLOPs at the float32 rate outside the
+# tensor cores (both NVIDIA data sheet)
+PEAK_TF32 = 495e12
+PEAK_FP32_FMA = 67e12
 HBM = 3.35e12  # bytes/s
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # K3/K4: unit-normal qkv at scale 1/8 gives outputs and gradients of about
@@ -273,8 +287,14 @@ def plain_ops():
              (attention, "attention_stage_hm")]
     saved = [getattr(mod, name) for mod, name in swaps]
     plain = {"fused_attention_packed": "fused_attention_plain"}
+
+    def without_planes(f):
+        # the plain versions multiply the weights themselves: the fp32
+        # kernels' `planes` argument means nothing to them
+        return lambda *a, planes=None, **k: f(*a, **k)
+
     for mod, name in swaps:
-        setattr(mod, name, getattr(mod, plain.get(name, name + "_plain")))
+        setattr(mod, name, without_planes(getattr(mod, plain.get(name, name + "_plain"))))
     try:
         yield
     finally:
@@ -324,7 +344,7 @@ def phase_env(torch, record):
     bf16_keys = ("attend", "attend_short", "attn_bwd_block", "attn_bwd_warp", "resident",
                  "mlp_block", "ln_qkv_walk", "proj_ln2_walk", "residual_ln")
     tile = [r for r in ptxas if any(k in r["kernel"] for k in bf16_keys)
-            and "<float" not in r["kernel"]]
+            and "<float" not in r["kernel"] and "_f32" not in r["kernel"]]
     for k in bf16_keys[1:]:
         check(any(k in r["kernel"] for r in tile), f"no bf16 {k} kernel in the ptxas output")
     for r in tile:
@@ -345,6 +365,18 @@ def phase_env(torch, record):
     log(f"[env] bf16 attention tile and backward, MLP tile, stage walks (their tensor-parallel "
         f"partial forms among them), residual_ln and K9: {len(tile)} "
         f"kernels, spilling: {', '.join(spills) if spills else 'none'}")
+    # the fp32 bodies: ln_qkv and proj_ln2 (K1, K1-dp, K8, K6), the MLP (K2,
+    # K5 and their -dp forms) and the tensor-core attention walk (tf32x3),
+    # the short attention tile (FMAs), and K9, which inlines them
+    f32_keys = ("ln_qkv_walk_f32", "proj_ln2_walk_f32", "mlp_block_kernel<float",
+                "attend_f32_kernel", "attend_short_kernel<float", "resident_kernel<float")
+    for k in f32_keys:
+        walks = [r for r in ptxas if k in r["kernel"]]
+        check(walks, f"no fp32 {k} kernel in the ptxas output")
+        for r in walks:
+            log(f"[env] fp32 walk {r['kernel']} ({r['source']}): {r.get('registers')} "
+                f"registers, {r.get('spill_stores')} / {r.get('spill_loads')} bytes spilled, "
+                f"{r.get('stack')} bytes stack")
     disable_tf32()
     record.update(card=card, torch=torch.__version__, cuda=torch.version.cuda, build_s=dt,
                   ptxas=ptxas)
@@ -433,14 +465,15 @@ def phase_kernels(torch, record):
 
 
 def check_mlp_tile_edges(torch, gen, dt, name_dt, errs):
-    """K5 and K5-dp on token-row counts around the MLP tile's 64 rows (fp32:
-    16): fewer than a tile, one under and over a multiple of 64, and
-    3 x 243 x 17 (41 rows in the last tile), against their plain versions."""
+    """K5 and K5-dp on token-row counts around the MLP walk's 64-row tiles
+    (both dtypes): fewer than a tile, one under and over one and two tiles,
+    and 3 x 243 x 17 (41 rows in the last tile), against their plain
+    versions."""
     from d3dp_tpu_torch.ops import mlp as M
 
     tol = TOL[name_dt]
     ulp = BF16_ULP if dt == torch.bfloat16 else 0.0
-    for R in (17, 127, 129, 3 * F * J):
+    for R in (17, 63, 65, 127, 129, 3 * F * J):
         args = mlp_inputs(torch, gen, R, 1, dt, rows=1)
         args[:2] = [a.view(R, C) for a in args[:2]]
         dp = dp_scales(torch, gen, (R,))
@@ -500,8 +533,8 @@ def check_bwd_tiles(torch, gen, dt, name_dt):
 
 
 # (R, N) of 17, 63, 65, 127, 129 and 12,393 token rows: fewer than a stage
-# tile of 64 rows (fp32: 16), one under and over one and two tiles, and 729
-# spatial sequences (41 rows in the last tile)
+# tile of 64 rows (both dtypes; bf16's ln_qkv takes 128), one under and over
+# one and two tiles, and 729 spatial sequences (41 rows in the last tile)
 STAGE_TILE_SHAPES = ((1, 17), (7, 9), (5, 13), (127, 1), (3, 43), (729, 17))
 
 
@@ -1030,12 +1063,12 @@ def resident_flops_bytes(x, D):
 
 
 def library_trunk(torch, Fn, x, tpos, spatial, temporal, shared, act=True):
-    """The trunk in library calls, bf16 (K9's yardstick): per depth and kind
-    layer_norm, F.linear, SDPA on q/k/v views, F.linear, the residual,
-    layer_norm, F.linear, GELU (without act: none), F.linear, the residual
-    and the shared layer_norm, with the relayouts as copies. Weights are
-    re-laid out for F.linear here, outside the timed call."""
-    bf = torch.bfloat16
+    """The trunk in library calls in x's dtype (K9's yardstick): per depth
+    and kind layer_norm, F.linear, SDPA on q/k/v views, F.linear, the
+    residual, layer_norm, F.linear, GELU (without act: none), F.linear, the
+    residual and the shared layer_norm, with the relayouts as copies.
+    Weights are re-laid out for F.linear here, outside the timed call."""
+    bf = x.dtype
     D = spatial[0].shape[0]
 
     def prep(ws):
@@ -1163,7 +1196,35 @@ def phase_resident(torch, record, d3dp, x2d, x2d_f, rows):
         f"library {row['library_ms']:.4f} ms, {flops / row['ms'] / 1e9:.1f} TFLOP/s")
     rows["resident_block_stack/trunk"] = row
     out["phase_clocks"] = resident_phase_split(torch, args, row["ms"])
+    del args, lib
+    out["trunk_fp32"] = resident_row_fp32(torch, Fn)
     record["resident"] = out
+
+
+def resident_row_fp32(torch, Fn):
+    """K9 in fp32 at the eval shape (40 rows, depth 8) on the matrices' TF32
+    planes, made outside the timed call as the weight cache makes them,
+    against its bound at the three-pass TF32 rate, the FMA figure, its
+    plain version and the library trunk in fp32 (TF32 off)."""
+    from d3dp_tpu_torch.ops import resident as R
+    from d3dp_tpu_torch.ops import tf32
+
+    args = resident_inputs(torch, torch.float32, 30)
+    planes = tuple(tuple(tf32.planes(kind[i]) for i in (0, 2, 3, 5)) for kind in args[2:4])
+    flops, nbytes = resident_flops_bytes(args[0], DEPTH)
+    lib = library_trunk(torch, Fn, *args)
+    row = dict(shape=list(args[0].shape), flops=flops, bytes=nbytes,
+               ms=time_ms(torch, lambda: R.resident_block_stack(*args, HEADS, 0.125, 1e-6,
+                                                                planes=planes), reps=3),
+               plain_ms=time_ms(torch, lambda: R.resident_block_stack_plain(
+                   *args, HEADS, 0.125, 1e-6), reps=2),
+               library_ms=time_ms(torch, lib, reps=3), fma_ms=1e3 * flops / PEAK_FP32_FMA)
+    row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, PEAK_TF32 / 3)
+    log(f"[resident] resident_block_stack fp32 x{tuple(args[0].shape)} depth {DEPTH}: kernel "
+        f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, three TF32 "
+        f"passes; FMA figure {row['fma_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, library "
+        f"(TF32 off) {row['library_ms']:.4f} ms, {flops / row['ms'] / 1e9:.1f} TFLOP/s")
+    return row
 
 
 def resident_phase_split(torch, args, k9_ms):
@@ -2991,6 +3052,7 @@ def phase_timing(torch, record, d3dp, x2d, x2d_f):
         del qkv, dout, leaf, lib_out
     rows.update(eval_kernel_rows(torch, Fn, gen))
     rows.update(train_fused_kernel_rows(torch, Fn, gen))
+    timing_fp32(torch, record, x2d, x2d_f, Fn, gen)
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_ms(r["flops"], r["bytes"], PEAK_BF16)
         log(f"[timing] {name} bf16 x{tuple(r['shape'])}: kernel {r['ms']:.4f} ms, bound "
@@ -3003,6 +3065,155 @@ def phase_timing(torch, record, d3dp, x2d, x2d_f):
                f"({r['split_extra_bytes'] / HBM * 1e3:.3f} ms at full HBM rate)"
                if "split_extra_bytes" in r else ""))
     record["kernel_rows"] = rows
+    return rows
+
+
+def launch_split(torch, fn, reps=5):
+    """Device ms per call of each of a stage call's three launches (ln_qkv,
+    attend, proj_ln2), by kernel name from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for k in ("ln_qkv", "attend", "proj_ln2"):
+            if k in e.key and e.self_device_time_total > 0:
+                out[k] = out.get(k, 0.0) + e.self_device_time_total / reps / 1e3
+    return out
+
+
+def timing_fp32(torch, record, x2d, x2d_f, Fn, gen):
+    """fp32, the default dtype of every entry point: one D3DP.sample at the
+    eval config at fuse level 4 (launch counts, 3 timed calls, one profiled),
+    then `fp32_kernel_rows`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from d3dp_tpu_torch.diffusion import D3DP
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import mlp as M
+
+    cfg = main_config(torch)
+    d3dp = D3DP(dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype=torch.float32)), seed=0)
+    perturb_(torch, d3dp.model, 1)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    reset_counts()
+    preds = d3dp.sample(x2d, x2d_f, generator=g)
+    torch.cuda.synchronize()
+    counts = (A.attention_stage.launches, M.mlp_block_t.launches)
+    ok = bool(torch.isfinite(preds).all()) and counts == (2 * DEPTH * K, 2 * DEPTH * K)
+    sample_ms = time_ms(torch, lambda: d3dp.sample(x2d, x2d_f, generator=g), reps=3)
+    hfs = B * H * F * K / (sample_ms / 1e3)
+    log(f"[timing] D3DP.sample B={B} H={H} K={K} F={F} fp32 flip-TTA level 4: "
+        f"{sample_ms / 1e3:.4f} s/call (median of 3), {hfs:.1f} hyp*frames/s; launches "
+        f"attention_stage {counts[0]} mlp_block_t {counts[1]} (expected 2*depth*K = "
+        f"{2 * DEPTH * K}) {'ok' if ok else 'FAIL'}")
+    check(ok, "fp32 D3DP.sample: non-finite output or launch counts")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        d3dp.sample(x2d, x2d_f, generator=g)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    record.update(sample_seconds_fp32=sample_ms / 1e3, hyp_frames_per_s_fp32=hfs,
+                  profile_fp32=summarize_profile(
+                      torch, prof, wall_ms, "one fp32 D3DP.sample call at level 4",
+                      "timing-fp32"))
+    del d3dp, preds
+    record["kernel_rows_fp32"] = fp32_kernel_rows(torch, Fn, gen)
+
+
+def fp32_kernel_rows(torch, Fn, gen):
+    """The fp32 forms at the bf16 rows' shapes: K1 (also split into its
+    ln_qkv, attend and proj_ln2 launches), K8, K6, K1's attend launch alone,
+    K7, K2 both ways and K5 on rows, the matrices' TF32 planes attached
+    outside the timed calls (as the model's weight cache attaches them), each with its
+    plain version, the library calls in fp32 (TF32 off in both matmul and
+    cuDNN), its bound at the three-pass TF32 rate and the FMA figure."""
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import mlp as M
+    from d3dp_tpu_torch.ops import tf32
+
+    f32 = torch.float32
+    tf32_on = torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
+    check(not tf32_on, "TF32 is on for the fp32 library calls")
+    rows = {}
+    lib_a, lib_m = library_attention(torch, Fn), library_mlp(torch, Fn)
+    lib_b, lib_p = library_block(torch, Fn), library_packed(torch, Fn)
+
+    def row(shape, flops, nbytes, run, plain, lib, **extra):
+        return dict(shape=list(shape), flops=flops, bytes=nbytes, ms=time_ms(torch, run, reps=10),
+                    plain_ms=time_ms(torch, plain, reps=3), library_ms=time_ms(torch, lib, reps=10),
+                    **extra)
+
+    for label, R, N in (("spatial", ROWS * F, J), ("temporal", ROWS * J, F)):
+        T = R * N
+        a = stage_inputs(torch, gen, R, N, f32)
+        hm = [a[0], *A.stack_head_major(a[1], a[2], HEADS), *a[3:]]
+        pa = (tf32.planes(a[1]), tf32.planes(a[3]))
+        phm = (tf32.planes(hm[1]), pa[1])
+        lib_args = [a[0], a[1].t().contiguous(), a[2], a[3].t().contiguous(), *a[4:]]
+        flops = 2 * T * C * 3 * C + 4 * T * N * C + 2 * T * C * C
+        nbytes = 3 * T * C * 4 + 4 * C * C * 4 + 8 * C * 4
+        k1 = lambda: A.attention_stage(*a, HEADS, 0.125, 1e-6, planes=pa)
+        rows[f"attention_stage/{label}"] = row(
+            a[0].shape, flops, nbytes, k1, lambda: A.attention_stage_plain(*a, HEADS, 0.125, 1e-6),
+            lambda: lib_a(*lib_args), launches_ms=launch_split(torch, k1))
+        rows[f"attention_stage_hm/{label}"] = row(
+            a[0].shape, flops, nbytes,
+            lambda: A.attention_stage_hm(*hm, HEADS, 0.125, 1e-6, planes=phm),
+            lambda: A.attention_stage_hm_plain(*hm, HEADS, 0.125, 1e-6), lambda: lib_a(*lib_args))
+        del a, hm, lib_args, pa, phm
+        b = block_inputs(torch, gen, R, N, f32)
+        pb = (tf32.planes(b[2]),)
+        lib_args = [b[0], b[1], b[2].t().contiguous(), *b[3:]]
+        rows[f"attention_block/{label}"] = row(
+            b[0].shape, 4 * T * N * C + 2 * T * C * C, 6 * T * C * 4 + C * C * 4 + 3 * C * 4,
+            lambda: A.attention_block(*b, HEADS, 0.125, 1e-6, planes=pb),
+            lambda: A.attention_block_plain(*b, HEADS, 0.125, 1e-6), lambda: lib_b(*lib_args))
+        lib_q = library_attention_qkv(torch, Fn, b[0])
+        rows[f"attend/{label}"] = row(
+            b[0].shape, 4 * T * N * C, 4 * T * C * 4, lambda: A.attend_qkv(b[0], HEADS, 0.125),
+            lambda: A.attend_qkv_plain(b[0], HEADS, 0.125), lambda: lib_q(b[0]))
+        del b, lib_args, lib_q
+        p = packed_inputs(torch, gen, R, N, f32)
+        rows[f"fused_attention_packed/{label}"] = row(
+            p[0].shape, 4 * T * N * C, 4 * T * C * 4,
+            lambda: A.fused_attention_packed(*p, HEADS, 0.125),
+            lambda: A.fused_attention_plain(*p, HEADS, 0.125), lambda: lib_p(*p))
+        del p
+    for label, D1, D2 in (("spatial->temporal", F, J), ("temporal->spatial", J, F)):
+        a = mlp_inputs(torch, gen, D1, D2, f32)
+        T = ROWS * D1 * D2
+        pm = (tf32.planes(a[2]), tf32.planes(a[4]))
+        lib_args = [a[0], a[1], a[2].t().contiguous(), a[3], a[4].t().contiguous(), *a[5:]]
+        flops = 4 * T * C * HIDDEN
+        nbytes = 3 * T * C * 4 + 2 * C * HIDDEN * 4 + (HIDDEN + 3 * C) * 4
+        rows[f"mlp_block_t/{label}"] = row(
+            a[0].shape, flops, nbytes, lambda: M.mlp_block_t(*a, 1e-6, planes=pm),
+            lambda: M.mlp_block_t_plain(*a, 1e-6), lambda: lib_m(*lib_args))
+        if label == "spatial->temporal":
+            ar = [t.view(-1, C) for t in a[:2]] + a[2:]
+            lib_r = library_mlp(torch, Fn, transpose=False)
+            lib_args = [ar[0], ar[1]] + lib_args[2:]
+            rows["mlp_block/rows"] = row(
+                ar[0].shape, flops, nbytes, lambda: M.mlp_block(*ar, 1e-6, planes=pm),
+                lambda: M.mlp_block_plain(*ar, 1e-6), lambda: lib_r(*lib_args))
+            del ar
+        del a, lib_args
+    for name, r in rows.items():
+        r["bound_ms"], r["bound_by"] = bound_ms(r["flops"], r["bytes"], PEAK_TF32 / 3)
+        r["fma_ms"] = 1e3 * r["flops"] / PEAK_FP32_FMA
+        log(f"[timing] {name} fp32 x{tuple(r['shape'])}: kernel {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, three TF32 passes; FMA figure "
+            f"{r['fma_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library (TF32 off) "
+            f"{r['library_ms']:.4f} ms, {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s"
+            + ("; launches " + ", ".join(f"{k} {v:.4f} ms" for k, v in r["launches_ms"].items())
+               if "launches_ms" in r else ""))
     return rows
 
 

@@ -93,7 +93,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from d3dp_tpu_torch.device import resolve_device
-from d3dp_tpu_torch.ops import attention, mlp, resident
+from d3dp_tpu_torch.ops import attention, mlp, resident, tf32
 from d3dp_tpu_torch.ops.residual_ln import residual_ln_ad
 from d3dp_tpu_torch.parallel.mesh import gather_params
 from d3dp_tpu_torch.parallel.tp import copy_to_tp, reduce_from_tp
@@ -303,7 +303,12 @@ class MixSTE2(nn.Module):
         `load_state_dict`, or an in-place edit. Under tp (`self.tp`) it is
         built from the tp group's gathered weights (a collective over the
         group, once per weight version), so every rank runs one process's
-        kernels on one process's weights."""
+        kernels on one process's weights. In fp32 the cache also holds the
+        fp32 kernels' weight operands, the matrices' TF32 hi and lo planes
+        in nn.Linear's (out, in) layout (`ops.tf32.planes`), which the ops
+        take as `planes`: the depth stacks' (`resident_planes`), each
+        block's views of those and its head-major qkv's (`planes`; None in
+        bf16)."""
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
         if self._cache is not None and self._cache_key == key:
             return self._cache
@@ -311,26 +316,41 @@ class MixSTE2(nn.Module):
         dt = cfg.dtype
         P = dict(self.named_parameters()) if self.tp is None else gather_params(self)
 
-        def views(stacked, prefix):
+        f32 = dt == torch.float32
+
+        def views(stacked, planes, prefix):
             wqkv, bqkv, wp, w1, b1, w2, v = stacked
-            return [dict(qkv_linear=_cast_named(P, f"{prefix}.{i}.attn.qkv", dt),
+            out = []
+            for i in range(cfg.depth):
+                w = dict(qkv_linear=_cast_named(P, f"{prefix}.{i}.attn.qkv", dt),
                          proj_linear=_cast_named(P, f"{prefix}.{i}.attn.proj", dt),
                          wqkv=wqkv[i], bqkv=bqkv[i, 0], wp=wp[i], bp=v[i, 0],
                          ln1s=v[i, 1], ln1b=v[i, 2], ln2s=v[i, 3], ln2b=v[i, 4],
                          w1=w1[i], b1=b1[i, 0], w2=w2[i], b2=v[i, 5],
                          hm=attention.stack_head_major(wqkv[i], bqkv[i, 0], cfg.num_heads))
-                    for i in range(cfg.depth)]
+                if f32:
+                    pq, pp, p1, p2 = (p[i] for p in planes)
+                    w["planes"] = dict(stage=(pq, pp), block=(pp,), mlp=(p1, p2),
+                                       hm=(tf32.planes(w["hm"][0]), pp))
+                else:
+                    w["planes"] = dict(stage=None, block=None, mlp=None, hm=None)
+                out.append(w)
+            return out
 
         spatial, temporal = self._stack(P, "STEblocks"), self._stack(P, "TTEblocks")
+        # fp32: the planes of each kind's (wqkv, wp, w1, w2) stacks
+        planes = tuple(tuple(tf32.planes(stacked[k]) for k in (0, 2, 3, 5)) if f32 else None
+                       for stacked in (spatial, temporal))
         norms = torch.stack([P["Spatial_norm.weight"], P["Spatial_norm.bias"],
                              P["Temporal_norm.weight"], P["Temporal_norm.bias"]]).float()
         self._cache_key = key
         self._cache = dict(
             **self._front_weights(P),
             temporal_pos=P["Temporal_pos_embed"].to(dt),
-            ste=views(spatial, "STEblocks"),
-            tte=views(temporal, "TTEblocks"),
+            ste=views(spatial, planes[0], "STEblocks"),
+            tte=views(temporal, planes[1], "TTEblocks"),
             resident=(spatial, temporal, norms),
+            resident_planes=planes if f32 else None,
             spatial_norm=(norms[0], norms[1]),
             temporal_norm=(norms[2], norms[3]))
         return self._cache
@@ -365,14 +385,16 @@ class MixSTE2(nn.Module):
             if attention.stage_config(h)[0] == "head_major":
                 return attention.attention_stage_hm(
                     h, *w["hm"], w["wp"], w["bp"], w["ln1s"], w["ln1b"], w["ln2s"],
-                    w["ln2b"], cfg.num_heads, scale, BLOCK_EPS)
+                    w["ln2b"], cfg.num_heads, scale, BLOCK_EPS, planes=w["planes"]["hm"])
             return attention.attention_stage(
                 h, w["wqkv"], w["bqkv"], w["wp"], w["bp"], w["ln1s"], w["ln1b"],
-                w["ln2s"], w["ln2b"], cfg.num_heads, scale, BLOCK_EPS)
+                w["ln2s"], w["ln2b"], cfg.num_heads, scale, BLOCK_EPS,
+                planes=w["planes"]["stage"])
         qkv = F.linear(_layer_norm(blk.norm1, h), *w["qkv_linear"])
         if cfg.fuse_level >= 2:
             return attention.attention_block(qkv, h, w["wp"], w["bp"], w["ln2s"], w["ln2b"],
-                                             cfg.num_heads, scale, BLOCK_EPS)
+                                             cfg.num_heads, scale, BLOCK_EPS,
+                                             planes=w["planes"]["block"])
         o = attention.fused_attention_qkv(qkv, cfg.num_heads, scale)
         x2 = h + F.linear(o, *w["proj_linear"])
         return x2, _layer_norm(blk.norm2, x2)
@@ -385,12 +407,13 @@ class MixSTE2(nn.Module):
         x2, y2 = self._attention_half(w, blk, h)
         if self.cfg.fuse_level <= 2:
             out = mlp.mlp_block(y2.view(R * N, C), x2.view(R * N, C), w["w1"], w["b1"],
-                                w["w2"], w["b2"], out_norm[0], out_norm[1], BLOCK_EPS)
+                                w["w2"], w["b2"], out_norm[0], out_norm[1], BLOCK_EPS,
+                                planes=w["planes"]["mlp"])
             return out.view(R, N, C)
         D1 = R // B
         out = mlp.mlp_block_t(
             y2.view(B, D1, N, C), x2.view(B, D1, N, C), w["w1"], w["b1"],
-            w["w2"], w["b2"], out_norm[0], out_norm[1], BLOCK_EPS)
+            w["w2"], w["b2"], out_norm[0], out_norm[1], BLOCK_EPS, planes=w["planes"]["mlp"])
         return out.view(B * N, D1, C)
 
     def _embed(self, x2d, x3d, t, W, whole=False):
@@ -486,7 +509,7 @@ class MixSTE2(nn.Module):
         if cfg.fuse_level == 5 and reuse_tap is None:
             return resident.resident_block_stack(
                 x, W["temporal_pos"][0], *W["resident"], cfg.num_heads, cfg.attn_scale,
-                BLOCK_EPS), None
+                BLOCK_EPS, planes=W["resident_planes"]), None
         ste, tte = list(zip(W["ste"], self.STEblocks)), list(zip(W["tte"], self.TTEblocks))
         if cfg.fuse_level >= 3:
             # transpose-free flow: each block leaves its output in the next

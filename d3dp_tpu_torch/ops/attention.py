@@ -72,6 +72,10 @@ attention tile every kernel above shares. No model path calls it.
 JAX package's public ops of the same names: softmax attention from separate
 q, k, v, packed (B, N, h*d) or as (B, N, h, d).
 
+In fp32 the kernels multiply in three TF32 passes from the weights' hi and
+lo planes (`ops.tf32`): those passed as `planes` (the model's weight cache
+makes them once per weight version), else made at the call.
+
 On a CUDA tensor each op launches its hand-written kernel
 (`csrc/attention_stage.cu`, `csrc/attention_block.cu`,
 `csrc/attention_qkv.cu`); on a CPU tensor it runs its `*_plain` version, the
@@ -84,7 +88,7 @@ import os
 
 import torch
 
-from d3dp_tpu_torch.ops import _build
+from d3dp_tpu_torch.ops import _build, tf32
 from d3dp_tpu_torch.ops.common import layer_norm_rows, matmul_f32acc as _mm, matmul_f32out
 from d3dp_tpu_torch.ops.norm import ln_bwd_rows, ln_stats
 
@@ -300,12 +304,10 @@ def attention_stage_hm_plain(x, wqkv_hm, bqkv_hm, wp, bp, ln1_s, ln1_b, ln2_s, l
 
 def check_stage_shape(what, C, dtype):
     """Raise unless the stage kernels' GEMM steps take C channels in dtype:
-    bf16 (the wgmma walks of csrc/stage.cuh: C / 2 output columns a
-    warpgroup in 64-column boxes) C % 128 == 0, C <= 512; fp32 C % 64 == 0,
-    C <= 1024."""
-    step, c_max = (128, 512) if dtype == torch.bfloat16 else (64, 1024)
-    if C % step or not 0 < C <= c_max:
-        raise ValueError(f"{what}: needs C % {step} == 0 and C <= {c_max} in {dtype} (C={C})")
+    the wgmma walks of csrc/stage.cuh (C / 2 output columns a warpgroup in
+    64-column blocks) take C % 128 == 0, C <= 512 in bf16 and fp32."""
+    if C % 128 or not 0 < C <= 512:
+        raise ValueError(f"{what}: needs C % 128 == 0 and C <= 512 in {dtype} (C={C})")
 
 
 def _check_rows(x, num_heads, what, fns, mask_block=0, partial=False):
@@ -347,9 +349,12 @@ def _stage_lib():
 
 
 def _launch_stage(what, fns, sig, x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
-                  dp_row, num_heads, scale, eps, head_major=False, opts=0, mask_block=0):
+                  dp_row, num_heads, scale, eps, head_major=False, opts=0, mask_block=0,
+                  planes=None):
     """Check the operands of one of the stage's three forms and launch it
-    with the lab switches opts and mask_block; returns (x2, y2)."""
+    with the lab switches opts and mask_block; returns (x2, y2). fp32 runs
+    on (wqkv, wp)'s TF32 planes: `planes`, else made here
+    (`ops.tf32.operands`)."""
     R, N, C = _check_rows(x, num_heads, what, fns, mask_block)
     dt = x.dtype
     dev = x.device
@@ -365,6 +370,8 @@ def _launch_stage(what, fns, sig, x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln
         checks.append((dp_row, "dp_row", f32, (R,)))
     for t, name, dtype, shape in checks:
         _build.check_operand(t, name, dtype, shape, dev)
+    if dt == f32:
+        wqkv, wp = tf32.operands((wqkv, wp), ("wqkv", "wp"), dev, planes)
     qkv = torch.empty((R, N, 3 * C), dtype=dt, device=dev)  # (h, R*N, 3d) when head-major
     o = torch.empty((R, N, C), dtype=dt, device=dev)
     x2 = torch.empty_like(x)
@@ -382,16 +389,17 @@ def _launch_stage(what, fns, sig, x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln
 
 
 def attention_stage(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
-                    num_heads, scale, eps):
+                    num_heads, scale, eps, planes=None):
     """(x2, y2) of the attention stage under the lab switches
     (`stage_config`; see the module docstring). Under the `hmqkv` variant
     it stacks the weights head-major and runs `attention_stage_hm`, as the
     JAX package does; grouped, it runs on the (R/g, g*N, C) view of x with
-    the block mask."""
+    the block mask. planes: fp32's (wqkv, wp) TF32 planes, or None."""
     kernel, opts, group = stage_config(x)
     if kernel == "head_major":
         return attention_stage_hm(x, *stack_head_major(wqkv, bqkv, num_heads), wp, bp, ln1_s,
-                                  ln1_b, ln2_s, ln2_b, num_heads, scale, eps)
+                                  ln1_b, ln2_s, ln2_b, num_heads, scale, eps,
+                                  planes=None if planes is None else (None, planes[1]))
     R, N, C = x.shape
     mask_block = N if group > 1 else 0
     xg = x.view(R // group, group * N, C) if group > 1 else x
@@ -401,39 +409,42 @@ def attention_stage(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
     else:
         x2, y2 = _launch_stage("attention_stage", _FN, _SIG, xg, wqkv, bqkv, wp, bp, ln1_s,
                                ln1_b, ln2_s, ln2_b, None, num_heads, scale, eps, opts=opts,
-                               mask_block=mask_block)
+                               mask_block=mask_block, planes=planes)
         attention_stage.launches += 1
     return x2.view(R, N, C), y2.view(R, N, C)
 
 
 def attention_stage_dp(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b, dp_row,
-                       num_heads, scale, eps):
+                       num_heads, scale, eps, planes=None):
     """(x2, y2) of the attention stage with the branch, projection bias
     included, scaled by dp_row (R,) fp32 before the residual add; the lab
-    switches as `stage_config(x, dp=True)` resolves them."""
+    switches as `stage_config(x, dp=True)` resolves them; planes as
+    `attention_stage`'s."""
     _, opts, _ = stage_config(x, dp=True)
     if x.device.type == "cpu":
         return attention_stage_dp_plain(x, wqkv, bqkv, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
                                         dp_row, num_heads, scale, eps, opts=opts)
     out = _launch_stage("attention_stage_dp", _DP_FN, _SIG_DP, x, wqkv, bqkv, wp, bp, ln1_s,
-                        ln1_b, ln2_s, ln2_b, dp_row, num_heads, scale, eps, opts=opts)
+                        ln1_b, ln2_s, ln2_b, dp_row, num_heads, scale, eps, opts=opts,
+                        planes=planes)
     attention_stage_dp.launches += 1
     return out
 
 
 def attention_stage_hm(x, wqkv_hm, bqkv_hm, wp, bp, ln1_s, ln1_b, ln2_s, ln2_b,
-                       num_heads, scale, eps):
+                       num_heads, scale, eps, planes=None):
     """(x2, y2) of the head-major attention stage (the `hmqkv` variant's
     kernel): qkv weights (h, C, 3d) and bias (h, 1, 3d) from
     `stack_head_major`, the rest as `attention_stage`; `D3DP_SOFTMAX_FOLD`
-    is the one switch it reads (`fold_opts`)."""
+    is the one switch it reads (`fold_opts`). planes: fp32's (wqkv_hm, wp)
+    TF32 planes, or None."""
     opts = fold_opts(x.dtype)
     if x.device.type == "cpu":
         return attention_stage_hm_plain(x, wqkv_hm, bqkv_hm, wp, bp, ln1_s, ln1_b, ln2_s,
                                         ln2_b, num_heads, scale, eps, opts=opts)
     out = _launch_stage("attention_stage_hm", _HM_FN, _SIG, x, wqkv_hm, bqkv_hm, wp, bp, ln1_s,
                         ln1_b, ln2_s, ln2_b, None, num_heads, scale, eps, head_major=True,
-                        opts=opts)
+                        opts=opts, planes=planes)
     attention_stage_hm.launches += 1
     return out
 
@@ -870,8 +881,9 @@ def attention_block_plain(qkv, res, w, b, ln_s, ln_b, num_heads, scale, eps):
     return x2.to(dt), y2.to(dt)
 
 
-def attention_block(qkv, res, w, b, ln_s, ln_b, num_heads, scale, eps):
-    """(x2, y2) of the attention block; see the module docstring."""
+def attention_block(qkv, res, w, b, ln_s, ln_b, num_heads, scale, eps, planes=None):
+    """(x2, y2) of the attention block; see the module docstring. planes:
+    fp32's (w,) TF32 planes, or None."""
     if qkv.device.type == "cpu":
         return attention_block_plain(qkv, res, w, b, ln_s, ln_b, num_heads, scale, eps)
     R, N, C = _check_rows(res, num_heads, "attention_block", _BLOCK_FN)
@@ -883,6 +895,8 @@ def attention_block(qkv, res, w, b, ln_s, ln_b, num_heads, scale, eps):
             (w, "w", dt, (C, C)), (b, "b", f32, (C,)),
             (ln_s, "ln_s", f32, (C,)), (ln_b, "ln_b", f32, (C,))):
         _build.check_operand(t, name, dtype, shape, dev)
+    if dt == f32:
+        w, = tf32.operands((w,), ("w",), dev, planes)
     o = torch.empty((R, N, C), dtype=dt, device=dev)
     x2 = torch.empty_like(res)
     y2 = torch.empty_like(res)

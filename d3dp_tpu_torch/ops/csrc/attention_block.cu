@@ -78,6 +78,7 @@ int d3dp_attention_block_bf16(const void* qkv, const void* res, const void* wp, 
                                            scale, eps, stream);
 }
 
+// fp32: wp is its hi and lo planes, (2, C, C) (stage.cuh).
 int d3dp_attention_block_f32(const void* qkv, const void* res, const void* wp, const void* bp,
                              const void* lns, const void* lnb, void* o, void* x2, void* y2, int R,
                              int N, int C, int heads, float scale, float eps, void* stream) {

@@ -30,8 +30,9 @@
 // copies the next tile while the current one computes. At 32 keys or fewer
 // (the spatial 17) the short tile: a sequence with all its heads a tile,
 // its rows brought by bulk copies into a ring that runs ahead of the
-// warps, a warp a head (`attend_short_walk`). fp32 runs the shared-memory
-// body.
+// warps, a warp a head (`attend_short_walk`). fp32 runs its tensor-core
+// tile in three TF32 passes (`attend_f32_walk`; masked: the shared-memory
+// body).
 // `d3dp_attend_packed_*` launches the same tile in the stage's order, with
 // its switches: K1's attend launch alone, for timing and tests.
 //

@@ -52,8 +52,10 @@
 //                Spatial (17 keys), grouped views excepted: the short tile, a
 //                sequence with all its heads a tile on a persistent grid,
 //                its rows brought by bulk copies into a ring of stages,
-//                a warp a head on mma.sync registers. fp32 keeps the
-//                shared-memory body (one block per <=64 queries).
+//                a warp a head on mma.sync registers. fp32 runs its
+//                tensor-core tile (mma.sync m16n8k8 in three TF32 passes,
+//                a (sequence, head) a tile, every key's logit in registers;
+//                masked: the shared-memory body).
 //                fp32: p is divided by l before P.V; bf16: P.V runs on the
 //                unnormalised bf16 p and 1/l is folded into the output,
 //                which is rounded to bf16 before the projection.
@@ -62,7 +64,12 @@
 //                wgmma (m64n256k16 a warpgroup at C = 512) with x loaded
 //                beside o, then the residual add and LN2 from the fragments,
 //                x2 and y2 out by TMA stores.
-//   fp32 runs the row-block tiles of common.cuh in steps 1 and 3.
+//   fp32 runs steps 1 and 3 as the same walks in three TF32 passes
+//   (`ln_qkv_walk_f32`, `proj_ln2_walk_f32`: tf32x3, mlp.cuh) from Wqkv's
+//   and Wp's hi and lo planes, which the fp32 entry points take in place of
+//   the weights (the host makes them once per weight version); its bound is
+//   3 x the products at 495 TFLOP/s, 2.14 ms spatial and 2.60 ms temporal
+//   at the eval shape.
 // The split costs extra device-memory traffic (qkv and o written and read
 // back, x read twice); at the eval shape that is about 1 GB a stage, 0.3
 // ms at 3.35 TB/s, against the 0.36-0.43 ms the products bound it to.
@@ -153,9 +160,15 @@ int attention_stage_partial(const void* x, const void* wqkv, const void* bqkv, c
   const AttnOpts ao = attn_opts(opts & ~kOptNoY2, mask_block);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const int M = R * N;
-  int e = launch_ln_qkv<T, kHeadMajor>((const T*)x, (const T*)wqkv, (const float*)bqkv,
-                                       (const float*)ln1s, (const float*)ln1b, (T*)qkv, M, C,
-                                       heads, eps, stream);
+  int e = 0;
+  if constexpr (std::is_same<T, float>::value)
+    e = launch_ln_qkv_fma<kHeadMajor>((const float*)x, (const float*)wqkv, (const float*)bqkv,
+                                      (const float*)ln1s, (const float*)ln1b, (float*)qkv, M, C,
+                                      heads, eps, stream);
+  else
+    e = launch_ln_qkv<T, kHeadMajor>((const T*)x, (const T*)wqkv, (const float*)bqkv,
+                                     (const float*)ln1s, (const float*)ln1b, (T*)qkv, M, C,
+                                     heads, eps, stream);
   if (e) return e;
   if constexpr (kHeadMajor) {
     // as K8: head h's slab starts at h * M * 3d (see attention_stage)
@@ -185,7 +198,9 @@ int attention_stage_partial(const void* x, const void* wqkv, const void* bqkv, c
 extern "C" {
 
 // Each entry: opts, mask_block as in the file header (0, 0: production).
-// K1: x (R, N, C); wqkv (C, 3C); qkv scratch (R, N, 3C).
+// K1: x (R, N, C); wqkv (C, 3C); qkv scratch (R, N, 3C). fp32 (every
+// whole form): wqkv and wp are their hi and lo planes, (2, 3C, C) and (2,
+// C, C); K8's wqkv (h, 2, 3d, C) (stage.cuh).
 int d3dp_attention_stage_bf16(D3DP_STAGE_ARGS, D3DP_STAGE_TAIL) {
   return D3DP_STAGE_CALL(d3dp::bf16, false, nullptr);
 }

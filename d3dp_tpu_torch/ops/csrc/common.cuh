@@ -4,24 +4,29 @@
 // whole token rows: a row of C channels never splits across blocks, so the
 // LayerNorms that close each stage see a full row in one block.
 //
-// Matrix products: in bf16 every GEMM runs on Hopper's wgmma, 64 rows a
+// Matrix products: every GEMM runs on Hopper's wgmma, 64 rows a
 // warpgroup, its weights fed to shared memory by TMA: the MLP walk
-// (mlp.cuh) and the stage's ln_qkv and proj_ln2 walks (stage.cuh). The
-// fp32 tiles here (`ln_qkv_tile`, `proj_ln2_tile`, and the MLP's) use plain
-// FMAs, 16 rows a block (the fp32 path exists for parity checks, not for
-// speed).
+// (mlp.cuh) and the stage's ln_qkv and proj_ln2 walks (stage.cuh). fp32,
+// the default dtype of every entry point, multiplies in three TF32 passes
+// from the weights' hi and lo planes (tf32x3, mlp.cuh), the Hopper form of
+// the TPU kernels' fp32 products at Precision.HIGHEST. Only the
+// tensor-parallel partial forms keep, in fp32, the 16-row FMA tiles here
+// (`ln_qkv_tile`, `proj_partial_tile`, and the MLP's).
 // The per-head attention (`attend_short_walk`, `attend_mma_walk`,
-// `attend_tile_smem`) works on sequences and heads instead of token rows. It
-// replaces the attention inside the TPU kernels of d3dp_tpu/ops/attention.py
+// `attend_f32_walk`, `attend_tile_smem`) works on sequences and heads
+// instead of token rows. It replaces the attention inside the TPU kernels of
+// d3dp_tpu/ops/attention.py
 // (`_attn_kernel`, `_attn_fused_qkv_kernel`, `_attn_block_kernel`,
 // `_attn_stage_kernel`, `_attn_stage_kernel_hm`) and d3dp_tpu/ops/resident.py
 // (`_resident_kernel`). Bytes bound it (N / 2 FLOPs a byte: 8.5 at 17 keys,
-// 121.5 at 243, under the card's ~295). Which body runs:
-//   * bf16, N <= 32 unmasked keys (the spatial stages, N = 17): the short
-//     tile, a sequence with all its heads a tile, its rows brought by 1-D
-//     bulk copies on mbarriers into a ring of stages that runs ahead of the
-//     warps, a warp a head on mma.sync registers (`attend_short_walk`); the
-//     launches and the depth-resident kernel run the same walk;
+// 121.5 at 243, under the card's ~295; in fp32 the three TF32 passes make
+// the temporal shape's tensor-core time the larger). Which body runs:
+//   * N <= 32 unmasked keys (the spatial stages, N = 17), both dtypes: the
+//     short tile, a sequence with all its heads a tile, its rows brought by
+//     1-D bulk copies on mbarriers into a ring of stages that runs ahead of
+//     the warps, a warp a head: bf16 on mma.sync registers, fp32 on FMAs
+//     (`attend_short_walk`); the launches and the depth-resident kernel run
+//     the same walk;
 //   * bf16 above 32 keys, or masked (the grouped lab switch): the tensor-core
 //     tile, one (sequence, head) a tile, its key and value rows read once
 //     with cp.async in 64-key groups, the logits, the exact softmax and P in
@@ -30,8 +35,12 @@
 //     kernel walk the tiles from a persistent grid and copy the next tile
 //     into a second buffer while the current one computes
 //     (`attend_mma_walk`); the depth-resident kernel computes S in parts;
-//   * fp32 (the parity path): the shared-memory body (`attend_tile_smem`),
-//     one block per (sequence, head, <=64 queries).
+//   * fp32 above 32 keys: the tensor-core walk (`attend_f32_walk`), the
+//     bf16 walk's structure with the keys and values streamed in 64-key
+//     cp.async groups through two buffers, three TF32 passes a product;
+//   * fp32 masked (the grouped lab switch): the shared-memory body
+//     (`attend_tile_smem`), one block per (sequence, head, <=64 queries), on
+//     FMAs.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,7 +60,7 @@ constexpr int kBK = 64;  // rows of B staged in shared memory per step
 
 using bf16 = __nv_bfloat16;
 
-// fp32 row-block tiles (the MLP's and the stage's): 16 token rows a block,
+// fp32 FMA row-block tiles (the tensor-parallel partial forms): 16 token rows a block,
 // rows padded by 4 elements.
 constexpr int kF32Rows = 16;
 constexpr int kF32Pad = 4;
@@ -440,7 +449,7 @@ inline AttnLayout attn_layout_mma(int N, int mask_block) {
   return L;
 }
 
-// fp32's shared-memory body (the parity path). NK: the keys a tile holds,
+// fp32's shared-memory body. NK: the keys a tile holds,
 // rounded up to 16. Unmasked, all N. Under a mask of block mb, only the
 // blocks its QB queries span: at most (QB - 1) / mb + 2 of them (a query
 // block starts anywhere in a block).
@@ -558,6 +567,284 @@ __device__ __forceinline__ void attend_tile_smem(const float* q, const float* k,
     for (int j = 0; j < nk; ++j) acc = fmaf(p[j], Vs[j * L.ldv + d], acc);
     orow0[(size_t)qi * C + d] = acc;
   }
+}
+
+// ------------------------------------------ tensor-core walk (fp32, tf32x3)
+// fp32 unmasked attention of more than kShortMaxKeys keys (the temporal
+// stages, N = 243) on the tensor cores: mma.sync m16n8k8 in TF32, three
+// passes into each fp32 product (lo(A) hi(B), hi(A) lo(B), hi(A) hi(B),
+// every operand split as the GEMM walks split theirs: tf32x3, mlp.cuh). What
+// bounds it on the H100: the tensor cores, at 3 x 82.2 GFLOP (0.498 ms at
+// the eval shape, 680 sequences of 243 tokens) against 1.354 GB of qkv and o
+// (0.404 ms). The structure is the bf16 tensor-core walk's
+// (`attend_mma_walk`), with the keys streamed:
+//   * a tile is one (sequence, head); a persistent grid of one block an SM
+//     walks them. Its query rows (128 or 256, zero past N, rows of kLdf so
+//     that a warp's fragment reads fall on distinct banks) stay in shared
+//     memory for the tile; its keys and values go in groups of kF32Keys
+//     through two buffers, copied with cp.async: group g + 1 (or the next
+//     tile's queries and first group) lands while group g computes;
+//   * each thread splits the key and value elements it copied into hi and lo
+//     planes in place, once a group (so no warp splits a B operand), then
+//     one barrier a group hands the group to the warps and frees the other
+//     buffer;
+//   * warp w owns the 16-row query blocks w and w + 8 (RB = 2 at N > 128),
+//     so every B fragment it loads feeds 2 RB products; its logits for the
+//     group stay in registers (RB x 8 m16n8 fragments), the A fragments of Q
+//     are split as they are read;
+//   * the softmax is exact in fp32 and online across the groups: s = dot *
+//     scale (keys past N at -inf), the row max m by quad shuffles, O and the
+//     thread's share of l scaled by exp(m_old - m) where m grows, p = exp(s
+//     - m), O += P V with P split in registers (the m16n8 accumulator's keys
+//     2t, 2t + 1 are the A fragment's columns t, t + 4, and V's rows 2t,
+//     2t + 1 its B rows, so P never leaves the registers); at the end O / l.
+// A row's arithmetic does not depend on R, the walk, or which block or warp
+// takes it, so K8 equals K1 and the depth-resident kernel the launches.
+// Shared memory: 256 (RB = 2) or 128 query rows of kLdf floats, and two
+// group buffers of four 64-row planes (K hi, K lo, V hi, V lo): 204 KB at
+// RB = 2.
+constexpr int kLdf = kHeadDim + 4;
+constexpr int kF32Keys = 64;                                  // keys a group
+constexpr int kF32KvPlane = kF32Keys * kLdf;                  // floats a plane
+constexpr size_t kF32KvBuf = 4 * sizeof(float) * kF32KvPlane;  // bytes a group buffer
+
+struct F32AttnLayout {
+  int rb;        // 16-row query blocks a warp: 1 (N <= 128) or 2
+  size_t kv;     // byte offset of the group buffers (the query rows at 0)
+  size_t total;  // bytes a block
+};
+
+inline F32AttnLayout f32_attn_layout(int N) {
+  F32AttnLayout L;
+  L.rb = N <= 16 * kWarps ? 1 : 2;
+  L.kv = align128(sizeof(float) * 16 * kWarps * L.rb * kLdf);
+  L.total = L.kv + 2 * kF32KvBuf;
+  return L;
+}
+
+// d += a b for one m16n8k8 TF32 product: a 16 x 8 (row), b 8 x 8 (col), d
+// 16 x 8 fp32. Thread (g = lane / 4, t = lane % 4): a[0] (g, t), a[1] (g + 8,
+// t), a[2] (g, t + 4), a[3] (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g);
+// d[0..1] row g, columns 2t, 2t + 1, d[2..3] row g + 8.
+__device__ __forceinline__ void mma_1688_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v rounded to TF32 (cvt.rna: to nearest, ties away from zero)
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// hi = tf32(v), lo = tf32(v - hi): v - hi is exact
+__device__ __forceinline__ void tf32_split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(__fsub_rn(v, __uint_as_float(hi)));
+}
+
+// An A fragment's hi and lo parts
+struct Tf32Frag {
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ Tf32Frag tf32_frag(float a0, float a1, float a2, float a3) {
+  const float a[4] = {a0, a1, a2, a3};
+  Tf32Frag f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) tf32_split(a[i], f.hi[i], f.lo[i]);
+  return f;
+}
+
+// d += a b in tf32x3 from b's hi (bh) and lo (bl) parts: lo(a) hi(b),
+// hi(a) lo(b), hi(a) hi(b)
+__device__ __forceinline__ void mma_1688_x3(float (&d)[4], const Tf32Frag& a, uint32_t bh0,
+                                            uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_1688_tf32(d, a.lo, bh0, bh1);
+  mma_1688_tf32(d, a.hi, bl0, bl1);
+  mma_1688_tf32(d, a.hi, bh0, bh1);
+}
+
+// Start copying rows [r0, r0 + rows) of one head (64 fp32 a row, global row
+// stride ld) into shared rows of kLdf; rows at or past N are zero-filled.
+// Thread i copies the 16-byte pieces i, i + kThreads, ... (`split_rows_f32`
+// walks the same ones).
+__device__ __forceinline__ void copy_rows_f32(float* dst, const float* src, int ld, int r0,
+                                              int rows, int N) {
+  for (int i = threadIdx.x; i < rows * 16; i += kThreads) {
+    const int r = i / 16, c = (i % 16) * 4;
+    const bool ok = r0 + r < N;
+    cp_async16_zfill(dst + r * kLdf + c, ok ? src + (size_t)(r0 + r) * ld + c : src, ok);
+  }
+}
+
+// The pieces this thread copied with copy_rows_f32 into the plane at hi,
+// landed: hi = tf32 of each element in place, lo = tf32 of the remainder.
+__device__ __forceinline__ void split_rows_f32(float* hi, float* lo, int rows) {
+  for (int i = threadIdx.x; i < rows * 16; i += kThreads) {
+    const int o = (i / 16) * kLdf + (i % 16) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(hi + o);
+    uint4 h, l;
+    tf32_split(x.x, h.x, l.x);
+    tf32_split(x.y, h.y, l.y);
+    tf32_split(x.z, h.z, l.z);
+    tf32_split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + o) = h;
+    *reinterpret_cast<uint4*>(lo + o) = l;
+  }
+}
+
+// Walk the tiles blockIdx.x, + gridDim.x, ... of R sequences x heads (head
+// fastest); q, k, v, hs, ld as launch_attend's; N > kShortMaxKeys keys. Every
+// thread of the block calls it, with no cp.async group of its own in flight;
+// smem: L.total bytes, free again on return.
+template <int RB>
+__device__ __forceinline__ void attend_f32_walk(const float* q, const float* k, const float* v,
+                                                long long hs, int ld, float* out, int R, int N,
+                                                int C, int heads, float scale,
+                                                const F32AttnLayout& L, unsigned char* smem) {
+  const int ntiles = R * heads, groups = cdiv(N, kF32Keys);
+  float* Qs = reinterpret_cast<float*>(smem);
+  auto kvbuf = [&](int b) { return reinterpret_cast<float*>(smem + L.kv + b * kF32KvBuf); };
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  // start tile tl's key group grp (with its queries where grp = 0) into buffer b
+  auto issue = [&](int tl, int grp, int b) {
+    const size_t o = (size_t)(tl / heads) * N * ld + (tl % heads) * (kHeadDim + hs);
+    if (grp == 0) copy_rows_f32(Qs, q + o, ld, 0, 16 * kWarps * RB, N);
+    float* kb = kvbuf(b);
+    copy_rows_f32(kb, k + o, ld, kF32Keys * grp, kF32Keys, N);
+    copy_rows_f32(kb + 2 * kF32KvPlane, v + o, ld, kF32Keys * grp, kF32Keys, N);
+    cp_async_commit();
+  };
+  if ((int)blockIdx.x < ntiles) issue(blockIdx.x, 0, 0);
+  int buf = 0;
+  for (int tl = blockIdx.x; tl < ntiles; tl += gridDim.x) {
+    float o[RB][kHeadDim / 8][4], m[RB][2], l[RB][2];
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+#pragma unroll
+      for (int d = 0; d < kHeadDim / 8; ++d) o[i][d][0] = o[i][d][1] = o[i][d][2] = o[i][d][3] = 0.f;
+      m[i][0] = m[i][1] = -INFINITY;
+      l[i][0] = l[i][1] = 0.f;
+    }
+    for (int grp = 0; grp < groups; ++grp, buf ^= 1) {
+      float* kb = kvbuf(buf);
+      cp_async_wait<0>();  // this thread's copies of the group landed
+      split_rows_f32(kb, kb + kF32KvPlane, kF32Keys);
+      split_rows_f32(kb + 2 * kF32KvPlane, kb + 3 * kF32KvPlane, kF32Keys);
+      __syncthreads();  // the group is split; every warp is done with the other buffer
+      const bool last = grp + 1 == groups;
+      if (!last) issue(tl, grp + 1, buf ^ 1);
+
+      // S = Q K^T (unscaled) of the warp's rows against the group's keys
+      float s[RB][8][4];
+#pragma unroll
+      for (int i = 0; i < RB; ++i)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) s[i][n][0] = s[i][n][1] = s[i][n][2] = s[i][n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kHeadDim / 8; ++kk) {
+        Tf32Frag a[RB];
+#pragma unroll
+        for (int i = 0; i < RB; ++i) {
+          const float* qa = Qs + (16 * (warp + kWarps * i) + g) * kLdf + 8 * kk + t;
+          a[i] = tf32_frag(qa[0], qa[8 * kLdf], qa[4], qa[8 * kLdf + 4]);
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float* kp = kb + (8 * n + g) * kLdf + 8 * kk + t;
+          const uint32_t bh0 = __float_as_uint(kp[0]), bh1 = __float_as_uint(kp[4]);
+          const uint32_t bl0 = __float_as_uint(kp[kF32KvPlane]);
+          const uint32_t bl1 = __float_as_uint(kp[kF32KvPlane + 4]);
+#pragma unroll
+          for (int i = 0; i < RB; ++i) mma_1688_x3(s[i][n], a[i], bh0, bh1, bl0, bl1);
+        }
+      }
+      if (last) {
+        __syncthreads();  // every warp has read the queries
+        if (tl + (int)gridDim.x < ntiles) issue(tl + gridDim.x, 0, buf ^ 1);
+      }
+
+      // online softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3) of each block
+      const int k0 = kF32Keys * grp;
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = k0 + 8 * n + 2 * t + (e & 1) < N ? s[i][n][e] * scale : -INFINITY;
+            s[i][n][e] = x;
+            mx[e >> 1] = fmaxf(mx[e >> 1], x);
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float mn = fmaxf(m[i][r], mx[r]);
+          const float alpha = expf(m[i][r] - mn);  // 0 at the first group
+          m[i][r] = mn;
+          l[i][r] *= alpha;
+#pragma unroll
+          for (int d = 0; d < kHeadDim / 8; ++d) {
+            o[i][d][2 * r] *= alpha;
+            o[i][d][2 * r + 1] *= alpha;
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = expf(s[i][n][e] - m[i][e >> 1]);
+            s[i][n][e] = p;
+            l[i][e >> 1] += p;
+          }
+      }
+
+      // O += P V, 8 keys a step
+      const float* vb = kb + 2 * kF32KvPlane;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        Tf32Frag a[RB];
+#pragma unroll
+        for (int i = 0; i < RB; ++i) a[i] = tf32_frag(s[i][n][0], s[i][n][2], s[i][n][1], s[i][n][3]);
+#pragma unroll
+        for (int d = 0; d < kHeadDim / 8; ++d) {
+          const float* vp = vb + (8 * n + 2 * t) * kLdf + 8 * d + g;
+          const uint32_t bh0 = __float_as_uint(vp[0]), bh1 = __float_as_uint(vp[kLdf]);
+          const uint32_t bl0 = __float_as_uint(vp[kF32KvPlane]);
+          const uint32_t bl1 = __float_as_uint(vp[kF32KvPlane + kLdf]);
+#pragma unroll
+          for (int i = 0; i < RB; ++i) mma_1688_x3(o[i][d], a[i], bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+
+    // O / l, rows past N dropped
+    const int seq = tl / heads, h = tl % heads;
+#pragma unroll
+    for (int i = 0; i < RB; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float lr = l[i][r];
+        lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+        lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+        const int row = 16 * (warp + kWarps * i) + g + 8 * r;
+        if (row >= N) continue;
+        float* orow = out + ((size_t)seq * N + row) * C + h * kHeadDim + 2 * t;
+#pragma unroll
+        for (int d = 0; d < kHeadDim / 8; ++d)
+          *reinterpret_cast<float2*>(orow + 8 * d) =
+              make_float2(o[i][d][2 * r] / lr, o[i][d][2 * r + 1] / lr);
+      }
+  }
+  __syncthreads();  // the memory is free for the caller
 }
 
 // ------------------------------------------- tensor-core tile (bf16, mma.sync)
@@ -1067,8 +1354,8 @@ __device__ __forceinline__ void attend_mma_compute_parts(bf16* out, int N, int C
   }
 }
 
-// ------------------------------------------ short tile (bf16, N <= 32 keys)
-// bf16 attention over N <= kShortMaxKeys unmasked keys: the spatial stages
+// ------------------------------------------ short tile (N <= 32 keys)
+// bf16 and fp32 attention over N <= kShortMaxKeys unmasked keys: the spatial stages
 // (N = 17 joints) of K1, K1-dp, K8, K6, K3, K7 and the depth-resident
 // kernel. What bounds it on the H100: bytes. At the eval shape (9,720
 // sequences of 17 tokens, C = 512) it reads 0.508 GB of qkv and writes 0.169
@@ -1098,10 +1385,18 @@ __device__ __forceinline__ void attend_mma_compute_parts(bf16* out, int N, int C
 // Each output row's arithmetic (the MMA order along keys, the shuffle order
 // of m and l) depends on neither R, the walk, nor the source layout, so K8
 // equals K1 and level 5 level 4, bit for bit.
+// fp32 runs the same ring on rows of fp32 (104 KB a stage at N = 17, C =
+// 512: two stages and one block an SM), bytes bound at 1.354 GB (0.404 ms
+// at the eval shape) against 5.8 GFLOP, so the per-head math is FMAs
+// (`attend_short_head_f32`): lane j holds key row j in registers, query
+// rows are read as broadcasts, four at a time, s_j = q . k_j, the exact
+// softmax across the lanes (p / l before P.V, the fp32 order), p staged
+// over the query's own row, then lanes d and d + 32 take O's columns from
+// the value columns they hold in registers, written straight out.
 constexpr int kShortStages = 2;     // the standalone launch's ring,
-constexpr int kShortBlocks = 2;     // with two blocks an SM
+constexpr int kShortBlocks = 2;     // with two blocks an SM (bf16)
 constexpr int kShortMaxStages = 4;  // the most the depth-resident kernel's smem holds
-constexpr int kShortPad = 8;        // bf16 elements padding each shared row: 16 bytes
+constexpr int kShortPadBytes = 16;  // padding each shared row
 // shared memory before the ring: full and empty mbarriers of each stage,
 // then a zero row of kHeadDim bf16
 constexpr int kShortZero = 2 * kShortMaxStages * 8;
@@ -1116,7 +1411,7 @@ constexpr int kShortHeadMajor = 2;  // (heads, R * N, 3 x 64) slabs, ld = 3 x 64
 struct ShortLayout {
   int src, N, C, heads, ld;
   long long hstride;  // head-major: elements from one head's slab to the next
-  // shared, in bf16 elements: head h's q row r at h * sh + r * sr, its k and
+  // shared, in elements: head h's q row r at h * sh + r * sr, its k and
   // v rows at + ko and + vo; the copies of one source row o (separate: q, k,
   // v; head-major: the heads) dso apart
   int sr, sh, ko, vo, dso;
@@ -1125,10 +1420,12 @@ struct ShortLayout {
   int total;  // the dynamic shared memory of a block
 };
 
-// The layout of a short tile over `src` rows with as many stages as fit in
-// smem_max bytes, at most max_stages; false where not one fits.
+// The layout of a short tile of T over `src` rows with as many stages as
+// fit in smem_max bytes, at most max_stages; false where not one fits.
+template <typename T = bf16>
 inline bool short_layout(ShortLayout& L, int src, int N, int C, int heads, int ld,
                          long long hstride, size_t smem_max, int max_stages) {
+  constexpr int kShortPad = kShortPadBytes / sizeof(T);
   L.src = src;
   L.N = N;
   L.C = C;
@@ -1141,17 +1438,17 @@ inline bool short_layout(ShortLayout& L, int src, int N, int C, int heads, int l
     L.ko = kHeadDim;
     L.vo = 2 * kHeadDim;
     L.ncopy = heads * N;
-    L.copy_bytes = 3 * kHeadDim * sizeof(bf16);
+    L.copy_bytes = 3 * kHeadDim * sizeof(T);
   } else {
     L.sr = 3 * C + kShortPad;
     L.sh = kHeadDim;
     L.ko = L.dso = C;
     L.vo = 2 * C;
     L.ncopy = src == kShortPacked ? N : 3 * N;
-    L.copy_bytes = (src == kShortPacked ? 3 * C : C) * sizeof(bf16);
+    L.copy_bytes = (src == kShortPacked ? 3 * C : C) * sizeof(T);
   }
-  L.tile_bytes = N * 3 * C * sizeof(bf16);
-  L.stage_bytes = (int)align128(sizeof(bf16) * (src == kShortHeadMajor ? heads : 1) * N * L.sr);
+  L.tile_bytes = N * 3 * C * sizeof(T);
+  L.stage_bytes = (int)align128(sizeof(T) * (src == kShortHeadMajor ? heads : 1) * N * L.sr);
   const long long room = (long long)smem_max - kShortHeader;
   L.stages = (int)std::min<long long>(max_stages, room > 0 ? room / L.stage_bytes : 0);
   L.total = kShortHeader + L.stages * L.stage_bytes;
@@ -1169,13 +1466,15 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
-struct ShortArgs {
-  const bf16 *q, *k, *v;  // see launch_attend_short
-  bf16* out;              // (R, N, C)
+template <typename T>
+struct ShortArgsT {
+  const T *q, *k, *v;  // see launch_attend_short
+  T* out;              // (R, N, C)
   int R;
   float scale;
   AttnOpts opts;
 };
+using ShortArgs = ShortArgsT<bf16>;
 
 // Head h of the tile in the stage at st, on one warp: O into the head's q
 // columns of the stage, then out to sequence seq's rows.
@@ -1272,13 +1571,111 @@ __device__ __forceinline__ void attend_short_head(const ShortLayout& L, const Sh
   }
 }
 
+// fp32: head h of the tile in the stage at st, on one warp (the FMA body
+// above): key row `lane` and value columns lane, lane + 32 in registers;
+// then kShortQueries query rows at a time (independent chains: the warp's
+// latency, not its issue, set the pace one row at a time), for each: s =
+// q_i . k_lane in two interleaved partial sums over d (keys past N: -inf),
+// m, p = exp(s - m), l by butterfly shuffles, p / l into q_i's first N
+// floats (read already, by this warp alone), then O_i's columns lane and
+// lane + 32 out.
+constexpr int kShortQueries = 4;
+__device__ __forceinline__ void attend_short_head_f32(const ShortLayout& L,
+                                                      const ShortArgsT<float>& a, float* st,
+                                                      int seq, int h, int lane) {
+  constexpr int Q = kShortQueries;
+  const int N = L.N;
+  float* qh = st + h * L.sh;
+  float kr[kHeadDim];
+  const float* kp = qh + L.ko + lane * L.sr;
+#pragma unroll
+  for (int d = 0; d < kHeadDim; d += 4) {
+    const float4 x = lane < N ? *reinterpret_cast<const float4*>(kp + d)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+    kr[d] = x.x;
+    kr[d + 1] = x.y;
+    kr[d + 2] = x.z;
+    kr[d + 3] = x.w;
+  }
+  float vr[kShortMaxKeys][2];
+#pragma unroll
+  for (int j = 0; j < kShortMaxKeys; ++j)
+    if (j < N) {
+      vr[j][0] = qh[L.vo + j * L.sr + lane];
+      vr[j][1] = qh[L.vo + j * L.sr + lane + 32];
+    }
+  float* og = a.out + (size_t)seq * N * L.C + h * kHeadDim;
+  for (int i0 = 0; i0 < N; i0 += Q) {
+    // the rows i0 .. i0 + Q - 1, those past N read as row N - 1 (and dropped)
+    float* qi[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) qi[q] = qh + min(i0 + q, N - 1) * L.sr;
+    float s0[Q], s1[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) s0[q] = s1[q] = 0.f;
+#pragma unroll
+    for (int d = 0; d < kHeadDim; d += 4)
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const float4 x = *reinterpret_cast<const float4*>(qi[q] + d);
+        s0[q] = fmaf(x.x, kr[d], s0[q]);
+        s1[q] = fmaf(x.y, kr[d + 1], s1[q]);
+        s0[q] = fmaf(x.z, kr[d + 2], s0[q]);
+        s1[q] = fmaf(x.w, kr[d + 3], s1[q]);
+      }
+    float p[Q], m[Q], l[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) m[q] = p[q] = lane < N ? (s0[q] + s1[q]) * a.scale : -INFINITY;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int q = 0; q < Q; ++q) m[q] = fmaxf(m[q], __shfl_xor_sync(0xffffffffu, m[q], o));
+#pragma unroll
+    for (int q = 0; q < Q; ++q) l[q] = p[q] = lane < N ? expf(p[q] - m[q]) : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int q = 0; q < Q; ++q) l[q] += __shfl_xor_sync(0xffffffffu, l[q], o);
+    __syncwarp();  // every lane has read the rows
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+      if (lane < N && i0 + q < N) qi[q][lane] = p[q] / l[q];
+    __syncwarp();
+    float o0[Q], o1[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) o0[q] = o1[q] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kShortMaxKeys; j += 4) {
+      if (j >= N) break;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const float4 pp = *reinterpret_cast<const float4*>(qi[q] + j);
+        const float pj[4] = {pp.x, pp.y, pp.z, pp.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j + e < N) {
+            o0[q] = fmaf(pj[e], vr[j + e][0], o0[q]);
+            o1[q] = fmaf(pj[e], vr[j + e][1], o1[q]);
+          }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+      if (i0 + q < N) {
+        og[(size_t)(i0 + q) * L.C + lane] = o0[q];
+        og[(size_t)(i0 + q) * L.C + lane + 32] = o1[q];
+      }
+  }
+}
+
 // The short tile's walk over the a.R sequences: blocks take the tiles
 // blockIdx.x, + gridDim.x, ..., through the ring of L.stages stages at
 // smem + kShortHeader (L.total bytes in all). Every thread of the block
 // calls it; the memory is free for the caller on return. The inputs may
 // have been written by other blocks before a grid barrier (the
 // depth-resident kernel), the outputs are plain stores.
-__device__ __forceinline__ void attend_short_walk(const ShortLayout& L, const ShortArgs& a,
+template <typename T>
+__device__ __forceinline__ void attend_short_walk(const ShortLayout& L, const ShortArgsT<T>& a,
                                                   unsigned char* smem) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const uint32_t bars = smem_addr(smem);
@@ -1293,10 +1690,10 @@ __device__ __forceinline__ void attend_short_walk(const ShortLayout& L, const Sh
     const uint32_t dst = smem_addr(ring + (size_t)s * L.stage_bytes);
     for (int c = lane; c < L.ncopy; c += 32) {
       const int o = c / L.N, r = c - o * L.N;
-      const bf16* src = L.src == kShortPacked     ? a.q
-                        : L.src == kShortSeparate ? (o == 0 ? a.q : o == 1 ? a.k : a.v)
-                                                  : a.q + o * L.hstride;
-      bulk_load(dst + sizeof(bf16) * (o * L.dso + r * L.sr), src + ((size_t)t * L.N + r) * L.ld,
+      const T* src = L.src == kShortPacked     ? a.q
+                     : L.src == kShortSeparate ? (o == 0 ? a.q : o == 1 ? a.k : a.v)
+                                               : a.q + o * L.hstride;
+      bulk_load(dst + sizeof(T) * (o * L.dso + r * L.sr), src + ((size_t)t * L.N + r) * L.ld,
                 L.copy_bytes, full(s));
     }
   };
@@ -1320,8 +1717,13 @@ __device__ __forceinline__ void attend_short_walk(const ShortLayout& L, const Sh
     const int s = i % L.stages;
     const uint32_t parity = (i / L.stages) & 1;
     mbar_wait(full(s), parity);
-    bf16* st = reinterpret_cast<bf16*>(ring + (size_t)s * L.stage_bytes);
-    for (int h = warp; h < L.heads; h += kWarps) attend_short_head(L, a, st, zero, t, h, lane);
+    T* st = reinterpret_cast<T*>(ring + (size_t)s * L.stage_bytes);
+    for (int h = warp; h < L.heads; h += kWarps) {
+      if constexpr (std::is_same<T, float>::value)
+        attend_short_head_f32(L, a, st, t, h, lane);
+      else
+        attend_short_head(L, a, st, zero, t, h, lane);
+    }
     fence_proxy_async();  // the staged outputs before the stage's next copies
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(s));
@@ -1341,16 +1743,17 @@ __device__ __forceinline__ void attend_short_walk(const ShortLayout& L, const Sh
 }
 
 // The short tile's launch: a persistent grid, kMinBlocks blocks an SM (the
-// registers' cap: kShortBlocks).
-template <int kMinBlocks>
+// registers' cap: kShortBlocks in bf16, 1 in fp32).
+template <typename T, int kMinBlocks>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-attend_short_kernel(const __grid_constant__ ShortArgs a, const __grid_constant__ ShortLayout L) {
+attend_short_kernel(const __grid_constant__ ShortArgsT<T> a,
+                    const __grid_constant__ ShortLayout L) {
   extern __shared__ __align__(128) unsigned char smem[];
   attend_short_walk(L, a, smem);
 }
 
-// fp32's launch: grid (sequence, head, query block), one tile per block. hs:
-// see launch_attend.
+// fp32's masked launch (the grouped lab switch): grid (sequence, head, query
+// block), one tile per block. hs: see launch_attend.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attend_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -1361,6 +1764,16 @@ attend_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const long long o = blockIdx.y * hs;
   attend_tile_smem(q + o, k + o, v + o, ld, out, N, C, scale, L, opts, smem, blockIdx.x,
                    blockIdx.y, blockIdx.z);
+}
+
+// fp32's tensor-core walk, a persistent grid of one block an SM
+// (f32_attn_layout)
+template <int RB>
+__global__ void __launch_bounds__(kThreads, 1)
+attend_f32_kernel(const float* q, const float* k, const float* v, long long hs, int ld,
+                  float* out, int R, int N, int C, int heads, float scale, F32AttnLayout L) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  attend_f32_walk<RB>(q, k, v, hs, ld, out, R, N, C, heads, scale, L, smem);
 }
 
 // The tensor-core tile's walk: blocks take the tiles blockIdx.x, + gridDim.x,
@@ -1433,6 +1846,20 @@ cudaError_t persistent_grid(Kernel kernel, int smem, int n_tiles, int* blocks) {
   return cudaSuccess;
 }
 
+template <int RB>
+cudaError_t launch_attend_f32(const float* q, const float* k, const float* v, long long hs,
+                              int ld, float* out, int R, int N, int C, int heads, float scale,
+                              const F32AttnLayout& L, cudaStream_t stream) {
+  const long long n = (long long)R * heads;
+  if (n > 0x7fffffffLL) return cudaErrorInvalidValue;
+  int blocks = 0;
+  const cudaError_t e = persistent_grid(attend_f32_kernel<RB>, (int)L.total, (int)n, &blocks);
+  if (e != cudaSuccess) return e;
+  attend_f32_kernel<RB><<<blocks, kThreads, L.total, stream>>>(q, k, v, hs, ld, out, R, N, C,
+                                                               heads, scale, L);
+  return cudaGetLastError();
+}
+
 template <int NKF>
 cudaError_t launch_attend_mma(const bf16* q, const bf16* k, const bf16* v, long long hs, int ld,
                               bf16* out, int R, int N, int C, int heads, float scale,
@@ -1454,9 +1881,9 @@ cudaError_t launch_attend_mma(const bf16* q, const bf16* k, const bf16* v, long 
 // k = q + 64, v = q + 128); anything else, or a pointer off 16 bytes, is an
 // error to the caller. (A template, so that only the sources that launch
 // it compile the kernel.)
-template <int kMinBlocks = kShortBlocks>
-cudaError_t launch_attend_short(const bf16* q, const bf16* k, const bf16* v, long long hs, int ld,
-                                bf16* out, int R, int N, int C, int heads, float scale,
+template <typename T, int kMinBlocks = std::is_same<T, bf16>::value ? kShortBlocks : 1>
+cudaError_t launch_attend_short(const T* q, const T* k, const T* v, long long hs, int ld, T* out,
+                                int R, int N, int C, int heads, float scale,
                                 const AttnOpts& opts, cudaStream_t stream) {
   int src;
   if (hs != 0)
@@ -1470,13 +1897,13 @@ cudaError_t launch_attend_short(const bf16* q, const bf16* k, const bf16* v, lon
       off16(out))
     return cudaErrorInvalidValue;
   ShortLayout L;
-  if (!short_layout(L, src, N, C, heads, ld, hs + kHeadDim, kSmemPerBlock, kShortStages))
+  if (!short_layout<T>(L, src, N, C, heads, ld, hs + kHeadDim, kSmemPerBlock, kShortStages))
     return cudaErrorInvalidValue;
   int blocks = 0;
-  const cudaError_t e = persistent_grid(attend_short_kernel<kMinBlocks>, L.total, R, &blocks);
+  const cudaError_t e = persistent_grid(attend_short_kernel<T, kMinBlocks>, L.total, R, &blocks);
   if (e != cudaSuccess) return e;
-  attend_short_kernel<kMinBlocks><<<blocks, kThreads, L.total, stream>>>(
-      ShortArgs{q, k, v, out, R, scale, opts}, L);
+  attend_short_kernel<T, kMinBlocks><<<blocks, kThreads, L.total, stream>>>(
+      ShortArgsT<T>{q, k, v, out, R, scale, opts}, L);
   return cudaGetLastError();
 }
 
@@ -1484,15 +1911,16 @@ cudaError_t launch_attend_short(const bf16* q, const bf16* k, const bf16* v, lon
 // tile reads head h at column h * kHeadDim of rows of ld elements; hs is a
 // further offset of h * hs elements (0 for token rows holding every head;
 // the head-major slabs of attention_stage.cu, one per head, M * 3d apart).
-// bf16: the short tile at N <= 32 unmasked keys, else the tensor-core tile;
-// fp32: the shared-memory body.
+// Unmasked at N <= 32 keys, the short tile (both dtypes); else bf16 its
+// tensor-core tile, fp32 its tensor-core walk (tf32x3); fp32 masked (the
+// grouped lab switch), the shared-memory body.
 template <typename T>
 cudaError_t launch_attend(const T* q, const T* k, const T* v, int ld, T* out, int R, int N,
                           int C, int heads, float scale, const AttnOpts& opts,
                           cudaStream_t stream, long long hs = 0) {
+  if (attend_short_ok(N, opts.mask_block))
+    return launch_attend_short<T>(q, k, v, hs, ld, out, R, N, C, heads, scale, opts, stream);
   if constexpr (std::is_same<T, bf16>::value) {
-    if (attend_short_ok(N, opts.mask_block))
-      return launch_attend_short(q, k, v, hs, ld, out, R, N, C, heads, scale, opts, stream);
     const AttnLayout L = attn_layout_mma(N, opts.mask_block);
     switch (L.nkf) {
       case 4:
@@ -1503,6 +1931,11 @@ cudaError_t launch_attend(const T* q, const T* k, const T* v, int ld, T* out, in
         return launch_attend_mma<16>(q, k, v, hs, ld, out, R, N, C, heads, scale, L, opts,
                                      stream);
     }
+  } else if (opts.mask_block == 0) {
+    const F32AttnLayout L = f32_attn_layout(N);
+    if (L.rb == 1)
+      return launch_attend_f32<1>(q, k, v, hs, ld, out, R, N, C, heads, scale, L, stream);
+    return launch_attend_f32<2>(q, k, v, hs, ld, out, R, N, C, heads, scale, L, stream);
   } else {
     const AttnLayout L = attn_layout_f32(N, opts.mask_block);
     cudaError_t e = cudaFuncSetAttribute(attend_kernel<T>,
@@ -1522,65 +1955,7 @@ cudaError_t launch_attend_packed(const T* qkv, T* out, int R, int N, int C, int 
                           stream);
 }
 
-// ------------------------------------------------ out-projection + residual + LN
-// fp32 (parity checks; bf16 runs `proj_ln2_walk_bf16`, stage.cuh):
-// x2 = x + (o @ Wp + bp), y2 = LN2(x2) over token rows, one tile the row
-// block `tile` of kF32Rows rows: o @ Wp into an fp32 row buffer, then the
-// residual add and LN2 per row.
-// DropPath: with dp, the branch (projection and its bias) of token row r is
-// scaled by dp[r / dp_div] in fp32 before the residual add (dp_div = N: one
-// scale per sequence); dp == nullptr leaves the arithmetic as it is without.
-// with_y2 = false (kOptNoY2) writes x2 only: no LN2, y2 left as it was.
-__device__ __forceinline__ void proj_ln2_tile(const float* o, const float* x, const float* wp,
-                                              const float* bp, const float* ln2s,
-                                              const float* ln2b, float* x2, float* y2, int M,
-                                              int C, float eps, unsigned char* smem, int tile,
-                                              const float* dp = nullptr, int dp_div = 1,
-                                              bool with_y2 = true) {
-  constexpr int BM = kF32Rows;
-  const int lda = C + kF32Pad;
-  const int ldx = C + 4;
-  float* As = reinterpret_cast<float*>(smem);
-  float* Bs = reinterpret_cast<float*>(smem + align128(sizeof(float) * BM * lda));
-  float* Xs = reinterpret_cast<float*>(smem + align128(sizeof(float) * BM * lda) + bs_bytes());
-
-  const int row0 = tile * BM;
-  load_rows(As, lda, o + (size_t)row0 * C, C, BM, M - row0, C);
-  __syncthreads();
-  for (int n0 = 0; n0 < C; n0 += kBN) gemm_rowblock(As, lda, wp + n0, C, C, Bs, Xs + n0, ldx);
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BM; r += kWarps) {
-    const int row = row0 + r;
-    if (row >= M) continue;
-    const float* xr = x + (size_t)row * C;
-    float* x2r = x2 + (size_t)row * C;
-    const float keep = dp ? dp[row / dp_div] : 1.f;
-    float v[32];
-#pragma unroll
-    for (int k = 0; k < 32; ++k)
-      if (k < C / 32) {
-        const int c = 32 * k + lane;
-        const float branch = Xs[r * ldx + c] + bp[c];
-        // x + (proj + bp), or x + dp * (proj + bp) rounded apart (no FMA)
-        v[k] = dp ? xr[c] + __fmul_rn(branch, keep) : xr[c] + branch;
-        x2r[c] = v[k];
-      }
-    if (!with_y2) continue;
-    warp_layernorm(v, C, ln2s, ln2b, eps, lane);
-    float* y2r = y2 + (size_t)row * C;
-#pragma unroll
-    for (int k = 0; k < 32; ++k)
-      if (k < C / 32) y2r[32 * k + lane] = v[k];
-  }
-}
-
-inline size_t proj_ln2_smem(int C) {
-  return align128(sizeof(float) * kF32Rows * (C + kF32Pad)) + bs_bytes() +
-         align128(sizeof(float) * kF32Rows * (C + 4));
-}
-
+// ------------------------------------------------ out-projection partial
 // fp32 tensor-parallel partial (bf16 runs `proj_ln2_walk_bf16<., true>`):
 // part = o @ Wp over token rows, o (M, K) a rank's K = C / tp attention
 // channels and Wp (K, C) its rows of the projection, written raw in fp32
@@ -1613,7 +1988,8 @@ inline size_t proj_partial_smem(int K, int C) {
 }
 
 // ---------------------------------------------------------------- LN1 + qkv
-// fp32 (parity checks; bf16 runs `ln_qkv_walk_bf16`, stage.cuh): qkv =
+// fp32, the tensor-parallel partial form's (K1-tp, K8-tp; the whole stage
+// runs `ln_qkv_walk_f32` and bf16 `ln_qkv_walk_bf16`, stage.cuh): qkv =
 // LN1(x) @ Wqkv + bqkv over token rows; one tile is the row block `tile`:
 // LN1 into shared memory, then the qkv projection in 64-column steps.
 // `heads` heads of kHeadDim: qkv has 3 * heads * kHeadDim columns, which is

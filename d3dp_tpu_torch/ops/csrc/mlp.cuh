@@ -45,9 +45,10 @@
 //     next tile's products.
 // Shared memory: x 64 KB, h 2 x 16 KB, ring 4 x 32 KB, at C = 512.
 //
-// fp32 (`mlp_tile_f32`, parity checks): 16 token rows a block, x, h and the
-// fp32 output rows in shared memory, the products by `gemm_rowblock`'s FMA
-// path.
+// fp32 (`mlp_walk_f32`; the default dtype of every entry point): the same
+// walk in tf32x3, three TF32 passes from the weights' hi and lo planes
+// (section "fp32: tf32x3" below), x, h and the ring in shared memory (x
+// 128 KB, h 32 KB, ring 2 x 32 KB at C = 512).
 #pragma once
 
 #include <cuda.h>
@@ -126,15 +127,15 @@ template <typename T>
 struct MlpArgs {
   const T* x;
   const T* res;
-  const T* w1;        // (C, H); fp32 only: bf16 reads W1 through a TMA map
+  const T* w1;        // (C, H); the fp32 partial tile only: the walks read W1 through a TMA map
   const float* b1;    // (H,)
-  const T* w2;        // (H, C); fp32 only: bf16 reads W2 through a TMA map
+  const T* w2;        // (H, C); the fp32 partial tile only: the walks read W2 through a TMA map
   const float* b2;    // (C,)
   const float* lns;   // (C,) the closing LayerNorm's scale
   const float* lnb;   // (C,) and bias
   T* out;
   const float* dp;
-  int depth;  // bf16: the depth the TMA maps of the weight stacks are read at
+  int depth;  // the depth the TMA maps of the weight stacks are read at
   int D1, D2, M, C, H, gelu;
   float eps;
   float* part;  // the partial form: (M, C) fp32 out; res, b2, lns, lnb, out, dp unused
@@ -149,14 +150,16 @@ __device__ __forceinline__ size_t mlp_out_row(int t, int D1, int D2, bool transp
 
 template <typename T> struct MlpLayout;
 
-// ------------------------------------------------------------------ fp32
-template <>
-struct MlpLayout<float> {
+// ------------------------------------------------------------ fp32 partial
+// The tensor-parallel partial form's fp32 tile (K2/K5-tp; every other fp32
+// form runs `mlp_walk_f32` below): 16 token rows a block, x, h and the fp32
+// product rows in shared memory, the products by `gemm_rowblock`'s FMA path,
+// the raw product out to a.part.
+struct MlpFmaLayout {
   static constexpr int kRows = kF32Rows;
   int lda, ldh, lds;
   size_t a, h, s, c, b, total;
-  MlpLayout() = default;
-  MlpLayout(int C, int H) {
+  MlpFmaLayout(int C, int H) {
     lda = C + kF32Pad;
     ldh = H + kF32Pad;
     lds = C + 4;
@@ -170,10 +173,10 @@ struct MlpLayout<float> {
   }
 };
 
-template <bool kTranspose>
-__device__ __forceinline__ void mlp_tile_f32(const MlpArgs<float>& a, const MlpLayout<float>& L,
-                                             unsigned char* smem, int tile) {
-  constexpr int BM = MlpLayout<float>::kRows;
+__device__ __forceinline__ void mlp_partial_tile_f32(const MlpArgs<float>& a,
+                                                     const MlpFmaLayout& L, unsigned char* smem,
+                                                     int tile) {
+  constexpr int BM = MlpFmaLayout::kRows;
   constexpr int ldc = kBN + 4;
   const int C = a.C, H = a.H, M = a.M;
   float* As = reinterpret_cast<float*>(smem + L.a);
@@ -196,38 +199,13 @@ __device__ __forceinline__ void mlp_tile_f32(const MlpArgs<float>& a, const MlpL
     }
   }
   __syncthreads();
-  // h @ W2 into the fp32 row buffer
+  // h @ W2 into the fp32 row buffer, then out raw
   for (int n0 = 0; n0 < C; n0 += kBN)
     gemm_rowblock(Hs, L.ldh, a.w2 + n0, C, H, Bs, Ss + n0, L.lds);
   __syncthreads();
-  if (a.part) {  // the partial form: the raw product out
-    for (int i = threadIdx.x; i < BM * C; i += kThreads) {
-      const int r = i / C, c = i % C;
-      if (row0 + r < M) a.part[(size_t)(row0 + r) * C + c] = Ss[r * L.lds + c];
-    }
-    return;
-  }
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BM; r += kWarps) {
-    const int t = row0 + r;
-    if (t >= M) continue;
-    const float* rr = a.res + (size_t)t * C;
-    const float keep = a.dp ? a.dp[t / a.D2] : 1.f;
-    float v[32];
-#pragma unroll
-    for (int k = 0; k < 32; ++k)
-      if (k < C / 32) {
-        const int c = 32 * k + lane;
-        const float branch = Ss[r * L.lds + c] + a.b2[c];
-        // res + (out + b2), or res + dp * (out + b2) rounded apart (no FMA)
-        v[k] = a.dp ? rr[c] + __fmul_rn(branch, keep) : rr[c] + branch;
-      }
-    warp_layernorm(v, C, a.lns, a.lnb, a.eps, lane);
-    float* orow = a.out + mlp_out_row(t, a.D1, a.D2, kTranspose) * C;
-#pragma unroll
-    for (int k = 0; k < 32; ++k)
-      if (k < C / 32) orow[32 * k + lane] = v[k];
+  for (int i = threadIdx.x; i < BM * C; i += kThreads) {
+    const int r = i / C, c = i % C;
+    if (row0 + r < M) a.part[(size_t)(row0 + r) * C + c] = Ss[r * L.lds + c];
   }
 }
 
@@ -437,6 +415,147 @@ __device__ __forceinline__ void wg_row_sums(float& x, float& y, float* st, int w
   x = st[r0] + st[64 + r0];
   y = st[r0 + 8] + st[64 + r0 + 8];
 }
+
+// ------------------------------------------------------- fp32: tf32x3
+// Every fp32 walk (`mlp_walk_f32` below, `ln_qkv_walk_f32` and
+// `proj_ln2_walk_f32` in stage.cuh) multiplies on wgmma in TF32, three
+// passes into one fp32 accumulator: each operand v splits into hi =
+// tf32(v) and lo = tf32(v - hi) (cvt.rna: to nearest, ties away from zero;
+// v - hi is exact), and each k-step adds lo(A) hi(B), hi(A) lo(B), then
+// hi(A) hi(B), the small terms first. The dropped lo(A) lo(B) is about
+// 2^-22 of a product: the Hopper form of the TPU kernels' fp32 products at
+// Precision.HIGHEST (a multi-pass product on the matrix unit).
+//   * tf32 wgmma reads both operands K-major from shared memory, or A from
+//     registers. The activations are row-major, K-major already; A goes as
+//     the register operand, each thread splitting its fragment (rows r,
+//     r + 8, columns t, t + 4 of each k-step of 8) from an fp32 tile of 64
+//     rows in shared memory (`f32_at`: rows of K floats, 4-float groups
+//     XOR-swizzled by the row, so that a warp's fragment reads and the
+//     16-byte loads fall on distinct banks). The tile is the LayerNorm's,
+//     the residual's or h's fp32 value, never a pre-split copy: its hi and
+//     lo planes together would need 256 KB at C = 512.
+//   * B (the weights) arrives as hi and lo planes made once per weight
+//     version on the host (`ops.tf32.planes`), in nn.Linear's own (out, in)
+//     layout, K-major: (Z, N, K) stacks, Z = 2 x depth (hi at 2d, lo at
+//     2d + 1) or 2 x heads (the head-major qkv). A ring stage (32 KB) holds
+//     one box a warpgroup of each plane: 64 weight rows (the warpgroup's 64
+//     output columns) x 32 k, 128-byte rows in the 128-byte swizzle, as the
+//     bf16 walks' slabs. A tile's stages run over k in steps of 32 and over
+//     the warpgroups' 64-column blocks.
+//   * One instruction form, m64n64k8 with A from registers
+//     (`wgmma_tf32`); `tf32x3_stage` runs one stage's four k-steps on a
+//     warpgroup and waits for them, so that the next stage's fragments may
+//     take the registers. (Splitting each k-step's fragments under the
+//     previous k-step's wgmmas measured no faster: PERF.md.)
+// What bounds them: the three passes make the tensor-core bound 3 x FLOPs
+// at 495 TFLOP/s. Short of it, each 64-row tile streams the weights' hi
+// and lo planes (8 bytes a weight) from L2, and on the H100 how TMA fetches
+// them sets the pace: 128-byte box rows beat 32- and 64-byte ones (the
+// latter even at twice the ring's depth), and a 2-CTA cluster multicasting
+// each stage to both SMs measured slower (PERF.md).
+constexpr int kF32Tile = 64;         // token rows a tile: one wgmma M
+constexpr int kF32Box = 8192;        // a plane box: 64 weight rows x 32 k
+constexpr int kF32Plane = 2 * kF32Box;
+constexpr int kF32Stage = 2 * kF32Plane;  // a ring stage: both warpgroups' boxes of both planes
+constexpr int kF32K = 32;            // k columns a stage
+constexpr int kF32Chunk = 128;       // output columns of a qkv or fc1 chunk: 64 a warpgroup
+
+// element (r, k) of a 64-row fp32 tile of rows of K floats (K % 32 == 0)
+__device__ __forceinline__ int f32_at(int r, int k, int K) { return r * K + (k ^ ((r & 7) << 2)); }
+
+// Rows row0.. of src (M x K fp32) into the tile at xs with cp.async (one
+// commit group); rows at or past M zero-filled.
+__device__ __forceinline__ void f32_load_rows(float* xs, const float* src, int row0, int M,
+                                              int K) {
+  const int gpr = K / 4;  // 16-byte groups a row
+  for (int v = threadIdx.x; v < kF32Tile * gpr; v += kThreads) {
+    const int r = v / gpr, g = v % gpr;
+    const bool ok = row0 + r < M;
+    cp_async16_zfill(xs + f32_at(r, 4 * g, K), src + (size_t)(ok ? row0 + r : 0) * K + 4 * g, ok);
+  }
+  cp_async_commit();
+}
+
+// D += A @ B on one warpgroup, TF32: A (64 x 8) this thread's fragment in
+// registers (a[0] row r col t, a[1] row r + 8 col t, a[2] row r col t + 4,
+// a[3] row r + 8 col t + 4; r = 16 * warp + lane / 4, t = lane % 4), B (8 x
+// 64) K-major in shared memory (`wgmma_desc`); D in the m64nNk16 fragment
+// layout of wgmma_n64.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D += A[:, k0 : k0 + 32] @ B in tf32x3 on this warpgroup over one ring
+// stage: A the 64-row fp32 tile at `as` (rows of K, `f32_at`), B this
+// warpgroup's hi box at shared address `box` (its lo box kF32Plane on).
+// Each k-step adds lo(A) hi(B), hi(A) lo(B), hi(A) hi(B). Every fragment
+// is split before the first wgmma; on return the wgmmas are complete (the
+// stage is read, the fragments' registers free).
+__device__ __forceinline__ void tf32x3_stage(float (&d)[32], const float* as, int K, int k0,
+                                             uint32_t box) {
+  const int lane = threadIdx.x % 32;
+  const int r = 16 * (threadIdx.x % 128 / 32) + lane / 4, t = lane % 4;
+  uint32_t hi[kF32K / 8][4], lo[kF32K / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < kF32K / 8; ++kk) {
+    const int k = k0 + 8 * kk + t;
+    tf32_split(as[f32_at(r, k, K)], hi[kk][0], lo[kk][0]);
+    tf32_split(as[f32_at(r + 8, k, K)], hi[kk][1], lo[kk][1]);
+    tf32_split(as[f32_at(r, k + 4, K)], hi[kk][2], lo[kk][2]);
+    tf32_split(as[f32_at(r + 8, k + 4, K)], hi[kk][3], lo[kk][3]);
+  }
+  fence_acc(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kF32K / 8; ++kk) {
+    const uint64_t bh = wgmma_desc(box + kk * 32), bl = wgmma_desc(box + kF32Plane + kk * 32);
+    wgmma_tf32(d, lo[kk], bh);
+    wgmma_tf32(d, hi[kk], bl);
+    wgmma_tf32(d, hi[kk], bh);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(d);
+}
+
+// Start one stage into shared address dst, completing on bar: k columns
+// k0..k0 + 32 of both planes for each warpgroup w, the 64 weight rows
+// rz[w].x.. of plane pair rz[w].y (map coordinates (k, row, z + plane)).
+__device__ __forceinline__ void f32_issue_stage(uint32_t dst, const CUtensorMap* map,
+                                                uint32_t bar, int k0, int2 rz0, int2 rz1) {
+  mbar_expect_tx(bar, kF32Stage);
+  for (int p = 0; p < 2; ++p) {
+    tma_load_3d(dst + p * kF32Plane, map, bar, k0, rz0.x, rz0.y + p);
+    tma_load_3d(dst + p * kF32Plane + kF32Box, map, bar, k0, rz1.x, rz1.y + p);
+  }
+}
+
+// The fp32 walks' shared memory, byte offsets from the 1024-aligned base
+// (`mlp_base`): the ring, the 64 x C fp32 A tile, h (the MLP's 64 x kHid
+// chunk), the LayerNorm row sums ([pass][warpgroup][row]) and the ring's
+// barriers.
+struct F32Layout {
+  size_t ring, a, h, stats, bars, total;
+  F32Layout() = default;
+  F32Layout(int stages, int C, int hid) {
+    ring = 0;
+    a = ring + (size_t)stages * kF32Stage;
+    h = a + (size_t)kF32Tile * C * sizeof(float);
+    stats = h + (size_t)kF32Tile * hid * sizeof(float);
+    bars = stats + 2 * 2 * kF32Tile * sizeof(float);
+    total = bars + 2 * (size_t)stages * sizeof(uint64_t) + 1024;  // + the base's alignment
+  }
+};
 
 // ------------------------------------------------------------------ bf16
 constexpr int kMlpRows = 64;    // token rows a tile: one wgmma M
@@ -757,12 +876,197 @@ __device__ __forceinline__ void mlp_walk_bf16(const MlpArgs<bf16>& a, const CUte
   ring.stop();  // the caller may reuse the memory
 }
 
+// ------------------------------------------------------------------ fp32
+// `mlp_walk_f32`: the bf16 walk's skeleton in tf32x3 (see "fp32: tf32x3"
+// above). A tile is 64 token rows; x (64 x C fp32, the fc1 operand) stays in
+// shared memory for the tile. The hidden dimension goes in chunks of kHid:
+// fc1, warpgroup w computes h's columns 64w.. of the chunk, + b1, the
+// activation, into the fp32 h buffer; fc2, both warpgroups add h_chunk @
+// W2[chunk, :] into their C / 2 output columns (C / 128 blocks of 64, 128
+// registers a thread at C = 512), kept across all chunks. The ring carries
+// W1 stages (the chunk's 128 rows x 32 k) and W2 stages (the warpgroups'
+// 64-column blocks x 32 k of the chunk). The next tile's x loads
+// under the last chunk's fc2; the epilogue (+ b2, DropPath, + res read from
+// device memory, the LayerNorm's two passes across both warpgroups) writes
+// each row's C outputs from the fragments.
+// Shared memory at C = 512: ring 2 x 32 KB, x 128 KB, h 32 KB.
+template <>
+struct MlpLayout<float> : F32Layout {
+  static constexpr int kRows = kF32Tile;
+  static constexpr int kStages = 2;
+  MlpLayout() = default;
+  MlpLayout(int C, int) : F32Layout(kStages, C, kHid) {}
+};
+
+// Walk the tiles blockIdx.x, + gridDim.x, ... below n_tiles, as
+// mlp_walk_bf16 (its contract: every thread calls it, the memory free on
+// entry and return, C % 128 == 0, C <= 512, H % 128 == 0; on return the
+// output rows are written). tw1, tw2: TMA maps over the planes of the
+// depth-stacked W1 (2D, H, C) and W2 (2D, C, H), read at depth a.depth.
+template <bool kTranspose>
+__device__ __forceinline__ void mlp_walk_f32(const MlpArgs<float>& a, const CUtensorMap* tw1,
+                                             const CUtensorMap* tw2, const MlpLayout<float>& L,
+                                             unsigned char* smem_raw, int n_tiles) {
+  const int first = blockIdx.x;
+  if (first >= n_tiles) return;
+  const int C = a.C, M = a.M;
+  const int mine = (n_tiles - 1 - first) / gridDim.x + 1;
+  const int nq = C / 128;  // 64-column output blocks a warpgroup
+  const int n1 = C / kF32K, per_chunk = n1 + (kHid / kF32K) * nq;
+  const int per_tile = (a.H / kHid) * per_chunk;
+
+  unsigned char* base = mlp_base(smem_raw);
+  float* xs = reinterpret_cast<float*>(base + L.a);
+  float* hs = reinterpret_cast<float*>(base + L.h);
+  float* stats = reinterpret_cast<float*>(base + L.stats);
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int r0 = 16 * (tid % 128 / 32) + lane / 4;  // this thread's rows r0, r0 + 8
+  const int cq = 2 * (lane % 4);                    // and column pair in each 8
+
+  // stage l: chunk j = l % per_tile / per_chunk; the first n1 W1's rows
+  // kHid j.. (warpgroup w: + 64 w), k 32 s..; then, for each 32 k of the
+  // chunk and each block q, W2's rows 64 q.. (warpgroup w: + C / 2 w)
+  auto issue = [&](uint32_t l, uint32_t dst, uint32_t bar) {
+    const int q = (int)(l % per_tile), j = q / per_chunk, s = q % per_chunk;
+    const int z = 2 * a.depth;
+    if (s < n1) {
+      f32_issue_stage(dst, tw1, bar, kF32K * s, make_int2(kHid * j, z),
+                      make_int2(kHid * j + 64, z));
+    } else {
+      const int kb = (s - n1) / nq, qb = (s - n1) % nq;
+      f32_issue_stage(dst, tw2, bar, kHid * j + kF32K * kb, make_int2(64 * qb, z),
+                      make_int2(C / 2 + 64 * qb, z));
+    }
+  };
+  WeightRing<MlpLayout<float>::kStages, kF32Stage> ring;
+  ring.start(base + L.bars, base + L.ring, (uint32_t)mine * per_tile, issue);
+  f32_load_rows(xs, a.x, first * kF32Tile, M, C);
+
+  uint32_t next = 0;  // the next slab to consume
+  for (int i = 0; i < mine; ++i) {
+    const int tile = first + i * gridDim.x;
+    float acc2[128];
+#pragma unroll
+    for (int q = 0; q < 128; ++q) acc2[q] = 0.f;
+    cp_async_wait<0>();
+    __syncthreads();  // x landed for every thread
+
+    for (int j = 0; j < a.H / kHid; ++j) {
+      float acc1[32];
+#pragma unroll
+      for (int q = 0; q < 32; ++q) acc1[q] = 0.f;
+      for (int s = 0; s < n1; ++s, ++next) {
+        ring.acquire(next);
+        tf32x3_stage(acc1, xs, C, kF32K * s, ring.slab(next) + wg * kF32Box);
+        ring.release_upto(next + 1, issue);
+      }
+      __syncthreads();  // every fragment of the previous chunk's h is read
+      // + b1, the activation, into this warpgroup's 64 columns of h
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int c = 64 * wg + 8 * jj + cq;
+        const float2 bb = *reinterpret_cast<const float2*>(a.b1 + kHid * j + c);
+        *reinterpret_cast<float2*>(hs + f32_at(r0, c, kHid)) =
+            make_float2(activation(acc1[4 * jj] + bb.x, a.gelu),
+                        activation(acc1[4 * jj + 1] + bb.y, a.gelu));
+        *reinterpret_cast<float2*>(hs + f32_at(r0 + 8, c, kHid)) =
+            make_float2(activation(acc1[4 * jj + 2] + bb.x, a.gelu),
+                        activation(acc1[4 * jj + 3] + bb.y, a.gelu));
+      }
+      __syncthreads();  // the chunk's h is written; the last chunk: x is free
+      if (j == a.H / kHid - 1 && i + 1 < mine)
+        f32_load_rows(xs, a.x, (tile + gridDim.x) * kF32Tile, M, C);
+
+      for (int kb = 0; kb < kHid / kF32K; ++kb)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (q < nq) {
+            ring.acquire(next);
+            tf32x3_stage(*reinterpret_cast<float(*)[32]>(acc2 + 32 * q), hs, kHid, kF32K * kb,
+                         ring.slab(next) + wg * kF32Box);
+            ring.release_upto(++next, issue);
+          }
+    }
+
+    // epilogue: + b2, DropPath, + res; LayerNorm over the C columns of a row
+    // (this warpgroup holds C / 2 of them); the rows out
+    const int ta = tile * kF32Tile + r0, tb = ta + 8;
+    const bool va = ta < M, vb = tb < M;
+    const float ka = a.dp && va ? a.dp[ta / a.D2] : 1.f;
+    const float kb = a.dp && vb ? a.dp[tb / a.D2] : 1.f;
+    float sa = 0.f, sb = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q < nq) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          float* d = acc2 + 32 * q + 4 * jj;
+          const int c = wg * (C / 2) + 64 * q + 8 * jj + cq;
+          const float2 bb = *reinterpret_cast<const float2*>(a.b2 + c);
+          const float2 ra = va ? *reinterpret_cast<const float2*>(a.res + (size_t)ta * C + c)
+                               : make_float2(0.f, 0.f);
+          const float2 rb = vb ? *reinterpret_cast<const float2*>(a.res + (size_t)tb * C + c)
+                               : make_float2(0.f, 0.f);
+          // res + (out + b2), or res + dp * (out + b2) rounded apart (no FMA)
+          if (a.dp) {
+            d[0] = ra.x + __fmul_rn(d[0] + bb.x, ka);
+            d[1] = ra.y + __fmul_rn(d[1] + bb.y, ka);
+            d[2] = rb.x + __fmul_rn(d[2] + bb.x, kb);
+            d[3] = rb.y + __fmul_rn(d[3] + bb.y, kb);
+          } else {
+            d[0] = ra.x + (d[0] + bb.x);
+            d[1] = ra.y + (d[1] + bb.y);
+            d[2] = rb.x + (d[2] + bb.x);
+            d[3] = rb.y + (d[3] + bb.y);
+          }
+          sa += d[0] + d[1];
+          sb += d[2] + d[3];
+        }
+      }
+    wg_row_sums(sa, sb, stats, wg, r0, lane);
+    const float mua = sa / C, mub = sb / C;
+    sa = sb = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q < nq) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float* d = acc2 + 32 * q + 4 * jj;
+          sa += (d[0] - mua) * (d[0] - mua) + (d[1] - mua) * (d[1] - mua);
+          sb += (d[2] - mub) * (d[2] - mub) + (d[3] - mub) * (d[3] - mub);
+        }
+      }
+    wg_row_sums(sa, sb, stats + 2 * kF32Tile, wg, r0, lane);
+    const float rsa = rsqrtf(sa / C + a.eps), rsb = rsqrtf(sb / C + a.eps);
+    float* outa = a.out + (va ? mlp_out_row(ta, a.D1, a.D2, kTranspose) * C : 0);
+    float* outb = a.out + (vb ? mlp_out_row(tb, a.D1, a.D2, kTranspose) * C : 0);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q < nq) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float* d = acc2 + 32 * q + 4 * jj;
+          const int c = wg * (C / 2) + 64 * q + 8 * jj + cq;
+          const float2 s = *reinterpret_cast<const float2*>(a.lns + c);
+          const float2 b = *reinterpret_cast<const float2*>(a.lnb + c);
+          if (va)
+            *reinterpret_cast<float2*>(outa + c) =
+                make_float2((d[0] - mua) * rsa * s.x + b.x, (d[1] - mua) * rsa * s.y + b.y);
+          if (vb)
+            *reinterpret_cast<float2*>(outb + c) =
+                make_float2((d[2] - mub) * rsb * s.x + b.x, (d[3] - mub) * rsb * s.y + b.y);
+        }
+      }
+  }
+  ring.stop();  // the caller may reuse the memory
+}
+
 // Whether the bf16 walk takes its kWide form at C channels.
 __host__ __device__ constexpr bool mlp_wide(int C) { return C == 512; }
 
 // The walk of either type: bf16 as above (kWide as given, which the caller
-// matches to mlp_wide(C)), fp32 one 16-row tile at a time (tw1, tw2 and
-// kWide unused; the partial form where a.part is set).
+// matches to mlp_wide(C)), fp32 `mlp_walk_f32` (kWide unused; no partial
+// form: that runs `mlp_partial_tile_f32`).
 template <typename T, bool kTranspose, bool kWide = false, bool kPartial = false>
 __device__ __forceinline__ void mlp_walk(const MlpArgs<T>& a, const CUtensorMap* tw1,
                                          const CUtensorMap* tw2, const MlpLayout<T>& L,
@@ -770,10 +1074,8 @@ __device__ __forceinline__ void mlp_walk(const MlpArgs<T>& a, const CUtensorMap*
   if constexpr (std::is_same<T, bf16>::value) {
     mlp_walk_bf16<kTranspose, kWide, kPartial>(a, tw1, tw2, L, smem, n_tiles);
   } else {
-    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-      mlp_tile_f32<kTranspose>(a, L, smem, t);
-      __syncthreads();  // the next tile overwrites shared memory
-    }
+    static_assert(!kPartial, "the fp32 partial form runs mlp_partial_tile_f32");
+    mlp_walk_f32<kTranspose>(a, tw1, tw2, L, smem, n_tiles);
   }
 }
 
@@ -783,8 +1085,9 @@ __device__ __forceinline__ void mlp_walk(const MlpArgs<T>& a, const CUtensorMap*
 // matrix. cuTensorMapEncodeTiled comes from the driver through the runtime
 // (cudaGetDriverEntryPoint), so the libraries need no -lcuda. Returns 0 or
 // kNoTensorMap.
-inline int encode_weight_map(CUtensorMap* map, const void* base, int D, int rows, int cols,
-                             int box_rows) {
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, size_t elem, const void* base,
+                      int D, int rows, int cols, int box_cols, int box_rows,
+                      CUtensorMapSwizzle swizzle) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -807,16 +1110,29 @@ inline int encode_weight_map(CUtensorMap* map, const void* base, int D, int rows
     encode = reinterpret_cast<Encode>(fn);
   }
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)D};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * sizeof(bf16),
-                                 (cuuint64_t)rows * cols * sizeof(bf16)};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * elem, (cuuint64_t)rows * cols * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-                 CUDA_SUCCESS
+  return encode(map, type, 3, const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
              ? 0
              : kNoTensorMap;
+}
+
+inline int encode_weight_map(CUtensorMap* map, const void* base, int D, int rows, int cols,
+                             int box_rows) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(bf16), base, D, rows, cols, 64,
+                    box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A TMA map over Z stacked row-major (rows, cols) fp32 planes (the fp32
+// walks' K-major weight planes: rows the output columns, cols the k; Z = 2 x
+// depth or 2 x heads, hi then lo): boxes of 32 columns (128 bytes, 128-byte
+// swizzle) x 64 rows of one plane. Returns 0 or kNoTensorMap.
+inline int encode_plane_map(CUtensorMap* map, const void* base, int Z, int rows, int cols) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(float), base, Z, rows, cols,
+                    kF32K, 64, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // The maps of D stacked (C, H) W1 and (H, C) W2 the bf16 walk reads.
@@ -826,11 +1142,19 @@ inline int encode_mlp_maps(CUtensorMap* tw1, CUtensorMap* tw2, const void* w1, c
   return e ? e : encode_weight_map(tw2, w2, D, H, C, kW2Rows);
 }
 
-// The shapes the walk of T takes.
+// The maps of D stacked W1 and W2 planes (2D, H, C) and (2D, C, H) the fp32
+// walk reads.
+inline int encode_mlp_plane_maps(CUtensorMap* tw1, CUtensorMap* tw2, const void* w1,
+                                 const void* w2, int D, int C, int H) {
+  const int e = encode_plane_map(tw1, w1, 2 * D, H, C);
+  return e ? e : encode_plane_map(tw2, w2, 2 * D, C, H);
+}
+
+// The shapes the walk of T takes, the same in both types: C / 2 output
+// columns a warpgroup in 64-column blocks, 128-column hidden chunks.
 template <typename T>
 inline bool mlp_shape_ok(int C, int H) {
-  if (std::is_same<T, bf16>::value) return C % 128 == 0 && C <= 512 && H % kHid == 0 && H > 0;
-  return C % 64 == 0 && C <= 1024 && H % 64 == 0 && H > 0;
+  return C % 128 == 0 && C <= 512 && H % kHid == 0 && H > 0;
 }
 
 }  // namespace d3dp

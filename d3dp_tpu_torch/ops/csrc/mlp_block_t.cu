@@ -19,32 +19,47 @@
 // What bounds both on the H100: operations (4*T*C*H FLOPs for T tokens,
 // about 680 FLOPs per byte moved in bf16 at C=512, H=1024), and short of
 // that the 2 MiB of weights every tile streams from L2 and the registers
-// that hold the tile's output while h passes through.
+// that hold the tile's output while h passes through. fp32 (the default
+// dtype of every entry point) runs each product in three TF32 passes, so
+// its bound is 3 x 4*T*C*H FLOPs at 495 TFLOP/s (2.10 ms at the eval
+// shape), and each 64-row tile streams the weights' hi and lo planes, 8 MiB,
+// from L2: 48 FLOPs a byte of that stream, more than the L2 feeds at the
+// tensor cores' rate.
 //
 // Design. The body is `mlp_walk` (mlp.cuh, shared with resident.cu, whose
-// header describes the tile): in bf16, 64 token rows a tile on wgmma, the
-// weights through a TMA-fed ring of shared-memory slabs, h a 128-column
-// chunk at a time in shared memory; in fp32, 16 rows a tile on FMAs. The
+// header describes the tile): 64 token rows a tile on wgmma, the weights
+// through a TMA-fed ring of shared-memory slabs, h a 128-column chunk at a
+// time in shared memory; bf16 with bf16 operands, fp32 in tf32x3 (three
+// TF32 passes from the weights' hi and lo planes, `mlp_walk_f32`). The
 // LayerNorm needs all C outputs of a row, so a tile owns whole rows, and
 // each token row (b, i, j) is written whole to output row (b, j, i): a
 // C-wide store, so the relayout costs no extra pass (the rows form writes
 // it to row t). Tokens are taken in flat order, so the 243-frame axis simply
-// ends in a partial last tile. In bf16 one block fills an SM, so the launch
-// is a persistent grid of one block an SM walking the tiles; C = 512 takes
-// the m64n256k16 fc2 (`mlp_wide`), other widths four-wide blocks of
-// m64n64k16. The weight maps are encoded on the host at every launch (a few
-// microseconds), from the pointers the launch is given.
+// ends in a partial last tile. One block fills an SM, so the launch is a
+// persistent grid of one block an SM walking the tiles; bf16 at C = 512
+// takes the m64n256k16 fc2 (`mlp_wide`), other widths four-wide blocks of
+// m64n64k16; fp32 runs m64n64k8 throughout. The weight maps are encoded on
+// the host at every launch (a few microseconds), from the pointers the
+// launch is given. The tensor-parallel partial form keeps, in fp32, the
+// 16-row FMA tile (`mlp_partial_tile_f32`).
 #include "mlp.cuh"
 
 namespace d3dp {
 
 template <typename T>
 struct MlpParams {
-  CUtensorMap tw1, tw2;  // bf16: the weights' TMA maps
+  CUtensorMap tw1, tw2;  // the weights' TMA maps (fp32: over their hi and lo planes)
   MlpArgs<T> a;
   MlpLayout<T> L;
   int n_tiles;
 };
+
+// The fp32 partial form's FMA tile, a tile a block
+__global__ void __launch_bounds__(kThreads) mlp_partial_fma_kernel(const MlpArgs<float> a,
+                                                                   const MlpFmaLayout L) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  mlp_partial_tile_f32(a, L, smem, blockIdx.x);
+}
 
 // kWide: bf16 at C = 512 (mlp_wide); kPartial: the tensor-parallel partial
 template <typename T, bool kTranspose, bool kWide, bool kPartial = false>
@@ -57,11 +72,8 @@ template <typename T, bool kTranspose, bool kWide, bool kPartial = false>
 cudaError_t launch_mlp(const MlpParams<T>& p, cudaStream_t stream) {
   auto kernel = mlp_block_kernel<T, kTranspose, kWide, kPartial>;
   const int smem = (int)p.L.total;
-  int blocks = p.n_tiles;
-  const cudaError_t e =
-      std::is_same<T, bf16>::value
-          ? persistent_grid(kernel, smem, p.n_tiles, &blocks)
-          : cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int blocks = 0;
+  const cudaError_t e = persistent_grid(kernel, smem, p.n_tiles, &blocks);
   if (e != cudaSuccess) return e;
   kernel<<<blocks, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
@@ -80,10 +92,9 @@ int mlp_block_any(const void* x, const void* res, const void* w1, const void* b1
       (f32 && gelu == kGeluBf16))
     return (int)cudaErrorInvalidValue;
   MlpParams<T> p{};
-  if constexpr (!f32) {
-    const int e = encode_mlp_maps(&p.tw1, &p.tw2, w1, w2, 1, C, H);
-    if (e) return e;
-  }
+  const int e = f32 ? encode_mlp_plane_maps(&p.tw1, &p.tw2, w1, w2, 1, C, H)
+                    : encode_mlp_maps(&p.tw1, &p.tw2, w1, w2, 1, C, H);
+  if (e) return e;
   const int M = B * D1 * D2;
   p.a = MlpArgs<T>{(const T*)x, (const T*)res, (const T*)w1, (const float*)b1, (const T*)w2,
                    (const float*)b2, (const float*)lns, (const float*)lnb, (T*)out,
@@ -111,20 +122,27 @@ int mlp_block_partial(const void* x, const void* w1, const void* b1, const void*
   if (R < 1 || !mlp_shape_ok<T>(C, H) || gelu < kGeluErf || gelu > kGeluNone ||
       (f32 && gelu == kGeluBf16))
     return (int)cudaErrorInvalidValue;
-  MlpParams<T> p{};
-  if constexpr (!f32) {
+  const MlpArgs<T> a{(const T*)x, nullptr, (const T*)w1, (const float*)b1, (const T*)w2,
+                     nullptr, nullptr, nullptr, nullptr, nullptr, 0, R, 1, R, C, H, gelu, 0.f,
+                     (float*)part};
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if constexpr (f32) {
+    const MlpFmaLayout L(C, H);
+    const cudaError_t e = cudaFuncSetAttribute(
+        mlp_partial_fma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+    if (e != cudaSuccess) return (int)e;
+    mlp_partial_fma_kernel<<<cdiv(R, MlpFmaLayout::kRows), kThreads, L.total, stream>>>(a, L);
+    return (int)cudaGetLastError();
+  } else {
+    MlpParams<T> p{};
     const int e = encode_mlp_maps(&p.tw1, &p.tw2, w1, w2, 1, C, H);
     if (e) return e;
-  }
-  p.a = MlpArgs<T>{(const T*)x, nullptr, (const T*)w1, (const float*)b1, (const T*)w2, nullptr,
-                   nullptr, nullptr, nullptr, nullptr, 0, R, 1, R, C, H, gelu, 0.f,
-                   (float*)part};
-  p.L = MlpLayout<T>(C, H);
-  p.n_tiles = cdiv(R, MlpLayout<T>::kRows);
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if constexpr (!f32)
+    p.a = a;
+    p.L = MlpLayout<T>(C, H);
+    p.n_tiles = cdiv(R, MlpLayout<T>::kRows);
     if (mlp_wide(C)) return (int)launch_mlp<T, false, true, true>(p, stream);
-  return (int)launch_mlp<T, false, false, true>(p, stream);
+    return (int)launch_mlp<T, false, false, true>(p, stream);
+  }
 }
 
 }  // namespace d3dp
@@ -139,7 +157,8 @@ int mlp_block_partial(const void* x, const void* w1, const void* b1, const void*
 extern "C" {
 
 // Each entry: gelu one of d3dp::kGelu* (mlp.cuh).
-// K2: x, res (B, D1, D2, C); out (B, D2, D1, C).
+// K2: x, res (B, D1, D2, C); out (B, D2, D1, C). w1 (C, H) and w2 (H, C) in
+// bf16; in fp32 their hi and lo planes, (2, H, C) and (2, C, H) (mlp.cuh).
 int d3dp_mlp_block_t_bf16(D3DP_MLP_ARGS, void* out, int B, int D1, int D2, int C, int H,
                           int gelu, float eps, void* stream) {
   return D3DP_MLP_CALL(d3dp::bf16, true, nullptr, B, D1, D2);

@@ -39,11 +39,13 @@
 //     block reaches every barrier: no block returns early;
 //   * the tile bodies are the level-4 kernels' own device functions with
 //     the same options, in the same order with the same roundings, so level
-//     5 computes what level 4 computes, bit for bit. In bf16 the GEMM phases
-//     run the standalone launches' walks (stage.cuh: ln_qkv, proj_ln2;
-//     mlp.cuh: the MLP): wgmma tiles with the weights streamed by TMA (the
-//     maps over each kind's depth stacks, read at depth d) and the outputs
-//     written by TMA or bulk stores, complete and fenced before the barrier.
+//     5 computes what level 4 computes, bit for bit. The GEMM phases run
+//     the standalone launches' walks (stage.cuh: ln_qkv, proj_ln2; mlp.cuh:
+//     the MLP): wgmma tiles with the weights streamed by TMA (the maps over
+//     each kind's depth stacks, read at depth d; in fp32 over their hi and
+//     lo TF32 planes, the walks' tf32x3) and the outputs written by TMA or
+//     bulk stores (fp32: plain stores), complete and fenced before the
+//     barrier.
 //     They are inlined: as functions of their own they ran slower a tile on
 //     the H100, their saved registers and operands in local memory beside an
 //     L1 the shared memory leaves small. The attend phase at F > 32 frames
@@ -51,8 +53,9 @@
 //     parts; at 32 or fewer (spatial), the level-4 launch's short tile walk,
 //     its ring of bulk copies as deep as the kernel's shared memory holds
 //     (four stages of a 17-token sequence's 52 KB at C = 512; the launch
-//     takes two a block, two blocks an SM). A row's arithmetic does not
-//     depend on which block or warp takes its tile;
+//     takes two a block, two blocks an SM). fp32 runs the launch's tf32x3
+//     tensor-core tile (`attend_f32_walk`, common.cuh) at both. A row's
+//     arithmetic does not depend on which block or warp takes its tile;
 //   * rows go in groups of G, chosen by the caller so that every GEMM phase
 //     has several waves of 64-row tiles on the SMs (`group_rows`): a group
 //     of one row gives each phase at most one tile a block, half the SMs
@@ -81,6 +84,9 @@ constexpr int kNoCooperativeLaunch = -1;
 constexpr int kNoOccupancy = -2;
 
 // One kind's depth-stacked weights, in the layouts of resident_block_stack.
+// fp32 takes the four matrices' hi and lo planes instead (mlp.cuh, "fp32:
+// tf32x3"): wqkv (D, 2, 3C, C), wp (D, 2, C, C), w1 (D, 2, H, C), w2 (D, 2,
+// C, H).
 template <typename T>
 struct KindWeights {
   const T* wqkv;      // (D, C, 3C)
@@ -90,7 +96,8 @@ struct KindWeights {
   const float* b1;    // (D, H)
   const T* w2;        // (D, H, C)
   const float* vec;   // (D, 6, C): bp, ln1s, ln1b, ln2s, ln2b, b2
-  // bf16: TMA maps over wqkv, wp (`encode_weight_map`), w1 and w2 (`encode_mlp_maps`)
+  // TMA maps over wqkv, wp (bf16 `encode_weight_map`, fp32
+  // `encode_plane_map`), w1 and w2 (`encode_mlp_maps`, `encode_mlp_plane_maps`)
   CUtensorMap twqkv, twp, tw1, tw2;
 };
 
@@ -105,13 +112,15 @@ struct ResidentArgs {
   T* o, *x2, *y2, *tbuf; // scratch for G rows: (G*F*J, C) each
   int B, F, J, C, H, D, heads, G;
   float scale, eps;
-  AttnLayout Ls, Lt;     // attention layouts for N = J and N = F
-  ShortLayout Ss, St;    // bf16: the short tile's, where N <= 32 (attend_short_ok)
+  AttnLayout Ls, Lt;     // bf16: attention layouts for N = J and N = F
+  ShortLayout Ss, St;    // the short tile's, where N <= 32 (attend_short_ok)
+  F32AttnLayout Fs, Ft;  // fp32: the tensor-core walk's (f32_attn_layout)
   AttnOpts ao;           // the attention's lab switches (no mask)
   int gelu;              // the MLP's activation, kGelu*
   MlpLayout<T> Lm;
   QkvLayout Lq;          // bf16: the stage walks' layouts
   ProjLayout Lp;
+  F32Layout Lf;          // fp32: the stage walks' layout (`f32_stage_layout`)
   CUtensorMap tq, tx2, ty2;  // bf16: TMA maps over the qkv, x2 and y2 scratch
 };
 
@@ -152,7 +161,7 @@ template <typename T, bool kWide>
 __device__ __forceinline__ void block_phases(const ResidentArgs<T>& a, const KindWeights<T>& w,
                                              int d, const T* h, int G, int D1, int N,
                                              const AttnLayout& L, const ShortLayout& S,
-                                             const float* lns,
+                                             const F32AttnLayout& FL, const float* lns,
                                              const float* lnb, T* dst, unsigned char* smem,
                                              cg::grid_group& grid, int p0, long long& t) {
   constexpr bool f32 = std::is_same<T, float>::value;
@@ -160,28 +169,25 @@ __device__ __forceinline__ void block_phases(const ResidentArgs<T>& a, const Kin
   const int R = G * D1, M = R * N;
   const float* vec = w.vec + (size_t)d * 6 * C;
   if constexpr (f32) {
-    for (int i = blockIdx.x; i < cdiv(M, kF32Rows); i += gridDim.x) {
-      ln_qkv_tile(h, w.wqkv + (size_t)d * C * C3, w.bqkv + (size_t)d * C3, vec + C, vec + 2 * C,
-                  a.qkv, M, C, a.heads, a.eps, smem, i);
-      __syncthreads();  // the next tile overwrites shared memory
-    }
+    const QkvArgsF32 q{h, a.qkv, w.bqkv + (size_t)d * C3, vec + C, vec + 2 * C, d, M, C, a.eps,
+                       a.heads};
+    ln_qkv_walk_f32<false>(q, &w.twqkv, a.Lf, smem, cdiv(M, kF32Tile));
   } else {
     const QkvArgs q{h, w.bqkv + (size_t)d * C3, vec + C, vec + 2 * C, d, M, C, a.eps, a.heads};
     ln_qkv_walk_bf16<false>(q, &w.twqkv, &a.tq, a.Lq, smem, cdiv(M, kQkvRows));
   }
   phase_end(grid, p0, t);
   const T* q = a.qkv;
-  if constexpr (f32) {
-    const int n_att = R * a.heads * cdiv(N, L.QB);
-    for (int i = blockIdx.x; i < n_att; i += gridDim.x) {
-      attend_tile_smem(q, q + C, q + 2 * C, C3, a.o, N, C, a.scale, L, a.ao, smem, i % R,
-                       (i / R) % a.heads, i / (R * a.heads));
-      __syncthreads();
-    }
-  } else if (attend_short_ok(N, 0)) {
+  if (attend_short_ok(N, 0)) {
     // the level-4 launch's short tile, its ring as deep as the kernel's
     // shared memory holds (S.stages)
-    attend_short_walk(S, ShortArgs{q, q + C, q + 2 * C, a.o, R, a.scale, a.ao}, smem);
+    attend_short_walk<T>(S, ShortArgsT<T>{q, q + C, q + 2 * C, a.o, R, a.scale, a.ao}, smem);
+  } else if constexpr (f32) {
+    // the launches' fp32 tensor-core walk (launch_attend)
+    if (FL.rb == 1)
+      attend_f32_walk<1>(q, q + C, q + 2 * C, 0, C3, a.o, R, N, C, a.heads, a.scale, FL, smem);
+    else
+      attend_f32_walk<2>(q, q + C, q + 2 * C, 0, C3, a.o, R, N, C, a.heads, a.scale, FL, smem);
   } else if (L.nkf == 4) {
     attend_mma_walk<4, kResidentFrags>(q, q + C, q + 2 * C, 0, C3, a.o, R, N, C, a.heads,
                                        a.scale, L, a.ao, smem);
@@ -194,11 +200,9 @@ __device__ __forceinline__ void block_phases(const ResidentArgs<T>& a, const Kin
   }
   phase_end(grid, p0 + 1, t);
   if constexpr (f32) {
-    for (int i = blockIdx.x; i < cdiv(M, kF32Rows); i += gridDim.x) {
-      proj_ln2_tile(a.o, h, w.wp + (size_t)d * C * C, vec, vec + 3 * C, vec + 4 * C, a.x2, a.y2,
-                    M, C, a.eps, smem, i);
-      __syncthreads();
-    }
+    const ProjArgsF32 p{a.o, h, a.x2, a.y2, vec, vec + 3 * C, vec + 4 * C, nullptr, 1, d, M, C,
+                        a.eps, true};
+    proj_ln2_walk_f32(p, &w.twp, a.Lf, smem, cdiv(M, kF32Tile));
   } else {
     const ProjArgs p{a.o, h, vec, vec + 3 * C, vec + 4 * C, nullptr, 1, d, M, C, a.eps, true,
                      C, nullptr};
@@ -227,7 +231,7 @@ __global__ void __launch_bounds__(kThreads) resident_kernel(const __grid_constan
     for (int d = 0; d < a.D; ++d) {
       // spatial: (G*F, J, C) in, (G, J, F, C) out to the relayout buffer
       block_phases<T, kWide>(a, a.sp, d, d == 0 ? a.x + r0 * row : stream, G, a.F, a.J, a.Ls,
-                             a.Ss, a.shared, a.shared + a.C, a.tbuf, smem, grid, 0, t);
+                             a.Ss, a.Fs, a.shared, a.shared + a.C, a.tbuf, smem, grid, 0, t);
       if (d == 0) {
         // + tpos on the rounded MLP output, rounded again: the level-4
         // flow's add of two compute-type tensors, 16 bytes a thread
@@ -247,8 +251,8 @@ __global__ void __launch_bounds__(kThreads) resident_kernel(const __grid_constan
         phase_end(grid, 4, t);
       }
       // temporal: (G*J, F, C) in, (G, F, J, C) out to the stream
-      block_phases<T, kWide>(a, a.tp, d, a.tbuf, G, a.J, a.F, a.Lt, a.St, a.shared + 2 * a.C,
-                             a.shared + 3 * a.C, stream, smem, grid, 5, t);
+      block_phases<T, kWide>(a, a.tp, d, a.tbuf, G, a.J, a.F, a.Lt, a.St, a.Ft,
+                             a.shared + 2 * a.C, a.shared + 3 * a.C, stream, smem, grid, 5, t);
     }
   }
 }
@@ -264,22 +268,21 @@ int resident_grid(Kernel kernel, int C, int H, int F, int J, int* blocks, size_t
     return (int)e;
   if (!coop) return kNoCooperativeLaunch;
   constexpr bool f32 = std::is_same<T, float>::value;
-  // the attend phases: a tile a block (fp32), the short tile's ring (at
-  // least one stage; it takes as many as the largest phase leaves room for)
-  // or the double-buffered tensor-core walk
+  // the attend phases: the short tile's ring (at least one stage; it takes
+  // as many as the largest phase leaves room for) or the tensor-core walk
+  // (bf16: double-buffered tiles; fp32: the queries and two key groups)
   const int heads = C / kHeadDim;
   auto attend = [&](int N) -> size_t {
-    if (f32) return attn_layout_f32(N).total;
     ShortLayout S;
     if (attend_short_ok(N, 0)) {
-      short_layout(S, kShortPacked, N, C, heads, 3 * C, 0, (size_t)1 << 30, 1);
+      short_layout<T>(S, kShortPacked, N, C, heads, 3 * C, 0, (size_t)1 << 30, 1);
       return S.total;
     }
-    return 2 * attn_layout_mma(N, 0).total;
+    return f32 ? f32_attn_layout(N).total : 2 * attn_layout_mma(N, 0).total;
   };
-  *smem = std::max({f32 ? ln_qkv_smem(C) : QkvLayout(C).total,
-                    f32 ? proj_ln2_smem(C) : ProjLayout(C).total, MlpLayout<T>(C, H).total,
-                    attend(J), attend(F)});
+  *smem = std::max({f32 ? f32_stage_layout(C).total : QkvLayout(C).total,
+                    f32 ? f32_stage_layout(C).total : ProjLayout(C).total,
+                    MlpLayout<T>(C, H).total, attend(J), attend(F)});
   if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)*smem)) != cudaSuccess)
     return (int)e;
@@ -325,14 +328,23 @@ int resident(const void* const* ptrs, int B, int F, int J, int C, int H, int D, 
   a.tpos = (const T*)ptrs[1];
   a.sp = kind(2);
   a.tp = kind(9);
-  if constexpr (!f32) {
-    for (int i : {2, 9}) {
-      KindWeights<T>& k = i == 2 ? a.sp : a.tp;
-      int e = encode_weight_map(&k.twqkv, ptrs[i], D, C, 3 * C, kQkvSlabRows);
+  for (int i : {2, 9}) {
+    KindWeights<T>& k = i == 2 ? a.sp : a.tp;
+    int e = 0;
+    if constexpr (f32) {
+      e = encode_plane_map(&k.twqkv, ptrs[i], 2 * D, 3 * C, C);
+      if (!e) e = encode_plane_map(&k.twp, ptrs[i + 2], 2 * D, C, C);
+      if (!e) e = encode_mlp_plane_maps(&k.tw1, &k.tw2, ptrs[i + 3], ptrs[i + 5], D, C, H);
+    } else {
+      e = encode_weight_map(&k.twqkv, ptrs[i], D, C, 3 * C, kQkvSlabRows);
       if (!e) e = encode_weight_map(&k.twp, ptrs[i + 2], D, C, C, kProjSlabRows);
       if (!e) e = encode_mlp_maps(&k.tw1, &k.tw2, ptrs[i + 3], ptrs[i + 5], D, C, H);
-      if (e) return e;
     }
+    if (e) return e;
+  }
+  if constexpr (f32) {
+    a.Lf = f32_stage_layout(C);
+  } else {
     a.Lq = QkvLayout(C);
     a.Lp = ProjLayout(C);
     const int rows = G * F * J;  // the scratch's token rows
@@ -352,20 +364,20 @@ int resident(const void* const* ptrs, int B, int F, int J, int C, int H, int D, 
   a.scale = scale;
   a.eps = eps;
   if constexpr (f32) {
-    a.Ls = attn_layout_f32(J);
-    a.Lt = attn_layout_f32(F);
+    a.Fs = f32_attn_layout(J);
+    a.Ft = f32_attn_layout(F);
   } else {
     a.Ls = attn_layout_mma(J, 0);
     a.Lt = attn_layout_mma(F, 0);
-    // the short tile's ring in the kernel's shared memory (resident_grid
-    // sized it for one stage at least)
-    for (int i : {0, 1}) {
-      ShortLayout& S = i == 0 ? a.Ss : a.St;
-      const int N = i == 0 ? J : F;
-      if (attend_short_ok(N, 0) &&
-          !short_layout(S, kShortPacked, N, C, heads, 3 * C, 0, smem, kShortMaxStages))
-        return (int)cudaErrorInvalidValue;
-    }
+  }
+  // the short tile's ring in the kernel's shared memory (resident_grid
+  // sized it for one stage at least)
+  for (int i : {0, 1}) {
+    ShortLayout& S = i == 0 ? a.Ss : a.St;
+    const int N = i == 0 ? J : F;
+    if (attend_short_ok(N, 0) &&
+        !short_layout<T>(S, kShortPacked, N, C, heads, 3 * C, 0, smem, kShortMaxStages))
+      return (int)cudaErrorInvalidValue;
   }
   a.ao = attn_opts(opts, 0);
   a.gelu = gelu;

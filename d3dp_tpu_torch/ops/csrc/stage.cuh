@@ -53,8 +53,12 @@
 // 4-slab ring of 16 KB; proj_ln2 64 KB of o (then x2), 64 KB of x (then y2),
 // a 3-slab ring of 32 KB.
 //
-// fp32 (parity checks): `ln_qkv_tile` and `proj_ln2_tile` (common.cuh), 16
-// rows a block on FMAs.
+// fp32 (the default dtype of every entry point; `ln_qkv_walk_f32`,
+// `proj_ln2_walk_f32`, below): the same walks in tf32x3 (mlp.cuh), 64 rows
+// a tile. Three TF32 passes make fp32's bound 3 x the products at 495
+// TFLOP/s: ln_qkv 1.58 ms, proj_ln2 0.53 ms at the eval shape; each tile
+// streams the weights' hi and lo planes (6 MiB of Wqkv, 2 MiB of Wp) from
+// L2, 48 FLOPs a byte of that stream.
 #pragma once
 
 #include "mlp.cuh"
@@ -527,6 +531,279 @@ __device__ __forceinline__ void proj_ln2_walk_bf16(const ProjArgs& a, const CUte
   ring.stop();  // the caller may reuse the memory
 }
 
+// -------------------------------------------------------------------- fp32
+// The fp32 walks: the bf16 walks' skeleton in tf32x3 (mlp.cuh, "fp32:
+// tf32x3"), 64 token rows a tile, both warpgroups on the tile's rows, each
+// with half of the output columns. The A tile (LN1(x), or o) is fp32 in
+// shared memory; the weights' hi and lo planes stream through a ring of
+// three 32 KB stages. Outputs go from the fragments to device memory as
+// 8-byte stores (a warp's quad covers 32 contiguous bytes of a row).
+//   * ln_qkv: LN1 in place on the loaded x rows (`warp_layernorm`, the FMA
+//     tile's arithmetic: warp w takes rows 8w..8w + 7); 3C output columns
+//     in chunks of 128, warpgroup w columns 64w.. of each, a stage per 32 k.
+//     A 64-row box of the planes is one packed box of qkv (columns 64b..):
+//     K8 loads it from the head-major (h, 3d, C) planes (head b % h, rows
+//     64 (b / h)..) to the stage place K1 loads it from the packed (3C, C),
+//     so the two compute the same bits.
+//   * proj_ln2: warpgroup w owns output columns w C / 2.. (C / 128 blocks
+//     of 64) over all of K = C, a stage per 32 k and block; the epilogue is
+//     the bf16 walk's (+ bp, DropPath, + x read from device memory, x2, LN2
+//     across both warpgroups, y2).
+// The next tile's rows load once both warpgroups' fragments have read the
+// current ones (under the epilogue). Shared memory at C = 512: ring 96 KB,
+// A 128 KB, row sums 1 KB.
+constexpr int kF32StageRing = 3;
+
+struct QkvArgsF32 {
+  const float* x;      // (M, C)
+  float* qkv;          // packed (M, 3 heads d); head-major (h, M, 3d)
+  const float* bqkv;   // packed (3 heads d,); head-major (h, 3d)
+  const float* ln1s;   // (C,)
+  const float* ln1b;
+  int depth;           // the depth the packed planes' map is read at
+  int M, C;
+  float eps;
+  int heads;
+};
+
+inline F32Layout f32_stage_layout(int C) { return F32Layout(kF32StageRing, C, 0); }
+
+// Walk the 64-row tiles blockIdx.x, + gridDim.x, ... below n_tiles, as
+// ln_qkv_walk_bf16 (needs C % 128 == 0, C <= 512, 3 * heads * 64 % 128 ==
+// 0). tw: the TMA map over the Wqkv planes, packed (2D, 3 heads d, C) or
+// head-major (2h, 3d, C). On return qkv is written.
+template <bool kHeadMajor>
+__device__ __forceinline__ void ln_qkv_walk_f32(const QkvArgsF32& a, const CUtensorMap* tw,
+                                                const F32Layout& L, unsigned char* smem_raw,
+                                                int n_tiles) {
+  const int first = blockIdx.x;
+  if (first >= n_tiles) return;
+  const int C = a.C, M = a.M, heads = a.heads;
+  const int n3 = 3 * heads * kHeadDim, nchunk = n3 / kF32Chunk;
+  const int per_chunk = C / kF32K, per_tile = nchunk * per_chunk;
+  const int mine = (n_tiles - 1 - first) / gridDim.x + 1;
+
+  unsigned char* base = mlp_base(smem_raw);
+  float* as = reinterpret_cast<float*>(base + L.a);
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32, lane = tid % 32;
+  const int r0 = 16 * (tid % 128 / 32) + lane / 4;  // this thread's rows r0, r0 + 8
+  const int cq = 2 * (lane % 4);                    // and column pair in each 8
+
+  // stage l: chunk j's two boxes (packed boxes 2j, 2j + 1, one a
+  // warpgroup), k 32 s..
+  auto issue = [&](uint32_t l, uint32_t dst, uint32_t bar) {
+    const int q = (int)(l % per_tile), j = q / per_chunk, s = q % per_chunk;
+    auto box = [&](int b) {
+      return kHeadMajor ? make_int2(kHeadDim * (b / heads), 2 * (b % heads))
+                        : make_int2(64 * b, 2 * a.depth);
+    };
+    f32_issue_stage(dst, tw, bar, kF32K * s, box(2 * j), box(2 * j + 1));
+  };
+  WeightRing<kF32StageRing, kF32Stage> ring;
+  ring.start(base + L.bars, base + L.ring, (uint32_t)mine * per_tile, issue);
+  f32_load_rows(as, a.x, first * kF32Tile, M, C);
+
+  uint32_t next = 0;  // the next slab to consume
+  for (int i = 0; i < mine; ++i) {
+    const int tile = first + i * gridDim.x, row0 = tile * kF32Tile;
+    cp_async_wait<0>();
+    __syncthreads();  // the tile's rows landed (zeros past M)
+    for (int r = 8 * warp; r < 8 * warp + 8; ++r) {
+      if (row0 + r >= M) continue;
+      float v[32];
+#pragma unroll
+      for (int k = 0; k < 32; ++k)
+        if (k < C / 32) v[k] = as[f32_at(r, 32 * k + lane, C)];
+      warp_layernorm(v, C, a.ln1s, a.ln1b, a.eps, lane);
+#pragma unroll
+      for (int k = 0; k < 32; ++k)
+        if (k < C / 32) as[f32_at(r, 32 * k + lane, C)] = v[k];
+    }
+    __syncthreads();  // the normalised rows
+
+    const int ta = row0 + r0, tb = ta + 8;
+    for (int j = 0; j < nchunk; ++j) {
+      float acc[32];
+#pragma unroll
+      for (int q = 0; q < 32; ++q) acc[q] = 0.f;
+      for (int s = 0; s < per_chunk; ++s, ++next) {
+        ring.acquire(next);
+        tf32x3_stage(acc, as, C, kF32K * s, ring.slab(next) + wg * kF32Box);
+        ring.release_upto(next + 1, issue);
+      }
+      if (j == nchunk - 1 && i + 1 < mine) {
+        __syncthreads();  // both warpgroups' fragments have read the rows
+        f32_load_rows(as, a.x, (tile + gridDim.x) * kF32Tile, M, C);
+      }
+      // + bqkv, out: packed column c is box c / 64's column c % 64
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int c = kF32Chunk * j + 64 * wg + 8 * jj + cq;
+        const int b = c / 64, cc = c % 64;
+        const float* bias = a.bqkv + c;
+        float* qa = a.qkv + (size_t)ta * n3 + c;
+        float* qb = a.qkv + (size_t)tb * n3 + c;
+        if constexpr (kHeadMajor) {
+          constexpr int d3 = 3 * kHeadDim;
+          const int h = b % heads, third = b / heads;
+          bias = a.bqkv + h * d3 + third * kHeadDim + cc;
+          qa = a.qkv + ((size_t)h * M + ta) * d3 + third * kHeadDim + cc;
+          qb = qa + 8 * d3;
+        }
+        const float2 bb = *reinterpret_cast<const float2*>(bias);
+        const float* f = acc + 4 * jj;
+        if (ta < M) *reinterpret_cast<float2*>(qa) = make_float2(f[0] + bb.x, f[1] + bb.y);
+        if (tb < M) *reinterpret_cast<float2*>(qb) = make_float2(f[2] + bb.x, f[3] + bb.y);
+      }
+    }
+  }
+  ring.stop();  // the caller may reuse the memory
+}
+
+struct ProjArgsF32 {
+  const float* o;      // (M, C) the attention output
+  const float* x;      // (M, C) the residual
+  float* x2;           // (M, C)
+  float* y2;           // (M, C)
+  const float* bp;     // (C,)
+  const float* ln2s;   // (C,)
+  const float* ln2b;
+  const float* dp;     // nullptr, or the branch scale of row t at dp[t / dp_div]
+  int dp_div;
+  int depth;           // the depth the Wp planes' map is read at
+  int M, C;
+  float eps;
+  bool with_y2;
+};
+
+// Walk the 64-row tiles blockIdx.x, + gridDim.x, ... below n_tiles, as
+// proj_ln2_walk_bf16 (needs C % 128 == 0, C <= 512). tw: the TMA map over
+// the Wp planes (2D, C, C). On return x2 (and y2) are written.
+__device__ __forceinline__ void proj_ln2_walk_f32(const ProjArgsF32& a, const CUtensorMap* tw,
+                                                  const F32Layout& L, unsigned char* smem_raw,
+                                                  int n_tiles) {
+  const int first = blockIdx.x;
+  if (first >= n_tiles) return;
+  const int C = a.C, M = a.M;
+  const int nq = C / 128;  // 64-column output blocks a warpgroup
+  const int per_tile = (C / kF32K) * nq;
+  const int mine = (n_tiles - 1 - first) / gridDim.x + 1;
+
+  unsigned char* base = mlp_base(smem_raw);
+  float* as = reinterpret_cast<float*>(base + L.a);
+  float* stats = reinterpret_cast<float*>(base + L.stats);
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int r0 = 16 * (tid % 128 / 32) + lane / 4;  // this thread's rows r0, r0 + 8
+  const int cq = 2 * (lane % 4);                    // and column pair in each 8
+
+  // stage l: k 32 (s / nq).., block q = s % nq: rows 64 q.. (warpgroup w:
+  // + C / 2 w)
+  auto issue = [&](uint32_t l, uint32_t dst, uint32_t bar) {
+    const int s = (int)(l % per_tile), kb = s / nq, qb = s % nq;
+    f32_issue_stage(dst, tw, bar, kF32K * kb, make_int2(64 * qb, 2 * a.depth),
+                    make_int2(C / 2 + 64 * qb, 2 * a.depth));
+  };
+  WeightRing<kF32StageRing, kF32Stage> ring;
+  ring.start(base + L.bars, base + L.ring, (uint32_t)mine * per_tile, issue);
+  f32_load_rows(as, a.o, first * kF32Tile, M, C);
+
+  uint32_t next = 0;
+  for (int i = 0; i < mine; ++i) {
+    const int tile = first + i * gridDim.x, row0 = tile * kF32Tile;
+    float acc[128];
+#pragma unroll
+    for (int q = 0; q < 128; ++q) acc[q] = 0.f;
+    cp_async_wait<0>();
+    __syncthreads();  // o landed for every thread
+
+    for (int kb = 0; kb < C / kF32K; ++kb)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q < nq) {
+          ring.acquire(next);
+          tf32x3_stage(*reinterpret_cast<float(*)[32]>(acc + 32 * q), as, C, kF32K * kb,
+                       ring.slab(next) + wg * kF32Box);
+          ring.release_upto(++next, issue);
+        }
+    if (i + 1 < mine) {
+      __syncthreads();  // both warpgroups' fragments have read o
+      f32_load_rows(as, a.o, (tile + gridDim.x) * kF32Tile, M, C);
+    }
+
+    // epilogue: + bp, DropPath, + x, x2; LN2 over the C columns of a row
+    // (this warpgroup holds C / 2 of them); y2
+    const int ta = row0 + r0, tb = ta + 8;
+    const bool va = ta < M, vb = tb < M;
+    const float ka = a.dp && va ? a.dp[ta / a.dp_div] : 1.f;
+    const float kb = a.dp && vb ? a.dp[tb / a.dp_div] : 1.f;
+    float sa = 0.f, sb = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q < nq) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          float* d = acc + 32 * q + 4 * jj;
+          const int c = wg * (C / 2) + 64 * q + 8 * jj + cq;
+          const float2 bb = *reinterpret_cast<const float2*>(a.bp + c);
+          const float2 xa = va ? *reinterpret_cast<const float2*>(a.x + (size_t)ta * C + c)
+                               : make_float2(0.f, 0.f);
+          const float2 xb = vb ? *reinterpret_cast<const float2*>(a.x + (size_t)tb * C + c)
+                               : make_float2(0.f, 0.f);
+          // x + (proj + bp), or x + dp * (proj + bp) rounded apart (no FMA)
+          if (a.dp) {
+            d[0] = xa.x + __fmul_rn(d[0] + bb.x, ka);
+            d[1] = xa.y + __fmul_rn(d[1] + bb.y, ka);
+            d[2] = xb.x + __fmul_rn(d[2] + bb.x, kb);
+            d[3] = xb.y + __fmul_rn(d[3] + bb.y, kb);
+          } else {
+            d[0] = xa.x + (d[0] + bb.x);
+            d[1] = xa.y + (d[1] + bb.y);
+            d[2] = xb.x + (d[2] + bb.x);
+            d[3] = xb.y + (d[3] + bb.y);
+          }
+          sa += d[0] + d[1];
+          sb += d[2] + d[3];
+          if (va) *reinterpret_cast<float2*>(a.x2 + (size_t)ta * C + c) = make_float2(d[0], d[1]);
+          if (vb) *reinterpret_cast<float2*>(a.x2 + (size_t)tb * C + c) = make_float2(d[2], d[3]);
+        }
+      }
+    if (!a.with_y2) continue;
+    wg_row_sums(sa, sb, stats, wg, r0, lane);
+    const float mua = sa / C, mub = sb / C;
+    sa = sb = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q < nq) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float* d = acc + 32 * q + 4 * jj;
+          sa += (d[0] - mua) * (d[0] - mua) + (d[1] - mua) * (d[1] - mua);
+          sb += (d[2] - mub) * (d[2] - mub) + (d[3] - mub) * (d[3] - mub);
+        }
+      }
+    wg_row_sums(sa, sb, stats + 2 * kF32Tile, wg, r0, lane);
+    const float rsa = rsqrtf(sa / C + a.eps), rsb = rsqrtf(sb / C + a.eps);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q < nq) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float* d = acc + 32 * q + 4 * jj;
+          const int c = wg * (C / 2) + 64 * q + 8 * jj + cq;
+          const float2 s = *reinterpret_cast<const float2*>(a.ln2s + c);
+          const float2 b = *reinterpret_cast<const float2*>(a.ln2b + c);
+          if (va)
+            *reinterpret_cast<float2*>(a.y2 + (size_t)ta * C + c) =
+                make_float2((d[0] - mua) * rsa * s.x + b.x, (d[1] - mua) * rsa * s.y + b.y);
+          if (vb)
+            *reinterpret_cast<float2*>(a.y2 + (size_t)tb * C + c) =
+                make_float2((d[2] - mub) * rsb * s.x + b.x, (d[3] - mub) * rsb * s.y + b.y);
+        }
+      }
+  }
+  ring.stop();  // the caller may reuse the memory
+}
+
 // --------------------------------------------------------------- launches
 struct QkvParams {
   CUtensorMap tw, tq;  // Wqkv, qkv
@@ -554,7 +831,35 @@ __global__ void __launch_bounds__(kThreads) proj_ln2_walk_kernel(const __grid_co
   proj_ln2_walk_bf16<kWide, kPartial>(p.a, &p.tw, &p.tx2, &p.ty2, p.L, smem, p.n_tiles);
 }
 
-// fp32: one row block a block (common.cuh)
+struct QkvParamsF32 {
+  CUtensorMap tw;  // the Wqkv planes
+  QkvArgsF32 a;
+  F32Layout L;
+  int n_tiles;
+};
+
+struct ProjParamsF32 {
+  CUtensorMap tw;  // the Wp planes
+  ProjArgsF32 a;
+  F32Layout L;
+  int n_tiles;
+};
+
+template <bool kHeadMajor>
+__global__ void __launch_bounds__(kThreads)
+ln_qkv_walk_f32_kernel(const __grid_constant__ QkvParamsF32 p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  ln_qkv_walk_f32<kHeadMajor>(p.a, &p.tw, p.L, smem, p.n_tiles);
+}
+
+__global__ void __launch_bounds__(kThreads)
+proj_ln2_walk_f32_kernel(const __grid_constant__ ProjParamsF32 p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  proj_ln2_walk_f32(p.a, &p.tw, p.L, smem, p.n_tiles);
+}
+
+// the tensor-parallel partial forms' fp32 FMA tiles (common.cuh), a row
+// block a block
 template <bool kHeadMajor>
 __global__ void __launch_bounds__(kThreads)
 ln_qkv_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
@@ -566,42 +871,31 @@ ln_qkv_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
 }
 
 __global__ void __launch_bounds__(kThreads)
-proj_ln2_kernel(const float* __restrict__ o, const float* __restrict__ x,
-                const float* __restrict__ wp, const float* __restrict__ bp,
-                const float* __restrict__ ln2s, const float* __restrict__ ln2b,
-                float* __restrict__ x2, float* __restrict__ y2, int M, int C, float eps,
-                const float* __restrict__ dp, int dp_div, bool with_y2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  proj_ln2_tile(o, x, wp, bp, ln2s, ln2b, x2, y2, M, C, eps, smem, blockIdx.x, dp, dp_div,
-                with_y2);
-}
-
-__global__ void __launch_bounds__(kThreads)
 proj_partial_kernel(const float* __restrict__ o, const float* __restrict__ wp,
                     float* __restrict__ part, int M, int K, int C) {
   extern __shared__ __align__(128) unsigned char smem[];
   proj_partial_tile(o, wp, part, M, K, C, smem, blockIdx.x);
 }
 
-// The shapes the stage's GEMM steps take in T (the bf16 walks: 128-column
-// output blocks, C / 2 a warpgroup; head_dim 64 in both).
+// The shapes the stage's GEMM steps take, the same in both types (the
+// walks: C / 2 output columns a warpgroup in 64-column blocks; head_dim 64).
 template <typename T>
 inline bool stage_shape_ok(int C) {
-  if (std::is_same<T, bf16>::value) return C % 128 == 0 && C <= 512 && C > 0;
-  return C % 64 == 0 && C <= 1024 && C > 0;
+  return C % 128 == 0 && C <= 512 && C > 0;
 }
 
 // qkv = LN1(x) @ Wqkv + bqkv over M token rows, `heads` heads (C /
 // kHeadDim, or a tensor-parallel rank's share: Wqkv (C, 3 * heads * 64),
 // packed only) (kHeadMajor: Wqkv (h, C, 3d), bqkv (h, 3d), qkv (h, M, 3d)).
-// Returns 0, a cudaError_t or kNoTensorMap.
+// fp32 takes Wqkv's hi and lo planes instead: packed (2, 3 * heads * 64, C),
+// head-major (h, 2, 3d, C). Returns 0, a cudaError_t or kNoTensorMap.
 template <typename T, bool kHeadMajor>
 int launch_ln_qkv(const T* x, const T* wqkv, const float* bqkv, const float* ln1s,
                   const float* ln1b, T* qkv, int M, int C, int heads, float eps,
                   cudaStream_t stream) {
+  const int d3 = 3 * kHeadDim, n3 = heads * d3;
   if constexpr (std::is_same<T, bf16>::value) {
     QkvParams p{};
-    const int d3 = 3 * kHeadDim, n3 = heads * d3;
     const int e = kHeadMajor ? encode_weight_map(&p.tw, wqkv, heads, C, d3, kQkvSlabRows)
                              : encode_weight_map(&p.tw, wqkv, 1, C, n3, kQkvSlabRows);
     if (e) return e;
@@ -617,19 +911,40 @@ int launch_ln_qkv(const T* x, const T* wqkv, const float* bqkv, const float* ln1
     if (ce != cudaSuccess) return (int)ce;
     kernel<<<blocks, kThreads, p.L.total, stream>>>(p);
   } else {
-    const size_t smem = ln_qkv_smem(C);
-    const cudaError_t ce = cudaFuncSetAttribute(
-        ln_qkv_kernel<kHeadMajor>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    QkvParamsF32 p{};
+    const int e = kHeadMajor ? encode_plane_map(&p.tw, wqkv, 2 * heads, d3, C)
+                             : encode_plane_map(&p.tw, wqkv, 2, n3, C);
+    if (e) return e;
+    p.a = QkvArgsF32{x, qkv, bqkv, ln1s, ln1b, 0, M, C, eps, heads};
+    p.L = f32_stage_layout(C);
+    p.n_tiles = cdiv(M, kF32Tile);
+    auto kernel = &ln_qkv_walk_f32_kernel<kHeadMajor>;
+    int blocks = 0;
+    const cudaError_t ce = persistent_grid(kernel, (int)p.L.total, p.n_tiles, &blocks);
     if (ce != cudaSuccess) return (int)ce;
-    ln_qkv_kernel<kHeadMajor><<<cdiv(M, kF32Rows), kThreads, smem, stream>>>(
-        x, wqkv, bqkv, ln1s, ln1b, qkv, M, C, heads, eps);
+    kernel<<<blocks, kThreads, p.L.total, stream>>>(p);
   }
   return (int)cudaGetLastError();
 }
 
+// The tensor-parallel partial form's fp32 qkv step (the FMA tile, on the
+// rank's Wqkv as it is: (C, 3 * heads * 64), head-major (heads, C, 3d)).
+template <bool kHeadMajor>
+int launch_ln_qkv_fma(const float* x, const float* wqkv, const float* bqkv, const float* ln1s,
+                      const float* ln1b, float* qkv, int M, int C, int heads, float eps,
+                      cudaStream_t stream) {
+  const size_t smem = ln_qkv_smem(C);
+  const cudaError_t ce = cudaFuncSetAttribute(
+      ln_qkv_kernel<kHeadMajor>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (ce != cudaSuccess) return (int)ce;
+  ln_qkv_kernel<kHeadMajor><<<cdiv(M, kF32Rows), kThreads, smem, stream>>>(
+      x, wqkv, bqkv, ln1s, ln1b, qkv, M, C, heads, eps);
+  return (int)cudaGetLastError();
+}
+
 // x2 = x + (o @ Wp + bp) (DropPath: the branch scaled by dp[row / dp_div]),
-// y2 = LN2 of it unless !with_y2, over M token rows. Returns 0, a
-// cudaError_t or kNoTensorMap.
+// y2 = LN2 of it unless !with_y2, over M token rows; fp32 takes Wp's hi and
+// lo planes (2, C, C) instead. Returns 0, a cudaError_t or kNoTensorMap.
 template <typename T>
 int launch_proj_ln2(const T* o, const T* x, const T* wp, const float* bp, const float* ln2s,
                     const float* ln2b, T* x2, T* y2, int M, int C, float eps,
@@ -650,12 +965,17 @@ int launch_proj_ln2(const T* o, const T* x, const T* wp, const float* bp, const 
     if (ce != cudaSuccess) return (int)ce;
     kernel<<<blocks, kThreads, p.L.total, stream>>>(p);
   } else {
-    const size_t smem = proj_ln2_smem(C);
-    const cudaError_t ce = cudaFuncSetAttribute(
-        proj_ln2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    ProjParamsF32 p{};
+    const int e = encode_plane_map(&p.tw, wp, 2, C, C);
+    if (e) return e;
+    p.a = ProjArgsF32{o, x, x2, y2, bp, ln2s, ln2b, dp, dp_div, 0, M, C, eps, with_y2};
+    p.L = f32_stage_layout(C);
+    p.n_tiles = cdiv(M, kF32Tile);
+    int blocks = 0;
+    const cudaError_t ce =
+        persistent_grid(proj_ln2_walk_f32_kernel, (int)p.L.total, p.n_tiles, &blocks);
     if (ce != cudaSuccess) return (int)ce;
-    proj_ln2_kernel<<<cdiv(M, kF32Rows), kThreads, smem, stream>>>(
-        o, x, wp, bp, ln2s, ln2b, x2, y2, M, C, eps, dp, dp_div, with_y2);
+    proj_ln2_walk_f32_kernel<<<blocks, kThreads, p.L.total, stream>>>(p);
   }
   return (int)cudaGetLastError();
 }

@@ -38,6 +38,10 @@ derivative in fp32 with the exact erf -- the exact GELU's whatever
 `D3DP_MLP_VARIANT` the forward ran, as in JAX. The DropPath scale gets no
 gradient.
 
+In fp32 the kernels multiply in three TF32 passes from w1's and w2's hi and
+lo planes (`ops.tf32`): those passed as `planes` (the model's weight cache
+makes them once per weight version), else made at the call.
+
 On a CUDA tensor each launches its hand-written kernel (both forms of one
 kernel in `csrc/mlp_block_t.cu`); on a CPU tensor it runs its `*_plain`
 version. There is no fallback between the two.
@@ -50,7 +54,7 @@ import os
 import torch
 import torch.nn.functional as F
 
-from d3dp_tpu_torch.ops import _build
+from d3dp_tpu_torch.ops import _build, tf32
 from d3dp_tpu_torch.ops.common import layer_norm_rows, matmul_f32acc as _mm, matmul_f32out
 from d3dp_tpu_torch.ops.norm import ln_bwd_rows
 
@@ -146,20 +150,21 @@ def mlp_block_dp_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps, gelu=GELU_ER
 
 def check_shape(what, C, H, dtype):
     """Raise unless the kernels take C channels and H hidden units in dtype:
-    bf16 (the wgmma tile: 128-column output blocks, C / 2 a warpgroup, and
-    128-column hidden chunks) C % 128 == 0, C <= 512, H % 128 == 0; fp32
-    C % 64 == 0, C <= 1024, H % 64 == 0."""
-    step, c_max = (128, 512) if dtype == torch.bfloat16 else (64, 1024)
-    if C % step or C > c_max or H % step or H < step:
-        raise ValueError(f"{what}: needs C % {step} == 0, C <= {c_max} and "
-                         f"H % {step} == 0 in {dtype} (C={C}, H={H})")
+    the wgmma walks (128-column output blocks, C / 2 a warpgroup, and
+    128-column hidden chunks) take C % 128 == 0, C <= 512, H % 128 == 0 in
+    bf16 and fp32."""
+    if C % 128 or C > 512 or H % 128 or H < 128:
+        raise ValueError(f"{what}: needs C % 128 == 0, C <= 512 and H % 128 == 0 in {dtype} "
+                         f"(C={C}, H={H})")
 
 
 def _launch(what, fns, sigs, x, res, w1, b1, w2, b2, ln_s, ln_b, eps, out_shape, dims, gelu,
-            dp=None, dp_shape=None):
+            dp=None, dp_shape=None, planes=None):
     """Check the operands of either form and launch its kernel; `dims` are
     the integer shape arguments the C entry point takes before C and H;
-    gelu: a GELU_* activation; dp: the DropPath form's scales, of dp_shape."""
+    gelu: a GELU_* activation; dp: the DropPath form's scales, of dp_shape.
+    fp32 runs on (w1, w2)'s TF32 planes: `planes`, else made here
+    (`ops.tf32.operands`)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     C = x.shape[-1]
@@ -177,6 +182,8 @@ def _launch(what, fns, sigs, x, res, w1, b1, w2, b2, ln_s, ln_b, eps, out_shape,
             (ln_s, "ln_s", f32, (C,)), (ln_b, "ln_b", f32, (C,))) + (
                 ((dp, "dp", f32, dp_shape),) if dp is not None else ()):
         _build.check_operand(t, name, dtype, shape, dev)
+    if dt == f32:
+        w1, w2 = tf32.operands((w1, w2), ("w1", "w2"), dev, planes)
     out = torch.empty(out_shape, dtype=dt, device=dev)
     lib = _build.load("mlp_block_t", {fn: sig for fns_, sig in sigs for fn in fns_.values()})
     ptrs = [t.data_ptr() for t in (x, res, w1, b1, w2, b2, ln_s, ln_b)]
@@ -195,8 +202,9 @@ _SIGS = ((_FN_T, _SIG_T), (_FN_ROWS, _SIG_ROWS), (_FN_T_DP, _SIG_T_DP),
          (_FN_ROWS_DP, _SIG_ROWS_DP), (_FN_PART, _SIG_PART))
 
 
-def mlp_block_t(x, res, w1, b1, w2, b2, ln_s, ln_b, eps):
-    """LN(res + MLP(x)) written transposed; see the module docstring."""
+def mlp_block_t(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, planes=None):
+    """LN(res + MLP(x)) written transposed; see the module docstring.
+    planes: fp32's (w1, w2) TF32 planes, or None."""
     gelu = gelu_mode(x.dtype)
     if x.device.type == "cpu":
         return mlp_block_t_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, gelu=gelu)
@@ -204,12 +212,12 @@ def mlp_block_t(x, res, w1, b1, w2, b2, ln_s, ln_b, eps):
         raise ValueError(f"x must be (B, D1, D2, C), got {tuple(x.shape)}")
     B, D1, D2, C = x.shape
     out = _launch("mlp_block_t", _FN_T, _SIGS, x, res, w1, b1, w2, b2, ln_s, ln_b, eps,
-                  (B, D2, D1, C), (B, D1, D2), gelu)
+                  (B, D2, D1, C), (B, D1, D2), gelu, planes=planes)
     mlp_block_t.launches += 1
     return out
 
 
-def mlp_block_t_dp(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps):
+def mlp_block_t_dp(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps, planes=None):
     """`mlp_block_t` with the branch scaled by dp (B, D1) fp32."""
     gelu = gelu_mode(x.dtype)
     if x.device.type == "cpu":
@@ -218,25 +226,26 @@ def mlp_block_t_dp(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps):
         raise ValueError(f"x must be (B, D1, D2, C), got {tuple(x.shape)}")
     B, D1, D2, C = x.shape
     out = _launch("mlp_block_t_dp", _FN_T_DP, _SIGS, x, res, w1, b1, w2, b2, ln_s, ln_b, eps,
-                  (B, D2, D1, C), (B, D1, D2), gelu, dp, (B, D1))
+                  (B, D2, D1, C), (B, D1, D2), gelu, dp, (B, D1), planes)
     mlp_block_t_dp.launches += 1
     return out
 
 
-def mlp_block(x, res, w1, b1, w2, b2, ln_s, ln_b, eps):
-    """LN(res + MLP(x)) on (R, C) rows; see the module docstring."""
+def mlp_block(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, planes=None):
+    """LN(res + MLP(x)) on (R, C) rows; see the module docstring. planes:
+    fp32's (w1, w2) TF32 planes, or None."""
     gelu = gelu_mode(x.dtype)
     if x.device.type == "cpu":
         return mlp_block_plain(x, res, w1, b1, w2, b2, ln_s, ln_b, eps, gelu=gelu)
     if x.dim() != 2:
         raise ValueError(f"x must be (R, C), got {tuple(x.shape)}")
     out = _launch("mlp_block", _FN_ROWS, _SIGS, x, res, w1, b1, w2, b2, ln_s, ln_b, eps,
-                  x.shape, (x.shape[0],), gelu)
+                  x.shape, (x.shape[0],), gelu, planes=planes)
     mlp_block.launches += 1
     return out
 
 
-def mlp_block_dp(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps):
+def mlp_block_dp(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps, planes=None):
     """`mlp_block` with the branch scaled by dp (R,) fp32."""
     gelu = gelu_mode(x.dtype)
     if x.device.type == "cpu":
@@ -244,7 +253,7 @@ def mlp_block_dp(x, res, w1, b1, w2, b2, ln_s, ln_b, dp, eps):
     if x.dim() != 2:
         raise ValueError(f"x must be (R, C), got {tuple(x.shape)}")
     out = _launch("mlp_block_dp", _FN_ROWS_DP, _SIGS, x, res, w1, b1, w2, b2, ln_s, ln_b, eps,
-                  x.shape, (x.shape[0],), gelu, dp, (x.shape[0],))
+                  x.shape, (x.shape[0],), gelu, dp, (x.shape[0],), planes)
     mlp_block_dp.launches += 1
     return out
 

@@ -41,7 +41,7 @@ import ctypes
 
 import torch
 
-from d3dp_tpu_torch.ops import _build
+from d3dp_tpu_torch.ops import _build, tf32
 from d3dp_tpu_torch.ops.attention import (HEAD_DIM, MAX_TOKENS, OPT_BF16_EXP,
                                           attention_stage_plain, fold_opts, stage_variant)
 from d3dp_tpu_torch.ops.mlp import (GELU_ERF, check_shape as check_mlp_shape, gelu_mode,
@@ -81,6 +81,14 @@ def _kind(weights, d):
             (w1[d], b1[d].reshape(-1), w2[d], b2))
 
 
+def _with_planes(weights, planes):
+    """One kind's seven weights with its four matrices replaced by their
+    planes (wqkv, wp, w1, w2)."""
+    wqkv, bqkv, wp, w1, b1, w2, vec = weights
+    pq, pp, p1, p2 = planes
+    return (pq, bqkv, pp, p1, b1, p2, vec)
+
+
 def resident_options(dtype):
     """(opts, gelu) of the lab switches the JAX kernel reads for the
     compute dtype: the stage's OPT_* flags (`D3DP_SOFTMAX_FOLD`, the global
@@ -115,7 +123,8 @@ def resident_block_stack_plain(x, tpos, spatial, temporal, shared, num_heads, sc
     return h
 
 
-def resident_block_stack(x, tpos, spatial, temporal, shared, num_heads, scale, eps):
+def resident_block_stack(x, tpos, spatial, temporal, shared, num_heads, scale, eps,
+                         planes=None):
     """The (B, F, J, C) stream after the trunk; see the module docstring.
 
     x: (B, F, J, C) in the compute dtype; tpos: (F, C); spatial, temporal:
@@ -123,12 +132,17 @@ def resident_block_stack(x, tpos, spatial, temporal, shared, num_heads, scale, e
     b1 (D, 1, H), w2 (D, H, C), vec (D, 6, C)), matrices in the compute
     dtype, bqkv, b1 and vec (rows bp, ln1s, ln1b, ln2s, ln2b, b2) fp32;
     shared: (4, C) fp32 rows spatial norm scale, bias, temporal norm
-    scale, bias. The lab switches as `resident_options` reads them."""
+    scale, bias. The lab switches as `resident_options` reads them. fp32
+    runs on each matrix stack's TF32 planes ((D, 2, 3C, C), (D, 2, C, C),
+    (D, 2, H, C), (D, 2, C, H)): `planes`, (spatial, temporal) of those
+    four each (the model's weight cache makes them once per weight
+    version), else made here (`ops.tf32.operands`)."""
     opts, gelu = resident_options(x.dtype)
     if x.device.type == "cpu":
         return resident_block_stack_plain(x, tpos, spatial, temporal, shared, num_heads,
                                           scale, eps, opts=opts, gelu=gelu)
-    out = _launch(x, tpos, spatial, temporal, shared, num_heads, scale, eps, opts, gelu)
+    out = _launch(x, tpos, spatial, temporal, shared, num_heads, scale, eps, opts, gelu,
+                  planes=planes)
     resident_block_stack.launches += 1
     return out
 
@@ -155,10 +169,10 @@ def resident_phase_clocks(x, tpos, spatial, temporal, shared, num_heads, scale, 
 
 
 def _launch(x, tpos, spatial, temporal, shared, num_heads, scale, eps, opts, gelu, clocks=False,
-            group=None):
+            group=None, planes=None):
     """Check the operands and launch the kernel on groups of `group` rows (by
     default `group_rows`'); with clocks, from the build with per-phase
-    clocks, returning (out, that library)."""
+    clocks, returning (out, that library); planes: `resident_block_stack`'s."""
     if x.device.type != "cuda":
         raise ValueError(f"resident_block_stack: unsupported device {x.device}")
     if x.dim() != 4:
@@ -190,6 +204,14 @@ def _launch(x, tpos, spatial, temporal, shared, num_heads, scale, eps, opts, gel
                 ((D, C, 3 * C), (D, 1, 3 * C), (D, C, C), (D, C, H), (D, 1, H), (D, H, C),
                  (D, 6, C))):
             _build.check_operand(t, f"{kind} {name}", dtype, shape, dev)
+    if dt == f32:
+        # the kernel takes each matrix's planes in its place
+        spatial, temporal = (
+            _with_planes(ws, tf32.operands((ws[0], ws[2], ws[3], ws[5]),
+                                           [f"{kind} {n}" for n in ("wqkv", "wp", "w1", "w2")],
+                                           dev, given))
+            for kind, ws, given in (("spatial", spatial, planes and planes[0]),
+                                    ("temporal", temporal, planes and planes[1])))
     sigs = {fn: _SIG for fn in _FN.values()}
     if clocks:
         lib = _build.load("resident_clocks", {**sigs, "d3dp_resident_phase_clocks": [_P]})

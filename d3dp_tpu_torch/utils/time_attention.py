@@ -5,8 +5,8 @@ in turns on one card, for A/B comparisons:
 
 Each entry of `--trees` is a directory holding a checkout (its
 `d3dp_tpu_torch/` builds its own kernels at first use); a child process per
-(repetition, tree) imports the package from there and times, in bf16 with
-CUDA events (median of `--iters` launches after one warm-up), every kernel
+(repetition, tree) imports the package from there and times, in bf16 (or
+`--dtype`) with CUDA events (median of `--iters` launches after one warm-up), every kernel
 that runs the attention tile at its main path's shapes: K3 at the train
 step's (972 x 17, 68 x 243), K7, K6, K1 and K8 at the eval path's
 (9,720 x 17, 680 x 243 for 40 hypothesis rows), and K1's attend launch
@@ -28,6 +28,10 @@ SDPA's forward and backward beside each (also as device time per call from
 `torch.profiler`, without the host's launch cost), and the full-width bf16 train step
 (ms per step, random weights and batch from a seed), composed and with
 `D3DP_TRAIN_FUSED=1` at fuse level 4.
+`--dtype float32` times all of it in fp32, the default dtype of every entry
+point (in a checkout whose fp32 kernels take TF32 weight planes, the ops
+get them as `planes`, made outside the timed calls as the model's weight
+cache makes them; the library calls run with TF32 off).
 The inputs come from one seed, so every tree sees the same values. Prints one JSON line per child and a summary
 (per kernel and tree: the medians of every repetition), also written to
 `chiprun_out/time_attention.json`. Needs a CUDA card.
@@ -51,8 +55,27 @@ MLP = sys.argv[3] == "1"
 STAGE = sys.argv[4] == "1"
 BWD = sys.argv[5] == "1"
 C, HEADS, ROWS, BT, F, J = 512, 8, 40, 4, 243, 17
-bf = torch.bfloat16
+bf = getattr(torch, sys.argv[6])  # the compute dtype
 gen = torch.Generator(device="cuda").manual_seed(11)
+try:  # a checkout whose fp32 kernels take TF32 weight planes
+    import inspect
+    from d3dp_tpu_torch.ops import tf32 as T32
+    TAKES = "planes" in inspect.signature(A.attention_stage).parameters
+except ImportError:
+    T32 = None
+
+
+def pl(*ws):
+    """The `planes` keyword of an fp32 op on weights ws, made here outside
+    the timed calls, where the checkout takes them; else no keyword (a
+    checkout whose weights carry their planes gets them attached here)."""
+    if T32 is None or bf != torch.float32:
+        return {}
+    if not TAKES:
+        for w in ws:
+            T32.attach(w)
+        return {}
+    return dict(planes=tuple(T32.planes(w) for w in ws))
 
 
 def rn(*shape, s=1.0):
@@ -83,6 +106,7 @@ if MLP:
          1 + rn(C, s=0.1), rn(C, s=0.1)]
     lw = [w[0].t().contiguous(), w[1].to(bf), w[2].t().contiguous(), w[3].to(bf),
           w[4].to(bf), w[5].to(bf)]
+    pw = pl(w[0], w[2])
     for label, B0, D1, D2 in (("eval s->t", ROWS, F, J), ("eval t->s", ROWS, J, F),
                               ("train s->t", BT, F, J)):
         x, r = rn(B0, D1, D2, C).to(bf), rn(B0, D1, D2, C).to(bf)
@@ -90,12 +114,13 @@ if MLP:
         dp = torch.ones(B0, D1, device="cuda")
         dpr = torch.ones(B0 * D1 * D2, device="cuda")
         if label.startswith("train"):
-            res[f"mlp_block_t_dp/{label}"] = ms(lambda: M.mlp_block_t_dp(x, r, *w, dp, 1e-6))
-            res[f"mlp_block_dp/{label}"] = ms(lambda: M.mlp_block_dp(xr, rr, *w, dpr, 1e-6))
+            res[f"mlp_block_t_dp/{label}"] = ms(
+                lambda: M.mlp_block_t_dp(x, r, *w, dp, 1e-6, **pw))
+            res[f"mlp_block_dp/{label}"] = ms(lambda: M.mlp_block_dp(xr, rr, *w, dpr, 1e-6, **pw))
         else:
-            res[f"mlp_block_t/{label}"] = ms(lambda: M.mlp_block_t(x, r, *w, 1e-6))
+            res[f"mlp_block_t/{label}"] = ms(lambda: M.mlp_block_t(x, r, *w, 1e-6, **pw))
             if label.endswith("s->t"):
-                res[f"mlp_block/{label}"] = ms(lambda: M.mlp_block(xr, rr, *w, 1e-6))
+                res[f"mlp_block/{label}"] = ms(lambda: M.mlp_block(xr, rr, *w, 1e-6, **pw))
         if not label.endswith("t->s"):
             res[f"library/{label}"] = ms(lambda: Fn.layer_norm(
                 rr + Fn.linear(Fn.gelu(Fn.linear(xr, lw[0], lw[1])), lw[2], lw[3]), (C,),
@@ -137,13 +162,15 @@ if STAGE:
 
     w = [rn(C, 3 * C, s=0.05).to(bf), rn(3 * C, s=0.02), rn(C, C, s=0.05).to(bf), rn(C, s=0.02),
          1 + rn(C, s=0.1), rn(C, s=0.1), 1 + rn(C, s=0.1), rn(C, s=0.1)]
+    pst, pblk = pl(w[0], w[2]), pl(w[2])
     for label, R, N in (("spatial", ROWS * F, J), ("temporal", ROWS * J, F)):
         st = [rn(R, N, C, s=0.5).to(bf), *w]
         hm = [st[0], *A.stack_head_major(st[1], st[2], HEADS), *st[3:]]
+        phm = pl(hm[1], w[2])
         blk = [rn(R, N, 3 * C).to(bf), st[0], w[2], w[3], w[6], w[7]]
-        for name, fn in (("K1", lambda: A.attention_stage(*st, HEADS, 0.125, 1e-6)),
-                         ("K8", lambda: A.attention_stage_hm(*hm, HEADS, 0.125, 1e-6)),
-                         ("K6", lambda: A.attention_block(*blk, HEADS, 0.125, 1e-6))):
+        for name, fn in (("K1", lambda: A.attention_stage(*st, HEADS, 0.125, 1e-6, **pst)),
+                         ("K8", lambda: A.attention_stage_hm(*hm, HEADS, 0.125, 1e-6, **phm)),
+                         ("K6", lambda: A.attention_block(*blk, HEADS, 0.125, 1e-6, **pblk))):
             res[f"{name}/{label}"] = ms(fn)
             for k, v in split(fn).items():
                 res[f"{name} {k}/{label}"] = v
@@ -152,7 +179,8 @@ if STAGE:
     for label, R, N in (("train spatial", BT * F, J), ("train temporal", BT * J, F)):
         st = [rn(R, N, C, s=0.5).to(bf), *w]
         dp = torch.where(torch.rand(R, generator=gen, device="cuda") < 0.9, 1 / 0.9, 0.0)
-        res[f"K1-dp/{label}"] = ms(lambda: A.attention_stage_dp(*st, dp, HEADS, 0.125, 1e-6))
+        res[f"K1-dp/{label}"] = ms(
+            lambda: A.attention_stage_dp(*st, dp, HEADS, 0.125, 1e-6, **pst))
         res[f"library stage/{label}"] = ms(lib_stage(st))
     # K9 on the eval path's 40 rows at depth 8, random weights of std 0.05
     D, HID = 8, 2 * C
@@ -165,8 +193,10 @@ if STAGE:
                 rn(D, HID, C, s=0.05).to(bf), vec)
     trunk = (rn(ROWS, F, J, C).to(bf), rn(F, C, s=0.1), kind(), kind(),
              rn(4, C, s=0.05) + torch.tensor([1.0, 0, 1.0, 0], device="cuda")[:, None])
-    res["K9/eval depth 8"] = ms(lambda: RS.resident_block_stack(*trunk, HEADS, 0.125, 1e-6),
-                                iters=5)
+    ptr = [pl(*(kind[i] for i in (0, 2, 3, 5))) for kind in trunk[2:4]]
+    ptr = dict(planes=tuple(p["planes"] for p in ptr)) if all(ptr) else {}
+    res["K9/eval depth 8"] = ms(
+        lambda: RS.resident_block_stack(*trunk, HEADS, 0.125, 1e-6, **ptr), iters=5)
     # K9's spatial attend phase from the build with per-phase clocks: its
     # share of the launch's block cycles (tiles and barrier), and that share
     # of the event-timed launch
@@ -248,15 +278,20 @@ for label, R, N in (("spatial", ROWS * F, J), ("temporal", ROWS * J, F)) if ATTN
         res[f"attend/{label}"] = ms(lambda: A.attend_qkv(qkv, HEADS, 0.125))
     res_ = rn(R, N, C, s=0.5).to(bf)
     blk = [qkv, res_, rn(C, C, s=0.05).to(bf), rn(C, s=0.02), 1 + rn(C, s=0.1), rn(C, s=0.1)]
-    res[f"attention_block/{label}"] = ms(lambda: A.attention_block(*blk, HEADS, 0.125, 1e-6))
+    pblk = pl(blk[2])
+    res[f"attention_block/{label}"] = ms(
+        lambda: A.attention_block(*blk, HEADS, 0.125, 1e-6, **pblk))
     del q, k, v, qkv, blk
     st = [rn(R, N, C, s=0.5).to(bf), rn(C, 3 * C, s=0.05).to(bf), rn(3 * C, s=0.02),
           rn(C, C, s=0.05).to(bf), rn(C, s=0.02), 1 + rn(C, s=0.1), rn(C, s=0.1),
           1 + rn(C, s=0.1), rn(C, s=0.1)]
-    res[f"attention_stage/{label}"] = ms(lambda: A.attention_stage(*st, HEADS, 0.125, 1e-6))
+    pst = pl(st[1], st[3])
+    res[f"attention_stage/{label}"] = ms(
+        lambda: A.attention_stage(*st, HEADS, 0.125, 1e-6, **pst))
     hm = [st[0], *A.stack_head_major(st[1], st[2], HEADS), *st[3:]]
+    phm = pl(hm[1], st[3])
     res[f"attention_stage_hm/{label}"] = ms(
-        lambda: A.attention_stage_hm(*hm, HEADS, 0.125, 1e-6))
+        lambda: A.attention_stage_hm(*hm, HEADS, 0.125, 1e-6, **phm))
     del st, hm
 if sys.argv[2] == "1" or STAGE:
     # D3DP.sample at the eval config (B=4 windows, H=5, K=5, flip-TTA, depth 8,
@@ -304,13 +339,17 @@ def main(argv=None):
                     help="time K4 and K3 at the train shapes beside SDPA's forward and "
                          "backward, and the train step (composed, and fused at level 4) "
                          "instead")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="the compute dtype of every kernel, model and library call timed "
+                         "(float32: the library calls with TF32 off)")
     args = ap.parse_args(argv)
     runs = []
     for rep in range(args.reps):
         for tree in args.trees:
             out = subprocess.run([sys.executable, "-c", _CHILD, str(args.iters),
                                   str(int(args.sample)), str(int(args.mlp)),
-                                  str(int(args.stage)), str(int(args.bwd))], cwd=tree,
+                                  str(int(args.stage)), str(int(args.bwd)), args.dtype],
+                                 cwd=tree,
                                  capture_output=True, text=True, timeout=900)
             line = [x for x in out.stdout.splitlines() if x.startswith("RESULT ")]
             if out.returncode != 0 or not line:

@@ -294,9 +294,9 @@ def test_mixste_level_4_hmqkv_matches_jax(env, rng, reuse):
     model = port_model(params, **SMALL, fuse_level=level)
     calls = []
     env.setattr(tattn, "attention_stage_hm",
-                lambda *a, _f=tattn.attention_stage_hm: calls.append(1) or _f(*a))
+                lambda *a, _f=tattn.attention_stage_hm, **k: calls.append(1) or _f(*a, **k))
     env.setattr(tattn, "attention_stage",
-                lambda *a: pytest.fail("the packed stage ran under hmqkv"))
+                lambda *a, **k: pytest.fail("the packed stage ran under hmqkv"))
     got = model(*_t([x2d, x3d, t]), **kw)
     assert len(calls) == 2 * SMALL["depth"]
     if reuse:
@@ -322,7 +322,7 @@ def test_train_fused_hmqkv_matches_jax(env):
     jloss, jgrads = _jax_loss_and_grads(params, cfg, "pallas", batch, masks, env)
     calls = []
     env.setattr(tattn, "attention_stage_hm",
-                lambda *a, _f=tattn.attention_stage_hm: calls.append(1) or _f(*a))
+                lambda *a, _f=tattn.attention_stage_hm, **k: calls.append(1) or _f(*a, **k))
     tloss, tgrads = _port_loss_and_grads(params, cfg, batch, masks)
     assert len(calls) == 2
     want = state_dict_from_flax(jgrads, cfg["depth"])

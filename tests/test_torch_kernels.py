@@ -1186,3 +1186,98 @@ def test_residual_ln_dp_kernel_matches_plain(np_rng, dtype, layout):
         assert g.dtype == dtype and g.shape == w.shape
         assert _excess(g, w, dtype) <= 0
         assert torch.equal(o, n)
+
+
+# fp32's tf32x3 walks (csrc/mlp.cuh, "fp32: tf32x3"): token-row counts one
+# under and over one and two 64-row tiles
+F32_WALK_ROWS = [(7, 9), (5, 13), (127, 1), (3, 43)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,N", F32_WALK_ROWS)
+def test_fp32_walks_on_given_planes_match_plain(np_rng, R, N):
+    """K1, K8, K6, K5 and K2 in fp32 on 63, 65, 127 and 129 token rows:
+    within 1e-4 of their plain versions, the same bits whether the caller
+    passes the weights' TF32 planes (`planes`, as the model's weight cache
+    does) or the op makes them; K8 equal to K1."""
+    from d3dp_tpu_torch.ops import tf32
+
+    dev = _cuda()
+    f32 = torch.float32
+    a = _t(_stage_inputs(np_rng, R, N, 512, w_scale=0.05), dev, f32)
+    a[0] = a[0] * 0.5
+    k1 = tattn.attention_stage(*a, 8, 0.125, 1e-6)
+    pa = (tf32.planes(a[1]), tf32.planes(a[3]))
+    k1_given = tattn.attention_stage(*a, 8, 0.125, 1e-6, planes=pa)
+    hm = [a[0], *tattn.stack_head_major(a[1], a[2], 8), *a[3:]]
+    k8 = tattn.attention_stage_hm(*hm, 8, 0.125, 1e-6, planes=(tf32.planes(hm[1]), pa[1]))
+    b = _block_inputs(np_rng, R, N, dev, f32)
+    k6 = tattn.attention_block(*b, 8, 0.125, 1e-6, planes=(tf32.planes(b[2]),))
+    m = _t(_mlp_inputs(np_rng, 1, R, N, 512, 1024), dev, f32)
+    k2 = tmlp.mlp_block_t(*m, 1e-6)
+    pm = (tf32.planes(m[2]), tf32.planes(m[4]))
+    rows = [t.view(R * N, 512) for t in m[:2]] + m[2:]
+    k5 = tmlp.mlp_block(*rows, 1e-6, planes=pm)
+    torch.cuda.synchronize()
+    for got, want in ((k1, tattn.attention_stage_plain(*a, 8, 0.125, 1e-6)),
+                      (k6, tattn.attention_block_plain(*b, 8, 0.125, 1e-6)),
+                      ((k5,), (tmlp.mlp_block_plain(*rows, 1e-6),)),
+                      ((k2,), (tmlp.mlp_block_t_plain(*m, 1e-6),))):
+        for g, w in zip(got, want):
+            assert _excess(g, w, f32) <= 0
+    assert all(torch.equal(g, w) for g, w in zip(k1_given, k1))
+    assert all(torch.equal(g, w) for g, w in zip(k8, k1))
+    assert torch.equal(k2, tmlp.mlp_block_t(*m, 1e-6, planes=pm))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,N", [(3, 1), (9, 8), (7, 16), (5, 17), (3, 32), (3, 33), (2, 64),
+                                 (2, 65), (2, 100), (2, 128), (2, 129), (2, 243), (2, 256)])
+def test_fp32_attention_tile_matches_plain(np_rng, R, N):
+    """The fp32 attention: the short tile (FMAs) up to 32 keys, the
+    tensor-core walk (tf32x3 mma.sync) above, at its 64-key groups' edges
+    and on either side of its switch from one 16-row block a warp to two
+    (128 / 129): K1's attend launch, K3 and K7 against their plain versions
+    at 1e-4."""
+    dev = _cuda()
+    qkv, _ = _qkv_inputs(np_rng, R, N, dev, torch.float32)
+    q, k, v = (t.contiguous() for t in qkv.split(512, dim=-1))
+    for got, want in ((tattn.attend_qkv(qkv, 8, 0.125), tattn.attend_qkv_plain(qkv, 8, 0.125)),
+                      (tattn.fused_attention_qkv(qkv, 8, 0.125),
+                       tattn.fused_attention_qkv_plain(qkv, 8, 0.125)),
+                      (tattn.fused_attention_packed(q, k, v, 8, 0.125),
+                       tattn.fused_attention_plain(q, k, v, 8, 0.125))):
+        torch.cuda.synchronize()
+        assert got.shape == (R, N, 512)
+        assert _excess(got, want, torch.float32, TOL_QKV) <= 0
+
+
+@pytest.mark.gpu
+def test_fp32_resident_on_given_planes_equals_level_4_chain(np_rng):
+    """K9 at depth 2 in fp32 on the weight stacks' TF32 planes, as the
+    model's weight cache passes them, equals the level-4 chain of K1 and K2
+    launches on per-block views of those planes, bit for bit, and K9 on
+    planes it makes itself."""
+    from d3dp_tpu_torch.ops import resident as tres
+    from d3dp_tpu_torch.ops import tf32
+
+    dev = _cuda()
+    x, tpos, sp, tp, shared = _resident_inputs(np_rng, 3, 27, dev, torch.float32)
+    want = tres.resident_block_stack(x, tpos, sp, tp, shared, 8, 0.125, 1e-6)
+    planes = tuple(tuple(tf32.planes(kind[i]) for i in (0, 2, 3, 5)) for kind in (sp, tp))
+    got = tres.resident_block_stack(x, tpos, sp, tp, shared, 8, 0.125, 1e-6, planes=planes)
+    B, F, J, C = x.shape
+    h = x
+    for d in range(2):
+        for kind, pk, (R, N, D1), ns in ((sp, planes[0], (B * F, J, F), shared[:2]),
+                                         (tp, planes[1], (B * J, F, J), shared[2:])):
+            stage, mlp = tres._kind(kind, d)
+            x2, y2 = tattn.attention_stage(h.reshape(R, N, C), *stage, 8, 0.125, 1e-6,
+                                           planes=(pk[0][d], pk[1][d]))
+            h = tmlp.mlp_block_t(y2.view(B, D1, N, C), x2.view(B, D1, N, C), *mlp, *ns, 1e-6,
+                                 planes=(pk[2][d], pk[3][d]))
+            if d == 0 and kind is sp:
+                h = h + tpos
+    torch.cuda.synchronize()
+    assert torch.equal(got, h)
+    assert torch.equal(got, want)

@@ -84,11 +84,12 @@ def test_cpu_wrappers_run_plain_and_count_no_launch(rng):
     (torch.bfloat16, 512, 1024, True), (torch.bfloat16, 128, 128, True),
     (torch.bfloat16, 384, 1152, True), (torch.bfloat16, 640, 1280, False),
     (torch.bfloat16, 192, 384, False), (torch.bfloat16, 512, 1088, False),
-    (torch.float32, 192, 448, True), (torch.float32, 1088, 64, False)])
+    (torch.float32, 512, 1024, True), (torch.float32, 192, 448, False),
+    (torch.float32, 1088, 64, False)])
 def test_mlp_kernel_shape_rule(dtype, C, H, ok):
-    """The shapes the MLP kernels take, checked before a launch: the bf16
-    tile's output blocks of 128 columns (C / 2 a warpgroup, at most 256) and
-    hidden chunks of 128; fp32 steps of 64 columns up to C = 1024."""
+    """The shapes the MLP kernels take, checked before a launch: the walks'
+    output blocks of 128 columns (C / 2 a warpgroup, at most 256) and hidden
+    chunks of 128, in bf16 and fp32."""
     if ok:
         tmlp.check_shape("mlp", C, H, dtype)
     else:
@@ -99,11 +100,12 @@ def test_mlp_kernel_shape_rule(dtype, C, H, ok):
 @pytest.mark.parametrize("dtype,C,ok", [
     (torch.bfloat16, 512, True), (torch.bfloat16, 128, True), (torch.bfloat16, 384, True),
     (torch.bfloat16, 640, False), (torch.bfloat16, 192, False), (torch.bfloat16, 64, False),
-    (torch.float32, 64, True), (torch.float32, 1024, True), (torch.float32, 1088, False)])
+    (torch.float32, 64, False), (torch.float32, 1024, False), (torch.float32, 1088, False),
+    (torch.float32, 384, True)])
 def test_stage_kernel_shape_rule(dtype, C, ok):
     """The widths the stage kernels (K1, K1-dp, K8, K6) take, checked before
-    a launch: the bf16 GEMM walks' C / 2 output columns a warpgroup in
-    64-column boxes, at most 512; fp32 steps of 64 columns up to 1024."""
+    a launch: the GEMM walks' C / 2 output columns a warpgroup in 64-column
+    blocks, at most 512, in bf16 and fp32."""
     if ok:
         tattn.check_stage_shape("stage", C, dtype)
     else:

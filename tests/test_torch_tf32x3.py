@@ -1,0 +1,267 @@
+"""The three-pass TF32 products of the fp32 kernels, and their weight planes.
+
+The fp32 walks (`csrc/mlp.cuh`, "fp32: tf32x3") split each operand v into
+hi = tf32(v) and lo = tf32(v - hi) (`cvt.rna.tf32.f32`: to nearest, ties
+away from zero) and add, at each k-step of 8, lo(A) hi(B), hi(A) lo(B) and
+hi(A) hi(B) into one fp32 accumulator. No CUDA runs here, so the scheme is
+emulated in plain torch (test code only: the split on the bits, each
+k-step's three 8-deep products in fp32, in the kernel's order) and held
+
+  * against float64: its error is at most the larger of 4x a plain fp32
+    product's and 2e-6 (relative to the output's largest magnitude), far
+    inside the 1e-4 the card holds the fp32 kernels to;
+  * against JAX's Precision.HIGHEST on the CPU: the fp32 parity 2e-5, on
+    one stage's and one MLP's products at the model's scales.
+
+The weight planes the kernels read (`ops.tf32.planes`, made once per
+weight version in `MixSTE2._weights` and passed to the ops as `planes`)
+rebuild each weight within 2^-22 of it; the cache makes them anew after an
+optimizer step, an in-place edit (also under torch.inference_mode) and a
+`.data` swap, and the model hands them to every fp32 op it calls.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from d3dp_tpu_torch.models import MixSTEConfig
+from d3dp_tpu_torch.models.mixste import MixSTE2
+from d3dp_tpu_torch.ops import tf32
+from d3dp_tpu_torch.train.state import make_optimizer
+from tests.test_torch_model import SMALL
+
+torch.set_num_threads(1)
+
+# weights of the model's init (std 0.02) and of unit scale; LayerNorm outputs
+SCALES = {"weights 0.02": 0.02, "weights 1": 1.0}
+
+
+def _tf32(a):
+    """float32 array a rounded as cvt.rna.tf32.f32 rounds: the magnitude to
+    10 mantissa bits, halfway cases away from zero."""
+    u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    mag = ((u & 0x7FFFFFFF) + 0x1000) & 0xFFFFE000
+    return ((u & 0x80000000) | mag).view(np.float32)
+
+
+def _split(a):
+    hi = _tf32(a)
+    return hi, _tf32(a - hi)
+
+
+def tf32x3(a, b):
+    """a (M, K) @ b (K, N), float32, as the kernels compute it: per k-step of
+    8, lo(a) hi(b), hi(a) lo(b), hi(a) hi(b) added in that order."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    ah, al, bh, bl = (torch.from_numpy(t) for t in (ah, al, bh, bl))
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            acc = acc + x[:, s] @ y[s]
+    return acc.numpy()
+
+
+def _ln_rows(rng, M, K):
+    """LayerNorm outputs: unit-variance rows through a scale near 1 and a
+    small shift, float32."""
+    x = rng.randn(M, K)
+    y = (x - x.mean(1, keepdims=True)) / x.std(1, keepdims=True)
+    return (y * (1 + 0.1 * rng.randn(K)) + 0.1 * rng.randn(K)).astype(np.float32)
+
+
+def _rel(got, want):
+    return np.abs(got.astype(np.float64) - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize("scale", [*SCALES.values(), "ln"], ids=[*SCALES, "ln outputs"])
+def test_planes_rebuild_each_weight(scale):
+    """hi is w rounded as cvt.rna rounds it (the low 13 bits zero), and
+    hi + lo is within 2^-22 of w; the planes are w's transpose, (2, N, K)."""
+    rng = np.random.RandomState(1)
+    w = _ln_rows(rng, 512, 192) if scale == "ln" else \
+        (rng.randn(512, 192) * scale).astype(np.float32)
+    p = tf32.planes(torch.from_numpy(w))
+    assert p.shape == (2, 192, 512) and p.dtype == torch.float32 and p.is_contiguous()
+    hi, lo = p[0].numpy().T, p[1].numpy().T
+    np.testing.assert_array_equal(hi, _tf32(w))
+    assert not (hi.view(np.uint32) & 0x1FFF).any() and not (lo.view(np.uint32) & 0x1FFF).any()
+    err = np.abs(hi.astype(np.float64) + lo - w)
+    assert (err <= 2.0 ** -22 * np.abs(w)).all()
+
+
+def test_round_tf32_takes_halfway_cases_away_from_zero():
+    """The package's rounding equals the bitwise one, halfway cases included:
+    1 + 2^-11 (halfway between 1 and 1 + 2^-10) goes up, as does -(1 + 2^-11)
+    away from zero; one bit below halfway goes down."""
+    one = np.float32(1.0).view(np.uint32)
+    cases = np.array([one + 0x1000, one + 0x0FFF, one + 0x3000, one + 0x1FFF],
+                     dtype=np.uint32).view(np.float32)
+    cases = np.concatenate([cases, -cases])
+    got = tf32.round_tf32(torch.from_numpy(cases)).numpy()
+    np.testing.assert_array_equal(got, _tf32(cases))
+    assert got[0] == np.float32(1 + 2.0 ** -10) and got[1] == np.float32(1.0)
+    assert got[4] == -np.float32(1 + 2.0 ** -10)
+
+
+@pytest.mark.parametrize("K", [512, 1024])
+@pytest.mark.parametrize("scale", list(SCALES.values()), ids=list(SCALES))
+def test_tf32x3_error_against_float64(K, scale):
+    """LayerNorm outputs (64 rows) times weights: the scheme's error is at
+    most the larger of 4x a plain fp32 product's and 2e-6."""
+    rng = np.random.RandomState(K)
+    a = _ln_rows(rng, 64, K)
+    b = (rng.randn(K, 192) * scale).astype(np.float32)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    err_x3 = _rel(tf32x3(a, b), want)
+    err_f32 = _rel((torch.from_numpy(a) @ torch.from_numpy(b)).numpy(), want)
+    assert err_x3 <= max(4 * err_f32, 2e-6), (err_x3, err_f32)
+    # one TF32 pass would not do: the scheme is what keeps fp32 accuracy
+    assert _rel(_tf32(a) @ _tf32(b), want) > 10 * err_x3
+
+
+# one stage's products (LN1(x) @ Wqkv, o @ Wp) and one MLP's (y2 @ W1,
+# GELU(h) @ W2) at the published width, weights at the init's std 0.02
+PRODUCTS = {"qkv": (512, 1536), "proj": (512, 512), "fc1": (512, 1024), "fc2": (1024, 512)}
+
+
+@pytest.mark.parametrize("name", list(PRODUCTS))
+def test_tf32x3_matches_jax_highest(name):
+    K, N = PRODUCTS[name]
+    rng = np.random.RandomState(K + N)
+    a = _ln_rows(rng, 64, K) if name in ("qkv", "fc1") else \
+        (rng.randn(64, K) * (0.5 if name == "proj" else 0.2)).astype(np.float32)
+    b = (rng.randn(K, N) * 0.02).astype(np.float32)
+    with jax.default_device(jax.devices("cpu")[0]):
+        want = np.asarray(jnp.dot(jnp.asarray(a), jnp.asarray(b),
+                                  precision=jax.lax.Precision.HIGHEST))
+    np.testing.assert_allclose(tf32x3(a, b), want, atol=2e-5, rtol=0)
+
+
+def _step(model, seed):
+    """One AdamW step on the model's parameters from a random loss."""
+    opt = make_optimizer(model.parameters(), 1e-3)
+    g = torch.Generator().manual_seed(seed)
+    x2d = torch.randn(2, 9, 17, 2, generator=g)
+    x3d = torch.randn(2, 9, 17, 3, generator=g)
+    loss = model(x2d, x3d, torch.tensor([3, 7]), train=True).square().mean()
+    loss.backward()
+    opt.step()
+
+
+def _carried(W):
+    """Every matrix of the weight cache W that the fp32 kernels take, with
+    its planes there: each kind's stacks (`resident_planes`), each block's
+    views and its head-major qkv (`planes`)."""
+    rp = W["resident_planes"]
+    out = [(stacked[k], rp and rp[i][j]) for i, stacked in enumerate(W["resident"][:2])
+           for j, k in enumerate((0, 2, 3, 5))]
+    for blk in W["ste"] + W["tte"]:
+        p = blk["planes"]
+        stage, mlp, hm = (p[k] or (None, None) for k in ("stage", "mlp", "hm"))
+        out += [(blk["wqkv"], stage[0]), (blk["wp"], stage[1]), (blk["w1"], mlp[0]),
+                (blk["w2"], mlp[1]), (blk["hm"][0], hm[0])]
+        assert p["block"] is None or p["block"][0] is p["stage"][1]
+        assert p["hm"] is None or p["hm"][1] is p["stage"][1]
+    return out
+
+
+def _assert_fresh(W):
+    """Every matrix of W comes with the planes of its current value."""
+    for m, p in _carried(W):
+        assert p is not None and torch.equal(p, tf32.planes(m))
+
+
+def test_weight_cache_makes_planes_once_per_weight_version():
+    """fp32: the cache holds every matrix's planes (the blocks' views of the
+    stacks' planes), the same while the weights stand, and new ones after
+    an optimizer step."""
+    model = MixSTE2(MixSTEConfig(**SMALL, fuse_level=4), device="cpu")
+    W = model._weights()
+    _assert_fresh(W)
+    for m, p in _carried(W):
+        err = (p[..., 0, :, :] + p[..., 1, :, :]).double() - m.transpose(-1, -2).double()
+        assert (err.abs() <= 2.0 ** -22 * m.transpose(-1, -2).abs()).all()
+    spatial = W["ste"][1]["planes"]["stage"][0]
+    assert spatial.data_ptr() == W["resident_planes"][0][0][1].data_ptr()
+    assert model._weights() is W
+
+    before = [p.clone() for _, p in _carried(W)]
+    _step(model, 5)
+    W2 = model._weights()
+    assert W2 is not W
+    _assert_fresh(W2)
+    assert not any(torch.equal(a, b) for a, (_, b) in zip(before, _carried(W2)))
+
+
+EDITS = ("in place", "in place under inference_mode", "data swap")
+
+
+@pytest.mark.parametrize("edit", EDITS)
+def test_weight_cache_planes_follow_every_weight_edit(edit):
+    """An edit of a weight that no optimizer made: the next `_weights()`
+    (as `D3DP.sample` builds it, under torch.inference_mode) holds the
+    planes of the new value, never the old ones."""
+    model = MixSTE2(MixSTEConfig(**SMALL, fuse_level=4), device="cpu")
+    with torch.inference_mode():
+        old = model._weights()["ste"][0]["planes"]["stage"][0].clone()
+    w = model.STEblocks[0].attn.qkv.weight
+    if edit == "data swap":
+        w.data = w.data * 2.0
+    elif edit == "in place":
+        with torch.no_grad():
+            w.mul_(2.0)
+    else:
+        with torch.inference_mode():
+            w.mul_(2.0)
+    with torch.inference_mode():
+        W = model._weights()
+    _assert_fresh(W)
+    assert not torch.equal(W["ste"][0]["planes"]["stage"][0], old)
+
+
+@pytest.mark.parametrize("level", [2, 4, 5])
+def test_model_passes_the_cache_planes_to_the_ops(monkeypatch, level):
+    """The fused eval flow hands each fp32 op the cache's planes of the
+    weights it passes (levels 2, 4 and 5: the block, the stage and the MLP
+    ops, the depth-resident op)."""
+    from d3dp_tpu_torch.ops import attention, mlp, resident
+
+    # one head of 64 channels: the kernels' head width
+    model = MixSTE2(MixSTEConfig(**dict(SMALL, num_heads=1), fuse_level=level), device="cpu")
+    W = model._weights()
+    seen = []
+
+    def spy(mod, name, mats):
+        f = getattr(mod, name)
+
+        def wrapped(*a, planes=None, **k):
+            seen.append(name)
+            assert planes is not None
+            for i, p in zip(mats, planes):
+                assert p is None or torch.equal(p, tf32.planes(a[i]))
+            return f(*a, planes=planes, **k)
+        monkeypatch.setattr(mod, name, wrapped)
+
+    spy(attention, "attention_stage", (1, 3))
+    spy(attention, "attention_block", (2,))
+    spy(mlp, "mlp_block_t", (2, 4))
+    spy(mlp, "mlp_block", (2, 4))
+    spy(resident, "resident_block_stack", ())
+    g = torch.Generator().manual_seed(0)
+    x2d = torch.randn(2, 9, 17, 2, generator=g)
+    x3d = torch.randn(2, 9, 17, 3, generator=g)
+    with torch.inference_mode():
+        model(x2d, x3d, torch.tensor([3, 7]))
+    want = {2: {"attention_block", "mlp_block"}, 4: {"attention_stage", "mlp_block_t"},
+            5: {"resident_block_stack"}}[level]
+    assert set(seen) == want
+    if level == 5:
+        assert W["resident_planes"] is not None
+
+
+def test_weight_cache_has_no_planes_in_bf16():
+    model = MixSTE2(MixSTEConfig(**SMALL, fuse_level=4, dtype=torch.bfloat16), device="cpu")
+    assert all(p is None for _, p in _carried(model._weights()))
