@@ -367,9 +367,11 @@ def phase_env(torch, record):
         f"kernels, spilling: {', '.join(spills) if spills else 'none'}")
     # the fp32 bodies: ln_qkv and proj_ln2 (K1, K1-dp, K8, K6), the MLP (K2,
     # K5 and their -dp forms) and the tensor-core attention walk (tf32x3),
-    # the short attention tile (FMAs), and K9, which inlines them
+    # the short attention tile (FMAs), K9, which inlines them, and K4's
+    # tf32x3 kernels (its query and key passes, its short tile)
     f32_keys = ("ln_qkv_walk_f32", "proj_ln2_walk_f32", "mlp_block_kernel<float",
-                "attend_f32_kernel", "attend_short_kernel<float", "resident_kernel<float")
+                "attend_f32_kernel", "attend_short_kernel<float", "resident_kernel<float",
+                "attn_bwd_query_f32", "attn_bwd_key_f32", "attn_bwd_short_f32")
     for k in f32_keys:
         walks = [r for r in ptxas if k in r["kernel"]]
         check(walks, f"no fp32 {k} kernel in the ptxas output")
@@ -491,16 +493,19 @@ def check_mlp_tile_edges(torch, gen, dt, name_dt, errs):
         del args, dp
 
 
-# (R, N) around K4's tiles: a warp a tile at 16 and 32 keys or fewer, a block
-# a tile of 64, 128 or 256 keys above, rows past a 16-row group
-BWD_TILE_SHAPES = ((3, 1), (6, 16), (5, 32), (5, 33), (4, 48), (4, 63), (3, 64), (4, 65),
-                   (3, 128), (3, 129), (3, 255), (2, 256))
+# (R, N) around K4's tiles: bf16 a warp a tile at 16 and 32 keys or fewer, a
+# block a tile of 64, 128 or 256 keys above; fp32 two warps a tile at 32 or
+# fewer, 64-row tiles over groups of 32 keys above; rows past a 16-row group
+BWD_TILE_SHAPES = ((3, 1), (3, 8), (6, 16), (3, 31), (5, 32), (5, 33), (4, 48), (4, 63),
+                   (3, 64), (4, 65), (3, 127), (3, 128), (3, 129), (3, 192), (4, 243),
+                   (3, 255), (2, 256))
 
 
 def check_bwd_tiles(torch, gen, dt, name_dt):
-    """K4 at its tiles' edges against its plain version; in bf16 also
-    deterministic: two calls give the same bits, and a sequence's d(qkv) is
-    the same at R = 1 as inside R = 5 (N = 17 and 243)."""
+    """K4 at its tiles' edges against its plain version (fp32 also against
+    autograd through K3's plain version); deterministic: two calls give the
+    same bits, and a sequence's d(qkv) is the same at R = 1 as inside R = 5
+    (N = 17 and 243)."""
     from d3dp_tpu_torch.ops import attention as A
 
     tol = TOL_QKV[name_dt]
@@ -511,13 +516,19 @@ def check_bwd_tiles(torch, gen, dt, name_dt):
         want = A.fused_attention_qkv_bwd_plain(qkv, dout, HEADS, 0.125)
         torch.cuda.synchronize()
         e, ex = max_err(torch, got, want, ulp)
+        ea = ""
+        if dt == torch.float32:
+            leaf = qkv.clone().requires_grad_(True)
+            (auto,) = torch.autograd.grad(A.fused_attention_qkv_plain(leaf, HEADS, 0.125), leaf,
+                                          dout)
+            e_a, ex_a = max_err(torch, got, auto, 0.0)
+            ex = max(ex, ex_a)
+            ea = f", vs autograd of the plain forward {e_a:.3e}"
         log(f"[kernels] fused_attention_qkv_bwd tile edge {name_dt} qkv{tuple(qkv.shape)}: "
-            f"max|err| {e:.3e} (tol {tol:g}{' + 1 bf16 ulp' if ulp else ''}) "
+            f"max|err| {e:.3e}{ea} (tol {tol:g}{' + 1 bf16 ulp' if ulp else ''}) "
             f"{'ok' if ex <= tol else 'FAIL'}")
         check(ex <= tol, f"fused_attention_qkv_bwd at N={N} {name_dt} disagrees with its "
                          "plain version")
-    if dt != torch.bfloat16:
-        return
     for N in (J, F):
         qkv, dout = qkv_inputs(torch, gen, 5, N, dt)
         a = A.fused_attention_qkv_bwd(qkv, dout, HEADS, 0.125)
@@ -526,7 +537,7 @@ def check_bwd_tiles(torch, gen, dt, name_dt):
                                         0.125)
         torch.cuda.synchronize()
         ok = torch.equal(a, b) and torch.equal(one[0], a[2])
-        log(f"[kernels] fused_attention_qkv_bwd bf16 N={N}: two calls equal "
+        log(f"[kernels] fused_attention_qkv_bwd {name_dt} N={N}: two calls equal "
             f"{torch.equal(a, b)}, a sequence at R = 1 equal to it inside R = 5 "
             f"{torch.equal(one[0], a[2])} {'ok' if ok else 'FAIL'}")
         check(ok, f"fused_attention_qkv_bwd at N={N} is not deterministic")
@@ -2213,6 +2224,76 @@ def phase_train(torch, record):
                              repeated_batch_losses=rep, val_before_mm=before.tolist(),
                              val_after_mm=after.tolist(), profile=prof_rec))
     record["launches"].update(fused_attention_qkv=counts[0], fused_attention_qkv_bwd=counts[1])
+    del d3dp, opt, step
+    train_fp32(torch, record)
+
+
+FP32_TRAIN_STEPS = 8
+
+
+def train_fp32(torch, record):
+    """fp32, the default --dtype of every entry point: FP32_TRAIN_STEPS
+    Train-config steps from ChunkedGenerator + Prefetcher, K3 and K4
+    launched exactly 2 x depth times a step each, finite losses, s/step, and
+    one profiled step's device time with K4's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from d3dp_tpu_torch.data.generators import ChunkedGenerator
+    from d3dp_tpu_torch.data.prefetch import Prefetcher
+    from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT, make_dataset
+    from d3dp_tpu_torch.diffusion import D3DP
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.train.state import make_optimizer, make_train_step
+
+    cfg = train_config(torch)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=torch.float32))
+    d3dp = D3DP(cfg, seed=0)
+    step = make_train_step(d3dp, make_optimizer(d3dp.model.parameters(), 6e-5))
+    gen = ChunkedGenerator(BT, *make_dataset(seed=5, lengths=(1200, 900, 1500, 700)), F,
+                           shuffle=True, random_seed=1234, augment=True, endless=True,
+                           pad_last=True, joints_left=list(JOINTS_LEFT),
+                           joints_right=list(JOINTS_RIGHT), kps_left=list(JOINTS_LEFT),
+                           kps_right=list(JOINTS_RIGHT))
+    batches = iter(Prefetcher(gen.next_epoch(), depth=2))
+    g = torch.Generator(device="cuda").manual_seed(11)
+    warm, losses = 2, []
+    torch.cuda.synchronize()
+    reset_counts()
+    for i in range(FP32_TRAIN_STEPS):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        _, b3d, b2d, w = next(batches)
+        losses.append(step(b2d, b3d, w, generator=g))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (FP32_TRAIN_STEPS - warm)
+    counts = (A.fused_attention_qkv.launches, A.fused_attention_qkv_bwd.launches)
+    losses = [v.item() for v in losses]
+    per_step = 2 * DEPTH
+    finite = all(math.isfinite(v) for v in losses)
+    ok = finite and counts == (per_step * FP32_TRAIN_STEPS,) * 2
+    log(f"[train-fp32] {FP32_TRAIN_STEPS} steps, batch {BT}x{F} frames, fp32, DropPath 0.1, "
+        f"AdamW 6e-5: loss {' '.join(f'{v:.4f}' for v in losses)}, finite {finite}")
+    log(f"[train-fp32] launches K3 {counts[0]} K4 {counts[1]} (expected {per_step}/step x "
+        f"{FP32_TRAIN_STEPS} = {per_step * FP32_TRAIN_STEPS} each) {'ok' if ok else 'FAIL'}")
+    check(ok, "fp32 train steps: non-finite loss or launch counts")
+    log(f"[train-fp32] {step_s:.4f} s/step (mean of steps {warm + 1}-{FP32_TRAIN_STEPS}, host "
+        f"loop with prefetch), {BT * F / step_s:.1f} train frames/s")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step(b2d, b3d, w, generator=g)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    batches.close()
+    prof_rec = summarize_profile(torch, prof, wall_ms, "one fp32 train step", "train-fp32-profile")
+    k4_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and "attn_bwd" in e.key) / 1e3
+    busy = prof_rec["device_busy_ms"]
+    log(f"[train-fp32] K4 device time {k4_ms:.3f} ms a step"
+        + (f", {100 * k4_ms / busy:.1f}% of the busy {busy:.1f} ms" if busy else
+           " (device busy time not measured)"))
+    record["train_fp32"] = dict(step_s=step_s, losses=losses, launches=list(counts),
+                                k4_device_ms=k4_ms, profile=prof_rec)
 
 
 def train_fused_counts(level, depth):
@@ -3130,7 +3211,8 @@ def timing_fp32(torch, record, x2d, x2d_f, Fn, gen):
 def fp32_kernel_rows(torch, Fn, gen):
     """The fp32 forms at the bf16 rows' shapes: K1 (also split into its
     ln_qkv, attend and proj_ln2 launches), K8, K6, K1's attend launch alone,
-    K7, K2 both ways and K5 on rows, the matrices' TF32 planes attached
+    K7, K2 both ways, K5 on rows; K1-dp, K3 and K4 at the train step's shapes
+    (K3's and K4's library calls SDPA's forward and backward); the matrices' TF32 planes attached
     outside the timed calls (as the model's weight cache attaches them), each with its
     plain version, the library calls in fp32 (TF32 off in both matmul and
     cuDNN), its bound at the three-pass TF32 rate and the FMA figure."""
@@ -3205,6 +3287,37 @@ def fp32_kernel_rows(torch, Fn, gen):
                 lambda: M.mlp_block_plain(*ar, 1e-6), lambda: lib_r(*lib_args))
             del ar
         del a, lib_args
+    # the training path's attention core (K3) and its backward (K4) at the
+    # train step's shapes, beside SDPA's fp32 forward and backward; K1-dp
+    # (the train-fused stage) there too
+    for label, R, N in TRAIN_SHAPES:
+        T = R * N
+        a = stage_inputs(torch, gen, R, N, f32)
+        dp = dp_scales(torch, gen, (R,))
+        pa = (tf32.planes(a[1]), tf32.planes(a[3]))
+        lib_args = [a[0], a[1].t().contiguous(), a[2], a[3].t().contiguous(), *a[4:]]
+        rows[f"attention_stage_dp/{label}"] = row(
+            a[0].shape, 2 * T * C * 3 * C + 4 * T * N * C + 2 * T * C * C,
+            3 * T * C * 4 + 4 * C * C * 4 + 8 * C * 4 + R * 4,
+            lambda: A.attention_stage_dp(*a, dp, HEADS, 0.125, 1e-6, planes=pa),
+            lambda: A.attention_stage_dp_plain(*a, dp, HEADS, 0.125, 1e-6),
+            lambda: lib_a(*lib_args, dp=dp))
+        del a, dp, pa, lib_args
+        qkv, dout = qkv_inputs(torch, gen, R, N, f32)
+        lib_fwd = library_attention_qkv(torch, Fn, qkv)
+        leaf = qkv.clone().requires_grad_(True)
+        lib_out = lib_fwd(leaf)
+        rows[f"fused_attention_qkv/{label}"] = row(
+            qkv.shape, 4 * T * N * C, (3 * C + C) * T * 4,
+            lambda: A.fused_attention_qkv(qkv, HEADS, 0.125),
+            lambda: A.fused_attention_qkv_plain(qkv, HEADS, 0.125), lambda: lib_fwd(qkv))
+        # S recomputed, dV, dP, dQ, dK: five N x N x d products per head
+        rows[f"fused_attention_qkv_bwd/{label}"] = row(
+            qkv.shape, 10 * T * N * C, (3 * C + C + 3 * C) * T * 4,
+            lambda: A.fused_attention_qkv_bwd(qkv, dout, HEADS, 0.125),
+            lambda: A.fused_attention_qkv_bwd_plain(qkv, dout, HEADS, 0.125),
+            lambda: torch.autograd.grad(lib_out, leaf, dout, retain_graph=True))
+        del qkv, dout, leaf, lib_out
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_ms(r["flops"], r["bytes"], PEAK_TF32 / 3)
         r["fma_ms"] = 1e3 * r["flops"] / PEAK_FP32_FMA

@@ -105,7 +105,8 @@ _DP_FN = {torch.bfloat16: "d3dp_attention_stage_dp_bf16",
 _HM_FN = {torch.bfloat16: "d3dp_attention_stage_hm_bf16",
           torch.float32: "d3dp_attention_stage_hm_f32"}
 _SIG_FWD = [_P, _P, _I, _I, _I, _I, _F, _P]
-# the backward: fp32 takes a stats scratch (its two launches' hand-over), bf16 none
+# the backward: fp32 takes a stats scratch (above 32 keys its two launches'
+# hand-over), bf16 none
 _SIG_BWD = {torch.bfloat16: [_P, _P, _P, _I, _I, _I, _I, _F, _P],
             torch.float32: [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]}
 _QKV_FN = {torch.bfloat16: ("d3dp_attention_qkv_fwd_bf16", "d3dp_attention_qkv_bwd_bf16"),
@@ -654,11 +655,13 @@ def fused_attention_qkv_bwd(qkv, dout, num_heads, scale):
     dev = qkv.device
     _build.check_operand(dout, "dout", qkv.dtype, (R, N, C), dev)
     dqkv = torch.empty_like(qkv)
-    # fp32's query pass hands (m, l, D) per row and head to its key pass; the
-    # bf16 kernel keeps them in shared memory
+    # fp32 above 32 keys: the query pass hands (m, 1/l, D) per row and head to
+    # the key pass, in runs of N rounded up to the 64-row tile; the other
+    # bodies keep them in shared memory
     stats = []
     if qkv.dtype == torch.float32:
-        stats = [torch.empty((R, num_heads, 3, N), dtype=torch.float32, device=dev)]
+        stats = [torch.empty((R, num_heads, 3, -(-N // 64) * 64), dtype=torch.float32,
+                             device=dev)]
     lib = _qkv_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

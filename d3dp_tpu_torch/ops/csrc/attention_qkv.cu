@@ -37,12 +37,14 @@
 // its switches: K1's attend launch alone, for timing and tests.
 //
 // Backward, `_attn_bwd_kernel`: d(qkv) from qkv and dO, softmax recomputed.
-// It reads qkv and dO once and writes d(qkv) once: 118 MB at the train
-// step's shapes (68 x 243 or 972 x 17 tokens, C = 512), 0.035 ms at the
-// card's 3.35 TB/s, against 20.6 GFLOP (0.021 ms of bf16 tensor-core time;
-// 36.5 GFLOP as the tiles pad 243 keys to 256). Bytes bound it, so each
-// operand row is read once per (sequence, head) and nothing else goes
-// through device memory.
+// It reads qkv and dO once and writes d(qkv) once: 118 MB in bf16 at the
+// train step's shapes (68 x 243 or 972 x 17 tokens, C = 512), 237 MB in
+// fp32 (0.035 / 0.071 ms at the card's 3.35 TB/s), against five N x N x 64
+// products a head: 20.6 GFLOP temporal, 1.44 spatial. In bf16 that is 0.021
+// ms of tensor-core time, so bytes bound it, and each operand row is read
+// once per (sequence, head) and nothing else goes through device memory. In
+// fp32 each product takes three TF32 passes (0.125 ms temporal at 495
+// TFLOP/s), so operations bound the temporal shape and bytes the spatial.
 //
 // bf16: one launch, and one tile is one (sequence, head): its Q, K, V and dO
 // rows (<=256 each, tail zero-filled) are read once into shared memory by
@@ -75,191 +77,31 @@
 // N get s = -inf (p = 0), queries past N p = dS = 0 by index, and rows past
 // N are not written.
 //
-// fp32 (the Precision.HIGHEST parity path) keeps two launches of plain FMAs
-// over the grid (sequence, head, block of 16 rows), each block holding its
-// own rows and all rows of the other side: a query pass (dQ, and the row
-// statistics (m, l, D) to a scratch of 3 floats a query row and head) and a
-// key pass (dK, dV from the saved statistics). Q, K, V and dO of 256 rows
-// in fp32 (256 KB) exceed a block's 227 KB, so one tile cannot hold them.
+// fp32 (the default --dtype; JAX's products at Precision.HIGHEST): every
+// product on mma.sync m16n8k8 in three TF32 passes (tf32x3, as the
+// forward's `attend_f32_walk`). Its fragments are ldmatrix or single 32-bit
+// shared-memory loads from rows of kLdf, so dK = dS^T Q and dV = P^T dO,
+// whose reduction runs over queries, read Q and dO rows as they are (a tf32
+// wgmma would need them K-major). Q, K, V and dO of 256 fp32 rows (272 KB
+// at kLdf) exceed a block's 227 KB, so above 32 keys two launches hand the
+// query rows' m | 1 / l | D over through a scratch of R x heads x 3 x N
+// (rounded up to 64) floats, 64 rows a block of 4 warps, two blocks an SM:
+//   (a) query pass: Q and dO stay, K and V stream by twice in groups of 32
+//       rows through two cp.async buffers, each group split once into hi and
+//       lo planes; walk 1 S and dP, the statistics online (m, and l and
+//       rowsum(dP o e) rescaled as m grows); walk 2 S and dP again, P, dS,
+//       dQ += dS K;
+//   (b) key pass: K and V stay, Q, dO and the statistics stream by: S^T and
+//       dP^T (the query pass's terms in its order), P^T and dS^T with its
+//       operations, dV += P^T dO, dK += dS^T Q.
+// That is 9 products of N x N x 64 where the bound counts 5, 256 keys for
+// 243. At 32 keys or fewer (the spatial 17) one launch and no scratch: two
+// warps a (sequence, head), its four operands resident (35 KB at 32 rows),
+// every product over all keys at once, 3 tiles a block, 2 blocks an SM.
+// As in bf16, every output element is written once, by one warp.
 #include "mlp.cuh"
 
 namespace d3dp {
-
-// ------------------------------------------------------- backward, fp32
-// Out[r][c] (ldo) = sum_d A[r][d] * B[c][d] over the 64-wide head, r < R,
-// c < NC.
-__device__ __forceinline__ void mm_abt(const float* A, int lda, const float* B, int ldb, int R,
-                                       int NC, float* Out, int ldo) {
-  for (int i = threadIdx.x; i < R * NC; i += kThreads) {
-    const int r = i / NC, c = i % NC;
-    const float* a = A + r * lda;
-    const float* b = B + c * ldb;
-    float acc = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < kHeadDim; ++d) acc = fmaf(a[d], b[d], acc);
-    Out[r * ldo + c] = acc;
-  }
-}
-
-// Out[r][d] (ldo) = sum_{c < NC} P[r][c] * B[c][d], d < 64.
-__device__ __forceinline__ void mm_pb(const float* P, int ldp, const float* B, int ldb, int R,
-                                      int NC, float* Out, int ldo) {
-  for (int i = threadIdx.x; i < R * kHeadDim; i += kThreads) {
-    const int r = i / kHeadDim, d = i % kHeadDim;
-    const float* p = P + r * ldp;
-    float acc = 0.f;
-    for (int c = 0; c < NC; ++c) acc = fmaf(p[c], B[c * ldb + d], acc);
-    Out[r * ldo + d] = acc;
-  }
-}
-
-// Shared-memory layout of one fp32 backward block: RB own rows (X1, X2)
-// against the NP (padded) rows of the other side (Y1, Y2).
-struct BwdLayout {
-  int RB, NP, ldx, lds;
-  size_t x1, x2, y1, y2, s, dp, o1, o2, stats, total;
-};
-
-constexpr int kLdo = kHeadDim + 4;
-
-inline BwdLayout bwd_layout_f32(int N) {
-  BwdLayout L;
-  L.NP = cdiv(N, 16) * 16;
-  L.RB = kF32Rows < L.NP ? kF32Rows : L.NP;
-  // threads walk rows of both X and Y: an odd stride spreads them over the
-  // banks
-  L.ldx = kHeadDim + 1;
-  L.lds = L.NP + 4;
-  size_t off = 0;
-  L.x1 = off; off += align128(sizeof(float) * L.RB * L.ldx);
-  L.x2 = off; off += align128(sizeof(float) * L.RB * L.ldx);
-  L.y1 = off; off += align128(sizeof(float) * L.NP * L.ldx);
-  L.y2 = off; off += align128(sizeof(float) * L.NP * L.ldx);
-  L.s = off; off += align128(sizeof(float) * L.RB * L.lds);
-  L.dp = off; off += align128(sizeof(float) * L.RB * L.lds);
-  L.o1 = off; off += align128(sizeof(float) * L.RB * kLdo);
-  L.o2 = off; off += align128(sizeof(float) * L.RB * kLdo);
-  L.stats = off; off += align128(sizeof(float) * 3 * L.NP);
-  L.total = off;
-  return L;
-}
-
-// grid (sequence, head, row block). kKeys = false: the query pass (dQ and
-// the row statistics); true: the key pass (dK, dV). stats: per (sequence,
-// head) three runs of N floats, m | l | D.
-template <bool kKeys>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
-                    float* __restrict__ dqkv, float* __restrict__ stats, int N, int C,
-                    float scale, BwdLayout L) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* X1 = reinterpret_cast<float*>(smem + L.x1);
-  float* X2 = reinterpret_cast<float*>(smem + L.x2);
-  float* Y1 = reinterpret_cast<float*>(smem + L.y1);
-  float* Y2 = reinterpret_cast<float*>(smem + L.y2);
-  float* S = reinterpret_cast<float*>(smem + L.s);
-  float* dP = reinterpret_cast<float*>(smem + L.dp);
-  float* O1 = reinterpret_cast<float*>(smem + L.o1);
-  float* O2 = reinterpret_cast<float*>(smem + L.o2);
-  float* Ms = reinterpret_cast<float*>(smem + L.stats);
-  float* Ls = Ms + L.NP;
-  float* Ds = Ls + L.NP;
-
-  const int seq = blockIdx.x, h = blockIdx.y, r0 = blockIdx.z * L.RB;
-  const int RB = L.RB, NP = L.NP, ldx = L.ldx, lds = L.lds;
-  const int ld3 = 3 * C;
-  const float* qb = qkv + (size_t)seq * N * ld3 + h * kHeadDim;  // q; k at +C, v at +2C
-  const float* ob = dout + (size_t)seq * N * C + h * kHeadDim;
-  // own rows X1, X2 and the other side's Y1, Y2:
-  //   query pass: X = (Q, dO), Y = (K, V);  key pass: X = (K, V), Y = (Q, dO)
-  const float* x1g = kKeys ? qb + C : qb;
-  const float* x2g = kKeys ? qb + 2 * C : ob;
-  const int ldx2 = kKeys ? ld3 : C;
-  const float* y1g = kKeys ? qb : qb + C;
-  const float* y2g = kKeys ? ob : qb + 2 * C;
-  const int ldy2 = kKeys ? C : ld3;
-  load_rows(X1, ldx, x1g + (size_t)r0 * ld3, ld3, RB, N - r0, kHeadDim);
-  load_rows(X2, ldx, x2g + (size_t)r0 * ldx2, ldx2, RB, N - r0, kHeadDim);
-  load_rows(Y1, ldx, y1g, ld3, NP, N, kHeadDim);
-  load_rows(Y2, ldx, y2g, ldy2, NP, N, kHeadDim);
-  float* st = stats + ((size_t)seq * gridDim.y + h) * 3 * N;
-  if constexpr (kKeys) {
-    for (int i = threadIdx.x; i < NP; i += kThreads) {
-      Ms[i] = i < N ? st[i] : 0.f;
-      Ls[i] = i < N ? st[N + i] : 1.f;
-      Ds[i] = i < N ? st[2 * N + i] : 0.f;
-    }
-  }
-  __syncthreads();
-
-  mm_abt(X1, ldx, Y1, ldx, RB, NP, S, lds);   // Q K^T  | K Q^T
-  mm_abt(X2, ldx, Y2, ldx, RB, NP, dP, lds);  // dO V^T | V dO^T
-  __syncthreads();
-
-  if constexpr (!kKeys) {
-    // one warp per query row: exact softmax, D = rowsum(dP o P), dS
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    for (int r = warp; r < RB; r += kWarps) {
-      float* srow = S + r * lds;
-      float* drow = dP + r * lds;
-      float m = -INFINITY;
-      for (int j = lane; j < N; j += 32) {
-        const float s = srow[j] * scale;
-        srow[j] = s;
-        m = fmaxf(m, s);
-      }
-      m = warp_max(m);
-      float l = 0.f;
-      for (int j = lane; j < N; j += 32) {
-        const float e = expf(srow[j] - m);
-        srow[j] = e;
-        l += e;
-      }
-      l = warp_sum(l);
-      float dsum = 0.f;
-      for (int j = lane; j < N; j += 32) {
-        const float p = srow[j] / l;
-        srow[j] = p;
-        dsum += drow[j] * p;
-      }
-      dsum = warp_sum(dsum);
-      for (int j = lane; j < NP; j += 32)
-        drow[j] = j < N ? srow[j] * (drow[j] - dsum) * scale : 0.f;
-      if (lane == 0 && r0 + r < N) {
-        st[r0 + r] = m;
-        st[N + r0 + r] = l;
-        st[2 * N + r0 + r] = dsum;
-      }
-    }
-  } else {
-    // P^T and dS^T from the query rows' saved statistics; the product is
-    // rounded before the subtraction, as in the query pass
-    for (int i = threadIdx.x; i < RB * NP; i += kThreads) {
-      const int r = i / NP, c = i % NP;
-      float p = 0.f, ds = 0.f;
-      if (c < N) {
-        const float s = __fmul_rn(S[r * lds + c], scale);
-        p = expf(s - Ms[c]) / Ls[c];
-        ds = p * (dP[r * lds + c] - Ds[c]) * scale;
-      }
-      S[r * lds + c] = p;
-      dP[r * lds + c] = ds;
-    }
-  }
-  __syncthreads();
-
-  mm_pb(dP, lds, Y1, ldx, RB, NP, O1, kLdo);                // dQ = dS K | dK = dS^T Q
-  if constexpr (kKeys) mm_pb(S, lds, Y2, ldx, RB, NP, O2, kLdo);  // dV = P^T dO
-  __syncthreads();
-
-  const int nown = min(RB, N - r0);
-  float* g = dqkv + ((size_t)seq * N + r0) * ld3 + h * kHeadDim + (kKeys ? C : 0);
-  for (int i = threadIdx.x; i < nown * kHeadDim; i += kThreads) {
-    const int r = i / kHeadDim, d = i % kHeadDim;
-    g[(size_t)r * ld3 + d] = O1[r * kLdo + d];
-    if constexpr (kKeys) g[(size_t)r * ld3 + C + d] = O2[r * kLdo + d];
-  }
-}
 
 // ------------------------------------------------------- backward, bf16
 // The elementwise arithmetic of both bf16 tiles, on a warp's 16 rows held
@@ -763,6 +605,483 @@ cudaError_t launch_bwd_bf16(const bf16* qkv, const bf16* dout, bf16* dqkv, int R
   return cudaGetLastError();
 }
 
+// ------------------------------------------------ backward, fp32 (tf32x3)
+// Every product is mma.sync m16n8k8 in TF32, three passes into one fp32
+// accumulator (tf32x3, `mma_1688_x3`). Its fragments are single 32-bit
+// shared-memory loads, so an operand whose reduction runs over the query
+// index (dK = dS^T Q, dV = P^T dO) is read from the same rows of kLdf as
+// any other, in another index order; a tf32 wgmma would need it K-major.
+// A warp holds 16 rows of its side; the m16n8 accumulator's columns 2t,
+// 2t + 1 are an A fragment's columns t, t + 4, and rows 2t, 2t + 1 of the
+// next B operand its k rows t, t + 4, so P and dS never leave registers.
+
+// The B fragment pair of one k-step (b0 at p, b1 at p + o1) as hi and lo
+// parts: read from the hi plane at p and the lo plane kPlane floats on, or,
+// where kPlane == 0, split here from fp32 rows.
+template <int kPlane>
+__device__ __forceinline__ void tf32_b(const float* p, int o1, uint32_t& h0, uint32_t& h1,
+                                       uint32_t& l0, uint32_t& l1) {
+  if constexpr (kPlane > 0) {
+    h0 = __float_as_uint(p[0]);
+    h1 = __float_as_uint(p[o1]);
+    l0 = __float_as_uint(p[kPlane]);
+    l1 = __float_as_uint(p[kPlane + o1]);
+  } else {
+    tf32_split(p[0], h0, l0);
+    tf32_split(p[o1], h1, l1);
+  }
+}
+
+// acc[n] += X Y^T over one k-step of 8 (kk) of the head's 64 columns: a
+// warp's 16 rows of X (fp32 rows of kLdf, split as A fragments) against
+// rows 8n .. 8n + 7 of Y, n < J. kSwap: the key side's products (K Q^T,
+// V dO^T) take their passes as hi(a) lo(b), lo(a) hi(b), hi(a) hi(b): the
+// query side's terms lo(q) hi(k), hi(q) lo(k), hi(q) hi(k), in its order.
+template <int J, int kPlane, bool kSwap>
+__device__ __forceinline__ void f32_dots_step(float (&acc)[J][4], const float* X, const float* Y,
+                                              int kk, int lane) {
+  // ldmatrix hands lane (g, t) the 32-bit element (row g, column t) of each
+  // 8 x 4 fp32 matrix whose rows lanes 8j .. 8j + 7 point at: for X, rows
+  // 0-7 and 8-15 at columns 8kk and 8kk + 4 (the A fragment); for planes,
+  // Y's rows 8n .. 8n + 7 at 8kk and 8kk + 4, hi then lo (b0, b1 of each)
+  const int g = lane / 4, t = lane % 4, lrow = lane % 8, lmat = lane / 8;
+  uint32_t x[4];
+  ldsm_x4(x, reinterpret_cast<const bf16*>(X + (lrow + (lmat & 1) * 8) * kLdf + 8 * kk +
+                                          (lmat >> 1) * 4));
+  const Tf32Frag a = tf32_frag(__uint_as_float(x[0]), __uint_as_float(x[1]),
+                               __uint_as_float(x[2]), __uint_as_float(x[3]));
+#pragma unroll
+  for (int n = 0; n < J; ++n) {
+    uint32_t h0, h1, l0, l1;
+    if constexpr (kPlane > 0) {
+      uint32_t b[4];
+      ldsm_x4(b, reinterpret_cast<const bf16*>(Y + (8 * n + lrow) * kLdf + 8 * kk +
+                                              (lmat & 1) * 4 + (lmat >> 1) * kPlane));
+      h0 = b[0], h1 = b[1], l0 = b[2], l1 = b[3];
+    } else {
+      tf32_b<0>(Y + (8 * n + g) * kLdf + 8 * kk + t, 4, h0, h1, l0, l1);
+    }
+    if constexpr (kSwap) {
+      mma_1688_tf32(acc[n], a.hi, l0, l1);
+      mma_1688_tf32(acc[n], a.lo, h0, h1);
+      mma_1688_tf32(acc[n], a.hi, h0, h1);
+    } else {
+      mma_1688_x3(acc[n], a, h0, h1, l0, l1);
+    }
+  }
+}
+
+// a = X1 Y1^T and b = X2 Y2^T over the head's 64 columns (f32_dots_step's
+// operands) in one k loop: twice the independent accumulators in flight
+template <int J, int kPlane, bool kSwap>
+__device__ __forceinline__ void f32_dots2(float (&a)[J][4], const float* X1, const float* Y1,
+                                          float (&b)[J][4], const float* X2, const float* Y2,
+                                          int lane) {
+  zero(a);
+  zero(b);
+#pragma unroll
+  for (int kk = 0; kk < kHeadDim / 8; ++kk) {
+    f32_dots_step<J, kPlane, kSwap>(a, X1, Y1, kk, lane);
+    f32_dots_step<J, kPlane, kSwap>(b, X2, Y2, kk, lane);
+  }
+}
+
+// acc += P Y: P the warp's 16 x 8J accumulator of f32_dots2 (its column
+// 8n + 2t + (e & 1) meets row 8n + 2t + (e & 1) of Y), Y rows of kLdf.
+template <int J, int kPlane>
+__device__ __forceinline__ void f32_pv(float (&acc)[kHeadDim / 8][4], const float (*p)[4],
+                                       const float* Y, int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int n = 0; n < J; ++n) {
+    const Tf32Frag a = tf32_frag(p[n][0], p[n][2], p[n][1], p[n][3]);
+#pragma unroll
+    for (int d = 0; d < kHeadDim / 8; ++d) {
+      uint32_t h0, h1, l0, l1;
+      tf32_b<kPlane>(Y + (8 * n + 2 * t) * kLdf + 8 * d + g, kLdf, h0, h1, l0, l1);
+      mma_1688_x3(acc[d], a, h0, h1, l0, l1);
+    }
+  }
+}
+
+// The query side's softmax in place: S (unscaled logits of keys 0, 1, ...)
+// -> P = exp(s - m) * (1 / l), s = dot * scale rounded before the
+// subtraction, keys at or past N p = 0; m and 1 / l of rows g and g + 8.
+template <int J>
+__device__ __forceinline__ void f32_softmax(float (&s)[J][4], float scale, int N, int t,
+                                            float (&m)[2], float (&inv)[2]) {
+  m[0] = m[1] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = 8 * j + 2 * t + (e & 1) < N ? __fmul_rn(s[j][e], scale) : -INFINITY;
+      s[j][e] = x;
+      m[e >> 1] = fmaxf(m[e >> 1], x);
+    }
+  quad_max(m);
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = expf(s[j][e] - m[e >> 1]);
+      l[e >> 1] += s[j][e];
+    }
+  quad_sum(l);
+  inv[0] = 1.0f / l[0];
+  inv[1] = 1.0f / l[1];
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] *= inv[e >> 1];
+}
+
+// dS = P o (dP - D) * scale, in place of dP
+template <int J>
+__device__ __forceinline__ void f32_ds(float (&dp)[J][4], const float (*p)[4], const float (&D)[2],
+                                       float scale) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dp[j][e] = p[j][e] * (dp[j][e] - D[e >> 1]) * scale;
+}
+
+// The key side: S^T and dP^T of the warp's 16 keys against queries
+// q0 + 8n + 2t + (e & 1) -> P^T and dS^T in place, from those queries'
+// m | 1 / l | D (Ms, Is, Ds, indexed from q0): the query side's operations,
+// so the same p; queries at or past N p = dS = 0.
+template <int J>
+__device__ __forceinline__ void f32_key_p_ds(float (&st)[J][4], float (&dpt)[J][4],
+                                             const float* Ms, const float* Is, const float* Ds,
+                                             int q0, int N, int t, float scale) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int q = 8 * j + 2 * t;
+    const float2 m = *reinterpret_cast<const float2*>(Ms + q);
+    const float2 il = *reinterpret_cast<const float2*>(Is + q);
+    const float2 d = *reinterpret_cast<const float2*>(Ds + q);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool hi = e & 1;
+      float p = expf(__fmul_rn(st[j][e], scale) - (hi ? m.y : m.x)) * (hi ? il.y : il.x);
+      float ds = p * (dpt[j][e] - (hi ? d.y : d.x)) * scale;
+      if (q0 + q + hi >= N) p = ds = 0.f;
+      st[j][e] = p;
+      dpt[j][e] = ds;
+    }
+  }
+}
+
+// Rows r0 + g and r0 + g + 8 (those below N) of a warp's 16 x 64 fp32
+// accumulator to rows of ld floats at dst.
+__device__ __forceinline__ void store_rows_f32(float* dst, int ld,
+                                               const float (&o)[kHeadDim / 8][4], int r0, int N,
+                                               int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + g + 8 * i;
+    if (r >= N) continue;
+    float* row = dst + (size_t)r * ld + 2 * t;
+#pragma unroll
+    for (int d = 0; d < kHeadDim / 8; ++d)
+      *reinterpret_cast<float2*>(row + 8 * d) = make_float2(o[d][2 * i], o[d][2 * i + 1]);
+  }
+}
+
+// ---------------------------------- fp32, 32 keys or fewer (two warps a tile)
+// Two warps take one (sequence, head): its Q, K, V and dO rows, NP = 16 NKF
+// fp32 rows of kLdf each (rows past N zero), then the query rows' m | 1 / l
+// | D, NP floats each; warp w of the pair takes rows 16w .. 16w + 15 (at
+// NKF = 1 the second warp waits). The operands are split into hi and lo as
+// they are read.
+template <int NKF>
+struct BwdShortTileF32 {
+  static constexpr int NP = 16 * NKF;
+  static constexpr int kRows = NP * kLdf;  // floats
+  static constexpr int q = 0, k = kRows, v = 2 * kRows, o = 3 * kRows, stats = 4 * kRows;
+  static constexpr size_t bytes = sizeof(float) * (4 * kRows + 3 * NP);  // a multiple of 16
+};
+
+// kBwdF32ShortTiles tiles a block, each in its own bytes: 103 KB at 32
+// keys, two blocks (12 warps) an SM.
+constexpr int kBwdF32ShortTiles = 3;
+template <int NKF>
+__global__ void __launch_bounds__(64 * kBwdF32ShortTiles, 2)
+attn_bwd_short_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                          float* __restrict__ dqkv, int N, int C, int heads, float scale,
+                          int tiles) {
+  using Tile = BwdShortTileF32<NKF>;
+  constexpr int NP = Tile::NP, J = 2 * NKF;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tl = blockIdx.x * kBwdF32ShortTiles + threadIdx.x / 64;
+  const int lane = threadIdx.x % 32, t = lane % 4, r0 = threadIdx.x / 32 % 2 * 16;
+  const bool on = tl < tiles, rows = on && r0 < N;  // this warp has a tile, and rows in it
+  float* sm = reinterpret_cast<float*>(smem + threadIdx.x / 64 * Tile::bytes);
+  float *Qs = sm + Tile::q, *Ks = sm + Tile::k, *Vs = sm + Tile::v, *Os = sm + Tile::o;
+  float* Ml = sm + Tile::stats;
+  float* Il = Ml + NP;
+  float* Dd = Il + NP;
+  const int ld3 = 3 * C, seq = tl / heads, h = tl % heads;
+  const float* qg = qkv + (size_t)seq * N * ld3 + h * kHeadDim;  // q; k at +C, v at +2C
+  float* dg = dqkv + (size_t)seq * N * ld3 + h * kHeadDim;
+  if (on) {
+    load_rows_async<float, 64>(Qs, kLdf, qg, ld3, NP, N, kHeadDim);
+    load_rows_async<float, 64>(Ks, kLdf, qg + C, ld3, NP, N, kHeadDim);
+    load_rows_async<float, 64>(Vs, kLdf, qg + 2 * C, ld3, NP, N, kHeadDim);
+    load_rows_async<float, 64>(Os, kLdf, dout + (size_t)seq * N * C + h * kHeadDim, C, NP, N,
+                               kHeadDim);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 1. the warp's query rows: P, D, dS, dQ, and their statistics
+  if (rows) {
+    float s[J][4], dp[J][4], m[2], inv[2], D[2] = {0.f, 0.f};
+    f32_dots2<J, 0, false>(s, Qs + r0 * kLdf, Ks, dp, Os + r0 * kLdf, Vs, lane);
+    f32_softmax<J>(s, scale, N, t, m, inv);
+    bwd_rowdot<NKF>(D, dp, s);
+    quad_sum(D);
+    f32_ds<J>(dp, s, D, scale);
+    float dq[kHeadDim / 8][4];
+    zero(dq);
+    f32_pv<J, 0>(dq, dp, Ks, lane);
+    store_rows_f32(dg, ld3, dq, r0, N, lane);
+    bwd_store_stats(Ml, Il, Dd, r0, m, inv, D, lane);
+  }
+  __syncthreads();  // every query row's statistics are in
+
+  // 2. the warp's key rows: P^T, dS^T, dV, dK
+  if (rows) {
+    float st[J][4], dpt[J][4], dk[kHeadDim / 8][4], dv[kHeadDim / 8][4];
+    f32_dots2<J, 0, true>(st, Ks + r0 * kLdf, Qs, dpt, Vs + r0 * kLdf, Os, lane);
+    f32_key_p_ds<J>(st, dpt, Ml, Il, Dd, 0, N, t, scale);
+    zero(dk);
+    zero(dv);
+    f32_pv<J, 0>(dv, st, Os, lane);
+    f32_pv<J, 0>(dk, dpt, Qs, lane);
+    store_rows_f32(dg + C, ld3, dk, r0, N, lane);
+    store_rows_f32(dg + 2 * C, ld3, dv, r0, N, lane);
+  }
+}
+
+// ------------------------------------------ fp32, above 32 keys (two passes)
+// A block of 4 warps takes 64 rows of one (sequence, head), a warp 16. Its
+// own two operands stay in shared memory as fp32 rows; the other side's
+// stream through two buffers in groups of 32 rows, each split once into hi
+// and lo planes by the threads that copied it (so no warp splits a B
+// operand); one barrier a group hands it to the warps and frees the other
+// buffer for the next group's copies. 103 KB a block, two blocks an SM.
+constexpr int kBwdF32Threads = 128;
+constexpr int kBwdF32Rows = 64;                     // a tile's own rows
+constexpr int kBwdF32Group = 32;                    // rows a streamed group
+constexpr int kBwdF32Plane = kBwdF32Group * kLdf;   // floats a plane
+constexpr int kBwdF32Own = 2 * kBwdF32Rows * kLdf;  // floats: the own rows
+// a group buffer: X hi, X lo, Y hi, Y lo planes, then (key pass) the
+// statistics of the group's queries, m | 1 / l | D
+constexpr int kBwdF32Buf = 4 * kBwdF32Plane + 3 * kBwdF32Group;
+constexpr size_t kBwdF32Smem = sizeof(float) * (kBwdF32Own + 2 * kBwdF32Buf);
+
+// The tile of block blockIdx.x (its 64-row block fastest, then the head,
+// then the sequence) and its shared memory: own rows X, Y, then the buffers.
+struct BwdF32Tile {
+  int seq, h, r0;
+  float *X, *Y;
+  __device__ float* buf(int b) const { return X + kBwdF32Own + b * kBwdF32Buf; }
+};
+
+__device__ __forceinline__ BwdF32Tile bwd_f32_tile(int N, int heads, unsigned char* smem) {
+  const int nrb = cdiv(N, kBwdF32Rows), t = blockIdx.x;
+  BwdF32Tile T;
+  T.r0 = t % nrb * kBwdF32Rows;
+  T.h = t / nrb % heads;
+  T.seq = t / nrb / heads;
+  T.X = reinterpret_cast<float*>(smem);
+  T.Y = T.X + kBwdF32Rows * kLdf;
+  return T;
+}
+
+// the group this thread copied into the plane at p, landed: split it into
+// p (hi) and the next plane (lo)
+__device__ __forceinline__ void bwd_f32_split(float* p) {
+  split_rows_f32<kBwdF32Threads>(p, p + kBwdF32Plane, kBwdF32Group);
+}
+
+// (a) The query pass: K and V stream by twice in groups of 32 keys. Walk
+// 1: S = Q K^T and dP = dO V^T of each group, the softmax statistics
+// online: the row max m, and l = rowsum(e) and D' = rowsum(dP o e) of e =
+// exp(s - m), both rescaled by exp(m_old - m) where m grows; then 1 / l and
+// D = D' / l = rowsum(dP o P). Walk 2: S and dP again (the same bits), P =
+// exp(s - m) * (1 / l) as the key pass forms it, dS, and dQ += dS K. Writes
+// dQ, and each query row's m | 1 / l | D to stats: per (sequence, head)
+// three runs of NS floats, NS = N rounded up to 64 (rows past N too).
+__global__ void __launch_bounds__(kBwdF32Threads, 2)
+attn_bwd_query_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                          float* __restrict__ dqkv, float* __restrict__ stats, int N, int C,
+                          int heads, float scale) {
+  constexpr int kKv = 2 * kBwdF32Plane;  // K's planes, then V's
+  extern __shared__ __align__(128) unsigned char smem[];
+  const BwdF32Tile T = bwd_f32_tile(N, heads, smem);
+  const int ld3 = 3 * C, ng = cdiv(N, kBwdF32Group), NS = cdiv(N, kBwdF32Rows) * kBwdF32Rows;
+  const float* qg = qkv + (size_t)T.seq * N * ld3 + T.h * kHeadDim;  // q; k at +C, v at +2C
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
+  const int wr = 16 * warp;  // the warp's first row in the tile
+  // item i of the stream: key group i % ng of K and V, into buffer i & 1
+  auto issue = [&](int i) {
+    if (i >= 2 * ng) return;
+    const int r = kBwdF32Group * (i % ng);
+    float* b = T.buf(i & 1);
+    copy_rows_f32<kBwdF32Threads>(b, qg + C, ld3, r, kBwdF32Group, N);
+    copy_rows_f32<kBwdF32Threads>(b + kKv, qg + 2 * C, ld3, r, kBwdF32Group, N);
+    cp_async_commit();
+  };
+  auto land = [&](int i) {
+    float* b = T.buf(i & 1);
+    cp_async_wait<0>();
+    bwd_f32_split(b);
+    bwd_f32_split(b + kKv);
+    __syncthreads();  // the group is split; every warp is done with the other buffer
+    issue(i + 1);
+    return static_cast<const float*>(b);
+  };
+  copy_rows_f32<kBwdF32Threads>(T.X, qg, ld3, T.r0, kBwdF32Rows, N);
+  copy_rows_f32<kBwdF32Threads>(T.Y, dout + (size_t)T.seq * N * C + T.h * kHeadDim, C, T.r0,
+                                kBwdF32Rows, N);
+  issue(0);  // commits the own rows with the first group
+  const float* Xw = T.X + wr * kLdf;  // the warp's Q rows
+  const float* Yw = T.Y + wr * kLdf;  // and its dO rows
+
+  // walk 1: the statistics of rows g (e = 0, 1) and g + 8 (e = 2, 3)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, D[2] = {0.f, 0.f};
+#pragma unroll 1
+  for (int i = 0; i < ng; ++i) {
+    const float* b = land(i);
+    float s[4][4], dp[4][4];
+    f32_dots2<4, kBwdF32Plane, false>(s, Xw, b, dp, Yw, b + kKv, lane);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kBwdF32Group * i + 8 * j + 2 * t + (e & 1);
+        const float x = key < N ? __fmul_rn(s[j][e], scale) : -INFINITY;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    quad_max(mx);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(m[r], mx[r]);
+      const float alpha = expf(m[r] - mn);  // 0 at the first group
+      m[r] = mn;
+      l[r] *= alpha;
+      D[r] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = expf(s[j][e] - m[e >> 1]);
+        l[e >> 1] += x;
+        D[e >> 1] = fmaf(dp[j][e], x, D[e >> 1]);
+      }
+  }
+  quad_sum(l);
+  quad_sum(D);
+  const float inv[2] = {1.0f / l[0], 1.0f / l[1]};
+  D[0] *= inv[0];
+  D[1] *= inv[1];
+  float* st = stats + ((size_t)T.seq * heads + T.h) * 3 * NS + T.r0;
+  if (lane % 4 == 0)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = wr + lane / 4 + 8 * i;
+      st[r] = m[i];
+      st[NS + r] = inv[i];
+      st[2 * NS + r] = D[i];
+    }
+
+  // walk 2: P, dS, dQ
+  float dq[kHeadDim / 8][4];
+  zero(dq);
+#pragma unroll 1
+  for (int i = 0; i < ng; ++i) {
+    const float* b = land(ng + i);
+    float s[4][4], dp[4][4];
+    f32_dots2<4, kBwdF32Plane, false>(s, Xw, b, dp, Yw, b + kKv, lane);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kBwdF32Group * i + 8 * j + 2 * t + (e & 1);
+        s[j][e] = key < N ? expf(__fmul_rn(s[j][e], scale) - m[e >> 1]) * inv[e >> 1] : 0.f;
+      }
+    f32_ds<4>(dp, s, D, scale);
+    f32_pv<4, kBwdF32Plane>(dq, dp, b, lane);
+  }
+  store_rows_f32(dqkv + (size_t)T.seq * N * ld3 + T.h * kHeadDim, ld3, dq, T.r0 + wr, N, lane);
+}
+
+// (b) The key pass: the tile's K and V rows stay; the queries' Q, dO and
+// statistics stream by in groups of 32: S^T = K Q^T and dP^T = V dO^T,
+// P^T and dS^T from the statistics, dV += P^T dO, dK += dS^T Q.
+__global__ void __launch_bounds__(kBwdF32Threads, 2)
+attn_bwd_key_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                        float* __restrict__ dqkv, const float* __restrict__ stats, int N, int C,
+                        int heads, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const BwdF32Tile T = bwd_f32_tile(N, heads, smem);
+  const int ld3 = 3 * C, ng = cdiv(N, kBwdF32Group), NS = cdiv(N, kBwdF32Rows) * kBwdF32Rows;
+  const float* qg = qkv + (size_t)T.seq * N * ld3 + T.h * kHeadDim;
+  const float* og = dout + (size_t)T.seq * N * C + T.h * kHeadDim;
+  const float* st = stats + ((size_t)T.seq * heads + T.h) * 3 * NS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
+  const int wr = 16 * warp;
+  // group i of the queries into buffer i & 1: Q, dO, and their statistics
+  // (three runs of 32 floats, 8 pieces of 16 bytes each)
+  auto issue = [&](int i) {
+    if (i >= ng) return;
+    const int r = kBwdF32Group * i;
+    float* b = T.buf(i & 1);
+    copy_rows_f32<kBwdF32Threads>(b, qg, ld3, r, kBwdF32Group, N);
+    copy_rows_f32<kBwdF32Threads>(b + 2 * kBwdF32Plane, og, C, r, kBwdF32Group, N);
+    for (int j = threadIdx.x; j < 3 * kBwdF32Group / 4; j += kBwdF32Threads) {
+      const int c = j / (kBwdF32Group / 4), o = 4 * (j % (kBwdF32Group / 4));
+      cp_async16(b + 4 * kBwdF32Plane + c * kBwdF32Group + o, st + c * NS + r + o);
+    }
+    cp_async_commit();
+  };
+  copy_rows_f32<kBwdF32Threads>(T.X, qg + C, ld3, T.r0, kBwdF32Rows, N);
+  copy_rows_f32<kBwdF32Threads>(T.Y, qg + 2 * C, ld3, T.r0, kBwdF32Rows, N);
+  issue(0);  // commits the own rows with the first group
+  const float* Kw = T.X + wr * kLdf;
+  const float* Vw = T.Y + wr * kLdf;
+  float dk[kHeadDim / 8][4], dv[kHeadDim / 8][4];
+  zero(dk);
+  zero(dv);
+#pragma unroll 1
+  for (int i = 0; i < ng; ++i) {
+    float* b = T.buf(i & 1);
+    cp_async_wait<0>();
+    bwd_f32_split(b);
+    bwd_f32_split(b + 2 * kBwdF32Plane);
+    __syncthreads();  // as the query pass's land()
+    issue(i + 1);
+    float sq[4][4], dpt[4][4];
+    f32_dots2<4, kBwdF32Plane, true>(sq, Kw, b, dpt, Vw, b + 2 * kBwdF32Plane, lane);
+    const float* Ms = b + 4 * kBwdF32Plane;
+    f32_key_p_ds<4>(sq, dpt, Ms, Ms + kBwdF32Group, Ms + 2 * kBwdF32Group, kBwdF32Group * i, N,
+                    t, scale);
+    f32_pv<4, kBwdF32Plane>(dv, sq, b + 2 * kBwdF32Plane, lane);
+    f32_pv<4, kBwdF32Plane>(dk, dpt, b, lane);
+  }
+  float* dg = dqkv + (size_t)T.seq * N * ld3 + T.h * kHeadDim;
+  store_rows_f32(dg + C, ld3, dk, T.r0 + wr, N, lane);
+  store_rows_f32(dg + 2 * C, ld3, dv, T.r0 + wr, N, lane);
+}
+
 // ---------------------------------------------------------------- host entry
 inline bool shapes_ok(int R, int N, int C, int heads) {
   return R >= 1 && N >= 1 && N <= kMaxKeys && C % 64 == 0 && heads * kHeadDim == C &&
@@ -799,31 +1118,59 @@ int attend_packed(const void* qkv, void* out, int R, int N, int C, int heads, in
                                       static_cast<cudaStream_t>(stream));
 }
 
-template <bool kKeys>
-cudaError_t launch_bwd_f32(const BwdLayout& L, dim3 grid, const float* qkv, const float* dout,
-                           float* dqkv, float* stats, int N, int C, float scale,
-                           cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(attn_bwd_f32_kernel<kKeys>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+// fp32, N <= 32: one launch, two warps a tile; above: the query pass, then
+// the key pass (same stream, so in order) through stats, a scratch of
+// R * heads * 3 * NS floats (NS = N rounded up to 64).
+template <int NKF>
+cudaError_t launch_bwd_f32_short(const float* qkv, const float* dout, float* dqkv, int R, int N,
+                                 int C, int heads, float scale, cudaStream_t stream) {
+  const long long tiles = (long long)R * heads;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int smem = (int)(kBwdF32ShortTiles * BwdShortTileF32<NKF>::bytes);
+  cudaError_t e = cudaFuncSetAttribute(attn_bwd_short_f32_kernel<NKF>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  attn_bwd_f32_kernel<kKeys><<<grid, kThreads, L.total, stream>>>(qkv, dout, dqkv, stats, N, C,
-                                                                 scale, L);
+  attn_bwd_short_f32_kernel<NKF><<<cdiv((int)tiles, kBwdF32ShortTiles), 64 * kBwdF32ShortTiles,
+                                   smem, stream>>>(qkv, dout, dqkv, N, C, heads, scale,
+                                                   (int)tiles);
   return cudaGetLastError();
 }
 
-// fp32: stats is a scratch of R * heads * 3 * N floats, written by the query
-// pass and read by the key pass (same stream, so in order).
-int attention_qkv_bwd_f32(const void* qkv, const void* dout, void* dqkv, void* stats, int R,
+cudaError_t launch_bwd_f32_passes(const float* qkv, const float* dout, float* dqkv, float* stats,
+                                  int R, int N, int C, int heads, float scale,
+                                  cudaStream_t stream) {
+  const long long tiles = (long long)R * heads * cdiv(N, kBwdF32Rows);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int smem = (int)kBwdF32Smem;
+  cudaError_t e = cudaFuncSetAttribute(attn_bwd_query_f32_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attn_bwd_key_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e != cudaSuccess) return e;
+  attn_bwd_query_f32_kernel<<<(int)tiles, kBwdF32Threads, smem, stream>>>(
+      qkv, dout, dqkv, stats, N, C, heads, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  attn_bwd_key_f32_kernel<<<(int)tiles, kBwdF32Threads, smem, stream>>>(qkv, dout, dqkv, stats, N,
+                                                                       C, heads, scale);
+  return cudaGetLastError();
+}
+
+int attention_qkv_bwd_f32(const void* qkv_, const void* dout_, void* dqkv_, void* stats_, int R,
                           int N, int C, int heads, float scale, void* stream_) {
   if (!shapes_ok(R, N, C, heads)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const BwdLayout L = bwd_layout_f32(N);
-  const dim3 grid(R, heads, cdiv(N, L.RB));
-  cudaError_t e = launch_bwd_f32<false>(L, grid, (const float*)qkv, (const float*)dout,
-                                        (float*)dqkv, (float*)stats, N, C, scale, stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)launch_bwd_f32<true>(L, grid, (const float*)qkv, (const float*)dout, (float*)dqkv,
-                                   (float*)stats, N, C, scale, stream);
+  const float* qkv = static_cast<const float*>(qkv_);
+  const float* dout = static_cast<const float*>(dout_);
+  float* dqkv = static_cast<float*>(dqkv_);
+  float* stats = static_cast<float*>(stats_);
+  cudaError_t e;
+  if (N <= 16) e = launch_bwd_f32_short<1>(qkv, dout, dqkv, R, N, C, heads, scale, stream);
+  else if (N <= 32) e = launch_bwd_f32_short<2>(qkv, dout, dqkv, R, N, C, heads, scale, stream);
+  else if (stats == nullptr) e = cudaErrorInvalidValue;
+  else e = launch_bwd_f32_passes(qkv, dout, dqkv, stats, R, N, C, heads, scale, stream);
+  return (int)e;
 }
 
 // bf16: one launch, no scratch; the tile's key fragments as the forward

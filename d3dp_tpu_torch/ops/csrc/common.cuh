@@ -672,11 +672,12 @@ __device__ __forceinline__ void mma_1688_x3(float (&d)[4], const Tf32Frag& a, ui
 
 // Start copying rows [r0, r0 + rows) of one head (64 fp32 a row, global row
 // stride ld) into shared rows of kLdf; rows at or past N are zero-filled.
-// Thread i copies the 16-byte pieces i, i + kThreads, ... (`split_rows_f32`
-// walks the same ones).
+// Thread i of a block of kTeam copies the 16-byte pieces i, i + kTeam, ...
+// (`split_rows_f32` walks the same ones).
+template <int kTeam = kThreads>
 __device__ __forceinline__ void copy_rows_f32(float* dst, const float* src, int ld, int r0,
                                               int rows, int N) {
-  for (int i = threadIdx.x; i < rows * 16; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * 16; i += kTeam) {
     const int r = i / 16, c = (i % 16) * 4;
     const bool ok = r0 + r < N;
     cp_async16_zfill(dst + r * kLdf + c, ok ? src + (size_t)(r0 + r) * ld + c : src, ok);
@@ -685,8 +686,9 @@ __device__ __forceinline__ void copy_rows_f32(float* dst, const float* src, int 
 
 // The pieces this thread copied with copy_rows_f32 into the plane at hi,
 // landed: hi = tf32 of each element in place, lo = tf32 of the remainder.
+template <int kTeam = kThreads>
 __device__ __forceinline__ void split_rows_f32(float* hi, float* lo, int rows) {
-  for (int i = threadIdx.x; i < rows * 16; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * 16; i += kTeam) {
     const int o = (i / 16) * kLdf + (i % 16) * 4;
     const float4 x = *reinterpret_cast<const float4*>(hi + o);
     uint4 h, l;

@@ -136,14 +136,18 @@ def test_fused_attention_qkv_kernel_matches_plain(np_rng, dtype, R, N):
     assert _excess(got, want, dtype, TOL_QKV) <= 0
 
 
-# the backward's own tiles: a warp a tile at 16 and 32 keys, a block a tile
-# of 64, 128 or 256 keys above
-BWD_EDGE_SHAPES = [(6, 16), (4, 48), (4, 63), (3, 64), (3, 128), (3, 129)]
+# the backward's own tiles: bf16 a warp a tile at 16 and 32 keys, a block a
+# tile of 64, 128 or 256 keys above; fp32 two warps a tile at 16 and 32
+# keys, above 64-row tiles over groups of 32 keys (N = 1, 8, 31, 32, 33, 63,
+# 64, 65, 127, 128, 129, 192, 243, 255, 256 with the shapes above)
+BWD_EDGE_SHAPES = [(6, 16), (4, 48), (4, 63), (3, 64), (3, 128), (3, 129), (3, 8), (3, 31),
+                   (3, 127)]
+BWD_SHAPES = QKV_SHAPES + TILE_EDGE_SHAPES + BWD_EDGE_SHAPES
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("R,N", QKV_SHAPES + TILE_EDGE_SHAPES + BWD_EDGE_SHAPES)
+@pytest.mark.parametrize("R,N", BWD_SHAPES)
 def test_fused_attention_qkv_bwd_kernel_matches_plain(np_rng, dtype, R, N):
     dev = _cuda()
     qkv, dout = _qkv_inputs(np_rng, R, N, dev, dtype)
@@ -157,12 +161,13 @@ def test_fused_attention_qkv_bwd_kernel_matches_plain(np_rng, dtype, R, N):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N", [17, 243])
-def test_fused_attention_qkv_bwd_is_deterministic(np_rng, N):
-    """bf16: two calls give the same bits, and a sequence's d(qkv) does not
-    depend on the other sequences of the batch (R = 1 against R = 5)."""
+def test_fused_attention_qkv_bwd_is_deterministic(np_rng, dtype, N):
+    """Two calls give the same bits, and a sequence's d(qkv) does not depend
+    on the other sequences of the batch (R = 1 against R = 5)."""
     dev = _cuda()
-    qkv, dout = _qkv_inputs(np_rng, 5, N, dev, torch.bfloat16)
+    qkv, dout = _qkv_inputs(np_rng, 5, N, dev, dtype)
     a = tattn.fused_attention_qkv_bwd(qkv, dout, 8, 0.125)
     b = tattn.fused_attention_qkv_bwd(qkv, dout, 8, 0.125)
     one = tattn.fused_attention_qkv_bwd(qkv[2:3].contiguous(), dout[2:3].contiguous(), 8, 0.125)
@@ -172,10 +177,10 @@ def test_fused_attention_qkv_bwd_is_deterministic(np_rng, N):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("R,N", [(16, 17), (4, 243)])
+@pytest.mark.parametrize("R,N", BWD_SHAPES)
 def test_fused_attention_qkv_bwd_kernel_matches_autograd_of_plain(np_rng, R, N):
-    """fp32: the backward kernel against torch.autograd through the plain
-    forward (summation order only)."""
+    """fp32: the backward kernel (three TF32 passes a product) against
+    torch.autograd through the plain forward, at every tile edge."""
     dev = _cuda()
     qkv, dout = _qkv_inputs(np_rng, R, N, dev, torch.float32)
     qkv.requires_grad_(True)
