@@ -2601,15 +2601,22 @@ def lab_kernels(torch, rows, errs):
     computes the same function, that call: for the grouped stage the
     ungrouped library stage, for noy2 the library stage without LN2, for
     nogelu the library MLP without GELU; none rounds like fold0, bf16exp or
-    bf16gelu. Bounds are those of the kernel the switch modifies."""
+    bf16gelu. Bounds are those of the kernel the switch modifies. Grouped K1
+    is also timed in fp32 at g = 8, 15, 18 beside ungrouped fp32 K1 (each
+    with its launches' device times) and the fp32 library stage (TF32 off),
+    the TF32 planes made outside the timed calls: returned as rows, bounds
+    at the three-pass TF32 rate."""
     import torch.nn.functional as Fn
     from d3dp_tpu_torch.ops import attention as A
     from d3dp_tpu_torch.ops import mlp as M
     from d3dp_tpu_torch.ops import resident as R
 
+    from d3dp_tpu_torch.ops import tf32
+
     gen = torch.Generator(device="cuda").manual_seed(60)
     bf, f32 = torch.bfloat16, torch.float32
     sc = 0.125
+    rows_f32 = {}
 
     def held(name, label, dt, pairs, equal=True):
         torch.cuda.synchronize()
@@ -2669,6 +2676,18 @@ def lab_kernels(torch, rows, errs):
                 del got, want
             if label == "spatial":
                 la = lib_stage_args(a) if dt == bf else None
+                if dt == f32:
+                    pa = (tf32.planes(a[1]), tf32.planes(a[3]))
+                    lib_args = [a[0], a[1].t().contiguous(), a[2], a[3].t().contiguous(), *a[4:]]
+                    k1 = lambda: A.attention_stage(*a, HEADS, sc, 1e-6, planes=pa)
+                    rows_f32[f"attention_stage/{label}"] = dict(
+                        shape=list(a[0].shape), flops=flops, bytes=nbytes * 2 - 8 * C * 4,
+                        ms=time_ms(torch, k1, reps=5),
+                        plain_ms=time_ms(torch, lambda: A.attention_stage_plain(
+                            *a, HEADS, sc, 1e-6), reps=2),
+                        library_ms=time_ms(torch, lambda: lib_a(*lib_args), reps=5),
+                        launches_ms=launch_split(torch, k1))
+                    del lib_args
                 for g in (8, 15, 18):
                     name = f"attention_stage[group{g}]"
                     with env_vars(LAB[name][0]):
@@ -2677,6 +2696,15 @@ def lab_kernels(torch, rows, errs):
                                                    sc, 1e-6, mask_block=N)
                     pairs = [(gv, w.view(Rr, N, C)) for gv, w in zip(got, want)]
                     held(name, label, dt, pairs + (list(zip(got, base)) if dt == f32 else []))
+                    if dt == f32:
+                        with env_vars(LAB[name][0]):
+                            k1g = lambda: A.attention_stage(*a, HEADS, sc, 1e-6, planes=pa)
+                            rows_f32[f"{name}/{label}"] = dict(
+                                rows_f32[f"attention_stage/{label}"], ms=time_ms(torch, k1g, reps=5),
+                                plain_ms=time_ms(torch, lambda g=g: A.attention_stage_plain(
+                                    a[0].view(Rr // g, g * N, C), *a[1:], HEADS, sc, 1e-6,
+                                    mask_block=N), reps=2),
+                                launches_ms=launch_split(torch, k1g))
                     if dt == bf:
                         timed(name, label, a[0].shape,
                               lambda: A.attention_stage(*a, HEADS, sc, 1e-6),
@@ -2799,6 +2827,13 @@ def lab_kernels(torch, rows, errs):
             log(f"[lab-timing] {key} bf16 x{tuple(r['shape'])}: kernel {r['ms']:.4f} ms, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
                 f"library {lib}")
+    for key, r in rows_f32.items():
+        r["bound_ms"], r["bound_by"] = bound_ms(r["flops"], r["bytes"], PEAK_TF32 / 3)
+        log(f"[lab-timing] {key} fp32 x{tuple(r['shape'])}: kernel {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, three TF32 passes), plain "
+            f"{r['plain_ms']:.4f} ms, library (ungrouped, TF32 off) {r['library_ms']:.4f} ms; "
+            "launches " + ", ".join(f"{k} {v:.4f} ms" for k, v in r["launches_ms"].items()))
+    return rows_f32
 
 
 def phase_lab_switches(torch, record, d3dp, x2d, x2d_f, rows):
@@ -2823,7 +2858,7 @@ def phase_lab_switches(torch, record, d3dp, x2d, x2d_f, rows):
 
     t0 = time.perf_counter()
     errs, launches, out = {}, {}, {}
-    lab_kernels(torch, rows, errs)
+    out["kernel_rows_fp32"] = lab_kernels(torch, rows, errs)
 
     def sample(tag, settings, level, seed, reps, want):
         set_level(d3dp.model, level)
@@ -3845,8 +3880,9 @@ def tp_mlp_args(torch, a, tp, j):
 
 def check_tp_kernels(torch, errs):
     """Phase tp (i): K1-tp, K8-tp (the head-major partial stage), K6-tp,
-    K2/K5-tp and residual_ln against their plain versions, at tp 2 and 4
-    (4 and 2 heads a rank; 512 and 256 hidden units), at the eval path's 40
+    K2/K5-tp and residual_ln against their plain versions, at tp 2, 4 and 8
+    (4, 2 and 1 heads a rank; 512, 256 and 128 hidden units; tp 8 at the
+    train step's shapes in place of the eval path's), at the eval path's 40
     rows and at token-row counts around the tiles, fp32 and bf16; the
     ranks' partials summed and finished by residual_ln against the whole
     K1, K8, K6, K2 (transposed) and K5 (rows); then residual_ln with its
@@ -3875,9 +3911,10 @@ def check_tp_kernels(torch, errs):
             if dt == torch.bfloat16:
                 errs[name] = max(errs.get(name, 0.0), *(e for e, _ in es))
 
-        for tp in (2, 4):
+        for tp in (2, 4, 8):
             heads = HEADS // tp
-            shapes = (("spatial", ROWS * F, J), ("temporal", ROWS * J, F)) + tuple(
+            shapes = (TRAIN_SHAPES if tp == 8 else (
+                ("spatial", ROWS * F, J), ("temporal", ROWS * J, F))) + tuple(
                 (f"edge ({r}, {n})", r, n) for r, n in TP_EDGES)
             for label, R, N in shapes:
                 tag = f"tp {tp} {label} x({R}, {N}, {C})"
@@ -3921,7 +3958,9 @@ def check_tp_kernels(torch, errs):
                      RL.residual_ln(b[1], total, b[3], b[4], b[5], 1e-6),
                      A.attention_block(*b, HEADS, scale, 1e-6))
                 del a, b, parts, total, got
-            mlp_shapes = (("spatial->temporal", ROWS, F, J), ("temporal->spatial", ROWS, J, F)) \
+            n_rows = BT if tp == 8 else ROWS
+            mlp_shapes = (("spatial->temporal", n_rows, F, J),
+                          ("temporal->spatial", n_rows, J, F)) \
                 + tuple((f"edge {(r, d1, d2)}", r, d1, d2) for r, d1, d2 in TP_MLP_EDGES)
             for label, rows, D1, D2 in mlp_shapes:
                 tag = f"tp {tp} {label} x({rows}, {D1}, {D2}, {C})"
@@ -4144,6 +4183,107 @@ def tp_kernel_rows(torch, Fn, rows=TP_ROWS, tp=TP):
             + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {r['flops'] / 1e9:.2f} GFLOP, "
             f"{r['bytes'] / 1e6:.1f} MB), plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']:.4f} ms")
+    return out
+
+
+def tp_kernel_rows_fp32(torch, Fn, tp=TP):
+    """Phase tp (iv), fp32 (the default dtype, in which the
+    `D3DP_TRAIN_FUSED=1` tp step runs): K1-tp, K8-tp, K6-tp and K2/K5-tp on
+    rank 0's share at the train step's shapes (4 x 243 frames), each timed
+    (CUDA events) beside the whole kernel at the same rows, its plain
+    version, the fp32 library sequence for the same work (TF32 off) and its
+    bound at the three-pass TF32 rate; the stage forms also split into
+    their ln_qkv, attend and proj_ln2 launches (device time). The TF32
+    planes are made outside the timed calls."""
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import mlp as M
+    from d3dp_tpu_torch.ops import tf32
+
+    f32 = torch.float32
+    check(not (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32),
+          "TF32 is on for the fp32 library calls")
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    heads, cl, hl = HEADS // tp, C // tp, HIDDEN // tp
+    scale = (C // HEADS) ** -0.5
+    out = {}
+    for label, R, N in TRAIN_SHAPES:
+        T = R * N
+        a = stage_inputs(torch, gen, R, N, f32)
+        sa = tp_stage_args(torch, a, tp, 0)
+        psa = (tf32.planes(sa[1]), tf32.planes(sa[5]))
+        pa = (tf32.planes(a[1]), tf32.planes(a[3]))
+        lib = library_stage_partial(torch, Fn, heads)
+        lib_args = (sa[0], sa[1].t().contiguous(), sa[2], sa[5].t().contiguous(), sa[3], sa[4])
+        k1tp = lambda: A.attention_stage_partial(*sa, heads, scale, 1e-6, planes=psa)
+        out[f"attention_stage_partial/train {label}"] = dict(
+            shape=list(a[0].shape), tp=tp,
+            flops=2 * T * C * 3 * cl + 4 * T * N * cl + 2 * T * cl * C,
+            bytes=T * C * 4 + (3 * C * cl + cl * C) * 4 + (3 * cl + 2 * C) * 4 + T * C * 4,
+            ms=time_ms(torch, k1tp, reps=10),
+            whole_ms=time_ms(torch, lambda: A.attention_stage(*a, HEADS, scale, 1e-6, planes=pa),
+                             reps=10),
+            plain_ms=time_ms(torch, lambda: A.attention_stage_partial_plain(
+                *sa, heads, scale, 1e-6), reps=3),
+            library_ms=time_ms(torch, lambda: lib(*lib_args), reps=10),
+            launches_ms=launch_split(torch, k1tp))
+        hm = (sa[0], *A.stack_head_major(sa[1], sa[2], heads), *sa[3:])
+        phm = (tf32.planes(hm[1]), psa[1])
+        whole_hm = (a[0], *A.stack_head_major(a[1], a[2], HEADS), *a[3:])
+        pwhm = (tf32.planes(whole_hm[1]), pa[1])
+        k8tp = lambda: A.attention_stage_hm_partial(*hm, heads, scale, 1e-6, planes=phm)
+        out[f"attention_stage_hm_partial/train {label}"] = dict(
+            out[f"attention_stage_partial/train {label}"],
+            ms=time_ms(torch, k8tp, reps=10),
+            whole_ms=time_ms(torch, lambda: A.attention_stage_hm(
+                *whole_hm, HEADS, scale, 1e-6, planes=pwhm), reps=10),
+            plain_ms=time_ms(torch, lambda: A.attention_stage_hm_partial_plain(
+                *hm, heads, scale, 1e-6), reps=3),
+            launches_ms=launch_split(torch, k8tp))
+        del a, sa, psa, pa, lib_args, hm, phm, whole_hm, pwhm
+        b = block_inputs(torch, gen, R, N, f32)
+        qkv_j, wp_j = tp_block_args(torch, b, tp, 0)
+        pwp, pb = (tf32.planes(wp_j),), (tf32.planes(b[2]),)
+        wp_t = wp_j.t().contiguous()
+
+        def lib_block():
+            q, k, v = qkv_j.view(R, N, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
+            o = Fn.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(R, N, cl)
+            return Fn.linear(o, wp_t)
+        out[f"attention_block_partial/train {label}"] = dict(
+            shape=list(qkv_j.shape), tp=tp, flops=4 * T * N * cl + 2 * T * cl * C,
+            bytes=T * 3 * cl * 4 + cl * C * 4 + T * C * 4,
+            ms=time_ms(torch, lambda: A.attention_block_partial(
+                qkv_j, wp_j, heads, scale, planes=pwp), reps=10),
+            whole_ms=time_ms(torch, lambda: A.attention_block(*b, HEADS, scale, 1e-6, planes=pb),
+                             reps=10),
+            plain_ms=time_ms(torch, lambda: A.attention_block_partial_plain(
+                qkv_j, wp_j, heads, scale), reps=3),
+            library_ms=time_ms(torch, lib_block, reps=10))
+        del b, qkv_j, wp_j, pwp, pb, wp_t
+    T = BT * F * J
+    a = mlp_inputs(torch, gen, F, J, f32, rows=BT)
+    ma = tp_mlp_args(torch, a, tp, 0)
+    pm = (tf32.planes(ma[1]), tf32.planes(ma[3]))
+    pwm = (tf32.planes(a[2]), tf32.planes(a[4]))
+    lib_w = (ma[1].t().contiguous(), ma[2], ma[3].t().contiguous())
+    out["mlp_block_partial/train rows"] = dict(
+        shape=list(ma[0].shape), tp=tp, flops=4 * T * C * hl,
+        bytes=T * C * 4 + 2 * C * hl * 4 + hl * 4 + T * C * 4,
+        ms=time_ms(torch, lambda: M.mlp_block_partial(*ma, planes=pm), reps=10),
+        whole_ms=time_ms(torch, lambda: M.mlp_block_t(*a, 1e-6, planes=pwm), reps=10),
+        plain_ms=time_ms(torch, lambda: M.mlp_block_partial_plain(*ma), reps=3),
+        library_ms=time_ms(torch, lambda: Fn.linear(Fn.gelu(Fn.linear(
+            ma[0], lib_w[0], lib_w[1])), lib_w[2]), reps=10))
+    del a, ma, pm, pwm, lib_w
+    for name, r in out.items():
+        r["bound_ms"], r["bound_by"] = bound_ms(r["flops"], r["bytes"], PEAK_TF32 / 3)
+        log(f"[tp] timing {name} fp32 x{tuple(r['shape'])} (rank 0 of tp {tp}): kernel "
+            f"{r['ms']:.4f} ms, the whole kernel at these rows {r['whole_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, three TF32 passes; "
+            f"{r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.1f} MB), plain "
+            f"{r['plain_ms']:.4f} ms, library (TF32 off) {r['library_ms']:.4f} ms"
+            + ("; launches " + ", ".join(f"{k} {v:.4f} ms" for k, v in r["launches_ms"].items())
+               if "launches_ms" in r else ""))
     return out
 
 
@@ -4416,11 +4556,12 @@ def phase_tp(torch, record, errs, rows):
     """Tensor parallelism (`--tp`, parallel/mesh.py's split, parallel/tp.py,
     the partial forms and residual_ln) at the published width:
       (i) K1-tp, K8-tp, K6-tp, K2/K5-tp and residual_ln (with and without
-          its DropPath scale) against their plain versions at tp 2 and 4
+          its DropPath scale) against their plain versions at tp 2, 4 and 8
           and at the tiles' edges, the partials' sums against the whole
           kernels (K8, and K1-dp, K2-dp, K5-dp through residual_ln's
           DropPath form; `check_tp_kernels`), and each timed at a rank's
-          rows (`tp_kernel_rows`, into `rows`);
+          rows (`tp_kernel_rows`, into `rows`; in fp32 at the train step's
+          shapes, `tp_kernel_rows_fp32`);
       (ii) two ranks sharing the card over gloo at tp=2: the Eval config on
           one window (10 hypothesis rows), fp32 at levels 4 and 5 and bf16
           at levels 2-5, equal to one process on the same weights and noise
@@ -4445,6 +4586,7 @@ def phase_tp(torch, record, errs, rows):
     t_phase = time.perf_counter()
     check_tp_kernels(torch, errs)
     rows.update(tp_kernel_rows(torch, Fn))
+    record["tp_kernel_rows_fp32"] = tp_kernel_rows_fp32(torch, Fn)
     ref = {}
     for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         losses, params, step_s, _, key_grads, d3dp = dp_train(torch, None, dt)

@@ -30,8 +30,9 @@
 // (R, N, 3 * C_l), C_l = heads * 64, then its rows of the projection, (C_l,
 // C), written raw in fp32 (R, N, C): no bias, residual or LN2, which follow
 // the all-reduce over the ranks (residual_ln.cu). The projection is the
-// walk's `kPartial` epilogue (`launch_proj_partial`, stage.cuh), shared
-// with the stage's partial form.
+// walk's `kPartial` epilogue (`launch_proj_partial`, stage.cuh) in either
+// type (fp32: the rank's Wp as its TF32 planes, (2, C, C_l)), shared with
+// the stage's partial form.
 #include "stage.cuh"
 
 namespace d3dp {
@@ -86,8 +87,8 @@ int d3dp_attention_block_f32(const void* qkv, const void* res, const void* wp, c
                                       scale, eps, stream);
 }
 
-// K6-tp: qkv (R, N, 3 * heads * 64), wp (heads * 64, C), o scratch (R, N,
-// heads * 64), part (R, N, C) fp32.
+// K6-tp: qkv (R, N, 3 * heads * 64), wp (heads * 64, C) (fp32: its planes,
+// (2, C, heads * 64)), o scratch (R, N, heads * 64), part (R, N, C) fp32.
 int d3dp_attention_block_partial_bf16(const void* qkv, const void* wp, void* o, void* part, int R,
                                       int N, int C, int heads, float scale, void* stream) {
   return d3dp::attention_block_partial<d3dp::bf16>(qkv, wp, o, part, R, N, C, heads, scale,

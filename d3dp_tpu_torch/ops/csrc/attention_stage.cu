@@ -21,8 +21,9 @@
 //   mask_block (D3DP_SPATIAL_GROUP=g; K1 only): the caller folds g sequences
 //     of N0 <= 32 tokens into one of g * N0 (a view), and attend masks every
 //     key outside the query's own block of N0, as JAX's additive -1e30 mask
-//     does. A block of <=64 queries then reads only the whole blocks its
-//     queries span, at most 64 + 2 * 32 keys, so g * N0 may exceed 256.
+//     does. bf16's tile reads only the whole blocks a pass of queries spans;
+//     fp32 runs its short tile on each block of N0 alone (p of every other
+//     key is 0 exactly), so g * N0 may exceed 256.
 //
 // What bounds it on the H100: the two projections (2*T*C*3C + 2*T*C*C FLOPs
 // over T tokens) dominate; attention adds 4*T*N*C. At the MixSTE shapes
@@ -53,9 +54,10 @@
 //                sequence with all its heads a tile on a persistent grid,
 //                its rows brought by bulk copies into a ring of stages,
 //                a warp a head on mma.sync registers. fp32 runs its
-//                tensor-core tile (mma.sync m16n8k8 in three TF32 passes,
-//                a (sequence, head) a tile, every key's logit in registers;
-//                masked: the shared-memory body).
+//                tensor-core walk above 32 keys (mma.sync m16n8k8 in three
+//                TF32 passes, a (sequence, head) a tile) and the short tile
+//                on FMAs at 32 or fewer, masked ones included (each block
+//                of mask_block tokens a sequence).
 //                fp32: p is divided by l before P.V; bf16: P.V runs on the
 //                unnormalised bf16 p and 1/l is folded into the output,
 //                which is rounded to bf16 before the projection.
@@ -82,8 +84,10 @@
 // heads, and the projection over the rank's C_l rows of Wp, (C_l, C),
 // written raw in fp32 (R, N, C) with no bias, residual or LN2: the caller
 // all-reduces the ranks' partials and runs residual_ln.cu. The three
-// launches are K1's (`launch_ln_qkv` with `heads` beside C; the
-// projection walk's `kPartial` epilogue, `launch_proj_partial`). The TPU
+// launches are K1's in either type (`launch_ln_qkv` with `heads` beside C,
+// an odd count ending in a 64-column chunk; the projection walk's
+// `kPartial` epilogue, `launch_proj_partial`); fp32 takes the rank's
+// matrices as their TF32 hi and lo planes, as the whole stage does. The TPU
 // package has no such kernel: under its tp mesh XLA runs the stage kernel
 // on gathered operands. Bounds as K1's, by the rank's share of the
 // products, plus C fp32 partials a token row out (4 bytes a value: the
@@ -146,7 +150,8 @@ int attention_stage(const void* x, const void* wqkv, const void* bqkv, const voi
 // The tensor-parallel partial forms (file header): x (R, N, C); wp (heads *
 // 64, C); o (R, N, heads * 64); part (R, N, C) fp32. K1-tp: wqkv (C, 3 *
 // heads * 64), qkv scratch (R, N, 3 * heads * 64). K8-tp (kHeadMajor): wqkv
-// (heads, C, 3d), bqkv (heads, 3d), qkv scratch (heads, R*N, 3d).
+// (heads, C, 3d), bqkv (heads, 3d), qkv scratch (heads, R*N, 3d). fp32 takes
+// wqkv and wp as their planes (the whole forms' layouts at the rank's sizes).
 template <typename T, bool kHeadMajor>
 int attention_stage_partial(const void* x, const void* wqkv, const void* bqkv, const void* ln1s,
                             const void* ln1b, const void* wp, void* qkv, void* o, void* part,
@@ -154,21 +159,14 @@ int attention_stage_partial(const void* x, const void* wqkv, const void* bqkv, c
                             float scale, float eps, void* stream_) {
   const int Cl = heads * kHeadDim;
   if (R < 1 || N < 1 || !attn_keys_ok(N, mask_block) || !stage_shape_ok<T>(C) || heads < 1 ||
-      Cl > C || (std::is_same<T, bf16>::value ? (3 * Cl) % kQkvChunk : Cl % 64) ||
-      R > 0x7fffffff / N || (kHeadMajor && mask_block))
+      Cl > C || R > 0x7fffffff / N || (kHeadMajor && mask_block))
     return (int)cudaErrorInvalidValue;
   const AttnOpts ao = attn_opts(opts & ~kOptNoY2, mask_block);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const int M = R * N;
-  int e = 0;
-  if constexpr (std::is_same<T, float>::value)
-    e = launch_ln_qkv_fma<kHeadMajor>((const float*)x, (const float*)wqkv, (const float*)bqkv,
-                                      (const float*)ln1s, (const float*)ln1b, (float*)qkv, M, C,
-                                      heads, eps, stream);
-  else
-    e = launch_ln_qkv<T, kHeadMajor>((const T*)x, (const T*)wqkv, (const float*)bqkv,
-                                     (const float*)ln1s, (const float*)ln1b, (T*)qkv, M, C,
-                                     heads, eps, stream);
+  int e = launch_ln_qkv<T, kHeadMajor>((const T*)x, (const T*)wqkv, (const float*)bqkv,
+                                       (const float*)ln1s, (const float*)ln1b, (T*)qkv, M, C,
+                                       heads, eps, stream);
   if (e) return e;
   if constexpr (kHeadMajor) {
     // as K8: head h's slab starts at h * M * 3d (see attention_stage)
@@ -228,6 +226,8 @@ int d3dp_attention_stage_hm_f32(D3DP_STAGE_ARGS, D3DP_STAGE_TAIL) {
 }
 
 // K1-tp: a rank's `heads` heads; part (R, N, C) fp32 (the partial form above).
+// fp32: wqkv and wp are their hi and lo planes, (2, 3 * heads * 64, C) and
+// (2, C, heads * 64); K8-tp's wqkv (heads, 2, 3d, C).
 #define D3DP_PARTIAL_ARGS                                                                       \
   const void *x, const void *wqkv, const void *bqkv, const void *ln1s, const void *ln1b,       \
       const void *wp, void *qkv, void *o, void *part, int R, int N, int C, int heads, int opts, \

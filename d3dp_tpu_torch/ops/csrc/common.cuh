@@ -6,14 +6,13 @@
 //
 // Matrix products: every GEMM runs on Hopper's wgmma, 64 rows a
 // warpgroup, its weights fed to shared memory by TMA: the MLP walk
-// (mlp.cuh) and the stage's ln_qkv and proj_ln2 walks (stage.cuh). fp32,
-// the default dtype of every entry point, multiplies in three TF32 passes
-// from the weights' hi and lo planes (tf32x3, mlp.cuh), the Hopper form of
-// the TPU kernels' fp32 products at Precision.HIGHEST. Only the
-// tensor-parallel partial forms keep, in fp32, the 16-row FMA tiles here
-// (`ln_qkv_tile`, `proj_partial_tile`, and the MLP's).
+// (mlp.cuh) and the stage's ln_qkv and proj_ln2 walks (stage.cuh), whole or
+// as a tensor-parallel rank's share. fp32, the default dtype of every entry
+// point, multiplies in three TF32 passes from the weights' hi and lo planes
+// (tf32x3, mlp.cuh), the Hopper form of the TPU kernels' fp32 products at
+// Precision.HIGHEST.
 // The per-head attention (`attend_short_walk`, `attend_mma_walk`,
-// `attend_f32_walk`, `attend_tile_smem`) works on sequences and heads
+// `attend_f32_walk`) works on sequences and heads
 // instead of token rows. It replaces the attention inside the TPU kernels of
 // d3dp_tpu/ops/attention.py
 // (`_attn_kernel`, `_attn_fused_qkv_kernel`, `_attn_block_kernel`,
@@ -27,7 +26,12 @@
 //     the warps, a warp a head: bf16 on mma.sync registers, fp32 on FMAs
 //     (`attend_short_walk`); the launches and the depth-resident kernel run
 //     the same walk;
-//   * bf16 above 32 keys, or masked (the grouped lab switch): the tensor-core
+//   * fp32 masked (the grouped lab switch, blocks of mask_block <= 32
+//     tokens): the same short tile on the unfolded view, each block of
+//     mask_block tokens one sequence: every key outside a query's block has
+//     p = 0 exactly under the mask, so the masked softmax over the fold is
+//     the softmax over the query's own block (`launch_attend`);
+//   * bf16 above 32 keys, or masked: the tensor-core
 //     tile, one (sequence, head) a tile, its key and value rows read once
 //     with cp.async in 64-key groups, the logits, the exact softmax and P in
 //     mma.sync m16n8k16 registers (`attend_mma_compute`). At 255 registers a
@@ -37,10 +41,7 @@
 //     (`attend_mma_walk`); the depth-resident kernel computes S in parts;
 //   * fp32 above 32 keys: the tensor-core walk (`attend_f32_walk`), the
 //     bf16 walk's structure with the keys and values streamed in 64-key
-//     cp.async groups through two buffers, three TF32 passes a product;
-//   * fp32 masked (the grouped lab switch): the shared-memory body
-//     (`attend_tile_smem`), one block per (sequence, head, <=64 queries), on
-//     FMAs.
+//     cp.async groups through two buffers, three TF32 passes a product.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,15 +56,8 @@ namespace d3dp {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBN = 64;  // output columns per block-GEMM step
-constexpr int kBK = 64;  // rows of B staged in shared memory per step
 
 using bf16 = __nv_bfloat16;
-
-// fp32 FMA row-block tiles (the tensor-parallel partial forms): 16 token rows a block,
-// rows padded by 4 elements.
-constexpr int kF32Rows = 16;
-constexpr int kF32Pad = 4;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -155,10 +149,6 @@ __device__ __forceinline__ void load_rows(T* dst, int lds, const T* src, int ldg
   }
 }
 
-// B slabs stream through shared memory with cp.async, kStages deep: the
-// copy of slab k+kStages-1 is in flight while slab k is multiplied.
-constexpr int kStages = 3;
-
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
@@ -202,74 +192,6 @@ __device__ __forceinline__ void load_rows_async(T* dst, int lds, const T* src, i
     const bool ok = r < valid;
     cp_async16_zfill(dst + r * lds + c, src + (size_t)(ok ? r : 0) * ldg + c, ok);
   }
-}
-
-// Start copying a kBK x kBN slab of row-major B (global, row stride ldb)
-// into one stage of Bs (row stride kBN + PAD).
-__device__ __forceinline__ void stage_b_async(float* Bs, const float* B, int ldb) {
-  constexpr int ldbs = kBN + kF32Pad;
-  constexpr int vec = 4;
-#pragma unroll
-  for (int i = 0; i < (kBK * kBN / vec) / kThreads; ++i) {
-    const int v = threadIdx.x + i * kThreads;
-    const int r = v / (kBN / vec), c = (v % (kBN / vec)) * vec;
-    cp_async16(Bs + r * ldbs + c, B + (size_t)r * ldb + c);
-  }
-}
-
-__host__ __device__ constexpr int slab_elems() { return kBK * (kBN + kF32Pad); }
-
-// The fp32 GEMM's slab pipeline: calls mma(slab, k0) for every kBK-deep
-// slab of B in order, with the next slabs' copies in flight.
-template <typename Mma>
-__device__ __forceinline__ void pipeline_b(const float* B, int ldb, int K, float* Bs, Mma mma) {
-  const int nk = K / kBK;
-  __syncthreads();  // every stage of Bs is free (earlier users are done)
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) stage_b_async(Bs + s * slab_elems(), B + (size_t)s * kBK * ldb, ldb);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();  // this thread's copies of slab kt landed
-    __syncthreads();               // everyone's did; slab kt-1 is consumed
-    const int nxt = kt + kStages - 1;
-    if (nxt < nk)
-      stage_b_async(Bs + (nxt % kStages) * slab_elems(), B + (size_t)nxt * kBK * ldb, ldb);
-    cp_async_commit();  // possibly empty: keeps the group count uniform
-    mma(Bs + (kt % kStages) * slab_elems(), kt * kBK);
-  }
-  cp_async_wait<0>();
-}
-
-// Block GEMM, fp32: Out[16 x kBN] (shared, row stride ldo) =
-//   As[16 x K] (shared, row stride lda) @ B[K x kBN] (global, row stride ldb).
-// K % kBK == 0; B streams through the kStages slabs of Bs.
-// fp32: thread t owns row t/16 and the four columns 4*(t%16)..+3.
-__device__ __forceinline__ void gemm_rowblock(const float* As, int lda, const float* B, int ldb,
-                                              int K, float* Bs, float* Out, int ldo) {
-  constexpr int ldbs = kBN + kF32Pad;
-  const int r = threadIdx.x / 16, c = (threadIdx.x % 16) * 4;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  pipeline_b(B, ldb, K, Bs, [&](const float* slab, int k0) {
-    const float* a = As + r * lda + k0;
-#pragma unroll 8
-    for (int k = 0; k < kBK; ++k) {
-      const float av = a[k];
-      const float4 bv = *reinterpret_cast<const float4*>(slab + k * ldbs + c);
-      acc[0] = fmaf(av, bv.x, acc[0]);
-      acc[1] = fmaf(av, bv.y, acc[1]);
-      acc[2] = fmaf(av, bv.z, acc[2]);
-      acc[3] = fmaf(av, bv.w, acc[3]);
-    }
-  });
-#pragma unroll
-  for (int j = 0; j < 4; ++j) Out[r * ldo + c + j] = acc[j];
-}
-
-// bytes of the kStages B slabs
-__host__ __device__ constexpr size_t bs_bytes() {
-  return align128(sizeof(float) * kStages * slab_elems());
 }
 
 // ------------------------------------------------------ Hopper primitives
@@ -407,10 +329,9 @@ __host__ __device__ inline bool attend_short_ok(int N, int mask_block) {
 }
 
 struct AttnLayout {
-  int QB, NK, ldq, ldk, ldv, lds;
-  // 16-key fragments of the tensor-core tile (4, 8 or 16), 0 for fp32
-  int nkf;
-  size_t q, k, v, s, total;
+  int QB, NK;
+  int nkf;  // 16-key fragments of the tensor-core tile (4, 8 or 16)
+  size_t q, k, v, total;
 };
 
 // The key-fragment count of the tensor-core tile for N unmasked keys. Under
@@ -438,135 +359,12 @@ inline AttnLayout attn_layout_mma(int N, int mask_block) {
     L.QB = NQ;
     L.NK = 16 * L.nkf;
   }
-  L.ldq = L.ldk = L.ldv = kLdh;
-  L.lds = 0;
   size_t off = 0;
   L.q = off; off += align128(sizeof(bf16) * L.QB * kLdh);
   L.k = off; off += align128(sizeof(bf16) * L.NK * kLdh);
   L.v = off; off += align128(sizeof(bf16) * L.NK * kLdh);
-  L.s = off;
   L.total = off;
   return L;
-}
-
-// fp32's shared-memory body. NK: the keys a tile holds,
-// rounded up to 16. Unmasked, all N. Under a mask of block mb, only the
-// blocks its QB queries span: at most (QB - 1) / mb + 2 of them (a query
-// block starts anywhere in a block).
-inline AttnLayout attn_layout_f32(int N, int mask_block = 0) {
-  AttnLayout L;
-  L.nkf = 0;
-  const int NQ = cdiv(N, 16) * 16;
-  L.QB = NQ < 64 ? NQ : 64;
-  int keys = N;
-  if (mask_block > 0) keys = std::min(N, ((L.QB - 1) / mask_block + 2) * mask_block);
-  L.NK = cdiv(keys, 16) * 16;
-  // K is read transposed (thread j walks row j): an odd row stride keeps
-  // those reads on distinct banks
-  L.ldq = L.ldk = kHeadDim + 1;
-  L.ldv = kHeadDim;
-  L.lds = L.NK + 4;
-  size_t off = 0;
-  L.q = off; off += align128(sizeof(float) * L.QB * L.ldq);
-  L.k = off; off += align128(sizeof(float) * L.NK * L.ldk);
-  L.v = off; off += align128(sizeof(float) * L.NK * L.ldv);
-  L.s = off; off += align128(sizeof(float) * L.QB * L.lds);
-  L.total = off;
-  return L;
-}
-
-// One fp32 tile: (sequence `seq`, head `h`, query block `qb`). q, k, v:
-// rows of ld elements, N rows per sequence; out: (R, N, C). p is divided by
-// l before P.V. opts.mask_block: AttnOpts.
-// The tile functions here take their tile coordinates as arguments and the
-// block's dynamic shared memory as `smem`, so a kernel may run one tile
-// (the `__global__` wrappers) or walk many (the depth-resident kernel,
-// resident.cu). Their pointers carry no __restrict__: in resident.cu a
-// buffer one tile reads was written by other blocks earlier in the same
-// launch, which rules out the read-only data path.
-//
-// One block holds <=64 queries and all their keys (tail zero-filled) with
-// the fp32 logits, so the softmax is exact over the whole row: all <=256
-// keys of the sequence, or under a mask only the window of whole blocks the
-// queries span (attn_layout_f32), every key outside it having p = 0 exactly.
-__device__ __forceinline__ void attend_tile_smem(const float* q, const float* k, const float* v,
-                                                 int ld, float* out, int N, int C, float scale,
-                                                 const AttnLayout& L, const AttnOpts& opts,
-                                                 unsigned char* smem, int seq, int h, int qb) {
-  float* Qs = reinterpret_cast<float*>(smem + L.q);
-  float* Ks = reinterpret_cast<float*>(smem + L.k);
-  float* Vs = reinterpret_cast<float*>(smem + L.v);
-  float* Ss = reinterpret_cast<float*>(smem + L.s);
-
-  const int q0 = qb * L.QB;
-  const int QB = L.QB, NK = L.NK;
-  const int nq = min(QB, N - q0);
-  // the keys [k0, k0 + nk) of the sequence this tile reads
-  const int mb = opts.mask_block;
-  int k0 = 0, nk = N;
-  if (mb > 0) {
-    k0 = q0 / mb * mb;
-    nk = min(N, (q0 + nq - 1) / mb * mb + mb) - k0;
-  }
-  const size_t off = (size_t)seq * N * ld + h * kHeadDim;
-  load_rows_async<float, kThreads>(Qs, L.ldq, q + off + (size_t)q0 * ld, ld, QB, N - q0,
-                                   kHeadDim);
-  load_rows_async<float, kThreads>(Ks, L.ldk, k + off + (size_t)k0 * ld, ld, NK, nk, kHeadDim);
-  load_rows_async<float, kThreads>(Vs, L.ldv, v + off + (size_t)k0 * ld, ld, NK, nk, kHeadDim);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  // S = Q K^T (unscaled)
-  for (int i = tid; i < QB * NK; i += kThreads) {
-    const int qi = i / NK, kj = i % NK;
-    const float* a = Qs + qi * L.ldq;
-    const float* b = Ks + kj * L.ldk;
-    float acc = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < kHeadDim; ++d) acc = fmaf(a[d], b[d], acc);
-    Ss[qi * L.lds + kj] = acc;
-  }
-  __syncthreads();
-
-  // exact softmax over the keys [j0, j1) of each row, its own block under a
-  // mask: s = dot * scale, m = max(s), p = exp(s - m) (p = 0 elsewhere),
-  // l = sum(p), then p / l; rows past the queries are left as they are
-  for (int r = warp; r < nq; r += kWarps) {
-    float* srow = Ss + r * L.lds;
-    int j0 = 0, j1 = nk;
-    if (mb > 0) {
-      j0 = (q0 + r) / mb * mb - k0;
-      j1 = min(j0 + mb, nk);
-    }
-    float m = -INFINITY;
-    for (int j = j0 + lane; j < j1; j += 32) {
-      const float s = srow[j] * scale;
-      srow[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float l = 0.f;
-    for (int j = lane; j < NK; j += 32) {
-      const float p = j >= j0 && j < j1 ? expf(srow[j] - m) : 0.f;
-      srow[j] = p;
-      l += p;
-    }
-    l = warp_sum(l);
-    for (int j = lane; j < nk; j += 32) srow[j] = srow[j] / l;
-  }
-  __syncthreads();
-
-  // O = (P / l) V, written straight out
-  float* orow0 = out + ((size_t)seq * N + q0) * C + h * kHeadDim;
-  for (int i = tid; i < nq * kHeadDim; i += kThreads) {
-    const int qi = i / kHeadDim, d = i % kHeadDim;
-    const float* p = Ss + qi * L.lds;
-    float acc = 0.f;
-    for (int j = 0; j < nk; ++j) acc = fmaf(p[j], Vs[j * L.ldv + d], acc);
-    orow0[(size_t)qi * C + d] = acc;
-  }
 }
 
 // ------------------------------------------ tensor-core walk (fp32, tf32x3)
@@ -1754,20 +1552,6 @@ attend_short_kernel(const __grid_constant__ ShortArgsT<T> a,
   attend_short_walk(L, a, smem);
 }
 
-// fp32's masked launch (the grouped lab switch): grid (sequence, head, query
-// block), one tile per block. hs: see launch_attend.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attend_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              long long hs, int ld, T* __restrict__ out, int N, int C, float scale, AttnLayout L,
-              AttnOpts opts) {
-  static_assert(std::is_same<T, float>::value, "bf16 runs the short or the tensor-core tile");
-  extern __shared__ __align__(128) unsigned char smem[];
-  const long long o = blockIdx.y * hs;
-  attend_tile_smem(q + o, k + o, v + o, ld, out, N, C, scale, L, opts, smem, blockIdx.x,
-                   blockIdx.y, blockIdx.z);
-}
-
 // fp32's tensor-core walk, a persistent grid of one block an SM
 // (f32_attn_layout)
 template <int RB>
@@ -1914,8 +1698,12 @@ cudaError_t launch_attend_short(const T* q, const T* k, const T* v, long long hs
 // further offset of h * hs elements (0 for token rows holding every head;
 // the head-major slabs of attention_stage.cu, one per head, M * 3d apart).
 // Unmasked at N <= 32 keys, the short tile (both dtypes); else bf16 its
-// tensor-core tile, fp32 its tensor-core walk (tf32x3); fp32 masked (the
-// grouped lab switch), the shared-memory body.
+// tensor-core tile, fp32 its tensor-core walk (tf32x3). fp32 masked (the
+// grouped lab switch): the short tile over the R * N / mask_block blocks of
+// mask_block tokens, which the rows hold in order (a sequence of N is N /
+// mask_block of them): under JAX's -1e30 block mask p of every key outside a
+// query's own block is 0 exactly, so the fold's softmax is its block's, and
+// the tile reads no masked key.
 template <typename T>
 cudaError_t launch_attend(const T* q, const T* k, const T* v, int ld, T* out, int R, int N,
                           int C, int heads, float scale, const AttnOpts& opts,
@@ -1939,13 +1727,13 @@ cudaError_t launch_attend(const T* q, const T* k, const T* v, int ld, T* out, in
       return launch_attend_f32<1>(q, k, v, hs, ld, out, R, N, C, heads, scale, L, stream);
     return launch_attend_f32<2>(q, k, v, hs, ld, out, R, N, C, heads, scale, L, stream);
   } else {
-    const AttnLayout L = attn_layout_f32(N, opts.mask_block);
-    cudaError_t e = cudaFuncSetAttribute(attend_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
-    if (e != cudaSuccess) return e;
-    attend_kernel<T><<<dim3(R, heads, cdiv(N, L.QB)), kThreads, L.total, stream>>>(
-        q, k, v, hs, ld, out, N, C, scale, L, opts);
-    return cudaGetLastError();
+    const int mb = opts.mask_block;
+    if (mb > kShortMaxKeys || N % mb || (long long)R * (N / mb) > 0x7fffffffLL)
+      return cudaErrorInvalidValue;
+    AttnOpts blocks = opts;
+    blocks.mask_block = 0;
+    return launch_attend_short<T>(q, k, v, hs, ld, out, R * (N / mb), mb, C, heads, scale,
+                                  blocks, stream);
   }
 }
 
@@ -1955,110 +1743,6 @@ cudaError_t launch_attend_packed(const T* qkv, T* out, int R, int N, int C, int 
                                  float scale, const AttnOpts& opts, cudaStream_t stream) {
   return launch_attend<T>(qkv, qkv + C, qkv + 2 * C, 3 * C, out, R, N, C, heads, scale, opts,
                           stream);
-}
-
-// ------------------------------------------------ out-projection partial
-// fp32 tensor-parallel partial (bf16 runs `proj_ln2_walk_bf16<., true>`):
-// part = o @ Wp over token rows, o (M, K) a rank's K = C / tp attention
-// channels and Wp (K, C) its rows of the projection, written raw in fp32
-// (M, C): no bias, residual or LN2, which follow the all-reduce over the
-// ranks (residual_ln.cu).
-__device__ __forceinline__ void proj_partial_tile(const float* o, const float* wp, float* part,
-                                                  int M, int K, int C, unsigned char* smem,
-                                                  int tile) {
-  constexpr int BM = kF32Rows;
-  const int lda = K + kF32Pad;
-  const int ldx = C + 4;
-  float* As = reinterpret_cast<float*>(smem);
-  float* Bs = reinterpret_cast<float*>(smem + align128(sizeof(float) * BM * lda));
-  float* Xs = reinterpret_cast<float*>(smem + align128(sizeof(float) * BM * lda) + bs_bytes());
-
-  const int row0 = tile * BM;
-  load_rows(As, lda, o + (size_t)row0 * K, K, BM, M - row0, K);
-  __syncthreads();
-  for (int n0 = 0; n0 < C; n0 += kBN) gemm_rowblock(As, lda, wp + n0, C, K, Bs, Xs + n0, ldx);
-  __syncthreads();
-  for (int i = threadIdx.x; i < BM * C; i += kThreads) {
-    const int r = i / C, c = i % C;
-    if (row0 + r < M) part[(size_t)(row0 + r) * C + c] = Xs[r * ldx + c];
-  }
-}
-
-inline size_t proj_partial_smem(int K, int C) {
-  return align128(sizeof(float) * kF32Rows * (K + kF32Pad)) + bs_bytes() +
-         align128(sizeof(float) * kF32Rows * (C + 4));
-}
-
-// ---------------------------------------------------------------- LN1 + qkv
-// fp32, the tensor-parallel partial form's (K1-tp, K8-tp; the whole stage
-// runs `ln_qkv_walk_f32` and bf16 `ln_qkv_walk_bf16`, stage.cuh): qkv =
-// LN1(x) @ Wqkv + bqkv over token rows; one tile is the row block `tile`:
-// LN1 into shared memory, then the qkv projection in 64-column steps.
-// `heads` heads of kHeadDim: qkv has 3 * heads * kHeadDim columns, which is
-// 3C but for a tensor-parallel rank's share (C / tp of each of q, k, v).
-// kHeadMajor (the head-major stage): Wqkv is stacked (h, C, 3d) and bqkv
-// (h, 3d), head h's q | k | v columns side by side, and qkv is written
-// head-major, (h, M, 3d). Each 64-column step then covers the same columns,
-// in the same k order, as the packed layout's step for them, so the values
-// are the packed ones, bit for bit.
-template <bool kHeadMajor = false>
-__device__ __forceinline__ void ln_qkv_tile(const float* x, const float* wqkv, const float* bqkv,
-                                            const float* ln1s, const float* ln1b, float* qkv,
-                                            int M, int C, int heads, float eps,
-                                            unsigned char* smem, int tile) {
-  constexpr int BM = kF32Rows;
-  const int lda = C + kF32Pad;
-  float* As = reinterpret_cast<float*>(smem);
-  float* Bs = reinterpret_cast<float*>(smem + align128(sizeof(float) * BM * lda));
-  float* Cs = reinterpret_cast<float*>(smem + align128(sizeof(float) * BM * lda) + bs_bytes());
-  constexpr int ldc = kBN + 4;
-
-  const int row0 = tile * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BM; r += kWarps) {
-    const int row = row0 + r;
-    if (row < M) {
-      float v[32];
-      const float* xr = x + (size_t)row * C;
-#pragma unroll
-      for (int k = 0; k < 32; ++k)
-        if (k < C / 32) v[k] = xr[32 * k + lane];
-      warp_layernorm(v, C, ln1s, ln1b, eps, lane);
-#pragma unroll
-      for (int k = 0; k < 32; ++k)
-        if (k < C / 32) As[r * lda + 32 * k + lane] = v[k];
-    } else {
-      for (int c = lane; c < C; c += 32) As[r * lda + c] = 0.f;
-    }
-  }
-  __syncthreads();
-
-  const int N3 = 3 * heads * kHeadDim;
-  for (int n0 = 0; n0 < N3; n0 += kBN) {
-    // this step's weight columns (row stride ldw) and output columns (row
-    // stride ldq); the bias index is n0 + c in both layouts
-    const float* w = wqkv + n0;
-    float* q = qkv + n0;
-    int ldw = N3, ldq = N3;
-    if constexpr (kHeadMajor) {
-      constexpr int d3 = 3 * kHeadDim;
-      const int h = n0 / d3, c0 = n0 % d3;
-      w = wqkv + (size_t)h * C * d3 + c0;
-      q = qkv + (size_t)h * M * d3 + c0;
-      ldw = ldq = d3;
-    }
-    gemm_rowblock(As, lda, w, ldw, C, Bs, Cs, ldc);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * kBN; i += kThreads) {
-      const int r = i / kBN, c = i % kBN;
-      if (row0 + r < M) q[(size_t)(row0 + r) * ldq + c] = Cs[r * ldc + c] + bqkv[n0 + c];
-    }
-  }
-}
-
-inline size_t ln_qkv_smem(int C) {
-  return align128(sizeof(float) * kF32Rows * (C + kF32Pad)) + bs_bytes() +
-         align128(sizeof(float) * kF32Rows * (kBN + 4));
 }
 
 }  // namespace d3dp

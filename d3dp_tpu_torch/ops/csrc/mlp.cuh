@@ -121,15 +121,16 @@ __device__ __forceinline__ float activation_bf16(float v) {
 // branch (fc2 and its bias) of row t is scaled by dp[t / D2] in fp32 before
 // the residual add (one scale per (b, i); the rows form passes D2 = 1);
 // dp == nullptr leaves the arithmetic as it is without. gelu: a kGelu*
-// activation (kGeluBf16 only in bf16). Pointers carry no __restrict__ (see
-// attend_tile_smem in common.cuh).
+// activation (kGeluBf16 only in bf16). Pointers carry no __restrict__: in
+// resident.cu a buffer a walk reads was written by other blocks earlier in
+// the same launch.
 template <typename T>
 struct MlpArgs {
   const T* x;
   const T* res;
-  const T* w1;        // (C, H); the fp32 partial tile only: the walks read W1 through a TMA map
+  const T* w1;        // (C, H); unused by the walks, which read W1 through a TMA map
   const float* b1;    // (H,)
-  const T* w2;        // (H, C); the fp32 partial tile only: the walks read W2 through a TMA map
+  const T* w2;        // (H, C); unused by the walks, which read W2 through a TMA map
   const float* b2;    // (C,)
   const float* lns;   // (C,) the closing LayerNorm's scale
   const float* lnb;   // (C,) and bias
@@ -149,65 +150,6 @@ __device__ __forceinline__ size_t mlp_out_row(int t, int D1, int D2, bool transp
 }
 
 template <typename T> struct MlpLayout;
-
-// ------------------------------------------------------------ fp32 partial
-// The tensor-parallel partial form's fp32 tile (K2/K5-tp; every other fp32
-// form runs `mlp_walk_f32` below): 16 token rows a block, x, h and the fp32
-// product rows in shared memory, the products by `gemm_rowblock`'s FMA path,
-// the raw product out to a.part.
-struct MlpFmaLayout {
-  static constexpr int kRows = kF32Rows;
-  int lda, ldh, lds;
-  size_t a, h, s, c, b, total;
-  MlpFmaLayout(int C, int H) {
-    lda = C + kF32Pad;
-    ldh = H + kF32Pad;
-    lds = C + 4;
-    size_t off = 0;
-    a = off; off += align128(sizeof(float) * kRows * lda);
-    h = off; off += align128(sizeof(float) * kRows * ldh);
-    s = off; off += align128(sizeof(float) * kRows * lds);
-    c = off; off += align128(sizeof(float) * kRows * (kBN + 4));
-    b = off; off += bs_bytes();
-    total = off;
-  }
-};
-
-__device__ __forceinline__ void mlp_partial_tile_f32(const MlpArgs<float>& a,
-                                                     const MlpFmaLayout& L, unsigned char* smem,
-                                                     int tile) {
-  constexpr int BM = MlpFmaLayout::kRows;
-  constexpr int ldc = kBN + 4;
-  const int C = a.C, H = a.H, M = a.M;
-  float* As = reinterpret_cast<float*>(smem + L.a);
-  float* Hs = reinterpret_cast<float*>(smem + L.h);
-  float* Ss = reinterpret_cast<float*>(smem + L.s);
-  float* Cs = reinterpret_cast<float*>(smem + L.c);
-  float* Bs = reinterpret_cast<float*>(smem + L.b);
-
-  const int row0 = tile * BM;
-  load_rows(As, L.lda, a.x + (size_t)row0 * C, C, BM, M - row0, C);
-  __syncthreads();
-
-  // h = act(x @ W1 + b1), 64 hidden columns at a time
-  for (int n0 = 0; n0 < H; n0 += kBN) {
-    gemm_rowblock(As, L.lda, a.w1 + n0, H, C, Bs, Cs, ldc);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * kBN; i += kThreads) {
-      const int r = i / kBN, c = i % kBN;
-      Hs[r * L.ldh + n0 + c] = activation(Cs[r * ldc + c] + a.b1[n0 + c], a.gelu);
-    }
-  }
-  __syncthreads();
-  // h @ W2 into the fp32 row buffer, then out raw
-  for (int n0 = 0; n0 < C; n0 += kBN)
-    gemm_rowblock(Hs, L.ldh, a.w2 + n0, C, H, Bs, Ss + n0, L.lds);
-  __syncthreads();
-  for (int i = threadIdx.x; i < BM * C; i += kThreads) {
-    const int r = i / C, c = i % C;
-    if (row0 + r < M) a.part[(size_t)(row0 + r) * C + c] = Ss[r * L.lds + c];
-  }
-}
 
 // ------------------------------------------------------ Hopper primitives
 // (the mbarrier and bulk-copy helpers are in common.cuh)
@@ -480,8 +422,9 @@ __device__ __forceinline__ void f32_load_rows(float* xs, const float* src, int r
 // registers (a[0] row r col t, a[1] row r + 8 col t, a[2] row r col t + 4,
 // a[3] row r + 8 col t + 4; r = 16 * warp + lane / 4, t = lane % 4), B (8 x
 // 64) K-major in shared memory (`wgmma_desc`); D in the m64nNk16 fragment
-// layout of wgmma_n64.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+// layout of wgmma_n64. scale_d == 0 overwrites D.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
@@ -492,7 +435,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // D += A[:, k0 : k0 + 32] @ B in tf32x3 on this warpgroup over one ring
@@ -501,6 +444,14 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4
 // Each k-step adds lo(A) hi(B), hi(A) lo(B), hi(A) hi(B). Every fragment
 // is split before the first wgmma; on return the wgmmas are complete (the
 // stage is read, the fragments' registers free).
+// kPromote: the stage's twelve products go into a fresh accumulator, added
+// to D with fp32 adds (round to nearest) once they are complete. The
+// tensor cores add each product into their accumulator with truncation, so
+// that over K the error grows with the number of adds into D, a bias where
+// every add rounds toward zero; promoting a stage at a time cuts those adds
+// twelvefold, for 32 more registers. The qkv walk takes it: its error
+// passes through the softmax, which magnifies it by the logits' scale.
+template <bool kPromote = false>
 __device__ __forceinline__ void tf32x3_stage(float (&d)[32], const float* as, int K, int k0,
                                              uint32_t box) {
   const int lane = threadIdx.x % 32;
@@ -514,18 +465,29 @@ __device__ __forceinline__ void tf32x3_stage(float (&d)[32], const float* as, in
     tf32_split(as[f32_at(r, k + 4, K)], hi[kk][2], lo[kk][2]);
     tf32_split(as[f32_at(r + 8, k + 4, K)], hi[kk][3], lo[kk][3]);
   }
-  fence_acc(d);
-  wgmma_fence();
+  // the first product overwrites a promoted stage's fresh accumulator
+  auto products = [&](float(&acc)[32]) {
+    fence_acc(acc);
+    wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kF32K / 8; ++kk) {
-    const uint64_t bh = wgmma_desc(box + kk * 32), bl = wgmma_desc(box + kF32Plane + kk * 32);
-    wgmma_tf32(d, lo[kk], bh);
-    wgmma_tf32(d, hi[kk], bl);
-    wgmma_tf32(d, hi[kk], bh);
+    for (int kk = 0; kk < kF32K / 8; ++kk) {
+      const uint64_t bh = wgmma_desc(box + kk * 32), bl = wgmma_desc(box + kF32Plane + kk * 32);
+      wgmma_tf32(acc, lo[kk], bh, !kPromote || kk > 0);
+      wgmma_tf32(acc, hi[kk], bl);
+      wgmma_tf32(acc, hi[kk], bh);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+  };
+  if constexpr (kPromote) {
+    float sum[32];
+    products(sum);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[i] += sum[i];
+  } else {
+    products(d);
   }
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_acc(d);
 }
 
 // Start one stage into shared address dst, completing on bar: k columns
@@ -903,7 +865,9 @@ struct MlpLayout<float> : F32Layout {
 // entry and return, C % 128 == 0, C <= 512, H % 128 == 0; on return the
 // output rows are written). tw1, tw2: TMA maps over the planes of the
 // depth-stacked W1 (2D, H, C) and W2 (2D, C, H), read at depth a.depth.
-template <bool kTranspose>
+// kPartial: mlp_walk_bf16's (a tensor-parallel rank's H / tp hidden units
+// in a.H; the raw fc2 product to a.part from the fragments).
+template <bool kTranspose, bool kPartial = false>
 __device__ __forceinline__ void mlp_walk_f32(const MlpArgs<float>& a, const CUtensorMap* tw1,
                                              const CUtensorMap* tw2, const MlpLayout<float>& L,
                                              unsigned char* smem_raw, int n_tiles) {
@@ -988,9 +952,26 @@ __device__ __forceinline__ void mlp_walk_f32(const MlpArgs<float>& a, const CUte
           }
     }
 
+    const int ta = tile * kF32Tile + r0, tb = ta + 8;
+    if constexpr (kPartial) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q < nq) {
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const float* d = acc2 + 32 * q + 4 * jj;
+            const int c = wg * (C / 2) + 64 * q + 8 * jj + cq;
+            if (ta < M)
+              *reinterpret_cast<float2*>(a.part + (size_t)ta * C + c) = make_float2(d[0], d[1]);
+            if (tb < M)
+              *reinterpret_cast<float2*>(a.part + (size_t)tb * C + c) = make_float2(d[2], d[3]);
+          }
+        }
+      continue;
+    }
+
     // epilogue: + b2, DropPath, + res; LayerNorm over the C columns of a row
     // (this warpgroup holds C / 2 of them); the rows out
-    const int ta = tile * kF32Tile + r0, tb = ta + 8;
     const bool va = ta < M, vb = tb < M;
     const float ka = a.dp && va ? a.dp[ta / a.D2] : 1.f;
     const float kb = a.dp && vb ? a.dp[tb / a.D2] : 1.f;
@@ -1065,8 +1046,7 @@ __device__ __forceinline__ void mlp_walk_f32(const MlpArgs<float>& a, const CUte
 __host__ __device__ constexpr bool mlp_wide(int C) { return C == 512; }
 
 // The walk of either type: bf16 as above (kWide as given, which the caller
-// matches to mlp_wide(C)), fp32 `mlp_walk_f32` (kWide unused; no partial
-// form: that runs `mlp_partial_tile_f32`).
+// matches to mlp_wide(C)), fp32 `mlp_walk_f32` (kWide unused).
 template <typename T, bool kTranspose, bool kWide = false, bool kPartial = false>
 __device__ __forceinline__ void mlp_walk(const MlpArgs<T>& a, const CUtensorMap* tw1,
                                          const CUtensorMap* tw2, const MlpLayout<T>& L,
@@ -1074,8 +1054,7 @@ __device__ __forceinline__ void mlp_walk(const MlpArgs<T>& a, const CUtensorMap*
   if constexpr (std::is_same<T, bf16>::value) {
     mlp_walk_bf16<kTranspose, kWide, kPartial>(a, tw1, tw2, L, smem, n_tiles);
   } else {
-    static_assert(!kPartial, "the fp32 partial form runs mlp_partial_tile_f32");
-    mlp_walk_f32<kTranspose>(a, tw1, tw2, L, smem, n_tiles);
+    mlp_walk_f32<kTranspose, kPartial>(a, tw1, tw2, L, smem, n_tiles);
   }
 }
 

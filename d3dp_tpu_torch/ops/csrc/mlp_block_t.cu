@@ -40,8 +40,8 @@
 // takes the m64n256k16 fc2 (`mlp_wide`), other widths four-wide blocks of
 // m64n64k16; fp32 runs m64n64k8 throughout. The weight maps are encoded on
 // the host at every launch (a few microseconds), from the pointers the
-// launch is given. The tensor-parallel partial form keeps, in fp32, the
-// 16-row FMA tile (`mlp_partial_tile_f32`).
+// launch is given. The tensor-parallel partial form runs the same walk in
+// either type, with its `kPartial` epilogue.
 #include "mlp.cuh"
 
 namespace d3dp {
@@ -53,13 +53,6 @@ struct MlpParams {
   MlpLayout<T> L;
   int n_tiles;
 };
-
-// The fp32 partial form's FMA tile, a tile a block
-__global__ void __launch_bounds__(kThreads) mlp_partial_fma_kernel(const MlpArgs<float> a,
-                                                                   const MlpFmaLayout L) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  mlp_partial_tile_f32(a, L, smem, blockIdx.x);
-}
 
 // kWide: bf16 at C = 512 (mlp_wide); kPartial: the tensor-parallel partial
 template <typename T, bool kTranspose, bool kWide, bool kPartial = false>
@@ -122,27 +115,19 @@ int mlp_block_partial(const void* x, const void* w1, const void* b1, const void*
   if (R < 1 || !mlp_shape_ok<T>(C, H) || gelu < kGeluErf || gelu > kGeluNone ||
       (f32 && gelu == kGeluBf16))
     return (int)cudaErrorInvalidValue;
-  const MlpArgs<T> a{(const T*)x, nullptr, (const T*)w1, (const float*)b1, (const T*)w2,
-                     nullptr, nullptr, nullptr, nullptr, nullptr, 0, R, 1, R, C, H, gelu, 0.f,
-                     (float*)part};
+  MlpParams<T> p{};
+  const int e = f32 ? encode_mlp_plane_maps(&p.tw1, &p.tw2, w1, w2, 1, C, H)
+                    : encode_mlp_maps(&p.tw1, &p.tw2, w1, w2, 1, C, H);
+  if (e) return e;
+  p.a = MlpArgs<T>{(const T*)x, nullptr, (const T*)w1, (const float*)b1, (const T*)w2, nullptr,
+                   nullptr, nullptr, nullptr, nullptr, 0, R, 1, R, C, H, gelu, 0.f,
+                   (float*)part};
+  p.L = MlpLayout<T>(C, H);
+  p.n_tiles = cdiv(R, MlpLayout<T>::kRows);
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if constexpr (f32) {
-    const MlpFmaLayout L(C, H);
-    const cudaError_t e = cudaFuncSetAttribute(
-        mlp_partial_fma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
-    if (e != cudaSuccess) return (int)e;
-    mlp_partial_fma_kernel<<<cdiv(R, MlpFmaLayout::kRows), kThreads, L.total, stream>>>(a, L);
-    return (int)cudaGetLastError();
-  } else {
-    MlpParams<T> p{};
-    const int e = encode_mlp_maps(&p.tw1, &p.tw2, w1, w2, 1, C, H);
-    if (e) return e;
-    p.a = a;
-    p.L = MlpLayout<T>(C, H);
-    p.n_tiles = cdiv(R, MlpLayout<T>::kRows);
+  if constexpr (!f32)
     if (mlp_wide(C)) return (int)launch_mlp<T, false, true, true>(p, stream);
-    return (int)launch_mlp<T, false, false, true>(p, stream);
-  }
+  return (int)launch_mlp<T, false, false, true>(p, stream);
 }
 
 }  // namespace d3dp
@@ -202,8 +187,8 @@ int d3dp_mlp_block_dp_f32(D3DP_MLP_ARGS, const void* dp, void* out, int R, int C
   return D3DP_MLP_CALL(float, false, dp, 1, R, 1);
 }
 
-// K2/K5-tp: x (R, C); w1 (C, H), b1 (H,), w2 (H, C) a rank's share; part
-// (R, C) fp32.
+// K2/K5-tp: x (R, C); w1 (C, H), b1 (H,), w2 (H, C) a rank's share (fp32:
+// their hi and lo planes, (2, H, C) and (2, C, H)); part (R, C) fp32.
 int d3dp_mlp_block_partial_bf16(const void* x, const void* w1, const void* b1, const void* w2,
                                 void* part, int R, int C, int H, int gelu, void* stream) {
   return d3dp::mlp_block_partial<d3dp::bf16>(x, w1, b1, w2, part, R, C, H, gelu, stream);

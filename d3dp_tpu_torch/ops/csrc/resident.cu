@@ -201,7 +201,7 @@ __device__ __forceinline__ void block_phases(const ResidentArgs<T>& a, const Kin
   phase_end(grid, p0 + 1, t);
   if constexpr (f32) {
     const ProjArgsF32 p{a.o, h, a.x2, a.y2, vec, vec + 3 * C, vec + 4 * C, nullptr, 1, d, M, C,
-                        a.eps, true};
+                        a.eps, true, C, nullptr};
     proj_ln2_walk_f32(p, &w.twp, a.Lf, smem, cdiv(M, kF32Tile));
   } else {
     const ProjArgs p{a.o, h, vec, vec + 3 * C, vec + 4 * C, nullptr, 1, d, M, C, a.eps, true,

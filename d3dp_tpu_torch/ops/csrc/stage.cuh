@@ -179,22 +179,26 @@ __device__ __forceinline__ int2 qkv_box(int b, int heads, int depth) {
 
 // Walk the kQkvRows-row tiles blockIdx.x, + gridDim.x, ... below n_tiles.
 // Every thread of the block calls it; smem: QkvLayout(C).total bytes, free
-// on entry and on return. Needs C % 128 == 0, C <= 512 and an even a.heads
-// (3 * a.heads * kHeadDim output columns in 128-column chunks; a.heads is
-// C / kHeadDim but for a tensor-parallel rank's share). Warpgroup w owns
+// on entry and on return. Needs C % 128 == 0, C <= 512 (3 * a.heads *
+// kHeadDim output columns in 128-column chunks; a.heads is C / kHeadDim but
+// for a tensor-parallel rank's share, down to one head). kOdd: a.heads is
+// odd, and the last chunk holds one 64-column box (the walk loads the box
+// before it as its second box, multiplies it again and stores it not);
+// the even form's code is the walk without it. Warpgroup w owns
 // the tile's rows 64w..64w + 63; both read each weight slab. tw: the TMA map
 // over Wqkv, packed (D, C, 3C) or head-major (h, C, 3d), 64-row boxes. The
 // output boxes go out by TMA stores through tq, the map over qkv (packed
 // (1, M', 3C), head-major (h, M', 3d), M' >= M rows); on return they are
 // complete and ordered before the caller's later accesses.
-template <bool kHeadMajor>
+template <bool kHeadMajor, bool kOdd = false>
 __device__ __forceinline__ void ln_qkv_walk_bf16(const QkvArgs& a, const CUtensorMap* tw,
                                                  const CUtensorMap* tq, const QkvLayout& L,
                                                  unsigned char* smem_raw, int n_tiles) {
   const int first = blockIdx.x;
   if (first >= n_tiles) return;
   const int C = a.C, M = a.M, heads = a.heads;
-  const int nchunk = 3 * heads * kHeadDim / kQkvChunk;
+  const int nbox = 3 * heads;  // 64-column boxes of qkv
+  const int nchunk = kOdd ? cdiv(nbox, 2) : nbox / 2;
   const int per_chunk = C / kQkvSlabRows;
   const int per_tile = nchunk * per_chunk;
   const int mine = (n_tiles - 1 - first) / gridDim.x + 1;
@@ -208,12 +212,14 @@ __device__ __forceinline__ void ln_qkv_walk_bf16(const QkvArgs& a, const CUtenso
   const int r0 = 16 * (tid % 128 / 32) + lane / 4;  // this thread's rows r0, r0 + 8 of its half
   const int cq = 2 * (lane % 4);                    // and column pair in each 8
 
+  // box b, or (kOdd) past the last one the box before it
+  auto held = [&](int b) { return kOdd && b == nbox ? b - 1 : b; };
   // slab l: rows 64 s.. of chunk j's two boxes
   auto issue = [&](uint32_t l, uint32_t dst, uint32_t bar) {
     const int q = (int)(l % per_tile), j = q / per_chunk, s = q % per_chunk;
     mbar_expect_tx(bar, kQkvSlabBytes);
     for (int bx = 0; bx < 2; ++bx) {
-      const int2 c = qkv_box<kHeadMajor>(2 * j + bx, heads, a.depth);
+      const int2 c = qkv_box<kHeadMajor>(held(2 * j + bx), heads, a.depth);
       tma_load_3d(dst + bx * kBoxBytes, tw, bar, c.x, kQkvSlabRows * s, c.y);
     }
   };
@@ -270,7 +276,7 @@ __device__ __forceinline__ void ln_qkv_walk_bf16(const QkvArgs& a, const CUtenso
       const float* bias[2];  // the chunk's two boxes of bqkv
 #pragma unroll
       for (int bx = 0; bx < 2; ++bx) {
-        const int b = 2 * j + bx;
+        const int b = held(2 * j + bx);
         bias[bx] = a.bqkv + (kHeadMajor ? (b % heads) * 3 * kHeadDim + (b / heads) * kHeadDim
                                         : 64 * b);
       }
@@ -286,7 +292,7 @@ __device__ __forceinline__ void ln_qkv_walk_bf16(const QkvArgs& a, const CUtenso
       __syncthreads();  // the chunk's boxes are staged
       if (tid == 0) {
         for (int h = 0; h < 2; ++h)
-          for (int bx = 0; bx < 2; ++bx) {
+          for (int bx = 0; bx < (kOdd && 2 * j + 1 == nbox ? 1 : 2); ++bx) {
             const int2 c = qkv_box<kHeadMajor>(2 * j + bx, heads, 0);
             tma_store_3d(tq, os_at + (2 * h + bx) * kBoxBytes, c.x, row0 + kStageRows * h, c.y);
           }
@@ -538,17 +544,21 @@ __device__ __forceinline__ void proj_ln2_walk_bf16(const ProjArgs& a, const CUte
 // shared memory; the weights' hi and lo planes stream through a ring of
 // three 32 KB stages. Outputs go from the fragments to device memory as
 // 8-byte stores (a warp's quad covers 32 contiguous bytes of a row).
-//   * ln_qkv: LN1 in place on the loaded x rows (`warp_layernorm`, the FMA
-//     tile's arithmetic: warp w takes rows 8w..8w + 7); 3C output columns
-//     in chunks of 128, warpgroup w columns 64w.. of each, a stage per 32 k.
+//   * ln_qkv: LN1 in place on the loaded x rows (`warp_layernorm`, as
+//     residual_ln.cu: warp w takes rows 8w..8w + 7); 3C output columns in
+//     chunks of 128, warpgroup w columns 64w.. of each, a stage per 32 k.
 //     A 64-row box of the planes is one packed box of qkv (columns 64b..):
 //     K8 loads it from the head-major (h, 3d, C) planes (head b % h, rows
 //     64 (b / h)..) to the stage place K1 loads it from the packed (3C, C),
 //     so the two compute the same bits.
+//     An odd head count (a tensor-parallel rank's share, down to one head)
+//     ends in a 64-column chunk: warpgroup 1 multiplies a copy of its box
+//     there and stores nothing.
 //   * proj_ln2: warpgroup w owns output columns w C / 2.. (C / 128 blocks
 //     of 64) over all of K = C, a stage per 32 k and block; the epilogue is
 //     the bf16 walk's (+ bp, DropPath, + x read from device memory, x2, LN2
-//     across both warpgroups, y2).
+//     across both warpgroups, y2). The partial form (kPartial) takes K = C /
+//     tp and writes the raw product.
 // The next tile's rows load once both warpgroups' fragments have read the
 // current ones (under the epilogue). Shared memory at C = 512: ring 96 KB,
 // A 128 KB, row sums 1 KB.
@@ -569,17 +579,18 @@ struct QkvArgsF32 {
 inline F32Layout f32_stage_layout(int C) { return F32Layout(kF32StageRing, C, 0); }
 
 // Walk the 64-row tiles blockIdx.x, + gridDim.x, ... below n_tiles, as
-// ln_qkv_walk_bf16 (needs C % 128 == 0, C <= 512, 3 * heads * 64 % 128 ==
-// 0). tw: the TMA map over the Wqkv planes, packed (2D, 3 heads d, C) or
-// head-major (2h, 3d, C). On return qkv is written.
-template <bool kHeadMajor>
+// ln_qkv_walk_bf16 (needs C % 128 == 0, C <= 512; kOdd as there). tw: the
+// TMA map over the Wqkv planes, packed (2D, 3 heads d, C) or head-major
+// (2h, 3d, C). On return qkv is written.
+template <bool kHeadMajor, bool kOdd = false>
 __device__ __forceinline__ void ln_qkv_walk_f32(const QkvArgsF32& a, const CUtensorMap* tw,
                                                 const F32Layout& L, unsigned char* smem_raw,
                                                 int n_tiles) {
   const int first = blockIdx.x;
   if (first >= n_tiles) return;
   const int C = a.C, M = a.M, heads = a.heads;
-  const int n3 = 3 * heads * kHeadDim, nchunk = n3 / kF32Chunk;
+  const int n3 = 3 * heads * kHeadDim, nbox = 3 * heads;
+  const int nchunk = kOdd ? cdiv(nbox, 2) : nbox / 2;
   const int per_chunk = C / kF32K, per_tile = nchunk * per_chunk;
   const int mine = (n_tiles - 1 - first) / gridDim.x + 1;
 
@@ -590,14 +601,16 @@ __device__ __forceinline__ void ln_qkv_walk_f32(const QkvArgsF32& a, const CUten
   const int cq = 2 * (lane % 4);                    // and column pair in each 8
 
   // stage l: chunk j's two boxes (packed boxes 2j, 2j + 1, one a
-  // warpgroup), k 32 s..
+  // warpgroup; past the last box, in the tail chunk of an odd head count,
+  // box 2j again, multiplied and never stored), k 32 s..
   auto issue = [&](uint32_t l, uint32_t dst, uint32_t bar) {
     const int q = (int)(l % per_tile), j = q / per_chunk, s = q % per_chunk;
     auto box = [&](int b) {
       return kHeadMajor ? make_int2(kHeadDim * (b / heads), 2 * (b % heads))
                         : make_int2(64 * b, 2 * a.depth);
     };
-    f32_issue_stage(dst, tw, bar, kF32K * s, box(2 * j), box(2 * j + 1));
+    f32_issue_stage(dst, tw, bar, kF32K * s, box(2 * j),
+                    box(kOdd && 2 * j + 1 == nbox ? 2 * j : 2 * j + 1));
   };
   WeightRing<kF32StageRing, kF32Stage> ring;
   ring.start(base + L.bars, base + L.ring, (uint32_t)mine * per_tile, issue);
@@ -628,13 +641,14 @@ __device__ __forceinline__ void ln_qkv_walk_f32(const QkvArgsF32& a, const CUten
       for (int q = 0; q < 32; ++q) acc[q] = 0.f;
       for (int s = 0; s < per_chunk; ++s, ++next) {
         ring.acquire(next);
-        tf32x3_stage(acc, as, C, kF32K * s, ring.slab(next) + wg * kF32Box);
+        tf32x3_stage<true>(acc, as, C, kF32K * s, ring.slab(next) + wg * kF32Box);
         ring.release_upto(next + 1, issue);
       }
       if (j == nchunk - 1 && i + 1 < mine) {
         __syncthreads();  // both warpgroups' fragments have read the rows
         f32_load_rows(as, a.x, (tile + gridDim.x) * kF32Tile, M, C);
       }
+      if (kOdd && 2 * j + wg == nbox) continue;  // the odd chunk's second box
       // + bqkv, out: packed column c is box c / 64's column c % 64
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
@@ -674,19 +688,24 @@ struct ProjArgsF32 {
   int M, C;
   float eps;
   bool with_y2;
+  int K;               // o's columns and Wp's rows: C, or a tensor-parallel rank's C / tp
+  float* part;         // kPartial: the raw fp32 product (M, C)
 };
 
 // Walk the 64-row tiles blockIdx.x, + gridDim.x, ... below n_tiles, as
-// proj_ln2_walk_bf16 (needs C % 128 == 0, C <= 512). tw: the TMA map over
-// the Wp planes (2D, C, C). On return x2 (and y2) are written.
+// proj_ln2_walk_bf16 (needs C % 128 == 0, C <= 512, K % 32 == 0). tw: the
+// TMA map over the Wp planes (2D, C, K). On return x2 (and y2) are written.
+// kPartial: as proj_ln2_walk_bf16's (o (M, K), the raw product to a.part;
+// x, x2, y2, bp and the LayerNorm unused).
+template <bool kPartial = false>
 __device__ __forceinline__ void proj_ln2_walk_f32(const ProjArgsF32& a, const CUtensorMap* tw,
                                                   const F32Layout& L, unsigned char* smem_raw,
                                                   int n_tiles) {
   const int first = blockIdx.x;
   if (first >= n_tiles) return;
-  const int C = a.C, M = a.M;
+  const int C = a.C, M = a.M, K = a.K;
   const int nq = C / 128;  // 64-column output blocks a warpgroup
-  const int per_tile = (C / kF32K) * nq;
+  const int per_tile = (K / kF32K) * nq;
   const int mine = (n_tiles - 1 - first) / gridDim.x + 1;
 
   unsigned char* base = mlp_base(smem_raw);
@@ -705,7 +724,7 @@ __device__ __forceinline__ void proj_ln2_walk_f32(const ProjArgsF32& a, const CU
   };
   WeightRing<kF32StageRing, kF32Stage> ring;
   ring.start(base + L.bars, base + L.ring, (uint32_t)mine * per_tile, issue);
-  f32_load_rows(as, a.o, first * kF32Tile, M, C);
+  f32_load_rows(as, a.o, first * kF32Tile, M, K);
 
   uint32_t next = 0;
   for (int i = 0; i < mine; ++i) {
@@ -716,23 +735,41 @@ __device__ __forceinline__ void proj_ln2_walk_f32(const ProjArgsF32& a, const CU
     cp_async_wait<0>();
     __syncthreads();  // o landed for every thread
 
-    for (int kb = 0; kb < C / kF32K; ++kb)
+    for (int kb = 0; kb < K / kF32K; ++kb)
 #pragma unroll
       for (int q = 0; q < 4; ++q)
         if (q < nq) {
           ring.acquire(next);
-          tf32x3_stage(*reinterpret_cast<float(*)[32]>(acc + 32 * q), as, C, kF32K * kb,
+          tf32x3_stage(*reinterpret_cast<float(*)[32]>(acc + 32 * q), as, K, kF32K * kb,
                        ring.slab(next) + wg * kF32Box);
           ring.release_upto(++next, issue);
         }
     if (i + 1 < mine) {
       __syncthreads();  // both warpgroups' fragments have read o
-      f32_load_rows(as, a.o, (tile + gridDim.x) * kF32Tile, M, C);
+      f32_load_rows(as, a.o, (tile + gridDim.x) * kF32Tile, M, K);
+    }
+
+    const int ta = row0 + r0, tb = ta + 8;
+    if constexpr (kPartial) {
+      // the raw fp32 product, rows past M dropped
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q < nq) {
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const float* d = acc + 32 * q + 4 * jj;
+            const int c = wg * (C / 2) + 64 * q + 8 * jj + cq;
+            if (ta < M)
+              *reinterpret_cast<float2*>(a.part + (size_t)ta * C + c) = make_float2(d[0], d[1]);
+            if (tb < M)
+              *reinterpret_cast<float2*>(a.part + (size_t)tb * C + c) = make_float2(d[2], d[3]);
+          }
+        }
+      continue;
     }
 
     // epilogue: + bp, DropPath, + x, x2; LN2 over the C columns of a row
     // (this warpgroup holds C / 2 of them); y2
-    const int ta = row0 + r0, tb = ta + 8;
     const bool va = ta < M, vb = tb < M;
     const float ka = a.dp && va ? a.dp[ta / a.dp_div] : 1.f;
     const float kb = a.dp && vb ? a.dp[tb / a.dp_div] : 1.f;
@@ -819,10 +856,10 @@ struct ProjParams {
   int n_tiles;
 };
 
-template <bool kHeadMajor>
+template <bool kHeadMajor, bool kOdd>
 __global__ void __launch_bounds__(kThreads) ln_qkv_walk_kernel(const __grid_constant__ QkvParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  ln_qkv_walk_bf16<kHeadMajor>(p.a, &p.tw, &p.tq, p.L, smem, p.n_tiles);
+  ln_qkv_walk_bf16<kHeadMajor, kOdd>(p.a, &p.tw, &p.tq, p.L, smem, p.n_tiles);
 }
 
 template <bool kWide, bool kPartial = false>
@@ -845,36 +882,18 @@ struct ProjParamsF32 {
   int n_tiles;
 };
 
-template <bool kHeadMajor>
+template <bool kHeadMajor, bool kOdd>
 __global__ void __launch_bounds__(kThreads)
 ln_qkv_walk_f32_kernel(const __grid_constant__ QkvParamsF32 p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  ln_qkv_walk_f32<kHeadMajor>(p.a, &p.tw, p.L, smem, p.n_tiles);
+  ln_qkv_walk_f32<kHeadMajor, kOdd>(p.a, &p.tw, p.L, smem, p.n_tiles);
 }
 
+template <bool kPartial = false>
 __global__ void __launch_bounds__(kThreads)
 proj_ln2_walk_f32_kernel(const __grid_constant__ ProjParamsF32 p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  proj_ln2_walk_f32(p.a, &p.tw, p.L, smem, p.n_tiles);
-}
-
-// the tensor-parallel partial forms' fp32 FMA tiles (common.cuh), a row
-// block a block
-template <bool kHeadMajor>
-__global__ void __launch_bounds__(kThreads)
-ln_qkv_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
-              const float* __restrict__ bqkv, const float* __restrict__ ln1s,
-              const float* __restrict__ ln1b, float* __restrict__ qkv, int M, int C, int heads,
-              float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  ln_qkv_tile<kHeadMajor>(x, wqkv, bqkv, ln1s, ln1b, qkv, M, C, heads, eps, smem, blockIdx.x);
-}
-
-__global__ void __launch_bounds__(kThreads)
-proj_partial_kernel(const float* __restrict__ o, const float* __restrict__ wp,
-                    float* __restrict__ part, int M, int K, int C) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  proj_partial_tile(o, wp, part, M, K, C, smem, blockIdx.x);
+  proj_ln2_walk_f32<kPartial>(p.a, &p.tw, p.L, smem, p.n_tiles);
 }
 
 // The shapes the stage's GEMM steps take, the same in both types (the
@@ -885,8 +904,8 @@ inline bool stage_shape_ok(int C) {
 }
 
 // qkv = LN1(x) @ Wqkv + bqkv over M token rows, `heads` heads (C /
-// kHeadDim, or a tensor-parallel rank's share: Wqkv (C, 3 * heads * 64),
-// packed only) (kHeadMajor: Wqkv (h, C, 3d), bqkv (h, 3d), qkv (h, M, 3d)).
+// kHeadDim, or a tensor-parallel rank's share, any count: Wqkv (C, 3 *
+// heads * 64)) (kHeadMajor: Wqkv (h, C, 3d), bqkv (h, 3d), qkv (h, M, 3d)).
 // fp32 takes Wqkv's hi and lo planes instead: packed (2, 3 * heads * 64, C),
 // head-major (h, 2, 3d, C). Returns 0, a cudaError_t or kNoTensorMap.
 template <typename T, bool kHeadMajor>
@@ -905,7 +924,8 @@ int launch_ln_qkv(const T* x, const T* wqkv, const float* bqkv, const float* ln1
     p.a = QkvArgs{x, bqkv, ln1s, ln1b, 0, M, C, eps, heads};
     p.L = QkvLayout(C);
     p.n_tiles = cdiv(M, kQkvRows);
-    auto kernel = &ln_qkv_walk_kernel<kHeadMajor>;
+    auto kernel = heads % 2 ? &ln_qkv_walk_kernel<kHeadMajor, true>
+                            : &ln_qkv_walk_kernel<kHeadMajor, false>;
     int blocks = 0;
     const cudaError_t ce = persistent_grid(kernel, (int)p.L.total, p.n_tiles, &blocks);
     if (ce != cudaSuccess) return (int)ce;
@@ -918,27 +938,13 @@ int launch_ln_qkv(const T* x, const T* wqkv, const float* bqkv, const float* ln1
     p.a = QkvArgsF32{x, qkv, bqkv, ln1s, ln1b, 0, M, C, eps, heads};
     p.L = f32_stage_layout(C);
     p.n_tiles = cdiv(M, kF32Tile);
-    auto kernel = &ln_qkv_walk_f32_kernel<kHeadMajor>;
+    auto kernel = heads % 2 ? &ln_qkv_walk_f32_kernel<kHeadMajor, true>
+                            : &ln_qkv_walk_f32_kernel<kHeadMajor, false>;
     int blocks = 0;
     const cudaError_t ce = persistent_grid(kernel, (int)p.L.total, p.n_tiles, &blocks);
     if (ce != cudaSuccess) return (int)ce;
     kernel<<<blocks, kThreads, p.L.total, stream>>>(p);
   }
-  return (int)cudaGetLastError();
-}
-
-// The tensor-parallel partial form's fp32 qkv step (the FMA tile, on the
-// rank's Wqkv as it is: (C, 3 * heads * 64), head-major (heads, C, 3d)).
-template <bool kHeadMajor>
-int launch_ln_qkv_fma(const float* x, const float* wqkv, const float* bqkv, const float* ln1s,
-                      const float* ln1b, float* qkv, int M, int C, int heads, float eps,
-                      cudaStream_t stream) {
-  const size_t smem = ln_qkv_smem(C);
-  const cudaError_t ce = cudaFuncSetAttribute(
-      ln_qkv_kernel<kHeadMajor>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (ce != cudaSuccess) return (int)ce;
-  ln_qkv_kernel<kHeadMajor><<<cdiv(M, kF32Rows), kThreads, smem, stream>>>(
-      x, wqkv, bqkv, ln1s, ln1b, qkv, M, C, heads, eps);
   return (int)cudaGetLastError();
 }
 
@@ -968,21 +974,23 @@ int launch_proj_ln2(const T* o, const T* x, const T* wp, const float* bp, const 
     ProjParamsF32 p{};
     const int e = encode_plane_map(&p.tw, wp, 2, C, C);
     if (e) return e;
-    p.a = ProjArgsF32{o, x, x2, y2, bp, ln2s, ln2b, dp, dp_div, 0, M, C, eps, with_y2};
+    p.a = ProjArgsF32{o, x, x2, y2, bp, ln2s, ln2b, dp, dp_div, 0, M, C, eps, with_y2, C,
+                      nullptr};
     p.L = f32_stage_layout(C);
     p.n_tiles = cdiv(M, kF32Tile);
     int blocks = 0;
     const cudaError_t ce =
-        persistent_grid(proj_ln2_walk_f32_kernel, (int)p.L.total, p.n_tiles, &blocks);
+        persistent_grid(proj_ln2_walk_f32_kernel<false>, (int)p.L.total, p.n_tiles, &blocks);
     if (ce != cudaSuccess) return (int)ce;
-    proj_ln2_walk_f32_kernel<<<blocks, kThreads, p.L.total, stream>>>(p);
+    proj_ln2_walk_f32_kernel<false><<<blocks, kThreads, p.L.total, stream>>>(p);
   }
   return (int)cudaGetLastError();
 }
 
 // part = o @ Wp over M token rows, raw in fp32 (M, C): a tensor-parallel
 // rank's share of the projection, o (M, K) its K = C / tp attention channels
-// and Wp (K, C) its rows. Returns 0, a cudaError_t or kNoTensorMap.
+// and Wp (K, C) its rows (fp32: their hi and lo planes, (2, C, K)). Returns
+// 0, a cudaError_t or kNoTensorMap.
 template <typename T>
 int launch_proj_partial(const T* o, const T* wp, float* part, int M, int K, int C,
                         cudaStream_t stream) {
@@ -1001,11 +1009,18 @@ int launch_proj_partial(const T* o, const T* wp, float* part, int M, int K, int 
     if (ce != cudaSuccess) return (int)ce;
     kernel<<<blocks, kThreads, p.L.total, stream>>>(p);
   } else {
-    const size_t smem = proj_partial_smem(K, C);
-    const cudaError_t ce = cudaFuncSetAttribute(
-        proj_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    ProjParamsF32 p{};
+    const int e = encode_plane_map(&p.tw, wp, 2, C, K);
+    if (e) return e;
+    p.a = ProjArgsF32{o, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 0, M,
+                      C, 0.f, false, K, part};
+    p.L = f32_stage_layout(C);
+    p.n_tiles = cdiv(M, kF32Tile);
+    int blocks = 0;
+    const cudaError_t ce =
+        persistent_grid(proj_ln2_walk_f32_kernel<true>, (int)p.L.total, p.n_tiles, &blocks);
     if (ce != cudaSuccess) return (int)ce;
-    proj_partial_kernel<<<cdiv(M, kF32Rows), kThreads, smem, stream>>>(o, wp, part, M, K, C);
+    proj_ln2_walk_f32_kernel<true><<<blocks, kThreads, p.L.total, stream>>>(p);
   }
   return (int)cudaGetLastError();
 }

@@ -146,6 +146,26 @@ def test_spatial_group_and_softmax_fold_raise_where_jax_changes_the_math(env, rn
         _assert_close(g, w, torch.bfloat16)
 
 
+@pytest.mark.parametrize("g", [2, 4, 8])
+def test_spatial_group_folds_equal_the_ungrouped_stage(env, rng, g):
+    """The identity under the fp32 grouped kernel, which runs each folded
+    sequence alone (JAX's -1e30 block mask gives every other key p = 0
+    exactly): under D3DP_SPATIAL_GROUP=g, JAX's grouped fp32 stage in
+    interpret mode, on folds of 17g = 34, 68 and 136 tokens (past one
+    64-query block from g = 4), equals the port's ungrouped plain stage,
+    and so does the port's grouped plain stage (2e-5)."""
+    arrs, args = _stage_args(rng, R=2 * g, N=17)
+    ungrouped = tattn.attention_stage_plain(*args, 2, 0.125, 1e-6)
+    env.setenv("D3DP_SPATIAL_GROUP", str(g))
+    jax.clear_caches()
+    assert tattn.stage_config(args[0]) == ("packed", 0, g)
+    want = _attention_stage_fwd(*_jax_args(arrs, jnp.float32), 2, 0.125, 1e-6, interpret=True)
+    grouped = tattn.attention_stage(*args, 2, 0.125, 1e-6)
+    for u, gp, w in zip(ungrouped, grouped, want):
+        _assert_close(u, w, torch.float32)
+        _assert_close(gp, w, torch.float32)
+
+
 def test_mlp_variant_nogelu_is_other_math_and_raises(env, rng):
     """Under D3DP_MLP_VARIANT=nogelu the JAX MLP op drops the GELU (other
     math than the plain GELU version), and so do the port's four MLP ops,

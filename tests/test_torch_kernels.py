@@ -1091,7 +1091,7 @@ def _rank_share(n_parts, width, tp, j):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("tp", [2, 4, 8])
 @pytest.mark.parametrize("R,N", [(64, 17), (6, 243), (3, 1)])
 def test_tp_partial_forms_match_plain(np_rng, dtype, tp, R, N):
     """The tensor-parallel forms on each rank's share at C=512, 8 heads:
@@ -1135,7 +1135,7 @@ def test_tp_partial_forms_match_plain(np_rng, dtype, tp, R, N):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("tp", [2, 4, 8])
 @pytest.mark.parametrize("R,N", [(64, 17), (6, 243), (3, 1), (7, 9)])
 def test_tp_hm_partial_matches_plain_and_k1_tp(np_rng, dtype, tp, R, N):
     """K8-tp (the head-major stage's partial form) on each rank's

@@ -11,7 +11,10 @@ k-step's three 8-deep products in fp32, in the kernel's order) and held
     product's and 2e-6 (relative to the output's largest magnitude), far
     inside the 1e-4 the card holds the fp32 kernels to;
   * against JAX's Precision.HIGHEST on the CPU: the fp32 parity 2e-5, on
-    one stage's and one MLP's products at the model's scales.
+    one stage's and one MLP's products at the model's scales;
+  * as the tensor-parallel partial forms split them: each rank's product
+    over its share of the contraction, summed over the ranks, at the same
+    two bands at tp = 2, 4, 8.
 
 The weight planes the kernels read (`ops.tf32.planes`, made once per
 weight version in `MixSTE2._weights` and passed to the ops as `planes`)
@@ -138,6 +141,42 @@ def test_tf32x3_matches_jax_highest(name):
         want = np.asarray(jnp.dot(jnp.asarray(a), jnp.asarray(b),
                                   precision=jax.lax.Precision.HIGHEST))
     np.testing.assert_allclose(tf32x3(a, b), want, atol=2e-5, rtol=0)
+
+
+# the tensor-parallel partial forms' contractions split over the ranks:
+# K1-tp's and K6-tp's o @ Wp over a rank's C / tp channels, K2/K5-tp's
+# GELU(h) @ W2 over its H / tp hidden units (their other products, qkv and
+# fc1, keep the whole contraction over C on each rank's columns)
+PARTIALS = {"proj": (512, 512), "fc2": (1024, 512)}
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+@pytest.mark.parametrize("name", list(PARTIALS))
+def test_tf32x3_rank_partials_summed(name, tp):
+    """Each rank's product in tf32x3 over its K / tp share of the
+    contraction, the ranks' fp32 partials summed in rank order (the
+    all-reduce's sum): against float64 within the larger of 4x a plain fp32
+    product's error and 2e-6 at both weight scales, and against JAX's whole
+    product at Precision.HIGHEST within 2e-5 at the init's scale."""
+    K, N = PARTIALS[name]
+    k = K // tp
+    rng = np.random.RandomState(K + N + tp)
+    a = (rng.randn(64, K) * (0.5 if name == "proj" else 0.2)).astype(np.float32)
+    for scale in SCALES.values():
+        b = (rng.randn(K, N) * scale).astype(np.float32)
+        parts = [tf32x3(a[:, j * k:(j + 1) * k], b[j * k:(j + 1) * k]) for j in range(tp)]
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        want = a.astype(np.float64) @ b.astype(np.float64)
+        err = _rel(total, want)
+        err_f32 = _rel((torch.from_numpy(a) @ torch.from_numpy(b)).numpy(), want)
+        assert err <= max(4 * err_f32, 2e-6), (scale, err, err_f32)
+        if scale == SCALES["weights 0.02"]:
+            with jax.default_device(jax.devices("cpu")[0]):
+                highest = np.asarray(jnp.dot(jnp.asarray(a), jnp.asarray(b),
+                                             precision=jax.lax.Precision.HIGHEST))
+            np.testing.assert_allclose(total, highest, atol=2e-5, rtol=0)
 
 
 def _step(model, seed):
