@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --tp-depth 4   # only the tp rounding probe below
+    python3 chip_smoke.py --fp32-rows    # only the fp32 tp and grouped rows
 
 Builds the hand-written kernels from `d3dp_tpu_torch/ops/csrc/`, holds each
 against its plain torch version on the card (the stage kernels also at
@@ -102,6 +103,13 @@ and `{"tp_launches": ...}` lines of their own, before the last two lines.
 depth: phase tp's fp32 level-4 evaluation, with and without hmqkv, at
 depth N on two ranks over gloo against one process, printing the four
 modes' gap and whether each prediction equals one process's.
+
+`--fp32-rows` runs only phase tp's fp32 timing rows (`tp_kernel_rows_fp32`),
+the lab phase's grouped fp32 rows (`group_rows_fp32`) and the fp32
+`D3DP.sample` at level 4 ungrouped and grouped (`group_sample_fp32`), and
+prints them as one `RESULT {...}` JSON line. Copied into another checkout of the port, it
+times that checkout's kernels with the same code: run it in the parent's
+tree and the change's in turns to compare the two on one card.
 """
 
 import argparse
@@ -2601,22 +2609,15 @@ def lab_kernels(torch, rows, errs):
     computes the same function, that call: for the grouped stage the
     ungrouped library stage, for noy2 the library stage without LN2, for
     nogelu the library MLP without GELU; none rounds like fold0, bf16exp or
-    bf16gelu. Bounds are those of the kernel the switch modifies. Grouped K1
-    is also timed in fp32 at g = 8, 15, 18 beside ungrouped fp32 K1 (each
-    with its launches' device times) and the fp32 library stage (TF32 off),
-    the TF32 planes made outside the timed calls: returned as rows, bounds
-    at the three-pass TF32 rate."""
+    bf16gelu. Bounds are those of the kernel the switch modifies."""
     import torch.nn.functional as Fn
     from d3dp_tpu_torch.ops import attention as A
     from d3dp_tpu_torch.ops import mlp as M
     from d3dp_tpu_torch.ops import resident as R
 
-    from d3dp_tpu_torch.ops import tf32
-
     gen = torch.Generator(device="cuda").manual_seed(60)
     bf, f32 = torch.bfloat16, torch.float32
     sc = 0.125
-    rows_f32 = {}
 
     def held(name, label, dt, pairs, equal=True):
         torch.cuda.synchronize()
@@ -2676,18 +2677,6 @@ def lab_kernels(torch, rows, errs):
                 del got, want
             if label == "spatial":
                 la = lib_stage_args(a) if dt == bf else None
-                if dt == f32:
-                    pa = (tf32.planes(a[1]), tf32.planes(a[3]))
-                    lib_args = [a[0], a[1].t().contiguous(), a[2], a[3].t().contiguous(), *a[4:]]
-                    k1 = lambda: A.attention_stage(*a, HEADS, sc, 1e-6, planes=pa)
-                    rows_f32[f"attention_stage/{label}"] = dict(
-                        shape=list(a[0].shape), flops=flops, bytes=nbytes * 2 - 8 * C * 4,
-                        ms=time_ms(torch, k1, reps=5),
-                        plain_ms=time_ms(torch, lambda: A.attention_stage_plain(
-                            *a, HEADS, sc, 1e-6), reps=2),
-                        library_ms=time_ms(torch, lambda: lib_a(*lib_args), reps=5),
-                        launches_ms=launch_split(torch, k1))
-                    del lib_args
                 for g in (8, 15, 18):
                     name = f"attention_stage[group{g}]"
                     with env_vars(LAB[name][0]):
@@ -2696,15 +2685,6 @@ def lab_kernels(torch, rows, errs):
                                                    sc, 1e-6, mask_block=N)
                     pairs = [(gv, w.view(Rr, N, C)) for gv, w in zip(got, want)]
                     held(name, label, dt, pairs + (list(zip(got, base)) if dt == f32 else []))
-                    if dt == f32:
-                        with env_vars(LAB[name][0]):
-                            k1g = lambda: A.attention_stage(*a, HEADS, sc, 1e-6, planes=pa)
-                            rows_f32[f"{name}/{label}"] = dict(
-                                rows_f32[f"attention_stage/{label}"], ms=time_ms(torch, k1g, reps=5),
-                                plain_ms=time_ms(torch, lambda g=g: A.attention_stage_plain(
-                                    a[0].view(Rr // g, g * N, C), *a[1:], HEADS, sc, 1e-6,
-                                    mask_block=N), reps=2),
-                                launches_ms=launch_split(torch, k1g))
                     if dt == bf:
                         timed(name, label, a[0].shape,
                               lambda: A.attention_stage(*a, HEADS, sc, 1e-6),
@@ -2827,13 +2807,49 @@ def lab_kernels(torch, rows, errs):
             log(f"[lab-timing] {key} bf16 x{tuple(r['shape'])}: kernel {r['ms']:.4f} ms, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
                 f"library {lib}")
-    for key, r in rows_f32.items():
-        r["bound_ms"], r["bound_by"] = bound_ms(r["flops"], r["bytes"], PEAK_TF32 / 3)
-        log(f"[lab-timing] {key} fp32 x{tuple(r['shape'])}: kernel {r['ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, three TF32 passes), plain "
-            f"{r['plain_ms']:.4f} ms, library (ungrouped, TF32 off) {r['library_ms']:.4f} ms; "
-            "launches " + ", ".join(f"{k} {v:.4f} ms" for k, v in r["launches_ms"].items()))
-    return rows_f32
+
+
+def group_rows_fp32(torch, Fn):
+    """Grouped K1 (`D3DP_SPATIAL_GROUP` = 8, 15, 18) in fp32, the default
+    dtype, at the eval path's spatial shape beside ungrouped fp32 K1: each
+    timed (CUDA events) with its launches' device times (`launch_split`),
+    its plain version, the fp32 library stage (ungrouped, the same
+    function; TF32 off), its bound at the three-pass TF32 rate and its
+    attend launch's bound (bytes: qkv read, o written). The TF32 planes are
+    made outside the timed calls, as the model's weight cache makes them."""
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import tf32
+
+    check(not (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32),
+          "TF32 is on for the fp32 library calls")
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    Rr, N = ROWS * F, J
+    T = Rr * N
+    a = stage_inputs(torch, gen, Rr, N, torch.float32)
+    pa = (tf32.planes(a[1]), tf32.planes(a[3]))
+    lib_a = library_attention(torch, Fn)
+    lib_args = [a[0], a[1].t().contiguous(), a[2], a[3].t().contiguous(), *a[4:]]
+    lib_ms = time_ms(torch, lambda: lib_a(*lib_args), reps=5)
+    flops = 2 * T * C * 3 * C + 4 * T * N * C + 2 * T * C * C
+    nbytes = 3 * T * C * 4 + 4 * C * C * 4 + 8 * C * 4
+    out = {}
+    for g in (0, 8, 15, 18):
+        name = f"attention_stage[group{g}]" if g else "attention_stage"
+        with env_vars(LAB[name][0] if g else {}):
+            k1 = lambda: A.attention_stage(*a, HEADS, 0.125, 1e-6, planes=pa)
+            r = out[f"{name}/spatial"] = dict(
+                shape=list(a[0].shape), flops=flops, bytes=nbytes, ms=time_ms(torch, k1, reps=5),
+                plain_ms=time_ms(torch, lambda: A.attention_stage_plain(
+                    a[0].view(Rr // max(g, 1), max(g, 1) * N, C), *a[1:], HEADS, 0.125, 1e-6,
+                    mask_block=N if g else 0), reps=2),
+                library_ms=lib_ms, attend_bound_ms=1e3 * 4 * T * C * 4 / HBM)
+            r["launches_ms"] = launch_split(torch, k1, r["ms"])
+        r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes, PEAK_TF32 / 3)
+        log(f"[lab-timing] {name}/spatial fp32 x{tuple(r['shape'])}: kernel {r['ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, three TF32 passes; attend launch "
+            f"{r['attend_bound_ms']:.4f} ms, bytes), plain {r['plain_ms']:.4f} ms, library "
+            f"(ungrouped, TF32 off) {r['library_ms']:.4f} ms" + launches_text(r))
+    return out
 
 
 def phase_lab_switches(torch, record, d3dp, x2d, x2d_f, rows):
@@ -2851,6 +2867,8 @@ def phase_lab_switches(torch, record, d3dp, x2d, x2d_f, rows):
     public op at the two eval stage shapes (its model output is undefined:
     y2 is never written). Returns the errors and the launches per
     instantiation."""
+    import torch.nn.functional as Fn
+
     from d3dp_tpu_torch.diffusion import D3DP
     from d3dp_tpu_torch.ops import attention as A
     from d3dp_tpu_torch.ops import mlp as M
@@ -2858,7 +2876,8 @@ def phase_lab_switches(torch, record, d3dp, x2d, x2d_f, rows):
 
     t0 = time.perf_counter()
     errs, launches, out = {}, {}, {}
-    out["kernel_rows_fp32"] = lab_kernels(torch, rows, errs)
+    lab_kernels(torch, rows, errs)
+    out["kernel_rows_fp32"] = group_rows_fp32(torch, Fn)
 
     def sample(tag, settings, level, seed, reps, want):
         set_level(d3dp.model, level)
@@ -3184,23 +3203,52 @@ def phase_timing(torch, record, d3dp, x2d, x2d_f):
     return rows
 
 
-def launch_split(torch, fn, reps=5):
-    """Device ms per call of each of a stage call's three launches (ln_qkv,
-    attend, proj_ln2), by kernel name from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+# a stage call's launches: label -> the start of its `__global__`
+# function's name (`launch_split`)
+STAGE_KERNELS = {"ln_qkv": "ln_qkv", "attend": "attend", "proj": "proj"}
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+
+def launch_split(torch, fn, ms, kernels=STAGE_KERNELS, reps=5):
+    """Device ms per call of each of fn's launches, by the name of its
+    kernel's `__global__` function (`kernels`: label -> the name's start),
+    from torch.profiler's device events over `reps` calls after two warm-up
+    calls (the profiler's schedule); other kernels' events (a partial
+    form's TF32 plane split) go under "other", the profiler's own step
+    annotations nowhere. None, logged as not measured, where the profile is
+    not whole: a label without exactly `reps` events, or events summing past
+    fn's time per call from CUDA events (`ms`) by more than 5%."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=2, active=reps, repeat=1)) as prof:
+        for _ in range(2 + reps):
             fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        for k in ("ln_qkv", "attend", "proj_ln2"):
-            if k in e.key and e.self_device_time_total > 0:
-                out[k] = out.get(k, 0.0) + e.self_device_time_total / reps / 1e3
-    return out
+            torch.cuda.synchronize()
+            prof.step()
+    us, n = {}, {}
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        name = re.match(r"(?:void\s+)?(?:\w+::)*(\w*)", e.name).group(1)
+        label = next((k for k, start in kernels.items() if name.startswith(start)), "other")
+        us[label] = us.get(label, 0.0) + e.time_range.elapsed_us()
+        n[label] = n.get(label, 0) + 1
+    out = {k: v / reps / 1e3 for k, v in us.items()}
+    if all(n.get(k) == reps for k in kernels) and sum(out.values()) <= 1.05 * ms:
+        return out
+    log(f"[launch-split] not measured: events {n} over {reps} calls, device "
+        f"{sum(out.values()):.4f} ms a call against {ms:.4f} ms from CUDA events")
+    return None
+
+
+def launches_text(r):
+    """A row's launch split for the log."""
+    if "launches_ms" not in r:
+        return ""
+    if r["launches_ms"] is None:
+        return "; launches not measured"
+    return "; launches " + ", ".join(f"{k} {v:.4f} ms" for k, v in r["launches_ms"].items())
 
 
 def timing_fp32(torch, record, x2d, x2d_f, Fn, gen):
@@ -3277,9 +3325,10 @@ def fp32_kernel_rows(torch, Fn, gen):
         flops = 2 * T * C * 3 * C + 4 * T * N * C + 2 * T * C * C
         nbytes = 3 * T * C * 4 + 4 * C * C * 4 + 8 * C * 4
         k1 = lambda: A.attention_stage(*a, HEADS, 0.125, 1e-6, planes=pa)
-        rows[f"attention_stage/{label}"] = row(
+        r = rows[f"attention_stage/{label}"] = row(
             a[0].shape, flops, nbytes, k1, lambda: A.attention_stage_plain(*a, HEADS, 0.125, 1e-6),
-            lambda: lib_a(*lib_args), launches_ms=launch_split(torch, k1))
+            lambda: lib_a(*lib_args))
+        r["launches_ms"] = launch_split(torch, k1, r["ms"])
         rows[f"attention_stage_hm/{label}"] = row(
             a[0].shape, flops, nbytes,
             lambda: A.attention_stage_hm(*hm, HEADS, 0.125, 1e-6, planes=phm),
@@ -3360,8 +3409,7 @@ def fp32_kernel_rows(torch, Fn, gen):
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}, three TF32 passes; FMA figure "
             f"{r['fma_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, library (TF32 off) "
             f"{r['library_ms']:.4f} ms, {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s"
-            + ("; launches " + ", ".join(f"{k} {v:.4f} ms" for k, v in r["launches_ms"].items())
-               if "launches_ms" in r else ""))
+            + launches_text(r))
     return rows
 
 
@@ -4190,11 +4238,13 @@ def tp_kernel_rows_fp32(torch, Fn, tp=TP):
     """Phase tp (iv), fp32 (the default dtype, in which the
     `D3DP_TRAIN_FUSED=1` tp step runs): K1-tp, K8-tp, K6-tp and K2/K5-tp on
     rank 0's share at the train step's shapes (4 x 243 frames), each timed
-    (CUDA events) beside the whole kernel at the same rows, its plain
-    version, the fp32 library sequence for the same work (TF32 off) and its
-    bound at the three-pass TF32 rate; the stage forms also split into
-    their ln_qkv, attend and proj_ln2 launches (device time). The TF32
-    planes are made outside the timed calls."""
+    (CUDA events) as the train step calls it, the TF32 plane split of the
+    rank's weights included, and split by launch (device time,
+    `launch_split`; the plane split under "other"), beside the whole kernel
+    at the same rows (its planes made outside the timed calls, as the
+    model's weight cache makes them), its plain version, the fp32 library
+    sequence for the same work (TF32 off) and its bound at the three-pass
+    TF32 rate."""
     from d3dp_tpu_torch.ops import attention as A
     from d3dp_tpu_torch.ops import mlp as M
     from d3dp_tpu_torch.ops import tf32
@@ -4205,85 +4255,77 @@ def tp_kernel_rows_fp32(torch, Fn, tp=TP):
     gen = torch.Generator(device="cuda").manual_seed(73)
     heads, cl, hl = HEADS // tp, C // tp, HIDDEN // tp
     scale = (C // HEADS) ** -0.5
+    block_kernels = {k: STAGE_KERNELS[k] for k in ("attend", "proj")}
     out = {}
+
+    def timed(name, fn, whole, plain, lib, kernels, **row):
+        r = out[name] = dict(row, ms=time_ms(torch, fn, reps=10),
+                             whole_ms=time_ms(torch, whole, reps=10),
+                             plain_ms=time_ms(torch, plain, reps=3),
+                             library_ms=time_ms(torch, lib, reps=10))
+        r["launches_ms"] = launch_split(torch, fn, r["ms"], kernels)
+
     for label, R, N in TRAIN_SHAPES:
         T = R * N
         a = stage_inputs(torch, gen, R, N, f32)
         sa = tp_stage_args(torch, a, tp, 0)
-        psa = (tf32.planes(sa[1]), tf32.planes(sa[5]))
         pa = (tf32.planes(a[1]), tf32.planes(a[3]))
         lib = library_stage_partial(torch, Fn, heads)
         lib_args = (sa[0], sa[1].t().contiguous(), sa[2], sa[5].t().contiguous(), sa[3], sa[4])
-        k1tp = lambda: A.attention_stage_partial(*sa, heads, scale, 1e-6, planes=psa)
-        out[f"attention_stage_partial/train {label}"] = dict(
+        stage_row = dict(
             shape=list(a[0].shape), tp=tp,
             flops=2 * T * C * 3 * cl + 4 * T * N * cl + 2 * T * cl * C,
-            bytes=T * C * 4 + (3 * C * cl + cl * C) * 4 + (3 * cl + 2 * C) * 4 + T * C * 4,
-            ms=time_ms(torch, k1tp, reps=10),
-            whole_ms=time_ms(torch, lambda: A.attention_stage(*a, HEADS, scale, 1e-6, planes=pa),
-                             reps=10),
-            plain_ms=time_ms(torch, lambda: A.attention_stage_partial_plain(
-                *sa, heads, scale, 1e-6), reps=3),
-            library_ms=time_ms(torch, lambda: lib(*lib_args), reps=10),
-            launches_ms=launch_split(torch, k1tp))
+            bytes=T * C * 4 + (3 * C * cl + cl * C) * 4 + (3 * cl + 2 * C) * 4 + T * C * 4)
+        timed(f"attention_stage_partial/train {label}",
+              lambda: A.attention_stage_partial(*sa, heads, scale, 1e-6),
+              lambda: A.attention_stage(*a, HEADS, scale, 1e-6, planes=pa),
+              lambda: A.attention_stage_partial_plain(*sa, heads, scale, 1e-6),
+              lambda: lib(*lib_args), STAGE_KERNELS, **stage_row)
         hm = (sa[0], *A.stack_head_major(sa[1], sa[2], heads), *sa[3:])
-        phm = (tf32.planes(hm[1]), psa[1])
         whole_hm = (a[0], *A.stack_head_major(a[1], a[2], HEADS), *a[3:])
         pwhm = (tf32.planes(whole_hm[1]), pa[1])
-        k8tp = lambda: A.attention_stage_hm_partial(*hm, heads, scale, 1e-6, planes=phm)
-        out[f"attention_stage_hm_partial/train {label}"] = dict(
-            out[f"attention_stage_partial/train {label}"],
-            ms=time_ms(torch, k8tp, reps=10),
-            whole_ms=time_ms(torch, lambda: A.attention_stage_hm(
-                *whole_hm, HEADS, scale, 1e-6, planes=pwhm), reps=10),
-            plain_ms=time_ms(torch, lambda: A.attention_stage_hm_partial_plain(
-                *hm, heads, scale, 1e-6), reps=3),
-            launches_ms=launch_split(torch, k8tp))
-        del a, sa, psa, pa, lib_args, hm, phm, whole_hm, pwhm
+        timed(f"attention_stage_hm_partial/train {label}",
+              lambda: A.attention_stage_hm_partial(*hm, heads, scale, 1e-6),
+              lambda: A.attention_stage_hm(*whole_hm, HEADS, scale, 1e-6, planes=pwhm),
+              lambda: A.attention_stage_hm_partial_plain(*hm, heads, scale, 1e-6),
+              lambda: lib(*lib_args), STAGE_KERNELS, **stage_row)
+        del a, sa, pa, lib_args, hm, whole_hm, pwhm
         b = block_inputs(torch, gen, R, N, f32)
         qkv_j, wp_j = tp_block_args(torch, b, tp, 0)
-        pwp, pb = (tf32.planes(wp_j),), (tf32.planes(b[2]),)
+        pb = (tf32.planes(b[2]),)
         wp_t = wp_j.t().contiguous()
 
         def lib_block():
             q, k, v = qkv_j.view(R, N, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
             o = Fn.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(R, N, cl)
             return Fn.linear(o, wp_t)
-        out[f"attention_block_partial/train {label}"] = dict(
-            shape=list(qkv_j.shape), tp=tp, flops=4 * T * N * cl + 2 * T * cl * C,
-            bytes=T * 3 * cl * 4 + cl * C * 4 + T * C * 4,
-            ms=time_ms(torch, lambda: A.attention_block_partial(
-                qkv_j, wp_j, heads, scale, planes=pwp), reps=10),
-            whole_ms=time_ms(torch, lambda: A.attention_block(*b, HEADS, scale, 1e-6, planes=pb),
-                             reps=10),
-            plain_ms=time_ms(torch, lambda: A.attention_block_partial_plain(
-                qkv_j, wp_j, heads, scale), reps=3),
-            library_ms=time_ms(torch, lib_block, reps=10))
-        del b, qkv_j, wp_j, pwp, pb, wp_t
+        timed(f"attention_block_partial/train {label}",
+              lambda: A.attention_block_partial(qkv_j, wp_j, heads, scale),
+              lambda: A.attention_block(*b, HEADS, scale, 1e-6, planes=pb),
+              lambda: A.attention_block_partial_plain(qkv_j, wp_j, heads, scale),
+              lib_block, block_kernels, shape=list(qkv_j.shape), tp=tp,
+              flops=4 * T * N * cl + 2 * T * cl * C,
+              bytes=T * 3 * cl * 4 + cl * C * 4 + T * C * 4)
+        del b, qkv_j, wp_j, pb, wp_t
     T = BT * F * J
     a = mlp_inputs(torch, gen, F, J, f32, rows=BT)
     ma = tp_mlp_args(torch, a, tp, 0)
-    pm = (tf32.planes(ma[1]), tf32.planes(ma[3]))
     pwm = (tf32.planes(a[2]), tf32.planes(a[4]))
     lib_w = (ma[1].t().contiguous(), ma[2], ma[3].t().contiguous())
-    out["mlp_block_partial/train rows"] = dict(
-        shape=list(ma[0].shape), tp=tp, flops=4 * T * C * hl,
-        bytes=T * C * 4 + 2 * C * hl * 4 + hl * 4 + T * C * 4,
-        ms=time_ms(torch, lambda: M.mlp_block_partial(*ma, planes=pm), reps=10),
-        whole_ms=time_ms(torch, lambda: M.mlp_block_t(*a, 1e-6, planes=pwm), reps=10),
-        plain_ms=time_ms(torch, lambda: M.mlp_block_partial_plain(*ma), reps=3),
-        library_ms=time_ms(torch, lambda: Fn.linear(Fn.gelu(Fn.linear(
-            ma[0], lib_w[0], lib_w[1])), lib_w[2]), reps=10))
-    del a, ma, pm, pwm, lib_w
+    timed("mlp_block_partial/train rows", lambda: M.mlp_block_partial(*ma),
+          lambda: M.mlp_block_t(*a, 1e-6, planes=pwm), lambda: M.mlp_block_partial_plain(*ma),
+          lambda: Fn.linear(Fn.gelu(Fn.linear(ma[0], lib_w[0], lib_w[1])), lib_w[2]),
+          {"mlp": "mlp"}, shape=list(ma[0].shape), tp=tp,
+          flops=4 * T * C * hl, bytes=T * C * 4 + 2 * C * hl * 4 + hl * 4 + T * C * 4)
+    del a, ma, pwm, lib_w
     for name, r in out.items():
         r["bound_ms"], r["bound_by"] = bound_ms(r["flops"], r["bytes"], PEAK_TF32 / 3)
         log(f"[tp] timing {name} fp32 x{tuple(r['shape'])} (rank 0 of tp {tp}): kernel "
-            f"{r['ms']:.4f} ms, the whole kernel at these rows {r['whole_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, three TF32 passes; "
-            f"{r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.1f} MB), plain "
-            f"{r['plain_ms']:.4f} ms, library (TF32 off) {r['library_ms']:.4f} ms"
-            + ("; launches " + ", ".join(f"{k} {v:.4f} ms" for k, v in r["launches_ms"].items())
-               if "launches_ms" in r else ""))
+            f"{r['ms']:.4f} ms (its weights' TF32 plane split included), the whole kernel at "
+            f"these rows {r['whole_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"three TF32 passes; {r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.1f} MB), "
+            f"plain {r['plain_ms']:.4f} ms, library (TF32 off) {r['library_ms']:.4f} ms"
+            + launches_text(r))
     return out
 
 
@@ -4648,6 +4690,46 @@ def tp_depth_rank(out_dir, devices, depth):
     torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
 
 
+def fp32_rows_only(torch):
+    """The `--fp32-rows` run (module docstring)."""
+    import torch.nn.functional as Fn
+
+    from d3dp_tpu_torch import disable_tf32
+
+    disable_tf32()
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                       capture_output=True, text=True, timeout=60,
+                       check=True).stdout.strip().splitlines()[0])
+    out = dict(tp_kernel_rows_fp32=tp_kernel_rows_fp32(torch, Fn),
+               group_rows_fp32=group_rows_fp32(torch, Fn),
+               sample_seconds_fp32=group_sample_fp32(torch))
+    log("RESULT " + json.dumps(out))
+    return 0
+
+
+def group_sample_fp32(torch, groups=(0, 8), reps=3):
+    """One fp32 D3DP.sample at the eval config at fuse level 4 (random
+    weights from seed 0) ungrouped and under each `D3DP_SPATIAL_GROUP` in
+    groups: seconds a call, the median of `reps` after a warm-up call."""
+    from d3dp_tpu_torch.diffusion import D3DP
+
+    cfg = main_config(torch)
+    d3dp = D3DP(dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype=torch.float32)), seed=0)
+    set_level(d3dp.model, 4)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x2d = torch.randn(B, F, J, 2, generator=g, device="cuda") * 0.3
+    x2d_f = torch.randn(B, F, J, 2, generator=g, device="cuda") * 0.3
+    out = {}
+    for group in groups:
+        with env_vars({"D3DP_SPATIAL_GROUP": str(group)} if group else {}):
+            out[f"group{group}" if group else "ungrouped"] = time_ms(
+                torch, lambda: d3dp.sample(x2d, x2d_f, generator=g), reps) / 1e3
+    log(f"[fp32-rows] D3DP.sample B={B} H={H} K={K} F={F} fp32 flip-TTA level 4: " + ", ".join(
+        f"{k} {v:.4f} s/call" for k, v in out.items()) + f" (median of {reps})")
+    return out
+
+
 def tp_depth_probe(torch, depth):
     """The `--tp-depth` probe (module docstring): returns 0 once it has
     printed its readings, whatever they are."""
@@ -4761,6 +4843,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
     ap.add_argument("--tp-depth", type=int, metavar="N",
                     help="run only the tensor-parallel rounding probe at depth N")
+    ap.add_argument("--fp32-rows", action="store_true",
+                    help="time only the fp32 tensor-parallel and grouped K1 rows")
     args = ap.parse_args(argv)
     import torch
 
@@ -4770,6 +4854,8 @@ def main(argv=None):
         return 2
     if args.tp_depth:
         return tp_depth_probe(torch, args.tp_depth)
+    if args.fp32_rows:
+        return fp32_rows_only(torch)
     record = {}
     t_all = time.perf_counter()
     os.makedirs("chiprun_out", exist_ok=True)

@@ -488,11 +488,11 @@ def attention_stage_hm_partial_plain(x, wqkv_hm, bqkv_hm, ln1_s, ln1_b, wp, num_
 
 
 def _launch_partial(what, fns, x, wqkv, bqkv, ln1_s, ln1_b, wp, num_heads, scale, eps, opts,
-                    mask_block=0, head_major=False, planes=None):
+                    mask_block=0, head_major=False):
     """Check the operands of K1-tp (packed wqkv (C, 3 C_l), bqkv (3 C_l,))
     or K8-tp (head-major (h_l, C, 3d), (h_l, 1, 3d)) and launch it; returns
-    the fp32 (R, N, C) partial. fp32 runs on (wqkv, wp)'s TF32 planes:
-    `planes`, else made here (`ops.tf32.operands`)."""
+    the fp32 (R, N, C) partial. fp32 runs on (wqkv, wp)'s TF32 planes, made
+    here (`ops.tf32.operands`): the rank's weights change every step."""
     R, N, C = _check_rows(x, num_heads, what, fns, mask_block, partial=True)
     dt, dev, f32 = x.dtype, x.device, torch.float32
     c_l = num_heads * HEAD_DIM
@@ -504,7 +504,7 @@ def _launch_partial(what, fns, x, wqkv, bqkv, ln1_s, ln1_b, wp, num_heads, scale
             (ln1_s, "ln1_s", f32, (C,)), (ln1_b, "ln1_b", f32, (C,)), (wp, "wp", dt, (c_l, C))):
         _build.check_operand(t, name, dtype, shape, dev)
     if dt == f32:
-        wqkv, wp = tf32.operands((wqkv, wp), ("wqkv", "wp"), dev, planes)
+        wqkv, wp = tf32.operands((wqkv, wp), ("wqkv", "wp"), dev)
     # qkv scratch: (R, N, 3 C_l) packed, (h_l, R*N, 3d) head-major
     qkv = torch.empty((R, N, 3 * c_l), dtype=dt, device=dev)
     o = torch.empty((R, N, c_l), dtype=dt, device=dev)
@@ -520,37 +520,31 @@ def _launch_partial(what, fns, x, wqkv, bqkv, ln1_s, ln1_b, wp, num_heads, scale
     return part
 
 
-def attention_stage_hm_partial(x, wqkv_hm, bqkv_hm, ln1_s, ln1_b, wp, num_heads, scale, eps,
-                               planes=None):
+def attention_stage_hm_partial(x, wqkv_hm, bqkv_hm, ln1_s, ln1_b, wp, num_heads, scale, eps):
     """K8-tp: a tensor-parallel rank's share of the head-major stage (the
     `hmqkv` variant) on x (R, N, C), its fp32 (R, N, C) out-projection
     product; see `attention_stage_hm_partial_plain`. `D3DP_SOFTMAX_FOLD` is
-    the one switch it reads (`fold_opts`). planes: fp32's (wqkv_hm, wp) TF32
-    planes, or None."""
+    the one switch it reads (`fold_opts`)."""
     opts = fold_opts(x.dtype)
     if x.device.type == "cpu":
         return attention_stage_hm_partial_plain(x, wqkv_hm, bqkv_hm, ln1_s, ln1_b, wp,
                                                 num_heads, scale, eps, opts)
     part = _launch_partial("attention_stage_hm_partial", _HM_PART_FN, x, wqkv_hm, bqkv_hm,
-                           ln1_s, ln1_b, wp, num_heads, scale, eps, opts, head_major=True,
-                           planes=planes)
+                           ln1_s, ln1_b, wp, num_heads, scale, eps, opts, head_major=True)
     attention_stage_hm_partial.launches += 1
     return part
 
 
-def attention_stage_partial(x, wqkv, bqkv, ln1_s, ln1_b, wp, num_heads, scale, eps,
-                            planes=None):
+def attention_stage_partial(x, wqkv, bqkv, ln1_s, ln1_b, wp, num_heads, scale, eps):
     """K1-tp: a tensor-parallel rank's share of the attention stage on x
     (R, N, C), its fp32 (R, N, C) out-projection product (see
     `attention_stage_partial_plain`), under the lab switches as
     `attention_stage` resolves them: under `hmqkv` it stacks the rank's
-    weights head-major and runs `attention_stage_hm_partial` (K8-tp).
-    planes: fp32's (wqkv, wp) TF32 planes, or None."""
+    weights head-major and runs `attention_stage_hm_partial` (K8-tp)."""
     kernel, opts, group = stage_config(x)
     if kernel == "head_major":
         return attention_stage_hm_partial(x, *stack_head_major(wqkv, bqkv, num_heads), ln1_s,
-                                          ln1_b, wp, num_heads, scale, eps,
-                                          planes=None if planes is None else (None, planes[1]))
+                                          ln1_b, wp, num_heads, scale, eps)
     opts &= ~OPT_NO_Y2
     R, N, C = x.shape
     mask_block = N if group > 1 else 0
@@ -560,7 +554,7 @@ def attention_stage_partial(x, wqkv, bqkv, ln1_s, ln1_b, wp, num_heads, scale, e
                                              eps, opts, mask_block)
         return part.view(R, N, C)
     part = _launch_partial("attention_stage_partial", _STAGE_PART_FN, xg, wqkv, bqkv, ln1_s,
-                           ln1_b, wp, num_heads, scale, eps, opts, mask_block, planes=planes)
+                           ln1_b, wp, num_heads, scale, eps, opts, mask_block)
     attention_stage_partial.launches += 1
     return part.view(R, N, C)
 
@@ -942,11 +936,10 @@ def attention_block_partial_plain(qkv, wp, num_heads, scale):
     return _mm(fused_attention_qkv_plain(qkv, num_heads, scale), wp)
 
 
-def attention_block_partial(qkv, wp, num_heads, scale, planes=None):
+def attention_block_partial(qkv, wp, num_heads, scale):
     """K6-tp: a tensor-parallel rank's share of the attention block (levels
     2-3), its fp32 (R, N, C) out-projection product; see
-    `attention_block_partial_plain`. planes: fp32's (wp,) TF32 planes, or
-    None."""
+    `attention_block_partial_plain`; fp32 makes wp's TF32 planes here."""
     if qkv.device.type == "cpu":
         return attention_block_partial_plain(qkv, wp, num_heads, scale)
     R, N, c_l = _check_qkv(qkv, num_heads, "attention_block_partial")
@@ -959,7 +952,7 @@ def attention_block_partial(qkv, wp, num_heads, scale, planes=None):
         raise ValueError(f"attention_block_partial: {num_heads} heads do not split C={C}")
     _build.check_operand(wp, "wp", dt, (c_l, C), dev)
     if dt == torch.float32:
-        wp, = tf32.operands((wp,), ("wp",), dev, planes)
+        wp, = tf32.operands((wp,), ("wp",), dev)
     o = torch.empty((R, N, c_l), dtype=dt, device=dev)
     part = torch.empty((R, N, C), dtype=torch.float32, device=dev)
     lib = _block_lib()

@@ -451,6 +451,10 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4
 // every add rounds toward zero; promoting a stage at a time cuts those adds
 // twelvefold, for 32 more registers. The qkv walk takes it: its error
 // passes through the softmax, which magnifies it by the logits' scale.
+// tests/test_torch_tf32x3.py models the accumulation on the CPU: at the
+// tensor-parallel card tests' inputs the promoted qkv keeps K1-tp inside
+// the fp32 band where one accumulator does not, and the walks that keep
+// one (the projection, fc1, fc2) stay within half of it.
 template <bool kPromote = false>
 __device__ __forceinline__ void tf32x3_stage(float (&d)[32], const float* as, int K, int k0,
                                              uint32_t box) {
@@ -488,6 +492,27 @@ __device__ __forceinline__ void tf32x3_stage(float (&d)[32], const float* as, in
   } else {
     products(d);
   }
+}
+
+// The fp32 walks' partial epilogue: a warpgroup's raw accumulators (nq of
+// its 64-column blocks of the C / 2 columns at wg * C / 2, the m64nNk16
+// fragment layout; this thread's rows ta and ta + 8, column pair cq in
+// each 8) stored to part (M, C), rows at or past M dropped.
+__device__ __forceinline__ void f32_store_partial(float* part, const float (&acc)[128], int nq,
+                                                  int wg, int C, int M, int ta, int cq) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (q < nq) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float* d = acc + 32 * q + 4 * jj;
+        const int c = wg * (C / 2) + 64 * q + 8 * jj + cq;
+        if (ta < M)
+          *reinterpret_cast<float2*>(part + (size_t)ta * C + c) = make_float2(d[0], d[1]);
+        if (ta + 8 < M)
+          *reinterpret_cast<float2*>(part + (size_t)(ta + 8) * C + c) = make_float2(d[2], d[3]);
+      }
+    }
 }
 
 // Start one stage into shared address dst, completing on bar: k columns
@@ -954,19 +979,7 @@ __device__ __forceinline__ void mlp_walk_f32(const MlpArgs<float>& a, const CUte
 
     const int ta = tile * kF32Tile + r0, tb = ta + 8;
     if constexpr (kPartial) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (q < nq) {
-#pragma unroll
-          for (int jj = 0; jj < 8; ++jj) {
-            const float* d = acc2 + 32 * q + 4 * jj;
-            const int c = wg * (C / 2) + 64 * q + 8 * jj + cq;
-            if (ta < M)
-              *reinterpret_cast<float2*>(a.part + (size_t)ta * C + c) = make_float2(d[0], d[1]);
-            if (tb < M)
-              *reinterpret_cast<float2*>(a.part + (size_t)tb * C + c) = make_float2(d[2], d[3]);
-          }
-        }
+      f32_store_partial(a.part, acc2, nq, wg, C, M, ta, cq);
       continue;
     }
 

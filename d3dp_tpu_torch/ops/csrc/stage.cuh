@@ -751,20 +751,7 @@ __device__ __forceinline__ void proj_ln2_walk_f32(const ProjArgsF32& a, const CU
 
     const int ta = row0 + r0, tb = ta + 8;
     if constexpr (kPartial) {
-      // the raw fp32 product, rows past M dropped
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (q < nq) {
-#pragma unroll
-          for (int jj = 0; jj < 8; ++jj) {
-            const float* d = acc + 32 * q + 4 * jj;
-            const int c = wg * (C / 2) + 64 * q + 8 * jj + cq;
-            if (ta < M)
-              *reinterpret_cast<float2*>(a.part + (size_t)ta * C + c) = make_float2(d[0], d[1]);
-            if (tb < M)
-              *reinterpret_cast<float2*>(a.part + (size_t)tb * C + c) = make_float2(d[2], d[3]);
-          }
-        }
+      f32_store_partial(a.part, acc, nq, wg, C, M, ta, cq);
       continue;
     }
 

@@ -272,10 +272,10 @@ def mlp_block_partial_plain(x, w1, b1, w2, gelu=GELU_ERF):
     return _mm(h.to(x.dtype), w2)
 
 
-def mlp_block_partial(x, w1, b1, w2, planes=None):
+def mlp_block_partial(x, w1, b1, w2):
     """K2/K5-tp: a tensor-parallel rank's share of the MLP half on (R, C)
-    rows, its fp32 (R, C) fc2 product; see the module docstring. planes:
-    fp32's (w1, w2) TF32 planes, or None."""
+    rows, its fp32 (R, C) fc2 product; see the module docstring. fp32 makes
+    (w1, w2)'s TF32 planes here: the rank's weights change every step."""
     gelu = gelu_mode(x.dtype)
     if x.device.type == "cpu":
         return mlp_block_partial_plain(x, w1, b1, w2, gelu)
@@ -293,7 +293,7 @@ def mlp_block_partial(x, w1, b1, w2, planes=None):
                                   (b1, "b1", f32, (H,)), (w2, "w2", dt, (H, C))):
         _build.check_operand(t, name, dtype, shape, dev)
     if dt == f32:
-        w1, w2 = tf32.operands((w1, w2), ("w1", "w2"), dev, planes)
+        w1, w2 = tf32.operands((w1, w2), ("w1", "w2"), dev)
     part = torch.empty((R, C), dtype=f32, device=dev)
     lib = _build.load("mlp_block_t", {fn: sig for fns_, sig in _SIGS for fn in fns_.values()})
     with torch.cuda.device(dev):

@@ -27,14 +27,7 @@ attention core instead: K4 (the backward) and K3 at the train step's shapes,
 SDPA's forward and backward beside each (also as device time per call from
 `torch.profiler`, without the host's launch cost), and the full-width bf16 train step
 (ms per step, random weights and batch from a seed), composed and with
-`D3DP_TRAIN_FUSED=1` at fuse level 4; with `--tp` the tensor-parallel
-partial forms instead: K1-tp, K8-tp, K6-tp and K2/K5-tp on rank 0's share
-at tp=2 at the train step's shapes (4 x 243 x 17 token rows; the stage forms
-also split by launch), each beside the whole kernel at the same rows and
-the library sequence for the same work; with `--group` the grouped lab
-switch instead: K1 at the eval path's spatial shape under
-`D3DP_SPATIAL_GROUP` = 8, 15 and 18 and ungrouped (split by launch), the
-library stage, and `D3DP.sample` at fuse level 4 ungrouped and at g = 8.
+`D3DP_TRAIN_FUSED=1` at fuse level 4.
 `--dtype float32` times all of it in fp32, the default dtype of every entry
 point (in a checkout whose fp32 kernels take TF32 weight planes, the ops
 get them as `planes`, made outside the timed calls as the model's weight
@@ -63,8 +56,6 @@ STAGE = sys.argv[4] == "1"
 BWD = sys.argv[5] == "1"
 C, HEADS, ROWS, BT, F, J = 512, 8, 40, 4, 243, 17
 bf = getattr(torch, sys.argv[6])  # the compute dtype
-TP = sys.argv[7] == "1"
-GROUP = sys.argv[8] == "1"
 gen = torch.Generator(device="cuda").manual_seed(11)
 try:  # a checkout whose fp32 kernels take TF32 weight planes
     import inspect
@@ -105,122 +96,7 @@ def ms(fn, iters=ITERS):
     return statistics.median(out)
 
 
-def takes_planes(fn):
-    import inspect
-    return "planes" in inspect.signature(fn).parameters
-
-
-def dev_split(fn, keys=("ln_qkv", "attend", "proj_ln2"), reps=5):
-    """Device ms per call of fn's launches whose kernel names hold each key
-    (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        for k in keys:
-            if k in e.key and e.self_device_time_total > 0:
-                out[k] = out.get(k, 0.0) + e.self_device_time_total / reps / 1e3
-    return out
-
-
 res = {}
-if TP:
-    import torch.nn.functional as Fn
-    from d3dp_tpu_torch.ops import mlp as M
-
-    NT, H = 2, 2 * C  # rank 0 of tp = 2
-    heads, cl, hl = HEADS // NT, C // NT, H // NT
-    qi = torch.cat([torch.arange(p * C, p * C + cl) for p in range(3)]).cuda()
-
-    def plp(fn, *ws):
-        """fn's planes keyword on ws where the checkout's op takes one."""
-        return pl(*ws) if takes_planes(fn) else {}
-
-    w = [rn(C, 3 * C, s=0.05).to(bf), rn(3 * C, s=0.02), rn(C, C, s=0.05).to(bf), rn(C, s=0.02),
-         1 + rn(C, s=0.1), rn(C, s=0.1), 1 + rn(C, s=0.1), rn(C, s=0.1)]
-    wq, bq, wpr = w[0][:, qi].contiguous(), w[1][qi].contiguous(), w[2][:cl].contiguous()
-    pst = pl(w[0], w[2])
-    for label, R, N in (("train spatial", BT * F, J), ("train temporal", BT * J, F)):
-        x = rn(R, N, C, s=0.5).to(bf)
-        st = (x, wq, bq, w[4], w[5], wpr)
-        hm = (x, *A.stack_head_major(wq, bq, heads), w[4], w[5], wpr)
-        p1 = plp(A.attention_stage_partial, wq, wpr)
-        p8 = plp(A.attention_stage_hm_partial, hm[1], wpr)
-        p6 = plp(A.attention_block_partial, wpr)
-        k1 = lambda: A.attention_stage_partial(*st, heads, 0.125, 1e-6, **p1)
-        k8 = lambda: A.attention_stage_hm_partial(*hm, heads, 0.125, 1e-6, **p8)
-        qkv = rn(R, N, 3 * cl).to(bf)
-        k6 = lambda: A.attention_block_partial(qkv, wpr, heads, 0.125, **p6)
-        for name, fn in (("K1-tp", k1), ("K8-tp", k8), ("K6-tp", k6)):
-            res[f"{name}/{label}"] = ms(fn)
-            for k, v in dev_split(fn).items():
-                res[f"{name} {k}/{label}"] = v
-        whole = [x, *w]
-        res[f"K1 whole/{label}"] = ms(lambda: A.attention_stage(*whole, HEADS, 0.125, 1e-6,
-                                                                **pst))
-        lw = (wq.t().contiguous(), bq.to(bf), wpr.t().contiguous(), w[4].to(bf), w[5].to(bf))
-
-        def lib_k1():
-            q, k, v = Fn.linear(Fn.layer_norm(x, (C,), lw[3], lw[4], 1e-6), lw[0], lw[1]).view(
-                R, N, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
-            o = Fn.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(R, N, cl)
-            return Fn.linear(o, lw[2]).float()
-        res[f"library K1-tp/{label}"] = ms(lib_k1)
-        del x, st, hm, qkv, whole
-    xr = rn(BT * F * J, C).to(bf)
-    m = [rn(C, H, s=0.05).to(bf), rn(H, s=0.01), rn(H, C, s=0.05).to(bf)]
-    mp = (xr, m[0][:, :hl].contiguous(), m[1][:hl].contiguous(), m[2][:hl].contiguous())
-    p2 = plp(M.mlp_block_partial, mp[1], mp[3])
-    res["K2/K5-tp/train rows"] = ms(lambda: M.mlp_block_partial(*mp, **p2))
-    lm = (mp[1].t().contiguous(), mp[2].to(bf), mp[3].t().contiguous())
-    res["library K2/K5-tp/train rows"] = ms(
-        lambda: Fn.linear(Fn.gelu(Fn.linear(xr, lm[0], lm[1])), lm[2]).float())
-    rr = rn(BT * F * J, C).to(bf)
-    mw = [m[0], m[1], m[2], rn(C, s=0.01), 1 + rn(C, s=0.1), rn(C, s=0.1)]
-    p5 = pl(m[0], m[2])
-    res["K5 whole/train rows"] = ms(lambda: M.mlp_block(xr, rr, *mw, 1e-6, **p5))
-    del xr, rr
-if GROUP:
-    import contextlib, os
-    import torch.nn.functional as Fn
-
-    @contextlib.contextmanager
-    def grouped(g):
-        if g:
-            os.environ["D3DP_SPATIAL_GROUP"] = str(g)
-        try:
-            yield
-        finally:
-            os.environ.pop("D3DP_SPATIAL_GROUP", None)
-
-    R, N = ROWS * F, J
-    w = [rn(C, 3 * C, s=0.05).to(bf), rn(3 * C, s=0.02), rn(C, C, s=0.05).to(bf), rn(C, s=0.02),
-         1 + rn(C, s=0.1), rn(C, s=0.1), 1 + rn(C, s=0.1), rn(C, s=0.1)]
-    st = [rn(R, N, C, s=0.5).to(bf), *w]
-    pst = pl(w[0], w[2])
-    for g in (0, 8, 15, 18):
-        with grouped(g):
-            fn = lambda: A.attention_stage(*st, HEADS, 0.125, 1e-6, **pst)
-            res[f"K1 group {g}/spatial"] = ms(fn)
-            for k, v in dev_split(fn).items():
-                res[f"K1 group {g} {k}/spatial"] = v
-    lw = [w[0].t().contiguous(), w[1].to(bf), w[2].t().contiguous(), w[3].to(bf)] + [
-        v.to(bf) for v in w[4:]]
-
-    def lib_stage():
-        x = st[0]
-        qkv = Fn.linear(Fn.layer_norm(x, (C,), lw[4], lw[5], 1e-6), lw[0], lw[1])
-        q, k, v = qkv.view(R, N, 3, HEADS, C // HEADS).permute(2, 0, 3, 1, 4).unbind(0)
-        o = Fn.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(R, N, C)
-        x2 = x + Fn.linear(o, lw[2], lw[3])
-        return x2, Fn.layer_norm(x2, (C,), lw[6], lw[7], 1e-6)
-    res["library stage/spatial"] = ms(lib_stage)
-    del st
 if MLP:
     import torch.nn.functional as Fn
     from d3dp_tpu_torch.ops import mlp as M
@@ -389,7 +265,7 @@ if BWD:
         res[name] = (time.perf_counter() - t0) * 1e3 / 10
     os.environ.pop("D3DP_TRAIN_FUSED")
     del d3dp, step
-ATTN = not (MLP or STAGE or BWD or TP or GROUP)
+ATTN = not (MLP or STAGE or BWD)
 for label, R, N in (("spatial", BT * F, J), ("temporal", BT * J, F)) if ATTN else ():
     qkv = rn(R, N, 3 * C).to(bf)
     res[f"fused_attention_qkv/{label}"] = ms(lambda: A.fused_attention_qkv(qkv, HEADS, 0.125))
@@ -417,12 +293,11 @@ for label, R, N in (("spatial", ROWS * F, J), ("temporal", ROWS * J, F)) if ATTN
     res[f"attention_stage_hm/{label}"] = ms(
         lambda: A.attention_stage_hm(*hm, HEADS, 0.125, 1e-6, **phm))
     del st, hm
-if sys.argv[2] == "1" or STAGE or GROUP:
+if sys.argv[2] == "1" or STAGE:
     # D3DP.sample at the eval config (B=4 windows, H=5, K=5, flip-TTA, depth 8,
-    # random weights from seed 0) at fuse levels 4 and 5 (with --group also
-    # at level 4 under D3DP_SPATIAL_GROUP=8), host clock around synchronised
-    # calls
-    import dataclasses, os, time
+    # random weights from seed 0) at fuse levels 4 and 5, host clock around
+    # synchronised calls
+    import dataclasses, time
     from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT
     from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
     from d3dp_tpu_torch.models import MixSTEConfig
@@ -433,19 +308,16 @@ if sys.argv[2] == "1" or STAGE or GROUP:
                            joints_left=tuple(JOINTS_LEFT), joints_right=tuple(JOINTS_RIGHT)),
                 seed=0)
     x2d, x2d_f = rn(BT, F, J, 2, s=0.3), rn(BT, F, J, 2, s=0.3)
-    for level, g in ((4, 0), (5, 0)) + (((4, 8),) if GROUP else ()):
+    for level in (4, 5):
         d3dp.model.cfg = dataclasses.replace(d3dp.model.cfg, fuse_level=level)
         times = []
-        if g:
-            os.environ["D3DP_SPATIAL_GROUP"] = str(g)
         for _ in range(4):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             d3dp.sample(x2d, x2d_f, generator=torch.Generator(device="cuda").manual_seed(3))
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        os.environ.pop("D3DP_SPATIAL_GROUP", None)
-        res[f"sample/level{level}" + (f" group {g}" if g else "")] = statistics.median(times[1:])
+        res[f"sample/level{level}"] = statistics.median(times[1:])
 print("RESULT " + json.dumps(res), flush=True)
 '''
 
@@ -467,13 +339,6 @@ def main(argv=None):
                     help="time K4 and K3 at the train shapes beside SDPA's forward and "
                          "backward, and the train step (composed, and fused at level 4) "
                          "instead")
-    ap.add_argument("--tp", action="store_true",
-                    help="time the tensor-parallel partial forms (rank 0 of tp=2, train "
-                         "shapes) beside the whole kernels and library sequences instead")
-    ap.add_argument("--group", action="store_true",
-                    help="time K1 under D3DP_SPATIAL_GROUP=8, 15, 18 and ungrouped, the "
-                         "library stage, and D3DP.sample at level 4 ungrouped and at g=8 "
-                         "instead")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
                     help="the compute dtype of every kernel, model and library call timed "
                          "(float32: the library calls with TF32 off)")
@@ -483,8 +348,7 @@ def main(argv=None):
         for tree in args.trees:
             out = subprocess.run([sys.executable, "-c", _CHILD, str(args.iters),
                                   str(int(args.sample)), str(int(args.mlp)),
-                                  str(int(args.stage)), str(int(args.bwd)), args.dtype,
-                                  str(int(args.tp)), str(int(args.group))],
+                                  str(int(args.stage)), str(int(args.bwd)), args.dtype],
                                  cwd=tree,
                                  capture_output=True, text=True, timeout=900)
             line = [x for x in out.stdout.splitlines() if x.startswith("RESULT ")]

@@ -116,20 +116,28 @@ def test_unported_stage_variants_raise(env, rng, variant):
                 assert torch.equal(got[0], tattn.attention_stage_plain(*args, 2, 0.125, 1e-6)[0])
 
 
-def test_spatial_group_and_softmax_fold_raise_where_jax_changes_the_math(env, rng):
+@pytest.mark.parametrize("g", [2, 4, 8])
+def test_spatial_group_and_softmax_fold_raise_where_jax_changes_the_math(env, rng, g):
     """D3DP_SPATIAL_GROUP=g groups a stage of N <= 32 tokens whose rows
-    divide by g (JAX `_attention_stage_fwd`): the masked stage against JAX
-    grouped (2e-5) and the ungrouped stage (1e-5); 3 rows do not group.
-    D3DP_SOFTMAX_FOLD=0 changes the bf16 order only: fp32 is the production
-    stage bit for bit, bf16 the JAX kernel's order at K1's band."""
-    arrs, args = _stage_args(rng, R=4, N=17)
+    divide by g (JAX `_attention_stage_fwd`), here into folds of 17g = 34,
+    68 and 136 tokens (past one 64-query block from g = 4): the masked stage
+    against JAX grouped (2e-5) and the ungrouped stage (1e-5), and JAX
+    grouped against the port's ungrouped plain stage (2e-5), the identity
+    under the fp32 grouped kernel, which runs each folded sequence alone
+    (JAX's -1e30 block mask gives every other key p = 0 exactly); 3 rows do
+    not group. D3DP_SOFTMAX_FOLD=0 changes the bf16 order only: fp32 is the
+    production stage bit for bit, bf16 the JAX kernel's order at K1's
+    band."""
+    arrs, args = _stage_args(rng, R=2 * g, N=17)
     ungrouped = tattn.attention_stage(*args, 2, 0.125, 1e-6)
-    env.setenv("D3DP_SPATIAL_GROUP", "2")
+    env.setenv("D3DP_SPATIAL_GROUP", str(g))
+    assert tattn.stage_config(args[0]) == ("packed", 0, g)
     want = _attention_stage_fwd(*_jax_args(arrs, jnp.float32), 2, 0.125, 1e-6, interpret=True)
     got = tattn.attention_stage(*args, 2, 0.125, 1e-6)
-    for g, w, u in zip(got, want, ungrouped):
-        _assert_close(g, w, torch.float32)
-        torch.testing.assert_close(g, u, atol=1e-5, rtol=0)
+    for gv, w, u in zip(got, want, ungrouped):
+        _assert_close(gv, w, torch.float32)
+        _assert_close(u, w, torch.float32)
+        torch.testing.assert_close(gv, u, atol=1e-5, rtol=0)
     _, odd = _stage_args(rng, R=3, N=17)
     for a, b in zip(tattn.attention_stage(*odd, 2, 0.125, 1e-6),
                     tattn.attention_stage_plain(*odd, 2, 0.125, 1e-6)):
@@ -142,28 +150,8 @@ def test_spatial_group_and_softmax_fold_raise_where_jax_changes_the_math(env, rn
     arrs16, args16 = _stage_args(rng, R=4, N=17, dtype=torch.bfloat16)
     want16 = _attention_stage_fwd(*_jax_args(arrs16, jnp.bfloat16), 2, 0.125, 1e-6,
                                   interpret=True)
-    for g, w in zip(tattn.attention_stage(*args16, 2, 0.125, 1e-6), want16):
-        _assert_close(g, w, torch.bfloat16)
-
-
-@pytest.mark.parametrize("g", [2, 4, 8])
-def test_spatial_group_folds_equal_the_ungrouped_stage(env, rng, g):
-    """The identity under the fp32 grouped kernel, which runs each folded
-    sequence alone (JAX's -1e30 block mask gives every other key p = 0
-    exactly): under D3DP_SPATIAL_GROUP=g, JAX's grouped fp32 stage in
-    interpret mode, on folds of 17g = 34, 68 and 136 tokens (past one
-    64-query block from g = 4), equals the port's ungrouped plain stage,
-    and so does the port's grouped plain stage (2e-5)."""
-    arrs, args = _stage_args(rng, R=2 * g, N=17)
-    ungrouped = tattn.attention_stage_plain(*args, 2, 0.125, 1e-6)
-    env.setenv("D3DP_SPATIAL_GROUP", str(g))
-    jax.clear_caches()
-    assert tattn.stage_config(args[0]) == ("packed", 0, g)
-    want = _attention_stage_fwd(*_jax_args(arrs, jnp.float32), 2, 0.125, 1e-6, interpret=True)
-    grouped = tattn.attention_stage(*args, 2, 0.125, 1e-6)
-    for u, gp, w in zip(ungrouped, grouped, want):
-        _assert_close(u, w, torch.float32)
-        _assert_close(gp, w, torch.float32)
+    for gv, w in zip(tattn.attention_stage(*args16, 2, 0.125, 1e-6), want16):
+        _assert_close(gv, w, torch.bfloat16)
 
 
 def test_mlp_variant_nogelu_is_other_math_and_raises(env, rng):

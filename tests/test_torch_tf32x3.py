@@ -14,7 +14,12 @@ k-step's three 8-deep products in fp32, in the kernel's order) and held
     one stage's and one MLP's products at the model's scales;
   * as the tensor-parallel partial forms split them: each rank's product
     over its share of the contraction, summed over the ranks, at the same
-    two bands at tp = 2, 4, 8.
+    two bands at tp = 2, 4, 8;
+  * under a model of the tensor cores' truncating accumulation
+    (`tf32x3_tc`), at the card tests' tensor-parallel inputs: the qkv
+    walk's promoted stages keep K1-tp inside the card's fp32 band where one
+    accumulator over K does not, and the walks that keep one accumulator
+    (the projection, fc1, fc2) stay within half of it.
 
 The weight planes the kernels read (`ops.tf32.planes`, made once per
 weight version in `MixSTE2._weights` and passed to the ops as `planes`)
@@ -31,8 +36,10 @@ import torch
 
 from d3dp_tpu_torch.models import MixSTEConfig
 from d3dp_tpu_torch.models.mixste import MixSTE2
+from d3dp_tpu_torch.ops import attention as tattn
 from d3dp_tpu_torch.ops import tf32
 from d3dp_tpu_torch.train.state import make_optimizer
+from tests.test_torch_kernels import _mlp_inputs, _stage_inputs
 from tests.test_torch_model import SMALL
 
 torch.set_num_threads(1)
@@ -177,6 +184,120 @@ def test_tf32x3_rank_partials_summed(name, tp):
                 highest = np.asarray(jnp.dot(jnp.asarray(a), jnp.asarray(b),
                                              precision=jax.lax.Precision.HIGHEST))
             np.testing.assert_allclose(total, highest, atol=2e-5, rtol=0)
+
+
+# The tensor cores' accumulation, as a model (test code only): a TF32
+# wgmma of depth 8 adds its 8 products (exact: 11-bit significands) to the
+# accumulator after aligning every term to the largest one's exponent,
+# keeping TC_BITS bits of it (24 and 3 below) and truncating the rest, and
+# normalises the sum toward zero. The qkv walk's first card run (fp32 K1-tp
+# and K8-tp at the inputs below, with every k-step added into one
+# accumulator) was 1.14e-4 off its plain version at tp = 8 and 1.58e-4 at
+# tp = 2 (each the largest over the ranks); this model gives 1.18e-4 and
+# 1.87e-4 on rank 0 there. With no bits below the 24 it gives less (6.6e-5
+# at tp = 8), with no truncation before the last rounding more (1.3e-4).
+TC_BITS = 27
+
+
+def _tc_mma(acc, x, y):
+    """acc (M, N) float32, or None for a fresh accumulator, plus x (M, 8) @
+    y (8, N) as the model adds them."""
+    p = x[:, None, :] * y.t()[None]
+    t = p if acc is None else torch.cat([acc[..., None], p], -1)
+    top = (t.abs().amax(-1, keepdim=True).view(torch.int32) & 0x7F800000).view(torch.float32)
+    ulp = torch.where(top > 0, top * 2.0 ** (1 - TC_BITS), torch.ones_like(top)).double()
+    s = torch.trunc(t.double() / ulp).sum(-1) * ulp[..., 0]
+    m, e = torch.frexp(s)
+    return torch.ldexp(torch.trunc(torch.ldexp(m, torch.full_like(e, 24))), e - 24).float()
+
+
+def tf32x3_tc(a, b, promote=False):
+    """a (M, K) @ b (K, N) in the kernels' tf32x3 order under the tensor
+    cores' accumulation (`_tc_mma`): every k-step's three wgmmas into the
+    output's accumulator, or, promote (`tf32x3_stage<true>`, the qkv
+    walk's), each 32-k stage's twelve into a fresh one, added to the output
+    in fp32."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    ah, al, bh, bl = (torch.from_numpy(t) for t in (ah, al, bh, bl))
+    d = torch.zeros(a.shape[0], b.shape[1])
+    acc = None if promote else d
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            acc = _tc_mma(acc, x[:, s], y[s])
+        if promote and (k + 8) % 32 == 0:
+            d, acc = d + acc, None
+    return (d if promote else acc).numpy()
+
+
+def _rank_cols(n_parts, width, tp, j):
+    per = width // tp
+    return np.concatenate([np.arange(p * width + j * per, p * width + (j + 1) * per)
+                           for p in range(n_parts)])
+
+
+def test_tf32x3_promoted_qkv_keeps_the_tp_stage_in_band():
+    """K1-tp on rank 0 of tp = 8 (one head) at the card test's inputs
+    (tests/test_torch_kernels.py::test_tp_partial_forms_match_plain: 64 x
+    17 unit-normal rows, weights of std 0.1, np.random.RandomState(0)):
+    LN1, the qkv product under the tensor cores' accumulation, the
+    attention in fp32, o @ Wp likewise (unpromoted, as the projection walk
+    adds), against the stage in float64. Adding every k-step into one
+    accumulator puts it past the card's fp32 band (1e-4), as on the card;
+    promoting each 32-k stage brings it back inside, below half of it."""
+    rng = np.random.RandomState(0)
+    x, wqkv, bqkv, wp, _, ln1_s, ln1_b = _stage_inputs(rng, 64, 17, 512)[:7]
+    qi, cs = _rank_cols(3, 512, 8, 0), _rank_cols(1, 512, 8, 0)
+    args = (x, wqkv[:, qi], bqkv[qi], ln1_s, ln1_b, wp[cs])
+    want = tattn.attention_stage_partial_plain(
+        *(torch.from_numpy(np.ascontiguousarray(v)).double() for v in args), 1, 0.125, 1e-6)
+    y1 = tattn.layer_norm_rows(*(torch.from_numpy(v) for v in (x, ln1_s, ln1_b)), 1e-6)
+    errs = []
+    for promote in (False, True):
+        qkv = torch.from_numpy(tf32x3_tc(y1.reshape(-1, 512).numpy(), args[1], promote))
+        qkv = (qkv + torch.from_numpy(args[2])).view(64, 17, 192)
+        o = tattn._merge(tattn._stage_attend_plain(*tattn._split(qkv, 3, 1), 0.125,
+                                                   torch.float32, 0, 0))
+        got = tf32x3_tc(o.reshape(-1, 64).numpy(), np.ascontiguousarray(args[5]))
+        errs.append(np.abs(got.reshape(want.shape) - want.numpy()).max())
+    print(f"K1-tp tp=8 rank 0: unpromoted {errs[0]:.3e}, promoted {errs[1]:.3e}")
+    assert errs[0] > 1e-4 and errs[1] <= 0.5e-4, errs
+
+
+@pytest.mark.parametrize("name", ["proj", "fc1", "fc2"])
+def test_tf32x3_unpromoted_tp_contractions_stay_in_band(name):
+    """The contractions whose walks keep one accumulator (K1-tp's and
+    K6-tp's o @ Wp over C / 2 channels; K2/K5-tp's fc1 over C and fc2 over
+    H / 2 hidden units, at tp = 2) under the tensor cores' accumulation, on
+    256 rows of the card test's inputs (o from the stage there; MLP rows
+    unit normal, weights of std 0.05): within half the card's fp32 band
+    (1e-4) of float64, and promoting stages would cut the error at least
+    fourfold."""
+    from scipy.special import erf
+
+    rng = np.random.RandomState(0)
+    s = _stage_inputs(rng, 64, 17, 512)
+    m = _mlp_inputs(rng, 64, 17, 1, 512, 1024)
+    if name == "proj":
+        x, ln1_s, ln1_b = (torch.from_numpy(v) for v in (s[0], s[5], s[6]))
+        qkv = tattn.layer_norm_rows(x, ln1_s, ln1_b, 1e-6) @ torch.from_numpy(s[1])
+        o = tattn._merge(tattn._stage_attend_plain(
+            *tattn._split((qkv + torch.from_numpy(s[2])).view(64, 17, -1), 3, 8), 0.125,
+            torch.float32, 0, 0)).reshape(-1, 512).numpy()
+        a, b = o[:256, :256], s[3][:256]
+    else:
+        xm = m[0].reshape(-1, 512)[:256]
+        if name == "fc1":
+            a, b = xm, m[2][:, :512]
+        else:
+            h = xm.astype(np.float64) @ m[2][:, :512] + m[3][:512]
+            a, b = (0.5 * h * (1 + erf(h / np.sqrt(2)))).astype(np.float32), m[4][:512]
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    errs = [np.abs(tf32x3_tc(a, b, promote) - want).max() for promote in (False, True)]
+    print(f"{name} K={a.shape[1]} |out| <= {np.abs(want).max():.2f}: unpromoted "
+          f"{errs[0]:.3e}, promoted {errs[1]:.3e}")
+    assert errs[0] <= 0.5e-4 and errs[1] <= errs[0] / 4, errs
 
 
 def _step(model, seed):
