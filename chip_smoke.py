@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --tp-depth 4   # only the tp rounding probe below
     python3 chip_smoke.py --fp32-rows    # only the fp32 tp and grouped rows
+    python3 chip_smoke.py --fp32-truth   # only phase env and phase fp32_truth
 
 Builds the hand-written kernels from `d3dp_tpu_torch/ops/csrc/`, holds each
 against its plain torch version on the card (the stage kernels also at
@@ -24,6 +25,13 @@ random weights from a fixed seed:
     (K1 also split into its three launches; K9 at depth 8) against its
     bound at the three-pass TF32 rate, the FMA figure, its plain version
     and the library calls in fp32 with TF32 off;
+  * fp32 against float64 (phase fp32_truth): each contraction of the fp32
+    walks (o @ Wp, fc1, fc2) at its whole K against its own operands
+    multiplied in float64 on the card, at the card tests' inputs and at the
+    model's depth-0 and depth-7 activations; the whole forms K1, K2 and K5
+    against their functions in float64; fp32 `D3DP.sample` at levels 4 and
+    5 on one window against tests/fp64_truth.py's sampler in float64, beside
+    the plain fp32 composition;
   * fuse level 5 (the whole trunk in one launch) against level 4, its
     kernel timed and profiled, its time split by phase from the build with
     per-phase clocks, and sampling with DDIM feature reuse;
@@ -110,6 +118,11 @@ the lab phase's grouped fp32 rows (`group_rows_fp32`) and the fp32
 prints them as one `RESULT {...}` JSON line. Copied into another checkout of the port, it
 times that checkout's kernels with the same code: run it in the parent's
 tree and the change's in turns to compare the two on one card.
+
+`--fp32-truth` runs only phase env (the build and ptxas's registers and
+spills) and phase fp32_truth, and prints the latter's readings as one
+`RESULT {...}` JSON line; copied into another checkout (with
+tests/fp64_truth.py), it reads that checkout's walks.
 """
 
 import argparse
@@ -1003,8 +1016,9 @@ def set_level(model, level):
 
 
 def phase_fuse_levels(torch, record, d3dp, x2d, x2d_f):
-    """MixSTE2 fp32, full width, depth 2: levels 0-3 and 5 against level 4
-    and against the plain path (1e-4, fp32 summation order only); then one
+    """MixSTE2 fp32, full width, depth 2, on two windows and on one (where
+    the relayouts between the stages are views): levels 0-3 and 5 against
+    level 4 and against the plain path (1e-4, fp32 summation order only); then one
     bf16 D3DP.sample at the eval config per level, its launch counts, its
     time (median of 3 CUDA-event timings after a warm-up call) and, at
     levels 0-3, its device time by kernel (level 5's: phase resident)."""
@@ -1018,21 +1032,25 @@ def phase_fuse_levels(torch, record, d3dp, x2d, x2d_f):
     xa = torch.randn(2, F, J, 2, generator=g, device="cuda") * 0.3
     xb = torch.randn(2, F, J, 3, generator=g, device="cuda")
     t = torch.tensor([999, 17], device="cuda", dtype=torch.int32)
+    errs = {}
     with torch.no_grad():
-        ref = model(xa, xb, t)
-        errs = {}
-        for level in (0, 1, 2, 3, 5):
-            set_level(model, level)
-            out = model(xa, xb, t)
-            with plain_ops():
-                plain = model(xa, xb, t)
-            torch.cuda.synchronize()
-            errs[level] = ((out - ref).abs().max().item(), (out - plain).abs().max().item())
-            ok = bool(torch.isfinite(out).all()) and max(errs[level]) <= 1e-4
-            log(f"[fuse-levels] MixSTE2 fp32 C={C} depth 2 level {level}: max|err| vs level 4 "
-                f"{errs[level][0]:.3e}, vs plain {errs[level][1]:.3e} (tol 1e-4) "
-                f"{'ok' if ok else 'FAIL'}")
-            check(ok, f"MixSTE2 at fuse level {level} disagrees with level 4 or the plain path")
+        for n in (2, 1):
+            args = (xa[:n], xb[:n], t[:n])
+            set_level(model, 4)
+            ref = model(*args)
+            for level in (0, 1, 2, 3, 5):
+                set_level(model, level)
+                out = model(*args)
+                with plain_ops():
+                    plain = model(*args)
+                torch.cuda.synchronize()
+                e = ((out - ref).abs().max().item(), (out - plain).abs().max().item())
+                errs[level if n == 2 else f"{level} one window"] = e
+                ok = bool(torch.isfinite(out).all()) and max(e) <= 1e-4
+                log(f"[fuse-levels] MixSTE2 fp32 C={C} depth 2 B={n} level {level}: max|err| vs "
+                    f"level 4 {e[0]:.3e}, vs plain {e[1]:.3e} (tol 1e-4) {'ok' if ok else 'FAIL'}")
+                check(ok, f"MixSTE2 on {n} windows at fuse level {level} disagrees with level 4 "
+                          f"or the plain path")
     del model
 
     rows = {}
@@ -1066,6 +1084,232 @@ def phase_fuse_levels(torch, record, d3dp, x2d, x2d_f):
                 f"fuse-levels-profile L{level}", top=8)
     set_level(d3dp.model, 4)
     record["fuse_levels"] = dict(model_fp32_max_abs_err=errs, sample=rows)
+
+
+def load_test_module(name):
+    """tests/<name>.py of this checkout, loaded from its file (on the chip
+    machine another `tests` package on the path shadows the repo's)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"chip_smoke_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+TRUTH_LIMIT = 0.5e-4  # a contraction's distance from float64: half the fp32 band
+TRUTH_MM = 3.1e-4  # PERF.md section 2: the modes' allowance over twice the yardstick's gap
+
+
+def log_contractions(tag, readings):
+    for name, r in readings.items():
+        log(f"[fp32-truth] {tag} {name} K={r['K']} (max|out| {r['out']:.3f}): max|kernel - "
+            f"float64| {r['kernel']:.3e}, max|plain fp32 (TF32 off) - float64| "
+            f"{r['plain']:.3e}")
+
+
+def capture_blocks(model, args, calls):
+    """The stage input h and the weights w of the model's blocks `calls` (0,
+    1: depth 0's spatial and temporal blocks; ...) in one forward on args
+    at levels 1-4."""
+    seen = []
+    block = model._block
+
+    def recorder(w, blk, h, out_norm, B):
+        seen.append((w, h))
+        return block(w, blk, h, out_norm, B)
+
+    model._block = recorder
+    try:
+        model(*args)
+    finally:
+        del model._block
+    return {i: seen[i] for i in calls}
+
+
+def phase_fp32_truth(torch, record):
+    """fp32 against float64 on the card (module docstring, fp32_truth).
+    (a) Each contraction of the fp32 walks at its whole K, read through the
+    partial forms' walks (`utils/fp32_accuracy.py`): o @ Wp (K1's, K6's,
+    K8's and K9's projection walk), fc1 and fc2 (K2's, K5's and K9's MLP
+    walk), at the card tests' inputs (tests/test_torch_kernels.py's
+    `_stage_inputs(rng, 64, 17, 512)` and `_mlp_inputs(rng, 64, 17, 1, 512,
+    1024)` from np.random.RandomState(0): 1,088 token rows) and at the
+    activations that the full-width model feeds its depth-0 and depth-7
+    blocks in one level-4 forward; the whole forms K1 (x2, y2), K2 and K5
+    at the card tests' inputs against the same functions in float64. Each
+    contraction at the card tests' inputs must sit within TRUTH_LIMIT of
+    float64, each whole form within the fp32 band (1e-4). (b) fp32
+    `D3DP.sample` at levels 4 and 5 on one window (H=5, K=5, flip-TTA,
+    injected noise) against tests/fp64_truth.py's `sample` in float64 on
+    the card, the same weights and noise, beside the plain fp32
+    composition (TF32 off): the predictions' max |diff| and the four modes'
+    gap (`fp64_truth.score`); the kernel path's must stay within twice the
+    plain composition's, the modes' within twice plus TRUTH_MM."""
+    from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT
+    from d3dp_tpu_torch.diffusion import D3DP
+    from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import mlp as M
+    from d3dp_tpu_torch.ops import resident as R
+    from d3dp_tpu_torch.utils.fp32_accuracy import contraction_errors
+
+    T = load_test_module("fp64_truth")
+    kt = load_test_module("test_torch_kernels")
+    out, fails = {}, []
+
+    def hold(ok, msg):  # every reading is printed before the phase fails
+        if not ok:
+            fails.append(msg)
+
+    # (a) the card tests' inputs
+    rng = np.random.RandomState(0)
+    s = [torch.from_numpy(v).cuda() for v in kt._stage_inputs(rng, 64, J, C)]
+    m = [torch.from_numpy(v).cuda() for v in kt._mlp_inputs(rng, 64, J, 1, C, HIDDEN)]
+    x, wqkv, bqkv, wp, bp, l1s, l1b, l2s, l2b = s
+    x64 = x.double()
+    qkv = (T.layer_norm(x64, l1s.double(), l1b.double(), 1e-6) @ wqkv.double()
+           + bqkv.double()).float()
+    card = contraction_errors(qkv, wp, m[0].view(-1, C), m[2], m[3], m[4], HEADS, 0.125)
+    log_contractions("card tests' inputs (1,088 rows)", card)
+    for name, r in card.items():
+        ok = math.isfinite(r["kernel"]) and r["kernel"] <= TRUTH_LIMIT
+        log(f"[fp32-truth] card tests' inputs {name}: limit {TRUTH_LIMIT:g} "
+            f"{'ok' if ok else 'FAIL'}")
+        hold(ok, f"fp32 {name} walk {r['kernel']:.3e} from float64 at the card tests' inputs")
+    out["card_inputs"] = card
+
+    # the whole forms there, against the same functions in float64
+    P = {"a.qkv.weight": wqkv.t().double(), "a.qkv.bias": bqkv.double(),
+         "a.proj.weight": wp.t().double(), "a.proj.bias": bp.double()}
+    x2_64 = x64 + T.attention(P, "a", T.layer_norm(x64, l1s.double(), l1b.double(), 1e-6),
+                              HEADS, 0.125)
+    y2_64 = T.layer_norm(x2_64, l2s.double(), l2b.double(), 1e-6)
+    xm, res, w1, b1, w2, b2, lns, lnb = m
+    z = res.double() + (T.gelu(xm.double() @ w1.double() + b1.double()) @ w2.double()
+                        + b2.double())
+    mlp64 = T.layer_norm(z, lns.double(), lnb.double(), 1e-6)  # (64, 17, 1, C)
+    forms = {
+        "K1 attention_stage": ((x2_64, y2_64), lambda: A.attention_stage(*s, HEADS, 0.125, 1e-6),
+                               lambda: A.attention_stage_plain(*s, HEADS, 0.125, 1e-6)),
+        "K2 mlp_block_t": ((mlp64.transpose(1, 2),), lambda: (M.mlp_block_t(*m, 1e-6),),
+                           lambda: (M.mlp_block_t_plain(*m, 1e-6),)),
+        "K5 mlp_block": ((mlp64.view(-1, C),),
+                         lambda: (M.mlp_block(xm.view(-1, C), res.view(-1, C), *m[2:], 1e-6),),
+                         lambda: (M.mlp_block_plain(xm.view(-1, C), res.view(-1, C), *m[2:],
+                                                    1e-6),))}
+    whole = {}
+    for name, (want, kernel, plain) in forms.items():
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        ek = [(g.double() - w).abs().max().item() for g, w in zip(got, want)]
+        ep = [(g.double() - w).abs().max().item() for g, w in zip(ref, want)]
+        ok = all(math.isfinite(e) and e <= TOL["float32"] for e in ek)
+        whole[name] = dict(kernel=ek, plain=ep)
+        log(f"[fp32-truth] card tests' inputs, whole form {name}: max|kernel - float64| "
+            f"{' / '.join(f'{e:.3e}' for e in ek)}, max|plain fp32 (TF32 off) - float64| "
+            f"{' / '.join(f'{e:.3e}' for e in ep)} (limit {TOL['float32']:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        hold(ok, f"fp32 {name} farther than {TOL['float32']:g} from float64")
+    out["whole_forms"] = whole
+    del s, m, x64, qkv, P, x2_64, y2_64, z, mlp64, forms
+
+    # (b)'s model and window; (a) at its activations
+    cfg = main_config(torch)
+    d3dp = D3DP(dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype=torch.float32)), seed=0)
+    perturb_(torch, d3dp.model, 1)
+    model = d3dp.model
+    rng = np.random.RandomState(21)
+    x3d = (rng.randn(1, F, J, 3) * 0.15).astype(np.float32)
+    x3d[:, :, 0] = 0.0
+    traj = (np.array([0.1, -0.1, 5.0]) + rng.randn(1, F, 1, 3) * 0.05).astype(np.float32)
+    cam = np.array([[1.1450, 1.1441, 0.0009, 0.0276, -0.2071, 0.2476, -0.0031, -0.0009,
+                     -0.0014]], dtype=np.float32)
+    perm = T.lr_perm(J, JOINTS_LEFT, JOINTS_RIGHT).cuda()
+    x2d = T.project_to_2d(T.f64(x3d + traj), T.f64(cam)).float().cuda()
+    x2d_f = T.flip_pose(x2d, perm)
+    img0 = torch.from_numpy(rng.randn(1, H, F, J, 3).astype(np.float32)).cuda()
+    steps = torch.from_numpy(rng.randn(K, 1, H, F, J, 3).astype(np.float32)).cuda()
+    gt = tuple(T.f64(v).cuda() for v in (x2d, x3d, traj, cam))
+
+    set_level(model, 4)
+    rows = 2 * H
+    args = (torch.cat([x2d.expand(H, -1, -1, -1), x2d_f.expand(H, -1, -1, -1)]),
+            torch.cat([img0[0], T.flip_pose(img0[0], perm)]).clamp(-1.1, 1.1),
+            torch.full((rows,), 999, device="cuda"))
+    acts = {}
+    sc = model.cfg.attn_scale
+    with torch.no_grad():
+        blocks = capture_blocks(model, args, (0, 1, 2 * DEPTH - 2, 2 * DEPTH - 1))
+        for i, (w, h) in blocks.items():
+            q = (T.layer_norm(h.double(), w["ln1s"].double(), w["ln1b"].double(), 1e-6)
+                 @ w["wqkv"].double() + w["bqkv"].double()).float()
+            _, y2 = A.attention_stage(h, *(w[k] for k in ("wqkv", "bqkv", "wp", "bp", "ln1s",
+                                                          "ln1b", "ln2s", "ln2b")),
+                                      HEADS, sc, 1e-6, planes=w["planes"]["stage"])
+            tag = f"{'spatial' if i % 2 == 0 else 'temporal'} depth {i // 2}"
+            acts[tag] = contraction_errors(q, w["wp"], y2.reshape(-1, C), w["w1"], w["b1"],
+                                           w["w2"], HEADS, sc)
+            log_contractions(f"model activations, {tag} ({h.shape[0] * h.shape[1]:,} rows)",
+                             acts[tag])
+            hold(all(math.isfinite(r["kernel"]) for r in acts[tag].values()),
+                 f"non-finite fp32 walk reading at the model's {tag} activations")
+    out["model_activations"] = acts
+    del args, blocks
+
+    # (b) D3DP.sample at levels 4 and 5 and the plain composition
+    truth = T.sample(T.weights64(model.state_dict()), dict(depth=DEPTH, num_heads=HEADS),
+                     x2d, x2d_f, img0, steps, perm)
+    truth_modes, truth_sel = T.score(truth, *gt)
+
+    def distance(preds):
+        """(max |diff| of the predictions, the four modes' largest gap), mm,
+        and the details: each mode's gap, the rms |diff|, the selections
+        that differ from the truth's (P-Best's a step, JPMA's a joint) and
+        the modes' gap on the truth's selections."""
+        diff = preds.double() - truth
+        diff[..., 0, :] = 0.0  # the root, zeroed before scoring
+        modes, sel = T.score(preds, *gt)
+        on_truth, _ = T.score(preds, *gt, selections=truth_sel)
+        gaps = {k: float(np.abs(modes[k] - truth_modes[k]).max() * 1e3) for k in T.MODES}
+        return diff.abs().max().item() * 1e3, max(gaps.values()), dict(
+            mode_gaps_mm=gaps, pred_rms_mm=diff.square().mean().sqrt().item() * 1e3,
+            flips={k: int((sel[k] != truth_sel[k]).sum()) for k in sel},
+            gap_truth_selections_mm=float(max(np.abs(on_truth[k] - truth_modes[k]).max()
+                                              for k in T.MODES) * 1e3))
+
+    paths, preds = {}, {}
+    for level in (4, 5):
+        set_level(model, level)
+        reset_counts()
+        preds[level] = d3dp.sample(x2d, x2d_f, noise_override=(img0, steps))
+        torch.cuda.synchronize()
+        n = (R.resident_block_stack.launches if level == 5
+             else A.attention_stage.launches + M.mlp_block_t.launches)
+        want = K if level == 5 else 2 * 2 * DEPTH * K
+        hold(n == want, f"fp32 sample at level {level}: {n} launches, expected {want}")
+        paths[f"level {level}"] = distance(preds[level])
+    set_level(model, 4)
+    with plain_ops():
+        paths["plain"] = distance(d3dp.sample(x2d, x2d_f, noise_override=(img0, steps)))
+    equal = torch.equal(preds[4], preds[5])
+    pe, pg, _ = paths["plain"]
+    for name, (e, g, more) in paths.items():
+        ok = name == "plain" or (e <= 2 * pe and g <= 2 * pg + TRUTH_MM and equal)
+        log(f"[fp32-truth] D3DP.sample B=1 H={H} K={K} F={F} fp32 flip-TTA, {name}: predictions "
+            f"max|diff| {e:.4e} mm, four modes' gap {g:.4e} mm from fp64_truth.sample"
+            + ("" if name == "plain" else f" (limits {2 * pe:.4e} mm, {2 * pg + TRUTH_MM:.4e} mm;"
+               f" level 5 equal to level 4 {equal}) {'ok' if ok else 'FAIL'}"))
+        log(f"[fp32-truth]   {name}: " + json.dumps(more))
+        hold(ok, f"fp32 sample, {name}: farther from the float64 truth than the rule allows")
+    out["sample"] = {k: dict(pred_max_mm=e, modes_gap_mm=g, **more)
+                     for k, (e, g, more) in paths.items()}
+    out["truth_modes_mm"] = {k: (v * 1e3).tolist() for k, v in truth_modes.items()}
+    record["fp32_truth"] = out
+    del d3dp, model, preds, truth
+    check(not fails, "phase fp32_truth: " + "; ".join(fails))
+    return out
 
 
 def resident_flops_bytes(x, D):
@@ -2605,11 +2849,15 @@ def lab_kernels(torch, rows, errs):
     equal the level-4 kernels under the switch bit for bit (each held above)
     and lie within one bf16 ulp (2^-7) of its plain version in relative L2;
     the depth-1 probe holds it to the band on 2 rows. Then each is timed in bf16 beside its
-    plain version (with the same options) and, where one library call
-    computes the same function, that call: for the grouped stage the
-    ungrouped library stage, for noy2 the library stage without LN2, for
-    nogelu the library MLP without GELU; none rounds like fold0, bf16exp or
-    bf16gelu. Bounds are those of the kernel the switch modifies."""
+    plain version (with the same options) and, where library calls
+    compute the same function, those: for fold0 (its softmax normalised
+    after P @ V, the same function) and the grouped stage the library stage
+    (K1, K1-dp, K8) or trunk (K9), for noy2 the library stage without LN2,
+    for bf16gelu the library MLP (F.linear, GELU on the bf16 hidden
+    activations, F.linear, the residual, layer_norm) or trunk, for nogelu
+    the library MLP or trunk without GELU; no PyTorch call computes bf16exp's
+    function (exp rounded to bf16 inside the softmax). Bounds are those of
+    the kernel the switch modifies."""
     import torch.nn.functional as Fn
     from d3dp_tpu_torch.ops import attention as A
     from d3dp_tpu_torch.ops import mlp as M
@@ -2673,7 +2921,7 @@ def lab_kernels(torch, rows, errs):
                           lambda: A.attention_stage(*a, HEADS, sc, 1e-6),
                           lambda opt=opt: A.attention_stage_plain(*a, HEADS, sc, 1e-6, opts=opt),
                           flops, nbytes - (T * C * 2 if sw == "noy2" else 0),
-                          (lambda: lib_a_x2(*la)) if sw == "noy2" else None)
+                          {"noy2": lambda: lib_a_x2(*la), "fold0": lambda: lib_a(*la)}.get(sw))
                 del got, want
             if label == "spatial":
                 la = lib_stage_args(a) if dt == bf else None
@@ -2703,9 +2951,11 @@ def lab_kernels(torch, rows, errs):
                 want = A.attention_stage_hm_plain(*hm, HEADS, sc, 1e-6, opts=A.OPT_NORM_FIRST)
                 held(name, label, dt, list(zip(got, want)),
                      all(torch.equal(g_, k_) for g_, k_ in zip(got, k1)))
+                la = lib_stage_args(a)
                 timed(name, label, a[0].shape, lambda: A.attention_stage_hm(*hm, HEADS, sc, 1e-6),
                       lambda: A.attention_stage_hm_plain(*hm, HEADS, sc, 1e-6,
-                                                         opts=A.OPT_NORM_FIRST), flops, nbytes)
+                                                         opts=A.OPT_NORM_FIRST), flops, nbytes,
+                      lambda: lib_a(*la))
                 del got, k1, want, hm
             del a, base
     for label, Rr, N in TRAIN_SHAPES:
@@ -2714,6 +2964,7 @@ def lab_kernels(torch, rows, errs):
         nbytes = 3 * T * C * 2 + 4 * C * C * 2 + 8 * C * 4 + Rr * 4
         a = stage_inputs(torch, gen, Rr, N, bf)
         dp = dp_scales(torch, gen, (Rr,))
+        la, dpb = lib_stage_args(a), dp.to(bf)
         for sw in ("fold0", "bf16exp"):
             name = f"attention_stage_dp[{sw}]"
             opt = stage_opts[sw]
@@ -2724,8 +2975,8 @@ def lab_kernels(torch, rows, errs):
             timed(name, label, a[0].shape,
                   lambda: A.attention_stage_dp(*a, dp, HEADS, sc, 1e-6),
                   lambda opt=opt: A.attention_stage_dp_plain(*a, dp, HEADS, sc, 1e-6, opts=opt),
-                  flops, nbytes)
-        del a, dp
+                  flops, nbytes, (lambda: lib_a(*la, dp=dpb)) if sw == "fold0" else None)
+        del a, dp, la, dpb
 
     gelus = {"bf16gelu": M.GELU_BF16, "nogelu": M.GELU_NONE}
     libs = {(t, act): library_mlp(torch, Fn, transpose=t, act=act)
@@ -2764,8 +3015,7 @@ def lab_kernels(torch, rows, errs):
                               lambda plain=plain, args=args, scales=scales, gelu=gelu: plain(
                                   *args, 1e-6, scales, gelu=gelu),
                               flops, nbytes + (0 if scales is None else scales.numel() * 4),
-                              (lambda lib=lib, la=la, ls=ls: lib(*la, dp=ls))
-                              if sw == "nogelu" else None)
+                              lambda lib=lib, la=la, ls=ls: lib(*la, dp=ls))
                     del got
             del a, r, dp, dpr
 
@@ -2791,7 +3041,7 @@ def lab_kernels(torch, rows, errs):
         check(ok, f"{name} differs from the level-4 kernels or from its plain version")
         errs[name] = e
         del got, chain, want
-        lib = library_trunk(torch, Fn, *full, act=False) if sw == "nogelu" else None
+        lib = None if sw == "bf16exp" else library_trunk(torch, Fn, *full, act=sw != "nogelu")
         with env_vars(LAB[name][0]):
             rows[f"{name}/trunk"] = dict(
                 shape=list(x.shape), flops=flops, bytes=nbytes,
@@ -4845,6 +5095,8 @@ def main(argv=None):
                     help="run only the tensor-parallel rounding probe at depth N")
     ap.add_argument("--fp32-rows", action="store_true",
                     help="time only the fp32 tensor-parallel and grouped K1 rows")
+    ap.add_argument("--fp32-truth", action="store_true",
+                    help="run only phase env and the fp32 walks' distance from float64")
     args = ap.parse_args(argv)
     import torch
 
@@ -4856,6 +5108,10 @@ def main(argv=None):
         return tp_depth_probe(torch, args.tp_depth)
     if args.fp32_rows:
         return fp32_rows_only(torch)
+    if args.fp32_truth:
+        phase_env(torch, {})
+        log("RESULT " + json.dumps(phase_fp32_truth(torch, {})))
+        return 0
     record = {}
     t_all = time.perf_counter()
     os.makedirs("chiprun_out", exist_ok=True)
@@ -4869,6 +5125,7 @@ def main(argv=None):
     rows = phase_timing(torch, record, d3dp, x2d, x2d_f)
     phase_profile(torch, record, d3dp, x2d, x2d_f)
     phase_fuse_levels(torch, record, d3dp, x2d, x2d_f)
+    phase_fp32_truth(torch, record)
     phase_resident(torch, record, d3dp, x2d, x2d_f, rows)
     phase_hmqkv(torch, record, d3dp, x2d, x2d_f)
     phase_call_args(torch, record, d3dp, x2d, x2d_f)

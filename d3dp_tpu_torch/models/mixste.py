@@ -170,6 +170,14 @@ def _row_parallel(x, w, b, group):
     return (reduce_from_tp(part, group) + b.float()).to(x.dtype)
 
 
+def _swap_stages(h, B):
+    """(B*D1, N, C) -> (B*N, D1, C), the other stage's layout, contiguous:
+    at B = 1 the reshape alone returns a strided view, which the kernels
+    refuse."""
+    R, N, C = h.shape
+    return h.view(B, R // B, N, C).transpose(1, 2).reshape(B * N, R // B, C).contiguous()
+
+
 def _layer_norm(norm, x):
     """LayerNorm in fp32 (statistics, parameters, and the backward's sums),
     output rounded to x's dtype, as flax's LayerNorm(dtype=...) computes."""
@@ -502,8 +510,7 @@ class MixSTE2(nn.Module):
         """The fused eval flow at cfg.fuse_level 1-5: (stream after the
         trunk, tap stream or None), both (B, F, J, C)."""
         cfg = self.cfg
-        B, Fr, J, _ = x3d.shape
-        C = cfg.embed_dim
+        B = x3d.shape[0]
         W = self._weights()
         x = self._embed(x2d, x3d, t, W, whole=True)
         if cfg.fuse_level == 5 and reuse_tap is None:
@@ -523,11 +530,11 @@ class MixSTE2(nn.Module):
             # levels 1 and 2: the relayouts as plain ops between the blocks
             def pair(i, h):
                 h = self._block(*ste[i], h, W["spatial_norm"], B)
-                h = h.view(B, Fr, J, C).transpose(1, 2).reshape(B * J, Fr, C)
+                h = _swap_stages(h, B)
                 if i == 0:
                     h = h + W["temporal_pos"]
                 h = self._block(*tte[i], h, W["temporal_norm"], B)
-                return h.view(B, J, Fr, C).transpose(1, 2).reshape(B * Fr, J, C)
+                return _swap_stages(h, B)
         return self._pairs(x, pair, reuse_tap, deep_delta)
 
     def _droppath_masks(self, name, rate, n_rows, generator, given):
@@ -571,8 +578,7 @@ class MixSTE2(nn.Module):
         where the blocks that the JAX `Block` sends to its fused path take
         `_train_block_fused`."""
         cfg = self.cfg
-        B, Fr, J, _ = x3d.shape
-        C = cfg.embed_dim
+        B = x3d.shape[0]
         rates = np.linspace(0, cfg.drop_path_rate if drop_path else 0.0, cfg.depth)
         x = self._embed(x2d, x3d, t, self._front_weights())
 
@@ -586,9 +592,7 @@ class MixSTE2(nn.Module):
                 if self.tp is not None:
                     return self._train_block_fused_tp(blocks[i], h, norm, masks, B)
                 return self._train_block_fused(blocks[i], h, norm, masks, B)
-            h = _layer_norm(norm, blocks[i](h, masks))
-            R, N, _ = h.shape
-            return h.view(B, R // B, N, C).transpose(1, 2).reshape(B * N, R // B, C)
+            return _swap_stages(_layer_norm(norm, blocks[i](h, masks)), B)
 
         def pair(i, h):
             h = block("ste", i, h, self.Spatial_norm)
@@ -633,7 +637,7 @@ class MixSTE2(nn.Module):
              norm.weight, norm.bias)
         if level <= 2:
             out = mlp.mlp_block_ad(y2.reshape(R * N, C), x2.reshape(R * N, C), *w, BLOCK_EPS)
-            return out.view(B, D1, N, C).transpose(1, 2).reshape(B * N, D1, C)
+            return _swap_stages(out.view(R, N, C), B)
         y2, x2 = y2.view(B, D1, N, C), x2.view(B, D1, N, C)
         if dp_mlp is None:
             out = mlp.mlp_block_t_ad(y2, x2, *w, BLOCK_EPS)
@@ -684,4 +688,4 @@ class MixSTE2(nn.Module):
                              dp=None if dp_mlp is None else dp_mlp.view(B, D1))
         if level >= 3:
             return out.view(B * N, D1, C)
-        return out.transpose(1, 2).reshape(B * N, D1, C)
+        return _swap_stages(out.view(R, N, C), B)

@@ -361,7 +361,8 @@ __device__ __forceinline__ void wg_row_sums(float& x, float& y, float* st, int w
 // ------------------------------------------------------- fp32: tf32x3
 // Every fp32 walk (`mlp_walk_f32` below, `ln_qkv_walk_f32` and
 // `proj_ln2_walk_f32` in stage.cuh) multiplies on wgmma in TF32, three
-// passes into one fp32 accumulator: each operand v splits into hi =
+// passes into an fp32 accumulator (qkv, o @ Wp and fc2 a fresh one each
+// 32-k stage, `tf32x3_stage<true>`): each operand v splits into hi =
 // tf32(v) and lo = tf32(v - hi) (cvt.rna: to nearest, ties away from zero;
 // v - hi is exact), and each k-step adds lo(A) hi(B), hi(A) lo(B), then
 // hi(A) hi(B), the small terms first. The dropped lo(A) lo(B) is about
@@ -450,11 +451,15 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4
 // that over K the error grows with the number of adds into D, a bias where
 // every add rounds toward zero; promoting a stage at a time cuts those adds
 // twelvefold, for 32 more registers. The qkv walk takes it: its error
-// passes through the softmax, which magnifies it by the logits' scale.
-// tests/test_torch_tf32x3.py models the accumulation on the CPU: at the
-// tensor-parallel card tests' inputs the promoted qkv keeps K1-tp inside
-// the fp32 band where one accumulator does not, and the walks that keep
-// one (the projection, fc1, fc2) stay within half of it.
+// passes through the softmax, which magnifies it by the logits' scale. So
+// do the projection walk and fc2 (chip_smoke.py, phase fp32_truth, on an
+// H100): with one accumulator, o @ Wp over K = 512 sat 9.4e-5 from float64
+// at the card tests' inputs (7.0e-6 promoted), and without fc2's promotion
+// fp32 `sample` missed its float64 truth by more than twice the plain fp32
+// composition. fc1 keeps one (2.3e-5 there): with fc2 promoted `sample`
+// meets that rule without it, and promoting fc1 too cost K9 13% (32 more
+// registers live beside fc2's 128-register accumulator).
+// tests/test_torch_tf32x3.py models the accumulation on the CPU.
 template <bool kPromote = false>
 __device__ __forceinline__ void tf32x3_stage(float (&d)[32], const float* as, int K, int k0,
                                              uint32_t box) {
@@ -870,7 +875,8 @@ __device__ __forceinline__ void mlp_walk_bf16(const MlpArgs<bf16>& a, const CUte
 // fc1, warpgroup w computes h's columns 64w.. of the chunk, + b1, the
 // activation, into the fp32 h buffer; fc2, both warpgroups add h_chunk @
 // W2[chunk, :] into their C / 2 output columns (C / 128 blocks of 64, 128
-// registers a thread at C = 512), kept across all chunks. The ring carries
+// registers a thread at C = 512), kept across all chunks, each 32-k stage
+// promoted (fc1's 32-k stages go into one accumulator). The ring carries
 // W1 stages (the chunk's 128 rows x 32 k) and W2 stages (the warpgroups'
 // 64-column blocks x 32 k of the chunk). The next tile's x loads
 // under the last chunk's fc2; the epilogue (+ b2, DropPath, + res read from
@@ -971,8 +977,8 @@ __device__ __forceinline__ void mlp_walk_f32(const MlpArgs<float>& a, const CUte
         for (int q = 0; q < 4; ++q)
           if (q < nq) {
             ring.acquire(next);
-            tf32x3_stage(*reinterpret_cast<float(*)[32]>(acc2 + 32 * q), hs, kHid, kF32K * kb,
-                         ring.slab(next) + wg * kF32Box);
+            tf32x3_stage<true>(*reinterpret_cast<float(*)[32]>(acc2 + 32 * q), hs, kHid,
+                               kF32K * kb, ring.slab(next) + wg * kF32Box);
             ring.release_upto(++next, issue);
           }
     }

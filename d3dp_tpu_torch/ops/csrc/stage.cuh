@@ -555,7 +555,8 @@ __device__ __forceinline__ void proj_ln2_walk_bf16(const ProjArgs& a, const CUte
 //     ends in a 64-column chunk: warpgroup 1 multiplies a copy of its box
 //     there and stores nothing.
 //   * proj_ln2: warpgroup w owns output columns w C / 2.. (C / 128 blocks
-//     of 64) over all of K = C, a stage per 32 k and block; the epilogue is
+//     of 64) over all of K = C, a stage per 32 k and block, each stage's
+//     products promoted (`tf32x3_stage<true>`, as ln_qkv's); the epilogue is
 //     the bf16 walk's (+ bp, DropPath, + x read from device memory, x2, LN2
 //     across both warpgroups, y2). The partial form (kPartial) takes K = C /
 //     tp and writes the raw product.
@@ -740,8 +741,8 @@ __device__ __forceinline__ void proj_ln2_walk_f32(const ProjArgsF32& a, const CU
       for (int q = 0; q < 4; ++q)
         if (q < nq) {
           ring.acquire(next);
-          tf32x3_stage(*reinterpret_cast<float(*)[32]>(acc + 32 * q), as, K, kF32K * kb,
-                       ring.slab(next) + wg * kF32Box);
+          tf32x3_stage<true>(*reinterpret_cast<float(*)[32]>(acc + 32 * q), as, K, kF32K * kb,
+                             ring.slab(next) + wg * kF32Box);
           ring.release_upto(++next, issue);
         }
     if (i + 1 < mine) {

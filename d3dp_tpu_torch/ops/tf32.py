@@ -3,8 +3,9 @@ kernels.
 
 The fp32 kernels (the stage's ln_qkv and proj_ln2 walks, the MLP walk, and
 the depth-resident kernel that inlines them: `csrc/mlp.cuh`, "fp32:
-tf32x3") multiply on the tensor cores in TF32, three passes into one fp32
-accumulator, the Hopper form of the JAX kernels' fp32 products at
+tf32x3") multiply on the tensor cores in TF32, three passes into an fp32
+accumulator (the qkv, projection and fc2 products: a fresh one each 32-k
+stage, added in fp32), the Hopper form of the JAX kernels' fp32 products at
 `Precision.HIGHEST`. Each operand v splits into hi = tf32(v) and lo =
 tf32(v - hi); the activations split inside the kernel, the weights here
 into planes in nn.Linear's own (out, in) layout, which the tensor cores

@@ -25,7 +25,9 @@ test:
   averaged over micro-batches weighted by their frames, in mm.
 
 The injected noise is the fp32 arrays the parity tests use, which float64
-holds exactly.
+holds exactly. Arrays go to the CPU; tensors stay on their device, so the
+truth also runs on a card (`chip_smoke.py`, phase fp32_truth), from a
+state_dict and inputs there.
 """
 
 import math
@@ -38,9 +40,17 @@ BLOCK_EPS, HEAD_EPS = 1e-6, 1e-5
 MODES = ("J_Best", "P_Best", "P_Agg", "J_Agg")
 
 
+def f64(a):
+    """A float64 copy of an array (on the CPU) or of a tensor (on its
+    device)."""
+    if torch.is_tensor(a):
+        return a.detach().to(F64, copy=True)
+    return torch.as_tensor(np.array(a)).to(F64)
+
+
 def weights64(state_dict):
     """{name: float64 tensor} of a state_dict (tensors or arrays)."""
-    return {k: torch.as_tensor(np.array(v)).to(F64) for k, v in state_dict.items()}
+    return {k: f64(v) for k, v in state_dict.items()}
 
 
 # ------------------------------------------------------------------- model
@@ -61,8 +71,10 @@ def gelu(x):
 def time_embedding(t, dim):
     """Sinusoidal embedding of the timesteps t (B,) -> (B, dim)."""
     half = dim // 2
-    freqs = torch.exp(torch.arange(half, dtype=F64) * -(math.log(10000.0) / (half - 1)))
-    args = torch.as_tensor(t).to(F64)[:, None] * freqs[None, :]
+    t = torch.as_tensor(t)
+    freqs = torch.exp(torch.arange(half, dtype=F64, device=t.device)
+                      * -(math.log(10000.0) / (half - 1)))
+    args = t.to(F64)[:, None] * freqs[None, :]
     return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
@@ -150,8 +162,7 @@ def sample(P, cfg, x2d, x2d_flip, img0, step_noises, perm, scale=1.0, unit_scale
     """D3DP.sample with flip-TTA on the injected noise: x2d, x2d_flip (B, F,
     J, 2), img0 (B, H, F, J, 3), step_noises (K, B, H, F, J, 3), perm the
     left/right joint swap -> every step's x_start (B, K, H, F, J, 3)."""
-    x2d, x2d_flip, img, step_noises = (torch.as_tensor(np.array(a)).to(F64)
-                                       for a in (x2d, x2d_flip, img0, step_noises))
+    x2d, x2d_flip, img, step_noises = (f64(a) for a in (x2d, x2d_flip, img0, step_noises))
     B, H, Fr, J, _ = img.shape
     K = step_noises.shape[0]
 
@@ -163,7 +174,7 @@ def sample(P, cfg, x2d, x2d_flip, img0, step_noises, perm, scale=1.0, unit_scale
     for k, c in enumerate(ddim_steps(K)):
         x = (torch.clamp(img, -1.1 * scale, 1.1 * scale) / scale).reshape(B * H, Fr, J, 3)
         x = torch.cat([x, flip_pose(x, perm)], dim=0)
-        pred = model(P, cfg, cond, x, torch.full((2 * B * H,), c["t"]))
+        pred = model(P, cfg, cond, x, torch.full((2 * B * H,), c["t"], device=x.device))
         pred_n, pred_f = pred.chunk(2, dim=0)
         pred = ((pred_n + flip_pose(pred_f, perm)) / 2).reshape(B, H, Fr, J, 3)
         x_start = torch.clamp(pred * scale, -1.1 * scale, 1.1 * scale)
@@ -196,8 +207,7 @@ def score(preds, x2d, x3d, traj, cam, selections=None):
     traj (B, F, 1, 3), cam (B, 9). The selections are P-Best's hypothesis a
     step (K,) and JPMA's per-joint hypothesis (B, K, F, J); given, they
     replace the ones these predictions would make."""
-    preds, x2d, x3d, traj, cam = (torch.as_tensor(np.array(a)).to(F64)
-                                  for a in (preds, x2d, x3d, traj, cam))
+    preds, x2d, x3d, traj, cam = (f64(a) for a in (preds, x2d, x3d, traj, cam))
     preds[..., 0, :] = 0.0
     B, K, H, Fr, J, _ = preds.shape
     err = torch.linalg.vector_norm(preds - x3d[:, None, None], dim=-1)  # (B, K, H, F, J)
@@ -213,7 +223,7 @@ def score(preds, x2d, x3d, traj, cam, selections=None):
         P_Best=per_kh.gather(1, sel["p_best"][:, None])[:, 0],
         P_Agg=torch.linalg.vector_norm(mean_pose - x3d[:, None], dim=-1).mean(dim=(0, 2, 3)),
         J_Agg=err.gather(2, sel["jpma"][:, :, None]).squeeze(2).mean(dim=(0, 2, 3)))
-    return {m: v.numpy() for m, v in modes.items()}, own
+    return {m: v.cpu().numpy() for m, v in modes.items()}, own
 
 
 # --------------------------------------------------------- the evaluator loop

@@ -2,9 +2,10 @@
 the MLP-block (K5), attention-block (K6) and packed-attention (K7) ops'
 plain versions against the Pallas kernels in interpret mode (atol 2e-5, the
 ops tolerance of tests/test_torch_ops.py), the port's MixSTE2 at fuse
-levels 0-4 against JAX's `MixSTE2(attention_impl="pallas", fuse_level=L)`
-with the same weights (atol 1e-4, tests/test_mixste.py), and the level-2
-sampler with injected noise (atol 5e-4, the DDIM replay tolerance)."""
+levels 0-5 against JAX's `MixSTE2(attention_impl="pallas", fuse_level=L)`
+with the same weights, on three windows and on one (atol 1e-4,
+tests/test_mixste.py), and the level-2 sampler and the one-window sampler at
+levels 1-2 with injected noise (atol 5e-4, the DDIM replay tolerance)."""
 
 import dataclasses
 
@@ -79,12 +80,14 @@ def test_fused_attention_plain_matches_pallas(rng, N):
     np.testing.assert_array_equal(shaped.reshape(B, N, heads * d).numpy(), got.numpy())
 
 
-@pytest.mark.parametrize("level", [0, 1, 2, 3, 4])
-def test_mixste_fuse_level_matches_jax(rng, level):
-    """Port vs JAX MixSTE2 at one fuse level, same weights, atol 1e-4."""
+@pytest.mark.parametrize("level, B", [pytest.param(level, 3, id=str(level)) for level in range(6)]
+                         + [pytest.param(level, 1, id=f"{level}-B1") for level in range(6)])
+def test_mixste_fuse_level_matches_jax(rng, level, B):
+    """Port vs JAX MixSTE2 at one fuse level, same weights, atol 1e-4, on
+    three windows and on one (at B = 1 the stage relayouts are views)."""
     jcfg = JMixSTEConfig(**SMALL, attention_impl="pallas", fuse_level=level)
     params = random_params(jcfg, seed=1)
-    B, F, J = 3, 9, 17
+    F, J = 9, 17
     x2d = rng.randn(B, F, J, 2).astype(np.float32)
     x3d = rng.randn(B, F, J, 3).astype(np.float32)
     t = rng.randint(0, 1000, (B,)).astype(np.int32)
@@ -139,5 +142,26 @@ def test_sample_level_2_matches_jax(rng):
     want = np.asarray(jd.sample({"params": params}, jax.random.PRNGKey(0), x2d, x2d_f,
                                 noise_override=(img0, steps)))
     got = td.sample(*_t(x2d, x2d_f), noise_override=(img0, steps)).numpy()
+    assert got.shape == (B, K, H, F, J, 3)
+    np.testing.assert_allclose(got, want, atol=5e-4)
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_sample_one_window_matches_jax(rng, level):
+    """One window, one hypothesis, no flip-TTA: the model sees B = 1, where
+    the relayouts between the stages are views of the stream."""
+    B, H, K, F, J = 1, 1, 3, 9, 17
+    jcfg = JMixSTEConfig(**SMALL, attention_impl="pallas", fuse_level=level)
+    params = random_params(jcfg, seed=2)
+    kw = dict(num_proposals=H, sampling_timesteps=K, flip_tta=False)
+    jd = JD3DP(JD3DPConfig(model=jcfg, **kw))
+    td = D3DP(D3DPConfig(model=MixSTEConfig(**SMALL, fuse_level=level), **kw),
+              model=port_model(params, **SMALL, fuse_level=level))
+    x2d = (rng.randn(B, F, J, 2) * 0.3).astype(np.float32)
+    img0 = rng.randn(B, H, F, J, 3).astype(np.float32)
+    steps = rng.randn(K, B, H, F, J, 3).astype(np.float32)
+    want = np.asarray(jd.sample({"params": params}, jax.random.PRNGKey(0), x2d,
+                                noise_override=(img0, steps)))
+    got = td.sample(torch.from_numpy(x2d), noise_override=(img0, steps)).numpy()
     assert got.shape == (B, K, H, F, J, 3)
     np.testing.assert_allclose(got, want, atol=5e-4)

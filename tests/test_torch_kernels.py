@@ -1286,3 +1286,24 @@ def test_fp32_resident_on_given_planes_equals_level_4_chain(np_rng):
     torch.cuda.synchronize()
     assert torch.equal(got, h)
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["proj", "fc1", "fc2"])
+def test_fp32_walks_against_float64(np_rng, name):
+    """Each contraction of the fp32 walks at its whole K (the projection's o
+    @ Wp over C = 512, fc1 over C, fc2 over H = 1024), read through the
+    partial forms' walks on the whole contraction (`utils.fp32_accuracy`),
+    at the card tests' stage and MLP inputs: within half the fp32 band
+    (0.5e-4) of the same operands multiplied in float64 on the card. TOL
+    holds each kernel to its plain fp32 version; this holds the walks'
+    accumulation to the exact product."""
+    from d3dp_tpu_torch.utils.fp32_accuracy import contraction_errors
+
+    dev = _cuda()
+    x, wqkv, bqkv, wp, _, ln1_s, ln1_b = _t(_stage_inputs(np_rng, 64, 17, 512), dev)[:7]
+    y, _, w1, b1, w2 = _t(_mlp_inputs(np_rng, 64, 17, 1, 512, 1024), dev)[:5]
+    y1 = torch.nn.functional.layer_norm(x.double(), (512,), ln1_s.double(), ln1_b.double(), 1e-6)
+    qkv = (y1 @ wqkv.double() + bqkv.double()).float()
+    r = contraction_errors(qkv, wp, y.view(-1, 512), w1, b1, w2, 8, 0.125)[name]
+    assert r["kernel"] <= 0.5e-4, r

@@ -16,10 +16,13 @@ k-step's three 8-deep products in fp32, in the kernel's order) and held
     over its share of the contraction, summed over the ranks, at the same
     two bands at tp = 2, 4, 8;
   * under a model of the tensor cores' truncating accumulation
-    (`tf32x3_tc`), at the card tests' tensor-parallel inputs: the qkv
-    walk's promoted stages keep K1-tp inside the card's fp32 band where one
-    accumulator over K does not, and the walks that keep one accumulator
-    (the projection, fc1, fc2) stay within half of it.
+    (`tf32x3_tc`), at the card tests' inputs: the qkv walk's promoted
+    stages keep K1-tp inside the card's fp32 band where one accumulator
+    over K does not; the projection's and fc2's, promoted too, stay within
+    half of it whole and partial; fc1, on one accumulator, as the card read
+    it (within half the band); the model 2-14% above the card's readings;
+  * `utils/fp32_accuracy.py`, which reads those walks against float64 on
+    the card, on the CPU: its selectors return the walks' operands exactly.
 
 The weight planes the kernels read (`ops.tf32.planes`, made once per
 weight version in `MixSTE2._weights` and passed to the ops as `planes`)
@@ -264,40 +267,99 @@ def test_tf32x3_promoted_qkv_keeps_the_tp_stage_in_band():
     assert errs[0] > 1e-4 and errs[1] <= 0.5e-4, errs
 
 
-@pytest.mark.parametrize("name", ["proj", "fc1", "fc2"])
-def test_tf32x3_unpromoted_tp_contractions_stay_in_band(name):
-    """The contractions whose walks keep one accumulator (K1-tp's and
-    K6-tp's o @ Wp over C / 2 channels; K2/K5-tp's fc1 over C and fc2 over
-    H / 2 hidden units, at tp = 2) under the tensor cores' accumulation, on
-    256 rows of the card test's inputs (o from the stage there; MLP rows
-    unit normal, weights of std 0.05): within half the card's fp32 band
-    (1e-4) of float64, and promoting stages would cut the error at least
-    fourfold."""
+# The walks that add each 32-k stage from a fresh accumulator
+# (`tf32x3_stage<true>`), whole and partial forms alike: qkv since its first
+# card run; o @ Wp, which the card read more than half the fp32 band from
+# float64 at the card tests' inputs with one accumulator over its whole K;
+# fc2, without which fp32 `sample` missed its float64 truth by more than
+# twice the plain composition (chip_smoke.py, phase fp32_truth, NVIDIA H100:
+# 1,088 rows, `utils/fp32_accuracy.py`). fc1 stays on one accumulator.
+# CARD_READ: the three readings there with one accumulator.
+PROMOTED = {"qkv", "proj", "fc2"}
+CARD_READ = {"proj": 9.44e-5, "fc1": 2.30e-5, "fc2": 4.93e-5}
+CONTRACTIONS = ([pytest.param(n, "tp", id=n) for n in ("proj", "fc1", "fc2")]
+                + [pytest.param(n, "whole", id=f"{n}-whole") for n in ("proj", "fc1", "fc2")])
+
+
+@pytest.mark.parametrize("name, form", CONTRACTIONS)
+def test_tf32x3_unpromoted_tp_contractions_stay_in_band(name, form):
+    """The projection's, fc1's and fc2's contractions under the tensor
+    cores' accumulation, on 256 rows of the card tests' inputs (o from the
+    stage there; MLP rows unit normal, weights of std 0.05), against
+    float64: at tp = 2 (K1-tp's and K6-tp's o @ Wp over C / 2 channels,
+    K2/K5-tp's fc1 over C and fc2 over H / 2 hidden units) and whole (K1's,
+    K6's, K8's and K9's o @ Wp over C = 512, K2's, K5's and K9's fc1 over C
+    and fc2 over H = 1024). Promoting stages cuts the error at least
+    fourfold; at tp = 2 even one accumulator stays within half the card's
+    fp32 band (1e-4), and every promoted contraction does, whole or
+    partial. Whole, with one accumulator the model sits at or above what
+    the card read on these inputs (1,088 rows, a superset of these 256) and
+    within 15% of it: pessimistic at these K; a contraction left on one
+    accumulator was read within half the band."""
     from scipy.special import erf
 
     rng = np.random.RandomState(0)
     s = _stage_inputs(rng, 64, 17, 512)
     m = _mlp_inputs(rng, 64, 17, 1, 512, 1024)
+    k, hid = (512, 1024) if form == "whole" else (256, 512)
     if name == "proj":
         x, ln1_s, ln1_b = (torch.from_numpy(v) for v in (s[0], s[5], s[6]))
         qkv = tattn.layer_norm_rows(x, ln1_s, ln1_b, 1e-6) @ torch.from_numpy(s[1])
         o = tattn._merge(tattn._stage_attend_plain(
             *tattn._split((qkv + torch.from_numpy(s[2])).view(64, 17, -1), 3, 8), 0.125,
             torch.float32, 0, 0)).reshape(-1, 512).numpy()
-        a, b = o[:256, :256], s[3][:256]
+        a, b = o[:256, :k], s[3][:k]
     else:
         xm = m[0].reshape(-1, 512)[:256]
         if name == "fc1":
-            a, b = xm, m[2][:, :512]
+            a, b = xm, m[2][:, :hid]
         else:
-            h = xm.astype(np.float64) @ m[2][:, :512] + m[3][:512]
-            a, b = (0.5 * h * (1 + erf(h / np.sqrt(2)))).astype(np.float32), m[4][:512]
+            h = xm.astype(np.float64) @ m[2][:, :hid] + m[3][:hid]
+            a, b = (0.5 * h * (1 + erf(h / np.sqrt(2)))).astype(np.float32), m[4][:hid]
     a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
     want = a.astype(np.float64) @ b.astype(np.float64)
     errs = [np.abs(tf32x3_tc(a, b, promote) - want).max() for promote in (False, True)]
-    print(f"{name} K={a.shape[1]} |out| <= {np.abs(want).max():.2f}: unpromoted "
+    print(f"{name} {form} K={a.shape[1]} |out| <= {np.abs(want).max():.2f}: unpromoted "
           f"{errs[0]:.3e}, promoted {errs[1]:.3e}")
-    assert errs[0] <= 0.5e-4 and errs[1] <= errs[0] / 4, errs
+    assert errs[1] <= errs[0] / 4, errs
+    if form == "tp":
+        assert errs[0] <= 0.5e-4, errs
+    else:
+        assert CARD_READ[name] <= errs[0] <= 1.15 * CARD_READ[name], errs
+    if name in PROMOTED:
+        assert errs[1] <= 0.5e-4, errs
+    else:
+        assert CARD_READ[name] <= 0.5e-4
+
+
+def test_selectors_read_the_partial_walks_operands():
+    """`utils.fp32_accuracy`, which reads the fp32 walks against float64 on
+    the card, on the CPU, where the partial forms run their plain versions:
+    on a selector they return each contraction's operand exactly (the
+    attention output, fc1's pre-activations + b1 under nogelu, the GELU
+    outputs, C hidden units a call), and the readings put the forms' fp32
+    products within fp32 rounding of float64, equal to the plain product's
+    on the same operands."""
+    import torch.nn.functional as Fn
+
+    from d3dp_tpu_torch.utils import fp32_accuracy as fa
+
+    g = torch.Generator().manual_seed(0)
+    R, N, C, H, heads = 3, 17, 128, 256, 2
+    qkv = torch.randn(R, N, 3 * C, generator=g)
+    y = torch.randn(R * N, C, generator=g)
+    wp, w1, w2 = (torch.randn(*shape, generator=g) * 0.05 for shape in ((C, C), (C, H), (H, C)))
+    b1 = torch.randn(H, generator=g) * 0.02
+    torch.testing.assert_close(fa.proj_operand(qkv, heads, 0.125),
+                               tattn.fused_attention_qkv_plain(qkv, heads, 0.125), rtol=0, atol=0)
+    torch.testing.assert_close(fa.mlp_operand(y, w1, b1, "nogelu"), y @ w1 + b1, rtol=0, atol=0)
+    torch.testing.assert_close(fa.mlp_operand(y, w1, b1), Fn.gelu(y @ w1 + b1), rtol=0, atol=0)
+    readings = fa.contraction_errors(qkv, wp, y, w1, b1, w2, heads, 0.125)
+    assert set(readings) == {"proj", "fc1", "fc2"}
+    for name, r in readings.items():
+        assert r["K"] == (H if name == "fc2" else C)
+        assert r["kernel"] <= 1e-6 * r["out"] and r["plain"] <= 1e-6 * r["out"], (name, r)
+        assert r["kernel"] == pytest.approx(r["plain"], rel=0.5, abs=1e-7), (name, r)
 
 
 def _step(model, seed):
