@@ -215,7 +215,9 @@ def build_parser(in_the_wild=False):
     parser.add_argument("--profile", default="", metavar="DIR",
                         help="write a torch.profiler Chrome trace of the first "
                              "training epoch (or the first evaluated action) "
-                             "to DIR/trace.json")
+                             "to DIR/trace.json, and the program's spans (each "
+                             "with its device ms) and counters of the same "
+                             "block to DIR/program.json")
     parser.add_argument("--synthetic-frames", type=int, default=1200,
                         help="--dataset synthetic: total frames per split")
 

@@ -9,6 +9,8 @@ device does not wait on the host's numpy work.
 import queue
 import threading
 
+from d3dp_tpu_torch.utils import profiling
+
 
 class _Stop:
     pass
@@ -51,9 +53,18 @@ class Prefetcher:
         t.start()
         try:
             while True:
-                item = q.get()
+                # the consumer's wait; a get that finds the queue empty is
+                # one the producer did not keep ahead of
+                with profiling.span("prefetch.wait"):
+                    try:
+                        item, starved = q.get_nowait(), 0
+                    except queue.Empty:
+                        item, starved = q.get(), 1
                 if item is _Stop:
                     break
+                profiling.count("prefetch.gets")
+                if starved:
+                    profiling.count("prefetch.starved")
                 yield item
         finally:
             # consumer stopped (break / exception / GC): release the worker

@@ -26,14 +26,18 @@ import torch
 from d3dp_tpu_torch.device import resolve_device
 from d3dp_tpu_torch.diffusion.schedule import CosineSchedule
 from d3dp_tpu_torch.models.mixste import MixSTE2, MixSTEConfig
+from d3dp_tpu_torch.utils import profiling
 
 
 def flip_pose(x, perm):
     """Mirror a pose: negate the x coordinate, swap left/right joints.
     x: (..., J, C); perm: (J,) index tensor. (reference:
     common/diffusionpose.py:150-153)"""
-    sign = torch.ones(x.shape[-1], dtype=x.dtype, device=x.device)
-    sign[0] = -1.0
+    # the scalar's copy into a device tensor waits for the device
+    with profiling.span("flip_pose", sync=True):
+        profiling.count("host_syncs")
+        sign = torch.ones(x.shape[-1], dtype=x.dtype, device=x.device)
+        sign[0] = -1.0
     return torch.index_select(x * sign, x.dim() - 2, perm)
 
 
@@ -123,6 +127,7 @@ class D3DP:
         x2d = torch.as_tensor(x2d, dtype=torch.float32, device=dev)
         x3d = torch.as_tensor(x3d, dtype=torch.float32, device=dev) / cfg.unit_scale
         if t_noise_override is not None:
+            profiling.count_uploads(dev, *t_noise_override)
             t = torch.as_tensor(t_noise_override[0], device=dev).long()
             noise = torch.as_tensor(t_noise_override[1], dtype=torch.float32, device=dev)
         elif generator is None:
@@ -177,6 +182,12 @@ class D3DP:
         (B,H,F,J,3) and step_noises (K,B,H,F,J,3) -- deterministic replay and
         parity tests (the last step's noise is multiplied by sigma=0).
         """
+        with profiling.span("sample", device=self.device):
+            return self._sample(x2d, x2d_flip, generator, noise_override, num_proposals,
+                                sampling_timesteps)
+
+    def _sample(self, x2d, x2d_flip, generator, noise_override, num_proposals,
+                sampling_timesteps):
         cfg = self.cfg
         H = num_proposals or cfg.num_proposals
         K = sampling_timesteps or cfg.sampling_timesteps
@@ -189,6 +200,7 @@ class D3DP:
         f32 = torch.float32
 
         if noise_override is not None:
+            profiling.count_uploads(dev, *noise_override)
             img0 = torch.as_tensor(noise_override[0], dtype=f32, device=dev)
             step_noises = torch.as_tensor(noise_override[1], dtype=f32, device=dev)
         elif generator is None:
@@ -235,27 +247,29 @@ class D3DP:
                 return False
             drift = (torch.linalg.vector_norm((img - img_ref).reshape(B * H, -1), dim=-1)
                      / (torch.linalg.vector_norm(img_ref.reshape(B * H, -1), dim=-1) + 1e-8))
+            profiling.count("host_syncs")
             return bool(drift.max() > cfg.reuse_tau)
 
         consts = self.schedule.ddim_step_constants(K, cfg.eta)
         img = img0
         preds = []
         for k in range(K):
-            c = {name: float(v[k]) for name, v in consts.items()}  # fp32 values
-            t = int(consts["t"][k])
-            if not reuse:
-                pred = denoise(img, t)
-            elif refresh(img, k):
-                pred, delta = denoise(img, t, reuse_tap=cfg.reuse_tap)
-                img_ref = img
-            else:
-                pred = denoise(img, t, reuse_tap=cfg.reuse_tap, deep_delta=delta)
-            x_start = torch.clamp(pred * scale, -1.1 * scale, 1.1 * scale)
-            if c["is_last"] > 0:
-                img = x_start
-            else:
-                pred_noise = (c["sqrt_recip_ac"] * img - x_start) / c["sqrt_recipm1_ac"]
-                img = (x_start * c["alpha_next_sqrt"] + c["c"] * pred_noise
-                       + c["sigma"] * step_noises[k])
-            preds.append(x_start)
+            with profiling.span("sample.step", unit=k, device=dev):
+                c = {name: float(v[k]) for name, v in consts.items()}  # fp32 values
+                t = int(consts["t"][k])
+                if not reuse:
+                    pred = denoise(img, t)
+                elif refresh(img, k):
+                    pred, delta = denoise(img, t, reuse_tap=cfg.reuse_tap)
+                    img_ref = img
+                else:
+                    pred = denoise(img, t, reuse_tap=cfg.reuse_tap, deep_delta=delta)
+                x_start = torch.clamp(pred * scale, -1.1 * scale, 1.1 * scale)
+                if c["is_last"] > 0:
+                    img = x_start
+                else:
+                    pred_noise = (c["sqrt_recip_ac"] * img - x_start) / c["sqrt_recipm1_ac"]
+                    img = (x_start * c["alpha_next_sqrt"] + c["c"] * pred_noise
+                           + c["sigma"] * step_noises[k])
+                preds.append(x_start)
         return torch.stack(preds, dim=1) * cfg.unit_scale

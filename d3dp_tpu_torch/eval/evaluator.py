@@ -12,6 +12,7 @@ data-parallel mesh each rank samples and scores its rows of every
 micro-batch, and the error sums are all-reduced without waiting.
 """
 
+import itertools
 import math
 from dataclasses import dataclass, field
 from typing import Optional
@@ -39,6 +40,7 @@ from d3dp_tpu_torch.metrics.procrustes_np import (
     p_mpjpe_diffusion_reproj_np,
 )
 from d3dp_tpu_torch.parallel.mesh import batch_rows, gather_rows, rank_noise
+from d3dp_tpu_torch.utils import profiling
 
 MODES = ("J_Best", "P_Best", "P_Agg", "J_Agg")
 
@@ -72,6 +74,7 @@ class RankSums:
         self.work = dist.all_reduce(self.flat, group=group, async_op=True)
 
     def __call__(self):
+        profiling.count("host_syncs")
         self.work.wait()
         out, off = {}, 0
         for m, shape in self.shapes:
@@ -104,15 +107,17 @@ class EvalResult:
 
     @staticmethod
     def _reduce(pending, sums):
-        for errors, weight in pending:
-            if callable(errors):
-                errors = errors()
-            for m, v in errors.items():
-                if isinstance(v, torch.Tensor):
-                    v = v.detach().cpu().numpy()
-                e = np.asarray(v, dtype=np.float64) * weight
-                sums[m] = sums.get(m, 0.0) + e
-        pending.clear()
+        with profiling.span("eval.read", sync=True):
+            for errors, weight in pending:
+                if callable(errors):
+                    errors = errors()
+                for m, v in errors.items():
+                    if isinstance(v, torch.Tensor):
+                        profiling.count("host_syncs")
+                        v = v.detach().cpu().numpy()
+                    e = np.asarray(v, dtype=np.float64) * weight
+                    sums[m] = sums.get(m, 0.0) + e
+            pending.clear()
         return sums
 
     def averages_mm(self):
@@ -158,6 +163,7 @@ class Evaluator:
         self.light = light
         self.quickdebug = quickdebug
         self.mesh = mesh
+        self._calls = 0  # evaluate calls: the unit of their spans
 
     def _score(self, preds, x2d, x3d, traj, cam, weights, total=None):
         """All four P1 modes of one micro-batch (P-Best only when light), and
@@ -207,6 +213,11 @@ class Evaluator:
         all windows of the first sequence, copied to the host once, after
         its last micro-batch. No metric is computed then.
         """
+        self._calls += 1
+        with profiling.span("eval.evaluate", unit=self._calls - 1):
+            return self._evaluate(generator, rng, noise_provider, return_predictions)
+
+    def _evaluate(self, generator, rng, noise_provider, return_predictions):
         result = EvalResult()
         rf, bs, dev = self.rf, self.bs, self.device
 
@@ -236,62 +247,76 @@ class Evaluator:
 
         mesh = self.mesh
         rows = slice(None) if mesh is None else batch_rows(bs, mesh)
+        units = itertools.count()
         dispatched = 0
         for cam_vec, w2d, w2d_f, w3d, traj in Prefetcher(prep(), depth=2):
             W = w2d.shape[0]
             n_batches = (W + bs - 1) // bs
             pred_parts = []
             for b in range(n_batches):
-                lo, hi = b * bs, min((b + 1) * bs, W)
-                n = hi - lo
-                pad = bs - n
+                with profiling.span("eval.microbatch", unit=next(units)):
+                    lo, hi = b * bs, min((b + 1) * bs, W)
+                    n = hi - lo
+                    pad = bs - n
 
-                def take(a):
-                    x = a[lo:hi]
-                    if pad:
-                        x = np.concatenate([x, np.repeat(x[:1], pad, 0)], 0)
-                    return torch.from_numpy(np.ascontiguousarray(x[rows])).to(dev)
+                    def take(a):
+                        x = a[lo:hi]
+                        if pad:
+                            x = np.concatenate([x, np.repeat(x[:1], pad, 0)], 0)
+                        return torch.from_numpy(np.ascontiguousarray(x[rows])).to(dev)
 
-                w = np.concatenate([np.ones(n), np.zeros(pad)]).astype(np.float32)[rows]
-                weights = torch.from_numpy(w).to(dev)
-                cams = torch.from_numpy(np.tile(cam_vec, (len(w), 1))).to(dev)
-                x2d = take(w2d)
-                noise = None
-                if noise_provider is not None:
-                    noise = provider_noise(noise_provider, n, pad, bs)
-                if mesh is not None:
-                    noise = rank_noise(self.d3dp, bs, rng, mesh, noise)
-                preds = self.d3dp.sample(x2d, take(w2d_f), generator=rng,
-                                         noise_override=noise)
-                if return_predictions:
-                    pred_parts.append(preds if mesh is not None else preds[:n])
-                    continue
-                errors, errors_p2, preds = self._score(
-                    preds, x2d, take(w3d), take(traj), cams, weights,
-                    total=None if mesh is None else torch.full((), float(n), device=dev))
-                if self.p2 and not self.p2_device:
-                    if mesh is None:
-                        errors_p2 = self._p2_host(preds[:n].cpu().numpy(), w3d[lo:hi],
-                                                  w2d[lo:hi], cam_vec, traj[lo:hi])
-                    else:
-                        errors_p2 = self._p2_host_share(preds, n, lo, rows, w3d, w2d, cam_vec,
-                                                        traj)
-                local = errors
-                if mesh is not None:
-                    errors = RankSums(errors, mesh.dp_group)
-                    errors_p2 = None if errors_p2 is None else RankSums(errors_p2, mesh.dp_group)
-                result.add(errors, errors_p2, weight=n * rf)
-                # backpressure: one sync every 16 micro-batches keeps the host
-                # from queueing unbounded device work
-                dispatched += 1
-                if dispatched % 16 == 0:
-                    float(local["P_Best"].sum())
-                if self.quickdebug:
-                    return result
+                    # every host-to-device copy of the micro-batch: each
+                    # one, from pageable memory, waits for the device
+                    with profiling.span("eval.feed", sync=True):
+                        w = np.concatenate([np.ones(n), np.zeros(pad)]).astype(np.float32)[rows]
+                        weights = torch.from_numpy(w).to(dev)
+                        cams = torch.from_numpy(np.tile(cam_vec, (len(w), 1))).to(dev)
+                        x2d, x2d_flip = take(w2d), take(w2d_f)
+                        if not return_predictions:
+                            x3d, traj_b = take(w3d), take(traj)
+                        profiling.count("host_syncs", 4 if return_predictions else 6)
+                        noise = None
+                        if noise_provider is not None:
+                            noise = provider_noise(noise_provider, n, pad, bs)
+                        if mesh is not None:
+                            noise = rank_noise(self.d3dp, bs, rng, mesh, noise)
+                    preds = self.d3dp.sample(x2d, x2d_flip, generator=rng, noise_override=noise)
+                    if return_predictions:
+                        pred_parts.append(preds if mesh is not None else preds[:n])
+                        continue
+                    with profiling.span("eval.score", device=dev):
+                        errors, errors_p2, preds = self._score(
+                            preds, x2d, x3d, traj_b, cams, weights,
+                            total=None if mesh is None else torch.full((), float(n), device=dev))
+                    if self.p2 and not self.p2_device:
+                        with profiling.span("eval.p2_host", sync=True):
+                            if mesh is None:
+                                profiling.count("host_syncs")
+                                errors_p2 = self._p2_host(preds[:n].cpu().numpy(), w3d[lo:hi],
+                                                          w2d[lo:hi], cam_vec, traj[lo:hi])
+                            else:
+                                errors_p2 = self._p2_host_share(preds, n, lo, rows, w3d, w2d,
+                                                                cam_vec, traj)
+                    local = errors
+                    if mesh is not None:
+                        errors = RankSums(errors, mesh.dp_group)
+                        errors_p2 = (None if errors_p2 is None
+                                     else RankSums(errors_p2, mesh.dp_group))
+                    result.add(errors, errors_p2, weight=n * rf)
+                    # backpressure: one sync every 16 micro-batches keeps the
+                    # host from queueing unbounded device work
+                    dispatched += 1
+                    if dispatched % 16 == 0:
+                        with profiling.span("eval.drain", sync=True):
+                            profiling.count("host_syncs")
+                            float(local["P_Best"].sum())
+                    if self.quickdebug:
+                        return result
             if return_predictions:
                 preds = (torch.cat(pred_parts) if mesh is None
                          else gather_rows(pred_parts, bs, mesh)[:W])
                 preds[..., 0, :] = 0.0  # zero root (main.py:700)
+                profiling.count("host_syncs")
                 return preds.cpu().numpy()
         return result
 
@@ -307,6 +332,7 @@ class Evaluator:
             return {"J_Best": zeros, "P_Best": torch.zeros(K, H, device=preds.device),
                     "P_Agg": zeros, "J_Agg": zeros}
         g = slice(lo + r_lo, lo + r_hi)
+        profiling.count("host_syncs", 5)  # the read of the rows and the four uploads
         e = self._p2_host(preds[:r_hi - r_lo].cpu().numpy(), w3d[g], w2d[g], cam_vec, traj[g],
                           per_hypothesis=True)
         share = (r_hi - r_lo) / n

@@ -7,11 +7,14 @@ the reference and optax's `adamw` do), lr *= lr_decay each epoch through
 the step updates them in place and returns only the loss.
 """
 
+import itertools
+
 import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
 from d3dp_tpu_torch.parallel.mesh import batch_rows
+from d3dp_tpu_torch.utils import profiling
 
 
 def make_optimizer(params, learning_rate, weight_decay=0.1):
@@ -77,19 +80,26 @@ def make_train_step(d3dp, optimizer, root_joint=0, mesh=None):
     if mesh is not None:
         return _make_dp_step(d3dp, optimizer, root_joint, mesh)
     dev = d3dp.device
+    steps = itertools.count()  # the unit of each step's spans
 
     def step(x2d, x3d, weights, generator=None, t_noise_override=None):
-        x2d = torch.as_tensor(x2d, dtype=torch.float32, device=dev)
-        x3d = torch.as_tensor(x3d, dtype=torch.float32, device=dev).clone()
-        weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
-        x3d[:, :, root_joint] = 0.0
-        pred = d3dp.train_forward(x2d, x3d, train=True, generator=generator,
-                                  t_noise_override=t_noise_override)
-        loss = weighted_mpjpe(pred, x3d, weights)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        with profiling.span("train.step", unit=next(steps), device=dev):
+            with profiling.span("train.feed", sync=True):
+                profiling.count_uploads(dev, x2d, x3d, weights)
+                x2d = torch.as_tensor(x2d, dtype=torch.float32, device=dev)
+                x3d = torch.as_tensor(x3d, dtype=torch.float32, device=dev).clone()
+                weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+                x3d[:, :, root_joint] = 0.0
+            with profiling.span("train.forward", device=dev):
+                pred = d3dp.train_forward(x2d, x3d, train=True, generator=generator,
+                                          t_noise_override=t_noise_override)
+                loss = weighted_mpjpe(pred, x3d, weights)
+            with profiling.span("train.backward", device=dev):
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with profiling.span("train.optimizer", device=dev):
+                optimizer.step()
+            return loss.detach()
 
     return step
 
@@ -98,36 +108,49 @@ def _make_dp_step(d3dp, optimizer, root_joint, mesh):
     dev = d3dp.device
     ddp = DistributedDataParallel(d3dp.model, process_group=mesh.dp_group) if mesh.dp > 1 else None
     dropping = d3dp.cfg.model.drop_path_rate > 0
+    steps = itertools.count()
 
     def step(x2d, x3d, weights, generator=None, t_noise_override=None):
-        w_global = torch.as_tensor(weights, dtype=torch.float32)
-        B = w_global.shape[0]
-        rows = batch_rows(B, mesh)
-        if t_noise_override is None:
-            if generator is None:
-                raise ValueError("the train step needs a torch.Generator or t_noise_override")
-            t, noise = d3dp.train_noise(B, generator)
-        else:
-            t, noise = (torch.as_tensor(a, device=dev) for a in t_noise_override)
-        masks = None
-        if dropping:
-            if generator is None:
-                raise ValueError("DropPath needs a torch.Generator")
-            masks = d3dp.model.draw_droppath_masks(B, generator, rows)
-        x2d = torch.as_tensor(x2d, dtype=torch.float32, device=dev)
-        x3d = torch.as_tensor(x3d, dtype=torch.float32, device=dev).clone()
-        x3d[:, :, root_joint] = 0.0
-        pred = d3dp.train_forward(x2d, x3d, train=True, t_noise_override=(t[rows], noise[rows]),
-                                  droppath_masks=masks, module=ddp)
-        # the global weight sum as a device tensor: the division is then the
-        # one-device step's, bit for bit at world size 1
-        total = torch.full((), float(w_global.sum()), device=dev)
-        loss = weighted_mpjpe(pred, x3d, w_global[rows].to(dev), total=total)
-        optimizer.zero_grad(set_to_none=True)
-        (loss * mesh.dp).backward()
-        optimizer.step()
-        loss = loss.detach().clone()
-        dist.all_reduce(loss, group=mesh.dp_group)
-        return loss
+        with profiling.span("train.step", unit=next(steps), device=dev):
+            with profiling.span("train.feed", sync=True):
+                profiling.count_uploads(dev, x2d, x3d)
+                # the weights' sum read on the host, or their rows' upload
+                profiling.count("host_syncs")
+                w_global = torch.as_tensor(weights, dtype=torch.float32)
+                B = w_global.shape[0]
+                rows = batch_rows(B, mesh)
+                x2d = torch.as_tensor(x2d, dtype=torch.float32, device=dev)
+                x3d = torch.as_tensor(x3d, dtype=torch.float32, device=dev).clone()
+                x3d[:, :, root_joint] = 0.0
+                # the global weight sum as a device tensor: the division is
+                # then the one-device step's, bit for bit at world size 1
+                total = torch.full((), float(w_global.sum()), device=dev)
+                w_rows = w_global[rows].to(dev)
+            with profiling.span("train.forward", device=dev):
+                if t_noise_override is None:
+                    if generator is None:
+                        raise ValueError("the train step needs a torch.Generator or "
+                                         "t_noise_override")
+                    t, noise = d3dp.train_noise(B, generator)
+                else:
+                    profiling.count_uploads(dev, *t_noise_override)
+                    t, noise = (torch.as_tensor(a, device=dev) for a in t_noise_override)
+                masks = None
+                if dropping:
+                    if generator is None:
+                        raise ValueError("DropPath needs a torch.Generator")
+                    masks = d3dp.model.draw_droppath_masks(B, generator, rows)
+                pred = d3dp.train_forward(x2d, x3d, train=True,
+                                          t_noise_override=(t[rows], noise[rows]),
+                                          droppath_masks=masks, module=ddp)
+                loss = weighted_mpjpe(pred, x3d, w_rows, total=total)
+            with profiling.span("train.backward", device=dev):
+                optimizer.zero_grad(set_to_none=True)
+                (loss * mesh.dp).backward()
+            with profiling.span("train.optimizer", device=dev):
+                optimizer.step()
+                loss = loss.detach().clone()
+                dist.all_reduce(loss, group=mesh.dp_group)
+            return loss
 
     return step

@@ -4,8 +4,8 @@ package's, on the CPU: the native (C++) chunk assembler behind
 run under either `--input-pipeline` value (tests/test_grain_pipeline.py's
 checks of the JAX package's grain pipeline: grain imports JAX, so the port
 keeps its one pipeline for both), `UnchunkedGeneratorSeq2Seq`, the skeleton
-adjacency helpers, `StepTimer` and the tile-generation advisory. Batches
-are compared byte for byte; the adjacency matrices exactly.
+adjacency helpers and the tile-generation advisory. Batches are compared
+byte for byte; the adjacency matrices exactly.
 """
 
 import pickle
@@ -19,7 +19,6 @@ import torch
 from d3dp_tpu.data import generators as jgen
 from d3dp_tpu.data.h36m import h36m_skeleton as j_h36m_skeleton
 from d3dp_tpu.utils import graph as jgraph
-from d3dp_tpu.utils import profiling as jprof
 from d3dp_tpu_torch.data import generators as tgen
 from d3dp_tpu_torch.data import native
 from d3dp_tpu_torch.data.h36m import h36m_skeleton
@@ -27,7 +26,6 @@ from d3dp_tpu_torch.data.prefetch import Prefetcher
 from d3dp_tpu_torch.ops import tuning
 from d3dp_tpu_torch.parallel import mesh as tmesh
 from d3dp_tpu_torch.utils import graph as tgraph
-from d3dp_tpu_torch.utils import profiling as tprof
 
 KL, KR = [4, 5, 6], [1, 2, 3]
 
@@ -206,22 +204,6 @@ def test_adjacency_matches_jax():
     assert got.shape == (32, 32) and got.dtype == np.float32
     np.testing.assert_array_equal(got, want)
     np.testing.assert_allclose(got, got.T)
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    """The same rolling window and statistics on one fake clock."""
-    ticks = [0.0, 0.5, 0.75, 1.5, 1.625, 3.0]
-    clocks = {}
-    for name, mod in (("port", tprof), ("jax", jprof)):
-        clock = iter(ticks)
-        monkeypatch.setattr(mod.time, "perf_counter", lambda c=clock: next(c))
-        timer = mod.StepTimer(window=3)
-        assert timer.stats() == {}
-        for _ in ticks:
-            timer.tick()
-        clocks[name] = (list(timer.times), timer.stats())
-    assert clocks["port"] == clocks["jax"]
-    assert clocks["port"][0] == [0.75, 0.125, 1.375]
 
 
 def test_tile_advisory_once_off_the_tuned_card(monkeypatch):
