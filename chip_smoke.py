@@ -5,6 +5,7 @@
     python3 chip_smoke.py --tp-depth 4   # only the tp rounding probe below
     python3 chip_smoke.py --fp32-rows    # only the fp32 tp and grouped rows
     python3 chip_smoke.py --fp32-truth   # only phase env and phase fp32_truth
+    python3 chip_smoke.py --linear       # only phase env, the tf32x3 linears, fp32 train steps
 
 Builds the hand-written kernels from `d3dp_tpu_torch/ops/csrc/`, holds each
 against its plain torch version on the card (the stage kernels also at
@@ -31,13 +32,18 @@ random weights from a fixed seed:
     model's depth-0 and depth-7 activations; the whole forms K1, K2 and K5
     against their functions in float64; fp32 `D3DP.sample` at levels 4 and
     5 on one window against tests/fp64_truth.py's sampler in float64, beside
-    the plain fp32 composition;
+    the plain fp32 composition; the block linears' tf32x3 GEMM
+    (`ops.linear`) at the train step's eight products and ragged row counts
+    against float64, within twice cuBLAS's fp32 error, its split kernel's
+    planes equal to `ops.tf32.planes`, each product timed beside cuBLAS and
+    its three-pass bound (`linear_rows`);
   * fuse level 5 (the whole trunk in one launch) against level 4, its
     kernel timed and profiled, its time split by phase from the build with
     per-phase clocks, and sampling with DDIM feature reuse;
   * training: the default train step (bf16 compute, fp32 AdamW at 6e-5,
     DropPath 0.1, batch 4 chunks of 243 frames from ChunkedGenerator),
-    then light validation on the trained weights;
+    then light validation on the trained weights; fp32 steps with the
+    block linears' GEMM launched 128 times a step;
   * the `D3DP_TRAIN_FUSED=1` training path: fp32 loss and gradients at
     fuse levels 1-4 against the composed path, then timed steps at level 4
     (the DropPath forms of the stage and MLP kernels, their backwards as
@@ -123,6 +129,11 @@ tree and the change's in turns to compare the two on one card.
 spills) and phase fp32_truth, and prints the latter's readings as one
 `RESULT {...}` JSON line; copied into another checkout (with
 tests/fp64_truth.py), it reads that checkout's walks.
+
+`--linear` runs only phase env, the block linears' tf32x3 GEMM rows
+(`linear_rows`) and phase train's fp32 steps (the GEMM launched 128 times a
+step, counted by `.launches` and the recorder's `linear_tf32x3`, and one
+profiled step's device time), and prints them as one `RESULT {...}` line.
 """
 
 import argparse
@@ -392,7 +403,8 @@ def phase_env(torch, record):
     # tf32x3 kernels (its query and key passes, its short tile)
     f32_keys = ("ln_qkv_walk_f32", "proj_ln2_walk_f32", "mlp_block_kernel<float",
                 "attend_f32_kernel", "attend_short_kernel<float", "resident_kernel<float",
-                "attn_bwd_query_f32", "attn_bwd_key_f32", "attn_bwd_short_f32")
+                "attn_bwd_query_f32", "attn_bwd_key_f32", "attn_bwd_short_f32",
+                "linear_tf32x3_kernel", "tf32_planes_kernel")
     for k in f32_keys:
         walks = [r for r in ptxas if k in r["kernel"]]
         check(walks, f"no fp32 {k} kernel in the ptxas output")
@@ -1100,6 +1112,14 @@ def load_test_module(name):
 
 TRUTH_LIMIT = 0.5e-4  # a contraction's distance from float64: half the fp32 band
 TRUTH_MM = 3.1e-4  # PERF.md section 2: the modes' allowance over twice the yardstick's gap
+# The composed fp32 train step's block linears on the tf32x3 GEMM
+# (`ops.linear`): (name, in, out) of each nn.Linear; its forward is x @ W^T
+# over K = in, its input gradient dY @ W over K = out, on M = 4 x 243 x 17
+# token rows (16,524 = 129 x 128 + 12: a ragged last tile), and at two
+# small ragged row counts
+LINEAR_SHAPES = (("qkv", 512, 1536), ("proj", 512, 512), ("fc1", 512, 1024),
+                 ("fc2", 1024, 512))
+LINEAR_ROWS = (BT * F * J, 17, 129)
 
 
 def log_contractions(tag, readings):
@@ -1126,6 +1146,82 @@ def capture_blocks(model, args, calls):
     finally:
         del model._block
     return {i: seen[i] for i in calls}
+
+
+def linear_rows(torch, reps=20):
+    """The tf32x3 GEMM of the block linears (`ops.linear.gemm`) at each
+    LINEAR_SHAPES product, forward (B = W, with its bias) and input
+    gradient (B = W^T), each at the LINEAR_ROWS row counts: its error from
+    float64 (max |diff| over the output's largest magnitude) against
+    cuBLAS's fp32 product on the same inputs (TF32 off: FFMA), which it must
+    not pass twice; the split kernel's planes equal `ops.tf32.planes` bit
+    for bit. Timed at the train step's rows: the GEMM, cuBLAS's product
+    (F.linear's forward, dY @ W), the three-pass bound and the FMA figure,
+    and the split of each weight into both orientations' planes."""
+    import torch.nn.functional as Fn
+
+    from d3dp_tpu_torch.ops import linear as L
+    from d3dp_tpu_torch.ops import tf32
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 products are on")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, fails = [], []
+
+    def rel(got, want):
+        return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+    for name, k_in, n_out in LINEAR_SHAPES:
+        w = torch.randn(n_out, k_in, generator=gen, device="cuda") * 0.02  # the init's std
+        bias = torch.randn(n_out, generator=gen, device="cuda") * 0.02
+        p, pt = L.split_planes(w, transposed=True)
+        equal = torch.equal(p, tf32.planes(w.t())) and torch.equal(pt, tf32.planes(w))
+        if not equal:
+            fails.append(f"{name}: the split kernel's planes differ from ops.tf32.planes")
+        split_ms = time_ms(torch, lambda: L.split_planes(w, transposed=True), reps)
+        split_bound = 1e3 * 20 * w.numel() / HBM  # 4 bytes read, 16 written a weight
+        log(f"[linear] {name} split ({n_out}x{k_in}, both orientations): {split_ms:.4f} ms, "
+            f"bound {split_bound:.4f} ms (bytes); planes equal ops.tf32.planes: {equal}")
+        for orient in ("forward", "input gradient"):
+            fwd = orient == "forward"
+            K, N = (k_in, n_out) if fwd else (n_out, k_in)
+            planes, b = (p, bias) if fwd else (pt, None)
+            B = w if fwd else w.t().contiguous()
+            for M in LINEAR_ROWS:
+                # LayerNorm-like rows forward, gradient-like rows backward
+                a = torch.randn(M, K, generator=gen, device="cuda") * (1.0 if fwd else 1e-3)
+                want = a.double() @ B.double().t() + (0 if b is None else b.double())
+                got = L.gemm(a, planes, b)
+                lib = Fn.linear(a, w, b) if fwd else a @ w
+                e_k, e_l = rel(got, want), rel(lib, want)
+                ok = e_k <= 2 * e_l
+                row = dict(name=name, orient=orient, M=M, N=N, K=K, err=e_k, cublas_err=e_l,
+                           ok=ok)
+                if M == LINEAR_ROWS[0]:
+                    flops = 2 * M * N * K
+                    row.update(
+                        ms=time_ms(torch, lambda: L.gemm(a, planes, b), reps),
+                        cublas_ms=time_ms(torch, (lambda: Fn.linear(a, w, b)) if fwd else
+                                          (lambda: a @ w), reps),
+                        bound_ms=1e3 * max(3 * flops / PEAK_TF32, 4 * (M * K + M * N) / HBM),
+                        fma_ms=1e3 * flops / PEAK_FP32_FMA, split_ms=split_ms,
+                        plain_ms=time_ms(torch, lambda: L.gemm_plain(a, planes, b), 2))
+                    row["speedup"] = row["cublas_ms"] / row["ms"]
+                    row["roofline"] = 100 * row["bound_ms"] / row["ms"]
+                    log(f"[linear] {name} {orient} M={M} N={N} K={K}: {row['ms']:.4f} ms "
+                        f"({row['roofline']:.1f}% of the three-pass bound {row['bound_ms']:.4f}"
+                        f" ms), cuBLAS fp32 {row['cublas_ms']:.4f} ms ({row['speedup']:.2f}x), "
+                        f"FMA figure {row['fma_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms")
+                log(f"[linear] {name} {orient} M={M}: error {e_k:.3e} of the output's largest,"
+                    f" cuBLAS fp32 {e_l:.3e} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fails.append(f"{name} {orient} M={M}: error {e_k:.3e} > 2 x cuBLAS {e_l:.3e}")
+                rows.append(row)
+    timed = [r for r in rows if "ms" in r]
+    total = {k: sum(r[k] for r in timed) for k in ("ms", "cublas_ms", "bound_ms")}
+    log(f"[linear] the eight products at {LINEAR_ROWS[0]} rows: {total['ms']:.3f} ms, cuBLAS "
+        f"{total['cublas_ms']:.3f} ms ({total['cublas_ms'] / total['ms']:.2f}x), bound "
+        f"{total['bound_ms']:.3f} ms ({100 * total['bound_ms'] / total['ms']:.1f}%)")
+    return dict(rows=rows, total=total), fails
 
 
 def phase_fp32_truth(torch, record):
@@ -1306,6 +1402,8 @@ def phase_fp32_truth(torch, record):
     out["sample"] = {k: dict(pred_max_mm=e, modes_gap_mm=g, **more)
                      for k, (e, g, more) in paths.items()}
     out["truth_modes_mm"] = {k: (v * 1e3).tolist() for k, v in truth_modes.items()}
+    out["linear"], linear_fails = linear_rows(torch)
+    fails += linear_fails
     record["fp32_truth"] = out
     del d3dp, model, preds, truth
     check(not fails, "phase fp32_truth: " + "; ".join(fails))
@@ -2495,7 +2593,9 @@ def train_fp32(torch, record):
     from d3dp_tpu_torch.data.synthetic import JOINTS_LEFT, JOINTS_RIGHT, make_dataset
     from d3dp_tpu_torch.diffusion import D3DP
     from d3dp_tpu_torch.ops import attention as A
+    from d3dp_tpu_torch.ops import linear as L
     from d3dp_tpu_torch.train.state import make_optimizer, make_train_step
+    from d3dp_tpu_torch.utils import profiling
 
     cfg = train_config(torch)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=torch.float32))
@@ -2511,6 +2611,7 @@ def train_fp32(torch, record):
     warm, losses = 2, []
     torch.cuda.synchronize()
     reset_counts()
+    gemms0 = L.gemm.launches
     for i in range(FP32_TRAIN_STEPS):
         if i == warm:
             torch.cuda.synchronize()
@@ -2520,23 +2621,34 @@ def train_fp32(torch, record):
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / (FP32_TRAIN_STEPS - warm)
     counts = (A.fused_attention_qkv.launches, A.fused_attention_qkv_bwd.launches)
+    gemms = L.gemm.launches - gemms0
     losses = [v.item() for v in losses]
     per_step = 2 * DEPTH
+    # the block linears on the tf32x3 GEMM: 4 a block, forward and input gradient
+    gemm_step = 2 * 4 * per_step
     finite = all(math.isfinite(v) for v in losses)
-    ok = finite and counts == (per_step * FP32_TRAIN_STEPS,) * 2
+    ok = finite and counts == (per_step * FP32_TRAIN_STEPS,) * 2 and \
+        gemms == gemm_step * FP32_TRAIN_STEPS
     log(f"[train-fp32] {FP32_TRAIN_STEPS} steps, batch {BT}x{F} frames, fp32, DropPath 0.1, "
         f"AdamW 6e-5: loss {' '.join(f'{v:.4f}' for v in losses)}, finite {finite}")
     log(f"[train-fp32] launches K3 {counts[0]} K4 {counts[1]} (expected {per_step}/step x "
-        f"{FP32_TRAIN_STEPS} = {per_step * FP32_TRAIN_STEPS} each) {'ok' if ok else 'FAIL'}")
+        f"{FP32_TRAIN_STEPS} = {per_step * FP32_TRAIN_STEPS} each), tf32x3 linears {gemms} "
+        f"(expected {gemm_step}/step x {FP32_TRAIN_STEPS} = {gemm_step * FP32_TRAIN_STEPS}) "
+        f"{'ok' if ok else 'FAIL'}")
     check(ok, "fp32 train steps: non-finite loss or launch counts")
     log(f"[train-fp32] {step_s:.4f} s/step (mean of steps {warm + 1}-{FP32_TRAIN_STEPS}, host "
         f"loop with prefetch), {BT * F / step_s:.1f} train frames/s")
+    profiling.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         step(b2d, b3d, w, generator=g)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t1) * 1e3
     batches.close()
+    counted = profiling.counters().get("linear_tf32x3", 0)
+    log(f"[train-fp32] the recorder's linear_tf32x3 counter over one profiled step: {counted} "
+        f"(expected {gemm_step}) {'ok' if counted == gemm_step else 'FAIL'}")
+    check(counted == gemm_step, "fp32 train step: the linear_tf32x3 counter")
     prof_rec = summarize_profile(torch, prof, wall_ms, "one fp32 train step", "train-fp32-profile")
     k4_ms = sum(e.self_device_time_total for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA and "attn_bwd" in e.key) / 1e3
@@ -2544,8 +2656,13 @@ def train_fp32(torch, record):
     log(f"[train-fp32] K4 device time {k4_ms:.3f} ms a step"
         + (f", {100 * k4_ms / busy:.1f}% of the busy {busy:.1f} ms" if busy else
            " (device busy time not measured)"))
+    lin_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and ("linear_tf32x3" in e.key or "tf32_planes" in e.key)) / 1e3
+    log(f"[train-fp32] tf32x3 linears and their splits: {lin_ms:.3f} ms a step")
     record["train_fp32"] = dict(step_s=step_s, losses=losses, launches=list(counts),
-                                k4_device_ms=k4_ms, profile=prof_rec)
+                                linear_tf32x3=gemms, k4_device_ms=k4_ms, linear_device_ms=lin_ms,
+                                profile=prof_rec)
 
 
 def train_fused_counts(level, depth):
@@ -5097,6 +5214,8 @@ def main(argv=None):
                     help="time only the fp32 tensor-parallel and grouped K1 rows")
     ap.add_argument("--fp32-truth", action="store_true",
                     help="run only phase env and the fp32 walks' distance from float64")
+    ap.add_argument("--linear", action="store_true",
+                    help="run only phase env, the tf32x3 linears' rows and the fp32 train steps")
     args = ap.parse_args(argv)
     import torch
 
@@ -5111,6 +5230,14 @@ def main(argv=None):
     if args.fp32_truth:
         phase_env(torch, {})
         log("RESULT " + json.dumps(phase_fp32_truth(torch, {})))
+        return 0
+    if args.linear:
+        record = {}
+        phase_env(torch, record)
+        out, fails = linear_rows(torch)
+        train_fp32(torch, record)
+        log("RESULT " + json.dumps(dict(linear=out, train_fp32=record["train_fp32"])))
+        check(not fails, "linear rows: " + "; ".join(fails))
         return 0
     record = {}
     t_all = time.perf_counter()

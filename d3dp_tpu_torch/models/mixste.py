@@ -32,7 +32,11 @@ Counterpart of d3dp_tpu/models/mixste.py `MixSTE2` with
   (`mixste.py:427-467`), with autograd: pre-LN, qkv projection, the attention
   core (`ops.attention.fused_attention_qkv_ad`, whose backward is a kernel
   too), out-projection, MLP, per-row DropPath scales, then the shared norm
-  and the spatial<->temporal relayout as plain ops.
+  and the spatial<->temporal relayout as plain ops. The block's four
+  linears (qkv, proj, fc1, fc2) go through `ops.linear.linear`: in fp32 on
+  a card their forward and input gradient run on the tf32x3 GEMM kernel
+  (also at eval level 0 and in the tp partial products, whose operands are
+  fp32), otherwise `F.linear`.
   With `D3DP_TRAIN_FUSED=1` (the JAX package's lab switch, `:406-426`) and
   fuse level >= 1, each block takes its level's fused ops through their
   autograd Functions (`*_ad`, backwards in plain ops around the attention
@@ -94,6 +98,7 @@ from torch import nn
 
 from d3dp_tpu_torch.device import resolve_device
 from d3dp_tpu_torch.ops import attention, mlp, resident, tf32
+from d3dp_tpu_torch.ops.linear import linear
 from d3dp_tpu_torch.ops.residual_ln import residual_ln_ad
 from d3dp_tpu_torch.parallel.mesh import gather_params
 from d3dp_tpu_torch.parallel.tp import copy_to_tp, reduce_from_tp
@@ -145,8 +150,9 @@ class SinusoidalPosEmb(nn.Module):
 
 
 def _linear(lin, x):
-    """nn.Linear in x's dtype: fp32 parameters cast to it (differentiably)."""
-    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+    """A block's nn.Linear in x's dtype: fp32 parameters cast to it
+    (differentiably); fp32 on a card on the tf32x3 kernel (`ops.linear`)."""
+    return linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
 
 
 def _cast_linear(lin, dt):
@@ -160,13 +166,14 @@ def _cast_named(P, name, dt):
     return P[f"{name}.weight"].to(dt), P[f"{name}.bias"].to(dt)
 
 
-def _row_parallel(x, w, b, group):
-    """F.linear(x, w, b) in x's dtype, w and b in it; under a tp `group`, w
+def _row_parallel(x, w, b, group, product=linear):
+    """product(x, w, b) in x's dtype, w and b in it; under a tp `group`, w
     holds the rank's input columns: the fp32 partial products summed over
-    the group, the bias added once, after the sum."""
+    the group, the bias added once, after the sum. product: `ops.linear`'s
+    (the blocks' proj and fc2) or F.linear (the time MLP)."""
     if group is None:
-        return F.linear(x, w, b)
-    part = F.linear(x.float(), w.float())
+        return product(x, w, b)
+    part = product(x.float(), w.float())
     return (reduce_from_tp(part, group) + b.float()).to(x.dtype)
 
 
@@ -434,7 +441,7 @@ class MixSTE2(nn.Module):
         x = F.linear(torch.cat([x2d, x3d], dim=-1).to(dt), *W["embed"])
         temb = sinusoidal_time_embedding(t, self.cfg.embed_dim).to(dt)
         temb = F.gelu(F.linear(copy_to_tp(temb, group), *W["time1"]), approximate="none")
-        temb = _row_parallel(temb, *W["time2"], group)
+        temb = _row_parallel(temb, *W["time2"], group, product=F.linear)
         x = x + W["spatial_pos"]  # (1, J, C) over (B, F, J, C)
         return x + temb[:, None, None, :]
 

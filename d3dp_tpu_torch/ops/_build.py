@@ -25,7 +25,7 @@ from d3dp_tpu_torch.ops import tuning
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("attention_stage", "attention_block", "attention_qkv", "mlp_block_t", "resident",
-           "residual_ln")
+           "residual_ln", "linear_tf32x3")
 # libraries built from one of the sources with extra flags, on demand only:
 # name -> (source, flags)
 VARIANTS = {"resident_clocks": ("resident", ("-DD3DP_PHASE_CLOCKS",))}

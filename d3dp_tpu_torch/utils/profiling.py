@@ -15,8 +15,11 @@ epoch on which the profiler stamps its host and device events, so a span
 can be laid against the device trace; each span also enters
 `record_function("d3dp." + name)`, which shows it in the exported trace.
 A span given a device records a CUDA event at entry and at exit; the
-device time between them is read only when the spans are read. Nothing
-inside the ops or the kernels' wrappers records.
+device time between them is read only when the spans are read. Inside the
+ops one counter records: `linear_tf32x3`, each launch of the block
+linears' tf32x3 GEMM (`ops.linear.gemm`), which shows how often that path
+engages (128 a composed fp32 train step at the published depth, none in
+evaluation at fuse levels 1-5). No other op or kernel wrapper records.
 """
 
 import contextlib

@@ -1307,3 +1307,93 @@ def test_fp32_walks_against_float64(np_rng, name):
     qkv = (y1 @ wqkv.double() + bqkv.double()).float()
     r = contraction_errors(qkv, wp, y.view(-1, 512), w1, b1, w2, 8, 0.125)[name]
     assert r["kernel"] <= 0.5e-4, r
+
+
+# The composed train step's block linears on the tf32x3 GEMM (`ops.linear`):
+# (in, out) of qkv, proj, fc1 and fc2; each product at the train step's
+# 16,524 token rows (a ragged last tile of 12) and at two small ragged counts
+LINEARS = {"qkv": (512, 1536), "proj": (512, 512), "fc1": (512, 1024), "fc2": (1024, 512)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("orient", ["forward", "input gradient"])
+@pytest.mark.parametrize("name", list(LINEARS))
+def test_linear_tf32x3_against_float64_and_cublas(name, orient):
+    """The GEMM's distance from float64 (max |diff| over the output's
+    largest magnitude) is at most twice cuBLAS's fp32 product's (TF32 off:
+    FFMA) on the same inputs: forward x @ W^T + b on W's planes, input
+    gradient dY @ W on W^T's."""
+    from d3dp_tpu_torch.ops import linear as L
+
+    dev = _cuda()
+    k_in, n_out = LINEARS[name]
+    g = torch.Generator(device=dev).manual_seed(k_in + n_out)
+    w = torch.randn(n_out, k_in, generator=g, device=dev) * 0.02
+    b = torch.randn(n_out, generator=g, device=dev) * 0.02
+    fwd = orient == "forward"
+    p, pt = L.split_planes(w, transposed=True)
+    K = k_in if fwd else n_out
+    for M in (16524, 17, 129):
+        a = torch.randn(M, K, generator=g, device=dev) * (1.0 if fwd else 1e-3)
+        if fwd:
+            got, lib = L.gemm(a, p, b), torch.nn.functional.linear(a, w, b)
+            want = a.double() @ w.double().t() + b.double()
+        else:
+            got, lib = L.gemm(a, pt), a @ w
+            want = a.double() @ w.double()
+        torch.cuda.synchronize()
+        err, err_lib = ((t.double() - want).abs().max() / want.abs().max() for t in (got, lib))
+        assert err <= 2 * err_lib, (M, err.item(), err_lib.item())
+
+
+@pytest.mark.gpu
+def test_split_planes_equal_tf32_planes():
+    """The split kernel's planes of W (N, K) and, in the same launch, of W^T
+    equal `ops.tf32.planes`, bit for bit, at each block linear's shape and
+    at a shape of partial 32 x 32 tiles."""
+    from d3dp_tpu_torch.ops import linear as L
+    from d3dp_tpu_torch.ops import tf32
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    for k_in, n_out in (*LINEARS.values(), (45, 70)):
+        w = torch.randn(n_out, k_in, generator=g, device=dev)
+        p, pt = L.split_planes(w, transposed=True)
+        assert torch.equal(p, tf32.planes(w.t())) and torch.equal(pt, tf32.planes(w))
+        assert torch.equal(L.split_planes(w)[0], p) and L.split_planes(w)[1] is None
+
+
+@pytest.mark.gpu
+def test_composed_fp32_step_counts_its_linears():
+    """One composed fp32 train step at the published width (depth 2): the
+    GEMM launches 4 linears x 2 (forward, input gradient) x 2 x depth
+    blocks times, counted by `.launches` and, under a profiler, by the
+    recorder's `linear_tf32x3`; a bf16 step launches none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
+    from d3dp_tpu_torch.models import MixSTEConfig
+    from d3dp_tpu_torch.ops import linear as L
+    from d3dp_tpu_torch.train.state import make_optimizer, make_train_step
+    from d3dp_tpu_torch.utils import profiling
+
+    dev = _cuda()
+    depth = 2
+    r = np.random.RandomState(0)
+    x2d = (r.randn(4, 27, 17, 2) * 0.3).astype(np.float32)
+    x3d = (r.randn(4, 27, 17, 3) * 0.3).astype(np.float32)
+    for dtype, want in ((torch.float32, 16 * depth), (torch.bfloat16, 0)):
+        cfg = MixSTEConfig(num_frames=27, embed_dim=512, depth=depth, num_heads=8,
+                           drop_path_rate=0.1, dtype=dtype)
+        td = D3DP(D3DPConfig(model=cfg), device=dev, seed=0)
+        step = make_train_step(td, make_optimizer(td.model.parameters(), 6e-5))
+        g = torch.Generator(device=dev).manual_seed(1)
+        step(x2d, x3d, np.ones(4, np.float32), generator=g)  # warm-up
+        n0 = L.gemm.launches
+        profiling.reset()
+        with profile(activities=[ProfilerActivity.CPU]):
+            loss = step(x2d, x3d, np.ones(4, np.float32), generator=g)
+        torch.cuda.synchronize()
+        assert torch.isfinite(loss)
+        assert L.gemm.launches - n0 == want
+        assert profiling.counters().get("linear_tf32x3", 0) == want

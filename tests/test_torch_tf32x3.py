@@ -487,3 +487,28 @@ def test_model_passes_the_cache_planes_to_the_ops(monkeypatch, level):
 def test_weight_cache_has_no_planes_in_bf16():
     model = MixSTE2(MixSTEConfig(**SMALL, fuse_level=4, dtype=torch.bfloat16), device="cpu")
     assert all(p is None for _, p in _carried(model._weights()))
+
+
+# The block linears' GEMM (`ops.linear`, csrc/linear_tf32x3.cu) promotes
+# every 32-k stage, at the training step's contractions: K = 512 (qkv,
+# proj, fc1 forward; proj's and fc2's input gradients), 1024 (fc2 forward,
+# fc1's input gradient), 1536 (qkv's input gradient).
+@pytest.mark.parametrize("orient", ["forward", "input gradient"])
+@pytest.mark.parametrize("K", [512, 1024, 1536])
+def test_tf32x3_gemm_promotion_holds_fp32_accuracy_over_k(K, orient):
+    """Under the tensor cores' accumulation model, 128 rows x 128 columns
+    (LayerNorm outputs times weights of the init's std forward, gradients
+    of 1e-3 times them backward): one accumulator over K drifts past twice
+    a plain fp32 product's error from float64 (the card test's limit
+    against cuBLAS), growing with K; promoting each 32-k stage keeps the
+    GEMM within it at every K."""
+    rng = np.random.RandomState(K)
+    a = _ln_rows(rng, 128, K) if orient == "forward" else \
+        (rng.randn(128, K) * 1e-3).astype(np.float32)
+    b = (rng.randn(K, 128) * 0.02).astype(np.float32)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    err_f32 = _rel((torch.from_numpy(a) @ torch.from_numpy(b)).numpy(), want)
+    one, promoted = (_rel(tf32x3_tc(a, b, p), want) for p in (False, True))
+    print(f"K={K} {orient}: one accumulator {one:.3e}, promoted {promoted:.3e}, "
+          f"fp32 {err_f32:.3e}")
+    assert promoted <= 2 * err_f32 < one, (promoted, err_f32, one)
