@@ -1,7 +1,8 @@
 """What every cell shares: the files a cell is made of, seeds, the weights
 and the synthetic poses made from a seed, and the device's description.
 
-Nothing here imports the program: loops do, inside their functions.
+Nothing here imports the program at import time: `make_program` and the
+loops do, inside their functions.
 """
 
 import hashlib
@@ -10,6 +11,7 @@ from pathlib import Path
 
 import numpy as np
 
+from port_bench.arch import architecture
 from port_bench.reference.modes import project_to_2d
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
@@ -47,36 +49,39 @@ def sub_seed(seed, *salt):
     return int.from_bytes(h[:8], "little") >> 1
 
 
+# ------------------------------------------------------------------ program
+def make_program(arch, config, device, seed, **sampling):
+    """The port's D3DP of the configuration, its denoiser configured by the
+    architecture module `arch`, its weights not yet loaded; `sampling` is
+    an eval traffic's `sampling_timesteps` and `num_proposals`."""
+    from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
+
+    d = config["diffusion"]
+    dcfg = D3DPConfig(model=arch.denoiser_config(config["model"]), timesteps=d["timesteps"],
+                      scale=d["scale"], eta=d["eta"], flip_tta=d["flip_tta"],
+                      unit_scale=d["unit_scale"], joints_left=tuple(config["joints_left"]),
+                      joints_right=tuple(config["joints_right"]), **sampling)
+    return D3DP(dcfg, device=device, seed=seed)
+
+
 # ------------------------------------------------------------------ weights
 def make_weights(torch, model_cfg, seed, device):
-    """{state_dict key: float32 tensor} of MixSTE2 from the seed, made on
-    `device` in one draw: each parameter its usual start (Linear weights
-    N(0, 0.02^2), biases and position embeddings 0, LayerNorm scales 1)
-    plus an offset N(0, 0.02^2), so no bias, embedding or LayerNorm sits
-    at its trivial value."""
-    from port_bench.reference.model import MixSTE2
-
-    with torch.device("meta"):
-        m = MixSTE2(model_cfg["num_frames"], model_cfg["num_joints"], model_cfg["embed_dim"],
-                    model_cfg["depth"], model_cfg["num_heads"], model_cfg["mlp_ratio"],
-                    model_cfg.get("in_chans", 2))
-    linear, norm = set(), set()
-    for name, mod in m.named_modules():
-        if isinstance(mod, torch.nn.Linear):
-            linear.add(f"{name}.weight")
-        elif isinstance(mod, torch.nn.LayerNorm):
-            norm.add(f"{name}.weight")
-    shapes = {k: tuple(v.shape) for k, v in m.state_dict().items()}
-    total = sum(int(np.prod(s)) for s in shapes.values())
+    """{state_dict key: float32 tensor} of the configuration's architecture
+    from the seed, made on `device` in one draw: each parameter its usual
+    start (Linear weights N(0, 0.02^2), biases and position embeddings 0,
+    LayerNorm scales 1) plus an offset N(0, 0.02^2), so no bias, embedding
+    or LayerNorm sits at its trivial value."""
+    shapes = architecture(model_cfg).parameter_shapes(model_cfg)
+    total = sum(int(np.prod(s)) for _, s, _ in shapes)
     g = torch.Generator(device=device).manual_seed(sub_seed(seed, "weights"))
     flat = torch.randn(2 * total, generator=g, device=device) * 0.02
     out, off = {}, 0
-    for k, s in shapes.items():
+    for k, s, kind in shapes:
         n = int(np.prod(s))
         w = flat[off:off + n].view(s).clone()
-        if k in linear:
+        if kind == "linear":
             w += flat[total + off:total + off + n].view(s)
-        elif k in norm:
+        elif kind == "norm":
             w += 1.0
         out[k] = w
         off += n

@@ -19,10 +19,10 @@ import time
 
 import numpy as np
 
-from port_bench.harness.common import make_dataset, sub_seed
+from port_bench.arch import architecture
+from port_bench.harness.common import make_dataset, make_program, sub_seed
 from port_bench.reference import diffusion as ref_diffusion
 from port_bench.reference import feed as ref_feed
-from port_bench.reference import model as ref_model
 from port_bench.reference.modes import four_modes
 from port_bench.reference.precision import matmul_fn
 
@@ -88,30 +88,19 @@ class Loop:
         self.traffic = run.traffic
         self.model_cfg = run.config["model"]
         self.diff = run.config["diffusion"]
+        self.arch = architecture(self.model_cfg)
 
     # ------------------------------------------------------------ set-up
     def setup(self):
         torch, run, tr, m = self.torch, self.run, self.traffic, self.model_cfg
         from d3dp_tpu_torch.data.generators import UnchunkedGenerator
-        from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
         from d3dp_tpu_torch.eval import Evaluator
-        from d3dp_tpu_torch.models import MixSTEConfig
 
         self.UnchunkedGenerator = UnchunkedGenerator
         cfg = run.config
-        mcfg = MixSTEConfig(num_frames=m["num_frames"], num_joints=m["num_joints"],
-                            in_chans=m["in_chans"], embed_dim=m["embed_dim"], depth=m["depth"],
-                            num_heads=m["num_heads"], mlp_ratio=m["mlp_ratio"],
-                            drop_path_rate=m["drop_path_rate"],
-                            dtype=getattr(torch, m["dtype"]), fuse_level=m["fuse_level"])
-        d = self.diff
-        dcfg = D3DPConfig(model=mcfg, timesteps=d["timesteps"],
-                          sampling_timesteps=tr["sampling_timesteps"],
-                          num_proposals=tr["num_proposals"], scale=d["scale"], eta=d["eta"],
-                          flip_tta=d["flip_tta"], unit_scale=d["unit_scale"],
-                          joints_left=tuple(cfg["joints_left"]),
-                          joints_right=tuple(cfg["joints_right"]))
-        d3dp = D3DP(dcfg, device=run.device, seed=sub_seed(run.seed, "model") % 2 ** 31)
+        d3dp = make_program(self.arch, cfg, run.device, sub_seed(run.seed, "model") % 2 ** 31,
+                            sampling_timesteps=tr["sampling_timesteps"],
+                            num_proposals=tr["num_proposals"])
         d3dp.model.load_state_dict(run.weights())
         run.phase("model")
         self.sampler = _Sampler(torch, d3dp, run.spans, run.marker)
@@ -220,8 +209,8 @@ class Loop:
         torch, run, tr, m = self.torch, self.run, self.traffic, self.model_cfg
         dev, dt = run.device, torch.float64
         weights = run.weights()
-        ref = ref_model.build(m, weights, dt, dev)
-        ctl = None if control is None else ref_model.build(m, weights, torch.float32, dev)
+        ref = self.arch.reference(m, weights, dt, dev)
+        ctl = None if control is None else self.arch.reference(m, weights, torch.float32, dev)
         mm_units = 1000.0 / self.diff["unit_scale"]
         cfg = run.config
         pred_gap = modes_gap = score_gap = 0.0

@@ -19,9 +19,9 @@ import time
 
 import numpy as np
 
-from port_bench.harness.common import make_dataset, sub_seed
+from port_bench.arch import architecture
+from port_bench.harness.common import make_dataset, make_program, sub_seed
 from port_bench.reference import feed as ref_feed
-from port_bench.reference import model as ref_model
 from port_bench.reference import train as ref_train
 from port_bench.reference.precision import matmul_fn
 
@@ -45,27 +45,17 @@ class Loop:
         self.traffic = run.traffic
         self.model_cfg = run.config["model"]
         self.diff = run.config["diffusion"]
+        self.arch = architecture(self.model_cfg)
 
     def setup(self):
         torch, run, tr, m, cfg = self.torch, self.run, self.traffic, self.model_cfg, self.run.config
         from d3dp_tpu_torch.data.generators import ChunkedGenerator
         from d3dp_tpu_torch.data.prefetch import Prefetcher
-        from d3dp_tpu_torch.diffusion import D3DP, D3DPConfig
-        from d3dp_tpu_torch.models import MixSTEConfig
         from d3dp_tpu_torch.train.state import make_optimizer, make_train_step
 
         self.Prefetcher = Prefetcher
-        mcfg = MixSTEConfig(num_frames=m["num_frames"], num_joints=m["num_joints"],
-                            in_chans=m["in_chans"], embed_dim=m["embed_dim"], depth=m["depth"],
-                            num_heads=m["num_heads"], mlp_ratio=m["mlp_ratio"],
-                            drop_path_rate=m["drop_path_rate"],
-                            dtype=getattr(torch, m["dtype"]), fuse_level=m["fuse_level"])
-        d = self.diff
-        dcfg = D3DPConfig(model=mcfg, timesteps=d["timesteps"], scale=d["scale"],
-                          unit_scale=d["unit_scale"], flip_tta=d["flip_tta"],
-                          joints_left=tuple(cfg["joints_left"]),
-                          joints_right=tuple(cfg["joints_right"]))
-        self.d3dp = D3DP(dcfg, device=run.device, seed=sub_seed(run.seed, "model") % 2 ** 31)
+        self.d3dp = make_program(self.arch, cfg, run.device,
+                                 sub_seed(run.seed, "model") % 2 ** 31)
         self.d3dp.model.load_state_dict(run.weights())
         self.opt = make_optimizer(self.d3dp.model.parameters(), tr["learning_rate"],
                                   weight_decay=tr["weight_decay"])
@@ -171,11 +161,11 @@ class Loop:
         batches = ref_feed.train_batches(
             self.data[1], self.data[2], m["num_frames"], B, self.shuffle_seed, tr["augment"],
             (cfg["kps_left"], cfg["kps_right"]), (cfg["joints_left"], cfg["joints_right"]), n)
-        draws = [ref_train.draws(s, dev, B, m, self.diff["timesteps"]) for s in self.states]
+        draws = [self.arch.step_draws(s, dev, B, m, self.diff["timesteps"]) for s in self.states]
 
         def trained(dt, mm=torch.matmul, keep_rows=None):
             weights = run.weights()
-            model = ref_model.build(m, weights, dt, dev)
+            model = self.arch.reference(m, weights, dt, dev)
             tb = [tuple(torch.from_numpy(a).to(dev) for a in b) for b in batches]
             losses, grads, params = ref_train.run_steps(
                 model, tb, draws, self.diff, tr["learning_rate"], tr["weight_decay"],

@@ -3,9 +3,11 @@ MLP block (ops/csrc/mlp_block_t.cu, one launch a call) over the summed
 device time of its launches. A call on T tokens of width C and hidden
 width Hd computes fc1 and fc2 (4*T*C*Hd); it reads y2 and x2 and writes
 its output (3*T*C elements), reads both weight matrices (2*C*Hd) and the
-fp32 vectors (Hd + 3*C).
+fp32 vectors (Hd + 3*C). A forward makes one call a block, spatial or
+temporal, of the architecture's `blocks` (port_bench/arch/).
 """
 
+from port_bench.arch import architecture
 from port_bench.harness.kernels import by_prefix
 from port_bench.harness.peaks import ITEMSIZE, bound_s
 
@@ -24,7 +26,7 @@ def read(ctx):
     if ctx.trace is None:
         return None
     m, K = ctx.config["model"], ctx.traffic["sampling_timesteps"]
-    calls = ctx.counts["sample_calls"] * 2 * m["depth"] * K
+    calls = ctx.counts["sample_calls"] * sum(architecture(m).blocks(m)) * K
     times = by_prefix(ctx.trace.ops, ("mlp_block_kernel",))["mlp_block_kernel"]
     if calls == 0 or len(times) != calls:
         return None

@@ -4,9 +4,11 @@ the summed device time of its launches. A call on R sequences of N tokens
 (T = R*N) of width C recomputes S and forms dV, dP, dQ and dK (10*T*N*C);
 it reads qkv and dO and writes dqkv (7*T*C elements). fp32 runs two
 launches a call above 32 keys (the query and the key pass), one at 32 or
-fewer; bf16 one.
+fewer; bf16 one. A step makes one call a block, spatial or temporal, of
+the architecture's `blocks` (port_bench/arch/).
 """
 
+from port_bench.arch import architecture
 from port_bench.harness.kernels import by_prefix
 from port_bench.harness.peaks import ITEMSIZE, bound_s
 
@@ -20,12 +22,12 @@ def launches(N, dtype):
     return 2 if dtype == "float32" and N > 32 else 1
 
 
-def step_bound_s(batch, frames, joints, C, depth, dtype):
-    """Least seconds of one step's K4 calls: depth spatial (batch*frames
-    sequences of `joints`) and depth temporal (batch*joints of `frames`)."""
+def step_bound_s(batch, frames, joints, C, spatial, temporal, dtype):
+    """Least seconds of one step's K4 calls: `spatial` on batch*frames
+    sequences of `joints`, `temporal` on batch*joints of `frames`."""
     item = ITEMSIZE[dtype]
-    return depth * (bound_s(*flops_bytes(batch * frames, joints, C, item), dtype)
-                    + bound_s(*flops_bytes(batch * joints, frames, C, item), dtype))
+    return (spatial * bound_s(*flops_bytes(batch * frames, joints, C, item), dtype)
+            + temporal * bound_s(*flops_bytes(batch * joints, frames, C, item), dtype))
 
 
 def read(ctx):
@@ -34,9 +36,11 @@ def read(ctx):
     m, dt = ctx.config["model"], ctx.dtype
     steps = ctx.counts["steps"]
     times = by_prefix(ctx.trace.ops, ("attn_bwd_",))["attn_bwd_"]
-    want = steps * m["depth"] * (launches(m["num_joints"], dt) + launches(m["num_frames"], dt))
+    spatial, temporal = architecture(m).blocks(m)
+    want = steps * (spatial * launches(m["num_joints"], dt)
+                    + temporal * launches(m["num_frames"], dt))
     if steps == 0 or len(times) != want:
         return None
     bound = steps * step_bound_s(ctx.counts["batch"], m["num_frames"], m["num_joints"],
-                                 m["embed_dim"], m["depth"], dt)
+                                 m["embed_dim"], spatial, temporal, dt)
     return 100.0 * bound / sum(times)

@@ -62,7 +62,7 @@ def sample(model, x2d, x2d_flip, img0, step_noises, diff, joints_left, joints_ri
     unit_scale, eta, flip_tta). Returns (B, K, H, F, J, 3) in the model's
     dtype and the dataset's units.
     """
-    dt = model.Spatial_pos_embed.dtype
+    dt = next(model.parameters()).dtype
     B, H = img0.shape[:2]
     K = step_noises.shape[0]
     scale = diff["scale"]

@@ -10,6 +10,7 @@ import sys
 import pytest
 import torch
 
+from port_bench.arch import architecture
 from port_bench.harness import common
 from port_bench.harness.peaks import bound_s
 from port_bench.harness.trace import TraceData
@@ -43,7 +44,7 @@ def test_bounds_reproduce_the_kernel_table():
         got = (ms(bound_s(*k4.flops_bytes(4 * 243, 17, 512, item), dt)),
                ms(bound_s(*k4.flops_bytes(4 * 17, 243, 512, item), dt)))
         assert got == want
-    assert ms(k4.step_bound_s(4, 243, 17, 512, 8, "float32")) == pytest.approx(
+    assert ms(k4.step_bound_s(4, 243, 17, 512, 8, 8, "float32")) == pytest.approx(
         8 * (0.0707 + 0.1246), abs=1e-3)
 
 
@@ -51,10 +52,9 @@ def test_forward_operations():
     """59 TFLOP a `sample` at the eval config (40 rows, K = 5) and 3.5 TFLOP
     a training step (3 x the forward of 4 chunks)."""
     m = common.load_json(common.BENCH_DIR / "configs" / "d3dp_h36m_fp32.json")["model"]
-    ev, tr = reader("mfu.eval"), reader("mfu.train")
-    assert 40 * 5 * ev.forward_flops(m) == pytest.approx(59.3e12, rel=0.01)
-    assert 3 * 4 * tr.forward_flops(m) == pytest.approx(3.56e12, rel=0.01)
-    assert ev.forward_flops(m) == tr.forward_flops(m)
+    forward_flops = architecture(m).forward_flops
+    assert 40 * 5 * forward_flops(m) == pytest.approx(59.3e12, rel=0.01)
+    assert 3 * 4 * forward_flops(m) == pytest.approx(3.56e12, rel=0.01)
 
 
 class _Run:
@@ -176,7 +176,8 @@ def test_no_jax_and_an_independent_reference():
     or d3dp_tpu; the reference imports nothing of the program."""
     ref = _imports("import json, sys, port_bench.reference.model, port_bench.reference.diffusion,"
                    " port_bench.reference.modes, port_bench.reference.feed,"
-                   " port_bench.reference.train, port_bench.reference.precision;"
+                   " port_bench.reference.train, port_bench.reference.precision,"
+                   " port_bench.arch.mixste2;"
                    " print(json.dumps(sorted({n.split('.')[0] for n in sys.modules})))")
     assert not {"d3dp_tpu_torch", "d3dp_tpu", "jax", "jaxlib", "flax"} & set(ref)
     code = ("import json, sys; sys.path.insert(0, 'port_bench/tests');"
